@@ -1,0 +1,153 @@
+"""GPT-2, decoder-only causal LM (counterpart of
+``singa_tpu/models/gpt2.py``): the configuration, the trunk and the LM
+head with its training step.  Sampling (``generate``) and serving are
+not ported yet.
+
+At ``n_positions >= 1024`` the configuration picks ``attn_impl="flash"``,
+so every block's attention runs through the flash kernels
+(``ops/flash_attention.py``): one forward launch per block per step and
+one dQ and one dK/dV launch per block in the backward.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from .. import autograd, layer, model
+from ..parallel.tensor_parallel import (ParallelTransformerBlock,
+                                        VocabParallelEmbedding)
+
+__all__ = ["GPT2Config", "GPT2Model", "GPT2LMHead"]
+
+
+class GPT2Config:
+    def __init__(self, vocab_size=50257, n_positions=1024, n_embd=768,
+                 n_layer=12, n_head=12, n_inner=None, dropout=0.1,
+                 layer_norm_eps=1e-5, tie_weights=True, moe_every=None,
+                 remat=False, attn_impl="auto", n_kv_head=None,
+                 attn_window=None):
+        self.vocab_size = vocab_size
+        self.n_positions = n_positions
+        self.n_embd = n_embd
+        self.n_layer = n_layer
+        self.n_head = n_head
+        self.n_kv_head = int(n_kv_head or n_head)
+        if n_head % self.n_kv_head != 0:
+            raise ValueError(f"n_head {n_head} not divisible by "
+                             f"n_kv_head {self.n_kv_head}")
+        self.attn_window = None if attn_window is None else int(attn_window)
+        if self.attn_window is not None and self.attn_window < 1:
+            raise ValueError(f"attn_window must be >= 1, "
+                             f"got {attn_window}")
+        self.n_inner = n_inner or 4 * n_embd
+        self.dropout = dropout
+        self.layer_norm_eps = layer_norm_eps
+        self.tie_weights = tie_weights
+        # MoE blocks are not ported yet: GPT2Model raises for moe_every
+        self.moe_every = moe_every
+        self.remat = remat
+        # "fused": (S, S) scores in memory; "flash": the flash kernels,
+        # O(S·D) memory.  "auto" keeps the JAX package's rule (its
+        # crossover was measured on a TPU and is not re-measured here).
+        if attn_impl == "auto":
+            attn_impl = "flash" if n_positions >= 1024 else "fused"
+        self.attn_impl = attn_impl
+
+    @classmethod
+    def small(cls, **kw):
+        """GPT-2 small (124M)."""
+        return cls(**kw)
+
+    @classmethod
+    def medium(cls, **kw):
+        kw.setdefault("n_embd", 1024)
+        kw.setdefault("n_layer", 24)
+        kw.setdefault("n_head", 16)
+        return cls(**kw)
+
+    @classmethod
+    def tiny(cls, **kw):
+        """For tests: 2 layers, 64 hidden."""
+        kw.setdefault("vocab_size", 256)
+        kw.setdefault("n_positions", 128)
+        kw.setdefault("n_embd", 64)
+        kw.setdefault("n_layer", 2)
+        kw.setdefault("n_head", 4)
+        kw.setdefault("n_inner", 128)
+        return cls(**kw)
+
+
+class GPT2Model(model.Model):
+    """Decoder trunk: wte + wpe -> pre-LN causal blocks -> final LN."""
+
+    def __init__(self, cfg=None, plan=None):
+        super().__init__()
+        self.cfg = c = cfg or GPT2Config.small()
+        if c.moe_every is not None:
+            raise NotImplementedError(
+                "mixture-of-experts GPT-2 is not ported yet")
+        self.wte = VocabParallelEmbedding(c.vocab_size, c.n_embd, plan)
+        self.wpe = layer.Embedding(c.n_positions, c.n_embd, std=0.01)
+        self.blocks = nn.ModuleList(
+            ParallelTransformerBlock(
+                c.n_head, c.n_inner, plan, dropout=c.dropout, causal=True,
+                eps=c.layer_norm_eps, num_kv_heads=c.n_kv_head,
+                window=c.attn_window, remat=c.remat,
+                use_flash=c.attn_impl == "flash")
+            for _ in range(c.n_layer))
+        self.ln_f = layer.LayerNorm(c.layer_norm_eps)
+
+    def forward(self, input_ids):
+        b, s = input_ids.shape
+        pos = torch.arange(s, device=input_ids.device).expand(b, s)
+        x = autograd.add(self.wte(input_ids), self.wpe(pos))
+        x = autograd.dropout(x, self.cfg.dropout, training=self.training)
+        for blk in self.blocks:
+            x = blk(x)
+        return self.ln_f(x)
+
+    def aux_losses(self):
+        """MoE load-balance losses of the last forward, each already
+        weighted (none for dense blocks, the only kind ported yet)."""
+        return [blk.aux_loss for blk in self.blocks
+                if blk.aux_loss is not None]
+
+
+class GPT2LMHead(model.Model):
+    """Causal-LM head; the training workload (next-token prediction)."""
+
+    def __init__(self, cfg=None, plan=None):
+        super().__init__()
+        self.cfg = cfg or GPT2Config.small()
+        self.transformer = GPT2Model(self.cfg, plan)
+        if not self.cfg.tie_weights:
+            from ..parallel.tensor_parallel import ColumnParallelLinear
+
+            self.lm_head = ColumnParallelLinear(
+                self.cfg.vocab_size, plan, bias=False)
+        self.loss_fn = layer.SoftMaxCrossEntropy()
+
+    def forward(self, input_ids):
+        h = self.transformer.forward(input_ids)
+        if self.cfg.tie_weights:
+            # logits = h @ wteᵀ (GPT-2 weight tying)
+            return autograd.matmul(
+                h, autograd.transpose(self.transformer.wte.W, (1, 0)))
+        return self.lm_head(h)
+
+    def train_one_batch(self, input_ids, labels):
+        """labels: next-token ids shaped like input_ids; label −1 marks a
+        position to ignore.  The loss is the mean over valid positions:
+        the cross-entropy's mean over all rows is rescaled by
+        ``(b·s) / max(#valid, 1)``."""
+        logits = self.forward(input_ids)
+        b, s, v = logits.shape
+        loss = self.loss_fn(autograd.reshape(logits, (b * s, v)),
+                            autograd.reshape(labels, (b * s,)))
+        n_valid = (labels.reshape(-1) >= 0).sum().float().clamp_min(1.0)
+        loss = autograd.mul(loss, (b * s) / n_valid)
+        for aux in self.transformer.aux_losses():
+            loss = autograd.add(loss, aux)
+        self.optimizer(loss)
+        return logits, loss

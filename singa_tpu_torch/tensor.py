@@ -1,0 +1,44 @@
+"""Tensors (counterpart of ``singa_tpu/tensor.py``).
+
+The port's tensors are plain ``torch.Tensor``s and its parameters plain
+``nn.Parameter``s: this module keeps only the SINGA-shaped conversions a
+training script calls, ``from_numpy`` and ``to_numpy``, and the dtype
+names.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from . import device as device_module
+
+float16 = torch.float16
+bfloat16 = torch.bfloat16
+float32 = torch.float32
+int32 = torch.int32
+int64 = torch.int64
+
+__all__ = ["from_numpy", "to_numpy", "float16", "bfloat16", "float32",
+           "int32", "int64"]
+
+
+def from_numpy(np_array, device=None) -> torch.Tensor:
+    """Copy a numpy array onto ``device`` (default: the default device,
+    which is the GPU).  ``device`` is a singa ``Device``, a
+    ``torch.device`` or a device string."""
+    if device is None:
+        device = device_module.get_default_device()
+    if isinstance(device, device_module.Device):
+        device = device.torch_device
+    return torch.from_numpy(np.ascontiguousarray(np_array)).to(device)
+
+
+def to_numpy(t) -> np.ndarray:
+    """Copy a tensor to the host; the array never shares the tensor's
+    memory.  bf16 comes back as float32 (numpy has no bfloat16)."""
+    t = t.detach()
+    if t.dtype == torch.bfloat16:
+        return t.float().cpu().numpy()
+    return t.cpu().numpy().copy() if t.device.type == "cpu" \
+        else t.cpu().numpy()

@@ -1,0 +1,99 @@
+"""The port's CUDA kernels on the card, against their plain versions.
+
+Every test here is marked ``cuda`` and skips without a GPU (the kernels
+have no CPU mode).  On a machine with one:
+
+    python -m pytest tests/test_torch_kernels_cuda.py -m cuda -q
+
+This file imports only torch, numpy, the port and ``chip_smoke.py``
+(run from the repo root), so it runs where JAX is not installed.  The
+kernel-vs-plain comparison is ``chip_smoke.check_case`` over
+``chip_smoke.edge_cases()``, with its tolerances (``chip_smoke.TOL``):
+float32 rtol = atol = 1e-4, bf16 2e-2.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import chip_smoke
+from singa_tpu_torch.ops import flash_attention as tfa
+
+B, H = 2, 2
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: the flash kernels run only there")
+    return torch.device("cuda")
+
+
+def _rand(rng, *shape):
+    return rng.randn(*shape).astype(np.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("name,case", [
+    pytest.param(name, case, id=name)
+    for name, case in chip_smoke.edge_cases()])
+def test_kernels_match_plain(cuda_device, dtype, name, case):
+    chip_smoke.check_case(f"{name}/{dtype}", dtype=getattr(torch, dtype),
+                          seed=0, **case)
+
+
+@pytest.mark.cuda
+def test_cuda_tensors_launch_each_kernel_once(cuda_device):
+    rng = np.random.RandomState(0)
+    q, k, v = (torch.tensor(_rand(rng, B, H, 64, 64), device=cuda_device,
+                            requires_grad=True) for _ in range(3))
+    before = (tfa.flash_fwd.launches, tfa.flash_bwd_dq.launches,
+              tfa.flash_bwd_dkv.launches)
+    tfa.flash_attention(q, k, v, causal=True).sum().backward()
+    torch.cuda.synchronize()
+    after = (tfa.flash_fwd.launches, tfa.flash_bwd_dq.launches,
+             tfa.flash_bwd_dkv.launches)
+    assert after == tuple(n + 1 for n in before)
+
+
+@pytest.mark.cuda
+def test_unsupported_inputs_raise(cuda_device):
+    q = torch.zeros(1, 8, 300, device=cuda_device)
+    with pytest.raises(ValueError, match="head dims"):
+        tfa.flash_fwd(q, q, q, None, None, None, 1.0, False, None)
+    h = torch.zeros(1, 8, 64, device=cuda_device, dtype=torch.float16)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        tfa.flash_fwd(h, h, h, None, None, None, 1.0, False, None)
+    # lse and delta are read as raw float arrays: wrong dtype, layout or
+    # contiguity raises instead of reading out of bounds
+    x = torch.zeros(2, 8, 64, device=cuda_device)
+    rows = torch.zeros(2, 8, device=cuda_device)
+    strided = torch.zeros(8, 2, device=cuda_device).t()
+    bad = [rows.bfloat16(), rows[:, None, :], strided]
+    cfg = (None, None, None, 1.0, False, None)
+    for wrong in bad:
+        for fn in (tfa.flash_bwd_dq, tfa.flash_bwd_dkv):
+            with pytest.raises(ValueError, match="lse"):
+                fn(x, x, x, *cfg, x, wrong, rows)
+            with pytest.raises(ValueError, match="delta"):
+                fn(x, x, x, *cfg, x, rows, wrong)
+
+
+@pytest.mark.cuda
+def test_tiny_gpt2_trains_through_the_kernels(cuda_device):
+    from singa_tpu_torch import device, opt, tensor
+    from singa_tpu_torch.models.gpt2 import GPT2Config, GPT2LMHead
+
+    dev = device.create_cuda_gpu()
+    dev.SetRandSeed(0)
+    ids = np.random.RandomState(1).randint(0, 256, (2, 64)).astype(np.int32)
+    x = tensor.from_numpy(ids, dev)
+    y = tensor.from_numpy(np.roll(ids, -1, axis=1).astype(np.int32), dev)
+    m = GPT2LMHead(GPT2Config.tiny(dropout=0.0, attn_impl="flash"))
+    m.set_optimizer(opt.SGD(lr=0.1, momentum=0.9))
+    m.compile([x], is_train=True)
+    before = tfa.flash_fwd.launches
+    losses = [m(x, y)[1].item() for _ in range(3)]
+    assert tfa.flash_fwd.launches - before == 3 * m.cfg.n_layer
+    assert all(np.isfinite(losses)) and losses[-1] < losses[0]
