@@ -6,29 +6,53 @@
 Phases, each printing one JSON line; any failure raises and the script
 exits nonzero:
 
-1. ``build``   - compiles the flash-attention kernels from
-                 ``singa_tpu_torch/csrc`` with nvcc for sm_90a.
-2. ``kernels`` - holds ``flash_fwd``, ``flash_bwd_dq`` and
-                 ``flash_bwd_dkv`` against their plain PyTorch versions on
-                 the card: at GPT-2 small's attention shape (B=8, H=12,
-                 S=1024, D=64, causal, bf16) and at edge shapes in float32
-                 and bf16 (key mask, a fully -inf-masked row, general
-                 masks, a sliding window, S=1000, D=96/128/160), and times
-                 each kernel, its plain version and PyTorch's fused
-                 attention, forward and backward (a yardstick the port
-                 never calls).
-3. ``slice``   - trains GPT-2 small (124M, n_positions 1024, so
-                 attention runs through the flash kernels) for 5 steps
-                 with bf16 amp and SGD(lr=1e-4, momentum=0.9) on a batch
-                 of 8 x 1024 random ids, as ``bench.py``'s ``bench_gpt2``
-                 configures the JAX package; checks finite losses,
-                 exactly 12 launches of each kernel per step, and the
-                 logits of an eval forward against the same weights on the
-                 plain ("fused") attention path.
-4. ``profile`` - device time per kernel group (flash, GEMMs, the rest)
-                 over 2 more steps, from torch.profiler; fails if the
-                 profiler records no device time.
-5. ``device``  - the card's name and power limit from nvidia-smi.
+1. ``build``      - compiles every kernel source of ``singa_tpu_torch/csrc``
+                    (flash attention, the ResNet bottleneck) with nvcc for
+                    sm_90a, one nvcc process per source, all at once.
+2. ``kernels``    - holds ``flash_fwd``, ``flash_bwd_dq`` and
+                    ``flash_bwd_dkv`` against their plain PyTorch versions
+                    on the card: at GPT-2 small's attention shape (B=8,
+                    H=12, S=1024, D=64, causal, bf16) and at edge shapes in
+                    float32 and bf16 (key mask, a fully -inf-masked row,
+                    general masks, a sliding window, S=1000, D=96/128/160),
+                    and times each kernel, its plain version and PyTorch's
+                    fused attention, forward and backward (a yardstick the
+                    port never calls).
+3. ``slice``      - trains GPT-2 small (124M, n_positions 1024, so
+                    attention runs through the flash kernels) for 5 steps
+                    with bf16 amp and SGD(lr=1e-4, momentum=0.9) on a batch
+                    of 8 x 1024 random ids, as ``bench.py``'s ``bench_gpt2``
+                    configures the JAX package; checks finite losses,
+                    exactly 12 launches of each kernel per step, and the
+                    logits of an eval forward against the same weights on
+                    the plain ("fused") attention path.
+4. ``profile``    - device time per kernel group (flash, GEMMs, the rest)
+                    over 2 more steps, from torch.profiler; fails if the
+                    profiler records no device time.
+5. ``resnet``     - trains ResNet-50 (25.6M parameters, full depth and
+                    width) for 5 steps at ``bench.py``'s ``bench_resnet50``
+                    configuration: batch 128 x 3 x 224 x 224 random images
+                    and labels from a numpy seed, 1000 classes, bf16 amp,
+                    SGD(lr=0.1, momentum=0.9); checks finite losses and
+                    running statistics; then ``resnet_profile``: device
+                    time by group (convolutions, batch norm, the rest) over
+                    2 more steps.
+6. ``bottleneck`` - the trained ResNet-50 in eval mode: the activation
+                    that enters ``layer1[1]`` (stem + ``layer1[0]``, batch
+                    128, 56 x 56 x 256, channels-last bf16) goes through
+                    ``megakernel_block`` with ``fold_bottleneck(layer1[1])``
+                    (the one launch counted for the kernel), is held
+                    element by element against ``megakernel_block_plain``
+                    and, loosely, against the port's own eval forward of
+                    ``layer1[1]``; the same gate must refuse two planted
+                    faults (y1's ring padded with relu(b1), the skip left
+                    out of one column);
+                    then edge cases (B=1, 7 x 7, 56 x 28, C=128 with CM=32,
+                    CM=128, b1=+1, random scales and biases) and times of
+                    the kernel, its plain version and the cuDNN chain
+                    (three channels-last bf16 convs and the elementwise
+                    work; no single PyTorch call computes the block).
+7. ``device``     - the card's name and power limit from nvidia-smi.
 
 Then one line ``{"kernels": [...]}`` with each kernel's launches on the
 main path, error, times and bound, the nvidia-smi line, and last
@@ -41,6 +65,7 @@ from __future__ import annotations
 import json
 import math
 import re
+from concurrent.futures import ThreadPoolExecutor
 import statistics
 import subprocess
 import sys
@@ -62,11 +87,34 @@ GPT2_SHAPE = dict(b=8, h=12, s=1024, d=64)
 #             relative), and p / dS are rounded to bf16 against the
 #             running max in the kernel but the final max in the plain
 #             version: 2e-2 on O, lse and dQ/dK/dV.
-TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (2e-2, 2e-2)}
+#   bottleneck - per element (``bottleneck_stats``): bf16 in and out,
+#             float32 sums in other orders, y1, y2 and out rounded to bf16
+#             at the same points.  An output whose sum lands on the other
+#             side of a rounding boundary moves by one bf16 ulp of itself;
+#             a y1 or y2 element that rounded the other way moves the
+#             float32 sum of an output by one ulp of one of its CM terms,
+#             far below 2^-7 of the outputs' RMS.  So every element within
+#             1 ulp_bf16(|want|) + 2^-7 * rms(want); and such roundings
+#             are rare (on an H100: 1.6e-4 of the elements at the real
+#             layer1[1] input, at most 6.2e-4 on the edge cases), so at
+#             most 0.2% of the elements may differ at all.
+TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (2e-2, 2e-2),
+       "bottleneck": dict(ulps=1, rtol=0.0, rms_atol=2.0 ** -7,
+                          max_differing=2e-3)}
 # GPT-2 small logits, flash kernels vs the plain attention path, both
 # under bf16 amp: 12 blocks of bf16 activations round differently along
 # the two paths; logits here are O(1).
 LOGITS_ATOL = 0.1
+# the kernel vs the port's eval forward of ``layer1[1]`` under bf16 amp,
+# per element: the port rounds each conv's output, the BN affine (with its
+# scale and shift in bf16) and the ReLU to bf16, about nine roundings of
+# 2^-9 relative on the way to an output, where the kernel rounds only y1
+# and y2; each element within 2^-4 |want| + 2^-4 rms(want), the second
+# term for outputs where the skip and the block's sum cancel.  Every
+# element may differ.
+BLOCK_TOL = dict(ulps=0, rtol=2.0 ** -4, rms_atol=2.0 ** -4,
+                 max_differing=1.0)
+RESNET_SHAPE = dict(batch=128, hw=224, classes=1000)
 
 
 def log(obj):
@@ -429,13 +477,16 @@ KERNEL_GROUPS = (
 )
 
 
-def profile_steps(m, x, y, steps=2):
+def profile_steps(m, x, y, steps=2, groups=KERNEL_GROUPS, ranges=()):
     """Device time by kernel over ``steps`` training steps (torch.profiler,
-    CUPTI): the sum per group (flash attention, GEMMs, everything else),
-    the ten costliest kernels, and the device's busy share of the host
-    wall time of the window."""
+    CUPTI): the sum per group (kernels whose names match a group's
+    pattern; then each ``(group, names)`` of ``ranges``, the device time
+    of every kernel launched inside the CPU ranges (ops, autograd nodes)
+    of those names; everything else), the ten costliest kernels, and the
+    device's busy share of the host wall time of the window."""
     from torch.profiler import ProfilerActivity, profile
 
+    range_names = {n for _, names in ranges for n in names}
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -444,32 +495,373 @@ def profile_steps(m, x, y, steps=2):
             m(x, y)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
+    events = prof.key_averages()
+    kernels = [e for e in events
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and e.key not in range_names]
     total_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     if total_ms == 0:
         raise AssertionError("torch.profiler recorded no device time: no "
                              "breakdown of the step")
-    groups = {}
+    out = {}
     for e in kernels:
-        group = next((g for g, rx in KERNEL_GROUPS if rx.search(e.key)),
-                     "other")
-        groups[group] = groups.get(group, 0.0) + \
+        group = next((g for g, rx in groups if rx.search(e.key)), "other")
+        out[group] = out.get(group, 0.0) + \
             e.self_device_time_total / 1e3 / steps
+    for group, names in ranges:
+        found = {e.key: e for e in events if e.key in names and
+                 e.device_type == torch.autograd.DeviceType.CPU}
+        if set(found) != set(names):
+            raise AssertionError(f"profile has no range named "
+                                 f"{sorted(set(names) - set(found))}")
+        ms = sum(e.device_time_total for e in found.values()) / 1e3
+        out[group] = ms / steps
+        out["other"] = out.get("other", 0.0) - ms / steps
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]
     return {
         "steps": steps,
         "wall_ms_per_step": wall_ms / steps,
         "device_ms_per_step": total_ms / steps,
         "device_busy_share": total_ms / wall_ms,
-        "group_ms_per_step": groups,
+        "group_ms_per_step": out,
         "top_kernels": [{"name": e.key[:120], "calls_per_step":
                          e.count / steps, "ms_per_step":
                          e.self_device_time_total / 1e3 / steps}
                         for e in top]}
 
 
+# ----------------------------------------------------------------- resnet
+
+RESNET_GROUPS = (
+    # cuDNN convolutions (forward, dgrad, wgrad, layout transforms) and
+    # the fc layer's GEMM
+    ("conv_and_gemm", re.compile(
+        r"conv|fprop|dgrad|wgrad|implicit|cudnn|xmma|cutlass|nvjet|gemm|"
+        r"nchwToNhwc|nhwcToNchw", re.I)),
+)
+# the forward and backward autograd nodes of ops/batchnorm.py's training
+# op: the profiler records each as a CPU range holding its kernels
+BN_RANGES = (("batchnorm", ("_BatchNormTrain", "_BatchNormTrainBackward")),)
+
+
+def phase_resnet(steps=5, seed=0):
+    """ResNet-50 training at ``bench_resnet50``'s configuration; returns
+    the trained model (amp still on) and its input batch."""
+    from singa_tpu_torch import amp, device, opt, tensor
+    from singa_tpu_torch.models.resnet import resnet50
+
+    sh = RESNET_SHAPE
+    dev = device.create_cuda_gpu()
+    dev.SetRandSeed(seed)
+    amp.enable()
+    rng = np.random.RandomState(seed)
+    images = rng.randn(sh["batch"], 3, sh["hw"], sh["hw"]).astype(np.float32)
+    labels = rng.randint(0, sh["classes"], sh["batch"]).astype(np.int32)
+    x, y = tensor.from_numpy(images, dev), tensor.from_numpy(labels, dev)
+
+    m = resnet50(num_classes=sh["classes"])
+    m.set_optimizer(opt.SGD(lr=0.1, momentum=0.9))
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    m.compile([x], is_train=True, use_graph=False)
+    torch.cuda.synchronize()
+    compile_s = time.perf_counter() - t0
+    losses, step_ms = [], []
+    for _ in range(steps):
+        t = time.perf_counter()
+        _, loss = m(x, y)
+        losses.append(loss.item())  # synchronizes
+        step_ms.append((time.perf_counter() - t) * 1e3)
+
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"non-finite ResNet-50 loss: {losses}")
+    stats = {k: v for k, v in m.get_states().items()
+             if k.endswith(("running_mean", "running_var"))}
+    bad = [k for k, v in stats.items() if not torch.isfinite(v).all()]
+    if bad:
+        raise AssertionError(f"non-finite running statistics: {bad[:5]}")
+    if not any(v.abs().max().item() > 0 for k, v in stats.items()
+               if k.endswith("running_mean")):
+        raise AssertionError("no running mean moved during training")
+    med = statistics.median(step_ms[1:])
+    log({"phase": "resnet", "model": "resnet50", "params": sum(
+        p.numel() for p in m.get_params().values()),
+        "running_stat_buffers": len(stats), **sh, "amp": "bf16",
+        "optimizer": "SGD(lr=0.1, momentum=0.9)", "compile_s": compile_s,
+        "losses": losses, "step_ms": step_ms, "median_step_ms": med,
+        "images_per_s": sh["batch"] / med * 1e3,
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30})
+    profile = profile_steps(m, x, y, groups=RESNET_GROUPS, ranges=BN_RANGES)
+    log(dict(phase="resnet_profile", **profile))
+    return m, x
+
+
+# ------------------------------------------------------------- bottleneck
+
+
+def bottleneck_inputs(b, h, w, c, cm, seed, affine="unit"):
+    """Kernel arguments for one case, from a numpy seed: x ~ N(0, 1) and
+    weights ~ N(0, 2/fan_in) in bf16, so every stage is O(1); ``affine``
+    is ``"unit"`` (s = 1, b = 0), ``"random"`` (s ~ U(0.5, 1.5), b ~
+    N(0, 0.5²)) or ``"b1_plus_one"`` (s = 1, b1 = +1: a halo padded with
+    relu(b1) instead of 0 would show)."""
+    rng = np.random.RandomState(seed)
+
+    def rand(shape, std, dtype=torch.bfloat16):
+        a = rng.randn(*shape).astype(np.float32) * std
+        return torch.from_numpy(a).to(DEVICE).to(dtype)
+
+    x = rand((b, h, w, c), 1.0)
+    w1 = rand((c, cm), math.sqrt(2.0 / c))
+    w2 = rand((3, 3, cm, cm), math.sqrt(2.0 / (9 * cm)))
+    w3 = rand((cm, c), math.sqrt(2.0 / cm))
+    sb = []
+    for n in (cm, cm, c):
+        if affine == "random":
+            s_ = torch.from_numpy(rng.uniform(0.5, 1.5, n).astype(
+                np.float32)).to(DEVICE)
+            sb += [s_, rand((n,), 0.5, torch.float32)]
+        else:
+            sb += [torch.ones(n, device=DEVICE),
+                   torch.zeros(n, device=DEVICE)]
+    if affine == "b1_plus_one":
+        sb[1] = torch.ones(cm, device=DEVICE)
+    s1, b1, s2, b2, s3, b3 = sb
+    return x, w1, s1, b1, w2, s2, b2, w3, s3, b3
+
+
+def ulp_bf16(t):
+    """One bf16 ulp at each |t| (float32): 2^(e-8) for |t| in [2^(e-1),
+    2^e)."""
+    _, e = torch.frexp(t.abs())
+    return torch.ldexp(torch.ones_like(t), e - 8)
+
+
+def bottleneck_stats(got, want, tol):
+    """Per-element comparison of a block's output with its reference under
+    ``tol`` (a ``TOL["bottleneck"]``-style dict): each |got - want| against
+    ulps * ulp_bf16(want) + rtol * |want| + rms_atol * rms(want).  Returns
+    the max |difference|, the RMS and max |want|, the share of elements
+    that differ at all and of those past the limit, the largest
+    difference over its limit, and ``ok``."""
+    got, want = got.float(), want.float()
+    if got.shape != want.shape or not torch.isfinite(got).all():
+        raise AssertionError(f"got shape {tuple(got.shape)} (want "
+                             f"{tuple(want.shape)}) or non-finite values")
+    d = (got - want).abs()
+    rms = want.square().mean().sqrt().item()
+    limit = (tol["ulps"] * ulp_bf16(want) + tol["rtol"] * want.abs()
+             + tol["rms_atol"] * rms)
+    stats = dict(max_abs_err=d.max().item(), rms_want=rms,
+                 max_abs_want=want.abs().max().item(),
+                 share_differing=(d > 0).double().mean().item(),
+                 share_past_limit=(d > limit).double().mean().item(),
+                 max_err_over_limit=(d / limit).max().item())
+    stats["ok"] = (stats["share_past_limit"] == 0
+                   and stats["share_differing"] <= tol["max_differing"])
+    return stats
+
+
+def _compare_bottleneck(name, got, want, tol):
+    """``bottleneck_stats``; raises unless they pass."""
+    stats = bottleneck_stats(got, want, tol)
+    if not stats["ok"]:
+        raise AssertionError(f"{name}: megakernel_block fails its gate "
+                             f"{tol}: {stats}")
+    return stats
+
+
+def check_bottleneck_case(name, b, h, w, c, cm, seed, affine="unit"):
+    """``megakernel_block`` against its plain version on one case from
+    ``bottleneck_inputs``; returns ``bottleneck_stats`` and raises past
+    ``TOL["bottleneck"]``."""
+    from singa_tpu_torch.ops import bottleneck as bk
+
+    # the plain version's float32 convs, not cuDNN's default TF32
+    torch.backends.cudnn.allow_tf32 = False
+    args = bottleneck_inputs(b, h, w, c, cm, seed, affine)
+    got = bk.megakernel_block(*args)
+    want = bk.megakernel_block_plain(*args)
+    torch.cuda.synchronize()
+    return _compare_bottleneck(name, got, want, TOL["bottleneck"])
+
+
+def refuse_planted_faults(args, want):
+    """``bottleneck_stats`` of each of ``planted_faults(*args)`` against
+    the right output ``want``; raises if the gate passes one."""
+    faults = {}
+    for fault, wrong in planted_faults(*args).items():
+        faults[fault] = bottleneck_stats(wrong, want, TOL["bottleneck"])
+        if faults[fault]["ok"]:
+            raise AssertionError(f"the bottleneck gate passes the planted "
+                                 f"fault {fault}: {faults[fault]}")
+    return faults
+
+
+def planted_faults(x, w1, s1, b1, w2, s2, b2, w3, s3, b3):
+    """Outputs of two wrong blocks, from the plain version's float32
+    arithmetic, that the gate must refuse: ``halo_relu_b1`` pads y1's SAME
+    ring with relu(b1) (y1 computed on a zero-padded x) instead of 0, and
+    ``no_skip_one_column`` leaves the skip out of the middle column.  The
+    first is left out where relu(b1) is 0 everywhere, as it then changes
+    nothing."""
+    import torch.nn.functional as F
+
+    dt = x.dtype
+    xf = x.float().permute(0, 3, 1, 2)
+
+    def conv(y, wt, s, b, padding=0):
+        y = F.conv2d(y, wt.float(), padding=padding)
+        return y * s[:, None, None] + b[:, None, None]
+
+    k1 = w1.t()[:, :, None, None]
+    k2 = w2.permute(3, 2, 0, 1)
+    k3 = w3.t()[:, :, None, None]
+
+    def tail(y1, padding):
+        y2 = torch.relu(conv(y1, k2, s2, b2, padding)).to(dt).float()
+        return conv(y2, k3, s3, b3)
+
+    y1 = torch.relu(conv(xf, k1, s1, b1)).to(dt).float()
+    ring = torch.relu(conv(F.pad(xf, (1, 1, 1, 1)), k1, s1, b1))
+    skip = xf.clone()
+    skip[..., xf.shape[-1] // 2] = 0
+    out = {"no_skip_one_column": torch.relu(tail(y1, 1) + skip)}
+    if (b1 > 0).any():
+        out["halo_relu_b1"] = torch.relu(tail(ring.to(dt).float(), 0) + xf)
+    return {n: t.to(dt).permute(0, 2, 3, 1) for n, t in out.items()}
+
+
+def bottleneck_edge_cases():
+    """(name, kwargs) of the shapes that pin the kernel's semantics."""
+    full = dict(h=56, w=56, c=256, cm=64)
+    return [
+        ("b1", dict(full, b=1)),
+        ("hw7_bands_ragged", dict(b=2, h=7, w=7, c=256, cm=64)),
+        ("h56_w28", dict(b=2, h=56, w=28, c=256, cm=64)),
+        ("c128_cm32", dict(b=2, h=14, w=14, c=128, cm=32)),
+        # 88 KB of shared memory: the opt-in above the 48 KB default
+        ("cm128_w56", dict(b=1, h=8, w=56, c=256, cm=128)),
+        ("odd_h5_w9_cm8", dict(b=3, h=5, w=9, c=64, cm=8)),
+        ("b1_plus_one", dict(b=2, h=14, w=14, c=256, cm=64,
+                             affine="b1_plus_one")),
+        ("random_affine", dict(full, b=2, affine="random")),
+    ]
+
+
+def bottleneck_bound_ms(b, h, w, c, cm):
+    """Least time for the block: x read and out written once (bf16), the
+    weights and scales read once, against 2·B·H·W·(C·CM + 9·CM² + CM·C)
+    FLOP at the bf16 peak."""
+    macs = c * cm + 9 * cm * cm + cm * c
+    flops = 2 * b * h * w * macs
+    nbytes = 2 * b * h * w * c * 2 + macs * 2 + (4 * cm + 2 * c) * 4
+    t_ops, t_bytes = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
+def cudnn_chain(x, w1, s1, b1, w2, s2, b2, w3, s3, b3):
+    """The block as cuDNN runs it: three channels-last bf16 convs, each
+    followed by the folded BN and ReLU in bf16 (the yardstick the
+    experiment used; the port never calls it).  Returns a callable."""
+    import torch.nn.functional as F
+
+    cl = torch.channels_last
+    xc = x.permute(0, 3, 1, 2)  # an NCHW view in channels-last memory
+    k1 = w1.t()[:, :, None, None].contiguous(memory_format=cl)
+    k2 = w2.permute(3, 2, 0, 1).contiguous(memory_format=cl)
+    k3 = w3.t()[:, :, None, None].contiguous(memory_format=cl)
+    sb = [t.to(torch.bfloat16)[None, :, None, None]
+          for t in (s1, b1, s2, b2, s3, b3)]
+
+    def run():
+        y = torch.relu_(torch.addcmul(sb[1], F.conv2d(xc, k1), sb[0]))
+        y = torch.relu_(torch.addcmul(sb[3], F.conv2d(y, k2, padding=1),
+                                      sb[2]))
+        y = torch.addcmul(sb[5], F.conv2d(y, k3), sb[4])
+        return torch.relu_(y.add_(xc))
+
+    return run
+
+
+def phase_bottleneck(m, images):
+    """The kernel on the real ``layer1[1]`` input of the trained model,
+    its edge cases and its times; returns its row of the kernels line."""
+    from singa_tpu_torch import amp
+    from singa_tpu_torch.ops import bottleneck as bk
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    m.eval()
+    block = m.layer1[1]
+    with torch.no_grad():
+        act = m.layer1[0](m.stem(images)).to(torch.bfloat16)
+        ref = block(act).float().permute(0, 2, 3, 1)
+    x = act.permute(0, 2, 3, 1).contiguous()
+    args = (x,) + bk.fold_bottleneck(block)
+
+    bk.megakernel_block.launches = 0
+    out = bk.megakernel_block(*args)
+    torch.cuda.synchronize()
+    launches = bk.megakernel_block.launches
+    if launches != 1:
+        raise AssertionError(f"megakernel_block launched {launches} times "
+                             f"on the main path, expected 1")
+    plain = bk.megakernel_block_plain(*args)
+    gate = _compare_bottleneck("layer1[1]", out, plain, TOL["bottleneck"])
+    vs_block = _compare_bottleneck("layer1[1] vs the port's eval block",
+                                   out, ref, BLOCK_TOL)
+    amp.enable(False)
+    # the gate's power: it must refuse the planted faults at this input
+    # and where b1 = +1 makes a relu(b1) ring large
+    faults = {"layer1[1]": refuse_planted_faults(args, plain)}
+    del ref, plain
+    b1_args = bottleneck_inputs(2, 14, 14, 256, 64, seed=0,
+                                affine="b1_plus_one")
+    faults["b1_plus_one"] = refuse_planted_faults(
+        b1_args, bk.megakernel_block_plain(*b1_args))
+
+    edge = {}
+    for seed, (name, kw) in enumerate(bottleneck_edge_cases()):
+        st = check_bottleneck_case(name, seed=seed, **kw)
+        edge[name] = {k: st[k] for k in ("max_abs_err", "share_differing")}
+
+    chain = cudnn_chain(*args)
+    chain_err = (chain().float() - out.float().permute(0, 3, 1, 2)
+                 ).abs().max().item()
+    ms = cuda_time_ms(lambda: bk.megakernel_block(*args), 10)
+    plain_ms = cuda_time_ms(lambda: bk.megakernel_block_plain(*args), 3)
+    chain_ms = cuda_time_ms(chain, 10)
+    b, h, w, c = x.shape
+    cm = args[1].shape[1]
+    bound, by = bottleneck_bound_ms(b, h, w, c, cm)
+    log({"phase": "bottleneck", "shape": dict(b=b, h=h, w=w, c=c, cm=cm),
+         "input": "ResNet-50 layer1[1] input after the resnet phase's "
+                  "steps, eval mode, channels-last bf16",
+         "launches_main_path": launches, "vs_plain": gate,
+         "tol": TOL["bottleneck"], "vs_eval_block": vs_block,
+         "block_tol": BLOCK_TOL, "planted_faults": faults,
+         "max_abs_diff_cudnn_chain": chain_err, "edge": edge,
+         "smem_bytes": bk.smem_bytes(w, cm),
+         "times_ms": {"kernel": ms, "plain": plain_ms,
+                      "cudnn_chain": chain_ms, "bound": bound}})
+    return dict(name="megakernel_block", route="cuda",
+                source="singa_tpu_torch/csrc/resnet_bottleneck.cu",
+                replaces="experiments/resnet_megakernel.py:40",
+                launches=launches, max_abs_err=gate["max_abs_err"],
+                share_differing=gate["share_differing"],
+                rms_want=gate["rms_want"], ms=ms, plain_ms=plain_ms,
+                bound_ms=bound, bound_by=by, library_ms=None,
+                library_call="none: no single PyTorch call computes the "
+                             "block",
+                cudnn_chain_ms=chain_ms)
+
+
 # ----------------------------------------------------------------- main
+
+#: every kernel source of the port (``singa_tpu_torch/csrc/<name>.cu``)
+SOURCES = ("flash_attention", "resnet_bottleneck")
+
 
 
 def main():
@@ -480,13 +872,17 @@ def main():
     from singa_tpu_torch.ops import _build
 
     t0 = time.perf_counter()
-    lib = _build.build("flash_attention")
-    _build.load("flash_attention")
-    log({"phase": "build", "library": lib,
+    with ThreadPoolExecutor(len(SOURCES)) as pool:
+        libs = list(pool.map(_build.build, SOURCES))
+    for name in SOURCES:
+        _build.load(name)
+    log({"phase": "build", "libraries": libs,
          "seconds": time.perf_counter() - t0})
 
     rows = phase_kernels()
     phase_slice(rows)
+    model, images = phase_resnet()
+    rows["megakernel_block"] = phase_bottleneck(model, images)
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

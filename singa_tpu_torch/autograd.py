@@ -1,4 +1,5 @@
-"""The ops GPT-2 training uses (counterpart of ``singa_tpu/autograd.py``).
+"""The ops GPT-2 and ResNet training use (counterpart of
+``singa_tpu/autograd.py``).
 
 Torch autograd takes the place of SINGA's tape: each op is a plain
 function on ``torch.Tensor`` with the JAX package's semantics (dtype
@@ -15,10 +16,10 @@ import torch.nn.functional as F
 from . import amp
 
 __all__ = [
-    "backward", "matmul", "add_bias", "add", "mul", "gelu",
+    "backward", "matmul", "add_bias", "add", "mul", "gelu", "relu",
     "layer_norm", "embedding",
     "softmax_cross_entropy", "dropout", "repeat_kv", "reshape",
-    "transpose",
+    "transpose", "flatten", "reduce_mean",
 ]
 
 
@@ -81,6 +82,10 @@ def mul(a, b):
     return a * b
 
 
+def relu(x):
+    return F.relu(x)
+
+
 def gelu(x, approximate=True):
     """GELU; the tanh approximation by default, as ``jax.nn.gelu``."""
     return F.gelu(x, approximate="tanh" if approximate else "none")
@@ -113,6 +118,21 @@ def reshape(x, shape):
 def transpose(x, shape):
     """Permute axes (SINGA names the permutation ``shape``)."""
     return x.permute(*shape)
+
+
+def flatten(x, axis=1):
+    """Collapse the dims from ``axis`` on: ``(prod(shape[:axis]), -1)``."""
+    lead = 1
+    for s in x.shape[:axis]:
+        lead *= int(s)
+    return x.reshape(lead, -1)
+
+
+def reduce_mean(x, axes=None, keepdims=False):
+    """Mean over ``axes`` (all axes when None), in x's dtype."""
+    if axes is None:
+        axes = tuple(range(x.dim()))
+    return torch.mean(x, dim=tuple(axes), keepdim=bool(keepdims))
 
 
 class _SoftMaxCrossEntropy(torch.autograd.Function):

@@ -5,10 +5,17 @@ created from the first input's shape at the first call (``initialize``),
 and ``get_params``/``get_states`` name them hierarchically exactly as the
 JAX package does (``GPT2LMHead.transformer.blocks0.attn.q_proj.W``), so
 states interchange between the two packages without renaming or
-transposes.
+transposes.  Non-parameter state (BN running statistics) is a buffer
+(``register_state``); ``get_states``/``set_states`` cover it under the
+JAX names (``ResNet.layer10.bn1.running_mean``).
+
+Conv, BN and pooling layers keep the JAX package's NCHW layout and call
+``ops/conv.py``, ``ops/batchnorm.py`` and ``ops/pooling.py``.
 """
 
 from __future__ import annotations
+
+import math
 
 import numpy as np
 import torch
@@ -16,9 +23,14 @@ from torch import nn
 
 from . import amp, autograd, initializer
 from .device import device_of
+from .ops import batchnorm as bn_ops
+from .ops import conv as conv_ops
+from .ops import pooling as pool_ops
 
 __all__ = ["Layer", "Linear", "LayerNorm", "Embedding",
-           "SoftMaxCrossEntropy", "param_name"]
+           "SoftMaxCrossEntropy", "ReLU", "Add", "Flatten", "Conv2d",
+           "BatchNorm2d", "Pooling2d", "MaxPool2d", "AvgPool2d",
+           "GlobalAvgPool2d", "param_name"]
 
 #: attribute on a parameter holding its hierarchical name
 #: (``torch.Tensor.name`` is taken)
@@ -94,12 +106,27 @@ class Layer(nn.Module):
         """``{hierarchical name: parameter}``."""
         return self._named_params(self.name)
 
+    def _named_states(self, prefix) -> dict:
+        states = {f"{prefix}{self.sep}{a}": t
+                  for own in (self._parameters, self._buffers)
+                  for a, t in sorted(own.items()) if t is not None}
+        for attr, sub in self._sublayers():
+            states.update(sub._named_states(f"{prefix}{self.sep}{attr}"))
+        return states
+
     def get_states(self) -> dict:
-        """Parameters (the GPT-2 slice has no other layer state)."""
-        return self.get_params()
+        """Parameters and buffers (``register_state``) by hierarchical
+        name."""
+        return self._named_states(self.name)
+
+    def register_state(self, attr, t: torch.Tensor):
+        """Keep ``t`` as persistent non-parameter state (a buffer) under
+        ``attr``; ``get_states`` names it like a parameter."""
+        self.register_buffer(attr, t)
 
     def set_states(self, states: dict):
-        """Copy ``states`` (name -> array or tensor) into the parameters.
+        """Copy ``states`` (name -> array or tensor) into the parameters
+        and buffers.
         Every name must match exactly: an unknown or missing name raises,
         as does a shape mismatch."""
         own = self.get_states()
@@ -185,3 +212,133 @@ class Embedding(Layer):
 class SoftMaxCrossEntropy(Layer):
     def forward(self, x, t):
         return autograd.softmax_cross_entropy(x, t)
+
+
+class ReLU(Layer):
+    def forward(self, x):
+        return autograd.relu(x)
+
+
+class Add(Layer):
+    def forward(self, a, b):
+        return autograd.add(a, b)
+
+
+class Flatten(Layer):
+    def __init__(self, axis=1):
+        super().__init__()
+        self.axis = axis
+
+    def forward(self, x):
+        return autograd.flatten(x, self.axis)
+
+
+def _pair(v):
+    if isinstance(v, (tuple, list)):
+        return tuple(int(x) for x in v)
+    return (int(v), int(v))
+
+
+class Conv2d(Layer):
+    """NCHW convolution; W is (out, in/group, kH, kW), created at the
+    first call with the JAX layer's He-style init: gaussian with std
+    ``sqrt(2 / (in/group·kH·kW + out))``, drawn from the device's
+    generator."""
+
+    def __init__(self, nb_kernels, kernel_size, stride=1, padding=0,
+                 dilation=1, group=1, bias=True, pad_mode="NOTSET",
+                 activation="NOTSET"):
+        super().__init__()
+        self.nb_kernels = int(nb_kernels)
+        self.kernel_size = _pair(kernel_size)
+        self.stride = _pair(stride)
+        self.padding = _pair(padding)
+        self.dilation = _pair(dilation)
+        self.group = int(group)
+        self.bias = bool(bias)
+        self.pad_mode = pad_mode
+        self.activation = activation
+
+    def initialize(self, x):
+        in_channels = x.shape[1]
+        if in_channels % self.group:
+            raise ValueError(f"{in_channels} input channels do not split "
+                             f"into {self.group} groups")
+        w_shape = (self.nb_kernels, in_channels // self.group) \
+            + self.kernel_size
+        dt = amp.param_dtype(x.dtype)
+        self.W = new_param(w_shape, x, dt)
+        std = math.sqrt(2.0 / (w_shape[1] * np.prod(self.kernel_size)
+                               + self.nb_kernels))
+        initializer.gaussian(self.W, 0.0, std,
+                             generator=device_of(x).generator)
+        if self.bias:
+            self.b = initializer.zeros(new_param((self.nb_kernels,), x, dt))
+
+    def forward(self, x):
+        y = conv_ops.conv2d(
+            x, self.W, self.b if self.bias else None, stride=self.stride,
+            padding=self.padding, dilation=self.dilation, group=self.group,
+            pad_mode=self.pad_mode)
+        if self.activation == "RELU":
+            y = autograd.relu(y)
+        return y
+
+
+class BatchNorm2d(Layer):
+    """Per-channel affine (``scale``, ``bias``) and float32 running
+    statistics (``running_mean``, ``running_var``, buffers).  Training
+    mode (``Module.training``) normalizes by the batch and updates the
+    running statistics; eval normalizes by them."""
+
+    def __init__(self, momentum=0.9, eps=1e-5):
+        super().__init__()
+        self.momentum = float(momentum)
+        self.eps = float(eps)
+
+    def initialize(self, x):
+        c = x.shape[1]
+        dt = amp.param_dtype(x.dtype)
+        self.scale = initializer.ones(new_param((c,), x, dt))
+        self.bias = initializer.zeros(new_param((c,), x, dt))
+        self.register_state("running_mean", torch.zeros(
+            c, device=x.device, dtype=torch.float32))
+        self.register_state("running_var", torch.ones(
+            c, device=x.device, dtype=torch.float32))
+
+    def forward(self, x):
+        return bn_ops.batchnorm2d(
+            x, self.scale, self.bias, self.running_mean, self.running_var,
+            momentum=self.momentum, eps=self.eps, training=self.training)
+
+
+class Pooling2d(Layer):
+    def __init__(self, kernel_size, stride=None, padding=0, is_max=True,
+                 pad_mode="NOTSET"):
+        super().__init__()
+        self.kernel_size = _pair(kernel_size)
+        self.stride = self.kernel_size if stride is None else _pair(stride)
+        self.padding = _pair(padding)
+        self.is_max = bool(is_max)
+        self.pad_mode = pad_mode
+
+    def forward(self, x):
+        return pool_ops.pooling2d(
+            x, kernel=self.kernel_size, stride=self.stride,
+            padding=self.padding, is_max=self.is_max,
+            pad_mode=self.pad_mode)
+
+
+class MaxPool2d(Pooling2d):
+    def __init__(self, kernel_size, stride=None, padding=0, **kw):
+        super().__init__(kernel_size, stride, padding, is_max=True, **kw)
+
+
+class AvgPool2d(Pooling2d):
+    def __init__(self, kernel_size, stride=None, padding=0, **kw):
+        super().__init__(kernel_size, stride, padding, is_max=False, **kw)
+
+
+class GlobalAvgPool2d(Layer):
+    def forward(self, x):
+        return autograd.reduce_mean(x, axes=(2, 3), keepdims=False)

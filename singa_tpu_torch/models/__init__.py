@@ -1,1 +1,1 @@
-"""Model zoo (GPT-2 so far)."""
+"""Model zoo (GPT-2 and the ResNet family so far)."""

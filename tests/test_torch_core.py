@@ -32,11 +32,14 @@ def test_import_pulls_in_neither_jax_nor_singa_tpu():
     code = ("import sys, singa_tpu_torch\n"
             "from singa_tpu_torch import amp, autograd, device, layer, "
             "model, opt, tensor\n"
-            "from singa_tpu_torch.models import gpt2\n"
-            "from singa_tpu_torch.ops import flash_attention\n"
+            "from singa_tpu_torch.models import common, gpt2, resnet\n"
+            "from singa_tpu_torch.ops import (batchnorm, bottleneck, conv, "
+            "flash_attention, padding, pooling)\n"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'singa_tpu' or "
-            "m.startswith('singa_tpu.')]\n"
+            "m.startswith('singa_tpu.') or m == 'singa' or "
+            "m.startswith('singa.') or m == 'experiments' or "
+            "m.startswith('experiments.') or 'resnet_megakernel' in m]\n"
             "assert not bad, bad\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
@@ -45,13 +48,15 @@ def test_import_pulls_in_neither_jax_nor_singa_tpu():
 
 
 def test_sources_never_import_jax_or_singa_tpu():
-    """No file of the port says ``import jax`` or names a ``singa_tpu.``
-    module (``singa_tpu_torch.`` is the port itself)."""
+    """No file of the port says ``import jax``, names a ``singa_tpu.``
+    module (``singa_tpu_torch.`` is the port itself) or imports from
+    ``experiments/``."""
     offenders = [
         str(path.relative_to(ROOT))
         for path in sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
-        if re.search(r"\bimport jax\b|\bfrom jax\b|\bsinga_tpu\.",
-                     path.read_text())]
+        if re.search(r"\bimport jax\b|\bfrom jax\b|\bsinga_tpu\.|"
+                     r"^\s*(import|from) (singa|experiments)\b",
+                     path.read_text(), re.M)]
     assert not offenders, offenders
 
 

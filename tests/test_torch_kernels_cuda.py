@@ -7,9 +7,12 @@ have no CPU mode).  On a machine with one:
 
 This file imports only torch, numpy, the port and ``chip_smoke.py``
 (run from the repo root), so it runs where JAX is not installed.  The
-kernel-vs-plain comparison is ``chip_smoke.check_case`` over
-``chip_smoke.edge_cases()``, with its tolerances (``chip_smoke.TOL``):
-float32 rtol = atol = 1e-4, bf16 2e-2.
+kernel-vs-plain comparisons are ``chip_smoke.check_case`` over
+``chip_smoke.edge_cases()`` (flash attention) and
+``chip_smoke.check_bottleneck_case`` over
+``chip_smoke.bottleneck_edge_cases()`` (the ResNet bottleneck), with
+their tolerances (``chip_smoke.TOL``): float32 rtol = atol = 1e-4, bf16
+2e-2, the bottleneck rtol = atol = 2e-2.
 """
 
 import numpy as np
@@ -17,6 +20,7 @@ import pytest
 import torch
 
 import chip_smoke
+from singa_tpu_torch.ops import bottleneck as tbk
 from singa_tpu_torch.ops import flash_attention as tfa
 
 B, H = 2, 2
@@ -25,7 +29,7 @@ B, H = 2, 2
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA GPU: the flash kernels run only there")
+        pytest.skip("needs a CUDA GPU: the port's kernels run only there")
     return torch.device("cuda")
 
 
@@ -97,3 +101,39 @@ def test_tiny_gpt2_trains_through_the_kernels(cuda_device):
     losses = [m(x, y)[1].item() for _ in range(3)]
     assert tfa.flash_fwd.launches - before == 3 * m.cfg.n_layer
     assert all(np.isfinite(losses)) and losses[-1] < losses[0]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,case", [
+    pytest.param(name, case, id=name)
+    for name, case in chip_smoke.bottleneck_edge_cases()])
+def test_bottleneck_matches_plain(cuda_device, name, case):
+    chip_smoke.check_bottleneck_case(name, seed=0, **case)
+
+
+@pytest.mark.cuda
+def test_bottleneck_counts_one_launch_per_call(cuda_device):
+    args = chip_smoke.bottleneck_inputs(1, 7, 7, 64, 16, seed=0)
+    before = tbk.megakernel_block.launches
+    tbk.megakernel_block(*args)
+    tbk.megakernel_block(*args)
+    torch.cuda.synchronize()
+    assert tbk.megakernel_block.launches == before + 2
+
+
+@pytest.mark.cuda
+def test_bottleneck_unsupported_inputs_raise(cuda_device):
+    args = list(chip_smoke.bottleneck_inputs(1, 7, 7, 64, 16, seed=0))
+    with pytest.raises(TypeError, match="x must be"):
+        tbk.megakernel_block(args[0].float(), *args[1:])
+    with pytest.raises(ValueError, match="contiguous"):
+        tbk.megakernel_block(args[0].transpose(1, 2), *args[1:])
+    # CM = 12 is not a multiple of 8; CM = 136 is over MAX_CM
+    for cm in (12, 136):
+        bad = chip_smoke.bottleneck_inputs(1, 7, 7, 64, cm, seed=0)
+        with pytest.raises(ValueError, match="multiples of 8"):
+            tbk.megakernel_block(*bad)
+    # 512-wide rows at CM = 128 need more than 227 KB of shared memory
+    wide = chip_smoke.bottleneck_inputs(1, 2, 512, 64, 128, seed=0)
+    with pytest.raises(ValueError, match="shared memory"):
+        tbk.megakernel_block(*wide)
