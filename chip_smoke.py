@@ -8,24 +8,33 @@ exits nonzero:
 
 1. ``build``      - compiles every kernel source of ``singa_tpu_torch/csrc``
                     (flash attention, the ResNet bottleneck) with nvcc for
-                    sm_90a, one nvcc process per source, all at once.
+                    sm_90a, one nvcc process per source, all at once; then
+                    reports each kernel's registers and spills (ptxas
+                    ``-v``) and counts its tensor-core (HMMA/HGMMA) and
+                    local-memory (LDL/STL) instructions in its SASS
+                    (``cuobjdump -sass``); fails if a tensor-core flash
+                    kernel has no HMMA/HGMMA.
 2. ``kernels``    - holds ``flash_fwd``, ``flash_bwd_dq`` and
                     ``flash_bwd_dkv`` against their plain PyTorch versions
                     on the card: at GPT-2 small's attention shape (B=8,
                     H=12, S=1024, D=64, causal, bf16) and at edge shapes in
                     float32 and bf16 (key mask, a fully -inf-masked row,
-                    general masks, a sliding window, S=1000, D=96/128/160),
-                    and times each kernel, its plain version and PyTorch's
-                    fused attention, forward and backward (a yardstick the
-                    port never calls).
+                    general masks, sliding windows, S=1/65/129/1000,
+                    D=8/13/72/96/128/160), where bf16 with D <= 128 runs
+                    the tensor-core forward and dK/dV kernels and the rest
+                    the CUDA-core ones; and times each kernel, its plain
+                    version and PyTorch's fused attention, forward and
+                    backward (a yardstick the port never calls).
 3. ``slice``      - trains GPT-2 small (124M, n_positions 1024, so
                     attention runs through the flash kernels) for 5 steps
                     with bf16 amp and SGD(lr=1e-4, momentum=0.9) on a batch
                     of 8 x 1024 random ids, as ``bench.py``'s ``bench_gpt2``
                     configures the JAX package; checks finite losses,
-                    exactly 12 launches of each kernel per step, and the
-                    logits of an eval forward against the same weights on
-                    the plain ("fused") attention path.
+                    exactly 12 launches of each kernel per step (those of
+                    ``flash_fwd`` and ``flash_bwd_dkv`` all on the
+                    tensor-core route), and the logits of an eval forward
+                    against the same weights on the plain ("fused")
+                    attention path.
 4. ``profile``    - device time per kernel group (flash, GEMMs, the rest)
                     over 2 more steps, from torch.profiler; fails if the
                     profiler records no device time.
@@ -64,6 +73,7 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import re
 from concurrent.futures import ThreadPoolExecutor
 import statistics
@@ -223,6 +233,20 @@ def edge_cases():
         ("s1000_d128", dict(s=1000, d=128, causal=True)),
         ("d96", dict(s=192, d=96)),
         ("d160_window", dict(s=160, d=160, causal=True, window=33)),
+        # the edges of the tensor-core kernels' 64-row tiles and 64 / 128
+        # wide rows: one row, one past a tile, a window of one key and one
+        # across 128-row tiles, D far below a row and not a multiple of 16
+        # or of 8 (element loads instead of cp.async, odd stores)
+        ("s1", dict(s=1, d=64, causal=True)),
+        ("s65_causal", dict(s=65, d=64, causal=True)),
+        ("s129_causal", dict(s=129, d=64, causal=True)),
+        ("window1", dict(s=200, d=64, causal=True, window=1)),
+        ("window130_s384", dict(s=384, d=64, causal=True, window=130)),
+        ("d8", dict(s=128, d=8)),
+        ("d72_causal", dict(s=160, d=72, causal=True)),
+        ("d13_s100", dict(s=100, d=13, causal=True)),
+        ("d128_general_mask_causal", dict(s=192, d=128, causal=True,
+                                          mask=gmask(b, h, 192, 192))),
     ]
     return [(n, dict(b=b, h=h, **kw)) for n, kw in cases]
 
@@ -283,7 +307,7 @@ def time_full_shape():
                           lambda: fa.flash_bwd_dkv_plain(q, k, v, *cfg,
                                                          *bwd)),
     }
-    times = {n: (cuda_time_ms(kern, 10), cuda_time_ms(plain, 5))
+    times = {n: (cuda_time_ms(kern, 50), cuda_time_ms(plain, 5))
              for n, (kern, plain) in calls.items()}
 
     # yardstick: PyTorch's fused attention on the same (B, H, S, D) inputs
@@ -291,7 +315,7 @@ def time_full_shape():
     q4, k4, v4 = (t.reshape(shape) for t in (q, k, v))
     sdpa_fwd = cuda_time_ms(
         lambda: F.scaled_dot_product_attention(q4, k4, v4, is_causal=True),
-        10)
+        50)
     qg, kg, vg = (t.detach().clone().requires_grad_(True)
                   for t in (q4, k4, v4))
     do4 = do.reshape(shape)
@@ -321,7 +345,7 @@ def sdpa_backward(q4, k4, v4, do4):
             do4, q4, k4, v4, o4, lse4, cq, ck, mq, mk, 0.0, True, seed,
             offset)
 
-    ms = cuda_time_ms(bwd, 10)
+    ms = cuda_time_ms(bwd, 50)
     b, h, s, d = q4.shape
     q, k, v, do = (t.reshape(b * h, s, d) for t in (q4, k4, v4, do4))
     cfg = (None, None, None, 1.0 / math.sqrt(d), True, None)
@@ -420,8 +444,11 @@ def phase_slice(rows, steps=5, batch=8, seq=1024, seed=0):
     compile_s = time.perf_counter() - t0
 
     kernels = (fa.flash_fwd, fa.flash_bwd_dq, fa.flash_bwd_dkv)
+    tensor_core = (fa.flash_fwd, fa.flash_bwd_dkv)
     for k in kernels:
         k.launches = 0
+    for k in tensor_core:
+        k.tensor_core_launches = 0
     losses, step_ms = [], []
     for _ in range(steps):
         t = time.perf_counter()
@@ -429,13 +456,15 @@ def phase_slice(rows, steps=5, batch=8, seq=1024, seed=0):
         losses.append(loss.item())  # synchronizes
         step_ms.append((time.perf_counter() - t) * 1e3)
     launches = {k.__name__: k.launches for k in kernels}
+    tc_launches = {k.__name__: k.tensor_core_launches for k in tensor_core}
 
     if not all(math.isfinite(v) for v in losses):
         raise AssertionError(f"non-finite loss: {losses}")
     want = cfg.n_layer * steps
-    if any(n != want for n in launches.values()):
-        raise AssertionError(f"kernel launches {launches} over {steps} "
-                             f"steps, expected {want} each")
+    if any(n != want for n in (*launches.values(), *tc_launches.values())):
+        raise AssertionError(f"kernel launches {launches} (tensor-core "
+                             f"route: {tc_launches}) over {steps} steps, "
+                             f"expected {want} each")
     for name, n in launches.items():
         rows[name]["launches"] = n
     profile = profile_steps(m, x, y)
@@ -464,6 +493,7 @@ def phase_slice(rows, steps=5, batch=8, seq=1024, seed=0):
         "median_step_ms": med, "tokens_per_s": batch * seq / med * 1e3,
         "launches": launches, "launches_per_step": {
             n: c / steps for n, c in launches.items()},
+        "tensor_core_launches": tc_launches,
         "logits_max_abs_err_vs_plain": logits_err,
         "logits_atol": LOGITS_ATOL,
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30})
@@ -472,7 +502,7 @@ def phase_slice(rows, steps=5, batch=8, seq=1024, seed=0):
 
 
 KERNEL_GROUPS = (
-    ("flash_attention", re.compile(r"\b(fwd|dq|dkv)_kernel<")),
+    ("flash_attention", re.compile(r"\b(fwd|dq|dkv)(_tc)?_kernel<")),
     ("gemm", re.compile(r"gemm|nvjet|xmma|cutlass", re.I)),
 )
 
@@ -863,22 +893,73 @@ def phase_bottleneck(m, images):
 SOURCES = ("flash_attention", "resnet_bottleneck")
 
 
+def kernel_report(lib):
+    """Per kernel of a built library, by its name as ``cu++filt``
+    demangles it: registers and spill bytes from ptxas's ``-v`` report of
+    the build, and the counts of tensor-core (HMMA, HGMMA) and
+    local-memory (LDL, STL) instructions in its SASS (``cuobjdump
+    -sass``)."""
+    from singa_tpu_torch.ops import _build
+
+    tools = os.path.dirname(_build.nvcc_path())
+    out = {}
+    with open(_build.ptxas_report(lib)) as fh:
+        ptxas = fh.read()
+    for name, body in re.findall(
+            r"Compiling entry function '(\S+)'(.*?)(?=Compiling entry|\Z)",
+            ptxas, re.S):
+        row = out.setdefault(name, {})
+        for key, rx in (("registers", r"Used (\d+) registers"),
+                        ("stack_bytes", r"(\d+) bytes stack frame"),
+                        ("spill_store_bytes", r"(\d+) bytes spill stores"),
+                        ("spill_load_bytes", r"(\d+) bytes spill loads")):
+            m = re.search(rx, body)
+            if m:
+                row[key] = int(m.group(1))
+    sass = subprocess.run([os.path.join(tools, "cuobjdump"), "-sass", lib],
+                          capture_output=True, text=True, check=True).stdout
+    for name, body in re.findall(
+            r"Function : (\S+)\n(.*?)(?=Function : |\Z)", sass, re.S):
+        row = out.setdefault(name, {})
+        row["tensor_core_instructions"] = len(
+            re.findall(r"\bH(?:G)?MMA\.", body))
+        row["local_memory_instructions"] = len(
+            re.findall(r"\b(?:LDL|STL)(?:\.\w+)*\s", body))
+    names = sorted(out)
+    readable = subprocess.run([os.path.join(tools, "cu++filt"), *names],
+                              capture_output=True, text=True,
+                              check=True).stdout.splitlines()
+    return dict(zip(readable, (out[n] for n in names), strict=True))
+
+
+def phase_build():
+    """Builds every source at once and reports each kernel's SASS; fails
+    if a tensor-core flash kernel has no tensor-core instruction."""
+    from singa_tpu_torch.ops import _build
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(SOURCES)) as pool:
+        libs = list(pool.map(_build.build, SOURCES))
+    seconds = time.perf_counter() - t0
+    for name in SOURCES:
+        _build.load(name)
+    report = {name: kernel_report(lib) for name, lib in zip(SOURCES, libs)}
+    tc = {k: v for k, v in report["flash_attention"].items()
+          if "_tc_kernel" in k}
+    if not tc or not all(v.get("tensor_core_instructions")
+                         for v in tc.values()):
+        raise AssertionError(f"tensor-core flash kernels without HMMA/HGMMA "
+                             f"in their SASS: {tc}")
+    log({"phase": "build", "libraries": libs, "seconds": seconds,
+         "kernels": report})
+
 
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke.py: no CUDA device; the port's smoke run needs "
               "one GPU", file=sys.stderr)
         return 1
-    from singa_tpu_torch.ops import _build
-
-    t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(SOURCES)) as pool:
-        libs = list(pool.map(_build.build, SOURCES))
-    for name in SOURCES:
-        _build.load(name)
-    log({"phase": "build", "libraries": libs,
-         "seconds": time.perf_counter() - t0})
-
+    phase_build()
     rows = phase_kernels()
     phase_slice(rows)
     model, images = phase_resnet()

@@ -19,10 +19,8 @@
 //   * the TPU's sequential key-block grid axis becomes a loop inside one
 //     CUDA block; its bounds stop at the causal diagonal and start at the
 //     window band, so skipped tiles cost nothing (no idle grid steps);
-//   * one block of 256 threads per (bh, 64-row tile) (32 rows when
-//     D > 128), Q/K/V/dO tiles staged in shared memory as float32 with an
-//     odd row stride (no bank conflicts), the online-softmax state and
-//     the O / dQ / dK / dV accumulators in registers, float32;
+//   * the online-softmax state and the O / dQ / dK / dV accumulators
+//     live in registers, float32 (the tiles of each family: below);
 //   * the ragged tail is masked in the kernel: any S and any D <= 256,
 //     no padding; key columns past S contribute p = 0, rows past S are
 //     not written; scale = 1/sqrt(D) of the true D comes from the caller;
@@ -32,16 +30,66 @@
 //     stream it is given and returns cudaGetLastError().
 //
 // What bounds them on the H100: at GPT-2 small's shape (BH = 96,
-// S = 1024, D = 64, causal, bf16) the work is ~1.3e10 FLOP for the
-// forward, 2.0e10 for dQ and 2.6e10 for dK/dV against ~50 MB of traffic,
-// i.e. tensor-core bound (~13 / 20 / 26 us at 989 TFLOP/s bf16).  This
-// first version does the products with float32 FMAs on the CUDA cores
-// (67 TFLOP/s peak), so it sits an order of magnitude or more above that
-// bound; mma.sync / wgmma tiles are the next step.
+// S = 1024, D = 64, causal, bf16) the work is 1.29e10 FLOP for the
+// forward, 1.93e10 for dQ and 2.58e10 for dK/dV against 51 / 64 / 76 MB
+// read and written once: the forward is bound by its bytes (15.1 us at
+// 3.35 TB/s), dQ and dK/dV by their products (19.6 / 26.1 us at 989
+// TFLOP/s bf16).
+//
+// Two families of kernels, chosen by the caller's `kind` (the routing
+// rule is `route` in ops/flash_attention.py):
+//
+//   * kind 2, bf16 with D <= 128 -- tensor cores, forward and dK/dV:
+//       fwd_tc_kernel  <- _flash_fwd_pallas (_fwd_kernel)
+//       dkv_tc_kernel  <- _flash_bwd_pallas, dK/dV call (_dkv_kernel)
+//     FlashAttention-2's structure on mma.sync.m16n8k16 (bf16 in, f32
+//     sums).  Operands stay bf16 in shared memory, in rows of DT = 64 or
+//     128 elements (D zero-filled up to DT) whose 16-byte chunks are
+//     XOR-swizzled by row, so ldmatrix reads them without bank
+//     conflicts.  Tiles arrive by cp.async (16 bytes a thread, zero-fill
+//     past S and D; element loads when D % 8 != 0) into two stages: tile
+//     i + 1 loads while tile i computes, one __syncthreads per tile.
+//     Only tiles on the causal diagonal, at a window's edge, at the
+//     ragged end of S, or under a mask apply per-element masks and
+//     exponentiate exact differences (scores at the NEG_INF floor); the
+//     others fold the scale into one FMA before a single ex2.
+//     - fwd_tc_kernel<DT, 4>: one block of 4 warps per (bh, 64-row query
+//       tile), heaviest causal tiles first; each warp owns 16 query rows
+//       and keeps their Q fragments in registers.  S = Q K^T lands in
+//       registers, the online-softmax max and sum reduce over the 4
+//       threads of a fragment row with shuffles, and P is packed to bf16
+//       straight into the A fragment of P V (V read by ldmatrix.trans):
+//       no shared-memory round trip for P, no barrier between the two
+//       products.  Key tiles of 64.  Shared memory (64 + 4 * 64) * DT * 2
+//       B = 40 KB at DT = 64, 80 KB at DT = 128.  At DT = 64 it is held
+//       to 128 registers (16 warps on an SM), which spills 44 B; DT = 128:
+//       203 registers, no spills.
+//     - dkv_tc_kernel<DT, 4>: one block of 4 warps per (bh, 64-key tile),
+//       each warp owning 16 keys with their dK and dV sums in registers,
+//       walking the 32-row query tiles of the causal / window band.
+//       S^T = K Q^T and dP^T = V dO^T on the tensor cores, P^T and dS^T
+//       formed in registers and packed into the A fragments of
+//       dV += P^T dO and dK += dS^T Q (dO and Q read by ldmatrix.trans).
+//       No atomics: deterministic.  Q, dO, lse and delta are
+//       double-buffered; shared memory (2 * 64 + 4 * 32) * DT * 2 B +
+//       512 B = 33 KB at DT = 64, 66 KB at DT = 128.  168 / 252 registers,
+//       no spills.
+//     (Registers and spills: nvcc -Xptxas -v for sm_90a, as chip_smoke.py's
+//     build phase reports them; times and bounds: PERF.md.)
+//   * kinds 0 and 1, float32 (tensor cores would need TF32, which misses
+//     the float32 tolerance) and bf16 with 128 < D <= 256 -- CUDA cores:
+//       fwd_kernel / dq_kernel / dkv_kernel<T, BR, DT>
+//     and dq_kernel for every dtype (its tensor-core version is the next
+//     step).  One block of 256 threads per (bh, 64-row tile) (32 rows
+//     when D > 128); Q/K/V/dO tiles staged in shared memory as float32
+//     with an odd row stride (no bank conflicts); float32 FMAs, far above
+//     the bounds above (PERF.md).
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #define NEG_INF (-1e30f)
 #define NTHREADS 256
@@ -122,6 +170,7 @@ struct Args {
   int bh, S, D;
   float scale;
   int causal, window;  // window <= 0: none
+  int vec;             // D % 8 == 0 and q, k, v, dO 16-byte aligned
 };
 
 // ------------------------------------------------------------- forward
@@ -513,6 +562,499 @@ __global__ void __launch_bounds__(NTHREADS) dkv_kernel(Args a) {
   }
 }
 
+// ------------------------------------------- tensor-core kernels (bf16)
+
+typedef __nv_bfloat16 bf16;
+
+constexpr float LOG2E = 1.4426950408889634f;
+constexpr int TC_BN = 64;  // keys per tile of fwd_tc_kernel
+constexpr int TC_BQ = 32;  // query rows per tile of dkv_tc_kernel
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+// 16 bytes global -> shared, asynchronously; the bytes past src_bytes
+// are written as zeros (src_bytes = 0: a zero chunk, nothing read).
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(src_bytes));
+}
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(src_bytes));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+// Wait until at most N committed groups of this thread are in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Four 8x8 bf16 matrices from shared memory; lane l gives the address of
+// row l % 8 of matrix l / 8.  The .trans form hands each thread a column
+// pair instead of a row pair.
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+// d += a b on the tensor cores: a 16x16 bf16 (row-major fragment), b
+// 16x8 bf16 (column-major fragment), d 16x8 float32.  With g = lane / 4
+// and t = lane % 4, d[0..1] sit at (row g, columns 2t, 2t+1) and d[2..3]
+// at row g + 8; a[0..3] hold (g, 2t..), (g+8, 2t..), (g, 2t+8..),
+// (g+8, 2t+8..); b0 / b1 hold (k = 2t.. / 2t+8.., column g).
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// 2^x in one special-function instruction (results below 2^-126 flush
+// to 0; 2^-inf = 0).
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// Two floats rounded to bf16 (the cast the Pallas kernels make before a
+// dot), lo in the low half.
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// The A fragment of a 16x16 bf16 tile from two 16x8 float32
+// accumulators (columns 0-7 and 8-15): P and dS go from one product to
+// the next in registers.
+__device__ __forceinline__ void acc_to_a(uint32_t (&a)[4], const float (&lo)[4],
+                                         const float (&hi)[4]) {
+  a[0] = pack_bf16(lo[0], lo[1]);
+  a[1] = pack_bf16(lo[2], lo[3]);
+  a[2] = pack_bf16(hi[0], hi[1]);
+  a[3] = pack_bf16(hi[2], hi[3]);
+}
+
+// Element offset of 16-byte chunk c of row r in a tile with rows DT bf16
+// wide: the chunk index is XORed with r % 8, so the 8 rows an ldmatrix
+// matrix reads at one logical chunk lie in 8 different bank groups.
+template <int DT>
+__device__ __forceinline__ int swz(int r, int c) {
+  return r * DT + ((c ^ (r & 7)) << 3);
+}
+
+// Rows [row0, row0 + R) of a (S, D) bf16 matrix into a swizzled tile of
+// width DT: cp.async when `vec`, else element loads; zeros past S and D.
+template <int R, int DT, int NT>
+__device__ __forceinline__ void load_tile_tc(bf16* dst, const bf16* src,
+                                             int row0, int S, int D,
+                                             bool vec) {
+  constexpr int CH = DT / 8;
+  for (int i = threadIdx.x; i < R * CH; i += NT) {
+    const int r = i / CH, c = i % CH, row = row0 + r, col = c * 8;
+    bf16* d = dst + swz<DT>(r, c);
+    if (vec) {
+      const bool in = row < S && col < D;
+      cp_async16(d, in ? src + (size_t)row * D + col : src, in ? 16 : 0);
+    } else {
+#pragma unroll
+      for (int e = 0; e < 8; ++e)
+        d[e] = row < S && col + e < D ? src[(size_t)row * D + col + e]
+                                      : __float2bfloat16_rn(0.f);
+    }
+  }
+}
+
+// Entries [row0, row0 + R) of a (S,) float32 row vector; zeros past S.
+template <int R, int NT>
+__device__ __forceinline__ void load_rows_tc(float* dst, const float* src,
+                                             int row0, int S) {
+  for (int r = threadIdx.x; r < R; r += NT) {
+    const bool in = row0 + r < S;
+    cp_async4(dst + r, in ? src + row0 + r : src, in ? 4 : 0);
+  }
+}
+
+// masked_score, and -inf (p = 0, no part in a row max) for a query or a
+// key past S.
+__device__ __forceinline__ float tc_score(float dot, float scale,
+                                          const float* kmask, const float* qm,
+                                          int qi, int kj, int S, int causal,
+                                          int window) {
+  if (qi >= S || kj >= S) return -INFINITY;
+  return masked_score(dot, scale, kmask, qm, qi, kj, S, causal, window);
+}
+
+// Row `row` of a (S, D) bf16 output from a thread's two accumulator
+// columns per 8-column block, divided by `div`.
+template <int DB>
+__device__ __forceinline__ void store_row_tc(bf16* out, const float (&acc)[DB][4],
+                                             int half, int row, int D, int t,
+                                             float div) {
+  bf16* dst = out + (size_t)row * D;
+#pragma unroll
+  for (int db = 0; db < DB; ++db) {
+    const int col = db * 8 + 2 * t;
+    const float x0 = acc[db][2 * half] / div, x1 = acc[db][2 * half + 1] / div;
+    if ((D & 1) == 0) {
+      if (col < D)
+        *reinterpret_cast<__nv_bfloat162*>(dst + col) =
+            __floats2bfloat162_rn(x0, x1);
+    } else {
+      if (col < D) dst[col] = __float2bfloat16_rn(x0);
+      if (col + 1 < D) dst[col + 1] = __float2bfloat16_rn(x1);
+    }
+  }
+}
+
+// (At DT = 64, at most 128 registers: 16 warps on an SM.)
+template <int DT, int NW>
+__global__ void __launch_bounds__(NW * 32, DT == 64 ? 16 / NW : 1)
+    fwd_tc_kernel(Args a) {
+  constexpr int BM = 16 * NW, BN = TC_BN, NT = 32 * NW;
+  constexpr int KS = DT / 16, NB = BN / 8, DB = DT / 8;
+  extern __shared__ __align__(128) unsigned char smem_tc[];
+  bf16* sQ = reinterpret_cast<bf16*>(smem_tc);
+  bf16* sK = sQ + BM * DT;      // two stages
+  bf16* sV = sK + 2 * BN * DT;  // two stages
+
+  const int S = a.S, D = a.D;
+  const int bh = blockIdx.x;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BM;  // longest rows first
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3, rw = warp * 16;
+  const size_t base = (size_t)bh * S * D;
+  const bf16* Q = (const bf16*)a.q + base;
+  const bf16* K = (const bf16*)a.k + base;
+  const bf16* V = (const bf16*)a.v + base;
+  const float* kmask = a.kmask ? a.kmask + (size_t)bh * S : nullptr;
+  const float* qm =
+      a.qmask ? a.qmask + (size_t)((bh / a.qdiv) % a.qmod) * S * S : nullptr;
+  const bool vec = a.vec;
+
+  const int q_last = min(q0 + BM, S) - 1;
+  const int kt_end = a.causal ? q_last / BN : (S - 1) / BN;
+  int kt_begin = 0;
+  if (a.causal && a.window > 0) kt_begin = max(0, q0 - (a.window - 1)) / BN;
+
+  load_tile_tc<BM, DT, NT>(sQ, Q, q0, S, D, vec);
+  cp_async_commit();
+  load_tile_tc<BN, DT, NT>(sK, K, kt_begin * BN, S, D, vec);
+  load_tile_tc<BN, DT, NT>(sV, V, kt_begin * BN, S, D, vec);
+  cp_async_commit();
+  cp_async_wait<1>();
+  __syncthreads();
+  uint32_t qf[KS][4];
+#pragma unroll
+  for (int ks = 0; ks < KS; ++ks)
+    ldsm_x4(qf[ks], smem_u32(sQ + swz<DT>(rw + (lane & 15), 2 * ks + (lane >> 4))));
+
+  float o[DB][4];
+#pragma unroll
+  for (int j = 0; j < DB; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
+  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
+
+  for (int kt = kt_begin; kt <= kt_end; ++kt) {
+    const int k0 = kt * BN, st = (kt - kt_begin) & 1;
+    const bf16* cK = sK + st * BN * DT;
+    const bf16* cV = sV + st * BN * DT;
+    cp_async_wait<0>();
+    __syncthreads();  // tile kt landed; every warp is done with tile kt-1
+    if (kt < kt_end) {
+      load_tile_tc<BN, DT, NT>(sK + (st ^ 1) * BN * DT, K, k0 + BN, S, D, vec);
+      load_tile_tc<BN, DT, NT>(sV + (st ^ 1) * BN * DT, V, k0 + BN, S, D, vec);
+      cp_async_commit();
+    }
+
+    // S = Q K^T: this warp's 16 rows x BN keys
+    float s[NB][4];
+#pragma unroll
+    for (int j = 0; j < NB; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks) {
+#pragma unroll
+      for (int j = 0; j < NB / 2; ++j) {
+        uint32_t b[4];
+        ldsm_x4(b, smem_u32(cK + swz<DT>(j * 16 + (lane & 7) + ((lane >> 4) << 3),
+                                         2 * ks + ((lane >> 3) & 1))));
+        mma_bf16(s[2 * j], qf[ks], b[0], b[1]);
+        mma_bf16(s[2 * j + 1], qf[ks], b[2], b[3]);
+      }
+    }
+
+    // Scores and the online softmax over rows g (h = 0) and g + 8
+    // (h = 1).  A tile on the diagonal, a window's edge, the end of S or
+    // under a mask takes masked_score's value per element and
+    // exponentiates differences, so that scores at the NEG_INF floor give
+    // exactly 1 against a max at the floor; any other tile folds the
+    // scale into one FMA (a max above the floor, every score finite).
+    const bool edge =
+        kmask || qm || k0 + BN > S || q0 + BM > S ||
+        (a.causal && (k0 + BN - 1 > q0 ||
+                      (a.window > 0 && q0 + BM - 1 - k0 >= a.window)));
+    if (edge) {
+#pragma unroll
+      for (int j = 0; j < NB; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          s[j][e] = tc_score(s[j][e], a.scale, kmask, qm,
+                             q0 + rw + g + (e >> 1) * 8,
+                             k0 + j * 8 + 2 * t + (e & 1), S, a.causal,
+                             a.window);
+    }
+    const float sc = edge ? 1.f : a.scale;  // s * sc: the score
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float mx = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < NB; ++j)
+        mx = fmaxf(mx, fmaxf(s[j][2 * h], s[j][2 * h + 1]));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float m_new = fmaxf(m[h], mx * sc);
+      const float alpha = ex2((m[h] - m_new) * LOG2E);
+      if (edge) {
+#pragma unroll
+        for (int j = 0; j < NB; ++j)
+#pragma unroll
+          for (int e = 2 * h; e < 2 * h + 2; ++e)
+            s[j][e] = (s[j][e] - m_new) * LOG2E;
+      } else {
+        const float scl = a.scale * LOG2E, ml = m_new * LOG2E;
+#pragma unroll
+        for (int j = 0; j < NB; ++j)
+#pragma unroll
+          for (int e = 2 * h; e < 2 * h + 2; ++e)
+            s[j][e] = fmaf(s[j][e], scl, -ml);
+      }
+      float sum = 0.f;
+#pragma unroll
+      for (int j = 0; j < NB; ++j)
+#pragma unroll
+        for (int e = 2 * h; e < 2 * h + 2; ++e) {
+          s[j][e] = ex2(s[j][e]);
+          sum += s[j][e];
+        }
+      l[h] = l[h] * alpha + sum;  // this thread's part of the row sum
+      m[h] = m_new;
+#pragma unroll
+      for (int j = 0; j < DB; ++j) {
+        o[j][2 * h] *= alpha;
+        o[j][2 * h + 1] *= alpha;
+      }
+    }
+
+    // O += P V, P rounded to bf16 in registers
+#pragma unroll
+    for (int kk = 0; kk < BN / 16; ++kk) {
+      uint32_t pa[4];
+      acc_to_a(pa, s[2 * kk], s[2 * kk + 1]);
+#pragma unroll
+      for (int j = 0; j < DB / 2; ++j) {
+        uint32_t b[4];
+        ldsm_x4_t(b, smem_u32(cV + swz<DT>(kk * 16 + (lane & 7) +
+                                               (((lane >> 3) & 1) << 3),
+                                           2 * j + (lane >> 4))));
+        mma_bf16(o[2 * j], pa, b[0], b[1]);
+        mma_bf16(o[2 * j + 1], pa, b[2], b[3]);
+      }
+    }
+  }
+
+  bf16* O = (bf16*)a.out0 + base;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    float lt = l[h];
+    lt += __shfl_xor_sync(0xffffffffu, lt, 1);
+    lt += __shfl_xor_sync(0xffffffffu, lt, 2);
+    const int row = q0 + rw + g + 8 * h;
+    if (row >= S) continue;
+    const float l_safe = lt == 0.f ? 1.f : lt;
+    store_row_tc<DB>(O, o, h, row, D, t, l_safe);
+    if (t == 0) a.lse_out[(size_t)bh * S + row] = m[h] + logf(l_safe);
+  }
+}
+
+// (At DT = 64, at most 168 registers: 3 blocks of 4 warps on an SM.)
+template <int DT, int NW>
+__global__ void __launch_bounds__(NW * 32, DT == 64 ? 3 : 1)
+    dkv_tc_kernel(Args a) {
+  constexpr int BN = 16 * NW, BM = TC_BQ, NT = 32 * NW;
+  constexpr int KS = DT / 16, NB = BM / 8, DB = DT / 8;
+  extern __shared__ __align__(128) unsigned char smem_tc[];
+  bf16* sK = reinterpret_cast<bf16*>(smem_tc);
+  bf16* sV = sK + BN * DT;
+  bf16* sQ = sV + BN * DT;       // two stages
+  bf16* sO = sQ + 2 * BM * DT;   // dO, two stages
+  float* sL = reinterpret_cast<float*>(sO + 2 * BM * DT);  // lse, two stages
+  float* sDl = sL + 2 * BM;                                 // delta, two
+
+  const int S = a.S, D = a.D;
+  const int bh = blockIdx.x, k0 = blockIdx.y * BN;  // longest first
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3, rw = warp * 16;
+  const size_t base = (size_t)bh * S * D;
+  const bf16* Q = (const bf16*)a.q + base;
+  const bf16* K = (const bf16*)a.k + base;
+  const bf16* V = (const bf16*)a.v + base;
+  const bf16* dO = (const bf16*)a.dout + base;
+  const float* lse = a.lse + (size_t)bh * S;
+  const float* delta = a.delta + (size_t)bh * S;
+  const float* kmask = a.kmask ? a.kmask + (size_t)bh * S : nullptr;
+  const float* qm =
+      a.qmask ? a.qmask + (size_t)((bh / a.qdiv) % a.qmod) * S * S : nullptr;
+  const bool vec = a.vec;
+
+  // query tiles that see this key tile: causal rows q >= k0; with a
+  // window, rows q <= k_last + window - 1
+  const int k_last = min(k0 + BN, S) - 1;
+  const int qt_begin = a.causal ? k0 / BM : 0;
+  int qt_end = (S - 1) / BM;
+  if (a.causal && a.window > 0)
+    qt_end = min(qt_end, (k_last + a.window - 1) / BM);
+
+  load_tile_tc<BN, DT, NT>(sK, K, k0, S, D, vec);
+  load_tile_tc<BN, DT, NT>(sV, V, k0, S, D, vec);
+  load_tile_tc<BM, DT, NT>(sQ, Q, qt_begin * BM, S, D, vec);
+  load_tile_tc<BM, DT, NT>(sO, dO, qt_begin * BM, S, D, vec);
+  load_rows_tc<BM, NT>(sL, lse, qt_begin * BM, S);
+  load_rows_tc<BM, NT>(sDl, delta, qt_begin * BM, S);
+  cp_async_commit();
+
+  float dk[DB][4], dv[DB][4];
+#pragma unroll
+  for (int j = 0; j < DB; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk[j][e] = dv[j][e] = 0.f;
+
+  for (int qt = qt_begin; qt <= qt_end; ++qt) {
+    const int q0 = qt * BM, st = (qt - qt_begin) & 1;
+    const bf16* cQ = sQ + st * BM * DT;
+    const bf16* cO = sO + st * BM * DT;
+    const float* cL = sL + st * BM;
+    const float* cDl = sDl + st * BM;
+    cp_async_wait<0>();
+    __syncthreads();  // tile qt landed; every warp is done with tile qt-1
+    if (qt < qt_end) {
+      const int n0 = q0 + BM, ns = st ^ 1;
+      load_tile_tc<BM, DT, NT>(sQ + ns * BM * DT, Q, n0, S, D, vec);
+      load_tile_tc<BM, DT, NT>(sO + ns * BM * DT, dO, n0, S, D, vec);
+      load_rows_tc<BM, NT>(sL + ns * BM, lse, n0, S);
+      load_rows_tc<BM, NT>(sDl + ns * BM, delta, n0, S);
+      cp_async_commit();
+    }
+
+    // S^T = K Q^T and dP^T = V dO^T: this warp's 16 keys x BM queries
+    float s[NB][4], dp[NB][4];
+#pragma unroll
+    for (int j = 0; j < NB; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks) {
+      uint32_t ak[4], av[4];
+      const int arow = rw + (lane & 15), achunk = 2 * ks + (lane >> 4);
+      ldsm_x4(ak, smem_u32(sK + swz<DT>(arow, achunk)));
+      ldsm_x4(av, smem_u32(sV + swz<DT>(arow, achunk)));
+#pragma unroll
+      for (int j = 0; j < NB / 2; ++j) {
+        const int off = swz<DT>(j * 16 + (lane & 7) + ((lane >> 4) << 3),
+                                2 * ks + ((lane >> 3) & 1));
+        uint32_t b[4];
+        ldsm_x4(b, smem_u32(cQ + off));
+        mma_bf16(s[2 * j], ak, b[0], b[1]);
+        mma_bf16(s[2 * j + 1], ak, b[2], b[3]);
+        ldsm_x4(b, smem_u32(cO + off));
+        mma_bf16(dp[2 * j], av, b[0], b[1]);
+        mma_bf16(dp[2 * j + 1], av, b[2], b[3]);
+      }
+    }
+
+    // P^T = exp(S^T - lse) and dS^T = P^T (dP^T - delta) scale, in
+    // place; per-element masks and exact differences only on the tiles
+    // that need them, as in the forward
+    const bool edge =
+        kmask || qm || k0 + BN > S || q0 + BM > S ||
+        (a.causal && (q0 < k0 + BN - 1 ||
+                      (a.window > 0 && q0 + BM - 1 - k0 >= a.window)));
+    if (edge) {
+#pragma unroll
+      for (int j = 0; j < NB; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int c = j * 8 + 2 * t + (e & 1);
+          const float x = tc_score(s[j][e], a.scale, kmask, qm, q0 + c,
+                                   k0 + rw + g + (e >> 1) * 8, S, a.causal,
+                                   a.window);
+          s[j][e] = (x - cL[c]) * LOG2E;
+        }
+    } else {
+      const float scl = a.scale * LOG2E;
+#pragma unroll
+      for (int j = 0; j < NB; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          s[j][e] = fmaf(s[j][e], scl, -cL[j * 8 + 2 * t + (e & 1)] * LOG2E);
+    }
+#pragma unroll
+    for (int j = 0; j < NB; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int c = j * 8 + 2 * t + (e & 1);
+        s[j][e] = ex2(s[j][e]);
+        dp[j][e] = s[j][e] * (dp[j][e] - cDl[c]) * a.scale;
+      }
+
+    // dV += P^T dO and dK += dS^T Q, P^T and dS^T rounded to bf16
+#pragma unroll
+    for (int kk = 0; kk < BM / 16; ++kk) {
+      uint32_t pa[4], da[4];
+      acc_to_a(pa, s[2 * kk], s[2 * kk + 1]);
+      acc_to_a(da, dp[2 * kk], dp[2 * kk + 1]);
+#pragma unroll
+      for (int j = 0; j < DB / 2; ++j) {
+        const int off = swz<DT>(kk * 16 + (lane & 7) + (((lane >> 3) & 1) << 3),
+                                2 * j + (lane >> 4));
+        uint32_t b[4];
+        ldsm_x4_t(b, smem_u32(cO + off));
+        mma_bf16(dv[2 * j], pa, b[0], b[1]);
+        mma_bf16(dv[2 * j + 1], pa, b[2], b[3]);
+        ldsm_x4_t(b, smem_u32(cQ + off));
+        mma_bf16(dk[2 * j], da, b[0], b[1]);
+        mma_bf16(dk[2 * j + 1], da, b[2], b[3]);
+      }
+    }
+  }
+
+  bf16* dK = (bf16*)a.out0 + base;
+  bf16* dV = (bf16*)a.out1 + base;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = k0 + rw + g + 8 * h;
+    if (row >= S) continue;
+    store_row_tc<DB>(dK, dk, h, row, D, t, 1.f);
+    store_row_tc<DB>(dV, dv, h, row, D, t, 1.f);
+  }
+}
+
 // ------------------------------------------------------------ launching
 
 enum Which { kFwd = 0, kDq = 1, kDkv = 2 };
@@ -529,9 +1071,14 @@ template <typename T, int BR, int DT>
 int launch(int which, const Args& a, cudaStream_t stream) {
   const size_t smem = smem_bytes<BR, DT>(which);
   const dim3 grid((unsigned)a.bh * (unsigned)((a.S + BR - 1) / BR));
-  void (*kernel)(Args) = which == kFwd  ? fwd_kernel<T, BR, DT>
-                         : which == kDq ? dq_kernel<T, BR, DT>
-                                        : dkv_kernel<T, BR, DT>;
+  void (*kernel)(Args) = dq_kernel<T, BR, DT>;
+  // bf16 forward and dK/dV at D <= 128 run on the tensor cores only
+  if constexpr (!std::is_same_v<T, bf16> || DT > 128) {
+    if (which == kFwd) kernel = fwd_kernel<T, BR, DT>;
+    if (which == kDkv) kernel = dkv_kernel<T, BR, DT>;
+  } else if (which != kDq) {
+    return (int)cudaErrorInvalidValue;
+  }
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -539,7 +1086,7 @@ int launch(int which, const Args& a, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
-// dtype: 0 = float32, 1 = bfloat16.  D <= 256 (the caller checks).
+// The CUDA-core kernels: float32 or bf16, D <= 256.
 template <typename T>
 int dispatch_d(int which, const Args& a, cudaStream_t stream) {
   if (a.D <= 64) return launch<T, 64, 64>(which, a, stream);
@@ -548,11 +1095,56 @@ int dispatch_d(int which, const Args& a, cudaStream_t stream) {
   return (int)cudaErrorInvalidValue;
 }
 
-int dispatch(int which, int dtype, const Args& a, void* stream) {
+// One tensor-core kernel over a grid of (bh, tiles of S).
+int launch_tc(void (*kernel)(Args), int tile, size_t smem, int nthreads,
+              const Args& a, cudaStream_t stream) {
+  const int tiles = (a.S + tile - 1) / tile;
+  if (tiles > 65535) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<dim3((unsigned)a.bh, (unsigned)tiles), nthreads, smem, stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+template <int DT>
+int launch_fwd_tc(const Args& a, cudaStream_t stream) {
+  constexpr int NW = 4, BM = 16 * NW;
+  return launch_tc(fwd_tc_kernel<DT, NW>, BM,
+                   sizeof(bf16) * (BM + 4 * TC_BN) * DT, 32 * NW, a, stream);
+}
+
+template <int DT>
+int launch_dkv_tc(const Args& a, cudaStream_t stream) {
+  constexpr int NW = 4, BN = 16 * NW;
+  return launch_tc(dkv_tc_kernel<DT, NW>, BN,
+                   sizeof(bf16) * (2 * BN + 4 * TC_BQ) * DT +
+                       sizeof(float) * 4 * TC_BQ,
+                   32 * NW, a, stream);
+}
+
+// The tensor-core kernels: bf16, D <= 128, forward and dK/dV only.
+int dispatch_tc(int which, const Args& a, cudaStream_t stream) {
+  if (which == kFwd && a.D <= 64) return launch_fwd_tc<64>(a, stream);
+  if (which == kFwd && a.D <= 128) return launch_fwd_tc<128>(a, stream);
+  if (which == kDkv && a.D <= 64) return launch_dkv_tc<64>(a, stream);
+  if (which == kDkv && a.D <= 128) return launch_dkv_tc<128>(a, stream);
+  return (int)cudaErrorInvalidValue;
+}
+
+// kind: 0 = float32 on CUDA cores, 1 = bf16 on CUDA cores (dQ, and the
+// forward and dK/dV past D = 128), 2 = bf16 on tensor cores (forward and
+// dK/dV, D <= 128).  The caller chooses; a kind that does not take the
+// call returns cudaErrorInvalidValue.
+int dispatch(int which, int kind, Args a, void* stream) {
   if (a.bh <= 0 || a.S <= 0 || a.D <= 0) return 0;  // nothing to do
   cudaStream_t st = (cudaStream_t)stream;
-  if (dtype == 0) return dispatch_d<float>(which, a, st);
-  if (dtype == 1) return dispatch_d<__nv_bfloat16>(which, a, st);
+  const uintptr_t ptrs = (uintptr_t)a.q | (uintptr_t)a.k | (uintptr_t)a.v |
+                         (uintptr_t)a.dout;
+  a.vec = a.D % 8 == 0 && ptrs % 16 == 0;
+  if (kind == 0) return dispatch_d<float>(which, a, st);
+  if (kind == 1) return dispatch_d<bf16>(which, a, st);
+  if (kind == 2) return dispatch_tc(which, a, st);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -584,12 +1176,12 @@ extern "C" {
 int flash_fwd(const void* q, const void* k, const void* v, const float* kmask,
               const float* qmask, int qdiv, int qmod, void* o, float* lse,
               int bh, int S, int D, float scale, int causal, int window,
-              int dtype, void* stream) {
+              int kind, void* stream) {
   Args a = make_args(q, k, v, kmask, qmask, qdiv, qmod, bh, S, D, scale,
                      causal, window);
   a.out0 = o;
   a.lse_out = lse;
-  return dispatch(kFwd, dtype, a, stream);
+  return dispatch(kFwd, kind, a, stream);
 }
 
 // dq: (bh, S, D); lse, delta: (bh, S) float32.
@@ -597,14 +1189,14 @@ int flash_bwd_dq(const void* q, const void* k, const void* v,
                  const float* kmask, const float* qmask, int qdiv, int qmod,
                  const void* dout, const float* lse, const float* delta,
                  void* dq, int bh, int S, int D, float scale, int causal,
-                 int window, int dtype, void* stream) {
+                 int window, int kind, void* stream) {
   Args a = make_args(q, k, v, kmask, qmask, qdiv, qmod, bh, S, D, scale,
                      causal, window);
   a.dout = dout;
   a.lse = lse;
   a.delta = delta;
   a.out0 = dq;
-  return dispatch(kDq, dtype, a, stream);
+  return dispatch(kDq, kind, a, stream);
 }
 
 // dk, dv: (bh, S, D).
@@ -612,7 +1204,7 @@ int flash_bwd_dkv(const void* q, const void* k, const void* v,
                   const float* kmask, const float* qmask, int qdiv, int qmod,
                   const void* dout, const float* lse, const float* delta,
                   void* dk, void* dv, int bh, int S, int D, float scale,
-                  int causal, int window, int dtype, void* stream) {
+                  int causal, int window, int kind, void* stream) {
   Args a = make_args(q, k, v, kmask, qmask, qdiv, qmod, bh, S, D, scale,
                      causal, window);
   a.dout = dout;
@@ -620,7 +1212,7 @@ int flash_bwd_dkv(const void* q, const void* k, const void* v,
   a.delta = delta;
   a.out0 = dk;
   a.out1 = dv;
-  return dispatch(kDkv, dtype, a, stream);
+  return dispatch(kDkv, kind, a, stream);
 }
 
 }  // extern "C"

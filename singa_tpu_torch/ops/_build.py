@@ -3,7 +3,9 @@
 Each ``csrc/*.cu`` file exports a plain C interface and is compiled on
 first use with ``nvcc`` for Hopper (``sm_90a``) into
 ``singa_tpu_torch/_build/<name>-<hash>.so``, keyed by a hash of the
-source and the flags, then loaded with ``ctypes``.  Nothing is built when
+source and the flags, then loaded with ``ctypes``; ptxas's report of each
+kernel's registers and spills (``-Xptxas -v``) is kept beside it as
+``<name>-<hash>.ptxas.txt``.  Nothing is built when
 a module is imported, and nothing falls back: without ``nvcc`` the build
 raises.
 """
@@ -21,7 +23,8 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo",
+              "-Xptxas", "-v")
 
 _libs: dict = {}
 _lock = threading.Lock()
@@ -56,6 +59,11 @@ def library_path(name) -> str:
     return os.path.join(BUILD_DIR, f"{name}-{digest[:16]}.so")
 
 
+def ptxas_report(lib) -> str:
+    """The file holding ptxas's ``-v`` report for the library ``lib``."""
+    return lib[:-len(".so")] + ".ptxas.txt"
+
+
 def build(name) -> str:
     """Compile ``csrc/<name>.cu`` unless a library for this source is
     already built; return the library's path."""
@@ -70,6 +78,8 @@ def build(name) -> str:
     if res.returncode != 0:
         raise RuntimeError(f"nvcc failed ({res.returncode}) for "
                            f"{src_path}:\n{res.stderr[-8000:]}")
+    with open(ptxas_report(out), "w") as fh:
+        fh.write(res.stderr)
     os.replace(tmp, out)
     return out
 

@@ -14,7 +14,10 @@ wrapper            replaces (Pallas, TPU)      plain version
 =================  ==========================  ==============================
 
 A wrapper takes its plain version only for tensors on the CPU.  For CUDA
-tensors it launches the kernel or raises: there is no fallback.
+tensors it launches the kernel that :func:`route` names or raises: there
+is no fallback.  bf16 with D <= 128 runs ``flash_fwd`` and
+``flash_bwd_dkv`` on the tensor cores; float32, wider heads and
+``flash_bwd_dq`` run on the CUDA cores.
 
 Conventions kept from the JAX package: the finite floor ``NEG_INF =
 -1e30`` (causal masking writes it, the running max starts at it); a row
@@ -35,7 +38,9 @@ import torch
 from . import _build
 
 __all__ = [
-    "NEG_INF", "MAX_HEAD_DIM", "flash_attention", "flash_attention_lse",
+    "NEG_INF", "MAX_HEAD_DIM", "TENSOR_CORE_MAX_HEAD_DIM", "F32_CUDA_CORE",
+    "BF16_CUDA_CORE", "BF16_TENSOR_CORE", "route",
+    "flash_attention", "flash_attention_lse",
     "flash_attention_op", "flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
     "flash_fwd_plain", "flash_bwd_dq_plain", "flash_bwd_dkv_plain",
 ]
@@ -44,7 +49,37 @@ NEG_INF = -1e30
 #: widest head the CUDA kernels take (their register and shared-memory
 #: tiles are sized for D <= 64, <= 128 and <= 256)
 MAX_HEAD_DIM = 256
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+#: widest head the tensor-core kernels take (their tiles are 64 or 128
+#: wide)
+TENSOR_CORE_MAX_HEAD_DIM = 128
+#: the kernels a C entry point launches (its ``kind`` argument)
+F32_CUDA_CORE, BF16_CUDA_CORE, BF16_TENSOR_CORE = 0, 1, 2
+
+
+def route(dtype, d):
+    """The ``kind`` of kernel that ``flash_fwd`` and ``flash_bwd_dkv``
+    launch for CUDA tensors of this dtype and head dim:
+
+    * ``BF16_TENSOR_CORE``: bfloat16 with D <= 128 (``fwd_tc_kernel``,
+      ``dkv_tc_kernel``: bf16 ``mma.sync`` tiles, float32 sums);
+    * ``F32_CUDA_CORE``: float32, whose tensor-core products would be
+      TF32 and miss the float32 tolerance;
+    * ``BF16_CUDA_CORE``: bfloat16 with 128 < D <= 256 (``fwd_kernel``,
+      ``dkv_kernel``: float32 FMAs, as for float32).
+
+    ``flash_bwd_dq`` runs its CUDA-core kernel on every route.  Raises
+    TypeError for another dtype and ValueError for D > 256."""
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"flash kernels take float32 or bfloat16, "
+                        f"got {dtype}")
+    if d > MAX_HEAD_DIM:
+        raise ValueError(f"flash kernels take head dims up to "
+                         f"{MAX_HEAD_DIM}, got {d}")
+    if dtype == torch.float32:
+        return F32_CUDA_CORE
+    if d <= TENSOR_CORE_MAX_HEAD_DIM:
+        return BF16_TENSOR_CORE
+    return BF16_CUDA_CORE
 
 
 # ------------------------------------------------------------ plain versions
@@ -117,7 +152,7 @@ _PTR, _INT, _FLOAT = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _MASK_ARGS = [_PTR, _PTR, _INT, _INT]          # kmask, qmask, qdiv, qmod
 _SHAPE_ARGS = [_INT, _INT, _INT, _FLOAT, _INT, _INT, _INT, _PTR]
 _SIGNATURES = {
-    # q, k, v, masks, o, lse, bh, S, D, scale, causal, window, dtype, stream
+    # q, k, v, masks, o, lse, bh, S, D, scale, causal, window, kind, stream
     "flash_fwd": [_PTR] * 3 + _MASK_ARGS + [_PTR, _PTR] + _SHAPE_ARGS,
     # q, k, v, masks, dO, lse, delta, dq, ...
     "flash_bwd_dq": [_PTR] * 3 + _MASK_ARGS + [_PTR] * 4 + _SHAPE_ARGS,
@@ -142,14 +177,9 @@ def _ptr(t):
 
 
 def _check_cuda(q, k, v, kmask, qmask, *rest):
-    """Raise on anything the kernels do not take."""
-    if q.dtype not in _DTYPES:
-        raise TypeError(f"flash kernels take float32 or bfloat16, "
-                        f"got {q.dtype}")
-    bh, s, d = q.shape
-    if d > MAX_HEAD_DIM:
-        raise ValueError(f"flash kernels take head dims up to "
-                         f"{MAX_HEAD_DIM}, got {d}")
+    """Raise on anything the kernels do not take; return the ``kind``
+    that :func:`route` chooses."""
+    kind = route(q.dtype, q.shape[-1])
     for t in (q, k, v) + rest:
         if t.dtype != q.dtype or t.shape != q.shape:
             raise ValueError(f"flash kernels need q, k, v (and dO) of one "
@@ -162,6 +192,7 @@ def _check_cuda(q, k, v, kmask, qmask, *rest):
     for t in (kmask, qmask):
         if t is not None and t.dtype != torch.float32:
             raise TypeError(f"masks must be float32, got {t.dtype}")
+    return kind
 
 
 def _check_rows(q, lse, delta):
@@ -181,10 +212,10 @@ def _mask_args(kmask, qmask, qmap):
     return [_ptr(kmask), _ptr(qmask), int(qdiv), int(qmod)]
 
 
-def _shape_args(q, scale, causal, window):
+def _shape_args(q, scale, causal, window, kind):
     bh, s, d = q.shape
     return [bh, s, d, float(scale), int(bool(causal)), int(window or 0),
-            _DTYPES[q.dtype], torch.cuda.current_stream(q.device).cuda_stream]
+            kind, torch.cuda.current_stream(q.device).cuda_stream]
 
 
 def _raise_on(err, name):
@@ -200,14 +231,15 @@ def flash_fwd(q, k, v, kmask, qmask, qmap, scale, causal, window):
     if q.device.type == "cpu":
         return flash_fwd_plain(q, k, v, kmask, qmask, qmap, scale, causal,
                                window)
-    _check_cuda(q, k, v, kmask, qmask)
+    kind = _check_cuda(q, k, v, kmask, qmask)
     o = torch.empty_like(q)
     lse = torch.empty(q.shape[:2], device=q.device, dtype=torch.float32)
     err = _lib().flash_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(),
         *_mask_args(kmask, qmask, qmap), o.data_ptr(), lse.data_ptr(),
-        *_shape_args(q, scale, causal, window))
+        *_shape_args(q, scale, causal, window, kind))
     flash_fwd.launches += 1
+    flash_fwd.tensor_core_launches += kind == BF16_TENSOR_CORE
     _raise_on(err, "flash_fwd")
     return o, lse
 
@@ -218,14 +250,14 @@ def flash_bwd_dq(q, k, v, kmask, qmask, qmap, scale, causal, window, do,
     if q.device.type == "cpu":
         return flash_bwd_dq_plain(q, k, v, kmask, qmask, qmap, scale, causal,
                                   window, do, lse, delta)
-    _check_cuda(q, k, v, kmask, qmask, do)
+    kind = min(_check_cuda(q, k, v, kmask, qmask, do), BF16_CUDA_CORE)
     _check_rows(q, lse, delta)
     dq = torch.empty_like(q)
     err = _lib().flash_bwd_dq(
         q.data_ptr(), k.data_ptr(), v.data_ptr(),
         *_mask_args(kmask, qmask, qmap), do.data_ptr(), lse.data_ptr(),
         delta.data_ptr(), dq.data_ptr(),
-        *_shape_args(q, scale, causal, window))
+        *_shape_args(q, scale, causal, window, kind))
     flash_bwd_dq.launches += 1
     _raise_on(err, "flash_bwd_dq")
     return dq
@@ -237,22 +269,24 @@ def flash_bwd_dkv(q, k, v, kmask, qmask, qmap, scale, causal, window, do,
     if q.device.type == "cpu":
         return flash_bwd_dkv_plain(q, k, v, kmask, qmask, qmap, scale,
                                    causal, window, do, lse, delta)
-    _check_cuda(q, k, v, kmask, qmask, do)
+    kind = _check_cuda(q, k, v, kmask, qmask, do)
     _check_rows(q, lse, delta)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     err = _lib().flash_bwd_dkv(
         q.data_ptr(), k.data_ptr(), v.data_ptr(),
         *_mask_args(kmask, qmask, qmap), do.data_ptr(), lse.data_ptr(),
         delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-        *_shape_args(q, scale, causal, window))
+        *_shape_args(q, scale, causal, window, kind))
     flash_bwd_dkv.launches += 1
+    flash_bwd_dkv.tensor_core_launches += kind == BF16_TENSOR_CORE
     _raise_on(err, "flash_bwd_dkv")
     return dk, dv
 
 
-flash_fwd.launches = 0
+# launches in all, and (forward, dK/dV) those on the tensor-core route
+flash_fwd.launches = flash_fwd.tensor_core_launches = 0
 flash_bwd_dq.launches = 0
-flash_bwd_dkv.launches = 0
+flash_bwd_dkv.launches = flash_bwd_dkv.tensor_core_launches = 0
 
 
 class _FlashCore(torch.autograd.Function):

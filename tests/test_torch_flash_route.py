@@ -1,0 +1,115 @@
+"""Which flash kernels a CUDA call runs, and how ``chip_smoke.py`` finds
+them in a profile; no GPU needed.
+
+``singa_tpu_torch.ops.flash_attention.route`` is the one rule, and
+returns the C entry points' ``kind``: bf16 with D <= 128 runs the
+forward and dK/dV on the tensor-core kernels (``fwd_tc_kernel``,
+``dkv_tc_kernel``); float32 and bf16 with 128 < D <= 256 run the
+CUDA-core kernels; anything else raises.  The
+kernels themselves are held against their plain versions on the card
+(tests/test_torch_kernels_cuda.py, ``chip_smoke.py``).
+"""
+
+import pathlib
+import re
+
+import numpy as np
+import pytest
+import torch
+
+import chip_smoke
+from singa_tpu_torch.ops import flash_attention as tfa
+
+CU = (pathlib.Path(__file__).resolve().parents[1] / "singa_tpu_torch" /
+      "csrc" / "flash_attention.cu")
+
+
+TC, BF16_CC, F32_CC = (tfa.BF16_TENSOR_CORE, tfa.BF16_CUDA_CORE,
+                      tfa.F32_CUDA_CORE)
+
+
+@pytest.mark.parametrize("dtype,d,want", [
+    (torch.bfloat16, 1, TC),
+    (torch.bfloat16, 8, TC),
+    (torch.bfloat16, 64, TC),
+    (torch.bfloat16, 96, TC),
+    (torch.bfloat16, 128, TC),
+    (torch.bfloat16, 129, BF16_CC),
+    (torch.bfloat16, 160, BF16_CC),
+    (torch.bfloat16, 256, BF16_CC),
+    (torch.float32, 8, F32_CC),
+    (torch.float32, 64, F32_CC),
+    (torch.float32, 128, F32_CC),
+    (torch.float32, 160, F32_CC),
+    (torch.float32, 256, F32_CC),
+])
+def test_route(dtype, d, want):
+    assert tfa.route(dtype, d) == want
+
+
+def test_route_kinds_are_the_c_dispatchs():
+    """``route`` returns the ``kind`` argument of the C entry points:
+    ``dispatch`` in the source must read each number the same way."""
+    src = CU.read_text()
+    for kind, target in ((F32_CC, "dispatch_d<float>"),
+                         (BF16_CC, "dispatch_d<bf16>"),
+                         (TC, "dispatch_tc")):
+        assert re.search(rf"if \(kind == {kind}\) return {re.escape(target)}"
+                         rf"\(which", src), (kind, target)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("d", [257, 512])
+def test_route_raises_past_the_widest_head(dtype, d):
+    with pytest.raises(ValueError, match="head dims"):
+        tfa.route(dtype, d)
+
+
+def test_route_raises_on_other_dtypes():
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        tfa.route(torch.float16, 64)
+
+
+def _global_functions(src):
+    return re.findall(r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s+)?"
+                      r"(\w+)\s*\(", src)
+
+
+def test_every_flash_kernel_lands_in_the_profiles_flash_group():
+    """A kernel whose name the profile's pattern missed would count as
+    "other" and hide flash time; the profiler names a kernel
+    ``name<template args>(...)``."""
+    names = _global_functions(CU.read_text())
+    assert set(names) == {"fwd_kernel", "dq_kernel", "dkv_kernel",
+                          "fwd_tc_kernel", "dkv_tc_kernel"}
+    pattern = dict(chip_smoke.KERNEL_GROUPS)["flash_attention"]
+    for name in names:
+        profiled = f"void (anonymous namespace)::{name}<64, 4>(Args)"
+        group = next(g for g, rx in chip_smoke.KERNEL_GROUPS + (
+            ("other", re.compile("")),) if rx.search(profiled))
+        assert group == "flash_attention", name
+        assert pattern.search(profiled)
+
+
+def test_compare_script_needs_a_gpu(monkeypatch, capsys):
+    """``tools/compare_flash_kernels.py`` times kernels only on a card:
+    without one it exits 1 and prints no timing line."""
+    import runpy
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    script = CU.parents[2] / "tools" / "compare_flash_kernels.py"
+    mod = runpy.run_path(str(script), run_name="compare_flash_kernels")
+    assert mod["main"]([]) == 1
+    assert capsys.readouterr().out == ""
+
+
+def test_cpu_calls_leave_the_tensor_core_counters():
+    before = (tfa.flash_fwd.tensor_core_launches,
+              tfa.flash_bwd_dkv.tensor_core_launches)
+    rng = np.random.RandomState(0)
+    q, k, v = (torch.tensor(rng.randn(1, 2, 32, 64).astype(np.float32))
+               .bfloat16().requires_grad_(True) for _ in range(3))
+    tfa.flash_attention(q, k, v, causal=True).float().sum().backward()
+    assert k.grad is not None
+    assert (tfa.flash_fwd.tensor_core_launches,
+            tfa.flash_bwd_dkv.tensor_core_launches) == before

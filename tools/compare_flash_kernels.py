@@ -1,0 +1,90 @@
+#!/usr/bin/env python3
+"""Times the flash kernels of one checkout of the port on one GPU by a
+fixed method, so that two checkouts can be compared in one call:
+
+    python3 tools/compare_flash_kernels.py [--tree PATH]
+
+``PATH`` is the root of a checkout (by default this one).  Its
+``singa_tpu_torch`` is imported, so its kernels are built from its own
+sources into its own ``singa_tpu_torch/_build``.  The inputs (GPT-2
+small's attention shape, 8 x 12 x 1024 x 64, causal, bf16, from numpy
+seed 0) and the timer (CUDA events around back-to-back launches, two
+warm-up calls) come from this checkout's ``chip_smoke.py``, whichever
+tree is timed.  Each kernel is timed over 10 and over 50 launches: the
+count ``chip_smoke.py`` once timed kernels over, and the count it times
+them over now.
+
+Run it once per checkout in alternating order (A, B, B, A) within one
+process per run; each run prints one JSON line with the mean ms per
+launch of ``flash_fwd``, ``flash_bwd_dq`` and ``flash_bwd_dkv`` at each
+count, and the card's name and power limit.  Needs a CUDA GPU.
+"""
+
+from __future__ import annotations
+
+import argparse
+import importlib.util
+import json
+import os
+import subprocess
+import sys
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+LAUNCHES = (10, 50)
+
+
+def _chip_smoke():
+    """This checkout's ``chip_smoke.py``, loaded by path so that another
+    tree's copy on ``sys.path`` is not picked up instead."""
+    spec = importlib.util.spec_from_file_location(
+        "_chip_smoke_timer", os.path.join(ROOT, "chip_smoke.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--tree", default=ROOT,
+                    help="root of the checkout whose kernels are timed")
+    args = ap.parse_args(argv)
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("compare_flash_kernels.py: no CUDA device", file=sys.stderr)
+        return 1
+    tree = os.path.abspath(args.tree)
+    sys.path.insert(0, tree)
+    cs = _chip_smoke()
+    from singa_tpu_torch.ops import flash_attention as fa
+
+    sh = cs.GPT2_SHAPE
+    (q, k, v), cfg, do, dlse = cs._case_inputs(
+        sh["b"], sh["h"], sh["s"], sh["d"], torch.bfloat16, seed=0,
+        causal=True)
+    o, lse = fa.flash_fwd(q, k, v, *cfg)
+    delta = ((do.float() * o.float()).sum(-1) - dlse).contiguous()
+    bwd = (do, lse, delta)
+    calls = {
+        "flash_fwd": lambda: fa.flash_fwd(q, k, v, *cfg),
+        "flash_bwd_dq": lambda: fa.flash_bwd_dq(q, k, v, *cfg, *bwd),
+        "flash_bwd_dkv": lambda: fa.flash_bwd_dkv(q, k, v, *cfg, *bwd),
+    }
+    ms = {name: {str(n): cs.cuda_time_ms(fn, n) for n in LAUNCHES}
+          for name, fn in calls.items()}
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+    print(json.dumps({
+        "tree": tree, "package": os.path.dirname(os.path.dirname(
+            os.path.abspath(fa.__file__))),
+        "shape": dict(sh, causal=True, dtype="bfloat16"),
+        "ms_by_launches": ms, "nvidia_smi": smi.splitlines()[0]}),
+        flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
