@@ -12,8 +12,9 @@ exits nonzero:
                     reports each kernel's registers and spills (ptxas
                     ``-v``) and counts its tensor-core (HMMA/HGMMA) and
                     local-memory (LDL/STL) instructions in its SASS
-                    (``cuobjdump -sass``); fails if a tensor-core flash
-                    kernel has no HMMA/HGMMA.
+                    (``cuobjdump -sass``); fails if a tensor-core kernel
+                    (``*_tc_kernel``: the three flash kernels and the
+                    bottleneck) is missing or has no HMMA/HGMMA.
 2. ``kernels``    - holds ``flash_fwd``, ``flash_bwd_dq`` and
                     ``flash_bwd_dkv`` against their plain PyTorch versions
                     on the card: at GPT-2 small's attention shape (B=8,
@@ -21,8 +22,8 @@ exits nonzero:
                     float32 and bf16 (key mask, a fully -inf-masked row,
                     general masks, sliding windows, S=1/65/129/1000,
                     D=8/13/72/96/128/160), where bf16 with D <= 128 runs
-                    the tensor-core forward and dK/dV kernels and the rest
-                    the CUDA-core ones; and times each kernel, its plain
+                    the tensor-core kernels and the rest the CUDA-core
+                    ones; and times each kernel, its plain
                     version and PyTorch's fused attention, forward and
                     backward (a yardstick the port never calls).
 3. ``slice``      - trains GPT-2 small (124M, n_positions 1024, so
@@ -30,9 +31,8 @@ exits nonzero:
                     with bf16 amp and SGD(lr=1e-4, momentum=0.9) on a batch
                     of 8 x 1024 random ids, as ``bench.py``'s ``bench_gpt2``
                     configures the JAX package; checks finite losses,
-                    exactly 12 launches of each kernel per step (those of
-                    ``flash_fwd`` and ``flash_bwd_dkv`` all on the
-                    tensor-core route), and the logits of an eval forward
+                    exactly 12 launches of each kernel per step, all on
+                    the tensor-core route, and the logits of an eval forward
                     against the same weights on the plain ("fused")
                     attention path.
 4. ``profile``    - device time per kernel group (flash, GEMMs, the rest)
@@ -50,7 +50,8 @@ exits nonzero:
                     that enters ``layer1[1]`` (stem + ``layer1[0]``, batch
                     128, 56 x 56 x 256, channels-last bf16) goes through
                     ``megakernel_block`` with ``fold_bottleneck(layer1[1])``
-                    (the one launch counted for the kernel), is held
+                    (the one launch counted for the tensor-core
+                    ``bottleneck_tc_kernel``), is held
                     element by element against ``megakernel_block_plain``
                     and, loosely, against the port's own eval forward of
                     ``layer1[1]``; the same gate must refuse two planted
@@ -105,9 +106,10 @@ GPT2_SHAPE = dict(b=8, h=12, s=1024, d=64)
 #             float32 sum of an output by one ulp of one of its CM terms,
 #             far below 2^-7 of the outputs' RMS.  So every element within
 #             1 ulp_bf16(|want|) + 2^-7 * rms(want); and such roundings
-#             are rare (on an H100: 1.6e-4 of the elements at the real
-#             layer1[1] input, at most 6.2e-4 on the edge cases), so at
-#             most 0.2% of the elements may differ at all.
+#             are rare (on an H100, the tensor-core kernel: 2.4e-4 of the
+#             elements at the real layer1[1] input, at most 5.0e-4 on the
+#             edge cases), so at most 0.2% of the elements may differ at
+#             all.
 TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (2e-2, 2e-2),
        "bottleneck": dict(ulps=1, rtol=0.0, rms_atol=2.0 ** -7,
                           max_differing=2e-3)}
@@ -124,6 +126,13 @@ LOGITS_ATOL = 0.1
 # element may differ.
 BLOCK_TOL = dict(ulps=0, rtol=2.0 ** -4, rms_atol=2.0 ** -4,
                  max_differing=1.0)
+# the float64 witness (``f64_witness``) at random full-size bottleneck
+# inputs, where rms(want) is O(1) and the gate's limit is tight: float32
+# sums in any order round a few of the 25.7M y2 the other way, and such a
+# y2 times a large w3 entry moves an output past the limit, for the plain
+# version as for the kernel, but by well under twice it.  A wrong pixel,
+# channel or tap moves outputs by O(rms(want)), tens of times the limit.
+WITNESS_MAX_OVER = 2.0
 RESNET_SHAPE = dict(batch=128, hw=224, classes=1000)
 
 
@@ -444,11 +453,8 @@ def phase_slice(rows, steps=5, batch=8, seq=1024, seed=0):
     compile_s = time.perf_counter() - t0
 
     kernels = (fa.flash_fwd, fa.flash_bwd_dq, fa.flash_bwd_dkv)
-    tensor_core = (fa.flash_fwd, fa.flash_bwd_dkv)
     for k in kernels:
-        k.launches = 0
-    for k in tensor_core:
-        k.tensor_core_launches = 0
+        k.launches = k.tensor_core_launches = 0
     losses, step_ms = [], []
     for _ in range(steps):
         t = time.perf_counter()
@@ -456,7 +462,7 @@ def phase_slice(rows, steps=5, batch=8, seq=1024, seed=0):
         losses.append(loss.item())  # synchronizes
         step_ms.append((time.perf_counter() - t) * 1e3)
     launches = {k.__name__: k.launches for k in kernels}
-    tc_launches = {k.__name__: k.tensor_core_launches for k in tensor_core}
+    tc_launches = {k.__name__: k.tensor_core_launches for k in kernels}
 
     if not all(math.isfinite(v) for v in losses):
         raise AssertionError(f"non-finite loss: {losses}")
@@ -716,6 +722,46 @@ def check_bottleneck_case(name, b, h, w, c, cm, seed, affine="unit"):
     return _compare_bottleneck(name, got, want, TOL["bottleneck"])
 
 
+def bottleneck_f64(x, w1, s1, b1, w2, s2, b2, w3, s3, b3, images=16):
+    """The block in float64 with y1, y2 and out rounded to x's dtype at the
+    kernel's rounding points: the exact sums, ``images`` at a time."""
+    import torch.nn.functional as F
+
+    dt = x.dtype
+    k1 = w1.double().t()[:, :, None, None]
+    k2 = w2.double().permute(3, 2, 0, 1)
+    k3 = w3.double().t()[:, :, None, None]
+    s1, b1, s2, b2, s3, b3 = (t.double()[:, None, None]
+                              for t in (s1, b1, s2, b2, s3, b3))
+    out = torch.empty_like(x)
+    for i in range(0, x.shape[0], images):
+        xf = x[i:i + images].double().permute(0, 3, 1, 2)
+        y1 = torch.relu(F.conv2d(xf, k1) * s1 + b1).to(dt).double()
+        y2 = torch.relu(F.conv2d(y1, k2, padding=1) * s2 + b2).to(dt).double()
+        y3 = F.conv2d(y2, k3) * s3 + b3
+        out[i:i + images] = torch.relu(y3 + xf).to(dt).permute(0, 2, 3, 1)
+    return out
+
+
+def f64_witness(got, plain, exact):
+    """The kernel's output ``got`` and its plain version's ``plain``, each
+    held against ``exact`` (``bottleneck_f64``) by ``bottleneck_stats``
+    under ``TOL["bottleneck"]``, with the gate's own ``got`` against
+    ``plain``.  ``ok`` when the kernel is no farther from exact than the
+    plain version: it differs from ``exact`` on no larger a share of the
+    elements (and within the gate's share), and no element by more than
+    ``WITNESS_MAX_OVER`` times the gate's limit."""
+    tol = TOL["bottleneck"]
+    out = {"vs_plain": bottleneck_stats(got, plain, tol),
+           "kernel_vs_f64": bottleneck_stats(got, exact, tol),
+           "plain_vs_f64": bottleneck_stats(plain, exact, tol)}
+    k, p = out["kernel_vs_f64"], out["plain_vs_f64"]
+    out["ok"] = (k["share_differing"] <= min(p["share_differing"],
+                                             tol["max_differing"])
+                 and k["max_err_over_limit"] <= WITNESS_MAX_OVER)
+    return out
+
+
 def refuse_planted_faults(args, want):
     """``bottleneck_stats`` of each of ``planted_faults(*args)`` against
     the right output ``want``; raises if the gate passes one."""
@@ -770,7 +816,8 @@ def bottleneck_edge_cases():
         ("hw7_bands_ragged", dict(b=2, h=7, w=7, c=256, cm=64)),
         ("h56_w28", dict(b=2, h=56, w=28, c=256, cm=64)),
         ("c128_cm32", dict(b=2, h=14, w=14, c=128, cm=32)),
-        # 88 KB of shared memory: the opt-in above the 48 KB default
+        # the kernel's CM <= 128 instantiation, with 165 KB of shared
+        # memory (one block an SM)
         ("cm128_w56", dict(b=1, h=8, w=56, c=256, cm=128)),
         ("odd_h5_w9_cm8", dict(b=3, h=5, w=9, c=64, cm=8)),
         ("b1_plus_one", dict(b=2, h=14, w=14, c=256, cm=64,
@@ -856,6 +903,20 @@ def phase_bottleneck(m, images):
         st = check_bottleneck_case(name, seed=seed, **kw)
         edge[name] = {k: st[k] for k in ("max_abs_err", "share_differing")}
 
+    # random inputs at the main path's shape, refereed by float64 sums
+    witness = {}
+    for affine in ("unit", "random"):
+        full_args = bottleneck_inputs(*x.shape, args[1].shape[1], seed=0,
+                                      affine=affine)
+        witness[affine] = f64_witness(bk.megakernel_block(*full_args),
+                                      bk.megakernel_block_plain(*full_args),
+                                      bottleneck_f64(*full_args))
+        del full_args
+        if not witness[affine]["ok"]:
+            raise AssertionError(f"random {tuple(x.shape)} input, {affine} "
+                                 f"affine: the kernel is farther from float64 "
+                                 f"than its plain version: {witness[affine]}")
+
     chain = cudnn_chain(*args)
     chain_err = (chain().float() - out.float().permute(0, 3, 1, 2)
                  ).abs().max().item()
@@ -872,6 +933,7 @@ def phase_bottleneck(m, images):
          "tol": TOL["bottleneck"], "vs_eval_block": vs_block,
          "block_tol": BLOCK_TOL, "planted_faults": faults,
          "max_abs_diff_cudnn_chain": chain_err, "edge": edge,
+         "random_full_vs_f64": witness,
          "smem_bytes": bk.smem_bytes(w, cm),
          "times_ms": {"kernel": ms, "plain": plain_ms,
                       "cudnn_chain": chain_ms, "bound": bound}})
@@ -932,9 +994,40 @@ def kernel_report(lib):
     return dict(zip(readable, (out[n] for n in names), strict=True))
 
 
+#: the tensor-core kernels each build must hold, by library; a kernel is
+#: known by its demangled name, ``(anonymous namespace)::<name><...>(...)``
+TENSOR_CORE_KERNELS = {
+    "flash_attention": ("fwd_tc_kernel", "dq_tc_kernel", "dkv_tc_kernel"),
+    "resnet_bottleneck": ("bottleneck_tc_kernel",),
+}
+
+
+def check_tensor_cores(report):
+    """Raise unless every kernel of ``TENSOR_CORE_KERNELS`` is in its
+    library's ``kernel_report`` and every ``*_tc_kernel`` instantiation
+    there has tensor-core (HMMA/HGMMA) instructions; returns the tensor-core
+    kernels' rows by name."""
+    tc = {}
+    for lib, names in TENSOR_CORE_KERNELS.items():
+        rows = {k: v for k, v in report.get(lib, {}).items()
+                if re.search(r"::\w+_tc_kernel<", k)}
+        missing = [n for n in names
+                   if not any(f"::{n}<" in k for k in rows)]
+        if missing:
+            raise AssertionError(f"{lib}: no {missing} in the build report")
+        bare = {k: v for k, v in rows.items()
+                if not v.get("tensor_core_instructions")}
+        if bare:
+            raise AssertionError(f"tensor-core kernels without HMMA/HGMMA "
+                                 f"in their SASS: {bare}")
+        tc.update(rows)
+    return tc
+
+
 def phase_build():
     """Builds every source at once and reports each kernel's SASS; fails
-    if a tensor-core flash kernel has no tensor-core instruction."""
+    if a tensor-core kernel is missing or has no tensor-core
+    instruction."""
     from singa_tpu_torch.ops import _build
 
     t0 = time.perf_counter()
@@ -944,12 +1037,7 @@ def phase_build():
     for name in SOURCES:
         _build.load(name)
     report = {name: kernel_report(lib) for name, lib in zip(SOURCES, libs)}
-    tc = {k: v for k, v in report["flash_attention"].items()
-          if "_tc_kernel" in k}
-    if not tc or not all(v.get("tensor_core_instructions")
-                         for v in tc.values()):
-        raise AssertionError(f"tensor-core flash kernels without HMMA/HGMMA "
-                             f"in their SASS: {tc}")
+    check_tensor_cores(report)
     log({"phase": "build", "libraries": libs, "seconds": seconds,
          "kernels": report})
 

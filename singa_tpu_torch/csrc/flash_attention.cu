@@ -39,8 +39,9 @@
 // Two families of kernels, chosen by the caller's `kind` (the routing
 // rule is `route` in ops/flash_attention.py):
 //
-//   * kind 2, bf16 with D <= 128 -- tensor cores, forward and dK/dV:
+//   * kind 2, bf16 with D <= 128 -- tensor cores, all three kernels:
 //       fwd_tc_kernel  <- _flash_fwd_pallas (_fwd_kernel)
+//       dq_tc_kernel   <- _flash_bwd_pallas, dQ call (_dq_kernel)
 //       dkv_tc_kernel  <- _flash_bwd_pallas, dK/dV call (_dkv_kernel)
 //     FlashAttention-2's structure on mma.sync.m16n8k16 (bf16 in, f32
 //     sums).  Operands stay bf16 in shared memory, in rows of DT = 64 or
@@ -64,6 +65,15 @@
 //       B = 40 KB at DT = 64, 80 KB at DT = 128.  At DT = 64 it is held
 //       to 128 registers (16 warps on an SM), which spills 44 B; DT = 128:
 //       203 registers, no spills.
+//     - dq_tc_kernel<DT, 4>: the forward's grid and warps; each warp keeps
+//       the Q and dO fragments of its 16 rows, and their lse and delta, in
+//       registers.  Per 64-key tile S = Q K^T and dP = dO V^T on the
+//       tensor cores, P = 2^(S scale log2 e - lse log2 e) and dS = P (dP -
+//       delta) scale in registers, dS packed to bf16 into the A fragment
+//       of dQ += dS K (K read by ldmatrix.trans).  dQ written once, no
+//       atomics.  Q and dO pass once through the second K / V stage, so
+//       shared memory is 2 stages x (K + V) x 64 x DT x 2 B = 32 KB at
+//       DT = 64, 64 KB at DT = 128.
 //     - dkv_tc_kernel<DT, 4>: one block of 4 warps per (bh, 64-key tile),
 //       each warp owning 16 keys with their dK and dV sums in registers,
 //       walking the 32-row query tiles of the causal / window band.
@@ -79,11 +89,10 @@
 //   * kinds 0 and 1, float32 (tensor cores would need TF32, which misses
 //     the float32 tolerance) and bf16 with 128 < D <= 256 -- CUDA cores:
 //       fwd_kernel / dq_kernel / dkv_kernel<T, BR, DT>
-//     and dq_kernel for every dtype (its tensor-core version is the next
-//     step).  One block of 256 threads per (bh, 64-row tile) (32 rows
-//     when D > 128); Q/K/V/dO tiles staged in shared memory as float32
-//     with an odd row stride (no bank conflicts); float32 FMAs, far above
-//     the bounds above (PERF.md).
+//     One block of 256 threads per (bh, 64-row tile) (32 rows when D >
+//     128); Q/K/V/dO tiles staged in shared memory as float32 with an odd
+//     row stride (no bank conflicts); float32 FMAs, far above the bounds
+//     above (PERF.md).
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -1055,6 +1064,163 @@ __global__ void __launch_bounds__(NW * 32, DT == 64 ? 3 : 1)
   }
 }
 
+// (At DT = 64, at most 168 registers: 3 blocks of 4 warps on an SM.)
+template <int DT, int NW>
+__global__ void __launch_bounds__(NW * 32, DT == 64 ? 3 : 1)
+    dq_tc_kernel(Args a) {
+  constexpr int BM = 16 * NW, BN = TC_BN, NT = 32 * NW;
+  constexpr int KS = DT / 16, NB = BN / 8, DB = DT / 8;
+  static_assert(BM == BN, "Q and dO are staged in a K / V stage buffer");
+  extern __shared__ __align__(128) unsigned char smem_tc[];
+  bf16* sK = reinterpret_cast<bf16*>(smem_tc);  // two stages
+  bf16* sV = sK + 2 * BN * DT;                  // two stages
+
+  const int S = a.S, D = a.D;
+  const int bh = blockIdx.x;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BM;  // longest rows first
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3, rw = warp * 16;
+  const size_t base = (size_t)bh * S * D;
+  const bf16* Q = (const bf16*)a.q + base;
+  const bf16* K = (const bf16*)a.k + base;
+  const bf16* V = (const bf16*)a.v + base;
+  const bf16* dO = (const bf16*)a.dout + base;
+  const float* kmask = a.kmask ? a.kmask + (size_t)bh * S : nullptr;
+  const float* qm =
+      a.qmask ? a.qmask + (size_t)((bh / a.qdiv) % a.qmod) * S * S : nullptr;
+  const bool vec = a.vec;
+
+  const int q_last = min(q0 + BM, S) - 1;
+  const int kt_end = a.causal ? q_last / BN : (S - 1) / BN;
+  int kt_begin = 0;
+  if (a.causal && a.window > 0) kt_begin = max(0, q0 - (a.window - 1)) / BN;
+
+  // Q and dO go through stage 1 once, into registers; key tile kt_begin
+  // into stage 0.  Stage 1 takes key tile kt_begin + 1 only after the
+  // first barrier of the loop, when every warp holds its fragments.
+  load_tile_tc<BM, DT, NT>(sK + BN * DT, Q, q0, S, D, vec);
+  load_tile_tc<BM, DT, NT>(sV + BN * DT, dO, q0, S, D, vec);
+  cp_async_commit();
+  load_tile_tc<BN, DT, NT>(sK, K, kt_begin * BN, S, D, vec);
+  load_tile_tc<BN, DT, NT>(sV, V, kt_begin * BN, S, D, vec);
+  cp_async_commit();
+  cp_async_wait<1>();
+  __syncthreads();
+  uint32_t qf[KS][4], of[KS][4];
+#pragma unroll
+  for (int ks = 0; ks < KS; ++ks) {
+    const int off = swz<DT>(rw + (lane & 15), 2 * ks + (lane >> 4));
+    ldsm_x4(qf[ks], smem_u32(sK + BN * DT + off));
+    ldsm_x4(of[ks], smem_u32(sV + BN * DT + off));
+  }
+
+  // lse and delta of rows g (h = 0) and g + 8 (h = 1); rows past S
+  // read row S - 1 and are never written
+  float lse[2], dl[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = min(q0 + rw + g + 8 * h, S - 1);
+    lse[h] = a.lse[(size_t)bh * S + row];
+    dl[h] = a.delta[(size_t)bh * S + row];
+  }
+
+  float dq[DB][4];
+#pragma unroll
+  for (int j = 0; j < DB; ++j) dq[j][0] = dq[j][1] = dq[j][2] = dq[j][3] = 0.f;
+
+  for (int kt = kt_begin; kt <= kt_end; ++kt) {
+    const int k0 = kt * BN, st = (kt - kt_begin) & 1;
+    const bf16* cK = sK + st * BN * DT;
+    const bf16* cV = sV + st * BN * DT;
+    cp_async_wait<0>();
+    __syncthreads();  // tile kt landed; every warp is done with tile kt-1
+    if (kt < kt_end) {
+      load_tile_tc<BN, DT, NT>(sK + (st ^ 1) * BN * DT, K, k0 + BN, S, D, vec);
+      load_tile_tc<BN, DT, NT>(sV + (st ^ 1) * BN * DT, V, k0 + BN, S, D, vec);
+      cp_async_commit();
+    }
+
+    // S = Q K^T and dP = dO V^T: this warp's 16 rows x BN keys
+    float s[NB][4], dp[NB][4];
+#pragma unroll
+    for (int j = 0; j < NB; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks) {
+#pragma unroll
+      for (int j = 0; j < NB / 2; ++j) {
+        const int off = swz<DT>(j * 16 + (lane & 7) + ((lane >> 4) << 3),
+                                2 * ks + ((lane >> 3) & 1));
+        uint32_t b[4];
+        ldsm_x4(b, smem_u32(cK + off));
+        mma_bf16(s[2 * j], qf[ks], b[0], b[1]);
+        mma_bf16(s[2 * j + 1], qf[ks], b[2], b[3]);
+        ldsm_x4(b, smem_u32(cV + off));
+        mma_bf16(dp[2 * j], of[ks], b[0], b[1]);
+        mma_bf16(dp[2 * j + 1], of[ks], b[2], b[3]);
+      }
+    }
+
+    // P = exp(S - lse) and dS = P (dP - delta) scale, in place; the
+    // diagonal, a window's edge, the ends of S and masked tiles take
+    // tc_score's value per element and exact differences (the NEG_INF
+    // floor), the others one FMA, as in the forward
+    const bool edge =
+        kmask || qm || k0 + BN > S || q0 + BM > S ||
+        (a.causal && (k0 + BN - 1 > q0 ||
+                      (a.window > 0 && q0 + BM - 1 - k0 >= a.window)));
+    if (edge) {
+#pragma unroll
+      for (int j = 0; j < NB; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float x = tc_score(s[j][e], a.scale, kmask, qm,
+                                   q0 + rw + g + (e >> 1) * 8,
+                                   k0 + j * 8 + 2 * t + (e & 1), S, a.causal,
+                                   a.window);
+          s[j][e] = (x - lse[e >> 1]) * LOG2E;
+        }
+    } else {
+      const float scl = a.scale * LOG2E;
+      const float ml[2] = {lse[0] * LOG2E, lse[1] * LOG2E};
+#pragma unroll
+      for (int j = 0; j < NB; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          s[j][e] = fmaf(s[j][e], scl, -ml[e >> 1]);
+    }
+#pragma unroll
+    for (int j = 0; j < NB; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        dp[j][e] = ex2(s[j][e]) * (dp[j][e] - dl[e >> 1]) * a.scale;
+
+    // dQ += dS K, dS rounded to bf16 (K read by ldmatrix.trans)
+#pragma unroll
+    for (int kk = 0; kk < BN / 16; ++kk) {
+      uint32_t da[4];
+      acc_to_a(da, dp[2 * kk], dp[2 * kk + 1]);
+#pragma unroll
+      for (int j = 0; j < DB / 2; ++j) {
+        uint32_t b[4];
+        ldsm_x4_t(b, smem_u32(cK + swz<DT>(kk * 16 + (lane & 7) +
+                                               (((lane >> 3) & 1) << 3),
+                                           2 * j + (lane >> 4))));
+        mma_bf16(dq[2 * j], da, b[0], b[1]);
+        mma_bf16(dq[2 * j + 1], da, b[2], b[3]);
+      }
+    }
+  }
+
+  bf16* dQ = (bf16*)a.out0 + base;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = q0 + rw + g + 8 * h;
+    if (row < S) store_row_tc<DB>(dQ, dq, h, row, D, t, 1.f);
+  }
+}
+
 // ------------------------------------------------------------ launching
 
 enum Which { kFwd = 0, kDq = 1, kDkv = 2 };
@@ -1069,21 +1235,20 @@ constexpr size_t smem_bytes(int which) {
 
 template <typename T, int BR, int DT>
 int launch(int which, const Args& a, cudaStream_t stream) {
-  const size_t smem = smem_bytes<BR, DT>(which);
-  const dim3 grid((unsigned)a.bh * (unsigned)((a.S + BR - 1) / BR));
-  void (*kernel)(Args) = dq_kernel<T, BR, DT>;
-  // bf16 forward and dK/dV at D <= 128 run on the tensor cores only
-  if constexpr (!std::is_same_v<T, bf16> || DT > 128) {
-    if (which == kFwd) kernel = fwd_kernel<T, BR, DT>;
-    if (which == kDkv) kernel = dkv_kernel<T, BR, DT>;
-  } else if (which != kDq) {
-    return (int)cudaErrorInvalidValue;
+  if constexpr (std::is_same_v<T, bf16> && DT <= 128) {
+    return (int)cudaErrorInvalidValue;  // bf16 at D <= 128: tensor cores only
+  } else {
+    const size_t smem = smem_bytes<BR, DT>(which);
+    const dim3 grid((unsigned)a.bh * (unsigned)((a.S + BR - 1) / BR));
+    void (*kernel)(Args) = which == kFwd ? fwd_kernel<T, BR, DT>
+                           : which == kDq ? dq_kernel<T, BR, DT>
+                                          : dkv_kernel<T, BR, DT>;
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    kernel<<<grid, NTHREADS, smem, stream>>>(a);
+    return (int)cudaGetLastError();
   }
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  kernel<<<grid, NTHREADS, smem, stream>>>(a);
-  return (int)cudaGetLastError();
 }
 
 // The CUDA-core kernels: float32 or bf16, D <= 256.
@@ -1115,6 +1280,13 @@ int launch_fwd_tc(const Args& a, cudaStream_t stream) {
 }
 
 template <int DT>
+int launch_dq_tc(const Args& a, cudaStream_t stream) {
+  constexpr int NW = 4, BM = 16 * NW;
+  return launch_tc(dq_tc_kernel<DT, NW>, BM, sizeof(bf16) * 4 * TC_BN * DT,
+                   32 * NW, a, stream);
+}
+
+template <int DT>
 int launch_dkv_tc(const Args& a, cudaStream_t stream) {
   constexpr int NW = 4, BN = 16 * NW;
   return launch_tc(dkv_tc_kernel<DT, NW>, BN,
@@ -1123,19 +1295,20 @@ int launch_dkv_tc(const Args& a, cudaStream_t stream) {
                    32 * NW, a, stream);
 }
 
-// The tensor-core kernels: bf16, D <= 128, forward and dK/dV only.
+// The tensor-core kernels: bf16, D <= 128.
 int dispatch_tc(int which, const Args& a, cudaStream_t stream) {
   if (which == kFwd && a.D <= 64) return launch_fwd_tc<64>(a, stream);
   if (which == kFwd && a.D <= 128) return launch_fwd_tc<128>(a, stream);
+  if (which == kDq && a.D <= 64) return launch_dq_tc<64>(a, stream);
+  if (which == kDq && a.D <= 128) return launch_dq_tc<128>(a, stream);
   if (which == kDkv && a.D <= 64) return launch_dkv_tc<64>(a, stream);
   if (which == kDkv && a.D <= 128) return launch_dkv_tc<128>(a, stream);
   return (int)cudaErrorInvalidValue;
 }
 
-// kind: 0 = float32 on CUDA cores, 1 = bf16 on CUDA cores (dQ, and the
-// forward and dK/dV past D = 128), 2 = bf16 on tensor cores (forward and
-// dK/dV, D <= 128).  The caller chooses; a kind that does not take the
-// call returns cudaErrorInvalidValue.
+// kind: 0 = float32 on CUDA cores, 1 = bf16 on CUDA cores (D > 128), 2 =
+// bf16 on tensor cores (D <= 128).  The caller chooses; a kind that does
+// not take the call returns cudaErrorInvalidValue.
 int dispatch(int which, int kind, Args a, void* stream) {
   if (a.bh <= 0 || a.S <= 0 || a.D <= 0) return 0;  // nothing to do
   cudaStream_t st = (cudaStream_t)stream;

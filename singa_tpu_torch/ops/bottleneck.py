@@ -12,7 +12,10 @@ channels-last::
 Every product sums in float32; ``round`` is to x's dtype (bf16 for the
 kernel), at the same two points as the reference's ``xla_chain``
 (``preferred_element_type=f32``).  The kernel
-(``csrc/resnet_bottleneck.cu``) keeps y1 and y2 in shared memory.
+(``csrc/resnet_bottleneck.cu``, ``bottleneck_tc_kernel``) runs the three
+convs as implicit GEMMs on the tensor cores, one block per band of image
+rows (the kernel picks the band height from W), and keeps y1 and y2 in
+shared memory.
 
 =====================  ===============================================
 ``megakernel_block``   the wrapper: the kernel for CUDA tensors (or

@@ -15,9 +15,8 @@ wrapper            replaces (Pallas, TPU)      plain version
 
 A wrapper takes its plain version only for tensors on the CPU.  For CUDA
 tensors it launches the kernel that :func:`route` names or raises: there
-is no fallback.  bf16 with D <= 128 runs ``flash_fwd`` and
-``flash_bwd_dkv`` on the tensor cores; float32, wider heads and
-``flash_bwd_dq`` run on the CUDA cores.
+is no fallback.  bf16 with D <= 128 runs all three on the tensor cores;
+float32 and wider heads run on the CUDA cores.
 
 Conventions kept from the JAX package: the finite floor ``NEG_INF =
 -1e30`` (causal masking writes it, the running max starts at it); a row
@@ -57,18 +56,18 @@ F32_CUDA_CORE, BF16_CUDA_CORE, BF16_TENSOR_CORE = 0, 1, 2
 
 
 def route(dtype, d):
-    """The ``kind`` of kernel that ``flash_fwd`` and ``flash_bwd_dkv``
-    launch for CUDA tensors of this dtype and head dim:
+    """The ``kind`` of kernel that ``flash_fwd``, ``flash_bwd_dq`` and
+    ``flash_bwd_dkv`` launch for CUDA tensors of this dtype and head dim:
 
     * ``BF16_TENSOR_CORE``: bfloat16 with D <= 128 (``fwd_tc_kernel``,
-      ``dkv_tc_kernel``: bf16 ``mma.sync`` tiles, float32 sums);
+      ``dq_tc_kernel``, ``dkv_tc_kernel``: bf16 ``mma.sync`` tiles,
+      float32 sums);
     * ``F32_CUDA_CORE``: float32, whose tensor-core products would be
       TF32 and miss the float32 tolerance;
     * ``BF16_CUDA_CORE``: bfloat16 with 128 < D <= 256 (``fwd_kernel``,
-      ``dkv_kernel``: float32 FMAs, as for float32).
+      ``dq_kernel``, ``dkv_kernel``: float32 FMAs, as for float32).
 
-    ``flash_bwd_dq`` runs its CUDA-core kernel on every route.  Raises
-    TypeError for another dtype and ValueError for D > 256."""
+    Raises TypeError for another dtype and ValueError for D > 256."""
     if dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"flash kernels take float32 or bfloat16, "
                         f"got {dtype}")
@@ -250,7 +249,7 @@ def flash_bwd_dq(q, k, v, kmask, qmask, qmap, scale, causal, window, do,
     if q.device.type == "cpu":
         return flash_bwd_dq_plain(q, k, v, kmask, qmask, qmap, scale, causal,
                                   window, do, lse, delta)
-    kind = min(_check_cuda(q, k, v, kmask, qmask, do), BF16_CUDA_CORE)
+    kind = _check_cuda(q, k, v, kmask, qmask, do)
     _check_rows(q, lse, delta)
     dq = torch.empty_like(q)
     err = _lib().flash_bwd_dq(
@@ -259,6 +258,7 @@ def flash_bwd_dq(q, k, v, kmask, qmask, qmap, scale, causal, window, do,
         delta.data_ptr(), dq.data_ptr(),
         *_shape_args(q, scale, causal, window, kind))
     flash_bwd_dq.launches += 1
+    flash_bwd_dq.tensor_core_launches += kind == BF16_TENSOR_CORE
     _raise_on(err, "flash_bwd_dq")
     return dq
 
@@ -283,9 +283,9 @@ def flash_bwd_dkv(q, k, v, kmask, qmask, qmap, scale, causal, window, do,
     return dk, dv
 
 
-# launches in all, and (forward, dK/dV) those on the tensor-core route
+# launches in all, and those on the tensor-core route
 flash_fwd.launches = flash_fwd.tensor_core_launches = 0
-flash_bwd_dq.launches = 0
+flash_bwd_dq.launches = flash_bwd_dq.tensor_core_launches = 0
 flash_bwd_dkv.launches = flash_bwd_dkv.tensor_core_launches = 0
 
 

@@ -197,3 +197,106 @@ def test_chip_smoke_gate_refuses_planted_faults(monkeypatch, affine):
     faults = chip_smoke.refuse_planted_faults(args, want)
     assert set(faults) == {"halo_relu_b1", "no_skip_one_column"}
     assert all(f["share_past_limit"] > 0 for f in faults.values())
+
+
+@pytest.mark.parametrize("affine", ["random", "b1_plus_one"])
+def test_f64_reference_rounds_where_the_plain_version_does(monkeypatch,
+                                                           affine):
+    """``chip_smoke.bottleneck_f64`` (float64 sums, taken a few images at
+    a time) rounds y1, y2 and the output where the plain version does: the
+    two pass the gate, and the float64 witness passes the plain version
+    against itself."""
+    import chip_smoke
+
+    monkeypatch.setattr(chip_smoke, "DEVICE", torch.device("cpu"))
+    args = chip_smoke.bottleneck_inputs(3, 9, 11, C, CM, seed=4,
+                                        affine=affine)
+    exact = chip_smoke.bottleneck_f64(*args, images=2)
+    plain = bottleneck.megakernel_block_plain(*args)
+    assert chip_smoke.bottleneck_stats(plain, exact,
+                                       chip_smoke.TOL["bottleneck"])["ok"]
+    assert chip_smoke.f64_witness(plain, plain, exact)["ok"]
+
+
+@pytest.mark.parametrize("fault", ["halo_relu_b1", "no_skip_one_column"])
+def test_f64_witness_refuses_planted_faults(monkeypatch, fault):
+    """A kernel output farther from float64 than the plain version's, here
+    each planted fault, fails the witness."""
+    import chip_smoke
+
+    monkeypatch.setattr(chip_smoke, "DEVICE", torch.device("cpu"))
+    args = chip_smoke.bottleneck_inputs(2, 14, 14, C, CM, seed=5,
+                                        affine="b1_plus_one")
+    wrong = chip_smoke.planted_faults(*args)[fault]
+    res = chip_smoke.f64_witness(wrong, bottleneck.megakernel_block_plain(
+        *args), chip_smoke.bottleneck_f64(*args))
+    assert not res["ok"], res
+
+
+@pytest.fixture(scope="module")
+def kernel_band_rows(tmp_path_factory):
+    """The kernel's own band height for a width W
+    (``resnet_bottleneck_band_rows`` of ``csrc/resnet_bottleneck.cu``, built
+    for the CPU by ``tools/emulate_kernels.py``)."""
+    import shutil
+
+    if not (shutil.which("g++") or shutil.which("c++")):
+        pytest.skip("needs a C++ compiler to build the kernel's source")
+    spec = importlib.util.spec_from_file_location(
+        "emulate_kernels", ROOT / "tools" / "emulate_kernels.py")
+    emu = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(emu)
+    lib = emu.load("resnet_bottleneck",
+                   str(tmp_path_factory.mktemp("emulated_bottleneck")))
+    return lib.resnet_bottleneck_band_rows
+
+
+def _bands_plain(r, x, w1, s1, b1, w2, s2, b2, w3, s3, b3):
+    """The block computed band by band as the kernel cuts the image: bands
+    of ``r`` output rows (the last may be shorter), each with
+    y1 for one halo row on either side, zero for halo rows outside the
+    image and a zero SAME ring of columns; the plain arithmetic (float32
+    sums, y1 and y2 rounded to x's dtype) inside each band; the bands
+    stitched."""
+    n, h, w, c = x.shape
+    dt = x.dtype
+    out = torch.empty_like(x)
+    for h0 in range(0, h, r):
+        rb = min(r, h - h0)
+        rows = [x[:, i].float() if 0 <= i < h else torch.zeros(n, w, c)
+                for i in range(h0 - 1, h0 + rb + 1)]
+        y1 = torch.relu(torch.stack(rows, 1) @ w1.float() * s1 + b1)
+        live = torch.tensor([0 <= i < h for i in range(h0 - 1, h0 + rb + 1)])
+        y1 = (y1 * live[None, :, None, None]).to(dt).float()
+        y1 = torch.nn.functional.pad(y1, (0, 0, 1, 1))  # the W ring
+        y2 = sum(y1[:, di:di + rb, dj:dj + w] @ w2[di, dj].float()
+                 for di in range(3) for dj in range(3))
+        y2 = torch.relu(y2 * s2 + b2).to(dt).float()
+        band = x[:, h0:h0 + rb].float()
+        out[:, h0:h0 + rb] = torch.relu(y2 @ w3.float() * s3 + b3 + band).to(dt)
+    return out
+
+
+@pytest.mark.parametrize("name,case", [
+    pytest.param(name, case, id=name)
+    for name, case in __import__("chip_smoke").bottleneck_edge_cases()])
+def test_band_decomposition_matches_the_whole_image(monkeypatch,
+                                                   kernel_band_rows, name,
+                                                   case):
+    """The kernel's cut of the image into bands (its band height, halo
+    rows, zero ring, short last band) gives the block of
+    ``megakernel_block_plain`` at every edge shape ``chip_smoke.py`` holds
+    the kernel to, within the gate that holds the kernel (the sums run in
+    another order)."""
+    import chip_smoke
+
+    monkeypatch.setattr(chip_smoke, "DEVICE", torch.device("cpu"))
+    args = chip_smoke.bottleneck_inputs(seed=0, **case)
+    n, h, w, c = args[0].shape
+    r = kernel_band_rows(w)
+    assert r >= 1
+    got = _bands_plain(r, *args)
+    stats = chip_smoke.bottleneck_stats(
+        got, bottleneck.megakernel_block_plain(*args),
+        chip_smoke.TOL["bottleneck"])
+    assert stats["ok"], stats

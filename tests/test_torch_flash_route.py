@@ -3,9 +3,9 @@ them in a profile; no GPU needed.
 
 ``singa_tpu_torch.ops.flash_attention.route`` is the one rule, and
 returns the C entry points' ``kind``: bf16 with D <= 128 runs the
-forward and dK/dV on the tensor-core kernels (``fwd_tc_kernel``,
-``dkv_tc_kernel``); float32 and bf16 with 128 < D <= 256 run the
-CUDA-core kernels; anything else raises.  The
+forward, dQ and dK/dV on the tensor-core kernels (``fwd_tc_kernel``,
+``dq_tc_kernel``, ``dkv_tc_kernel``); float32 and bf16 with 128 < D <=
+256 run the CUDA-core kernels; anything else raises.  The
 kernels themselves are held against their plain versions on the card
 (tests/test_torch_kernels_cuda.py, ``chip_smoke.py``).
 """
@@ -81,7 +81,7 @@ def test_every_flash_kernel_lands_in_the_profiles_flash_group():
     ``name<template args>(...)``."""
     names = _global_functions(CU.read_text())
     assert set(names) == {"fwd_kernel", "dq_kernel", "dkv_kernel",
-                          "fwd_tc_kernel", "dkv_tc_kernel"}
+                          "fwd_tc_kernel", "dq_tc_kernel", "dkv_tc_kernel"}
     pattern = dict(chip_smoke.KERNEL_GROUPS)["flash_attention"]
     for name in names:
         profiled = f"void (anonymous namespace)::{name}<64, 4>(Args)"
@@ -104,12 +104,70 @@ def test_compare_script_needs_a_gpu(monkeypatch, capsys):
 
 
 def test_cpu_calls_leave_the_tensor_core_counters():
-    before = (tfa.flash_fwd.tensor_core_launches,
-              tfa.flash_bwd_dkv.tensor_core_launches)
+    counters = (tfa.flash_fwd, tfa.flash_bwd_dq, tfa.flash_bwd_dkv)
+    before = [c.tensor_core_launches for c in counters]
     rng = np.random.RandomState(0)
     q, k, v = (torch.tensor(rng.randn(1, 2, 32, 64).astype(np.float32))
                .bfloat16().requires_grad_(True) for _ in range(3))
     tfa.flash_attention(q, k, v, causal=True).float().sum().backward()
     assert k.grad is not None
-    assert (tfa.flash_fwd.tensor_core_launches,
-            tfa.flash_bwd_dkv.tensor_core_launches) == before
+    assert q.grad is not None
+    assert [c.tensor_core_launches for c in counters] == before
+
+
+def test_every_tensor_core_kernel_is_in_the_build_check():
+    """``chip_smoke.TENSOR_CORE_KERNELS`` names every ``*_tc_kernel`` of
+    every source, so the build phase fails when one of them has lost its
+    HMMA instructions."""
+    csrc = CU.parent
+    for lib, names in chip_smoke.TENSOR_CORE_KERNELS.items():
+        found = {n for n in _global_functions(
+            (csrc / f"{lib}.cu").read_text()) if n.endswith("_tc_kernel")}
+        assert found == set(names), lib
+    assert set(chip_smoke.TENSOR_CORE_KERNELS) == set(chip_smoke.SOURCES)
+
+
+def _report(hmma):
+    """A build report as ``chip_smoke.kernel_report`` gives it, with
+    ``hmma`` tensor-core instructions in each ``*_tc_kernel``."""
+    ns = "void (anonymous namespace)::"
+
+    def row(n):
+        return {"registers": 128, "tensor_core_instructions": n}
+
+    return {
+        "flash_attention": {
+            f"{ns}fwd_tc_kernel<64, 4>(Args)": row(hmma["fwd"]),
+            f"{ns}dq_tc_kernel<64, 4>(Args)": row(hmma["dq"]),
+            f"{ns}dkv_tc_kernel<64, 4>(Args)": row(hmma["dkv"]),
+            f"{ns}dq_kernel<float, 64, 64>(Args)": row(0),
+        },
+        "resnet_bottleneck": {
+            f"{ns}bottleneck_tc_kernel<64>(Params)": row(hmma["bottleneck"]),
+        },
+    }
+
+
+FULL = {"fwd": 64, "dq": 96, "dkv": 64, "bottleneck": 96}
+
+
+def test_build_check_passes_tensor_core_kernels_with_hmma():
+    tc = chip_smoke.check_tensor_cores(_report(FULL))
+    # the CUDA-core dq_kernel is not held to tensor-core instructions
+    assert len(tc) == 4 and not any("dq_kernel<float" in k for k in tc)
+
+
+@pytest.mark.parametrize("bare", sorted(FULL))
+def test_build_check_refuses_a_kernel_without_hmma(bare):
+    with pytest.raises(AssertionError, match="without HMMA"):
+        chip_smoke.check_tensor_cores(_report(dict(FULL, **{bare: 0})))
+
+
+@pytest.mark.parametrize("lib,name", [
+    ("flash_attention", "dq_tc_kernel<64, 4>(Args)"),
+    ("resnet_bottleneck", "bottleneck_tc_kernel<64>(Params)")])
+def test_build_check_refuses_a_missing_kernel(lib, name):
+    report = _report(FULL)
+    del report[lib]["void (anonymous namespace)::" + name]
+    with pytest.raises(AssertionError, match="no .* in the build report"):
+        chip_smoke.check_tensor_cores(report)

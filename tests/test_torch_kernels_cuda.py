@@ -13,7 +13,7 @@ kernel-vs-plain comparisons are ``chip_smoke.check_case`` over
 ``chip_smoke.bottleneck_edge_cases()`` (the ResNet bottleneck), with
 their tolerances (``chip_smoke.TOL``): flash attention allclose with
 float32 rtol = atol = 1e-4 and bf16 rtol = atol = 2e-2 (bf16 with
-D <= 128 runs the tensor-core forward and dK/dV kernels); the bottleneck
+D <= 128 runs the tensor-core kernels); the bottleneck
 per element (``chip_smoke.bottleneck_stats``: within 1 bf16 ulp +
 2^-7 rms, at most 0.2% of elements differing at all).
 """
@@ -66,10 +66,10 @@ def test_cuda_tensors_launch_each_kernel_once(cuda_device):
 
 @pytest.mark.cuda
 def test_bf16_calls_take_the_tensor_core_route(cuda_device):
-    """bf16 at D = 64 runs the forward and dK/dV on the tensor-core
+    """bf16 at D = 64 runs the forward, dQ and dK/dV on the tensor-core
     kernels; float32 runs the CUDA-core ones and leaves those counters."""
     rng = np.random.RandomState(0)
-    counters = (tfa.flash_fwd, tfa.flash_bwd_dkv)
+    counters = (tfa.flash_fwd, tfa.flash_bwd_dq, tfa.flash_bwd_dkv)
     for dtype, moved in ((torch.bfloat16, 1), (torch.float32, 0)):
         q, k, v = (torch.tensor(_rand(rng, B, H, 64, 64), device=cuda_device)
                    .to(dtype).requires_grad_(True) for _ in range(3))
@@ -77,7 +77,7 @@ def test_bf16_calls_take_the_tensor_core_route(cuda_device):
         tfa.flash_attention(q, k, v, causal=True).float().sum().backward()
         torch.cuda.synchronize()
         assert [c.tensor_core_launches - b
-                for c, b in zip(counters, before)] == [moved, moved]
+                for c, b in zip(counters, before)] == [moved] * 3
 
 
 @pytest.mark.cuda

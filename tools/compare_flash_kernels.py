@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Times the flash kernels of one checkout of the port on one GPU by a
-fixed method, so that two checkouts can be compared in one call:
+"""Times the flash kernels and the bottleneck kernel of one checkout of
+the port on one GPU by a fixed method, so that two checkouts can be
+compared in one call:
 
     python3 tools/compare_flash_kernels.py [--tree PATH]
 
@@ -8,16 +9,18 @@ fixed method, so that two checkouts can be compared in one call:
 ``singa_tpu_torch`` is imported, so its kernels are built from its own
 sources into its own ``singa_tpu_torch/_build``.  The inputs (GPT-2
 small's attention shape, 8 x 12 x 1024 x 64, causal, bf16, from numpy
-seed 0) and the timer (CUDA events around back-to-back launches, two
-warm-up calls) come from this checkout's ``chip_smoke.py``, whichever
-tree is timed.  Each kernel is timed over 10 and over 50 launches: the
-count ``chip_smoke.py`` once timed kernels over, and the count it times
-them over now.
+seed 0; the bottleneck at ResNet-50's ``layer1[1]`` shape, 128 x 56 x 56 x
+256 -> 64, ``chip_smoke.bottleneck_inputs(..., seed=0)``) and the timer
+(CUDA events around back-to-back launches, two warm-up calls) come from
+this checkout's ``chip_smoke.py``, whichever tree is timed.  Each kernel
+is timed over 10 and over 50 launches: the count ``chip_smoke.py`` once
+timed kernels over, and the count it times them over now.
 
 Run it once per checkout in alternating order (A, B, B, A) within one
 process per run; each run prints one JSON line with the mean ms per
-launch of ``flash_fwd``, ``flash_bwd_dq`` and ``flash_bwd_dkv`` at each
-count, and the card's name and power limit.  Needs a CUDA GPU.
+launch of ``flash_fwd``, ``flash_bwd_dq``, ``flash_bwd_dkv`` and
+``megakernel_block`` at each count, and the card's name and power limit.
+Needs a CUDA GPU.
 """
 
 from __future__ import annotations
@@ -57,6 +60,7 @@ def main(argv=None):
     tree = os.path.abspath(args.tree)
     sys.path.insert(0, tree)
     cs = _chip_smoke()
+    from singa_tpu_torch.ops import bottleneck as bk
     from singa_tpu_torch.ops import flash_attention as fa
 
     sh = cs.GPT2_SHAPE
@@ -71,6 +75,8 @@ def main(argv=None):
         "flash_bwd_dq": lambda: fa.flash_bwd_dq(q, k, v, *cfg, *bwd),
         "flash_bwd_dkv": lambda: fa.flash_bwd_dkv(q, k, v, *cfg, *bwd),
     }
+    block = cs.bottleneck_inputs(128, 56, 56, 256, 64, seed=0)
+    calls["megakernel_block"] = lambda: bk.megakernel_block(*block)
     ms = {name: {str(n): cs.cuda_time_ms(fn, n) for n in LAUNCHES}
           for name, fn in calls.items()}
     smi = subprocess.run(
@@ -81,6 +87,7 @@ def main(argv=None):
         "tree": tree, "package": os.path.dirname(os.path.dirname(
             os.path.abspath(fa.__file__))),
         "shape": dict(sh, causal=True, dtype="bfloat16"),
+        "bottleneck_shape": dict(b=128, h=56, w=56, c=256, cm=64),
         "ms_by_launches": ms, "nvidia_smi": smi.splitlines()[0]}),
         flush=True)
     return 0
