@@ -7,7 +7,8 @@ Phases, each printing one JSON line; any failure raises and the script
 exits nonzero:
 
 1. ``build``      - compiles every kernel source of ``singa_tpu_torch/csrc``
-                    (flash attention, the ResNet bottleneck) with nvcc for
+                    (flash attention, the ResNet bottleneck, paged
+                    attention) with nvcc for
                     sm_90a, one nvcc process per source, all at once; then
                     reports each kernel's registers and spills (ptxas
                     ``-v``) and counts its tensor-core (HMMA/HGMMA) and
@@ -62,7 +63,32 @@ exits nonzero:
                     the kernel, its plain version and the cuDNN chain
                     (three channels-last bf16 convs and the elementwise
                     work; no single PyTorch call computes the block).
-7. ``device``     - the card's name and power limit from nvidia-smi.
+7. ``serve``      - serves GPT-2 small (124M, 12 layers, n_positions 1024,
+                    random weights from a seed) through the paged engine,
+                    ``model.serve(max_slots=8, paged=PagedConfig(
+                    block_size=32, num_blocks=256))``: 24 requests at once,
+                    prompts of 16-512 tokens, 32-128 new tokens, alternately
+                    greedy and at temperature 0.9 with their own seeds.  In
+                    float32: the paged kernel's streams equal the gather
+                    oracle's and offline ``generate``'s token for token,
+                    ``paged_attn`` launches 12 times a decode step, no
+                    block is in use after the drain and every request
+                    completes by its length.  In bf16: the same traffic
+                    timed (TTFT and TPOT medians, decode tokens/s), once
+                    under torch.profiler (the device's busy share), once
+                    with every step's logits held against the gather
+                    oracle on a copy of the pool (``SERVE_BF16_LOGITS_ATOL``)
+                    and against a gather engine's streams up to each
+                    request's first token whose top-2 margin is below it.
+8. ``paged_kernels`` - ``paged_attn`` against ``paged_attn_plain`` at the
+                    edge cases of ``paged_edge_cases`` (block sizes 1 to 32,
+                    partial and full last blocks, all-trash and one-block
+                    tables, GQA g = 3, D = 128, Q = 4 with a tril mask,
+                    windows, 1000-lane slots) in float32 and bf16, and at a
+                    step's real tables from the serve phase, where it times
+                    the kernel, its plain version and SDPA on rows gathered
+                    from the pool (the yardstick; the gather not timed).
+9. ``device``     - the card's name and power limit from nvidia-smi.
 
 Then one line ``{"kernels": [...]}`` with each kernel's launches on the
 main path, error, times and bound, the nvidia-smi line, and last
@@ -72,6 +98,8 @@ mode.
 
 from __future__ import annotations
 
+import functools
+import itertools
 import json
 import math
 import os
@@ -153,6 +181,29 @@ def cuda_time_ms(fn, iters, warmup=2):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms_per_call(fn, iters, warmup=2):
+    """Device time of ``fn()`` per call: the CUDA kernels it launches over
+    ``iters`` calls, summed by torch.profiler (CUPTI).  Unlike
+    ``cuda_time_ms`` it leaves out the gaps in which the device waits for
+    the host, which set the event time of a kernel shorter than its
+    wrapper's launch overhead."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(e.self_device_time_total for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA)
+    if total == 0:
+        raise AssertionError("torch.profiler recorded no device time")
+    return total / 1e3 / iters
 
 
 # ---------------------------------------------------------------- kernels
@@ -422,6 +473,7 @@ REPLACES = {
     "flash_fwd": "singa_tpu/ops/pallas/flash_attention.py:183",
     "flash_bwd_dq": "singa_tpu/ops/pallas/flash_attention.py:357",
     "flash_bwd_dkv": "singa_tpu/ops/pallas/flash_attention.py:385",
+    "paged_attn": "singa_tpu/models/gpt2_decode.py:841",
 }
 
 
@@ -949,10 +1001,591 @@ def phase_bottleneck(m, images):
                 cudnn_chain_ms=chain_ms)
 
 
+# ------------------------------------------------------------ paged attn
+
+# paged_attn vs paged_attn_plain, allclose(rtol, atol):
+#   float32 - both sum in float32, the kernel in 32-key tiles a warp then
+#             across warps, the plain version block by block: outputs are
+#             convex combinations of N(0, 1) values, and sums of up to
+#             1000 terms differ by a few float32 ulps: 2e-5;
+#   bf16    - pools, queries and outputs bf16 (2^-8 relative), sums
+#             float32 in both: the outputs differ by at most one bf16
+#             rounding, 2^-7 of values below 2: 1e-2.
+PAGED_TOL = {torch.float32: (2e-5, 2e-5), torch.bfloat16: (1e-2, 1e-2)}
+# value of every element of the trash block in the edge cases: a kernel
+# that read it unmasked would move outputs by O(10)
+PAGED_TRASH_VALUE = 50.0
+
+
+def paged_inputs(lens, block, d, n_kv, g, nq, dtype, seed, window=None,
+                 spare=3, trash_at=(), from_block0=False):
+    """Kernel arguments for one paged case, made from a numpy seed: slot
+    s attends ``lens[s]`` pool lanes (0: a dead slot with an all-trash
+    table) through ``ceil(lens[s] / block)`` distinct random blocks, its
+    table trash-padded one entry past the longest slot's; ``spare``
+    unused blocks; the trash block filled with ``PAGED_TRASH_VALUE``.
+    ``trash_at``: (slot, entry) table entries set to the trash block
+    below ``lens[slot]`` (lanes the function masks, as the JAX engine's
+    dropped out-of-window blocks).  With a ``window``, ``blk_lo`` is the
+    first block holding an in-window lane of any live slot, or None
+    (read from block 0) with ``from_block0``."""
+    rng = np.random.RandomState(seed)
+    need = [-(-p // block) for p in lens]
+    n_blocks = sum(need) + spare
+    width = max(need + [0]) + 1
+    ids = rng.permutation(n_blocks)
+    tables = np.full((len(lens), width), n_blocks, np.int32)
+    at = 0
+    for s, n in enumerate(need):
+        tables[s, :n] = ids[at:at + n]
+        at += n
+    for s, j in trash_at:
+        tables[s, j] = n_blocks
+
+    def rand(*shape):
+        return torch.from_numpy(rng.randn(*shape).astype(np.float32))
+
+    pool_k, pool_v = (rand(n_blocks + 1, n_kv, block, d) for _ in range(2))
+    pool_k[-1] = pool_v[-1] = PAGED_TRASH_VALUE
+    q = rand(len(lens), n_kv, g, nq, d)
+    k_cur, v_cur = (rand(len(lens), n_kv, nq, d) for _ in range(2))
+    live = [p for p in lens if p > 0]
+    blk_lo = None
+    if window is not None and not from_block0:
+        blk_lo = min((max(0, (p - window + 1) // block) for p in live),
+                     default=0)
+    on = lambda t: t.to(DEVICE, dtype).contiguous()  # noqa: E731
+    return dict(
+        q=on(q), pool_k=on(pool_k), pool_v=on(pool_v),
+        tables=torch.from_numpy(tables).to(DEVICE),
+        p_limit=torch.tensor(lens, dtype=torch.int32, device=DEVICE),
+        n_blk=max(need + [0]), k_cur=on(k_cur), v_cur=on(v_cur),
+        cur_mask=torch.ones(nq, nq, dtype=torch.bool,
+                            device=DEVICE).tril(),
+        scale=1.0 / math.sqrt(d), window=window, blk_lo=blk_lo)
+
+
+def paged_edge_cases():
+    """(name, kwargs of ``paged_inputs`` but dtype and seed): the edges of
+    ``tests/test_paged.py::test_kernel_edge_geometry`` and of the
+    kernel's tiles: whole 32-key tiles masked by the window before any
+    live lane (the explicit zero of masked probabilities), trash entries
+    inside a table.  GPT-2 small's decode is n_kv 12, g 1, Q 1, D 64."""
+    base = dict(d=64, n_kv=2, g=1, nq=1)
+    cases = [
+        ("b1", dict(lens=[5, 1, 9], block=1)),
+        ("b8_partial_last_block", dict(lens=[13, 21, 3], block=8)),
+        ("b16_pos_on_boundary", dict(lens=[32, 16, 48], block=16)),
+        ("b32_tiles", dict(lens=[100, 64, 31], block=32)),
+        ("dead_slots_all_trash", dict(lens=[0, 17, 0], block=8)),
+        ("one_block_tables", dict(lens=[7, 16, 1], block=16)),
+        ("g3_n_kv4", dict(lens=[40, 9], block=8, n_kv=4, g=3)),
+        ("d128", dict(lens=[33, 70], block=16, d=128)),
+        ("q4_tril", dict(lens=[12, 30], block=8, nq=4)),
+        ("g3_q4_d128", dict(lens=[25, 8], block=8, d=128, g=3, nq=4)),
+        ("window", dict(lens=[50, 29, 33], block=8, window=20)),
+        ("window_q4_g3", dict(lens=[41, 17], block=8, nq=4, g=3,
+                              window=10)),
+        ("window_from_block0", dict(lens=[150, 90], block=8, window=16,
+                                    from_block0=True)),
+        ("trash_inside_table", dict(lens=[40, 20], block=8,
+                                    trash_at=[(0, 1), (0, 3), (1, 0)])),
+        ("long_b32", dict(lens=[1000, 300, 640], block=32)),
+        ("long_b1", dict(lens=[200, 130], block=1)),
+    ]
+    return [(n, {**base, **kw}) for n, kw in cases]
+
+
+def check_paged_case(name, dtype, seed, **kw):
+    """The kernel against its plain version on one case: returns max
+    |kernel - plain| and raises past ``PAGED_TOL``."""
+    from singa_tpu_torch.ops import paged_attention as pa
+
+    args = paged_inputs(dtype=dtype, seed=seed, **kw)
+    got = pa.paged_attn(**args).float()
+    want = pa.paged_attn_plain(**args).float()
+    torch.cuda.synchronize()
+    if not torch.isfinite(got).all():
+        raise AssertionError(f"{name}: paged_attn gave non-finite values")
+    err = (got - want).abs().max().item()
+    rtol, atol = PAGED_TOL[dtype]
+    if not torch.allclose(got, want, rtol=rtol, atol=atol):
+        raise AssertionError(f"{name}: paged_attn differs from its plain "
+                             f"version by {err} (rtol {rtol}, atol {atol})")
+    return err
+
+
+def paged_bound_ms(lens, n_kv, g, nq, d, dtype):
+    """Least time for one call: the live K/V lanes read once, q and the
+    current K/V read and the output written once, over memory bandwidth;
+    against 4 FLOPs per (query row, live lane, element) over the peak
+    rate for the dtype.  Returns ``(ms, "bytes" or "operations")``."""
+    elem = torch.finfo(dtype).bits // 8
+    lanes = int(sum(lens))
+    s_ = len(lens)
+    nbytes = (2 * lanes * n_kv * d * elem            # live K and V lanes
+              + 2 * s_ * n_kv * g * nq * d * elem    # q and the output
+              + 2 * s_ * n_kv * nq * d * elem)       # k_cur and v_cur
+    flops = 4 * (lanes + s_ * nq) * n_kv * g * nq * d
+    peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_F32_FLOPS
+    t_ops, t_bytes = flops / peak * 1e3, nbytes / PEAK_BYTES * 1e3
+    return max(t_ops, t_bytes), "operations" if t_ops > t_bytes else "bytes"
+
+
+def _rotating(calls):
+    """One callable that makes the next of ``calls`` each time, in turn:
+    timed over the layers of a decode step, each launch reads another
+    layer's pool, as the serve step does, and the working set outgrows
+    the 50 MB L2 cache."""
+    it = itertools.cycle(calls)
+    return lambda: next(it)()
+
+
+def sdpa_yardstick(layers):
+    """The library yardstick at one decode step's inputs, layer by layer:
+    each slot's blocks gathered into dense (S, H, n_blk * B + B, D) rows
+    with the current K/V at lane ``p_limit`` (not timed), then
+    ``scaled_dot_product_attention`` with a mask of lanes <= ``p_limit``
+    (timed alone, over the layers in turn: no one PyTorch call computes
+    paged attention).  Returns (device ms of SDPA, its event ms, event ms
+    of one layer's gather, max |SDPA - kernel| at the first layer)."""
+    import torch.nn.functional as F
+
+    from singa_tpu_torch.ops import paged_attention as pa
+
+    a0 = layers[0]
+    q = a0["q"]
+    s_, n_kv, g, nq, d = q.shape
+    block = a0["pool_k"].shape[2]
+    width = (a0["n_blk"] + 1) * block
+    tbl = torch.cat([a0["tables"][:, :a0["n_blk"]].long(),
+                     torch.full((s_, 1), a0["pool_k"].shape[0] - 1,
+                                device=q.device)], 1)
+    lanes = torch.arange(s_, device=q.device)
+    pos = a0["p_limit"].long()
+    mask = (torch.arange(width, device=q.device)[None, :]
+            <= pos[:, None])[:, None, None, :]
+    qq = q.reshape(s_, n_kv * g, nq, d)
+
+    def gather(a):
+        def row(pool, cur):
+            r = pool[tbl].permute(0, 2, 1, 3, 4)       # (S, H, nb, B, D)
+            r = r.reshape(s_, n_kv, width, d).clone()
+            r[lanes, :, pos] = cur[:, :, 0]
+            return r.repeat_interleave(g, 1) if g > 1 else r
+        return row(a["pool_k"], a["k_cur"]), row(a["pool_v"], a["v_cur"])
+
+    gather_ms = cuda_time_ms(lambda: gather(a0), 10)
+    rows = [gather(a) for a in layers]
+    calls = [lambda kk=kk, vv=vv: F.scaled_dot_product_attention(
+        qq, kk, vv, attn_mask=mask) for kk, vv in rows]
+    err = (calls[0]().float().reshape(q.shape)
+           - pa.paged_attn(**a0).float()).abs().max().item()
+    sdpa = _rotating(calls)
+    return (device_ms_per_call(sdpa, 4 * len(calls)),
+            cuda_time_ms(sdpa, 4 * len(calls)), gather_ms, err)
+
+
+def phase_paged_kernels(real):
+    """``paged_attn`` against its plain version at every edge case in
+    float32 and bf16, and at one decode step of the serve phase (``real``:
+    its tables and positions, a bf16 pool for each of the 12 layers);
+    times the kernel, its plain version and the SDPA yardstick there,
+    over the layers in turn, and the kernel on one layer alone (its K/V
+    then stays in L2).  The times in the kernels line are device times
+    (``device_ms_per_call``): the wrapper's launch overhead exceeds the
+    kernel's time, so CUDA events around back-to-back launches would
+    time the host (logged too, as ``event_ms``)."""
+    from singa_tpu_torch.ops import paged_attention as pa
+
+    worst = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        for seed, (name, kw) in enumerate(paged_edge_cases()):
+            e = check_paged_case(f"{name}/{str(dtype)[6:]}", dtype, seed,
+                                 **kw)
+            worst[str(dtype)[6:]] = max(worst.get(str(dtype)[6:], 0.0), e)
+    layers = real["layers"]
+    args = layers[0]
+    got = pa.paged_attn(**args)
+    want = pa.paged_attn_plain(**args)
+    err = (got.float() - want.float()).abs().max().item()
+    rtol, atol = PAGED_TOL[args["q"].dtype]
+    if not torch.allclose(got.float(), want.float(), rtol=rtol, atol=atol):
+        raise AssertionError(f"paged_attn at the serve tables differs from "
+                             f"its plain version by {err}")
+    n = len(layers)
+    kernel = _rotating([functools.partial(pa.paged_attn, **a)
+                        for a in layers])
+    plain = _rotating([functools.partial(pa.paged_attn_plain, **a)
+                       for a in layers])
+    ms = device_ms_per_call(kernel, 4 * n)
+    hot_ms = device_ms_per_call(lambda: pa.paged_attn(**args), 4 * n)
+    plain_ms = device_ms_per_call(plain, n)
+    events = {"kernel": cuda_time_ms(kernel, 4 * n),
+              "plain": cuda_time_ms(plain, n)}
+    sdpa_ms, sdpa_events_ms, gather_ms, sdpa_err = sdpa_yardstick(layers)
+    s_, n_kv, g, nq, d = args["q"].shape
+    lens = args["p_limit"].tolist()
+    bound, by = paged_bound_ms(lens, n_kv, g, nq, d, args["q"].dtype)
+    log({"phase": "paged_kernels",
+         "edge_cases": 2 * len(paged_edge_cases()),
+         "edge_max_abs_err": worst, "tol": {str(k)[6:]: v for k, v
+                                            in PAGED_TOL.items()},
+         "serve_tables": dict(slots=s_, p_limit=lens, n_blk=args["n_blk"],
+                              block=args["pool_k"].shape[2], layers=n,
+                              dtype=str(args["q"].dtype)[6:],
+                              step=real["step"]),
+         "device_ms": {"kernel": ms, "kernel_one_layer_l2_hot": hot_ms,
+                       "plain": plain_ms, "sdpa_alone": sdpa_ms,
+                       "bound": bound},
+         "event_ms": dict(events, sdpa_alone=sdpa_events_ms,
+                          gather_for_sdpa=gather_ms),
+         "max_abs_err_vs_plain": err,
+         "sdpa_max_abs_diff_vs_kernel": sdpa_err})
+    return dict(name="paged_attn", route="cuda",
+                source="singa_tpu_torch/csrc/paged_attention.cu",
+                replaces=REPLACES["paged_attn"], launches=real["launches"],
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                bound_by=by, library_ms=sdpa_ms,
+                library_call="torch.nn.functional.scaled_dot_product_attention"
+                             " on rows gathered from the pool (the gather "
+                             "not timed: no one PyTorch call computes paged "
+                             "attention)")
+
+
+# ------------------------------------------------------------------ serve
+
+SERVE_REQUESTS = 24
+SERVE_ENGINE = dict(max_slots=8, block_size=32, num_blocks=256)
+# per-step logits of the bf16 engine, paged kernel against the gather
+# oracle on the same pool: the two attention outputs differ in float32
+# summation order only, so a few of them round to the other bf16
+# neighbour (2^-8 of themselves); 12 layers of bf16 activations carry
+# that to logits of magnitude O(1) (GPT-2 small, random weights, std
+# 0.02).  Streams are compared up to the first step whose top-2 margin
+# (of the logits a token is chosen from) is below this.
+SERVE_BF16_LOGITS_ATOL = 0.05
+
+
+def serve_traffic(seed=0, n=SERVE_REQUESTS, vocab=50257):
+    """The serve phase's requests: prompts of 16-512 random tokens,
+    ``max_new_tokens`` 32-128, alternately greedy and at temperature 0.9,
+    each with its own seed."""
+    rng = np.random.RandomState(seed)
+    return [dict(prompt=rng.randint(0, vocab, rng.randint(16, 513))
+                 .astype(np.int32),
+                 max_new=int(rng.randint(32, 129)),
+                 temperature=0.0 if i % 2 == 0 else 0.9,
+                 seed=int(rng.randint(0, 2 ** 31 - 1))) for i in range(n)]
+
+
+def run_engine(model, traffic, kernel, dtype=None, trace=False,
+               wrap=None):
+    """Submit ``traffic`` at once to ``model.serve`` with the serve
+    phase's engine, drain it, and check what a drain must leave: every
+    request completed by its length, no rejection, no block in use.
+    ``wrap(engine)`` may replace the engine's executor.  Returns
+    ``(streams, engine stats snapshot, seconds, decode-step seconds)``."""
+    from singa_tpu_torch.observe import trace as tr
+    from singa_tpu_torch.serve import GenerationRequest, PagedConfig
+
+    c = SERVE_ENGINE
+    eng = model.serve(max_slots=c["max_slots"], dtype=dtype, paged=PagedConfig(
+        block_size=c["block_size"], num_blocks=c["num_blocks"],
+        kernel=kernel))
+    if wrap is not None:
+        eng._x = wrap(eng)
+    if trace:
+        tr.drain()
+        tr.enable()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    hs = [eng.submit(GenerationRequest(
+        w["prompt"], max_new_tokens=w["max_new"],
+        temperature=w["temperature"], seed=w["seed"], request_id=f"r{i}"))
+        for i, w in enumerate(traffic)]
+    eng.run_until_complete(max_steps=5000)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    decode_s = None
+    if trace:
+        tr.disable()
+        decode_s = sum(e["dur"] for e in tr.drain()
+                       if e["name"] == "serve/decode_step")
+    results = [h.result() for h in hs]
+    snap = eng.stats.snapshot()
+    if eng.paged_arena.blocks_used != 0:
+        raise AssertionError(f"{eng.paged_arena.blocks_used} blocks in use "
+                             f"after the drain")
+    eng.check_block_accounting()
+    req = snap["requests"]
+    if (req["completed"] != len(traffic) or req["rejected_deadline"]
+            or req["rejected_queue_full"]
+            or any(r.finish_reason != "length" for r in results)):
+        raise AssertionError(f"not every request completed cleanly: {req}")
+    streams = [r.tokens for r in results]
+    for w, s in zip(traffic, streams):
+        if len(s) != len(w["prompt"]) + w["max_new"] \
+                or s.min() < 0 or s.max() >= model.cfg.vocab_size:
+            raise AssertionError(f"bad stream of length {len(s)}")
+    eng.close()
+    return streams, snap, seconds, decode_s
+
+
+def offline_streams(model, traffic):
+    """Offline ``generate`` of the traffic, float32: the greedy requests
+    in one batch, the sampled ones in another with their seeds, each
+    batch to its longest ``max_new_tokens`` and then cut to each
+    request's (a stream's prefix does not depend on its length)."""
+    out = [None] * len(traffic)
+    for greedy in (True, False):
+        idx = [i for i, w in enumerate(traffic)
+               if (w["temperature"] <= 0) == greedy]
+        n_new = max(traffic[i]["max_new"] for i in idx)
+        rows = model.generate(
+            [traffic[i]["prompt"] for i in idx], max_new_tokens=n_new,
+            temperature=0.0 if greedy else traffic[idx[0]]["temperature"],
+            seed=[traffic[i]["seed"] for i in idx])
+        for i, r in zip(idx, rows):
+            out[i] = r[:len(traffic[i]["prompt"]) + traffic[i]["max_new"]]
+    return out
+
+
+class _LogitsProbe:
+    """Executor for the bf16 logits check: each decode step runs the
+    gather oracle on a copy of the pools, then the paged kernel on the
+    pools themselves, and records, per live request, the largest logit
+    difference and the top-2 margin of the oracle's logits as the
+    sampler sees them (tempered plus the request's noise when sampled).
+    Keeps one step's tables and positions (the step with the most live
+    lanes) as the paged kernel's real serve shapes."""
+
+    def __init__(self, eng):
+        self.eng = eng
+        self.inner = eng._x
+        self.max_err = 0.0
+        self.first_low = {}     # request id -> first low-margin token index
+        self.real = None
+
+    def prefill_batch(self, params, ids):
+        return self.inner.prefill_batch(params, ids)
+
+    def paged_decode_step(self, params, pool_k, pool_v, tables, toks, pos,
+                          live, block, kernel="block"):
+        from singa_tpu_torch.models import gpt2_decode as gd
+
+        eng = self.eng
+        lanes = [i for i, s in enumerate(eng._slots) if s is not None]
+        want = self.inner.paged_decode_step(
+            params, pool_k.clone(), pool_v.clone(), tables, toks, pos, live,
+            block, kernel="gather")
+        n = len(lanes)
+        if self.real is None or n > len(self.real["p_limit"]) or (
+                n == len(self.real["p_limit"])
+                and pos[:n].sum() > sum(self.real["p_limit"])):
+            self.real = dict(tables=tables[:n].copy(),
+                             p_limit=pos[:n].astype(np.int32).tolist(),
+                             step=eng.step_count)
+        got = self.inner.paged_decode_step(params, pool_k, pool_v, tables,
+                                           toks, pos, live, block)
+        g, w = got[:n].float(), want[:n].float()
+        self.max_err = max(self.max_err, (g - w).abs().max().item())
+        for r, i in enumerate(lanes):
+            row = w[r]
+            if eng._temps[i] > 0:
+                row = gd._filter_logits(row[None], float(eng._temps[i]),
+                                        eng._top_p, eng._top_k)[0]
+                row = row + gd._gumbel(eng._seeds[i], eng._pos[i] + 1,
+                                       row.shape[0], row.device)
+            top2 = torch.topk(row, 2).values
+            rid = eng._slots[i].handle.request.request_id
+            if (top2[0] - top2[1]).item() < SERVE_BF16_LOGITS_ATOL \
+                    and rid not in self.first_low:
+                self.first_low[rid] = len(eng._slots[i].emitted)
+        return got
+
+
+def phase_serve(seed=0):
+    """GPT-2 small (124M, 12 layers, n_positions 1024, random weights from
+    a seed) served by the paged engine: 24 requests at once, float32 and
+    bf16 (module docstring).  Returns the paged kernel's launches on the
+    timed bf16 run and the real tables the kernel phase times."""
+    from singa_tpu_torch import amp, device, tensor
+    from singa_tpu_torch.models.gpt2 import GPT2Config, GPT2LMHead
+    from singa_tpu_torch.ops import paged_attention as pa
+
+    marks = [("start", time.perf_counter())]
+
+    def mark(name):
+        marks.append((name, time.perf_counter()))
+
+    amp.enable(False)
+    dev = device.create_cuda_gpu()
+    dev.SetRandSeed(seed)
+    cfg = GPT2Config.small(dropout=0.0)
+    model = GPT2LMHead(cfg)
+    model.compile([tensor.from_numpy(np.zeros((1, 8), np.int32), dev)],
+                  is_train=False)
+    traffic = serve_traffic(seed, vocab=cfg.vocab_size)
+    mark("model")
+
+    # float32: kernel == gather == offline generate, launches
+    pa.paged_attn.launches = 0
+    block32, snap32, sec32, _ = run_engine(model, traffic, "block")
+    launches32 = pa.paged_attn.launches
+    mark("float32_block")
+    steps32 = snap32["throughput"]["decode_steps"]
+    gather32, _, _, _ = run_engine(model, traffic, "gather")
+    mark("float32_gather")
+    offline = offline_streams(model, traffic)
+    mark("float32_generate")
+    for i, (a, b, c) in enumerate(zip(block32, gather32, offline)):
+        if not np.array_equal(a, b):
+            raise AssertionError(f"float32 request {i}: the paged kernel's "
+                                 f"stream differs from the gather oracle's")
+        if not np.array_equal(a, c):
+            raise AssertionError(f"float32 request {i}: the engine's stream "
+                                 f"differs from offline generate")
+    if launches32 != cfg.n_layer * steps32:
+        raise AssertionError(f"paged_attn launched {launches32} times over "
+                             f"{steps32} decode steps, expected "
+                             f"{cfg.n_layer} a step")
+
+    # bf16: the timed main path, a profiled run, the logits check
+    bf = torch.bfloat16
+    pa.paged_attn.launches = 0
+    block16, snap16, sec16, decode_s = run_engine(model, traffic, "block",
+                                                  dtype=bf, trace=True)
+    launches16 = pa.paged_attn.launches
+    mark("bf16_block")
+    steps16 = snap16["throughput"]["decode_steps"]
+    if launches16 != cfg.n_layer * steps16:
+        raise AssertionError(f"bf16: paged_attn launched {launches16} times "
+                             f"over {steps16} decode steps")
+    profile = profile_serve(model, traffic, bf)
+    mark("bf16_profile")
+    probes = []
+    probed, _, _, _ = run_engine(
+        model, traffic, "block", dtype=bf,
+        wrap=lambda e: probes.append(_LogitsProbe(e)) or probes[-1])
+    probe = probes[0]
+    mark("bf16_logits_probe")
+    if probe.max_err > SERVE_BF16_LOGITS_ATOL:
+        raise AssertionError(f"bf16 logits, paged kernel vs gather oracle: "
+                             f"{probe.max_err} > {SERVE_BF16_LOGITS_ATOL}")
+    gather16, _, _, _ = run_engine(model, traffic, "gather", dtype=bf)
+    mark("bf16_gather")
+    compared = {}
+    for i, (w, a, b, c) in enumerate(zip(traffic, block16, probed,
+                                         gather16)):
+        plen = len(w["prompt"])
+        if not np.array_equal(a, b):
+            raise AssertionError(f"bf16 request {i}: two runs of the paged "
+                                 f"engine gave different streams")
+        upto = probe.first_low.get(f"r{i}", w["max_new"])
+        compared[i] = upto
+        if not np.array_equal(a[:plen + upto], c[:plen + upto]):
+            raise AssertionError(
+                f"bf16 request {i}: paged and gather streams differ before "
+                f"token {upto}, the first whose top-2 margin is under "
+                f"{SERVE_BF16_LOGITS_ATOL}")
+    real = probe.real
+    ttft, tpot = snap16["latency"]["ttft"], snap16["latency"]["tpot"]
+    decode_tokens = snap16["throughput"]["tokens_out"] - len(traffic)
+    log({"phase": "serve", "model": "gpt2-small",
+         "params": sum(p.numel() for p in model.parameters()),
+         "engine": SERVE_ENGINE, "requests": len(traffic),
+         "prompt_lens": [len(w["prompt"]) for w in traffic],
+         "max_new_tokens": [w["max_new"] for w in traffic],
+         "float32": {"decode_steps": steps32, "paged_attn_launches":
+                     launches32, "seconds": sec32,
+                     "streams_equal_gather_and_generate": True},
+         "bf16": {"decode_steps": steps16, "paged_attn_launches": launches16,
+                  "seconds": sec16,
+                  "ttft_median_s": ttft["p50"], "tpot_median_s": tpot["p50"],
+                  "tokens_per_s": snap16["throughput"]["tokens_per_s"],
+                  "decode_tokens_per_s": decode_tokens / decode_s,
+                  "decode_step_seconds": decode_s,
+                  "logits_max_abs_diff_kernel_vs_gather": probe.max_err,
+                  "logits_atol": SERVE_BF16_LOGITS_ATOL,
+                  "streams_compared_up_to_token": compared,
+                  "low_margin_requests": len(probe.first_low)},
+         "profile_bf16_run": profile,
+         "seconds": {n: t - marks[i][1]
+                     for i, (n, t) in enumerate(marks[1:])},
+         "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30,
+         "nvidia_smi": nvidia_smi()})
+    return dict(launches=launches16, step=real["step"], layers=real_args(
+        real, model.cfg, seed))
+
+
+def profile_serve(model, traffic, dtype, warm=40, steps=20):
+    """Device time by kernel group and the device's busy share over
+    ``steps`` engine steps of the traffic after ``warm`` steps (the eight
+    slots full, decoding), from torch.profiler; then drains the
+    engine."""
+    from singa_tpu_torch.serve import GenerationRequest, PagedConfig
+
+    c = SERVE_ENGINE
+    eng = model.serve(max_slots=c["max_slots"], dtype=dtype,
+                      paged=PagedConfig(block_size=c["block_size"],
+                                        num_blocks=c["num_blocks"]))
+    for w in traffic:
+        eng.submit(GenerationRequest(
+            w["prompt"], max_new_tokens=w["max_new"],
+            temperature=w["temperature"], seed=w["seed"]))
+    for _ in range(warm):
+        eng.step()
+    live = eng.live_slots
+    out = profile_steps(lambda _x, _y: eng.step(), None, None, steps=steps,
+                        groups=SERVE_GROUPS)
+    eng.run_until_complete(max_steps=5000)
+    eng.close()
+    return dict(out, warm_steps=warm, live_slots=live)
+
+
+SERVE_GROUPS = (
+    ("paged_attn", re.compile(r"paged_attn_kernel<")),
+    ("gemm", re.compile(r"gemm|nvjet|xmma|cutlass", re.I)),
+)
+
+
+def real_args(real, cfg, seed):
+    """``paged_attn`` arguments for each layer of one recorded serve step:
+    its tables and positions, a bf16 pool of the serve engine's size for
+    each layer with random contents, random queries and current K/V, drawn
+    on the device from ``seed`` (the kernel's time does not depend on the
+    values)."""
+    c = SERVE_ENGINE
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(seed)
+    d = cfg.n_embd // cfg.n_head
+    s_ = len(real["p_limit"])
+
+    def rand(*shape):
+        return torch.randn(shape, generator=gen, device=DEVICE,
+                           dtype=torch.bfloat16)
+
+    block = c["block_size"]
+    p_limit = real["p_limit"]
+    step = dict(
+        q=rand(s_, cfg.n_kv_head, cfg.n_head // cfg.n_kv_head, 1, d),
+        tables=torch.from_numpy(real["tables"]).to(DEVICE),
+        p_limit=torch.tensor(p_limit, dtype=torch.int32, device=DEVICE),
+        n_blk=max(-(-p // block) for p in p_limit),
+        k_cur=rand(s_, cfg.n_kv_head, 1, d),
+        v_cur=rand(s_, cfg.n_kv_head, 1, d),
+        cur_mask=torch.ones(1, 1, dtype=torch.bool, device=DEVICE),
+        scale=1.0 / math.sqrt(d))
+    shape = (c["num_blocks"] + 1, cfg.n_kv_head, block, d)
+    return [dict(step, pool_k=rand(*shape), pool_v=rand(*shape))
+            for _ in range(cfg.n_layer)]
+
+
 # ----------------------------------------------------------------- main
 
 #: every kernel source of the port (``singa_tpu_torch/csrc/<name>.cu``)
-SOURCES = ("flash_attention", "resnet_bottleneck")
+SOURCES = ("flash_attention", "resnet_bottleneck", "paged_attention")
 
 
 def kernel_report(lib):
@@ -999,6 +1632,8 @@ def kernel_report(lib):
 TENSOR_CORE_KERNELS = {
     "flash_attention": ("fwd_tc_kernel", "dq_tc_kernel", "dkv_tc_kernel"),
     "resnet_bottleneck": ("bottleneck_tc_kernel",),
+    # decode attention does ~1 FLOP a byte: CUDA cores, by design
+    "paged_attention": (),
 }
 
 
@@ -1042,23 +1677,41 @@ def phase_build():
          "kernels": report})
 
 
+def nvidia_smi():
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke.py: no CUDA device; the port's smoke run needs "
               "one GPU", file=sys.stderr)
         return 1
-    phase_build()
-    rows = phase_kernels()
-    phase_slice(rows)
-    model, images = phase_resnet()
-    rows["megakernel_block"] = phase_bottleneck(model, images)
+    seconds = {}
 
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, check=True).stdout.strip()
+    def timed(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        seconds[name] = time.perf_counter() - t0
+        return out
+
+    timed("build", phase_build)
+    rows = timed("kernels", phase_kernels)
+    timed("slice", phase_slice, rows)
+    model, images = timed("resnet", phase_resnet)
+    rows["megakernel_block"] = timed("bottleneck", phase_bottleneck, model,
+                                     images)
+    del model, images
+    real = timed("serve", phase_serve)
+    rows["paged_attn"] = timed("paged_kernels", phase_paged_kernels, real)
+
+    smi = nvidia_smi()
     log({"phase": "device", "nvidia_smi": smi,
-         "torch": torch.__version__, "cuda": torch.version.cuda})
+         "torch": torch.__version__, "cuda": torch.version.cuda,
+         "phase_seconds": seconds})
     print(json.dumps({"kernels": list(rows.values())}))
     print(smi.splitlines()[0])
     print(json.dumps({"ok": True, "device": {

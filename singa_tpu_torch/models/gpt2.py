@@ -1,7 +1,8 @@
 """GPT-2, decoder-only causal LM (counterpart of
 ``singa_tpu/models/gpt2.py``): the configuration, the trunk and the LM
-head with its training step.  Sampling (``generate``) and serving are
-not ported yet.
+head with its training step, KV-cached sampling (``generate``,
+``models/gpt2_decode.py``) and the serve engine (``serve``,
+``singa_tpu_torch/serve``).
 
 At ``n_positions >= 1024`` the configuration picks ``attn_impl="flash"``,
 so every block's attention runs through the flash kernels
@@ -151,3 +152,31 @@ class GPT2LMHead(model.Model):
             loss = autograd.add(loss, aux)
         self.optimizer(loss)
         return logits, loss
+
+    def generate(self, prompt_ids, max_new_tokens=20, temperature=1.0,
+                 rng=None, top_k=0, top_p=None, seed=None, dtype=None):
+        """KV-cached greedy or temperature sampling with optional top-k /
+        top-p filtering on the model's device
+        (``models/gpt2_decode.generate``).  ``prompt_ids``: one 1-D prompt
+        (returns a 1-D int32 array, prompt + continuation) or a list /
+        2-D batch, possibly ragged (returns a list).  ``seed`` keys the
+        sampling noise (an int, or one per row).  Prompt +
+        ``max_new_tokens`` must fit ``n_positions``: the JAX package's
+        windowed fallback for longer generations is not ported."""
+        from . import gpt2_decode
+
+        return gpt2_decode.generate(
+            self, prompt_ids, max_new_tokens=max_new_tokens,
+            temperature=temperature, rng=rng, top_k=top_k, top_p=top_p,
+            seed=seed, dtype=dtype)
+
+    def serve(self, **kw):
+        """A continuous-batching inference engine over this model
+        (``singa_tpu_torch.serve.InferenceEngine``), on the model's
+        device.  Keyword arguments go to the engine: ``paged=`` (a
+        ``serve.PagedConfig``; required, the slot arena is not ported),
+        ``max_slots``, ``max_len``, ``dtype``, ``top_k``, ``top_p``,
+        ``scheduler``, ``clock``."""
+        from ..serve import InferenceEngine
+
+        return InferenceEngine(self, **kw)

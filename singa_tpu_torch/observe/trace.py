@@ -1,12 +1,15 @@
 """Host-side span tracing (the part of ``singa_tpu/observe/trace.py`` that
-the training path emits: the ``opt/update`` span).
+the port emits: the ``opt/update`` span of training, the serve engine's
+``serve/decode_step`` and ``serve/prefill`` spans and its
+``serve/retire`` and ``serve/request_rejected`` instants).
 
 Spans are recorded as complete events at exit.  Disabled, ``span()`` is
 one flag check and returns a shared no-op context manager.
 
 Event record schema (plain dicts)::
 
-    {"name": str, "cat": str, "ph": "X", "ts": float seconds,
+    {"name": str, "cat": str, "ph": "X" (span) or "i" (instant),
+     "ts": float seconds,
      "dur": float seconds, "tid": str thread name, "depth": int,
      "parent": str | None, "args": dict | None}
 """
@@ -16,7 +19,7 @@ from __future__ import annotations
 import threading
 import time
 
-__all__ = ["enable", "disable", "drain", "span"]
+__all__ = ["enable", "disable", "drain", "event", "span"]
 
 _enabled = False
 _events: list = []
@@ -109,3 +112,15 @@ def span(name: str, cat: str = "app", **args):
     if not _enabled:
         return _NULL_SPAN
     return _Span(name, cat, args)
+
+
+def event(name: str, cat: str = "app", **args):
+    """Record an instant (``"ph": "i"``, ``dur`` 0) when tracing is on."""
+    if not _enabled:
+        return
+    st = _stack()
+    _events.append({
+        "name": name, "cat": cat, "ph": "i", "ts": time.perf_counter(),
+        "dur": 0.0, "tid": threading.current_thread().name,
+        "depth": len(st), "parent": st[-1] if st else None,
+        "args": args or None})

@@ -32,9 +32,11 @@ def test_import_pulls_in_neither_jax_nor_singa_tpu():
     code = ("import sys, singa_tpu_torch\n"
             "from singa_tpu_torch import amp, autograd, device, layer, "
             "model, opt, tensor\n"
-            "from singa_tpu_torch.models import common, gpt2, resnet\n"
+            "from singa_tpu_torch.models import (common, gpt2, "
+            "gpt2_decode, resnet)\n"
             "from singa_tpu_torch.ops import (batchnorm, bottleneck, conv, "
-            "flash_attention, padding, pooling)\n"
+            "flash_attention, padding, paged_attention, pooling)\n"
+            "from singa_tpu_torch import serve\n"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'singa_tpu' or "
             "m.startswith('singa_tpu.') or m == 'singa' or "

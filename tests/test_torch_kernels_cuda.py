@@ -11,7 +11,10 @@ kernel-vs-plain comparisons are ``chip_smoke.check_case`` over
 ``chip_smoke.edge_cases()`` (flash attention) and
 ``chip_smoke.check_bottleneck_case`` over
 ``chip_smoke.bottleneck_edge_cases()`` (the ResNet bottleneck), with
-their tolerances (``chip_smoke.TOL``): flash attention allclose with
+``chip_smoke.check_paged_case`` over ``chip_smoke.paged_edge_cases()``
+(paged decode attention, allclose at ``chip_smoke.PAGED_TOL``: float32
+2e-5, bf16 1e-2), with their tolerances (``chip_smoke.TOL``): flash
+attention allclose with
 float32 rtol = atol = 1e-4 and bf16 rtol = atol = 2e-2 (bf16 with
 D <= 128 runs the tensor-core kernels); the bottleneck
 per element (``chip_smoke.bottleneck_stats``: within 1 bf16 ulp +
@@ -25,6 +28,7 @@ import torch
 import chip_smoke
 from singa_tpu_torch.ops import bottleneck as tbk
 from singa_tpu_torch.ops import flash_attention as tfa
+from singa_tpu_torch.ops import paged_attention as tpa
 
 B, H = 2, 2
 
@@ -156,3 +160,63 @@ def test_bottleneck_unsupported_inputs_raise(cuda_device):
     wide = chip_smoke.bottleneck_inputs(1, 2, 512, 64, 128, seed=0)
     with pytest.raises(ValueError, match="shared memory"):
         tbk.megakernel_block(*wide)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("seed,name,case", [
+    pytest.param(seed, name, case, id=name)
+    for seed, (name, case) in enumerate(chip_smoke.paged_edge_cases())])
+def test_paged_kernel_matches_plain(cuda_device, dtype, seed, name, case):
+    chip_smoke.check_paged_case(f"{name}/{dtype}", getattr(torch, dtype),
+                                seed, **case)
+
+
+@pytest.mark.cuda
+def test_paged_kernel_counts_its_launches_and_refuses_int8(cuda_device):
+    args = chip_smoke.paged_inputs(lens=[9, 0], block=8, d=64, n_kv=2, g=1,
+                                   nq=1, dtype=torch.float32, seed=0)
+    before = tpa.paged_attn.launches
+    tpa.paged_attn(**args)
+    torch.cuda.synchronize()
+    assert tpa.paged_attn.launches == before + 1
+    int8 = dict(args, pool_k=args["pool_k"].to(torch.int8),
+                pool_v=args["pool_v"].to(torch.int8))
+    with pytest.raises(TypeError, match="int8"):
+        tpa.paged_attn(**int8)
+    wide = chip_smoke.paged_inputs(lens=[9], block=8, d=96, n_kv=1, g=1,
+                                   nq=1, dtype=torch.float32, seed=0)
+    with pytest.raises(ValueError, match="head dims"):
+        tpa.paged_attn(**wide)
+
+
+@pytest.mark.cuda
+def test_tiny_gpt2_serves_through_the_paged_kernel(cuda_device):
+    """Engine streams equal offline generate on the card, float32, and the
+    kernel launches once a layer a decode step."""
+    from singa_tpu_torch import device, tensor
+    from singa_tpu_torch.models.gpt2 import GPT2Config, GPT2LMHead
+    from singa_tpu_torch.serve import GenerationRequest, PagedConfig
+
+    dev = device.create_cuda_gpu()
+    dev.SetRandSeed(0)
+    m = GPT2LMHead(GPT2Config.tiny(dropout=0.0, n_embd=128, n_head=2))
+    m.compile([tensor.from_numpy(np.zeros((1, 8), np.int32), dev)],
+              is_train=False)
+    rng = np.random.RandomState(2)
+    work = [(rng.randint(0, 256, rng.randint(3, 40)).astype(np.int32),
+             int(rng.randint(2, 20)), float(t), int(rng.randint(0, 999)))
+            for t in (0.0, 0.9, 0.0, 0.9, 0.0)]
+    eng = m.serve(max_slots=2, paged=PagedConfig(block_size=8,
+                                                 num_blocks=32))
+    before = tpa.paged_attn.launches
+    hs = [eng.submit(GenerationRequest(p, max_new_tokens=n, temperature=t,
+                                       seed=s)) for p, n, t, s in work]
+    eng.run_until_complete(max_steps=500)
+    steps = eng.stats.decode_steps
+    assert tpa.paged_attn.launches - before == 2 * steps
+    for h, (p, n, t, s) in zip(hs, work):
+        want = m.generate(p, max_new_tokens=n, temperature=t, seed=s)
+        np.testing.assert_array_equal(h.result().tokens, want)
+    assert eng.paged_arena.blocks_used == 0
+    eng.close()

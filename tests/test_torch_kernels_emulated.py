@@ -10,7 +10,9 @@ tensor-core kernels without a card.  It sums each ``mma`` exactly, so the
 card's own rounding is held on the card (tests/test_torch_kernels_cuda.py,
 ``chip_smoke.py``).  Cases: small ``chip_smoke`` edge cases, bf16 for
 flash attention (the tensor-core route), the ragged and narrow ones for
-the bottleneck.  Needs a C++ compiler.
+the bottleneck, three paged-attention cases in float32 and bf16 (dead
+slots with all-trash tables, GQA g = 3 with Q = 4 at D = 128, a window
+over Q = 4) at ``chip_smoke.PAGED_TOL``.  Needs a C++ compiler.
 """
 
 import importlib.util
@@ -26,6 +28,7 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 FLASH = ("s65_causal", "s129_causal", "d13_s100", "window1", "neg_inf_row",
          "general_mask_mBH")
 BOTTLENECK = ("hw7_bands_ragged", "c128_cm32", "odd_h5_w9_cm8")
+PAGED = ("dead_slots_all_trash", "g3_q4_d128", "window_q4_g3")
 
 
 @pytest.fixture(scope="module")
@@ -68,10 +71,22 @@ def test_bottleneck_kernel_matches_plain(emu, build_dir, cpu_inputs, name):
     assert stats["ok"], stats
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["float32", "bfloat16"])
+@pytest.mark.parametrize("name", PAGED)
+def test_paged_kernel_matches_plain(emu, build_dir, cpu_inputs, name, dtype):
+    seed, kw = next((i, kw) for i, (n, kw)
+                    in enumerate(chip_smoke.paged_edge_cases())
+                    if n == name)
+    lib = emu.load("paged_attention", build_dir)
+    err, ok = emu.paged_case(lib, dtype, seed, **kw)
+    assert ok, err
+
+
 def test_every_inline_ptx_helper_is_emulated(emu):
-    """The translation leaves no inline PTX in either source: each helper
+    """The translation leaves no inline PTX in any source: each helper
     that holds some is one the emulator replaces."""
-    for name in ("flash_attention", "resnet_bottleneck"):
+    for name in ("flash_attention", "resnet_bottleneck", "paged_attention"):
         text = (ROOT / "singa_tpu_torch" / "csrc" / f"{name}.cu").read_text()
         assert "asm" not in emu.emulated_source(text).replace(
             "emu.h", "")

@@ -16,16 +16,28 @@ this checkout's ``chip_smoke.py``, whichever tree is timed.  Each kernel
 is timed over 10 and over 50 launches: the count ``chip_smoke.py`` once
 timed kernels over, and the count it times them over now.
 
+Where the checkout has the paged decode attention
+(``singa_tpu_torch/ops/paged_attention.py``), ``paged_attn`` is timed too,
+at one decode step of ``chip_smoke.py``'s serve traffic (``PAGED_LENS``:
+8 slots' positions, block size 32, 12 kv heads, D = 64, bf16, random
+tables and a random pool for each of the 12 layers from numpy seed 0):
+``paged_attn`` over the layers in turn, as the serve step reads them (the
+working set outgrows L2), and ``paged_attn_one_layer`` on the first layer
+alone (its K/V stays in L2); besides the event times, their device time
+per launch over 48 launches (``chip_smoke.device_ms_per_call``), since
+the wrapper's launch overhead exceeds the kernel's time.
+
 Run it once per checkout in alternating order (A, B, B, A) within one
 process per run; each run prints one JSON line with the mean ms per
-launch of ``flash_fwd``, ``flash_bwd_dq``, ``flash_bwd_dkv`` and
-``megakernel_block`` at each count, and the card's name and power limit.
-Needs a CUDA GPU.
+launch of ``flash_fwd``, ``flash_bwd_dq``, ``flash_bwd_dkv``,
+``megakernel_block`` (and the paged rows) at each count, and the card's
+name and power limit.  Needs a CUDA GPU.
 """
 
 from __future__ import annotations
 
 import argparse
+import functools
 import importlib.util
 import json
 import os
@@ -34,6 +46,9 @@ import sys
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 LAUNCHES = (10, 50)
+#: the live slots' positions at one decode step of chip_smoke.py's serve
+#: traffic (GPT-2 small, 8 slots)
+PAGED_LENS = (448, 511, 115, 349, 462, 361, 340, 252)
 
 
 def _chip_smoke():
@@ -44,6 +59,34 @@ def _chip_smoke():
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
+
+
+def _paged_calls(cs):
+    """``paged_attn`` over 12 layers in turn and on one layer, at
+    ``PAGED_LENS`` (module docstring)."""
+    from types import SimpleNamespace
+
+    import numpy as np
+
+    from singa_tpu_torch.ops import paged_attention as pa
+
+    c = cs.SERVE_ENGINE
+    block = c["block_size"]
+    rng = np.random.RandomState(0)
+    ids = rng.permutation(c["num_blocks"])
+    tables = np.full((len(PAGED_LENS), 1024 // block), c["num_blocks"],
+                     np.int32)
+    at = 0
+    for s, p in enumerate(PAGED_LENS):
+        n = -(-p // block)
+        tables[s, :n] = ids[at:at + n]
+        at += n
+    cfg = SimpleNamespace(n_embd=768, n_head=12, n_kv_head=12, n_layer=12)
+    layers = cs.real_args(dict(tables=tables, p_limit=list(PAGED_LENS)),
+                          cfg, 0)
+    return {"paged_attn": cs._rotating(
+                [functools.partial(pa.paged_attn, **a) for a in layers]),
+            "paged_attn_one_layer": lambda: pa.paged_attn(**layers[0])}
 
 
 def main(argv=None):
@@ -77,8 +120,17 @@ def main(argv=None):
     }
     block = cs.bottleneck_inputs(128, 56, 56, 256, 64, seed=0)
     calls["megakernel_block"] = lambda: bk.megakernel_block(*block)
+    paged = {}
+    if os.path.exists(os.path.join(tree, "singa_tpu_torch", "ops",
+                                   "paged_attention.py")):
+        paged = _paged_calls(cs)
+        calls.update(paged)
     ms = {name: {str(n): cs.cuda_time_ms(fn, n) for n in LAUNCHES}
           for name, fn in calls.items()}
+    # the paged kernel is shorter than its wrapper's launch overhead:
+    # its device time, by the profiler, over 48 launches
+    device_ms = {name: cs.device_ms_per_call(fn, 48)
+                 for name, fn in paged.items()}
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
@@ -88,7 +140,8 @@ def main(argv=None):
             os.path.abspath(fa.__file__))),
         "shape": dict(sh, causal=True, dtype="bfloat16"),
         "bottleneck_shape": dict(b=128, h=56, w=56, c=256, cm=64),
-        "ms_by_launches": ms, "nvidia_smi": smi.splitlines()[0]}),
+        "ms_by_launches": ms, "device_ms_48_launches": device_ms,
+        "nvidia_smi": smi.splitlines()[0]}),
         flush=True)
     return 0
 

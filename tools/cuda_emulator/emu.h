@@ -2,11 +2,11 @@
 // sources run on a CPU (tools/emulate_kernels.py turns a csrc/*.cu file
 // into a C++ file that includes this header):
 //   * one fiber (ucontext) per CUDA thread, blocks run one after another;
-//   * __syncthreads and the warp collectives are barriers over the block's
-//     or the warp's fibers;
+//   * __syncthreads, __syncwarp and the warp collectives are barriers over
+//     the block's or the warp's fibers;
 //   * ldmatrix (.x4, .trans), mma.sync.m16n8k16 (bf16, exact products summed
 //     in double: the tensor cores' truncation of a running sum is NOT
-//     modelled), __shfl_xor_sync;
+//     modelled), __shfl_xor_sync, __shfl_sync (float);
 //   * cp.async reads its source when issued and writes shared memory only
 //     at the cp.async.wait_group that retires it, so a read before the wait
 //     sees stale data; shared memory starts as garbage (0xA5), not zeros;
@@ -43,6 +43,7 @@ inline cudaError_t cudaGetLastError() { return 0; }
 struct uint4 { unsigned x, y, z, w; };
 inline uint4 make_uint4(unsigned a, unsigned b, unsigned c, unsigned d) { return {a, b, c, d}; }
 struct float2 { float x, y; };
+struct float4 { float x, y, z, w; };
 
 struct __nv_bfloat16 { uint16_t v; };
 struct __nv_bfloat162 { __nv_bfloat16 x, y; };
@@ -85,6 +86,7 @@ inline void __syncthreads() { emu_arrive(emu_block_bar); }
 inline int emu_lane() { return threadIdx.x & 31; }
 inline EmuWarp& emu_warp() { return emu_warps[threadIdx.x >> 5]; }
 inline unsigned char* emu_smem() { return emu_smem_base; }
+inline void __syncwarp(unsigned = 0xffffffffu) { emu_arrive(emu_warp().bar); }
 
 inline uint32_t smem_u32(const void* p) {
   const unsigned char* q = (const unsigned char*)p;
@@ -154,6 +156,10 @@ inline void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0, uint32_
 inline float __shfl_xor_sync(unsigned, float v, int o) {
   EmuWarp& w = emu_warp(); int l = emu_lane();
   w.f[l] = v; emu_arrive(w.bar); float r = w.f[l ^ o]; emu_arrive(w.bar); return r;
+}
+inline float __shfl_sync(unsigned, float v, int src) {
+  EmuWarp& w = emu_warp(); int l = emu_lane();
+  w.f[l] = v; emu_arrive(w.bar); float r = w.f[src & 31]; emu_arrive(w.bar); return r;
 }
 inline float ex2(float x) { return exp2f(x); }
 

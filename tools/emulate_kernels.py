@@ -2,7 +2,7 @@
 """Runs the port's CUDA kernel sources on the CPU, through the emulator in
 ``tools/cuda_emulator/emu.h``, against their plain PyTorch versions:
 
-    python3 tools/emulate_kernels.py [flash|bottleneck] [CASE ...]
+    python3 tools/emulate_kernels.py [flash|bottleneck|paged] [CASE ...]
 
 Each ``singa_tpu_torch/csrc/<name>.cu`` is turned into C++ (the inline-PTX
 helpers ``smem_u32``, ``cp_async*``, ``ldsm_x4*``, ``mma_bf16`` and ``ex2``
@@ -11,8 +11,10 @@ shared memory and ``<<<...>>>`` launches call ``emu_launch``), built with
 the host's C++ compiler into ``_scratch/emulator`` (gitignored) and loaded
 with ctypes under the same C interface the GPU library has.  The CLI runs
 ``chip_smoke.py``'s edge cases: every flash case in bf16 (the tensor-core
-kernels; float32 takes the CUDA-core ones), and every bottleneck case;
-it prints one line a case and exits 1 if any fails ``chip_smoke.TOL``.
+kernels; float32 takes the CUDA-core ones), every bottleneck case, and
+every paged-attention case in float32 and bf16; it prints one line a case
+and exits 1 if any fails its tolerance (``chip_smoke.TOL``,
+``chip_smoke.PAGED_TOL``).
 
 The emulator sums each ``mma`` exactly, so it shows what a kernel computes
 and where it reads and writes, not the card's rounding (the tensor cores
@@ -114,6 +116,11 @@ def load(name, out_dir):
         for fn, argtypes in fa._SIGNATURES.items():
             getattr(lib, fn).argtypes = argtypes
             getattr(lib, fn).restype = ctypes.c_int
+    elif name == "paged_attention":
+        from singa_tpu_torch.ops import paged_attention as pa
+
+        lib.paged_attention.argtypes = pa._ARGTYPES
+        lib.paged_attention.restype = ctypes.c_int
     else:
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
         lib.resnet_bottleneck.argtypes = [ptr] * 11 + [i32] * 5 + [ptr]
@@ -188,10 +195,39 @@ def bottleneck_case(lib, b, h, w, c, cm, seed, affine="unit"):
                                cs.TOL["bottleneck"])
 
 
+def paged_case(lib, dtype, seed, **kw):
+    """The emulated paged-attention kernel on one ``chip_smoke`` case
+    (CPU tensors) against its plain version; returns ``(max |Δ|, ok)``."""
+    import torch
+
+    import chip_smoke as cs
+    from singa_tpu_torch.ops import paged_attention as pa
+
+    a = cs.paged_inputs(dtype=dtype, seed=seed, **kw)
+    q = a["q"]
+    s_, n_kv, g, nq, d = q.shape
+    out = torch.full_like(q, float("nan"))
+    err = lib.paged_attention(
+        *(a[k].data_ptr() for k in ("q", "pool_k", "pool_v", "tables",
+                                    "p_limit", "k_cur", "v_cur",
+                                    "cur_mask")),
+        out.data_ptr(), s_, n_kv, g, nq, d, a["pool_k"].shape[2],
+        a["tables"].shape[1], a["pool_k"].shape[0] - 1, a["n_blk"],
+        int(a["blk_lo"] or 0), int(a["window"] or 0), a["scale"],
+        pa._DTYPES[dtype], None)
+    if err:
+        raise RuntimeError(f"emulated launch returned {err}")
+    got, want = out.float(), pa.paged_attn_plain(**a).float()
+    rtol, atol = cs.PAGED_TOL[dtype]
+    return ((got - want).abs().max().item(),
+            bool(torch.isfinite(got).all())
+            and torch.allclose(got, want, rtol=rtol, atol=atol))
+
+
 def main(argv=None):
     argv = list(sys.argv[1:] if argv is None else argv)
-    which = argv.pop(0) if argv and argv[0] in ("flash", "bottleneck") \
-        else None
+    which = argv.pop(0) if argv and argv[0] in ("flash", "bottleneck",
+                                                 "paged") else None
     sys.path.insert(0, ROOT)
     import torch
 
@@ -218,6 +254,16 @@ def main(argv=None):
             print(f"bottleneck {name}: share_differing "
                   f"{st['share_differing']:.3g}, max |Δ| "
                   f"{st['max_abs_err']}, ok {st['ok']}", flush=True)
+    if which in (None, "paged"):
+        lib = load("paged_attention", out_dir)
+        for seed, (name, kw) in enumerate(cs.paged_edge_cases()):
+            if argv and name not in argv:
+                continue
+            for dtype in (torch.float32, torch.bfloat16):
+                err, ok = paged_case(lib, dtype, seed, **kw)
+                failed += not ok
+                print(f"paged {name}/{str(dtype)[6:]}: max |Δ| {err}, "
+                      f"ok {ok}", flush=True)
     return 1 if failed else 0
 
 
