@@ -22,9 +22,9 @@ exits nonzero:
                     H=12, S=1024, D=64, causal, bf16) and at edge shapes in
                     float32 and bf16 (key mask, a fully -inf-masked row,
                     general masks, sliding windows, S=1/65/129/1000,
-                    D=8/13/72/96/128/160), where bf16 with D <= 128 runs
-                    the tensor-core kernels and the rest the CUDA-core
-                    ones; and times each kernel, its plain
+                    D=8/13/72/96/128/160/320/512), where bf16 with D <=
+                    128 runs the tensor-core kernels and the rest the
+                    CUDA-core ones; and times each kernel, its plain
                     version and PyTorch's fused attention, forward and
                     backward (a yardstick the port never calls).
 3. ``slice``      - trains GPT-2 small (124M, n_positions 1024, so
@@ -80,15 +80,33 @@ exits nonzero:
                     oracle on a copy of the pool (``SERVE_BF16_LOGITS_ATOL``)
                     and against a gather engine's streams up to each
                     request's first token whose top-2 margin is below it.
-8. ``paged_kernels`` - ``paged_attn`` against ``paged_attn_plain`` at the
-                    edge cases of ``paged_edge_cases`` (block sizes 1 to 32,
-                    partial and full last blocks, all-trash and one-block
-                    tables, GQA g = 3, D = 128, Q = 4 with a tril mask,
-                    windows, 1000-lane slots) in float32 and bf16, and at a
-                    step's real tables from the serve phase, where it times
-                    the kernel, its plain version and SDPA on rows gathered
+                    Then, float32: a pressured priority engine (8 slots,
+                    ``PagedConfig(block_size=32, num_blocks=64)``, 12
+                    requests of 200-500-token prompts and 32 new tokens,
+                    a priority-0 wave then a higher-priority one) that
+                    must preempt and resume, streams equal to offline
+                    ``generate``, no block left; and ``GPT2Config.tiny``
+                    (D = 16) served on the card, streams equal to offline
+                    ``generate``.
+8. ``generate``   - the serve phase's float32 GPT-2 small past
+                    n_positions: a 1000-token prompt and 40 greedy tokens
+                    take the windowed path (12 flash forward launches a
+                    token), equal to the KV-cached ``generate`` over the
+                    24 tokens that fit; ``min_p`` and
+                    ``repetition_penalty`` on the KV-cached path.
+9. ``paged_kernels`` - ``paged_attn`` (its split and combine kernels)
+                    against ``paged_attn_plain`` at the edge cases of
+                    ``paged_edge_cases`` (block sizes 1 to 32, partial and
+                    full last blocks, all-trash and one-block tables, GQA
+                    g = 3, D = 16/20/40/80/128/256, Q = 4 with a tril mask,
+                    windows, 1000-lane slots, a long slot beside short
+                    ones; one split of the key range and several) in
+                    float32 and bf16, and at two tables of bf16 pools over
+                    12 layers, one decode step's real tables from the
+                    serve phase and two 1000-lane slots, where it times the
+                    kernels, their plain version and SDPA on rows gathered
                     from the pool (the yardstick; the gather not timed).
-9. ``device``     - the card's name and power limit from nvidia-smi.
+10. ``device``    - the card's name and power limit from nvidia-smi.
 
 Then one line ``{"kernels": [...]}`` with each kernel's launches on the
 main path, error, times and bound, the nvidia-smi line, and last
@@ -183,12 +201,9 @@ def cuda_time_ms(fn, iters, warmup=2):
     return start.elapsed_time(end) / iters
 
 
-def device_ms_per_call(fn, iters, warmup=2):
-    """Device time of ``fn()`` per call: the CUDA kernels it launches over
-    ``iters`` calls, summed by torch.profiler (CUPTI).  Unlike
-    ``cuda_time_ms`` it leaves out the gaps in which the device waits for
-    the host, which set the event time of a kernel shorter than its
-    wrapper's launch overhead."""
+def device_ms_by_kernel(fn, iters, warmup=2):
+    """Device time of ``fn()`` per call by kernel name: the CUDA kernels
+    it launches over ``iters`` calls, by torch.profiler (CUPTI)."""
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(warmup):
@@ -199,11 +214,23 @@ def device_ms_per_call(fn, iters, warmup=2):
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    total = sum(e.self_device_time_total for e in prof.key_averages()
-                if e.device_type == torch.autograd.DeviceType.CUDA)
-    if total == 0:
+    out = {}
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            out[e.key] = out.get(e.key, 0.0) + \
+                e.self_device_time_total / 1e3 / iters
+    if sum(out.values()) == 0:
         raise AssertionError("torch.profiler recorded no device time")
-    return total / 1e3 / iters
+    return out
+
+
+def device_ms_per_call(fn, iters, warmup=2):
+    """Device time of ``fn()`` per call: every CUDA kernel it launches
+    over ``iters`` calls, summed (``device_ms_by_kernel``).  Unlike
+    ``cuda_time_ms`` it leaves out the gaps in which the device waits for
+    the host, which set the event time of a kernel shorter than its
+    wrapper's launch overhead."""
+    return sum(device_ms_by_kernel(fn, iters, warmup).values())
 
 
 # ---------------------------------------------------------------- kernels
@@ -307,6 +334,10 @@ def edge_cases():
         ("d13_s100", dict(s=100, d=13, causal=True)),
         ("d128_general_mask_causal", dict(s=192, d=128, causal=True,
                                           mask=gmask(b, h, 192, 192))),
+        # the widest rung of the CUDA-core kernels (16-row tiles, rows of
+        # 512): D past 256 and not a multiple of 64, a key mask, a window
+        ("d320_key_mask", dict(s=200, d=320, mask=key_mask)),
+        ("d512_window", dict(s=96, d=512, causal=True, window=40)),
     ]
     return [(n, dict(b=b, h=h, **kw)) for n, kw in cases]
 
@@ -1092,6 +1123,20 @@ def paged_edge_cases():
                                     trash_at=[(0, 1), (0, 3), (1, 0)])),
         ("long_b32", dict(lens=[1000, 300, 640], block=32)),
         ("long_b1", dict(lens=[200, 130], block=1)),
+        # the split plan: a long slot beside short ones (their higher
+        # splits empty), a window whose live keys all fall in the last
+        # split of each slot (read from block 0)
+        ("long_beside_short", dict(lens=[900, 40, 7], block=16)),
+        ("window_in_one_split", dict(lens=[700, 650], block=32, window=50,
+                                     from_block0=True)),
+        # head dims off the 64 / 128 rows: rounded up to 16 / 64 / 128 /
+        # 256 with the tail zero-filled; D = 20 in bf16 is 40 bytes a row,
+        # so element copies instead of 16-byte ones
+        ("d16", dict(lens=[45, 3, 130], block=8, d=16)),
+        ("d40_g3", dict(lens=[70, 20], block=16, d=40, g=3)),
+        ("d80_q4", dict(lens=[33, 64], block=8, d=80, nq=4)),
+        ("d256_g2_q2", dict(lens=[300, 17], block=32, d=256, g=2, nq=2)),
+        ("d20_element_loads", dict(lens=[37, 90], block=8, d=20)),
     ]
     return [(n, {**base, **kw}) for n, kw in cases]
 
@@ -1186,71 +1231,106 @@ def sdpa_yardstick(layers):
             cuda_time_ms(sdpa, 4 * len(calls)), gather_ms, err)
 
 
-def phase_paged_kernels(real):
-    """``paged_attn`` against its plain version at every edge case in
-    float32 and bf16, and at one decode step of the serve phase (``real``:
-    its tables and positions, a bf16 pool for each of the 12 layers);
-    times the kernel, its plain version and the SDPA yardstick there,
-    over the layers in turn, and the kernel on one layer alone (its K/V
-    then stays in L2).  The times in the kernels line are device times
-    (``device_ms_per_call``): the wrapper's launch overhead exceeds the
-    kernel's time, so CUDA events around back-to-back launches would
-    time the host (logged too, as ``event_ms``)."""
+def time_paged_table(layers):
+    """Times of ``paged_attn`` at one table over its layers' pools in turn
+    (device time: the split and combine kernels summed), on the first
+    layer alone (its K/V then stays in L2), of its plain version and of
+    the SDPA yardstick, beside the bound; and the kernel's largest
+    difference from its plain version there (raises past
+    ``PAGED_TOL``)."""
     from singa_tpu_torch.ops import paged_attention as pa
 
-    worst = {}
-    for dtype in (torch.float32, torch.bfloat16):
-        for seed, (name, kw) in enumerate(paged_edge_cases()):
-            e = check_paged_case(f"{name}/{str(dtype)[6:]}", dtype, seed,
-                                 **kw)
-            worst[str(dtype)[6:]] = max(worst.get(str(dtype)[6:], 0.0), e)
-    layers = real["layers"]
     args = layers[0]
     got = pa.paged_attn(**args)
     want = pa.paged_attn_plain(**args)
     err = (got.float() - want.float()).abs().max().item()
     rtol, atol = PAGED_TOL[args["q"].dtype]
     if not torch.allclose(got.float(), want.float(), rtol=rtol, atol=atol):
-        raise AssertionError(f"paged_attn at the serve tables differs from "
-                             f"its plain version by {err}")
+        raise AssertionError(f"paged_attn at a timed table differs from its "
+                             f"plain version by {err}")
     n = len(layers)
     kernel = _rotating([functools.partial(pa.paged_attn, **a)
                         for a in layers])
     plain = _rotating([functools.partial(pa.paged_attn_plain, **a)
                        for a in layers])
-    ms = device_ms_per_call(kernel, 4 * n)
-    hot_ms = device_ms_per_call(lambda: pa.paged_attn(**args), 4 * n)
-    plain_ms = device_ms_per_call(plain, n)
-    events = {"kernel": cuda_time_ms(kernel, 4 * n),
-              "plain": cuda_time_ms(plain, n)}
     sdpa_ms, sdpa_events_ms, gather_ms, sdpa_err = sdpa_yardstick(layers)
     s_, n_kv, g, nq, d = args["q"].shape
     lens = args["p_limit"].tolist()
     bound, by = paged_bound_ms(lens, n_kv, g, nq, d, args["q"].dtype)
+    block = args["pool_k"].shape[2]
+    by_kernel = device_ms_by_kernel(kernel, 4 * n)
+    return dict(
+        slots=s_, p_limit=lens, n_blk=args["n_blk"], block=block, layers=n,
+        dtype=str(args["q"].dtype)[6:],
+        n_split=pa.split_count(d, args["q"].dtype, args["n_blk"], 0, block,
+                               s_ * n_kv, torch.cuda.get_device_properties(
+                                   0).multi_processor_count),
+        kernel_device_ms_by_name={k[:60]: v for k, v in by_kernel.items()},
+        device_ms={"kernel": sum(by_kernel.values()),
+                   "kernel_one_layer_l2_hot": device_ms_per_call(
+                       lambda: pa.paged_attn(**args), 4 * n),
+                   "plain": device_ms_per_call(plain, n),
+                   "sdpa_alone": sdpa_ms, "bound": bound},
+        bound_by=by,
+        event_ms={"kernel": cuda_time_ms(kernel, 4 * n),
+                  "plain": cuda_time_ms(plain, n),
+                  "sdpa_alone": sdpa_events_ms,
+                  "gather_for_sdpa": gather_ms},
+        max_abs_err_vs_plain=err, sdpa_max_abs_diff_vs_kernel=sdpa_err)
+
+
+#: the few-long-slots table: two slots of 1000 lanes, where a grid of one
+#: block a (kv head, slot) would be 24 blocks
+LONG_TABLE_LENS = (1000, 1000)
+
+
+def phase_paged_kernels(real, cfg):
+    """``paged_attn`` against its plain version at every edge case in
+    float32 and bf16 (their split counts logged: some take one split of
+    the key range, some several), then timed at two tables of bf16 pools
+    for GPT-2 small's 12 layers: one decode step of the serve phase
+    (``real``: its tables and positions) and ``LONG_TABLE_LENS``.  The
+    times in the kernels line are the serve step's device times
+    (``device_ms_per_call``): the wrapper's launch overhead exceeds the
+    kernels' time, so CUDA events around back-to-back calls would time
+    the host (logged too, as ``event_ms``)."""
+    from singa_tpu_torch.ops import paged_attention as pa
+
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    worst, splits = {}, {}
+    for dtype in (torch.float32, torch.bfloat16):
+        for seed, (name, kw) in enumerate(paged_edge_cases()):
+            e = check_paged_case(f"{name}/{str(dtype)[6:]}", dtype, seed,
+                                 **kw)
+            worst[str(dtype)[6:]] = max(worst.get(str(dtype)[6:], 0.0), e)
+            a = paged_inputs(dtype=dtype, seed=seed, **kw)
+            s_, n_kv, _, _, d = a["q"].shape
+            splits[f"{name}/{str(dtype)[6:]}"] = pa.split_count(
+                d, dtype, a["n_blk"], a["blk_lo"], a["pool_k"].shape[2],
+                s_ * n_kv, n_sm)
+    if not {1} < set(splits.values()):
+        raise AssertionError(f"the edge cases should take both one split "
+                             f"and several: {splits}")
+    serve = time_paged_table(real["layers"])
+    long = time_paged_table(paged_table(LONG_TABLE_LENS, cfg, seed=1))
     log({"phase": "paged_kernels",
          "edge_cases": 2 * len(paged_edge_cases()),
-         "edge_max_abs_err": worst, "tol": {str(k)[6:]: v for k, v
-                                            in PAGED_TOL.items()},
-         "serve_tables": dict(slots=s_, p_limit=lens, n_blk=args["n_blk"],
-                              block=args["pool_k"].shape[2], layers=n,
-                              dtype=str(args["q"].dtype)[6:],
-                              step=real["step"]),
-         "device_ms": {"kernel": ms, "kernel_one_layer_l2_hot": hot_ms,
-                       "plain": plain_ms, "sdpa_alone": sdpa_ms,
-                       "bound": bound},
-         "event_ms": dict(events, sdpa_alone=sdpa_events_ms,
-                          gather_for_sdpa=gather_ms),
-         "max_abs_err_vs_plain": err,
-         "sdpa_max_abs_diff_vs_kernel": sdpa_err})
+         "edge_max_abs_err": worst, "edge_n_split": splits,
+         "tol": {str(k)[6:]: v for k, v in PAGED_TOL.items()},
+         "serve_table": dict(serve, step=real["step"]),
+         "long_table": long})
+    ms = serve["device_ms"]
     return dict(name="paged_attn", route="cuda",
                 source="singa_tpu_torch/csrc/paged_attention.cu",
                 replaces=REPLACES["paged_attn"], launches=real["launches"],
-                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
-                bound_by=by, library_ms=sdpa_ms,
+                max_abs_err=serve["max_abs_err_vs_plain"], ms=ms["kernel"],
+                plain_ms=ms["plain"], bound_ms=ms["bound"],
+                bound_by=serve["bound_by"], library_ms=ms["sdpa_alone"],
                 library_call="torch.nn.functional.scaled_dot_product_attention"
                              " on rows gathered from the pool (the gather "
                              "not timed: no one PyTorch call computes paged "
-                             "attention)")
+                             "attention)",
+                kernels="paged_attn_kernel (split) + paged_combine_kernel")
 
 
 # ------------------------------------------------------------------ serve
@@ -1408,8 +1488,9 @@ class _LogitsProbe:
 def phase_serve(seed=0):
     """GPT-2 small (124M, 12 layers, n_positions 1024, random weights from
     a seed) served by the paged engine: 24 requests at once, float32 and
-    bf16 (module docstring).  Returns the paged kernel's launches on the
-    timed bf16 run and the real tables the kernel phase times."""
+    bf16, then the pressured engine and the tiny one (module docstring).
+    Returns the model and, for the kernel phase, the paged kernel's
+    launches on the timed bf16 run and the real tables it times."""
     from singa_tpu_torch import amp, device, tensor
     from singa_tpu_torch.models.gpt2 import GPT2Config, GPT2LMHead
     from singa_tpu_torch.ops import paged_attention as pa
@@ -1450,6 +1531,11 @@ def phase_serve(seed=0):
         raise AssertionError(f"paged_attn launched {launches32} times over "
                              f"{steps32} decode steps, expected "
                              f"{cfg.n_layer} a step")
+    pressured = serve_pressured(model, pressure_traffic(
+        seed, vocab=cfg.vocab_size))
+    mark("float32_pressured")
+    tiny = serve_tiny(dev, seed)
+    mark("float32_tiny_d16")
 
     # bf16: the timed main path, a profiled run, the logits check
     bf = torch.bfloat16
@@ -1500,6 +1586,10 @@ def phase_serve(seed=0):
          "float32": {"decode_steps": steps32, "paged_attn_launches":
                      launches32, "seconds": sec32,
                      "streams_equal_gather_and_generate": True},
+         "float32_pressured": dict(
+             PRESSURE_ENGINE, requests=12, paged=pressured,
+             streams_equal_generate=True),
+         "float32_tiny": dict(tiny, streams_equal_generate=True),
          "bf16": {"decode_steps": steps16, "paged_attn_launches": launches16,
                   "seconds": sec16,
                   "ttft_median_s": ttft["p50"], "tpot_median_s": tpot["p50"],
@@ -1515,8 +1605,104 @@ def phase_serve(seed=0):
                      for i, (n, t) in enumerate(marks[1:])},
          "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30,
          "nvidia_smi": nvidia_smi()})
-    return dict(launches=launches16, step=real["step"], layers=real_args(
-        real, model.cfg, seed))
+    return model, dict(launches=launches16, step=real["step"],
+                       layers=real_args(real, model.cfg, seed))
+
+
+#: the pressured engine: a pool of 2048 lanes for 8 slots of up to 532
+PRESSURE_ENGINE = dict(max_slots=8, block_size=32, num_blocks=64)
+
+
+def pressure_traffic(seed=0, n=12, vocab=50257):
+    """Prompts of 200-500 random tokens, 32 new tokens each, alternately
+    greedy and at temperature 0.9; the first half at priority 0, the
+    rest at 1 and 2 in turn."""
+    rng = np.random.RandomState(seed)
+    return [dict(prompt=rng.randint(0, vocab, rng.randint(200, 501))
+                 .astype(np.int32), max_new=32,
+                 temperature=0.0 if i % 2 == 0 else 0.9,
+                 seed=int(rng.randint(0, 2 ** 31 - 1)),
+                 priority=0 if i < n // 2 else 1 + i % 2)
+            for i in range(n)]
+
+
+def serve_pressured(model, traffic, engine=PRESSURE_ENGINE, lead=4):
+    """A priority engine whose pool cannot hold every slot's KV: the
+    priority-0 requests of ``traffic`` are submitted first and decode
+    ``lead`` steps, then the rest arrive and preempt them (their KV to
+    host memory), and every request is resumed and finishes.  Holds every
+    stream against offline ``generate``, and checks that preemption and
+    resume happened and that no block is left after the drain; returns
+    the arena's snapshot."""
+    from singa_tpu_torch.serve import GenerationRequest, PagedConfig
+
+    eng = model.serve(max_slots=engine["max_slots"], scheduler="priority",
+                      paged=PagedConfig(block_size=engine["block_size"],
+                                        num_blocks=engine["num_blocks"]))
+
+    def submit(w):
+        return eng.submit(GenerationRequest(
+            w["prompt"], max_new_tokens=w["max_new"],
+            temperature=w["temperature"], seed=w["seed"],
+            priority=w["priority"]))
+
+    hs = {i: submit(w) for i, w in enumerate(traffic) if w["priority"] == 0}
+    for _ in range(lead):
+        eng.step()
+    hs.update({i: submit(w) for i, w in enumerate(traffic)
+               if w["priority"] != 0})
+    hs = [hs[i] for i in range(len(traffic))]
+    eng.run_until_complete(max_steps=5000)
+    snap = eng.stats.snapshot()["paged"]
+    eng.check_block_accounting()
+    eng.close()
+    if snap["preemptions"] == 0 or snap["swap_in"] == 0:
+        raise AssertionError(f"the pressured engine never preempted: {snap}")
+    if snap["blocks_used"] != 0:
+        raise AssertionError(f"{snap['blocks_used']} blocks in use after "
+                             f"the pressured drain")
+    for i, (h, want) in enumerate(zip(hs, offline_streams(model, traffic))):
+        if not np.array_equal(h.result().tokens, want):
+            raise AssertionError(f"pressured request {i}: the resumed "
+                                 f"stream differs from offline generate")
+    return snap
+
+
+def serve_tiny(dev, seed=0):
+    """``GPT2Config.tiny`` (D = 16) served on the card, float32, greedy:
+    streams equal offline ``generate`` and ``paged_attn`` launches once a
+    layer a decode step."""
+    from singa_tpu_torch import tensor
+    from singa_tpu_torch.models.gpt2 import GPT2Config, GPT2LMHead
+    from singa_tpu_torch.ops import paged_attention as pa
+    from singa_tpu_torch.serve import GenerationRequest, PagedConfig
+
+    m = GPT2LMHead(GPT2Config.tiny(dropout=0.0))
+    m.compile([tensor.from_numpy(np.zeros((1, 8), np.int32), dev)],
+              is_train=False)
+    rng = np.random.RandomState(seed)
+    work = [(rng.randint(0, 256, rng.randint(3, 60)).astype(np.int32),
+             int(rng.randint(2, 40))) for _ in range(6)]
+    eng = m.serve(max_slots=4, paged=PagedConfig(block_size=8,
+                                                 num_blocks=64))
+    before = pa.paged_attn.launches
+    hs = [eng.submit(GenerationRequest(p, max_new_tokens=n))
+          for p, n in work]
+    eng.run_until_complete(max_steps=500)
+    steps = eng.stats.decode_steps
+    launches = pa.paged_attn.launches - before
+    if launches != m.cfg.n_layer * steps:
+        raise AssertionError(f"tiny engine: paged_attn launched {launches} "
+                             f"times over {steps} decode steps")
+    for i, (h, (p, n)) in enumerate(zip(hs, work)):
+        if not np.array_equal(h.result().tokens,
+                              m.generate(p, max_new_tokens=n,
+                                         temperature=0.0)):
+            raise AssertionError(f"tiny engine request {i}: stream differs "
+                                 f"from offline generate")
+    eng.close()
+    return dict(head_dim=m.cfg.n_embd // m.cfg.n_head, requests=len(work),
+                decode_steps=steps, paged_attn_launches=launches)
 
 
 def profile_serve(model, traffic, dtype, warm=40, steps=20):
@@ -1545,9 +1731,55 @@ def profile_serve(model, traffic, dtype, warm=40, steps=20):
 
 
 SERVE_GROUPS = (
-    ("paged_attn", re.compile(r"paged_attn_kernel<")),
+    ("paged_attn", re.compile(r"paged_(attn|combine)_kernel<")),
     ("gemm", re.compile(r"gemm|nvjet|xmma|cutlass", re.I)),
 )
+
+
+def phase_generate(model, seed=0, prompt_len=1000, n_new=40):
+    """GPT-2 small (the serve phase's float32 model) past n_positions: a
+    ``prompt_len``-token prompt and ``n_new`` greedy tokens take
+    ``generate``'s windowed path, one 1024-wide forward a token through
+    the flash forward kernel (12 launches a token); its tokens equal the
+    KV-cached ``generate``'s while the generation fits n_positions.  Then
+    ``min_p`` and ``repetition_penalty`` on the KV-cached path: with
+    min_p = 1 a sampled stream is the greedy one."""
+    from singa_tpu_torch.ops import flash_attention as fa
+
+    cfg = model.cfg
+    rng = np.random.RandomState(seed)
+    prompt = rng.randint(0, cfg.vocab_size, prompt_len).astype(np.int32)
+    before = fa.flash_fwd.launches
+    t0 = time.perf_counter()
+    windowed = model.generate(prompt, max_new_tokens=n_new, temperature=0.0)
+    seconds = time.perf_counter() - t0
+    launches = fa.flash_fwd.launches - before
+    if launches != cfg.n_layer * n_new:
+        raise AssertionError(f"windowed generate launched the flash forward "
+                             f"{launches} times for {n_new} tokens")
+    fits = cfg.n_positions - prompt_len
+    cached = model.generate(prompt, max_new_tokens=fits, temperature=0.0,
+                            use_cache=True)
+    if len(windowed) != prompt_len + n_new or not np.array_equal(
+            windowed[:cfg.n_positions], cached):
+        raise AssertionError("windowed generate differs from the KV-cached "
+                             "one inside n_positions")
+    short = prompt[:200]
+    kw = dict(max_new_tokens=24, repetition_penalty=1.3)
+    greedy = model.generate(short, temperature=0.0, **kw)
+    sampled = model.generate(short, temperature=0.9, min_p=1.0, seed=3, **kw)
+    filtered = model.generate(short, temperature=0.9, min_p=0.05, top_k=50,
+                              seed=3, **kw)
+    if not np.array_equal(sampled, greedy):
+        raise AssertionError("min_p = 1 sampling differs from greedy")
+    if len(filtered) != len(short) + 24 or filtered.max() >= cfg.vocab_size:
+        raise AssertionError("min_p / repetition_penalty generate gave a "
+                             "bad stream")
+    log({"phase": "generate", "model": "gpt2-small", "dtype": "float32",
+         "prompt_len": prompt_len, "max_new_tokens": n_new,
+         "windowed_seconds": seconds, "flash_fwd_launches": launches,
+         "equal_to_kv_cached_tokens": fits,
+         "min_p_one_equals_greedy": True})
 
 
 def real_args(real, cfg, seed):
@@ -1580,6 +1812,23 @@ def real_args(real, cfg, seed):
     shape = (c["num_blocks"] + 1, cfg.n_kv_head, block, d)
     return [dict(step, pool_k=rand(*shape), pool_v=rand(*shape))
             for _ in range(cfg.n_layer)]
+
+
+def paged_table(lens, cfg, seed):
+    """``real_args`` for slots at positions ``lens``, each holding its
+    own random blocks of the serve engine's pool (numpy ``seed``), the
+    tables 1024 positions wide."""
+    c = SERVE_ENGINE
+    block = c["block_size"]
+    rng = np.random.RandomState(seed)
+    ids = rng.permutation(c["num_blocks"])
+    tables = np.full((len(lens), 1024 // block), c["num_blocks"], np.int32)
+    at = 0
+    for s_, p in enumerate(lens):
+        n = -(-p // block)
+        tables[s_, :n] = ids[at:at + n]
+        at += n
+    return real_args(dict(tables=tables, p_limit=list(lens)), cfg, seed)
 
 
 # ----------------------------------------------------------------- main
@@ -1705,8 +1954,12 @@ def main():
     rows["megakernel_block"] = timed("bottleneck", phase_bottleneck, model,
                                      images)
     del model, images
-    real = timed("serve", phase_serve)
-    rows["paged_attn"] = timed("paged_kernels", phase_paged_kernels, real)
+    model, real = timed("serve", phase_serve)
+    timed("generate", phase_generate, model)
+    cfg = model.cfg
+    del model
+    rows["paged_attn"] = timed("paged_kernels", phase_paged_kernels, real,
+                               cfg)
 
     smi = nvidia_smi()
     log({"phase": "device", "nvidia_smi": smi,

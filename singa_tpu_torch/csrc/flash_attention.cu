@@ -21,7 +21,7 @@
 //     window band, so skipped tiles cost nothing (no idle grid steps);
 //   * the online-softmax state and the O / dQ / dK / dV accumulators
 //     live in registers, float32 (the tiles of each family: below);
-//   * the ragged tail is masked in the kernel: any S and any D <= 256,
+//   * the ragged tail is masked in the kernel: any S and any D <= 512,
 //     no padding; key columns past S contribute p = 0, rows past S are
 //     not written; scale = 1/sqrt(D) of the true D comes from the caller;
 //   * dK/dV walks query tiles inside a block that owns one key tile: no
@@ -87,12 +87,15 @@
 //     (Registers and spills: nvcc -Xptxas -v for sm_90a, as chip_smoke.py's
 //     build phase reports them; times and bounds: PERF.md.)
 //   * kinds 0 and 1, float32 (tensor cores would need TF32, which misses
-//     the float32 tolerance) and bf16 with 128 < D <= 256 -- CUDA cores:
+//     the float32 tolerance) and bf16 with 128 < D <= 512 -- CUDA cores:
 //       fwd_kernel / dq_kernel / dkv_kernel<T, BR, DT>
-//     One block of 256 threads per (bh, 64-row tile) (32 rows when D >
-//     128); Q/K/V/dO tiles staged in shared memory as float32 with an odd
-//     row stride (no bank conflicts); float32 FMAs, far above the bounds
-//     above (PERF.md).
+//     One block of 256 threads per (bh, BR-row tile); Q/K/V/dO tiles
+//     staged in shared memory as float32 with an odd row stride (no bank
+//     conflicts); float32 FMAs, far above the bounds above (PERF.md).
+//     The rows of a tile shrink as D grows, so that the largest of the
+//     three kernels' shared memory (dK/dV: 4 BR (DT + 1) + 2 BR (BR + 1)
+//     + 2 BR floats) fits 227 KB: BR = 64 at DT = 64 and 128, 32 at 256
+//     (137 KB), 16 at 512 (130 KB; 32 rows would need 265 KB).
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -1251,12 +1254,14 @@ int launch(int which, const Args& a, cudaStream_t stream) {
   }
 }
 
-// The CUDA-core kernels: float32 or bf16, D <= 256.
+// The CUDA-core kernels: float32 or bf16, D <= 512 (the header gives
+// each rung's tile rows and shared memory).
 template <typename T>
 int dispatch_d(int which, const Args& a, cudaStream_t stream) {
   if (a.D <= 64) return launch<T, 64, 64>(which, a, stream);
   if (a.D <= 128) return launch<T, 64, 128>(which, a, stream);
   if (a.D <= 256) return launch<T, 32, 256>(which, a, stream);
+  if (a.D <= 512) return launch<T, 16, 512>(which, a, stream);
   return (int)cudaErrorInvalidValue;
 }
 

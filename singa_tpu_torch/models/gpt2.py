@@ -7,15 +7,18 @@ head with its training step, KV-cached sampling (``generate``,
 At ``n_positions >= 1024`` the configuration picks ``attn_impl="flash"``,
 so every block's attention runs through the flash kernels
 (``ops/flash_attention.py``): one forward launch per block per step and
-one dQ and one dK/dV launch per block in the backward.
+one dQ and one dK/dV launch per block in the backward, and per token of
+``generate``'s windowed path.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 from torch import nn
 
 from .. import autograd, layer, model
+from .. import device as device_module
 from ..parallel.tensor_parallel import (ParallelTransformerBlock,
                                         VocabParallelEmbedding)
 
@@ -154,21 +157,127 @@ class GPT2LMHead(model.Model):
         return logits, loss
 
     def generate(self, prompt_ids, max_new_tokens=20, temperature=1.0,
-                 rng=None, top_k=0, top_p=None, seed=None, dtype=None):
-        """KV-cached greedy or temperature sampling with optional top-k /
-        top-p filtering on the model's device
-        (``models/gpt2_decode.generate``).  ``prompt_ids``: one 1-D prompt
-        (returns a 1-D int32 array, prompt + continuation) or a list /
-        2-D batch, possibly ragged (returns a list).  ``seed`` keys the
-        sampling noise (an int, or one per row).  Prompt +
-        ``max_new_tokens`` must fit ``n_positions``: the JAX package's
-        windowed fallback for longer generations is not ported."""
-        from . import gpt2_decode
+                 rng=None, use_cache=None, top_k=0, top_p=None,
+                 min_p=None, repetition_penalty=None, seed=None,
+                 dtype=None):
+        """Greedy or temperature sampling with optional top-k / top-p /
+        min-p filtering and a repetition penalty, routed as the JAX
+        package routes it:
 
-        return gpt2_decode.generate(
-            self, prompt_ids, max_new_tokens=max_new_tokens,
-            temperature=temperature, rng=rng, top_k=top_k, top_p=top_p,
-            seed=seed, dtype=dtype)
+        * ``use_cache`` None (auto): a generation that fits
+          ``n_positions`` takes the KV-cached path
+          (``models/gpt2_decode.generate``), a longer one the windowed
+          path below; ``True`` asks for the KV cache and raises
+          ``ValueError`` when the generation does not fit; ``False``
+          takes the windowed path (one prompt only);
+        * ``prompt_ids``: one 1-D prompt (returns a 1-D int32 array,
+          prompt + continuation) or a list / 2-D batch, possibly ragged
+          (returns a list): KV-cached, or, when any row is too long, every
+          row through the windowed path in turn.
+
+        On the KV-cached path ``seed`` keys the sampling noise (an int,
+        or one per row) and ``dtype`` casts the weights.  The windowed
+        path runs one right-padded ``n_positions``-wide forward of this
+        model per token (the flash kernels at ``n_positions >= 1024``)
+        on the last ``n_positions`` tokens, and samples as the JAX
+        package does: float64 probabilities and ``rng.choice`` (``rng``
+        a numpy RandomState or Generator; default
+        ``np.random.RandomState(seed)`` with a ``seed``, else numpy's
+        global state), so a numpy ``rng`` draws the JAX package's tokens
+        wherever the logits agree."""
+        from . import gpt2_decode as gd
+
+        n_pos = self.cfg.n_positions
+        kw = dict(max_new_tokens=max_new_tokens, temperature=temperature,
+                  rng=rng, top_k=top_k, top_p=top_p, min_p=min_p,
+                  repetition_penalty=repetition_penalty, seed=seed,
+                  dtype=dtype)
+        if gd._is_batch(prompt_ids):
+            if use_cache is False:
+                raise ValueError(
+                    "batched generate requires the KV-cached path "
+                    "(use_cache=False is single-prompt only); loop over "
+                    "rows for the windowed sampler")
+            rows = [np.asarray(r, np.int32).reshape(-1)
+                    for r in list(prompt_ids)]
+            if use_cache is not True and any(
+                    len(r) + max_new_tokens > n_pos for r in rows):
+                seeds = [None] * len(rows) if seed is None else \
+                    np.broadcast_to(np.asarray(seed), (len(rows),)).tolist()
+                return [self.generate(r, use_cache=False,
+                                      **dict(kw, seed=s))
+                        for r, s in zip(rows, seeds)]
+            return gd.generate(self, prompt_ids, **kw)
+        n0 = np.asarray(prompt_ids).size
+        if use_cache is None:
+            use_cache = n0 + max_new_tokens <= n_pos
+        top_k = gd._check_sampling(top_k, top_p, self.cfg.vocab_size, min_p,
+                                   repetition_penalty)
+        if use_cache:
+            return gd.generate(self, prompt_ids, **dict(kw, top_k=top_k))
+        if dtype is not None:
+            raise ValueError("dtype casts the weights of the KV-cached path "
+                             "only; the windowed path runs the model as it "
+                             "is")
+        if rng is None and seed is not None:
+            rng = np.random.RandomState(seed)
+        was_training = self.training
+        self.eval()
+        try:
+            with torch.no_grad():
+                return self._generate_windowed(
+                    prompt_ids, max_new_tokens, temperature, rng, top_k,
+                    top_p, min_p, repetition_penalty)
+        finally:
+            self.train(was_training)
+
+    def _generate_windowed(self, prompt_ids, max_new_tokens, temperature,
+                           rng, top_k, top_p, min_p, repetition_penalty):
+        """The JAX package's windowed sampler, step for step (its numpy
+        filter chain on float64 logits)."""
+        ids = list(np.asarray(prompt_ids).reshape(-1).tolist())
+        ctx = self.cfg.n_positions
+        w = getattr(self.transformer.wte, "W", None)
+        dev = w.device if torch.is_tensor(w) else \
+            device_module.get_default_device().torch_device
+        for _ in range(max_new_tokens):
+            live = ids[-ctx:]
+            # causal attention ignores positions to the right, so a
+            # right-padded window of fixed width gives exact logits at
+            # index len(live) - 1
+            window = np.zeros((1, ctx), np.int64)
+            window[0, :len(live)] = live
+            logits = self.forward(torch.from_numpy(window).to(dev))
+            last = logits[0, len(live) - 1].float().cpu().numpy() \
+                .astype(np.float64)
+            if repetition_penalty is not None and repetition_penalty != 1.0:
+                seen = np.unique(np.asarray(ids, np.int64))
+                last[seen] = np.where(last[seen] > 0,
+                                      last[seen] / repetition_penalty,
+                                      last[seen] * repetition_penalty)
+            if temperature <= 0:
+                nxt = int(np.argmax(last))
+            else:
+                logit = last / temperature
+                if top_k:
+                    kth = np.sort(logit)[-int(top_k)]
+                    logit = np.where(logit < kth, -np.inf, logit)
+                if top_p is not None:
+                    order = np.argsort(-logit)
+                    sp = np.exp(logit[order] - logit[order][0])
+                    sp /= sp.sum()
+                    cum = np.cumsum(sp)
+                    keep = np.zeros(len(logit), bool)
+                    keep[order] = (cum - sp) < top_p
+                    logit = np.where(keep, logit, -np.inf)
+                if min_p is not None:
+                    logit = np.where(logit < logit.max() + np.log(min_p),
+                                     -np.inf, logit)
+                p = np.exp(logit - logit.max())
+                p /= p.sum()
+                nxt = int((rng or np.random).choice(len(p), p=p))
+            ids.append(nxt)
+        return np.asarray(ids, np.int32)
 
     def serve(self, **kw):
         """A continuous-batching inference engine over this model

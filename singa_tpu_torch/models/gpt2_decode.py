@@ -10,8 +10,8 @@
   against the paged pool ``(L, N + 1, H_kv, B, D)``, through the
   ``paged_attn`` kernel (``ops/paged_attention.py``), one launch per
   layer for all slots;
-* ``_sample``: greedy, or temperature / top-k / top-p filtering and a
-  draw;
+* ``_sample``: the repetition penalty, then greedy, or temperature /
+  top-k / top-p / min-p filtering and a draw;
 * ``generate``: prefill + decode loop for one prompt or a ragged batch.
 
 The math follows the JAX module: float32 LayerNorm statistics, tanh gelu,
@@ -278,10 +278,11 @@ def decode_step_paged(params, x, pool_k, pool_v, tables, pos, n_blk,
 # ----------------------------------------------------------------- sampling
 
 
-def _filter_logits(logit, temperature, top_p, top_k):
-    """Temperature, top-k and top-p filtered float32 logits (N, V);
-    ``temperature`` a float or an (N, 1) tensor; ``top_k`` 0 is off,
-    ``top_p`` None is off."""
+def _filter_logits(logit, temperature, top_p, top_k, min_p=None):
+    """Temperature, top-k, top-p and min-p filtered float32 logits (N,
+    V), in the JAX ``_sample``'s order; ``temperature`` a float or an
+    (N, 1) tensor; ``top_k`` 0, ``top_p`` None and ``min_p`` None are
+    off.  min-p keeps p >= min_p * p_max, i.e. logit >= max + ln(min_p)."""
     logit = logit.float() / temperature
     if top_k:
         kth = torch.topk(logit, top_k, dim=-1).values[..., -1:]
@@ -295,7 +296,29 @@ def _filter_logits(logit, temperature, top_p, top_k):
         keep_sorted = (sp.cumsum(-1) - sp) < top_p
         keep = torch.zeros_like(keep_sorted).scatter(-1, order, keep_sorted)
         logit = torch.where(keep, logit, torch.full_like(logit, NEG_INF))
+    if min_p is not None:
+        floor = logit.amax(-1, keepdim=True) + math.log(min_p)
+        logit = torch.where(logit < floor, torch.full_like(logit, NEG_INF),
+                            logit)
     return logit
+
+
+def _rep_mask_init(rows, vocab, device):
+    """(N, V) bool presence mask of each row's prompt tokens: the tokens
+    the repetition penalty applies to before anything is emitted."""
+    mask = torch.zeros((len(rows), vocab), dtype=torch.bool, device=device)
+    for i, r in enumerate(rows):
+        mask[i, torch.as_tensor(np.asarray(r, np.int64), device=device)] = True
+    return mask
+
+
+def _penalize(logits, rep_mask, rep_penalty):
+    """CTRL / HF repetition penalty: the logits of tokens already in the
+    sequence (``rep_mask``) are divided by ``rep_penalty`` when positive
+    and multiplied by it when negative."""
+    pen = torch.where(logits > 0, logits / rep_penalty,
+                      logits * rep_penalty)
+    return torch.where(rep_mask, pen, logits)
 
 
 _M64 = (1 << 64) - 1
@@ -321,21 +344,26 @@ def _gumbel(seed, pos, vocab, device):
     return -torch.log(-torch.log(u))
 
 
-def _sample(logits, temps, seeds, positions, top_k=0, top_p=None):
-    """One token per row of (N, V) logits: greedy (argmax of the raw
-    float32 logits) where ``temps[i] <= 0``, else argmax of the filtered
-    logits (temperature, top-k, top-p) plus Gumbel noise keyed by
-    ``(seeds[i], positions[i])``, a draw from the filtered softmax.
-    Returns an (N,) int64 numpy array."""
+def _sample(logits, temps, seeds, positions, top_k=0, top_p=None,
+            min_p=None, rep_mask=None, rep_penalty=None):
+    """One token per row of (N, V) logits.  With ``rep_mask`` (N, V)
+    bool, the repetition penalty applies first, before the greedy argmax
+    too.  Then greedy (argmax of the float32 logits) where ``temps[i] <=
+    0``, else argmax of the filtered logits (temperature, top-k, top-p,
+    min-p) plus Gumbel noise keyed by ``(seeds[i], positions[i])``, a
+    draw from the filtered softmax.  Returns an (N,) int64 numpy
+    array."""
     n, vocab = logits.shape
     logits = logits.float()
+    if rep_mask is not None:
+        logits = _penalize(logits, rep_mask, rep_penalty)
     temps = np.asarray(temps, np.float32).reshape(n)
     out = logits.argmax(-1)
     hot = np.flatnonzero(temps > 0)
     if len(hot):
         idx = torch.as_tensor(hot, device=logits.device)
         t = torch.as_tensor(temps[hot], device=logits.device)[:, None]
-        filt = _filter_logits(logits[idx], t, top_p, top_k)
+        filt = _filter_logits(logits[idx], t, top_p, top_k, min_p)
         noise = torch.stack([_gumbel(seeds[i], positions[i], vocab,
                                      logits.device) for i in hot])
         out[idx] = (filt + noise).argmax(-1)
@@ -364,29 +392,40 @@ def _seed(temperature, rng):
     return int(rng.randint(0, 2 ** 31 - 1))
 
 
-def _check_sampling(top_k, top_p, vocab):
+def _check_sampling(top_k, top_p, vocab, min_p=None,
+                    repetition_penalty=None):
+    """The JAX package's typed checks of the sampling arguments; returns
+    ``top_k`` clamped to the vocabulary (wider means no filter)."""
     if top_k and top_k < 0:
         raise ValueError(f"top_k must be >= 0, got {top_k}")
     if top_p is not None and not 0.0 < top_p <= 1.0:
         raise ValueError(f"top_p must be in (0, 1], got {top_p}")
-    # top_k wider than the vocabulary means no filter
+    if min_p is not None and not 0.0 < min_p <= 1.0:
+        raise ValueError(f"min_p must be in (0, 1], got {min_p}")
+    if repetition_penalty is not None and repetition_penalty <= 0.0:
+        raise ValueError(f"repetition_penalty must be > 0, "
+                         f"got {repetition_penalty}")
     return min(int(top_k or 0), vocab)
 
 
 def generate(m, prompt_ids, max_new_tokens=20, temperature=1.0, rng=None,
-             top_k=0, top_p=None, seed=None, dtype=None):
+             top_k=0, top_p=None, min_p=None, repetition_penalty=None,
+             seed=None, dtype=None):
     """KV-cached sampling for a ``GPT2LMHead`` on the model's device.
 
     ``prompt_ids``: one 1-D prompt (returns a 1-D int32 array, prompt +
     continuation) or a list / 2-D batch, possibly ragged (returns a
     list).  Each row is prefilled at its own length (rows of one length
     together), then all rows decode in lockstep, each at its own
-    position, against one dense cache.  ``temperature <= 0`` is greedy;
-    otherwise ``top_k`` / ``top_p`` filter the tempered distribution and
-    ``seed`` (an int for every row, or one per row; default one draw
+    position, against one dense cache.  ``repetition_penalty`` (CTRL /
+    HF: over the whole sequence so far, prompt included) applies before
+    the greedy argmax too.  ``temperature <= 0`` is greedy; otherwise
+    ``top_k`` / ``top_p`` / ``min_p`` filter the tempered distribution
+    and ``seed`` (an int for every row, or one per row; default one draw
     from ``rng``) keys the noise (module docstring).  ``dtype`` casts the
     weights (``torch.bfloat16`` for bf16 inference).  Requires prompt +
-    ``max_new_tokens`` <= ``n_positions``."""
+    ``max_new_tokens`` <= ``n_positions``: ``GPT2LMHead.generate`` takes
+    longer generations on its windowed path."""
     cfg = m.cfg
     single = not _is_batch(prompt_ids)
     rows = [np.asarray(r, np.int32).reshape(-1)
@@ -395,11 +434,15 @@ def generate(m, prompt_ids, max_new_tokens=20, temperature=1.0, rng=None,
         if len(r) + max_new_tokens > cfg.n_positions:
             raise ValueError(f"prompt ({len(r)}) + max_new_tokens "
                              f"({max_new_tokens}) exceeds n_positions "
-                             f"({cfg.n_positions})")
+                             f"({cfg.n_positions}); use the windowed "
+                             f"GPT2LMHead.generate")
     if max_new_tokens <= 0:
         out = [r.copy() for r in rows]
         return out[0] if single else out
-    top_k = _check_sampling(top_k, top_p, cfg.vocab_size)
+    top_k = _check_sampling(top_k, top_p, cfg.vocab_size, min_p,
+                            repetition_penalty)
+    rep = (repetition_penalty if repetition_penalty not in (None, 1.0)
+           else None)
     if seed is None:
         seed = _seed(temperature, rng)
     seeds = np.broadcast_to(np.asarray(seed, np.int64), (len(rows),))
@@ -409,8 +452,9 @@ def generate(m, prompt_ids, max_new_tokens=20, temperature=1.0, rng=None,
     try:
         with torch.no_grad():
             new = _generate_rows(extract_params(m, dtype), rows,
-                                 max_new_tokens, cfg, temps, seeds, top_k,
-                                 top_p)
+                                 max_new_tokens, cfg, temps, seeds,
+                                 dict(top_k=top_k, top_p=top_p,
+                                      min_p=min_p, rep_penalty=rep))
     finally:
         m.train(was_training)
     out = [np.concatenate([r, new[i]]).astype(np.int32)
@@ -418,7 +462,9 @@ def generate(m, prompt_ids, max_new_tokens=20, temperature=1.0, rng=None,
     return out[0] if single else out
 
 
-def _generate_rows(params, rows, n_new, cfg, temps, seeds, top_k, top_p):
+def _generate_rows(params, rows, n_new, cfg, temps, seeds, filters):
+    """``filters``: ``_sample``'s ``top_k``, ``top_p``, ``min_p`` and
+    ``rep_penalty`` (None: no penalty)."""
     n_head, eps = cfg.n_head, float(cfg.layer_norm_eps)
     dev = params["wte"].device
     b = len(rows)
@@ -437,16 +483,27 @@ def _generate_rows(params, rows, n_new, cfg, temps, seeds, top_k, top_p):
         kc[:, idx, :, :plen] = k
         vc[:, idx, :, :plen] = v
         first[idx] = _logits(hidden[:, plen - 1], params).float()
+    if filters["rep_penalty"] is not None:
+        filters = dict(filters,
+                       rep_mask=_rep_mask_init(rows, cfg.vocab_size, dev))
+    rows_t = torch.arange(b, device=dev)
     pos = lens.copy()
     toks = np.empty((b, n_new), np.int64)
-    toks[:, 0] = _sample(first, temps, seeds, pos, top_k, top_p)
+
+    def sample(logits, j):
+        toks[:, j] = _sample(logits, temps, seeds, pos, **filters)
+        if "rep_mask" in filters:  # the emitted tokens join the sequence
+            filters["rep_mask"][rows_t, torch.as_tensor(
+                toks[:, j], device=dev)] = True
+
+    sample(first, 0)
     for j in range(1, n_new):
         pos_t = torch.as_tensor(pos, device=dev)
         tok_t = torch.as_tensor(toks[:, j - 1], device=dev)
         x = (params["wte"][tok_t] + params["wpe"][pos_t])[:, None]
         logits, kc, vc = decode_step(params, x, kc, vc, pos_t, n_head, eps)
         pos += 1
-        toks[:, j] = _sample(logits, temps, seeds, pos, top_k, top_p)
+        sample(logits, j)
     return toks
 
 

@@ -2,8 +2,10 @@
 ``singa_tpu/models/gpt2_decode.py:841``, the serve engine's hot loop).
 
 ``paged_attn`` attends every slot's queries over its KV blocks in one
-layer's paged pool, in one launch of the kernel written by hand for
-Hopper in ``singa_tpu_torch/csrc/paged_attention.cu``.
+layer's paged pool through the kernels written by hand for Hopper in
+``singa_tpu_torch/csrc/paged_attention.cu``: a split kernel over (kv
+head, slot, split of the key range) and a combine kernel, one call and
+one count in ``paged_attn.launches`` for both.
 ``paged_attn_plain`` is the plain PyTorch version: the JAX function's
 loop over the table's blocks with the same online softmax, batched over
 slots.  The wrapper takes the plain version only for tensors on the
@@ -25,27 +27,34 @@ Shapes (S slots, one layer):
 
 Returns (S, n_kv, g, Q, D) in the pool's dtype; sums are float32.  A
 dead slot (all-trash table, ``p_limit`` 0) attends only its current
-lanes.  int8 pools (the JAX function's per-block dequantisation) are
-not ported yet.
+lanes.  On the card: float32 or bf16, any D <= ``MAX_HEAD_DIM`` (512),
+g * Q <= ``max_rows(D)`` (16, or 4 at D > 128); the rest raises.  int8
+pools: not ported.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
 from . import _build
 
-__all__ = ["NEG_INF", "MAX_ROWS", "HEAD_DIMS", "paged_attn",
-           "paged_attn_plain"]
+__all__ = ["NEG_INF", "MAX_HEAD_DIM", "max_rows", "split_count",
+           "paged_attn", "paged_attn_plain"]
 
 NEG_INF = -1e30
-#: most query rows (g * Q) one kernel block holds
-MAX_ROWS = 16
-#: head dims the kernel takes
-HEAD_DIMS = (64, 128)
+#: widest head the kernel takes (its rows are 16, 32, ..., 512 wide)
+MAX_HEAD_DIM = 512
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def max_rows(d):
+    """Most query rows (g * Q) a kernel block holds at head dim ``d``:
+    16, or 4 at D > 128, where a lane's float32 sums would crowd the
+    registers."""
+    return 16 if d <= 128 else 4
 
 
 def paged_attn_plain(q, pool_k, pool_v, tables, p_limit, n_blk, k_cur,
@@ -98,19 +107,43 @@ def paged_attn_plain(q, pool_k, pool_v, tables, p_limit, n_blk, k_cur,
 # ------------------------------------------------------------------ kernel
 
 _PTR, _INT = ctypes.c_void_p, ctypes.c_int
-# q, pool_k, pool_v, tables, p_limit, k_cur, v_cur, cur_mask, out; S,
-# n_kv, g, Q, D, block, table_width, trash, n_blk, blk_lo, window; scale;
-# dtype; stream
-_ARGTYPES = [_PTR] * 9 + [_INT] * 11 + [ctypes.c_float, _INT, _PTR]
+# q, pool_k, pool_v, tables, p_limit, k_cur, v_cur, cur_mask, out, ws; S,
+# n_kv, g, Q, D, block, table_width, trash, n_blk, blk_lo, window, n_split;
+# scale; dtype; stream
+_ARGTYPES = [_PTR] * 10 + [_INT] * 12 + [ctypes.c_float, _INT, _PTR]
 
 
 def _lib():
     lib = _build.load("paged_attention")
     if not getattr(lib, "_typed", False):
-        lib.paged_attention.argtypes = _ARGTYPES
-        lib.paged_attention.restype = ctypes.c_int
+        type_library(lib)
         lib._typed = True
     return lib
+
+
+def type_library(lib):
+    """Declare the C entry points' ctypes types on ``lib`` (the built
+    library, or the CPU emulator's build of the same source)."""
+    lib.paged_attention.argtypes = _ARGTYPES
+    lib.paged_attention.restype = ctypes.c_int
+    # D, dtype, n_blk, blk_lo, block, S * n_kv, SMs
+    lib.paged_split_count.argtypes = [_INT] * 7
+    lib.paged_split_count.restype = ctypes.c_int
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index):
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def split_count(d, dtype, n_blk, blk_lo, block, pairs, n_sm, lib=None):
+    """Splits of the key range the kernel takes for one call (the C
+    ``paged_split_count``): about 4 blocks an SM over ``pairs`` = S * n_kv
+    (slot, kv head) pairs, each split at least 128 keys, from what the
+    host knows (no ``p_limit``, so no device sync)."""
+    lib = lib or _lib()
+    return lib.paged_split_count(d, _DTYPES[dtype], int(n_blk),
+                                 int(blk_lo or 0), block, pairs, n_sm)
 
 
 def _check_cuda(q, pool_k, pool_v, tables, p_limit, n_blk, k_cur, v_cur,
@@ -121,11 +154,12 @@ def _check_cuda(q, pool_k, pool_v, tables, p_limit, n_blk, k_cur, v_cur,
         raise TypeError(f"paged_attn takes float32 or bfloat16 pools, got "
                         f"{pool_k.dtype} (int8 pools are not ported yet)")
     s_, n_kv, g, nq, d = q.shape
-    if d not in HEAD_DIMS:
-        raise ValueError(f"paged_attn takes head dims {HEAD_DIMS}, got {d}")
-    if g * nq > MAX_ROWS:
-        raise ValueError(f"paged_attn takes g * Q <= {MAX_ROWS} query rows "
-                         f"a kv head, got g={g}, Q={nq}")
+    if not 1 <= d <= MAX_HEAD_DIM:
+        raise ValueError(f"paged_attn takes head dims up to {MAX_HEAD_DIM}, "
+                         f"got {d}")
+    if g * nq > max_rows(d):
+        raise ValueError(f"paged_attn takes g * Q <= {max_rows(d)} query "
+                         f"rows a kv head at D = {d}, got g={g}, Q={nq}")
     nb1, h, block, d2 = pool_k.shape
     want = {"pool_k": (pool_k, (nb1, n_kv, block, d)),
             "pool_v": (pool_v, (nb1, n_kv, block, d)),
@@ -155,18 +189,14 @@ def _check_cuda(q, pool_k, pool_v, tables, p_limit, n_blk, k_cur, v_cur,
         if t.device != q.device or not t.is_contiguous():
             raise ValueError("paged_attn needs contiguous tensors on one "
                              "device")
-    for t in (pool_k, pool_v):
-        if t.data_ptr() % 16:
-            raise ValueError("paged_attn reads pool rows 16 bytes at a "
-                             "time: the pools must be 16-byte aligned")
     return _DTYPES[pool_k.dtype]
 
 
 def paged_attn(q, pool_k, pool_v, tables, p_limit, n_blk, k_cur, v_cur,
                cur_mask, scale, window=None, blk_lo=None):
     """Online-softmax attention of every slot's queries over its paged
-    KV (shapes in the module docstring); one kernel launch for all
-    slots and kv heads."""
+    KV (shapes in the module docstring); for CUDA tensors, the split and
+    combine kernels over all slots and kv heads, counted as one launch."""
     if q.device.type == "cpu":
         return paged_attn_plain(q, pool_k, pool_v, tables, p_limit, n_blk,
                                 k_cur, v_cur, cur_mask, scale, window,
@@ -179,12 +209,19 @@ def paged_attn(q, pool_k, pool_v, tables, p_limit, n_blk, k_cur, v_cur,
     out = torch.empty_like(q)
     if s_ == 0:
         return out
-    err = _lib().paged_attention(
+    lib = _lib()
+    block = pool_k.shape[2]
+    n_split = split_count(d, q.dtype, n_blk, blk_lo, block, s_ * n_kv,
+                          _sm_count(q.device.index or 0), lib)
+    ws = torch.empty(s_ * n_kv * n_split * g * nq * (d + 2),
+                     dtype=torch.float32, device=q.device)
+    err = lib.paged_attention(
         q.data_ptr(), pool_k.data_ptr(), pool_v.data_ptr(),
         tables.data_ptr(), p_limit.data_ptr(), k_cur.data_ptr(),
-        v_cur.data_ptr(), cur_mask.data_ptr(), out.data_ptr(), s_, n_kv, g,
-        nq, d, pool_k.shape[2], tables.shape[1], pool_k.shape[0] - 1,
-        int(n_blk), int(blk_lo or 0), int(window or 0), float(scale), dt,
+        v_cur.data_ptr(), cur_mask.data_ptr(), out.data_ptr(),
+        ws.data_ptr(), s_, n_kv, g, nq, d, block, tables.shape[1],
+        pool_k.shape[0] - 1, int(n_blk), int(blk_lo or 0), int(window or 0),
+        n_split, float(scale), dt,
         torch.cuda.current_stream(q.device).cuda_stream)
     paged_attn.launches += 1
     if err != 0:

@@ -11,13 +11,12 @@ engine over the paged KV arena, with the paged decode attention kernel
 from .engine import InferenceEngine
 from .paged import PagedConfig, PagedKVArena
 from .request import (DeadlineExceededError, EngineFailedError,
-                      GenerationRequest, GenerationResult,
-                      PoolExhaustedError, QueueFullError, RequestHandle)
+                      GenerationRequest, GenerationResult, QueueFullError,
+                      RequestHandle)
 from .scheduler import FIFOScheduler, PriorityScheduler
 from .stats import EngineStats
 
 __all__ = ["InferenceEngine", "PagedConfig", "PagedKVArena",
            "GenerationRequest", "GenerationResult", "RequestHandle",
            "QueueFullError", "DeadlineExceededError", "EngineFailedError",
-           "PoolExhaustedError", "FIFOScheduler", "PriorityScheduler",
-           "EngineStats"]
+           "FIFOScheduler", "PriorityScheduler", "EngineStats"]

@@ -9,6 +9,11 @@
 * **paged KV** (``paged=PagedConfig(...)``, ``serve/paged.py``): one
   block pool; admission is bounded by free blocks as well as free
   slots, and a request's KV grows block by block;
+* **preemption**: when the pool runs out, a strictly-lower-priority
+  live request is swapped to host memory (its blocks freed, its KV
+  kept as a byte copy), or a slot that cannot grow swaps itself out;
+  swapped requests resume, highest priority first, as blocks return,
+  and continue exactly where they stopped;
 * **exactness**: an admission prefills its prompt at its own length and
   samples the first token as ``generate`` does; each decode step runs
   ``decode_step_paged`` (the ``paged_attn`` kernel, ``kernel="block"``)
@@ -33,16 +38,16 @@ construction or submit (``ROADMAP.md``): the slot arena (``paged=None``),
 the prefix cache and sessions, speculative decoding (``draft_model``,
 ``spec_k``), int8 KV (``cache_dtype``), tensor / expert / pipeline
 parallelism (``tp``, ``ep``, ``pp``), fork (``n > 1``), structured
-decoding, SLO targets and load shedding, sliding-window models.
-Preemption and swap are not ported either: a live slot that cannot grow
-fails the engine with :class:`PoolExhaustedError`.  So the JAX engine's
-``_alloc_blocks`` (allocation that preempts lower-priority slots) is
-``PagedKVArena.alloc`` here, and its ``_paged_retire`` (prefix-cache
-adoption of a retiring slot's blocks) is ``_free_slot_blocks``.
+decoding, SLO targets and load shedding, sliding-window models.  The
+JAX engine's preemption paths for those (window drops, copy-on-write
+forks, speculative draft rows, prefix-cache eviction) are not ported
+with them, and its ``_paged_retire`` (prefix-cache adoption of a
+retiring slot's blocks) is ``_free_slot_blocks`` here.
 """
 
 from __future__ import annotations
 
+import itertools
 import time
 
 import numpy as np
@@ -54,8 +59,7 @@ from ..observe import trace as _trace
 from .paged import (PagedConfig, PagedKVArena, _paged_decode_kernel,
                     _paged_decode_step)
 from .request import (DeadlineExceededError, EngineFailedError,
-                      GenerationRequest, GenerationResult,
-                      PoolExhaustedError, RequestHandle)
+                      GenerationRequest, GenerationResult, RequestHandle)
 from .scheduler import FIFOScheduler, PriorityScheduler
 from .stats import EngineStats
 
@@ -108,6 +112,23 @@ class _Slot:
         self.admit_time = now
         self.admitted_step = step
         self.blocks = blocks
+
+
+class _Swapped:
+    """A preempted request's host-side state: the byte copy of its KV
+    lanes and every scrap of slot bookkeeping, so a resume continues the
+    exact token stream the uninterrupted run would have produced (its
+    sampling noise is keyed by (seed, position)).  A swapped request has
+    STARTED (its admission token streamed): an engine failure rejects it
+    with ``started=True``."""
+
+    __slots__ = ("handle", "request", "emitted", "remaining",
+                 "first_token_time", "admit_time", "admitted_step", "pos",
+                 "tok", "temp", "seed", "image", "seq", "t_preempt")
+
+    @property
+    def priority(self):
+        return self.request.priority
 
 
 class InferenceEngine:
@@ -196,6 +217,8 @@ class InferenceEngine:
         self._temps = np.zeros(S, np.float32)
         self._seeds = np.zeros(S, np.int64)
         self._handles = {}
+        self._swapped = []
+        self._swap_seq = itertools.count()
         self._closed = False
         self._failed = False
         self.step_count = 0
@@ -252,13 +275,25 @@ class InferenceEngine:
 
     @property
     def pending(self) -> bool:
-        """True while any request is queued or holds a slot."""
+        """True while any request is queued, holds a slot, or is swapped
+        out awaiting resume."""
         return (self.scheduler.queue_depth > 0
-                or any(s is not None for s in self._slots))
+                or any(s is not None for s in self._slots)
+                or bool(self._swapped))
 
     @property
     def live_slots(self) -> int:
         return sum(s is not None for s in self._slots)
+
+    @property
+    def live_request_ids(self):
+        """Ids of the requests that have STARTED: holding a slot or
+        swapped out (a swapped request streamed at least its admission
+        token), so never safely re-runnable elsewhere."""
+        ids = {s.handle.request.request_id
+               for s in self._slots if s is not None}
+        ids.update(sw.request.request_id for sw in self._swapped)
+        return ids
 
     def check_block_accounting(self):
         """Leak check: every used pool block belongs to a live slot's
@@ -289,6 +324,7 @@ class InferenceEngine:
         self.stats.unregister()
         self.paged_arena.unregister()
         self._params = None
+        self._swapped = []
         self._closed = True
 
     def __enter__(self):
@@ -342,10 +378,10 @@ class InferenceEngine:
                     f"live={self.live_slots})")
 
     def _fail(self, cause):
-        """Reject every live (``started=True``) and queued
+        """Reject every live or swapped-out (``started=True``) and queued
         (``started=False``) request typed and return the error for
         ``step()`` to raise: ``cause`` itself when it is an
-        ``EngineFailedError`` (such as ``PoolExhaustedError``)."""
+        ``EngineFailedError``."""
         self._failed = True
         step = self.step_count
         err = cause if isinstance(cause, EngineFailedError) else \
@@ -361,6 +397,14 @@ class InferenceEngine:
                 f"emitted)", request_id=rid, started=True, engine_step=step))
             self._slots[i] = None
             self._handles.pop(rid, None)
+        for sw in self._swapped:
+            rid = sw.request.request_id
+            sw.handle._reject(EngineFailedError(
+                f"{err} ({rid} was swapped out mid-decode, "
+                f"{len(sw.emitted)} tokens emitted)", request_id=rid,
+                started=True, engine_step=step))
+            self._handles.pop(rid, None)
+        self._swapped = []
         for req in self.scheduler.drain():
             h = self._handles.pop(req.request_id, None)
             if h is not None:
@@ -466,9 +510,11 @@ class InferenceEngine:
 
     def _grow_live_slots(self):
         """Before the decode step, every live slot must own the block
-        holding the position it writes.  Raises
-        :class:`PoolExhaustedError` when the pool has no block for it
-        (preemption and swap are not ported)."""
+        holding the position it writes.  A slot that cannot grow (pool
+        exhausted, no strictly-lower-priority victim) swaps itself out:
+        its blocks free the pool for the others and it resumes once
+        capacity returns, so the pool never livelocks with every slot
+        too big to advance."""
         B = self.paged_arena.block_size
         for i, slot in enumerate(self._slots):
             if slot is None:
@@ -476,18 +522,131 @@ class InferenceEngine:
             short = int(self._pos[i]) // B + 1 - len(slot.blocks)
             if short <= 0:
                 continue
-            got = self.paged_arena.alloc(short)
+            got = self._alloc_blocks(short, slot.handle.request.priority,
+                                     exclude_idx=i)
             if got is None:
-                raise PoolExhaustedError(
-                    f"{slot.handle.request.request_id} at position "
-                    f"{int(self._pos[i])} needs {short} more KV block(s) "
-                    f"and the pool ({self.paged_arena.num_blocks} blocks) "
-                    f"has {self.paged_arena.blocks_free} free; preemption "
-                    f"and swap are not ported yet (ROADMAP.md): raise "
-                    f"PagedConfig.num_blocks or lower max_slots",
-                    request_id=slot.handle.request.request_id,
-                    started=True, engine_step=self.step_count)
+                self._preempt_slot(i, reason="pool_exhausted")
+                continue
             slot.blocks.extend(got)
+
+    def _alloc_blocks(self, n, priority, exclude_idx=None):
+        """``n`` pool blocks for a request at ``priority``, preempting
+        strictly-lower-priority live slots (lowest priority, then latest
+        admitted) until the allocation fits, or None.  Strictly lower
+        only: equal priorities never preempt each other, which is what
+        makes every preemption chain end.  Feasibility is checked before
+        any side effect: if the free blocks and every eligible victim's
+        blocks together cannot cover ``n``, nothing is preempted (that
+        would be pure swap churn)."""
+        arena = self.paged_arena
+        avail = arena.blocks_free + sum(
+            sum(1 for b in s.blocks
+                if b != arena.trash and arena.ref_count(b) == 1)
+            for i, s in enumerate(self._slots)
+            if s is not None and i != exclude_idx
+            and s.handle.request.priority < priority)
+        if n > avail:
+            return None
+        while True:
+            got = arena.alloc(n)
+            if got is not None:
+                return got
+            victim = self._pick_victim(priority, exclude=exclude_idx)
+            if victim is None:
+                return None
+            self._preempt_slot(victim, reason="preempted")
+
+    def _pick_victim(self, below_priority, exclude=None):
+        """The live slot to preempt for a ``below_priority`` claimant:
+        strictly lower priority only; the lowest first, ties to the
+        latest admitted (least sunk progress).  None when nothing
+        qualifies."""
+        best = None
+        for i, s in enumerate(self._slots):
+            if s is None or i == exclude:
+                continue
+            p = s.handle.request.priority
+            if p >= below_priority:
+                continue
+            k = (p, -s.admitted_step)
+            if best is None or k < best[0]:
+                best = (k, i)
+        return None if best is None else best[1]
+
+    def _preempt_slot(self, idx, reason):
+        """Swap one live request to host memory and free its blocks: one
+        gather and one copy of the lanes it has written, and its slot
+        bookkeeping saved for the resume."""
+        arena = self.paged_arena
+        slot = self._slots[idx]
+        req = slot.handle.request
+        pos = int(self._pos[idx])
+        sw = _Swapped()
+        sw.handle = slot.handle
+        sw.request = req
+        sw.emitted = slot.emitted
+        sw.remaining = slot.remaining
+        sw.first_token_time = slot.first_token_time
+        sw.admit_time = slot.admit_time
+        sw.admitted_step = slot.admitted_step
+        sw.pos = pos
+        sw.tok = int(self._toks[idx])
+        sw.temp = float(self._temps[idx])
+        sw.seed = int(self._seeds[idx])
+        sw.seq = next(self._swap_seq)
+        sw.t_preempt = self._clock()
+        # the blocks holding positions < pos; pos itself is written next
+        sw.image = arena.swap_out(slot.blocks, (pos - 1) // arena.block_size
+                                  + 1)
+        n_freed = len(slot.blocks)
+        self._free_slot_blocks(slot)
+        self._slots[idx] = None
+        self._swapped.append(sw)
+        arena.on_preempt()
+        _trace.event("serve/preempt", cat="serve", request=req.request_id,
+                     slot=idx, reason=reason, pos=pos, blocks_freed=n_freed,
+                     tokens=len(sw.emitted))
+
+    def _try_resume(self, now):
+        """Resume swapped-out requests, highest priority first (FIFO
+        within a priority): allocate the blocks up to the one its next
+        position writes (preempting strictly-lower live slots if need
+        be), scatter the host copy back, restore the slot.  If the head
+        does not fit, nothing behind it jumps the line."""
+        arena = self.paged_arena
+        B = arena.block_size
+        while self._swapped:
+            # a resume's own preemption appends to the list: sort again
+            self._swapped.sort(key=lambda s: (-s.priority, s.seq))
+            free = self._free_slots()
+            if not free:
+                return
+            sw = self._swapped[0]
+            blocks = self._alloc_blocks(sw.pos // B + 1, sw.priority)
+            if blocks is None:
+                return
+            idx = free[0]
+            arena.swap_in(sw.image, blocks)
+            slot = _Slot(sw.handle, sw.remaining, sw.admit_time,
+                         sw.admitted_step, blocks)
+            slot.emitted = sw.emitted
+            slot.first_token_time = sw.first_token_time
+            self._slots[idx] = slot
+            self._toks[idx] = sw.tok
+            self._pos[idx] = sw.pos
+            self._temps[idx] = sw.temp
+            self._seeds[idx] = sw.seed
+            self._swapped.pop(0)
+            _trace.event("serve/resume", cat="serve",
+                         request=sw.request.request_id, slot=idx,
+                         pos=sw.pos, swapped_s=now - sw.t_preempt)
+
+    def _blocked_priority(self):
+        """A swapped request still waiting after the resume pass outranks
+        fresh arrivals at or below its priority (it already streamed
+        tokens): their admission waits behind it."""
+        return (max(sw.priority for sw in self._swapped)
+                if self._swapped else None)
 
     # -- admission -------------------------------------------------------
     def _free_slots(self):
@@ -503,19 +662,27 @@ class InferenceEngine:
                 f"before a slot was available"))
 
     def _schedule(self, now):
-        """Admit queued requests into free slots while their first blocks
-        fit (a request whose blocks do not fit waits at the head of the
-        queue), prefill the admitted ones (one batched prefill per prompt
-        length) and emit their first tokens."""
+        """Resume swapped-out requests first (they already streamed
+        tokens), then admit queued requests into free slots while their
+        first blocks fit, preempting strictly-lower-priority slots for
+        them (a request whose blocks do not fit, or that a swapped
+        request outranks, waits at the head of the queue), prefill the
+        admitted ones (one batched prefill per prompt length) and emit
+        their first tokens."""
+        self._try_resume(now)
         if self.scheduler.queue_depth == 0:
             return
         free = self._free_slots()
         admit, expired = self.scheduler.schedule(len(free), now)
         self._reject_expired(expired, now)
         B = self.paged_arena.block_size
+        blocked_p = self._blocked_priority()
         placed = []
         for k, req in enumerate(admit):
-            blocks = self.paged_arena.alloc(len(req.prompt_ids) // B + 1)
+            blocks = None
+            if blocked_p is None or req.priority > blocked_p:
+                blocks = self._alloc_blocks(len(req.prompt_ids) // B + 1,
+                                            req.priority)
             if blocks is None:
                 for r in reversed(admit[k:]):
                     self.scheduler.requeue_front(r)

@@ -14,11 +14,17 @@
   (:func:`_paged_decode_step`) copies each slot's blocks into a dense
   row and runs the dense ``decode_step``, the parity oracle.  Both
   return the step's logits and write its K/V row into the pool in
-  place.
+  place;
+* **preemption / swap**: a request's blocks can leave the pool for host
+  memory mid-decode (``swap_out``: one gather and one copy to the host,
+  a :class:`~singa_tpu_torch.serve.kvimage.KVImage`) and come back later
+  (``swap_in``: one scatter).  The copy is byte-exact and sampling noise
+  is keyed by (seed, position), so a resumed request's remaining tokens
+  are the uninterrupted run's.
 
-Not ported yet (``ROADMAP.md``): int8 pools, preemption and swap to host,
-the prefix cache sharing this pool, windowed block drops, the chunked-
-prefill budget (``prefill_token_budget``) and the admission interleave
+Not ported yet (``ROADMAP.md``): int8 pools, the prefix cache sharing
+this pool, windowed block drops, the chunked-prefill budget
+(``prefill_token_budget``) and the admission interleave
 (``admit_per_step``).
 """
 
@@ -31,6 +37,7 @@ import torch
 
 from ..models.gpt2_decode import decode_step, decode_step_paged
 from ..observe.registry import registry as _default_registry
+from .kvimage import KVImage, pack_image
 
 __all__ = ["PagedConfig", "PagedKVArena"]
 
@@ -164,9 +171,22 @@ class PagedKVArena:
         lbl = dict(engine=engine_label)
         self._g_free = reg.gauge("serve.paged.blocks_free",
                                  help="pool blocks on the free list", **lbl)
-        self._g_used = reg.gauge("serve.paged.blocks_used",
-                                 help="pool blocks held by live slots",
-                                 **lbl)
+        self._g_used = reg.gauge(
+            "serve.paged.blocks_used",
+            help="pool blocks held by live slots (a swapped-out request "
+                 "holds none: its blocks were freed at preemption)",
+            **lbl)
+        self._c_preempt = reg.counter(
+            "serve.paged.preemptions",
+            help="live requests preempted (blocks evicted to host)", **lbl)
+        self._c_swap_out = reg.counter(
+            "serve.paged.swap_out",
+            help="request KV rows copied device -> host", **lbl)
+        self._c_swap_in = reg.counter(
+            "serve.paged.swap_in",
+            help="request KV rows restored host -> device", **lbl)
+        self._registered = [self._g_free, self._g_used, self._c_preempt,
+                            self._c_swap_out, self._c_swap_in]
         self._registry = reg
         self._update_gauges()
 
@@ -238,9 +258,35 @@ class PagedKVArena:
                 self.pool_k[:, blk, :, :hi - lo] = kc_row[:, 0, :, lo:hi]
                 self.pool_v[:, blk, :, :hi - lo] = vc_row[:, 0, :, lo:hi]
 
+    # -- swap images -------------------------------------------------------
+
+    def swap_out(self, blocks, n_data) -> KVImage:
+        """Copy the first ``n_data`` of ``blocks`` to host memory (one
+        gather and one copy to the host): the preemption path."""
+        kc, vc = self.gather_row(list(blocks[:n_data]))
+        self._c_swap_out.inc()
+        return pack_image(kc.cpu(), vc.cpu(), block_size=self.block_size,
+                          n_data=n_data)
+
+    def swap_in(self, image, blocks):
+        """Restore a swapped-out image's lanes into freshly allocated
+        ``blocks`` (one scatter).  The image is validated against this
+        pool's geometry first
+        (:class:`~singa_tpu_torch.serve.kvimage.KVImageError` on any
+        mismatch, before the pool is touched), so the resumed request's
+        KV is exactly what ``swap_out`` saved."""
+        image.validate(self.block_size, pool_k=self.pool_k)
+        dev = self.pool_k.device
+        self._c_swap_in.inc()
+        self.scatter_row(image.kc.to(dev), image.vc.to(dev),
+                         dict(enumerate(blocks[:image.n_data])))
+
+    def on_preempt(self):
+        self._c_preempt.inc()
+
     def unregister(self):
         """Drop the metrics and the device pool (engine ``close()``)."""
-        self._registry.remove(self._g_free, self._g_used)
+        self._registry.remove(*self._registered)
         self.pool_k = self.pool_v = None
 
     def snapshot(self) -> dict:
@@ -248,4 +294,7 @@ class PagedKVArena:
                 "num_blocks": self.num_blocks,
                 "blocks_free": self.blocks_free,
                 "blocks_used": self.blocks_used,
+                "preemptions": self._c_preempt.value,
+                "swap_out": self._c_swap_out.value,
+                "swap_in": self._c_swap_in.value,
                 "shared_blocks": len(self._refs)}

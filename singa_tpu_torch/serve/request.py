@@ -22,8 +22,7 @@ from typing import Callable, Optional
 import numpy as np
 
 __all__ = ["QueueFullError", "DeadlineExceededError", "EngineFailedError",
-           "PoolExhaustedError", "GenerationRequest", "GenerationResult",
-           "RequestHandle"]
+           "GenerationRequest", "GenerationResult", "RequestHandle"]
 
 _req_counter = itertools.count()
 
@@ -51,13 +50,6 @@ class EngineFailedError(RuntimeError):
         self.request_id = request_id
         self.started = started
         self.engine_step = engine_step
-
-
-class PoolExhaustedError(EngineFailedError):
-    """A live slot needed one more KV block and the pool had none.  The
-    JAX engine preempts a request and swaps its blocks to the host
-    instead; preemption and swap are not ported yet (``ROADMAP.md``),
-    so the engine fails with this error."""
 
 
 @dataclass

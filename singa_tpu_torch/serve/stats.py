@@ -11,6 +11,12 @@ an ``engine=<n>`` label, one label value per engine.
 * **occupancy**: live slots / max_slots, sampled once per decode step;
   **queue depth**: sampled after each step's scheduling pass.
 
+* **paged**: the arena's snapshot (``serve/paged.py``): blocks free and
+  used, and the preemption counters ``serve.paged.preemptions``,
+  ``serve.paged.swap_out`` and ``serve.paged.swap_in``, which the arena
+  registers in this registry under the same label, as in the JAX
+  package.
+
 All times come from the engine's clock, so a fake clock makes the
 snapshot deterministic in tests.  The JAX version's SLO targets and
 speculative-decoding counters are not ported yet.
@@ -81,6 +87,8 @@ class EngineStats:
         self._queue_depth_max = 0
         self._queue_samples = 0
         self._occupancy_sum = 0.0
+        # the arena's snapshot (blocks free/used, preemption and swap
+        # counters), set by the engine
         self.paged_source = None
 
     def unregister(self):

@@ -5,7 +5,7 @@ them in a profile; no GPU needed.
 returns the C entry points' ``kind``: bf16 with D <= 128 runs the
 forward, dQ and dK/dV on the tensor-core kernels (``fwd_tc_kernel``,
 ``dq_tc_kernel``, ``dkv_tc_kernel``); float32 and bf16 with 128 < D <=
-256 run the CUDA-core kernels; anything else raises.  The
+512 run the CUDA-core kernels; anything else raises.  The
 kernels themselves are held against their plain versions on the card
 (tests/test_torch_kernels_cuda.py, ``chip_smoke.py``).
 """
@@ -37,11 +37,16 @@ TC, BF16_CC, F32_CC = (tfa.BF16_TENSOR_CORE, tfa.BF16_CUDA_CORE,
     (torch.bfloat16, 129, BF16_CC),
     (torch.bfloat16, 160, BF16_CC),
     (torch.bfloat16, 256, BF16_CC),
+    (torch.bfloat16, 257, BF16_CC),
+    (torch.bfloat16, 320, BF16_CC),
+    (torch.bfloat16, 512, BF16_CC),
     (torch.float32, 8, F32_CC),
     (torch.float32, 64, F32_CC),
     (torch.float32, 128, F32_CC),
     (torch.float32, 160, F32_CC),
     (torch.float32, 256, F32_CC),
+    (torch.float32, 257, F32_CC),
+    (torch.float32, 512, F32_CC),
 ])
 def test_route(dtype, d, want):
     assert tfa.route(dtype, d) == want
@@ -59,10 +64,29 @@ def test_route_kinds_are_the_c_dispatchs():
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("d", [257, 512])
+@pytest.mark.parametrize("d", [513, 1024])
 def test_route_raises_past_the_widest_head(dtype, d):
-    with pytest.raises(ValueError, match="head dims"):
+    with pytest.raises(ValueError, match="head dims up to 512"):
         tfa.route(dtype, d)
+
+
+def test_every_cuda_core_rung_fits_shared_memory():
+    """``dispatch_d``'s rungs cover every head dim up to ``MAX_HEAD_DIM``,
+    and at each rung the forward's, dQ's and dK/dV's shared memory (the
+    source's ``smem_bytes``, in floats) fits the 227 KB a block may use."""
+    src = CU.read_text()
+    body = src[src.index("int dispatch_d("):]
+    body = body[:body.index("\n}\n")]
+    rungs = [(int(d), int(br), int(dt)) for d, br, dt in re.findall(
+        r"if \(a\.D <= (\d+)\) return launch<T, (\d+), (\d+)>", body)]
+    assert rungs[-1][0] == tfa.MAX_HEAD_DIM
+    for d, br, dt in rungs:
+        assert d <= dt and br % 16 == 0
+        floats = (3 * br * (dt + 1) + br * (br + 1),
+                  4 * br * (dt + 1) + br * (br + 1),
+                  4 * br * (dt + 1) + 2 * br * (br + 1) + 2 * br)
+        assert max(floats) * 4 <= 232448, (d, br, dt)
+    assert re.search(r"return launch<T, 16, 512>", body)
 
 
 def test_route_raises_on_other_dtypes():

@@ -13,7 +13,8 @@ kernel-vs-plain comparisons are ``chip_smoke.check_case`` over
 ``chip_smoke.bottleneck_edge_cases()`` (the ResNet bottleneck), with
 ``chip_smoke.check_paged_case`` over ``chip_smoke.paged_edge_cases()``
 (paged decode attention, allclose at ``chip_smoke.PAGED_TOL``: float32
-2e-5, bf16 1e-2), with their tolerances (``chip_smoke.TOL``): flash
+2e-5, bf16 1e-2; the cases take one split of the key range or several),
+with their tolerances (``chip_smoke.TOL``): flash
 attention allclose with
 float32 rtol = atol = 1e-4 and bf16 rtol = atol = 2e-2 (bf16 with
 D <= 128 runs the tensor-core kernels); the bottleneck
@@ -86,8 +87,11 @@ def test_bf16_calls_take_the_tensor_core_route(cuda_device):
 
 @pytest.mark.cuda
 def test_unsupported_inputs_raise(cuda_device):
-    q = torch.zeros(1, 8, 300, device=cuda_device)
-    with pytest.raises(ValueError, match="head dims"):
+    """Past D = 512 (the CUDA-core kernels' widest rung; D = 320 and 512
+    are edge cases above), another dtype, and malformed lse / delta
+    raise."""
+    q = torch.zeros(1, 8, 520, device=cuda_device)
+    with pytest.raises(ValueError, match="head dims up to 512"):
         tfa.flash_fwd(q, q, q, None, None, None, 1.0, False, None)
     h = torch.zeros(1, 8, 64, device=cuda_device, dtype=torch.float16)
     with pytest.raises(TypeError, match="float32 or bfloat16"):
@@ -174,6 +178,9 @@ def test_paged_kernel_matches_plain(cuda_device, dtype, seed, name, case):
 
 @pytest.mark.cuda
 def test_paged_kernel_counts_its_launches_and_refuses_int8(cuda_device):
+    """One count a call (the split and combine kernels together); int8
+    pools, D past 512 and more than 4 rows a kv head past D = 128 raise;
+    D = 96 and 512 run and agree with the plain version."""
     args = chip_smoke.paged_inputs(lens=[9, 0], block=8, d=64, n_kv=2, g=1,
                                    nq=1, dtype=torch.float32, seed=0)
     before = tpa.paged_attn.launches
@@ -184,23 +191,33 @@ def test_paged_kernel_counts_its_launches_and_refuses_int8(cuda_device):
                 pool_v=args["pool_v"].to(torch.int8))
     with pytest.raises(TypeError, match="int8"):
         tpa.paged_attn(**int8)
-    wide = chip_smoke.paged_inputs(lens=[9], block=8, d=96, n_kv=1, g=1,
-                                   nq=1, dtype=torch.float32, seed=0)
-    with pytest.raises(ValueError, match="head dims"):
-        tpa.paged_attn(**wide)
+    for d in (96, 512):
+        ok = chip_smoke.paged_inputs(lens=[9, 300], block=8, d=d, n_kv=1,
+                                     g=1, nq=1, dtype=torch.float32, seed=0)
+        torch.testing.assert_close(tpa.paged_attn(**ok),
+                                   tpa.paged_attn_plain(**ok),
+                                   rtol=2e-5, atol=2e-5)
+    for d, g in ((520, 1), (256, 5)):
+        bad = chip_smoke.paged_inputs(lens=[9], block=8, d=d, n_kv=1, g=g,
+                                      nq=1, dtype=torch.float32, seed=0)
+        with pytest.raises(ValueError, match="head dims|rows"):
+            tpa.paged_attn(**bad)
 
 
 @pytest.mark.cuda
-def test_tiny_gpt2_serves_through_the_paged_kernel(cuda_device):
+@pytest.mark.parametrize("wide", [True, False], ids=["d64", "d16"])
+def test_tiny_gpt2_serves_through_the_paged_kernel(cuda_device, wide):
     """Engine streams equal offline generate on the card, float32, and the
-    kernel launches once a layer a decode step."""
+    kernel launches once a layer a decode step; at D = 64 and at
+    ``GPT2Config.tiny``'s own D = 16."""
     from singa_tpu_torch import device, tensor
     from singa_tpu_torch.models.gpt2 import GPT2Config, GPT2LMHead
     from singa_tpu_torch.serve import GenerationRequest, PagedConfig
 
     dev = device.create_cuda_gpu()
     dev.SetRandSeed(0)
-    m = GPT2LMHead(GPT2Config.tiny(dropout=0.0, n_embd=128, n_head=2))
+    m = GPT2LMHead(GPT2Config.tiny(dropout=0.0, n_embd=128, n_head=2)
+                   if wide else GPT2Config.tiny(dropout=0.0))
     m.compile([tensor.from_numpy(np.zeros((1, 8), np.int32), dev)],
               is_train=False)
     rng = np.random.RandomState(2)

@@ -6,13 +6,17 @@ The emulator runs each CUDA thread as a fiber, with the warp-level PTX
 the kernels use (``ldmatrix``, ``mma.sync``, ``cp.async`` landing at
 ``wait_group``) and shared memory that starts as garbage.  So these tests
 catch indexing, masking, tiling and synchronisation faults in the
-tensor-core kernels without a card.  It sums each ``mma`` exactly, so the
-card's own rounding is held on the card (tests/test_torch_kernels_cuda.py,
+kernels without a card.  It sums each ``mma`` exactly, so the card's own
+rounding is held on the card (tests/test_torch_kernels_cuda.py,
 ``chip_smoke.py``).  Cases: small ``chip_smoke`` edge cases, bf16 for
-flash attention (the tensor-core route), the ragged and narrow ones for
-the bottleneck, three paged-attention cases in float32 and bf16 (dead
-slots with all-trash tables, GQA g = 3 with Q = 4 at D = 128, a window
-over Q = 4) at ``chip_smoke.PAGED_TOL``.  Needs a C++ compiler.
+flash attention (the tensor-core route, and the CUDA-core kernels' widest
+rung at D = 512), the ragged and narrow ones for the bottleneck; for
+paged attention, the split and combine kernels in float32 and bf16 at
+``chip_smoke.PAGED_TOL``, on three cases at the split count the wrapper
+would choose (dead slots with all-trash tables, GQA g = 3 with Q = 4 at
+D = 128, a window over Q = 4) and on D = 16 and a long slot beside short
+ones at D = 64 over one split and over three; and the split plan itself.
+Needs a C++ compiler.
 """
 
 import importlib.util
@@ -26,7 +30,7 @@ import chip_smoke
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 FLASH = ("s65_causal", "s129_causal", "d13_s100", "window1", "neg_inf_row",
-         "general_mask_mBH")
+         "general_mask_mBH", "d512_window")
 BOTTLENECK = ("hw7_bands_ragged", "c128_cm32", "odd_h5_w9_cm8")
 PAGED = ("dead_slots_all_trash", "g3_q4_d128", "window_q4_g3")
 
@@ -81,6 +85,40 @@ def test_paged_kernel_matches_plain(emu, build_dir, cpu_inputs, name, dtype):
     lib = emu.load("paged_attention", build_dir)
     err, ok = emu.paged_case(lib, dtype, seed, **kw)
     assert ok, err
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["float32", "bfloat16"])
+@pytest.mark.parametrize("n_split", [1, 3])
+@pytest.mark.parametrize("name", ["d16", "long_beside_short"])
+def test_paged_split_and_combine_kernels(emu, build_dir, cpu_inputs, name,
+                                         n_split, dtype):
+    seed, kw = next((i, kw) for i, (n, kw)
+                    in enumerate(chip_smoke.paged_edge_cases())
+                    if n == name)
+    lib = emu.load("paged_attention", build_dir)
+    err, ok = emu.paged_case(lib, dtype, seed, n_split, **kw)
+    assert ok, err
+
+
+def test_paged_split_plan(emu, build_dir):
+    """The C plan on an H100's 132 SMs: about 4 blocks an SM, at least
+    128 keys a split, whole tiles a warp; none past D = 512."""
+    from singa_tpu_torch.ops import paged_attention as pa
+
+    lib = emu.load("paged_attention", build_dir)
+
+    def plan(n_blk, block, pairs, d=64, dtype=torch.bfloat16, blk_lo=0):
+        return pa.split_count(d, dtype, n_blk, blk_lo, block, pairs, 132,
+                              lib)
+
+    assert plan(16, 32, 8 * 12) == 4      # a serve step: 8 slots, 512 keys
+    assert plan(32, 32, 2 * 12) == 8      # two 1000-lane slots
+    assert plan(4, 32, 2) == 1            # 128 keys: one split
+    assert plan(32, 32, 600) == 1         # enough pairs to fill the card
+    assert plan(32, 32, 2, blk_lo=28) == 1
+    assert plan(300, 1, 6, d=256, dtype=torch.float32) == 2
+    assert plan(16, 32, 96, d=520) == 0
 
 
 def test_every_inline_ptx_helper_is_emulated(emu):

@@ -6,7 +6,8 @@ the card, runs slot by slot against the JAX function on the inputs of
 ``chip_smoke.paged_edge_cases()`` (made with numpy from a seed): block
 sizes 1 to 32, a partial final block, ``pos`` on a block boundary,
 all-trash (dead) and one-block tables, GQA g = 3, D = 128, Q = 4 with a
-tril ``cur_mask``, windows with and without ``blk_lo``, 1000-lane slots.
+tril ``cur_mask``, windows with and without ``blk_lo``, 1000-lane slots,
+a long slot beside short ones, head dims 16, 20, 40, 80 and 256.
 float32, atol 1e-5: both sum the same float32 terms in another order
 over at most 1000 lanes of values O(1).  The trash block holds
 ``chip_smoke.PAGED_TRASH_VALUE``, so a lane read unmasked moves an output
@@ -110,12 +111,15 @@ def test_dead_slot_attends_only_its_current_lane():
 
 @pytest.mark.parametrize("change,err", [
     (dict(pool_k=torch.zeros(5, 2, 8, 64, dtype=torch.int8)), TypeError),
-    (dict(d=96), ValueError),
+    (dict(d=520), ValueError),
     (dict(g=5, nq=4), ValueError),
     (dict(tables_dtype=torch.int64), ValueError),
     (dict(n_blk=99), ValueError),
+    (dict(d=200, g=5), ValueError),
 ])
 def test_cuda_checks_refuse_what_the_kernel_does_not_take(change, err):
+    """Past D = 512, past 16 rows a kv head (4 at D > 128), int8 pools and
+    malformed tables raise, naming the limit."""
     kw = dict(lens=[9, 4], block=8, d=change.get("d", 64), n_kv=2,
               g=change.get("g", 1), nq=change.get("nq", 1))
     a = chip_smoke.paged_inputs(dtype=torch.float32, seed=0, **kw)
@@ -129,3 +133,13 @@ def test_cuda_checks_refuse_what_the_kernel_does_not_take(change, err):
         pa._check_cuda(a["q"], a["pool_k"], a["pool_v"], a["tables"],
                        a["p_limit"], a["n_blk"], a["k_cur"], a["v_cur"],
                        a["cur_mask"], a["blk_lo"])
+
+
+@pytest.mark.parametrize("d,g,nq", [(16, 1, 1), (40, 3, 1), (96, 4, 4),
+                                    (256, 2, 2), (512, 4, 1), (13, 1, 1)])
+def test_cuda_checks_take_every_head_dim_up_to_512(d, g, nq):
+    a = chip_smoke.paged_inputs(lens=[9, 4], block=8, d=d, n_kv=2, g=g,
+                                nq=nq, dtype=torch.bfloat16, seed=0)
+    assert pa._check_cuda(a["q"], a["pool_k"], a["pool_v"], a["tables"],
+                          a["p_limit"], a["n_blk"], a["k_cur"], a["v_cur"],
+                          a["cur_mask"], a["blk_lo"]) == 1

@@ -33,9 +33,8 @@ from singa_tpu.serve import PagedConfig as JPagedConfig
 from singa_tpu_torch import device, tensor
 from singa_tpu_torch.models import gpt2_decode as gd
 from singa_tpu_torch.models.gpt2 import GPT2Config, GPT2LMHead
-from singa_tpu_torch.serve import (EngineFailedError, FIFOScheduler,
-                                   GenerationRequest, PagedConfig,
-                                   PoolExhaustedError, PriorityScheduler,
+from singa_tpu_torch.serve import (FIFOScheduler, GenerationRequest,
+                                   PagedConfig, PriorityScheduler,
                                    QueueFullError)
 
 ATOL = 1e-5
@@ -301,22 +300,26 @@ def test_admission_waits_for_blocks(models):
 
 
 def test_slot_that_cannot_grow_fails_typed(models):
-    """Preemption and swap are not ported: when a live slot needs a block
-    and the pool has none, the engine fails with PoolExhaustedError and
-    every request is rejected typed."""
+    """A live slot that needs a block when the pool has none and no
+    lower-priority victim no longer fails the engine: it swaps itself
+    out and resumes when blocks return, so two equal-priority requests
+    that each need the whole pool drain one after the other, with the
+    streams of offline ``generate`` and no block left."""
     _, tm = models
+    p = np.arange(7, dtype=np.int32)
     eng = tm.serve(max_slots=2, paged=PagedConfig(block_size=8,
                                                   num_blocks=5))
-    hs = [eng.submit(GenerationRequest(np.arange(7, dtype=np.int32),
-                                       max_new_tokens=30)) for _ in range(2)]
-    with pytest.raises(PoolExhaustedError, match="preemption"):
-        eng.run_until_complete(max_steps=100)
-    for h in hs:
-        with pytest.raises(EngineFailedError):
-            h.result()
-    with pytest.raises(EngineFailedError):
-        eng.step()
-    eng.close(force=True)
+    hs = [eng.submit(GenerationRequest(p + i, max_new_tokens=30))
+          for i in range(2)]
+    eng.run_until_complete(max_steps=200)
+    for i, h in enumerate(hs):
+        np.testing.assert_array_equal(
+            h.result().tokens, tm.generate(p + i, max_new_tokens=30,
+                                           temperature=0.0))
+    snap = eng.stats.snapshot()["paged"]
+    assert snap["preemptions"] >= 1 and snap["swap_in"] >= 1
+    assert snap["blocks_used"] == 0
+    eng.close()
 
 
 @pytest.mark.parametrize("kw", [

@@ -20,12 +20,16 @@ Where the checkout has the paged decode attention
 (``singa_tpu_torch/ops/paged_attention.py``), ``paged_attn`` is timed too,
 at one decode step of ``chip_smoke.py``'s serve traffic (``PAGED_LENS``:
 8 slots' positions, block size 32, 12 kv heads, D = 64, bf16, random
-tables and a random pool for each of the 12 layers from numpy seed 0):
-``paged_attn`` over the layers in turn, as the serve step reads them (the
-working set outgrows L2), and ``paged_attn_one_layer`` on the first layer
-alone (its K/V stays in L2); besides the event times, their device time
-per launch over 48 launches (``chip_smoke.device_ms_per_call``), since
-the wrapper's launch overhead exceeds the kernel's time.
+tables and a random pool for each of the 12 layers from numpy seed 0,
+``chip_smoke.paged_table``): ``paged_attn`` over the layers in turn, as
+the serve step reads them (the working set outgrows L2), and
+``paged_attn_one_layer`` on the first layer alone (its K/V stays in L2);
+and ``paged_attn_long`` over the layers at two slots of 1000 lanes
+(``chip_smoke.LONG_TABLE_LENS``, seed 1).  Besides the event times,
+their device time per call over 48 calls, by kernel and in total
+(``chip_smoke.device_ms_by_kernel``: the split and combine kernels of a
+call, summed), since the wrapper's launch overhead exceeds the kernels'
+time.
 
 Run it once per checkout in alternating order (A, B, B, A) within one
 process per run; each run prints one JSON line with the mean ms per
@@ -63,30 +67,20 @@ def _chip_smoke():
 
 def _paged_calls(cs):
     """``paged_attn`` over 12 layers in turn and on one layer, at
-    ``PAGED_LENS`` (module docstring)."""
+    ``PAGED_LENS``, and over 12 layers at ``cs.LONG_TABLE_LENS`` (module
+    docstring)."""
     from types import SimpleNamespace
-
-    import numpy as np
 
     from singa_tpu_torch.ops import paged_attention as pa
 
-    c = cs.SERVE_ENGINE
-    block = c["block_size"]
-    rng = np.random.RandomState(0)
-    ids = rng.permutation(c["num_blocks"])
-    tables = np.full((len(PAGED_LENS), 1024 // block), c["num_blocks"],
-                     np.int32)
-    at = 0
-    for s, p in enumerate(PAGED_LENS):
-        n = -(-p // block)
-        tables[s, :n] = ids[at:at + n]
-        at += n
     cfg = SimpleNamespace(n_embd=768, n_head=12, n_kv_head=12, n_layer=12)
-    layers = cs.real_args(dict(tables=tables, p_limit=list(PAGED_LENS)),
-                          cfg, 0)
+    layers = cs.paged_table(PAGED_LENS, cfg, 0)
+    long = cs.paged_table(cs.LONG_TABLE_LENS, cfg, 1)
     return {"paged_attn": cs._rotating(
                 [functools.partial(pa.paged_attn, **a) for a in layers]),
-            "paged_attn_one_layer": lambda: pa.paged_attn(**layers[0])}
+            "paged_attn_one_layer": lambda: pa.paged_attn(**layers[0]),
+            "paged_attn_long": cs._rotating(
+                [functools.partial(pa.paged_attn, **a) for a in long])}
 
 
 def main(argv=None):
@@ -129,8 +123,11 @@ def main(argv=None):
           for name, fn in calls.items()}
     # the paged kernel is shorter than its wrapper's launch overhead:
     # its device time, by the profiler, over 48 launches
-    device_ms = {name: cs.device_ms_per_call(fn, 48)
+    device_ms = {name: cs.device_ms_by_kernel(fn, 48)
                  for name, fn in paged.items()}
+    device_ms = {name: dict({k[:60]: v for k, v in by.items()},
+                            total=sum(by.values()))
+                 for name, by in device_ms.items()}
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],

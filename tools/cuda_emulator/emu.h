@@ -1,7 +1,8 @@
 // CPU emulation of the CUDA subset the port's kernels use, so that their
 // sources run on a CPU (tools/emulate_kernels.py turns a csrc/*.cu file
 // into a C++ file that includes this header):
-//   * one fiber (ucontext) per CUDA thread, blocks run one after another;
+//   * one fiber (ucontext) per CUDA thread, blocks (a 3-D grid) run one
+//     after another;
 //   * __syncthreads, __syncwarp and the warp collectives are barriers over
 //     the block's or the warp's fibers;
 //   * ldmatrix (.x4, .trans), mma.sync.m16n8k16 (bf16, exact products summed
@@ -168,9 +169,10 @@ template <class... P, class... A>
 int emu_launch(void (*kernel)(P...), dim3 grid, int nt, size_t smem, void*, A... args) {
   static std::vector<unsigned char> buf(1 << 20);
   gridDim = grid; blockDim = dim3(nt);
+  for (unsigned bz = 0; bz < grid.z; ++bz)
   for (unsigned by = 0; by < grid.y; ++by)
     for (unsigned bx = 0; bx < grid.x; ++bx) {
-      blockIdx = dim3(bx, by);
+      blockIdx = dim3(bx, by, bz);
       emu_smem_base = buf.data();
       for (size_t i = 0; i < smem; ++i) buf[i] = 0xA5;  // garbage, not zeros
       emu_block_bar = EmuBarrier(); emu_block_bar.n = nt;

@@ -119,8 +119,7 @@ def load(name, out_dir):
     elif name == "paged_attention":
         from singa_tpu_torch.ops import paged_attention as pa
 
-        lib.paged_attention.argtypes = pa._ARGTYPES
-        lib.paged_attention.restype = ctypes.c_int
+        pa.type_library(lib)
     else:
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
         lib.resnet_bottleneck.argtypes = [ptr] * 11 + [i32] * 5 + [ptr]
@@ -195,9 +194,11 @@ def bottleneck_case(lib, b, h, w, c, cm, seed, affine="unit"):
                                cs.TOL["bottleneck"])
 
 
-def paged_case(lib, dtype, seed, **kw):
-    """The emulated paged-attention kernel on one ``chip_smoke`` case
-    (CPU tensors) against its plain version; returns ``(max |Δ|, ok)``."""
+def paged_case(lib, dtype, seed, n_split=None, **kw):
+    """The emulated split and combine kernels on one ``chip_smoke`` case
+    (CPU tensors) against their plain version, over ``n_split`` splits of
+    the key range (default: what the wrapper would choose on an H100's
+    132 SMs); returns ``(max |Δ|, ok)``."""
     import torch
 
     import chip_smoke as cs
@@ -206,14 +207,19 @@ def paged_case(lib, dtype, seed, **kw):
     a = cs.paged_inputs(dtype=dtype, seed=seed, **kw)
     q = a["q"]
     s_, n_kv, g, nq, d = q.shape
+    block = a["pool_k"].shape[2]
+    if n_split is None:
+        n_split = pa.split_count(d, dtype, a["n_blk"], a["blk_lo"], block,
+                                 s_ * n_kv, 132, lib)
     out = torch.full_like(q, float("nan"))
+    ws = torch.full((s_ * n_kv * n_split * g * nq * (d + 2),), float("nan"))
     err = lib.paged_attention(
         *(a[k].data_ptr() for k in ("q", "pool_k", "pool_v", "tables",
                                     "p_limit", "k_cur", "v_cur",
                                     "cur_mask")),
-        out.data_ptr(), s_, n_kv, g, nq, d, a["pool_k"].shape[2],
+        out.data_ptr(), ws.data_ptr(), s_, n_kv, g, nq, d, block,
         a["tables"].shape[1], a["pool_k"].shape[0] - 1, a["n_blk"],
-        int(a["blk_lo"] or 0), int(a["window"] or 0), a["scale"],
+        int(a["blk_lo"] or 0), int(a["window"] or 0), n_split, a["scale"],
         pa._DTYPES[dtype], None)
     if err:
         raise RuntimeError(f"emulated launch returned {err}")
@@ -260,10 +266,12 @@ def main(argv=None):
             if argv and name not in argv:
                 continue
             for dtype in (torch.float32, torch.bfloat16):
-                err, ok = paged_case(lib, dtype, seed, **kw)
-                failed += not ok
-                print(f"paged {name}/{str(dtype)[6:]}: max |Δ| {err}, "
-                      f"ok {ok}", flush=True)
+                for n_split in (1, None):
+                    err, ok = paged_case(lib, dtype, seed, n_split, **kw)
+                    failed += not ok
+                    print(f"paged {name}/{str(dtype)[6:]}/"
+                          f"n_split={n_split or 'planned'}: max |Δ| {err}, "
+                          f"ok {ok}", flush=True)
     return 1 if failed else 0
 
 
