@@ -22,31 +22,41 @@ exits nonzero:
                     H=12, S=1024, D=64, causal, bf16) and at edge shapes in
                     float32 and bf16 (key mask, a fully -inf-masked row,
                     general masks, sliding windows, S=1/65/129/1000,
-                    D=8/13/72/96/128/160/320/512), where bf16 with D <=
-                    128 runs the tensor-core kernels and the rest the
-                    CUDA-core ones; and times each kernel, its plain
+                    D=8/13/72/96/128/160/320/512/640/1000/1024/1792), where
+                    bf16 with D <= 128 runs the tensor-core kernels and the
+                    rest the CUDA-core ones (past D = 512 their 8-row
+                    rung); and times each kernel, its plain
                     version and PyTorch's fused attention, forward and
                     backward (a yardstick the port never calls).
 3. ``slice``      - trains GPT-2 small (124M, n_positions 1024, so
-                    attention runs through the flash kernels) for 5 steps
-                    with bf16 amp and SGD(lr=1e-4, momentum=0.9) on a batch
-                    of 8 x 1024 random ids, as ``bench.py``'s ``bench_gpt2``
-                    configures the JAX package; checks finite losses,
-                    exactly 12 launches of each kernel per step, all on
-                    the tensor-core route, and the logits of an eval forward
-                    against the same weights on the plain ("fused")
-                    attention path.
+                    attention runs through the flash kernels) with bf16 amp
+                    and SGD(lr=1e-4, momentum=0.9) on a batch of 8 x 1024
+                    random ids, as ``bench.py``'s ``bench_gpt2`` configures
+                    the JAX package, in graph mode (``use_graph=True``: the
+                    step captured as a CUDA graph and replayed), 5 steps,
+                    against 5 eager steps from the same weights: losses and
+                    weights within ``CAPTURE_RTOL`` (worst difference
+                    logged), host-clock step medians of both, exactly 12
+                    launches of each kernel per replayed step, all on the
+                    tensor-core route, the flash kernels named by the
+                    profiler in a replayed step, ``graph.cache_miss`` flat
+                    after the first step, the time of copying out the
+                    logits, the dropout pin (``dropout_pin``), and the
+                    logits of an eval forward against the same weights on
+                    the plain ("fused") attention path.
 4. ``profile``    - device time per kernel group (flash, GEMMs, the rest)
-                    over 2 more steps, from torch.profiler; fails if the
-                    profiler records no device time.
+                    and the device's busy share over 2 more steps of each
+                    mode, from torch.profiler; fails if the profiler
+                    records no device time.
 5. ``resnet``     - trains ResNet-50 (25.6M parameters, full depth and
-                    width) for 5 steps at ``bench.py``'s ``bench_resnet50``
+                    width) at ``bench.py``'s ``bench_resnet50``
                     configuration: batch 128 x 3 x 224 x 224 random images
                     and labels from a numpy seed, 1000 classes, bf16 amp,
-                    SGD(lr=0.1, momentum=0.9); checks finite losses and
-                    running statistics; then ``resnet_profile``: device
-                    time by group (convolutions, batch norm, the rest) over
-                    2 more steps.
+                    SGD(lr=0.1, momentum=0.9), graph mode against eager as
+                    in ``slice``; checks finite losses and running
+                    statistics; then ``resnet_profile``: device time by
+                    group (convolutions, batch norm, the rest) over 2 more
+                    eager steps, and the busy share of both modes.
 6. ``bottleneck`` - the trained ResNet-50 in eval mode: the activation
                     that enters ``layer1[1]`` (stem + ``layer1[0]``, batch
                     128, 56 x 56 x 256, channels-last bf16) goes through
@@ -66,28 +76,33 @@ exits nonzero:
 7. ``serve``      - serves GPT-2 small (124M, 12 layers, n_positions 1024,
                     random weights from a seed) through the paged engine,
                     ``model.serve(max_slots=8, paged=PagedConfig(
-                    block_size=32, num_blocks=256))``: 24 requests at once,
-                    prompts of 16-512 tokens, 32-128 new tokens, alternately
-                    greedy and at temperature 0.9 with their own seeds.  In
-                    float32: the paged kernel's streams equal the gather
-                    oracle's and offline ``generate``'s token for token,
-                    ``paged_attn`` launches 12 times a decode step, no
-                    block is in use after the drain and every request
-                    completes by its length.  In bf16: the same traffic
-                    timed (TTFT and TPOT medians, decode tokens/s), once
-                    under torch.profiler (the device's busy share), once
+                    block_size=32, num_blocks=256))``, every decode step a
+                    replay of its width bucket's captured graph: 24
+                    requests at once, prompts of 16-512 tokens, 32-128 new
+                    tokens, alternately greedy and at temperature 0.9 with
+                    their own seeds.  In float32: the captured engine's
+                    streams equal the eager engine's (``capture=False``),
+                    the gather oracle's and offline ``generate``'s token
+                    for token, ``paged_attn`` launches 12 times a decode
+                    step, no block is in use after the drain, every
+                    request completes by its length, and the serve census
+                    (``jit_cache_size``) grows by one graph per width
+                    bucket used and then stays flat.  In bf16: the same
+                    traffic timed, captured and eager (TTFT and TPOT
+                    medians, decode tokens/s), once each under
+                    torch.profiler (the device's busy share), once eager
                     with every step's logits held against the gather
                     oracle on a copy of the pool (``SERVE_BF16_LOGITS_ATOL``)
                     and against a gather engine's streams up to each
                     request's first token whose top-2 margin is below it.
-                    Then, float32: a pressured priority engine (8 slots,
-                    ``PagedConfig(block_size=32, num_blocks=64)``, 12
-                    requests of 200-500-token prompts and 32 new tokens,
-                    a priority-0 wave then a higher-priority one) that
-                    must preempt and resume, streams equal to offline
-                    ``generate``, no block left; and ``GPT2Config.tiny``
-                    (D = 16) served on the card, streams equal to offline
-                    ``generate``.
+                    Then, float32 and captured: a pressured priority engine
+                    (8 slots, ``PagedConfig(block_size=32, num_blocks=64)``,
+                    12 requests of 200-500-token prompts and 32 new
+                    tokens, a priority-0 wave then a higher-priority one)
+                    that must preempt and resume, streams equal to offline
+                    ``generate``, no block left, the census flat; and
+                    ``GPT2Config.tiny`` (D = 16) served on the card,
+                    streams equal to offline ``generate``.
 8. ``generate``   - the serve phase's float32 GPT-2 small past
                     n_positions: a 1000-token prompt and 40 greedy tokens
                     take the windowed path (12 flash forward launches a
@@ -98,7 +113,9 @@ exits nonzero:
                     against ``paged_attn_plain`` at the edge cases of
                     ``paged_edge_cases`` (block sizes 1 to 32, partial and
                     full last blocks, all-trash and one-block tables, GQA
-                    g = 3, D = 16/20/40/80/128/256, Q = 4 with a tril mask,
+                    g = 3, D = 16/20/40/80/128/256/640/1024, Q = 4 with a
+                    tril mask, GQA groups of 32 query rows and of 6 heads
+                    at D = 1024 (launched in groups of heads),
                     windows, 1000-lane slots, a long slot beside short
                     ones; one split of the key range and several) in
                     float32 and bf16, and at two tables of bf16 pools over
@@ -109,7 +126,8 @@ exits nonzero:
 10. ``device``    - the card's name and power limit from nvidia-smi.
 
 Then one line ``{"kernels": [...]}`` with each kernel's launches on the
-main path, error, times and bound, the nvidia-smi line, and last
+main path (the graph-mode runs: a replay credits the launches its graph
+holds), error, times and bound, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``.  Needs a CUDA GPU; there is no CPU
 mode.
 """
@@ -338,6 +356,14 @@ def edge_cases():
         # 512): D past 256 and not a multiple of 64, a key mask, a window
         ("d320_key_mask", dict(s=200, d=320, mask=key_mask)),
         ("d512_window", dict(s=96, d=512, causal=True, window=40)),
+        # the 8-row rung (a warp a row, rows up to 1792): D past 512 and
+        # not a multiple of 32, a window across tiles, a general mask,
+        # the widest row
+        ("d640_window", dict(s=72, d=640, causal=True, window=20)),
+        ("d1000_causal", dict(s=45, d=1000, causal=True)),
+        ("d1024_general_mask", dict(s=40, d=1024,
+                                    mask=gmask(b, h, 40, 40))),
+        ("d1792", dict(s=20, d=1792)),
     ]
     return [(n, dict(b=b, h=h, **kw)) for n, kw in cases]
 
@@ -510,14 +536,136 @@ REPLACES = {
 
 # ------------------------------------------------------------------ slice
 
+#: eager against captured training from the same weights, the largest
+#: difference allowed in losses and weights, relative (a weight tensor's
+#: to its largest magnitude).  A replay runs the eager step's kernels in
+#: the same order on the same memory, so the two agree to the bit unless
+#: cuBLAS or cuDNN choose other algorithms under capture: then float32
+#: keeps 1e-5 and bf16 amp, whose activations round to 8 bits, 1e-3.
+CAPTURE_RTOL = {"float32": 1e-5, "bf16": 1e-3}
 
-def phase_slice(rows, steps=5, batch=8, seq=1024, seed=0):
-    from singa_tpu_torch import amp, device, opt, tensor
-    from singa_tpu_torch.models.gpt2 import GPT2Config, GPT2LMHead
+
+def _relative_diff(a, b):
+    a, b = a.float(), b.float()
+    return ((a - b).abs().max() / b.abs().max().clamp_min(1e-30)).item()
+
+
+def train_eager_and_captured(build, x, y, steps, rtol, profiles):
+    """Train ``build(False)`` (eager) and ``build(True)`` (graph mode: the
+    first call eager, the second captured, the rest replays) for
+    ``steps`` steps each on the same batch from the same initial state,
+    then profile each over 2 more steps (``profiles``: ``profile_steps``
+    keywords by mode).  Raises unless losses and weights agree within
+    ``rtol`` (``_relative_diff``), the flash kernels (if the model runs
+    them) launch the same number of times in both and ``graph.cache_miss``
+    moves once.  Returns ``(graph-mode model, report)``."""
+    from singa_tpu_torch.observe.registry import registry
     from singa_tpu_torch.ops import flash_attention as fa
 
+    kernels = (fa.flash_fwd, fa.flash_bwd_dq, fa.flash_bwd_dkv)
+    misses = registry().counter("graph.cache_miss")
+    graph = build(True)
+    init = {k: v.detach().clone() for k, v in graph.get_states().items()}
+    eager = build(False)
+    eager.set_states(init)
+    del init
+    report = {}
+
+    def run(m, mode):
+        for k in kernels:
+            k.launches = k.tensor_core_launches = 0
+        miss0 = misses.value
+        losses, step_ms, miss = [], [], []
+        for _ in range(steps):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            _, loss = m(x, y)
+            losses.append(loss.item())  # synchronizes
+            step_ms.append((time.perf_counter() - t) * 1e3)
+            miss.append(misses.value - miss0)
+        if not all(math.isfinite(v) for v in losses):
+            raise AssertionError(f"{mode}: non-finite loss: {losses}")
+        # the eager mode's first step, the captured mode's first two
+        # (eager warm-up, capture) build and allocate: not steady
+        steady = step_ms[1:] if mode == "eager" else step_ms[2:]
+        report[mode] = dict(
+            losses=losses, step_ms=step_ms,
+            median_step_ms=statistics.median(steady),
+            cache_miss_after_each_step=miss,
+            launches={k.__name__: k.launches for k in kernels},
+            tensor_core_launches={k.__name__: k.tensor_core_launches
+                                  for k in kernels},
+            profile=profile_steps(m, x, y, **profiles[mode]))
+
+    run(eager, "eager")
+    final = {k: v.detach().clone() for k, v in eager.get_states().items()}
+    del eager
+    run(graph, "captured")
+    e, c = report["eager"], report["captured"]
+    if c["cache_miss_after_each_step"] != [1] * steps or any(
+            e["cache_miss_after_each_step"]):
+        raise AssertionError(f"graph.cache_miss moved after warm-up: "
+                             f"{c['cache_miss_after_each_step']}")
+    if c["launches"] != e["launches"] or \
+            c["tensor_core_launches"] != e["tensor_core_launches"]:
+        raise AssertionError(f"replayed steps credited {c['launches']} "
+                             f"flash launches, eager steps made "
+                             f"{e['launches']}")
+    loss_diff = max(abs(a - b) / abs(b) for a, b in zip(c["losses"],
+                                                        e["losses"]))
+    weight_diff = max(_relative_diff(v, final[k])
+                      for k, v in graph.get_states().items())
+    report["max_loss_rel_diff"] = loss_diff
+    report["max_weight_rel_diff"] = weight_diff
+    report["bitwise_equal"] = loss_diff == 0 and weight_diff == 0
+    report["rtol"] = rtol
+    if loss_diff > rtol or weight_diff > rtol:
+        raise AssertionError(f"captured steps differ from eager ones: loss "
+                             f"{loss_diff}, weights {weight_diff} > {rtol}")
+    return graph, report
+
+
+def replayed_kernels(m, x, y):
+    """The device kernels of one replayed step by name and count
+    (torch.profiler): the replay calls no wrapper, so only this shows
+    that the kernels ran inside the graph."""
+    return {k[:80]: round(v, 6) for k, v in device_ms_by_kernel(
+        lambda: m(x, y), 1, warmup=0).items()}
+
+
+def dropout_pin(dev, seed=0):
+    """Graph mode with lr 0: under dropout 0.1 three replays of one batch
+    give three losses (the device generator is registered with the graph,
+    so each replay draws a fresh mask); under dropout 0 they give one."""
+    from singa_tpu_torch import opt, tensor
+    from singa_tpu_torch.models.gpt2 import GPT2Config, GPT2LMHead
+
+    ids = np.random.RandomState(seed).randint(0, 256, (2, 64)) \
+        .astype(np.int32)
+    x = tensor.from_numpy(ids, dev)
+    y = tensor.from_numpy(np.roll(ids, -1, axis=1).astype(np.int32), dev)
+    out = {}
+    for p in (0.1, 0.0):
+        m = GPT2LMHead(GPT2Config.tiny(dropout=p, attn_impl="flash"))
+        m.set_optimizer(opt.SGD(lr=0.0))
+        m.compile([x], is_train=True, use_graph=True)
+        out[p] = [m(x, y)[1].item() for _ in range(5)]
+    replays = {p: v[2:] for p, v in out.items()}
+    if len(set(replays[0.1])) != 3 or len(set(replays[0.0])) != 1:
+        raise AssertionError(f"dropout under replay: {out}")
+    return {f"dropout_{p}": v for p, v in out.items()}
+
+
+def phase_slice(rows, steps=5, batch=8, seq=1024, seed=0):
+    """GPT-2 small training as ``bench_gpt2`` configures it, graph mode
+    (``use_graph=True``): captured steps against eager ones from the same
+    weights, the flash launches of the replayed steps, the kernels the
+    profiler sees in a replay, the dropout pin; eval logits against the
+    plain attention path."""
+    from singa_tpu_torch import amp, device, opt, tensor
+    from singa_tpu_torch.models.gpt2 import GPT2Config, GPT2LMHead
+
     dev = device.create_cuda_gpu()
-    dev.SetRandSeed(seed)
     amp.enable()
     cfg = GPT2Config.small(dropout=0.0)
     if cfg.attn_impl != "flash":
@@ -527,36 +675,42 @@ def phase_slice(rows, steps=5, batch=8, seq=1024, seed=0):
     ids = rng.randint(0, cfg.vocab_size, (batch, seq)).astype(np.int32)
     labels = np.roll(ids, -1, axis=1).astype(np.int32)
     x, y = tensor.from_numpy(ids, dev), tensor.from_numpy(labels, dev)
+    compile_s = {}
 
-    m = GPT2LMHead(cfg)
-    m.set_optimizer(opt.SGD(lr=1e-4, momentum=0.9))
-    t0 = time.perf_counter()
-    m.compile([x], is_train=True, use_graph=False)
-    torch.cuda.synchronize()
-    compile_s = time.perf_counter() - t0
+    def build(use_graph):
+        dev.SetRandSeed(seed)
+        m = GPT2LMHead(cfg)
+        m.set_optimizer(opt.SGD(lr=1e-4, momentum=0.9))
+        t0 = time.perf_counter()
+        m.compile([x], is_train=True, use_graph=use_graph)
+        torch.cuda.synchronize()
+        compile_s["captured" if use_graph else "eager"] = \
+            time.perf_counter() - t0
+        return m
 
-    kernels = (fa.flash_fwd, fa.flash_bwd_dq, fa.flash_bwd_dkv)
-    for k in kernels:
-        k.launches = k.tensor_core_launches = 0
-    losses, step_ms = [], []
-    for _ in range(steps):
-        t = time.perf_counter()
-        _, loss = m(x, y)
-        losses.append(loss.item())  # synchronizes
-        step_ms.append((time.perf_counter() - t) * 1e3)
-    launches = {k.__name__: k.launches for k in kernels}
-    tc_launches = {k.__name__: k.tensor_core_launches for k in kernels}
-
-    if not all(math.isfinite(v) for v in losses):
-        raise AssertionError(f"non-finite loss: {losses}")
+    m, report = train_eager_and_captured(
+        build, x, y, steps, CAPTURE_RTOL["bf16"],
+        {"eager": {}, "captured": {}})
+    c = report["captured"]
     want = cfg.n_layer * steps
-    if any(n != want for n in (*launches.values(), *tc_launches.values())):
-        raise AssertionError(f"kernel launches {launches} (tensor-core "
-                             f"route: {tc_launches}) over {steps} steps, "
-                             f"expected {want} each")
-    for name, n in launches.items():
+    if any(n != want for n in (*c["launches"].values(),
+                               *c["tensor_core_launches"].values())):
+        raise AssertionError(f"kernel launches {c['launches']} (tensor-core "
+                             f"route: {c['tensor_core_launches']}) over "
+                             f"{steps} steps, expected {want} each")
+    for name, n in c["launches"].items():
         rows[name]["launches"] = n
-    profile = profile_steps(m, x, y)
+    in_replay = replayed_kernels(m, x, y)
+    found = {g: [k for k in in_replay if rx.search(k)]
+             for g, rx in KERNEL_GROUPS[:1]}["flash_attention"]
+    if not all(any(f"{n}_tc_kernel<" in k for k in found)
+               for n in ("fwd", "dq", "dkv")):
+        raise AssertionError(f"a replayed step ran no flash tensor-core "
+                             f"kernel: {sorted(in_replay)}")
+    logits, _ = m(x, y)
+    torch.cuda.synchronize()
+    clone_ms = cuda_time_ms(lambda: logits.clone(), 5)
+    pin = dropout_pin(dev, seed)
 
     # eval logits: flash kernels vs the same weights on the plain path
     m.eval()
@@ -574,24 +728,30 @@ def phase_slice(rows, steps=5, batch=8, seq=1024, seed=0):
     if logits_err > LOGITS_ATOL:
         raise AssertionError(f"flash vs plain-path logits differ by "
                              f"{logits_err} > {LOGITS_ATOL}")
-    med = statistics.median(step_ms[1:])
+    profiles = {mode: report[mode].pop("profile")
+                for mode in ("eager", "captured")}
+    med = c["median_step_ms"]
     log({"phase": "slice", "model": "gpt2-small", "params": sum(
         p.numel() for p in m.parameters()), "batch": batch, "seq": seq,
         "amp": "bf16", "optimizer": "SGD(lr=1e-4, momentum=0.9)",
-        "compile_s": compile_s, "losses": losses, "step_ms": step_ms,
+        "use_graph": True, "compile_s": compile_s, **report,
         "median_step_ms": med, "tokens_per_s": batch * seq / med * 1e3,
-        "launches": launches, "launches_per_step": {
-            n: c / steps for n, c in launches.items()},
-        "tensor_core_launches": tc_launches,
+        "launches_per_step": {n: k / steps
+                              for n, k in c["launches"].items()},
+        "kernels_in_a_replayed_step": in_replay,
+        "logits_clone_ms": clone_ms,
+        "logits_clone_bytes": logits.numel() * logits.element_size(),
+        "dropout_pin": pin,
         "logits_max_abs_err_vs_plain": logits_err,
         "logits_atol": LOGITS_ATOL,
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30})
-    log(dict(phase="profile", **profile))
+    log(dict(phase="profile", **profiles["captured"],
+             eager=profiles["eager"]))
     amp.enable(False)
 
 
 KERNEL_GROUPS = (
-    ("flash_attention", re.compile(r"\b(fwd|dq|dkv)(_tc)?_kernel<")),
+    ("flash_attention", re.compile(r"\b(fwd|dq|dkv)(_tc|_narrow)?_kernel<")),
     ("gemm", re.compile(r"gemm|nvjet|xmma|cutlass", re.I)),
 )
 
@@ -664,36 +824,40 @@ BN_RANGES = (("batchnorm", ("_BatchNormTrain", "_BatchNormTrainBackward")),)
 
 
 def phase_resnet(steps=5, seed=0):
-    """ResNet-50 training at ``bench_resnet50``'s configuration; returns
-    the trained model (amp still on) and its input batch."""
+    """ResNet-50 training at ``bench_resnet50``'s configuration, graph mode
+    (cuDNN convolutions and the plain-torch batch norm captured), against
+    eager steps from the same state; returns the graph-mode model (amp
+    still on) and its input batch.  The eager run's profile gives the
+    breakdown by group (a replay records no CPU ranges, so the batch
+    norm's autograd nodes are found only there)."""
     from singa_tpu_torch import amp, device, opt, tensor
     from singa_tpu_torch.models.resnet import resnet50
 
     sh = RESNET_SHAPE
     dev = device.create_cuda_gpu()
-    dev.SetRandSeed(seed)
     amp.enable()
     rng = np.random.RandomState(seed)
     images = rng.randn(sh["batch"], 3, sh["hw"], sh["hw"]).astype(np.float32)
     labels = rng.randint(0, sh["classes"], sh["batch"]).astype(np.int32)
     x, y = tensor.from_numpy(images, dev), tensor.from_numpy(labels, dev)
+    compile_s = {}
 
-    m = resnet50(num_classes=sh["classes"])
-    m.set_optimizer(opt.SGD(lr=0.1, momentum=0.9))
+    def build(use_graph):
+        dev.SetRandSeed(seed)
+        m = resnet50(num_classes=sh["classes"])
+        m.set_optimizer(opt.SGD(lr=0.1, momentum=0.9))
+        t0 = time.perf_counter()
+        m.compile([x], is_train=True, use_graph=use_graph)
+        torch.cuda.synchronize()
+        compile_s["captured" if use_graph else "eager"] = \
+            time.perf_counter() - t0
+        return m
+
     torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    m.compile([x], is_train=True, use_graph=False)
-    torch.cuda.synchronize()
-    compile_s = time.perf_counter() - t0
-    losses, step_ms = [], []
-    for _ in range(steps):
-        t = time.perf_counter()
-        _, loss = m(x, y)
-        losses.append(loss.item())  # synchronizes
-        step_ms.append((time.perf_counter() - t) * 1e3)
-
-    if not all(math.isfinite(v) for v in losses):
-        raise AssertionError(f"non-finite ResNet-50 loss: {losses}")
+    m, report = train_eager_and_captured(
+        build, x, y, steps, CAPTURE_RTOL["bf16"],
+        {"eager": dict(groups=RESNET_GROUPS, ranges=BN_RANGES),
+         "captured": dict(groups=RESNET_GROUPS)})
     stats = {k: v for k, v in m.get_states().items()
              if k.endswith(("running_mean", "running_var"))}
     bad = [k for k, v in stats.items() if not torch.isfinite(v).all()]
@@ -702,16 +866,18 @@ def phase_resnet(steps=5, seed=0):
     if not any(v.abs().max().item() > 0 for k, v in stats.items()
                if k.endswith("running_mean")):
         raise AssertionError("no running mean moved during training")
-    med = statistics.median(step_ms[1:])
+    profiles = {mode: report[mode].pop("profile")
+                for mode in ("eager", "captured")}
+    med = report["captured"]["median_step_ms"]
     log({"phase": "resnet", "model": "resnet50", "params": sum(
         p.numel() for p in m.get_params().values()),
         "running_stat_buffers": len(stats), **sh, "amp": "bf16",
-        "optimizer": "SGD(lr=0.1, momentum=0.9)", "compile_s": compile_s,
-        "losses": losses, "step_ms": step_ms, "median_step_ms": med,
+        "optimizer": "SGD(lr=0.1, momentum=0.9)", "use_graph": True,
+        "compile_s": compile_s, **report, "median_step_ms": med,
         "images_per_s": sh["batch"] / med * 1e3,
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30})
-    profile = profile_steps(m, x, y, groups=RESNET_GROUPS, ranges=BN_RANGES)
-    log(dict(phase="resnet_profile", **profile))
+    log(dict(phase="resnet_profile", **profiles["eager"],
+             captured=profiles["captured"]))
     return m, x
 
 
@@ -1090,7 +1256,7 @@ def paged_inputs(lens, block, d, n_kv, g, nq, dtype, seed, window=None,
         q=on(q), pool_k=on(pool_k), pool_v=on(pool_v),
         tables=torch.from_numpy(tables).to(DEVICE),
         p_limit=torch.tensor(lens, dtype=torch.int32, device=DEVICE),
-        n_blk=max(need + [0]), k_cur=on(k_cur), v_cur=on(v_cur),
+        k_cur=on(k_cur), v_cur=on(v_cur),
         cur_mask=torch.ones(nq, nq, dtype=torch.bool,
                             device=DEVICE).tril(),
         scale=1.0 / math.sqrt(d), window=window, blk_lo=blk_lo)
@@ -1137,6 +1303,13 @@ def paged_edge_cases():
         ("d80_q4", dict(lens=[33, 64], block=8, d=80, nq=4)),
         ("d256_g2_q2", dict(lens=[300, 17], block=32, d=256, g=2, nq=2)),
         ("d20_element_loads", dict(lens=[37, 90], block=8, d=20)),
+        # rows past 512: the 1024-wide rung (one stage; float32 takes K
+        # and V in turns), and GQA groups of more query rows than a launch
+        # holds, launched in groups of heads (32 rows at D = 64 in two
+        # groups of 16; 6 heads at D = 1024 in groups of 4 and 2)
+        ("d640", dict(lens=[70, 33], block=16, d=640)),
+        ("d1024_g6", dict(lens=[45, 100], block=8, d=1024, g=6)),
+        ("g8_q4_32_rows", dict(lens=[40, 75], block=8, g=8, nq=4)),
     ]
     return [(n, {**base, **kw}) for n, kw in cases]
 
@@ -1188,7 +1361,8 @@ def _rotating(calls):
 
 def sdpa_yardstick(layers):
     """The library yardstick at one decode step's inputs, layer by layer:
-    each slot's blocks gathered into dense (S, H, n_blk * B + B, D) rows
+    each slot's live blocks gathered into dense (S, H, n_blk * B + B, D)
+    rows
     with the current K/V at lane ``p_limit`` (not timed), then
     ``scaled_dot_product_attention`` with a mask of lanes <= ``p_limit``
     (timed alone, over the layers in turn: no one PyTorch call computes
@@ -1202,8 +1376,9 @@ def sdpa_yardstick(layers):
     q = a0["q"]
     s_, n_kv, g, nq, d = q.shape
     block = a0["pool_k"].shape[2]
-    width = (a0["n_blk"] + 1) * block
-    tbl = torch.cat([a0["tables"][:, :a0["n_blk"]].long(),
+    n_blk = max(-(-p // block) for p in a0["p_limit"].tolist())
+    width = (n_blk + 1) * block
+    tbl = torch.cat([a0["tables"][:, :n_blk].long(),
                      torch.full((s_, 1), a0["pool_k"].shape[0] - 1,
                                 device=q.device)], 1)
     lanes = torch.arange(s_, device=q.device)
@@ -1260,10 +1435,11 @@ def time_paged_table(layers):
     block = args["pool_k"].shape[2]
     by_kernel = device_ms_by_kernel(kernel, 4 * n)
     return dict(
-        slots=s_, p_limit=lens, n_blk=args["n_blk"], block=block, layers=n,
-        dtype=str(args["q"].dtype)[6:],
-        n_split=pa.split_count(d, args["q"].dtype, args["n_blk"], 0, block,
-                               s_ * n_kv, torch.cuda.get_device_properties(
+        slots=s_, p_limit=lens, table_width=args["tables"].shape[1],
+        block=block, layers=n, dtype=str(args["q"].dtype)[6:],
+        n_split=pa.split_count(d, args["q"].dtype, args["tables"].shape[1],
+                               0, block, s_ * n_kv,
+                               torch.cuda.get_device_properties(
                                    0).multi_processor_count),
         kernel_device_ms_by_name={k[:60]: v for k, v in by_kernel.items()},
         device_ms={"kernel": sum(by_kernel.values()),
@@ -1306,8 +1482,8 @@ def phase_paged_kernels(real, cfg):
             a = paged_inputs(dtype=dtype, seed=seed, **kw)
             s_, n_kv, _, _, d = a["q"].shape
             splits[f"{name}/{str(dtype)[6:]}"] = pa.split_count(
-                d, dtype, a["n_blk"], a["blk_lo"], a["pool_k"].shape[2],
-                s_ * n_kv, n_sm)
+                d, dtype, a["tables"].shape[1], a["blk_lo"],
+                a["pool_k"].shape[2], s_ * n_kv, n_sm)
     if not {1} < set(splits.values()):
         raise AssertionError(f"the edge cases should take both one split "
                              f"and several: {splits}")
@@ -1359,20 +1535,54 @@ def serve_traffic(seed=0, n=SERVE_REQUESTS, vocab=50257):
                  seed=int(rng.randint(0, 2 ** 31 - 1))) for i in range(n)]
 
 
+def drain_counting_graphs(eng, max_steps=5000):
+    """Drive ``eng`` until it drains; raise unless the serve census
+    (``jit_cache_size``) only grows by the engine's own captures, at most
+    one per decode-width bucket, and stays flat once every width in use
+    has been captured.  Returns ``{"buckets", "census_at_end",
+    "census_changes": [(step, census), ...]}``."""
+    from singa_tpu_torch.serve import jit_cache_size
+
+    buckets, w = set(), eng.max_slots
+    while w >= 1:
+        buckets.add(w)
+        w //= 2
+    base = jit_cache_size() - len(eng._steps)
+    changes, last = [], None
+    for step in range(max_steps):
+        if not eng.pending:
+            break
+        eng.step()
+        census = jit_cache_size() - base
+        if census != len(eng._steps) or census > len(buckets) \
+                or not set(eng._steps) <= buckets:
+            raise AssertionError(f"serve census {census} at step {step}: "
+                                 f"captured widths {sorted(eng._steps)}")
+        if census != last:
+            changes.append((step, census))
+            last = census
+    else:
+        raise AssertionError(f"engine did not drain in {max_steps} steps")
+    return {"buckets": sorted(buckets), "census_at_end": last,
+            "census_changes": changes}
+
+
 def run_engine(model, traffic, kernel, dtype=None, trace=False,
-               wrap=None):
+               wrap=None, capture=True):
     """Submit ``traffic`` at once to ``model.serve`` with the serve
-    phase's engine, drain it, and check what a drain must leave: every
-    request completed by its length, no rejection, no block in use.
-    ``wrap(engine)`` may replace the engine's executor.  Returns
-    ``(streams, engine stats snapshot, seconds, decode-step seconds)``."""
+    phase's engine (its decode steps captured unless ``capture`` is
+    False), drain it, and check what a drain must leave: every request
+    completed by its length, no rejection, no block in use, the serve
+    census flat (``drain_counting_graphs``).  ``wrap(engine)`` may replace
+    the engine's executor.  Returns ``(streams, engine stats snapshot with
+    the census under "graphs", seconds, decode-step seconds)``."""
     from singa_tpu_torch.observe import trace as tr
     from singa_tpu_torch.serve import GenerationRequest, PagedConfig
 
     c = SERVE_ENGINE
     eng = model.serve(max_slots=c["max_slots"], dtype=dtype, paged=PagedConfig(
         block_size=c["block_size"], num_blocks=c["num_blocks"],
-        kernel=kernel))
+        kernel=kernel), capture=capture)
     if wrap is not None:
         eng._x = wrap(eng)
     if trace:
@@ -1384,16 +1594,21 @@ def run_engine(model, traffic, kernel, dtype=None, trace=False,
         w["prompt"], max_new_tokens=w["max_new"],
         temperature=w["temperature"], seed=w["seed"], request_id=f"r{i}"))
         for i, w in enumerate(traffic)]
-    eng.run_until_complete(max_steps=5000)
+    graphs = drain_counting_graphs(eng)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     decode_s = None
     if trace:
         tr.disable()
-        decode_s = sum(e["dur"] for e in tr.drain()
+        spans = tr.drain()
+        decode_s = sum(e["dur"] for e in spans
                        if e["name"] == "serve/decode_step")
+        prefill_s = sum(e["dur"] for e in spans
+                        if e["name"] == "serve/prefill")
     results = [h.result() for h in hs]
-    snap = eng.stats.snapshot()
+    snap = dict(eng.stats.snapshot(), graphs=graphs)
+    if trace:
+        snap["prefill_seconds"] = prefill_s
     if eng.paged_arena.blocks_used != 0:
         raise AssertionError(f"{eng.paged_arena.blocks_used} blocks in use "
                              f"after the drain")
@@ -1432,13 +1647,15 @@ def offline_streams(model, traffic):
 
 
 class _LogitsProbe:
-    """Executor for the bf16 logits check: each decode step runs the
-    gather oracle on a copy of the pools, then the paged kernel on the
-    pools themselves, and records, per live request, the largest logit
-    difference and the top-2 margin of the oracle's logits as the
-    sampler sees them (tempered plus the request's noise when sampled).
-    Keeps one step's tables and positions (the step with the most live
-    lanes) as the paged kernel's real serve shapes."""
+    """Executor for the bf16 logits check, on an engine that runs its
+    decode steps eagerly (``capture=False``: the probe reads the device
+    on the host): each decode step runs the gather oracle on a copy of
+    the pools, then the paged kernel on the pools themselves, and records,
+    per live request, the largest logit difference and the top-2 margin of
+    the oracle's logits as the sampler sees them (tempered plus the
+    request's noise when sampled).  Keeps one step's tables and positions
+    (the step with the most live lanes) as the paged kernel's real serve
+    shapes."""
 
     def __init__(self, eng):
         self.eng = eng
@@ -1450,33 +1667,37 @@ class _LogitsProbe:
     def prefill_batch(self, params, ids):
         return self.inner.prefill_batch(params, ids)
 
-    def paged_decode_step(self, params, pool_k, pool_v, tables, toks, pos,
-                          live, block, kernel="block"):
+    def paged_decode_step(self, params, pool_k, pool_v, inp, block,
+                          kernel="block", n_rb=None):
         from singa_tpu_torch.models import gpt2_decode as gd
 
         eng = self.eng
         lanes = [i for i, s in enumerate(eng._slots) if s is not None]
-        want = self.inner.paged_decode_step(
-            params, pool_k.clone(), pool_v.clone(), tables, toks, pos, live,
-            block, kernel="gather")
         n = len(lanes)
+        pos = inp["pos"][:n].cpu().numpy()
+        want = self.inner.paged_decode_step(
+            params, pool_k.clone(), pool_v.clone(), inp, block,
+            kernel="gather", n_rb=int(pos.max()) // block + 1)
         if self.real is None or n > len(self.real["p_limit"]) or (
                 n == len(self.real["p_limit"])
-                and pos[:n].sum() > sum(self.real["p_limit"])):
-            self.real = dict(tables=tables[:n].copy(),
-                             p_limit=pos[:n].astype(np.int32).tolist(),
+                and pos.sum() > sum(self.real["p_limit"])):
+            self.real = dict(tables=inp["tables"][:n].cpu().numpy(),
+                             p_limit=pos.astype(np.int32).tolist(),
                              step=eng.step_count)
-        got = self.inner.paged_decode_step(params, pool_k, pool_v, tables,
-                                           toks, pos, live, block)
+        got = self.inner.paged_decode_step(params, pool_k, pool_v, inp,
+                                           block)
         g, w = got[:n].float(), want[:n].float()
         self.max_err = max(self.max_err, (g - w).abs().max().item())
+        dev = w.device
         for r, i in enumerate(lanes):
             row = w[r]
             if eng._temps[i] > 0:
                 row = gd._filter_logits(row[None], float(eng._temps[i]),
                                         eng._top_p, eng._top_k)[0]
-                row = row + gd._gumbel(eng._seeds[i], eng._pos[i] + 1,
-                                       row.shape[0], row.device)
+                row = row + gd._gumbel(
+                    torch.tensor([int(eng._seeds[i])], device=dev),
+                    torch.tensor([int(eng._pos[i]) + 1], device=dev),
+                    row.shape[0])[0]
             top2 = torch.topk(row, 2).values
             rid = eng._slots[i].handle.request.request_id
             if (top2[0] - top2[1]).item() < SERVE_BF16_LOGITS_ATOL \
@@ -1510,17 +1731,25 @@ def phase_serve(seed=0):
     traffic = serve_traffic(seed, vocab=cfg.vocab_size)
     mark("model")
 
-    # float32: kernel == gather == offline generate, launches
+    # float32: captured == eager == gather == offline generate, launches
     pa.paged_attn.launches = 0
     block32, snap32, sec32, _ = run_engine(model, traffic, "block")
     launches32 = pa.paged_attn.launches
-    mark("float32_block")
+    mark("float32_captured")
     steps32 = snap32["throughput"]["decode_steps"]
+    eager32, _, eager_sec32, _ = run_engine(model, traffic, "block",
+                                            capture=False)
+    mark("float32_eager")
     gather32, _, _, _ = run_engine(model, traffic, "gather")
     mark("float32_gather")
     offline = offline_streams(model, traffic)
     mark("float32_generate")
-    for i, (a, b, c) in enumerate(zip(block32, gather32, offline)):
+    for i, (a, e, b, c) in enumerate(zip(block32, eager32, gather32,
+                                         offline)):
+        if not np.array_equal(a, e):
+            raise AssertionError(f"float32 request {i}: the captured "
+                                 f"engine's stream differs from the eager "
+                                 f"engine's")
         if not np.array_equal(a, b):
             raise AssertionError(f"float32 request {i}: the paged kernel's "
                                  f"stream differs from the gather oracle's")
@@ -1537,22 +1766,27 @@ def phase_serve(seed=0):
     tiny = serve_tiny(dev, seed)
     mark("float32_tiny_d16")
 
-    # bf16: the timed main path, a profiled run, the logits check
+    # bf16: the timed main path (captured) against the same traffic with
+    # eager steps, profiled runs of both, the logits check
     bf = torch.bfloat16
     pa.paged_attn.launches = 0
     block16, snap16, sec16, decode_s = run_engine(model, traffic, "block",
                                                   dtype=bf, trace=True)
     launches16 = pa.paged_attn.launches
-    mark("bf16_block")
+    mark("bf16_captured")
     steps16 = snap16["throughput"]["decode_steps"]
     if launches16 != cfg.n_layer * steps16:
         raise AssertionError(f"bf16: paged_attn launched {launches16} times "
                              f"over {steps16} decode steps")
+    eager16, esnap16, esec16, edecode_s = run_engine(
+        model, traffic, "block", dtype=bf, trace=True, capture=False)
+    mark("bf16_eager")
     profile = profile_serve(model, traffic, bf)
-    mark("bf16_profile")
+    profile_eager = profile_serve(model, traffic, bf, capture=False)
+    mark("bf16_profiles")
     probes = []
     probed, _, _, _ = run_engine(
-        model, traffic, "block", dtype=bf,
+        model, traffic, "block", dtype=bf, capture=False,
         wrap=lambda e: probes.append(_LogitsProbe(e)) or probes[-1])
     probe = probes[0]
     mark("bf16_logits_probe")
@@ -1562,12 +1796,12 @@ def phase_serve(seed=0):
     gather16, _, _, _ = run_engine(model, traffic, "gather", dtype=bf)
     mark("bf16_gather")
     compared = {}
-    for i, (w, a, b, c) in enumerate(zip(traffic, block16, probed,
-                                         gather16)):
+    for i, (w, a, e, b, c) in enumerate(zip(traffic, block16, eager16,
+                                            probed, gather16)):
         plen = len(w["prompt"])
-        if not np.array_equal(a, b):
-            raise AssertionError(f"bf16 request {i}: two runs of the paged "
-                                 f"engine gave different streams")
+        if not (np.array_equal(a, b) and np.array_equal(a, e)):
+            raise AssertionError(f"bf16 request {i}: the captured and eager "
+                                 f"paged engines gave different streams")
         upto = probe.first_low.get(f"r{i}", w["max_new"])
         compared[i] = upto
         if not np.array_equal(a[:plen + upto], c[:plen + upto]):
@@ -1576,8 +1810,17 @@ def phase_serve(seed=0):
                 f"token {upto}, the first whose top-2 margin is under "
                 f"{SERVE_BF16_LOGITS_ATOL}")
     real = probe.real
-    ttft, tpot = snap16["latency"]["ttft"], snap16["latency"]["tpot"]
-    decode_tokens = snap16["throughput"]["tokens_out"] - len(traffic)
+
+    def timing(snap, sec, dec_s):
+        lat = snap["latency"]
+        decode_tokens = snap["throughput"]["tokens_out"] - len(traffic)
+        return {"seconds": sec, "ttft_median_s": lat["ttft"]["p50"],
+                "tpot_median_s": lat["tpot"]["p50"],
+                "tokens_per_s": snap["throughput"]["tokens_per_s"],
+                "decode_tokens_per_s": decode_tokens / dec_s,
+                "decode_step_seconds": dec_s,
+                "prefill_seconds": snap["prefill_seconds"]}
+
     log({"phase": "serve", "model": "gpt2-small",
          "params": sum(p.numel() for p in model.parameters()),
          "engine": SERVE_ENGINE, "requests": len(traffic),
@@ -1585,22 +1828,24 @@ def phase_serve(seed=0):
          "max_new_tokens": [w["max_new"] for w in traffic],
          "float32": {"decode_steps": steps32, "paged_attn_launches":
                      launches32, "seconds": sec32,
-                     "streams_equal_gather_and_generate": True},
+                     "eager_seconds": eager_sec32,
+                     "graphs": snap32["graphs"],
+                     "streams_equal_eager_gather_and_generate": True},
          "float32_pressured": dict(
              PRESSURE_ENGINE, requests=12, paged=pressured,
              streams_equal_generate=True),
          "float32_tiny": dict(tiny, streams_equal_generate=True),
          "bf16": {"decode_steps": steps16, "paged_attn_launches": launches16,
-                  "seconds": sec16,
-                  "ttft_median_s": ttft["p50"], "tpot_median_s": tpot["p50"],
-                  "tokens_per_s": snap16["throughput"]["tokens_per_s"],
-                  "decode_tokens_per_s": decode_tokens / decode_s,
-                  "decode_step_seconds": decode_s,
+                  **timing(snap16, sec16, decode_s),
+                  "eager": timing(esnap16, esec16, edecode_s),
+                  "graphs": snap16["graphs"],
+                  "streams_equal_eager": True,
                   "logits_max_abs_diff_kernel_vs_gather": probe.max_err,
                   "logits_atol": SERVE_BF16_LOGITS_ATOL,
                   "streams_compared_up_to_token": compared,
                   "low_margin_requests": len(probe.first_low)},
          "profile_bf16_run": profile,
+         "profile_bf16_eager_run": profile_eager,
          "seconds": {n: t - marks[i][1]
                      for i, (n, t) in enumerate(marks[1:])},
          "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30,
@@ -1652,8 +1897,8 @@ def serve_pressured(model, traffic, engine=PRESSURE_ENGINE, lead=4):
     hs.update({i: submit(w) for i, w in enumerate(traffic)
                if w["priority"] != 0})
     hs = [hs[i] for i in range(len(traffic))]
-    eng.run_until_complete(max_steps=5000)
-    snap = eng.stats.snapshot()["paged"]
+    graphs = drain_counting_graphs(eng)
+    snap = dict(eng.stats.snapshot()["paged"], graphs=graphs)
     eng.check_block_accounting()
     eng.close()
     if snap["preemptions"] == 0 or snap["swap_in"] == 0:
@@ -1705,17 +1950,19 @@ def serve_tiny(dev, seed=0):
                 decode_steps=steps, paged_attn_launches=launches)
 
 
-def profile_serve(model, traffic, dtype, warm=40, steps=20):
+def profile_serve(model, traffic, dtype, warm=40, steps=20, capture=True):
     """Device time by kernel group and the device's busy share over
     ``steps`` engine steps of the traffic after ``warm`` steps (the eight
-    slots full, decoding), from torch.profiler; then drains the
-    engine."""
+    slots full, decoding), from torch.profiler, with captured or eager
+    decode steps; then closes the engine undrained (the timed runs hold
+    the drain)."""
     from singa_tpu_torch.serve import GenerationRequest, PagedConfig
 
     c = SERVE_ENGINE
     eng = model.serve(max_slots=c["max_slots"], dtype=dtype,
                       paged=PagedConfig(block_size=c["block_size"],
-                                        num_blocks=c["num_blocks"]))
+                                        num_blocks=c["num_blocks"]),
+                      capture=capture)
     for w in traffic:
         eng.submit(GenerationRequest(
             w["prompt"], max_new_tokens=w["max_new"],
@@ -1725,8 +1972,12 @@ def profile_serve(model, traffic, dtype, warm=40, steps=20):
     live = eng.live_slots
     out = profile_steps(lambda _x, _y: eng.step(), None, None, steps=steps,
                         groups=SERVE_GROUPS)
-    eng.run_until_complete(max_steps=5000)
-    eng.close()
+    if capture:
+        # one replay of the full-width step alone, by CUDA events: the
+        # graph's device span, its kernels and the gaps between them
+        out["replay_ms_width_8"] = cuda_time_ms(eng._steps[c["max_slots"]],
+                                                20)
+    eng.close(force=True)
     return dict(out, warm_steps=warm, live_slots=live)
 
 
@@ -1804,7 +2055,6 @@ def real_args(real, cfg, seed):
         q=rand(s_, cfg.n_kv_head, cfg.n_head // cfg.n_kv_head, 1, d),
         tables=torch.from_numpy(real["tables"]).to(DEVICE),
         p_limit=torch.tensor(p_limit, dtype=torch.int32, device=DEVICE),
-        n_blk=max(-(-p // block) for p in p_limit),
         k_cur=rand(s_, cfg.n_kv_head, 1, d),
         v_cur=rand(s_, cfg.n_kv_head, 1, d),
         cur_mask=torch.ones(1, 1, dtype=torch.bool, device=DEVICE),
@@ -1935,6 +2185,7 @@ def nvidia_smi():
 
 
 def main():
+    start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke.py: no CUDA device; the port's smoke run needs "
               "one GPU", file=sys.stderr)
@@ -1964,7 +2215,8 @@ def main():
     smi = nvidia_smi()
     log({"phase": "device", "nvidia_smi": smi,
          "torch": torch.__version__, "cuda": torch.version.cuda,
-         "phase_seconds": seconds})
+         "phase_seconds": seconds,
+         "script_seconds": time.perf_counter() - start})
     print(json.dumps({"kernels": list(rows.values())}))
     print(smi.splitlines()[0])
     print(json.dumps({"ok": True, "device": {

@@ -140,24 +140,27 @@ class _SoftMaxCrossEntropy(torch.autograd.Function):
     package's hand-written VJP ``dx = dy·(p − onehot)/N``
     (``autograd.py:593-608``).  A label of −1 (or any label outside
     ``[0, V)``) gives a zero one-hot row: no loss, and — as in the
-    reference's VJP — a gradient of ``p/N`` on that row."""
+    reference's VJP — a gradient of ``p/N`` on that row.  Invalid rows
+    are masked rather than selected, so no op has a data-dependent shape
+    and the step can be captured in a CUDA graph."""
 
     @staticmethod
     def forward(ctx, x, t):
         logp = torch.log_softmax(x.float(), dim=-1)
         lab = t.reshape(-1).long()
-        rows = torch.nonzero((lab >= 0) & (lab < x.shape[-1])).reshape(-1)
-        cols = lab[rows]
-        ctx.save_for_backward(logp, rows, cols)
+        valid = (lab >= 0) & (lab < x.shape[-1])
+        cols = lab.clamp(0, x.shape[-1] - 1)[:, None]
+        picked = logp.gather(1, cols)[:, 0]
+        ctx.save_for_backward(logp, cols, valid)
         ctx.x_dtype = x.dtype
-        return -logp[rows, cols].sum() / x.shape[0]
+        return -torch.where(valid, picked, 0.0).sum() / x.shape[0]
 
     @staticmethod
     def backward(ctx, dy):
-        logp, rows, cols = ctx.saved_tensors
+        logp, cols, valid = ctx.saved_tensors
         scale = dy / logp.shape[0]
         dx = logp.exp() * scale
-        dx[rows, cols] -= scale
+        dx.scatter_add_(1, cols, (-scale * valid.float())[:, None])
         return dx.to(ctx.x_dtype), None
 
 
@@ -170,7 +173,9 @@ def softmax_cross_entropy(x, t):
 def dropout(x, ratio=0.5, training=True, generator=None):
     """Inverted dropout: keep with probability ``1 − ratio`` and scale by
     ``1/(1 − ratio)``.  The mask is drawn from ``generator`` (default: the
-    generator of the device x lies on).  Identity when not training."""
+    generator of the device x lies on, which a captured training step
+    registers with its CUDA graph, so each replay draws a fresh mask).
+    Identity when not training."""
     if not training or ratio == 0.0:
         return x
     if generator is None:

@@ -21,7 +21,7 @@
 //     window band, so skipped tiles cost nothing (no idle grid steps);
 //   * the online-softmax state and the O / dQ / dK / dV accumulators
 //     live in registers, float32 (the tiles of each family: below);
-//   * the ragged tail is masked in the kernel: any S and any D <= 512,
+//   * the ragged tail is masked in the kernel: any S and any D <= 1792,
 //     no padding; key columns past S contribute p = 0, rows past S are
 //     not written; scale = 1/sqrt(D) of the true D comes from the caller;
 //   * dK/dV walks query tiles inside a block that owns one key tile: no
@@ -87,15 +87,18 @@
 //     (Registers and spills: nvcc -Xptxas -v for sm_90a, as chip_smoke.py's
 //     build phase reports them; times and bounds: PERF.md.)
 //   * kinds 0 and 1, float32 (tensor cores would need TF32, which misses
-//     the float32 tolerance) and bf16 with 128 < D <= 512 -- CUDA cores:
-//       fwd_kernel / dq_kernel / dkv_kernel<T, BR, DT>
+//     the float32 tolerance) and bf16 with 128 < D <= 1792 -- CUDA cores:
+//       fwd_kernel / dq_kernel / dkv_kernel<T, BR, DT>, and past D = 512
+//       fwd_narrow_kernel / dq_narrow_kernel / dkv_narrow_kernel<T, DT>
 //     One block of 256 threads per (bh, BR-row tile); Q/K/V/dO tiles
 //     staged in shared memory as float32 with an odd row stride (no bank
 //     conflicts); float32 FMAs, far above the bounds above (PERF.md).
 //     The rows of a tile shrink as D grows, so that the largest of the
 //     three kernels' shared memory (dK/dV: 4 BR (DT + 1) + 2 BR (BR + 1)
 //     + 2 BR floats) fits 227 KB: BR = 64 at DT = 64 and 128, 32 at 256
-//     (137 KB), 16 at 512 (130 KB; 32 rows would need 265 KB).
+//     (137 KB), 16 at 512 (130 KB; 32 rows would need 265 KB), and 8 at
+//     DT = 1792 (224 KB; the narrow kernels, a warp a row: see their
+//     note).  A wider row raises in the wrapper, naming 1792.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -570,6 +573,287 @@ __global__ void __launch_bounds__(NTHREADS) dkv_kernel(Args a) {
         dK[(size_t)row * D + col] = from_f<T>(dk[i][j]);
         dV[(size_t)row * D + col] = from_f<T>(dv[i][j]);
       }
+    }
+  }
+}
+
+// ------------------------------------------------ 8-row tiles (D > 512)
+//
+// The widest rung, for 512 < D <= 1792: tiles of 8 rows, so that rows of
+// DT = 1792 fit the shared memory (dK/dV: 4 x 8 x 1793 + 2 x 8 x 9 +
+// 2 x 8 floats = 224 KB; 16-row tiles would pass 227 KB from DT = 897).
+// Same layout of shared memory as the kernels above (float32 tiles,
+// stride DT + 1) and the same arithmetic, with another thread map: warp
+// w owns row w of the tile (a query row of the forward and dQ, a key row
+// of dK/dV) and each of its lanes holds DT / 32 columns of that row's
+// accumulators.  A score of the 8 x 8 tile is summed by the 4 lanes of
+// one key (lane & 7) over interleaved quarters of D and combined by
+// shuffles, so every lane ends with the score of key lane & 7; loops over
+// D stop at D (the tiles are zero past it).
+
+// Sum over the 4 lanes that share lane & 7.
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 8);
+  return v + __shfl_xor_sync(0xffffffffu, v, 16);
+}
+// Sum / max over the 8 keys of a row (lanes with the same lane >> 3).
+__device__ __forceinline__ float key_sum8(float v) {
+#pragma unroll
+  for (int o = 1; o < 8; o <<= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+__device__ __forceinline__ float key_max8(float v) {
+#pragma unroll
+  for (int o = 1; o < 8; o <<= 1)
+    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+// Row `row` of sA against row lane & 7 of sB over columns [0, D).
+__device__ __forceinline__ float dot8(const float* sA, const float* sB,
+                                      int row, int ld, int D, int lane) {
+  const float* x = sA + row * ld;
+  const float* y = sB + (lane & 7) * ld;
+  float s = 0.f;
+  for (int d = lane >> 3; d < D; d += 4) s = fmaf(x[d], y[d], s);
+  return quad_sum(s);
+}
+
+template <typename T, int DT>
+__global__ void __launch_bounds__(NTHREADS) fwd_narrow_kernel(Args a) {
+  constexpr int BR = 8, DJ = DT / 32, LD = DT + 1, LP = BR + 1;
+  extern __shared__ float smem[];
+  float* sQ = smem;
+  float* sK = sQ + BR * LD;
+  float* sV = sK + BR * LD;
+  float* sP = sV + BR * LD;
+
+  const int S = a.S, D = a.D;
+  const int ntiles = (S + BR - 1) / BR;
+  const int bh = blockIdx.x / ntiles, q0 = (blockIdx.x % ntiles) * BR;
+  const int w = threadIdx.x >> 5, lane = threadIdx.x & 31, kk = lane & 7;
+  const size_t base = (size_t)bh * S * D;
+  const T* Q = (const T*)a.q + base;
+  const T* K = (const T*)a.k + base;
+  const T* V = (const T*)a.v + base;
+  const float* kmask = a.kmask ? a.kmask + (size_t)bh * S : nullptr;
+  const float* qm =
+      a.qmask ? a.qmask + (size_t)((bh / a.qdiv) % a.qmod) * S * S : nullptr;
+
+  load_tile<T, BR, DT>(sQ, Q, q0, S, D);
+  const int qi = min(q0 + w, S - 1);  // rows past S: unused
+  float m = NEG_INF, l = 0.f, acc[DJ];
+#pragma unroll
+  for (int j = 0; j < DJ; ++j) acc[j] = 0.f;
+
+  const int q_last = min(q0 + BR, S) - 1;
+  const int kt_end = a.causal ? q_last / BR : ntiles - 1;
+  int kt_begin = 0;
+  if (a.causal && a.window > 0) kt_begin = max(0, q0 - (a.window - 1)) / BR;
+
+  for (int kt = kt_begin; kt <= kt_end; ++kt) {
+    const int k0 = kt * BR, kj = k0 + kk;
+    __syncthreads();  // the previous tile's reads of sK / sV are done
+    load_tile<T, BR, DT>(sK, K, k0, S, D);
+    load_tile<T, BR, DT>(sV, V, k0, S, D);
+    __syncthreads();
+    const float dot = dot8(sQ, sK, w, LD, D, lane);
+    const float x = kj < S ? masked_score(dot, a.scale, kmask, qm, qi, kj,
+                                          S, a.causal, a.window)
+                           : NEG_INF;
+    const float m_new = fmaxf(m, key_max8(x));
+    const float p = kj < S ? expf(x - m_new) : 0.f;
+    if (lane < BR) sP[w * LP + kk] = round_to<T>(p);
+    const float alpha = expf(m - m_new);
+    l = l * alpha + key_sum8(p);
+    m = m_new;
+    __syncwarp();
+#pragma unroll
+    for (int j = 0; j < DJ; ++j) {
+      if (32 * j < D) {
+        float o = acc[j] * alpha;
+#pragma unroll
+        for (int c = 0; c < BR; ++c)
+          o = fmaf(sP[w * LP + c], sV[c * LD + lane + 32 * j], o);
+        acc[j] = o;
+      }
+    }
+  }
+
+  const int row = q0 + w;
+  if (row >= S) return;
+  T* O = (T*)a.out0 + base;
+  const float l_safe = l == 0.f ? 1.f : l;
+#pragma unroll
+  for (int j = 0; j < DJ; ++j) {
+    const int col = lane + 32 * j;
+    if (col < D) O[(size_t)row * D + col] = from_f<T>(acc[j] / l_safe);
+  }
+  if (lane == 0) a.lse_out[(size_t)bh * S + row] = m + logf(l_safe);
+}
+
+template <typename T, int DT>
+__global__ void __launch_bounds__(NTHREADS) dq_narrow_kernel(Args a) {
+  constexpr int BR = 8, DJ = DT / 32, LD = DT + 1, LP = BR + 1;
+  extern __shared__ float smem[];
+  float* sQ = smem;
+  float* sdO = sQ + BR * LD;
+  float* sK = sdO + BR * LD;
+  float* sV = sK + BR * LD;
+  float* sS = sV + BR * LD;
+
+  const int S = a.S, D = a.D;
+  const int ntiles = (S + BR - 1) / BR;
+  const int bh = blockIdx.x / ntiles, q0 = (blockIdx.x % ntiles) * BR;
+  const int w = threadIdx.x >> 5, lane = threadIdx.x & 31, kk = lane & 7;
+  const size_t base = (size_t)bh * S * D;
+  const T* Q = (const T*)a.q + base;
+  const T* K = (const T*)a.k + base;
+  const T* V = (const T*)a.v + base;
+  const T* dO = (const T*)a.dout + base;
+  const float* kmask = a.kmask ? a.kmask + (size_t)bh * S : nullptr;
+  const float* qm =
+      a.qmask ? a.qmask + (size_t)((bh / a.qdiv) % a.qmod) * S * S : nullptr;
+
+  load_tile<T, BR, DT>(sQ, Q, q0, S, D);
+  load_tile<T, BR, DT>(sdO, dO, q0, S, D);
+  const int qi = min(q0 + w, S - 1);
+  const float lse = a.lse[(size_t)bh * S + qi];
+  const float delta = a.delta[(size_t)bh * S + qi];
+  float acc[DJ];
+#pragma unroll
+  for (int j = 0; j < DJ; ++j) acc[j] = 0.f;
+
+  const int q_last = min(q0 + BR, S) - 1;
+  const int kt_end = a.causal ? q_last / BR : ntiles - 1;
+  int kt_begin = 0;
+  if (a.causal && a.window > 0) kt_begin = max(0, q0 - (a.window - 1)) / BR;
+
+  for (int kt = kt_begin; kt <= kt_end; ++kt) {
+    const int k0 = kt * BR, kj = k0 + kk;
+    __syncthreads();
+    load_tile<T, BR, DT>(sK, K, k0, S, D);
+    load_tile<T, BR, DT>(sV, V, k0, S, D);
+    __syncthreads();
+    const float s = dot8(sQ, sK, w, LD, D, lane);
+    const float dp = dot8(sdO, sV, w, LD, D, lane);
+    float ds = 0.f;
+    if (kj < S) {
+      const float x = masked_score(s, a.scale, kmask, qm, qi, kj, S,
+                                   a.causal, a.window);
+      ds = expf(x - lse) * (dp - delta) * a.scale;
+    }
+    if (lane < BR) sS[w * LP + kk] = round_to<T>(ds);
+    __syncwarp();
+#pragma unroll
+    for (int j = 0; j < DJ; ++j) {
+      if (32 * j < D) {
+        float o = acc[j];
+#pragma unroll
+        for (int c = 0; c < BR; ++c)
+          o = fmaf(sS[w * LP + c], sK[c * LD + lane + 32 * j], o);
+        acc[j] = o;
+      }
+    }
+  }
+
+  const int row = q0 + w;
+  if (row >= S) return;
+  T* dQ = (T*)a.out0 + base;
+#pragma unroll
+  for (int j = 0; j < DJ; ++j) {
+    const int col = lane + 32 * j;
+    if (col < D) dQ[(size_t)row * D + col] = from_f<T>(acc[j]);
+  }
+}
+
+template <typename T, int DT>
+__global__ void __launch_bounds__(NTHREADS) dkv_narrow_kernel(Args a) {
+  constexpr int BR = 8, DJ = DT / 32, LD = DT + 1, LP = BR + 1;
+  extern __shared__ float smem[];
+  float* sK = smem;
+  float* sV = sK + BR * LD;
+  float* sQ = sV + BR * LD;
+  float* sdO = sQ + BR * LD;
+  float* sPt = sdO + BR * LD;
+  float* sSt = sPt + BR * LP;
+  float* sLse = sSt + BR * LP;
+  float* sDelta = sLse + BR;
+
+  const int S = a.S, D = a.D;
+  const int ntiles = (S + BR - 1) / BR;
+  const int bh = blockIdx.x / ntiles, k0 = (blockIdx.x % ntiles) * BR;
+  const int w = threadIdx.x >> 5, lane = threadIdx.x & 31, c = lane & 7;
+  const size_t base = (size_t)bh * S * D;
+  const T* Q = (const T*)a.q + base;
+  const T* K = (const T*)a.k + base;
+  const T* V = (const T*)a.v + base;
+  const T* dO = (const T*)a.dout + base;
+  const float* kmask = a.kmask ? a.kmask + (size_t)bh * S : nullptr;
+  const float* qm =
+      a.qmask ? a.qmask + (size_t)((bh / a.qdiv) % a.qmod) * S * S : nullptr;
+
+  load_tile<T, BR, DT>(sK, K, k0, S, D);
+  load_tile<T, BR, DT>(sV, V, k0, S, D);
+  const int kj = k0 + w;  // this warp's key
+  float dk[DJ], dv[DJ];
+#pragma unroll
+  for (int j = 0; j < DJ; ++j) dk[j] = dv[j] = 0.f;
+
+  const int k_last = min(k0 + BR, S) - 1;
+  const int qt_begin = a.causal ? k0 / BR : 0;
+  int qt_end = ntiles - 1;
+  if (a.causal && a.window > 0)
+    qt_end = min(qt_end, (k_last + a.window - 1) / BR);
+
+  for (int qt = qt_begin; qt <= qt_end; ++qt) {
+    const int q0 = qt * BR, qi = q0 + c;
+    __syncthreads();
+    load_tile<T, BR, DT>(sQ, Q, q0, S, D);
+    load_tile<T, BR, DT>(sdO, dO, q0, S, D);
+    for (int r = threadIdx.x; r < BR; r += NTHREADS) {
+      const int row = q0 + r;
+      sLse[r] = row < S ? a.lse[(size_t)bh * S + row] : 0.f;
+      sDelta[r] = row < S ? a.delta[(size_t)bh * S + row] : 0.f;
+    }
+    __syncthreads();
+    const float st = dot8(sK, sQ, w, LD, D, lane);
+    const float dpt = dot8(sV, sdO, w, LD, D, lane);
+    float p = 0.f, ds = 0.f;
+    if (kj < S && qi < S) {
+      const float x = masked_score(st, a.scale, kmask, qm, qi, kj, S,
+                                   a.causal, a.window);
+      p = expf(x - sLse[c]);
+      ds = p * (dpt - sDelta[c]) * a.scale;
+    }
+    if (lane < BR) {
+      sPt[w * LP + c] = round_to<T>(p);
+      sSt[w * LP + c] = round_to<T>(ds);
+    }
+    __syncwarp();
+#pragma unroll
+    for (int j = 0; j < DJ; ++j) {
+      if (32 * j < D) {
+        float v_ = dv[j], k_ = dk[j];
+#pragma unroll
+        for (int r = 0; r < BR; ++r) {
+          v_ = fmaf(sPt[w * LP + r], sdO[r * LD + lane + 32 * j], v_);
+          k_ = fmaf(sSt[w * LP + r], sQ[r * LD + lane + 32 * j], k_);
+        }
+        dv[j] = v_;
+        dk[j] = k_;
+      }
+    }
+  }
+
+  if (kj >= S) return;
+  T* dK = (T*)a.out0 + base;
+  T* dV = (T*)a.out1 + base;
+#pragma unroll
+  for (int j = 0; j < DJ; ++j) {
+    const int col = lane + 32 * j;
+    if (col < D) {
+      dK[(size_t)kj * D + col] = from_f<T>(dk[j]);
+      dV[(size_t)kj * D + col] = from_f<T>(dv[j]);
     }
   }
 }
@@ -1236,6 +1520,28 @@ constexpr size_t smem_bytes(int which) {
                          : 4 * BR * (DT + 1) + 2 * BR * (BR + 1) + 2 * BR);
 }
 
+// Raises a kernel's dynamic shared-memory limit to `bytes` the first time
+// a launch needs more than the last setting, so the launches a CUDA graph
+// captures (after an eager call at the same shapes) set no attribute.
+template <void (*Kernel)(Args)>
+int allow_smem(size_t bytes) {
+  static size_t allowed = 0;
+  if (bytes <= allowed) return 0;
+  const cudaError_t err = cudaFuncSetAttribute(
+      Kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err == cudaSuccess) allowed = bytes;
+  return (int)err;
+}
+
+template <void (*Kernel)(Args)>
+int launch_grid(dim3 grid, int nthreads, size_t smem, const Args& a,
+                cudaStream_t stream) {
+  const int err = allow_smem<Kernel>(smem);
+  if (err != cudaSuccess) return err;
+  Kernel<<<grid, nthreads, smem, stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
 template <typename T, int BR, int DT>
 int launch(int which, const Args& a, cudaStream_t stream) {
   if constexpr (std::is_same_v<T, bf16> && DT <= 128) {
@@ -1243,18 +1549,29 @@ int launch(int which, const Args& a, cudaStream_t stream) {
   } else {
     const size_t smem = smem_bytes<BR, DT>(which);
     const dim3 grid((unsigned)a.bh * (unsigned)((a.S + BR - 1) / BR));
-    void (*kernel)(Args) = which == kFwd ? fwd_kernel<T, BR, DT>
-                           : which == kDq ? dq_kernel<T, BR, DT>
-                                          : dkv_kernel<T, BR, DT>;
-    cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    kernel<<<grid, NTHREADS, smem, stream>>>(a);
-    return (int)cudaGetLastError();
+    if constexpr (BR == 8) {
+      if (which == kFwd)
+        return launch_grid<fwd_narrow_kernel<T, DT>>(grid, NTHREADS, smem,
+                                                     a, stream);
+      if (which == kDq)
+        return launch_grid<dq_narrow_kernel<T, DT>>(grid, NTHREADS, smem, a,
+                                                    stream);
+      return launch_grid<dkv_narrow_kernel<T, DT>>(grid, NTHREADS, smem, a,
+                                                   stream);
+    } else {
+      if (which == kFwd)
+        return launch_grid<fwd_kernel<T, BR, DT>>(grid, NTHREADS, smem, a,
+                                                  stream);
+      if (which == kDq)
+        return launch_grid<dq_kernel<T, BR, DT>>(grid, NTHREADS, smem, a,
+                                                 stream);
+      return launch_grid<dkv_kernel<T, BR, DT>>(grid, NTHREADS, smem, a,
+                                                stream);
+    }
   }
 }
 
-// The CUDA-core kernels: float32 or bf16, D <= 512 (the header gives
+// The CUDA-core kernels: float32 or bf16, D <= 1792 (the header gives
 // each rung's tile rows and shared memory).
 template <typename T>
 int dispatch_d(int which, const Args& a, cudaStream_t stream) {
@@ -1262,42 +1579,43 @@ int dispatch_d(int which, const Args& a, cudaStream_t stream) {
   if (a.D <= 128) return launch<T, 64, 128>(which, a, stream);
   if (a.D <= 256) return launch<T, 32, 256>(which, a, stream);
   if (a.D <= 512) return launch<T, 16, 512>(which, a, stream);
+  if (a.D <= 1792) return launch<T, 8, 1792>(which, a, stream);
   return (int)cudaErrorInvalidValue;
 }
 
 // One tensor-core kernel over a grid of (bh, tiles of S).
-int launch_tc(void (*kernel)(Args), int tile, size_t smem, int nthreads,
-              const Args& a, cudaStream_t stream) {
+template <void (*Kernel)(Args)>
+int launch_tc(int tile, size_t smem, int nthreads, const Args& a,
+              cudaStream_t stream) {
   const int tiles = (a.S + tile - 1) / tile;
   if (tiles > 65535) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  kernel<<<dim3((unsigned)a.bh, (unsigned)tiles), nthreads, smem, stream>>>(a);
+  const int err = allow_smem<Kernel>(smem);
+  if (err != cudaSuccess) return err;
+  Kernel<<<dim3((unsigned)a.bh, (unsigned)tiles), nthreads, smem, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
 template <int DT>
 int launch_fwd_tc(const Args& a, cudaStream_t stream) {
   constexpr int NW = 4, BM = 16 * NW;
-  return launch_tc(fwd_tc_kernel<DT, NW>, BM,
-                   sizeof(bf16) * (BM + 4 * TC_BN) * DT, 32 * NW, a, stream);
+  return launch_tc<fwd_tc_kernel<DT, NW>>(
+      BM, sizeof(bf16) * (BM + 4 * TC_BN) * DT, 32 * NW, a, stream);
 }
 
 template <int DT>
 int launch_dq_tc(const Args& a, cudaStream_t stream) {
   constexpr int NW = 4, BM = 16 * NW;
-  return launch_tc(dq_tc_kernel<DT, NW>, BM, sizeof(bf16) * 4 * TC_BN * DT,
-                   32 * NW, a, stream);
+  return launch_tc<dq_tc_kernel<DT, NW>>(
+      BM, sizeof(bf16) * 4 * TC_BN * DT, 32 * NW, a, stream);
 }
 
 template <int DT>
 int launch_dkv_tc(const Args& a, cudaStream_t stream) {
   constexpr int NW = 4, BN = 16 * NW;
-  return launch_tc(dkv_tc_kernel<DT, NW>, BN,
-                   sizeof(bf16) * (2 * BN + 4 * TC_BQ) * DT +
-                       sizeof(float) * 4 * TC_BQ,
-                   32 * NW, a, stream);
+  return launch_tc<dkv_tc_kernel<DT, NW>>(
+      BN,
+      sizeof(bf16) * (2 * BN + 4 * TC_BQ) * DT + sizeof(float) * 4 * TC_BQ,
+      32 * NW, a, stream);
 }
 
 // The tensor-core kernels: bf16, D <= 128.

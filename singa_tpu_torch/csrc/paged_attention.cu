@@ -21,12 +21,19 @@
 //
 // paged_attn_kernel<T, DT, MAXR>, grid (kv head, slot, split): the key
 // range [blk_lo * B, min(p_limit, n_blk * B)) of every slot is cut into
-// `n_split` splits of `chunk` keys (the host chooses n_split from n_blk,
-// B, S * n_kv and the SM count, paged_split_count below: ~4 blocks an SM,
-// at least 128 keys a split, so few long slots fill the card as well as
-// many short ones).  A block of NW warps holds its slot's g x Q query rows
-// (the GQA group) in shared memory; its warps take the split's 32-key
-// tiles in turn.  For each tile a lane looks up its key's block in the
+// `n_split` splits of `chunk` keys.  n_blk, the longest live slot's block
+// count, is read on the device: every block takes the max of the S
+// slots' p_limit (the JAX function's traced `jnp.max` at
+// singa_tpu/serve/paged.py:450), so a decode step captured in a CUDA
+// graph reads no block past any slot's position however far the slots
+// have grown since the capture.  The host knows only the table width,
+// the upper bound of n_blk: it chooses n_split from it, B, S * n_kv and
+// the SM count (paged_split_count below: ~4 blocks an SM, at least 128
+// keys a split, so few long slots fill the card as well as many short
+// ones), and each block cuts the live range into n_split chunks.  A
+// block of NW warps holds its slot's g x Q query rows (the GQA group) in
+// shared memory; its warps take the split's 32-key tiles in turn.  For
+// each tile a lane looks up its key's block in the
 // table once, and the warp copies the tile's K and V rows into a shared
 // stage by cp.async in 16-byte chunks, consecutive lanes on consecutive
 // chunks: where a tile lies in one pool block (B >= 32) that is one
@@ -35,7 +42,9 @@
 // scores) and every lane reading one row (P.V) are both free of bank
 // conflicts.  Two stages: the next tile's K and V are in flight while the
 // current one is scored (one stage where two would not fit: float32 at
-// D 512).  Per tile, lane t scores key t against every row, the warp
+// D 512 and both types at D 1024; at float32 D 1024 one tile of K and V
+// together would pass 227 KB, so K and V take turns in the one stage).
+// Per tile, lane t scores key t against every row, the warp
 // updates its online-softmax state (m, l, acc) per row in float32
 // registers and puts the tile's probabilities in shared memory, and P.V
 // reads V from the stage 16 bytes at a time: a group of lanes covers a
@@ -59,10 +68,12 @@
 // probability its V row's scale where P.V reads it.
 //
 // Takes float32 or bf16 pools (q, k_cur, v_cur and the output in the
-// pool's type), any D <= 512 (the templates' rows are DT = 16, 32, ...,
-// 512 wide, D rounded up and the tail zero-filled; 16-byte copies where a
-// row is a whole number of 16-byte chunks, element copies otherwise), any
-// block size >= 1, and g * Q <= 16 rows a kv head (<= 4 at D > 128).
+// pool's type), any D <= 1024 (the templates' rows are DT = 16, 32, ...,
+// 1024 wide, D rounded up and the tail zero-filled; 16-byte copies where
+// a row is a whole number of 16-byte chunks, element copies otherwise;
+// a float32 row of 2048 would need 256 KB for one tile of K), any block
+// size >= 1, and g * Q <= 16 rows a kv head (<= 4 at D > 128; the
+// wrapper launches wider groups in parts).
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -140,15 +151,20 @@ __device__ __forceinline__ float warp_max(float v) {
 // Warps a block and stages a warp, by element type and row width: four
 // warps where their two stages of K and V (2 x 2 x 32 x DT elements a
 // warp) fit 64 KB, else two, else one; one stage where two would pass
-// 160 KB (float32 at DT = 512).  Rows a kv head: 16, or 4 past DT = 128,
-// where a lane's acc (MAXR x DT / 32 floats) would crowd the registers.
+// 160 KB (float32 at DT = 512, both types at 1024); K and V in turns in
+// that stage where together they would pass it (float32 at 1024).  Rows
+// a kv head: 16, or 4 past DT = 128, where a lane's acc (MAXR x DT / 32
+// floats) would crowd the registers.
 template <typename T, int DT>
 struct Shape {
-  static constexpr int kStage = 2 * kTile * DT * (int)sizeof(T);  // K + V
-  static constexpr int kNw = 2 * kStage * 4 <= 65536   ? 4
-                             : 2 * kStage * 2 <= 65536 ? 2
-                                                       : 1;
-  static constexpr int kStages = 2 * kStage <= 160 * 1024 ? 2 : 1;
+  static constexpr int kMat = kTile * DT * (int)sizeof(T);  // K or V
+  static constexpr int kKV = 2 * kMat;                      // K + V
+  static constexpr int kNw = 2 * kKV * 4 <= 65536   ? 4
+                             : 2 * kKV * 2 <= 65536 ? 2
+                                                    : 1;
+  static constexpr bool kTurns = kKV > 160 * 1024;
+  static constexpr int kStage = kTurns ? kMat : kKV;
+  static constexpr int kStages = 2 * kKV <= 160 * 1024 ? 2 : 1;
   static constexpr int kMaxR = DT <= 128 ? 16 : 4;
 };
 
@@ -187,10 +203,11 @@ paged_attn_kernel(const T* __restrict__ q, const T* __restrict__ pool_k,
                   const int* __restrict__ tables,
                   const int* __restrict__ p_limit, float* __restrict__ ws,
                   int n_kv, int g, int nq, int d, int block, int table_width,
-                  int trash, int n_blk, int blk_lo, int window, int chunk,
-                  float scale, int vec) {
+                  int trash, int n_blk, int blk_lo, int window, float scale,
+                  int vec) {
   using Sh = Shape<T, DT>;
   constexpr int NW = Sh::kNw, STAGES = Sh::kStages;
+  constexpr bool TURNS = Sh::kTurns;
   constexpr int EPC = 16 / (int)sizeof(T);      // elements a 16-byte chunk
   constexpr int CH = DT / EPC;                  // chunks a staged row
   constexpr int SW = CH < 8 ? CH : 8;           // swizzle span
@@ -210,8 +227,16 @@ paged_attn_kernel(const T* __restrict__ q, const T* __restrict__ pool_k,
   float* ws_acc = ws + (long long)gridDim.y * n_kv * n_split * R * 2 +
                   part * R * d;
 
+  // the live bound: the longest slot's blocks, at most the host's n_blk
+  float longest = 0.f;
+  for (int i = lane; i < (int)gridDim.y; i += 32)
+    longest = fmaxf(longest, (float)p_limit[i]);
+  const int live_blk = min(n_blk, ((int)warp_max(longest) + block - 1) /
+                                      block);
+  const int chunk = split_chunk((live_blk - blk_lo) * block, NW * kTile,
+                                n_split);
   const int plim = p_limit[s];
-  const int k_end = min(plim, n_blk * block);
+  const int k_end = min(plim, live_blk * block);
   int r0 = blk_lo * block + split * chunk;
   const int r1 = min(r0 + chunk, k_end);
   // keys no row of the window sees: key <= p_limit - window
@@ -226,6 +251,7 @@ paged_attn_kernel(const T* __restrict__ q, const T* __restrict__ pool_k,
 
   extern __shared__ __align__(16) unsigned char smem[];
   T* stage = reinterpret_cast<T*>(smem);  // [NW][STAGES][K, V][32][DT]
+                                          // (TURNS: [NW][K or V][32][DT])
   float* wacc = reinterpret_cast<float*>(smem);  // after the key loop
   long long* rows =
       reinterpret_cast<long long*>(smem + region_bytes<T, DT>(R));
@@ -246,24 +272,29 @@ paged_attn_kernel(const T* __restrict__ q, const T* __restrict__ pool_k,
   const int* tbl = tables + (long long)s * table_width;
   const int n_tiles = (r1 - r0 + kTile - 1) / kTile;
   long long* wrows = rows + warp * STAGES * kTile;
-  T* wstage = stage + (size_t)warp * STAGES * 2 * kTile * DT;
+  constexpr int SLOT = TURNS ? kTile * DT : 2 * kTile * DT;  // a stage
+  T* wstage = stage + (size_t)warp * STAGES * SLOT;
 
-  // K and V rows of tile ti -> stage st: lane t looks up key t's row
+  // The rows of tile ti -> stage st: lane t looks up key t's row
   // (element offset, -1 when masked out or past the range); then the warp
-  // copies the 32 rows chunk by chunk, consecutive lanes on consecutive
-  // chunks, zero-filling masked rows and the tail past D.
-  auto fetch = [&](int ti, int st) {
-    const int key = r0 + ti * kTile + lane;
-    long long row = -1;
-    if (key < r1) {
-      const int blk = tbl[key / block];
-      if (blk != trash)
-        row = (((long long)blk * n_kv + h) * block + key % block) * d;
+  // copies the 32 rows of K (mats & 1) and V (mats & 2) chunk by chunk,
+  // consecutive lanes on consecutive chunks, zero-filling masked rows and
+  // the tail past D.  K lands at the stage's start, V after it (at the
+  // start, too, under TURNS, once K has been read).
+  auto fetch = [&](int ti, int st, int mats) {
+    if (mats & 1) {
+      const int key = r0 + ti * kTile + lane;
+      long long row = -1;
+      if (key < r1) {
+        const int blk = tbl[key / block];
+        if (blk != trash)
+          row = (((long long)blk * n_kv + h) * block + key % block) * d;
+      }
+      wrows[st * kTile + lane] = row;
+      __syncwarp();
     }
-    wrows[st * kTile + lane] = row;
-    __syncwarp();
-    T* ks = wstage + (size_t)st * 2 * kTile * DT;
-    T* vs = ks + kTile * DT;
+    T* ks = wstage + (size_t)st * SLOT;
+    T* vs = TURNS ? ks : ks + kTile * DT;
     if (vec) {
       const int dch = d / EPC;  // chunks holding data
 #pragma unroll 4
@@ -273,8 +304,8 @@ paged_attn_kernel(const T* __restrict__ q, const T* __restrict__ pool_k,
         const bool in = rw >= 0 && cc < dch;
         const long long src = in ? rw + cc * EPC : 0;
         const int dst = kk * DT + (cc ^ (kk & (SW - 1))) * EPC;
-        cp_async16(ks + dst, pool_k + src, in ? 16 : 0);
-        cp_async16(vs + dst, pool_v + src, in ? 16 : 0);
+        if (mats & 1) cp_async16(ks + dst, pool_k + src, in ? 16 : 0);
+        if (mats & 2) cp_async16(vs + dst, pool_v + src, in ? 16 : 0);
       }
     } else {
       for (int e = lane; e < kTile * DT; e += 32) {
@@ -283,16 +314,17 @@ paged_attn_kernel(const T* __restrict__ q, const T* __restrict__ pool_k,
         const bool in = rw >= 0 && dd < d;
         const int dst =
             kk * DT + ((dd / EPC) ^ (kk & (SW - 1))) * EPC + dd % EPC;
-        ks[dst] = in ? pool_k[rw + dd] : from_f<T>(0.f);
-        vs[dst] = in ? pool_v[rw + dd] : from_f<T>(0.f);
+        if (mats & 1) ks[dst] = in ? pool_k[rw + dd] : from_f<T>(0.f);
+        if (mats & 2) vs[dst] = in ? pool_v[rw + dd] : from_f<T>(0.f);
       }
     }
     cp_async_commit();
   };
+  constexpr int FIRST = TURNS ? 1 : 3;  // what a tile's first fetch copies
 
   // the first tile's copies are in flight while q is read
   int st = 0;
-  if (warp < n_tiles) fetch(warp, 0);
+  if (warp < n_tiles) fetch(warp, 0, FIRST);
   for (int i = threadIdx.x; i < R * DT; i += blockDim.x) {
     const int r = i / DT, dd = i % DT;
     qs[i] = dd < d ? to_f(q[(hd * R + r) * d + dd]) : 0.f;
@@ -301,14 +333,14 @@ paged_attn_kernel(const T* __restrict__ q, const T* __restrict__ pool_k,
   for (int ti = warp; ti < n_tiles; ti += NW) {
     const bool more = ti + NW < n_tiles;
     if (STAGES > 1 && more) {
-      fetch(ti + NW, st ^ 1);
+      fetch(ti + NW, st ^ 1, FIRST);
       cp_async_wait<1>();
     } else {
       cp_async_wait<0>();
     }
     __syncwarp();
-    const T* ks = wstage + (size_t)st * 2 * kTile * DT;
-    const T* vs = ks + kTile * DT;
+    const T* ks = wstage + (size_t)st * SLOT;
+    const T* vs = TURNS ? ks : ks + kTile * DT;
     const int key = r0 + ti * kTile + lane;
     const bool valid = wrows[st * kTile + lane] >= 0;
 
@@ -346,6 +378,11 @@ paged_attn_kernel(const T* __restrict__ q, const T* __restrict__ pool_k,
       }
     }
     __syncwarp();
+    if (TURNS) {  // V takes the stage K held
+      fetch(ti, st, 2);
+      cp_async_wait<0>();
+      __syncwarp();
+    }
     // P.V: a lane reads its chunks of every KG-th key's V row (16 bytes a
     // read) and that key's probability (one shared word for its group);
     // masked keys have p = 0 and zero rows
@@ -372,7 +409,7 @@ paged_attn_kernel(const T* __restrict__ q, const T* __restrict__ pool_k,
       }
     }
     __syncwarp();  // the stage and wp are read before they are rewritten
-    if (STAGES == 1 && more) fetch(ti + NW, 0);
+    if (STAGES == 1 && more) fetch(ti + NW, 0, FIRST);
     if (STAGES > 1) st ^= 1;
   }
   if (KG > 1) {
@@ -515,6 +552,19 @@ paged_combine_kernel(const T* __restrict__ q, const T* __restrict__ k_cur,
   }
 }
 
+// Raises a kernel's dynamic shared-memory limit to `bytes` the first time
+// a launch needs more than the last setting, so the launches a CUDA graph
+// captures (after an eager call at the same shapes) set no attribute.
+template <auto Kernel>
+int allow_smem(size_t bytes) {
+  static size_t allowed = 0;
+  if (bytes <= allowed) return 0;
+  const cudaError_t err = cudaFuncSetAttribute(
+      Kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err == cudaSuccess) allowed = bytes;
+  return (int)err;
+}
+
 template <typename T, int DT>
 int launch(const void* q, const void* pool_k, const void* pool_v,
            const int* tables, const int* p_limit, const void* k_cur,
@@ -525,20 +575,16 @@ int launch(const void* q, const void* pool_k, const void* pool_v,
   using Sh = Shape<T, DT>;
   const int R = g * nq;
   if (R > Sh::kMaxR || n_split < 1) return (int)cudaErrorInvalidValue;
-  const int chunk =
-      split_chunk((n_blk - blk_lo) * block, Sh::kNw * kTile, n_split);
   const dim3 grid(n_kv, S, n_split);
   const size_t smem = split_smem_bytes<T, DT>(R);
 #define PAGED_SPLIT_LAUNCH(MAXR)                                           \
   do {                                                                     \
-    cudaError_t err = cudaFuncSetAttribute(                                \
-        paged_attn_kernel<T, DT, MAXR>,                                    \
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);           \
-    if (err != cudaSuccess) return (int)err;                               \
+    const int err = allow_smem<paged_attn_kernel<T, DT, MAXR>>(smem);      \
+    if (err != cudaSuccess) return err;                                    \
     paged_attn_kernel<T, DT, MAXR><<<grid, Sh::kNw * 32, smem, stream>>>(  \
         (const T*)q, (const T*)pool_k, (const T*)pool_v, tables, p_limit,  \
         ws, n_kv, g, nq, d, block, table_width, trash, n_blk, blk_lo,      \
-        window, chunk, scale, vec);                                        \
+        window, scale, vec);                                               \
   } while (0)
   if (R <= 1) {
     PAGED_SPLIT_LAUNCH(1);
@@ -555,10 +601,10 @@ int launch(const void* q, const void* pool_k, const void* pool_v,
   return (int)cudaGetLastError();
 }
 
-// The row width DT a head dim takes: the smallest of 16, 32, ..., 512
+// The row width DT a head dim takes: the smallest of 16, 32, ..., 1024
 // that holds it, or 0.
 inline int row_width(int d) {
-  for (int dt = 16; dt <= 512; dt *= 2)
+  for (int dt = 16; dt <= 1024; dt *= 2)
     if (d <= dt) return dt;
   return 0;
 }
@@ -572,6 +618,7 @@ int warps_for(int dt) {
     case 128: return Shape<T, 128>::kNw;
     case 256: return Shape<T, 256>::kNw;
     case 512: return Shape<T, 512>::kNw;
+    case 1024: return Shape<T, 1024>::kNw;
   }
   return 0;
 }
@@ -583,8 +630,8 @@ extern "C" {
 // Splits of the key range for one call: about kBlocksPerSm blocks an SM
 // over S * n_kv (slot, kv head) pairs, each split at least kMinSplitKeys
 // keys and whole units of one 32-key tile a warp; 0 for a head dim or
-// dtype the kernel does not take.  Reads only what the host knows (no
-// p_limit), so choosing it costs no device sync.
+// dtype the kernel does not take.  Reads only what the host knows (the
+// bound n_blk, no p_limit), so choosing it costs no device sync.
 int paged_split_count(int d, int dtype, int n_blk, int blk_lo, int block,
                       int pairs, int n_sm) {
   const int dt = row_width(d);
@@ -604,7 +651,9 @@ int paged_split_count(int d, int dtype, int n_blk, int blk_lo, int block,
   return (units + per - 1) / per;
 }
 
-// dtype: 0 float32, 1 bfloat16.  window 0 means no window.  ws: float32
+// dtype: 0 float32, 1 bfloat16.  window 0 means no window.  n_blk: the
+// upper bound of the blocks read (the table width); the kernel reads
+// blocks [blk_lo, min(n_blk, ceil(max p_limit / block))).  ws: float32
 // workspace of S * n_kv * n_split * g * Q * (d + 2) elements.  Returns
 // the CUDA error of the launches (0 on success).
 int paged_attention(const void* q, const void* pool_k, const void* pool_v,
@@ -630,6 +679,7 @@ int paged_attention(const void* q, const void* pool_k, const void* pool_v,
     case 128: return launch<T, 128>(PAGED_ARGS);                           \
     case 256: return launch<T, 256>(PAGED_ARGS);                           \
     case 512: return launch<T, 512>(PAGED_ARGS);                           \
+    case 1024: return launch<T, 1024>(PAGED_ARGS);                         \
   }
   if (dtype == 0) PAGED_DISPATCH(float)
   if (dtype == 1) PAGED_DISPATCH(__nv_bfloat16)

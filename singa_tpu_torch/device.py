@@ -3,7 +3,9 @@
 A singa ``Device`` wraps a ``torch.device`` and owns an explicit
 ``torch.Generator`` on it: the generator stands in for the JAX package's
 per-device PRNG key, so parameter init and dropout draw from the device
-they run on, and ``SetRandSeed`` makes them reproducible.
+they run on, and ``SetRandSeed`` makes them reproducible.  A captured
+training step registers the generator with its CUDA graph, so every
+replay advances it as an eager step would.
 
 Entry points run on the GPU.  ``get_default_device()`` is the first CUDA
 device and raises when no GPU is present; it never falls back to the
@@ -42,8 +44,10 @@ class Device:
         self.generator.manual_seed(int(seed))
 
     def EnableGraph(self, enable: bool):
-        """Recorded only: the port runs every step eagerly (see
-        ``model.Model.compile``)."""
+        """Graph mode for models compiled on this device: their training
+        steps are captured as CUDA graphs and replayed (``graphs.py``,
+        ``model.Model.compile``).  ``Model.compile(use_graph=...)`` sets
+        it."""
         self.graph_enabled = bool(enable)
 
 

@@ -23,12 +23,14 @@ work on plain tensors and a dict of weight tensors (``extract_params``)
 on the caller's device.
 
 Random numbers: ``jax.random`` is not reproduced.  A sampled token is
-``argmax(filtered logits + Gumbel noise)``, the noise drawn over the
-vocabulary by a ``torch.Generator`` on the logits' device seeded from
-(the request's seed, the token's position) alone, so a stream does not
-depend on the slot or batch it shares: the serve engine's streams equal
-``generate`` at the same seed.  Against the JAX package only greedy
-streams compare.
+``argmax(filtered logits + Gumbel noise)``, the noise over the
+vocabulary a counter-based integer hash of (the request's seed, the
+token's position, the vocabulary index) alone (``_gumbel``), so a stream
+does not depend on the slot or batch it shares: the serve engine's
+streams equal ``generate`` at the same seed.  The hash is integer tensor
+arithmetic, so its bits are the same on the CPU and the card, and the
+whole draw runs inside the engine's captured decode step.  Against the
+JAX package only greedy streams compare.
 
 Not ported yet (each raises ``NotImplementedError``): MoE blocks, tensor
 and expert parallelism (slice 4, distributed), int8 KV caches, sliding-
@@ -230,8 +232,8 @@ def _paged_qkv(x, p, n_head, eps):
     return q.contiguous(), k.contiguous(), v.contiguous()
 
 
-def _block_decode_paged(x, p, pool_k_l, pool_v_l, tables, pos, n_blk,
-                        n_head, eps, write_at):
+def _block_decode_paged(x, p, pool_k_l, pool_v_l, tables, pos, n_head, eps,
+                        write_at):
     """One layer's decode for every slot: x (S, 1, E) at ``pos`` (S,)
     int32, one layer's pools (N + 1, H_kv, B, D), ``tables`` (S, W // B)
     int32.  Attention runs through ``paged_attn`` over each slot's pool
@@ -246,8 +248,8 @@ def _block_decode_paged(x, p, pool_k_l, pool_v_l, tables, pos, n_blk,
     dt = pool_k_l.dtype
     k_cur, v_cur = k_new.to(dt), v_new.to(dt)
     blk, off, cur_mask = write_at
-    a = paged_attn(q.to(dt), pool_k_l, pool_v_l, tables, pos, n_blk,
-                   k_cur, v_cur, cur_mask, 1.0 / math.sqrt(d))
+    a = paged_attn(q.to(dt), pool_k_l, pool_v_l, tables, pos, k_cur, v_cur,
+                   cur_mask, 1.0 / math.sqrt(d))
     a = a.to(x.dtype).permute(0, 3, 1, 2, 4).reshape(s_, 1, e)
     x = x + _linear(a, p["wo"], p["bo"])
     h = _ln(x, p["ln2_s"], p["ln2_b"], eps)
@@ -257,20 +259,22 @@ def _block_decode_paged(x, p, pool_k_l, pool_v_l, tables, pos, n_blk,
     return x
 
 
-def decode_step_paged(params, x, pool_k, pool_v, tables, pos, n_blk,
-                      n_head, eps, *, block):
+def decode_step_paged(params, x, pool_k, pool_v, tables, pos, n_head, eps,
+                      *, block):
     """The paged serve engine's decode step: x (S, 1, E) embedded inputs
     at ``pos`` (S,) int32, pools (L, N + 1, H_kv, B, D), ``tables`` (S,
-    W // B) int32 trash-padded, ``n_blk`` >= ceil(pos / B) for every
-    slot.  One ``paged_attn`` launch per layer for all slots; the pools
-    take the step's K/V in place.  Returns (S, V) logits."""
+    W // B) int32 trash-padded.  One ``paged_attn`` launch per layer for
+    all slots, which finds the blocks to read from ``pos`` on the device;
+    the pools take the step's K/V in place.  Nothing reads a device value
+    on the host, so the step can be captured in a CUDA graph.  Returns
+    (S, V) logits."""
     pl = pos.long()
     write_at = (tables.long().gather(1, (pl // block)[:, None])[:, 0],
                 pl % block,
                 torch.ones((1, 1), dtype=torch.bool, device=x.device))
     for li, p in enumerate(params["blocks"]):
         x = _block_decode_paged(x, p, pool_k[li], pool_v[li], tables, pos,
-                                n_blk, n_head, eps, write_at)
+                                n_head, eps, write_at)
     x = _ln(x, params["lnf_s"], params["lnf_b"], eps)
     return _logits(x, params)[:, 0]
 
@@ -321,27 +325,43 @@ def _penalize(logits, rep_mask, rep_penalty):
     return torch.where(rep_mask, pen, logits)
 
 
-_M64 = (1 << 64) - 1
+_M32 = 0xFFFFFFFF
 
 
-def _noise_seed(seed, pos):
-    """A 64-bit generator seed from (seed, pos): splitmix64 of the pair
-    packed into 64 bits, so every bit depends on both (the CPU generator
-    keeps only the low 32 bits of its seed)."""
-    z = ((((int(seed) & 0xFFFFFFFF) << 32) | (int(pos) & 0xFFFFFFFF))
-         + 0x9E3779B97F4A7C15) & _M64
-    z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & _M64
-    z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & _M64
-    return z ^ (z >> 31)
+def _mix32(x):
+    """A 32-bit integer hash of int64 tensor ``x`` in [0, 2^32): xor-shift
+    and multiply rounds whose odd multipliers are below 2^31, so every
+    product of a 32-bit value with one fits int64 and the bits are exact
+    on every device."""
+    x = x ^ (x >> 16)
+    x = (x * 0x7FEB352D) & _M32
+    x = x ^ (x >> 15)
+    x = (x * 0x68E31DA5) & _M32
+    return x ^ (x >> 16)
 
 
-def _gumbel(seed, pos, vocab, device):
-    """Gumbel noise over the vocabulary for the token at sequence index
-    ``pos`` of a request seeded ``seed``: a function of the two alone."""
-    g = torch.Generator(device=device)
-    g.manual_seed(_noise_seed(seed, pos))
-    u = torch.rand(vocab, generator=g, device=device).clamp_min(1e-20)
+def _gumbel(seeds, positions, vocab):
+    """(N, V) Gumbel noise: element (i, v) is a function of
+    ``(seeds[i], positions[i], v)`` alone (``seeds`` and ``positions``
+    (N,) integer tensors), a counter-based hash turned into a uniform of
+    23 bits, so a row's noise does not depend on the batch it is drawn
+    in, and tensor ops draw it inside a captured step."""
+    s = seeds.long()
+    h = _mix32((s & _M32) ^ 0x9E3779B9)
+    h = _mix32(h ^ ((s >> 32) & _M32))
+    h = _mix32(h ^ (positions.long() & _M32))
+    v = torch.arange(vocab, device=s.device)
+    h = _mix32(_mix32(h[:, None] ^ v[None]))
+    u = ((h >> 9).float() + 0.5) * 2.0 ** -23
     return -torch.log(-torch.log(u))
+
+
+def _on(x, dtype, device):
+    """``x`` (a tensor, an array or a list) as a ``dtype`` tensor on
+    ``device``; a tensor already there is not copied."""
+    if not isinstance(x, torch.Tensor):
+        x = torch.as_tensor(np.array(x), device=device)
+    return x.to(device=device, dtype=dtype)
 
 
 def _sample(logits, temps, seeds, positions, top_k=0, top_p=None,
@@ -351,23 +371,24 @@ def _sample(logits, temps, seeds, positions, top_k=0, top_p=None,
     too.  Then greedy (argmax of the float32 logits) where ``temps[i] <=
     0``, else argmax of the filtered logits (temperature, top-k, top-p,
     min-p) plus Gumbel noise keyed by ``(seeds[i], positions[i])``, a
-    draw from the filtered softmax.  Returns an (N,) int64 numpy
-    array."""
+    draw from the filtered softmax.  ``temps``, ``seeds`` and
+    ``positions`` are (N,) device tensors or host arrays.  Every row is
+    filtered and drawn and the two results are selected per row, so the
+    ops have fixed shapes and the serve engine's captured decode step
+    samples inside its graph.  Returns an (N,) int64 tensor on the
+    logits' device."""
     n, vocab = logits.shape
+    dev = logits.device
     logits = logits.float()
     if rep_mask is not None:
         logits = _penalize(logits, rep_mask, rep_penalty)
-    temps = np.asarray(temps, np.float32).reshape(n)
-    out = logits.argmax(-1)
-    hot = np.flatnonzero(temps > 0)
-    if len(hot):
-        idx = torch.as_tensor(hot, device=logits.device)
-        t = torch.as_tensor(temps[hot], device=logits.device)[:, None]
-        filt = _filter_logits(logits[idx], t, top_p, top_k, min_p)
-        noise = torch.stack([_gumbel(seeds[i], positions[i], vocab,
-                                     logits.device) for i in hot])
-        out[idx] = (filt + noise).argmax(-1)
-    return out.cpu().numpy()
+    temps = _on(temps, torch.float32, dev).reshape(n)
+    hot = temps > 0
+    t = torch.where(hot, temps, torch.ones_like(temps))[:, None]
+    filt = _filter_logits(logits, t, top_p, top_k, min_p)
+    noise = _gumbel(_on(seeds, torch.int64, dev).reshape(n),
+                    _on(positions, torch.int64, dev).reshape(n), vocab)
+    return torch.where(hot, (filt + noise).argmax(-1), logits.argmax(-1))
 
 
 # ----------------------------------------------------------------- generate
@@ -491,10 +512,10 @@ def _generate_rows(params, rows, n_new, cfg, temps, seeds, filters):
     toks = np.empty((b, n_new), np.int64)
 
     def sample(logits, j):
-        toks[:, j] = _sample(logits, temps, seeds, pos, **filters)
+        nxt = _sample(logits, temps, seeds, pos, **filters)
+        toks[:, j] = nxt.cpu().numpy()
         if "rep_mask" in filters:  # the emitted tokens join the sequence
-            filters["rep_mask"][rows_t, torch.as_tensor(
-                toks[:, j], device=dev)] = True
+            filters["rep_mask"][rows_t, nxt] = True
 
     sample(first, 0)
     for j in range(1, n_new):

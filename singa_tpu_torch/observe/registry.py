@@ -1,5 +1,6 @@
 """Process-wide metrics (the parts of ``singa_tpu/observe/registry.py``
-that the port emits: ``opt.updates`` from training, the ``serve.*``
+that the port emits: ``opt.updates``, ``train.steps``,
+``graph.cache_hit`` and ``graph.cache_miss`` from training, the ``serve.*``
 counters, gauges and latency histograms of the serve engine).
 
 A metric is identified by ``(kind, name, frozen label set)``; asking the

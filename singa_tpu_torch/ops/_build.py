@@ -22,9 +22,12 @@ import threading
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
+# --split-compile=0 runs the optimizer's and ptxas's jobs of one source on
+# every core: the flash and paged sources hold some thirty kernel
+# instantiations each, and their builds set the smoke run's set-up time
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo",
-              "-Xptxas", "-v")
+              "-Xptxas", "-v", "--split-compile=0")
 
 _libs: dict = {}
 _lock = threading.Lock()

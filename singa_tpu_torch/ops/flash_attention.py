@@ -24,7 +24,7 @@ with zero softmax mass gives ``O = 0`` and ``lse = NEG_INF``; the
 general mask is an ``(M, S, S)`` tile addressed by ``(bh // qdiv) %
 qmod``; ``window`` needs ``causal``; ``scale = 1/sqrt(D)``.  Unlike the
 JAX wrapper, nothing is padded: the kernels mask the ragged tail of S
-and D themselves, so S and D are taken as they are (D <= 512 on the GPU;
+and D themselves, so S and D are taken as they are (D <= 1792 on the GPU;
 a wider head raises ``ValueError`` naming the limit).
 """
 
@@ -47,8 +47,10 @@ __all__ = [
 
 NEG_INF = -1e30
 #: widest head the CUDA kernels take (their register and shared-memory
-#: tiles are sized for D <= 64, <= 128, <= 256 and <= 512)
-MAX_HEAD_DIM = 512
+#: tiles are sized for D <= 64, <= 128, <= 256, <= 512 and, 8 rows a
+#: tile, <= 1792: a row that fits 227 KB of shared memory as the dK/dV
+#: kernel's four tiles)
+MAX_HEAD_DIM = 1792
 #: widest head the tensor-core kernels take (their tiles are 64 or 128
 #: wide)
 TENSOR_CORE_MAX_HEAD_DIM = 128
@@ -65,10 +67,11 @@ def route(dtype, d):
       float32 sums);
     * ``F32_CUDA_CORE``: float32, whose tensor-core products would be
       TF32 and miss the float32 tolerance;
-    * ``BF16_CUDA_CORE``: bfloat16 with 128 < D <= 512 (``fwd_kernel``,
-      ``dq_kernel``, ``dkv_kernel``: float32 FMAs, as for float32).
+    * ``BF16_CUDA_CORE``: bfloat16 with 128 < D <= 1792 (``fwd_kernel``,
+      ``dq_kernel``, ``dkv_kernel``, past D = 512 their 8-row
+      ``*_narrow_kernel``: float32 FMAs, as for float32).
 
-    Raises TypeError for another dtype and ValueError for D > 512."""
+    Raises TypeError for another dtype and ValueError for D > 1792."""
     if dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"flash kernels take float32 or bfloat16, "
                         f"got {dtype}")

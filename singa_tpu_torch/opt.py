@@ -6,6 +6,14 @@ and applies one update per ``(param, grad)`` pair in float32, then
 advances the step counter.  Optimizer state is keyed
 ``"{param name}:momentum"``, ``":m"``, ``":v"`` as in the JAX package, so
 states compare name for name.  Updates rewrite the parameter in place.
+
+The step counter is a float32 scalar tensor on the parameters' device,
+as in the JAX package (``singa_tpu/opt.py:109``), and Adam's bias
+correction is computed from it on the device: a training step captured
+in a CUDA graph (``model.Model.compile(use_graph=True)``) then advances
+it and corrects by it on every replay.  State (the counter and every
+``_state`` buffer) is created by a step's first, eager run and rewritten
+in place afterwards, so a captured graph never holds a stale tensor.
 """
 
 from __future__ import annotations
@@ -51,7 +59,7 @@ class Optimizer:
         if clip_norm is not None and clip_norm <= 0:
             raise ValueError(f"clip_norm must be > 0, got {clip_norm}")
         self.clip_norm = None if clip_norm is None else float(clip_norm)
-        self.step_counter = 0
+        self.step_counter = torch.zeros((), dtype=torch.float32)
         self._m_updates = _obs_registry().counter(
             "opt.updates", help="optimizer update passes (one per step)",
             optimizer=type(self).__name__)
@@ -77,21 +85,31 @@ class Optimizer:
             t = self._states[key] = t.to(like.device)
         return t
 
+    def _counter(self, device) -> torch.Tensor:
+        """The step counter, moved to ``device`` at the first step."""
+        if self.step_counter.device != device:
+            self.step_counter = self.step_counter.to(device)
+        return self.step_counter
+
     def get_states(self) -> dict:
         """``{name: numpy array}``, step counter under
         ``"__step_counter__"``."""
         out = {k: v.detach().cpu().numpy() for k, v in self._states.items()}
-        out["__step_counter__"] = np.asarray(self.step_counter, np.float32)
+        out["__step_counter__"] = np.asarray(float(self.step_counter),
+                                             np.float32)
         return out
 
     def set_states(self, states: dict):
+        """Load states by name; tensors that exist are overwritten in
+        place (a captured step keeps reading them)."""
         for k, v in states.items():
+            src = torch.as_tensor(np.asarray(v), dtype=torch.float32)
             if k == "__step_counter__":
-                self.step_counter = int(np.asarray(v))
+                self.step_counter.copy_(src.reshape(()))
+            elif k in self._states:
+                self._states[k].copy_(src)
             else:
-                dev = self._states[k].device if k in self._states else "cpu"
-                self._states[k] = torch.as_tensor(
-                    np.asarray(v), dtype=torch.float32).to(dev)
+                self._states[k] = src
 
     # -- gradient clipping -------------------------------------------------
     def _clip_pairs(self, pairs):
@@ -112,14 +130,16 @@ class Optimizer:
             if self.clip_norm is not None:
                 pairs = self._clip_pairs(pairs)
             with torch.no_grad():
+                if pairs:
+                    self._counter(pairs[0][0].device)
                 for p, g in pairs:
                     self.apply(self._param_name(p), p, g)
-            self.step()
+                self.step()
             sp.set(params=len(pairs))
         self._m_updates.inc()
 
     def step(self):
-        self.step_counter += 1
+        self.step_counter.add_(1.0)
 
     def apply(self, param_name, param, grad):
         raise NotImplementedError

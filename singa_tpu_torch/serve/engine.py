@@ -27,11 +27,23 @@ functions, vmapped over slots there (``_decode_row_paged``,
 ``_decode_row``, ``_select_sample``), are slot dimensions here:
 ``serve/paged.py``'s ``_paged_decode_kernel`` and ``_paged_decode_step``
 return every lane's logits, and ``gpt2_decode._sample`` takes each row's
-temperature, so greedy and sampled rows share one call.  Every step runs
-eagerly; the
-decode width is the halving bucket of ``max_slots`` covering the live
-slots (``_paged_width``), the fixed widths a CUDA-graph capture of the
-step would need.
+temperature, so greedy and sampled rows share one call.
+
+**Captured decode steps** (``capture=True``, the default; the JAX engine
+jits its pool step): the decode width is the halving bucket of
+``max_slots`` covering the live slots (``_paged_width``), and each
+bucket's step (the forward with its ``paged_attn`` launches, the in-place
+pool writes and the sampling) reads its inputs from persistent device
+buffers (``paged.DecodeInputs``), which the engine fills with one staged
+host-to-device copy a step.  A bucket's first step runs eagerly, as a
+real step, and the step is then captured as a CUDA graph (``graphs.py``;
+all of an engine's graphs share one memory pool); every later step at
+that width is one replay, after which the host reads the step's tokens
+once.  On the CPU the same buckets, buffers and first-step rule run the
+step function itself.  ``capture=False`` runs every step eagerly, like
+``jax.disable_jit``; the gather oracle (``kernel="gather"``) and the
+admission prefill always run eagerly.  ``serve.jitpin.jit_cache_size()``
+counts the prepared steps of the open engines.
 
 Not ported yet, each refused with ``NotImplementedError`` at
 construction or submit (``ROADMAP.md``): the slot arena (``paged=None``),
@@ -53,11 +65,13 @@ import time
 import numpy as np
 import torch
 
+from .. import graphs
 from ..models.gpt2_decode import (_check_sampling, _logits, _sample,
                                   check_decodable, extract_params, prefill)
 from ..observe import trace as _trace
-from .paged import (PagedConfig, PagedKVArena, _paged_decode_kernel,
-                    _paged_decode_step)
+from . import jitpin
+from .paged import (DecodeInputs, PagedConfig, PagedKVArena,
+                    _paged_decode_kernel, _paged_decode_step, seeds)
 from .request import (DeadlineExceededError, EngineFailedError,
                       GenerationRequest, GenerationResult, RequestHandle)
 from .scheduler import FIFOScheduler, PriorityScheduler
@@ -86,12 +100,16 @@ class _LocalExec:
     def __init__(self, eng):
         self._e = eng
 
-    def paged_decode_step(self, params, pool_k, pool_v, tables, toks, pos,
-                          live, block, kernel="block"):
-        fn = _paged_decode_kernel if kernel == "block" \
-            else _paged_decode_step
-        return fn(params, pool_k, pool_v, tables, toks, pos, live, block,
-                  **self._e._statics)
+    def paged_decode_step(self, params, pool_k, pool_v, inp, block,
+                          kernel="block", n_rb=None):
+        """(S, V) logits of one pool step over the lanes ``inp``
+        (``DecodeInputs.view``); the gather oracle needs ``n_rb``, the
+        blocks it copies a lane."""
+        if kernel == "block":
+            return _paged_decode_kernel(params, pool_k, pool_v, inp, block,
+                                        **self._e._statics)
+        return _paged_decode_step(params, pool_k, pool_v, inp, n_rb, block,
+                                  **self._e._statics)
 
     def prefill_batch(self, params, ids):
         return _prefill_batch(params, ids, **self._e._statics)
@@ -144,13 +162,15 @@ class InferenceEngine:
     ``max_new_tokens``; ``dtype`` casts the weights (``torch.bfloat16``);
     ``top_k`` / ``top_p`` are engine-wide filters of sampled requests;
     ``scheduler`` is ``"fifo"`` (default), ``"priority"`` or an
-    instance; ``clock`` is injectable for tests."""
+    instance; ``clock`` is injectable for tests; ``capture`` (default
+    True) replays each decode width's step as a CUDA graph on the card
+    (module docstring), ``False`` runs every step eagerly."""
 
     def __init__(self, model, max_slots=8, max_len=None, dtype=None,
                  scheduler=None, top_k=0, top_p=None,
                  clock=time.monotonic, slo=None, prefix_cache=None,
                  draft_model=None, spec_k=None, cache_dtype=None,
-                 paged=None, tp=None, ep=None, pp=None):
+                 paged=None, tp=None, ep=None, pp=None, capture=True):
         cfg = model.cfg
         check_decodable(cfg)
         owed = [("the slot arena (paged=None)", paged is None
@@ -210,6 +230,13 @@ class InferenceEngine:
             self._params["wte"].device,
             engine_label=self.stats.engine_label, reg=self.stats.registry)
         self.stats.paged_source = self.paged_arena.snapshot
+        self.capture = bool(capture)
+        dev = self._params["wte"].device
+        self._inputs = DecodeInputs(self.max_slots,
+                                    self.paged_arena.row_blocks, dev)
+        self._steps = {}  # decode width -> graphs.Step
+        self._graph_pool = None
+        jitpin.track(self)
         S = self.max_slots
         self._slots = [None] * S
         self._toks = np.zeros(S, np.int64)
@@ -321,6 +348,8 @@ class InferenceEngine:
                 f"drain with run_until_complete() first")
         if not force and not self._failed:
             self.check_block_accounting()
+        self._steps = {}
+        self._graph_pool = None
         self.stats.unregister()
         self.paged_arena.unregister()
         self._params = None
@@ -417,25 +446,64 @@ class InferenceEngine:
     def _decode_once(self):
         lanes = [i for i, s in enumerate(self._slots) if s is not None]
         n = len(lanes)
-        sel = lanes + [-1] * (self._paged_width(n) - n)
+        w = self._paged_width(n)
+        sel = lanes + [-1] * (w - n)
         live = np.asarray([i >= 0 for i in sel])
         pick = np.where(live, sel, 0)
-        arena = self.paged_arena
+        self._inputs.stage(self._toks[pick], self._pos[pick], live,
+                           self._seeds[pick], np.where(live,
+                                                       self._temps[pick], 0),
+                           self._block_tables(sel))
         with _trace.span("serve/decode_step", cat="serve",
-                         step=self.step_count, live=n):
-            logits = self._x.paged_decode_step(
-                self._params, arena.pool_k, arena.pool_v,
-                self._block_tables(sel), self._toks[pick],
-                self._pos[pick], live, arena.block_size,
-                kernel=arena.config.kernel)
-            nxt = _sample(logits[:n], self._temps[lanes], self._seeds[lanes],
-                          self._pos[lanes] + 1, self._top_k, self._top_p)
+                         step=self.step_count, live=n, width=w):
+            self._inputs.load()
+            if self.paged_arena.config.kernel == "gather":
+                n_rb = int(self._pos[lanes].max()) \
+                    // self.paged_arena.block_size + 1
+                toks = self._decode_fn(w, n_rb)()
+            else:
+                toks = self._decode_block(w)
+            nxt = toks[:n].cpu().numpy()
         self.stats.on_decode_step(n)
         now = self._clock()
         for i, tok in zip(lanes, nxt):
             self._toks[i] = tok
             self._pos[i] += 1
             self._emit(i, self._slots[i], int(tok), now)
+
+    def _decode_fn(self, w, n_rb=None):
+        """The decode step at width ``w``: the pool step over the first
+        ``w`` lanes of the device inputs and the sampling, returning (w,)
+        int64 tokens."""
+        arena = self.paged_arena
+        inp = self._inputs.view(w)
+
+        def step():
+            logits = self._x.paged_decode_step(
+                self._params, arena.pool_k, arena.pool_v, inp,
+                arena.block_size, kernel=arena.config.kernel, n_rb=n_rb)
+            return _sample(logits, inp["temps"], seeds(inp),
+                           inp["pos"].long() + 1, self._top_k, self._top_p)
+
+        return step
+
+    def _decode_block(self, w):
+        """(w,) tokens of one block-kernel step at width ``w``: a replay of
+        the width's captured step; the first step at a width runs eagerly
+        and then captures it (which runs nothing), so no request advances
+        twice."""
+        step = self._steps.get(w)
+        if step is not None:
+            return step()
+        fn = self._decode_fn(w)
+        if not self.capture:
+            return fn()
+        dev = self._inputs.buf.device
+        toks = graphs.warm(fn, dev)
+        if dev.type == "cuda" and self._graph_pool is None:
+            self._graph_pool = torch.cuda.graph_pool_handle()
+        self._steps[w] = graphs.Step(fn, dev, pool=self._graph_pool)
+        return toks
 
     def _emit(self, idx, slot, token, now):
         slot.emitted.append(token)

@@ -10,11 +10,13 @@
 * **pool step**, two implementations behind ``PagedConfig.kernel``:
   ``"block"`` (default, :func:`_paged_decode_kernel`) attends directly
   over the pool with the block tables as the index, one ``paged_attn``
-  kernel launch a layer for all slots; ``"gather"``
-  (:func:`_paged_decode_step`) copies each slot's blocks into a dense
-  row and runs the dense ``decode_step``, the parity oracle.  Both
-  return the step's logits and write its K/V row into the pool in
-  place;
+  kernel launch a layer for all slots, reading its inputs from
+  persistent device buffers (:class:`DecodeInputs`), so the engine
+  captures it as a CUDA graph; ``"gather"`` (:func:`_paged_decode_step`)
+  copies each slot's blocks into a dense row and runs the dense
+  ``decode_step``, the parity oracle, eagerly.  Both return the step's
+  logits and write its K/V row into the pool in place (the pool is
+  allocated once and never reallocated: captured steps write it);
 * **preemption / swap**: a request's blocks can leave the pool for host
   memory mid-decode (``swap_out``: one gather and one copy to the host,
   a :class:`~singa_tpu_torch.serve.kvimage.KVImage`) and come back later
@@ -39,7 +41,7 @@ from ..models.gpt2_decode import decode_step, decode_step_paged
 from ..observe.registry import registry as _default_registry
 from .kvimage import KVImage, pack_image
 
-__all__ = ["PagedConfig", "PagedKVArena"]
+__all__ = ["PagedConfig", "PagedKVArena", "DecodeInputs", "seeds"]
 
 
 @dataclass(frozen=True)
@@ -86,43 +88,99 @@ class PagedConfig:
 # -------------------------------------------------------------- pool steps
 
 
-def _embed(params, toks, pos, live):
-    """(S, 1, E) inputs; dead lanes embed token 0 at position 0."""
-    dev = params["wte"].device
-    t = torch.as_tensor(np.where(live, toks, 0), device=dev).long()
-    p = torch.as_tensor(np.where(live, pos, 0), device=dev).long()
-    return (params["wte"][t] + params["wpe"][p])[:, None]
+class DecodeInputs:
+    """The decode step's inputs as persistent device tensors, for up to
+    ``slots`` lanes: tokens, positions, live flags, sampling seeds (low
+    and high 32 bits), temperatures (float32 bits) and block tables
+    (``slots`` x ``row_blocks``), all int32 in one device buffer.  The
+    engine writes a step's values into a host staging buffer of the same
+    layout and :meth:`load` moves it to the device in one copy.  A decode
+    width ``w`` reads the first ``w`` lanes of each (:meth:`view`), at
+    addresses that never change, so a captured step reads each step's
+    inputs."""
+
+    FIELDS = ("toks", "pos", "live", "seed_lo", "seed_hi", "temps")
+
+    def __init__(self, slots, row_blocks, device):
+        self.slots, self.row_blocks = slots, row_blocks
+        n = len(self.FIELDS) * slots + slots * row_blocks
+        self.host = torch.zeros(n, dtype=torch.int32,
+                                pin_memory=device.type == "cuda")
+        self.buf = torch.zeros(n, dtype=torch.int32, device=device)
+        self._h = self.host.numpy()
+
+    def stage(self, toks, pos, live, seeds, temps, tables):
+        """Write one step's host values (width-``w`` numpy arrays and a
+        (w, row_blocks) table) into the staging buffer."""
+        S, w = self.slots, len(toks)
+        seeds = np.asarray(seeds, np.int64)
+        cols = (toks, pos, live, seeds & 0xFFFFFFFF, seeds >> 32,
+                np.asarray(temps, np.float32).view(np.int32))
+        for i, c in enumerate(cols):
+            # the low 32 bits of each value (a seed half wraps to int32)
+            self._h[i * S:i * S + w] = np.asarray(c).astype(np.int32)
+        t0 = len(self.FIELDS) * S
+        self._h[t0:t0 + w * self.row_blocks] = tables.reshape(-1)
+
+    def load(self):
+        """The staging buffer -> the device buffer, one copy."""
+        self.buf.copy_(self.host, non_blocking=True)
+
+    def view(self, w):
+        """``dict`` of views of the first ``w`` lanes in the device
+        buffer: ``toks``, ``pos``, ``live``, ``seed_lo``, ``seed_hi``
+        (int32), ``temps`` (float32), ``tables`` (w, row_blocks) int32.
+        A captured step reads through them (:func:`seeds` combines the
+        seed halves inside the step)."""
+        S, d = self.slots, self.buf
+        f = {n: d[i * S:i * S + w] for i, n in enumerate(self.FIELDS)}
+        f["temps"] = f["temps"].view(torch.float32)
+        t0 = len(self.FIELDS) * S
+        f["tables"] = d[t0:t0 + w * self.row_blocks].view(w, self.row_blocks)
+        return f
 
 
-def _paged_decode_kernel(params, pool_k, pool_v, tables, toks, pos, live,
-                         block, n_head, eps):
+def seeds(inp):
+    """(w,) int64 sampling seeds from the seed halves of ``inp``."""
+    return (inp["seed_hi"].long() << 32) | (inp["seed_lo"].long()
+                                            & 0xFFFFFFFF)
+
+
+def _embed(params, toks, pos):
+    """(S, 1, E) inputs from device ``toks`` and ``pos``."""
+    return (params["wte"][toks.long()] + params["wpe"][pos.long()])[:, None]
+
+
+def _paged_decode_kernel(params, pool_k, pool_v, inp, block, n_head, eps):
     """Advance every lane one token against the pool without gathering
-    rows: ``tables`` (S, W // B), ``toks``, ``pos``, ``live`` (S,) host
-    arrays (dead lanes: all-trash tables).  ``n_blk`` is the longest live
-    lane's block count, so the kernel reads no block past any slot's
-    ``pos``.  The vmap over slots of the JAX function is the kernel's
-    slot dimension: one launch a layer for all lanes.  Returns (S, V)
-    logits; the pools take the step's K/V rows in place."""
-    dev = pool_k.device
-    p_c = np.where(live, pos, 0).astype(np.int32)
-    n_blk = int(((p_c + block - 1) // block).max(initial=0))
-    return decode_step_paged(
-        params, _embed(params, toks, pos, live), pool_k, pool_v,
-        torch.as_tensor(tables, device=dev), torch.as_tensor(p_c, device=dev),
-        n_blk, n_head, eps, block=block)
+    rows.  ``inp``: the lanes' device inputs (:meth:`DecodeInputs.view`;
+    dead lanes: all-trash tables, and they embed token 0 at position
+    0).  ``paged_attn`` finds the blocks to read from the positions on
+    the device, and nothing here reads a device value on the host, so the
+    engine captures this step, with its sampling, as a CUDA graph.  The
+    vmap over slots of the JAX function is the kernel's slot dimension:
+    one launch a layer for all lanes.  Returns (S, V) logits; the pools
+    take the step's K/V rows in place."""
+    live = inp["live"] != 0
+    toks = torch.where(live, inp["toks"], 0)
+    p_c = torch.where(live, inp["pos"], 0)
+    return decode_step_paged(params, _embed(params, toks, p_c), pool_k,
+                             pool_v, inp["tables"], p_c, n_head, eps,
+                             block=block)
 
 
-def _paged_decode_step(params, pool_k, pool_v, tables, toks, pos, live,
-                       block, n_head, eps):
-    """The gather oracle: copy each lane's blocks (up to the one holding
-    ``pos``) into a dense (L, S, H_kv, W', D) row, run the dense
-    ``decode_step`` on it, and write the K/V row it wrote at ``pos`` back
-    into the pool (dead lanes: the trash block).  Same contract as
-    :func:`_paged_decode_kernel`."""
-    dev = pool_k.device
-    p_c = np.where(live, pos, 0).astype(np.int64)
-    n_rb = int((p_c // block).max(initial=0)) + 1
-    tbl = torch.as_tensor(tables[:, :n_rb], device=dev).long()
+def _paged_decode_step(params, pool_k, pool_v, inp, n_rb, block, n_head,
+                       eps):
+    """The gather oracle: copy each lane's first ``n_rb`` blocks (those up
+    to the one holding the longest lane's ``pos``, a host count) into a
+    dense (L, S, H_kv, W', D) row, run the dense ``decode_step`` on it,
+    and write the K/V row it wrote at ``pos`` back into the pool (dead
+    lanes: the trash block).  Same contract as
+    :func:`_paged_decode_kernel`; it runs eagerly."""
+    live = inp["live"] != 0
+    toks = torch.where(live, inp["toks"], 0)
+    pos_t = torch.where(live, inp["pos"], 0).long()
+    tbl = inp["tables"][:, :n_rb].long()
 
     def row(pool):
         r = pool[:, tbl]                          # (L, S, nb, H, B, D)
@@ -131,10 +189,9 @@ def _paged_decode_step(params, pool_k, pool_v, tables, toks, pos, live,
         return r.reshape(s[0], s[1], s[2], s[3] * s[4], s[5])
 
     kc, vc = row(pool_k), row(pool_v)
-    pos_t = torch.as_tensor(p_c, device=dev)
-    logits, kc, vc = decode_step(params, _embed(params, toks, pos, live),
-                                 kc, vc, pos_t, n_head, eps)
-    lanes = torch.arange(len(p_c), device=dev)
+    logits, kc, vc = decode_step(params, _embed(params, toks, pos_t), kc,
+                                 vc, pos_t, n_head, eps)
+    lanes = torch.arange(len(pos_t), device=pos_t.device)
     blk = tbl.gather(1, (pos_t // block)[:, None])[:, 0]
     # both sides index (S, L, H, D): the advanced indices lead
     pool_k[:, blk, :, pos_t % block] = kc[:, lanes, :, pos_t]

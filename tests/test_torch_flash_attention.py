@@ -135,6 +135,30 @@ def test_flash_matches_jax(name):
                                    err_msg=f"d{n}")
 
 
+WIDE = {
+    "d640_causal": dict(s=64, d=640, causal=True),
+    "d1024_key_mask": dict(s=48, d=1024, mask=_key_mask(48, 40)),
+}
+
+
+@pytest.mark.parametrize("name", sorted(WIDE))
+def test_wide_heads_match_jax(name):
+    """Heads past 512, which the card runs on the 8-row rung and the
+    JAX kernel pads: the plain versions agree with it there too."""
+    kw = dict(WIDE[name])
+    s, d = kw.pop("s"), kw.pop("d")
+    mask, causal = kw.pop("mask", None), kw.pop("causal", False)
+    qkv, go, glse = _inputs(s, d, seed=100 + sorted(WIDE).index(name))
+    jo, jlse, jgrads = _jax_run(qkv, go, glse, mask, causal, None)
+    to, tlse, tgrads = _torch_run(qkv, go, glse, mask, causal, None)
+    np.testing.assert_allclose(to, jo, atol=ATOL_OUT, rtol=0)
+    if jlse is not None:
+        np.testing.assert_allclose(tlse, jlse, atol=ATOL_OUT, rtol=0)
+    for t, j, n in zip(tgrads, jgrads, "qkv"):
+        np.testing.assert_allclose(t, j, atol=ATOL_GRAD, rtol=0,
+                                   err_msg=f"d{n}")
+
+
 def test_dead_row_gives_zero_output_and_floor_lse():
     qkv, _, _ = _inputs(128, 64, seed=0)
     o, lse = tfa.flash_attention_lse(

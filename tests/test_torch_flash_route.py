@@ -5,7 +5,8 @@ them in a profile; no GPU needed.
 returns the C entry points' ``kind``: bf16 with D <= 128 runs the
 forward, dQ and dK/dV on the tensor-core kernels (``fwd_tc_kernel``,
 ``dq_tc_kernel``, ``dkv_tc_kernel``); float32 and bf16 with 128 < D <=
-512 run the CUDA-core kernels; anything else raises.  The
+1792 run the CUDA-core kernels (past D = 512 their 8-row rung); anything
+else raises.  The
 kernels themselves are held against their plain versions on the card
 (tests/test_torch_kernels_cuda.py, ``chip_smoke.py``).
 """
@@ -40,6 +41,8 @@ TC, BF16_CC, F32_CC = (tfa.BF16_TENSOR_CORE, tfa.BF16_CUDA_CORE,
     (torch.bfloat16, 257, BF16_CC),
     (torch.bfloat16, 320, BF16_CC),
     (torch.bfloat16, 512, BF16_CC),
+    (torch.bfloat16, 640, BF16_CC),
+    (torch.bfloat16, 1792, BF16_CC),
     (torch.float32, 8, F32_CC),
     (torch.float32, 64, F32_CC),
     (torch.float32, 128, F32_CC),
@@ -47,6 +50,7 @@ TC, BF16_CC, F32_CC = (tfa.BF16_TENSOR_CORE, tfa.BF16_CUDA_CORE,
     (torch.float32, 256, F32_CC),
     (torch.float32, 257, F32_CC),
     (torch.float32, 512, F32_CC),
+    (torch.float32, 1024, F32_CC),
 ])
 def test_route(dtype, d, want):
     assert tfa.route(dtype, d) == want
@@ -64,29 +68,36 @@ def test_route_kinds_are_the_c_dispatchs():
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("d", [513, 1024])
+@pytest.mark.parametrize("d", [1793, 2048])
 def test_route_raises_past_the_widest_head(dtype, d):
-    with pytest.raises(ValueError, match="head dims up to 512"):
+    with pytest.raises(ValueError, match="head dims up to 1792"):
         tfa.route(dtype, d)
 
 
 def test_every_cuda_core_rung_fits_shared_memory():
     """``dispatch_d``'s rungs cover every head dim up to ``MAX_HEAD_DIM``,
     and at each rung the forward's, dQ's and dK/dV's shared memory (the
-    source's ``smem_bytes``, in floats) fits the 227 KB a block may use."""
+    source's ``smem_bytes``, in floats) fits the 227 KB a block may use.
+    The 8-row rung's row is the widest that fits, in whole 32-column
+    lanes' shares: 32 columns more would not."""
     src = CU.read_text()
     body = src[src.index("int dispatch_d("):]
     body = body[:body.index("\n}\n")]
     rungs = [(int(d), int(br), int(dt)) for d, br, dt in re.findall(
         r"if \(a\.D <= (\d+)\) return launch<T, (\d+), (\d+)>", body)]
     assert rungs[-1][0] == tfa.MAX_HEAD_DIM
-    for d, br, dt in rungs:
-        assert d <= dt and br % 16 == 0
+    def fits(br, dt):
         floats = (3 * br * (dt + 1) + br * (br + 1),
                   4 * br * (dt + 1) + br * (br + 1),
                   4 * br * (dt + 1) + 2 * br * (br + 1) + 2 * br)
-        assert max(floats) * 4 <= 232448, (d, br, dt)
+        return max(floats) * 4 <= 232448
+
+    for d, br, dt in rungs:
+        assert d <= dt and (br % 16 == 0 or (br == 8 and dt % 32 == 0))
+        assert fits(br, dt), (d, br, dt)
     assert re.search(r"return launch<T, 16, 512>", body)
+    assert rungs[-1][1:] == (8, 1792) and not fits(8, 1792 + 32)
+    assert not fits(16, 1024)  # why the widest rung takes 8 rows
 
 
 def test_route_raises_on_other_dtypes():
@@ -105,7 +116,9 @@ def test_every_flash_kernel_lands_in_the_profiles_flash_group():
     ``name<template args>(...)``."""
     names = _global_functions(CU.read_text())
     assert set(names) == {"fwd_kernel", "dq_kernel", "dkv_kernel",
-                          "fwd_tc_kernel", "dq_tc_kernel", "dkv_tc_kernel"}
+                          "fwd_tc_kernel", "dq_tc_kernel", "dkv_tc_kernel",
+                          "fwd_narrow_kernel", "dq_narrow_kernel",
+                          "dkv_narrow_kernel"}
     pattern = dict(chip_smoke.KERNEL_GROUPS)["flash_attention"]
     for name in names:
         profiled = f"void (anonymous namespace)::{name}<64, 4>(Args)"

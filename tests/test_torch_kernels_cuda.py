@@ -87,11 +87,11 @@ def test_bf16_calls_take_the_tensor_core_route(cuda_device):
 
 @pytest.mark.cuda
 def test_unsupported_inputs_raise(cuda_device):
-    """Past D = 512 (the CUDA-core kernels' widest rung; D = 320 and 512
-    are edge cases above), another dtype, and malformed lse / delta
-    raise."""
-    q = torch.zeros(1, 8, 520, device=cuda_device)
-    with pytest.raises(ValueError, match="head dims up to 512"):
+    """Past D = 1792 (the CUDA-core kernels' widest rung, 8 rows a tile;
+    D = 640 to 1792 are edge cases above), another dtype, and malformed
+    lse / delta raise."""
+    q = torch.zeros(1, 8, 1800, device=cuda_device)
+    with pytest.raises(ValueError, match="head dims up to 1792"):
         tfa.flash_fwd(q, q, q, None, None, None, 1.0, False, None)
     h = torch.zeros(1, 8, 64, device=cuda_device, dtype=torch.float16)
     with pytest.raises(TypeError, match="float32 or bfloat16"):
@@ -178,9 +178,10 @@ def test_paged_kernel_matches_plain(cuda_device, dtype, seed, name, case):
 
 @pytest.mark.cuda
 def test_paged_kernel_counts_its_launches_and_refuses_int8(cuda_device):
-    """One count a call (the split and combine kernels together); int8
-    pools, D past 512 and more than 4 rows a kv head past D = 128 raise;
-    D = 96 and 512 run and agree with the plain version."""
+    """One count a launch (the split and combine kernels together); int8
+    pools, D past 1024 and more than 4 query positions past D = 128
+    raise; D = 96, 512 and 1024 run and agree with the plain version, and
+    a GQA group of 5 heads at D = 256 runs as two launches."""
     args = chip_smoke.paged_inputs(lens=[9, 0], block=8, d=64, n_kv=2, g=1,
                                    nq=1, dtype=torch.float32, seed=0)
     before = tpa.paged_attn.launches
@@ -191,16 +192,23 @@ def test_paged_kernel_counts_its_launches_and_refuses_int8(cuda_device):
                 pool_v=args["pool_v"].to(torch.int8))
     with pytest.raises(TypeError, match="int8"):
         tpa.paged_attn(**int8)
-    for d in (96, 512):
+    for d in (96, 512, 1024):
         ok = chip_smoke.paged_inputs(lens=[9, 300], block=8, d=d, n_kv=1,
                                      g=1, nq=1, dtype=torch.float32, seed=0)
         torch.testing.assert_close(tpa.paged_attn(**ok),
                                    tpa.paged_attn_plain(**ok),
                                    rtol=2e-5, atol=2e-5)
-    for d, g in ((520, 1), (256, 5)):
-        bad = chip_smoke.paged_inputs(lens=[9], block=8, d=d, n_kv=1, g=g,
-                                      nq=1, dtype=torch.float32, seed=0)
-        with pytest.raises(ValueError, match="head dims|rows"):
+    five = chip_smoke.paged_inputs(lens=[9, 40], block=8, d=256, n_kv=1,
+                                   g=5, nq=1, dtype=torch.float32, seed=1)
+    before = tpa.paged_attn.launches
+    torch.testing.assert_close(tpa.paged_attn(**five),
+                               tpa.paged_attn_plain(**five),
+                               rtol=2e-5, atol=2e-5)
+    assert tpa.paged_attn.launches == before + 2
+    for d, nq in ((1040, 1), (256, 5)):
+        bad = chip_smoke.paged_inputs(lens=[9], block=8, d=d, n_kv=1, g=1,
+                                      nq=nq, dtype=torch.float32, seed=0)
+        with pytest.raises(ValueError, match="head dims|positions"):
             tpa.paged_attn(**bad)
 
 

@@ -9,14 +9,18 @@ catch indexing, masking, tiling and synchronisation faults in the
 kernels without a card.  It sums each ``mma`` exactly, so the card's own
 rounding is held on the card (tests/test_torch_kernels_cuda.py,
 ``chip_smoke.py``).  Cases: small ``chip_smoke`` edge cases, bf16 for
-flash attention (the tensor-core route, and the CUDA-core kernels' widest
-rung at D = 512), the ragged and narrow ones for the bottleneck; for
-paged attention, the split and combine kernels in float32 and bf16 at
-``chip_smoke.PAGED_TOL``, on three cases at the split count the wrapper
-would choose (dead slots with all-trash tables, GQA g = 3 with Q = 4 at
-D = 128, a window over Q = 4) and on D = 16 and a long slot beside short
-ones at D = 64 over one split and over three; and the split plan itself.
-Needs a C++ compiler.
+flash attention (the tensor-core route, the CUDA-core kernels at D = 512
+and their 8-row rung at D = 640 and 1024, there in float32 too), the
+ragged and narrow ones for the bottleneck; for paged attention, the
+split and combine kernels in float32 and bf16 at ``chip_smoke.PAGED_TOL``,
+launched as the wrapper launches them (the table width as the bound of
+the blocks read, which the kernel narrows from the positions on the
+device; groups of at most ``max_rows(D)`` query rows), on six cases at
+the split count the wrapper would choose (dead slots with all-trash
+tables, GQA g = 3 with Q = 4 at D = 128, a window over Q = 4, D = 640,
+D = 1024 with 6 heads, 32 query rows at D = 64) and on D = 16 and a long
+slot beside short ones at D = 64 over one split and over three; and the
+split plan itself.  Needs a C++ compiler.
 """
 
 import importlib.util
@@ -30,9 +34,11 @@ import chip_smoke
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 FLASH = ("s65_causal", "s129_causal", "d13_s100", "window1", "neg_inf_row",
-         "general_mask_mBH", "d512_window")
+         "general_mask_mBH", "d512_window", "d640_window",
+         "d1024_general_mask")
 BOTTLENECK = ("hw7_bands_ragged", "c128_cm32", "odd_h5_w9_cm8")
-PAGED = ("dead_slots_all_trash", "g3_q4_d128", "window_q4_g3")
+PAGED = ("dead_slots_all_trash", "g3_q4_d128", "window_q4_g3", "d640",
+         "d1024_g6", "g8_q4_32_rows")
 
 
 @pytest.fixture(scope="module")
@@ -62,6 +68,16 @@ def test_flash_kernels_match_plain(emu, build_dir, cpu_inputs, name):
                     in enumerate(chip_smoke.edge_cases()) if n == name)
     lib = emu.load("flash_attention", build_dir)
     res = emu.flash_case(lib, dtype=torch.bfloat16, seed=seed, **kw)
+    assert all(ok for _, ok in res.values()), res
+
+
+@pytest.mark.parametrize("name", ["d640_window", "d1024_general_mask"])
+def test_flash_narrow_rung_matches_plain_in_float32(emu, build_dir,
+                                                    cpu_inputs, name):
+    seed, kw = next((i, kw) for i, (n, kw)
+                    in enumerate(chip_smoke.edge_cases()) if n == name)
+    lib = emu.load("flash_attention", build_dir)
+    res = emu.flash_case(lib, dtype=torch.float32, seed=seed, **kw)
     assert all(ok for _, ok in res.values()), res
 
 
@@ -103,7 +119,8 @@ def test_paged_split_and_combine_kernels(emu, build_dir, cpu_inputs, name,
 
 def test_paged_split_plan(emu, build_dir):
     """The C plan on an H100's 132 SMs: about 4 blocks an SM, at least
-    128 keys a split, whole tiles a warp; none past D = 512."""
+    128 keys a split, whole tiles a warp; none past D = 1024.  The serve
+    step plans from its table width (32 blocks of 32)."""
     from singa_tpu_torch.ops import paged_attention as pa
 
     lib = emu.load("paged_attention", build_dir)
@@ -113,12 +130,13 @@ def test_paged_split_plan(emu, build_dir):
                               lib)
 
     assert plan(16, 32, 8 * 12) == 4      # a serve step: 8 slots, 512 keys
+    assert plan(32, 32, 8 * 12) == 4      # ... planned from the table width
     assert plan(32, 32, 2 * 12) == 8      # two 1000-lane slots
     assert plan(4, 32, 2) == 1            # 128 keys: one split
     assert plan(32, 32, 600) == 1         # enough pairs to fill the card
     assert plan(32, 32, 2, blk_lo=28) == 1
     assert plan(300, 1, 6, d=256, dtype=torch.float32) == 2
-    assert plan(16, 32, 96, d=520) == 0
+    assert plan(16, 32, 96, d=1040) == 0
 
 
 def test_every_inline_ptx_helper_is_emulated(emu):

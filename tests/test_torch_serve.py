@@ -166,7 +166,7 @@ def test_decode_step_paged_matches_jax(models, params):
         pool_v.copy())
     tl = gd.decode_step_paged(tp, torch.from_numpy(x), tpk, tpv,
                               torch.from_numpy(tables), torch.from_numpy(pos),
-                              n_blk, cfg.n_head, cfg.layer_norm_eps, block=B)
+                              cfg.n_head, cfg.layer_norm_eps, block=B)
     for s in range(3):
         jl, kb, vb = jgd.decode_step_paged(
             jp, jnp.asarray(x[s:s + 1]), jnp.asarray(pool_k),

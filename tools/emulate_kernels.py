@@ -196,33 +196,26 @@ def bottleneck_case(lib, b, h, w, c, cm, seed, affine="unit"):
 
 def paged_case(lib, dtype, seed, n_split=None, **kw):
     """The emulated split and combine kernels on one ``chip_smoke`` case
-    (CPU tensors) against their plain version, over ``n_split`` splits of
-    the key range (default: what the wrapper would choose on an H100's
-    132 SMs); returns ``(max |Δ|, ok)``."""
+    (CPU tensors, the output and workspace NaN-filled) against their
+    plain version, launched as the wrapper launches them (groups of at
+    most ``max_rows(D)`` query rows, the table width as the bound of the
+    blocks read, which the kernel narrows from ``p_limit``), over
+    ``n_split`` splits of the key range (default: what the wrapper would
+    choose on an H100's 132 SMs); returns ``(max |Δ|, ok)``."""
     import torch
 
     import chip_smoke as cs
     from singa_tpu_torch.ops import paged_attention as pa
 
     a = cs.paged_inputs(dtype=dtype, seed=seed, **kw)
-    q = a["q"]
-    s_, n_kv, g, nq, d = q.shape
-    block = a["pool_k"].shape[2]
-    if n_split is None:
-        n_split = pa.split_count(d, dtype, a["n_blk"], a["blk_lo"], block,
-                                 s_ * n_kv, 132, lib)
-    out = torch.full_like(q, float("nan"))
-    ws = torch.full((s_ * n_kv * n_split * g * nq * (d + 2),), float("nan"))
-    err = lib.paged_attention(
-        *(a[k].data_ptr() for k in ("q", "pool_k", "pool_v", "tables",
-                                    "p_limit", "k_cur", "v_cur",
-                                    "cur_mask")),
-        out.data_ptr(), ws.data_ptr(), s_, n_kv, g, nq, d, block,
-        a["tables"].shape[1], a["pool_k"].shape[0] - 1, a["n_blk"],
-        int(a["blk_lo"] or 0), int(a["window"] or 0), n_split, a["scale"],
-        pa._DTYPES[dtype], None)
-    if err:
-        raise RuntimeError(f"emulated launch returned {err}")
+
+    def nan_filled(shape, dtype, device):
+        return torch.full(shape, float("nan"), dtype=dtype, device=device)
+
+    out, _ = pa.launch_groups(
+        lib, a["q"], a["pool_k"], a["pool_v"], a["tables"], a["p_limit"],
+        a["k_cur"], a["v_cur"], a["cur_mask"], a["scale"], a["window"],
+        a["blk_lo"], 132, None, n_split=n_split, empty=nan_filled)
     got, want = out.float(), pa.paged_attn_plain(**a).float()
     rtol, atol = cs.PAGED_TOL[dtype]
     return ((got - want).abs().max().item(),
