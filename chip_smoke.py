@@ -73,7 +73,31 @@ exits nonzero:
                     the kernel, its plain version and the cuDNN chain
                     (three channels-last bf16 convs and the elementwise
                     work; no single PyTorch call computes the block).
-7. ``serve``      - serves GPT-2 small (124M, 12 layers, n_positions 1024,
+7. ``zoo``        - the CNN zoo at its published widths and input sizes,
+                    each trained through ``Model.compile(use_graph=True)``
+                    and ``train_one_batch`` with bf16 amp, a batch of 32
+                    random images from a numpy seed and
+                    ``examples/cnn/train_cnn.py``'s SGD(0.005, 0.9, wd
+                    1e-5): CNN (28², 1 channel), AlexNet, VGG-16 and
+                    MobileNetV2 (224²), Xception (299²) and
+                    ``UNet(num_classes=2, base_channels=16, depth=3)``
+                    (256², per-pixel labels); 3 eager steps against 3 in
+                    graph mode from one state and one generator seed
+                    (losses and weights within ``CAPTURE_RTOL``, finite
+                    losses), then one profiled step of each mode: host
+                    ms a step, device ms, busy share and images/s beside
+                    the card's name and power limit.  Then the VGG-16
+                    checkpoint check (``checkpoint_check``: the step
+                    after ``save_states``/``load_states`` into a fresh
+                    model and optimizer, and after an ``async_save``
+                    taken between replays, bit for bit equal to the
+                    uninterrupted step), the MLP at
+                    ``examples/mlp/train.py``'s configuration (float32,
+                    batch 64) the same way, that script's flow (eval
+                    accuracy > 0.9), and ``schedule_probe`` (an
+                    ``ExponentialDecay`` rate read off replayed steps
+                    against its formula).
+8. ``serve``      - serves GPT-2 small (124M, 12 layers, n_positions 1024,
                     random weights from a seed) through the paged engine,
                     ``model.serve(max_slots=8, paged=PagedConfig(
                     block_size=32, num_blocks=256))``, every decode step a
@@ -103,27 +127,28 @@ exits nonzero:
                     ``generate``, no block left, the census flat; and
                     ``GPT2Config.tiny`` (D = 16) served on the card,
                     streams equal to offline ``generate``.
-8. ``generate``   - the serve phase's float32 GPT-2 small past
+9. ``generate``   - the serve phase's float32 GPT-2 small past
                     n_positions: a 1000-token prompt and 40 greedy tokens
                     take the windowed path (12 flash forward launches a
                     token), equal to the KV-cached ``generate`` over the
                     24 tokens that fit; ``min_p`` and
                     ``repetition_penalty`` on the KV-cached path.
-9. ``paged_kernels`` - ``paged_attn`` (its split and combine kernels)
+10. ``paged_kernels`` - ``paged_attn`` (its split and combine kernels)
                     against ``paged_attn_plain`` at the edge cases of
                     ``paged_edge_cases`` (block sizes 1 to 32, partial and
                     full last blocks, all-trash and one-block tables, GQA
                     g = 3, D = 16/20/40/80/128/256/640/1024, Q = 4 with a
                     tril mask, GQA groups of 32 query rows and of 6 heads
-                    at D = 1024 (launched in groups of heads),
-                    windows, 1000-lane slots, a long slot beside short
+                    at D = 1024 (launched in groups of heads), Q = 24
+                    and 40 query positions (launched in runs of
+                    positions), windows, 1000-lane slots, a long slot beside short
                     ones; one split of the key range and several) in
                     float32 and bf16, and at two tables of bf16 pools over
                     12 layers, one decode step's real tables from the
                     serve phase and two 1000-lane slots, where it times the
                     kernels, their plain version and SDPA on rows gathered
                     from the pool (the yardstick; the gather not timed).
-10. ``device``    - the card's name and power limit from nvidia-smi.
+11. ``device``    - the card's name and power limit from nvidia-smi.
 
 Then one line ``{"kernels": [...]}`` with each kernel's launches on the
 main path (the graph-mode runs: a replay credits the launches its graph
@@ -134,6 +159,7 @@ mode.
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import itertools
 import json
@@ -550,14 +576,17 @@ def _relative_diff(a, b):
     return ((a - b).abs().max() / b.abs().max().clamp_min(1e-30)).item()
 
 
-def train_eager_and_captured(build, x, y, steps, rtol, profiles):
+def train_eager_and_captured(build, x, y, steps, rtol, profiles,
+                             before_run=None):
     """Train ``build(False)`` (eager) and ``build(True)`` (graph mode: the
     first call eager, the second captured, the rest replays) for
     ``steps`` steps each on the same batch from the same initial state,
     then profile each over 2 more steps (``profiles``: ``profile_steps``
-    keywords by mode).  Raises unless losses and weights agree within
-    ``rtol`` (``_relative_diff``), the flash kernels (if the model runs
-    them) launch the same number of times in both and ``graph.cache_miss``
+    keywords by mode; None profiles neither).  ``before_run()`` is called
+    before each mode's steps (to seed the device generator, so dropout
+    draws the same masks in both).  Raises unless losses and weights agree within ``rtol``
+    (``_relative_diff``), the flash kernels (if the model runs them)
+    launch the same number of times in both and ``graph.cache_miss``
     moves once.  Returns ``(graph-mode model, report)``."""
     from singa_tpu_torch.observe.registry import registry
     from singa_tpu_torch.ops import flash_attention as fa
@@ -572,6 +601,8 @@ def train_eager_and_captured(build, x, y, steps, rtol, profiles):
     report = {}
 
     def run(m, mode):
+        if before_run is not None:
+            before_run()
         for k in kernels:
             k.launches = k.tensor_core_launches = 0
         miss0 = misses.value
@@ -594,8 +625,9 @@ def train_eager_and_captured(build, x, y, steps, rtol, profiles):
             cache_miss_after_each_step=miss,
             launches={k.__name__: k.launches for k in kernels},
             tensor_core_launches={k.__name__: k.tensor_core_launches
-                                  for k in kernels},
-            profile=profile_steps(m, x, y, **profiles[mode]))
+                                  for k in kernels})
+        if profiles is not None:
+            report[mode]["profile"] = profile_steps(m, x, y, **profiles[mode])
 
     run(eager, "eager")
     final = {k: v.detach().clone() for k, v in eager.get_states().items()}
@@ -762,13 +794,15 @@ def profile_steps(m, x, y, steps=2, groups=KERNEL_GROUPS, ranges=()):
     pattern; then each ``(group, names)`` of ``ranges``, the device time
     of every kernel launched inside the CPU ranges (ops, autograd nodes)
     of those names; everything else), the ten costliest kernels, and the
-    device's busy share of the host wall time of the window."""
+    device's busy share of the host wall time of the window.  The host's
+    ops are traced only for ``ranges``: tracing them slows an eager step
+    and takes the profiler seconds a step to read."""
     from torch.profiler import ProfilerActivity, profile
 
     range_names = {n for _, names in ranges for n in names}
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU] * bool(ranges) +
+                 [ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(steps):
             m(x, y)
@@ -879,6 +913,359 @@ def phase_resnet(steps=5, seed=0):
     log(dict(phase="resnet_profile", **profiles["eager"],
              captured=profiles["captured"]))
     return m, x
+
+
+# -------------------------------------------------------------------- zoo
+
+ZOO_BATCH = 32
+ZOO_SEED = 0
+#: (name, module of singa_tpu_torch.models, factory, kwargs, input
+#: (C, H, W), classes): the published widths and input sizes
+ZOO_MODELS = (
+    ("cnn", "cnn", "CNN", {}, (1, 28, 28), 10),
+    ("alexnet", "alexnet", "AlexNet", {}, (3, 224, 224), 1000),
+    ("vgg16", "vgg", "vgg16", {}, (3, 224, 224), 1000),
+    ("mobilenet_v2", "mobilenet", "mobilenet_v2", {}, (3, 224, 224), 1000),
+    ("xception", "xceptionnet", "Xception", {}, (3, 299, 299), 1000),
+    ("unet", "unet", "UNet", dict(num_classes=2, base_channels=16,
+                                  depth=3), (3, 256, 256), 2),
+)
+#: ``examples/cnn/train_cnn.py``'s optimizer for the zoo (its defaults):
+#: ``bench_resnet50``'s SGD(0.1, 0.9) drives AlexNet's and VGG's losses
+#: past 1e7 and MobileNetV2's to NaN within three steps (a CPU run at
+#: small sizes), as those nets have no batch norm or a thin one
+ZOO_SGD = dict(lr=0.005, momentum=0.9, weight_decay=1e-5)
+ZOO_GROUPS = RESNET_GROUPS
+#: steps of each mode the eager ≡ captured comparison takes (the captured
+#: mode's first call runs eagerly, its second captures); steps each
+#: mode is then timed over, and profiled over, on a fresh model (an
+#: eager step's trace takes the profiler seconds to read)
+ZOO_COMPARE_STEPS = 3
+ZOO_TIMED_STEPS = 20
+ZOO_PROFILED_STEPS = {"eager": 3, "captured": 10}
+#: where the zoo phase writes its checkpoints (gitignored), under the
+#: checkout it runs from
+ZOO_CKPT_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                            "_scratch", "chip_smoke_ckpt")
+
+
+def mlp_data(n=400, seed=0):
+    """``examples/mlp/train.py``'s data: two gaussian blobs, 2 classes."""
+    rng = np.random.RandomState(seed)
+    x0 = rng.randn(n // 2, 2).astype(np.float32) + np.array([2, 2],
+                                                            np.float32)
+    x1 = rng.randn(n // 2, 2).astype(np.float32) + np.array([-2, -2],
+                                                            np.float32)
+    x = np.concatenate([x0, x1])
+    y = np.concatenate([np.zeros(n // 2), np.ones(n // 2)]).astype(np.int32)
+    idx = rng.permutation(n)
+    return x[idx], y[idx]
+
+
+def mlp_flow(dev, epochs=10, batch=64):
+    """``examples/mlp/train.py``'s ``run --use-graph`` on the port:
+    ``MLP(2, 3, 2)``,
+    SGD(0.05, momentum 0.9, weight decay 1e-5), compiled on a
+    ``tensor.Tensor((batch, 2), dev)`` placeholder, ``epochs`` passes in
+    batches of 64, then the eval accuracy on the held-out fifth, which
+    the example requires to pass 0.9.  Returns (model, losses,
+    accuracy)."""
+    from singa_tpu_torch import opt, tensor
+    from singa_tpu_torch.models.mlp import MLP
+
+    x_np, y_np = mlp_data()
+    n_train = int(0.8 * len(x_np))
+    m = MLP(data_size=2, perceptron_size=3, num_classes=2)
+    m.set_optimizer(opt.SGD(lr=0.05, momentum=0.9, weight_decay=1e-5))
+    m.compile([tensor.Tensor((batch, 2), dev)], is_train=True,
+              use_graph=True, sequential=False)
+    losses = []
+    for _ in range(epochs):
+        for i in range(0, n_train - batch + 1, batch):
+            _, loss = m(tensor.from_numpy(x_np[i:i + batch], dev),
+                        tensor.from_numpy(y_np[i:i + batch], dev))
+            losses.append(loss.item())
+    m.eval()
+    out = m(tensor.from_numpy(x_np[n_train:], dev))
+    acc = float((tensor.to_numpy(out).argmax(-1) == y_np[n_train:]).mean())
+    if not all(math.isfinite(v) for v in losses) or acc <= 0.9:
+        raise AssertionError(f"examples/mlp flow: accuracy {acc}, losses "
+                             f"{losses[:3]} ... {losses[-3:]}")
+    return m, losses, acc
+
+
+def zoo_batch(shape, classes, seed, dev, unet=False):
+    """A batch of ``ZOO_BATCH`` random images and labels (per pixel for
+    the U-Net) from a numpy seed, on ``dev``."""
+    from singa_tpu_torch import tensor
+
+    rng = np.random.RandomState(seed)
+    images = rng.randn(ZOO_BATCH, *shape).astype(np.float32)
+    lab = (ZOO_BATCH, shape[1], shape[2]) if unet else (ZOO_BATCH,)
+    labels = rng.randint(0, classes, lab).astype(np.int32)
+    return tensor.from_numpy(images, dev), tensor.from_numpy(labels, dev)
+
+
+def zoo_maker(module, factory, kwargs, x, dev, seed=ZOO_SEED,
+                sgd=ZOO_SGD):
+    """``build(use_graph)``: the model from a seeded device generator,
+    ``SGD(**sgd)``, compiled on ``x``."""
+    import importlib
+
+    from singa_tpu_torch import opt
+
+    make = getattr(importlib.import_module(
+        f"singa_tpu_torch.models.{module}"), factory)
+
+    def build(use_graph):
+        dev.SetRandSeed(seed)
+        m = make(**kwargs)
+        m.set_optimizer(opt.SGD(**sgd))
+        m.compile([x], is_train=True, use_graph=use_graph)
+        return m
+
+    return build
+
+
+def time_steps(build, x, y, use_graph, profiled, timed=ZOO_TIMED_STEPS,
+               groups=ZOO_GROUPS):
+    """``build(use_graph)`` after two warm-up steps (graph mode: the eager
+    call and the capture), cuDNN free to choose its algorithms: the host
+    ms of ``timed`` steps, each read to its loss (which synchronizes),
+    their median, and ``profile_steps`` over ``profiled`` more."""
+    t0 = time.perf_counter()
+    m = build(use_graph)
+    for _ in range(2):
+        m(x, y)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    step_ms, losses = [], []
+    for _ in range(timed):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        _, loss = m(x, y)
+        losses.append(loss.item())
+        step_ms.append((time.perf_counter() - t) * 1e3)
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"non-finite loss in timed steps: {losses}")
+    t2 = time.perf_counter()
+    prof = profile_steps(m, x, y, steps=profiled, groups=groups)
+    del m
+    return {"step_ms": step_ms, "median_step_ms": statistics.median(step_ms),
+            "profile": prof, "seconds": {
+                "build_and_warm": t1 - t0, "timed": t2 - t1,
+                "profiled": time.perf_counter() - t2}}
+
+
+def _states_equal(a, b):
+    """Names of the persistent tensors (states, optimizer state) of two
+    models that differ in any bit."""
+    pa, pb = a.persistent_tensors(), b.persistent_tensors()
+    if set(pa) != set(pb):
+        raise AssertionError(f"state names differ: "
+                             f"{sorted(set(pa) ^ set(pb))[:5]}")
+    return [k for k in pa if not torch.equal(pa[k], pb[k])]
+
+
+@contextlib.contextmanager
+def cudnn_deterministic():
+    """cuDNN restricted to deterministic algorithms inside the block: two
+    runs of one step on equal inputs then agree to the bit, which a
+    comparison of eager with captured steps, or of a reloaded model with
+    the one that saved it, relies on."""
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = prev
+
+
+def checkpoint_check(build, x, y, dev, path, seed=ZOO_SEED):
+    """A graph-mode model trains 3 steps (eager, captured, replay), saves
+    its states with momentum and aux, and a fresh model and optimizer
+    load the zip; the next step of each (the first a replay, the second
+    the fresh model's eager first call), from one generator seed, must
+    agree bit for bit in the loss and every state.  Then the same with
+    ``async_save`` taken between two replays, the file loaded after the
+    second.  cuDNN runs deterministic algorithms meanwhile, so equal
+    inputs give equal bits.  Returns a report; raises on a mismatch."""
+    with cudnn_deterministic():
+        m = build(True)
+        for _ in range(3):
+            m(x, y)
+        m.save_states(path, aux_states={"steps": 3})
+        fresh = build(True)
+        if fresh.load_states(path)["steps"] != 3:
+            raise AssertionError("checkpoint: aux states did not load")
+        dev.SetRandSeed(seed + 1)
+        _, l1 = m(x, y)
+        dev.SetRandSeed(seed + 1)
+        _, l2 = fresh(x, y)
+        differ = _states_equal(m, fresh)
+        if l1.item() != l2.item() or differ:
+            raise AssertionError(f"reloaded step differs: loss {l2.item()} "
+                                 f"against {l1.item()}, states {differ[:5]}")
+        del fresh
+        handle = m.save_states(path, aux_states={"steps": 4},
+                               async_save=True)
+        dev.SetRandSeed(seed + 2)
+        _, l3 = m(x, y)                      # a replay, right after the save
+        handle.wait()
+        fresh = build(True)
+        if fresh.load_states(path)["steps"] != 4:
+            raise AssertionError("async checkpoint: aux states did not load")
+        dev.SetRandSeed(seed + 2)
+        _, l4 = fresh(x, y)
+        differ = _states_equal(m, fresh)
+        if l3.item() != l4.item() or differ:
+            raise AssertionError(f"step after an async save differs: loss "
+                                 f"{l4.item()} against {l3.item()}, states "
+                                 f"{differ[:5]}")
+        os.remove(path)
+        return {"reload_step_bitwise_equal": True,
+                "async_save_step_bitwise_equal": True,
+                "losses": [l1.item(), l3.item()],
+                "tensors": len(m.persistent_tensors())}
+
+
+def schedule_probe(dev, steps=6, init=0.1, decay_steps=2, rate=0.5):
+    """``ExponentialDecay`` read off a captured step: a bias-free
+    ``Linear(1)`` whose loss is the sum of its outputs on ones has
+    gradient 1 in every weight, so SGD without momentum moves each weight
+    by exactly the step's rate; steps 2 onward are replays.  Each step's
+    move must be ``init · rate^(step / decay_steps)`` within rtol 1e-5
+    (float32 weights of magnitude < 1).  Returns the rates."""
+    from singa_tpu_torch import autograd, layer, model, opt, tensor
+
+    class RateProbe(model.Model):
+        def __init__(self):
+            super().__init__()
+            self.fc = layer.Linear(1, bias=False)
+
+        def forward(self, x):
+            return self.fc(x)
+
+        def train_one_batch(self, x):
+            loss = autograd.reduce_sum(self.forward(x))
+            self.optimizer(loss)
+            return loss
+
+    x = tensor.from_numpy(np.ones((1, 8), np.float32), dev)
+    m = RateProbe()
+    m.set_optimizer(opt.SGD(lr=opt.ExponentialDecay(init, decay_steps,
+                                                     rate)))
+    m.compile([x], is_train=True, use_graph=True)
+    m.set_states({"RateProbe.fc.W": np.zeros((8, 1), np.float32)})
+    w = [np.zeros(8)]
+    for _ in range(steps):
+        m(x)
+        w.append(tensor.to_numpy(m.fc.W)[:, 0].astype(np.float64))
+    got = [float(np.mean(a - b)) for a, b in zip(w, w[1:])]
+    want = [init * rate ** (k / decay_steps) for k in range(steps)]
+    if not np.allclose(got, want, rtol=1e-5, atol=0):
+        raise AssertionError(f"ExponentialDecay under replay: {got} "
+                             f"against {want}")
+    return {"rates": got, "formula": want}
+
+
+def phase_zoo(seed=ZOO_SEED):
+    """The CNN zoo at its published widths and input sizes, each trained
+    as ``phase_resnet`` trains ResNet-50 (bf16 amp, a batch of 32, with
+    ``examples/cnn/train_cnn.py``'s SGD, ``ZOO_SGD``): eager against
+    graph mode from one state (the device generator seeded before each,
+    so dropout draws the same masks; cuDNN deterministic, so equal inputs
+    give equal bits), then each mode timed and profiled on a fresh model
+    with cuDNN free (``time_steps``); the VGG-16 checkpoint check; the
+    MLP at ``examples/mlp/train.py``'s configuration, then that script's
+    flow; and the schedule probe."""
+    import gc
+
+    from singa_tpu_torch import amp, device, tensor
+
+    dev = device.create_cuda_gpu()
+    smi = nvidia_smi()
+    prev_amp = amp._compute_dtype
+    os.makedirs(ZOO_CKPT_DIR, exist_ok=True)
+    report = {}
+
+    def free():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    def run(name, build, x, y, batch, dtype, optimizer):
+        t0 = time.perf_counter()
+        with cudnn_deterministic():
+            m, rep = train_eager_and_captured(
+                build, x, y, ZOO_COMPARE_STEPS, CAPTURE_RTOL[dtype], None,
+                before_run=lambda: dev.SetRandSeed(seed + 1))
+        params = sum(p.numel() for p in m.get_params().values())
+        del m
+        free()
+        seconds = {"compare": time.perf_counter() - t0}
+        timed = {}
+        for mode, use_graph in (("eager", False), ("captured", True)):
+            timed[mode] = time_steps(build, x, y, use_graph,
+                                     ZOO_PROFILED_STEPS[mode])
+            free()
+        prof = {mode: timed[mode].pop("profile") for mode in timed}
+        seconds.update({mode: timed[mode]["seconds"] for mode in timed})
+        med = timed["captured"]["median_step_ms"]
+        row = {
+            "phase": "zoo", "model": name, "params": params,
+            "batch": batch, "input": list(x.shape[1:]), "amp": dtype,
+            "optimizer": optimizer, "use_graph": True,
+            "eager_ms": timed["eager"]["median_step_ms"], "captured_ms": med,
+            "step_ms": {mode: timed[mode]["step_ms"] for mode in timed},
+            "device_ms": {mode: prof[mode]["device_ms_per_step"]
+                          for mode in prof},
+            "busy_share": {mode: prof[mode]["device_busy_share"]
+                           for mode in prof},
+            "profiled_steps": ZOO_PROFILED_STEPS,
+            "images_per_s": batch / med * 1e3,
+            "losses": {mode: rep[mode]["losses"] for mode in prof},
+            "max_loss_rel_diff": rep["max_loss_rel_diff"],
+            "max_weight_rel_diff": rep["max_weight_rel_diff"],
+            "bitwise_equal": rep["bitwise_equal"],
+            "group_ms_per_step": prof["captured"]["group_ms_per_step"],
+            "seconds": dict(seconds, total=time.perf_counter() - t0),
+            "nvidia_smi": smi}
+        log(row)
+        report[name] = row
+
+    try:
+        amp.enable()
+        for name, module, factory, kwargs, shape, classes in ZOO_MODELS:
+            x, y = zoo_batch(shape, classes, seed, dev,
+                             unet=factory == "UNet")
+            build = zoo_maker(module, factory, kwargs, x, dev, seed)
+            run(name, build, x, y, ZOO_BATCH, "bf16",
+                "SGD(lr=0.005, momentum=0.9, weight_decay=1e-5)")
+            if name == "vgg16":
+                t0 = time.perf_counter()
+                ck = checkpoint_check(build, x, y, dev, os.path.join(
+                    ZOO_CKPT_DIR, "vgg16.zip"), seed)
+                log({"phase": "zoo_checkpoint", "model": name, **ck,
+                     "seconds": time.perf_counter() - t0})
+                free()
+        # the MLP at examples/mlp/train.py's configuration (float32)
+        amp.enable(False)
+        x_np, y_np = mlp_data()
+        x = tensor.from_numpy(x_np[:64], dev)
+        y = tensor.from_numpy(y_np[:64], dev)
+        run("mlp", zoo_maker("mlp", "MLP", dict(
+            data_size=2, perceptron_size=3, num_classes=2), x, dev, seed,
+            sgd=dict(lr=0.05, momentum=0.9, weight_decay=1e-5)), x, y, 64,
+            "float32", "SGD(lr=0.05, momentum=0.9, weight_decay=1e-5)")
+        t0 = time.perf_counter()
+        _, losses, acc = mlp_flow(dev)
+        log({"phase": "zoo_mlp_flow", "steps": len(losses),
+             "first_loss": losses[0], "last_loss": losses[-1],
+             "eval_accuracy": acc, "seconds": time.perf_counter() - t0})
+        log({"phase": "zoo_schedule", **schedule_probe(dev)})
+    finally:
+        amp.set_compute_dtype(prev_amp)
+    return report
 
 
 # ------------------------------------------------------------- bottleneck
@@ -1310,6 +1697,17 @@ def paged_edge_cases():
         ("d640", dict(lens=[70, 33], block=16, d=640)),
         ("d1024_g6", dict(lens=[45, 100], block=8, d=1024, g=6)),
         ("g8_q4_32_rows", dict(lens=[40, 75], block=8, g=8, nq=4)),
+        # more query positions than one launch holds (a speculative
+        # verify's Q = spec_k): runs of max_rows(D) positions, each
+        # launch taking all Q current lanes and its rows of the tril
+        # cur_mask (and, under a window, its positions' offset)
+        ("q24_tril", dict(lens=[30, 12], block=8, nq=24)),
+        ("q40_d256", dict(lens=[50, 20], block=16, d=256, nq=40)),
+        ("q24_g2_window", dict(lens=[60, 33], block=8, g=2, nq=24,
+                               window=20)),
+        # the combine's scores of 16 rows by 800 current lanes pass the
+        # 48 KB of shared memory a launch gets without the attribute
+        ("q800_combine_past_48kb", dict(lens=[20, 7], block=8, nq=800)),
     ]
     return [(n, {**base, **kw}) for n, kw in cases]
 
@@ -2205,6 +2603,7 @@ def main():
     rows["megakernel_block"] = timed("bottleneck", phase_bottleneck, model,
                                      images)
     del model, images
+    timed("zoo", phase_zoo)
     model, real = timed("serve", phase_serve)
     timed("generate", phase_generate, model)
     cfg = model.cfg

@@ -56,7 +56,7 @@
 // holds no live key of its slot writes m = -1e30 and l = 0 and exits; so
 // does a window's dead range, which is skipped.
 //
-// paged_combine_kernel<T>, grid (kv head, slot): rescales and sums the
+// paged_combine_kernel<T, WIDE>, grid (kv head, slot): rescales and sums the
 // splits (those with l > 0), adds the current lanes under cur_mask last,
 // as the JAX function does, and writes the output in the pool's dtype.
 //
@@ -72,8 +72,10 @@
 // 1024 wide, D rounded up and the tail zero-filled; 16-byte copies where
 // a row is a whole number of 16-byte chunks, element copies otherwise;
 // a float32 row of 2048 would need 256 KB for one tile of K), any block
-// size >= 1, and g * Q <= 16 rows a kv head (<= 4 at D > 128; the
-// wrapper launches wider groups in parts).
+// size >= 1, and g * Q <= 16 rows a kv head a launch (<= 4 at D > 128;
+// the wrapper launches wider groups in parts: groups of heads, and past
+// that runs of query positions, each launch taking all Q current lanes
+// and its rows of cur_mask).
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -86,6 +88,8 @@ constexpr unsigned kFull = 0xffffffffu;
 constexpr int kTile = 32;           // keys a warp scores at once
 constexpr int kBlocksPerSm = 4;     // the split plan's aim
 constexpr int kMinSplitKeys = 128;  // the split plan's floor
+constexpr int kCombineMaxQ = 16;    // current lanes the combine holds in
+                                    // registers (more: WIDE reads them)
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) {
@@ -202,9 +206,9 @@ paged_attn_kernel(const T* __restrict__ q, const T* __restrict__ pool_k,
                   const T* __restrict__ pool_v,
                   const int* __restrict__ tables,
                   const int* __restrict__ p_limit, float* __restrict__ ws,
-                  int n_kv, int g, int nq, int d, int block, int table_width,
-                  int trash, int n_blk, int blk_lo, int window, float scale,
-                  int vec) {
+                  int n_kv, int g, int nq, int q0, int d, int block,
+                  int table_width, int trash, int n_blk, int blk_lo,
+                  int window, float scale, int vec) {
   using Sh = Shape<T, DT>;
   constexpr int NW = Sh::kNw, STAGES = Sh::kStages;
   constexpr bool TURNS = Sh::kTurns;
@@ -365,7 +369,7 @@ paged_attn_kernel(const T* __restrict__ q, const T* __restrict__ pool_k,
     for (int r = 0; r < MAXR; ++r) {
       if (r < R) {
         bool live = valid;
-        if (window > 0) live = live && key > plim + r % nq - window;
+        if (window > 0) live = live && key > plim + q0 + r % nq - window;
         const float x = live ? sc[r] * scale : kNegInf;
         const float m_new = fmaxf(m[r], warp_max(x));
         const float alpha = expf(m[r] - m_new);
@@ -466,15 +470,15 @@ paged_attn_kernel(const T* __restrict__ q, const T* __restrict__ pool_k,
 // pool's dtype.  A thread owns an output element and reads what it needs
 // (its splits' m, l and acc, its current V elements) at once; the last
 // warps score the current lanes meanwhile.
-template <typename T>
+template <typename T, bool WIDE>
 __global__ void __launch_bounds__(128)
 paged_combine_kernel(const T* __restrict__ q, const T* __restrict__ k_cur,
                      const T* __restrict__ v_cur,
                      const unsigned char* __restrict__ cur_mask,
                      const float* __restrict__ ws, T* __restrict__ out,
-                     int n_kv, int g, int nq, int d, int n_split,
-                     float scale) {
-  constexpr int kMaxQ = 16;
+                     int n_kv, int g, int nq, int nc, int q0, int d,
+                     int n_split, float scale) {
+  constexpr int kMaxQ = kCombineMaxQ;
   const int h = blockIdx.x, s = blockIdx.y;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int nw = blockDim.x >> 5;
@@ -484,19 +488,20 @@ paged_combine_kernel(const T* __restrict__ q, const T* __restrict__ k_cur,
   const float* pacc =
       ws + (long long)gridDim.y * n_kv * n_split * R * 2 + hd * n_split * R * d;
   extern __shared__ __align__(16) unsigned char smem[];
-  float* sc_cur = reinterpret_cast<float*>(smem);  // [R][nq]
+  float* sc_cur = reinterpret_cast<float*>(smem);  // [R][nc]
 
   // the current lanes' scores, one warp per (row, current key), from the
-  // last warp down
-  for (int i = nw - 1 - warp; i < R * nq; i += nw) {
-    const int r = i / nq, kq = i % nq;
+  // last warp down; row r is query position q0 + r % nq of cur_mask's nc
+  for (int i = nw - 1 - warp; i < R * nc; i += nw) {
+    const int r = i / nc, kq = i % nc;
     float part = 0.f;
     for (int dd = lane; dd < d; dd += 32)
       part += to_f(q[(hd * R + r) * d + dd]) *
-              to_f(k_cur[(hd * nq + kq) * d + dd]);
+              to_f(k_cur[(hd * nc + kq) * d + dd]);
     const float dot = warp_sum(part);
     if (lane == 0)
-      sc_cur[i] = cur_mask[(r % nq) * nq + kq] ? dot * scale : kNegInf;
+      sc_cur[i] =
+          cur_mask[(q0 + r % nq) * nc + kq] ? dot * scale : kNegInf;
   }
   // the splits, merged online, for each output element of this thread
   const int n_out = R * d;
@@ -529,22 +534,34 @@ paged_combine_kernel(const T* __restrict__ q, const T* __restrict__ k_cur,
       }
 #pragma unroll
       for (int kq = 0; kq < kMaxQ; ++kq)
-        if (kq < nq) vc[kq] = to_f(v_cur[(hd * nq + kq) * d + dd]);
+        if (kq < nc) vc[kq] = to_f(v_cur[(hd * nc + kq) * d + dd]);
     }
     __syncthreads();  // sc_cur is written
     if (o < n_out) {
-      const int qi = r % nq;
+      const unsigned char* mrow = cur_mask + (q0 + r % nq) * nc;
+      const float* srow = sc_cur + r * nc;
       float m2 = M;
-      for (int kq = 0; kq < nq; ++kq) m2 = fmaxf(m2, sc_cur[r * nq + kq]);
+      for (int kq = 0; kq < nc; ++kq) m2 = fmaxf(m2, srow[kq]);
       const float alpha = expf(M - m2);
       L *= alpha;
       A *= alpha;
 #pragma unroll
       for (int kq = 0; kq < kMaxQ; ++kq) {
-        if (kq < nq && cur_mask[qi * nq + kq]) {
-          const float p = expf(sc_cur[r * nq + kq] - m2);
+        if (kq < nc && mrow[kq]) {
+          const float p = expf(srow[kq] - m2);
           L += p;
           A += p * vc[kq];
+        }
+      }
+      // lanes past the first kMaxQ (a verify of more than 16 positions)
+      // read V where they use it; a decode step compiles without them
+      if constexpr (WIDE) {
+        for (int kq = kMaxQ; kq < nc; ++kq) {
+          if (mrow[kq]) {
+            const float p = expf(srow[kq] - m2);
+            L += p;
+            A += p * to_f(v_cur[(hd * nc + kq) * d + dd]);
+          }
         }
       }
       out[(hd * R + r) * d + dd] = from_f<T>(A / L);
@@ -569,12 +586,14 @@ template <typename T, int DT>
 int launch(const void* q, const void* pool_k, const void* pool_v,
            const int* tables, const int* p_limit, const void* k_cur,
            const void* v_cur, const unsigned char* cur_mask, void* out,
-           float* ws, int S, int n_kv, int g, int nq, int d, int block,
-           int table_width, int trash, int n_blk, int blk_lo, int window,
-           int n_split, float scale, int vec, cudaStream_t stream) {
+           float* ws, int S, int n_kv, int g, int nq, int nc, int q0, int d,
+           int block, int table_width, int trash, int n_blk, int blk_lo,
+           int window, int n_split, float scale, int vec,
+           cudaStream_t stream) {
   using Sh = Shape<T, DT>;
   const int R = g * nq;
-  if (R > Sh::kMaxR || n_split < 1) return (int)cudaErrorInvalidValue;
+  if (R > Sh::kMaxR || n_split < 1 || q0 < 0 || q0 + nq > nc)
+    return (int)cudaErrorInvalidValue;
   const dim3 grid(n_kv, S, n_split);
   const size_t smem = split_smem_bytes<T, DT>(R);
 #define PAGED_SPLIT_LAUNCH(MAXR)                                           \
@@ -583,7 +602,7 @@ int launch(const void* q, const void* pool_k, const void* pool_v,
     if (err != cudaSuccess) return err;                                    \
     paged_attn_kernel<T, DT, MAXR><<<grid, Sh::kNw * 32, smem, stream>>>(  \
         (const T*)q, (const T*)pool_k, (const T*)pool_v, tables, p_limit,  \
-        ws, n_kv, g, nq, d, block, table_width, trash, n_blk, blk_lo,      \
+        ws, n_kv, g, nq, q0, d, block, table_width, trash, n_blk, blk_lo,  \
         window, scale, vec);                                               \
   } while (0)
   if (R <= 1) {
@@ -594,10 +613,23 @@ int launch(const void* q, const void* pool_k, const void* pool_v,
 #undef PAGED_SPLIT_LAUNCH
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  const size_t csmem = sizeof(float) * R * nq;
-  paged_combine_kernel<T><<<dim3(n_kv, S), 128, csmem, stream>>>(
-      (const T*)q, (const T*)k_cur, (const T*)v_cur, cur_mask, ws, (T*)out,
-      n_kv, g, nq, d, n_split, scale);
+  // the combine keeps every current lane's score of its R rows in shared
+  // memory: past 48 KB (nc > 768 at R = 16) it needs the attribute too
+  const size_t csmem = sizeof(float) * R * nc;
+#define PAGED_COMBINE_LAUNCH(WIDE)                                         \
+  do {                                                                     \
+    const int err = allow_smem<paged_combine_kernel<T, WIDE>>(csmem);      \
+    if (err != cudaSuccess) return err;                                    \
+    paged_combine_kernel<T, WIDE><<<dim3(n_kv, S), 128, csmem, stream>>>(  \
+        (const T*)q, (const T*)k_cur, (const T*)v_cur, cur_mask, ws,       \
+        (T*)out, n_kv, g, nq, nc, q0, d, n_split, scale);                  \
+  } while (0)
+  if (nc <= kCombineMaxQ) {
+    PAGED_COMBINE_LAUNCH(false);
+  } else {
+    PAGED_COMBINE_LAUNCH(true);
+  }
+#undef PAGED_COMBINE_LAUNCH
   return (int)cudaGetLastError();
 }
 
@@ -651,26 +683,29 @@ int paged_split_count(int d, int dtype, int n_blk, int blk_lo, int block,
   return (units + per - 1) / per;
 }
 
+// q holds query positions [q0, q0 + nq) of the step's nc (its rows are
+// (S, n_kv, g, nq, D)); k_cur and v_cur hold all nc current lanes and
+// cur_mask is (nc, nc).
 // dtype: 0 float32, 1 bfloat16.  window 0 means no window.  n_blk: the
 // upper bound of the blocks read (the table width); the kernel reads
 // blocks [blk_lo, min(n_blk, ceil(max p_limit / block))).  ws: float32
-// workspace of S * n_kv * n_split * g * Q * (d + 2) elements.  Returns
+// workspace of S * n_kv * n_split * g * nq * (d + 2) elements.  Returns
 // the CUDA error of the launches (0 on success).
 int paged_attention(const void* q, const void* pool_k, const void* pool_v,
                     const int* tables, const int* p_limit, const void* k_cur,
                     const void* v_cur, const unsigned char* cur_mask,
                     void* out, float* ws, int S, int n_kv, int g, int nq,
-                    int d, int block, int table_width, int trash, int n_blk,
-                    int blk_lo, int window, int n_split, float scale,
-                    int dtype, void* stream) {
+                    int nc, int q0, int d, int block, int table_width,
+                    int trash, int n_blk, int blk_lo, int window,
+                    int n_split, float scale, int dtype, void* stream) {
   const cudaStream_t st = (cudaStream_t)stream;
   const int elem = dtype == 0 ? 4 : 2;
   const uintptr_t ptrs = (uintptr_t)pool_k | (uintptr_t)pool_v;
   const int vec = (d * elem) % 16 == 0 && ptrs % 16 == 0;
 #define PAGED_ARGS                                                         \
   q, pool_k, pool_v, tables, p_limit, k_cur, v_cur, cur_mask, out, ws, S,  \
-      n_kv, g, nq, d, block, table_width, trash, n_blk, blk_lo, window,    \
-      n_split, scale, vec, st
+      n_kv, g, nq, nc, q0, d, block, table_width, trash, n_blk, blk_lo,    \
+      window, n_split, scale, vec, st
 #define PAGED_DISPATCH(T)                                                  \
   switch (row_width(d)) {                                                  \
     case 16: return launch<T, 16>(PAGED_ARGS);                             \

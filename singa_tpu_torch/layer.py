@@ -11,6 +11,8 @@ JAX names (``ResNet.layer10.bn1.running_mean``).
 
 Conv, BN and pooling layers keep the JAX package's NCHW layout and call
 ``ops/conv.py``, ``ops/batchnorm.py`` and ``ops/pooling.py``.
+``Dropout`` follows the layer's ``Module.training`` (``Model.train`` /
+``eval``), where the JAX layer reads the autograd module's flag.
 """
 
 from __future__ import annotations
@@ -27,10 +29,12 @@ from .ops import batchnorm as bn_ops
 from .ops import conv as conv_ops
 from .ops import pooling as pool_ops
 
-__all__ = ["Layer", "Linear", "LayerNorm", "Embedding",
-           "SoftMaxCrossEntropy", "ReLU", "Add", "Flatten", "Conv2d",
-           "BatchNorm2d", "Pooling2d", "MaxPool2d", "AvgPool2d",
-           "GlobalAvgPool2d", "param_name"]
+__all__ = ["Layer", "Linear", "LayerNorm", "Embedding", "ReLU", "ReLU6",
+           "LeakyReLU", "Sigmoid", "Tanh", "Gelu", "SoftMax", "Flatten",
+           "Reshape", "Dropout", "Cat", "Add", "SoftMaxCrossEntropy",
+           "CrossEntropy", "MSELoss", "BinaryCrossEntropy", "Conv2d",
+           "ConvTranspose2d", "BatchNorm2d", "Pooling2d", "MaxPool2d",
+           "AvgPool2d", "GlobalAvgPool2d", "param_name"]
 
 #: attribute on a parameter holding its hierarchical name
 #: (``torch.Tensor.name`` is taken)
@@ -209,19 +213,47 @@ class Embedding(Layer):
         return autograd.embedding(ids, self.W)
 
 
-class SoftMaxCrossEntropy(Layer):
-    def forward(self, x, t):
-        return autograd.softmax_cross_entropy(x, t)
-
-
 class ReLU(Layer):
     def forward(self, x):
         return autograd.relu(x)
 
 
-class Add(Layer):
-    def forward(self, a, b):
-        return autograd.add(a, b)
+class ReLU6(Layer):
+    def forward(self, x):
+        return autograd.relu6(x)
+
+
+class LeakyReLU(Layer):
+    def __init__(self, a=0.01):
+        super().__init__()
+        self.a = a
+
+    def forward(self, x):
+        return autograd.leakyrelu(x, self.a)
+
+
+class Sigmoid(Layer):
+    def forward(self, x):
+        return autograd.sigmoid(x)
+
+
+class Tanh(Layer):
+    def forward(self, x):
+        return autograd.tanh(x)
+
+
+class Gelu(Layer):
+    def forward(self, x):
+        return autograd.gelu(x)
+
+
+class SoftMax(Layer):
+    def __init__(self, axis=1):
+        super().__init__()
+        self.axis = axis
+
+    def forward(self, x):
+        return autograd.softmax(x, self.axis)
 
 
 class Flatten(Layer):
@@ -231,6 +263,60 @@ class Flatten(Layer):
 
     def forward(self, x):
         return autograd.flatten(x, self.axis)
+
+
+class Reshape(Layer):
+    def __init__(self, shape):
+        super().__init__()
+        self.shape = shape
+
+    def forward(self, x):
+        return autograd.reshape(x, self.shape)
+
+
+class Dropout(Layer):
+    """Inverted dropout while the layer trains, the identity in eval."""
+
+    def __init__(self, ratio=0.5):
+        super().__init__()
+        self.ratio = ratio
+
+    def forward(self, x):
+        return autograd.dropout(x, self.ratio, training=self.training)
+
+
+class Cat(Layer):
+    def __init__(self, axis=0):
+        super().__init__()
+        self.axis = axis
+
+    def forward(self, xs):
+        return autograd.cat(xs, self.axis)
+
+
+class Add(Layer):
+    def forward(self, a, b):
+        return autograd.add(a, b)
+
+
+class SoftMaxCrossEntropy(Layer):
+    def forward(self, x, t):
+        return autograd.softmax_cross_entropy(x, t)
+
+
+class CrossEntropy(Layer):
+    def forward(self, p, t):
+        return autograd.cross_entropy(p, t)
+
+
+class MSELoss(Layer):
+    def forward(self, x, t):
+        return autograd.mse_loss(x, t)
+
+
+class BinaryCrossEntropy(Layer):
+    def forward(self, p, t):
+        return autograd.binary_cross_entropy(p, t)
 
 
 def _pair(v):
@@ -283,6 +369,48 @@ class Conv2d(Layer):
         if self.activation == "RELU":
             y = autograd.relu(y)
         return y
+
+
+class ConvTranspose2d(Layer):
+    """NCHW transposed convolution; W is (in, out/group, kH, kW), the JAX
+    layer's (and torch's) layout, created at the first call: gaussian
+    with std ``sqrt(2 / (out/group·kH·kW + in))``, drawn from the
+    device's generator."""
+
+    def __init__(self, nb_kernels, kernel_size, stride=1, padding=0,
+                 dilation=1, group=1, bias=True, output_padding=0):
+        super().__init__()
+        self.nb_kernels = int(nb_kernels)
+        self.kernel_size = _pair(kernel_size)
+        self.stride = _pair(stride)
+        self.padding = _pair(padding)
+        self.dilation = _pair(dilation)
+        self.group = int(group)
+        self.bias = bool(bias)
+        self.output_padding = _pair(output_padding)
+
+    def initialize(self, x):
+        in_channels = x.shape[1]
+        if in_channels % self.group or self.nb_kernels % self.group:
+            raise ValueError(f"{in_channels} input and {self.nb_kernels} "
+                             f"output channels do not split into "
+                             f"{self.group} groups")
+        w_shape = (in_channels, self.nb_kernels // self.group) \
+            + self.kernel_size
+        dt = amp.param_dtype(x.dtype)
+        self.W = new_param(w_shape, x, dt)
+        std = math.sqrt(2.0 / (w_shape[1] * np.prod(self.kernel_size)
+                               + in_channels))
+        initializer.gaussian(self.W, 0.0, std,
+                             generator=device_of(x).generator)
+        if self.bias:
+            self.b = initializer.zeros(new_param((self.nb_kernels,), x, dt))
+
+    def forward(self, x):
+        return conv_ops.conv_transpose2d(
+            x, self.W, self.b if self.bias else None, stride=self.stride,
+            padding=self.padding, dilation=self.dilation, group=self.group,
+            output_padding=self.output_padding)
 
 
 class BatchNorm2d(Layer):

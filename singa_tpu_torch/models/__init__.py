@@ -1,1 +1,2 @@
-"""Model zoo (GPT-2 and the ResNet family so far)."""
+"""Model zoo: GPT-2, the ResNet family, and the CNN zoo (MLP, CNN,
+AlexNet, VGG, MobileNetV2, Xception, U-Net)."""

@@ -6,15 +6,16 @@ counters, gauges and latency histograms of the serve engine).
 A metric is identified by ``(kind, name, frozen label set)``; asking the
 registry for the same identity returns the same object.  ``remove``
 drops metrics again (an engine's ``close()``).  Histograms keep their
-samples in a :class:`LatencySeries` (``singa_tpu/utils/metrics.py``):
-a ring of the newest samples and the exact all-time count.
+samples in a :class:`LatencySeries` (``utils/metrics.py``, the port's
+copy of ``singa_tpu/utils/metrics.py``): a ring of the newest samples
+and the exact all-time count.
 """
 
 from __future__ import annotations
 
-import collections
-import math
 import threading
+
+from ..utils.metrics import LatencySeries, percentile
 
 __all__ = ["Counter", "Gauge", "Histogram", "LatencySeries",
            "MetricsRegistry", "percentile", "registry"]
@@ -55,41 +56,6 @@ class Gauge:
     def set(self, v):
         self.value = float(v)
         return self
-
-
-def percentile(values, p) -> float:
-    """Nearest-rank percentile (p in [0, 100]): an observed value, nan
-    for no values."""
-    vals = sorted(values)
-    if not vals:
-        return float("nan")
-    if p <= 0:
-        return float(vals[0])
-    rank = math.ceil(min(p, 100) / 100.0 * len(vals))
-    return float(vals[min(len(vals), max(1, rank)) - 1])
-
-
-class LatencySeries:
-    """Per-event latencies (seconds): the newest ``max_samples`` kept
-    for percentiles, the count exact over every value recorded."""
-
-    def __init__(self, max_samples=8192):
-        self.values = collections.deque(maxlen=max_samples)
-        self.count = 0
-
-    def record(self, seconds):
-        self.values.append(float(seconds))
-        self.count += 1
-
-    def percentile(self, p) -> float:
-        return percentile(self.values, p)
-
-    def summary(self) -> dict:
-        vals = self.values
-        return {"count": self.count,
-                "mean": sum(vals) / len(vals) if vals else float("nan"),
-                "p50": self.percentile(50), "p99": self.percentile(99),
-                "max": max(vals) if vals else float("nan")}
 
 
 class Histogram:

@@ -31,11 +31,13 @@ Shapes (S slots, one layer):
 
 Returns (S, n_kv, g, Q, D) in the pool's dtype; sums are float32.  A
 dead slot (all-trash table, ``p_limit`` 0) attends only its current
-lanes.  On the card: float32 or bf16, any D <= ``MAX_HEAD_DIM`` (1024)
-and Q <= ``max_rows(D)`` (16, or 4 at D > 128); a GQA group of more than
-``max_rows(D)`` query rows (g * Q) runs as several launches over groups
-of heads, which is exact (query rows are independent).  The rest raises.
-int8 pools: not ported.
+lanes.  On the card: float32 or bf16, any D <= ``MAX_HEAD_DIM`` (1024),
+any GQA group and Q up to ``max_positions(D)`` (3632, or 14528 at
+D > 128).  One launch holds ``max_rows(D)`` query rows (g * Q: 16, or 4
+at D > 128); more run as several launches, over groups of heads and,
+past ``max_rows(D)`` positions, runs of query positions, each taking all
+Q current lanes and its rows of ``cur_mask``.  That is exact: query rows
+are independent.  The rest raises.  int8 pools: not ported.
 """
 
 from __future__ import annotations
@@ -47,8 +49,8 @@ import torch
 
 from . import _build
 
-__all__ = ["NEG_INF", "MAX_HEAD_DIM", "max_rows", "split_count",
-           "launch_groups", "paged_attn", "paged_attn_plain"]
+__all__ = ["NEG_INF", "MAX_HEAD_DIM", "max_rows", "max_positions",
+           "split_count", "launch_groups", "paged_attn", "paged_attn_plain"]
 
 NEG_INF = -1e30
 #: widest head the kernel takes (its rows are 16, 32, ..., 1024 wide; a
@@ -62,6 +64,17 @@ def max_rows(d):
     16, or 4 at D > 128, where a lane's float32 sums would crowd the
     registers."""
     return 16 if d <= 128 else 4
+
+
+#: the most dynamic shared memory an H100 block may opt into (227 KB)
+MAX_SMEM_BYTES = 232448
+
+
+def max_positions(d):
+    """Most query positions Q a call takes at head dim ``d``: the combine
+    kernel holds every current lane's score (float32) for its launch's
+    ``max_rows(d)`` rows in shared memory."""
+    return MAX_SMEM_BYTES // (4 * max_rows(d))
 
 
 def paged_attn_plain(q, pool_k, pool_v, tables, p_limit, k_cur, v_cur,
@@ -118,9 +131,10 @@ def paged_attn_plain(q, pool_k, pool_v, tables, p_limit, k_cur, v_cur,
 
 _PTR, _INT = ctypes.c_void_p, ctypes.c_int
 # q, pool_k, pool_v, tables, p_limit, k_cur, v_cur, cur_mask, out, ws; S,
-# n_kv, g, Q, D, block, table_width, trash, n_blk (the bound: the table
+# n_kv, g, the launch's query positions, all current lanes (Q), its first
+# position, D, block, table_width, trash, n_blk (the bound: the table
 # width), blk_lo, window, n_split; scale; dtype; stream
-_ARGTYPES = [_PTR] * 10 + [_INT] * 12 + [ctypes.c_float, _INT, _PTR]
+_ARGTYPES = [_PTR] * 10 + [_INT] * 14 + [ctypes.c_float, _INT, _PTR]
 
 
 def _lib():
@@ -168,9 +182,9 @@ def _check_cuda(q, pool_k, pool_v, tables, p_limit, k_cur, v_cur, cur_mask,
     if not 1 <= d <= MAX_HEAD_DIM:
         raise ValueError(f"paged_attn takes head dims up to {MAX_HEAD_DIM}, "
                          f"got {d}")
-    if nq > max_rows(d):
-        raise ValueError(f"paged_attn takes Q <= {max_rows(d)} query "
-                         f"positions at D = {d}, got Q={nq}")
+    if nq > max_positions(d):
+        raise ValueError(f"paged_attn takes up to {max_positions(d)} query "
+                         f"positions at head dim {d}, got {nq}")
     nb1, h, block, d2 = pool_k.shape
     want = {"pool_k": (pool_k, (nb1, n_kv, block, d)),
             "pool_v": (pool_v, (nb1, n_kv, block, d)),
@@ -207,35 +221,50 @@ def launch_groups(lib, q, pool_k, pool_v, tables, p_limit, k_cur, v_cur,
                   cur_mask, scale, window, blk_lo, n_sm, stream,
                   n_split=None, empty=torch.empty):
     """The split and combine kernels of ``lib`` (the built library, or
-    the CPU emulator's build of the same source) over groups of at most
-    ``max_rows(D)`` query rows, a group of heads of the GQA group each,
-    concatenated: query rows are independent, so this is exact.  Each
-    group's split count is the plan for ``n_sm`` SMs from the table width,
-    or ``n_split``; ``empty`` allocates the output and the workspace.
-    Returns ``(out, groups launched)``; raises on a CUDA error."""
+    the CPU emulator's build of the same source) over launches of at most
+    ``max_rows(D)`` query rows: groups of heads of the GQA group, and past
+    ``max_rows(D)`` query positions one head a launch over runs of
+    positions, each launch taking all Q current lanes and its rows of
+    ``cur_mask``; the outputs are concatenated.  Query rows are
+    independent, so this is exact.  Each launch's split count is the plan
+    for ``n_sm`` SMs from the table width, or ``n_split``; ``empty``
+    allocates the output and the workspace.  Returns ``(out, launches)``;
+    raises on a CUDA error."""
     s_, n_kv, g, nq, d = q.shape
-    heads = max(1, max_rows(d) // nq)
+    rows = max_rows(d)
+    heads = max(1, rows // nq)
+    run = min(nq, rows)
     block, n_blk = pool_k.shape[2], tables.shape[1]
-    outs = []
+    ns = n_split or split_count(d, q.dtype, n_blk, blk_lo, block, s_ * n_kv,
+                                n_sm, lib)
+    launches = 0
+    by_heads = []
     for h0 in range(0, g, heads):
-        qg = q if g <= heads else q[:, :, h0:h0 + heads].contiguous()
-        gg = qg.shape[2]
-        ns = n_split or split_count(d, q.dtype, n_blk, blk_lo, block,
-                                    s_ * n_kv, n_sm, lib)
-        out = empty(qg.shape, dtype=qg.dtype, device=qg.device)
-        ws = empty((s_ * n_kv * ns * gg * nq * (d + 2),),
-                   dtype=torch.float32, device=qg.device)
-        err = lib.paged_attention(
-            qg.data_ptr(), pool_k.data_ptr(), pool_v.data_ptr(),
-            tables.data_ptr(), p_limit.data_ptr(), k_cur.data_ptr(),
-            v_cur.data_ptr(), cur_mask.data_ptr(), out.data_ptr(),
-            ws.data_ptr(), s_, n_kv, gg, nq, d, block, n_blk,
-            pool_k.shape[0] - 1, n_blk, int(blk_lo or 0), int(window or 0),
-            ns, float(scale), _DTYPES[pool_k.dtype], stream)
-        if err != 0:
-            raise RuntimeError(f"paged_attn: CUDA error {err} at launch")
-        outs.append(out)
-    return (outs[0] if len(outs) == 1 else torch.cat(outs, 2)), len(outs)
+        by_pos = []
+        for q0 in range(0, nq, run):
+            qg = q[:, :, h0:h0 + heads, q0:q0 + run]
+            if qg.shape != q.shape:
+                qg = qg.contiguous()
+            gg, qn = qg.shape[2], qg.shape[3]
+            out = empty(qg.shape, dtype=qg.dtype, device=qg.device)
+            ws = empty((s_ * n_kv * ns * gg * qn * (d + 2),),
+                       dtype=torch.float32, device=qg.device)
+            err = lib.paged_attention(
+                qg.data_ptr(), pool_k.data_ptr(), pool_v.data_ptr(),
+                tables.data_ptr(), p_limit.data_ptr(), k_cur.data_ptr(),
+                v_cur.data_ptr(), cur_mask.data_ptr(), out.data_ptr(),
+                ws.data_ptr(), s_, n_kv, gg, qn, nq, q0, d, block, n_blk,
+                pool_k.shape[0] - 1, n_blk, int(blk_lo or 0),
+                int(window or 0), ns, float(scale), _DTYPES[pool_k.dtype],
+                stream)
+            if err != 0:
+                raise RuntimeError(f"paged_attn: CUDA error {err} at launch")
+            by_pos.append(out)
+            launches += 1
+        by_heads.append(by_pos[0] if len(by_pos) == 1
+                        else torch.cat(by_pos, 3))
+    return (by_heads[0] if len(by_heads) == 1
+            else torch.cat(by_heads, 2)), launches
 
 
 def paged_attn(q, pool_k, pool_v, tables, p_limit, k_cur, v_cur, cur_mask,
@@ -243,7 +272,7 @@ def paged_attn(q, pool_k, pool_v, tables, p_limit, k_cur, v_cur, cur_mask,
     """Online-softmax attention of every slot's queries over its paged
     KV (shapes in the module docstring); for CUDA tensors, the split and
     combine kernels over all slots and kv heads, counted as one launch
-    for each group of at most ``max_rows(D)`` query rows."""
+    for each launch of at most ``max_rows(D)`` query rows."""
     if q.device.type == "cpu":
         return paged_attn_plain(q, pool_k, pool_v, tables, p_limit, k_cur,
                                 v_cur, cur_mask, scale, window, blk_lo)
@@ -253,11 +282,11 @@ def paged_attn(q, pool_k, pool_v, tables, p_limit, k_cur, v_cur, cur_mask,
         raise ValueError(f"window must be >= 1, got {window}")
     if q.shape[0] == 0:
         return torch.empty_like(q)
-    out, groups = launch_groups(
+    out, launches = launch_groups(
         _lib(), q, pool_k, pool_v, tables, p_limit, k_cur, v_cur, cur_mask,
         scale, window, blk_lo, _sm_count(q.device.index or 0),
         torch.cuda.current_stream(q.device).cuda_stream)
-    paged_attn.launches += groups
+    paged_attn.launches += launches
     return out
 
 

@@ -32,8 +32,11 @@ def test_import_pulls_in_neither_jax_nor_singa_tpu():
     code = ("import sys, singa_tpu_torch\n"
             "from singa_tpu_torch import amp, autograd, device, layer, "
             "model, opt, tensor\n"
-            "from singa_tpu_torch.models import (common, gpt2, "
-            "gpt2_decode, resnet)\n"
+            "from singa_tpu_torch.models import (alexnet, cnn, common, "
+            "gpt2, gpt2_decode, mlp, mobilenet, resnet, unet, vgg, "
+            "xceptionnet)\n"
+            "from singa_tpu_torch import resilience, utils\n"
+            "from singa_tpu_torch.utils import logging, metrics, timer\n"
             "from singa_tpu_torch.ops import (batchnorm, bottleneck, conv, "
             "flash_attention, padding, paged_attention, pooling)\n"
             "from singa_tpu_torch import serve\n"

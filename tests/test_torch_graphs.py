@@ -38,8 +38,9 @@ from singa_tpu import opt as jopt
 from singa_tpu import tensor as jtensor
 from singa_tpu.models.mlp import MLP as JMLP
 from singa_tpu.observe.registry import registry as jregistry
-from singa_tpu_torch import device, layer, model, opt, tensor
+from singa_tpu_torch import device, opt, tensor
 from singa_tpu_torch.models import gpt2_decode as gd
+from singa_tpu_torch.models.mlp import MLP
 from singa_tpu_torch.models.gpt2 import GPT2Config, GPT2LMHead
 from singa_tpu_torch.observe.registry import registry
 from singa_tpu_torch.ops import bottleneck as tbk
@@ -59,27 +60,6 @@ def _restore_jax_training_flag():
     prev = jautograd.training
     yield
     jautograd.set_training(prev)
-
-
-class MLP(model.Model):
-    """The port's counterpart of ``singa_tpu/models/mlp.py``'s MLP (same
-    class name, so the state names match)."""
-
-    def __init__(self, perceptron_size=16, num_classes=10):
-        super().__init__()
-        self.linear1 = layer.Linear(perceptron_size)
-        self.relu1 = layer.ReLU()
-        self.linear2 = layer.Linear(num_classes)
-        self.softmax_cross_entropy = layer.SoftMaxCrossEntropy()
-
-    def forward(self, x):
-        return self.linear2(self.relu1(self.linear1(x)))
-
-    def train_one_batch(self, x, y):
-        out = self.forward(x)
-        loss = self.softmax_cross_entropy(out, y)
-        self.optimizer(loss)
-        return out, loss
 
 
 OPTS = {"sgd_momentum": lambda m: m.SGD(lr=0.05, momentum=0.9),
@@ -103,7 +83,7 @@ def _jax_mlp(use_graph, make_opt, seed=0):
 
 
 def _port_mlp(use_graph, make_opt, states):
-    m = MLP()
+    m = MLP(data_size=10, perceptron_size=16, num_classes=10)
     m.set_optimizer(make_opt(opt))
     m.compile([tensor.from_numpy(_data()[0], device.create_cpu_device())],
               is_train=True, use_graph=use_graph)

@@ -179,9 +179,12 @@ def test_paged_kernel_matches_plain(cuda_device, dtype, seed, name, case):
 @pytest.mark.cuda
 def test_paged_kernel_counts_its_launches_and_refuses_int8(cuda_device):
     """One count a launch (the split and combine kernels together); int8
-    pools, D past 1024 and more than 4 query positions past D = 128
-    raise; D = 96, 512 and 1024 run and agree with the plain version, and
-    a GQA group of 5 heads at D = 256 runs as two launches."""
+    pools and D past 1024 raise; D = 96, 512 and 1024 run and agree with
+    the plain version, a GQA group of 5 heads at D = 256 runs as two
+    launches, and more query positions than one launch holds run as runs
+    of them: Q = 24 at D = 64 in two launches, Q = 5 at D = 256 in two,
+    and ``max_positions(64)`` (3632) in 227, whose combine fills the
+    227 KB of shared memory; one position more raises."""
     args = chip_smoke.paged_inputs(lens=[9, 0], block=8, d=64, n_kv=2, g=1,
                                    nq=1, dtype=torch.float32, seed=0)
     before = tpa.paged_attn.launches
@@ -205,11 +208,31 @@ def test_paged_kernel_counts_its_launches_and_refuses_int8(cuda_device):
                                tpa.paged_attn_plain(**five),
                                rtol=2e-5, atol=2e-5)
     assert tpa.paged_attn.launches == before + 2
-    for d, nq in ((1040, 1), (256, 5)):
-        bad = chip_smoke.paged_inputs(lens=[9], block=8, d=d, n_kv=1, g=1,
-                                      nq=nq, dtype=torch.float32, seed=0)
-        with pytest.raises(ValueError, match="head dims|positions"):
-            tpa.paged_attn(**bad)
+    for d, nq in ((64, 24), (256, 5)):
+        many = chip_smoke.paged_inputs(lens=[9, 40], block=8, d=d, n_kv=2,
+                                       g=1, nq=nq, dtype=torch.float32,
+                                       seed=2)
+        before = tpa.paged_attn.launches
+        torch.testing.assert_close(tpa.paged_attn(**many),
+                                   tpa.paged_attn_plain(**many),
+                                   rtol=2e-5, atol=2e-5)
+        assert tpa.paged_attn.launches == before + 2
+    most = tpa.max_positions(64)
+    full = chip_smoke.paged_inputs(lens=[9, 40], block=8, d=64, n_kv=1, g=1,
+                                   nq=most, dtype=torch.float32, seed=3)
+    before = tpa.paged_attn.launches
+    torch.testing.assert_close(tpa.paged_attn(**full),
+                               tpa.paged_attn_plain(**full),
+                               rtol=2e-5, atol=2e-5)
+    assert tpa.paged_attn.launches == before + -(-most // tpa.max_rows(64))
+    over = chip_smoke.paged_inputs(lens=[9], block=8, d=64, n_kv=1, g=1,
+                                   nq=most + 1, dtype=torch.float32, seed=0)
+    with pytest.raises(ValueError, match="query positions"):
+        tpa.paged_attn(**over)
+    bad = chip_smoke.paged_inputs(lens=[9], block=8, d=1040, n_kv=1, g=1,
+                                  nq=1, dtype=torch.float32, seed=0)
+    with pytest.raises(ValueError, match="head dims"):
+        tpa.paged_attn(**bad)
 
 
 @pytest.mark.cuda
@@ -245,3 +268,57 @@ def test_tiny_gpt2_serves_through_the_paged_kernel(cuda_device, wide):
         np.testing.assert_array_equal(h.result().tokens, want)
     assert eng.paged_arena.blocks_used == 0
     eng.close()
+
+
+def _zoo_on_card(module, factory, kwargs, shape, classes, seed=0):
+    """A zoo model's maker and a batch on the card (float32, amp off)."""
+    from singa_tpu_torch import device
+
+    dev = device.create_cuda_gpu()
+    x, y = chip_smoke.zoo_batch(shape, classes, seed, dev)
+    return (chip_smoke.zoo_maker(module, factory, kwargs, x, dev, seed),
+            x, y, dev)
+
+
+@pytest.mark.cuda
+def test_zoo_model_captured_steps_equal_eager(cuda_device):
+    """MobileNetV2 (width 0.25, depthwise convs, batch norm, dropout) on
+    the card: four graph-mode steps (eager, captured, two replays) equal
+    four eager steps from the same state and generator seed, losses and
+    weights within rtol 1e-5.  cuDNN runs deterministic algorithms: left
+    to its own choice in float32 at this size, the two runs differed by
+    7e-5 of the loss after one step and 1% after three, which batch norm
+    at batch 32 grows from a sum taken in another order."""
+    build, x, y, dev = _zoo_on_card("mobilenet", "mobilenet_v2",
+                                    dict(num_classes=10, width_mult=0.25),
+                                    (3, 64, 64), 10)
+    with chip_smoke.cudnn_deterministic():
+        graph = build(True)
+        eager = build(False)
+        eager.set_states({k: v.detach().clone()
+                          for k, v in graph.get_states().items()})
+        losses = {}
+        for name, m in (("eager", eager), ("graph", graph)):
+            dev.SetRandSeed(1)
+            losses[name] = [m(x, y)[1].item() for _ in range(4)]
+    np.testing.assert_allclose(losses["graph"], losses["eager"], rtol=1e-5)
+    for k, v in graph.get_states().items():
+        torch.testing.assert_close(v, eager.get_states()[k], rtol=1e-5,
+                                   atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_checkpoint_round_trip_on_the_card(cuda_device, tmp_path):
+    """``chip_smoke.checkpoint_check`` on a small VGG-11 with batch norm:
+    the step after a reload, and after an ``async_save`` taken between
+    replays, equals the uninterrupted step bit for bit; and the
+    ``ExponentialDecay`` rate read off replayed steps follows its
+    formula."""
+    build, x, y, dev = _zoo_on_card("vgg", "vgg11",
+                                    dict(num_classes=10, hidden=64,
+                                         batch_norm=True), (3, 32, 32), 10)
+    rep = chip_smoke.checkpoint_check(build, x, y, dev,
+                                      str(tmp_path / "vgg11.zip"))
+    assert rep["reload_step_bitwise_equal"]
+    assert rep["async_save_step_bitwise_equal"]
+    chip_smoke.schedule_probe(dev)

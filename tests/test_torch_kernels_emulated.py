@@ -15,10 +15,11 @@ ragged and narrow ones for the bottleneck; for paged attention, the
 split and combine kernels in float32 and bf16 at ``chip_smoke.PAGED_TOL``,
 launched as the wrapper launches them (the table width as the bound of
 the blocks read, which the kernel narrows from the positions on the
-device; groups of at most ``max_rows(D)`` query rows), on six cases at
-the split count the wrapper would choose (dead slots with all-trash
+device; launches of at most ``max_rows(D)`` query rows), on seven cases
+at the split count the wrapper would choose (dead slots with all-trash
 tables, GQA g = 3 with Q = 4 at D = 128, a window over Q = 4, D = 640,
-D = 1024 with 6 heads, 32 query rows at D = 64) and on D = 16 and a long
+D = 1024 with 6 heads, 32 query rows at D = 64, Q = 24 positions of 2
+heads under a window in runs of 16) and on D = 16 and a long
 slot beside short ones at D = 64 over one split and over three; and the
 split plan itself.  Needs a C++ compiler.
 """
@@ -38,7 +39,7 @@ FLASH = ("s65_causal", "s129_causal", "d13_s100", "window1", "neg_inf_row",
          "d1024_general_mask")
 BOTTLENECK = ("hw7_bands_ragged", "c128_cm32", "odd_h5_w9_cm8")
 PAGED = ("dead_slots_all_trash", "g3_q4_d128", "window_q4_g3", "d640",
-         "d1024_g6", "g8_q4_32_rows")
+         "d1024_g6", "g8_q4_32_rows", "q24_g2_window")
 
 
 @pytest.fixture(scope="module")

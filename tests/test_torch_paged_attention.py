@@ -8,8 +8,10 @@ sizes 1 to 32, a partial final block, ``pos`` on a block boundary,
 all-trash (dead) and one-block tables, GQA g = 3, D = 128, Q = 4 with a
 tril ``cur_mask``, windows with and without ``blk_lo``, 1000-lane slots,
 a long slot beside short ones, head dims 16, 20, 40, 80, 256, 640 and
-1024, and GQA groups of more query rows than one launch holds (32 rows
-at D = 64, 6 heads at D = 1024).  The port reads the tables to their
+1024, GQA groups of more query rows than one launch holds (32 rows
+at D = 64, 6 heads at D = 1024), and more query positions than one
+launch holds under a tril ``cur_mask`` (Q = 24 at D = 64, with 2 heads
+under a window too, and Q = 40 at D = 256).  The port reads the tables to their
 width (the kernel narrows that to the live blocks on the device); the
 JAX function gets its engine's ``n_blk``, the longest slot's blocks.
 float32, atol 1e-5: both sum the same float32 terms in another order
@@ -118,14 +120,17 @@ def test_dead_slot_attends_only_its_current_lane():
 @pytest.mark.parametrize("change,err", [
     (dict(pool_k=torch.zeros(5, 2, 8, 64, dtype=torch.int8)), TypeError),
     (dict(d=1040), ValueError),
-    (dict(nq=17), ValueError),
+    (dict(p_limit_dtype=torch.int64), ValueError),
     (dict(tables_dtype=torch.int64), ValueError),
     (dict(blk_lo=99), ValueError),
-    (dict(d=200, nq=5), ValueError),
+    (dict(cur_mask_rows=3, nq=4), ValueError),
+    (dict(nq=pa.max_positions(64) + 1), ValueError),
 ])
 def test_cuda_checks_refuse_what_the_kernel_does_not_take(change, err):
-    """Past D = 1024, past 16 query positions (4 at D > 128), int8 pools
-    and malformed tables raise, naming the limit."""
+    """Past D = 1024 or ``max_positions(D)`` query positions, int8 pools,
+    malformed tables, positions and ``cur_mask`` raise, naming the
+    limit.  (Past ``max_rows(D)`` positions the wrapper launches runs of
+    them.)"""
     kw = dict(lens=[9, 4], block=8, d=change.get("d", 64), n_kv=2,
               g=change.get("g", 1), nq=change.get("nq", 1))
     a = chip_smoke.paged_inputs(dtype=torch.float32, seed=0, **kw)
@@ -135,6 +140,10 @@ def test_cuda_checks_refuse_what_the_kernel_does_not_take(change, err):
         a["tables"] = a["tables"].to(change["tables_dtype"])
     if "blk_lo" in change:
         a["blk_lo"] = change["blk_lo"]
+    if "p_limit_dtype" in change:
+        a["p_limit"] = a["p_limit"].to(change["p_limit_dtype"])
+    if "cur_mask_rows" in change:
+        a["cur_mask"] = a["cur_mask"][:change["cur_mask_rows"]].contiguous()
     with pytest.raises(err):
         pa._check_cuda(a["q"], a["pool_k"], a["pool_v"], a["tables"],
                        a["p_limit"], a["k_cur"], a["v_cur"], a["cur_mask"],
@@ -144,12 +153,27 @@ def test_cuda_checks_refuse_what_the_kernel_does_not_take(change, err):
 @pytest.mark.parametrize("d,g,nq", [(16, 1, 1), (40, 3, 1), (96, 4, 4),
                                     (256, 2, 2), (512, 4, 1), (13, 1, 1),
                                     (640, 1, 1), (1024, 6, 1), (64, 8, 4),
-                                    (200, 5, 4)])
+                                    (200, 5, 4), (64, 1, 24), (256, 1, 40),
+                                    (200, 2, 5), (64, 1, 3632),
+                                    (256, 1, 4000)])
 def test_cuda_checks_take_every_head_dim_up_to_512(d, g, nq):
-    """Every head dim up to ``MAX_HEAD_DIM`` (1024), and any GQA group:
-    more query rows than a launch holds run in groups of heads."""
+    """Every head dim up to ``MAX_HEAD_DIM`` (1024), any GQA group and
+    Q up to ``max_positions(D)``: more query rows than a launch holds run
+    in groups of heads and runs of query positions."""
     a = chip_smoke.paged_inputs(lens=[9, 4], block=8, d=d, n_kv=2, g=g,
                                 nq=nq, dtype=torch.bfloat16, seed=0)
     assert pa._check_cuda(a["q"], a["pool_k"], a["pool_v"], a["tables"],
                           a["p_limit"], a["k_cur"], a["v_cur"],
                           a["cur_mask"], a["blk_lo"]) == 1
+
+
+def test_max_positions_is_what_the_combine_fits_in_shared_memory():
+    """The combine kernel keeps a float32 score for each of a launch's
+    rows (at most ``max_rows(D)``) and each current lane: Q lanes fit
+    227 KB up to 3632 at D <= 128 (16 rows) and 14528 above (4 rows)."""
+    assert pa.max_positions(64) == 3632 and pa.max_positions(128) == 3632
+    assert pa.max_positions(129) == 14528 and pa.max_positions(1024) == 14528
+    for d in (16, 128, 256, 1024):
+        assert 4 * pa.max_rows(d) * pa.max_positions(d) <= pa.MAX_SMEM_BYTES
+        assert 4 * pa.max_rows(d) * (pa.max_positions(d) + 1) > \
+            pa.MAX_SMEM_BYTES

@@ -197,7 +197,7 @@ def bottleneck_case(lib, b, h, w, c, cm, seed, affine="unit"):
 def paged_case(lib, dtype, seed, n_split=None, **kw):
     """The emulated split and combine kernels on one ``chip_smoke`` case
     (CPU tensors, the output and workspace NaN-filled) against their
-    plain version, launched as the wrapper launches them (groups of at
+    plain version, launched as the wrapper launches them (launches of at
     most ``max_rows(D)`` query rows, the table width as the bound of the
     blocks read, which the kernel narrows from ``p_limit``), over
     ``n_split`` splits of the key range (default: what the wrapper would
