@@ -127,14 +127,31 @@ exits nonzero:
                     ``generate``, no block left, the census flat; and
                     ``GPT2Config.tiny`` (D = 16) served on the card,
                     streams equal to offline ``generate``.
-9. ``generate``   - the serve phase's float32 GPT-2 small past
+9. ``serve_int8`` - the same model and traffic on int8 pools
+                    (``cache_dtype="int8"``): float32 streams equal the
+                    int8 gather oracle's and offline int8 ``generate``'s,
+                    the int8 kernel 12 launches a decode step, no block
+                    left; the pressured priority engine on int8 pools
+                    preempts and swaps (scales with the values) and
+                    matches offline int8 ``generate``; bf16 timed (TTFT,
+                    TPOT, decode tokens/s) and profiled (busy share), the
+                    int8 kernels' main path, beside the bf16 pools.
+10. ``serve_slots`` - the same traffic through ``model.serve()`` without
+                    ``paged=`` (the slot arena, 8 slots of 1024 lanes),
+                    dense and int8: float32 streams equal offline
+                    ``generate``'s at the same ``cache_dtype``, exactly
+                    one captured graph, the census flat; bf16 timed and
+                    profiled.
+11. ``generate``  - the serve phase's float32 GPT-2 small past
                     n_positions: a 1000-token prompt and 40 greedy tokens
                     take the windowed path (12 flash forward launches a
                     token), equal to the KV-cached ``generate`` over the
                     24 tokens that fit; ``min_p`` and
                     ``repetition_penalty`` on the KV-cached path.
-10. ``paged_kernels`` - ``paged_attn`` (its split and combine kernels)
-                    against ``paged_attn_plain`` at the edge cases of
+12. ``paged_kernels`` - ``paged_attn`` (its split and combine kernels)
+                    against ``paged_attn_plain``, on float32 and bf16
+                    pools and on int8 pools with float32 and bf16 q, at
+                    the edge cases of
                     ``paged_edge_cases`` (block sizes 1 to 32, partial and
                     full last blocks, all-trash and one-block tables, GQA
                     g = 3, D = 16/20/40/80/128/256/640/1024, Q = 4 with a
@@ -142,13 +159,15 @@ exits nonzero:
                     at D = 1024 (launched in groups of heads), Q = 24
                     and 40 query positions (launched in runs of
                     positions), windows, 1000-lane slots, a long slot beside short
-                    ones; one split of the key range and several) in
-                    float32 and bf16, and at two tables of bf16 pools over
-                    12 layers, one decode step's real tables from the
-                    serve phase and two 1000-lane slots, where it times the
-                    kernels, their plain version and SDPA on rows gathered
-                    from the pool (the yardstick; the gather not timed).
-11. ``device``    - the card's name and power limit from nvidia-smi.
+                    ones; one split of the key range and several), and at
+                    tables of 12 layers' pools: one decode step's real
+                    tables from the serve phase with bf16 pools and with
+                    int8 pools (bf16 q), and two 1000-lane slots, where it
+                    times the kernels, their plain version and SDPA on
+                    rows gathered from the pool (the yardstick; the
+                    gather, and the dequantization of int8 pools, not
+                    timed).
+13. ``device``    - the card's name and power limit from nvidia-smi.
 
 Then one line ``{"kernels": [...]}`` with each kernel's launches on the
 main path (the graph-mode runs: a replay credits the launches its graph
@@ -557,6 +576,9 @@ REPLACES = {
     "flash_bwd_dq": "singa_tpu/ops/pallas/flash_attention.py:357",
     "flash_bwd_dkv": "singa_tpu/ops/pallas/flash_attention.py:385",
     "paged_attn": "singa_tpu/models/gpt2_decode.py:841",
+    # _paged_attn's int8 branch: its (values, scales) pools (:861), the
+    # scaled scores (:885-889) and current lanes (:909-912)
+    "paged_attn_int8": "singa_tpu/models/gpt2_decode.py:861",
 }
 
 
@@ -1602,7 +1624,7 @@ PAGED_TRASH_VALUE = 50.0
 
 
 def paged_inputs(lens, block, d, n_kv, g, nq, dtype, seed, window=None,
-                 spare=3, trash_at=(), from_block0=False):
+                 spare=3, trash_at=(), from_block0=False, quant=False):
     """Kernel arguments for one paged case, made from a numpy seed: slot
     s attends ``lens[s]`` pool lanes (0: a dead slot with an all-trash
     table) through ``ceil(lens[s] / block)`` distinct random blocks, its
@@ -1612,7 +1634,10 @@ def paged_inputs(lens, block, d, n_kv, g, nq, dtype, seed, window=None,
     below ``lens[slot]`` (lanes the function masks, as the JAX engine's
     dropped out-of-window blocks).  With a ``window``, ``blk_lo`` is the
     first block holding an in-window lane of any live slot, or None
-    (read from block 0) with ``from_block0``."""
+    (read from block 0) with ``from_block0``.  ``quant``: the same draws,
+    the pools and current K/V quantized to int8 (values, scales) pairs
+    (``gpt2_decode._quantize_kv``, the trash block's values 127 at scale
+    50 / 127), q in ``dtype``."""
     rng = np.random.RandomState(seed)
     need = [-(-p // block) for p in lens]
     n_blocks = sum(need) + spare
@@ -1638,10 +1663,17 @@ def paged_inputs(lens, block, d, n_kv, g, nq, dtype, seed, window=None,
     if window is not None and not from_block0:
         blk_lo = min((max(0, (p - window + 1) // block) for p in live),
                      default=0)
-    on = lambda t: t.to(DEVICE, dtype).contiguous()  # noqa: E731
+    if quant:
+        from singa_tpu_torch.models.gpt2_decode import _quantize_kv
+
+        def on(t):
+            return tuple(x.to(DEVICE).contiguous() for x in _quantize_kv(t))
+    else:
+        def on(t):
+            return t.to(DEVICE, dtype).contiguous()
     return dict(
-        q=on(q), pool_k=on(pool_k), pool_v=on(pool_v),
-        tables=torch.from_numpy(tables).to(DEVICE),
+        q=q.to(DEVICE, dtype).contiguous(), pool_k=on(pool_k),
+        pool_v=on(pool_v), tables=torch.from_numpy(tables).to(DEVICE),
         p_limit=torch.tensor(lens, dtype=torch.int32, device=DEVICE),
         k_cur=on(k_cur), v_cur=on(v_cur),
         cur_mask=torch.ones(nq, nq, dtype=torch.bool,
@@ -1712,12 +1744,13 @@ def paged_edge_cases():
     return [(n, {**base, **kw}) for n, kw in cases]
 
 
-def check_paged_case(name, dtype, seed, **kw):
-    """The kernel against its plain version on one case: returns max
-    |kernel - plain| and raises past ``PAGED_TOL``."""
+def check_paged_case(name, dtype, seed, quant=False, **kw):
+    """The kernel against its plain version on one case (``quant``: int8
+    pools, q in ``dtype``): returns max |kernel - plain| and raises past
+    ``PAGED_TOL[dtype]``."""
     from singa_tpu_torch.ops import paged_attention as pa
 
-    args = paged_inputs(dtype=dtype, seed=seed, **kw)
+    args = paged_inputs(dtype=dtype, seed=seed, quant=quant, **kw)
     got = pa.paged_attn(**args).float()
     want = pa.paged_attn_plain(**args).float()
     torch.cuda.synchronize()
@@ -1731,17 +1764,19 @@ def check_paged_case(name, dtype, seed, **kw):
     return err
 
 
-def paged_bound_ms(lens, n_kv, g, nq, d, dtype):
+def paged_bound_ms(lens, n_kv, g, nq, d, dtype, quant=False):
     """Least time for one call: the live K/V lanes read once, q and the
     current K/V read and the output written once, over memory bandwidth;
     against 4 FLOPs per (query row, live lane, element) over the peak
-    rate for the dtype.  Returns ``(ms, "bytes" or "operations")``."""
+    rate for q's dtype.  ``quant``: int8 lanes, D bytes and a float32
+    scale each.  Returns ``(ms, "bytes" or "operations")``."""
     elem = torch.finfo(dtype).bits // 8
+    row = d + 4 if quant else d * elem                # bytes of a K or V lane
     lanes = int(sum(lens))
     s_ = len(lens)
-    nbytes = (2 * lanes * n_kv * d * elem            # live K and V lanes
+    nbytes = (2 * lanes * n_kv * row                 # live K and V lanes
               + 2 * s_ * n_kv * g * nq * d * elem    # q and the output
-              + 2 * s_ * n_kv * nq * d * elem)       # k_cur and v_cur
+              + 2 * s_ * n_kv * nq * row)            # k_cur and v_cur
     flops = 4 * (lanes + s_ * nq) * n_kv * g * nq * d
     peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_F32_FLOPS
     t_ops, t_bytes = flops / peak * 1e3, nbytes / PEAK_BYTES * 1e3
@@ -1761,15 +1796,23 @@ def sdpa_yardstick(layers):
     """The library yardstick at one decode step's inputs, layer by layer:
     each slot's live blocks gathered into dense (S, H, n_blk * B + B, D)
     rows
-    with the current K/V at lane ``p_limit`` (not timed), then
+    with the current K/V at lane ``p_limit`` (not timed; int8 pools
+    dequantized to q's dtype first, not timed either), then
     ``scaled_dot_product_attention`` with a mask of lanes <= ``p_limit``
     (timed alone, over the layers in turn: no one PyTorch call computes
     paged attention).  Returns (device ms of SDPA, its event ms, event ms
     of one layer's gather, max |SDPA - kernel| at the first layer)."""
     import torch.nn.functional as F
 
+    from singa_tpu_torch.models.gpt2_decode import _dequantize_kv
     from singa_tpu_torch.ops import paged_attention as pa
 
+    kernel_out = pa.paged_attn(**layers[0])
+    if isinstance(layers[0]["pool_k"], tuple):
+        # int8 pools: SDPA reads them dequantized to q's dtype (not timed)
+        layers = [dict(a, **{k: _dequantize_kv(*a[k], a["q"].dtype)
+                             for k in ("pool_k", "pool_v", "k_cur",
+                                       "v_cur")}) for a in layers]
     a0 = layers[0]
     q = a0["q"]
     s_, n_kv, g, nq, d = q.shape
@@ -1798,7 +1841,7 @@ def sdpa_yardstick(layers):
     calls = [lambda kk=kk, vv=vv: F.scaled_dot_product_attention(
         qq, kk, vv, attn_mask=mask) for kk, vv in rows]
     err = (calls[0]().float().reshape(q.shape)
-           - pa.paged_attn(**a0).float()).abs().max().item()
+           - kernel_out.float()).abs().max().item()
     sdpa = _rotating(calls)
     return (device_ms_per_call(sdpa, 4 * len(calls)),
             cuda_time_ms(sdpa, 4 * len(calls)), gather_ms, err)
@@ -1829,13 +1872,16 @@ def time_paged_table(layers):
     sdpa_ms, sdpa_events_ms, gather_ms, sdpa_err = sdpa_yardstick(layers)
     s_, n_kv, g, nq, d = args["q"].shape
     lens = args["p_limit"].tolist()
-    bound, by = paged_bound_ms(lens, n_kv, g, nq, d, args["q"].dtype)
-    block = args["pool_k"].shape[2]
+    quant = isinstance(args["pool_k"], tuple)
+    bound, by = paged_bound_ms(lens, n_kv, g, nq, d, args["q"].dtype, quant)
+    pool = pa._values(args["pool_k"])
+    block = pool.shape[2]
     by_kernel = device_ms_by_kernel(kernel, 4 * n)
     return dict(
         slots=s_, p_limit=lens, table_width=args["tables"].shape[1],
         block=block, layers=n, dtype=str(args["q"].dtype)[6:],
-        n_split=pa.split_count(d, args["q"].dtype, args["tables"].shape[1],
+        pool_dtype=str(pool.dtype)[6:],
+        n_split=pa.split_count(d, pool.dtype, args["tables"].shape[1],
                                0, block, s_ * n_kv,
                                torch.cuda.get_device_properties(
                                    0).multi_processor_count),
@@ -1858,53 +1904,74 @@ def time_paged_table(layers):
 LONG_TABLE_LENS = (1000, 1000)
 
 
-def phase_paged_kernels(real, cfg):
+def phase_paged_kernels(real, real8, cfg):
     """``paged_attn`` against its plain version at every edge case in
-    float32 and bf16 (their split counts logged: some take one split of
-    the key range, some several), then timed at two tables of bf16 pools
-    for GPT-2 small's 12 layers: one decode step of the serve phase
-    (``real``: its tables and positions) and ``LONG_TABLE_LENS``.  The
-    times in the kernels line are the serve step's device times
-    (``device_ms_per_call``): the wrapper's launch overhead exceeds the
-    kernels' time, so CUDA events around back-to-back calls would time
-    the host (logged too, as ``event_ms``)."""
+    float32 and bf16, and on int8 pools with float32 and bf16 q (their
+    split counts logged: some take one split of the key range, some
+    several), then timed at tables for GPT-2 small's 12 layers: one
+    decode step of the serve phase (``real``: its tables and positions)
+    with bf16 pools and, as row 5c, with int8 pools and bf16 q, and
+    ``LONG_TABLE_LENS`` with bf16 pools.  The times in the kernels line
+    are the serve step's device times (``device_ms_per_call``): the
+    wrapper's launch overhead exceeds the kernels' time, so CUDA events
+    around back-to-back calls would time the host (logged too, as
+    ``event_ms``).  ``real8``: the int8 kernels' launches on the
+    ``serve_int8`` main path.  Returns the kernels line's two rows."""
     from singa_tpu_torch.ops import paged_attention as pa
 
     n_sm = torch.cuda.get_device_properties(0).multi_processor_count
     worst, splits = {}, {}
-    for dtype in (torch.float32, torch.bfloat16):
+    for quant, dtype in itertools.product((False, True),
+                                          (torch.float32, torch.bfloat16)):
+        key = ("int8/" if quant else "") + str(dtype)[6:]
         for seed, (name, kw) in enumerate(paged_edge_cases()):
-            e = check_paged_case(f"{name}/{str(dtype)[6:]}", dtype, seed,
-                                 **kw)
-            worst[str(dtype)[6:]] = max(worst.get(str(dtype)[6:], 0.0), e)
-            a = paged_inputs(dtype=dtype, seed=seed, **kw)
+            e = check_paged_case(f"{name}/{key}", dtype, seed, quant, **kw)
+            worst[key] = max(worst.get(key, 0.0), e)
+            a = paged_inputs(dtype=dtype, seed=seed, quant=quant, **kw)
             s_, n_kv, _, _, d = a["q"].shape
-            splits[f"{name}/{str(dtype)[6:]}"] = pa.split_count(
-                d, dtype, a["tables"].shape[1], a["blk_lo"],
-                a["pool_k"].shape[2], s_ * n_kv, n_sm)
+            pool = pa._values(a["pool_k"])
+            splits[f"{name}/{key}"] = pa.split_count(
+                d, pool.dtype, a["tables"].shape[1], a["blk_lo"],
+                pool.shape[2], s_ * n_kv, n_sm)
     if not {1} < set(splits.values()):
         raise AssertionError(f"the edge cases should take both one split "
                              f"and several: {splits}")
     serve = time_paged_table(real["layers"])
+    serve8 = time_paged_table(real_args(real, cfg, seed=2, quant=True))
     long = time_paged_table(paged_table(LONG_TABLE_LENS, cfg, seed=1))
     log({"phase": "paged_kernels",
-         "edge_cases": 2 * len(paged_edge_cases()),
+         "edge_cases": 4 * len(paged_edge_cases()),
          "edge_max_abs_err": worst, "edge_n_split": splits,
          "tol": {str(k)[6:]: v for k, v in PAGED_TOL.items()},
+         "tol_int8": "PAGED_TOL of q's dtype",
          "serve_table": dict(serve, step=real["step"]),
+         "serve_table_int8_row_5c": dict(serve8, step=real["step"]),
          "long_table": long})
-    ms = serve["device_ms"]
-    return dict(name="paged_attn", route="cuda",
-                source="singa_tpu_torch/csrc/paged_attention.cu",
-                replaces=REPLACES["paged_attn"], launches=real["launches"],
-                max_abs_err=serve["max_abs_err_vs_plain"], ms=ms["kernel"],
-                plain_ms=ms["plain"], bound_ms=ms["bound"],
-                bound_by=serve["bound_by"], library_ms=ms["sdpa_alone"],
-                library_call="torch.nn.functional.scaled_dot_product_attention"
-                             " on rows gathered from the pool (the gather "
-                             "not timed: no one PyTorch call computes paged "
-                             "attention)",
-                kernels="paged_attn_kernel (split) + paged_combine_kernel")
+
+    def row(name, t, launches, kernels):
+        ms = t["device_ms"]
+        return dict(
+            name=name, route="cuda",
+            source="singa_tpu_torch/csrc/paged_attention.cu",
+            replaces=REPLACES[name], launches=launches,
+            max_abs_err=t["max_abs_err_vs_plain"], ms=ms["kernel"],
+            plain_ms=ms["plain"], bound_ms=ms["bound"],
+            bound_by=t["bound_by"], library_ms=ms["sdpa_alone"],
+            library_call="torch.nn.functional.scaled_dot_product_attention"
+                         " on rows gathered from the pool (the gather not "
+                         "timed: no one PyTorch call computes paged "
+                         "attention)" + ("; int8 pools dequantized first, "
+                                         "not timed" if "int8" in name
+                                         else ""),
+            kernels=kernels)
+
+    return [row("paged_attn", serve, real["launches"],
+                "paged_attn_kernel<T, T> (split) + paged_combine_kernel<T, "
+                "T>, T float or bf16"),
+            row("paged_attn_int8", serve8, real8["launches"],
+                "paged_attn_kernel<T, int8> (split) + "
+                "paged_combine_kernel<T, int8>, T float or bf16 (the int8 "
+                "branch)")]
 
 
 # ------------------------------------------------------------------ serve
@@ -1966,21 +2033,26 @@ def drain_counting_graphs(eng, max_steps=5000):
 
 
 def run_engine(model, traffic, kernel, dtype=None, trace=False,
-               wrap=None, capture=True):
+               wrap=None, capture=True, cache_dtype=None):
     """Submit ``traffic`` at once to ``model.serve`` with the serve
     phase's engine (its decode steps captured unless ``capture`` is
-    False), drain it, and check what a drain must leave: every request
-    completed by its length, no rejection, no block in use, the serve
-    census flat (``drain_counting_graphs``).  ``wrap(engine)`` may replace
-    the engine's executor.  Returns ``(streams, engine stats snapshot with
-    the census under "graphs", seconds, decode-step seconds)``."""
+    False; ``kernel`` None: the slot arena, ``model.serve`` without
+    ``paged=``, at ``max_slots`` and ``max_len`` 1024), drain it, and
+    check what a drain must leave: every request completed by its length,
+    no rejection, no block in use, the serve census flat
+    (``drain_counting_graphs``; the slot arena: exactly one graph).
+    ``wrap(engine)`` may replace the engine's executor.  Returns
+    ``(streams, engine stats snapshot with the census under "graphs",
+    seconds, decode-step seconds)``."""
     from singa_tpu_torch.observe import trace as tr
     from singa_tpu_torch.serve import GenerationRequest, PagedConfig
 
     c = SERVE_ENGINE
-    eng = model.serve(max_slots=c["max_slots"], dtype=dtype, paged=PagedConfig(
+    paged = None if kernel is None else PagedConfig(
         block_size=c["block_size"], num_blocks=c["num_blocks"],
-        kernel=kernel), capture=capture)
+        kernel=kernel)
+    eng = model.serve(max_slots=c["max_slots"], dtype=dtype, paged=paged,
+                      capture=capture, cache_dtype=cache_dtype)
     if wrap is not None:
         eng._x = wrap(eng)
     if trace:
@@ -2007,7 +2079,11 @@ def run_engine(model, traffic, kernel, dtype=None, trace=False,
     snap = dict(eng.stats.snapshot(), graphs=graphs)
     if trace:
         snap["prefill_seconds"] = prefill_s
-    if eng.paged_arena.blocks_used != 0:
+    if kernel is None:
+        if capture and graphs["census_at_end"] != 1:
+            raise AssertionError(f"the slot arena holds {graphs} graphs, "
+                                 f"not one")
+    elif eng.paged_arena.blocks_used != 0:
         raise AssertionError(f"{eng.paged_arena.blocks_used} blocks in use "
                              f"after the drain")
     eng.check_block_accounting()
@@ -2025,11 +2101,12 @@ def run_engine(model, traffic, kernel, dtype=None, trace=False,
     return streams, snap, seconds, decode_s
 
 
-def offline_streams(model, traffic):
+def offline_streams(model, traffic, cache_dtype=None):
     """Offline ``generate`` of the traffic, float32: the greedy requests
     in one batch, the sampled ones in another with their seeds, each
     batch to its longest ``max_new_tokens`` and then cut to each
-    request's (a stream's prefix does not depend on its length)."""
+    request's (a stream's prefix does not depend on its length);
+    ``cache_dtype="int8"``: on int8 caches."""
     out = [None] * len(traffic)
     for greedy in (True, False):
         idx = [i for i, w in enumerate(traffic)
@@ -2038,7 +2115,7 @@ def offline_streams(model, traffic):
         rows = model.generate(
             [traffic[i]["prompt"] for i in idx], max_new_tokens=n_new,
             temperature=0.0 if greedy else traffic[idx[0]]["temperature"],
-            seed=[traffic[i]["seed"] for i in idx])
+            seed=[traffic[i]["seed"] for i in idx], cache_dtype=cache_dtype)
         for i, r in zip(idx, rows):
             out[i] = r[:len(traffic[i]["prompt"]) + traffic[i]["max_new"]]
     return out
@@ -2209,16 +2286,6 @@ def phase_serve(seed=0):
                 f"{SERVE_BF16_LOGITS_ATOL}")
     real = probe.real
 
-    def timing(snap, sec, dec_s):
-        lat = snap["latency"]
-        decode_tokens = snap["throughput"]["tokens_out"] - len(traffic)
-        return {"seconds": sec, "ttft_median_s": lat["ttft"]["p50"],
-                "tpot_median_s": lat["tpot"]["p50"],
-                "tokens_per_s": snap["throughput"]["tokens_per_s"],
-                "decode_tokens_per_s": decode_tokens / dec_s,
-                "decode_step_seconds": dec_s,
-                "prefill_seconds": snap["prefill_seconds"]}
-
     log({"phase": "serve", "model": "gpt2-small",
          "params": sum(p.numel() for p in model.parameters()),
          "engine": SERVE_ENGINE, "requests": len(traffic),
@@ -2234,8 +2301,9 @@ def phase_serve(seed=0):
              streams_equal_generate=True),
          "float32_tiny": dict(tiny, streams_equal_generate=True),
          "bf16": {"decode_steps": steps16, "paged_attn_launches": launches16,
-                  **timing(snap16, sec16, decode_s),
-                  "eager": timing(esnap16, esec16, edecode_s),
+                  **serve_timing(snap16, sec16, decode_s, len(traffic)),
+                  "eager": serve_timing(esnap16, esec16, edecode_s,
+                                        len(traffic)),
                   "graphs": snap16["graphs"],
                   "streams_equal_eager": True,
                   "logits_max_abs_diff_kernel_vs_gather": probe.max_err,
@@ -2249,7 +2317,150 @@ def phase_serve(seed=0):
          "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30,
          "nvidia_smi": nvidia_smi()})
     return model, dict(launches=launches16, step=real["step"],
-                       layers=real_args(real, model.cfg, seed))
+                       tables=real["tables"], p_limit=real["p_limit"],
+                       layers=real_args(real, model.cfg, seed),
+                       traffic=traffic, offline=offline,
+                       bf16=dict(serve_timing(snap16, sec16, decode_s,
+                                              len(traffic)),
+                                 busy_share=profile["device_busy_share"]))
+
+
+def serve_timing(snap, sec, dec_s, n_requests):
+    """The timed figures of one drained engine: wall seconds, TTFT and
+    TPOT medians, tokens/s over the drain and decode tokens/s over the
+    decode steps' traced seconds (every token but each request's first,
+    which its prefill samples)."""
+    lat = snap["latency"]
+    decode_tokens = snap["throughput"]["tokens_out"] - n_requests
+    return {"seconds": sec, "ttft_median_s": lat["ttft"]["p50"],
+            "tpot_median_s": lat["tpot"]["p50"],
+            "tokens_per_s": snap["throughput"]["tokens_per_s"],
+            "decode_tokens_per_s": decode_tokens / dec_s,
+            "decode_step_seconds": dec_s,
+            "prefill_seconds": snap["prefill_seconds"]}
+
+
+def _same_streams(what, got, want):
+    for i, (a, b) in enumerate(zip(got, want, strict=True)):
+        if not np.array_equal(a, b):
+            raise AssertionError(f"request {i}: {what}")
+
+
+def phase_serve_int8(model, real):
+    """The serve phase's model and traffic on int8 pools
+    (``cache_dtype="int8"``, ``PagedConfig(block_size=32,
+    num_blocks=256)``).  float32: the captured engine's streams equal the
+    int8 gather oracle's and offline int8 ``generate``'s, the int8 kernel
+    launches 12 times a decode step, no block is left; the pressured
+    priority engine on int8 pools preempts, swaps (the scales with the
+    values) and matches offline int8 ``generate``.  bf16 (the main path
+    of the int8 kernels' launches: every count set to 0 just before, read
+    just after): TTFT/TPOT medians, decode tokens/s and the busy share of
+    a profiled window, beside the serve phase's bf16 pools.  Returns the
+    int8 kernels' launches and the offline int8 streams."""
+    from singa_tpu_torch.ops import paged_attention as pa
+
+    marks = [("start", time.perf_counter())]
+    cfg, traffic = model.cfg, real["traffic"]
+    pa.paged_attn.launches = pa.paged_attn.int8_launches = 0
+    block8, snap8, sec8, _ = run_engine(model, traffic, "block",
+                                        cache_dtype="int8")
+    launches8, all8 = pa.paged_attn.int8_launches, pa.paged_attn.launches
+    steps8 = snap8["throughput"]["decode_steps"]
+    if not launches8 == all8 == cfg.n_layer * steps8:
+        raise AssertionError(f"int8: paged_attn launched {all8} times, the "
+                             f"int8 kernel {launches8}, over {steps8} decode "
+                             f"steps")
+    if not snap8["paged"]["quant"]:
+        raise AssertionError("the int8 engine's arena is not quantized")
+    marks.append(("float32_captured", time.perf_counter()))
+    gather8, _, _, _ = run_engine(model, traffic, "gather",
+                                  cache_dtype="int8")
+    offline8 = offline_streams(model, traffic, "int8")
+    marks.append(("float32_gather_and_generate", time.perf_counter()))
+    _same_streams("the int8 kernel's stream differs from the int8 gather "
+                  "oracle's", block8, gather8)
+    _same_streams("the int8 engine's stream differs from offline int8 "
+                  "generate", block8, offline8)
+    differ = sum(not np.array_equal(a, b)
+                 for a, b in zip(block8, real["offline"]))
+    pressured = serve_pressured(model, pressure_traffic(
+        0, vocab=cfg.vocab_size), cache_dtype="int8")
+    marks.append(("float32_pressured", time.perf_counter()))
+
+    bf = torch.bfloat16
+    pa.paged_attn.launches = pa.paged_attn.int8_launches = 0
+    b16, snap16, sec16, decode_s = run_engine(
+        model, traffic, "block", dtype=bf, trace=True, cache_dtype="int8")
+    launches16 = pa.paged_attn.int8_launches
+    steps16 = snap16["throughput"]["decode_steps"]
+    if launches16 != cfg.n_layer * steps16:
+        raise AssertionError(f"bf16 int8: the int8 kernel launched "
+                             f"{launches16} times over {steps16} steps")
+    profile = profile_serve(model, traffic, bf, cache_dtype="int8")
+    marks.append(("bf16_timed_and_profiled", time.perf_counter()))
+    log({"phase": "serve_int8", "model": "gpt2-small",
+         "engine": dict(SERVE_ENGINE, cache_dtype="int8"),
+         "requests": len(traffic),
+         "float32": {"decode_steps": steps8, "int8_launches": launches8,
+                     "seconds": sec8, "graphs": snap8["graphs"],
+                     "streams_equal_gather_and_int8_generate": True,
+                     "streams_differing_from_float_pools": differ},
+         "float32_pressured": dict(PRESSURE_ENGINE, requests=12,
+                                   paged=pressured,
+                                   streams_equal_int8_generate=True),
+         "bf16": {"decode_steps": steps16, "int8_launches": launches16,
+                  **serve_timing(snap16, sec16, decode_s, len(traffic)),
+                  "graphs": snap16["graphs"],
+                  "busy_share": profile["device_busy_share"]},
+         "bf16_pools_same_run": real["bf16"],
+         "profile_bf16_run": profile,
+         "seconds": {n: t - marks[i][1]
+                     for i, (n, t) in enumerate(marks[1:])},
+         "nvidia_smi": nvidia_smi()})
+    return dict(launches=launches16, offline=offline8)
+
+
+def phase_serve_slots(model, real, real8):
+    """The serve phase's traffic through ``model.serve()`` without
+    ``paged=`` (the slot arena: ``max_slots`` 8, ``max_len`` 1024, every
+    slot a dense row), dense and int8.  float32: streams equal offline
+    ``generate``'s at the same ``cache_dtype`` (the serve phases' own
+    offline streams), exactly one captured graph, the census flat.
+    bf16: TTFT/TPOT medians, decode tokens/s and the busy share of a
+    profiled window."""
+    marks = [("start", time.perf_counter())]
+    traffic = real["traffic"]
+    out = {}
+    for cd, want in ((None, real["offline"]), ("int8", real8["offline"])):
+        name = cd or "dense"
+        streams, snap, sec, _ = run_engine(model, traffic, None,
+                                           cache_dtype=cd)
+        _same_streams(f"the slot arena's ({name}) stream differs from "
+                      f"offline generate", streams, want)
+        marks.append((f"float32_{name}", time.perf_counter()))
+        b16, snap16, sec16, decode_s = run_engine(
+            model, traffic, None, dtype=torch.bfloat16, trace=True,
+            cache_dtype=cd)
+        profile = profile_serve(model, traffic, torch.bfloat16,
+                                cache_dtype=cd, slots=True)
+        marks.append((f"bf16_{name}", time.perf_counter()))
+        out[name] = {
+            "float32": {"decode_steps": snap["throughput"]["decode_steps"],
+                        "seconds": sec, "graphs": snap["graphs"],
+                        "streams_equal_generate": True},
+            "bf16": {"decode_steps": snap16["throughput"]["decode_steps"],
+                     **serve_timing(snap16, sec16, decode_s, len(traffic)),
+                     "busy_share": profile["device_busy_share"]},
+            "profile_bf16_run": profile}
+    log({"phase": "serve_slots", "model": "gpt2-small",
+         "engine": dict(max_slots=SERVE_ENGINE["max_slots"], max_len=1024,
+                        paged=None),
+         "requests": len(traffic), **out,
+         "bf16_paged_pools_same_run": real["bf16"],
+         "seconds": {n: t - marks[i][1]
+                     for i, (n, t) in enumerate(marks[1:])},
+         "nvidia_smi": nvidia_smi()})
 
 
 #: the pressured engine: a pool of 2048 lanes for 8 slots of up to 532
@@ -2269,19 +2480,22 @@ def pressure_traffic(seed=0, n=12, vocab=50257):
             for i in range(n)]
 
 
-def serve_pressured(model, traffic, engine=PRESSURE_ENGINE, lead=4):
+def serve_pressured(model, traffic, engine=PRESSURE_ENGINE, lead=4,
+                    cache_dtype=None):
     """A priority engine whose pool cannot hold every slot's KV: the
     priority-0 requests of ``traffic`` are submitted first and decode
     ``lead`` steps, then the rest arrive and preempt them (their KV to
     host memory), and every request is resumed and finishes.  Holds every
     stream against offline ``generate``, and checks that preemption and
     resume happened and that no block is left after the drain; returns
-    the arena's snapshot."""
+    the arena's snapshot.  ``cache_dtype="int8"``: int8 pools, whose
+    swaps carry the scales, against offline int8 ``generate``."""
     from singa_tpu_torch.serve import GenerationRequest, PagedConfig
 
     eng = model.serve(max_slots=engine["max_slots"], scheduler="priority",
                       paged=PagedConfig(block_size=engine["block_size"],
-                                        num_blocks=engine["num_blocks"]))
+                                        num_blocks=engine["num_blocks"]),
+                      cache_dtype=cache_dtype)
 
     def submit(w):
         return eng.submit(GenerationRequest(
@@ -2304,7 +2518,8 @@ def serve_pressured(model, traffic, engine=PRESSURE_ENGINE, lead=4):
     if snap["blocks_used"] != 0:
         raise AssertionError(f"{snap['blocks_used']} blocks in use after "
                              f"the pressured drain")
-    for i, (h, want) in enumerate(zip(hs, offline_streams(model, traffic))):
+    for i, (h, want) in enumerate(zip(hs, offline_streams(
+            model, traffic, cache_dtype))):
         if not np.array_equal(h.result().tokens, want):
             raise AssertionError(f"pressured request {i}: the resumed "
                                  f"stream differs from offline generate")
@@ -2348,19 +2563,21 @@ def serve_tiny(dev, seed=0):
                 decode_steps=steps, paged_attn_launches=launches)
 
 
-def profile_serve(model, traffic, dtype, warm=40, steps=20, capture=True):
+def profile_serve(model, traffic, dtype, warm=40, steps=20, capture=True,
+                  cache_dtype=None, slots=False):
     """Device time by kernel group and the device's busy share over
     ``steps`` engine steps of the traffic after ``warm`` steps (the eight
     slots full, decoding), from torch.profiler, with captured or eager
-    decode steps; then closes the engine undrained (the timed runs hold
-    the drain)."""
+    decode steps (``slots``: the slot arena's engine; ``cache_dtype``:
+    int8 KV); then closes the engine undrained (the timed runs hold the
+    drain)."""
     from singa_tpu_torch.serve import GenerationRequest, PagedConfig
 
     c = SERVE_ENGINE
-    eng = model.serve(max_slots=c["max_slots"], dtype=dtype,
-                      paged=PagedConfig(block_size=c["block_size"],
-                                        num_blocks=c["num_blocks"]),
-                      capture=capture)
+    paged = None if slots else PagedConfig(block_size=c["block_size"],
+                                           num_blocks=c["num_blocks"])
+    eng = model.serve(max_slots=c["max_slots"], dtype=dtype, paged=paged,
+                      capture=capture, cache_dtype=cache_dtype)
     for w in traffic:
         eng.submit(GenerationRequest(
             w["prompt"], max_new_tokens=w["max_new"],
@@ -2431,12 +2648,14 @@ def phase_generate(model, seed=0, prompt_len=1000, n_new=40):
          "min_p_one_equals_greedy": True})
 
 
-def real_args(real, cfg, seed):
+def real_args(real, cfg, seed, quant=False):
     """``paged_attn`` arguments for each layer of one recorded serve step:
     its tables and positions, a bf16 pool of the serve engine's size for
     each layer with random contents, random queries and current K/V, drawn
     on the device from ``seed`` (the kernel's time does not depend on the
-    values)."""
+    values).  ``quant``: the pools and current K/V int8 (values, scales)
+    pairs (values uniform in [-127, 127], scales in [0.005, 0.015)), q
+    bf16."""
     c = SERVE_ENGINE
     gen = torch.Generator(device=DEVICE)
     gen.manual_seed(seed)
@@ -2444,13 +2663,19 @@ def real_args(real, cfg, seed):
     s_ = len(real["p_limit"])
 
     def rand(*shape):
+        if quant:
+            return (torch.randint(-127, 128, shape, generator=gen,
+                                  device=DEVICE, dtype=torch.int8),
+                    0.005 + 0.01 * torch.rand(shape[:-1], generator=gen,
+                                              device=DEVICE))
         return torch.randn(shape, generator=gen, device=DEVICE,
                            dtype=torch.bfloat16)
 
     block = c["block_size"]
     p_limit = real["p_limit"]
     step = dict(
-        q=rand(s_, cfg.n_kv_head, cfg.n_head // cfg.n_kv_head, 1, d),
+        q=torch.randn((s_, cfg.n_kv_head, cfg.n_head // cfg.n_kv_head, 1, d),
+                      generator=gen, device=DEVICE, dtype=torch.bfloat16),
         tables=torch.from_numpy(real["tables"]).to(DEVICE),
         p_limit=torch.tensor(p_limit, dtype=torch.int32, device=DEVICE),
         k_cur=rand(s_, cfg.n_kv_head, 1, d),
@@ -2605,11 +2830,13 @@ def main():
     del model, images
     timed("zoo", phase_zoo)
     model, real = timed("serve", phase_serve)
+    real8 = timed("serve_int8", phase_serve_int8, model, real)
+    timed("serve_slots", phase_serve_slots, model, real, real8)
     timed("generate", phase_generate, model)
     cfg = model.cfg
     del model
-    rows["paged_attn"] = timed("paged_kernels", phase_paged_kernels, real,
-                               cfg)
+    for row in timed("paged_kernels", phase_paged_kernels, real, real8, cfg):
+        rows[row["name"]] = row
 
     smi = nvidia_smi()
     log({"phase": "device", "nvidia_smi": smi,

@@ -63,12 +63,24 @@
 // Probabilities of masked lanes are zeroed explicitly: a fully masked
 // tile leaves m at -1e30, where exp(m - m) would be 1.  A dead slot (all
 // trash table, p_limit 0) attends only its current lane and gives a
-// finite output.  Where int8 pools come (per-row scales, ROADMAP Queue B
-// item 1), a score takes its K row's scale where it is formed and a
-// probability its V row's scale where P.V reads it.
+// finite output.
+//
+// int8 pools (the JAX package's cache_dtype="int8": int8 values and one
+// float32 scale a (block, kv head, lane) row, the pool element type P =
+// int8_t beside the q type T): the values are staged as the other types
+// are (16 int8 a 16-byte chunk; a row of D 64 is four chunks, D 16 one),
+// and each fetch also stages its 32 keys' K and V scales (a float a lane
+// each) beside the tile.  A score takes its K row's scale as it is formed,
+// ((q . k8) * kscale) * scale; m and l are updated from the unscaled
+// probabilities; the probability a lane writes for P.V is multiplied by
+// its V row's scale; P.V reads V 4 bytes (4 int8) at a time, so a lane
+// holds as many dims as for float32.  The combine kernel reads the
+// current lanes as int8 values with their scales, placed the same way.
+// Each int8 element is converted to float32 where it is used.
 //
 // Takes float32 or bf16 pools (q, k_cur, v_cur and the output in the
-// pool's type), any D <= 1024 (the templates' rows are DT = 16, 32, ...,
+// pool's type), int8 pools with float32 or bf16 q (the output in q's
+// type), any D <= 1024 (the templates' rows are DT = 16, 32, ...,
 // 1024 wide, D rounded up and the tail zero-filled; 16-byte copies where
 // a row is a whole number of 16-byte chunks, element copies otherwise;
 // a float32 row of 2048 would need 256 KB for one tile of K), any block
@@ -80,6 +92,7 @@
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
+#include <type_traits>
 
 namespace {
 
@@ -95,6 +108,7 @@ __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
+__device__ __forceinline__ float to_f(int8_t x) { return (float)x; }
 template <typename T> __device__ __forceinline__ T from_f(float v);
 template <> __device__ __forceinline__ float from_f<float>(float v) {
   return v;
@@ -103,6 +117,11 @@ template <>
 __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
   return __float2bfloat16_rn(v);
 }
+template <> __device__ __forceinline__ int8_t from_f<int8_t>(float v) {
+  return (int8_t)v;
+}
+template <typename P>
+constexpr bool kQuant = std::is_same<P, int8_t>::value;
 
 // one 16-byte chunk of shared memory as floats
 __device__ __forceinline__ void load_chunk(const float* p, float (&f)[4]) {
@@ -119,6 +138,22 @@ __device__ __forceinline__ void load_chunk(const __nv_bfloat16* p,
     f[2 * i] = t.x;
     f[2 * i + 1] = t.y;
   }
+}
+// 16 int8 of shared memory as floats (byte j of a word at bits 8j)
+__device__ __forceinline__ void load_chunk(const int8_t* p, float (&f)[16]) {
+  const uint4 u = *reinterpret_cast<const uint4*>(p);
+  const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      f[4 * i + j] = (float)(int8_t)((w[i] >> (8 * j)) & 0xff);
+}
+// 4 int8 of shared memory as floats: one P.V read of an int8 row
+__device__ __forceinline__ void load_chunk(const int8_t* p, float (&f)[4]) {
+  const uint32_t w = *reinterpret_cast<const uint32_t*>(p);
+#pragma unroll
+  for (int j = 0; j < 4; ++j) f[j] = (float)(int8_t)((w >> (8 * j)) & 0xff);
 }
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -175,21 +210,25 @@ struct Shape {
 // Shared memory of the split kernel: a region that holds each warp's
 // stages during the key loop and each warp's acc (R x DT floats) after
 // it; then each warp's row offsets (a long long a key and stage), and in
-// floats the q rows (R x DT) and each warp's m and l (R each).
-template <typename T, int DT>
+// floats the q rows (R x DT), each warp's m and l (R each), its
+// probabilities (R x 32) and, for int8 pools, its staged K and V scales
+// (32 each a stage).
+template <typename P, int DT>
 __host__ __device__ inline size_t region_bytes(int R) {
-  using S = Shape<T, DT>;
+  using S = Shape<P, DT>;
   const size_t stage = (size_t)S::kNw * S::kStages * S::kStage;
   const size_t acc = (size_t)S::kNw * R * DT * sizeof(float);
   return stage > acc ? stage : acc;
 }
-template <typename T, int DT>
+template <typename P, int DT>
 __host__ __device__ inline size_t split_smem_bytes(int R) {
-  using S = Shape<T, DT>;
-  return region_bytes<T, DT>(R) +
+  using S = Shape<P, DT>;
+  return region_bytes<P, DT>(R) +
          sizeof(long long) * S::kNw * S::kStages * kTile +
          sizeof(float) * ((size_t)R * DT + 2 * S::kNw * R +
-                          (size_t)S::kNw * R * kTile);
+                          (size_t)S::kNw * R * kTile +
+                          (kQuant<P> ? (size_t)S::kNw * S::kStages * 2 * kTile
+                                     : 0));
 }
 
 // Keys a split takes: whole units of one tile a warp, and at least
@@ -200,27 +239,35 @@ __host__ __device__ inline int split_chunk(int span, int unit, int n_split) {
   return (per > 0 ? per : 1) * unit;
 }
 
-template <typename T, int DT, int MAXR>
-__global__ void __launch_bounds__(Shape<T, DT>::kNw * 32)
-paged_attn_kernel(const T* __restrict__ q, const T* __restrict__ pool_k,
-                  const T* __restrict__ pool_v,
+// T: the type of q and the output; P: the pools' (T, or int8_t with
+// float32 scales pool_ks / pool_vs, one a (block, kv head, lane) row).
+template <typename T, typename P, int DT, int MAXR>
+__global__ void __launch_bounds__(Shape<P, DT>::kNw * 32)
+paged_attn_kernel(const T* __restrict__ q, const P* __restrict__ pool_k,
+                  const P* __restrict__ pool_v,
+                  const float* __restrict__ pool_ks,
+                  const float* __restrict__ pool_vs,
                   const int* __restrict__ tables,
                   const int* __restrict__ p_limit, float* __restrict__ ws,
                   int n_kv, int g, int nq, int q0, int d, int block,
                   int table_width, int trash, int n_blk, int blk_lo,
                   int window, float scale, int vec) {
-  using Sh = Shape<T, DT>;
+  using Sh = Shape<P, DT>;
+  constexpr bool Q8 = kQuant<P>;
   constexpr int NW = Sh::kNw, STAGES = Sh::kStages;
   constexpr bool TURNS = Sh::kTurns;
-  constexpr int EPC = 16 / (int)sizeof(T);      // elements a 16-byte chunk
+  constexpr int EPC = 16 / (int)sizeof(P);      // elements a 16-byte chunk
   constexpr int CH = DT / EPC;                  // chunks a staged row
   constexpr int SW = CH < 8 ? CH : 8;           // swizzle span
-  // P.V: LPR lanes cover a row, a chunk (or CPL) each, and the warp's
-  // KG groups of them take every KG-th key
-  constexpr int LPR = CH < 32 ? CH : 32;        // lanes a V row
+  // P.V: a lane reads EPR elements at a time (a 16-byte chunk; 4 bytes of
+  // int8), LPR lanes cover a row, RPL reads each, and the warp's KG groups
+  // of them take every KG-th key
+  constexpr int EPR = Q8 ? 4 : EPC;             // elements a read
+  constexpr int NRD = DT / EPR;                 // reads a row
+  constexpr int LPR = NRD < 32 ? NRD : 32;      // lanes a V row
   constexpr int KG = 32 / LPR;                  // key groups
-  constexpr int CPL = CH / LPR;                 // chunks a lane
-  constexpr int E = CPL * EPC;                  // dims a lane
+  constexpr int RPL = NRD / LPR;                // reads a lane
+  constexpr int E = RPL * EPR;                  // dims a lane
   const int h = blockIdx.x, s = blockIdx.y, split = blockIdx.z;
   const int n_split = gridDim.z;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -254,15 +301,17 @@ paged_attn_kernel(const T* __restrict__ q, const T* __restrict__ pool_k,
   }
 
   extern __shared__ __align__(16) unsigned char smem[];
-  T* stage = reinterpret_cast<T*>(smem);  // [NW][STAGES][K, V][32][DT]
+  P* stage = reinterpret_cast<P*>(smem);  // [NW][STAGES][K, V][32][DT]
                                           // (TURNS: [NW][K or V][32][DT])
   float* wacc = reinterpret_cast<float*>(smem);  // after the key loop
   long long* rows =
-      reinterpret_cast<long long*>(smem + region_bytes<T, DT>(R));
+      reinterpret_cast<long long*>(smem + region_bytes<P, DT>(R));
   float* qs = reinterpret_cast<float*>(rows + NW * STAGES * kTile);
   float* wm = qs + R * DT;
   float* wl = wm + NW * R;
   float* wp = wl + NW * R + warp * R * kTile;  // this warp's probabilities
+  // int8: this warp's K and V scales, [STAGES][K, V][32]
+  float* wsc = wl + NW * R + NW * R * kTile + warp * STAGES * 2 * kTile;
 
   float m[MAXR], l[MAXR], acc[MAXR][E];
 #pragma unroll
@@ -277,14 +326,15 @@ paged_attn_kernel(const T* __restrict__ q, const T* __restrict__ pool_k,
   const int n_tiles = (r1 - r0 + kTile - 1) / kTile;
   long long* wrows = rows + warp * STAGES * kTile;
   constexpr int SLOT = TURNS ? kTile * DT : 2 * kTile * DT;  // a stage
-  T* wstage = stage + (size_t)warp * STAGES * SLOT;
+  P* wstage = stage + (size_t)warp * STAGES * SLOT;
 
   // The rows of tile ti -> stage st: lane t looks up key t's row
-  // (element offset, -1 when masked out or past the range); then the warp
-  // copies the 32 rows of K (mats & 1) and V (mats & 2) chunk by chunk,
-  // consecutive lanes on consecutive chunks, zero-filling masked rows and
-  // the tail past D.  K lands at the stage's start, V after it (at the
-  // start, too, under TURNS, once K has been read).
+  // (element offset, -1 when masked out or past the range), and on int8
+  // pools stages that row's K and V scales (0 where masked); then the
+  // warp copies the 32 rows of K (mats & 1) and V (mats & 2) chunk by
+  // chunk, consecutive lanes on consecutive chunks, zero-filling masked
+  // rows and the tail past D.  K lands at the stage's start, V after it
+  // (at the start, too, under TURNS, once K has been read).
   auto fetch = [&](int ti, int st, int mats) {
     if (mats & 1) {
       const int key = r0 + ti * kTile + lane;
@@ -295,10 +345,14 @@ paged_attn_kernel(const T* __restrict__ q, const T* __restrict__ pool_k,
           row = (((long long)blk * n_kv + h) * block + key % block) * d;
       }
       wrows[st * kTile + lane] = row;
+      if constexpr (Q8) {
+        wsc[(st * 2) * kTile + lane] = row >= 0 ? pool_ks[row / d] : 0.f;
+        wsc[(st * 2 + 1) * kTile + lane] = row >= 0 ? pool_vs[row / d] : 0.f;
+      }
       __syncwarp();
     }
-    T* ks = wstage + (size_t)st * SLOT;
-    T* vs = TURNS ? ks : ks + kTile * DT;
+    P* ks = wstage + (size_t)st * SLOT;
+    P* vs = TURNS ? ks : ks + kTile * DT;
     if (vec) {
       const int dch = d / EPC;  // chunks holding data
 #pragma unroll 4
@@ -318,8 +372,8 @@ paged_attn_kernel(const T* __restrict__ q, const T* __restrict__ pool_k,
         const bool in = rw >= 0 && dd < d;
         const int dst =
             kk * DT + ((dd / EPC) ^ (kk & (SW - 1))) * EPC + dd % EPC;
-        if (mats & 1) ks[dst] = in ? pool_k[rw + dd] : from_f<T>(0.f);
-        if (mats & 2) vs[dst] = in ? pool_v[rw + dd] : from_f<T>(0.f);
+        if (mats & 1) ks[dst] = in ? pool_k[rw + dd] : from_f<P>(0.f);
+        if (mats & 2) vs[dst] = in ? pool_v[rw + dd] : from_f<P>(0.f);
       }
     }
     cp_async_commit();
@@ -343,10 +397,13 @@ paged_attn_kernel(const T* __restrict__ q, const T* __restrict__ pool_k,
       cp_async_wait<0>();
     }
     __syncwarp();
-    const T* ks = wstage + (size_t)st * SLOT;
-    const T* vs = TURNS ? ks : ks + kTile * DT;
+    const P* ks = wstage + (size_t)st * SLOT;
+    const P* vs = TURNS ? ks : ks + kTile * DT;
     const int key = r0 + ti * kTile + lane;
     const bool valid = wrows[st * kTile + lane] >= 0;
+    // int8: this lane's key's K and V scales (1 otherwise)
+    const float ksc = Q8 ? wsc[(st * 2) * kTile + lane] : 1.f;
+    const float vsc = Q8 ? wsc[(st * 2 + 1) * kTile + lane] : 1.f;
 
     // scores: lane t against its key's K row
     float sc[MAXR];
@@ -370,7 +427,8 @@ paged_attn_kernel(const T* __restrict__ q, const T* __restrict__ pool_k,
       if (r < R) {
         bool live = valid;
         if (window > 0) live = live && key > plim + q0 + r % nq - window;
-        const float x = live ? sc[r] * scale : kNegInf;
+        const float x =
+            live ? (Q8 ? sc[r] * ksc * scale : sc[r] * scale) : kNegInf;
         const float m_new = fmaxf(m[r], warp_max(x));
         const float alpha = expf(m[r] - m_new);
         const float p = live ? expf(x - m_new) : 0.f;
@@ -378,7 +436,7 @@ paged_attn_kernel(const T* __restrict__ q, const T* __restrict__ pool_k,
 #pragma unroll
         for (int e = 0; e < E; ++e) acc[r][e] *= alpha;
         m[r] = m_new;
-        wp[r * kTile + lane] = p;
+        wp[r * kTile + lane] = Q8 ? p * vsc : p;
       }
     }
     __syncwarp();
@@ -387,21 +445,22 @@ paged_attn_kernel(const T* __restrict__ q, const T* __restrict__ pool_k,
       cp_async_wait<0>();
       __syncwarp();
     }
-    // P.V: a lane reads its chunks of every KG-th key's V row (16 bytes a
-    // read) and that key's probability (one shared word for its group);
-    // masked keys have p = 0 and zero rows
+    // P.V: a lane reads its parts of every KG-th key's V row (EPR
+    // elements a read) and that key's probability (one shared word for its
+    // group); masked keys have p = 0 and zero rows
     const int kg = lane / LPR;
     const int n_keys = min(kTile, r1 - (r0 + ti * kTile));
     for (int t0 = 0; t0 < n_keys; t0 += KG) {
       const int t = t0 + kg;
       float vf[E];
 #pragma unroll
-      for (int u = 0; u < CPL; ++u) {
-        const int c = lane % LPR + u * LPR;
-        float f[EPC];
-        load_chunk(vs + t * DT + (c ^ (t & (SW - 1))) * EPC, f);
+      for (int u = 0; u < RPL; ++u) {
+        const int el = (lane % LPR + u * LPR) * EPR;  // element in the row
+        const int c = el / EPC;
+        float f[EPR];
+        load_chunk(vs + t * DT + (c ^ (t & (SW - 1))) * EPC + el % EPC, f);
 #pragma unroll
-        for (int e = 0; e < EPC; ++e) vf[u * EPC + e] = f[e];
+        for (int e = 0; e < EPR; ++e) vf[u * EPR + e] = f[e];
       }
 #pragma unroll
       for (int r = 0; r < MAXR; ++r) {
@@ -435,11 +494,11 @@ paged_attn_kernel(const T* __restrict__ q, const T* __restrict__ pool_k,
       }
       if (lane < LPR) {
 #pragma unroll
-        for (int u = 0; u < CPL; ++u)
+        for (int u = 0; u < RPL; ++u)
 #pragma unroll
-          for (int e = 0; e < EPC; ++e)
-            wacc[(warp * R + r) * DT + (lane + u * LPR) * EPC + e] =
-                acc[r][u * EPC + e];
+          for (int e = 0; e < EPR; ++e)
+            wacc[(warp * R + r) * DT + (lane + u * LPR) * EPR + e] =
+                acc[r][u * EPR + e];
       }
     }
   }
@@ -467,18 +526,23 @@ paged_attn_kernel(const T* __restrict__ q, const T* __restrict__ pool_k,
 // The splits' partials of one (slot, kv head), merged online (running
 // max, rescaled sums) in split order, skipping splits with l = 0; then
 // the current lanes, as the JAX function adds them last; written in the
-// pool's dtype.  A thread owns an output element and reads what it needs
+// type of q.  A thread owns an output element and reads what it needs
 // (its splits' m, l and acc, its current V elements) at once; the last
-// warps score the current lanes meanwhile.
-template <typename T, bool WIDE>
+// warps score the current lanes meanwhile.  int8 (P = int8_t): the current
+// lanes' scales k_cur_s / v_cur_s (one a (slot, kv head, lane)) are placed
+// as the split kernel places the pool's.
+template <typename T, typename P, bool WIDE>
 __global__ void __launch_bounds__(128)
-paged_combine_kernel(const T* __restrict__ q, const T* __restrict__ k_cur,
-                     const T* __restrict__ v_cur,
+paged_combine_kernel(const T* __restrict__ q, const P* __restrict__ k_cur,
+                     const P* __restrict__ v_cur,
+                     const float* __restrict__ k_cur_s,
+                     const float* __restrict__ v_cur_s,
                      const unsigned char* __restrict__ cur_mask,
                      const float* __restrict__ ws, T* __restrict__ out,
                      int n_kv, int g, int nq, int nc, int q0, int d,
                      int n_split, float scale) {
   constexpr int kMaxQ = kCombineMaxQ;
+  constexpr bool Q8 = kQuant<P>;
   const int h = blockIdx.x, s = blockIdx.y;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int nw = blockDim.x >> 5;
@@ -498,11 +562,14 @@ paged_combine_kernel(const T* __restrict__ q, const T* __restrict__ k_cur,
     for (int dd = lane; dd < d; dd += 32)
       part += to_f(q[(hd * R + r) * d + dd]) *
               to_f(k_cur[(hd * nc + kq) * d + dd]);
-    const float dot = warp_sum(part);
+    float dot = warp_sum(part);
+    if (Q8) dot *= k_cur_s[hd * nc + kq];
     if (lane == 0)
       sc_cur[i] =
           cur_mask[(q0 + r % nq) * nc + kq] ? dot * scale : kNegInf;
   }
+  // int8: a current lane's probability takes its V scale for P.V only
+  auto vscale = [&](int kq) { return Q8 ? v_cur_s[hd * nc + kq] : 1.f; };
   // the splits, merged online, for each output element of this thread
   const int n_out = R * d;
   for (int base = 0; base < n_out; base += blockDim.x) {
@@ -550,7 +617,7 @@ paged_combine_kernel(const T* __restrict__ q, const T* __restrict__ k_cur,
         if (kq < nc && mrow[kq]) {
           const float p = expf(srow[kq] - m2);
           L += p;
-          A += p * vc[kq];
+          A += (Q8 ? p * vscale(kq) : p) * vc[kq];
         }
       }
       // lanes past the first kMaxQ (a verify of more than 16 positions)
@@ -560,7 +627,8 @@ paged_combine_kernel(const T* __restrict__ q, const T* __restrict__ k_cur,
           if (mrow[kq]) {
             const float p = expf(srow[kq] - m2);
             L += p;
-            A += p * to_f(v_cur[(hd * nc + kq) * d + dd]);
+            A += (Q8 ? p * vscale(kq) : p) *
+                 to_f(v_cur[(hd * nc + kq) * d + dd]);
           }
         }
       }
@@ -582,28 +650,31 @@ int allow_smem(size_t bytes) {
   return (int)err;
 }
 
-template <typename T, int DT>
+template <typename T, typename P, int DT>
 int launch(const void* q, const void* pool_k, const void* pool_v,
-           const int* tables, const int* p_limit, const void* k_cur,
-           const void* v_cur, const unsigned char* cur_mask, void* out,
-           float* ws, int S, int n_kv, int g, int nq, int nc, int q0, int d,
-           int block, int table_width, int trash, int n_blk, int blk_lo,
-           int window, int n_split, float scale, int vec,
-           cudaStream_t stream) {
-  using Sh = Shape<T, DT>;
+           const float* pool_ks, const float* pool_vs, const int* tables,
+           const int* p_limit, const void* k_cur, const void* v_cur,
+           const float* k_cur_s, const float* v_cur_s,
+           const unsigned char* cur_mask, void* out, float* ws, int S,
+           int n_kv, int g, int nq, int nc, int q0, int d, int block,
+           int table_width, int trash, int n_blk, int blk_lo, int window,
+           int n_split, float scale, int vec, cudaStream_t stream) {
+  using Sh = Shape<P, DT>;
   const int R = g * nq;
   if (R > Sh::kMaxR || n_split < 1 || q0 < 0 || q0 + nq > nc)
     return (int)cudaErrorInvalidValue;
+  if (kQuant<P> && !(pool_ks && pool_vs && k_cur_s && v_cur_s))
+    return (int)cudaErrorInvalidValue;
   const dim3 grid(n_kv, S, n_split);
-  const size_t smem = split_smem_bytes<T, DT>(R);
+  const size_t smem = split_smem_bytes<P, DT>(R);
 #define PAGED_SPLIT_LAUNCH(MAXR)                                           \
   do {                                                                     \
-    const int err = allow_smem<paged_attn_kernel<T, DT, MAXR>>(smem);      \
+    const int err = allow_smem<paged_attn_kernel<T, P, DT, MAXR>>(smem);   \
     if (err != cudaSuccess) return err;                                    \
-    paged_attn_kernel<T, DT, MAXR><<<grid, Sh::kNw * 32, smem, stream>>>(  \
-        (const T*)q, (const T*)pool_k, (const T*)pool_v, tables, p_limit,  \
-        ws, n_kv, g, nq, q0, d, block, table_width, trash, n_blk, blk_lo,  \
-        window, scale, vec);                                               \
+    paged_attn_kernel<T, P, DT, MAXR><<<grid, Sh::kNw * 32, smem, stream>>>( \
+        (const T*)q, (const P*)pool_k, (const P*)pool_v, pool_ks, pool_vs, \
+        tables, p_limit, ws, n_kv, g, nq, q0, d, block, table_width,       \
+        trash, n_blk, blk_lo, window, scale, vec);                         \
   } while (0)
   if (R <= 1) {
     PAGED_SPLIT_LAUNCH(1);
@@ -618,11 +689,11 @@ int launch(const void* q, const void* pool_k, const void* pool_v,
   const size_t csmem = sizeof(float) * R * nc;
 #define PAGED_COMBINE_LAUNCH(WIDE)                                         \
   do {                                                                     \
-    const int err = allow_smem<paged_combine_kernel<T, WIDE>>(csmem);      \
+    const int err = allow_smem<paged_combine_kernel<T, P, WIDE>>(csmem);   \
     if (err != cudaSuccess) return err;                                    \
-    paged_combine_kernel<T, WIDE><<<dim3(n_kv, S), 128, csmem, stream>>>(  \
-        (const T*)q, (const T*)k_cur, (const T*)v_cur, cur_mask, ws,       \
-        (T*)out, n_kv, g, nq, nc, q0, d, n_split, scale);                  \
+    paged_combine_kernel<T, P, WIDE><<<dim3(n_kv, S), 128, csmem, stream>>>( \
+        (const T*)q, (const P*)k_cur, (const P*)v_cur, k_cur_s, v_cur_s,   \
+        cur_mask, ws, (T*)out, n_kv, g, nq, nc, q0, d, n_split, scale);    \
   } while (0)
   if (nc <= kCombineMaxQ) {
     PAGED_COMBINE_LAUNCH(false);
@@ -667,9 +738,11 @@ extern "C" {
 int paged_split_count(int d, int dtype, int n_blk, int blk_lo, int block,
                       int pairs, int n_sm) {
   const int dt = row_width(d);
-  if (dt == 0 || dtype < 0 || dtype > 1) return 0;
-  const int unit = (dtype == 0 ? warps_for<float>(dt)
-                               : warps_for<__nv_bfloat16>(dt)) * kTile;
+  if (dt == 0 || dtype < 0 || dtype > 3) return 0;
+  const int unit = (dtype == 0   ? warps_for<float>(dt)
+                    : dtype == 1 ? warps_for<__nv_bfloat16>(dt)
+                                 : warps_for<int8_t>(dt)) *
+                   kTile;
   const int span = (n_blk - blk_lo) * block;
   if (span <= 0 || pairs <= 0) return 1;
   const int units = (span + unit - 1) / unit;
@@ -686,38 +759,47 @@ int paged_split_count(int d, int dtype, int n_blk, int blk_lo, int block,
 // q holds query positions [q0, q0 + nq) of the step's nc (its rows are
 // (S, n_kv, g, nq, D)); k_cur and v_cur hold all nc current lanes and
 // cur_mask is (nc, nc).
-// dtype: 0 float32, 1 bfloat16.  window 0 means no window.  n_blk: the
+// dtype: 0 float32, 1 bfloat16 (q, pools, k_cur, v_cur and the output);
+// 2 and 3 int8 pools and current lanes with float32 scales pool_ks,
+// pool_vs ((N + 1, n_kv, block)), k_cur_s, v_cur_s ((S, n_kv, nc)), q and
+// the output float32 (2) or bfloat16 (3); the scale pointers are unused
+// for 0 and 1.  window 0 means no window.  n_blk: the
 // upper bound of the blocks read (the table width); the kernel reads
 // blocks [blk_lo, min(n_blk, ceil(max p_limit / block))).  ws: float32
 // workspace of S * n_kv * n_split * g * nq * (d + 2) elements.  Returns
 // the CUDA error of the launches (0 on success).
 int paged_attention(const void* q, const void* pool_k, const void* pool_v,
+                    const float* pool_ks, const float* pool_vs,
                     const int* tables, const int* p_limit, const void* k_cur,
-                    const void* v_cur, const unsigned char* cur_mask,
+                    const void* v_cur, const float* k_cur_s,
+                    const float* v_cur_s, const unsigned char* cur_mask,
                     void* out, float* ws, int S, int n_kv, int g, int nq,
                     int nc, int q0, int d, int block, int table_width,
                     int trash, int n_blk, int blk_lo, int window,
                     int n_split, float scale, int dtype, void* stream) {
   const cudaStream_t st = (cudaStream_t)stream;
-  const int elem = dtype == 0 ? 4 : 2;
+  const int elem = dtype == 0 ? 4 : dtype == 1 ? 2 : 1;
   const uintptr_t ptrs = (uintptr_t)pool_k | (uintptr_t)pool_v;
   const int vec = (d * elem) % 16 == 0 && ptrs % 16 == 0;
 #define PAGED_ARGS                                                         \
-  q, pool_k, pool_v, tables, p_limit, k_cur, v_cur, cur_mask, out, ws, S,  \
-      n_kv, g, nq, nc, q0, d, block, table_width, trash, n_blk, blk_lo,    \
-      window, n_split, scale, vec, st
-#define PAGED_DISPATCH(T)                                                  \
+  q, pool_k, pool_v, pool_ks, pool_vs, tables, p_limit, k_cur, v_cur,      \
+      k_cur_s, v_cur_s, cur_mask, out, ws, S, n_kv, g, nq, nc, q0, d,      \
+      block, table_width, trash, n_blk, blk_lo, window, n_split, scale,    \
+      vec, st
+#define PAGED_DISPATCH(T, P)                                               \
   switch (row_width(d)) {                                                  \
-    case 16: return launch<T, 16>(PAGED_ARGS);                             \
-    case 32: return launch<T, 32>(PAGED_ARGS);                             \
-    case 64: return launch<T, 64>(PAGED_ARGS);                             \
-    case 128: return launch<T, 128>(PAGED_ARGS);                           \
-    case 256: return launch<T, 256>(PAGED_ARGS);                           \
-    case 512: return launch<T, 512>(PAGED_ARGS);                           \
-    case 1024: return launch<T, 1024>(PAGED_ARGS);                         \
+    case 16: return launch<T, P, 16>(PAGED_ARGS);                          \
+    case 32: return launch<T, P, 32>(PAGED_ARGS);                          \
+    case 64: return launch<T, P, 64>(PAGED_ARGS);                          \
+    case 128: return launch<T, P, 128>(PAGED_ARGS);                        \
+    case 256: return launch<T, P, 256>(PAGED_ARGS);                        \
+    case 512: return launch<T, P, 512>(PAGED_ARGS);                        \
+    case 1024: return launch<T, P, 1024>(PAGED_ARGS);                      \
   }
-  if (dtype == 0) PAGED_DISPATCH(float)
-  if (dtype == 1) PAGED_DISPATCH(__nv_bfloat16)
+  if (dtype == 0) PAGED_DISPATCH(float, float)
+  if (dtype == 1) PAGED_DISPATCH(__nv_bfloat16, __nv_bfloat16)
+  if (dtype == 2) PAGED_DISPATCH(float, int8_t)
+  if (dtype == 3) PAGED_DISPATCH(__nv_bfloat16, int8_t)
 #undef PAGED_DISPATCH
 #undef PAGED_ARGS
   return (int)cudaErrorInvalidValue;

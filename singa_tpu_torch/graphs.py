@@ -39,6 +39,7 @@ def launch_counters():
     for fn in (fa.flash_fwd, fa.flash_bwd_dq, fa.flash_bwd_dkv):
         out += [(fn, "launches"), (fn, "tensor_core_launches")]
     return out + [(pa.paged_attn, "launches"),
+                  (pa.paged_attn, "int8_launches"),
                   (bottleneck.megakernel_block, "launches")]
 
 

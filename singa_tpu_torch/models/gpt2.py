@@ -159,7 +159,7 @@ class GPT2LMHead(model.Model):
     def generate(self, prompt_ids, max_new_tokens=20, temperature=1.0,
                  rng=None, use_cache=None, top_k=0, top_p=None,
                  min_p=None, repetition_penalty=None, seed=None,
-                 dtype=None):
+                 dtype=None, cache_dtype=None):
         """Greedy or temperature sampling with optional top-k / top-p /
         min-p filtering and a repetition penalty, routed as the JAX
         package routes it:
@@ -176,11 +176,12 @@ class GPT2LMHead(model.Model):
           row through the windowed path in turn.
 
         On the KV-cached path ``seed`` keys the sampling noise (an int,
-        or one per row) and ``dtype`` casts the weights.  The windowed
-        path runs one right-padded ``n_positions``-wide forward of this
-        model per token (the flash kernels at ``n_positions >= 1024``)
-        on the last ``n_positions`` tokens, and samples as the JAX
-        package does: float64 probabilities and ``rng.choice`` (``rng``
+        or one per row), ``dtype`` casts the weights and
+        ``cache_dtype="int8"`` keeps the KV cache as int8 values with
+        per-row scales.  The windowed path runs one right-padded
+        ``n_positions``-wide forward of this model per token (the flash
+        kernels at ``n_positions >= 1024``) on the last ``n_positions``
+        tokens, and samples as the JAX package does: float64 probabilities and ``rng.choice`` (``rng``
         a numpy RandomState or Generator; default
         ``np.random.RandomState(seed)`` with a ``seed``, else numpy's
         global state), so a numpy ``rng`` draws the JAX package's tokens
@@ -191,7 +192,7 @@ class GPT2LMHead(model.Model):
         kw = dict(max_new_tokens=max_new_tokens, temperature=temperature,
                   rng=rng, top_k=top_k, top_p=top_p, min_p=min_p,
                   repetition_penalty=repetition_penalty, seed=seed,
-                  dtype=dtype)
+                  dtype=dtype, cache_dtype=cache_dtype)
         if gd._is_batch(prompt_ids):
             if use_cache is False:
                 raise ValueError(
@@ -215,10 +216,10 @@ class GPT2LMHead(model.Model):
                                    repetition_penalty)
         if use_cache:
             return gd.generate(self, prompt_ids, **dict(kw, top_k=top_k))
-        if dtype is not None:
-            raise ValueError("dtype casts the weights of the KV-cached path "
-                             "only; the windowed path runs the model as it "
-                             "is")
+        if dtype is not None or cache_dtype is not None:
+            raise ValueError("dtype and cache_dtype apply to the KV-cached "
+                             "path only; the windowed path runs the model "
+                             "as it is")
         if rng is None and seed is not None:
             rng = np.random.RandomState(seed)
         was_training = self.training
@@ -283,9 +284,10 @@ class GPT2LMHead(model.Model):
         """A continuous-batching inference engine over this model
         (``singa_tpu_torch.serve.InferenceEngine``), on the model's
         device.  Keyword arguments go to the engine: ``paged=`` (a
-        ``serve.PagedConfig``; required, the slot arena is not ported),
-        ``max_slots``, ``max_len``, ``dtype``, ``top_k``, ``top_p``,
-        ``scheduler``, ``clock``."""
+        ``serve.PagedConfig``; default None, the slot arena),
+        ``cache_dtype`` (``"int8"``: int8 KV), ``max_slots``,
+        ``max_len``, ``dtype``, ``top_k``, ``top_p``, ``scheduler``,
+        ``clock``, ``capture``."""
         from ..serve import InferenceEngine
 
         return InferenceEngine(self, **kw)

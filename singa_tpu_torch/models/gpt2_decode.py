@@ -5,7 +5,8 @@
   layer's K/V, ``(L, B, H_kv, S, D)``;
 * ``decode_step``: one token per row against a dense cache ``(L, B,
   H_kv, ctx, D)``, writing the step's K/V at each row's position; the
-  offline ``generate`` loop and the serve engine's gather oracle;
+  offline ``generate`` loop, the serve engine's slot-arena step and its
+  gather oracle;
 * ``decode_step_paged``: one token for every slot of the serve engine
   against the paged pool ``(L, N + 1, H_kv, B, D)``, through the
   ``paged_attn`` kernel (``ops/paged_attention.py``), one launch per
@@ -32,9 +33,17 @@ arithmetic, so its bits are the same on the CPU and the card, and the
 whole draw runs inside the engine's captured decode step.  Against the
 JAX package only greedy streams compare.
 
+int8 KV caches (``cache_dtype="int8"``): a cache or pool is then a
+``(values, scales)`` pair, int8 values of the dense layout and one
+float32 scale a (position, kv head) row over D (``_quantize_kv``:
+symmetric, ``max|x| / 127``).  Attention contracts the int8 values and
+applies the scales outside the contractions, as the JAX package does: a
+score takes its K row's scale, a probability its V row's scale before
+the value product (the softmax sums stay unscaled).
+
 Not ported yet (each raises ``NotImplementedError``): MoE blocks, tensor
-and expert parallelism (slice 4, distributed), int8 KV caches, sliding-
-window decode, the speculative verify through the paged kernel and
+and expert parallelism (slice 4, distributed), sliding-window decode,
+the speculative verify through the paged kernel and
 ``generate_speculative`` (slice 3's fast paths), beam search.
 """
 
@@ -50,7 +59,7 @@ from ..ops.paged_attention import paged_attn
 
 __all__ = ["NEG_INF", "extract_params", "prefill", "decode_step",
            "decode_step_paged", "generate", "generate_beam",
-           "generate_speculative"]
+           "generate_speculative", "kv_zeros"]
 
 NEG_INF = -1e30
 
@@ -68,6 +77,41 @@ def check_decodable(cfg):
     w = getattr(cfg, "attn_window", None)
     if w is not None and w < cfg.n_positions:
         _owed("sliding-window decode", "slice 3's windowed serving")
+
+
+def _quant_flag(cache_dtype):
+    """``cache_dtype`` as a flag: None (the cache in the compute dtype)
+    or ``"int8"``; anything else raises."""
+    if cache_dtype is None:
+        return False
+    if cache_dtype == "int8":
+        return True
+    raise ValueError(f"cache_dtype must be None or 'int8', "
+                     f"got {cache_dtype!r}")
+
+
+def _quantize_kv(x):
+    """(..., D) float -> ((..., D) int8, (...) float32 scale), symmetric
+    per row: ``scale = max(max|x| / 127, 1e-8)``, values ``round(x /
+    scale)`` (half to even, as ``jnp.round``)."""
+    xf = x.float()
+    scale = torch.clamp(xf.abs().amax(-1) / 127.0, min=1e-8)
+    return torch.round(xf / scale[..., None]).to(torch.int8), scale
+
+
+def _dequantize_kv(q, scale, dtype):
+    return (q.float() * scale[..., None]).to(dtype)
+
+
+def _leaves(c):
+    """The tensors of a cache: ``(c,)``, or the (values, scales) pair."""
+    return c if isinstance(c, tuple) else (c,)
+
+
+def _cache_layer(c, li):
+    """Layer ``li`` of a stacked cache (a tensor or a (values, scales)
+    pair)."""
+    return (c[0][li], c[1][li]) if isinstance(c, tuple) else c[li]
 
 
 def extract_params(m, dtype=None):
@@ -157,10 +201,11 @@ def _block_prefill(x, p, n_head, eps):
     return x + _mlp(h, p), k, v
 
 
-def prefill(params, ids, n_head, eps):
+def prefill(params, ids, n_head, eps, quant_cache=False):
     """ids (B, S) -> (hidden (B, S, E) after the final LN, k caches, v
-    caches (L, B, H_kv, S, D)).  The caller takes the rows it needs
-    before the vocab product."""
+    caches (L, B, H_kv, S, D); with ``quant_cache`` each a (values,
+    scales) pair, ``_quantize_kv`` of the rows).  The caller takes the
+    rows it needs before the vocab product."""
     b, s = ids.shape
     pos = torch.arange(s, device=ids.device)
     x = params["wte"][ids.long()] + params["wpe"][pos][None]
@@ -172,32 +217,46 @@ def prefill(params, ids, n_head, eps):
         ks.append(k.reshape(b, s, n_kv, d).transpose(1, 2))
         vs.append(v.reshape(b, s, n_kv, d).transpose(1, 2))
     x = _ln(x, params["lnf_s"], params["lnf_b"], eps)
-    return x, torch.stack(ks), torch.stack(vs)
+    kc, vc = torch.stack(ks), torch.stack(vs)
+    if quant_cache:
+        kc, vc = _quantize_kv(kc), _quantize_kv(vc)
+    return x, kc, vc
 
 
 def _block_decode(x, p, k_cache, v_cache, pos, n_head, eps):
     """x (B, 1, E) at positions ``pos`` (B,); k/v_cache (B, H_kv, ctx,
-    D).  Writes this step's K/V at ``pos`` in place (the JAX function
-    returns updated caches) and attends positions <= pos of each row.
-    GQA: the query block reshapes to (B, H_kv, g, D), so the cache is
-    never repeated."""
+    D), or (values, scales) pairs.  Writes this step's K/V (quantized
+    for int8 caches) at ``pos`` in place (the JAX function returns
+    updated caches) and attends positions <= pos of each row.  GQA: the
+    query block reshapes to (B, H_kv, g, D), so the cache is never
+    repeated.  int8: scores are ``(q . k8) * kscale / sqrt(D)`` and the
+    probabilities take ``vscale`` before the value product."""
+    quant = isinstance(k_cache, tuple)
+    kq = k_cache[0] if quant else k_cache
     b, _, e = x.shape
     d = e // n_head
-    n_kv, ctx = k_cache.shape[1], k_cache.shape[2]
+    n_kv, ctx = kq.shape[1], kq.shape[2]
     g = n_head // n_kv
     h = _ln(x, p["ln1_s"], p["ln1_b"], eps)
     q = _linear(h, p["wq"], p["bq"]).reshape(b, n_kv, g, d)
     k_new = _linear(h, p["wk"], p["bk"]).reshape(b, n_kv, d)
     v_new = _linear(h, p["wv"], p["bv"]).reshape(b, n_kv, d)
     rows = torch.arange(b, device=x.device)
-    k_cache[rows, :, pos] = k_new.to(k_cache.dtype)
-    v_cache[rows, :, pos] = v_new.to(v_cache.dtype)
-    sc = torch.einsum("bkgd,bktd->bkgt", q.float(),
-                      k_cache.float()) / math.sqrt(d)
+    if quant:
+        k_new, v_new = _quantize_kv(k_new), _quantize_kv(v_new)
+    for cache, new in ((k_cache, k_new), (v_cache, v_new)):
+        for leaf, val in zip(_leaves(cache), _leaves(new)):
+            leaf[rows, :, pos] = val.to(leaf.dtype)
+    sc = torch.einsum("bkgd,bktd->bkgt", q.float(), kq.float())
+    if quant:
+        sc = sc * k_cache[1][:, :, None, :]
+    sc = sc / math.sqrt(d)
     live = torch.arange(ctx, device=x.device)[None, :] <= pos[:, None]
     sc = torch.where(live[:, None, None, :], sc, torch.full_like(sc, NEG_INF))
-    a = torch.einsum("bkgt,bktd->bkgd", torch.softmax(sc, -1),
-                     v_cache.float())
+    pr = torch.softmax(sc, -1)
+    if quant:
+        pr = pr * v_cache[1][:, :, None, :]
+    a = torch.einsum("bkgt,bktd->bkgd", pr, _leaves(v_cache)[0].float())
     x = x + _linear(a.reshape(b, 1, e).to(x.dtype), p["wo"], p["bo"])
     h = _ln(x, p["ln2_s"], p["ln2_b"], eps)
     return x + _mlp(h, p)
@@ -205,12 +264,14 @@ def _block_decode(x, p, k_cache, v_cache, pos, n_head, eps):
 
 def decode_step(params, x, kc, vc, pos, n_head, eps):
     """One decode step through every block: x (B, 1, E) embedded inputs
-    at positions ``pos`` (B,) against caches (L, B, H_kv, ctx, D), which
-    take this step's K/V in place.  Returns ((B, V) logits, kc, vc)."""
+    at positions ``pos`` (B,) against caches (L, B, H_kv, ctx, D), or
+    (values, scales) pairs, which take this step's K/V in place.
+    Returns ((B, V) logits, kc, vc)."""
     pos = torch.as_tensor(pos, device=x.device).long().reshape(-1)
     pos = pos.expand(x.shape[0])
     for li, p in enumerate(params["blocks"]):
-        x = _block_decode(x, p, kc[li], vc[li], pos, n_head, eps)
+        x = _block_decode(x, p, _cache_layer(kc, li), _cache_layer(vc, li),
+                          pos, n_head, eps)
     x = _ln(x, params["lnf_s"], params["lnf_b"], eps)
     return _logits(x, params)[:, 0], kc, vc
 
@@ -235,45 +296,52 @@ def _paged_qkv(x, p, n_head, eps):
 def _block_decode_paged(x, p, pool_k_l, pool_v_l, tables, pos, n_head, eps,
                         write_at):
     """One layer's decode for every slot: x (S, 1, E) at ``pos`` (S,)
-    int32, one layer's pools (N + 1, H_kv, B, D), ``tables`` (S, W // B)
+    int32, one layer's pools (N + 1, H_kv, B, D), or (int8 values,
+    float32 scales (N + 1, H_kv, B)) pairs, ``tables`` (S, W // B)
     int32.  Attention runs through ``paged_attn`` over each slot's pool
-    lanes < pos plus its own K/V.  Then the step's K/V row is written in
-    place at ``write_at`` = (tables[s, pos // B], pos % B); a dead slot
-    (all-trash table, pos 0) writes the trash block.  (The JAX function
-    returns the whole block with the row inserted, which its caller
-    scatters back.)"""
+    lanes < pos plus its own K/V (quantized on int8 pools; q stays in
+    the compute dtype).  Then the step's K/V row is written in place at
+    ``write_at`` = (tables[s, pos // B], pos % B), every leaf; a dead
+    slot (all-trash table, pos 0) writes the trash block.  (The JAX
+    function returns the whole block with the row inserted, which its
+    caller scatters back.)"""
     s_, _, e = x.shape
     d = e // n_head
     q, k_new, v_new = _paged_qkv(x, p, n_head, eps)
-    dt = pool_k_l.dtype
-    k_cur, v_cur = k_new.to(dt), v_new.to(dt)
+    if isinstance(pool_k_l, tuple):
+        k_cur, v_cur = _quantize_kv(k_new), _quantize_kv(v_new)
+    else:
+        dt = pool_k_l.dtype
+        q, k_cur, v_cur = q.to(dt), k_new.to(dt), v_new.to(dt)
     blk, off, cur_mask = write_at
-    a = paged_attn(q.to(dt), pool_k_l, pool_v_l, tables, pos, k_cur, v_cur,
+    a = paged_attn(q, pool_k_l, pool_v_l, tables, pos, k_cur, v_cur,
                    cur_mask, 1.0 / math.sqrt(d))
     a = a.to(x.dtype).permute(0, 3, 1, 2, 4).reshape(s_, 1, e)
     x = x + _linear(a, p["wo"], p["bo"])
     h = _ln(x, p["ln2_s"], p["ln2_b"], eps)
     x = x + _mlp(h, p)
-    pool_k_l[blk, :, off] = k_cur[:, :, 0]
-    pool_v_l[blk, :, off] = v_cur[:, :, 0]
+    for pool, cur in ((pool_k_l, k_cur), (pool_v_l, v_cur)):
+        for leaf, val in zip(_leaves(pool), _leaves(cur)):
+            leaf[blk, :, off] = val[:, :, 0]
     return x
 
 
 def decode_step_paged(params, x, pool_k, pool_v, tables, pos, n_head, eps,
                       *, block):
     """The paged serve engine's decode step: x (S, 1, E) embedded inputs
-    at ``pos`` (S,) int32, pools (L, N + 1, H_kv, B, D), ``tables`` (S,
-    W // B) int32 trash-padded.  One ``paged_attn`` launch per layer for
-    all slots, which finds the blocks to read from ``pos`` on the device;
-    the pools take the step's K/V in place.  Nothing reads a device value
-    on the host, so the step can be captured in a CUDA graph.  Returns
-    (S, V) logits."""
+    at ``pos`` (S,) int32, pools (L, N + 1, H_kv, B, D) (or int8
+    (values, scales) pairs), ``tables`` (S, W // B) int32 trash-padded.
+    One ``paged_attn`` launch per layer for all slots, which finds the
+    blocks to read from ``pos`` on the device; the pools take the step's
+    K/V in place.  Nothing reads a device value on the host, so the step
+    can be captured in a CUDA graph.  Returns (S, V) logits."""
     pl = pos.long()
     write_at = (tables.long().gather(1, (pl // block)[:, None])[:, 0],
                 pl % block,
                 torch.ones((1, 1), dtype=torch.bool, device=x.device))
     for li, p in enumerate(params["blocks"]):
-        x = _block_decode_paged(x, p, pool_k[li], pool_v[li], tables, pos,
+        x = _block_decode_paged(x, p, _cache_layer(pool_k, li),
+                                _cache_layer(pool_v, li), tables, pos,
                                 n_head, eps, write_at)
     x = _ln(x, params["lnf_s"], params["lnf_b"], eps)
     return _logits(x, params)[:, 0]
@@ -431,7 +499,7 @@ def _check_sampling(top_k, top_p, vocab, min_p=None,
 
 def generate(m, prompt_ids, max_new_tokens=20, temperature=1.0, rng=None,
              top_k=0, top_p=None, min_p=None, repetition_penalty=None,
-             seed=None, dtype=None):
+             seed=None, dtype=None, cache_dtype=None):
     """KV-cached sampling for a ``GPT2LMHead`` on the model's device.
 
     ``prompt_ids``: one 1-D prompt (returns a 1-D int32 array, prompt +
@@ -444,10 +512,13 @@ def generate(m, prompt_ids, max_new_tokens=20, temperature=1.0, rng=None,
     ``top_k`` / ``top_p`` / ``min_p`` filter the tempered distribution
     and ``seed`` (an int for every row, or one per row; default one draw
     from ``rng``) keys the noise (module docstring).  ``dtype`` casts the
-    weights (``torch.bfloat16`` for bf16 inference).  Requires prompt +
-    ``max_new_tokens`` <= ``n_positions``: ``GPT2LMHead.generate`` takes
-    longer generations on its windowed path."""
+    weights (``torch.bfloat16`` for bf16 inference).  ``cache_dtype=
+    "int8"`` keeps the cache as int8 (values, scales) (module
+    docstring).  Requires prompt + ``max_new_tokens`` <= ``n_positions``:
+    ``GPT2LMHead.generate`` takes longer generations on its windowed
+    path."""
     cfg = m.cfg
+    quant = _quant_flag(cache_dtype)
     single = not _is_batch(prompt_ids)
     rows = [np.asarray(r, np.int32).reshape(-1)
             for r in ([prompt_ids] if single else list(prompt_ids))]
@@ -475,7 +546,8 @@ def generate(m, prompt_ids, max_new_tokens=20, temperature=1.0, rng=None,
             new = _generate_rows(extract_params(m, dtype), rows,
                                  max_new_tokens, cfg, temps, seeds,
                                  dict(top_k=top_k, top_p=top_p,
-                                      min_p=min_p, rep_penalty=rep))
+                                      min_p=min_p, rep_penalty=rep),
+                                 quant)
     finally:
         m.train(was_training)
     out = [np.concatenate([r, new[i]]).astype(np.int32)
@@ -483,9 +555,19 @@ def generate(m, prompt_ids, max_new_tokens=20, temperature=1.0, rng=None,
     return out[0] if single else out
 
 
-def _generate_rows(params, rows, n_new, cfg, temps, seeds, filters):
+def kv_zeros(shape, dtype, quant, device):
+    """A zero cache of ``shape`` (..., ctx, D): a ``dtype`` tensor, or
+    with ``quant`` the (int8 values, float32 scales (..., ctx)) pair."""
+    if quant:
+        return (torch.zeros(shape, dtype=torch.int8, device=device),
+                torch.zeros(shape[:-1], dtype=torch.float32, device=device))
+    return torch.zeros(shape, dtype=dtype, device=device)
+
+
+def _generate_rows(params, rows, n_new, cfg, temps, seeds, filters,
+                   quant=False):
     """``filters``: ``_sample``'s ``top_k``, ``top_p``, ``min_p`` and
-    ``rep_penalty`` (None: no penalty)."""
+    ``rep_penalty`` (None: no penalty); ``quant``: int8 caches."""
     n_head, eps = cfg.n_head, float(cfg.layer_norm_eps)
     dev = params["wte"].device
     b = len(rows)
@@ -493,16 +575,17 @@ def _generate_rows(params, rows, n_new, cfg, temps, seeds, filters):
     ctx = int(lens.max()) + n_new
     d = cfg.n_embd // n_head
     shape = (cfg.n_layer, b, cfg.n_kv_head, ctx, d)
-    kc = torch.zeros(shape, dtype=params["wte"].dtype, device=dev)
-    vc = torch.zeros_like(kc)
+    kc = kv_zeros(shape, params["wte"].dtype, quant, dev)
+    vc = kv_zeros(shape, params["wte"].dtype, quant, dev)
     first = torch.empty((b, cfg.vocab_size), device=dev)
     for plen in sorted(set(lens.tolist())):
         sel = np.flatnonzero(lens == plen)
         ids = torch.as_tensor(np.stack([rows[i] for i in sel]), device=dev)
-        hidden, k, v = prefill(params, ids, n_head, eps)
+        hidden, k, v = prefill(params, ids, n_head, eps, quant_cache=quant)
         idx = torch.as_tensor(sel, device=dev)
-        kc[:, idx, :, :plen] = k
-        vc[:, idx, :, :plen] = v
+        for cache, new in ((kc, k), (vc, v)):
+            for leaf, val in zip(_leaves(cache), _leaves(new)):
+                leaf[:, idx, :, :plen] = val
         first[idx] = _logits(hidden[:, plen - 1], params).float()
     if filters["rep_penalty"] is not None:
         filters = dict(filters,

@@ -29,15 +29,24 @@ Shapes (S slots, one layer):
 * ``window``: query i (at position ``p_limit + i``) sees only pool lanes
   at positions > ``p_limit + i - window``.
 
-Returns (S, n_kv, g, Q, D) in the pool's dtype; sums are float32.  A
+int8 pools (the engine's ``cache_dtype="int8"``): ``pool_k``,
+``pool_v``, ``k_cur`` and ``v_cur`` are (int8 values, float32 scales)
+pairs, the scales of the values' shape without D; ``q`` stays float32
+or bf16.  As in the JAX function, a score takes its K row's scale as it
+is formed (``(q . k8) * kscale * scale``), the softmax sums ``l`` take
+the probabilities unscaled, and a probability takes its V row's scale
+only for the value product.
+
+Returns (S, n_kv, g, Q, D) in q's dtype; sums are float32.  A
 dead slot (all-trash table, ``p_limit`` 0) attends only its current
-lanes.  On the card: float32 or bf16, any D <= ``MAX_HEAD_DIM`` (1024),
+lanes.  On the card: float32 or bf16 pools, int8 pools with float32 or
+bf16 q, any D <= ``MAX_HEAD_DIM`` (1024),
 any GQA group and Q up to ``max_positions(D)`` (3632, or 14528 at
 D > 128).  One launch holds ``max_rows(D)`` query rows (g * Q: 16, or 4
 at D > 128); more run as several launches, over groups of heads and,
 past ``max_rows(D)`` positions, runs of query positions, each taking all
 Q current lanes and its rows of ``cur_mask``.  That is exact: query rows
-are independent.  The rest raises.  int8 pools: not ported.
+are independent.  The rest raises.
 """
 
 from __future__ import annotations
@@ -56,7 +65,10 @@ NEG_INF = -1e30
 #: widest head the kernel takes (its rows are 16, 32, ..., 1024 wide; a
 #: float32 row of 2048 would need 256 KB of shared memory for one tile)
 MAX_HEAD_DIM = 1024
+#: the C entry's dtype codes: (q, pool) float32, bf16; int8 pools with
+#: float32 q, with bf16 q
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_INT8_CODES = {torch.float32: 2, torch.bfloat16: 3}
 
 
 def max_rows(d):
@@ -77,6 +89,19 @@ def max_positions(d):
     return MAX_SMEM_BYTES // (4 * max_rows(d))
 
 
+def _values(t):
+    """The values of a pool or current K/V: itself, or the int8 values of
+    a (values, scales) pair."""
+    return t[0] if isinstance(t, tuple) else t
+
+
+def _dtype_code(q, pool_k):
+    """The C entry's dtype code for q and a pool (``_DTYPES``)."""
+    if isinstance(pool_k, tuple):
+        return _INT8_CODES[q.dtype]
+    return _DTYPES[pool_k.dtype]
+
+
 def paged_attn_plain(q, pool_k, pool_v, tables, p_limit, k_cur, v_cur,
                      cur_mask, scale, window=None, blk_lo=None):
     """Plain version of :func:`paged_attn`: ``_paged_attn``'s block loop
@@ -84,10 +109,12 @@ def paged_attn_plain(q, pool_k, pool_v, tables, p_limit, k_cur, v_cur,
     dimension in place of the JAX package's vmap.  It loops over every
     block of the tables: blocks past ``n_blk`` hold no live lane, and a
     block without one leaves the running state exactly as it was, so the
-    result is the JAX function's at its ``n_blk``."""
+    result is the JAX function's at its ``n_blk``.  int8 pools place
+    their scales as the JAX function does (module docstring)."""
+    quant = isinstance(pool_k, tuple)
     s_, n_kv, g, nq, d = q.shape
-    trash = pool_k.shape[0] - 1
-    block = pool_k.shape[2]
+    trash = _values(pool_k).shape[0] - 1
+    block = _values(pool_k).shape[2]
     dev = q.device
     qf = q.float()
     m = torch.full((s_, n_kv, g, nq), NEG_INF, device=dev)
@@ -95,6 +122,14 @@ def paged_attn_plain(q, pool_k, pool_v, tables, p_limit, k_cur, v_cur,
     acc = torch.zeros((s_, n_kv, g, nq, d), device=dev)
     p_limit = p_limit.to(device=dev, dtype=torch.long)
     qpos = p_limit[:, None] + torch.arange(nq, device=dev)       # (S, Q)
+
+    def scores(kb):
+        """q . K of one block or the current lanes, scaled: (S, H, g, Q,
+        B); int8 takes each K row's scale first."""
+        sc = torch.einsum("skgqd,skbd->skgqb", qf, _values(kb).float())
+        if quant:
+            sc = sc * kb[1][:, :, None, None, :]
+        return sc * scale
 
     def update(m, l, acc, sc, live, vb):
         sc = torch.where(live, sc, torch.full_like(sc, NEG_INF))
@@ -105,13 +140,20 @@ def paged_attn_plain(q, pool_k, pool_v, tables, p_limit, k_cur, v_cur,
         # exp(NEG_INF - NEG_INF) would be 1
         pr = torch.where(live, pr, torch.zeros_like(pr))
         l2 = l * alpha + pr.sum(-1)
-        upd = torch.einsum("skgqb,skbd->skgqd", pr, vb.float())
+        if quant:
+            pr = pr * vb[1][:, :, None, None, :]
+        upd = torch.einsum("skgqb,skbd->skgqd", pr, _values(vb).float())
         return m2, l2, acc * alpha[..., None] + upd
+
+    def rows(pool, blk):
+        if quant:
+            return pool[0][blk], pool[1][blk]
+        return pool[blk]                                      # (S, H, B, D)
 
     for j in range(0 if blk_lo is None else int(blk_lo), tables.shape[1]):
         blk = tables[:, j].to(device=dev, dtype=torch.long)
-        kb, vb = pool_k[blk], pool_v[blk]                     # (S, H, B, D)
-        sc = torch.einsum("skgqd,skbd->skgqb", qf, kb.float()) * scale
+        kb, vb = rows(pool_k, blk), rows(pool_v, blk)
+        sc = scores(kb)
         lane = j * block + torch.arange(block, device=dev)
         live = (lane[None] < p_limit[:, None]) & (blk != trash)[:, None]
         if window is not None:
@@ -121,20 +163,20 @@ def paged_attn_plain(q, pool_k, pool_v, tables, p_limit, k_cur, v_cur,
         else:
             live = live[:, None, None, None, :]
         m, l, acc = update(m, l, acc, sc, live, vb)
-    sc = torch.einsum("skgqd,skbd->skgqb", qf, k_cur.float()) * scale
     live = cur_mask.to(dev, torch.bool)[None, None, None]
-    m, l, acc = update(m, l, acc, sc, live, v_cur)
-    return (acc / l[..., None]).to(pool_k.dtype)
+    m, l, acc = update(m, l, acc, scores(k_cur), live, v_cur)
+    return (acc / l[..., None]).to(q.dtype)
 
 
 # ------------------------------------------------------------------ kernel
 
 _PTR, _INT = ctypes.c_void_p, ctypes.c_int
-# q, pool_k, pool_v, tables, p_limit, k_cur, v_cur, cur_mask, out, ws; S,
-# n_kv, g, the launch's query positions, all current lanes (Q), its first
-# position, D, block, table_width, trash, n_blk (the bound: the table
-# width), blk_lo, window, n_split; scale; dtype; stream
-_ARGTYPES = [_PTR] * 10 + [_INT] * 14 + [ctypes.c_float, _INT, _PTR]
+# q, pool_k, pool_v, their scales (int8), tables, p_limit, k_cur, v_cur,
+# their scales (int8), cur_mask, out, ws; S, n_kv, g, the launch's query
+# positions, all current lanes (Q), its first position, D, block,
+# table_width, trash, n_blk (the bound: the table width), blk_lo, window,
+# n_split; scale; dtype code; stream
+_ARGTYPES = [_PTR] * 14 + [_INT] * 14 + [ctypes.c_float, _INT, _PTR]
 
 
 def _lib():
@@ -165,19 +207,23 @@ def split_count(d, dtype, n_blk, blk_lo, block, pairs, n_sm, lib=None):
     ``paged_split_count``): about 4 blocks an SM over ``pairs`` = S * n_kv
     (slot, kv head) pairs, each split at least 128 keys, from what the
     host knows: ``n_blk`` is the bound of the blocks read (the table
-    width; no ``p_limit``, so no device sync)."""
+    width; no ``p_limit``, so no device sync).  ``dtype``: the pool's
+    element type (``torch.int8`` for int8 pools)."""
     lib = lib or _lib()
-    return lib.paged_split_count(d, _DTYPES[dtype], int(n_blk),
-                                 int(blk_lo or 0), block, pairs, n_sm)
+    code = _INT8_CODES[torch.float32] if dtype == torch.int8 \
+        else _DTYPES[dtype]
+    return lib.paged_split_count(d, code, int(n_blk), int(blk_lo or 0),
+                                 block, pairs, n_sm)
 
 
 def _check_cuda(q, pool_k, pool_v, tables, p_limit, k_cur, v_cur, cur_mask,
                 blk_lo):
     """Raise on anything the kernel does not take; return its dtype
     code."""
-    if pool_k.dtype not in _DTYPES:
-        raise TypeError(f"paged_attn takes float32 or bfloat16 pools, got "
-                        f"{pool_k.dtype} (int8 pools are not ported yet)")
+    quant = isinstance(pool_k, tuple)
+    if q.dtype not in _DTYPES:
+        raise TypeError(f"paged_attn takes float32 or bfloat16 q, got "
+                        f"{q.dtype}")
     s_, n_kv, g, nq, d = q.shape
     if not 1 <= d <= MAX_HEAD_DIM:
         raise ValueError(f"paged_attn takes head dims up to {MAX_HEAD_DIM}, "
@@ -185,18 +231,26 @@ def _check_cuda(q, pool_k, pool_v, tables, p_limit, k_cur, v_cur, cur_mask,
     if nq > max_positions(d):
         raise ValueError(f"paged_attn takes up to {max_positions(d)} query "
                          f"positions at head dim {d}, got {nq}")
-    nb1, h, block, d2 = pool_k.shape
-    want = {"pool_k": (pool_k, (nb1, n_kv, block, d)),
-            "pool_v": (pool_v, (nb1, n_kv, block, d)),
-            "k_cur": (k_cur, (s_, n_kv, nq, d)),
-            "v_cur": (v_cur, (s_, n_kv, nq, d))}
-    for name, (t, shape) in want.items():
-        if tuple(t.shape) != shape or t.dtype != pool_k.dtype:
-            raise ValueError(f"paged_attn: {name} must be {shape} "
-                             f"{pool_k.dtype}, got {tuple(t.shape)} {t.dtype}")
-    if q.dtype != pool_k.dtype:
-        raise ValueError(f"paged_attn: q is {q.dtype}, the pool "
-                         f"{pool_k.dtype}")
+    pool = _values(pool_k)
+    nb1, h, block, d2 = pool.shape
+    shapes = {"pool_k": (pool_k, (nb1, n_kv, block, d)),
+              "pool_v": (pool_v, (nb1, n_kv, block, d)),
+              "k_cur": (k_cur, (s_, n_kv, nq, d)),
+              "v_cur": (v_cur, (s_, n_kv, nq, d))}
+    want = {}
+    for name, (t, shape) in shapes.items():
+        if quant != isinstance(t, tuple):
+            raise ValueError(f"paged_attn: {name} must be a (values, "
+                             f"scales) pair exactly where pool_k is one")
+        if quant:
+            want[name] = (t[0], shape, torch.int8)
+            want[name + " scales"] = (t[1], shape[:-1], torch.float32)
+        else:
+            want[name] = (t, shape, q.dtype)
+    for name, (t, shape, dt) in want.items():
+        if tuple(t.shape) != shape or t.dtype != dt:
+            raise ValueError(f"paged_attn: {name} must be {shape} {dt}, got "
+                             f"{tuple(t.shape)} {t.dtype}")
     if tables.dtype != torch.int32 or tables.dim() != 2 \
             or tables.shape[0] != s_:
         raise ValueError(f"paged_attn: tables must be int32 ({s_}, W // B), "
@@ -210,11 +264,12 @@ def _check_cuda(q, pool_k, pool_v, tables, p_limit, k_cur, v_cur, cur_mask,
     if not 0 <= (blk_lo or 0) <= tables.shape[1]:
         raise ValueError(f"paged_attn: need 0 <= blk_lo <= the table width "
                          f"{tables.shape[1]}, got {blk_lo}")
-    for t in (q, pool_k, pool_v, tables, p_limit, k_cur, v_cur, cur_mask):
+    for t in [q, tables, p_limit, cur_mask] + [t for t, _, _ in
+                                               want.values()]:
         if t.device != q.device or not t.is_contiguous():
             raise ValueError("paged_attn needs contiguous tensors on one "
                              "device")
-    return _DTYPES[pool_k.dtype]
+    return _dtype_code(q, pool_k)
 
 
 def launch_groups(lib, q, pool_k, pool_v, tables, p_limit, k_cur, v_cur,
@@ -234,9 +289,19 @@ def launch_groups(lib, q, pool_k, pool_v, tables, p_limit, k_cur, v_cur,
     rows = max_rows(d)
     heads = max(1, rows // nq)
     run = min(nq, rows)
-    block, n_blk = pool_k.shape[2], tables.shape[1]
-    ns = n_split or split_count(d, q.dtype, n_blk, blk_lo, block, s_ * n_kv,
-                                n_sm, lib)
+    pool = _values(pool_k)
+    block, n_blk = pool.shape[2], tables.shape[1]
+    ns = n_split or split_count(d, pool.dtype, n_blk, blk_lo, block,
+                                s_ * n_kv, n_sm, lib)
+    code = _dtype_code(q, pool_k)
+
+    def ptrs(t):
+        """Values and scales pointers (no scales: 0)."""
+        return (t[0].data_ptr(), t[1].data_ptr()) if isinstance(t, tuple) \
+            else (t.data_ptr(), 0)
+
+    (pk, pks), (pv, pvs) = ptrs(pool_k), ptrs(pool_v)
+    (kc, kcs), (vc, vcs) = ptrs(k_cur), ptrs(v_cur)
     launches = 0
     by_heads = []
     for h0 in range(0, g, heads):
@@ -250,13 +315,11 @@ def launch_groups(lib, q, pool_k, pool_v, tables, p_limit, k_cur, v_cur,
             ws = empty((s_ * n_kv * ns * gg * qn * (d + 2),),
                        dtype=torch.float32, device=qg.device)
             err = lib.paged_attention(
-                qg.data_ptr(), pool_k.data_ptr(), pool_v.data_ptr(),
-                tables.data_ptr(), p_limit.data_ptr(), k_cur.data_ptr(),
-                v_cur.data_ptr(), cur_mask.data_ptr(), out.data_ptr(),
-                ws.data_ptr(), s_, n_kv, gg, qn, nq, q0, d, block, n_blk,
-                pool_k.shape[0] - 1, n_blk, int(blk_lo or 0),
-                int(window or 0), ns, float(scale), _DTYPES[pool_k.dtype],
-                stream)
+                qg.data_ptr(), pk, pv, pks, pvs, tables.data_ptr(),
+                p_limit.data_ptr(), kc, vc, kcs, vcs, cur_mask.data_ptr(),
+                out.data_ptr(), ws.data_ptr(), s_, n_kv, gg, qn, nq, q0, d,
+                block, n_blk, pool.shape[0] - 1, n_blk, int(blk_lo or 0),
+                int(window or 0), ns, float(scale), code, stream)
             if err != 0:
                 raise RuntimeError(f"paged_attn: CUDA error {err} at launch")
             by_pos.append(out)
@@ -272,7 +335,9 @@ def paged_attn(q, pool_k, pool_v, tables, p_limit, k_cur, v_cur, cur_mask,
     """Online-softmax attention of every slot's queries over its paged
     KV (shapes in the module docstring); for CUDA tensors, the split and
     combine kernels over all slots and kv heads, counted as one launch
-    for each launch of at most ``max_rows(D)`` query rows."""
+    for each launch of at most ``max_rows(D)`` query rows in
+    ``paged_attn.launches``, and those on int8 pools in
+    ``paged_attn.int8_launches`` too."""
     if q.device.type == "cpu":
         return paged_attn_plain(q, pool_k, pool_v, tables, p_limit, k_cur,
                                 v_cur, cur_mask, scale, window, blk_lo)
@@ -287,7 +352,10 @@ def paged_attn(q, pool_k, pool_v, tables, p_limit, k_cur, v_cur, cur_mask,
         scale, window, blk_lo, _sm_count(q.device.index or 0),
         torch.cuda.current_stream(q.device).cuda_stream)
     paged_attn.launches += launches
+    if isinstance(pool_k, tuple):
+        paged_attn.int8_launches += launches
     return out
 
 
 paged_attn.launches = 0
+paged_attn.int8_launches = 0

@@ -1,60 +1,72 @@
 """Continuous-batching inference engine over the KV-cached GPT-2 decoder
-(counterpart of ``singa_tpu/serve/engine.py``, its paged branch).
+(counterpart of ``singa_tpu/serve/engine.py``).
 
-* **iteration-level steps**: each ``step()`` grows every live slot's
-  block table to cover the position it writes, advances every live slot
+* **iteration-level steps**: each ``step()`` advances every live slot
   by one token in one batched pool step, retires requests that reached
   their budget or stop token at once, and backfills freed slots from the
   scheduler's queue in the same step;
+* **the slot arena** (``paged=None``, the default): one dense cache row
+  of ``max_len`` positions a slot, ``(L, max_slots, H_kv, max_len,
+  D)``; an admission writes its prefilled row into its slot, and the
+  step advances every slot at once over fixed shapes, dead slots on
+  clamped inputs (token 0, position 0) whose outputs are ignored;
 * **paged KV** (``paged=PagedConfig(...)``, ``serve/paged.py``): one
   block pool; admission is bounded by free blocks as well as free
-  slots, and a request's KV grows block by block;
-* **preemption**: when the pool runs out, a strictly-lower-priority
-  live request is swapped to host memory (its blocks freed, its KV
-  kept as a byte copy), or a slot that cannot grow swaps itself out;
-  swapped requests resume, highest priority first, as blocks return,
-  and continue exactly where they stopped;
+  slots, a request's KV grows block by block (each step first grows
+  every live slot's block table to cover the position it writes);
+* **preemption** (paged only, as in the JAX engine): when the pool runs
+  out, a strictly-lower-priority live request is swapped to host memory
+  (its blocks freed, its KV kept as a byte copy), or a slot that cannot
+  grow swaps itself out; swapped requests resume, highest priority
+  first, as blocks return, and continue exactly where they stopped;
+* **int8 KV** (``cache_dtype="int8"``, either arena): the arena or pool
+  holds (int8 values, float32 per-row scales) pairs; admission prefill
+  quantizes its rows, each step quantizes the K/V it writes, and swap
+  images carry the scales;
 * **exactness**: an admission prefills its prompt at its own length and
   samples the first token as ``generate`` does; each decode step runs
-  ``decode_step_paged`` (the ``paged_attn`` kernel, ``kernel="block"``)
-  or the dense gather oracle (``kernel="gather"``), and samples with
-  noise keyed by (seed, position), so float32 streams equal offline
-  ``generate`` away from exact argmax ties.
+  the dense ``decode_step`` (slot arena: the per-row math of offline
+  ``generate``), ``decode_step_paged`` (the ``paged_attn`` kernel,
+  ``kernel="block"``) or the dense gather oracle (``kernel="gather"``),
+  and samples with noise keyed by (seed, position), so float32 streams
+  equal offline ``generate`` (at the same ``cache_dtype``) away from
+  exact argmax ties.
 
 The device work goes through :class:`_LocalExec`, the seam that the JAX
 engine's sharded executors plug into.  The JAX engine's per-row
 functions, vmapped over slots there (``_decode_row_paged``,
 ``_decode_row``, ``_select_sample``), are slot dimensions here:
-``serve/paged.py``'s ``_paged_decode_kernel`` and ``_paged_decode_step``
-return every lane's logits, and ``gpt2_decode._sample`` takes each row's
-temperature, so greedy and sampled rows share one call.
+:func:`_pool_decode_step` and ``serve/paged.py``'s
+``_paged_decode_kernel`` and ``_paged_decode_step`` return every lane's
+logits, and ``gpt2_decode._sample`` takes each row's temperature, so
+greedy and sampled rows share one call.
 
 **Captured decode steps** (``capture=True``, the default; the JAX engine
-jits its pool step): the decode width is the halving bucket of
-``max_slots`` covering the live slots (``_paged_width``), and each
-bucket's step (the forward with its ``paged_attn`` launches, the in-place
-pool writes and the sampling) reads its inputs from persistent device
-buffers (``paged.DecodeInputs``), which the engine fills with one staged
-host-to-device copy a step.  A bucket's first step runs eagerly, as a
+jits its pool step): the slot arena's step has one width, ``max_slots``;
+a paged step's width is the halving bucket of ``max_slots`` covering the
+live slots (``_paged_width``).  Each width's step (the forward with its
+``paged_attn`` launches, the in-place cache writes and the sampling)
+reads its inputs from persistent device buffers
+(``paged.DecodeInputs``), which the engine fills with one staged
+host-to-device copy a step.  A width's first step runs eagerly, as a
 real step, and the step is then captured as a CUDA graph (``graphs.py``;
 all of an engine's graphs share one memory pool); every later step at
 that width is one replay, after which the host reads the step's tokens
-once.  On the CPU the same buckets, buffers and first-step rule run the
+once.  On the CPU the same widths, buffers and first-step rule run the
 step function itself.  ``capture=False`` runs every step eagerly, like
 ``jax.disable_jit``; the gather oracle (``kernel="gather"``) and the
 admission prefill always run eagerly.  ``serve.jitpin.jit_cache_size()``
 counts the prepared steps of the open engines.
 
 Not ported yet, each refused with ``NotImplementedError`` at
-construction or submit (``ROADMAP.md``): the slot arena (``paged=None``),
-the prefix cache and sessions, speculative decoding (``draft_model``,
-``spec_k``), int8 KV (``cache_dtype``), tensor / expert / pipeline
-parallelism (``tp``, ``ep``, ``pp``), fork (``n > 1``), structured
-decoding, SLO targets and load shedding, sliding-window models.  The
-JAX engine's preemption paths for those (window drops, copy-on-write
-forks, speculative draft rows, prefix-cache eviction) are not ported
-with them, and its ``_paged_retire`` (prefix-cache adoption of a
-retiring slot's blocks) is ``_free_slot_blocks`` here.
+construction or submit (``ROADMAP.md``): the prefix cache and sessions,
+speculative decoding (``draft_model``, ``spec_k``), tensor / expert /
+pipeline parallelism (``tp``, ``ep``, ``pp``), fork (``n > 1``),
+structured decoding, SLO targets and load shedding, sliding-window
+models.  The JAX engine's preemption paths for those (window drops,
+copy-on-write forks, speculative draft rows, prefix-cache eviction) are
+not ported with them, and its ``_paged_retire`` (prefix-cache adoption
+of a retiring slot's blocks) is ``_free_slot_blocks`` here.
 """
 
 from __future__ import annotations
@@ -66,11 +78,13 @@ import numpy as np
 import torch
 
 from .. import graphs
-from ..models.gpt2_decode import (_check_sampling, _logits, _sample,
-                                  check_decodable, extract_params, prefill)
+from ..models.gpt2_decode import (_check_sampling, _leaves, _logits,
+                                  _quant_flag, _sample, check_decodable,
+                                  decode_step, extract_params, kv_zeros,
+                                  prefill)
 from ..observe import trace as _trace
 from . import jitpin
-from .paged import (DecodeInputs, PagedConfig, PagedKVArena,
+from .paged import (DecodeInputs, PagedConfig, PagedKVArena, _embed,
                     _paged_decode_kernel, _paged_decode_step, seeds)
 from .request import (DeadlineExceededError, EngineFailedError,
                       GenerationRequest, GenerationResult, RequestHandle)
@@ -85,12 +99,58 @@ def _owed(what):
                               f"yet (ROADMAP.md)")
 
 
-def _prefill_batch(params, ids, n_head, eps):
+def _prefill_batch(params, ids, n_head, eps, quant=False):
     """Admission prefill of R prompts of one length: ids (R, P) ->
     (last-position logits (R, V) float32, k rows, v rows (L, R, H_kv, P,
-    D)).  At R = 1 it is the JAX engine's ``_prefill_one``."""
-    hidden, kc, vc = prefill(params, ids, n_head, eps)
+    D), quantized (values, scales) pairs with ``quant``).  At R = 1 it is
+    the JAX engine's ``_prefill_one``."""
+    hidden, kc, vc = prefill(params, ids, n_head, eps, quant_cache=quant)
     return _logits(hidden[:, -1], params).float(), kc, vc
+
+
+def _pool_decode_step(params, kc, vc, inp, n_head, eps):
+    """The slot arena's step: advance EVERY slot one token.  ``inp``: the
+    slots' device inputs (:meth:`DecodeInputs.view` at width
+    ``max_slots``), arenas (L, S, H_kv, max_len, D) (or int8 pairs),
+    written in place at each slot's position.  Dead slots run the same
+    math on clamped inputs (token 0, position 0: fixed shapes; they write
+    their own row's lane 0, which the next admission into the slot
+    overwrites) and their outputs are ignored.  One ``decode_step`` over
+    all slots, the per-row math of offline ``generate``.  Returns (S, V)
+    logits."""
+    live = inp["live"] != 0
+    toks = torch.where(live, inp["toks"], 0)
+    p_c = torch.where(live, inp["pos"], 0)
+    logits, _, _ = decode_step(params, _embed(params, toks, p_c), kc, vc,
+                               p_c, n_head, eps)
+    return logits
+
+
+def _row(c, r):
+    """Row ``r`` of a batch of cache rows (L, R, ...) as (L, 1, ...), each
+    leaf of an int8 pair."""
+    if isinstance(c, tuple):
+        return tuple(t[:, r:r + 1] for t in c)
+    return c[:, r:r + 1]
+
+
+def _write_slot(kc, vc, kc_row, vc_row, slot):
+    """Install an admitted request's prefilled rows (L, 1, H_kv, P, D) at
+    lanes [0, P) of ``slot`` in the arenas, every leaf; the lanes past P
+    keep what they held, which no position of the request reads before
+    it writes it."""
+    for arena, row in ((kc, kc_row), (vc, vc_row)):
+        for leaf, r in zip(_leaves(arena), _leaves(row)):
+            leaf[:, slot, :, :r.shape[3]] = r[:, 0]
+
+
+def _read_slot(kc, vc, slot):
+    """A copy of ``slot``'s rows (L, 1, H_kv, max_len, D) (int8 pairs)."""
+    def row(c):
+        out = tuple(t[:, slot:slot + 1].clone() for t in _leaves(c))
+        return out if isinstance(c, tuple) else out[0]
+
+    return row(kc), row(vc)
 
 
 class _LocalExec:
@@ -99,6 +159,16 @@ class _LocalExec:
 
     def __init__(self, eng):
         self._e = eng
+
+    def pool_decode_step(self, params, kc, vc, inp):
+        """(S, V) logits of the slot arena's step over every slot."""
+        return _pool_decode_step(params, kc, vc, inp, **self._e._statics)
+
+    def write_slot(self, kc, vc, kc_row, vc_row, slot):
+        _write_slot(kc, vc, kc_row, vc_row, slot)
+
+    def read_slot(self, kc, vc, slot):
+        return _read_slot(kc, vc, slot)
 
     def paged_decode_step(self, params, pool_k, pool_v, inp, block,
                           kernel="block", n_rb=None):
@@ -112,7 +182,8 @@ class _LocalExec:
                                   **self._e._statics)
 
     def prefill_batch(self, params, ids):
-        return _prefill_batch(params, ids, **self._e._statics)
+        return _prefill_batch(params, ids, **self._e._statics,
+                              quant=self._e._quant)
 
 
 class _Slot:
@@ -153,13 +224,18 @@ class InferenceEngine:
     """In-process continuous-batching engine for a ``GPT2LMHead``, on the
     model's device.
 
-    >>> eng = model.serve(max_slots=8, paged=PagedConfig(block_size=32))
+    >>> eng = model.serve(max_slots=8)      # or paged=PagedConfig(...)
     >>> h = eng.submit(GenerationRequest(prompt, max_new_tokens=32))
     >>> eng.run_until_complete()
     >>> h.result().tokens      # == model.generate(prompt, ...)
 
-    ``max_len`` (default ``n_positions``) bounds prompt +
-    ``max_new_tokens``; ``dtype`` casts the weights (``torch.bfloat16``);
+    ``paged`` (default None: the slot arena) is a ``PagedConfig``, a dict
+    of its arguments or True; ``cache_dtype="int8"`` keeps the KV as int8
+    values with per-row scales (``model.generate(...,
+    cache_dtype="int8")`` is then the offline oracle).  ``max_len``
+    (default ``n_positions``) bounds prompt + ``max_new_tokens`` and is
+    the slot arena's row width; ``dtype`` casts the weights
+    (``torch.bfloat16``);
     ``top_k`` / ``top_p`` are engine-wide filters of sampled requests;
     ``scheduler`` is ``"fifo"`` (default), ``"priority"`` or an
     instance; ``clock`` is injectable for tests; ``capture`` (default
@@ -173,25 +249,25 @@ class InferenceEngine:
                  paged=None, tp=None, ep=None, pp=None, capture=True):
         cfg = model.cfg
         check_decodable(cfg)
-        owed = [("the slot arena (paged=None)", paged is None
-                 or paged is False),
-                ("prefix_cache", prefix_cache not in (None, False)),
+        owed = [("prefix_cache", prefix_cache not in (None, False)),
                 ("speculative decoding (draft_model, spec_k)",
                  draft_model is not None or spec_k is not None),
-                ("cache_dtype (int8 KV)", cache_dtype is not None),
                 ("tensor/expert/pipeline-parallel serving (tp, ep, pp)",
                  any(x not in (None, False) for x in (tp, ep, pp))),
                 ("SLO targets and load shedding (slo)", slo is not None)]
         for what, asked in owed:
             if asked:
                 _owed(what)
-        if paged is True:
+        self._quant = _quant_flag(cache_dtype)
+        if paged is False:
+            paged = None
+        elif paged is True:
             paged = PagedConfig()
         elif isinstance(paged, dict):
             paged = PagedConfig(**paged)
-        if not isinstance(paged, PagedConfig):
-            raise ValueError(f"paged must be a PagedConfig, a kwargs dict "
-                             f"or True, got {type(paged)}")
+        if paged is not None and not isinstance(paged, PagedConfig):
+            raise ValueError(f"paged must be a PagedConfig, a kwargs dict, "
+                             f"True or None, got {type(paged)}")
         if max_slots < 1:
             raise ValueError(f"max_slots must be >= 1, got {max_slots}")
         self.model = model
@@ -201,7 +277,7 @@ class InferenceEngine:
         if self.max_len > cfg.n_positions:
             raise ValueError(f"max_len ({self.max_len}) exceeds n_positions "
                              f"({cfg.n_positions})")
-        if self.max_len % paged.block_size != 0:
+        if paged is not None and self.max_len % paged.block_size != 0:
             raise ValueError(
                 f"max_len ({self.max_len}) must be a multiple of the paged "
                 f"block_size ({paged.block_size}) so block tables tile the "
@@ -224,16 +300,25 @@ class InferenceEngine:
         self._statics = dict(n_head=cfg.n_head,
                              eps=float(cfg.layer_norm_eps))
         self._x = _LocalExec(self)
-        self.paged_arena = PagedKVArena(
-            paged, cfg.n_layer, cfg.n_kv_head, cfg.n_embd // cfg.n_head,
-            self._params["wte"].dtype, self.max_len,
-            self._params["wte"].device,
-            engine_label=self.stats.engine_label, reg=self.stats.registry)
-        self.stats.paged_source = self.paged_arena.snapshot
-        self.capture = bool(capture)
+        L, H_kv, D = cfg.n_layer, cfg.n_kv_head, cfg.n_embd // cfg.n_head
+        cdt = self._params["wte"].dtype
         dev = self._params["wte"].device
-        self._inputs = DecodeInputs(self.max_slots,
-                                    self.paged_arena.row_blocks, dev)
+        self.paged_arena = None
+        self._kc = self._vc = None
+        if paged is not None:
+            self.paged_arena = PagedKVArena(
+                paged, L, H_kv, D, cdt, self.max_len, dev,
+                engine_label=self.stats.engine_label,
+                reg=self.stats.registry, quant=self._quant)
+            self.stats.paged_source = self.paged_arena.snapshot
+            row_blocks = self.paged_arena.row_blocks
+        else:
+            shape = (L, self.max_slots, H_kv, self.max_len, D)
+            self._kc = kv_zeros(shape, cdt, self._quant, dev)
+            self._vc = kv_zeros(shape, cdt, self._quant, dev)
+            row_blocks = 0
+        self.capture = bool(capture)
+        self._inputs = DecodeInputs(self.max_slots, row_blocks, dev)
         self._steps = {}  # decode width -> graphs.Step
         self._graph_pool = None
         jitpin.track(self)
@@ -276,9 +361,9 @@ class InferenceEngine:
         return handle
 
     def validate_request(self, request):
-        """Raise for a request this engine could never serve: beyond its
-        position space, more blocks than the pool holds, or a feature not
-        ported yet."""
+        """Raise for a request this engine could never serve: prompt +
+        ``max_new_tokens`` beyond ``max_len``, more blocks than the pool
+        holds, or a feature not ported yet."""
         if request.n > 1:
             _owed("fork (GenerationRequest(n > 1))")
         if request.structured is not None:
@@ -293,6 +378,8 @@ class InferenceEngine:
                 f"({request.max_new_tokens}) exceeds the engine's max_len "
                 f"({self.max_len})")
         arena = self.paged_arena
+        if arena is None:
+            return
         worst = (need - 1) // arena.block_size + 1
         if worst > arena.num_blocks:
             raise ValueError(
@@ -327,6 +414,8 @@ class InferenceEngine:
         table.  Raises AssertionError naming the counts; returns the
         used-block count."""
         arena = self.paged_arena
+        if arena is None:
+            return 0
         owned = {b for s in self._slots if s is not None for b in s.blocks
                  if b != arena.trash}
         if arena.blocks_used != len(owned):
@@ -351,7 +440,9 @@ class InferenceEngine:
         self._steps = {}
         self._graph_pool = None
         self.stats.unregister()
-        self.paged_arena.unregister()
+        if self.paged_arena is not None:
+            self.paged_arena.unregister()
+        self._kc = self._vc = None
         self._params = None
         self._swapped = []
         self._closed = True
@@ -446,8 +537,15 @@ class InferenceEngine:
     def _decode_once(self):
         lanes = [i for i, s in enumerate(self._slots) if s is not None]
         n = len(lanes)
-        w = self._paged_width(n)
-        sel = lanes + [-1] * (w - n)
+        arena = self.paged_arena
+        if arena is None:
+            # the slot arena: slot i is lane i, every slot steps
+            w = self.max_slots
+            sel = [i if s is not None else -1
+                   for i, s in enumerate(self._slots)]
+        else:
+            w = self._paged_width(n)
+            sel = lanes + [-1] * (w - n)
         live = np.asarray([i >= 0 for i in sel])
         pick = np.where(live, sel, 0)
         self._inputs.stage(self._toks[pick], self._pos[pick], live,
@@ -457,41 +555,46 @@ class InferenceEngine:
         with _trace.span("serve/decode_step", cat="serve",
                          step=self.step_count, live=n, width=w):
             self._inputs.load()
-            if self.paged_arena.config.kernel == "gather":
-                n_rb = int(self._pos[lanes].max()) \
-                    // self.paged_arena.block_size + 1
+            if arena is not None and arena.config.kernel == "gather":
+                n_rb = int(self._pos[lanes].max()) // arena.block_size + 1
                 toks = self._decode_fn(w, n_rb)()
             else:
-                toks = self._decode_block(w)
-            nxt = toks[:n].cpu().numpy()
+                toks = self._decode_captured(w)
+            nxt = toks.cpu().numpy()
         self.stats.on_decode_step(n)
         now = self._clock()
-        for i, tok in zip(lanes, nxt):
-            self._toks[i] = tok
-            self._pos[i] += 1
-            self._emit(i, self._slots[i], int(tok), now)
+        for r, i in enumerate(sel):
+            if i >= 0:
+                self._toks[i] = nxt[r]
+                self._pos[i] += 1
+                self._emit(i, self._slots[i], int(nxt[r]), now)
 
     def _decode_fn(self, w, n_rb=None):
         """The decode step at width ``w``: the pool step over the first
-        ``w`` lanes of the device inputs and the sampling, returning (w,)
-        int64 tokens."""
+        ``w`` lanes of the device inputs (the slot arena's over all its
+        slots) and the sampling, returning (w,) int64 tokens."""
         arena = self.paged_arena
         inp = self._inputs.view(w)
 
         def step():
-            logits = self._x.paged_decode_step(
-                self._params, arena.pool_k, arena.pool_v, inp,
-                arena.block_size, kernel=arena.config.kernel, n_rb=n_rb)
+            if arena is None:
+                logits = self._x.pool_decode_step(self._params, self._kc,
+                                                  self._vc, inp)
+            else:
+                logits = self._x.paged_decode_step(
+                    self._params, arena.pool_k, arena.pool_v, inp,
+                    arena.block_size, kernel=arena.config.kernel,
+                    n_rb=n_rb)
             return _sample(logits, inp["temps"], seeds(inp),
                            inp["pos"].long() + 1, self._top_k, self._top_p)
 
         return step
 
-    def _decode_block(self, w):
-        """(w,) tokens of one block-kernel step at width ``w``: a replay of
-        the width's captured step; the first step at a width runs eagerly
-        and then captures it (which runs nothing), so no request advances
-        twice."""
+    def _decode_captured(self, w):
+        """(w,) tokens of one step at width ``w`` (the slot arena's, or a
+        block-kernel step): a replay of the width's captured step; the
+        first step at a width runs eagerly and then captures it (which
+        runs nothing), so no request advances twice."""
         step = self._steps.get(w)
         if step is not None:
             return step()
@@ -553,13 +656,17 @@ class InferenceEngine:
 
     def _free_slot_blocks(self, slot):
         arena = self.paged_arena
-        arena.free([b for b in slot.blocks if b != arena.trash])
+        if arena is not None:
+            arena.free([b for b in slot.blocks if b != arena.trash])
         slot.blocks = []
 
     def _block_tables(self, idxs):
         """(len(idxs), max_len // B) int32 block tables, trash-padded;
-        entries of ``idxs`` < 0 are dead lanes (all trash)."""
+        entries of ``idxs`` < 0 are dead lanes (all trash).  The slot
+        arena has none: (len(idxs), 0)."""
         arena = self.paged_arena
+        if arena is None:
+            return np.zeros((len(idxs), 0), np.int32)
         tables = np.full((len(idxs), arena.row_blocks), arena.trash,
                          np.int32)
         for r, i in enumerate(idxs):
@@ -582,7 +689,10 @@ class InferenceEngine:
         exhausted, no strictly-lower-priority victim) swaps itself out:
         its blocks free the pool for the others and it resumes once
         capacity returns, so the pool never livelocks with every slot
-        too big to advance."""
+        too big to advance.  The slot arena's rows are whole: nothing to
+        grow."""
+        if self.paged_arena is None:
+            return
         B = self.paged_arena.block_size
         for i, slot in enumerate(self._slots):
             if slot is None:
@@ -682,7 +792,6 @@ class InferenceEngine:
         be), scatter the host copy back, restore the slot.  If the head
         does not fit, nothing behind it jumps the line."""
         arena = self.paged_arena
-        B = arena.block_size
         while self._swapped:
             # a resume's own preemption appends to the list: sort again
             self._swapped.sort(key=lambda s: (-s.priority, s.seq))
@@ -690,7 +799,8 @@ class InferenceEngine:
             if not free:
                 return
             sw = self._swapped[0]
-            blocks = self._alloc_blocks(sw.pos // B + 1, sw.priority)
+            blocks = self._alloc_blocks(sw.pos // arena.block_size + 1,
+                                        sw.priority)
             if blocks is None:
                 return
             idx = free[0]
@@ -743,14 +853,17 @@ class InferenceEngine:
         free = self._free_slots()
         admit, expired = self.scheduler.schedule(len(free), now)
         self._reject_expired(expired, now)
-        B = self.paged_arena.block_size
+        arena = self.paged_arena
         blocked_p = self._blocked_priority()
         placed = []
         for k, req in enumerate(admit):
             blocks = None
-            if blocked_p is None or req.priority > blocked_p:
-                blocks = self._alloc_blocks(len(req.prompt_ids) // B + 1,
-                                            req.priority)
+            if arena is None:
+                blocks = []
+            elif blocked_p is None or req.priority > blocked_p:
+                blocks = self._alloc_blocks(
+                    len(req.prompt_ids) // arena.block_size + 1,
+                    req.priority)
             if blocks is None:
                 for r in reversed(admit[k:]):
                     self.scheduler.requeue_front(r)
@@ -769,14 +882,19 @@ class InferenceEngine:
             self.stats.on_prefill()
             for r, (idx, req, blocks) in enumerate(group):
                 self._admit(idx, req, now, blocks, logits[r:r + 1],
-                            kc[:, r:r + 1], vc[:, r:r + 1])
+                            _row(kc, r), _row(vc, r))
 
     def _admit(self, idx, req, now, blocks, logit, kc_row, vc_row):
-        """Write one prefilled request's K/V into its blocks, sample its
-        first token (position ``plen``) and emit it."""
+        """Write one prefilled request's K/V into its blocks (the slot
+        arena: into its slot), sample its first token (position ``plen``)
+        and emit it."""
         handle = self._handles[req.request_id]
         plen = len(req.prompt_ids)
-        self.paged_arena.scatter_row(kc_row, vc_row, dict(enumerate(blocks)))
+        if self.paged_arena is None:
+            self._x.write_slot(self._kc, self._vc, kc_row, vc_row, idx)
+        else:
+            self.paged_arena.scatter_row(kc_row, vc_row,
+                                         dict(enumerate(blocks)))
         temp = np.float32(req.temperature)
         tok0 = int(_sample(logit, [temp], [req.seed], [plen], self._top_k,
                            self._top_p)[0])

@@ -13,9 +13,11 @@ scatter touches the pool.
 
 Leaves are host (CPU) tensors, one ``(L, 1, H_kv, W, D)`` row per K/V,
 ``W`` a whole number of blocks: a CPU tensor keeps bf16, which numpy
-has no type for, byte for byte.  The JAX package's wire codec
-(``to_bytes`` / ``from_bytes``, fleet KV shipping) and int8 ``(values,
-scales)`` leaves are not ported.
+has no type for, byte for byte.  An int8 pool's image (``quant``) holds
+for each of K and V the pair (int8 values ``(L, 1, H_kv, W, D)``,
+float32 scales ``(L, 1, H_kv, W)``); dense and int8 images are refused
+by pools of the other kind.  The JAX package's wire codec (``to_bytes``
+/ ``from_bytes``, fleet KV shipping) is not ported.
 """
 
 from __future__ import annotations
@@ -23,6 +25,8 @@ from __future__ import annotations
 import zlib
 
 import torch
+
+from ..models.gpt2_decode import _leaves
 
 __all__ = ["KVIMAGE_VERSION", "KVImage", "KVImageError", "pack_image"]
 
@@ -38,14 +42,15 @@ class KVImageError(ValueError):
 
 
 def _signature(kc, vc):
-    """Per-leaf (shape, dtype) header, K then V."""
-    return tuple((tuple(a.shape), str(a.dtype)) for a in (kc, vc))
+    """Per-leaf (shape, dtype) header, K leaves then V leaves."""
+    return tuple((tuple(a.shape), str(a.dtype))
+                 for a in _leaves(kc) + _leaves(vc))
 
 
 def _checksum(kc, vc) -> int:
-    """crc32 over both leaves' raw bytes, K then V."""
+    """crc32 over every leaf's raw bytes, K leaves then V leaves."""
     crc = 0
-    for a in (kc, vc):
+    for a in _leaves(kc) + _leaves(vc):
         crc = zlib.crc32(a.contiguous().view(-1).view(torch.uint8).numpy(),
                          crc)
     return crc & 0xFFFFFFFF
@@ -55,14 +60,15 @@ class KVImage:
     """One request's KV blocks as a self-describing host image; build it
     with :func:`pack_image`."""
 
-    __slots__ = ("version", "block_size", "n_data", "header", "kc", "vc",
-                 "checksum")
+    __slots__ = ("version", "block_size", "n_data", "quant", "header", "kc",
+                 "vc", "checksum")
 
-    def __init__(self, version, block_size, n_data, header, kc, vc,
+    def __init__(self, version, block_size, n_data, quant, header, kc, vc,
                  checksum):
         self.version = int(version)
         self.block_size = int(block_size)
         self.n_data = int(n_data)
+        self.quant = bool(quant)
         self.header = tuple(header)
         self.kc = kc
         self.vc = vc
@@ -71,21 +77,23 @@ class KVImage:
     @property
     def width(self) -> int:
         """Lane width of the image rows (positions per leaf)."""
-        return int(self.kc.shape[3])
+        return int(_leaves(self.kc)[0].shape[3])
 
     @property
     def nbytes(self) -> int:
         """Host bytes the image's leaves occupy."""
         return int(sum(a.numel() * a.element_size()
-                       for a in (self.kc, self.vc)))
+                       for a in _leaves(self.kc) + _leaves(self.vc)))
 
-    def validate(self, block_size, pool_k=None):
+    def validate(self, block_size, quant=False, pool_k=None):
         """Typed validation before any scatter: version supported, block
-        size equal to the consuming pool's, leaves consistent with the
-        pack-time header and checksum, lane width a whole number of
-        blocks covering ``n_data`` blocks, and, given the pool's K
-        (``(L, N + 1, H_kv, B, D)``), layer, head, head-dim and dtype
-        equal to the pool's.  Raises :class:`KVImageError`."""
+        size and layout (``quant``: int8 (values, scales) leaves) equal to
+        the consuming pool's, leaves consistent with the pack-time header
+        and checksum, lane width a whole number of blocks covering
+        ``n_data`` blocks, and, given the pool's K (``(L, N + 1, H_kv, B,
+        D)``, or its (values, scales) pair), layer, head, head-dim and
+        dtype of each leaf equal to the pool's.  Raises
+        :class:`KVImageError`."""
         if self.version != KVIMAGE_VERSION:
             raise KVImageError(
                 f"KV image version {self.version} != supported "
@@ -96,6 +104,11 @@ class KVImage:
                 f"KV image block_size ({self.block_size}) != pool "
                 f"block_size ({block_size}): lanes would not tile the "
                 f"target blocks")
+        if self.quant != bool(quant):
+            raise KVImageError(
+                f"KV image quant={self.quant} vs pool quant={bool(quant)}: "
+                f"dense and int8 (values, scales) layouts are not "
+                f"interchangeable")
         sig = _signature(self.kc, self.vc)
         if sig != self.header:
             raise KVImageError(
@@ -106,13 +119,20 @@ class KVImage:
             raise KVImageError(
                 f"KV image payload corrupted: crc32 {crc:#010x} != packed "
                 f"{self.checksum:#010x}")
-        for a in (self.kc, self.vc):
-            if a.dim() != 5 or a.shape[1] != 1 \
-                    or a.shape[3] != self.kc.shape[3]:
+        k_leaves, v_leaves = _leaves(self.kc), _leaves(self.vc)
+        if len(k_leaves) != len(v_leaves) \
+                or len(k_leaves) != (2 if self.quant else 1):
+            raise KVImageError(
+                f"KV image has {len(k_leaves)} K and {len(v_leaves)} V "
+                f"leaves for quant={self.quant}")
+        W = self.width
+        for i, a in enumerate(k_leaves + v_leaves):
+            scales = self.quant and i % 2 == 1
+            if a.dim() != (4 if scales else 5) or a.shape[1] != 1 \
+                    or a.shape[3] != W:
                 raise KVImageError(
                     f"KV image leaf shape {tuple(a.shape)} is not an "
-                    f"(L, 1, H, W, D) cache row")
-        W = self.width
+                    f"(L, 1, H, W{'' if scales else ', D'}) cache row")
         if W % self.block_size != 0:
             raise KVImageError(
                 f"KV image lane width ({W}) is not a multiple of "
@@ -122,22 +142,29 @@ class KVImage:
                 f"KV image n_data ({self.n_data} blocks) exceeds its own "
                 f"lane width ({W} positions)")
         if pool_k is not None:
-            img = self.kc
-            if (img.shape[0] != pool_k.shape[0]
-                    or img.shape[2] != pool_k.shape[2]
-                    or img.shape[4] != pool_k.shape[4]
-                    or img.dtype != pool_k.dtype):
+            pool_leaves = _leaves(pool_k)
+            if len(pool_leaves) != len(k_leaves):
                 raise KVImageError(
-                    f"KV image leaf {tuple(img.shape)}/{img.dtype} "
-                    f"incompatible with pool {tuple(pool_k.shape)}/"
-                    f"{pool_k.dtype} (layer/head/head-dim/dtype must "
-                    f"match)")
+                    f"KV image has {len(k_leaves)} K leaves but the pool "
+                    f"has {len(pool_leaves)} (dense vs int8 layout)")
+            for img, pool in zip(k_leaves, pool_leaves):
+                # pool: (L, N + 1, H, B, ...) vs image: (L, 1, H, W, ...)
+                if (img.shape[0] != pool.shape[0]
+                        or img.shape[2] != pool.shape[2]
+                        or img.shape[4:] != pool.shape[4:]
+                        or img.dtype != pool.dtype):
+                    raise KVImageError(
+                        f"KV image leaf {tuple(img.shape)}/{img.dtype} "
+                        f"incompatible with pool leaf {tuple(pool.shape)}/"
+                        f"{pool.dtype} (layer/head/head-dim/dtype must "
+                        f"match)")
 
 
-def pack_image(kc_host, vc_host, block_size, n_data) -> KVImage:
-    """Seal host cache rows into a :class:`KVImage`; the header and the
-    checksum are captured here, so a later change to the leaves fails
+def pack_image(kc_host, vc_host, block_size, n_data, quant=False) -> KVImage:
+    """Seal host cache rows (tensors, or with ``quant`` (values, scales)
+    pairs) into a :class:`KVImage`; the header and the checksum are
+    captured here, so a later change to the leaves fails
     :meth:`KVImage.validate`."""
-    return KVImage(KVIMAGE_VERSION, block_size, n_data,
+    return KVImage(KVIMAGE_VERSION, block_size, n_data, quant,
                    _signature(kc_host, vc_host), kc_host, vc_host,
                    _checksum(kc_host, vc_host))

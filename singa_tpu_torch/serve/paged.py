@@ -3,7 +3,10 @@
 
 * **block pool**: one preallocated pool of ``num_blocks`` KV blocks per
   K/V, ``(L, num_blocks + 1, H_kv, block_size, D)`` on the model's
-  device; block ``num_blocks`` is the trash block that dead slots write;
+  device; block ``num_blocks`` is the trash block that dead slots write.
+  With ``quant`` (the engine's ``cache_dtype="int8"``) each pool is an
+  (int8 values, float32 scales ``(L, num_blocks + 1, H_kv,
+  block_size)``) pair, and every copy below moves both leaves;
 * **block tables**: a live request's KV is a per-slot list of blocks,
   grown block by block as decode advances, so capacity is blocks free,
   not slots free;
@@ -24,8 +27,8 @@
   is keyed by (seed, position), so a resumed request's remaining tokens
   are the uninterrupted run's.
 
-Not ported yet (``ROADMAP.md``): int8 pools, the prefix cache sharing
-this pool, windowed block drops, the chunked-prefill budget
+Not ported yet (``ROADMAP.md``): the prefix cache sharing this pool,
+windowed block drops, the chunked-prefill budget
 (``prefill_token_budget``) and the admission interleave
 (``admit_per_step``).
 """
@@ -37,7 +40,8 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from ..models.gpt2_decode import decode_step, decode_step_paged
+from ..models.gpt2_decode import (_leaves, decode_step, decode_step_paged,
+                                  kv_zeros)
 from ..observe.registry import registry as _default_registry
 from .kvimage import KVImage, pack_image
 
@@ -51,8 +55,9 @@ class PagedConfig:
     ``block_size``: tokens a KV block holds; the engine requires
     ``max_len % block_size == 0``.  ``num_blocks``: pool capacity; device
     memory is ``2 * L * (num_blocks + 1) * H_kv * block_size * D``
-    elements.  ``kernel``: ``"block"`` (the paged kernel) or
-    ``"gather"`` (the dense-row oracle); streams are token-identical
+    elements (int8 pools: one byte each, and a float32 scale every D).
+    ``kernel``: ``"block"`` (the paged kernel) or ``"gather"`` (the
+    dense-row oracle); streams are token-identical
     between the two in float32, logits allclose (the kernel sums in
     another order).  ``admit_per_step`` and ``prefill_token_budget``
     are the JAX engine's admission interleave and chunked-prefill
@@ -169,33 +174,43 @@ def _paged_decode_kernel(params, pool_k, pool_v, inp, block, n_head, eps):
                              block=block)
 
 
+def _rows(pool, idx):
+    """Blocks ``idx`` ((S, nb) or (nb,)) of a pool leaf (L, N + 1, H, B[,
+    D]) as dense rows (L, S, H, nb * B[, D]) (or (L, H, nb * B[, D]))."""
+    r = pool[:, idx]                              # (L, [S,] nb, H, B[, D])
+    k = idx.dim()                                 # the nb axis is k
+    r = r.transpose(k, k + 1)                     # (L, [S,] H, nb, B[, D])
+    s = r.shape
+    return r.reshape(*s[:k + 1], s[k + 1] * s[k + 2], *s[k + 3:])
+
+
 def _paged_decode_step(params, pool_k, pool_v, inp, n_rb, block, n_head,
                        eps):
     """The gather oracle: copy each lane's first ``n_rb`` blocks (those up
     to the one holding the longest lane's ``pos``, a host count) into a
-    dense (L, S, H_kv, W', D) row, run the dense ``decode_step`` on it,
-    and write the K/V row it wrote at ``pos`` back into the pool (dead
-    lanes: the trash block).  Same contract as
-    :func:`_paged_decode_kernel`; it runs eagerly."""
+    dense (L, S, H_kv, W', D) row (int8 pools: both leaves), run the
+    dense ``decode_step`` on it, and write the K/V row it wrote at
+    ``pos`` back into the pool (dead lanes: the trash block).  Same
+    contract as :func:`_paged_decode_kernel`; it runs eagerly."""
     live = inp["live"] != 0
     toks = torch.where(live, inp["toks"], 0)
     pos_t = torch.where(live, inp["pos"], 0).long()
     tbl = inp["tables"][:, :n_rb].long()
 
     def row(pool):
-        r = pool[:, tbl]                          # (L, S, nb, H, B, D)
-        r = r.permute(0, 1, 3, 2, 4, 5)
-        s = r.shape
-        return r.reshape(s[0], s[1], s[2], s[3] * s[4], s[5])
+        if isinstance(pool, tuple):
+            return tuple(_rows(p, tbl) for p in pool)
+        return _rows(pool, tbl)
 
     kc, vc = row(pool_k), row(pool_v)
     logits, kc, vc = decode_step(params, _embed(params, toks, pos_t), kc,
                                  vc, pos_t, n_head, eps)
     lanes = torch.arange(len(pos_t), device=pos_t.device)
     blk = tbl.gather(1, (pos_t // block)[:, None])[:, 0]
-    # both sides index (S, L, H, D): the advanced indices lead
-    pool_k[:, blk, :, pos_t % block] = kc[:, lanes, :, pos_t]
-    pool_v[:, blk, :, pos_t % block] = vc[:, lanes, :, pos_t]
+    # both sides index (S, L, H[, D]): the advanced indices lead
+    for pool, c in ((pool_k, kc), (pool_v, vc)):
+        for leaf, r in zip(_leaves(pool), _leaves(c)):
+            leaf[:, blk, :, pos_t % block] = r[:, lanes, :, pos_t]
     return logits
 
 
@@ -207,7 +222,8 @@ class PagedKVArena:
     block accounting, the copies the engine drives, and metrics."""
 
     def __init__(self, config, n_layer, n_kv_head, head_dim, dtype,
-                 row_width, device, engine_label="0", reg=None):
+                 row_width, device, engine_label="0", reg=None,
+                 quant=False):
         self.config = config
         B, N = config.block_size, config.num_blocks
         if row_width % B != 0:
@@ -217,9 +233,10 @@ class PagedKVArena:
         self.num_blocks = N
         self.trash = N
         self.row_blocks = row_width // B
+        self.quant = bool(quant)
         shape = (n_layer, N + 1, n_kv_head, B, head_dim)
-        self.pool_k = torch.zeros(shape, dtype=dtype, device=device)
-        self.pool_v = torch.zeros(shape, dtype=dtype, device=device)
+        self.pool_k = kv_zeros(shape, dtype, self.quant, device)
+        self.pool_v = kv_zeros(shape, dtype, self.quant, device)
         self._free = list(range(N))
         # blocks referenced more than once (count >= 2); an allocated
         # block without an entry has one reference
@@ -289,31 +306,39 @@ class PagedKVArena:
         self._update_gauges()
 
     def gather_row(self, blocks, n_used=None):
-        """(L, 1, H, len(blocks) * B, D) rows of ``blocks``' contents; lanes
+        """(L, 1, H, len(blocks) * B, D) rows of ``blocks``' contents (int8
+        pools: (values, scales (L, 1, H, len(blocks) * B)) pairs); lanes
         of blocks past the first ``n_used`` zeroed."""
-        idx = torch.as_tensor(blocks, device=self.pool_k.device).long()
+        idx = torch.as_tensor(blocks, device=_leaves(self.pool_k)[0].device)
+        idx = idx.long()
         n = len(blocks) if n_used is None else n_used
 
-        def row(pool):
-            r = pool[:, idx].permute(0, 2, 1, 3, 4).clone()
-            r[:, :, n:] = 0
-            s = r.shape
-            return r.reshape(s[0], 1, s[1], s[2] * s[3], s[4])
+        def row(leaf):
+            r = _rows(leaf, idx).clone()
+            r[:, :, n * self.block_size:] = 0
+            return r[:, None]
 
-        return row(self.pool_k), row(self.pool_v)
+        def rows(pool):
+            out = tuple(row(leaf) for leaf in _leaves(pool))
+            return out if self.quant else out[0]
+
+        return rows(self.pool_k), rows(self.pool_v)
 
     def scatter_row(self, kc_row, vc_row, lanes):
-        """Write (L, 1, H, W, D) cache rows into pool blocks: ``lanes``
-        maps a lane (block index in the row) to a pool block.  W need not
-        be a multiple of the block size: the last block's tail is left
-        as it was."""
+        """Write (L, 1, H, W, D) cache rows (int8 pools: (values, scales)
+        pairs) into pool blocks: ``lanes`` maps a lane (block index in the
+        row) to a pool block.  W need not be a multiple of the block
+        size: the last block's tail is left as it was."""
         B = self.block_size
-        w = kc_row.shape[3]
+        w = _leaves(kc_row)[0].shape[3]
+        pairs = [(leaf, r) for pool, row in ((self.pool_k, kc_row),
+                                             (self.pool_v, vc_row))
+                 for leaf, r in zip(_leaves(pool), _leaves(row))]
         for j, blk in lanes.items():
             lo, hi = j * B, min(w, (j + 1) * B)
             if lo < hi:
-                self.pool_k[:, blk, :, :hi - lo] = kc_row[:, 0, :, lo:hi]
-                self.pool_v[:, blk, :, :hi - lo] = vc_row[:, 0, :, lo:hi]
+                for leaf, r in pairs:
+                    leaf[:, blk, :, :hi - lo] = r[:, 0, :, lo:hi]
 
     # -- swap images -------------------------------------------------------
 
@@ -322,8 +347,12 @@ class PagedKVArena:
         gather and one copy to the host): the preemption path."""
         kc, vc = self.gather_row(list(blocks[:n_data]))
         self._c_swap_out.inc()
-        return pack_image(kc.cpu(), vc.cpu(), block_size=self.block_size,
-                          n_data=n_data)
+
+        def host(c):
+            return tuple(t.cpu() for t in c) if self.quant else c.cpu()
+
+        return pack_image(host(kc), host(vc), block_size=self.block_size,
+                          n_data=n_data, quant=self.quant)
 
     def swap_in(self, image, blocks):
         """Restore a swapped-out image's lanes into freshly allocated
@@ -332,10 +361,14 @@ class PagedKVArena:
         (:class:`~singa_tpu_torch.serve.kvimage.KVImageError` on any
         mismatch, before the pool is touched), so the resumed request's
         KV is exactly what ``swap_out`` saved."""
-        image.validate(self.block_size, pool_k=self.pool_k)
-        dev = self.pool_k.device
+        image.validate(self.block_size, self.quant, pool_k=self.pool_k)
+        dev = _leaves(self.pool_k)[0].device
+
+        def dev_row(c):
+            return tuple(t.to(dev) for t in c) if self.quant else c.to(dev)
+
         self._c_swap_in.inc()
-        self.scatter_row(image.kc.to(dev), image.vc.to(dev),
+        self.scatter_row(dev_row(image.kc), dev_row(image.vc),
                          dict(enumerate(blocks[:image.n_data])))
 
     def on_preempt(self):
@@ -349,6 +382,7 @@ class PagedKVArena:
     def snapshot(self) -> dict:
         return {"block_size": self.block_size,
                 "num_blocks": self.num_blocks,
+                "quant": self.quant,
                 "blocks_free": self.blocks_free,
                 "blocks_used": self.blocks_used,
                 "preemptions": self._c_preempt.value,

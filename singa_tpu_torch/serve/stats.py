@@ -11,11 +11,13 @@ an ``engine=<n>`` label, one label value per engine.
 * **occupancy**: live slots / max_slots, sampled once per decode step;
   **queue depth**: sampled after each step's scheduling pass.
 
-* **paged**: the arena's snapshot (``serve/paged.py``): blocks free and
-  used, and the preemption counters ``serve.paged.preemptions``,
+* **paged**: the paged arena's snapshot (``serve/paged.py``): block
+  size, whether its pools are int8 (``quant``), blocks free and used,
+  and the preemption counters ``serve.paged.preemptions``,
   ``serve.paged.swap_out`` and ``serve.paged.swap_in``, which the arena
   registers in this registry under the same label, as in the JAX
-  package.
+  package; None on the slot arena, which has no blocks and does not
+  preempt.
 
 All times come from the engine's clock, so a fake clock makes the
 snapshot deterministic in tests.  The JAX version's SLO targets and

@@ -384,6 +384,27 @@ def test_engine_decode_step_is_capturable(tiny, guard, monkeypatch):
     eng.close()
 
 
+@pytest.mark.parametrize("cache_dtype", [None, "int8"], ids=["dense", "int8"])
+def test_slot_arena_decode_step_is_capturable(tiny, guard, monkeypatch,
+                                              cache_dtype):
+    """The slot arena's step (every slot through the dense
+    ``decode_step``, dead slots clamped) and the int8 writes run no op a
+    graph cannot take."""
+    eng = tiny.serve(max_slots=4, cache_dtype=cache_dtype)
+    orig = eng._decode_once
+
+    def guarded():
+        with guard:
+            orig()
+
+    monkeypatch.setattr(eng, "_decode_once", guarded)
+    _submit(eng, _work(1, 6))
+    eng.run_until_complete(max_steps=200)
+    assert eng.stats.decode_steps > 0
+    assert guard.bad == [], guard.bad
+    eng.close()
+
+
 # ---------------------------------------------------------- serve capture
 
 

@@ -137,3 +137,54 @@ def test_captured_decode_equals_eager_decode(cuda_device):
         eng.close()
     for a, b in zip(streams[True], streams[False]):
         np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arena", ["slots", "paged"])
+@pytest.mark.parametrize("cache_dtype", [None, "int8"], ids=["dense", "int8"])
+def test_captured_slot_and_int8_steps_equal_eager(cuda_device, arena,
+                                                  cache_dtype):
+    """The slot arena's step (one graph) and the int8 paged steps (one
+    graph a width bucket, the int8 kernel inside them, credited to
+    ``paged_attn.int8_launches`` on each replay) give the eager engine's
+    tokens, greedy and sampled, float32, and offline ``generate``'s at
+    the same ``cache_dtype``."""
+    from singa_tpu_torch import device, tensor
+    from singa_tpu_torch.models.gpt2 import GPT2Config, GPT2LMHead
+    from singa_tpu_torch.serve import GenerationRequest, PagedConfig
+
+    dev = device.create_cuda_gpu()
+    dev.SetRandSeed(0)
+    m = GPT2LMHead(GPT2Config.tiny(dropout=0.0, n_embd=128, n_head=2))
+    m.compile([tensor.from_numpy(np.zeros((1, 8), np.int32), dev)],
+              is_train=False)
+    rng = np.random.RandomState(3)
+    work = [(rng.randint(0, 256, rng.randint(3, 40)).astype(np.int32),
+             int(rng.randint(2, 20)), t, int(rng.randint(0, 999)))
+            for t in (0.0, 0.9, 0.0, 0.9, 0.0, 0.9, 0.0)]
+    paged = PagedConfig(block_size=8, num_blocks=32) if arena == "paged" \
+        else None
+    streams = {}
+    for capture in (True, False):
+        eng = m.serve(max_slots=4, paged=paged, cache_dtype=cache_dtype,
+                      capture=capture)
+        before8 = tpa.paged_attn.int8_launches
+        hs = [eng.submit(GenerationRequest(p, max_new_tokens=n,
+                                           temperature=t, seed=s))
+              for p, n, t, s in work]
+        eng.run_until_complete(max_steps=500)
+        int8 = tpa.paged_attn.int8_launches - before8
+        want = m.cfg.n_layer * eng.stats.decode_steps \
+            if arena == "paged" and cache_dtype else 0
+        assert int8 == want
+        if capture:
+            assert all(s.captured for s in eng._steps.values())
+            assert (sorted(eng._steps) == [4] if arena == "slots"
+                    else len(eng._steps) <= 3)
+        streams[capture] = [h.result().tokens for h in hs]
+        eng.close()
+    for a, b, (p, n, t, s) in zip(streams[True], streams[False], work):
+        np.testing.assert_array_equal(a, b)
+        np.testing.assert_array_equal(a, m.generate(
+            p, max_new_tokens=n, temperature=t, seed=s,
+            cache_dtype=cache_dtype))

@@ -13,7 +13,8 @@ kernel-vs-plain comparisons are ``chip_smoke.check_case`` over
 ``chip_smoke.bottleneck_edge_cases()`` (the ResNet bottleneck), with
 ``chip_smoke.check_paged_case`` over ``chip_smoke.paged_edge_cases()``
 (paged decode attention, allclose at ``chip_smoke.PAGED_TOL``: float32
-2e-5, bf16 1e-2; the cases take one split of the key range or several),
+2e-5, bf16 1e-2, by q's dtype on int8 pools too; the cases take one
+split of the key range or several),
 with their tolerances (``chip_smoke.TOL``): flash
 attention allclose with
 float32 rtol = atol = 1e-4 and bf16 rtol = atol = 2e-2 (bf16 with
@@ -177,9 +178,23 @@ def test_paged_kernel_matches_plain(cuda_device, dtype, seed, name, case):
 
 
 @pytest.mark.cuda
-def test_paged_kernel_counts_its_launches_and_refuses_int8(cuda_device):
-    """One count a launch (the split and combine kernels together); int8
-    pools and D past 1024 raise; D = 96, 512 and 1024 run and agree with
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("seed,name,case", [
+    pytest.param(seed, name, case, id=name)
+    for seed, (name, case) in enumerate(chip_smoke.paged_edge_cases())])
+def test_paged_int8_kernel_matches_plain(cuda_device, dtype, seed, name,
+                                         case):
+    """int8 pools ((values, scales) pairs) with float32 or bf16 q."""
+    chip_smoke.check_paged_case(f"{name}/int8/{dtype}",
+                                getattr(torch, dtype), seed, quant=True,
+                                **case)
+
+
+@pytest.mark.cuda
+def test_paged_kernel_counts_its_launches(cuda_device):
+    """One count a launch (the split and combine kernels together), and
+    on int8 pools one in ``int8_launches`` too; D past 1024 raises;
+    D = 96, 512 and 1024 run and agree with
     the plain version, a GQA group of 5 heads at D = 256 runs as two
     launches, and more query positions than one launch holds run as runs
     of them: Q = 24 at D = 64 in two launches, Q = 5 at D = 256 in two,
@@ -188,13 +203,18 @@ def test_paged_kernel_counts_its_launches_and_refuses_int8(cuda_device):
     args = chip_smoke.paged_inputs(lens=[9, 0], block=8, d=64, n_kv=2, g=1,
                                    nq=1, dtype=torch.float32, seed=0)
     before = tpa.paged_attn.launches
+    before8 = tpa.paged_attn.int8_launches
     tpa.paged_attn(**args)
     torch.cuda.synchronize()
     assert tpa.paged_attn.launches == before + 1
-    int8 = dict(args, pool_k=args["pool_k"].to(torch.int8),
-                pool_v=args["pool_v"].to(torch.int8))
-    with pytest.raises(TypeError, match="int8"):
-        tpa.paged_attn(**int8)
+    assert tpa.paged_attn.int8_launches == before8
+    int8 = chip_smoke.paged_inputs(lens=[9, 0], block=8, d=64, n_kv=2, g=1,
+                                   nq=1, dtype=torch.bfloat16, seed=0,
+                                   quant=True)
+    out = tpa.paged_attn(**int8)
+    assert out.dtype == torch.bfloat16
+    assert tpa.paged_attn.launches == before + 2
+    assert tpa.paged_attn.int8_launches == before8 + 1
     for d in (96, 512, 1024):
         ok = chip_smoke.paged_inputs(lens=[9, 300], block=8, d=d, n_kv=1,
                                      g=1, nq=1, dtype=torch.float32, seed=0)

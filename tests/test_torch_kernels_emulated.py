@@ -20,8 +20,10 @@ at the split count the wrapper would choose (dead slots with all-trash
 tables, GQA g = 3 with Q = 4 at D = 128, a window over Q = 4, D = 640,
 D = 1024 with 6 heads, 32 query rows at D = 64, Q = 24 positions of 2
 heads under a window in runs of 16) and on D = 16 and a long
-slot beside short ones at D = 64 over one split and over three; and the
-split plan itself.  Needs a C++ compiler.
+slot beside short ones at D = 64 over one split and over three, each
+also on int8 pools ((values, scales) pairs) with float32 and bf16 q at
+the q dtype's tolerance; and the split plan itself, int8 pools
+included.  Needs a C++ compiler.
 """
 
 import importlib.util
@@ -118,6 +120,36 @@ def test_paged_split_and_combine_kernels(emu, build_dir, cpu_inputs, name,
     assert ok, err
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["float32_q", "bf16_q"])
+@pytest.mark.parametrize("name", PAGED)
+def test_paged_int8_kernel_matches_plain(emu, build_dir, cpu_inputs, name,
+                                         dtype):
+    """The int8 instantiations (int8 pools, q float32 or bf16)."""
+    seed, kw = next((i, kw) for i, (n, kw)
+                    in enumerate(chip_smoke.paged_edge_cases())
+                    if n == name)
+    lib = emu.load("paged_attention", build_dir)
+    err, ok = emu.paged_case(lib, dtype, seed, quant=True, **kw)
+    assert ok, err
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["float32_q", "bf16_q"])
+@pytest.mark.parametrize("n_split", [1, 3])
+@pytest.mark.parametrize("name", ["d16", "long_beside_short"])
+def test_paged_int8_split_and_combine_kernels(emu, build_dir, cpu_inputs,
+                                              name, n_split, dtype):
+    """D = 16 (one 16-byte chunk an int8 row) and a long slot beside
+    short ones on int8 pools, over one split and over three."""
+    seed, kw = next((i, kw) for i, (n, kw)
+                    in enumerate(chip_smoke.paged_edge_cases())
+                    if n == name)
+    lib = emu.load("paged_attention", build_dir)
+    err, ok = emu.paged_case(lib, dtype, seed, n_split, quant=True, **kw)
+    assert ok, err
+
+
 def test_paged_split_plan(emu, build_dir):
     """The C plan on an H100's 132 SMs: about 4 blocks an SM, at least
     128 keys a split, whole tiles a warp; none past D = 1024.  The serve
@@ -138,6 +170,13 @@ def test_paged_split_plan(emu, build_dir):
     assert plan(32, 32, 2, blk_lo=28) == 1
     assert plan(300, 1, 6, d=256, dtype=torch.float32) == 2
     assert plan(16, 32, 96, d=1040) == 0
+    # int8 pools plan as their rows' bytes give warps: 4 to D = 128, 2 at
+    # 256 (as bf16 at 128), 1 past it
+    assert plan(16, 32, 8 * 12, dtype=torch.int8) == 4
+    assert plan(300, 1, 6, d=256, dtype=torch.int8) == \
+        plan(300, 1, 6, d=128, dtype=torch.bfloat16)
+    assert plan(64, 8, 2, d=512, dtype=torch.int8) == \
+        plan(64, 8, 2, d=256, dtype=torch.bfloat16)
 
 
 def test_every_inline_ptx_helper_is_emulated(emu):

@@ -118,7 +118,7 @@ def test_dead_slot_attends_only_its_current_lane():
 
 
 @pytest.mark.parametrize("change,err", [
-    (dict(pool_k=torch.zeros(5, 2, 8, 64, dtype=torch.int8)), TypeError),
+    (dict(int8_scales=torch.float16), ValueError),
     (dict(d=1040), ValueError),
     (dict(p_limit_dtype=torch.int64), ValueError),
     (dict(tables_dtype=torch.int64), ValueError),
@@ -127,15 +127,17 @@ def test_dead_slot_attends_only_its_current_lane():
     (dict(nq=pa.max_positions(64) + 1), ValueError),
 ])
 def test_cuda_checks_refuse_what_the_kernel_does_not_take(change, err):
-    """Past D = 1024 or ``max_positions(D)`` query positions, int8 pools,
-    malformed tables, positions and ``cur_mask`` raise, naming the
-    limit.  (Past ``max_rows(D)`` positions the wrapper launches runs of
-    them.)"""
+    """Past D = 1024 or ``max_positions(D)`` query positions, int8 pools
+    whose scales are not float32, malformed tables, positions and
+    ``cur_mask`` raise, naming the limit.  (Past ``max_rows(D)``
+    positions the wrapper launches runs of them.)"""
     kw = dict(lens=[9, 4], block=8, d=change.get("d", 64), n_kv=2,
               g=change.get("g", 1), nq=change.get("nq", 1))
-    a = chip_smoke.paged_inputs(dtype=torch.float32, seed=0, **kw)
-    if "pool_k" in change:
-        a["pool_k"] = a["pool_v"] = change["pool_k"]
+    a = chip_smoke.paged_inputs(dtype=torch.float32, seed=0,
+                                quant="int8_scales" in change, **kw)
+    if "int8_scales" in change:
+        vals, sc = a["pool_k"]
+        a["pool_k"] = (vals, sc.to(change["int8_scales"]))
     if "tables_dtype" in change:
         a["tables"] = a["tables"].to(change["tables_dtype"])
     if "blk_lo" in change:
@@ -165,6 +167,24 @@ def test_cuda_checks_take_every_head_dim_up_to_512(d, g, nq):
     assert pa._check_cuda(a["q"], a["pool_k"], a["pool_v"], a["tables"],
                           a["p_limit"], a["k_cur"], a["v_cur"],
                           a["cur_mask"], a["blk_lo"]) == 1
+
+
+@pytest.mark.parametrize("dtype,code", [(torch.float32, 2),
+                                        (torch.bfloat16, 3)],
+                         ids=["float32_q", "bf16_q"])
+def test_cuda_checks_take_int8_pools(dtype, code):
+    """int8 pools and current K/V as (values, float32 scales) pairs with
+    float32 or bf16 q pass the wrapper's checks, as the int8 kernel's
+    dtype code; the wrapper on CPU tensors returns the plain version in
+    q's dtype."""
+    a = chip_smoke.paged_inputs(lens=[9, 4], block=8, d=64, n_kv=2, g=3,
+                                nq=2, dtype=dtype, seed=0, quant=True)
+    assert pa._check_cuda(a["q"], a["pool_k"], a["pool_v"], a["tables"],
+                          a["p_limit"], a["k_cur"], a["v_cur"],
+                          a["cur_mask"], a["blk_lo"]) == code
+    out = pa.paged_attn(**a)
+    assert out.dtype == dtype and out.shape == a["q"].shape
+    assert torch.isfinite(out.float()).all()
 
 
 def test_max_positions_is_what_the_combine_fits_in_shared_memory():

@@ -323,15 +323,54 @@ def test_slot_that_cannot_grow_fails_typed(models):
 
 
 @pytest.mark.parametrize("kw", [
-    dict(paged=None), dict(prefix_cache=True), dict(draft_model="d"),
-    dict(spec_k=4), dict(cache_dtype="int8"), dict(tp=2), dict(ep=2),
-    dict(pp=2), dict(slo="slo"),
+    dict(prefix_cache=True), dict(draft_model="d"), dict(spec_k=4),
+    dict(tp=2), dict(ep=2), dict(pp=2), dict(slo="slo"),
 ], ids=lambda kw: next(iter(kw)))
 def test_engine_refuses_what_is_not_ported(models, kw):
     _, tm = models
     kw = {"paged": PagedConfig(block_size=8, num_blocks=8), **kw}
     with pytest.raises(NotImplementedError, match="not ported"):
         tm.serve(**kw)
+
+
+def test_serve_with_no_arguments_runs_the_slot_arena(models):
+    """``model.serve()`` with the defaults serves (the slot arena,
+    ``paged=None``): greedy and sampled streams equal offline
+    ``generate``."""
+    _, tm = models
+    work = _workload(12, 4)
+    eng = tm.serve()
+    assert eng.paged_arena is None and eng.max_slots == 8
+    hs = [eng.submit(GenerationRequest(
+        w["prompt"], max_new_tokens=w["n_new"],
+        temperature=w["temperature"], seed=w["seed"])) for w in work]
+    eng.run_until_complete(max_steps=500)
+    for h, want in zip(hs, _offline(tm, work)):
+        np.testing.assert_array_equal(h.result().tokens, want)
+    eng.close()
+
+
+def test_paged_engine_serves_int8_kv(models):
+    """``cache_dtype="int8"`` serves on the paged engine, streams equal
+    to offline int8 ``generate``, and a value other than None or
+    "int8" raises."""
+    _, tm = models
+    work = _workload(13, 4)
+    eng = tm.serve(max_slots=3, cache_dtype="int8",
+                   paged=PagedConfig(block_size=8, num_blocks=64))
+    assert eng.paged_arena.snapshot()["quant"]
+    hs = [eng.submit(GenerationRequest(
+        w["prompt"], max_new_tokens=w["n_new"],
+        temperature=w["temperature"], seed=w["seed"])) for w in work]
+    eng.run_until_complete(max_steps=500)
+    for h, w in zip(hs, work):
+        np.testing.assert_array_equal(h.result().tokens, tm.generate(
+            w["prompt"], max_new_tokens=w["n_new"],
+            temperature=w["temperature"], seed=w["seed"],
+            cache_dtype="int8"))
+    eng.close()
+    with pytest.raises(ValueError, match="cache_dtype"):
+        tm.serve(cache_dtype="int4")
 
 
 @pytest.mark.parametrize("req", [

@@ -12,7 +12,8 @@ the host's C++ compiler into ``_scratch/emulator`` (gitignored) and loaded
 with ctypes under the same C interface the GPU library has.  The CLI runs
 ``chip_smoke.py``'s edge cases: every flash case in bf16 (the tensor-core
 kernels; float32 takes the CUDA-core ones), every bottleneck case, and
-every paged-attention case in float32 and bf16; it prints one line a case
+every paged-attention case in float32 and bf16, and on int8 pools with
+float32 and bf16 q; it prints one line a case
 and exits 1 if any fails its tolerance (``chip_smoke.TOL``,
 ``chip_smoke.PAGED_TOL``).
 
@@ -26,6 +27,7 @@ from __future__ import annotations
 
 import ctypes
 import hashlib
+import itertools
 import os
 import re
 import shutil
@@ -194,20 +196,21 @@ def bottleneck_case(lib, b, h, w, c, cm, seed, affine="unit"):
                                cs.TOL["bottleneck"])
 
 
-def paged_case(lib, dtype, seed, n_split=None, **kw):
+def paged_case(lib, dtype, seed, n_split=None, quant=False, **kw):
     """The emulated split and combine kernels on one ``chip_smoke`` case
     (CPU tensors, the output and workspace NaN-filled) against their
     plain version, launched as the wrapper launches them (launches of at
     most ``max_rows(D)`` query rows, the table width as the bound of the
     blocks read, which the kernel narrows from ``p_limit``), over
     ``n_split`` splits of the key range (default: what the wrapper would
-    choose on an H100's 132 SMs); returns ``(max |Δ|, ok)``."""
+    choose on an H100's 132 SMs); ``quant``: int8 pools, q in ``dtype``.
+    Returns ``(max |Δ|, ok)``."""
     import torch
 
     import chip_smoke as cs
     from singa_tpu_torch.ops import paged_attention as pa
 
-    a = cs.paged_inputs(dtype=dtype, seed=seed, **kw)
+    a = cs.paged_inputs(dtype=dtype, seed=seed, quant=quant, **kw)
 
     def nan_filled(shape, dtype, device):
         return torch.full(shape, float("nan"), dtype=dtype, device=device)
@@ -258,11 +261,14 @@ def main(argv=None):
         for seed, (name, kw) in enumerate(cs.paged_edge_cases()):
             if argv and name not in argv:
                 continue
-            for dtype in (torch.float32, torch.bfloat16):
+            for quant, dtype in itertools.product(
+                    (False, True), (torch.float32, torch.bfloat16)):
                 for n_split in (1, None):
-                    err, ok = paged_case(lib, dtype, seed, n_split, **kw)
+                    err, ok = paged_case(lib, dtype, seed, n_split, quant,
+                                         **kw)
                     failed += not ok
-                    print(f"paged {name}/{str(dtype)[6:]}/"
+                    print(f"paged {name}/{'int8/' if quant else ''}"
+                          f"{str(dtype)[6:]}/"
                           f"n_split={n_split or 'planned'}: max |Δ| {err}, "
                           f"ok {ok}", flush=True)
     return 1 if failed else 0
