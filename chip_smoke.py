@@ -11,11 +11,14 @@ exits nonzero:
                     attention) with nvcc for
                     sm_90a, one nvcc process per source, all at once; then
                     reports each kernel's registers and spills (ptxas
-                    ``-v``) and counts its tensor-core (HMMA/HGMMA) and
-                    local-memory (LDL/STL) instructions in its SASS
-                    (``cuobjdump -sass``); fails if a tensor-core kernel
-                    (``*_tc_kernel``: the three flash kernels and the
-                    bottleneck) is missing or has no HMMA/HGMMA.
+                    ``-v``) and counts its warp-level (HMMA) and
+                    warpgroup (HGMMA) tensor-core instructions, its TMA
+                    loads (UTMALDG) and its local-memory (LDL/STL)
+                    instructions in its SASS (``cuobjdump -sass``); fails
+                    if a tensor-core kernel (``TENSOR_CORE_KERNELS``: the
+                    three flash kernels and the bottleneck) is missing, if
+                    a ``*_tc_kernel`` has no tensor-core instruction, or
+                    if a Hopper ``*_wg_kernel`` lacks HGMMA or UTMALDG.
 2. ``kernels``    - holds ``flash_fwd``, ``flash_bwd_dq`` and
                     ``flash_bwd_dkv`` against their plain PyTorch versions
                     on the card: at GPT-2 small's attention shape (B=8,
@@ -23,9 +26,12 @@ exits nonzero:
                     float32 and bf16 (key mask, a fully -inf-masked row,
                     general masks, sliding windows, S=1/65/129/1000,
                     D=8/13/72/96/128/160/320/512/640/1000/1024/1792), where
-                    bf16 with D <= 128 runs the tensor-core kernels and the
-                    rest the CUDA-core ones (past D = 512 their 8-row
-                    rung); and times each kernel, its plain
+                    bf16 with D <= 128 runs the tensor-core kernels
+                    (``fwd_wg_kernel`` / ``dkv_wg_kernel`` on wgmma and
+                    TMA, ``dq_tc_kernel`` on mma.sync; D = 13 through a
+                    zero-padded copy) and the rest the CUDA-core ones
+                    (past D = 512 their 8-row rung); and times each
+                    kernel, its plain
                     version and PyTorch's fused attention, forward and
                     backward (a yardstick the port never calls).
 3. ``slice``      - trains GPT-2 small (124M, n_positions 1024, so
@@ -264,26 +270,35 @@ def cuda_time_ms(fn, iters, warmup=2):
     return start.elapsed_time(end) / iters
 
 
-def device_ms_by_kernel(fn, iters, warmup=2):
+def device_ms_by_kernel(fn, iters, warmup=2, attempts=2):
     """Device time of ``fn()`` per call by kernel name: the CUDA kernels
-    it launches over ``iters`` calls, by torch.profiler (CUPTI)."""
+    it launches over ``iters`` calls, by torch.profiler (CUPTI).  A
+    recording that holds no device time at all (CUPTI now and then
+    returns none for one recording of a run) is taken again;
+    ``attempts`` empty ones raise."""
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    out = {}
-    for e in prof.key_averages():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            out[e.key] = out.get(e.key, 0.0) + \
-                e.self_device_time_total / 1e3 / iters
-    if sum(out.values()) == 0:
-        raise AssertionError("torch.profiler recorded no device time")
+    for attempt in range(attempts):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        out = {}
+        for e in prof.key_averages():
+            if e.device_type == torch.autograd.DeviceType.CUDA:
+                out[e.key] = out.get(e.key, 0.0) + \
+                    e.self_device_time_total / 1e3 / iters
+        if sum(out.values()) > 0:
+            break
+        print(f"chip_smoke.py: torch.profiler recorded no device time "
+              f"(attempt {attempt + 1} of {attempts})", file=sys.stderr)
+    else:
+        raise AssertionError(f"torch.profiler recorded no device time in "
+                             f"{attempts} attempts")
     return out
 
 
@@ -757,8 +772,8 @@ def phase_slice(rows, steps=5, batch=8, seq=1024, seed=0):
     in_replay = replayed_kernels(m, x, y)
     found = {g: [k for k in in_replay if rx.search(k)]
              for g, rx in KERNEL_GROUPS[:1]}["flash_attention"]
-    if not all(any(f"{n}_tc_kernel<" in k for k in found)
-               for n in ("fwd", "dq", "dkv")):
+    if not all(any(f"{n}<" in k for k in found)
+               for n in TENSOR_CORE_KERNELS["flash_attention"]):
         raise AssertionError(f"a replayed step ran no flash tensor-core "
                              f"kernel: {sorted(in_replay)}")
     logits, _ = m(x, y)
@@ -805,7 +820,8 @@ def phase_slice(rows, steps=5, batch=8, seq=1024, seed=0):
 
 
 KERNEL_GROUPS = (
-    ("flash_attention", re.compile(r"\b(fwd|dq|dkv)(_tc|_narrow)?_kernel<")),
+    ("flash_attention",
+     re.compile(r"\b(fwd|dq|dkv)(_tc|_wg|_narrow)?_kernel<")),
     ("gemm", re.compile(r"gemm|nvjet|xmma|cutlass", re.I)),
 )
 
@@ -2713,9 +2729,9 @@ SOURCES = ("flash_attention", "resnet_bottleneck", "paged_attention")
 def kernel_report(lib):
     """Per kernel of a built library, by its name as ``cu++filt``
     demangles it: registers and spill bytes from ptxas's ``-v`` report of
-    the build, and the counts of tensor-core (HMMA, HGMMA) and
-    local-memory (LDL, STL) instructions in its SASS (``cuobjdump
-    -sass``)."""
+    the build, and the counts of warp-level (HMMA) and warpgroup (HGMMA)
+    tensor-core instructions, TMA loads (UTMALDG) and local-memory (LDL,
+    STL) instructions in its SASS (``cuobjdump -sass``)."""
     from singa_tpu_torch.ops import _build
 
     tools = os.path.dirname(_build.nvcc_path())
@@ -2738,8 +2754,9 @@ def kernel_report(lib):
     for name, body in re.findall(
             r"Function : (\S+)\n(.*?)(?=Function : |\Z)", sass, re.S):
         row = out.setdefault(name, {})
-        row["tensor_core_instructions"] = len(
-            re.findall(r"\bH(?:G)?MMA\.", body))
+        for key, rx in (("hmma", r"\bHMMA\."), ("hgmma", r"\bHGMMA\."),
+                        ("utmaldg", r"\bUTMALDG\b")):
+            row[key] = len(re.findall(rx, body))
         row["local_memory_instructions"] = len(
             re.findall(r"\b(?:LDL|STL)(?:\.\w+)*\s", body))
     names = sorted(out)
@@ -2750,9 +2767,11 @@ def kernel_report(lib):
 
 
 #: the tensor-core kernels each build must hold, by library; a kernel is
-#: known by its demangled name, ``(anonymous namespace)::<name><...>(...)``
+#: known by its demangled name, ``(anonymous namespace)::<name><...>(...)``:
+#: ``*_tc_kernel`` on warp-level mma.sync, ``*_wg_kernel`` on Hopper's
+#: warpgroup wgmma fed by TMA
 TENSOR_CORE_KERNELS = {
-    "flash_attention": ("fwd_tc_kernel", "dq_tc_kernel", "dkv_tc_kernel"),
+    "flash_attention": ("fwd_wg_kernel", "dq_tc_kernel", "dkv_wg_kernel"),
     "resnet_bottleneck": ("bottleneck_tc_kernel",),
     # decode attention does ~1 FLOP a byte: CUDA cores, by design
     "paged_attention": (),
@@ -2761,22 +2780,30 @@ TENSOR_CORE_KERNELS = {
 
 def check_tensor_cores(report):
     """Raise unless every kernel of ``TENSOR_CORE_KERNELS`` is in its
-    library's ``kernel_report`` and every ``*_tc_kernel`` instantiation
-    there has tensor-core (HMMA/HGMMA) instructions; returns the tensor-core
+    library's ``kernel_report``, every ``*_tc_kernel`` instantiation there
+    has tensor-core instructions (HMMA or HGMMA) and every Hopper
+    ``*_wg_kernel`` instantiation has both HGMMA and UTMALDG (HMMA alone
+    would mean the warpgroup design was lost); returns the tensor-core
     kernels' rows by name."""
     tc = {}
     for lib, names in TENSOR_CORE_KERNELS.items():
         rows = {k: v for k, v in report.get(lib, {}).items()
-                if re.search(r"::\w+_tc_kernel<", k)}
+                if re.search(r"::\w+_(?:tc|wg)_kernel<", k)}
         missing = [n for n in names
                    if not any(f"::{n}<" in k for k in rows)]
         if missing:
             raise AssertionError(f"{lib}: no {missing} in the build report")
         bare = {k: v for k, v in rows.items()
-                if not v.get("tensor_core_instructions")}
+                if not (v.get("hmma") or v.get("hgmma"))}
         if bare:
             raise AssertionError(f"tensor-core kernels without HMMA/HGMMA "
                                  f"in their SASS: {bare}")
+        no_tma = {k: v for k, v in rows.items()
+                  if re.search(r"::\w+_wg_kernel<", k)
+                  and not (v.get("hgmma") and v.get("utmaldg"))}
+        if no_tma:
+            raise AssertionError(f"Hopper kernels without HGMMA and UTMALDG "
+                                 f"in their SASS: {no_tma}")
         tc.update(rows)
     return tc
 

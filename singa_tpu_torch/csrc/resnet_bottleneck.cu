@@ -39,7 +39,7 @@
 //     next chunk loads while this one computes, one __syncthreads a
 //     chunk.  Weights come from L2 (136 KB at CM = 64, shared by every
 //     block).  B operands are the (K, N) row-major weights read by
-//     ldmatrix.trans, as fwd_tc_kernel reads V.
+//     ldmatrix.trans, as dq_tc_kernel reads K.
 //   * Every shared-memory row is padded by 16 bytes to an odd number of
 //     16-byte chunks, so the 8 rows an ldmatrix matrix reads lie in 8
 //     bank groups, for any CM (a XOR swizzle would need a power of two).

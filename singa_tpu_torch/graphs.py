@@ -25,6 +25,8 @@ them on every replay.
 
 from __future__ import annotations
 
+import gc
+
 import torch
 
 __all__ = ["Step", "warm", "launch_counters"]
@@ -88,8 +90,18 @@ class Step:
         graph = torch.cuda.CUDAGraph()
         for gen in generators:
             graph.register_generator_state(gen)
-        with torch.cuda.graph(graph, pool=pool):
-            self.out = self.fn()
+        # A graph that the cyclic collector frees during the capture (one
+        # of a model dropped earlier) resets itself and so ends the
+        # capture: collect first, and not while capturing.
+        gc.collect()
+        enabled = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.graph(graph, pool=pool):
+                self.out = self.fn()
+        finally:
+            if enabled:
+                gc.enable()
         self.launches = [a - b for a, b in zip(_counts(), before)]
         _credit([-n for n in self.launches])
         self.graph = graph

@@ -15,17 +15,20 @@ wrapper            replaces (Pallas, TPU)      plain version
 
 A wrapper takes its plain version only for tensors on the CPU.  For CUDA
 tensors it launches the kernel that :func:`route` names or raises: there
-is no fallback.  bf16 with D <= 128 runs all three on the tensor cores;
-float32 and wider heads run on the CUDA cores.
+is no fallback.  bf16 with D <= 128 runs all three on the tensor cores
+(the forward and dK/dV as Hopper warpgroup kernels fed by TMA, which
+reads rows of whole 16-byte chunks: a D that is not a multiple of 8 goes
+through a zero-padded copy, which is exact); float32 and wider heads run
+on the CUDA cores.
 
 Conventions kept from the JAX package: the finite floor ``NEG_INF =
 -1e30`` (causal masking writes it, the running max starts at it); a row
 with zero softmax mass gives ``O = 0`` and ``lse = NEG_INF``; the
 general mask is an ``(M, S, S)`` tile addressed by ``(bh // qdiv) %
 qmod``; ``window`` needs ``causal``; ``scale = 1/sqrt(D)``.  Unlike the
-JAX wrapper, nothing is padded: the kernels mask the ragged tail of S
-and D themselves, so S and D are taken as they are (D <= 1792 on the GPU;
-a wider head raises ``ValueError`` naming the limit).
+JAX wrapper, S is never padded: the kernels mask its ragged tail
+themselves (D <= 1792 on the GPU; a wider head raises ``ValueError``
+naming the limit).
 """
 
 from __future__ import annotations
@@ -62,9 +65,9 @@ def route(dtype, d):
     """The ``kind`` of kernel that ``flash_fwd``, ``flash_bwd_dq`` and
     ``flash_bwd_dkv`` launch for CUDA tensors of this dtype and head dim:
 
-    * ``BF16_TENSOR_CORE``: bfloat16 with D <= 128 (``fwd_tc_kernel``,
-      ``dq_tc_kernel``, ``dkv_tc_kernel``: bf16 ``mma.sync`` tiles,
-      float32 sums);
+    * ``BF16_TENSOR_CORE``: bfloat16 with D <= 128 (``fwd_wg_kernel`` and
+      ``dkv_wg_kernel``: ``wgmma`` warpgroup tiles fed by TMA;
+      ``dq_tc_kernel``: ``mma.sync`` tiles; float32 sums);
     * ``F32_CUDA_CORE``: float32, whose tensor-core products would be
       TF32 and miss the float32 tolerance;
     * ``BF16_CUDA_CORE``: bfloat16 with 128 < D <= 1792 (``fwd_kernel``,
@@ -215,15 +218,84 @@ def _mask_args(kmask, qmask, qmap):
     return [_ptr(kmask), _ptr(qmask), int(qdiv), int(qmod)]
 
 
-def _shape_args(q, scale, causal, window, kind):
+def _shape_args(q, scale, causal, window, kind, stream):
     bh, s, d = q.shape
     return [bh, s, d, float(scale), int(bool(causal)), int(window or 0),
-            kind, torch.cuda.current_stream(q.device).cuda_stream]
+            kind, stream]
 
 
 def _raise_on(err, name):
     if err != 0:
         raise RuntimeError(f"{name}: CUDA error {err} at launch")
+
+
+def _tma_operands(kind, *ts):
+    """The operands as the tensor-core kernels read them: through TMA,
+    whose rows are whole 16-byte chunks at 16-byte aligned addresses.  A
+    D that is not a multiple of 8 (or a base off 16 bytes) goes through a
+    copy zero-padded to the next multiple of 8: exact, since zero columns
+    add nothing to QKᵀ, ``scale`` comes from the true D and the outputs'
+    pad columns are dropped (``_unpad``)."""
+    d = ts[0].shape[-1]
+    if kind != BF16_TENSOR_CORE or (
+            d % 8 == 0 and all(t.data_ptr() % 16 == 0 for t in ts)):
+        return ts
+    out = []
+    for t in ts:
+        p = t.new_zeros(*t.shape[:-1], d + -d % 8)
+        p[..., :d] = t
+        out.append(p)
+    return tuple(out)
+
+
+def _unpad(t, d):
+    return t if t.shape[-1] == d else t[..., :d].contiguous()
+
+
+# The launches themselves, on ``lib`` (the built library, or the CPU
+# emulator's build of the same source) and ``stream``; outputs in the
+# callers' shapes.
+
+def _launch_fwd(lib, stream, kind, q, k, v, kmask, qmask, qmap, scale,
+                causal, window):
+    q_, k_, v_ = _tma_operands(kind, q, k, v)
+    o = torch.empty_like(q_)
+    lse = torch.empty(q.shape[:2], device=q.device, dtype=torch.float32)
+    _raise_on(lib.flash_fwd(
+        q_.data_ptr(), k_.data_ptr(), v_.data_ptr(),
+        *_mask_args(kmask, qmask, qmap), o.data_ptr(), lse.data_ptr(),
+        *_shape_args(q_, scale, causal, window, kind, stream)), "flash_fwd")
+    return _unpad(o, q.shape[-1]), lse
+
+
+def _launch_dq(lib, stream, kind, q, k, v, kmask, qmask, qmap, scale,
+               causal, window, do, lse, delta):
+    q_, k_, v_, do_ = _tma_operands(kind, q, k, v, do)
+    dq = torch.empty_like(q_)
+    _raise_on(lib.flash_bwd_dq(
+        q_.data_ptr(), k_.data_ptr(), v_.data_ptr(),
+        *_mask_args(kmask, qmask, qmap), do_.data_ptr(), lse.data_ptr(),
+        delta.data_ptr(), dq.data_ptr(),
+        *_shape_args(q_, scale, causal, window, kind, stream)),
+        "flash_bwd_dq")
+    return _unpad(dq, q.shape[-1])
+
+
+def _launch_dkv(lib, stream, kind, q, k, v, kmask, qmask, qmap, scale,
+                causal, window, do, lse, delta):
+    q_, k_, v_, do_ = _tma_operands(kind, q, k, v, do)
+    dk, dv = torch.empty_like(k_), torch.empty_like(v_)
+    _raise_on(lib.flash_bwd_dkv(
+        q_.data_ptr(), k_.data_ptr(), v_.data_ptr(),
+        *_mask_args(kmask, qmask, qmap), do_.data_ptr(), lse.data_ptr(),
+        delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        *_shape_args(q_, scale, causal, window, kind, stream)),
+        "flash_bwd_dkv")
+    return _unpad(dk, q.shape[-1]), _unpad(dv, q.shape[-1])
+
+
+def _stream(q):
+    return torch.cuda.current_stream(q.device).cuda_stream
 
 
 def flash_fwd(q, k, v, kmask, qmask, qmap, scale, causal, window):
@@ -235,16 +307,11 @@ def flash_fwd(q, k, v, kmask, qmask, qmap, scale, causal, window):
         return flash_fwd_plain(q, k, v, kmask, qmask, qmap, scale, causal,
                                window)
     kind = _check_cuda(q, k, v, kmask, qmask)
-    o = torch.empty_like(q)
-    lse = torch.empty(q.shape[:2], device=q.device, dtype=torch.float32)
-    err = _lib().flash_fwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        *_mask_args(kmask, qmask, qmap), o.data_ptr(), lse.data_ptr(),
-        *_shape_args(q, scale, causal, window, kind))
+    out = _launch_fwd(_lib(), _stream(q), kind, q, k, v, kmask, qmask,
+                      qmap, scale, causal, window)
     flash_fwd.launches += 1
     flash_fwd.tensor_core_launches += kind == BF16_TENSOR_CORE
-    _raise_on(err, "flash_fwd")
-    return o, lse
+    return out
 
 
 def flash_bwd_dq(q, k, v, kmask, qmask, qmap, scale, causal, window, do,
@@ -255,15 +322,10 @@ def flash_bwd_dq(q, k, v, kmask, qmask, qmap, scale, causal, window, do,
                                   window, do, lse, delta)
     kind = _check_cuda(q, k, v, kmask, qmask, do)
     _check_rows(q, lse, delta)
-    dq = torch.empty_like(q)
-    err = _lib().flash_bwd_dq(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        *_mask_args(kmask, qmask, qmap), do.data_ptr(), lse.data_ptr(),
-        delta.data_ptr(), dq.data_ptr(),
-        *_shape_args(q, scale, causal, window, kind))
+    dq = _launch_dq(_lib(), _stream(q), kind, q, k, v, kmask, qmask, qmap,
+                    scale, causal, window, do, lse, delta)
     flash_bwd_dq.launches += 1
     flash_bwd_dq.tensor_core_launches += kind == BF16_TENSOR_CORE
-    _raise_on(err, "flash_bwd_dq")
     return dq
 
 
@@ -275,16 +337,11 @@ def flash_bwd_dkv(q, k, v, kmask, qmask, qmap, scale, causal, window, do,
                                    causal, window, do, lse, delta)
     kind = _check_cuda(q, k, v, kmask, qmask, do)
     _check_rows(q, lse, delta)
-    dk, dv = torch.empty_like(k), torch.empty_like(v)
-    err = _lib().flash_bwd_dkv(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        *_mask_args(kmask, qmask, qmap), do.data_ptr(), lse.data_ptr(),
-        delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-        *_shape_args(q, scale, causal, window, kind))
+    out = _launch_dkv(_lib(), _stream(q), kind, q, k, v, kmask, qmask,
+                      qmap, scale, causal, window, do, lse, delta)
     flash_bwd_dkv.launches += 1
     flash_bwd_dkv.tensor_core_launches += kind == BF16_TENSOR_CORE
-    _raise_on(err, "flash_bwd_dkv")
-    return dk, dv
+    return out
 
 
 # launches in all, and those on the tensor-core route

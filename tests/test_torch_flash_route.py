@@ -3,10 +3,14 @@ them in a profile; no GPU needed.
 
 ``singa_tpu_torch.ops.flash_attention.route`` is the one rule, and
 returns the C entry points' ``kind``: bf16 with D <= 128 runs the
-forward, dQ and dK/dV on the tensor-core kernels (``fwd_tc_kernel``,
-``dq_tc_kernel``, ``dkv_tc_kernel``); float32 and bf16 with 128 < D <=
-1792 run the CUDA-core kernels (past D = 512 their 8-row rung); anything
-else raises.  The
+forward, dQ and dK/dV on the tensor-core kernels (``fwd_wg_kernel`` and
+``dkv_wg_kernel``, Hopper's wgmma warpgroups fed by TMA, and
+``dq_tc_kernel`` on mma.sync; a D that is not a multiple of 8 through a
+zero-padded copy); float32 and bf16 with 128 < D <= 1792 run the
+CUDA-core kernels (past D = 512 their 8-row rung); anything else
+raises.  The build check refuses a tensor-core kernel without
+tensor-core instructions, and a ``*_wg_kernel`` without HGMMA and
+UTMALDG.  The
 kernels themselves are held against their plain versions on the card
 (tests/test_torch_kernels_cuda.py, ``chip_smoke.py``).
 """
@@ -116,7 +120,7 @@ def test_every_flash_kernel_lands_in_the_profiles_flash_group():
     ``name<template args>(...)``."""
     names = _global_functions(CU.read_text())
     assert set(names) == {"fwd_kernel", "dq_kernel", "dkv_kernel",
-                          "fwd_tc_kernel", "dq_tc_kernel", "dkv_tc_kernel",
+                          "fwd_wg_kernel", "dq_tc_kernel", "dkv_wg_kernel",
                           "fwd_narrow_kernel", "dq_narrow_kernel",
                           "dkv_narrow_kernel"}
     pattern = dict(chip_smoke.KERNEL_GROUPS)["flash_attention"]
@@ -153,34 +157,43 @@ def test_cpu_calls_leave_the_tensor_core_counters():
 
 
 def test_every_tensor_core_kernel_is_in_the_build_check():
-    """``chip_smoke.TENSOR_CORE_KERNELS`` names every ``*_tc_kernel`` of
-    every source, so the build phase fails when one of them has lost its
-    HMMA instructions."""
+    """``chip_smoke.TENSOR_CORE_KERNELS`` names every ``*_tc_kernel`` and
+    ``*_wg_kernel`` of every source, so the build phase fails when one of
+    them has lost its tensor-core (or TMA) instructions."""
     csrc = CU.parent
     for lib, names in chip_smoke.TENSOR_CORE_KERNELS.items():
         found = {n for n in _global_functions(
-            (csrc / f"{lib}.cu").read_text()) if n.endswith("_tc_kernel")}
+            (csrc / f"{lib}.cu").read_text())
+            if n.endswith(("_tc_kernel", "_wg_kernel"))}
         assert found == set(names), lib
     assert set(chip_smoke.TENSOR_CORE_KERNELS) == set(chip_smoke.SOURCES)
 
 
-def _report(hmma):
-    """A build report as ``chip_smoke.kernel_report`` gives it, with
-    ``hmma`` tensor-core instructions in each ``*_tc_kernel``."""
+def _report(counts):
+    """A build report as ``chip_smoke.kernel_report`` gives it: ``counts``
+    holds each tensor-core kernel's instructions, a number (its
+    tensor-core instructions: HGMMA with as many UTMALDG for a
+    ``*_wg_kernel``, HMMA for a ``*_tc_kernel``) or a dict of the
+    report's own keys."""
     ns = "void (anonymous namespace)::"
+    tma = "(Args, CUtensorMap, CUtensorMap, CUtensorMap)"
 
-    def row(n):
-        return {"registers": 128, "tensor_core_instructions": n}
+    def row(n, wg=False):
+        if not isinstance(n, dict):
+            n = dict(hgmma=n, utmaldg=n) if wg else dict(hmma=n)
+        return {"registers": 128, "hmma": 0, "hgmma": 0, "utmaldg": 0, **n}
 
     return {
         "flash_attention": {
-            f"{ns}fwd_tc_kernel<64, 4>(Args)": row(hmma["fwd"]),
-            f"{ns}dq_tc_kernel<64, 4>(Args)": row(hmma["dq"]),
-            f"{ns}dkv_tc_kernel<64, 4>(Args)": row(hmma["dkv"]),
+            f"{ns}fwd_wg_kernel<64, 2>{tma}": row(counts["fwd"], True),
+            f"{ns}dq_tc_kernel<64, 4>(Args)": row(counts["dq"]),
+            f"{ns}dkv_wg_kernel<64, 2>{tma[:-1]}, CUtensorMap)":
+                row(counts["dkv"], True),
             f"{ns}dq_kernel<float, 64, 64>(Args)": row(0),
         },
         "resnet_bottleneck": {
-            f"{ns}bottleneck_tc_kernel<64>(Params)": row(hmma["bottleneck"]),
+            f"{ns}bottleneck_tc_kernel<64>(Params)":
+                row(counts["bottleneck"]),
         },
     }
 
@@ -198,6 +211,18 @@ def test_build_check_passes_tensor_core_kernels_with_hmma():
 def test_build_check_refuses_a_kernel_without_hmma(bare):
     with pytest.raises(AssertionError, match="without HMMA"):
         chip_smoke.check_tensor_cores(_report(dict(FULL, **{bare: 0})))
+
+
+@pytest.mark.parametrize("kernel", ["fwd", "dkv"])
+@pytest.mark.parametrize("counts", [
+    dict(hmma=64), dict(hgmma=64), dict(hmma=64, utmaldg=8)],
+    ids=["hmma_only", "no_tma", "hmma_and_tma"])
+def test_build_check_refuses_a_hopper_kernel_without_hgmma_and_tma(
+        kernel, counts):
+    """A ``*_wg_kernel`` on mma.sync alone, or with its operands loaded
+    by anything but TMA, is not the Hopper design."""
+    with pytest.raises(AssertionError, match="without HGMMA and UTMALDG"):
+        chip_smoke.check_tensor_cores(_report(dict(FULL, **{kernel: counts})))
 
 
 @pytest.mark.parametrize("lib,name", [

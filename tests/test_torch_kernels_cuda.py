@@ -131,6 +131,81 @@ def test_tiny_gpt2_trains_through_the_kernels(cuda_device):
     assert all(np.isfinite(losses)) and losses[-1] < losses[0]
 
 
+#: the edge cases that take the tensor-core route in bf16 (D <= 128):
+#: S = 1, 65, 129, 1000; D = 8, 13 (padded to 16), 72, 96, 128; windows
+#: of 1 and 130 keys; the four general-mask shapes; the dead row
+TENSOR_CORE_CASES = [(name, case) for name, case in chip_smoke.edge_cases()
+                     if case["d"] <= tfa.TENSOR_CORE_MAX_HEAD_DIM]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,case", [
+    pytest.param(name, case, id=name) for name, case in TENSOR_CORE_CASES])
+def test_bf16_edge_cases_run_the_hopper_kernels(cuda_device, name, case):
+    """Every bf16 edge case with D <= 128 matches the plain versions at
+    ``chip_smoke.TOL`` through one launch each of the tensor-core route:
+    ``fwd_wg_kernel``, ``dq_tc_kernel``, ``dkv_wg_kernel``."""
+    counters = (tfa.flash_fwd, tfa.flash_bwd_dq, tfa.flash_bwd_dkv)
+    before = [c.tensor_core_launches for c in counters]
+    chip_smoke.check_case(f"{name}/bfloat16", dtype=torch.bfloat16, seed=0,
+                          **case)
+    assert [c.tensor_core_launches - b
+            for c, b in zip(counters, before)] == [1, 1, 1]
+
+
+def _flash_inputs(b, h, s, d, seed):
+    (q, k, v), cfg, do, dlse = chip_smoke._case_inputs(
+        b, h, s, d, torch.bfloat16, seed, causal=True)
+    return q, k, v, cfg, do, dlse
+
+
+def _flash_step(q, k, v, cfg, do, dlse):
+    o, lse = tfa.flash_fwd(q, k, v, *cfg)
+    delta = ((do.float() * o.float()).sum(-1) - dlse).contiguous()
+    args = (q, k, v, *cfg, do, lse, delta)
+    return (o, lse, tfa.flash_bwd_dq(*args), *tfa.flash_bwd_dkv(*args))
+
+
+@pytest.mark.cuda
+def test_dkv_is_bitwise_deterministic(cuda_device):
+    """dK/dV walks its query tiles inside the block that owns the keys
+    (no atomics): two launches on the same inputs agree to the bit."""
+    q, k, v, cfg, do, dlse = _flash_inputs(2, 3, 1000, 64, 0)
+    o, lse = tfa.flash_fwd(q, k, v, *cfg)
+    delta = ((do.float() * o.float()).sum(-1) - dlse).contiguous()
+    args = (q, k, v, *cfg, do, lse, delta)
+    first = tfa.flash_bwd_dkv(*args)
+    second = tfa.flash_bwd_dkv(*args)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 13, 128])
+def test_flash_captured_in_a_graph_equals_eager(cuda_device, d):
+    """The forward and backward captured in one CUDA graph, replayed
+    after the inputs change in place, equal the eager calls on the new
+    inputs bit for bit: the tensor maps that the Hopper kernels take by
+    value are captured with their launches (D = 13: the padded copies
+    inside the capture too)."""
+    q, k, v, cfg, do, dlse = _flash_inputs(2, 3, 200, d, 0)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        _flash_step(q, k, v, cfg, do, dlse)  # eager first: smem limits set
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = _flash_step(q, k, v, cfg, do, dlse)
+    q2, k2, v2, _, do2, dlse2 = _flash_inputs(2, 3, 200, d, 1)
+    for dst, src in ((q, q2), (k, k2), (v, v2), (do, do2), (dlse, dlse2)):
+        dst.copy_(src)
+    graph.replay()
+    eager = _flash_step(q, k, v, cfg, do, dlse)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(captured, eager))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("name,case", [
     pytest.param(name, case, id=name)

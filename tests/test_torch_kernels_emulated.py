@@ -4,12 +4,16 @@ plain PyTorch versions at ``chip_smoke.TOL``.
 
 The emulator runs each CUDA thread as a fiber, with the warp-level PTX
 the kernels use (``ldmatrix``, ``mma.sync``, ``cp.async`` landing at
-``wait_group``) and shared memory that starts as garbage.  So these tests
+``wait_group``), Hopper's mbarriers, TMA tiled loads (128-byte swizzle,
+zero fill) and warpgroup ``wgmma`` (operands read at ``wait_group``),
+and shared memory that starts as garbage.  So these tests
 catch indexing, masking, tiling and synchronisation faults in the
 kernels without a card.  It sums each ``mma`` exactly, so the card's own
 rounding is held on the card (tests/test_torch_kernels_cuda.py,
 ``chip_smoke.py``).  Cases: small ``chip_smoke`` edge cases, bf16 for
-flash attention (the tensor-core route, the CUDA-core kernels at D = 512
+flash attention (the tensor-core route: ``fwd_wg_kernel``,
+``dq_tc_kernel``, ``dkv_wg_kernel``, D = 13 padded as the wrapper pads
+it; the CUDA-core kernels at D = 512
 and their 8-row rung at D = 640 and 1024, there in float32 too), the
 ragged and narrow ones for the bottleneck; for paged attention, the
 split and combine kernels in float32 and bf16 at ``chip_smoke.PAGED_TOL``,
@@ -22,14 +26,16 @@ D = 1024 with 6 heads, 32 query rows at D = 64, Q = 24 positions of 2
 heads under a window in runs of 16) and on D = 16 and a long
 slot beside short ones at D = 64 over one split and over three, each
 also on int8 pools ((values, scales) pairs) with float32 and bf16 q at
-the q dtype's tolerance; and the split plan itself, int8 pools
-included.  Needs a C++ compiler.
+the q dtype's tolerance; the split plan itself, int8 pools
+included; and a swizzled TMA tile read back through the wgmma
+descriptors.  Needs a C++ compiler.
 """
 
 import importlib.util
 import pathlib
 import shutil
 
+import numpy as np
 import pytest
 import torch
 
@@ -177,6 +183,25 @@ def test_paged_split_plan(emu, build_dir):
         plan(300, 1, 6, d=128, dtype=torch.bfloat16)
     assert plan(64, 8, 2, d=512, dtype=torch.int8) == \
         plan(64, 8, 2, d=256, dtype=torch.bfloat16)
+
+
+@pytest.mark.parametrize("mn_major", [False, True],
+                         ids=["k_major", "mn_major"])
+@pytest.mark.parametrize("s,d,dt", [(64, 64, 64), (50, 40, 64),
+                                    (64, 128, 128), (70, 96, 128)])
+def test_swizzled_tma_tile_reads_back_through_wgmma_descriptors(
+        emu, build_dir, s, d, dt, mn_major):
+    """A (S, D) bf16 matrix loaded by the emulated TMA through the
+    source's tensor map (128-byte swizzle, zeros past S and D) and read
+    back through the source's K-major or MN-major wgmma descriptors, as
+    the emulated wgmma decodes them, is the matrix again, for tiles of
+    DT = 64 and 128 (two boxes a row)."""
+    rng = np.random.RandomState(s + d)
+    x = torch.from_numpy(rng.randn(s, d).astype(np.float32)).bfloat16()
+    want = torch.zeros(64, dt)
+    want[:min(s, 64), :d] = x[:64].float()
+    lib = emu.load("flash_attention", build_dir)
+    assert torch.equal(emu.tile_readback(lib, x, dt, mn_major), want)
 
 
 def test_every_inline_ptx_helper_is_emulated(emu):

@@ -31,11 +31,17 @@ their device time per call over 48 calls, by kernel and in total
 call, summed), since the wrapper's launch overhead exceeds the kernels'
 time.
 
+The forward and dK/dV are also timed at ``EXTRA_SHAPES`` (4096 tokens
+causal, where each block walks four times the keys; 1024 without the
+causal mask), with PyTorch's fused attention (SDPA) beside them on the
+same inputs, a yardstick the port never calls.
+
 Run it once per checkout in alternating order (A, B, B, A) within one
 process per run; each run prints one JSON line with the mean ms per
 launch of ``flash_fwd``, ``flash_bwd_dq``, ``flash_bwd_dkv``,
-``megakernel_block`` (and the paged rows) at each count, and the card's
-name and power limit.  Needs a CUDA GPU.
+``megakernel_block`` (and the paged rows, and the forward, dK/dV and
+SDPA rows of ``EXTRA_SHAPES``) at each count, and the card's name and
+power limit.  Needs a CUDA GPU.
 """
 
 from __future__ import annotations
@@ -50,6 +56,8 @@ import sys
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 LAUNCHES = (10, 50)
+#: (batch, heads, tokens, causal) besides GPT-2 small's, D = 64, bf16
+EXTRA_SHAPES = ((2, 12, 4096, True), (8, 12, 1024, False))
 #: the live slots' positions at one decode step of chip_smoke.py's serve
 #: traffic (GPT-2 small, 8 slots)
 PAGED_LENS = (448, 511, 115, 349, 462, 361, 340, 252)
@@ -83,6 +91,27 @@ def _paged_calls(cs):
                 [functools.partial(pa.paged_attn, **a) for a in long])}
 
 
+def _shape_calls(cs, fa, b, h, s, causal):
+    """The forward, dK/dV and SDPA's forward at one of ``EXTRA_SHAPES``
+    (numpy seed 0, ``chip_smoke._case_inputs``)."""
+    import torch
+    import torch.nn.functional as F
+
+    (q, k, v), cfg, do, dlse = cs._case_inputs(b, h, s, 64, torch.bfloat16,
+                                               seed=0, causal=causal)
+    o, lse = fa.flash_fwd(q, k, v, *cfg)
+    delta = ((do.float() * o.float()).sum(-1) - dlse).contiguous()
+    q4, k4, v4 = (t.reshape(b, h, s, 64) for t in (q, k, v))
+    tag = f"{b}x{h}x{s}{'_causal' if causal else ''}"
+    return {
+        f"flash_fwd_{tag}": lambda: fa.flash_fwd(q, k, v, *cfg),
+        f"flash_bwd_dkv_{tag}": lambda: fa.flash_bwd_dkv(
+            q, k, v, *cfg, do, lse, delta),
+        f"sdpa_fwd_{tag}": lambda: F.scaled_dot_product_attention(
+            q4, k4, v4, is_causal=causal),
+    }
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--tree", default=ROOT,
@@ -112,6 +141,8 @@ def main(argv=None):
         "flash_bwd_dq": lambda: fa.flash_bwd_dq(q, k, v, *cfg, *bwd),
         "flash_bwd_dkv": lambda: fa.flash_bwd_dkv(q, k, v, *cfg, *bwd),
     }
+    for b, h, s, causal in EXTRA_SHAPES:
+        calls.update(_shape_calls(cs, fa, b, h, s, causal))
     block = cs.bottleneck_inputs(128, 56, 56, 256, 64, seed=0)
     calls["megakernel_block"] = lambda: bk.megakernel_block(*block)
     paged = {}

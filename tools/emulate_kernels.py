@@ -5,15 +5,19 @@
     python3 tools/emulate_kernels.py [flash|bottleneck|paged] [CASE ...]
 
 Each ``singa_tpu_torch/csrc/<name>.cu`` is turned into C++ (the inline-PTX
-helpers ``smem_u32``, ``cp_async*``, ``ldsm_x4*``, ``mma_bf16`` and ``ex2``
-give way to the emulator's, ``extern __shared__`` arrays point at its
-shared memory and ``<<<...>>>`` launches call ``emu_launch``), built with
+helpers ``smem_u32``, ``cp_async*``, ``ldsm_x4*``, ``mma_bf16``, ``ex2``
+and Hopper's ``mbar_*``, ``tma_load_3d``, ``wgmma_*``, ``setmaxnreg_*``
+and ``fence_barrier_init`` give way to the emulator's, ``extern
+__shared__`` arrays point at its shared memory and ``<<<...>>>``
+launches call ``emu_launch``), built with
 the host's C++ compiler into ``_scratch/emulator`` (gitignored) and loaded
 with ctypes under the same C interface the GPU library has.  The CLI runs
 ``chip_smoke.py``'s edge cases: every flash case in bf16 (the tensor-core
 kernels; float32 takes the CUDA-core ones), every bottleneck case, and
 every paged-attention case in float32 and bf16, and on int8 pools with
-float32 and bf16 q; it prints one line a case
+float32 and bf16 q (flash launches go through the wrapper's own launch
+helpers, so a D that is not a multiple of 8 is padded as on the card);
+it prints one line a case
 and exits 1 if any fails its tolerance (``chip_smoke.TOL``,
 ``chip_smoke.PAGED_TOL``).
 
@@ -41,8 +45,52 @@ CXX_FLAGS = ("-std=c++17", "-O1", "-fPIC", "-shared", "-w")
 
 #: the sources' inline-PTX helpers, replaced by the emulator's
 _HELPERS = ("smem_u32", "cp_async16", "cp_async4", "cp_async_commit",
-            "cp_async_wait", "cp_async_wait_all", "ldsm_x4", "ldsm_x4_t",
-            "mma_bf16", "ex2")
+            "cp_async_wait", "cp_async_mbar_arrive",
+            "cp_async_wait_all", "ldsm_x4", "ldsm_x4_t", "mma_bf16", "ex2",
+            "mbar_init", "fence_barrier_init", "mbar_arrive",
+            "mbar_arrive_expect_tx", "mbar_wait", "tma_load_3d",
+            "named_bar_sync", "named_bar_arrive", "setmaxnreg_inc",
+            "setmaxnreg_dec", "wgmma_fence",
+            "wgmma_commit", "wgmma_wait", "wgmma_hold", "wgmma_ss",
+            "wgmma_ss128", "wgmma_rs")
+#: an entry point of the emulated flash library that loads a (1, S, D)
+#: bf16 matrix through the source's own tensor map (``tile_map``) and TMA
+#: into 128-byte-swizzled boxes, and reads it back element by element
+#: through the source's wgmma descriptors (``kmajor_desc`` at each k-step,
+#: or ``mnmajor_desc`` at each k-step and 64-column box) as the emulated
+#: wgmma decodes them: row r, column c of a ``dt``-wide tile
+_READBACK = """
+namespace {
+__global__ void emu_readback_kernel(const __grid_constant__ CUtensorMap map,
+                                    int hb, int mn_major, float* out) {
+  extern __shared__ unsigned char smem_rb[];
+  unsigned char* sm = align1024(smem_rb);
+  bf16* tile = reinterpret_cast<bf16*>(sm);
+  uint64_t* bar = reinterpret_cast<uint64_t*>(sm + hb * BOX_BYTES);
+  mbar_init(bar, 1);
+  mbar_arrive_expect_tx(bar, hb * BOX_BYTES);
+  for (int h = 0; h < hb; ++h) tma_load_3d(tile + h * BOX, &map, bar, h * 64, 0, 0);
+  mbar_wait(bar, 0);
+  const int dt = 64 * hb;
+  for (int r = 0; r < 64; ++r)
+    for (int c = 0; c < dt; ++c)
+      out[r * dt + c] = emu_smem_bf16(mn_major
+          ? emu_desc_addr(mnmajor_desc<64>(tile, r / 16, c / 64), true, c % 64, r % 16)
+          : emu_desc_addr(kmajor_desc<64>(tile, c / 16), false, r, c % 16));
+}
+}  // namespace
+extern "C" int emu_tile_readback(const void* src, int S, int D, int dt,
+                                 int mn_major, float* out) {
+  Args a = {};
+  a.bh = 1; a.S = S; a.D = D;
+  CUtensorMap map;
+  const int err = tile_map(&map, src, a);
+  if (err) return err;
+  return emu_launch(emu_readback_kernel, dim3(1), 1,
+                    (dt / 64) * BOX_BYTES + 1024 + 8, nullptr, map, dt / 64,
+                    mn_major, out);
+}
+"""
 _GLOBALS = """
 dim3 threadIdx, blockIdx, gridDim, blockDim;
 EmuFiber* emu_cur;
@@ -55,8 +103,7 @@ unsigned char* emu_smem_base;
 
 def emulated_source(text):
     """The C++ for the emulator from the text of a ``csrc/*.cu`` file."""
-    text = re.sub(r"#include <cuda_runtime.h>\n|#include <cuda_bf16.h>\n",
-                  "", text)
+    text = re.sub(r"#include <(cuda|cuda_runtime|cuda_bf16)\.h>\n", "", text)
     for name in _HELPERS:
         m = re.search(r"(template <int N>\n)?__device__ __forceinline__ "
                       r"[\w ]+?\b" + name + r"\(", text)
@@ -69,6 +116,8 @@ def emulated_source(text):
                 break
             j += 1
         text = text[:m.start()] + text[j + 1:]
+    if "tma_load_3d" in text:
+        text += _READBACK
     text = re.sub(r"extern __shared__ (?:__align__\(\d+\) )?"
                   r"(unsigned char|float) (\w+)\[\];",
                   r"\1* \2 = (\1*)emu_smem();", text)
@@ -118,6 +167,9 @@ def load(name, out_dir):
         for fn, argtypes in fa._SIGNATURES.items():
             getattr(lib, fn).argtypes = argtypes
             getattr(lib, fn).restype = ctypes.c_int
+        ptr, i32 = ctypes.c_void_p, ctypes.c_int
+        lib.emu_tile_readback.argtypes = [ptr] + [i32] * 4 + [ptr]
+        lib.emu_tile_readback.restype = i32
     elif name == "paged_attention":
         from singa_tpu_torch.ops import paged_attention as pa
 
@@ -142,25 +194,14 @@ def flash_case(lib, b, h, s, d, dtype, seed, mask=None, causal=False,
 
     (q, k, v), cfg, do, dlse = cs._case_inputs(b, h, s, d, dtype, seed,
                                                mask, causal, window)
-    kmask, qmask, qmap, scale, causal, window = cfg
-    shape = [*q.shape, float(scale), int(bool(causal)), int(window or 0),
-             fa.route(dtype, d), None]
-    masks = fa._mask_args(kmask, qmask, qmap)
     rtol, atol = cs.TOL[dtype]
     o_ref, lse_ref = fa.flash_fwd_plain(q, k, v, *cfg)
     delta = ((do.float() * o_ref.float()).sum(-1) - dlse).contiguous()
     bwd = (do, lse_ref, delta)
-    o, lse = torch.empty_like(q), torch.empty(q.shape[:2])
-    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    qkv = (q.data_ptr(), k.data_ptr(), v.data_ptr())
-    rows = (do.data_ptr(), lse_ref.data_ptr(), delta.data_ptr())
-    for err in (
-            lib.flash_fwd(*qkv, *masks, o.data_ptr(), lse.data_ptr(), *shape),
-            lib.flash_bwd_dq(*qkv, *masks, *rows, dq.data_ptr(), *shape),
-            lib.flash_bwd_dkv(*qkv, *masks, *rows, dk.data_ptr(),
-                              dv.data_ptr(), *shape)):
-        if err:
-            raise RuntimeError(f"emulated launch returned {err}")
+    launch = (lib, None, fa.route(dtype, d), q, k, v, *cfg)
+    o, lse = fa._launch_fwd(*launch)
+    dq = fa._launch_dq(*launch, *bwd)
+    dk, dv = fa._launch_dkv(*launch, *bwd)
     pairs = {"flash_fwd": [(o, o_ref), (lse, lse_ref)],
              "flash_bwd_dq": [(dq, fa.flash_bwd_dq_plain(q, k, v, *cfg,
                                                           *bwd))],
@@ -175,6 +216,21 @@ def flash_case(lib, b, h, s, d, dtype, seed, mask=None, causal=False,
             ok = ok and bool(torch.isfinite(got).all()) and torch.allclose(
                 got, want, rtol=rtol, atol=atol)
         out[kernel] = (err, ok)
+    return out
+
+
+def tile_readback(lib, x, dt, mn_major):
+    """A (S, D) bf16 matrix ``x`` loaded by the emulated TMA into a
+    ``dt``-wide tile and read back through the wgmma descriptors
+    (``_READBACK``): a (64, dt) float32 tensor that should equal ``x``
+    zero-filled past its rows and columns."""
+    import torch
+
+    out = torch.full((64, dt), float("nan"))
+    err = lib.emu_tile_readback(x.data_ptr(), x.shape[0], x.shape[1], dt,
+                                int(mn_major), out.data_ptr())
+    if err:
+        raise RuntimeError(f"emulated tile readback returned {err}")
     return out
 
 
