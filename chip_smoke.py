@@ -22,11 +22,18 @@ exits nonzero:
 2. ``kernels``    - holds ``flash_fwd``, ``flash_bwd_dq`` and
                     ``flash_bwd_dkv`` against their plain PyTorch versions
                     on the card: at GPT-2 small's attention shape (B=8,
-                    H=12, S=1024, D=64, causal, bf16) and at edge shapes in
-                    float32 and bf16 (key mask, a fully -inf-masked row,
-                    general masks, sliding windows, S=1/65/129/1000,
+                    H=12, S=1024, D=64, causal, bf16 and float16), at
+                    BERT-base's (B=16, H=12, S=512, D=64, non-causal,
+                    with no mask as its training step runs them and under
+                    a ragged key-padding mask, bf16 and float16, timed
+                    against PyTorch's fused attention with the same
+                    additive mask or none), and at edge shapes in float32, bf16
+                    and float16 (key mask, a fully -inf-masked row,
+                    general masks, sliding windows, no mask at S=200,
+                    S=1/65/129/1000,
                     D=8/13/72/96/128/160/320/512/640/1000/1024/1792), where
-                    bf16 with D <= 128 runs the tensor-core kernels
+                    bf16 and float16 with D <= 128 run the tensor-core
+                    kernels
                     (``fwd_wg_kernel`` / ``dkv_wg_kernel`` on wgmma and
                     TMA, ``dq_tc_kernel`` on mma.sync; D = 13 through a
                     zero-padded copy) and the rest the CUDA-core ones
@@ -49,12 +56,35 @@ exits nonzero:
                     after the first step, the time of copying out the
                     logits, the dropout pin (``dropout_pin``), and the
                     logits of an eval forward against the same weights on
-                    the plain ("fused") attention path.
+                    the plain ("fused") attention path; then two graph-mode
+                    steps under ``amp.set_compute_dtype("float16")``
+                    (``slice_f16``): finite losses, every flash launch on
+                    the tensor-core route (the kernels line's ``_f16``
+                    rows).
 4. ``profile``    - device time per kernel group (flash, GEMMs, the rest)
                     and the device's busy share over 2 more steps of each
                     mode, from torch.profiler; fails if the profiler
                     records no device time.
-5. ``resnet``     - trains ResNet-50 (25.6M parameters, full depth and
+5. ``bert``       - trains BERT-base (``BertConfig.base()``, 110M in the
+                    trunk) as ``bench.py``'s ``bench_bert`` configures it:
+                    batch 16 x 512 random ids and labels from a numpy seed,
+                    bf16 amp, SGD(1e-4, 0.9), default dropout, graph mode
+                    against eager from one state (``CAPTURE_RTOL``, under
+                    deterministic algorithms), once on the fused attention
+                    path and once with ``use_flash=True`` (12 launches of
+                    each flash kernel a replayed step); host ms a step,
+                    device ms by group, busy share, samples/s; eval
+                    forwards through the kernels against the fused path,
+                    float32 and bf16, with no mask and a ragged
+                    ``attention_mask`` (``BERT_LOGITS_ATOL``), the mask
+                    dropped on purpose refused.
+6. ``charrnn``    - trains the char-RNN as ``bench_charrnn`` configures
+                    it (batch 64 x 100, vocab 100, hidden 256, 2 LSTM
+                    layers, SGD(0.1), float32), graph mode against eager,
+                    then ``train_n_batches`` over 10 stacked batches; host
+                    ms a step, device ms, busy share; cuDNN's LSTM on the
+                    same weights as a yardstick the port never calls.
+7. ``resnet``     - trains ResNet-50 (25.6M parameters, full depth and
                     width) at ``bench.py``'s ``bench_resnet50``
                     configuration: batch 128 x 3 x 224 x 224 random images
                     and labels from a numpy seed, 1000 classes, bf16 amp,
@@ -63,7 +93,7 @@ exits nonzero:
                     statistics; then ``resnet_profile``: device time by
                     group (convolutions, batch norm, the rest) over 2 more
                     eager steps, and the busy share of both modes.
-6. ``bottleneck`` - the trained ResNet-50 in eval mode: the activation
+8. ``bottleneck`` - the trained ResNet-50 in eval mode: the activation
                     that enters ``layer1[1]`` (stem + ``layer1[0]``, batch
                     128, 56 x 56 x 256, channels-last bf16) goes through
                     ``megakernel_block`` with ``fold_bottleneck(layer1[1])``
@@ -79,7 +109,7 @@ exits nonzero:
                     the kernel, its plain version and the cuDNN chain
                     (three channels-last bf16 convs and the elementwise
                     work; no single PyTorch call computes the block).
-7. ``zoo``        - the CNN zoo at its published widths and input sizes,
+9. ``zoo``        - the CNN zoo at its published widths and input sizes,
                     each trained through ``Model.compile(use_graph=True)``
                     and ``train_one_batch`` with bf16 amp, a batch of 32
                     random images from a numpy seed and
@@ -103,7 +133,7 @@ exits nonzero:
                     accuracy > 0.9), and ``schedule_probe`` (an
                     ``ExponentialDecay`` rate read off replayed steps
                     against its formula).
-8. ``serve``      - serves GPT-2 small (124M, 12 layers, n_positions 1024,
+10. ``serve``      - serves GPT-2 small (124M, 12 layers, n_positions 1024,
                     random weights from a seed) through the paged engine,
                     ``model.serve(max_slots=8, paged=PagedConfig(
                     block_size=32, num_blocks=256))``, every decode step a
@@ -132,8 +162,11 @@ exits nonzero:
                     that must preempt and resume, streams equal to offline
                     ``generate``, no block left, the census flat; and
                     ``GPT2Config.tiny`` (D = 16) served on the card,
-                    streams equal to offline ``generate``.
-9. ``serve_int8`` - the same model and traffic on int8 pools
+                    streams equal to offline ``generate``.  Last, the
+                    traffic captured in float16 (``paged_attn`` on float16
+                    pools: the kernels line's ``paged_attn_f16`` row), 12
+                    launches a decode step.
+11. ``serve_int8`` - the same model and traffic on int8 pools
                     (``cache_dtype="int8"``): float32 streams equal the
                     int8 gather oracle's and offline int8 ``generate``'s,
                     the int8 kernel 12 launches a decode step, no block
@@ -142,22 +175,22 @@ exits nonzero:
                     matches offline int8 ``generate``; bf16 timed (TTFT,
                     TPOT, decode tokens/s) and profiled (busy share), the
                     int8 kernels' main path, beside the bf16 pools.
-10. ``serve_slots`` - the same traffic through ``model.serve()`` without
+12. ``serve_slots`` - the same traffic through ``model.serve()`` without
                     ``paged=`` (the slot arena, 8 slots of 1024 lanes),
                     dense and int8: float32 streams equal offline
                     ``generate``'s at the same ``cache_dtype``, exactly
                     one captured graph, the census flat; bf16 timed and
                     profiled.
-11. ``generate``  - the serve phase's float32 GPT-2 small past
+13. ``generate``  - the serve phase's float32 GPT-2 small past
                     n_positions: a 1000-token prompt and 40 greedy tokens
                     take the windowed path (12 flash forward launches a
                     token), equal to the KV-cached ``generate`` over the
                     24 tokens that fit; ``min_p`` and
                     ``repetition_penalty`` on the KV-cached path.
-12. ``paged_kernels`` - ``paged_attn`` (its split and combine kernels)
-                    against ``paged_attn_plain``, on float32 and bf16
-                    pools and on int8 pools with float32 and bf16 q, at
-                    the edge cases of
+14. ``paged_kernels`` - ``paged_attn`` (its split and combine kernels)
+                    against ``paged_attn_plain``, on float32, bf16 and
+                    float16 pools and on int8 pools with float32, bf16
+                    and float16 q, at the edge cases of
                     ``paged_edge_cases`` (block sizes 1 to 32, partial and
                     full last blocks, all-trash and one-block tables, GQA
                     g = 3, D = 16/20/40/80/128/256/640/1024, Q = 4 with a
@@ -167,13 +200,14 @@ exits nonzero:
                     positions), windows, 1000-lane slots, a long slot beside short
                     ones; one split of the key range and several), and at
                     tables of 12 layers' pools: one decode step's real
-                    tables from the serve phase with bf16 pools and with
-                    int8 pools (bf16 q), and two 1000-lane slots, where it
+                    tables from the serve phase with bf16 pools, with
+                    int8 pools (bf16 q), with float16 pools and with int8
+                    pools (float16 q), and two 1000-lane slots, where it
                     times the kernels, their plain version and SDPA on
                     rows gathered from the pool (the yardstick; the
                     gather, and the dequantization of int8 pools, not
                     timed).
-13. ``device``    - the card's name and power limit from nvidia-smi.
+15. ``device``    - the card's name and power limit from nvidia-smi.
 
 Then one line ``{"kernels": [...]}`` with each kernel's launches on the
 main path (the graph-mode runs: a replay credits the launches its graph
@@ -200,13 +234,21 @@ import time
 import numpy as np
 import torch
 
-# H100 SXM data-sheet peaks (dense), used for the bound of each kernel
+# cuBLAS reads its workspace configuration when it first runs: a fixed one
+# keeps its GEMMs deterministic, which ``deterministic`` relies on
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+
+# H100 SXM data-sheet peaks (dense), used for the bound of each kernel;
+# float16's tensor-core peak equals bf16's
 PEAK_BF16_FLOPS = 989e12
 PEAK_F32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
 
 DEVICE = torch.device("cuda")
 GPT2_SHAPE = dict(b=8, h=12, s=1024, d=64)
+#: BERT-base's attention at bench_bert's batch 16 x 512
+BERT_SHAPE = dict(b=16, h=12, s=512, d=64)
+FLASH_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
 # kernel vs plain version, allclose(rtol, atol):
 #   float32 - both sum in float32, in another order: 1e-4;
 #   bf16    - inputs and outputs are bf16 (8-bit mantissa, 2^-8 = 0.4%
@@ -225,13 +267,29 @@ GPT2_SHAPE = dict(b=8, h=12, s=1024, d=64)
 #             elements at the real layer1[1] input, at most 5.0e-4 on the
 #             edge cases), so at most 0.2% of the elements may differ at
 #             all.
+#   float16 - inputs and outputs are float16 (11-bit significand, 2^-11 =
+#             0.05% relative, 8x finer than bf16), rounded at the same
+#             points as bf16; its 5 exponent bits make p and dS terms
+#             below 2^-14 subnormal (absolute steps of 2^-24, rounded
+#             alike by the plain version): 1e-2 on every output.
 TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (2e-2, 2e-2),
+       torch.float16: (1e-2, 1e-2),
        "bottleneck": dict(ulps=1, rtol=0.0, rms_atol=2.0 ** -7,
                           max_differing=2e-3)}
 # GPT-2 small logits, flash kernels vs the plain attention path, both
 # under bf16 amp: 12 blocks of bf16 activations round differently along
 # the two paths; logits here are O(1).
 LOGITS_ATOL = 0.1
+# BERT-base MLM logits, the flash kernels vs the fused path on the same
+# weights (``bert_eval_check``, 4 rows of 512).  Near init they are small:
+# max |logit| 0.94 at init on the CPU, 1.10 after three SGD steps on an
+# H100; rms 0.22.  float32: both paths sum in float32 in other orders,
+# 1.3e-6 apart on the CPU and 1.9e-6 on the H100, so 1e-4.  bf16 amp: 12
+# blocks of bf16 activations round differently along the two paths, 0.010
+# apart on the CPU and 0.0117 on the H100 (3 bf16 ulps of the largest
+# logits), so 2^-5, 8 ulps.  Dropping the ragged mask moves the logits by
+# 0.134 (CPU, float32) and 0.162-0.167 (H100): over 4x the bf16 limit.
+BERT_LOGITS_ATOL = {"float32": 1e-4, "bf16": 2.0 ** -5}
 # the kernel vs the port's eval forward of ``layer1[1]`` under bf16 amp,
 # per element: the port rounds each conv's output, the BN affine (with its
 # scale and shift in bf16) and the ReLU to bf16, about nine roundings of
@@ -424,6 +482,9 @@ def edge_cases():
         ("d1024_general_mask", dict(s=40, d=1024,
                                     mask=gmask(b, h, 40, 40))),
         ("d1792", dict(s=20, d=1792)),
+        # non-causal with no mask at D = 64 (BERT's training route), the
+        # last key tile part-filled
+        ("full_s200", dict(s=200, d=64)),
     ]
     return [(n, dict(b=b, h=h, **kw)) for n, kw in cases]
 
@@ -441,7 +502,7 @@ def bounds_ms(b, h, s, d, causal, dtype):
     of its FLOPs over the peak rate for the dtype and its bytes (each
     input read once, each output written once) over memory bandwidth."""
     elem = torch.finfo(dtype).bits // 8
-    peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_F32_FLOPS
+    peak = PEAK_F32_FLOPS if dtype == torch.float32 else PEAK_BF16_FLOPS
     pairs, mat, row = _work(b, h, s, d, causal, elem)
     work = {
         # QKᵀ and P·V; reads q, k, v; writes o and lse
@@ -460,16 +521,16 @@ def bounds_ms(b, h, s, d, causal, dtype):
     return out
 
 
-def time_full_shape():
+def time_full_shape(dtype=torch.bfloat16):
     """Times of each kernel, its plain version and SDPA at GPT-2 small's
-    attention shape, and the kernel-vs-plain errors there."""
+    attention shape in ``dtype``, and the kernel-vs-plain errors there."""
     import torch.nn.functional as F
 
     from singa_tpu_torch.ops import flash_attention as fa
 
-    sh, dtype = GPT2_SHAPE, torch.bfloat16
-    errs = check_case("gpt2_small", sh["b"], sh["h"], sh["s"], sh["d"],
-                      dtype, seed=0, causal=True)
+    sh = GPT2_SHAPE
+    errs = check_case(f"gpt2_small/{str(dtype)[6:]}", sh["b"], sh["h"],
+                      sh["s"], sh["d"], dtype, seed=0, causal=True)
     (q, k, v), cfg, do, dlse = _case_inputs(
         sh["b"], sh["h"], sh["s"], sh["d"], dtype, seed=0, causal=True)
     o, lse = fa.flash_fwd(q, k, v, *cfg)
@@ -506,6 +567,74 @@ def time_full_shape():
     return errs, times, sdpa_fwd, sdpa_train, sdpa_bwd, sdpa_bwd_err
 
 
+def bert_key_mask(b, s, seed=0):
+    """A ragged (B, 1, 1, S) additive key-padding mask, as BERT's
+    ``attention_mask`` gives it (-1e9 past each row's length): row i keeps
+    between S/4 and S keys (the last row all of them), from a numpy
+    seed."""
+    rng = np.random.RandomState(seed)
+    keep = rng.randint(s // 4, s + 1, b)
+    keep[-1] = s
+    mask = torch.zeros(b, 1, 1, s)
+    for i, n in enumerate(keep):
+        mask[i, ..., n:] = -1e9
+    return mask
+
+
+def time_bert_shape(dtype):
+    """BERT-base's attention at ``bench_bert``'s shape (16 x 12 x 512 x
+    64, non-causal), once with no mask (the training step's path: it
+    passes no ``attention_mask``) and once under a ragged key-padding
+    mask (the masked eval's path: the key-mask edge path of the Hopper
+    kernels): the three kernels against their plain versions at ``TOL``,
+    their times beside their bounds, and PyTorch's fused attention with
+    the same additive mask or none (forward, and forward with backward
+    through autograd) as the yardstick."""
+    import torch.nn.functional as F
+
+    from singa_tpu_torch.ops import flash_attention as fa
+
+    sh = BERT_SHAPE
+    dt = str(dtype)[6:]
+    shape = (sh["b"], sh["h"], sh["s"], sh["d"])
+    bounds = bounds_ms(*shape, False, dtype)
+    out = {"shape": dict(sh, causal=False, dtype=dt),
+           "bounds_ms": {n: b for n, (b, _) in bounds.items()}}
+    for name, mask in (("no_mask", None),
+                       ("ragged_key_mask", bert_key_mask(sh["b"], sh["s"]))):
+        errs = check_case(f"bert_base/{name}/{dt}", *shape, dtype, seed=1,
+                          mask=mask)
+        (q, k, v), cfg, do, dlse = _case_inputs(*shape, dtype, seed=1,
+                                                mask=mask)
+        o, lse = fa.flash_fwd(q, k, v, *cfg)
+        delta = ((do.float() * o.float()).sum(-1) - dlse).contiguous()
+        bwd = (do, lse, delta)
+        times = {
+            "flash_fwd": cuda_time_ms(lambda: fa.flash_fwd(q, k, v, *cfg),
+                                      50),
+            "flash_bwd_dq": cuda_time_ms(
+                lambda: fa.flash_bwd_dq(q, k, v, *cfg, *bwd), 50),
+            "flash_bwd_dkv": cuda_time_ms(
+                lambda: fa.flash_bwd_dkv(q, k, v, *cfg, *bwd), 50)}
+        q4, k4, v4, do4 = (t.reshape(shape) for t in (q, k, v, do))
+        m4 = None if mask is None else mask.to(DEVICE, dtype)
+        sdpa_fwd = cuda_time_ms(lambda: F.scaled_dot_product_attention(
+            q4, k4, v4, attn_mask=m4), 50)
+        qg, kg, vg = (t.detach().clone().requires_grad_(True)
+                      for t in (q4, k4, v4))
+
+        def sdpa_fwd_bwd():
+            o4 = F.scaled_dot_product_attention(qg, kg, vg, attn_mask=m4)
+            torch.autograd.grad(o4, (qg, kg, vg), do4)
+
+        out[name] = {"max_abs_err": errs, "tol": TOL[dtype],
+                     "times_ms": times, "fwd_bwd_ms": sum(times.values()),
+                     "sdpa_fwd_ms": sdpa_fwd,
+                     "sdpa_fwd_bwd_ms": cuda_time_ms(sdpa_fwd_bwd, 10)}
+    out["ragged_key_mask"]["rows_keep"] = "128..512 keys"
+    return out
+
+
 def sdpa_backward(q4, k4, v4, do4):
     """Time of PyTorch's fused flash-attention backward, which computes
     dQ, dK and dV in one call, on (B, H, S, D) inputs; and its largest
@@ -536,44 +665,58 @@ def sdpa_backward(q4, k4, v4, do4):
 
 
 def phase_kernels():
+    """The flash kernels against their plain versions at every edge case
+    in float32, bf16 and float16; timed at GPT-2 small's shape in bf16
+    (the kernels line's rows) and float16 (its ``_f16`` rows), and at
+    BERT-base's shape in both, with no mask and under a ragged key
+    mask."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    worst = {n: 0.0 for n in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
+    kernels = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+    worst = {str(dt)[6:]: {n: 0.0 for n in kernels} for dt in FLASH_DTYPES}
     n_cases = 0
-    for dtype in (torch.float32, torch.bfloat16):
+    for dtype in FLASH_DTYPES:
         for seed, (name, kw) in enumerate(edge_cases()):
             errs = check_case(f"{name}/{str(dtype)[6:]}", dtype=dtype,
                               seed=seed, **kw)
             n_cases += 1
             for kname, e in errs.items():
-                worst[kname] = max(worst[kname], e)
-    full_errs, times, sdpa_fwd, sdpa_train, sdpa_bwd, sdpa_bwd_err = \
-        time_full_shape()
+                w = worst[str(dtype)[6:]]
+                w[kname] = max(w[kname], e)
     sh = GPT2_SHAPE
-    bounds = bounds_ms(sh["b"], sh["h"], sh["s"], sh["d"], True,
-                       torch.bfloat16)
-    rows = {}
-    for name in worst:
-        ms, plain_ms = times[name]
-        bound, by = bounds[name]
-        rows[name] = dict(
-            name=name, route="cuda",
-            source="singa_tpu_torch/csrc/flash_attention.cu",
-            replaces=REPLACES[name], launches=None,
-            max_abs_err=full_errs[name], ms=ms, plain_ms=plain_ms,
-            bound_ms=bound, bound_by=by,
-            # the library's backward is one call for dQ, dK and dV
-            # together, so both backward rows carry its time
-            library_ms=sdpa_fwd if name == "flash_fwd" else sdpa_bwd,
-            library_call=LIBRARY_CALL[name])
+    rows, shapes = {}, {}
+    for dtype, suffix in ((torch.bfloat16, ""), (torch.float16, "_f16")):
+        full_errs, times, sdpa_fwd, sdpa_train, sdpa_bwd, sdpa_bwd_err = \
+            time_full_shape(dtype)
+        bounds = bounds_ms(sh["b"], sh["h"], sh["s"], sh["d"], True, dtype)
+        for name in kernels:
+            ms, plain_ms = times[name]
+            bound, by = bounds[name]
+            rows[name + suffix] = dict(
+                name=name + suffix, route="cuda",
+                source="singa_tpu_torch/csrc/flash_attention.cu",
+                replaces=REPLACES[name], launches=None,
+                max_abs_err=full_errs[name], ms=ms, plain_ms=plain_ms,
+                bound_ms=bound, bound_by=by,
+                # the library's backward is one call for dQ, dK and dV
+                # together, so both backward rows carry its time
+                library_ms=sdpa_fwd if name == "flash_fwd" else sdpa_bwd,
+                library_call=LIBRARY_CALL[name], dtype=str(dtype)[6:])
+        shapes[str(dtype)[6:]] = {
+            "times_ms": {n: {"kernel": rows[n + suffix]["ms"],
+                             "plain": rows[n + suffix]["plain_ms"],
+                             "bound": rows[n + suffix]["bound_ms"]}
+                         for n in kernels},
+            "sdpa_fwd_ms": sdpa_fwd, "sdpa_fwd_bwd_ms": sdpa_train,
+            "sdpa_bwd_ms": sdpa_bwd,
+            "sdpa_bwd_max_abs_diff_vs_kernels": sdpa_bwd_err}
     log({"phase": "kernels", "edge_cases": n_cases,
-         "edge_max_abs_err": worst, "shape": dict(sh, causal=True,
-                                                  dtype="bfloat16"),
-         "times_ms": {n: {"kernel": r["ms"], "plain": r["plain_ms"],
-                          "bound": r["bound_ms"]} for n, r in rows.items()},
-         "sdpa_fwd_ms": sdpa_fwd, "sdpa_fwd_bwd_ms": sdpa_train,
-         "sdpa_bwd_ms": sdpa_bwd,
-         "sdpa_bwd_max_abs_diff_vs_kernels": sdpa_bwd_err})
+         "edge_max_abs_err": worst,
+         "tol": {str(k)[6:]: v for k, v in TOL.items()
+                 if isinstance(k, torch.dtype)},
+         "shape": dict(sh, causal=True), "gpt2_shape": shapes,
+         "bert_shape": {str(dt)[6:]: time_bert_shape(dt)
+                        for dt in (torch.bfloat16, torch.float16)}})
     return rows
 
 
@@ -682,15 +825,18 @@ def train_eager_and_captured(build, x, y, steps, rtol, profiles,
                              f"{e['launches']}")
     loss_diff = max(abs(a - b) / abs(b) for a, b in zip(c["losses"],
                                                         e["losses"]))
-    weight_diff = max(_relative_diff(v, final[k])
-                      for k, v in graph.get_states().items())
+    diffs = {k: _relative_diff(v, final[k])
+             for k, v in graph.get_states().items()}
+    worst = max(diffs, key=diffs.get)
+    weight_diff = diffs[worst]
     report["max_loss_rel_diff"] = loss_diff
     report["max_weight_rel_diff"] = weight_diff
     report["bitwise_equal"] = loss_diff == 0 and weight_diff == 0
     report["rtol"] = rtol
     if loss_diff > rtol or weight_diff > rtol:
         raise AssertionError(f"captured steps differ from eager ones: loss "
-                             f"{loss_diff}, weights {weight_diff} > {rtol}")
+                             f"{loss_diff}, weights {weight_diff} (at "
+                             f"{worst}) > {rtol}")
     return graph, report
 
 
@@ -816,7 +962,54 @@ def phase_slice(rows, steps=5, batch=8, seq=1024, seed=0):
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30})
     log(dict(phase="profile", **profiles["captured"],
              eager=profiles["eager"]))
+    del m, plain, logits
+    log(slice_f16(dev, x, y, rows, seed))
     amp.enable(False)
+
+
+def slice_f16(dev, x, y, rows, seed=0, steps=2):
+    """GPT-2 small under ``amp.set_compute_dtype("float16")``, graph mode,
+    ``steps`` steps on the slice's batch (the first eager, the second
+    captured): finite losses, and every flash launch on the tensor-core
+    route, which credits the kernels line's ``_f16`` rows."""
+    from singa_tpu_torch import amp, opt
+    from singa_tpu_torch.models.gpt2 import GPT2Config, GPT2LMHead
+    from singa_tpu_torch.ops import flash_attention as fa
+
+    kernels = (fa.flash_fwd, fa.flash_bwd_dq, fa.flash_bwd_dkv)
+    amp.set_compute_dtype("float16")
+    try:
+        dev.SetRandSeed(seed)
+        m = GPT2LMHead(GPT2Config.small(dropout=0.0))
+        m.set_optimizer(opt.SGD(lr=1e-4, momentum=0.9))
+        m.compile([x], is_train=True, use_graph=True)
+        for k in kernels:
+            k.launches = k.tensor_core_launches = 0
+        step_ms, losses = [], []
+        for _ in range(steps):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            logits, loss = m(x, y)
+            losses.append(loss.item())
+            step_ms.append((time.perf_counter() - t) * 1e3)
+        launches = {k.__name__: k.launches for k in kernels}
+        tc = {k.__name__: k.tensor_core_launches for k in kernels}
+    finally:
+        amp.enable()
+    want = m.cfg.n_layer * steps
+    if not all(math.isfinite(v) for v in losses) or \
+            logits.dtype != torch.float16:
+        raise AssertionError(f"float16 steps: losses {losses}, logits "
+                             f"{logits.dtype}")
+    if any(n != want for n in (*launches.values(), *tc.values())):
+        raise AssertionError(f"float16 flash launches {launches} (tensor-"
+                             f"core route: {tc}) over {steps} steps, "
+                             f"expected {want} each")
+    for name, n in launches.items():
+        rows[name + "_f16"]["launches"] = n
+    return {"phase": "slice_f16", "model": "gpt2-small", "amp": "float16",
+            "steps": steps, "losses": losses, "step_ms": step_ms,
+            "launches": launches, "tensor_core_launches": tc}
 
 
 KERNEL_GROUPS = (
@@ -879,6 +1072,280 @@ def profile_steps(m, x, y, steps=2, groups=KERNEL_GROUPS, ranges=()):
                          e.count / steps, "ms_per_step":
                          e.self_device_time_total / 1e3 / steps}
                         for e in top]}
+
+
+# ------------------------------------------------------------ bert
+
+#: bench_bert's configuration: BERT-base masked LM, batch 16 x 512 random
+#: ids and labels from a numpy seed, bf16 amp, SGD(1e-4, 0.9), graph mode
+BERT_RUN = dict(batch=16, seq=512, steps=3, sgd=dict(lr=1e-4, momentum=0.9))
+
+
+def phase_bert(seed=0):
+    """BERT-base masked-LM training at ``bench_bert``'s configuration
+    (``BERT_RUN``, default dropout), once on the fused attention path that
+    ``bench_bert`` runs and once with ``use_flash=True``: eager against
+    graph mode from one state and one generator seed (dropout draws the
+    same masks; deterministic algorithms, so an embedding's gradient is
+    summed in one order), within ``CAPTURE_RTOL``; with flash, 12
+    launches of each flash kernel a replayed step, all on the
+    tensor-core route.  Then each mode timed on a fresh model with the
+    deterministic algorithms off, as ``bench_bert`` runs
+    (``time_steps``): host ms a step, device ms by group and busy share
+    (profiled), samples/s.  Last, ``bert_eval_check``: eval forwards
+    through the flash kernels against the fused path on the same
+    weights."""
+    import gc
+
+    from singa_tpu_torch import amp, device, opt, tensor
+    from singa_tpu_torch.models.bert import BertConfig, BertForMaskedLM
+    from singa_tpu_torch.ops import flash_attention as fa
+
+    dev = device.create_cuda_gpu()
+    smi = nvidia_smi()
+    amp.enable()
+    r = BERT_RUN
+    cfg = BertConfig.base()
+    rng = np.random.RandomState(seed)
+    ids = rng.randint(0, cfg.vocab_size, (r["batch"], r["seq"]))
+    labels = rng.randint(0, cfg.vocab_size, (r["batch"], r["seq"]))
+    x = tensor.from_numpy(ids.astype(np.int32), dev)
+    y = tensor.from_numpy(labels.astype(np.int32), dev)
+    out = {}
+    try:
+        for use_flash in (False, True):
+            def build(use_graph, use_flash=use_flash):
+                dev.SetRandSeed(seed)
+                m = BertForMaskedLM(BertConfig.base(use_flash=use_flash))
+                m.set_optimizer(opt.SGD(**r["sgd"]))
+                m.compile([x], is_train=True, use_graph=use_graph)
+                return m
+
+            t0 = time.perf_counter()
+            with deterministic():
+                m, rep = train_eager_and_captured(
+                    build, x, y, r["steps"], CAPTURE_RTOL["bf16"], None,
+                    before_run=lambda: dev.SetRandSeed(seed + 1))
+            c = rep["captured"]
+            want = cfg.num_hidden_layers * r["steps"] if use_flash else 0
+            if any(n != want for n in (*c["launches"].values(),
+                                       *c["tensor_core_launches"].values())):
+                raise AssertionError(
+                    f"BERT use_flash={use_flash}: flash launches "
+                    f"{c['launches']} (tensor-core route: "
+                    f"{c['tensor_core_launches']}) over {r['steps']} "
+                    f"steps, expected {want} each")
+            key = "flash" if use_flash else "fused"
+            params = sum(p.numel() for p in m.get_params().values())
+            if use_flash:
+                out[key] = m
+            else:
+                states = {k: v.detach().clone()
+                          for k, v in m.get_states().items()}
+            del m
+            gc.collect()
+            torch.cuda.empty_cache()
+            timed = {mode: time_steps(build, x, y, use_graph,
+                                      ZOO_PROFILED_STEPS[mode],
+                                      groups=KERNEL_GROUPS)
+                     for mode, use_graph in (("eager", False),
+                                             ("captured", True))}
+            prof = {mode: timed[mode].pop("profile") for mode in timed}
+            med = timed["captured"]["median_step_ms"]
+            log({"phase": "bert", "attention": key, "params": params,
+                 "batch": r["batch"], "seq": r["seq"], "amp": "bf16",
+                 "optimizer": "SGD(lr=1e-4, momentum=0.9)",
+                 "dropout": cfg.hidden_dropout, "use_graph": True,
+                 "compare": rep,
+                 "eager_ms": timed["eager"]["median_step_ms"],
+                 "captured_ms": med,
+                 "step_ms": {mode: timed[mode]["step_ms"] for mode in timed},
+                 "samples_per_s": r["batch"] / med * 1e3,
+                 "launches_per_step": {n: k / r["steps"]
+                                       for n, k in c["launches"].items()},
+                 "device_ms": {mode: prof[mode]["device_ms_per_step"]
+                               for mode in prof},
+                 "busy_share": {mode: prof[mode]["device_busy_share"]
+                                for mode in prof},
+                 "group_ms_per_step": {mode: prof[mode]["group_ms_per_step"]
+                                       for mode in prof},
+                 "profiled_steps": ZOO_PROFILED_STEPS,
+                 "top_kernels": prof["captured"]["top_kernels"],
+                 "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30,
+                 "seconds": time.perf_counter() - t0, "nvidia_smi": smi})
+            gc.collect()
+            torch.cuda.empty_cache()
+
+        # eval: the flash kernels against the fused path on the same
+        # weights, with and without a ragged attention_mask
+        flash = out.pop("flash")
+        fused = BertForMaskedLM(BertConfig.base())
+        fused.compile([x[:1, :8]], is_train=False)
+        fused.set_states(states)
+        flash.set_states(states)
+        log(dict(phase="bert_eval", **bert_eval_check(
+            flash, fused, x[:min(4, r["batch"])], seed)))
+    finally:
+        amp.enable(False)
+
+
+def bert_eval_check(flash, fused, x, seed=0):
+    """BERT eval forwards of ``x``'s rows through the flash kernels
+    (``flash``: ``use_flash=True``) against the fused path (``fused``) on
+    the same weights, in float32 and under bf16 amp, with no mask (the
+    route a training step takes) and with a ragged ``attention_mask``
+    (the kernels' key-mask row).  Each within ``BERT_LOGITS_ATOL``; and
+    the unmasked flash logits against the masked fused ones, the mask
+    dropped on purpose, must differ by more than twice the limit, so a
+    lost mask could not pass.  Returns the readings; raises on a miss."""
+    from singa_tpu_torch import amp
+    from singa_tpu_torch.ops import flash_attention as fa
+
+    flash.eval()
+    fused.eval()
+    prev = amp._compute_dtype
+    n, seq = x.shape
+    keep = (bert_key_mask(n, seq, seed) == 0)[:, 0, 0, :]
+    am = keep.to(x.device, torch.int32)
+    layers = flash.cfg.num_hidden_layers
+    report = {"rows": n, "keys_kept": keep.sum(-1).tolist(),
+              "logits_atol": BERT_LOGITS_ATOL}
+    try:
+        for dt in ("float32", "bf16"):
+            amp.enable(dt == "bf16")
+            logits, launched = {}, {}
+            with torch.no_grad():
+                for name, mask in (("masked", am), ("unmasked", None)):
+                    before = fa.flash_fwd.launches
+                    logits["flash_" + name] = flash(x, None, mask).float()
+                    launched[name] = fa.flash_fwd.launches - before
+                    logits["fused_" + name] = fused(x, None, mask).float()
+            lf = logits["flash_masked"]
+            if lf.shape != (n, seq, flash.cfg.vocab_size) or any(
+                    not torch.isfinite(v).all() for v in logits.values()) \
+                    or any(k != layers for k in launched.values()):
+                raise AssertionError(f"BERT eval, {dt}: shape "
+                                     f"{tuple(lf.shape)}, flash forward "
+                                     f"launches {launched}")
+
+            def diff(a, b):
+                return (logits[a] - logits[b]).abs().max().item()
+
+            want = logits["fused_masked"]
+            got = {"masked": diff("flash_masked", "fused_masked"),
+                   "unmasked": diff("flash_unmasked", "fused_unmasked"),
+                   "mask_dropped": diff("flash_unmasked", "fused_masked")}
+            limit = BERT_LOGITS_ATOL[dt]
+            report[dt] = dict(
+                max_abs_err_vs_fused=got, flash_fwd_launches=launched,
+                fused_logits_max_abs=want.abs().max().item(),
+                fused_logits_rms=want.pow(2).mean().sqrt().item())
+            if got["masked"] > limit or got["unmasked"] > limit:
+                raise AssertionError(f"BERT eval logits, flash vs fused, "
+                                     f"{dt}: {got} > {limit}")
+            if got["mask_dropped"] <= 2 * limit:
+                raise AssertionError(f"BERT eval, {dt}: dropping the mask "
+                                     f"moves the logits by only "
+                                     f"{got['mask_dropped']}, within twice "
+                                     f"the limit {limit}")
+    finally:
+        amp.enable(prev is not None)
+    return report
+
+
+# ---------------------------------------------------------------- charrnn
+
+#: bench_charrnn's configuration: batch 64 x 100 one-hot characters,
+#: vocab 100, hidden 256, 2 LSTM layers, SGD(0.1), float32
+CHARRNN_RUN = dict(batch=64, seq=100, vocab=100, hidden=256, layers=2,
+                   steps=3, n_batches=10, lr=0.1)
+
+
+def cudnn_lstm_ms(m, x):
+    """The yardstick: cuDNN's LSTM (``torch._VF.lstm``) over the model's
+    own packed weight (``RNNHandle``'s slices viewed in cuDNN's order,
+    which is the same: W_ih, W_hh, b_ih, b_hh, gates i, f, g, o), forward
+    and backward on the same input; the largest difference of its
+    output from the port's LSTM.  The port never calls it."""
+    rnn = m.lstm
+    h = rnn.handle
+    flat = rnn.W.detach().clone().requires_grad_(True)
+    weights = [h.unpack(flat, l, 0)[n] for l in range(h.num_layers)
+               for n in ("w_ih", "w_hh", "b_ih", "b_hh")]
+    zeros = torch.zeros(h.num_layers, x.shape[0], h.hidden_size,
+                        device=x.device)
+
+    def run():
+        return torch._VF.lstm(x, (zeros, zeros), weights, True,
+                              h.num_layers, 0.0, True, False, True)[0]
+
+    def fwd_bwd():
+        torch.autograd.grad(run().sum(), flat)
+
+    with torch.no_grad():
+        ours = rnn(x)[0]
+        err = (run() - ours).abs().max().item()
+    return {"fwd_bwd_ms": cuda_time_ms(fwd_bwd, 10),
+            "max_abs_diff_vs_port": err}
+
+
+def phase_charrnn(seed=0):
+    """The char-RNN at ``bench_charrnn``'s configuration
+    (``CHARRNN_RUN``): eager against graph mode from one state within
+    ``CAPTURE_RTOL["float32"]``, host ms a step of both modes, device ms
+    and busy share (profiled); then ``train_n_batches`` over
+    ``n_batches`` stacked batches (one replay each), its losses finite;
+    and cuDNN's LSTM on the same weights as a yardstick."""
+    from singa_tpu_torch import amp, device, opt, tensor
+    from singa_tpu_torch.models.char_rnn import CharRNN, one_hot
+
+    amp.enable(False)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = device.create_cuda_gpu()
+    r = CHARRNN_RUN
+    rng = np.random.RandomState(seed)
+    ids = rng.randint(0, r["vocab"], (r["n_batches"], r["batch"], r["seq"]))
+    xs = tensor.from_numpy(one_hot(ids.reshape(-1, r["seq"]), r["vocab"])
+                           .reshape(*ids.shape, r["vocab"]), dev)
+    ys = tensor.from_numpy(np.roll(ids, -1, axis=2).astype(np.int32), dev)
+    x, y = xs[0], ys[0]
+
+    def build(use_graph):
+        dev.SetRandSeed(seed)
+        m = CharRNN(r["vocab"], r["hidden"], r["layers"], r["seq"])
+        m.set_optimizer(opt.SGD(lr=r["lr"]))
+        m.compile([x], is_train=True, use_graph=use_graph)
+        return m
+
+    t0 = time.perf_counter()
+    m, rep = train_eager_and_captured(
+        build, x, y, r["steps"], CAPTURE_RTOL["float32"],
+        {"eager": {}, "captured": {}})
+    prof = {mode: rep[mode].pop("profile") for mode in ("eager", "captured")}
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    _, losses = m.train_n_batches(xs, ys)
+    losses = losses.float().cpu()
+    n_ms = (time.perf_counter() - t) * 1e3 / r["n_batches"]
+    if losses.shape != (r["n_batches"],) or \
+            not torch.isfinite(losses).all():
+        raise AssertionError(f"train_n_batches losses: {losses}")
+    med = rep["captured"]["median_step_ms"]
+    log({"phase": "charrnn", **{k: v for k, v in r.items()},
+         "params": sum(p.numel() for p in m.get_params().values()),
+         "amp": "float32", "optimizer": f"SGD(lr={r['lr']})", **rep,
+         "eager_ms": rep["eager"]["median_step_ms"], "captured_ms": med,
+         "samples_per_s": r["batch"] / med * 1e3,
+         "device_ms": {mode: prof[mode]["device_ms_per_step"]
+                       for mode in prof},
+         "busy_share": {mode: prof[mode]["device_busy_share"]
+                        for mode in prof},
+         "top_kernels": prof["captured"]["top_kernels"],
+         "train_n_batches": {"losses": losses.tolist(),
+                             "host_ms_per_step": n_ms},
+         "cudnn_lstm_yardstick": cudnn_lstm_ms(m, x),
+         "seconds": time.perf_counter() - t0, "nvidia_smi": nvidia_smi()})
 
 
 # ----------------------------------------------------------------- resnet
@@ -1106,17 +1573,21 @@ def _states_equal(a, b):
 
 
 @contextlib.contextmanager
-def cudnn_deterministic():
-    """cuDNN restricted to deterministic algorithms inside the block: two
-    runs of one step on equal inputs then agree to the bit, which a
-    comparison of eager with captured steps, or of a reloaded model with
-    the one that saved it, relies on."""
-    prev = torch.backends.cudnn.deterministic
-    torch.backends.cudnn.deterministic = True
+def deterministic():
+    """PyTorch's deterministic algorithms inside the block (cuDNN's
+    deterministic convolutions, and an embedding's gradient, which BERT's
+    all-zero token types and repeated positions would otherwise sum by
+    atomics in a varying order): two runs of one step on equal inputs
+    then agree to the bit, which a comparison of eager with captured
+    steps, or of a reloaded model with the one that saved it, relies on.
+    An op without a deterministic version warns and runs as it is."""
+    prev = (torch.are_deterministic_algorithms_enabled(),
+            torch.is_deterministic_algorithms_warn_only_enabled())
+    torch.use_deterministic_algorithms(True, warn_only=True)
     try:
         yield
     finally:
-        torch.backends.cudnn.deterministic = prev
+        torch.use_deterministic_algorithms(prev[0], warn_only=prev[1])
 
 
 def checkpoint_check(build, x, y, dev, path, seed=ZOO_SEED):
@@ -1126,9 +1597,9 @@ def checkpoint_check(build, x, y, dev, path, seed=ZOO_SEED):
     the fresh model's eager first call), from one generator seed, must
     agree bit for bit in the loss and every state.  Then the same with
     ``async_save`` taken between two replays, the file loaded after the
-    second.  cuDNN runs deterministic algorithms meanwhile, so equal
-    inputs give equal bits.  Returns a report; raises on a mismatch."""
-    with cudnn_deterministic():
+    second.  Deterministic algorithms run meanwhile (``deterministic``),
+    so equal inputs give equal bits.  Returns a report; raises on a mismatch."""
+    with deterministic():
         m = build(True)
         for _ in range(3):
             m(x, y)
@@ -1212,9 +1683,9 @@ def phase_zoo(seed=ZOO_SEED):
     as ``phase_resnet`` trains ResNet-50 (bf16 amp, a batch of 32, with
     ``examples/cnn/train_cnn.py``'s SGD, ``ZOO_SGD``): eager against
     graph mode from one state (the device generator seeded before each,
-    so dropout draws the same masks; cuDNN deterministic, so equal inputs
-    give equal bits), then each mode timed and profiled on a fresh model
-    with cuDNN free (``time_steps``); the VGG-16 checkpoint check; the
+    so dropout draws the same masks; deterministic algorithms, so equal
+    inputs give equal bits), then each mode timed and profiled on a fresh
+    model with those algorithms free (``time_steps``); the VGG-16 checkpoint check; the
     MLP at ``examples/mlp/train.py``'s configuration, then that script's
     flow; and the schedule probe."""
     import gc
@@ -1233,7 +1704,7 @@ def phase_zoo(seed=ZOO_SEED):
 
     def run(name, build, x, y, batch, dtype, optimizer):
         t0 = time.perf_counter()
-        with cudnn_deterministic():
+        with deterministic():
             m, rep = train_eager_and_captured(
                 build, x, y, ZOO_COMPARE_STEPS, CAPTURE_RTOL[dtype], None,
                 before_run=lambda: dev.SetRandSeed(seed + 1))
@@ -1632,8 +2103,12 @@ def phase_bottleneck(m, images):
 #             1000 terms differ by a few float32 ulps: 2e-5;
 #   bf16    - pools, queries and outputs bf16 (2^-8 relative), sums
 #             float32 in both: the outputs differ by at most one bf16
-#             rounding, 2^-7 of values below 2: 1e-2.
-PAGED_TOL = {torch.float32: (2e-5, 2e-5), torch.bfloat16: (1e-2, 1e-2)}
+#             rounding, 2^-7 of values below 2: 1e-2;
+#   float16 - the same with float16's 2^-11 relative rounding: one
+#             rounding is 2^-10 of values below 2: 2e-3.
+PAGED_TOL = {torch.float32: (2e-5, 2e-5), torch.bfloat16: (1e-2, 1e-2),
+             torch.float16: (2e-3, 2e-3)}
+PAGED_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
 # value of every element of the trash block in the edge cases: a kernel
 # that read it unmasked would move outputs by O(10)
 PAGED_TRASH_VALUE = 50.0
@@ -1794,7 +2269,7 @@ def paged_bound_ms(lens, n_kv, g, nq, d, dtype, quant=False):
               + 2 * s_ * n_kv * g * nq * d * elem    # q and the output
               + 2 * s_ * n_kv * nq * row)            # k_cur and v_cur
     flops = 4 * (lanes + s_ * nq) * n_kv * g * nq * d
-    peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_F32_FLOPS
+    peak = PEAK_F32_FLOPS if dtype == torch.float32 else PEAK_BF16_FLOPS
     t_ops, t_bytes = flops / peak * 1e3, nbytes / PEAK_BYTES * 1e3
     return max(t_ops, t_bytes), "operations" if t_ops > t_bytes else "bytes"
 
@@ -1922,11 +2397,13 @@ LONG_TABLE_LENS = (1000, 1000)
 
 def phase_paged_kernels(real, real8, cfg):
     """``paged_attn`` against its plain version at every edge case in
-    float32 and bf16, and on int8 pools with float32 and bf16 q (their
-    split counts logged: some take one split of the key range, some
-    several), then timed at tables for GPT-2 small's 12 layers: one
-    decode step of the serve phase (``real``: its tables and positions)
-    with bf16 pools and, as row 5c, with int8 pools and bf16 q, and
+    float32, bf16 and float16, and on int8 pools with float32, bf16 and
+    float16 q (their split counts logged: some take one split of the key
+    range, some several), then timed at tables for GPT-2 small's 12
+    layers: one decode step of the serve phase (``real``: its tables and
+    positions) with bf16 pools, as row 5c with int8 pools and bf16 q,
+    with float16 pools (the ``paged_attn_f16`` row; its launches are the
+    serve phase's float16 run's) and with int8 pools and float16 q; and
     ``LONG_TABLE_LENS`` with bf16 pools.  The times in the kernels line
     are the serve step's device times (``device_ms_per_call``): the
     wrapper's launch overhead exceeds the kernels' time, so CUDA events
@@ -1937,8 +2414,7 @@ def phase_paged_kernels(real, real8, cfg):
 
     n_sm = torch.cuda.get_device_properties(0).multi_processor_count
     worst, splits = {}, {}
-    for quant, dtype in itertools.product((False, True),
-                                          (torch.float32, torch.bfloat16)):
+    for quant, dtype in itertools.product((False, True), PAGED_DTYPES):
         key = ("int8/" if quant else "") + str(dtype)[6:]
         for seed, (name, kw) in enumerate(paged_edge_cases()):
             e = check_paged_case(f"{name}/{key}", dtype, seed, quant, **kw)
@@ -1954,14 +2430,20 @@ def phase_paged_kernels(real, real8, cfg):
                              f"and several: {splits}")
     serve = time_paged_table(real["layers"])
     serve8 = time_paged_table(real_args(real, cfg, seed=2, quant=True))
+    serve_h = time_paged_table(real_args(real, cfg, seed=3,
+                                         dtype=torch.float16))
+    serve8_h = time_paged_table(real_args(real, cfg, seed=4, quant=True,
+                                          dtype=torch.float16))
     long = time_paged_table(paged_table(LONG_TABLE_LENS, cfg, seed=1))
     log({"phase": "paged_kernels",
-         "edge_cases": 4 * len(paged_edge_cases()),
+         "edge_cases": 2 * len(PAGED_DTYPES) * len(paged_edge_cases()),
          "edge_max_abs_err": worst, "edge_n_split": splits,
          "tol": {str(k)[6:]: v for k, v in PAGED_TOL.items()},
          "tol_int8": "PAGED_TOL of q's dtype",
          "serve_table": dict(serve, step=real["step"]),
          "serve_table_int8_row_5c": dict(serve8, step=real["step"]),
+         "serve_table_float16": dict(serve_h, step=real["step"]),
+         "serve_table_int8_float16_q": dict(serve8_h, step=real["step"]),
          "long_table": long})
 
     def row(name, t, launches, kernels):
@@ -1969,7 +2451,7 @@ def phase_paged_kernels(real, real8, cfg):
         return dict(
             name=name, route="cuda",
             source="singa_tpu_torch/csrc/paged_attention.cu",
-            replaces=REPLACES[name], launches=launches,
+            replaces=REPLACES[name.removesuffix("_f16")], launches=launches,
             max_abs_err=t["max_abs_err_vs_plain"], ms=ms["kernel"],
             plain_ms=ms["plain"], bound_ms=ms["bound"],
             bound_by=t["bound_by"], library_ms=ms["sdpa_alone"],
@@ -1987,7 +2469,10 @@ def phase_paged_kernels(real, real8, cfg):
             row("paged_attn_int8", serve8, real8["launches"],
                 "paged_attn_kernel<T, int8> (split) + "
                 "paged_combine_kernel<T, int8>, T float or bf16 (the int8 "
-                "branch)")]
+                "branch)"),
+            row("paged_attn_f16", serve_h, real["launches_f16"],
+                "paged_attn_kernel<__half, __half> (split) + "
+                "paged_combine_kernel<__half, __half>")]
 
 
 # ------------------------------------------------------------------ serve
@@ -2286,6 +2771,17 @@ def phase_serve(seed=0):
                              f"{probe.max_err} > {SERVE_BF16_LOGITS_ATOL}")
     gather16, _, _, _ = run_engine(model, traffic, "gather", dtype=bf)
     mark("bf16_gather")
+    # float16: the same traffic captured, paged_attn on float16 pools and
+    # q (the kernels line's paged_attn_f16 row)
+    pa.paged_attn.launches = 0
+    _, snap_h, sec_h, _ = run_engine(model, traffic, "block",
+                                     dtype=torch.float16)
+    launches_h = pa.paged_attn.launches
+    mark("float16_captured")
+    steps_h = snap_h["throughput"]["decode_steps"]
+    if launches_h != cfg.n_layer * steps_h:
+        raise AssertionError(f"float16: paged_attn launched {launches_h} "
+                             f"times over {steps_h} decode steps")
     compared = {}
     for i, (w, a, e, b, c) in enumerate(zip(traffic, block16, eager16,
                                             probed, gather16)):
@@ -2326,13 +2822,17 @@ def phase_serve(seed=0):
                   "logits_atol": SERVE_BF16_LOGITS_ATOL,
                   "streams_compared_up_to_token": compared,
                   "low_margin_requests": len(probe.first_low)},
+         "float16": {"decode_steps": steps_h,
+                     "paged_attn_launches": launches_h, "seconds": sec_h,
+                     "graphs": snap_h["graphs"]},
          "profile_bf16_run": profile,
          "profile_bf16_eager_run": profile_eager,
          "seconds": {n: t - marks[i][1]
                      for i, (n, t) in enumerate(marks[1:])},
          "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30,
          "nvidia_smi": nvidia_smi()})
-    return model, dict(launches=launches16, step=real["step"],
+    return model, dict(launches=launches16, launches_f16=launches_h,
+                       step=real["step"],
                        tables=real["tables"], p_limit=real["p_limit"],
                        layers=real_args(real, model.cfg, seed),
                        traffic=traffic, offline=offline,
@@ -2664,14 +3164,14 @@ def phase_generate(model, seed=0, prompt_len=1000, n_new=40):
          "min_p_one_equals_greedy": True})
 
 
-def real_args(real, cfg, seed, quant=False):
+def real_args(real, cfg, seed, quant=False, dtype=torch.bfloat16):
     """``paged_attn`` arguments for each layer of one recorded serve step:
     its tables and positions, a bf16 pool of the serve engine's size for
     each layer with random contents, random queries and current K/V, drawn
     on the device from ``seed`` (the kernel's time does not depend on the
-    values).  ``quant``: the pools and current K/V int8 (values, scales)
-    pairs (values uniform in [-127, 127], scales in [0.005, 0.015)), q
-    bf16."""
+    values), in ``dtype``.  ``quant``: the pools and current K/V int8
+    (values, scales) pairs (values uniform in [-127, 127], scales in
+    [0.005, 0.015)), q in ``dtype``."""
     c = SERVE_ENGINE
     gen = torch.Generator(device=DEVICE)
     gen.manual_seed(seed)
@@ -2685,13 +3185,13 @@ def real_args(real, cfg, seed, quant=False):
                     0.005 + 0.01 * torch.rand(shape[:-1], generator=gen,
                                               device=DEVICE))
         return torch.randn(shape, generator=gen, device=DEVICE,
-                           dtype=torch.bfloat16)
+                           dtype=dtype)
 
     block = c["block_size"]
     p_limit = real["p_limit"]
     step = dict(
         q=torch.randn((s_, cfg.n_kv_head, cfg.n_head // cfg.n_kv_head, 1, d),
-                      generator=gen, device=DEVICE, dtype=torch.bfloat16),
+                      generator=gen, device=DEVICE, dtype=dtype),
         tables=torch.from_numpy(real["tables"]).to(DEVICE),
         p_limit=torch.tensor(p_limit, dtype=torch.int32, device=DEVICE),
         k_cur=rand(s_, cfg.n_kv_head, 1, d),
@@ -2851,6 +3351,8 @@ def main():
     timed("build", phase_build)
     rows = timed("kernels", phase_kernels)
     timed("slice", phase_slice, rows)
+    timed("bert", phase_bert)
+    timed("charrnn", phase_charrnn)
     model, images = timed("resnet", phase_resnet)
     rows["megakernel_block"] = timed("bottleneck", phase_bottleneck, model,
                                      images)

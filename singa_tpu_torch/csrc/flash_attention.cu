@@ -11,9 +11,9 @@
 //     REPLACED by the finite floor NEG_INF = -1e30, never -inf;
 //   * the running max starts at NEG_INF; a row with zero mass (l == 0)
 //     writes O = 0 and lse = m + log(1);
-//   * under bf16, p is rounded to V's (dO's) type before P V (P^T dO) and
-//     dS to K's (Q's) type before dS K (dS^T Q), as the Pallas kernels
-//     cast before their dots; every sum is kept in float32.
+//   * under bf16 and float16, p is rounded to V's (dO's) type before P V
+//     (P^T dO) and dS to K's (Q's) type before dS K (dS^T Q), as the
+//     Pallas kernels cast before their dots; every sum is kept in float32.
 //
 // Design for the GPU (not a block-by-block copy of the TPU schedule):
 //   * the TPU's sequential key-block grid axis becomes a loop inside one
@@ -40,11 +40,15 @@
 // Two families of kernels, chosen by the caller's `kind` (the routing
 // rule is `route` in ops/flash_attention.py):
 //
-//   * kind 2, bf16 with D <= 128 -- tensor cores, all three kernels:
+//   * kinds 2 and 4, bf16 and float16 with D <= 128 -- tensor cores, all
+//     three kernels, each templated on the 16-bit element type T (the
+//     products' PTX types, mma.sync's and wgmma's .bf16 / .f16, and the
+//     tensor maps' data type follow T; ldmatrix, the swizzle and the ring
+//     are the same for both):
 //       fwd_wg_kernel  <- _flash_fwd_pallas (_fwd_kernel)
 //       dq_tc_kernel   <- _flash_bwd_pallas, dQ call (_dq_kernel)
 //       dkv_wg_kernel  <- _flash_bwd_pallas, dK/dV call (_dkv_kernel)
-//     Operands are bf16 (D a multiple of 8 at 16-byte aligned bases: the
+//     Operands are T (D a multiple of 8 at 16-byte aligned bases: the
 //     wrapper pads any other D with zero columns, which is exact), sums
 //     float32.  Only tiles on the causal diagonal, at a window's edge, at
 //     the ragged end of S, or under a mask apply per-element masks and
@@ -62,7 +66,7 @@
 //       release a stage after the wgmma.wait_group that last reads it.
 //       Products are wgmma: S = Q K^T (m64n128k16) and S^T = K Q^T,
 //       dP^T = V dO^T (m64n64k16) with both operands in shared memory (SS,
-//       K-major); P V, P^T dO and dS^T Q with P / dS packed to bf16
+//       K-major); P V, P^T dO and dS^T Q with P / dS packed to T
 //       straight into the A registers (RS, m64n64k16) and V / dO / Q read
 //       MN-major (the transpose bit).  A wgmma accumulator's per-warp
 //       fragment is mma.sync's m16n8, repeated over N, so the masking and
@@ -88,15 +92,16 @@
 //       them without bank conflicts; one __syncthreads per tile.  Per
 //       64-key tile S = Q K^T and dP = dO V^T on the tensor cores, P =
 //       2^(S scale log2 e - lse log2 e) and dS = P (dP - delta) scale in
-//       registers, dS packed to bf16 into the A fragment of dQ += dS K (K
+//       registers, dS packed to T into the A fragment of dQ += dS K (K
 //       read by ldmatrix.trans).  dQ written once, no atomics.  Q and dO
 //       pass once through the second K / V stage, so shared memory is 2
 //       stages x (K + V) x 64 x DT x 2 B = 32 KB at DT = 64, 64 KB at
 //       DT = 128.
 //     (Registers and spills: nvcc -Xptxas -v for sm_90a, as chip_smoke.py's
 //     build phase reports them; times and bounds: PERF.md.)
-//   * kinds 0 and 1, float32 (tensor cores would need TF32, which misses
-//     the float32 tolerance) and bf16 with 128 < D <= 1792 -- CUDA cores:
+//   * kinds 0, 1 and 3, float32 (tensor cores would need TF32, which
+//     misses the float32 tolerance), and bf16 and float16 with
+//     128 < D <= 1792 -- CUDA cores:
 //       fwd_kernel / dq_kernel / dkv_kernel<T, BR, DT>, and past D = 512
 //       fwd_narrow_kernel / dq_narrow_kernel / dkv_narrow_kernel<T, DT>
 //     One block of 256 threads per (bh, BR-row tile); Q/K/V/dO tiles
@@ -112,6 +117,7 @@
 #include <cuda.h>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <stdint.h>
 
 #include <type_traits>
@@ -126,11 +132,17 @@ template <> __device__ __forceinline__ float to_f<float>(float x) { return x; }
 template <> __device__ __forceinline__ float to_f<__nv_bfloat16>(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
+template <> __device__ __forceinline__ float to_f<__half>(__half x) {
+  return __half2float(x);
+}
 
 template <typename T> __device__ __forceinline__ T from_f(float x);
 template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
 template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
   return __float2bfloat16_rn(x);
+}
+template <> __device__ __forceinline__ __half from_f<__half>(float x) {
+  return __float2half_rn(x);
 }
 
 // x rounded to T and back: the cast the Pallas kernels make before a dot.
@@ -867,9 +879,12 @@ __global__ void __launch_bounds__(NTHREADS) dkv_narrow_kernel(Args a) {
   }
 }
 
-// ------------------------------------------- tensor-core kernels (bf16)
+// ---------------------------------- tensor-core kernels (bf16, float16)
 
 typedef __nv_bfloat16 bf16;
+typedef __half f16;
+template <typename T>
+constexpr bool kF16 = std::is_same_v<T, f16>;
 
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr int TC_BN = 64;  // keys per tile of dq_tc_kernel
@@ -930,6 +945,23 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
+// The same with float16 a and b.
+__device__ __forceinline__ void mma_f16(float (&d)[4], const uint32_t (&a)[4],
+                                        uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+template <typename T>
+__device__ __forceinline__ void mma_tc(float (&d)[4], const uint32_t (&a)[4],
+                                       uint32_t b0, uint32_t b1) {
+  if constexpr (kF16<T>)
+    mma_f16(d, a, b0, b1);
+  else
+    mma_bf16(d, a, b0, b1);
+}
 
 // 2^x in one special-function instruction (results below 2^-126 flush
 // to 0; 2^-inf = 0).
@@ -939,37 +971,44 @@ __device__ __forceinline__ float ex2(float x) {
   return y;
 }
 
-// Two floats rounded to bf16 (the cast the Pallas kernels make before a
+// Two floats rounded to T (the cast the Pallas kernels make before a
 // dot), lo in the low half.
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
+template <typename T>
+__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
+  if constexpr (kF16<T>) {
+    __half2 v = __floats2half2_rn(lo, hi);
+    return *reinterpret_cast<uint32_t*>(&v);
+  } else {
+    __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+    return *reinterpret_cast<uint32_t*>(&v);
+  }
 }
 
-// The A fragment of a 16x16 bf16 tile from two 16x8 float32
+// The A fragment of a 16x16 T tile from two 16x8 float32
 // accumulators (columns 0-7 and 8-15): P and dS go from one product to
 // the next in registers.
+template <typename T>
 __device__ __forceinline__ void acc_to_a(uint32_t (&a)[4], const float (&lo)[4],
                                          const float (&hi)[4]) {
-  a[0] = pack_bf16(lo[0], lo[1]);
-  a[1] = pack_bf16(lo[2], lo[3]);
-  a[2] = pack_bf16(hi[0], hi[1]);
-  a[3] = pack_bf16(hi[2], hi[3]);
+  a[0] = pack2<T>(lo[0], lo[1]);
+  a[1] = pack2<T>(lo[2], lo[3]);
+  a[2] = pack2<T>(hi[0], hi[1]);
+  a[3] = pack2<T>(hi[2], hi[3]);
 }
 
-// Element offset of 16-byte chunk c of row r in a tile with rows DT bf16
-// wide: the chunk index is XORed with r % 8, so the 8 rows an ldmatrix
+// Element offset of 16-byte chunk c of row r in a tile with rows DT
+// 16-bit elements wide: the chunk index is XORed with r % 8, so the 8 rows an ldmatrix
 // matrix reads at one logical chunk lie in 8 different bank groups.
 template <int DT>
 __device__ __forceinline__ int swz(int r, int c) {
   return r * DT + ((c ^ (r & 7)) << 3);
 }
 
-// Rows [row0, row0 + R) of a (S, D) bf16 matrix into a swizzled tile of
+// Rows [row0, row0 + R) of a (S, D) T matrix into a swizzled tile of
 // width DT by cp.async (D % 8 == 0, 16-byte aligned rows); zeros past S
 // and D.
-template <int R, int DT, int NT>
-__device__ __forceinline__ void load_tile_tc(bf16* dst, const bf16* src,
+template <int R, int DT, int NT, typename T>
+__device__ __forceinline__ void load_tile_tc(T* dst, const T* src,
                                              int row0, int S, int D) {
   constexpr int CH = DT / 8;
   for (int i = threadIdx.x; i < R * CH; i += NT) {
@@ -990,31 +1029,31 @@ __device__ __forceinline__ float tc_score(float dot, float scale,
   return masked_score(dot, scale, kmask, qm, qi, kj, S, causal, window);
 }
 
-// Row `row` of a (S, D) bf16 output from a thread's two accumulator
+// Row `row` of a (S, D) T output from a thread's two accumulator
 // columns per 8-column block; D % 8 == 0.
-template <int DB>
-__device__ __forceinline__ void store_row_tc(bf16* out, const float (&acc)[DB][4],
+template <int DB, typename T>
+__device__ __forceinline__ void store_row_tc(T* out, const float (&acc)[DB][4],
                                              int half, int row, int D, int t) {
-  bf16* dst = out + (size_t)row * D;
+  T* dst = out + (size_t)row * D;
 #pragma unroll
   for (int db = 0; db < DB; ++db) {
     const int col = db * 8 + 2 * t;
     if (col < D)
-      *reinterpret_cast<__nv_bfloat162*>(dst + col) =
-          __floats2bfloat162_rn(acc[db][2 * half], acc[db][2 * half + 1]);
+      *reinterpret_cast<uint32_t*>(dst + col) =
+          pack2<T>(acc[db][2 * half], acc[db][2 * half + 1]);
   }
 }
 
 // (At DT = 64, at most 168 registers: 3 blocks of 4 warps on an SM.)
-template <int DT, int NW>
+template <typename T, int DT, int NW>
 __global__ void __launch_bounds__(NW * 32, DT == 64 ? 3 : 1)
     dq_tc_kernel(Args a) {
   constexpr int BM = 16 * NW, BN = TC_BN, NT = 32 * NW;
   constexpr int KS = DT / 16, NB = BN / 8, DB = DT / 8;
   static_assert(BM == BN, "Q and dO are staged in a K / V stage buffer");
   extern __shared__ __align__(128) unsigned char smem_tc[];
-  bf16* sK = reinterpret_cast<bf16*>(smem_tc);  // two stages
-  bf16* sV = sK + 2 * BN * DT;                  // two stages
+  T* sK = reinterpret_cast<T*>(smem_tc);  // two stages
+  T* sV = sK + 2 * BN * DT;                  // two stages
 
   const int S = a.S, D = a.D;
   const int bh = blockIdx.x;
@@ -1022,10 +1061,10 @@ __global__ void __launch_bounds__(NW * 32, DT == 64 ? 3 : 1)
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3, rw = warp * 16;
   const size_t base = (size_t)bh * S * D;
-  const bf16* Q = (const bf16*)a.q + base;
-  const bf16* K = (const bf16*)a.k + base;
-  const bf16* V = (const bf16*)a.v + base;
-  const bf16* dO = (const bf16*)a.dout + base;
+  const T* Q = (const T*)a.q + base;
+  const T* K = (const T*)a.k + base;
+  const T* V = (const T*)a.v + base;
+  const T* dO = (const T*)a.dout + base;
   const float* kmask = a.kmask ? a.kmask + (size_t)bh * S : nullptr;
   const float* qm =
       a.qmask ? a.qmask + (size_t)((bh / a.qdiv) % a.qmod) * S * S : nullptr;
@@ -1070,8 +1109,8 @@ __global__ void __launch_bounds__(NW * 32, DT == 64 ? 3 : 1)
 
   for (int kt = kt_begin; kt <= kt_end; ++kt) {
     const int k0 = kt * BN, st = (kt - kt_begin) & 1;
-    const bf16* cK = sK + st * BN * DT;
-    const bf16* cV = sV + st * BN * DT;
+    const T* cK = sK + st * BN * DT;
+    const T* cV = sV + st * BN * DT;
     cp_async_wait<0>();
     __syncthreads();  // tile kt landed; every warp is done with tile kt-1
     if (kt < kt_end) {
@@ -1094,11 +1133,11 @@ __global__ void __launch_bounds__(NW * 32, DT == 64 ? 3 : 1)
                                 2 * ks + ((lane >> 3) & 1));
         uint32_t b[4];
         ldsm_x4(b, smem_u32(cK + off));
-        mma_bf16(s[2 * j], qf[ks], b[0], b[1]);
-        mma_bf16(s[2 * j + 1], qf[ks], b[2], b[3]);
+        mma_tc<T>(s[2 * j], qf[ks], b[0], b[1]);
+        mma_tc<T>(s[2 * j + 1], qf[ks], b[2], b[3]);
         ldsm_x4(b, smem_u32(cV + off));
-        mma_bf16(dp[2 * j], of[ks], b[0], b[1]);
-        mma_bf16(dp[2 * j + 1], of[ks], b[2], b[3]);
+        mma_tc<T>(dp[2 * j], of[ks], b[0], b[1]);
+        mma_tc<T>(dp[2 * j + 1], of[ks], b[2], b[3]);
       }
     }
 
@@ -1136,24 +1175,24 @@ __global__ void __launch_bounds__(NW * 32, DT == 64 ? 3 : 1)
       for (int e = 0; e < 4; ++e)
         dp[j][e] = ex2(s[j][e]) * (dp[j][e] - dl[e >> 1]) * a.scale;
 
-    // dQ += dS K, dS rounded to bf16 (K read by ldmatrix.trans)
+    // dQ += dS K, dS rounded to T (K read by ldmatrix.trans)
 #pragma unroll
     for (int kk = 0; kk < BN / 16; ++kk) {
       uint32_t da[4];
-      acc_to_a(da, dp[2 * kk], dp[2 * kk + 1]);
+      acc_to_a<T>(da, dp[2 * kk], dp[2 * kk + 1]);
 #pragma unroll
       for (int j = 0; j < DB / 2; ++j) {
         uint32_t b[4];
         ldsm_x4_t(b, smem_u32(cK + swz<DT>(kk * 16 + (lane & 7) +
                                                (((lane >> 3) & 1) << 3),
                                            2 * j + (lane >> 4))));
-        mma_bf16(dq[2 * j], da, b[0], b[1]);
-        mma_bf16(dq[2 * j + 1], da, b[2], b[3]);
+        mma_tc<T>(dq[2 * j], da, b[0], b[1]);
+        mma_tc<T>(dq[2 * j + 1], da, b[2], b[3]);
       }
     }
   }
 
-  bf16* dQ = (bf16*)a.out0 + base;
+  T* dQ = (T*)a.out0 + base;
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int row = q0 + rw + g + 8 * h;
@@ -1170,7 +1209,7 @@ __global__ void __launch_bounds__(NW * 32, DT == 64 ? 3 : 1)
 // TMA writes them.
 constexpr int WG_TILE = 64;
 constexpr int BOX = 64 * 64;  // elements of a 64-row box
-constexpr uint32_t BOX_BYTES = BOX * sizeof(bf16);
+constexpr uint32_t BOX_BYTES = BOX * 2;  // 16-bit elements
 
 __device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
   asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
@@ -1276,119 +1315,141 @@ __device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo,
 // A K-major operand of R rows (a row holds K): k-step ks (16 columns)
 // lies in box ks / 4, 32 bytes a step into its 128-byte rows; groups of
 // 8 rows are 1024 B apart.
-template <int R>
-__device__ __forceinline__ uint64_t kmajor_desc(const bf16* tile, int ks) {
+template <int R, typename T>
+__device__ __forceinline__ uint64_t kmajor_desc(const T* tile, int ks) {
   return sw128_desc(smem_u32(tile) + (ks >> 2) * R * 128 + (ks & 3) * 32, 16,
                     1024);
 }
 // An MN-major operand of R rows (a row holds N, rows are K): k-step kk is
 // rows 16 kk.. (two groups of 8 rows, 1024 B apart), N-columns 64 nh.. of
 // box nh.
-template <int R>
-__device__ __forceinline__ uint64_t mnmajor_desc(const bf16* tile, int kk,
+template <int R, typename T>
+__device__ __forceinline__ uint64_t mnmajor_desc(const T* tile, int kk,
                                                  int nh) {
   return sw128_desc(smem_u32(tile) + nh * R * 128 + kk * 2048, R * 128,
                     1024);
 }
 
 // d (+)= A B^T over one k-step on the tensor cores, a warpgroup's 64 x 64
-// float32 tile: A (64 x 16) and B (64 x 16) K-major in shared memory;
-// `acc` = 0 overwrites d.  With warp w of the warpgroup, g = lane / 4 and
-// t = lane % 4, d[4j + e] sits at row 16 w + g + 8 (e / 2) and column
-// 8 j + 2 t + e % 2: mma.sync's m16n8 fragment, repeated over N.
+// float32 tile: A (64 x 16) and B (64 x 16) of T, K-major in shared
+// memory; `acc` = 0 overwrites d.  With warp w of the warpgroup, g =
+// lane / 4 and t = lane % 4, d[4j + e] sits at row 16 w + g + 8 (e / 2)
+// and column 8 j + 2 t + e % 2: mma.sync's m16n8 fragment, repeated over
+// N.  (TY: the PTX type of T.)
+template <typename T>
 __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da,
                                          uint64_t db, int acc) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
-      "%28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(acc));
+#define WGMMA_SS(TY)                                                        \
+  asm volatile(                                                             \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"                           \
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " "           \
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "  \
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "   \
+      "%28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"                   \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),         \
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),         \
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),    \
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),    \
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),    \
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),    \
+        "+f"(d[30]), "+f"(d[31])                                            \
+      : "l"(da), "l"(db), "r"(acc))
+  if constexpr (kF16<T>)
+    WGMMA_SS("f16");
+  else
+    WGMMA_SS("bf16");
+#undef WGMMA_SS
 }
 // The same, 64 x 128: B holds 128 rows.
+template <typename T>
 __device__ __forceinline__ void wgmma_ss128(float (&d)[64], uint64_t da,
                                             uint64_t db, int acc) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
-      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
-      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
-      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, "
-      "0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
-        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
-        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
-        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
-        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(acc));
+#define WGMMA_SS128(TY)                                                     \
+  asm volatile(                                                             \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"                           \
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32." TY "." TY " "          \
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "  \
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "   \
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "   \
+      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "   \
+      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, " \
+      "1, 0, 0;\n}\n"                                                       \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),         \
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),         \
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),    \
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),    \
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),    \
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),    \
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),    \
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),    \
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),    \
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),    \
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),    \
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),    \
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])                  \
+      : "l"(da), "l"(db), "r"(acc))
+  if constexpr (kF16<T>)
+    WGMMA_SS128("f16");
+  else
+    WGMMA_SS128("bf16");
+#undef WGMMA_SS128
 }
-// d += A B over one k-step: A (64 x 16 bf16) in registers as mma.sync's
+// d += A B over one k-step: A (64 x 16 T) in registers as mma.sync's
 // A fragment of each warp's 16 rows, B (16 x 64) MN-major in shared
 // memory (the transpose bit).
+template <typename T>
 __device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4],
                                          uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
-      "%28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+#define WGMMA_RS(TY)                                                        \
+  asm volatile(                                                             \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"                           \
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " "           \
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "  \
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "   \
+      "%28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"     \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),         \
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),         \
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),    \
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),    \
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),    \
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),    \
+        "+f"(d[30]), "+f"(d[31])                                            \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1))
+  if constexpr (kF16<T>)
+    WGMMA_RS("f16");
+  else
+    WGMMA_RS("bf16");
+#undef WGMMA_RS
 }
 
 // The A fragments of a 64 x 16 KK product's rows as the next product's A
-// operand, rounded to bf16: k-step kk takes columns 16 kk.. (P and dS go
+// operand, rounded to T: k-step kk takes columns 16 kk.. (P and dS go
 // from one product to the next in registers).
-template <int KK>
+template <typename T, int KK>
 __device__ __forceinline__ void acc_to_a_wg(uint32_t (&a)[KK][4],
                                             const float (&d)[8 * KK]) {
 #pragma unroll
   for (int kk = 0; kk < KK; ++kk)
 #pragma unroll
     for (int r = 0; r < 4; ++r)
-      a[kk][r] = pack_bf16(d[8 * kk + 2 * r], d[8 * kk + 2 * r + 1]);
+      a[kk][r] = pack2<T>(d[8 * kk + 2 * r], d[8 * kk + 2 * r + 1]);
 }
 
-// Row `row` of a (S, D) bf16 output from half h of a warpgroup
+// Row `row` of a (S, D) T output from half h of a warpgroup
 // accumulator (DT / 64 boxes of 64 columns), divided by `div`; D % 8 == 0.
-template <int HB>
-__device__ __forceinline__ void store_row_wg(bf16* out,
+template <int HB, typename T>
+__device__ __forceinline__ void store_row_wg(T* out,
                                              const float (&acc)[HB][32],
                                              int h, int row, int D, int t,
                                              float div) {
-  bf16* dst = out + (size_t)row * D;
+  T* dst = out + (size_t)row * D;
 #pragma unroll
   for (int nh = 0; nh < HB; ++nh)
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
       const int col = nh * 64 + j * 8 + 2 * t;
       if (col < D)
-        *reinterpret_cast<__nv_bfloat162*>(dst + col) = __floats2bfloat162_rn(
+        *reinterpret_cast<uint32_t*>(dst + col) = pack2<T>(
             acc[nh][4 * j + 2 * h] / div, acc[nh][4 * j + 2 * h + 1] / div);
     }
 }
@@ -1442,13 +1503,13 @@ struct FwdWg {
 // the more work a thread holds, the more of each tile's fixed latencies
 // it hides), the online softmax in registers (masks and exact
 // differences on edge tiles, one FMA before ex2 elsewhere), P packed to
-// bf16 into the A registers of O += P V (RS wgmma, V MN-major).  The
+// T into the A registers of O += P V (RS wgmma, V MN-major).  The
 // products of one tile overlap the softmax of the next: S of tile j+1
 // and P V of tile j are issued together, the softmax of j+1 runs while
 // P V does, and O is rescaled once P V has retired.  A warpgroup walks
 // the key tiles of its own 64 rows' band and only waits for and releases
 // the item's others.
-template <int DT, int NC>
+template <typename T, int DT, int NC>
 __global__ void __launch_bounds__(FwdWg<DT, NC>::Shape::THREADS, 1)
     fwd_wg_kernel(Args a, const __grid_constant__ CUtensorMap tq,
                   const __grid_constant__ CUtensorMap tk,
@@ -1458,9 +1519,9 @@ __global__ void __launch_bounds__(FwdWg<DT, NC>::Shape::THREADS, 1)
   constexpr int HB = L::HB, BM = WG_TILE * NC, BN = L::BN, ST = L::STAGES;
   extern __shared__ __align__(1024) unsigned char smem_wg[];
   unsigned char* sm = align1024(smem_wg);
-  bf16* sQ = reinterpret_cast<bf16*>(sm + L::Q);
-  bf16* sK = reinterpret_cast<bf16*>(sm + L::K);
-  bf16* sV = reinterpret_cast<bf16*>(sm + L::V);
+  T* sQ = reinterpret_cast<T*>(sm + L::Q);
+  T* sK = reinterpret_cast<T*>(sm + L::K);
+  T* sV = reinterpret_cast<T*>(sm + L::V);
   uint64_t* full = reinterpret_cast<uint64_t*>(sm + L::BARS);
   uint64_t* empty = full + ST;
   uint64_t* qfull = empty + ST;  // two each
@@ -1544,7 +1605,7 @@ __global__ void __launch_bounds__(FwdWg<DT, NC>::Shape::THREADS, 1)
     const int qw = q0 + wg * WG_TILE;
     const int kt_begin = first_kt(q0), kt_end = last_kt(q0), base = it;
     it += kt_end - kt_begin + 1;
-    const bf16* cQ = sQ + (qb * NC + wg) * HB * BOX;
+    const T* cQ = sQ + (qb * NC + wg) * HB * BOX;
     const float* kmask = a.kmask ? a.kmask + (size_t)bh * S : nullptr;
     const float* qm =
         a.qmask ? a.qmask + (size_t)((bh / a.qdiv) % a.qmod) * S * S
@@ -1576,7 +1637,7 @@ __global__ void __launch_bounds__(FwdWg<DT, NC>::Shape::THREADS, 1)
     auto issue_s = [&](float (&s)[64], int kt) {
 #pragma unroll
       for (int ks = 0; ks < DT / 16; ++ks)
-        wgmma_ss128(s, kmajor_desc<64>(cQ, ks),
+        wgmma_ss128<T>(s, kmajor_desc<64>(cQ, ks),
                     kmajor_desc<BN>(sK + slot(kt) * HB * L::KBOX, ks),
                     ks > 0);
       wgmma_commit();
@@ -1587,7 +1648,7 @@ __global__ void __launch_bounds__(FwdWg<DT, NC>::Shape::THREADS, 1)
       for (int kk = 0; kk < BN / 16; ++kk)
 #pragma unroll
         for (int nh = 0; nh < HB; ++nh)
-          wgmma_rs(o[nh], pa[kk],
+          wgmma_rs<T>(o[nh], pa[kk],
                    mnmajor_desc<BN>(sV + slot(kt) * HB * L::KBOX, kk, nh));
       wgmma_commit();
     };
@@ -1677,7 +1738,7 @@ __global__ void __launch_bounds__(FwdWg<DT, NC>::Shape::THREADS, 1)
       wgmma_wait<0>();
       wgmma_hold(s);
       softmax(s, kb, alpha);
-      acc_to_a_wg(pa, s);
+      acc_to_a_wg<T>(pa, s);
       for (int kt = kb + 1; kt <= ke; ++kt) {
         wait_full(kt);
         turn();
@@ -1693,7 +1754,7 @@ __global__ void __launch_bounds__(FwdWg<DT, NC>::Shape::THREADS, 1)
         for (int nh = 0; nh < HB; ++nh) wgmma_hold(o[nh]);
         release(kt - 1);
         rescale(alpha);
-        acc_to_a_wg(pa, s);
+        acc_to_a_wg<T>(pa, s);
       }
       turn();
       wgmma_fence();
@@ -1711,7 +1772,7 @@ __global__ void __launch_bounds__(FwdWg<DT, NC>::Shape::THREADS, 1)
       release(kt);
     }
 
-    bf16* O = (bf16*)a.out0 + (size_t)bh * S * D;
+    T* O = (T*)a.out0 + (size_t)bh * S * D;
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       float lt = l[h];
@@ -1747,10 +1808,10 @@ struct DkvWg {
 // "full" barrier counts as they land), through the ring.  Each consumer
 // warpgroup owns 64 keys: S^T = K Q^T and dP^T = V dO^T by SS wgmma, P^T
 // and dS^T formed in registers (dq_tc_kernel's masks) and rounded to
-// bf16 into the A registers of dV += P^T dO and dK += dS^T Q (RS wgmma,
+// T into the A registers of dV += P^T dO and dK += dS^T Q (RS wgmma,
 // dO and Q MN-major).  dV's product runs while dS^T is formed; this
 // tile's dK product while the next P^T is.  No atomics: deterministic.
-template <int DT, int NC>
+template <typename T, int DT, int NC>
 __global__ void __launch_bounds__(DkvWg<DT, NC>::Shape::THREADS, 1)
     dkv_wg_kernel(Args a, const __grid_constant__ CUtensorMap tq,
                   const __grid_constant__ CUtensorMap tk,
@@ -1761,10 +1822,10 @@ __global__ void __launch_bounds__(DkvWg<DT, NC>::Shape::THREADS, 1)
   constexpr int HB = L::HB, BN = WG_TILE * NC, ST = L::STAGES;
   extern __shared__ __align__(1024) unsigned char smem_wg[];
   unsigned char* sm = align1024(smem_wg);
-  bf16* sK = reinterpret_cast<bf16*>(sm + L::K);
-  bf16* sV = reinterpret_cast<bf16*>(sm + L::V);
-  bf16* sQ = reinterpret_cast<bf16*>(sm + L::Q);
-  bf16* sO = reinterpret_cast<bf16*>(sm + L::DO);
+  T* sK = reinterpret_cast<T*>(sm + L::K);
+  T* sV = reinterpret_cast<T*>(sm + L::V);
+  T* sQ = reinterpret_cast<T*>(sm + L::Q);
+  T* sO = reinterpret_cast<T*>(sm + L::DO);
   float* sL = reinterpret_cast<float*>(sm + L::ROWS);  // lse, a stage each
   float* sDl = sL + ST * WG_TILE;                       // delta
   uint64_t* full = reinterpret_cast<uint64_t*>(sm + L::BARS);
@@ -1838,8 +1899,8 @@ __global__ void __launch_bounds__(DkvWg<DT, NC>::Shape::THREADS, 1)
   const int wg = warp >> 2, g = lane >> 2, t = lane & 3;
   const int rw = (warp & 3) * 16;  // this warp's keys in the tile
   const int kw = k0 + wg * WG_TILE;
-  const bf16* cK = sK + wg * HB * BOX;
-  const bf16* cV = sV + wg * HB * BOX;
+  const T* cK = sK + wg * HB * BOX;
+  const T* cV = sV + wg * HB * BOX;
   const float* kmask = a.kmask ? a.kmask + (size_t)bh * S : nullptr;
   const float* qm =
       a.qmask ? a.qmask + (size_t)((bh / a.qdiv) % a.qmod) * S * S : nullptr;
@@ -1853,7 +1914,7 @@ __global__ void __launch_bounds__(DkvWg<DT, NC>::Shape::THREADS, 1)
     mbar_wait(&full[i % ST], (i / ST) & 1);
   };
   auto release = [&](int qt) { mbar_arrive(&empty[(qt - qt_begin) % ST]); };
-  auto stage = [&](const bf16* ring, int qt) {
+  auto stage = [&](const T* ring, int qt) {
     return ring + (qt - qt_begin) % ST * HB * BOX;
   };
 
@@ -1868,22 +1929,22 @@ __global__ void __launch_bounds__(DkvWg<DT, NC>::Shape::THREADS, 1)
   auto issue_s = [&](float (&s)[32], float (&dp)[32], int qt) {
 #pragma unroll
     for (int ks = 0; ks < DT / 16; ++ks)
-      wgmma_ss(s, kmajor_desc<64>(cK, ks), kmajor_desc<64>(stage(sQ, qt), ks),
+      wgmma_ss<T>(s, kmajor_desc<64>(cK, ks), kmajor_desc<64>(stage(sQ, qt), ks),
                ks > 0);
 #pragma unroll
     for (int ks = 0; ks < DT / 16; ++ks)
-      wgmma_ss(dp, kmajor_desc<64>(cV, ks), kmajor_desc<64>(stage(sO, qt), ks),
+      wgmma_ss<T>(dp, kmajor_desc<64>(cV, ks), kmajor_desc<64>(stage(sO, qt), ks),
                ks > 0);
     wgmma_commit();
   };
   // acc += A B of tile qt, B = dO or Q MN-major (issued, committed)
   auto issue_rs = [&](float (&acc)[HB][32], const uint32_t (&a4)[4][4],
-                      const bf16* ring, int qt) {
+                      const T* ring, int qt) {
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk)
 #pragma unroll
       for (int nh = 0; nh < HB; ++nh)
-        wgmma_rs(acc[nh], a4[kk], mnmajor_desc<64>(stage(ring, qt), kk, nh));
+        wgmma_rs<T>(acc[nh], a4[kk], mnmajor_desc<64>(stage(ring, qt), kk, nh));
     wgmma_commit();
   };
   // Whether the diagonal or the end of S cuts tile qt, and whether it
@@ -1920,7 +1981,7 @@ __global__ void __launch_bounds__(DkvWg<DT, NC>::Shape::THREADS, 1)
       const float* cL = sL + st * WG_TILE;
       const float* cDl = sDl + st * WG_TILE;
 
-      // P^T = exp(S^T - lse), rounded to bf16; dV += P^T dO
+      // P^T = exp(S^T - lse), rounded to T; dV += P^T dO
       const bool edge = edge_tile(qt);
       if (!edge && ragged_tile(qt)) {
 #pragma unroll
@@ -1950,11 +2011,11 @@ __global__ void __launch_bounds__(DkvWg<DT, NC>::Shape::THREADS, 1)
                              LOG2E
                        : fmaf(x, scl, -cL[c] * LOG2E));
         }
-      acc_to_a_wg(pa, s);
+      acc_to_a_wg<T>(pa, s);
       wgmma_fence();
       issue_rs(dv, pa, sO, qt);
 
-      // dS^T = P^T (dP^T - delta) scale, rounded to bf16 once dK of the
+      // dS^T = P^T (dP^T - delta) scale, rounded to T once dK of the
       // last tile has let go of da (and of its stage)
 #pragma unroll
       for (int j = 0; j < 8; ++j)
@@ -1965,7 +2026,7 @@ __global__ void __launch_bounds__(DkvWg<DT, NC>::Shape::THREADS, 1)
               a.scale;
       wgmma_wait<1>();
       if (qt > qb) release(qt - 1);
-      acc_to_a_wg(da, dp);
+      acc_to_a_wg<T>(da, dp);
 
       if constexpr (decltype(next)::value) wait_full(qt + 1);
       wgmma_fence();  // after the wait: no loop between fence and wgmma
@@ -1999,8 +2060,8 @@ __global__ void __launch_bounds__(DkvWg<DT, NC>::Shape::THREADS, 1)
     release(qt);
   }
 
-  bf16* dK = (bf16*)a.out0 + (size_t)bh * S * D;
-  bf16* dV = (bf16*)a.out1 + (size_t)bh * S * D;
+  T* dK = (T*)a.out0 + (size_t)bh * S * D;
+  T* dV = (T*)a.out1 + (size_t)bh * S * D;
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int row = kw + rw + g + 8 * h;
@@ -2046,8 +2107,9 @@ int launch_grid(dim3 grid, int nthreads, size_t smem, const Args& a,
 
 template <typename T, int BR, int DT>
 int launch(int which, const Args& a, cudaStream_t stream) {
-  if constexpr (std::is_same_v<T, bf16> && DT <= 128) {
-    return (int)cudaErrorInvalidValue;  // bf16 at D <= 128: tensor cores only
+  if constexpr (sizeof(T) == 2 && DT <= 128) {
+    // bf16 and float16 at D <= 128: tensor cores only
+    return (int)cudaErrorInvalidValue;
   } else {
     const size_t smem = smem_bytes<BR, DT>(which);
     const dim3 grid((unsigned)a.bh * (unsigned)((a.S + BR - 1) / BR));
@@ -2073,7 +2135,7 @@ int launch(int which, const Args& a, cudaStream_t stream) {
   }
 }
 
-// The CUDA-core kernels: float32 or bf16, D <= 1792 (the header gives
+// The CUDA-core kernels: float32, bf16 or float16, D <= 1792 (the header gives
 // each rung's tile rows and shared memory).
 template <typename T>
 int dispatch_d(int which, const Args& a, cudaStream_t stream) {
@@ -2086,16 +2148,16 @@ int dispatch_d(int which, const Args& a, cudaStream_t stream) {
 }
 
 // dq_tc_kernel over a grid of (bh, 64-row tiles of S).
-template <int DT>
+template <typename T, int DT>
 int launch_dq_tc(const Args& a, cudaStream_t stream) {
   constexpr int NW = 4, BM = 16 * NW;
-  constexpr size_t smem = sizeof(bf16) * 4 * TC_BN * DT;
+  constexpr size_t smem = sizeof(T) * 4 * TC_BN * DT;
   const int tiles = (a.S + BM - 1) / BM;
   if (tiles > 65535) return (int)cudaErrorInvalidValue;
-  const int err = allow_smem<dq_tc_kernel<DT, NW>>(smem);
+  const int err = allow_smem<dq_tc_kernel<T, DT, NW>>(smem);
   if (err != cudaSuccess) return err;
-  dq_tc_kernel<DT, NW><<<dim3((unsigned)a.bh, (unsigned)tiles), 32 * NW, smem,
-                         stream>>>(a);
+  dq_tc_kernel<T, DT, NW><<<dim3((unsigned)a.bh, (unsigned)tiles), 32 * NW,
+                            smem, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -2126,22 +2188,26 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
-// A (bh, S, D) bf16 operand as a 3-D tensor map, built at each launch and
-// passed to the kernel by value (so a CUDA graph captures it with the
-// launch): boxes of `rows` rows x 64 columns of one head, 128-byte swizzled;
-// rows past S and columns past D arrive as zeros (a 2-D (bh S, D) view
-// would read the next head's rows into a ragged tile).
+// A (bh, S, D) T operand (bf16 or float16) as a 3-D tensor map, built at
+// each launch and passed to the kernel by value (so a CUDA graph captures
+// it with the launch): boxes of `rows` rows x 64 columns of one head,
+// 128-byte swizzled; rows past S and columns past D arrive as zeros (a
+// 2-D (bh S, D) view would read the next head's rows into a ragged tile).
+template <typename T>
 int tile_map(CUtensorMap* map, const void* base, const Args& a,
              int rows = 64) {
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return (int)cudaErrorInvalidValue;
   const cuuint64_t dims[3] = {(cuuint64_t)a.D, (cuuint64_t)a.S,
                               (cuuint64_t)a.bh};
-  const cuuint64_t strides[2] = {(cuuint64_t)a.D * sizeof(bf16),
-                                 (cuuint64_t)a.S * a.D * sizeof(bf16)};
+  const cuuint64_t strides[2] = {(cuuint64_t)a.D * sizeof(T),
+                                 (cuuint64_t)a.S * a.D * sizeof(T)};
   const cuuint32_t box[3] = {64, (cuuint32_t)rows, 1}, unit[3] = {1, 1, 1};
   const CUresult res = encode(
-      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims,
+      map,
+      kF16<T> ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
+              : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+      3, const_cast<void*>(base), dims,
       strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
       CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
       CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
@@ -2181,7 +2247,7 @@ int sm_count() {
   return n;
 }
 
-template <int DT>
+template <typename T, int DT>
 int launch_fwd_wg(const Args& a, cudaStream_t stream) {
   using L = FwdWg<DT, FWD_WGS>;
   CUtensorMap tq, tk, tv;
@@ -2189,63 +2255,67 @@ int launch_fwd_wg(const Args& a, cudaStream_t stream) {
       (long long)a.bh * ((a.S + WG_TILE * FWD_WGS - 1) / (WG_TILE * FWD_WGS));
   const int blocks = items < sm_count() ? (int)items : sm_count();
   int err = blocks <= 0 || items > INT32_MAX ? (int)cudaErrorInvalidValue : 0;
-  if (!err) err = tile_map(&tq, a.q, a);
-  if (!err) err = tile_map(&tk, a.k, a, L::BN);
-  if (!err) err = tile_map(&tv, a.v, a, L::BN);
+  if (!err) err = tile_map<T>(&tq, a.q, a);
+  if (!err) err = tile_map<T>(&tk, a.k, a, L::BN);
+  if (!err) err = tile_map<T>(&tv, a.v, a, L::BN);
   if (!err)
-    err = check_registers<fwd_wg_kernel<DT, FWD_WGS>, typename L::Shape>();
-  if (!err) err = allow_smem<fwd_wg_kernel<DT, FWD_WGS>>(L::BYTES);
+    err = check_registers<fwd_wg_kernel<T, DT, FWD_WGS>, typename L::Shape>();
+  if (!err) err = allow_smem<fwd_wg_kernel<T, DT, FWD_WGS>>(L::BYTES);
   if (err) return err;
-  fwd_wg_kernel<DT, FWD_WGS><<<blocks, L::Shape::THREADS, L::BYTES,
+  fwd_wg_kernel<T, DT, FWD_WGS><<<blocks, L::Shape::THREADS, L::BYTES,
                                stream>>>(
       a, tq, tk, tv);
   return (int)cudaGetLastError();
 }
 
-template <int DT>
+template <typename T, int DT>
 int launch_dkv_wg(const Args& a, cudaStream_t stream) {
   using L = DkvWg<DT, DKV_WGS>;
   CUtensorMap tq, tk, tv, tdo;
   const int tiles = (a.S + WG_TILE * DKV_WGS - 1) / (WG_TILE * DKV_WGS);
   int err = tiles > 65535 ? (int)cudaErrorInvalidValue : 0;
-  if (!err) err = tile_map(&tq, a.q, a);
-  if (!err) err = tile_map(&tk, a.k, a);
-  if (!err) err = tile_map(&tv, a.v, a);
-  if (!err) err = tile_map(&tdo, a.dout, a);
+  if (!err) err = tile_map<T>(&tq, a.q, a);
+  if (!err) err = tile_map<T>(&tk, a.k, a);
+  if (!err) err = tile_map<T>(&tv, a.v, a);
+  if (!err) err = tile_map<T>(&tdo, a.dout, a);
   if (!err)
-    err = check_registers<dkv_wg_kernel<DT, DKV_WGS>, typename L::Shape>();
-  if (!err) err = allow_smem<dkv_wg_kernel<DT, DKV_WGS>>(L::BYTES);
+    err = check_registers<dkv_wg_kernel<T, DT, DKV_WGS>, typename L::Shape>();
+  if (!err) err = allow_smem<dkv_wg_kernel<T, DT, DKV_WGS>>(L::BYTES);
   if (err) return err;
-  dkv_wg_kernel<DT, DKV_WGS><<<dim3((unsigned)a.bh, (unsigned)tiles),
+  dkv_wg_kernel<T, DT, DKV_WGS><<<dim3((unsigned)a.bh, (unsigned)tiles),
                                L::Shape::THREADS, L::BYTES, stream>>>(
       a, tq, tk, tv, tdo);
   return (int)cudaGetLastError();
 }
 
-// The tensor-core kernels: bf16, D <= 128, read through TMA: D a multiple
-// of 8 and 16-byte aligned bases (the wrapper pads any other D).
+// The tensor-core kernels: bf16 or float16, D <= 128, read through TMA: D a
+// multiple of 8 and 16-byte aligned bases (the wrapper pads any other D).
+template <typename T>
 int dispatch_tc(int which, const Args& a, cudaStream_t stream) {
   const uintptr_t ptrs = (uintptr_t)a.q | (uintptr_t)a.k | (uintptr_t)a.v |
                          (uintptr_t)a.dout;
   if (a.D % 8 != 0 || ptrs % 16 != 0) return (int)cudaErrorInvalidValue;
-  if (which == kFwd && a.D <= 64) return launch_fwd_wg<64>(a, stream);
-  if (which == kFwd && a.D <= 128) return launch_fwd_wg<128>(a, stream);
-  if (which == kDq && a.D <= 64) return launch_dq_tc<64>(a, stream);
-  if (which == kDq && a.D <= 128) return launch_dq_tc<128>(a, stream);
-  if (which == kDkv && a.D <= 64) return launch_dkv_wg<64>(a, stream);
-  if (which == kDkv && a.D <= 128) return launch_dkv_wg<128>(a, stream);
+  if (which == kFwd && a.D <= 64) return launch_fwd_wg<T, 64>(a, stream);
+  if (which == kFwd && a.D <= 128) return launch_fwd_wg<T, 128>(a, stream);
+  if (which == kDq && a.D <= 64) return launch_dq_tc<T, 64>(a, stream);
+  if (which == kDq && a.D <= 128) return launch_dq_tc<T, 128>(a, stream);
+  if (which == kDkv && a.D <= 64) return launch_dkv_wg<T, 64>(a, stream);
+  if (which == kDkv && a.D <= 128) return launch_dkv_wg<T, 128>(a, stream);
   return (int)cudaErrorInvalidValue;
 }
 
 // kind: 0 = float32 on CUDA cores, 1 = bf16 on CUDA cores (D > 128), 2 =
-// bf16 on tensor cores (D <= 128).  The caller chooses; a kind that does
-// not take the call returns cudaErrorInvalidValue.
+// bf16 on tensor cores (D <= 128), 3 = float16 on CUDA cores (D > 128), 4
+// = float16 on tensor cores (D <= 128).  The caller chooses; a kind that
+// does not take the call returns cudaErrorInvalidValue.
 int dispatch(int which, int kind, const Args& a, void* stream) {
   if (a.bh <= 0 || a.S <= 0 || a.D <= 0) return 0;  // nothing to do
   cudaStream_t st = (cudaStream_t)stream;
   if (kind == 0) return dispatch_d<float>(which, a, st);
   if (kind == 1) return dispatch_d<bf16>(which, a, st);
-  if (kind == 2) return dispatch_tc(which, a, st);
+  if (kind == 2) return dispatch_tc<bf16>(which, a, st);
+  if (kind == 3) return dispatch_d<f16>(which, a, st);
+  if (kind == 4) return dispatch_tc<f16>(which, a, st);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -78,8 +78,9 @@
 // current lanes as int8 values with their scales, placed the same way.
 // Each int8 element is converted to float32 where it is used.
 //
-// Takes float32 or bf16 pools (q, k_cur, v_cur and the output in the
-// pool's type), int8 pools with float32 or bf16 q (the output in q's
+// Takes float32, bf16 or float16 pools (q, k_cur, v_cur and the output in
+// the pool's type), int8 pools with float32, bf16 or float16 q (the
+// output in q's
 // type), any D <= 1024 (the templates' rows are DT = 16, 32, ...,
 // 1024 wide, D rounded up and the tail zero-filled; 16-byte copies where
 // a row is a whole number of 16-byte chunks, element copies otherwise;
@@ -91,6 +92,7 @@
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <stdint.h>
 #include <type_traits>
 
@@ -108,6 +110,7 @@ __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
+__device__ __forceinline__ float to_f(__half x) { return __half2float(x); }
 __device__ __forceinline__ float to_f(int8_t x) { return (float)x; }
 template <typename T> __device__ __forceinline__ T from_f(float v);
 template <> __device__ __forceinline__ float from_f<float>(float v) {
@@ -116,6 +119,9 @@ template <> __device__ __forceinline__ float from_f<float>(float v) {
 template <>
 __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
   return __float2bfloat16_rn(v);
+}
+template <> __device__ __forceinline__ __half from_f<__half>(float v) {
+  return __float2half_rn(v);
 }
 template <> __device__ __forceinline__ int8_t from_f<int8_t>(float v) {
   return (int8_t)v;
@@ -135,6 +141,16 @@ __device__ __forceinline__ void load_chunk(const __nv_bfloat16* p,
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const float2 t = __bfloat1622float2(h[i]);
+    f[2 * i] = t.x;
+    f[2 * i + 1] = t.y;
+  }
+}
+__device__ __forceinline__ void load_chunk(const __half* p, float (&f)[8]) {
+  const uint4 u = *reinterpret_cast<const uint4*>(p);
+  const __half2* h = reinterpret_cast<const __half2*>(&u);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 t = __half22float2(h[i]);
     f[2 * i] = t.x;
     f[2 * i + 1] = t.y;
   }
@@ -738,9 +754,10 @@ extern "C" {
 int paged_split_count(int d, int dtype, int n_blk, int blk_lo, int block,
                       int pairs, int n_sm) {
   const int dt = row_width(d);
-  if (dt == 0 || dtype < 0 || dtype > 3) return 0;
+  if (dt == 0 || dtype < 0 || dtype > 5) return 0;
   const int unit = (dtype == 0   ? warps_for<float>(dt)
                     : dtype == 1 ? warps_for<__nv_bfloat16>(dt)
+                    : dtype == 4 ? warps_for<__half>(dt)
                                  : warps_for<int8_t>(dt)) *
                    kTile;
   const int span = (n_blk - blk_lo) * block;
@@ -759,11 +776,11 @@ int paged_split_count(int d, int dtype, int n_blk, int blk_lo, int block,
 // q holds query positions [q0, q0 + nq) of the step's nc (its rows are
 // (S, n_kv, g, nq, D)); k_cur and v_cur hold all nc current lanes and
 // cur_mask is (nc, nc).
-// dtype: 0 float32, 1 bfloat16 (q, pools, k_cur, v_cur and the output);
-// 2 and 3 int8 pools and current lanes with float32 scales pool_ks,
-// pool_vs ((N + 1, n_kv, block)), k_cur_s, v_cur_s ((S, n_kv, nc)), q and
-// the output float32 (2) or bfloat16 (3); the scale pointers are unused
-// for 0 and 1.  window 0 means no window.  n_blk: the
+// dtype: 0 float32, 1 bfloat16, 4 float16 (q, pools, k_cur, v_cur and the
+// output); 2, 3 and 5 int8 pools and current lanes with float32 scales
+// pool_ks, pool_vs ((N + 1, n_kv, block)), k_cur_s, v_cur_s ((S, n_kv,
+// nc)), q and the output float32 (2), bfloat16 (3) or float16 (5); the
+// scale pointers are unused for 0, 1 and 4.  window 0 means no window.  n_blk: the
 // upper bound of the blocks read (the table width); the kernel reads
 // blocks [blk_lo, min(n_blk, ceil(max p_limit / block))).  ws: float32
 // workspace of S * n_kv * n_split * g * nq * (d + 2) elements.  Returns
@@ -778,7 +795,7 @@ int paged_attention(const void* q, const void* pool_k, const void* pool_v,
                     int trash, int n_blk, int blk_lo, int window,
                     int n_split, float scale, int dtype, void* stream) {
   const cudaStream_t st = (cudaStream_t)stream;
-  const int elem = dtype == 0 ? 4 : dtype == 1 ? 2 : 1;
+  const int elem = dtype == 0 ? 4 : dtype == 1 || dtype == 4 ? 2 : 1;
   const uintptr_t ptrs = (uintptr_t)pool_k | (uintptr_t)pool_v;
   const int vec = (d * elem) % 16 == 0 && ptrs % 16 == 0;
 #define PAGED_ARGS                                                         \
@@ -800,6 +817,8 @@ int paged_attention(const void* q, const void* pool_k, const void* pool_v,
   if (dtype == 1) PAGED_DISPATCH(__nv_bfloat16, __nv_bfloat16)
   if (dtype == 2) PAGED_DISPATCH(float, int8_t)
   if (dtype == 3) PAGED_DISPATCH(__nv_bfloat16, int8_t)
+  if (dtype == 4) PAGED_DISPATCH(__half, __half)
+  if (dtype == 5) PAGED_DISPATCH(__half, int8_t)
 #undef PAGED_DISPATCH
 #undef PAGED_ARGS
   return (int)cudaErrorInvalidValue;

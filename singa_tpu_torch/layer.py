@@ -470,3 +470,18 @@ class AvgPool2d(Pooling2d):
 class GlobalAvgPool2d(Layer):
     def forward(self, x):
         return autograd.reduce_mean(x, axes=(2, 3), keepdims=False)
+
+
+# The recurrent layers live beside the rnn ops, and MultiHeadAttention
+# beside the attention ops; both are re-exported here on first access, as
+# the JAX package's layer module does.
+def __getattr__(name):
+    if name in ("LSTM", "GRU", "RNN", "CudnnRNN"):
+        from .ops import rnn as rnn_ops
+
+        return getattr(rnn_ops, name)
+    if name == "MultiHeadAttention":
+        from .ops import attention as attn_ops
+
+        return attn_ops.MultiHeadAttention
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

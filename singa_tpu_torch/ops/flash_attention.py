@@ -15,11 +15,11 @@ wrapper            replaces (Pallas, TPU)      plain version
 
 A wrapper takes its plain version only for tensors on the CPU.  For CUDA
 tensors it launches the kernel that :func:`route` names or raises: there
-is no fallback.  bf16 with D <= 128 runs all three on the tensor cores
-(the forward and dK/dV as Hopper warpgroup kernels fed by TMA, which
-reads rows of whole 16-byte chunks: a D that is not a multiple of 8 goes
-through a zero-padded copy, which is exact); float32 and wider heads run
-on the CUDA cores.
+is no fallback.  bf16 and float16 with D <= 128 run all three on the
+tensor cores (the forward and dK/dV as Hopper warpgroup kernels fed by
+TMA, which reads rows of whole 16-byte chunks: a D that is not a
+multiple of 8 goes through a zero-padded copy, which is exact); float32
+and wider heads run on the CUDA cores.
 
 Conventions kept from the JAX package: the finite floor ``NEG_INF =
 -1e30`` (causal masking writes it, the running max starts at it); a row
@@ -42,7 +42,8 @@ from . import _build
 
 __all__ = [
     "NEG_INF", "MAX_HEAD_DIM", "TENSOR_CORE_MAX_HEAD_DIM", "F32_CUDA_CORE",
-    "BF16_CUDA_CORE", "BF16_TENSOR_CORE", "route",
+    "BF16_CUDA_CORE", "BF16_TENSOR_CORE", "F16_CUDA_CORE", "F16_TENSOR_CORE",
+    "TENSOR_CORE_KINDS", "route",
     "flash_attention", "flash_attention_lse",
     "flash_attention_op", "flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
     "flash_fwd_plain", "flash_bwd_dq_plain", "flash_bwd_dkv_plain",
@@ -59,33 +60,38 @@ MAX_HEAD_DIM = 1792
 TENSOR_CORE_MAX_HEAD_DIM = 128
 #: the kernels a C entry point launches (its ``kind`` argument)
 F32_CUDA_CORE, BF16_CUDA_CORE, BF16_TENSOR_CORE = 0, 1, 2
+F16_CUDA_CORE, F16_TENSOR_CORE = 3, 4
+TENSOR_CORE_KINDS = (BF16_TENSOR_CORE, F16_TENSOR_CORE)
+#: the 16-bit types' kinds: (CUDA cores, tensor cores)
+_HALF_KINDS = {torch.bfloat16: (BF16_CUDA_CORE, BF16_TENSOR_CORE),
+               torch.float16: (F16_CUDA_CORE, F16_TENSOR_CORE)}
 
 
 def route(dtype, d):
     """The ``kind`` of kernel that ``flash_fwd``, ``flash_bwd_dq`` and
     ``flash_bwd_dkv`` launch for CUDA tensors of this dtype and head dim:
 
-    * ``BF16_TENSOR_CORE``: bfloat16 with D <= 128 (``fwd_wg_kernel`` and
-      ``dkv_wg_kernel``: ``wgmma`` warpgroup tiles fed by TMA;
-      ``dq_tc_kernel``: ``mma.sync`` tiles; float32 sums);
+    * ``BF16_TENSOR_CORE`` / ``F16_TENSOR_CORE``: bfloat16 / float16
+      with D <= 128 (``fwd_wg_kernel`` and ``dkv_wg_kernel``: ``wgmma``
+      warpgroup tiles fed by TMA; ``dq_tc_kernel``: ``mma.sync`` tiles;
+      one source templated on the element type; float32 sums);
     * ``F32_CUDA_CORE``: float32, whose tensor-core products would be
       TF32 and miss the float32 tolerance;
-    * ``BF16_CUDA_CORE``: bfloat16 with 128 < D <= 1792 (``fwd_kernel``,
-      ``dq_kernel``, ``dkv_kernel``, past D = 512 their 8-row
-      ``*_narrow_kernel``: float32 FMAs, as for float32).
+    * ``BF16_CUDA_CORE`` / ``F16_CUDA_CORE``: bfloat16 / float16 with
+      128 < D <= 1792 (``fwd_kernel``, ``dq_kernel``, ``dkv_kernel``,
+      past D = 512 their 8-row ``*_narrow_kernel``: float32 FMAs, as for
+      float32).
 
     Raises TypeError for another dtype and ValueError for D > 1792."""
-    if dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"flash kernels take float32 or bfloat16, "
-                        f"got {dtype}")
+    if dtype != torch.float32 and dtype not in _HALF_KINDS:
+        raise TypeError(f"flash kernels take float32, bfloat16 or "
+                        f"float16, got {dtype}")
     if d > MAX_HEAD_DIM:
         raise ValueError(f"flash kernels take head dims up to "
                          f"{MAX_HEAD_DIM}, got {d}")
     if dtype == torch.float32:
         return F32_CUDA_CORE
-    if d <= TENSOR_CORE_MAX_HEAD_DIM:
-        return BF16_TENSOR_CORE
-    return BF16_CUDA_CORE
+    return _HALF_KINDS[dtype][d <= TENSOR_CORE_MAX_HEAD_DIM]
 
 
 # ------------------------------------------------------------ plain versions
@@ -237,7 +243,7 @@ def _tma_operands(kind, *ts):
     add nothing to QKᵀ, ``scale`` comes from the true D and the outputs'
     pad columns are dropped (``_unpad``)."""
     d = ts[0].shape[-1]
-    if kind != BF16_TENSOR_CORE or (
+    if kind not in TENSOR_CORE_KINDS or (
             d % 8 == 0 and all(t.data_ptr() % 16 == 0 for t in ts)):
         return ts
     out = []
@@ -310,7 +316,7 @@ def flash_fwd(q, k, v, kmask, qmask, qmap, scale, causal, window):
     out = _launch_fwd(_lib(), _stream(q), kind, q, k, v, kmask, qmask,
                       qmap, scale, causal, window)
     flash_fwd.launches += 1
-    flash_fwd.tensor_core_launches += kind == BF16_TENSOR_CORE
+    flash_fwd.tensor_core_launches += kind in TENSOR_CORE_KINDS
     return out
 
 
@@ -325,7 +331,7 @@ def flash_bwd_dq(q, k, v, kmask, qmask, qmap, scale, causal, window, do,
     dq = _launch_dq(_lib(), _stream(q), kind, q, k, v, kmask, qmask, qmap,
                     scale, causal, window, do, lse, delta)
     flash_bwd_dq.launches += 1
-    flash_bwd_dq.tensor_core_launches += kind == BF16_TENSOR_CORE
+    flash_bwd_dq.tensor_core_launches += kind in TENSOR_CORE_KINDS
     return dq
 
 
@@ -340,7 +346,7 @@ def flash_bwd_dkv(q, k, v, kmask, qmask, qmap, scale, causal, window, do,
     out = _launch_dkv(_lib(), _stream(q), kind, q, k, v, kmask, qmask,
                       qmap, scale, causal, window, do, lse, delta)
     flash_bwd_dkv.launches += 1
-    flash_bwd_dkv.tensor_core_launches += kind == BF16_TENSOR_CORE
+    flash_bwd_dkv.tensor_core_launches += kind in TENSOR_CORE_KINDS
     return out
 
 

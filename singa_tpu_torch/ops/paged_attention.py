@@ -65,10 +65,10 @@ NEG_INF = -1e30
 #: widest head the kernel takes (its rows are 16, 32, ..., 1024 wide; a
 #: float32 row of 2048 would need 256 KB of shared memory for one tile)
 MAX_HEAD_DIM = 1024
-#: the C entry's dtype codes: (q, pool) float32, bf16; int8 pools with
-#: float32 q, with bf16 q
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_INT8_CODES = {torch.float32: 2, torch.bfloat16: 3}
+#: the C entry's dtype codes: (q, pool) float32, bf16, float16; int8
+#: pools with float32, bf16 or float16 q
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 4}
+_INT8_CODES = {torch.float32: 2, torch.bfloat16: 3, torch.float16: 5}
 
 
 def max_rows(d):
@@ -222,8 +222,8 @@ def _check_cuda(q, pool_k, pool_v, tables, p_limit, k_cur, v_cur, cur_mask,
     code."""
     quant = isinstance(pool_k, tuple)
     if q.dtype not in _DTYPES:
-        raise TypeError(f"paged_attn takes float32 or bfloat16 q, got "
-                        f"{q.dtype}")
+        raise TypeError(f"paged_attn takes float32, bfloat16 or float16 "
+                        f"q, got {q.dtype}")
     s_, n_kv, g, nq, d = q.shape
     if not 1 <= d <= MAX_HEAD_DIM:
         raise ValueError(f"paged_attn takes head dims up to {MAX_HEAD_DIM}, "

@@ -13,7 +13,6 @@ from __future__ import annotations
 import math
 
 import torch
-from torch.utils.checkpoint import checkpoint
 
 from .. import amp, autograd, initializer
 from ..device import device_of
@@ -211,7 +210,9 @@ def _attention_plain(q, k, v, *mask, scale, causal, window):
         sc = torch.where(cm, sc, torch.full_like(sc, -1e30))
     p = torch.exp(sc - sc.amax(-1, keepdim=True))
     p = p / p.sum(-1, keepdim=True)
-    return torch.einsum("bhst,bhtd->bhsd", p, v)
+    # a float32 mask over bf16 scores promotes p to float32, and then the
+    # product too, as jnp's type promotion does
+    return torch.einsum("bhst,bhtd->bhsd", p, v.to(p.dtype))
 
 
 def _sdpa(q, k, v, mask, causal, remat=False, use_flash=False,
@@ -231,5 +232,5 @@ def _sdpa(q, k, v, mask, causal, remat=False, use_flash=False,
     kw = dict(scale=1.0 / math.sqrt(q.shape[-1]), causal=causal,
               window=window)
     if remat:
-        return checkpoint(_attention_plain, *xs, use_reentrant=False, **kw)
+        return autograd.checkpoint_op(_attention_plain, *xs, **kw)
     return _attention_plain(*xs, **kw)

@@ -2,13 +2,14 @@
 them in a profile; no GPU needed.
 
 ``singa_tpu_torch.ops.flash_attention.route`` is the one rule, and
-returns the C entry points' ``kind``: bf16 with D <= 128 runs the
-forward, dQ and dK/dV on the tensor-core kernels (``fwd_wg_kernel`` and
-``dkv_wg_kernel``, Hopper's wgmma warpgroups fed by TMA, and
-``dq_tc_kernel`` on mma.sync; a D that is not a multiple of 8 through a
-zero-padded copy); float32 and bf16 with 128 < D <= 1792 run the
-CUDA-core kernels (past D = 512 their 8-row rung); anything else
-raises.  The build check refuses a tensor-core kernel without
+returns the C entry points' ``kind``: bf16 and float16 with D <= 128 run
+the forward, dQ and dK/dV on the tensor-core kernels (``fwd_wg_kernel``
+and ``dkv_wg_kernel``, Hopper's wgmma warpgroups fed by TMA, and
+``dq_tc_kernel`` on mma.sync, each instantiated for both types; a D
+that is not a multiple of 8 through a zero-padded copy); float32, and
+bf16 and float16 with 128 < D <= 1792, run the CUDA-core kernels (past
+D = 512 their 8-row rung); another dtype (float64, integers) raises
+``TypeError``.  The build check refuses a tensor-core kernel without
 tensor-core instructions, and a ``*_wg_kernel`` without HGMMA and
 UTMALDG.  The
 kernels themselves are held against their plain versions on the card
@@ -31,6 +32,7 @@ CU = (pathlib.Path(__file__).resolve().parents[1] / "singa_tpu_torch" /
 
 TC, BF16_CC, F32_CC = (tfa.BF16_TENSOR_CORE, tfa.BF16_CUDA_CORE,
                       tfa.F32_CUDA_CORE)
+F16_TC, F16_CC = tfa.F16_TENSOR_CORE, tfa.F16_CUDA_CORE
 
 
 @pytest.mark.parametrize("dtype,d,want", [
@@ -55,6 +57,13 @@ TC, BF16_CC, F32_CC = (tfa.BF16_TENSOR_CORE, tfa.BF16_CUDA_CORE,
     (torch.float32, 257, F32_CC),
     (torch.float32, 512, F32_CC),
     (torch.float32, 1024, F32_CC),
+    (torch.float16, 1, F16_TC),
+    (torch.float16, 13, F16_TC),
+    (torch.float16, 64, F16_TC),
+    (torch.float16, 128, F16_TC),
+    (torch.float16, 129, F16_CC),
+    (torch.float16, 640, F16_CC),
+    (torch.float16, 1792, F16_CC),
 ])
 def test_route(dtype, d, want):
     assert tfa.route(dtype, d) == want
@@ -66,12 +75,15 @@ def test_route_kinds_are_the_c_dispatchs():
     src = CU.read_text()
     for kind, target in ((F32_CC, "dispatch_d<float>"),
                          (BF16_CC, "dispatch_d<bf16>"),
-                         (TC, "dispatch_tc")):
+                         (TC, "dispatch_tc<bf16>"),
+                         (F16_CC, "dispatch_d<f16>"),
+                         (F16_TC, "dispatch_tc<f16>")):
         assert re.search(rf"if \(kind == {kind}\) return {re.escape(target)}"
                          rf"\(which", src), (kind, target)
 
 
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32,
+                                   torch.float16])
 @pytest.mark.parametrize("d", [1793, 2048])
 def test_route_raises_past_the_widest_head(dtype, d):
     with pytest.raises(ValueError, match="head dims up to 1792"):
@@ -105,8 +117,11 @@ def test_every_cuda_core_rung_fits_shared_memory():
 
 
 def test_route_raises_on_other_dtypes():
-    with pytest.raises(TypeError, match="float32 or bfloat16"):
-        tfa.route(torch.float16, 64)
+    """float16 has its own kinds (above); float64 and integer types
+    raise."""
+    for dtype in (torch.float64, torch.int32):
+        with pytest.raises(TypeError, match="float32, bfloat16 or float16"):
+            tfa.route(dtype, 64)
 
 
 def _global_functions(src):

@@ -13,12 +13,13 @@ kernel-vs-plain comparisons are ``chip_smoke.check_case`` over
 ``chip_smoke.bottleneck_edge_cases()`` (the ResNet bottleneck), with
 ``chip_smoke.check_paged_case`` over ``chip_smoke.paged_edge_cases()``
 (paged decode attention, allclose at ``chip_smoke.PAGED_TOL``: float32
-2e-5, bf16 1e-2, by q's dtype on int8 pools too; the cases take one
-split of the key range or several),
+2e-5, bf16 1e-2, float16 2e-3, by q's dtype on int8 pools too; the
+cases take one split of the key range or several),
 with their tolerances (``chip_smoke.TOL``): flash
 attention allclose with
-float32 rtol = atol = 1e-4 and bf16 rtol = atol = 2e-2 (bf16 with
-D <= 128 runs the tensor-core kernels); the bottleneck
+float32 rtol = atol = 1e-4, bf16 rtol = atol = 2e-2 and float16 rtol =
+atol = 1e-2 (bf16 and float16 with D <= 128 run the tensor-core
+kernels); the bottleneck
 per element (``chip_smoke.bottleneck_stats``: within 1 bf16 ulp +
 2^-7 rms, at most 0.2% of elements differing at all).
 """
@@ -47,7 +48,7 @@ def _rand(rng, *shape):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
 @pytest.mark.parametrize("name,case", [
     pytest.param(name, case, id=name)
     for name, case in chip_smoke.edge_cases()])
@@ -72,11 +73,13 @@ def test_cuda_tensors_launch_each_kernel_once(cuda_device):
 
 @pytest.mark.cuda
 def test_bf16_calls_take_the_tensor_core_route(cuda_device):
-    """bf16 at D = 64 runs the forward, dQ and dK/dV on the tensor-core
-    kernels; float32 runs the CUDA-core ones and leaves those counters."""
+    """bf16 and float16 at D = 64 run the forward, dQ and dK/dV on the
+    tensor-core kernels; float32 runs the CUDA-core ones and leaves those
+    counters."""
     rng = np.random.RandomState(0)
     counters = (tfa.flash_fwd, tfa.flash_bwd_dq, tfa.flash_bwd_dkv)
-    for dtype, moved in ((torch.bfloat16, 1), (torch.float32, 0)):
+    for dtype, moved in ((torch.bfloat16, 1), (torch.float16, 1),
+                         (torch.float32, 0)):
         q, k, v = (torch.tensor(_rand(rng, B, H, 64, 64), device=cuda_device)
                    .to(dtype).requires_grad_(True) for _ in range(3))
         before = [c.tensor_core_launches for c in counters]
@@ -89,13 +92,14 @@ def test_bf16_calls_take_the_tensor_core_route(cuda_device):
 @pytest.mark.cuda
 def test_unsupported_inputs_raise(cuda_device):
     """Past D = 1792 (the CUDA-core kernels' widest rung, 8 rows a tile;
-    D = 640 to 1792 are edge cases above), another dtype, and malformed
+    D = 640 to 1792 are edge cases above), another dtype (float64:
+    float16 runs, in the kernel-vs-plain cases above), and malformed
     lse / delta raise."""
     q = torch.zeros(1, 8, 1800, device=cuda_device)
     with pytest.raises(ValueError, match="head dims up to 1792"):
         tfa.flash_fwd(q, q, q, None, None, None, 1.0, False, None)
-    h = torch.zeros(1, 8, 64, device=cuda_device, dtype=torch.float16)
-    with pytest.raises(TypeError, match="float32 or bfloat16"):
+    h = torch.zeros(1, 8, 64, device=cuda_device, dtype=torch.float64)
+    with pytest.raises(TypeError, match="float32, bfloat16 or float16"):
         tfa.flash_fwd(h, h, h, None, None, None, 1.0, False, None)
     # lse and delta are read as raw float arrays: wrong dtype, layout or
     # contiguity raises instead of reading out of bounds
@@ -139,16 +143,37 @@ TENSOR_CORE_CASES = [(name, case) for name, case in chip_smoke.edge_cases()
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
 @pytest.mark.parametrize("name,case", [
     pytest.param(name, case, id=name) for name, case in TENSOR_CORE_CASES])
-def test_bf16_edge_cases_run_the_hopper_kernels(cuda_device, name, case):
-    """Every bf16 edge case with D <= 128 matches the plain versions at
-    ``chip_smoke.TOL`` through one launch each of the tensor-core route:
-    ``fwd_wg_kernel``, ``dq_tc_kernel``, ``dkv_wg_kernel``."""
+def test_bf16_edge_cases_run_the_hopper_kernels(cuda_device, dtype, name,
+                                                case):
+    """Every bf16 and float16 edge case with D <= 128 matches the plain
+    versions at ``chip_smoke.TOL`` through one launch each of the
+    tensor-core route: ``fwd_wg_kernel``, ``dq_tc_kernel``,
+    ``dkv_wg_kernel``."""
     counters = (tfa.flash_fwd, tfa.flash_bwd_dq, tfa.flash_bwd_dkv)
     before = [c.tensor_core_launches for c in counters]
-    chip_smoke.check_case(f"{name}/bfloat16", dtype=torch.bfloat16, seed=0,
-                          **case)
+    chip_smoke.check_case(f"{name}/{dtype}", dtype=getattr(torch, dtype),
+                          seed=0, **case)
+    assert [c.tensor_core_launches - b
+            for c, b in zip(counters, before)] == [1, 1, 1]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
+@pytest.mark.parametrize("masked", [False, True], ids=["no_mask", "ragged"])
+def test_bert_shape_matches_plain(cuda_device, dtype, masked):
+    """BERT-base's attention (16 x 12 x 512 x 64, non-causal) matches the
+    plain versions at ``chip_smoke.TOL`` on the tensor-core route: with
+    no mask, as a training step runs it, and under a ragged key-padding
+    mask, as an ``attention_mask`` gives it."""
+    sh = chip_smoke.BERT_SHAPE
+    mask = chip_smoke.bert_key_mask(sh["b"], sh["s"]) if masked else None
+    counters = (tfa.flash_fwd, tfa.flash_bwd_dq, tfa.flash_bwd_dkv)
+    before = [c.tensor_core_launches for c in counters]
+    chip_smoke.check_case(f"bert_base/{dtype}", dtype=getattr(torch, dtype),
+                          seed=1, mask=mask, **sh)
     assert [c.tensor_core_launches - b
             for c, b in zip(counters, before)] == [1, 1, 1]
 
@@ -243,7 +268,7 @@ def test_bottleneck_unsupported_inputs_raise(cuda_device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
 @pytest.mark.parametrize("seed,name,case", [
     pytest.param(seed, name, case, id=name)
     for seed, (name, case) in enumerate(chip_smoke.paged_edge_cases())])
@@ -253,13 +278,14 @@ def test_paged_kernel_matches_plain(cuda_device, dtype, seed, name, case):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
 @pytest.mark.parametrize("seed,name,case", [
     pytest.param(seed, name, case, id=name)
     for seed, (name, case) in enumerate(chip_smoke.paged_edge_cases())])
 def test_paged_int8_kernel_matches_plain(cuda_device, dtype, seed, name,
                                          case):
-    """int8 pools ((values, scales) pairs) with float32 or bf16 q."""
+    """int8 pools ((values, scales) pairs) with float32, bf16 or
+    float16 q."""
     chip_smoke.check_paged_case(f"{name}/int8/{dtype}",
                                 getattr(torch, dtype), seed, quant=True,
                                 **case)
@@ -380,14 +406,15 @@ def test_zoo_model_captured_steps_equal_eager(cuda_device):
     """MobileNetV2 (width 0.25, depthwise convs, batch norm, dropout) on
     the card: four graph-mode steps (eager, captured, two replays) equal
     four eager steps from the same state and generator seed, losses and
-    weights within rtol 1e-5.  cuDNN runs deterministic algorithms: left
+    weights within rtol 1e-5.  Deterministic algorithms run
+    (``chip_smoke.deterministic``, cuDNN's among them): cuDNN left
     to its own choice in float32 at this size, the two runs differed by
     7e-5 of the loss after one step and 1% after three, which batch norm
     at batch 32 grows from a sum taken in another order."""
     build, x, y, dev = _zoo_on_card("mobilenet", "mobilenet_v2",
                                     dict(num_classes=10, width_mult=0.25),
                                     (3, 64, 64), 10)
-    with chip_smoke.cudnn_deterministic():
+    with chip_smoke.deterministic():
         graph = build(True)
         eager = build(False)
         eager.set_states({k: v.detach().clone()

@@ -14,7 +14,10 @@ rounding is held on the card (tests/test_torch_kernels_cuda.py,
 flash attention (the tensor-core route: ``fwd_wg_kernel``,
 ``dq_tc_kernel``, ``dkv_wg_kernel``, D = 13 padded as the wrapper pads
 it; the CUDA-core kernels at D = 512
-and their 8-row rung at D = 640 and 1024, there in float32 too), the
+and their 8-row rung at D = 640 and 1024, there in float32 too), and
+float16 for four flash cases (the Hopper kernels' float16
+instantiations, and the CUDA-core rung at D = 160) and two paged cases
+(float16 pools, and int8 pools with float16 q), the
 ragged and narrow ones for the bottleneck; for paged attention, the
 split and combine kernels in float32 and bf16 at ``chip_smoke.PAGED_TOL``,
 launched as the wrapper launches them (the table width as the bound of
@@ -45,6 +48,9 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 FLASH = ("s65_causal", "s129_causal", "d13_s100", "window1", "neg_inf_row",
          "general_mask_mBH", "d512_window", "d640_window",
          "d1024_general_mask")
+#: float16: the Hopper kernels past a tile's edge, with D padded, under a
+#: general mask, and the CUDA-core rung at D = 160
+FLASH_F16 = ("s65_causal", "d13_s100", "general_mask_mBH", "d160_window")
 BOTTLENECK = ("hw7_bands_ragged", "c128_cm32", "odd_h5_w9_cm8")
 PAGED = ("dead_slots_all_trash", "g3_q4_d128", "window_q4_g3", "d640",
          "d1024_g6", "g8_q4_32_rows", "q24_g2_window")
@@ -88,6 +94,33 @@ def test_flash_narrow_rung_matches_plain_in_float32(emu, build_dir,
     lib = emu.load("flash_attention", build_dir)
     res = emu.flash_case(lib, dtype=torch.float32, seed=seed, **kw)
     assert all(ok for _, ok in res.values()), res
+
+
+@pytest.mark.parametrize("name", FLASH_F16)
+def test_flash_kernels_match_plain_in_float16(emu, build_dir, cpu_inputs,
+                                              name):
+    """The float16 instantiations of the Hopper forward, dQ and dK/dV
+    (``f16`` operands of mma.sync and wgmma, float16 tensor maps), and
+    of the CUDA-core kernels past D = 128, at ``chip_smoke.TOL``'s
+    float16 tolerance."""
+    seed, kw = next((i, kw) for i, (n, kw)
+                    in enumerate(chip_smoke.edge_cases()) if n == name)
+    lib = emu.load("flash_attention", build_dir)
+    res = emu.flash_case(lib, dtype=torch.float16, seed=seed, **kw)
+    assert all(ok for _, ok in res.values()), res
+
+
+@pytest.mark.parametrize("quant", [False, True],
+                         ids=["float16_pools", "int8_pools_float16_q"])
+@pytest.mark.parametrize("name", ["g3_q4_d128", "long_beside_short"])
+def test_paged_kernels_match_plain_in_float16(emu, build_dir, cpu_inputs,
+                                              name, quant):
+    seed, kw = next((i, kw) for i, (n, kw)
+                    in enumerate(chip_smoke.paged_edge_cases())
+                    if n == name)
+    lib = emu.load("paged_attention", build_dir)
+    err, ok = emu.paged_case(lib, torch.float16, seed, quant=quant, **kw)
+    assert ok, err
 
 
 @pytest.mark.parametrize("name", BOTTLENECK)

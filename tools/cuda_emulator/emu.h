@@ -6,9 +6,9 @@
 //   * __syncthreads, __syncwarp, named barriers (bar.sync / bar.arrive) and
 //     the warp collectives are barriers over the block's or the warp's
 //     fibers;
-//   * ldmatrix (.x4, .trans), mma.sync.m16n8k16 (bf16, exact products summed
-//     in double: the tensor cores' truncation of a running sum is NOT
-//     modelled), __shfl_xor_sync, __shfl_sync (float);
+//   * ldmatrix (.x4, .trans), mma.sync.m16n8k16 (bf16 and f16, exact
+//     products summed in double: the tensor cores' truncation of a running
+//     sum is NOT modelled), __shfl_xor_sync, __shfl_sync (float);
 //   * cp.async reads its source when issued and writes shared memory only
 //     at the cp.async.wait_group that retires it, so a read before the wait
 //     sees stale data; shared memory starts as garbage (0xA5), not zeros;
@@ -18,7 +18,8 @@
 //     them), TMA tiled loads through a host-side stub of
 //     cuTensorMapEncodeTiled (the box copied with zero fill past the
 //     tensor and the 128-byte swizzle, its bytes credited to the barrier),
-//     and wgmma m64n64k16 (SS and RS) and m64n128k16 (SS) as a collective of the warpgroup's
+//     and wgmma m64n64k16 (SS and RS) and m64n128k16 (SS), bf16 or f16
+//     operands (the helper's template type), as a collective of the warpgroup's
 //     128 threads that decodes the shared-memory descriptors and reads
 //     its operands at wgmma.wait_group, not at issue, so a stage
 //     overwritten before the wait gives wrong sums; setmaxnreg and the
@@ -80,11 +81,42 @@ inline __nv_bfloat16 __float2bfloat16_rn(float f) {
 inline __nv_bfloat162 __floats2bfloat162_rn(float a, float b) { return {__float2bfloat16_rn(a), __float2bfloat16_rn(b)}; }
 inline float2 __bfloat1622float2(__nv_bfloat162 h) { return {__bfloat162float(h.x), __bfloat162float(h.y)}; }
 
+// IEEE binary16: 1 sign, 5 exponent (bias 15), 10 mantissa bits;
+// subnormals below 2^-14, round to nearest even
+struct __half { uint16_t v; };
+struct __half2 { __half x, y; };
+inline float __half2float(__half h) {
+  const uint32_t sign = (uint32_t)(h.v >> 15) << 31, e = (h.v >> 10) & 31, m = h.v & 1023;
+  float f;
+  if (e == 31) { uint32_t u = sign | 0x7f800000u | (m << 13); memcpy(&f, &u, 4); return f; }
+  if (e == 0) f = std::ldexp((float)m, -24);
+  else f = std::ldexp((float)(m | 1024), (int)e - 25);
+  return sign ? -f : f;
+}
+inline __half __float2half_rn(float f) {
+  uint32_t u; memcpy(&u, &f, 4);
+  const uint16_t sign = (uint16_t)((u >> 16) & 0x8000);
+  if ((u & 0x7fffffffu) > 0x7f800000u) return {(uint16_t)(sign | 0x7e00)};
+  const float a = std::fabs(f);
+  if (a >= 65520.f) return {(uint16_t)(sign | 0x7c00)};  // rounds past the largest: inf
+  // the nearest multiple of the spacing at |f| (2^-24 below 2^-14), ties to even
+  int e; std::frexp(a, &e);  // a = m 2^e, m in [0.5, 1)
+  const int q = std::max(e - 11, -24);
+  const float steps = std::nearbyint(std::ldexp(a, -q));  // FE_TONEAREST: ties to even
+  const float r = std::ldexp(steps, q);
+  if (r == 0.f) return {sign};
+  int er; const float mr = std::frexp(r, &er);
+  if (er - 1 < -14) return {(uint16_t)(sign | (uint16_t)std::ldexp(r, 24))};
+  return {(uint16_t)(sign | (uint16_t)((er - 1 + 15) << 10) | ((uint16_t)std::ldexp(mr, 11) & 1023))};
+}
+inline __half2 __floats2half2_rn(float a, float b) { return {__float2half_rn(a), __float2half_rn(b)}; }
+inline float2 __half22float2(__half2 h) { return {__half2float(h.x), __half2float(h.y)}; }
+
 // ------------------------------------------------------------ fibers
 struct EmuCopy { void* dst; unsigned char data[16]; int n; };
 // one thread's share of an issued wgmma: its accumulator and (RS) A
 // registers, read and written when the group retires
-struct EmuWgmma { float* d; int n; const uint32_t* a; uint64_t da, db; int acc; };
+struct EmuWgmma { float* d; int n; const uint32_t* a; uint64_t da, db; int acc; bool f16; };
 struct EmuFiber {
   ucontext_t ctx; std::vector<char> stack; bool done = false; dim3 tid;
   std::vector<std::vector<EmuCopy>> groups; std::vector<EmuCopy> open;
@@ -165,8 +197,10 @@ inline void emu_ldsm(uint32_t (&r)[4], uint32_t addr, bool trans) {
 inline void ldsm_x4(uint32_t (&r)[4], uint32_t addr) { emu_ldsm(r, addr, false); }
 inline void ldsm_x4_t(uint32_t (&r)[4], uint32_t addr) { emu_ldsm(r, addr, true); }
 
-inline float emu_half(uint32_t v, int hi) { return __bfloat162float({(uint16_t)(hi ? v >> 16 : v & 0xffff)}); }
-inline void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
+// one 16-bit operand, bf16 or (f16) IEEE half, from its bits
+inline float emu_elt(uint16_t v, bool f16) { return f16 ? __half2float({v}) : __bfloat162float({v}); }
+inline float emu_half(uint32_t v, int hi, bool f16 = false) { return emu_elt((uint16_t)(hi ? v >> 16 : v & 0xffff), f16); }
+inline void emu_mma(float (&d)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1, bool f16) {
   EmuWarp& w = emu_warp(); int l = emu_lane();
   for (int i = 0; i < 4; ++i) { w.a[l][i] = a[i]; w.d[l][i] = d[i]; }
   w.b[l][0] = b0; w.b[l][1] = b1;
@@ -178,12 +212,14 @@ inline void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0, uint32_
     for (int k = 0; k < 16; ++k) {
       int al = (r & 7) * 4 + (k & 7) / 2, ar = (r >= 8 ? 1 : 0) + (k >= 8 ? 2 : 0);
       int bl = c * 4 + (k & 7) / 2, br = k >= 8 ? 1 : 0;
-      s += (double)emu_half(w.a[al][ar], k & 1) * emu_half(w.b[bl][br], k & 1);
+      s += (double)emu_half(w.a[al][ar], k & 1, f16) * emu_half(w.b[bl][br], k & 1, f16);
     }
     d[e] = (float)s;
   }
   emu_arrive(w.bar);
 }
+inline void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) { emu_mma(d, a, b0, b1, false); }
+inline void mma_f16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) { emu_mma(d, a, b0, b1, true); }
 inline float __shfl_xor_sync(unsigned, float v, int o) {
   EmuWarp& w = emu_warp(); int l = emu_lane();
   w.f[l] = v; emu_arrive(w.bar); float r = w.f[l ^ o]; emu_arrive(w.bar); return r;
@@ -253,7 +289,7 @@ enum { CUDA_SUCCESS = 0, CUDA_ERROR_INVALID_VALUE = 1 };
 typedef uint32_t cuuint32_t;
 typedef uint64_t cuuint64_t;
 struct alignas(64) CUtensorMap { uint64_t opaque[16]; };
-enum CUtensorMapDataType { CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 = 9 };
+enum CUtensorMapDataType { CU_TENSOR_MAP_DATA_TYPE_FLOAT16 = 6, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 = 9 };
 enum CUtensorMapInterleave { CU_TENSOR_MAP_INTERLEAVE_NONE = 0 };
 enum CUtensorMapSwizzle { CU_TENSOR_MAP_SWIZZLE_NONE = 0, CU_TENSOR_MAP_SWIZZLE_128B = 3 };
 enum CUtensorMapL2promotion { CU_TENSOR_MAP_L2_PROMOTION_NONE = 0, CU_TENSOR_MAP_L2_PROMOTION_L2_256B = 3 };
@@ -267,7 +303,7 @@ inline CUresult emu_encode_tiled(CUtensorMap* map, CUtensorMapDataType type, cuu
                                  const cuuint64_t* dim, const cuuint64_t* strides, const cuuint32_t* box,
                                  const cuuint32_t* estr, CUtensorMapInterleave, CUtensorMapSwizzle swz,
                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill) {
-  if (type != CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 || rank < 1 || rank > 5 || (uintptr_t)addr % 16) return CUDA_ERROR_INVALID_VALUE;
+  if ((type != CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 && type != CU_TENSOR_MAP_DATA_TYPE_FLOAT16) || rank < 1 || rank > 5 || (uintptr_t)addr % 16) return CUDA_ERROR_INVALID_VALUE;
   EmuTmap t{}; t.base = (const unsigned char*)addr; t.rank = rank; t.elsize = 2; t.swizzle = swz;
   t.stride[0] = t.elsize;
   for (cuuint32_t i = 0; i < rank; ++i) {
@@ -342,16 +378,17 @@ inline uint32_t emu_desc_addr(uint64_t desc, bool mn_major, int mn, int k) {
                               : start + (mn % 8) * 128 + (mn / 8) * sbo + k * 2;
   return emu_sw128(a);
 }
-inline float emu_smem_bf16(uint32_t addr) { uint16_t v; memcpy(&v, emu_smem_base + addr, 2); return __bfloat162float({v}); }
-template <int N>
+inline float emu_smem_elt(uint32_t addr, bool f16) { uint16_t v; memcpy(&v, emu_smem_base + addr, 2); return emu_elt(v, f16); }
+inline float emu_smem_bf16(uint32_t addr) { return emu_smem_elt(addr, false); }
+template <class T, int N>
 inline void emu_wgmma_issue(float (&d)[N], const uint32_t* a, uint64_t da, uint64_t db, int acc) {
-  emu_cur->wg_open.push_back(EmuWgmma{d, N, a, da, db, acc});
+  emu_cur->wg_open.push_back(EmuWgmma{d, N, a, da, db, acc, std::is_same<T, __half>::value});
 }
-// d (+)= A B^T: A and B K-major in shared memory, N = 64 or 128
-inline void wgmma_ss(float (&d)[32], uint64_t da, uint64_t db, int acc) { emu_wgmma_issue(d, nullptr, da, db, acc); }
-inline void wgmma_ss128(float (&d)[64], uint64_t da, uint64_t db, int acc) { emu_wgmma_issue(d, nullptr, da, db, acc); }
+// d (+)= A B^T: A and B (of T) K-major in shared memory, N = 64 or 128
+template <class T> inline void wgmma_ss(float (&d)[32], uint64_t da, uint64_t db, int acc) { emu_wgmma_issue<T>(d, nullptr, da, db, acc); }
+template <class T> inline void wgmma_ss128(float (&d)[64], uint64_t da, uint64_t db, int acc) { emu_wgmma_issue<T>(d, nullptr, da, db, acc); }
 // d += A B: A in registers, B MN-major in shared memory
-inline void wgmma_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t db) { emu_wgmma_issue(d, a, 0, db, 1); }
+template <class T> inline void wgmma_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t db) { emu_wgmma_issue<T>(d, a, 0, db, 1); }
 inline void wgmma_commit() {
   emu_cur->wg_groups.push_back(emu_cur->wg_open); emu_cur->wg_open.clear();
 }
@@ -373,11 +410,11 @@ inline void emu_wgmma_wait(size_t n) {
           float av;
           if (op.a) {
             const int r = row % 16, owner = (row / 16) * 32 + (r % 8) * 4 + (k % 8) / 2;
-            av = emu_half(G.a[owner][r / 8 + 2 * (k / 8)], k & 1);
+            av = emu_half(G.a[owner][r / 8 + 2 * (k / 8)], k & 1, op.f16);
           } else {
-            av = emu_smem_bf16(emu_desc_addr(op.da, false, row, k));
+            av = emu_smem_elt(emu_desc_addr(op.da, false, row, k), op.f16);
           }
-          s += (double)av * emu_smem_bf16(emu_desc_addr(op.db, op.a != nullptr, col, k));
+          s += (double)av * emu_smem_elt(emu_desc_addr(op.db, op.a != nullptr, col, k), op.f16);
         }
         out[e] = (float)s;
       }

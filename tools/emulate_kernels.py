@@ -5,17 +5,18 @@
     python3 tools/emulate_kernels.py [flash|bottleneck|paged] [CASE ...]
 
 Each ``singa_tpu_torch/csrc/<name>.cu`` is turned into C++ (the inline-PTX
-helpers ``smem_u32``, ``cp_async*``, ``ldsm_x4*``, ``mma_bf16``, ``ex2``
+helpers ``smem_u32``, ``cp_async*``, ``ldsm_x4*``, ``mma_bf16``,
+``mma_f16``, ``ex2``
 and Hopper's ``mbar_*``, ``tma_load_3d``, ``wgmma_*``, ``setmaxnreg_*``
 and ``fence_barrier_init`` give way to the emulator's, ``extern
 __shared__`` arrays point at its shared memory and ``<<<...>>>``
 launches call ``emu_launch``), built with
 the host's C++ compiler into ``_scratch/emulator`` (gitignored) and loaded
 with ctypes under the same C interface the GPU library has.  The CLI runs
-``chip_smoke.py``'s edge cases: every flash case in bf16 (the tensor-core
-kernels; float32 takes the CUDA-core ones), every bottleneck case, and
-every paged-attention case in float32 and bf16, and on int8 pools with
-float32 and bf16 q (flash launches go through the wrapper's own launch
+``chip_smoke.py``'s edge cases: every flash case in bf16 and float16 (the
+tensor-core kernels at D <= 128; float32 takes the CUDA-core ones), every bottleneck case, and
+every paged-attention case in float32, bf16 and float16, and on int8
+pools with float32, bf16 and float16 q (flash launches go through the wrapper's own launch
 helpers, so a D that is not a multiple of 8 is padded as on the card);
 it prints one line a case
 and exits 1 if any fails its tolerance (``chip_smoke.TOL``,
@@ -46,7 +47,8 @@ CXX_FLAGS = ("-std=c++17", "-O1", "-fPIC", "-shared", "-w")
 #: the sources' inline-PTX helpers, replaced by the emulator's
 _HELPERS = ("smem_u32", "cp_async16", "cp_async4", "cp_async_commit",
             "cp_async_wait", "cp_async_mbar_arrive",
-            "cp_async_wait_all", "ldsm_x4", "ldsm_x4_t", "mma_bf16", "ex2",
+            "cp_async_wait_all", "ldsm_x4", "ldsm_x4_t", "mma_bf16",
+            "mma_f16", "ex2",
             "mbar_init", "fence_barrier_init", "mbar_arrive",
             "mbar_arrive_expect_tx", "mbar_wait", "tma_load_3d",
             "named_bar_sync", "named_bar_arrive", "setmaxnreg_inc",
@@ -84,7 +86,7 @@ extern "C" int emu_tile_readback(const void* src, int S, int D, int dt,
   Args a = {};
   a.bh = 1; a.S = S; a.D = D;
   CUtensorMap map;
-  const int err = tile_map(&map, src, a);
+  const int err = tile_map<bf16>(&map, src, a);
   if (err) return err;
   return emu_launch(emu_readback_kernel, dim3(1), 1,
                     (dt / 64) * BOX_BYTES + 1024 + 8, nullptr, map, dt / 64,
@@ -103,9 +105,11 @@ unsigned char* emu_smem_base;
 
 def emulated_source(text):
     """The C++ for the emulator from the text of a ``csrc/*.cu`` file."""
-    text = re.sub(r"#include <(cuda|cuda_runtime|cuda_bf16)\.h>\n", "", text)
+    text = re.sub(r"#include <(cuda|cuda_runtime|cuda_bf16|cuda_fp16)\.h>\n",
+                  "", text)
     for name in _HELPERS:
-        m = re.search(r"(template <int N>\n)?__device__ __forceinline__ "
+        m = re.search(r"(template <(?:int N|typename T)>\n)?"
+                      r"__device__ __forceinline__ "
                       r"[\w ]+?\b" + name + r"\(", text)
         if not m:
             continue
@@ -299,9 +303,10 @@ def main(argv=None):
         for seed, (name, kw) in enumerate(cs.edge_cases()):
             if argv and name not in argv:
                 continue
-            res = flash_case(lib, dtype=torch.bfloat16, seed=seed, **kw)
-            failed += not all(ok for _, ok in res.values())
-            print(f"flash {name}: {res}", flush=True)
+            for dtype in (torch.bfloat16, torch.float16):
+                res = flash_case(lib, dtype=dtype, seed=seed, **kw)
+                failed += not all(ok for _, ok in res.values())
+                print(f"flash {name}/{str(dtype)[6:]}: {res}", flush=True)
     if which in (None, "bottleneck"):
         lib = load("resnet_bottleneck", out_dir)
         for seed, (name, kw) in enumerate(cs.bottleneck_edge_cases()):
@@ -318,7 +323,8 @@ def main(argv=None):
             if argv and name not in argv:
                 continue
             for quant, dtype in itertools.product(
-                    (False, True), (torch.float32, torch.bfloat16)):
+                    (False, True),
+                    (torch.float32, torch.bfloat16, torch.float16)):
                 for n_split in (1, None):
                     err, ok = paged_case(lib, dtype, seed, n_split, quant,
                                          **kw)
