@@ -78,13 +78,37 @@ exits nonzero:
                     float32 and bf16, with no mask and a ragged
                     ``attention_mask`` (``BERT_LOGITS_ATOL``), the mask
                     dropped on purpose refused.
-6. ``charrnn``    - trains the char-RNN as ``bench_charrnn`` configures
+6. ``onnx``       - ONNX interop at BERT-base's full width (133.5M
+                    float32 parameters with the masked-LM head): the
+                    model built with ``use_flash=True`` and no dropout
+                    from a seed, exported by ``sonnx.to_onnx`` at batch
+                    2 x 512 in float32 (the flash forward kernel,
+                    ``fwd_kernel``, runs inside the export's record: 12
+                    launches), saved, loaded and imported; the imported
+                    graph's op types as the record predicts them; its
+                    sequence and pooled outputs against the native flash
+                    forward in float32 (``BERT_LOGITS_ATOL``) and under
+                    bf16 amp (``fwd_wg_kernel``), and a second export with
+                    an ``attention_mask`` against the native forward under
+                    a ragged mask.  Then the imported graph, wrapped in
+                    ``SONNXModel``, trains at ``bench_bert``'s
+                    configuration (16 x 512, bf16 amp, SGD(1e-4, 0.9),
+                    the masked-LM loss): eager against graph mode under
+                    deterministic algorithms, bit for bit, finite losses;
+                    its first loss against a native fused BERT loaded with
+                    its weights through a ``save_states`` zip (1e-2
+                    relative); each mode timed (host ms a step, device ms
+                    by group, busy share, samples/s) beside the same
+                    native model (fused, no dropout).  Last, the repo's
+                    foreign ONNX fixtures imported on the card against
+                    their goldens.
+7. ``charrnn``    - trains the char-RNN as ``bench_charrnn`` configures
                     it (batch 64 x 100, vocab 100, hidden 256, 2 LSTM
                     layers, SGD(0.1), float32), graph mode against eager,
                     then ``train_n_batches`` over 10 stacked batches; host
                     ms a step, device ms, busy share; cuDNN's LSTM on the
                     same weights as a yardstick the port never calls.
-7. ``resnet``     - trains ResNet-50 (25.6M parameters, full depth and
+8. ``resnet``     - trains ResNet-50 (25.6M parameters, full depth and
                     width) at ``bench.py``'s ``bench_resnet50``
                     configuration: batch 128 x 3 x 224 x 224 random images
                     and labels from a numpy seed, 1000 classes, bf16 amp,
@@ -93,7 +117,7 @@ exits nonzero:
                     statistics; then ``resnet_profile``: device time by
                     group (convolutions, batch norm, the rest) over 2 more
                     eager steps, and the busy share of both modes.
-8. ``bottleneck`` - the trained ResNet-50 in eval mode: the activation
+9. ``bottleneck`` - the trained ResNet-50 in eval mode: the activation
                     that enters ``layer1[1]`` (stem + ``layer1[0]``, batch
                     128, 56 x 56 x 256, channels-last bf16) goes through
                     ``megakernel_block`` with ``fold_bottleneck(layer1[1])``
@@ -109,7 +133,7 @@ exits nonzero:
                     the kernel, its plain version and the cuDNN chain
                     (three channels-last bf16 convs and the elementwise
                     work; no single PyTorch call computes the block).
-9. ``zoo``        - the CNN zoo at its published widths and input sizes,
+10. ``zoo``        - the CNN zoo at its published widths and input sizes,
                     each trained through ``Model.compile(use_graph=True)``
                     and ``train_one_batch`` with bf16 amp, a batch of 32
                     random images from a numpy seed and
@@ -133,7 +157,7 @@ exits nonzero:
                     accuracy > 0.9), and ``schedule_probe`` (an
                     ``ExponentialDecay`` rate read off replayed steps
                     against its formula).
-10. ``serve``      - serves GPT-2 small (124M, 12 layers, n_positions 1024,
+11. ``serve``      - serves GPT-2 small (124M, 12 layers, n_positions 1024,
                     random weights from a seed) through the paged engine,
                     ``model.serve(max_slots=8, paged=PagedConfig(
                     block_size=32, num_blocks=256))``, every decode step a
@@ -166,7 +190,7 @@ exits nonzero:
                     traffic captured in float16 (``paged_attn`` on float16
                     pools: the kernels line's ``paged_attn_f16`` row), 12
                     launches a decode step.
-11. ``serve_int8`` - the same model and traffic on int8 pools
+12. ``serve_int8`` - the same model and traffic on int8 pools
                     (``cache_dtype="int8"``): float32 streams equal the
                     int8 gather oracle's and offline int8 ``generate``'s,
                     the int8 kernel 12 launches a decode step, no block
@@ -175,19 +199,19 @@ exits nonzero:
                     matches offline int8 ``generate``; bf16 timed (TTFT,
                     TPOT, decode tokens/s) and profiled (busy share), the
                     int8 kernels' main path, beside the bf16 pools.
-12. ``serve_slots`` - the same traffic through ``model.serve()`` without
+13. ``serve_slots`` - the same traffic through ``model.serve()`` without
                     ``paged=`` (the slot arena, 8 slots of 1024 lanes),
                     dense and int8: float32 streams equal offline
                     ``generate``'s at the same ``cache_dtype``, exactly
                     one captured graph, the census flat; bf16 timed and
                     profiled.
-13. ``generate``  - the serve phase's float32 GPT-2 small past
+14. ``generate``  - the serve phase's float32 GPT-2 small past
                     n_positions: a 1000-token prompt and 40 greedy tokens
                     take the windowed path (12 flash forward launches a
                     token), equal to the KV-cached ``generate`` over the
                     24 tokens that fit; ``min_p`` and
                     ``repetition_penalty`` on the KV-cached path.
-14. ``paged_kernels`` - ``paged_attn`` (its split and combine kernels)
+15. ``paged_kernels`` - ``paged_attn`` (its split and combine kernels)
                     against ``paged_attn_plain``, on float32, bf16 and
                     float16 pools and on int8 pools with float32, bf16
                     and float16 q, at the edge cases of
@@ -207,7 +231,7 @@ exits nonzero:
                     rows gathered from the pool (the yardstick; the
                     gather, and the dequantization of int8 pools, not
                     timed).
-15. ``device``    - the card's name and power limit from nvidia-smi.
+16. ``device``    - the card's name and power limit from nvidia-smi.
 
 Then one line ``{"kernels": [...]}`` with each kernel's launches on the
 main path (the graph-mode runs: a replay credits the launches its graph
@@ -226,6 +250,7 @@ import math
 import os
 import re
 from concurrent.futures import ThreadPoolExecutor
+import shutil
 import statistics
 import subprocess
 import sys
@@ -1251,6 +1276,381 @@ def bert_eval_check(flash, fused, x, seed=0):
     finally:
         amp.enable(prev is not None)
     return report
+
+
+# ---------------------------------------------------------------- onnx
+
+#: the ONNX phase's exports: BERT-base with the masked-LM head, no
+#: dropout, ``use_flash=True``, float32, at batch 2 x 512 for the forward
+#: checks; the graph bakes its reshape shapes, so the training import is
+#: exported again at ``BERT_RUN``'s batch
+ONNX_EXPORT = dict(batch=2, seq=512)
+ONNX_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "_scratch", "chip_smoke_onnx")
+#: the repo's foreign ONNX files, with the JAX package's tolerances for
+#: them (rtol, atol)
+ONNX_FIXTURES = (("gemm", 1e-5, 1e-6), ("ct_lstm", 2e-4, 1e-5),
+                 ("trilu_scatternd", 2e-5, 1e-6))
+#: the ONNX node types of each recorded op that sonnx decomposes (the rest
+#: map one to one through ``sonnx._EXPORT_OPS``); Constant nodes are
+#: shared by name, so they are not counted
+ONNX_DECOMPOSED = {
+    "Embedding": {"Gather": 1}, "FirstToken": {"Gather": 1},
+    "AttnMask": {"Sub": 1, "Mul": 1, "Unsqueeze": 1},
+    "TPAttention": {"Transpose": 1, "MatMul": 2, "Mul": 1, "Softmax": 1},
+    "Attention": {"Transpose": 1, "MatMul": 2, "Mul": 1, "Softmax": 1},
+}
+
+
+def onnx_bert(cfg):
+    """BERT-base with the masked-LM head whose forward also returns the
+    trunk's sequence and pooled outputs (named ``BertForMaskedLM``, so
+    its states are that model's)."""
+    from singa_tpu_torch import autograd
+    from singa_tpu_torch.models.bert import BertForMaskedLM
+
+    class BertForMaskedLMTrunk(BertForMaskedLM):
+        def __init__(self, cfg):
+            super().__init__(cfg)
+            self.name = "BertForMaskedLM"
+
+        def forward(self, input_ids, token_type_ids=None,
+                    attention_mask=None):
+            seq, pooled = self.bert.forward(input_ids, token_type_ids,
+                                            attention_mask)
+            h = self.ln(autograd.gelu(self.transform(seq)))
+            return self.decoder(h), seq, pooled
+
+    return BertForMaskedLMTrunk(cfg)
+
+
+def onnx_predicted_types(ops):
+    """Node-type counts that the recorded ``ops`` export as (Constant
+    nodes left out)."""
+    from collections import Counter
+
+    from singa_tpu_torch import sonnx
+
+    want = Counter()
+    for op in ops:
+        base = op.name.split("#")[0]
+        if base in ONNX_DECOMPOSED:
+            want.update(ONNX_DECOMPOSED[base])
+            if base.endswith("Attention"):
+                want["Add"] += (len(op.src) > 3) + bool(
+                    op.params.get("causal"))
+        else:
+            want[sonnx._EXPORT_OPS[base]] += 1
+    return want
+
+
+def onnx_export(m, inputs, path):
+    """Export ``m`` on ``inputs`` to ``path``: the flash forward launches
+    it made, its node-type counts against the record's prediction,
+    sizes and seconds; returns (report, the model read back)."""
+    from collections import Counter
+
+    from singa_tpu_torch import sonnx
+    from singa_tpu_torch.ops import flash_attention as fa
+
+    fa.flash_fwd.launches = fa.flash_fwd.tensor_core_launches = 0
+    t0 = time.perf_counter()
+    proto = sonnx.to_onnx(m, inputs)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    launches = {"flash_fwd": fa.flash_fwd.launches,
+                "tensor_core": fa.flash_fwd.tensor_core_launches}
+    sonnx.save(proto, path)
+    t2 = time.perf_counter()
+    loaded = sonnx.load(path)
+    t3 = time.perf_counter()
+    rec, _ = sonnx._record_forward(m, inputs)
+    predicted = onnx_predicted_types(rec.ops)
+    del rec
+    got = Counter(n.op_type for n in loaded.graph.node
+                  if n.op_type != "Constant")
+    if got != predicted:
+        raise AssertionError(f"ONNX import of {path}: node types {got}, "
+                             f"the record predicts {predicted}")
+    params = {i.name: int(np.prod(i.dims)) for i in loaded.graph.initializer
+              if not i.name.startswith("const_")}
+    native = {k: v.numel() for k, v in m.get_params().items()}
+    if params != native:
+        raise AssertionError(f"ONNX initializers {len(params)} differ from "
+                             f"the model's {len(native)} parameters")
+    return {"nodes": len(loaded.graph.node),
+            "node_types": dict(sorted(got.items())),
+            "initializers": len(loaded.graph.initializer),
+            "float32_params": sum(params.values()),
+            "bytes": os.path.getsize(path), "flash_fwd_launches": launches,
+            "seconds": {"export": t1 - t0, "save": t2 - t1,
+                        "load": t3 - t2}}, loaded
+
+
+def onnx_forward_check(native, rep, feeds, limits):
+    """The imported graph's sequence and pooled outputs against the
+    native model's (flash) forward on ``feeds``, in float32 and under
+    bf16 amp; each within ``limits[dtype]``.  Returns the readings and
+    the flash forward launches (all and tensor-core) of each dtype."""
+    from singa_tpu_torch import amp
+    from singa_tpu_torch.ops import flash_attention as fa
+
+    report = {}
+    prev = amp._compute_dtype
+    try:
+        for dt, limit in limits.items():
+            amp.enable(dt == "bf16")
+            k0 = (fa.flash_fwd.launches, fa.flash_fwd.tensor_core_launches)
+            with torch.no_grad():
+                want = native(*feeds)
+                k1 = (fa.flash_fwd.launches,
+                      fa.flash_fwd.tensor_core_launches)
+                got = rep.run(list(feeds))
+            err = {name: (g.float() - w.float()).abs().max().item()
+                   for name, g, w in zip(("logits", "seq", "pooled"), got,
+                                         want)}
+            report[dt] = {"max_abs_err": err, "limit": limit,
+                          "native_flash_fwd": k1[0] - k0[0],
+                          "native_tensor_core": k1[1] - k0[1]}
+            if not all(torch.isfinite(g).all() for g in got) or \
+                    err["seq"] > limit or err["pooled"] > limit:
+                raise AssertionError(f"ONNX import vs native, {dt}: {err} "
+                                     f"> {limit}")
+    finally:
+        amp.enable(prev is not None)
+    return report
+
+
+def zip_states(path):
+    """The model states of a ``save_states`` zip, by name."""
+    import io
+    import zipfile
+
+    from singa_tpu_torch.model import _from_npy
+
+    out = {}
+    with zipfile.ZipFile(path) as zf:
+        for name in zf.namelist():
+            k = name[:-len(".npy")]
+            if not k.startswith(("__opt__", "__aux__")):
+                out[k] = _from_npy(np.load(io.BytesIO(zf.read(name))))
+    return out
+
+
+def phase_onnx(seed=0):
+    """ONNX interop at BERT-base's full width (docstring, phase 6): export
+    through the flash forward kernel, import, forwards against the
+    native model, the import trained at ``bench_bert``'s configuration
+    eager against captured, and the foreign fixtures."""
+    import gc
+
+    from singa_tpu_torch import amp, autograd, device, opt, sonnx, tensor
+    from singa_tpu_torch.models.bert import BertConfig, BertForMaskedLM
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = device.create_cuda_gpu()
+    smi = nvidia_smi()
+    t_phase = time.perf_counter()
+    os.makedirs(ONNX_DIR, exist_ok=True)
+    cfg = BertConfig.base(use_flash=True, hidden_dropout=0.0,
+                          attn_dropout=0.0)
+    layers = cfg.num_hidden_layers
+    rng = np.random.RandomState(seed)
+    e, r = ONNX_EXPORT, BERT_RUN
+    x2 = tensor.from_numpy(
+        rng.randint(0, cfg.vocab_size, (e["batch"], e["seq"]))
+        .astype(np.int32), dev)
+    tt2 = torch.zeros_like(x2)
+    am2 = (bert_key_mask(e["batch"], e["seq"], seed) == 0)[:, 0, 0, :].to(
+        dev.torch_device, torch.float32)
+    x = tensor.from_numpy(rng.randint(0, cfg.vocab_size, (r["batch"],
+                                                          r["seq"]))
+                          .astype(np.int32), dev)
+    y = tensor.from_numpy(rng.randint(0, cfg.vocab_size, (r["batch"],
+                                                          r["seq"]))
+                          .astype(np.int32), dev)
+    dev.SetRandSeed(seed)
+    native = onnx_bert(cfg)
+    native.compile([x2], is_train=False)
+    log_ = {"phase": "onnx", "model": "BertForMaskedLM (base) + trunk "
+            "outputs", "use_flash": True, "dropout": 0.0,
+            "export_batch": [e["batch"], e["seq"]], "nvidia_smi": smi}
+
+    # 1. export through the flash forward kernel (float32: fwd_kernel)
+    exp, loaded = onnx_export(native, [x2],
+                              os.path.join(ONNX_DIR, "bert_base.onnx"))
+    if exp["flash_fwd_launches"] != {"flash_fwd": layers, "tensor_core": 0}:
+        raise AssertionError(f"ONNX export: flash forward launches "
+                             f"{exp['flash_fwd_launches']}, expected "
+                             f"{layers} on the float32 CUDA-core route")
+    t0 = time.perf_counter()
+    rep = sonnx.prepare(loaded, dev)
+    exp["seconds"]["prepare"] = time.perf_counter() - t0
+    log_["export"] = exp
+
+    # 2. imported forwards against the native flash forward
+    log_["forward"] = onnx_forward_check(native, rep, [x2],
+                                         BERT_LOGITS_ATOL)
+    for dt, tc in (("float32", 0), ("bf16", layers)):
+        f = log_["forward"][dt]
+        if (f["native_flash_fwd"], f["native_tensor_core"]) != (layers, tc):
+            raise AssertionError(f"native {dt} forward: flash launches "
+                                 f"{f}, expected {layers} ({tc} on tensor "
+                                 f"cores)")
+    exp_m, loaded_m = onnx_export(
+        native, [x2, tt2, am2], os.path.join(ONNX_DIR, "bert_base_mask.onnx"))
+    rep_m = sonnx.prepare(loaded_m, dev)
+    log_["export_mask"] = exp_m
+    log_["forward_mask"] = onnx_forward_check(
+        native, rep_m, [x2, tt2, am2],
+        {"float32": BERT_LOGITS_ATOL["float32"]})
+    with torch.no_grad():
+        dropped = (rep.run([x2])[1] - native(x2, tt2, am2)[1]).abs().max()
+    log_["forward_mask"]["mask_dropped_err"] = dropped.item()
+    if dropped.item() <= 2 * BERT_LOGITS_ATOL["float32"]:
+        raise AssertionError(f"ONNX import: dropping the mask moves the "
+                             f"sequence output by only {dropped.item()}")
+    del rep, rep_m, loaded_m
+    gc.collect()
+
+    # 3. the import trained at bench_bert's configuration
+    exp_t, loaded_t = onnx_export(
+        native, [x], os.path.join(ONNX_DIR, "bert_base_train.onnx"))
+    log_["export_train"] = exp_t
+    del native
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    class OnnxMaskedLM(sonnx.SONNXModel):
+        def train_one_batch(self, ids, labels):
+            logits = self.forward(ids)[0]
+            b, s, v = logits.shape
+            loss = autograd.softmax_cross_entropy(
+                autograd.reshape(logits, (b * s, v)),
+                autograd.reshape(labels, (b * s,)))
+            self.optimizer(loss)
+            return logits, loss
+
+    def build(use_graph):
+        dev.SetRandSeed(seed)
+        m = OnnxMaskedLM(loaded_t, dev)
+        m.set_optimizer(opt.SGD(**r["sgd"]))
+        m.compile([x], is_train=True, use_graph=use_graph)
+        return m
+
+    amp.enable()
+    try:
+        t0 = time.perf_counter()
+        with deterministic():
+            m, rep_t = train_eager_and_captured(
+                build, x, y, r["steps"], CAPTURE_RTOL["bf16"], None)
+        if not rep_t["bitwise_equal"]:
+            raise AssertionError(
+                f"imported BERT: captured steps differ from eager ones "
+                f"(loss {rep_t['max_loss_rel_diff']}, weights "
+                f"{rep_t['max_weight_rel_diff']})")
+        zpath = os.path.join(ONNX_DIR, "bert_base_import.zip")
+        m.save_states(zpath)
+        del m
+        gc.collect()
+        torch.cuda.empty_cache()
+        # a native fused BERT with the imported model's weights
+        states = zip_states(zpath)
+
+        def build_native(use_graph):
+            dev.SetRandSeed(seed)
+            nat = BertForMaskedLM(BertConfig.base(hidden_dropout=0.0,
+                                                  attn_dropout=0.0))
+            nat.set_optimizer(opt.SGD(**r["sgd"]))
+            nat.compile([x], is_train=True, use_graph=use_graph)
+            nat.set_states({k: states[k] for k in nat.get_states()})
+            return nat
+
+        nat = build_native(False)
+        extra = sorted(set(states) - set(nat.get_states()))
+        if any(not k.startswith("const_") for k in extra):
+            raise AssertionError(f"imported states {extra[:5]} name no "
+                                 f"native state")
+        with deterministic():
+            native_loss = nat(x, y)[1].item()
+        del nat
+        gc.collect()
+        torch.cuda.empty_cache()
+        # the same model natively, no dropout either, timed in this call
+        native_timed = {mode: time_steps(build_native, x, y, use_graph,
+                                         ZOO_PROFILED_STEPS[mode],
+                                         groups=KERNEL_GROUPS)
+                        for mode, use_graph in (("eager", False),
+                                                ("captured", True))}
+        gc.collect()
+        torch.cuda.empty_cache()
+        first = rep_t["eager"]["losses"][0]
+        rel = abs(first - native_loss) / abs(native_loss)
+        if rel > 1e-2:
+            raise AssertionError(f"imported BERT's first loss {first} vs "
+                                 f"the native fused model's {native_loss}: "
+                                 f"{rel} relative > 1e-2")
+        timed = {mode: time_steps(build, x, y, use_graph,
+                                  ZOO_PROFILED_STEPS[mode],
+                                  groups=KERNEL_GROUPS)
+                 for mode, use_graph in (("eager", False),
+                                         ("captured", True))}
+        prof = {mode: timed[mode].pop("profile") for mode in timed}
+        med = timed["captured"]["median_step_ms"]
+        log_["train"] = {
+            "batch": r["batch"], "seq": r["seq"], "amp": "bf16",
+            "optimizer": "SGD(lr=1e-4, momentum=0.9)", "compare": rep_t,
+            "native_fused_first_loss": native_loss,
+            "first_loss_rel_diff": rel, "baked_constants": extra,
+            "eager_ms": timed["eager"]["median_step_ms"],
+            "captured_ms": med,
+            "step_ms": {mode: timed[mode]["step_ms"] for mode in timed},
+            "samples_per_s": r["batch"] / med * 1e3,
+            "device_ms": {mode: prof[mode]["device_ms_per_step"]
+                          for mode in prof},
+            "busy_share": {mode: prof[mode]["device_busy_share"]
+                           for mode in prof},
+            "group_ms_per_step": {mode: prof[mode]["group_ms_per_step"]
+                                  for mode in prof},
+            "profiled_steps": ZOO_PROFILED_STEPS,
+            "top_kernels": prof["captured"]["top_kernels"],
+            "native_fused_no_dropout": {
+                mode: {"median_step_ms": t["median_step_ms"],
+                       "device_ms": t["profile"]["device_ms_per_step"],
+                       "busy_share": t["profile"]["device_busy_share"],
+                       "group_ms_per_step":
+                           t["profile"]["group_ms_per_step"]}
+                for mode, t in native_timed.items()},
+            "seconds": time.perf_counter() - t0}
+    finally:
+        amp.enable(False)
+    del loaded_t
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 4. the repo's foreign ONNX files on the card
+    fdir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "tests", "fixtures")
+    fixtures = {}
+    for name, rtol, atol in ONNX_FIXTURES:
+        with open(os.path.join(fdir, f"foreign_{name}.onnx"), "rb") as f:
+            blob = f.read()
+        io = np.load(os.path.join(fdir, f"foreign_{name}_io.npz"))
+        (out,) = sonnx.prepare(blob, dev).run(
+            [tensor.from_numpy(io["x"], dev)])
+        got = tensor.to_numpy(out)
+        fixtures[name] = float(np.abs(got - io["y"]).max())
+        if got.shape != io["y"].shape or not np.allclose(
+                got, io["y"], rtol=rtol, atol=atol):
+            raise AssertionError(f"foreign ONNX fixture {name}: max abs "
+                                 f"error {fixtures[name]} (rtol {rtol}, "
+                                 f"atol {atol})")
+    log_["foreign_fixtures_max_abs_err"] = fixtures
+    shutil.rmtree(ONNX_DIR, ignore_errors=True)  # 1.6 GB of exports
+    log_["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 2**30
+    log_["seconds"] = time.perf_counter() - t_phase
+    log(log_)
 
 
 # ---------------------------------------------------------------- charrnn
@@ -3352,6 +3752,7 @@ def main():
     rows = timed("kernels", phase_kernels)
     timed("slice", phase_slice, rows)
     timed("bert", phase_bert)
+    timed("onnx", phase_onnx)
     timed("charrnn", phase_charrnn)
     model, images = timed("resnet", phase_resnet)
     rows["megakernel_block"] = timed("bottleneck", phase_bottleneck, model,

@@ -83,7 +83,8 @@ class BertEmbeddings(layer.Layer):
 
     def forward(self, input_ids, token_type_ids):
         b, s = input_ids.shape
-        pos = torch.arange(s, device=input_ids.device).expand(b, s)
+        pos = torch.arange(s, dtype=torch.int32,
+                           device=input_ids.device).expand(b, s)
         e = autograd.add(
             autograd.add(self.word(input_ids), self.position(pos)),
             self.token_type(token_type_ids))
@@ -129,14 +130,23 @@ class BertEncoder(layer.Layer):
         return x
 
 
+def _mask(m):
+    return (1.0 - m.float())[:, None, None, :] * -1e9
+
+
 def _mask_op(attention_mask):
     """(B, S) 1/0 mask -> (B, 1, 1, S) additive float32 mask, -1e9 at the
-    padded keys."""
-    return (1.0 - attention_mask.float())[:, None, None, :] * -1e9
+    padded keys (recorded for export as ``AttnMask``)."""
+    return autograd._op(_mask, attention_mask, _name="AttnMask")
+
+
+def _first(x):
+    return x[:, 0, :]
 
 
 def _first_token(x):
-    return x[:, 0, :]
+    """x[:, 0, :] (recorded for export as ``FirstToken``)."""
+    return autograd._op(_first, x, _name="FirstToken")
 
 
 class BertModel(model.Model):

@@ -104,7 +104,8 @@ class GPT2Model(model.Model):
 
     def forward(self, input_ids):
         b, s = input_ids.shape
-        pos = torch.arange(s, device=input_ids.device).expand(b, s)
+        pos = torch.arange(s, dtype=torch.int32,
+                           device=input_ids.device).expand(b, s)
         x = autograd.add(self.wte(input_ids), self.wpe(pos))
         x = autograd.dropout(x, self.cfg.dropout, training=self.training)
         for blk in self.blocks:

@@ -14,7 +14,10 @@ recomputes the scores in the backward), and ``MultiHeadAttention`` is
 
 from __future__ import annotations
 
-from ..parallel.tensor_parallel import ParallelMHA, _sdpa
+import math
+
+from .. import autograd
+from ..parallel.tensor_parallel import ParallelMHA, _attention_plain
 
 __all__ = ["scaled_dot_product_attention", "MultiHeadAttention"]
 
@@ -22,9 +25,22 @@ __all__ = ["scaled_dot_product_attention", "MultiHeadAttention"]
 def scaled_dot_product_attention(q, k, v, mask=None, use_flash=False,
                                  remat=False):
     """q, k, v: (B, H, S, D); ``mask``: an additive mask broadcastable to
-    (B, H, S, S) (e.g. -1e9 at padded keys), or None."""
-    return _sdpa(q, k, v, mask, causal=False, remat=remat,
-                 use_flash=use_flash)
+    (B, H, S, S) (e.g. -1e9 at padded keys), or None.  Recorded for
+    export as the JAX op records it: ``Attention`` (``scale``) on the
+    fused path, ``TPAttention`` on the flash path."""
+    if use_flash:
+        from .flash_attention import flash_attention_op
+
+        return flash_attention_op(q, k, v, mask)
+    xs = (q, k, v) if mask is None else (q, k, v, mask)
+    apply = autograd.checkpoint_op if remat else autograd._op
+    return apply(_attention, *xs, _name="Attention",
+                 scale=1.0 / math.sqrt(q.shape[-1]))
+
+
+def _attention(q, k, v, *mask, scale):
+    return _attention_plain(q, k, v, *mask, scale=scale, causal=False,
+                            window=None)
 
 
 class MultiHeadAttention(ParallelMHA):
@@ -37,3 +53,8 @@ class MultiHeadAttention(ParallelMHA):
                  remat=False, num_kv_heads=None):
         super().__init__(num_heads, None, dropout=dropout, remat=remat,
                          use_flash=use_flash, num_kv_heads=num_kv_heads)
+
+    def _attend(self, q, k, v, mask):
+        return scaled_dot_product_attention(q, k, v, mask,
+                                            use_flash=self.use_flash,
+                                            remat=self.remat)

@@ -16,11 +16,20 @@ Same numerics as the JAX op:
 * the backward is the JAX op's hand-written VJP (``_bn_train_bwd``):
   activation math in x's dtype, per-channel sums in float32, and only x
   and per-channel vectors saved.
+
+Recorded for export as the JAX op: training as ``BatchNorm2d`` (outputs
+y and the batch statistics; ``params`` carry ``eps``, ``momentum`` and
+the running-statistic buffers ``rm``/``rv``, which ``sonnx`` writes as
+the node's mean and variance), eval as ``BatchNorm2dEval``.  While
+exporting, training leaves the running statistics untouched, as the JAX
+export's pass is pure.
 """
 
 from __future__ import annotations
 
 import torch
+
+from .. import autograd
 
 __all__ = ["batchnorm2d"]
 
@@ -81,11 +90,27 @@ def batchnorm2d(x, scale, bias, running_mean, running_var, momentum=0.9,
     update ``running_mean``/``running_var`` (float32 buffers) in place.
     Eval: normalize by the running statistics."""
     if training:
+        if autograd.exporting:
+            y, _, _ = autograd._op(_bn_train, x, scale, bias,
+                                   _name="BatchNorm2d", eps=float(eps))
+            op = autograd._record.producer[id(y)]
+            op.params = {"eps": eps, "momentum": momentum,
+                         "rm": running_mean, "rv": running_var}
+            return y
         y, bm, bv = _BatchNormTrain.apply(x, scale, bias, float(eps))
         with torch.no_grad():
             running_mean.mul_(momentum).add_((1.0 - momentum) * bm)
             running_var.mul_(momentum).add_((1.0 - momentum) * bv)
         return y
+    return autograd._op(_bn_eval, x, scale, bias, running_mean,
+                        running_var, _name="BatchNorm2dEval", eps=eps)
+
+
+def _bn_train(x, scale, bias, eps):
+    return _BatchNormTrain.apply(x, scale, bias, eps)
+
+
+def _bn_eval(x, scale, bias, running_mean, running_var, eps):
     inv = torch.rsqrt(running_var + eps)
     a = _channel(scale * inv).to(x.dtype)
     b = _channel(bias - scale * inv * running_mean)

@@ -13,6 +13,10 @@ kH, kW), which is torch's, and its padding arithmetic: an output of
 ``(in − 1)·stride − lo − hi + (k − 1)·dilation + 1 + output_padding``
 per dim, for symmetric or (lo, hi) pads.  Other spatial ranks (the JAX
 ops take any, for ONNX imports) are not ported yet.
+
+Both record themselves for export (``Conv2d``, ``ConvTranspose2d``) with
+the JAX ops' geometry parameters: ``stride``, ``pads`` (resolved (lo, hi)
+pairs), ``dilation``, ``group`` and ``output_padding``.
 """
 
 from __future__ import annotations
@@ -20,6 +24,7 @@ from __future__ import annotations
 import torch.nn.functional as F
 
 from .. import amp
+from ..autograd import _op
 from .padding import resolve as _resolve_padding
 
 __all__ = ["conv2d", "conv_transpose2d"]
@@ -42,6 +47,13 @@ def conv2d(x, W, b=None, stride=1, padding=0, dilation=1, group=1,
                          f"pairs), got {padding}")
     pads = _resolve_padding(pad_mode, padding, tuple(x.shape[2:]),
                             tuple(W.shape[2:]), stride, dilation)
+    xs = (x, W) if b is None else (x, W, b)
+    return _op(_conv2d, *xs, _name="Conv2d", stride=stride,
+               pads=tuple(tuple(p) for p in pads), dilation=dilation,
+               group=int(group))
+
+
+def _conv2d(x, W, *b, stride, pads, dilation, group):
     x, W = amp.cast_in(x, W)
     if all(lo == hi for lo, hi in pads):
         sym = tuple(lo for lo, _ in pads)
@@ -49,9 +61,9 @@ def conv2d(x, W, b=None, stride=1, padding=0, dilation=1, group=1,
         # F.pad lists the last dim first
         x = F.pad(x, [p for lo_hi in reversed(pads) for p in lo_hi])
         sym = (0, 0)
-    y = F.conv2d(x, W, None, stride, sym, dilation, int(group))
-    if b is not None:
-        y = y + amp.cast_in(b).reshape(1, -1, 1, 1)
+    y = F.conv2d(x, W, None, stride, sym, dilation, group)
+    if b:
+        y = y + amp.cast_in(b[0]).reshape(1, -1, 1, 1)
     return y
 
 
@@ -73,23 +85,31 @@ def conv_transpose2d(x, W, b=None, stride=1, padding=0, dilation=1,
     if len(padding) != 2:
         raise ValueError(f"expected 2 padding entries (ints or (lo, hi) "
                          f"pairs), got {padding}")
-    pads = [tuple(int(v) for v in p) if isinstance(p, (tuple, list))
-            else (int(p), int(p)) for p in padding]
+    pads = tuple(tuple(int(v) for v in p) if isinstance(p, (tuple, list))
+                 else (int(p), int(p)) for p in padding)
+    xs = (x, W) if b is None else (x, W, b)
+    return _op(_conv_transpose2d, *xs, _name="ConvTranspose2d",
+               stride=stride, pads=pads, dilation=dilation,
+               group=int(group), output_padding=out_pad)
+
+
+def _conv_transpose2d(x, W, *b, stride, pads, dilation, group,
+                      output_padding):
     x, W = amp.cast_in(x, W)
     if all(lo == hi for lo, hi in pads) and all(
-            op < max(s, d) for op, s, d in zip(out_pad, stride, dilation)):
+            op < max(s, d)
+            for op, s, d in zip(output_padding, stride, dilation)):
         y = F.conv_transpose2d(x, W, None, stride,
-                               tuple(lo for lo, _ in pads), out_pad,
-                               int(group), dilation)
+                               tuple(lo for lo, _ in pads), output_padding,
+                               group, dilation)
     else:
-        y = F.conv_transpose2d(x, W, None, stride, 0, 0, int(group),
-                               dilation)
+        y = F.conv_transpose2d(x, W, None, stride, 0, 0, group, dilation)
         # F.pad lists the last dim first
         y = F.pad(y, [v for (lo, hi), op in zip(reversed(pads),
-                                                reversed(out_pad))
+                                                reversed(output_padding))
                       for v in (-lo, op - hi)])
-    if b is not None:
-        y = y + amp.cast_in(b).reshape(1, -1, 1, 1)
+    if b:
+        y = y + amp.cast_in(b[0]).reshape(1, -1, 1, 1)
     return y
 
 

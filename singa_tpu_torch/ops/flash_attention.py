@@ -461,5 +461,19 @@ def flash_attention(q, k, v, mask=None, causal=False, window=None):
 
 
 def flash_attention_op(q, k, v, mask=None, causal=False, window=None):
-    """The attention op of the transformer layers' flash path."""
-    return flash_attention(q, k, v, mask, causal=causal, window=window)
+    """The attention op of the transformer layers' flash path, recorded
+    for export as ``TPAttention`` with the fused path's ``scale``,
+    ``causal`` and ``window``: the kernel computes the same function, so
+    ``sonnx`` writes both routes as the same decomposed subgraph.  While
+    exporting on the card, the forward kernel runs inside the record."""
+    from .. import autograd
+
+    xs = (q, k, v) if mask is None else (q, k, v, mask)
+    return autograd._op(_flash_op, *xs, _name="TPAttention",
+                        scale=1.0 / math.sqrt(q.shape[-1]), causal=causal,
+                        window=window)
+
+
+def _flash_op(q, k, v, *mask, scale, causal, window):
+    return flash_attention(q, k, v, mask[0] if mask else None,
+                           causal=causal, window=window)

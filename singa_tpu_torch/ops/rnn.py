@@ -17,6 +17,14 @@ step.  Torch autograd differentiates through the loop (the JAX package's
 JAX package deleted its Pallas LSTM cell (``singa_tpu/ops/rnn.py:34-59``),
 so there is no TPU kernel to port here; ``use_pallas`` is accepted and
 ignored, as there.
+
+Each (layer, direction) scan is one op recorded for export as the JAX
+tape records it: ``RNN[l{l}d{d}]`` over ``(x, hx, cx, W)`` with outputs
+``(y, h_T, c_T)`` and ``params`` ``mode``, ``layer``, ``direction``,
+``idx``, ``hidden`` and ``slices`` (the packed weight's offsets), which
+``sonnx`` unpacks into an ONNX LSTM/GRU/RNN node.  The glue between
+them (transposes, concatenation, the stacked final states) is made of
+the recorded ``autograd`` ops the JAX function uses.
 """
 
 from __future__ import annotations
@@ -25,7 +33,7 @@ import math
 
 import torch
 
-from .. import amp
+from .. import amp, autograd
 from ..autograd import dropout
 from ..device import device_of
 from ..layer import Layer, new_param
@@ -124,6 +132,14 @@ def _direction(x, h, c, p, mode, reverse):
     return torch.stack(ys), h, c
 
 
+def _scan(x, hx, cx, W, *, mode, layer, direction, idx, hidden, slices):
+    """One (layer, direction) scan: (y, h_T, c_T); c_T is zeros for the
+    modes without a cell state."""
+    p = {name: W[a:b].view(shape) for name, (a, b, shape) in slices.items()}
+    y, h, c = _direction(x, hx[idx], cx[idx], p, mode, direction == 1)
+    return y, h, (c if mode == "lstm" else torch.zeros_like(h))
+
+
 def rnn_forward(x, hx, cx, W, handle, batch_first=False, training=False):
     """The multi-layer (bi)directional RNN of ``handle`` on the packed
     weight ``W``.  x: (T, B, I), or (B, T, I) with ``batch_first``;
@@ -133,23 +149,32 @@ def rnn_forward(x, hx, cx, W, handle, batch_first=False, training=False):
     mode = handle.mode
     L, D = handle.num_layers, handle.num_directions
     if batch_first:
-        x = x.transpose(0, 1)
+        x = autograd.transpose(x, (1, 0, 2))
     inp = x
     hs, cs = [], []
     for l in range(L):
         outs = []
         for d in range(D):
-            idx = l * D + d
-            y, h, c = _direction(inp, hx[idx], cx[idx],
-                                 handle.unpack(W, l, d), mode, d == 1)
+            y, h, c = autograd._op(
+                _scan, inp, hx, cx, W, _name=f"RNN[l{l}d{d}]", mode=mode,
+                layer=l, direction=d, idx=l * D + d,
+                hidden=handle.hidden_size,
+                slices={name: handle.slices[(l, d, name)]
+                        for name in ("w_ih", "w_hh", "b_ih", "b_hh")})
             outs.append(y)
             hs.append(h)
-            cs.append(c if mode == "lstm" else torch.zeros_like(h))
-        inp = outs[0] if D == 1 else torch.cat(outs, dim=2)
+            cs.append(c)
+        inp = outs[0] if D == 1 else autograd.cat(outs, axis=2)
         if training and handle.dropout > 0 and l < L - 1:
             inp = dropout(inp, handle.dropout, training=True)
-    y = inp.transpose(0, 1) if batch_first else inp
-    return y, torch.stack(hs), torch.stack(cs)
+    y = autograd.transpose(inp, (1, 0, 2)) if batch_first else inp
+
+    def stacked(ts):
+        if len(ts) == 1:
+            return autograd.unsqueeze(ts[0], 0)
+        return autograd.cat([autograd.unsqueeze(t, 0) for t in ts], axis=0)
+
+    return y, stacked(hs), stacked(cs)
 
 
 class _BaseRNN(Layer):

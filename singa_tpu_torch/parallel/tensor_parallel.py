@@ -136,6 +136,10 @@ class ParallelMHA(Layer):
         self.q_proj.out_features = self.out_proj.out_features = e
         self.k_proj.out_features = self.v_proj.out_features = e_kv
 
+    def _attend(self, q, k, v, mask):
+        return _sdpa(q, k, v, mask, self.causal, remat=self.remat,
+                     use_flash=self.use_flash, window=self.window)
+
     def forward(self, x, mask=None):
         b, s, e = x.shape
         h, h_kv = self.num_heads, self.num_kv_heads
@@ -151,8 +155,7 @@ class ParallelMHA(Layer):
         q = split_heads(self.q_proj(x), h)
         k = split_heads(self.k_proj(x), h_kv)
         v = split_heads(self.v_proj(x), h_kv)
-        ctx = _sdpa(q, k, v, mask, self.causal, remat=self.remat,
-                    use_flash=self.use_flash, window=self.window)
+        ctx = self._attend(q, k, v, mask)
         ctx = autograd.reshape(autograd.transpose(ctx, (0, 2, 1, 3)),
                                (b, s, e))
         ctx = autograd.dropout(ctx, self.dropout, training=self.training)
@@ -229,8 +232,7 @@ def _sdpa(q, k, v, mask, causal, remat=False, use_flash=False,
         return flash_attention_op(q, k, v, mask, causal=causal,
                                   window=window)
     xs = (q, k, v) if mask is None else (q, k, v, mask)
-    kw = dict(scale=1.0 / math.sqrt(q.shape[-1]), causal=causal,
-              window=window)
-    if remat:
-        return autograd.checkpoint_op(_attention_plain, *xs, **kw)
-    return _attention_plain(*xs, **kw)
+    apply = autograd.checkpoint_op if remat else autograd._op
+    return apply(_attention_plain, *xs, _name="TPAttention",
+                 scale=1.0 / math.sqrt(q.shape[-1]), causal=causal,
+                 window=window)

@@ -44,7 +44,9 @@ def from_numpy(np_array, device=None) -> torch.Tensor:
     """Copy a numpy array onto ``device`` (default: the default device,
     which is the GPU).  ``device`` is a singa ``Device``, a
     ``torch.device`` or a device string."""
-    return torch.from_numpy(np.ascontiguousarray(np_array)).to(
+    arr = np.asarray(np_array)
+    # ascontiguousarray makes a 0-d array 1-d: keep the true shape
+    return torch.from_numpy(np.ascontiguousarray(arr).reshape(arr.shape)).to(
         _torch_device(device))
 
 

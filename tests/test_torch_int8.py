@@ -35,6 +35,7 @@ import jax.numpy as jnp
 import torch
 
 import chip_smoke
+from singa_tpu import device as jdevice
 from singa_tpu import tensor as jtensor
 from singa_tpu.models import gpt2_decode as jgd
 from singa_tpu.models.gpt2 import GPT2Config as JGPT2Config
@@ -54,7 +55,15 @@ VALUES_DIFFERING = 1e-3
 
 
 def _pair(**cfg):
-    """(JAX model, port model holding the JAX weights), eval mode."""
+    """(JAX model, port model holding the JAX weights), eval mode.  The
+    JAX device's generator is seeded (0): unseeded, it draws from
+    ``os.urandom``, so every run had other weights, and about one draw
+    in fifty put a K/V value of a decode step's new lane so near a
+    quantization tie that the two packages' float rows (a few ulps apart)
+    rounded it to neighbouring int8 values, moving the logits by one
+    quantum (5e-5).  With seed 0 the nearest tie is 30 times farther off
+    than the float rows' difference in every layer."""
+    jdevice.get_default_device().SetRandSeed(0)
     ids = np.zeros((1, 16), np.int32)
     jm = JGPT2LMHead(JGPT2Config.tiny(dropout=0.0, **cfg))
     jm.compile([jtensor.from_numpy(ids)], is_train=False, use_graph=False)

@@ -444,3 +444,40 @@ def test_checkpoint_round_trip_on_the_card(cuda_device, tmp_path):
     assert rep["reload_step_bitwise_equal"]
     assert rep["async_save_step_bitwise_equal"]
     chip_smoke.schedule_probe(dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_onnx_export_runs_the_flash_forward(cuda_device, dtype):
+    """A tiny BERT with ``use_flash=True`` exported on the card: the flash
+    forward kernel launches inside the export's record (float32: the
+    CUDA-core kernel, whatever the amp dtype, since the export computes
+    in float32), and the imported graph's outputs equal the native
+    model's flash forward (float32 atol 1e-4; under bf16 amp 2^-5,
+    ``chip_smoke.BERT_LOGITS_ATOL``)."""
+    from singa_tpu_torch import amp, device, sonnx, tensor
+    from singa_tpu_torch.models.bert import BertConfig, BertModel
+
+    dev = device.create_cuda_gpu()
+    dev.SetRandSeed(0)
+    m = BertModel(BertConfig.tiny(use_flash=True, hidden_dropout=0.0,
+                                  attn_dropout=0.0))
+    ids = np.random.RandomState(0).randint(0, 1000, (2, 64))
+    x = tensor.from_numpy(ids.astype(np.int32), dev)
+    m.compile([x], is_train=False)
+    limit = 1e-4 if dtype == "float32" else 2.0 ** -5
+    amp.enable(dtype == "bfloat16")
+    try:
+        tfa.flash_fwd.launches = tfa.flash_fwd.tensor_core_launches = 0
+        proto = sonnx.to_onnx(m, [x])
+        assert tfa.flash_fwd.launches == m.cfg.num_hidden_layers
+        assert tfa.flash_fwd.tensor_core_launches == 0
+        rep = sonnx.prepare(proto.serialize(), dev)
+        with torch.no_grad():
+            want = m(x)
+            got = rep.run([x])
+        for g, w in zip(got, want):
+            assert g.is_cuda and torch.isfinite(g).all()
+            assert (g.float() - w.float()).abs().max().item() <= limit
+    finally:
+        amp.enable(False)
