@@ -65,6 +65,27 @@ exits nonzero:
                     and the device's busy share over 2 more steps of each
                     mode, from torch.profiler; fails if the profiler
                     records no device time.
+4a. ``io``        - the data and persistence layer at the slice's
+                    configuration (GPT-2 small, 8 x 1024, bf16 amp,
+                    SGD(1e-4, 0.9), graph mode, the three flash kernels):
+                    64 windows of 1025 random token ids written to a
+                    BinFile dataset by ``io.loader.write_dataset`` through
+                    the native codec (fails unless it built), 6 captured
+                    steps fed by ``DataLoader(num_workers=1)``, checkpoints
+                    by ``save_checkpoint`` at steps 2 and 4 (``keep=2``,
+                    the step, the loader's epoch seed and batch in
+                    ``aux_states``); one byte of step 4's states flipped,
+                    ``restore_latest_checkpoint`` must fall back to step 2
+                    with ``resilience.checkpoint_fallbacks`` + 1, and a
+                    fresh model replays steps 3-6 from the loader: losses
+                    and every state (weights, momentum, step counter) bit
+                    for bit the uninterrupted run's, under
+                    deterministic algorithms; a ``Snapshot`` of the
+                    weights written and read back bit for bit; the
+                    seconds of a save and of the restore, the loader's
+                    host ms a batch at 1 and 4 workers beside the
+                    captured step's ms, and ``augment_batch``'s images/s
+                    on 128 uint8 images at 256 x 256 -> 224 x 224.
 5. ``bert``       - trains BERT-base (``BertConfig.base()``, 110M in the
                     trunk) as ``bench.py``'s ``bench_bert`` configures it:
                     batch 16 x 512 random ids and labels from a numpy seed,
@@ -211,6 +232,27 @@ exits nonzero:
                     token), equal to the KV-cached ``generate`` over the
                     24 tokens that fit; ``min_p`` and
                     ``repetition_penalty`` on the KV-cached path.
+14a. ``prefix``    - GPT-2 small in bf16 on the paged arena (8 slots,
+                    ``PagedConfig(block_size=32, num_blocks=256)``) with
+                    the radix prefix cache on its blocks
+                    (``PrefixCacheConfig(block_size=32, num_blocks=256)``):
+                    a primer request, then 24 greedy requests sharing a
+                    512-token system prompt, each with its own 32-96-token
+                    suffix and 64 new tokens (the hit share of their
+                    prompt tokens must exceed 0.8; some decode steps must
+                    read shared blocks through ``paged_attn``, 12 launches
+                    a decode step), each stream equal to the same request
+                    on an engine without the cache up to its first token
+                    whose top-2 margin is under ``SERVE_BF16_LOGITS_ATOL``;
+                    the batch again with no decode graph captured; 4
+                    three-turn ``pin_session`` conversations, each turn the
+                    whole history, held the same way; block accounting
+                    (``used == cached + live_referenced``) after every
+                    step; TTFT of prompts alone, warm (system prompt
+                    cached), cold on the cache-less engine and cold
+                    through the chunked path; then a 64-block pool the
+                    traffic overflows: the tree evicts, a pinned session's
+                    blocks survive, the streams hold.
 15. ``paged_kernels`` - ``paged_attn`` (its split and combine kernels)
                     against ``paged_attn_plain``, on float32, bf16 and
                     float16 pools and on int8 pools with float32, bf16
@@ -1097,6 +1139,242 @@ def profile_steps(m, x, y, steps=2, groups=KERNEL_GROUPS, ranges=()):
                          e.count / steps, "ms_per_step":
                          e.self_device_time_total / 1e3 / steps}
                         for e in top]}
+
+
+# ------------------------------------------------------------ io
+
+#: the io phase: GPT-2 small at the slice's configuration fed from a
+#: BinFile dataset of IO_WINDOWS windows of seq + 1 token ids, trained
+#: IO_STEPS captured steps with checkpoints at IO_SAVE_AT (keep=2)
+IO_WINDOWS = 64
+IO_STEPS = 6
+IO_SAVE_AT = (2, 4)
+IO_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                      "_scratch", "chip_smoke_io")
+#: augment_batch's timing: 128 uint8 images, 256 x 256 -> 224 x 224
+AUGMENT_SHAPE = dict(n=128, hw=256, patch=224)
+
+
+def io_batches(dl, dev, epoch_seed, skip=0):
+    """``(epoch seed, batch index, ids, labels)`` of the loader's windows
+    from epoch seed ``epoch_seed`` on, the first ``skip`` batches left
+    out: ids are a window's first ``seq`` tokens, labels its last."""
+    from singa_tpu_torch import tensor
+
+    dl.seed = epoch_seed
+    while True:
+        seed = dl.seed
+        for i, (xb, _) in enumerate(dl):
+            if skip:
+                skip -= 1
+                continue
+            w = xb.astype(np.int32)
+            yield (seed, i, tensor.from_numpy(w[:, :-1], dev),
+                   tensor.from_numpy(w[:, 1:], dev))
+
+
+def loader_ms(path, workers, batch, epochs=2):
+    """Host ms a batch of ``DataLoader(path, batch, num_workers=workers)``
+    over ``epochs`` epochs, the decode of each window included."""
+    from singa_tpu_torch.io import loader
+
+    dl = loader.DataLoader(path, batch, num_workers=workers, seed=1)
+    n, t0 = 0, time.perf_counter()
+    for _ in range(epochs):
+        for _ in dl:
+            n += 1
+    return (time.perf_counter() - t0) * 1e3 / n
+
+
+def augment_rate(seed=0, reps=5):
+    """``image_tool.augment_batch`` (the native fused crop, mirror and
+    normalisation, every host core) on ``AUGMENT_SHAPE``: images/s of the
+    median of ``reps`` calls, train mode, and its output checked against
+    the eval-mode centre crop's shape."""
+    from singa_tpu_torch import image_tool
+
+    a = AUGMENT_SHAPE
+    imgs = np.random.RandomState(seed).randint(
+        0, 256, (a["n"], a["hw"], a["hw"], 3)).astype(np.uint8)
+    kw = dict(mean=[0.485, 0.456, 0.406], std=[0.229, 0.224, 0.225])
+    secs = []
+    for r in range(reps):
+        t0 = time.perf_counter()
+        out = image_tool.augment_batch(imgs, a["patch"], train=True, seed=r,
+                                       **kw)
+        secs.append(time.perf_counter() - t0)
+    if out.shape != (a["n"], 3, a["patch"], a["patch"]) or \
+            not np.isfinite(out).all():
+        raise AssertionError(f"augment_batch gave {out.shape}")
+    return {"images": a["n"], "from": a["hw"], "to": a["patch"],
+            "median_s": statistics.median(secs),
+            "images_per_s": a["n"] / statistics.median(secs),
+            "threads": os.cpu_count()}
+
+
+def phase_io(rows, batch=8, seq=1024, seed=0):
+    """GPT-2 small trained from a BinFile dataset and resumed past a
+    corrupted checkpoint (module docstring): the uninterrupted run, the
+    fallback, the bit-equal replay, a ``Snapshot`` of the weights, and the
+    timings of the save, the restore, the loader and ``augment_batch``.
+    Adds the phase's flash launches to ``rows``."""
+    from singa_tpu_torch import amp, device, opt
+    from singa_tpu_torch.io import binfile, loader
+    from singa_tpu_torch.models.gpt2 import GPT2Config, GPT2LMHead
+    from singa_tpu_torch.observe.registry import registry
+    from singa_tpu_torch.ops import flash_attention as fa
+    from singa_tpu_torch.resilience.checkpoint import (STATES_NAME,
+                                                       CheckpointManager)
+    from singa_tpu_torch.snapshot import Snapshot
+
+    if not binfile.native_available():
+        raise AssertionError(f"the native BinFile codec did not build: "
+                             f"{binfile._lib_err!r}")
+    shutil.rmtree(IO_DIR, ignore_errors=True)
+    os.makedirs(IO_DIR)
+    dev = device.create_cuda_gpu()
+    amp.enable()
+    cfg = GPT2Config.small(dropout=0.0)
+    rng = np.random.RandomState(seed)
+    windows = rng.randint(0, cfg.vocab_size, (IO_WINDOWS, seq + 1))
+    ds = os.path.join(IO_DIR, "train.bin")
+    t0 = time.perf_counter()
+    loader.write_dataset(ds, windows, np.arange(IO_WINDOWS))
+    write_s = time.perf_counter() - t0
+    root = os.path.join(IO_DIR, "ckpt")
+    kernels = (fa.flash_fwd, fa.flash_bwd_dq, fa.flash_bwd_dkv)
+    launches = {k.__name__: 0 for k in kernels}
+
+    def count_from_here():
+        for k in kernels:
+            k.launches = k.tensor_core_launches = 0
+
+    def counted():
+        """Add the launches since ``count_from_here`` (the training
+        steps': ``compile`` runs a forward of its own)."""
+        for k in kernels:
+            if k.tensor_core_launches != k.launches:
+                raise AssertionError(f"io: {k.__name__} left the "
+                                     f"tensor-core route")
+            launches[k.__name__] += k.launches
+
+    def build():
+        dev.SetRandSeed(seed)
+        m = GPT2LMHead(cfg)
+        m.set_optimizer(opt.SGD(lr=1e-4, momentum=0.9))
+        m.compile([torch.zeros((batch, seq), dtype=torch.int32,
+                               device=dev.torch_device)],
+                  is_train=True, use_graph=True)
+        return m
+
+    losses, step_ms, save_s = [], [], {}
+    with deterministic():
+        m = build()
+        count_from_here()
+        dl = loader.DataLoader(ds, batch, num_workers=1, seed=seed)
+        it = io_batches(dl, dev, seed)
+        for step in range(1, IO_STEPS + 1):
+            epoch_seed, i, x, y = next(it)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            _, loss = m(x, y)
+            losses.append(loss.item())
+            step_ms.append((time.perf_counter() - t) * 1e3)
+            if step in IO_SAVE_AT:
+                t = time.perf_counter()
+                m.save_checkpoint(root, step, keep=2, aux_states={
+                    "step": step, "epoch_seed": epoch_seed, "batch": i})
+                save_s[step] = time.perf_counter() - t
+        counted()
+        final = {k: v.detach().clone()
+                 for k, v in m.persistent_tensors().items()}
+        if not all(math.isfinite(v) for v in losses):
+            raise AssertionError(f"io: non-finite loss {losses}")
+        mgr = CheckpointManager(root)
+        if mgr.steps() != list(IO_SAVE_AT):
+            raise AssertionError(f"io: checkpoints {mgr.steps()} kept")
+        # a Snapshot of the weights, written and read back on the card
+        snap_path = os.path.join(IO_DIR, "weights")
+        t = time.perf_counter()
+        with Snapshot(snap_path, Snapshot.kWrite) as sn:
+            for k, v in m.get_states().items():
+                sn.write(k, v)
+        snap_write_s = time.perf_counter() - t
+        t = time.perf_counter()
+        with Snapshot(snap_path, Snapshot.kRead) as sn:
+            back = sn.read(dev)
+        snap_read_s = time.perf_counter() - t
+        n_snap = len(back)
+        bad = [k for k, v in m.get_states().items()
+               if not torch.equal(back[k], v.detach())]
+        if bad or set(back) != set(m.get_states()):
+            raise AssertionError(f"snapshot round trip differs: {bad[:5]}")
+        del m, back
+        # one byte of the newest checkpoint's states flipped
+        zpath = os.path.join(mgr.step_dir(IO_SAVE_AT[-1]), STATES_NAME)
+        with open(zpath, "r+b") as fh:
+            fh.seek(os.path.getsize(zpath) // 2)
+            b = fh.read(1)
+            fh.seek(-1, os.SEEK_CUR)
+            fh.write(bytes([b[0] ^ 0xFF]))
+        fallbacks = registry().counter("resilience.checkpoint_fallbacks")
+        before = fallbacks.value
+        fresh = build()
+        count_from_here()
+        t = time.perf_counter()
+        step, aux = fresh.restore_latest_checkpoint(root)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t
+        if step != IO_SAVE_AT[0] or fallbacks.value != before + 1:
+            raise AssertionError(f"io: restored step {step} with "
+                                 f"{fallbacks.value - before} fallbacks, "
+                                 f"expected step {IO_SAVE_AT[0]} after one")
+        dl2 = loader.DataLoader(ds, batch, num_workers=1)
+        it2 = io_batches(dl2, dev, int(aux["epoch_seed"]),
+                         skip=int(aux["batch"]) + 1)
+        replay = []
+        for _ in range(step + 1, IO_STEPS + 1):
+            _, _, x, y = next(it2)
+            replay.append(fresh(x, y)[1].item())
+        counted()
+        differ = [k for k, v in fresh.persistent_tensors().items()
+                  if not torch.equal(v, final[k])]
+        if replay != losses[step:] or differ:
+            raise AssertionError(f"io: resumed steps differ: losses {replay} "
+                                 f"against {losses[step:]}, states "
+                                 f"{differ[:5]}")
+        del fresh, final
+    amp.enable(False)
+    want = cfg.n_layer * (IO_STEPS + IO_STEPS - IO_SAVE_AT[0])
+    if any(n != want for n in launches.values()):
+        raise AssertionError(f"io: flash launches {launches}, expected "
+                             f"{want} each")
+    for name, n in launches.items():
+        rows[name]["launches"] += n
+    ms_1 = loader_ms(ds, 1, batch)
+    ms_4 = loader_ms(ds, 4, batch)
+    captured_ms = statistics.median(step_ms[2:])
+    log({"phase": "io", "model": "gpt2-small", "batch": batch, "seq": seq,
+         "amp": "bf16", "optimizer": "SGD(lr=1e-4, momentum=0.9)",
+         "dataset": {"windows": IO_WINDOWS, "bytes": os.path.getsize(ds),
+                     "write_s": write_s, "native_codec": True},
+         "losses": losses, "step_ms": step_ms,
+         "captured_step_median_ms": captured_ms,
+         "checkpoints": {"save_s": save_s, "restore_s": restore_s,
+                         "zip_bytes": os.path.getsize(os.path.join(
+                             mgr.step_dir(IO_SAVE_AT[0]), STATES_NAME)),
+                         "corrupted_step": IO_SAVE_AT[-1],
+                         "restored_step": step, "fallbacks": 1},
+         "resumed_steps_bitwise_equal": True,
+         "flash_launches": launches,
+         "snapshot": {"write_s": snap_write_s, "read_s": snap_read_s,
+                      "tensors": n_snap, "bitwise_equal": True},
+         "loader_ms_per_batch": {"num_workers_1": ms_1, "num_workers_4": ms_4,
+                                 "captured_step_ms": captured_ms},
+         "augment_batch": dict(augment_rate(seed),
+                               resnet50_captured_images_per_s=1663),
+         "nvidia_smi": nvidia_smi()})
+    shutil.rmtree(IO_DIR, ignore_errors=True)
 
 
 # ------------------------------------------------------------ bert
@@ -3518,6 +3796,366 @@ SERVE_GROUPS = (
 )
 
 
+# ------------------------------------------------------------ prefix
+
+#: the prefix phase's engine: GPT-2 small in bf16 on the serve phase's
+#: paged arena, with the radix prefix cache on its blocks
+PREFIX_ENGINE = dict(max_slots=8, block_size=32, num_blocks=256)
+#: its traffic: PREFIX_REQUESTS greedy requests sharing a system prompt
+#: of PREFIX_SYSTEM tokens, each with its own suffix of 32-96 tokens and
+#: PREFIX_NEW new tokens; PREFIX_SESSIONS conversations of
+#: PREFIX_TURNS turns (pin_session, each turn the whole history and
+#: 16-32 new user tokens)
+PREFIX_REQUESTS = 24
+PREFIX_SYSTEM = 512
+PREFIX_NEW = 64
+PREFIX_SESSIONS = 4
+PREFIX_TURNS = 3
+#: the pressured run's pool: small enough that the tree must evict
+PREFIX_PRESSURE_BLOCKS = 64
+#: the shared-prompt batch's hit share must exceed this
+PREFIX_MIN_HIT_SHARE = 0.8
+
+
+def prefix_traffic(seed=0, vocab=50257):
+    """The system prompt, the 24 prompts of the shared-prompt batch, a
+    primer (the system prompt and a suffix of its own, which fills the
+    tree before the batch) and the sessions' first prompts."""
+    rng = np.random.RandomState(seed + 17)
+    system = rng.randint(0, vocab, PREFIX_SYSTEM).astype(np.int32)
+
+    def suffixed(lo=32, hi=97):
+        return np.concatenate([system, rng.randint(
+            0, vocab, rng.randint(lo, hi)).astype(np.int32)])
+
+    primer = suffixed()
+    prompts = [suffixed() for _ in range(PREFIX_REQUESTS)]
+    sessions = [suffixed() for _ in range(PREFIX_SESSIONS)]
+    users = [[rng.randint(0, vocab, rng.randint(16, 33)).astype(np.int32)
+              for _ in range(PREFIX_TURNS - 1)]
+             for _ in range(PREFIX_SESSIONS)]
+    return dict(system=system, primer=primer, prompts=prompts,
+                sessions=sessions, users=users)
+
+
+class _MarginProbe:
+    """Executor of the cache-less reference engine (``capture=False``: it
+    reads the device on the host): records, per request, the index of
+    the first token whose logits' top-2 margin is under
+    ``SERVE_BF16_LOGITS_ATOL``, up to which bf16 streams must agree (the
+    first token's margins are keyed by prompt; greedy traffic)."""
+
+    def __init__(self, eng):
+        self.eng = eng
+        self.inner = eng._x
+        self.first_low = {}     # request id -> first low-margin token index
+        self.prompt_margin = {}
+
+    def __getattr__(self, name):
+        return getattr(self.inner, name)
+
+    @staticmethod
+    def _margins(logits):
+        top2 = torch.topk(logits.float(), 2, dim=-1).values
+        return (top2[:, 0] - top2[:, 1]).tolist()
+
+    def prefill_batch(self, params, ids):
+        logits, kc, vc = self.inner.prefill_batch(params, ids)
+        for row, m in zip(ids.cpu().numpy(), self._margins(logits)):
+            self.prompt_margin[row.astype(np.int32).tobytes()] = m
+        return logits, kc, vc
+
+    def paged_decode_step(self, params, pool_k, pool_v, inp, block,
+                          kernel="block", n_rb=None):
+        got = self.inner.paged_decode_step(params, pool_k, pool_v, inp,
+                                           block, kernel, n_rb)
+        eng = self.eng
+        lanes = [i for i, s in enumerate(eng._slots) if s is not None]
+        for i, m in zip(lanes, self._margins(got[:len(lanes)])):
+            slot = eng._slots[i]
+            if m < SERVE_BF16_LOGITS_ATOL:
+                self.first_low.setdefault(slot.handle.request.request_id,
+                                          len(slot.emitted))
+        return got
+
+    def upto(self, rid, prompt, n_new):
+        """Tokens of request ``rid`` a bf16 stream must match."""
+        if self.prompt_margin[np.asarray(prompt, np.int32).tobytes()] < \
+                SERVE_BF16_LOGITS_ATOL:
+            return 0
+        return self.first_low.get(rid, n_new)
+
+
+def prefix_engine(model, num_blocks=None, cache=True, capture=True,
+                  dtype=torch.bfloat16):
+    """``model.serve`` on the prefix phase's paged arena (bf16 unless
+    ``dtype``), with the cache (its blocks the arena's) or without."""
+    from singa_tpu_torch.serve import PagedConfig, PrefixCacheConfig
+
+    c = PREFIX_ENGINE
+    n = num_blocks or c["num_blocks"]
+    return model.serve(
+        max_slots=c["max_slots"], dtype=dtype, capture=capture,
+        paged=PagedConfig(block_size=c["block_size"], num_blocks=n),
+        prefix_cache=(PrefixCacheConfig(block_size=c["block_size"],
+                                        num_blocks=n) if cache else None))
+
+
+def prefix_drain(eng, requests, census=None, max_steps=5000):
+    """Submit ``requests`` (``(id, prompt, n_new, pin)``) at once and step
+    ``eng`` until it drains, checking ``used == cached +
+    live_referenced`` after every step; with ``census`` (the serve
+    census to hold) no step may prepare a new decode graph.  Returns
+    ``(results by id, decode steps, lane-steps whose table held shared
+    cached blocks, paged_attn launches)``."""
+    from singa_tpu_torch.ops import paged_attention as pa
+    from singa_tpu_torch.serve import GenerationRequest, jit_cache_size
+
+    hs = {rid: eng.submit(GenerationRequest(
+        p, max_new_tokens=n, pin_session=pin, request_id=rid))
+        for rid, p, n, pin in requests}
+    steps = shared = 0
+    launches0 = pa.paged_attn.launches
+    for _ in range(max_steps):
+        if not eng.pending:
+            break
+        shared += sum(s.n_shared > 0 for s in eng._slots if s is not None)
+        eng.step()
+        steps += 1
+        eng.check_block_accounting()
+        if census is not None and jit_cache_size() != census:
+            raise AssertionError(f"prefix: a decode graph was captured after "
+                                 f"warm-up (census {jit_cache_size()} != "
+                                 f"{census})")
+    else:
+        raise AssertionError(f"prefix: engine did not drain in {max_steps} "
+                             f"steps")
+    out = {rid: h.result() for rid, h in hs.items()}
+    bad = [r.request_id for r in out.values() if r.finish_reason != "length"]
+    if bad:
+        raise AssertionError(f"prefix: requests {bad} did not complete")
+    return out, steps, shared, pa.paged_attn.launches - launches0
+
+
+def prefix_reference(model, requests):
+    """The same requests on the engine without a cache (eager steps, the
+    margin probe): ``(results by id, probe)``."""
+    eng = prefix_engine(model, cache=False, capture=False)
+    probe = eng._x = _MarginProbe(eng)
+    out = prefix_drain(eng, requests)[0]
+    eng.close()
+    return out, probe
+
+
+def prefix_compare(what, got, want, probe, requests):
+    """Raise unless each stream of ``got`` equals ``want``'s up to its
+    first low-margin token; returns the compared token counts."""
+    compared = {}
+    for rid, p, n, _ in requests:
+        upto = probe.upto(rid, p, n)
+        compared[rid] = upto
+        a, b = got[rid].tokens, want[rid].tokens
+        if not np.array_equal(a[:len(p) + upto], b[:len(p) + upto]):
+            raise AssertionError(
+                f"prefix {what} {rid}: the cached engine's stream differs "
+                f"from the cache-less engine's before token {upto}, the "
+                f"first whose top-2 margin is under {SERVE_BF16_LOGITS_ATOL}")
+    return compared
+
+
+def prefix_ttft(model, eng, prompts):
+    """Each prompt alone on an idle ``eng`` with one new token: its TTFT
+    (submit to first token, the prefill) on the engine's clock."""
+    from singa_tpu_torch.serve import GenerationRequest
+
+    out = []
+    for p in prompts:
+        torch.cuda.synchronize()
+        h = eng.submit(GenerationRequest(p, max_new_tokens=1))
+        eng.run_until_complete(max_steps=10)
+        eng.check_block_accounting()
+        out.append(h.result().ttft)
+    return out
+
+
+def phase_prefix(model, seed=0):
+    """GPT-2 small served in bf16 with the prefix cache on the paged arena
+    (module docstring): the shared-prompt batch, then again with no new
+    capture, the sessions, TTFT warm against cold, and a pressured pool
+    that must evict.  Returns the phase's ``paged_attn`` launches."""
+    from singa_tpu_torch.serve import jit_cache_size
+
+    cfg = model.cfg
+    t = prefix_traffic(seed, vocab=cfg.vocab_size)
+    n_new = PREFIX_NEW
+    batch = [(f"p{i}", p, n_new, False) for i, p in enumerate(t["prompts"])]
+    marks = [("start", time.perf_counter())]
+
+    def mark(name):
+        marks.append((name, time.perf_counter()))
+
+    # float32: with the cache (a primer first, so most admissions are
+    # warm) the streams equal the cache-less engine's whole
+    streams = []
+    for cache in (True, False):
+        e32 = prefix_engine(model, cache=cache, dtype=torch.float32)
+        if cache:
+            prefix_drain(e32, [("primer", t["primer"], 2, False)])
+        streams.append(prefix_drain(e32, batch)[0])
+        e32.close()
+    for rid, _, _, _ in batch:
+        if not np.array_equal(streams[0][rid].tokens, streams[1][rid].tokens):
+            raise AssertionError(f"prefix float32 {rid}: the cached engine's "
+                                 f"stream differs from the cache-less one's")
+    mark("float32")
+    ref, probe = prefix_reference(model, batch)
+    mark("reference")
+    eng = prefix_engine(model)
+    # warm-up: the primer at every decode width (1, 2, 4, 8 live slots)
+    # captures each width's graph and puts the system prompt in the tree
+    launches = 0
+    w = 1
+    while w <= PREFIX_ENGINE["max_slots"]:
+        launches += prefix_drain(eng, [(f"primer{w}.{i}", t["primer"], 2,
+                                        False) for i in range(w)])[3]
+        w *= 2
+    census = jit_cache_size()
+    graphs = sorted(eng._steps)
+    snap0 = eng.stats.snapshot()["prefix"]
+    got, steps1, shared1, n = prefix_drain(eng, batch, census=census)
+    launches += n
+    snap1 = eng.stats.snapshot()["prefix"]
+    hit_share = ((snap1["hit_tokens"] - snap0["hit_tokens"])
+                 / (snap1["lookup_tokens"] - snap0["lookup_tokens"]))
+    if hit_share <= PREFIX_MIN_HIT_SHARE:
+        raise AssertionError(f"prefix: shared-prompt batch hit share "
+                             f"{hit_share} <= {PREFIX_MIN_HIT_SHARE}")
+    if shared1 == 0:
+        raise AssertionError("prefix: no decode step read shared blocks")
+    compared = prefix_compare("batch", got, ref, probe, batch)
+    mark("batch")
+    again, steps2, _, n = prefix_drain(
+        eng, [(f"q{i}", p, n_new, False) for i, p in enumerate(t["prompts"])],
+        census=census)
+    launches += n
+    for i in range(PREFIX_REQUESTS):
+        if not np.array_equal(again[f"q{i}"].tokens, got[f"p{i}"].tokens):
+            raise AssertionError(f"prefix: request {i} differs between two "
+                                 f"warm runs of the batch")
+    mark("batch_again")
+    # sessions: each turn of every conversation at once, then the same
+    # prompts on the reference engine
+    histories = [s for s in t["sessions"]]
+    handles = [None] * PREFIX_SESSIONS
+    session_compared, session_hits = {}, []
+    for turn in range(PREFIX_TURNS):
+        reqs = [(f"s{c}t{turn}", histories[c], n_new, True)
+                for c in range(PREFIX_SESSIONS)]
+        before = eng.stats.snapshot()["prefix"]
+        out, _, _, n = prefix_drain(eng, reqs, census=census)
+        launches += n
+        after = eng.stats.snapshot()["prefix"]
+        session_hits.append((after["hit_tokens"] - before["hit_tokens"])
+                            / (after["lookup_tokens"]
+                               - before["lookup_tokens"]))
+        sref, sprobe = prefix_reference(model, reqs)
+        session_compared.update(prefix_compare(f"session turn {turn}", out,
+                                               sref, sprobe, reqs))
+        for c in range(PREFIX_SESSIONS):
+            if handles[c] is not None:
+                handles[c].release()
+            handles[c] = out[f"s{c}t{turn}"].session
+            if handles[c] is None or handles[c].pinned_blocks == 0:
+                raise AssertionError(f"prefix: session {c} pinned nothing")
+            if turn + 1 < PREFIX_TURNS:
+                histories[c] = handles[c].request(t["users"][c][turn]) \
+                    .prompt_ids
+    for h in handles:
+        h.release()
+    mark("sessions")
+    decode_steps = eng.stats.snapshot()["throughput"]["decode_steps"]
+    if launches != cfg.n_layer * decode_steps:
+        raise AssertionError(f"prefix: paged_attn launched {launches} times "
+                             f"over {decode_steps} decode steps")
+    # TTFT, each prompt alone: warm (the cache holds the system prompt),
+    # cold on the cache-less engine, cold through the chunked path (a
+    # system prompt the tree has never seen)
+    rng = np.random.RandomState(seed + 5)
+    probes = [np.concatenate([t["system"], rng.randint(
+        0, cfg.vocab_size, len(p) - PREFIX_SYSTEM).astype(np.int32)])
+        for p in t["prompts"][:8]]
+    novel = [rng.randint(0, cfg.vocab_size, len(p)).astype(np.int32)
+             for p in probes]
+    ttft_warm = prefix_ttft(model, eng, probes)
+    ttft_cold_chunked = prefix_ttft(model, eng, novel)
+    final_snap = eng.stats.snapshot()
+    eng.close()
+    plain = prefix_engine(model, cache=False)
+    prefix_ttft(model, plain, probes[:1])      # the first prefill builds
+    ttft_cold = prefix_ttft(model, plain, probes)
+    plain.close()
+    mark("ttft")
+    # a pool the traffic overflows: the tree must evict, never a block a
+    # pinned session or a live slot references, and admissions whose
+    # prefix went fall back to cold prefill
+    small = prefix_engine(model, num_blocks=PREFIX_PRESSURE_BLOCKS)
+    pin_prompt = np.random.RandomState(seed + 9).randint(
+        0, cfg.vocab_size, 200).astype(np.int32)
+    pinned, _, _, n_pin = prefix_drain(small, [("pin", pin_prompt, 8, True)])
+    sess = pinned["pin"].session
+    held = [(n.block, n.key) for n in sess._nodes]
+    pressured, _, pshared, n = prefix_drain(small, batch)
+    launches += n_pin + n
+    psnap = small.stats.snapshot()
+    if psnap["prefix"]["evictions"] == 0:
+        raise AssertionError(f"prefix: the pressured pool evicted nothing: "
+                             f"{psnap['prefix']}")
+    if [(n.block, n.key) for n in sess._nodes] != held or \
+            len(small.prefix_cache.lookup(pin_prompt)) != len(held):
+        raise AssertionError("prefix: a pinned session's block was evicted")
+    pressured_compared = prefix_compare("pressured", pressured, ref, probe,
+                                        batch)
+    sess.release()
+    small.close()
+    mark("pressured")
+    log({"phase": "prefix", "model": "gpt2-small", "dtype": "bf16",
+         "engine": PREFIX_ENGINE, "requests": PREFIX_REQUESTS,
+         "system_prompt": PREFIX_SYSTEM, "new_tokens": n_new,
+         "prompt_lens": [len(p) for p in t["prompts"]],
+         "float32_streams_equal_cacheless": True,
+         "hit_share_shared_prompt_batch": hit_share,
+         "prefix_after_batch": snap1,
+         "decode_steps_batch": steps1, "decode_steps_batch_again": steps2,
+         "lane_steps_over_shared_blocks": shared1,
+         "graphs": graphs, "census_after_warmup": census,
+         "no_capture_after_warmup": True,
+         "paged_attn_launches": launches,
+         "decode_steps_cached_engine": decode_steps,
+         "streams_compared_up_to_token": compared,
+         "low_margin_requests": len(probe.first_low) + sum(
+             m < SERVE_BF16_LOGITS_ATOL for m in probe.prompt_margin.values()),
+         "sessions": {"conversations": PREFIX_SESSIONS,
+                      "turns": PREFIX_TURNS,
+                      "hit_share_by_turn": session_hits,
+                      "streams_compared_up_to_token": session_compared},
+         "ttft_median_s": {"warm": statistics.median(ttft_warm),
+                           "cold_no_cache": statistics.median(ttft_cold),
+                           "cold_chunked": statistics.median(
+                               ttft_cold_chunked)},
+         "ttft_s": {"warm": ttft_warm, "cold_no_cache": ttft_cold,
+                    "cold_chunked": ttft_cold_chunked},
+         "admission_s": final_snap["latency"]["admission"],
+         "pressured": {"num_blocks": PREFIX_PRESSURE_BLOCKS,
+                       "prefix": psnap["prefix"], "paged": psnap["paged"],
+                       "pinned_blocks_kept": len(held),
+                       "lane_steps_over_shared_blocks": pshared,
+                       "streams_compared_up_to_token": pressured_compared},
+         "seconds": {n: tt - marks[i][1]
+                     for i, (n, tt) in enumerate(marks[1:])},
+         "nvidia_smi": nvidia_smi()})
+    return launches
+
+
 def phase_generate(model, seed=0, prompt_len=1000, n_new=40):
     """GPT-2 small (the serve phase's float32 model) past n_positions: a
     ``prompt_len``-token prompt and ``n_new`` greedy tokens take
@@ -3751,6 +4389,7 @@ def main():
     timed("build", phase_build)
     rows = timed("kernels", phase_kernels)
     timed("slice", phase_slice, rows)
+    timed("io", phase_io, rows)
     timed("bert", phase_bert)
     timed("onnx", phase_onnx)
     timed("charrnn", phase_charrnn)
@@ -3763,10 +4402,13 @@ def main():
     real8 = timed("serve_int8", phase_serve_int8, model, real)
     timed("serve_slots", phase_serve_slots, model, real, real8)
     timed("generate", phase_generate, model)
+    prefix_launches = timed("prefix", phase_prefix, model)
     cfg = model.cfg
     del model
     for row in timed("paged_kernels", phase_paged_kernels, real, real8, cfg):
         rows[row["name"]] = row
+    # the prefix phase decodes on bf16 pools through paged_attn
+    rows["paged_attn"]["launches"] += prefix_launches
 
     smi = nvidia_smi()
     log({"phase": "device", "nvidia_smi": smi,

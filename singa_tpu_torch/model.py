@@ -2,7 +2,9 @@
 ``compile(inputs, is_train, use_graph, sequential)``, a user-overridden
 ``train_one_batch``, ``set_optimizer``, ``train``/``eval``,
 ``train_n_batches``, ``get_states``/``set_states`` under the JAX
-package's state names, and checkpoints: ``save_states``/``load_states``.
+package's state names, and checkpoints: ``save_states``/``load_states``,
+and the step-numbered directories of ``save_checkpoint`` /
+``restore_latest_checkpoint`` (``resilience/checkpoint.py``).
 
 A checkpoint is the JAX package's zip, one ``.npy`` a tensor: the
 ``get_states()`` names, then ``__opt__<name>`` for the optimizer's state
@@ -449,6 +451,31 @@ class Model(layer.Layer):
         tensors are overwritten in place, so captured steps keep reading
         them."""
         super().set_states(states)
+
+    # -- step-numbered checkpoints (resilience/checkpoint.py) --------------
+    def checkpoint_manager(self, root, keep=3, retry_policy=None):
+        """A :class:`~singa_tpu_torch.resilience.checkpoint.CheckpointManager`
+        rooted at ``root``: step-numbered directories, strict-JSON
+        manifests with whole-file digests, last-``keep`` retention, and
+        the fallback past corrupt checkpoints on restore."""
+        from .resilience.checkpoint import CheckpointManager
+
+        return CheckpointManager(root, keep=keep, retry_policy=retry_policy)
+
+    def save_checkpoint(self, root, step, aux_states=None, keep=3,
+                        manager=None):
+        """One manifested checkpoint directory for ``step`` under ``root``
+        (retention applied); returns the committed directory."""
+        mgr = manager or self.checkpoint_manager(root, keep=keep)
+        return mgr.save(self, step, aux_states=aux_states)
+
+    def restore_latest_checkpoint(self, root, manager=None):
+        """Load the newest valid checkpoint under ``root``, falling back
+        past corrupt or truncated steps
+        (``resilience.checkpoint_fallbacks``).  Returns ``(step,
+        aux_states)``."""
+        mgr = manager or self.checkpoint_manager(root)
+        return mgr.restore_latest(self)
 
 
 class AsyncSaveHandle:

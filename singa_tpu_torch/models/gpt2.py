@@ -288,7 +288,9 @@ class GPT2LMHead(model.Model):
         ``serve.PagedConfig``; default None, the slot arena),
         ``cache_dtype`` (``"int8"``: int8 KV), ``max_slots``,
         ``max_len``, ``dtype``, ``top_k``, ``top_p``, ``scheduler``,
-        ``clock``, ``capture``."""
+        ``clock``, ``capture``, ``prefix_cache`` (a
+        ``serve.PrefixCacheConfig``: the radix prefix cache and
+        ``pin_session`` sessions)."""
         from ..serve import InferenceEngine
 
         return InferenceEngine(self, **kw)

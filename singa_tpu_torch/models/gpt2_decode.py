@@ -3,6 +3,8 @@
 
 * ``prefill``: one causal forward over a prompt that also returns every
   layer's K/V, ``(L, B, H_kv, S, D)``;
+* ``prefill_chunk``: a K-token chunk at an offset against a dense cache
+  that holds the positions below it (the prefix cache's admissions);
 * ``decode_step``: one token per row against a dense cache ``(L, B,
   H_kv, ctx, D)``, writing the step's K/V at each row's position; the
   offline ``generate`` loop, the serve engine's slot-arena step and its
@@ -57,7 +59,8 @@ import torch.nn.functional as F
 
 from ..ops.paged_attention import paged_attn
 
-__all__ = ["NEG_INF", "extract_params", "prefill", "decode_step",
+__all__ = ["NEG_INF", "extract_params", "prefill", "prefill_chunk",
+           "decode_step",
            "decode_step_paged", "generate", "generate_beam",
            "generate_speculative", "kv_zeros"]
 
@@ -274,6 +277,72 @@ def decode_step(params, x, kc, vc, pos, n_head, eps):
                           pos, n_head, eps)
     x = _ln(x, params["lnf_s"], params["lnf_b"], eps)
     return _logits(x, params)[:, 0], kc, vc
+
+
+def _block_chunk(x, p, k_cache, v_cache, pos, n_head, eps):
+    """x (B, K, E): K consecutive tokens at positions pos..pos+K-1 (``pos``
+    a host int); k/v_cache (B, H_kv, ctx, D), or (values, scales) pairs,
+    that hold K/V below ``pos``.  Writes the chunk's K/V (quantized for
+    int8 caches) at [pos, pos+K) in place and attends query i to
+    positions <= pos + i, reading lanes < pos + K only, so the result
+    does not depend on the cache's width.  Scores and softmax in float32,
+    as ``_block_decode``; GQA through the same grouped layout."""
+    quant = isinstance(k_cache, tuple)
+    kq = k_cache[0] if quant else k_cache
+    b, klen, e = x.shape
+    d = e // n_head
+    n_kv = kq.shape[1]
+    g = n_head // n_kv
+    end = pos + klen
+    h = _ln(x, p["ln1_s"], p["ln1_b"], eps)
+    q = _linear(h, p["wq"], p["bq"]).reshape(b, klen, n_kv, g, d) \
+        .permute(0, 2, 3, 1, 4)                         # (B, kv, g, K, d)
+    k_new = _linear(h, p["wk"], p["bk"]).reshape(b, klen, n_kv, d) \
+        .transpose(1, 2)                                # (B, kv, K, d)
+    v_new = _linear(h, p["wv"], p["bv"]).reshape(b, klen, n_kv, d) \
+        .transpose(1, 2)
+    if quant:
+        k_new, v_new = _quantize_kv(k_new), _quantize_kv(v_new)
+    for cache, new in ((k_cache, k_new), (v_cache, v_new)):
+        for leaf, val in zip(_leaves(cache), _leaves(new)):
+            leaf[:, :, pos:end] = val.to(leaf.dtype)
+    sc = torch.einsum("bkgqd,bktd->bkgqt", q.float(), kq[:, :, :end].float())
+    if quant:
+        sc = sc * k_cache[1][:, :, None, None, :end]
+    sc = sc / math.sqrt(d)
+    live = (torch.arange(end, device=x.device)[None, :]
+            <= pos + torch.arange(klen, device=x.device)[:, None])
+    sc = torch.where(live, sc, torch.full_like(sc, NEG_INF))
+    pr = torch.softmax(sc, -1)
+    if quant:
+        pr = pr * v_cache[1][:, :, None, None, :end]
+    a = torch.einsum("bkgqt,bktd->bkgqd", pr,
+                     _leaves(v_cache)[0][:, :, :end].float())
+    a = a.permute(0, 3, 1, 2, 4).reshape(b, klen, e).to(x.dtype)
+    x = x + _linear(a, p["wo"], p["bo"])
+    h = _ln(x, p["ln2_s"], p["ln2_b"], eps)
+    return x + _mlp(h, p)
+
+
+def prefill_chunk(params, x, kc, vc, pos, n_head, eps):
+    """Offset prefill, the prefix cache's contract: advance every layer
+    by a K-token chunk, ``x`` (B, K, E) embedded inputs at positions
+    ``pos..pos+K-1``, against caches (L, B, H_kv, ctx, D) (or int8
+    pairs) that hold K/V for positions < ``pos``; the chunk's K/V rows
+    are written at ``pos`` in place.  Returns ``((B, K, E) final-LN
+    hidden, kc, vc)``: hidden, not logits, so a caller projects only the
+    row it samples from.
+
+    The serve engine with a prefix cache prefills every admission in
+    block-width chunks of this function from a zero row; a chunk reads
+    the cache's lanes below ``pos + K`` only, so its output depends on
+    the chunk's tokens and the K/V below ``pos`` alone, whatever the
+    row's width, which is what makes a warm admission's stream the cold
+    one (``serve/prefix.py``)."""
+    for li, p in enumerate(params["blocks"]):
+        x = _block_chunk(x, p, _cache_layer(kc, li), _cache_layer(vc, li),
+                         pos, n_head, eps)
+    return _ln(x, params["lnf_s"], params["lnf_b"], eps), kc, vc
 
 
 def _paged_qkv(x, p, n_head, eps):

@@ -12,7 +12,9 @@ and emits a ``resilience/fault`` trace event.
 
 The site names are the JAX package's (:data:`SITES`); the port threads
 ``checkpoint.write`` and ``checkpoint.read`` (``Model.save_states`` and
-``load_states``) so far.
+``load_states``, ``Snapshot``, ``CheckpointManager``), ``io.binfile``
+(the BinFile reader and writer) and ``serve.prefix_copy`` (the prefix
+cache's own pool copies) so far.
 """
 
 from __future__ import annotations
@@ -31,7 +33,7 @@ __all__ = ["SITES", "FaultInjected", "FailOnce", "FailRate",
            "armed", "check"]
 
 #: The JAX package's canonical injection sites.  ``check`` takes any
-#: name; the port hooks ``checkpoint.write`` and ``checkpoint.read``.
+#: name; the port hooks the four the module docstring names.
 SITES = (
     "checkpoint.write", "checkpoint.read", "comm.collective",
     "serve.decode_step", "serve.ep_dispatch", "serve.pp_boundary",

@@ -4,9 +4,9 @@ split of errors.
 
 :func:`is_transient` retries OS-level I/O errors (``OSError`` and its
 subclasses), ``TimeoutError`` and transient :class:`~.faults.FaultInjected`;
-everything else is fatal and re-raised at the first attempt.  The JAX
-package also names its ``io.binfile.CorruptRecordError`` fatal; the port
-has no ``io`` module yet, so that branch comes with it.  Each
+everything else is fatal and re-raised at the first attempt, and so is
+``io.binfile.CorruptRecordError``, an ``OSError`` that no retry heals.
+Each
 re-attempt increments ``resilience.retries{site=}`` and each spent budget
 ``resilience.gave_up{site=}``.  Jitter draws from a seeded RNG and
 ``sleep`` can be replaced, so tests are deterministic.
@@ -43,9 +43,15 @@ class RetryBudgetExceededError(RuntimeError):
 
 def is_transient(exc, extra_types=()) -> bool:
     """Default transient/fatal split.  Injected faults carry their own
-    classification; ``extra_types`` are transient too."""
+    classification; ``CorruptRecordError`` is an OSError but corruption
+    never heals on retry, so it is fatal; ``extra_types`` are
+    transient."""
+    from ..io.binfile import CorruptRecordError
+
     if isinstance(exc, FaultInjected):
         return exc.transient
+    if isinstance(exc, CorruptRecordError):
+        return False
     if extra_types and isinstance(exc, tuple(extra_types)):
         return True
     return isinstance(exc, (OSError, TimeoutError))

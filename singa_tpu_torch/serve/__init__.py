@@ -2,7 +2,9 @@
 engine over the slot arena (the default: a dense cache row a slot) or
 the paged KV arena, whose decode path runs the paged decode attention
 kernel (``ops/paged_attention.py``); either arena in the compute dtype or
-as int8 values with per-row scales (``cache_dtype="int8"``).
+as int8 values with per-row scales (``cache_dtype="int8"``), with an
+optional radix prefix cache and pinned multi-turn sessions
+(``prefix_cache=PrefixCacheConfig(...)``, ``pin_session=True``).
 
     >>> eng = model.serve()                      # the slot arena
     >>> eng = model.serve(max_slots=8, paged=PagedConfig(block_size=32),
@@ -19,6 +21,7 @@ width); ``jit_cache_size()`` counts the captured steps.
 from .engine import InferenceEngine
 from .jitpin import jit_cache_size
 from .paged import PagedConfig, PagedKVArena
+from .prefix import PrefixCache, PrefixCacheConfig, SessionHandle
 from .request import (DeadlineExceededError, EngineFailedError,
                       GenerationRequest, GenerationResult, QueueFullError,
                       RequestHandle)
@@ -29,4 +32,5 @@ __all__ = ["InferenceEngine", "PagedConfig", "PagedKVArena",
            "GenerationRequest", "GenerationResult", "RequestHandle",
            "QueueFullError", "DeadlineExceededError", "EngineFailedError",
            "FIFOScheduler", "PriorityScheduler", "EngineStats",
-           "jit_cache_size"]
+           "jit_cache_size", "PrefixCache", "PrefixCacheConfig",
+           "SessionHandle"]

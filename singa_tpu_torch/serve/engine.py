@@ -23,6 +23,21 @@
   holds (int8 values, float32 per-row scales) pairs; admission prefill
   quantizes its rows, each step quantizes the K/V it writes, and swap
   images carry the scales;
+* **prefix cache and sessions** (``prefix_cache=``, either arena,
+  ``serve/prefix.py``): an admission looks up the longest cached block
+  prefix of its prompt, pins it and prefills only the rest, in
+  block-width ``prefill_chunk`` passes; every admission of a cached
+  engine, cold ones too, prefills so from a zero row, so warm and cold
+  streams agree by construction.  On the paged arena a warm slot's block
+  table points at the tree's blocks (``arena.share``; its first
+  ``n_shared`` lanes), the decode step's ``paged_attn`` reads them in
+  place, and a retiring slot's full prompt blocks are adopted by the tree
+  without a copy (``_paged_retire``); the slot arena copies the matched
+  blocks into its row and donates from it (``_prefix_retire``).
+  ``pin_session=True`` pins the whole finished sequence
+  (``GenerationResult.session``, a ``SessionHandle``), its generated
+  region recomputed through ``prefill_chunk`` first; unreferenced cached
+  blocks count as free for admission and are evicted LRU;
 * **exactness**: an admission prefills its prompt at its own length and
   samples the first token as ``generate`` does; each decode step runs
   the dense ``decode_step`` (slot arena: the per-row math of offline
@@ -59,14 +74,13 @@ admission prefill always run eagerly.  ``serve.jitpin.jit_cache_size()``
 counts the prepared steps of the open engines.
 
 Not ported yet, each refused with ``NotImplementedError`` at
-construction or submit (``ROADMAP.md``): the prefix cache and sessions,
-speculative decoding (``draft_model``, ``spec_k``), tensor / expert /
-pipeline parallelism (``tp``, ``ep``, ``pp``), fork (``n > 1``),
-structured decoding, SLO targets and load shedding, sliding-window
-models.  The JAX engine's preemption paths for those (window drops,
-copy-on-write forks, speculative draft rows, prefix-cache eviction) are
-not ported with them, and its ``_paged_retire`` (prefix-cache adoption
-of a retiring slot's blocks) is ``_free_slot_blocks`` here.
+construction or submit (``ROADMAP.md``): speculative decoding
+(``draft_model``, ``spec_k``), tensor / expert / pipeline parallelism
+(``tp``, ``ep``, ``pp``), fork (``n > 1``), structured decoding, SLO
+targets and load shedding, sliding-window models.  The JAX engine's
+preemption paths for those (window drops, copy-on-write forks,
+speculative draft rows) are not ported with them, nor the prefix
+cache's fleet index and request-ledger hooks.
 """
 
 from __future__ import annotations
@@ -81,11 +95,12 @@ from .. import graphs
 from ..models.gpt2_decode import (_check_sampling, _leaves, _logits,
                                   _quant_flag, _sample, check_decodable,
                                   decode_step, extract_params, kv_zeros,
-                                  prefill)
+                                  prefill, prefill_chunk)
 from ..observe import trace as _trace
 from . import jitpin
 from .paged import (DecodeInputs, PagedConfig, PagedKVArena, _embed,
                     _paged_decode_kernel, _paged_decode_step, seeds)
+from .prefix import PrefixCache, PrefixCacheConfig, SessionHandle
 from .request import (DeadlineExceededError, EngineFailedError,
                       GenerationRequest, GenerationResult, RequestHandle)
 from .scheduler import FIFOScheduler, PriorityScheduler
@@ -106,6 +121,20 @@ def _prefill_batch(params, ids, n_head, eps, quant=False):
     the JAX engine's ``_prefill_one``."""
     hidden, kc, vc = prefill(params, ids, n_head, eps, quant_cache=quant)
     return _logits(hidden[:, -1], params).float(), kc, vc
+
+
+def _chunk_row(params, ids, kc_row, vc_row, off, chunk, n_head, eps):
+    """Offset prefill of one block-width window of a cache row: embed
+    tokens [off, off + chunk) of the padded (W,) ``ids`` at their
+    positions and advance them through ``prefill_chunk`` against rows
+    (L, 1, H_kv, W, D) (int8 pairs) that hold canonical K/V below
+    ``off``, written in place.  Returns the (1, chunk, E) final-LN hidden
+    (the JAX engine's ``_chunk_row``)."""
+    pos = torch.arange(off, off + chunk, device=ids.device)
+    x = (params["wte"][ids[off:off + chunk]] + params["wpe"][pos])[None]
+    hidden, _, _ = prefill_chunk(params, x, kc_row, vc_row, off, n_head,
+                                 eps)
+    return hidden
 
 
 def _pool_decode_step(params, kc, vc, inp, n_head, eps):
@@ -185,15 +214,24 @@ class _LocalExec:
         return _prefill_batch(params, ids, **self._e._statics,
                               quant=self._e._quant)
 
+    def chunk_row(self, params, ids, kc_row, vc_row, off, chunk):
+        """(1, chunk, E) hidden of one ``_chunk_row`` window; the rows
+        take its K/V in place."""
+        return _chunk_row(params, ids, kc_row, vc_row, off, chunk,
+                          **self._e._statics)
+
 
 class _Slot:
     """Host bookkeeping of one live request; ``blocks`` is its block
-    table (pool block ids)."""
+    table (pool block ids), whose first ``n_shared`` are the prefix
+    cache's (shared, never written by this slot); ``prefix_nodes`` the
+    cached path it holds a reference to while live."""
 
     __slots__ = ("handle", "emitted", "remaining", "first_token_time",
-                 "admit_time", "admitted_step", "blocks")
+                 "admit_time", "admitted_step", "blocks", "n_shared",
+                 "prefix_nodes")
 
-    def __init__(self, handle, max_new, now, step, blocks):
+    def __init__(self, handle, max_new, now, step, blocks, nodes=()):
         self.handle = handle
         self.emitted = []
         self.remaining = max_new
@@ -201,6 +239,8 @@ class _Slot:
         self.admit_time = now
         self.admitted_step = step
         self.blocks = blocks
+        self.prefix_nodes = list(nodes)
+        self.n_shared = len(self.prefix_nodes)
 
 
 class _Swapped:
@@ -237,6 +277,8 @@ class InferenceEngine:
     the slot arena's row width; ``dtype`` casts the weights
     (``torch.bfloat16``);
     ``top_k`` / ``top_p`` are engine-wide filters of sampled requests;
+    ``prefix_cache`` (default None: off) is a ``PrefixCacheConfig``, a
+    dict of its arguments or True (module docstring);
     ``scheduler`` is ``"fifo"`` (default), ``"priority"`` or an
     instance; ``clock`` is injectable for tests; ``capture`` (default
     True) replays each decode width's step as a CUDA graph on the card
@@ -249,8 +291,7 @@ class InferenceEngine:
                  paged=None, tp=None, ep=None, pp=None, capture=True):
         cfg = model.cfg
         check_decodable(cfg)
-        owed = [("prefix_cache", prefix_cache not in (None, False)),
-                ("speculative decoding (draft_model, spec_k)",
+        owed = [("speculative decoding (draft_model, spec_k)",
                  draft_model is not None or spec_k is not None),
                 ("tensor/expert/pipeline-parallel serving (tp, ep, pp)",
                  any(x not in (None, False) for x in (tp, ep, pp))),
@@ -334,6 +375,45 @@ class InferenceEngine:
         self._closed = False
         self._failed = False
         self.step_count = 0
+        self.prefix_cache = self._make_prefix_cache(prefix_cache, L, H_kv,
+                                                    D, cdt, dev)
+
+    def _make_prefix_cache(self, config, L, H_kv, D, dtype, dev):
+        """The engine's radix prefix cache for ``config`` (None, False,
+        True, a kwargs dict, possibly empty, or a ``PrefixCacheConfig``),
+        or None.  On the paged arena the tree shares the arena's blocks,
+        so its block size must be the arena's, and the arena evicts
+        unreferenced cached blocks before an allocation fails; on the slot
+        arena ``max_len`` must be a multiple of the block size."""
+        if config is None or config is False:
+            return None
+        if config is True:
+            config = PrefixCacheConfig()
+        elif isinstance(config, dict):
+            config = PrefixCacheConfig(**config)
+        if not isinstance(config, PrefixCacheConfig):
+            raise ValueError(f"prefix_cache must be a PrefixCacheConfig, a "
+                             f"kwargs dict, or True, got {type(config)}")
+        arena = self.paged_arena
+        if arena is not None and config.block_size != arena.block_size:
+            raise ValueError(
+                f"prefix_cache.block_size ({config.block_size}) != paged "
+                f"block_size ({arena.block_size}): a paged engine keeps one "
+                f"block pool, so the cache shares its granularity (its "
+                f"num_blocks is ignored: capacity is the arena's)")
+        if arena is None and self.max_len % config.block_size != 0:
+            raise ValueError(
+                f"max_len ({self.max_len}) must be a multiple of "
+                f"prefix_cache.block_size ({config.block_size}) so chunked "
+                f"prefill windows never cross the row's edge")
+        cache = PrefixCache(config, L, H_kv, D, dtype, dev,
+                            engine_label=self.stats.engine_label,
+                            reg=self.stats.registry, quant=self._quant,
+                            arena=arena)
+        if arena is not None:
+            arena.evict_cb = cache._evict_one
+        self.stats.prefix_source = cache.snapshot
+        return cache
 
     # -- submission ------------------------------------------------------
     def submit(self, request) -> RequestHandle:
@@ -368,8 +448,6 @@ class InferenceEngine:
             _owed("fork (GenerationRequest(n > 1))")
         if request.structured is not None:
             _owed("structured decoding")
-        if request.pin_session:
-            _owed("pin_session (prefix-cache sessions)")
         plen = len(request.prompt_ids)
         need = plen + request.max_new_tokens
         if need > self.max_len:
@@ -410,18 +488,25 @@ class InferenceEngine:
         return ids
 
     def check_block_accounting(self):
-        """Leak check: every used pool block belongs to a live slot's
-        table.  Raises AssertionError naming the counts; returns the
-        used-block count."""
+        """Leak check of the paged arena: ``used == cached +
+        live_referenced``, every used pool block owned by the prefix
+        cache's tree or held by a live slot's table (a block both cached
+        and shared by a slot counts once).  Raises AssertionError naming
+        the counts; returns the used-block count."""
         arena = self.paged_arena
         if arena is None:
             return 0
-        owned = {b for s in self._slots if s is not None for b in s.blocks
-                 if b != arena.trash}
+        owned = set()
+        if self.prefix_cache is not None:
+            owned.update(self.prefix_cache.cached_block_ids())
+        n_cached = len(owned)
+        owned.update(b for s in self._slots if s is not None
+                     for b in s.blocks if b != arena.trash)
         if arena.blocks_used != len(owned):
             raise AssertionError(
                 f"paged-arena block leak: {arena.blocks_used} blocks used, "
-                f"{len(owned)} held by live slots")
+                f"owners account for {len(owned)} ({n_cached} cached + "
+                f"{len(owned) - n_cached} held by live slots only)")
         return arena.blocks_used
 
     def close(self, force=False):
@@ -440,6 +525,8 @@ class InferenceEngine:
         self._steps = {}
         self._graph_pool = None
         self.stats.unregister()
+        if self.prefix_cache is not None:
+            self.prefix_cache.unregister()
         if self.paged_arena is not None:
             self.paged_arena.unregister()
         self._kc = self._vc = None
@@ -510,6 +597,7 @@ class InferenceEngine:
         for i, slot in enumerate(self._slots):
             if slot is None:
                 continue
+            self._release_prefix(slot)
             self._free_slot_blocks(slot)
             rid = slot.handle.request.request_id
             slot.handle._reject(EngineFailedError(
@@ -619,6 +707,7 @@ class InferenceEngine:
             try:
                 req.on_token(req, token)
             except Exception as e:  # the client's callback: reject it alone
+                self._release_prefix(slot)
                 self._free_slot_blocks(slot)
                 self._slots[idx] = None
                 self._handles.pop(req.request_id, None)
@@ -648,6 +737,11 @@ class InferenceEngine:
             queue_time=slot.admit_time - submit_t,
             admitted_step=slot.admitted_step,
             finished_step=self.step_count)
+        if self.prefix_cache is not None:
+            self._donate(idx, slot, req, result)
+        elif req.pin_session:
+            # no cache: the handle still builds the next turn, cold
+            result.session = SessionHandle(result.tokens)
         self._free_slot_blocks(slot)
         slot.handle._finish(result)
         self.stats.on_complete(result)
@@ -655,10 +749,102 @@ class InferenceEngine:
         self._handles.pop(req.request_id, None)
 
     def _free_slot_blocks(self, slot):
+        """Drop the slot's reference to each of its blocks: a private
+        block returns to the free list, a cached one it shares stays the
+        tree's."""
         arena = self.paged_arena
         if arena is not None:
             arena.free([b for b in slot.blocks if b != arena.trash])
         slot.blocks = []
+
+    def _release_prefix(self, slot):
+        if self.prefix_cache is not None and slot.prefix_nodes:
+            self.prefix_cache.release(slot.prefix_nodes)
+            slot.prefix_nodes = []
+
+    def _canonicalize(self, kc_row, vc_row, tokens, j_lo, j_hi):
+        """Recompute blocks [j_lo, j_hi) of cache rows holding ``tokens``
+        through ``prefill_chunk``, in place: decode-step K/V is not the
+        canonical form the tree stores."""
+        if j_hi <= j_lo:
+            return
+        B = self.prefix_cache.block_size
+        width = _leaves(kc_row)[0].shape[3]
+        ids = np.zeros(width, np.int64)
+        n = min(width, len(tokens))
+        ids[:n] = tokens[:n]
+        ids = torch.as_tensor(ids, device=self._params["wte"].device)
+        for j in range(j_lo, j_hi):
+            self._x.chunk_row(self._params, ids, kc_row, vc_row, j * B, B)
+
+    def _donate(self, idx, slot, req, result):
+        """Retire into the prefix cache: the full blocks of the prompt
+        (canonical: the admission's chunks wrote them and decode never
+        touches positions below the prompt's length), and for a
+        ``pin_session`` request the whole sequence, whose generated
+        region is recomputed first, pinned as ``result.session``."""
+        cache = self.prefix_cache
+        B = cache.block_size
+        plen, total = len(req.prompt_ids), len(result.tokens)
+        want = bool(req.pin_session)
+        n_goal = total // B if want else plen // B
+        try:
+            if self.paged_arena is not None:
+                path = self._paged_retire(slot, result.tokens, plen,
+                                          n_goal)
+            else:
+                path = self._prefix_retire(idx, result.tokens, plen,
+                                           n_goal)
+            if want:
+                cache.acquire(path)
+                result.session = SessionHandle(result.tokens, cache, path)
+        finally:
+            self._release_prefix(slot)
+
+    def _paged_retire(self, slot, tokens, plen, n_goal):
+        """Donation on the paged arena, without a copy: the tree adopts
+        the slot's blocks.  A lane the tree already holds keeps the tree's
+        block and the slot's reference to it (a shared prefix block) or
+        the slot's duplicate goes; the blocks past the donation (the
+        decode region, the growth block) are freed.  Returns the tree
+        path."""
+        arena, cache = self.paged_arena, self.prefix_cache
+        B = cache.block_size
+        # the last emitted token's position is never written, so its
+        # block may not exist: a session pins one block less then
+        n_goal = min(n_goal, len(slot.blocks))
+        path = []
+        if n_goal > 0:
+            if n_goal > plen // B:
+                kc_row, vc_row = arena.gather_row(slot.blocks)
+                self._canonicalize(kc_row, vc_row, tokens, plen // B,
+                                   n_goal)
+                arena.scatter_row(kc_row, vc_row,
+                                  {j: slot.blocks[j]
+                                   for j in range(plen // B, n_goal)})
+            path = cache.adopt_blocks(tokens, slot.blocks, n_goal)
+        kept = {slot.blocks[j] for j in range(slot.n_shared, len(path))
+                if path[j].block == slot.blocks[j]}
+        arena.free([b for b in slot.blocks
+                    if b != arena.trash and b not in kept])
+        slot.blocks = []
+        return path
+
+    def _prefix_retire(self, idx, tokens, plen, n_goal):
+        """Donation on the slot arena: the missing blocks are copied out
+        of the slot's row into the cache's pool (a path already cached
+        whole only has its recency refreshed).  Returns the tree path."""
+        cache = self.prefix_cache
+        if n_goal <= 0:
+            return []
+        existing = cache.lookup(tokens)[:n_goal]
+        if len(existing) == n_goal:
+            cache.touch(existing)
+            return existing
+        kc_row, vc_row = self._x.read_slot(self._kc, self._vc, idx)
+        self._canonicalize(kc_row, vc_row, tokens, plen // cache.block_size,
+                           n_goal)
+        return cache.donate_from_row(tokens, kc_row, vc_row, n_goal)
 
     def _block_tables(self, idxs):
         """(len(idxs), max_len // B) int32 block tables, trash-padded;
@@ -715,9 +901,13 @@ class InferenceEngine:
         makes every preemption chain end.  Feasibility is checked before
         any side effect: if the free blocks and every eligible victim's
         blocks together cannot cover ``n``, nothing is preempted (that
-        would be pure swap churn)."""
+        would be pure swap churn).  Unreferenced cached blocks count as
+        available: the arena evicts them before an allocation fails."""
         arena = self.paged_arena
-        avail = arena.blocks_free + sum(
+        avail = arena.blocks_free
+        if self.prefix_cache is not None:
+            avail += self.prefix_cache.evictable_blocks()
+        avail += sum(
             sum(1 for b in s.blocks
                 if b != arena.trash and arena.ref_count(b) == 1)
             for i, s in enumerate(self._slots)
@@ -777,6 +967,7 @@ class InferenceEngine:
         sw.image = arena.swap_out(slot.blocks, (pos - 1) // arena.block_size
                                   + 1)
         n_freed = len(slot.blocks)
+        self._release_prefix(slot)
         self._free_slot_blocks(slot)
         self._slots[idx] = None
         self._swapped.append(sw)
@@ -845,65 +1036,129 @@ class InferenceEngine:
         first blocks fit, preempting strictly-lower-priority slots for
         them (a request whose blocks do not fit, or that a swapped
         request outranks, waits at the head of the queue), prefill the
-        admitted ones (one batched prefill per prompt length) and emit
-        their first tokens."""
+        admitted ones and emit their first tokens: one batched prefill
+        per prompt length, or, with a prefix cache, each request's
+        uncached blocks in ``prefill_chunk`` passes (its cached prefix
+        pinned before its blocks are allocated, so the allocation's
+        eviction cannot take it)."""
         self._try_resume(now)
         if self.scheduler.queue_depth == 0:
             return
         free = self._free_slots()
         admit, expired = self.scheduler.schedule(len(free), now)
         self._reject_expired(expired, now)
-        arena = self.paged_arena
+        arena, cache = self.paged_arena, self.prefix_cache
         blocked_p = self._blocked_priority()
         placed = []
         for k, req in enumerate(admit):
+            nodes = []
+            if cache is not None:
+                plen = len(req.prompt_ids)
+                nodes = cache.lookup(req.prompt_ids)[
+                    :(plen - 1) // cache.block_size]
+                cache.acquire(nodes)
             blocks = None
             if arena is None:
                 blocks = []
             elif blocked_p is None or req.priority > blocked_p:
                 blocks = self._alloc_blocks(
-                    len(req.prompt_ids) // arena.block_size + 1,
+                    len(req.prompt_ids) // arena.block_size + 1 - len(nodes),
                     req.priority)
             if blocks is None:
+                if nodes:
+                    cache.release(nodes)
                 for r in reversed(admit[k:]):
                     self.scheduler.requeue_front(r)
                 break
-            placed.append((free.pop(0), req, blocks))
+            placed.append((free.pop(0), req, blocks, nodes))
+        if cache is not None:
+            for idx, req, blocks, nodes in placed:
+                self._admit_chunked(idx, req, now, blocks, nodes)
+            return
         by_len = {}
         for p in placed:
             by_len.setdefault(len(p[1].prompt_ids), []).append(p)
         dev = self._params["wte"].device
         for plen, group in by_len.items():
-            ids = torch.as_tensor(np.stack([r.prompt_ids for _, r, _ in group]),
+            ids = torch.as_tensor(np.stack([r.prompt_ids
+                                            for _, r, _, _ in group]),
                                   device=dev)
             with _trace.span("serve/prefill", cat="serve", prompt_len=plen,
                              requests=len(group), step=self.step_count):
                 logits, kc, vc = self._x.prefill_batch(self._params, ids)
             self.stats.on_prefill()
-            for r, (idx, req, blocks) in enumerate(group):
-                self._admit(idx, req, now, blocks, logits[r:r + 1],
-                            _row(kc, r), _row(vc, r))
+            for r, (idx, req, blocks, _) in enumerate(group):
+                if arena is None:
+                    self._x.write_slot(self._kc, self._vc, _row(kc, r),
+                                       _row(vc, r), idx)
+                else:
+                    arena.scatter_row(_row(kc, r), _row(vc, r),
+                                      dict(enumerate(blocks)))
+                self._admit(idx, req, now, blocks, logits[r:r + 1])
 
-    def _admit(self, idx, req, now, blocks, logit, kc_row, vc_row):
-        """Write one prefilled request's K/V into its blocks (the slot
-        arena: into its slot), sample its first token (position ``plen``)
-        and emit it."""
+    def _admit_chunked(self, idx, req, now, blocks, nodes):
+        """Admission on a cached engine: the matched ``nodes`` (pinned
+        by the caller) in a fresh row of the width the prompt's chunks
+        span, zeros past them, then a ``prefill_chunk`` pass per block
+        from the first uncached one to the one holding the prompt's last
+        token, whose hidden row gives the first token.  The row goes into
+        the slot (the slot arena) or its lanes past the cached prefix
+        into the request's fresh ``blocks`` (paged: the table's first
+        lanes are the tree's blocks, shared, never copied)."""
+        cache, arena = self.prefix_cache, self.paged_arena
+        B = cache.block_size
+        plen = len(req.prompt_ids)
+        last_off = ((plen - 1) // B) * B
+        width = last_off + B
+        ids = np.zeros(width, np.int64)
+        ids[:plen] = req.prompt_ids
+        try:
+            with _trace.span("serve/prefill", cat="serve", prompt_len=plen,
+                             requests=1, step=self.step_count,
+                             cached_tokens=len(nodes) * B):
+                kc_row, vc_row = cache.copy_into_row(nodes, width)
+                ids = torch.as_tensor(ids, device=self._params["wte"].device)
+                for off in range(len(nodes) * B, last_off + 1, B):
+                    hidden = self._x.chunk_row(self._params, ids, kc_row,
+                                               vc_row, off, B)
+                logit = _logits(hidden[:, plen - 1 - last_off],
+                                self._params).float()
+                if arena is None:
+                    self._x.write_slot(self._kc, self._vc, kc_row, vc_row,
+                                       idx)
+                else:
+                    m = len(nodes)
+                    arena.scatter_row(kc_row, vc_row,
+                                      {m + j: b for j, b in enumerate(blocks)})
+        except BaseException:
+            # nothing holds these yet: return them, or they leak
+            if arena is not None:
+                arena.free(blocks)
+            cache.release(nodes)
+            raise
+        if arena is not None:
+            arena.share([n.block for n in nodes])
+            blocks = [n.block for n in nodes] + blocks
+        cache.on_admit(len(nodes), plen)
+        self.stats.on_prefill()
+        self._admit(idx, req, now, blocks, logit, nodes)
+
+    def _admit(self, idx, req, now, blocks, logit, nodes=()):
+        """Start a prefilled request in slot ``idx`` (its K/V already in
+        its slot or blocks): sample its first token (position ``plen``)
+        from ``logit`` and emit it.  ``nodes``: the cached path it holds
+        while live."""
         handle = self._handles[req.request_id]
         plen = len(req.prompt_ids)
-        if self.paged_arena is None:
-            self._x.write_slot(self._kc, self._vc, kc_row, vc_row, idx)
-        else:
-            self.paged_arena.scatter_row(kc_row, vc_row,
-                                         dict(enumerate(blocks)))
         temp = np.float32(req.temperature)
         tok0 = int(_sample(logit, [temp], [req.seed], [plen], self._top_k,
                            self._top_p)[0])
         t_first = self._clock()
         slot = _Slot(handle, req.max_new_tokens, now, self.step_count,
-                     blocks)
+                     blocks, nodes)
         self._slots[idx] = slot
         self.stats.on_admission(now - getattr(handle, "_submit_time", now),
-                                t_first - now)
+                                t_first - now, warm=bool(nodes))
         self._toks[idx] = tok0
         self._pos[idx] = plen
         self._temps[idx] = temp

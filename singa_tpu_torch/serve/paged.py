@@ -27,8 +27,12 @@
   is keyed by (seed, position), so a resumed request's remaining tokens
   are the uninterrupted run's.
 
-Not ported yet (``ROADMAP.md``): the prefix cache sharing this pool,
-windowed block drops, the chunked-prefill budget
+With a prefix cache (``serve/prefix.py``) the radix tree owns blocks of
+this pool too: a warm slot's table points at them (``share`` adds the
+slot's reference), and ``alloc`` evicts unreferenced cached blocks
+through ``evict_cb`` before it fails.
+
+Not ported yet (``ROADMAP.md``): windowed block drops, the chunked-prefill budget
 (``prefill_token_budget``) and the admission interleave
 (``admit_per_step``).
 """
@@ -238,6 +242,8 @@ class PagedKVArena:
         self.pool_k = kv_zeros(shape, dtype, self.quant, device)
         self.pool_v = kv_zeros(shape, dtype, self.quant, device)
         self._free = list(range(N))
+        # the prefix cache's LRU eviction: returns a freed block or None
+        self.evict_cb = None
         # blocks referenced more than once (count >= 2); an allocated
         # block without an entry has one reference
         self._refs = {}
@@ -247,8 +253,9 @@ class PagedKVArena:
                                  help="pool blocks on the free list", **lbl)
         self._g_used = reg.gauge(
             "serve.paged.blocks_used",
-            help="pool blocks held by live slots (a swapped-out request "
-                 "holds none: its blocks were freed at preemption)",
+            help="pool blocks held by live slots or the prefix cache (a "
+                 "swapped-out request holds none: its blocks were freed "
+                 "at preemption)",
             **lbl)
         self._c_preempt = reg.counter(
             "serve.paged.preemptions",
@@ -277,8 +284,16 @@ class PagedKVArena:
         self._g_used.set(self.blocks_used)
 
     def alloc(self, n):
-        """``n`` blocks, or None: all or nothing."""
+        """``n`` blocks, or None: all or nothing.  Under pressure the
+        prefix cache's LRU leaves are evicted first (``evict_cb``);
+        evicted blocks stay freed even when ``n`` does not fit."""
+        while len(self._free) < n and self.evict_cb is not None:
+            blk = self.evict_cb()
+            if blk is None:
+                break
+            self._free.append(blk)
         if len(self._free) < n:
+            self._update_gauges()
             return None
         out = [self._free.pop() for _ in range(n)]
         self._update_gauges()

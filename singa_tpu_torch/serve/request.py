@@ -67,10 +67,16 @@ class GenerationRequest:
     first).  ``stop_token`` retires the request the moment it is
     emitted (``finish_reason="stop"``).
 
-    ``pin_session``, ``n`` and ``structured`` are the JAX engine's
-    prefix-cache sessions, parallel sampling (fork) and structured
-    decoding; the port's engine raises ``NotImplementedError`` for
-    them at submit."""
+    ``pin_session``: on an engine with a prefix cache, retire pins the
+    whole finished sequence in the cache and hands back a
+    ``SessionHandle`` as ``GenerationResult.session``, whose
+    ``request(extra)`` builds the next turn (without a cache the handle
+    still builds it, cold).  ``session_of``: the ``SessionHandle`` this
+    request continues (set by ``SessionHandle.request``).
+
+    ``n`` and ``structured`` are the JAX engine's parallel sampling
+    (fork) and structured decoding; the port's engine raises
+    ``NotImplementedError`` for them at submit."""
 
     prompt_ids: np.ndarray
     max_new_tokens: int = 20
@@ -80,6 +86,7 @@ class GenerationRequest:
     on_token: Optional[Callable] = None
     priority: int = 0
     pin_session: bool = False
+    session_of: Optional[object] = None
     stop_token: Optional[int] = None
     n: int = 1
     structured: Optional[object] = None
@@ -108,7 +115,8 @@ class GenerationResult:
     continuation (the array offline ``generate`` returns);
     ``finish_reason`` is ``"length"`` or ``"stop"``.  Latencies are on
     the engine's clock: ``ttft`` is submit to first token, ``tpot`` the
-    mean time between tokens after it."""
+    mean time between tokens after it.  ``session``: the pinned
+    ``SessionHandle`` of a ``pin_session`` request, else None."""
 
     request_id: str
     tokens: np.ndarray
@@ -118,6 +126,7 @@ class GenerationResult:
     queue_time: float
     admitted_step: int
     finished_step: int
+    session: Optional[object] = None
 
 
 class RequestHandle:

@@ -7,7 +7,8 @@ an ``engine=<n>`` label, one label value per engine.
 * **TPOT**: (last token - first token) / (n - 1); a request that emits
   one token has no TPOT sample.
 * **queue wait / admission**: TTFT split into submit -> admission and
-  admission -> first token (the prefill).
+  admission -> first token (the prefill), the latter by ``kind``:
+  ``cold``, or ``warm`` when a prefix-cache hit skipped part of it.
 * **occupancy**: live slots / max_slots, sampled once per decode step;
   **queue depth**: sampled after each step's scheduling pass.
 
@@ -18,6 +19,11 @@ an ``engine=<n>`` label, one label value per engine.
   registers in this registry under the same label, as in the JAX
   package; None on the slot arena, which has no blocks and does not
   preempt.
+
+* **prefix**: the prefix cache's snapshot (``serve/prefix.py``): hits,
+  misses, evictions, cached blocks, hit and lookup tokens and the
+  token hit rate, from the ``serve.prefix.*`` metrics the cache
+  registers under the same label; None without a cache.
 
 All times come from the engine's clock, so a fake clock makes the
 snapshot deterministic in tests.  The JAX version's SLO targets and
@@ -72,8 +78,11 @@ class EngineStats:
         self.tpot = self._h_tpot.series
         self._h_queue_wait = h("serve.request.queue_wait_s",
                                help="submit->admission seconds", **lbl)
-        self._h_admission = h("serve.request.admission_s",
-                              help="admission->first-token seconds", **lbl)
+        self._h_admission = {
+            kind: h("serve.request.admission_s",
+                    help="admission->first-token seconds (the prefill, "
+                         "cold or prefix-warm)", kind=kind, **lbl)
+            for kind in ("cold", "warm")}
         self._queue_depth = g("serve.queue_depth",
                               help="scheduler queue depth", **lbl)
         self._occupancy = g("serve.occupancy",
@@ -83,15 +92,17 @@ class EngineStats:
             self._submitted, self._completed, self._rej_deadline,
             self._rej_queue, self._prefills, self._decode_steps,
             self._tokens_out, self._h_ttft, self._h_tpot,
-            self._h_queue_wait, self._h_admission, self._queue_depth,
+            self._h_queue_wait, self._h_admission["cold"],
+            self._h_admission["warm"], self._queue_depth,
             self._occupancy]
         self._queue_depth_sum = 0
         self._queue_depth_max = 0
         self._queue_samples = 0
         self._occupancy_sum = 0.0
         # the arena's snapshot (blocks free/used, preemption and swap
-        # counters), set by the engine
+        # counters) and the prefix cache's, set by the engine
         self.paged_source = None
+        self.prefix_source = None
 
     def unregister(self):
         self.registry.remove(*self._registered)
@@ -116,9 +127,9 @@ class EngineStats:
     def on_prefill(self):
         self._prefills.inc()
 
-    def on_admission(self, queue_wait_s, admission_s):
+    def on_admission(self, queue_wait_s, admission_s, warm=False):
         self._h_queue_wait.observe(queue_wait_s)
-        self._h_admission.observe(admission_s)
+        self._h_admission["warm" if warm else "cold"].observe(admission_s)
 
     def on_token(self):
         self._tokens_out.inc()
@@ -159,7 +170,9 @@ class EngineStats:
                 "decode_steps": steps,
             },
             "latency": {"ttft": self.ttft.summary(),
-                        "tpot": self.tpot.summary()},
+                        "tpot": self.tpot.summary(),
+                        "admission": {k: v.series.summary() for k, v
+                                      in self._h_admission.items()}},
             "queue": {
                 "mean_depth": (self._queue_depth_sum / self._queue_samples
                                if self._queue_samples else 0.0),
@@ -172,4 +185,6 @@ class EngineStats:
             },
             "paged": (self.paged_source()
                       if self.paged_source is not None else None),
+            "prefix": (self.prefix_source()
+                       if self.prefix_source is not None else None),
         }

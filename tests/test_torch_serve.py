@@ -327,8 +327,20 @@ def test_slot_that_cannot_grow_fails_typed(models):
     dict(tp=2), dict(ep=2), dict(pp=2), dict(slo="slo"),
 ], ids=lambda kw: next(iter(kw)))
 def test_engine_refuses_what_is_not_ported(models, kw):
+    """Each engine argument still owed raises; ``prefix_cache``, ported
+    since, builds the engine with its cache (its behaviour:
+    tests/test_torch_prefix.py)."""
     _, tm = models
     kw = {"paged": PagedConfig(block_size=8, num_blocks=8), **kw}
+    if "prefix_cache" in kw:
+        # True: the default PrefixCacheConfig, whose 64-token blocks the
+        # arena must share
+        eng = tm.serve(**dict(kw, paged=PagedConfig(block_size=64,
+                                                    num_blocks=8)))
+        assert eng.prefix_cache is not None
+        assert eng.prefix_cache.block_size == 64
+        eng.close()
+        return
     with pytest.raises(NotImplementedError, match="not ported"):
         tm.serve(**kw)
 
@@ -377,8 +389,21 @@ def test_paged_engine_serves_int8_kv(models):
     dict(n=2), dict(structured=object()), dict(pin_session=True)],
     ids=["fork", "structured", "pin_session"])
 def test_submit_refuses_what_is_not_ported(models, req):
+    """Each request option still owed raises at submit;
+    ``pin_session``, ported since, is served: without a prefix cache the
+    result carries a session handle that pins nothing (with one:
+    tests/test_torch_prefix.py)."""
     _, tm = models
     eng = tm.serve(paged=PagedConfig(block_size=8, num_blocks=8))
+    if "pin_session" in req:
+        h = eng.submit(GenerationRequest(np.arange(3), max_new_tokens=2,
+                                         **req))
+        eng.run_until_complete(max_steps=20)
+        sess = h.result().session
+        assert sess is not None and sess.pinned_blocks == 0
+        np.testing.assert_array_equal(sess.tokens, h.result().tokens)
+        eng.close()
+        return
     with pytest.raises(NotImplementedError, match="not ported"):
         eng.submit(GenerationRequest(np.arange(3), max_new_tokens=2, **req))
     eng.close()
