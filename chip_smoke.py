@@ -253,6 +253,30 @@ exits nonzero:
                     through the chunked path; then a 64-block pool the
                     traffic overflows: the tree evicts, a pinned session's
                     blocks survive, the streams hold.
+14b. ``spec``      - speculative decoding on the serve phase's engine and
+                    traffic, ``spec_k`` 4, with a 2-layer draft of GPT-2
+                    small's widths holding the target's embeddings, first
+                    blocks and final LN, and with the target as its own
+                    draft: float32 greedy streams equal the
+                    non-speculative engine's (paged, slot arena, int8
+                    pools), every verify one ``paged_attn`` launch a
+                    layer at Q = 4 (``paged_attn.chunk_launches``), the
+                    census flat; bf16 timed (acceptance, tokens a step,
+                    TTFT, TPOT, decode tokens/s beside the
+                    non-speculative engine's), greedy streams equal the
+                    non-speculative bf16 ones up to the first low-margin
+                    token; offline ``generate_speculative`` == greedy
+                    ``generate``.
+14c. ``longctx``   - float32: the chunked-prefill budget (7 chats
+                    decoding, then a 960-token prompt admitted with
+                    ``prefill_token_budget=256`` and without: streams
+                    equal, the step-to-step gaps while it admits, its
+                    TTFT); GPT-2 small with ``attn_window=256`` serving 8
+                    requests to 1024 positions (== offline windowed
+                    ``generate``, block accounting every step, at most 9
+                    blocks a slot, a 512-token prompt admitted in window,
+                    TPOT past position 700 beside the dense model's),
+                    then on int8 pools and with the 2-layer draft.
 15. ``paged_kernels`` - ``paged_attn`` (its split and combine kernels)
                     against ``paged_attn_plain``, on float32, bf16 and
                     float16 pools and on int8 pools with float32, bf16
@@ -272,7 +296,11 @@ exits nonzero:
                     times the kernels, their plain version and SDPA on
                     rows gathered from the pool (the yardstick; the
                     gather, and the dequantization of int8 pools, not
-                    timed).
+                    timed); then, timed the same way, at the spec
+                    phase's verify step (Q = 4,
+                    bf16 and int8 pools) and the longctx phase's windowed
+                    step (float32; read from table entry 0 as the engine
+                    reads it, and from the JAX engine's bound).
 16. ``device``    - the card's name and power limit from nvidia-smi.
 
 Then one line ``{"kernels": [...]}`` with each kernel's launches on the
@@ -804,6 +832,14 @@ REPLACES = {
     # _paged_attn's int8 branch: its (values, scales) pools (:861), the
     # scaled scores (:885-889) and current lanes (:909-912)
     "paged_attn_int8": "singa_tpu/models/gpt2_decode.py:861",
+    # _paged_attn at Q = spec_k under the verify chunk's tril cur_mask, as
+    # _block_chunk_paged calls it (:989, the call :1015), bf16 and int8
+    # pools
+    "paged_attn_spec": "singa_tpu/models/gpt2_decode.py:1015",
+    "paged_attn_spec_int8": "singa_tpu/models/gpt2_decode.py:1015",
+    # _paged_attn's window band (:897-901) over a windowed slot's table of
+    # dropped (trash) blocks, as _block_decode_paged calls it (:963)
+    "paged_attn_window": "singa_tpu/models/gpt2_decode.py:897",
 }
 
 
@@ -2913,6 +2949,26 @@ def paged_edge_cases():
     return [(n, {**base, **kw}) for n, kw in cases]
 
 
+def paged_serving_cases():
+    """(name, kwargs of ``paged_inputs`` but dtype and seed) at the shapes
+    of the ``spec`` and ``longctx`` phases' steps: GPT-2 small's 12 kv
+    heads at D 64, blocks of 32, 8 slots: a verify chunk at Q = 4 (a dead
+    slot, chunks across a block edge) and a windowed decode step and
+    verify chunk (window 256) whose tables hold the trash block below
+    each slot's window, read from table entry 0 as the engine reads
+    them."""
+    base = dict(d=64, n_kv=12, g=1, block=32)
+    spec = [400, 37, 129, 0, 511, 64, 250, 1000]
+    win = [700, 1000, 300, 260, 575, 831, 960, 1019]
+    dropped = [(s, j) for s, p in enumerate(win)
+               for j in range(max(0, (p - LONGCTX_WINDOW + 1) // 32))]
+    wkw = dict(base, lens=win, window=LONGCTX_WINDOW, trash_at=dropped,
+               from_block0=True)
+    return [("spec_q4", dict(base, lens=spec, nq=SPEC_K)),
+            ("window_q1", dict(wkw, nq=1)),
+            ("window_q4", dict(wkw, nq=SPEC_K))]
+
+
 def check_paged_case(name, dtype, seed, quant=False, **kw):
     """The kernel against its plain version on one case (``quant``: int8
     pools, q in ``dtype``): returns max |kernel - plain| and raises past
@@ -2933,15 +2989,18 @@ def check_paged_case(name, dtype, seed, quant=False, **kw):
     return err
 
 
-def paged_bound_ms(lens, n_kv, g, nq, d, dtype, quant=False):
+def paged_bound_ms(lens, n_kv, g, nq, d, dtype, quant=False, window=None):
     """Least time for one call: the live K/V lanes read once, q and the
     current K/V read and the output written once, over memory bandwidth;
     against 4 FLOPs per (query row, live lane, element) over the peak
     rate for q's dtype.  ``quant``: int8 lanes, D bytes and a float32
-    scale each.  Returns ``(ms, "bytes" or "operations")``."""
+    scale each.  ``window``: a slot's live pool lanes are those its first
+    query sees, at most ``window - 1``.  Returns ``(ms, "bytes" or
+    "operations")``."""
     elem = torch.finfo(dtype).bits // 8
     row = d + 4 if quant else d * elem                # bytes of a K or V lane
-    lanes = int(sum(lens))
+    lanes = int(sum(lens if window is None
+                    else [min(p, window - 1) for p in lens]))
     s_ = len(lens)
     nbytes = (2 * lanes * n_kv * row                 # live K and V lanes
               + 2 * s_ * n_kv * g * nq * d * elem    # q and the output
@@ -2977,6 +3036,7 @@ def sdpa_yardstick(layers):
     from singa_tpu_torch.ops import paged_attention as pa
 
     kernel_out = pa.paged_attn(**layers[0])
+    window = layers[0].get("window")
     if isinstance(layers[0]["pool_k"], tuple):
         # int8 pools: SDPA reads them dequantized to q's dtype (not timed)
         layers = [dict(a, **{k: _dequantize_kv(*a[k], a["q"].dtype)
@@ -2991,17 +3051,20 @@ def sdpa_yardstick(layers):
     tbl = torch.cat([a0["tables"][:, :n_blk].long(),
                      torch.full((s_, 1), a0["pool_k"].shape[0] - 1,
                                 device=q.device)], 1)
-    lanes = torch.arange(s_, device=q.device)
-    pos = a0["p_limit"].long()
-    mask = (torch.arange(width, device=q.device)[None, :]
-            <= pos[:, None])[:, None, None, :]
+    lanes = torch.arange(s_, device=q.device)[:, None]
+    qpos = a0["p_limit"].long()[:, None] + torch.arange(nq, device=q.device)
+    t = torch.arange(width, device=q.device)
+    live = t <= qpos[:, :, None]                         # (S, Q, width)
+    if window is not None:
+        live = live & (t > qpos[:, :, None] - window)
+    mask = live[:, None]
     qq = q.reshape(s_, n_kv * g, nq, d)
 
     def gather(a):
         def row(pool, cur):
             r = pool[tbl].permute(0, 2, 1, 3, 4)       # (S, H, nb, B, D)
             r = r.reshape(s_, n_kv, width, d).clone()
-            r[lanes, :, pos] = cur[:, :, 0]
+            r[lanes, :, qpos] = cur.transpose(1, 2)
             return r.repeat_interleave(g, 1) if g > 1 else r
         return row(a["pool_k"], a["k_cur"]), row(a["pool_v"], a["v_cur"])
 
@@ -3042,10 +3105,33 @@ def time_paged_table(layers):
     s_, n_kv, g, nq, d = args["q"].shape
     lens = args["p_limit"].tolist()
     quant = isinstance(args["pool_k"], tuple)
-    bound, by = paged_bound_ms(lens, n_kv, g, nq, d, args["q"].dtype, quant)
+    window = args.get("window")
+    bound, by = paged_bound_ms(lens, n_kv, g, nq, d, args["q"].dtype, quant,
+                               window)
     pool = pa._values(args["pool_k"])
     block = pool.shape[2]
     by_kernel = device_ms_by_kernel(kernel, 4 * n)
+    extra = {}
+    if window is not None:
+        # the engine's steps read from table entry 0 (blk_lo None: a
+        # captured step cannot hold a host bound); the JAX engine's bound,
+        # the lowest live slot's first in-window block, beside it, its
+        # split plan, and entry 0 timed again after it (an order check)
+        lo = min(max(0, (p - window + 1) // block) for p in lens)
+        exact = _rotating([functools.partial(pa.paged_attn,
+                                             **dict(a, blk_lo=lo))
+                           for a in layers])
+        by_exact = device_ms_by_kernel(exact, 4 * n)
+        extra = dict(
+            blk_lo_exact=lo, kernel_blk_lo_exact=sum(by_exact.values()),
+            kernel_blk_lo_exact_by_name={k[:60]: v
+                                         for k, v in by_exact.items()},
+            n_split_blk_lo_exact=pa.split_count(
+                d, pool.dtype, args["tables"].shape[1], lo, block,
+                s_ * n_kv, torch.cuda.get_device_properties(
+                    0).multi_processor_count),
+            kernel_after_exact=sum(device_ms_by_kernel(kernel,
+                                                       4 * n).values()))
     return dict(
         slots=s_, p_limit=lens, table_width=args["tables"].shape[1],
         block=block, layers=n, dtype=str(args["q"].dtype)[6:],
@@ -3059,7 +3145,8 @@ def time_paged_table(layers):
                    "kernel_one_layer_l2_hot": device_ms_per_call(
                        lambda: pa.paged_attn(**args), 4 * n),
                    "plain": device_ms_per_call(plain, n),
-                   "sdpa_alone": sdpa_ms, "bound": bound},
+                   "sdpa_alone": sdpa_ms, "bound": bound, **extra},
+        query_positions=nq, window=window,
         bound_by=by,
         event_ms={"kernel": cuda_time_ms(kernel, 4 * n),
                   "plain": cuda_time_ms(plain, n),
@@ -3073,7 +3160,7 @@ def time_paged_table(layers):
 LONG_TABLE_LENS = (1000, 1000)
 
 
-def phase_paged_kernels(real, real8, cfg):
+def phase_paged_kernels(real, real8, cfg, spec, win):
     """``paged_attn`` against its plain version at every edge case in
     float32, bf16 and float16, and on int8 pools with float32, bf16 and
     float16 q (their split counts logged: some take one split of the key
@@ -3087,7 +3174,15 @@ def phase_paged_kernels(real, real8, cfg):
     wrapper's launch overhead exceeds the kernels' time, so CUDA events
     around back-to-back calls would time the host (logged too, as
     ``event_ms``).  ``real8``: the int8 kernels' launches on the
-    ``serve_int8`` main path.  Returns the kernels line's two rows."""
+    ``serve_int8`` main path.  Then timed, and held against the plain
+    version, at the ``spec`` phase's verify step (Q = 4; ``spec``: its
+    tables, the Q = 4 launches of its bf16 main path and of its float32
+    int8 run) with bf16 pools and with int8 pools under float32 q, the
+    dtypes those runs launch (the ``paged_attn_spec`` and
+    ``paged_attn_spec_int8`` rows), and at the ``longctx`` phase's
+    windowed step (``win``) with float32 pools, read from table entry 0
+    and, beside it, from the JAX engine's bound (``paged_attn_window``).
+    Returns the kernels line's rows."""
     from singa_tpu_torch.ops import paged_attention as pa
 
     n_sm = torch.cuda.get_device_properties(0).multi_processor_count
@@ -3113,6 +3208,12 @@ def phase_paged_kernels(real, real8, cfg):
     serve8_h = time_paged_table(real_args(real, cfg, seed=4, quant=True,
                                           dtype=torch.float16))
     long = time_paged_table(paged_table(LONG_TABLE_LENS, cfg, seed=1))
+    spec_t = time_paged_table(real_args(spec, cfg, seed=5, nq=SPEC_K))
+    spec8_t = time_paged_table(real_args(spec, cfg, seed=6, quant=True,
+                                         dtype=torch.float32, nq=SPEC_K))
+    win_t = time_paged_table(real_args(win, cfg, seed=7,
+                                       dtype=torch.float32,
+                                       window=LONGCTX_WINDOW))
     log({"phase": "paged_kernels",
          "edge_cases": 2 * len(PAGED_DTYPES) * len(paged_edge_cases()),
          "edge_max_abs_err": worst, "edge_n_split": splits,
@@ -3122,7 +3223,10 @@ def phase_paged_kernels(real, real8, cfg):
          "serve_table_int8_row_5c": dict(serve8, step=real["step"]),
          "serve_table_float16": dict(serve_h, step=real["step"]),
          "serve_table_int8_float16_q": dict(serve8_h, step=real["step"]),
-         "long_table": long})
+         "long_table": long,
+         "spec_verify_table": dict(spec_t, step=spec["step"]),
+         "spec_verify_table_int8": dict(spec8_t, step=spec["step"]),
+         "windowed_table": dict(win_t, step=win["step"])})
 
     def row(name, t, launches, kernels):
         ms = t["device_ms"]
@@ -3150,7 +3254,20 @@ def phase_paged_kernels(real, real8, cfg):
                 "branch)"),
             row("paged_attn_f16", serve_h, real["launches_f16"],
                 "paged_attn_kernel<__half, __half> (split) + "
-                "paged_combine_kernel<__half, __half>")]
+                "paged_combine_kernel<__half, __half>"),
+            row("paged_attn_spec", spec_t, spec["launches"],
+                "paged_attn_kernel<bf16, bf16> (split) + paged_combine_kernel"
+                "<bf16, bf16> at Q = 4 under a tril cur_mask (the "
+                "speculative verify)"),
+            row("paged_attn_spec_int8", spec8_t, spec["launches8"],
+                "paged_attn_kernel<float, int8> (split) + "
+                "paged_combine_kernel<float, int8> at Q = 4 (the speculative "
+                "verify on int8 pools, float32 q, as the int8 run launches "
+                "it)"),
+            row("paged_attn_window", win_t, win["launches"],
+                "paged_attn_kernel<float, float> (split) + "
+                "paged_combine_kernel<float, float> with the window 256 "
+                "over tables of dropped blocks")]
 
 
 # ------------------------------------------------------------------ serve
@@ -3179,12 +3296,13 @@ def serve_traffic(seed=0, n=SERVE_REQUESTS, vocab=50257):
                  seed=int(rng.randint(0, 2 ** 31 - 1))) for i in range(n)]
 
 
-def drain_counting_graphs(eng, max_steps=5000):
+def drain_counting_graphs(eng, max_steps=5000, per_step=None):
     """Drive ``eng`` until it drains; raise unless the serve census
     (``jit_cache_size``) only grows by the engine's own captures, at most
     one per decode-width bucket, and stays flat once every width in use
-    has been captured.  Returns ``{"buckets", "census_at_end",
-    "census_changes": [(step, census), ...]}``."""
+    has been captured; ``per_step(eng)`` runs after every step.  Returns
+    ``{"buckets", "census_at_end", "census_changes": [(step, census),
+    ...]}``."""
     from singa_tpu_torch.serve import jit_cache_size
 
     buckets, w = set(), eng.max_slots
@@ -3197,6 +3315,8 @@ def drain_counting_graphs(eng, max_steps=5000):
         if not eng.pending:
             break
         eng.step()
+        if per_step is not None:
+            per_step(eng)
         census = jit_cache_size() - base
         if census != len(eng._steps) or census > len(buckets) \
                 or not set(eng._steps) <= buckets:
@@ -3212,7 +3332,8 @@ def drain_counting_graphs(eng, max_steps=5000):
 
 
 def run_engine(model, traffic, kernel, dtype=None, trace=False,
-               wrap=None, capture=True, cache_dtype=None):
+               wrap=None, capture=True, cache_dtype=None, per_step=None,
+               on_engine=None, paged_kw=None, **serve_kw):
     """Submit ``traffic`` at once to ``model.serve`` with the serve
     phase's engine (its decode steps captured unless ``capture`` is
     False; ``kernel`` None: the slot arena, ``model.serve`` without
@@ -3220,20 +3341,26 @@ def run_engine(model, traffic, kernel, dtype=None, trace=False,
     check what a drain must leave: every request completed by its length,
     no rejection, no block in use, the serve census flat
     (``drain_counting_graphs``; the slot arena: exactly one graph).
-    ``wrap(engine)`` may replace the engine's executor.  Returns
-    ``(streams, engine stats snapshot with the census under "graphs",
-    seconds, decode-step seconds)``."""
+    ``wrap(engine)`` may replace the engine's executor, ``on_engine(engine)``
+    sees it before the first submit, ``per_step(engine)`` after every
+    step; ``paged_kw`` adds ``PagedConfig`` arguments and ``serve_kw``
+    engine arguments (``draft_model``, ``spec_k``).  Returns ``(streams,
+    engine stats snapshot with the census under "graphs", seconds,
+    decode-step seconds (speculative steps' on a speculative
+    engine))``."""
     from singa_tpu_torch.observe import trace as tr
     from singa_tpu_torch.serve import GenerationRequest, PagedConfig
 
     c = SERVE_ENGINE
     paged = None if kernel is None else PagedConfig(
         block_size=c["block_size"], num_blocks=c["num_blocks"],
-        kernel=kernel)
+        kernel=kernel, **(paged_kw or {}))
     eng = model.serve(max_slots=c["max_slots"], dtype=dtype, paged=paged,
-                      capture=capture, cache_dtype=cache_dtype)
+                      capture=capture, cache_dtype=cache_dtype, **serve_kw)
     if wrap is not None:
         eng._x = wrap(eng)
+    if on_engine is not None:
+        on_engine(eng)
     if trace:
         tr.drain()
         tr.enable()
@@ -3243,7 +3370,7 @@ def run_engine(model, traffic, kernel, dtype=None, trace=False,
         w["prompt"], max_new_tokens=w["max_new"],
         temperature=w["temperature"], seed=w["seed"], request_id=f"r{i}"))
         for i, w in enumerate(traffic)]
-    graphs = drain_counting_graphs(eng)
+    graphs = drain_counting_graphs(eng, per_step=per_step)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     decode_s = None
@@ -3251,7 +3378,8 @@ def run_engine(model, traffic, kernel, dtype=None, trace=False,
         tr.disable()
         spans = tr.drain()
         decode_s = sum(e["dur"] for e in spans
-                       if e["name"] == "serve/decode_step")
+                       if e["name"] in ("serve/decode_step",
+                                        "serve/spec_step"))
         prefill_s = sum(e["dur"] for e in spans
                         if e["name"] == "serve/prefill")
     results = [h.result() for h in hs]
@@ -3290,6 +3418,8 @@ def offline_streams(model, traffic, cache_dtype=None):
     for greedy in (True, False):
         idx = [i for i, w in enumerate(traffic)
                if (w["temperature"] <= 0) == greedy]
+        if not idx:
+            continue
         n_new = max(traffic[i]["max_new"] for i in idx)
         rows = model.generate(
             [traffic[i]["prompt"] for i in idx], max_new_tokens=n_new,
@@ -3514,6 +3644,7 @@ def phase_serve(seed=0):
                        tables=real["tables"], p_limit=real["p_limit"],
                        layers=real_args(real, model.cfg, seed),
                        traffic=traffic, offline=offline,
+                       bf16_streams=block16, first_low=probe.first_low,
                        bf16=dict(serve_timing(snap16, sec16, decode_s,
                                               len(traffic)),
                                  busy_share=profile["device_busy_share"]))
@@ -4202,14 +4333,478 @@ def phase_generate(model, seed=0, prompt_len=1000, n_new=40):
          "min_p_one_equals_greedy": True})
 
 
-def real_args(real, cfg, seed, quant=False, dtype=torch.bfloat16):
+SPEC_K = 4
+#: draft (a) of the spec phase: GPT-2 small's widths at this depth, holding
+#: the target's embeddings, first blocks and final LN
+SPEC_DRAFT_LAYERS = 2
+#: the windowed model of the longctx phase: GPT-2 small with this
+#: attn_window and the dense model's weights; no slot may hold more than
+#: (window - 1) // block + 2 blocks
+LONGCTX_WINDOW = 256
+LONGCTX_BUDGET = 256
+#: the longctx budget run: chats decoding, then one long admission
+LONGCTX_CHATS = 7
+LONGCTX_LONG = dict(prompt=960, max_new=64)
+LONGCTX_CHAT = dict(prompt=(16, 65), max_new=256)
+#: the windowed traffic: prompts of ``LONGCTX_PROMPTS`` tokens generating
+#: to 1024 positions in all; the int8 and draft runs take its first
+#: ``LONGCTX_CUT`` requests (the script's time limit)
+LONGCTX_WINDOWED = 8
+LONGCTX_CUT = 4
+LONGCTX_TPOT_FROM = 700
+
+
+class _StageRecorder:
+    """Keeps the host arrays an engine stages for its step with the most
+    live lanes (ties: the largest positions), wrapping
+    ``DecodeInputs.stage``: one real step's tables and positions, read
+    without a device sync, for the kernel phase to time."""
+
+    def __init__(self, eng):
+        self.eng, self.real, self._key = eng, None, None
+        self._inner = eng._inputs.stage
+        eng._inputs.stage = self.stage
+
+    def stage(self, toks, pos, live, seeds, temps, tables):
+        live = np.asarray(live, bool)
+        p = np.asarray(pos)[live]
+        key = (int(live.sum()), int(p.sum()))
+        if self._key is None or key > self._key:
+            self._key = key
+            self.real = dict(tables=np.array(tables[live], np.int32),
+                             p_limit=p.astype(np.int32).tolist(),
+                             step=self.eng.step_count)
+        return self._inner(toks, pos, live, seeds, temps, tables)
+
+
+def spec_draft(model):
+    """Draft (a): GPT-2 small's widths at ``SPEC_DRAFT_LAYERS`` layers, its
+    weights the target's embeddings, first blocks and final LN, copied by
+    state name."""
+    from singa_tpu_torch import device, tensor
+    from singa_tpu_torch.models.gpt2 import GPT2Config, GPT2LMHead
+
+    draft = GPT2LMHead(GPT2Config.small(dropout=0.0,
+                                        n_layer=SPEC_DRAFT_LAYERS))
+    draft.compile([tensor.from_numpy(np.zeros((1, 8), np.int32),
+                                     device.create_cuda_gpu())],
+                  is_train=False)
+    states = model.get_states()
+    draft.set_states({k: states[k] for k in draft.get_states()})
+    return draft
+
+
+def _reset_paged_counts():
+    from singa_tpu_torch.ops import paged_attention as pa
+
+    for name in ("launches", "int8_launches", "chunk_launches",
+                 "window_launches"):
+        setattr(pa.paged_attn, name, 0)
+
+
+def _paged_counts():
+    from singa_tpu_torch.ops import paged_attention as pa
+
+    return {name: getattr(pa.paged_attn, name)
+            for name in ("launches", "int8_launches", "chunk_launches",
+                         "window_launches")}
+
+
+def _greedy_equal(what, traffic, got, want, upto=None):
+    """Raise unless every greedy request's stream in ``got`` equals
+    ``want``'s, whole or up to token ``upto[i]`` past its prompt."""
+    for i, w in enumerate(traffic):
+        if w["temperature"] > 0:
+            continue
+        n = len(w["prompt"]) + (w["max_new"] if upto is None
+                                else upto.get(f"r{i}", w["max_new"]))
+        if not np.array_equal(got[i][:n], want[i][:n]):
+            raise AssertionError(f"request {i}: {what}")
+
+
+def phase_spec(model, real, real8):
+    """Speculative decoding on the serve phase's engine (8 slots, paged,
+    blocks of 32, 256 blocks), its 24 requests, ``spec_k`` 4, with draft
+    (a) (``spec_draft``) and draft (b), the target itself (every proposal
+    accepted, the bonus token drawn).  float32: each draft's greedy
+    streams equal the non-speculative engine's whole (the serve phase's,
+    equal to offline ``generate``), as do draft (a)'s on the slot arena
+    and on int8 pools (against the int8 engine's); every verify is one
+    ``paged_attn`` launch a layer at Q = 4 (``chunk_launches``, apart
+    from Q = 1 ones: none), the census flat.  bf16, timed, both drafts:
+    greedy streams equal the non-speculative bf16 engine's up to each
+    request's first low-margin token (the serve phase's probe), TTFT,
+    TPOT and decode tokens/s beside the non-speculative engine's; draft
+    (a)'s run is the main path of the ``paged_attn_spec`` row (counts set
+    to 0 just before, read just after) and gives its real tables.
+    Offline ``generate_speculative`` equals greedy ``generate`` on two
+    prompts.  Returns the tables and the Q = 4 launches."""
+    from singa_tpu_torch.models import gpt2_decode as gd
+
+    marks = [("start", time.perf_counter())]
+    cfg, traffic = model.cfg, real["traffic"]
+    draft = spec_draft(model)
+    drafts = (("draft_2_layer", draft), ("self_draft", model))
+    kw = {name: dict(draft_model=d, spec_k=SPEC_K) for name, d in drafts}
+    n_layer = cfg.n_layer
+
+    def checked(what, snap, quant=False):
+        counts = _paged_counts()
+        steps = snap["throughput"]["decode_steps"]
+        want = n_layer * steps
+        if not (counts["launches"] == counts["chunk_launches"] == want
+                and counts["int8_launches"] == (want if quant else 0)):
+            raise AssertionError(f"{what}: paged_attn launches {counts} over "
+                                 f"{steps} speculative steps")
+        spec = snap["spec"]
+        return dict(steps=steps, paged_attn=counts, graphs=snap["graphs"],
+                    acceptance_rate=spec["acceptance_rate"],
+                    tokens_per_chunk=spec["tokens_per_chunk"],
+                    chunks=spec["chunks"])
+
+    f32 = {}
+    for name, _ in drafts:
+        _reset_paged_counts()
+        streams, snap, sec, _ = run_engine(model, traffic, "block",
+                                           **kw[name])
+        f32[name] = dict(checked(f"float32 {name}", snap), seconds=sec)
+        _greedy_equal(f"float32 {name}: the speculative stream differs from "
+                      f"the non-speculative engine's", traffic, streams,
+                      real["offline"])
+        marks.append((f"float32_{name}", time.perf_counter()))
+    if f32["self_draft"]["acceptance_rate"] != 1.0:
+        raise AssertionError(f"the target as its own draft accepted "
+                             f"{f32['self_draft']['acceptance_rate']}")
+    _reset_paged_counts()
+    slots, ssnap, ssec, _ = run_engine(model, traffic, None,
+                                       **kw["draft_2_layer"])
+    if _paged_counts()["launches"]:
+        raise AssertionError("the slot arena's speculative step launched "
+                             "paged_attn")
+    _greedy_equal("slot arena, draft (a): the speculative stream differs "
+                  "from the non-speculative engine's", traffic, slots,
+                  real["offline"])
+    marks.append(("float32_slot_arena", time.perf_counter()))
+    _reset_paged_counts()
+    s8, snap8, sec8, _ = run_engine(model, traffic, "block",
+                                    cache_dtype="int8", **kw["draft_2_layer"])
+    int8 = dict(checked("float32 int8 pools", snap8, quant=True),
+                seconds=sec8)
+    _greedy_equal("int8 pools, draft (a): the speculative stream differs "
+                  "from the int8 engine's", traffic, s8, real8["offline"])
+    marks.append(("float32_int8", time.perf_counter()))
+
+    bf, rec, bf16 = torch.bfloat16, [], {}
+    for name, _ in drafts:
+        _reset_paged_counts()
+        streams, snap, sec, dec_s = run_engine(
+            model, traffic, "block", dtype=bf, trace=True,
+            on_engine=lambda e: rec.append(_StageRecorder(e)), **kw[name])
+        bf16[name] = dict(checked(f"bf16 {name}", snap),
+                          **serve_timing(snap, sec, dec_s, len(traffic)))
+        _greedy_equal(f"bf16 {name}: the speculative stream differs from "
+                      f"the non-speculative bf16 engine's before the first "
+                      f"low-margin token", traffic, streams,
+                      real["bf16_streams"], upto=real["first_low"])
+        marks.append((f"bf16_{name}", time.perf_counter()))
+    spec_real = rec[0].real
+
+    prompts = [traffic[i]["prompt"] for i, w in enumerate(traffic)
+               if w["temperature"] <= 0][:2]
+    want = [real["offline"][i][:len(traffic[i]["prompt"]) + 32]
+            for i, w in enumerate(traffic) if w["temperature"] <= 0][:2]
+    t0 = time.perf_counter()
+    got, ostats = gd.generate_speculative(model, draft, prompts,
+                                          max_new_tokens=32, spec_k=SPEC_K)
+    offline_s = time.perf_counter() - t0
+    for g, w in zip(got, want):
+        if not np.array_equal(g, w):
+            raise AssertionError("generate_speculative differs from greedy "
+                                 "generate")
+    marks.append(("offline", time.perf_counter()))
+    log({"phase": "spec", "model": "gpt2-small", "engine": SERVE_ENGINE,
+         "spec_k": SPEC_K, "requests": len(traffic),
+         "drafts": {"draft_2_layer": f"GPT-2 small widths, "
+                                     f"{SPEC_DRAFT_LAYERS} layers: the "
+                                     f"target's embeddings, first blocks "
+                                     f"and final LN",
+                    "self_draft": "the target itself"},
+         "float32": dict(f32, greedy_streams_equal_non_speculative=True),
+         "float32_slot_arena": dict(
+             seconds=ssec, graphs=ssnap["graphs"],
+             acceptance_rate=ssnap["spec"]["acceptance_rate"],
+             greedy_streams_equal_non_speculative=True),
+         "float32_int8": dict(int8, greedy_streams_equal_int8_engine=True),
+         "bf16": dict(bf16, non_speculative=real["bf16"],
+                      greedy_streams_equal_up_to_low_margin=True),
+         "offline_generate_speculative": dict(
+             ostats, seconds=offline_s, equal_to_greedy_generate=True),
+         "verify_table": dict(step=spec_real["step"],
+                              p_limit=spec_real["p_limit"]),
+         "seconds": {n: t - marks[i][1]
+                     for i, (n, t) in enumerate(marks[1:])},
+         "nvidia_smi": nvidia_smi()})
+    return dict(spec_real, launches=bf16["draft_2_layer"]["paged_attn"][
+        "chunk_launches"], launches8=int8["paged_attn"]["chunk_launches"])
+
+
+def longctx_budget_run(model, budget, seed=0):
+    """``LONGCTX_CHATS`` chat requests decode on the serve engine
+    (float32), then the long prompt is admitted, under ``budget`` or
+    whole; the engine is stepped by hand.  Returns the streams, the
+    step-to-step gaps (seconds) before the long admission and while it
+    admits, its TTFT, the budget's chunk passes and the stats."""
+    from singa_tpu_torch.serve import GenerationRequest, PagedConfig
+
+    c = SERVE_ENGINE
+    rng = np.random.RandomState(seed)
+    vocab = model.cfg.vocab_size
+    eng = model.serve(max_slots=c["max_slots"], paged=PagedConfig(
+        block_size=c["block_size"], num_blocks=c["num_blocks"],
+        prefill_token_budget=budget))
+    reqs = [GenerationRequest(
+        rng.randint(0, vocab, rng.randint(*LONGCTX_CHAT["prompt"])),
+        max_new_tokens=LONGCTX_CHAT["max_new"],
+        temperature=0.0 if i % 2 == 0 else 0.9, seed=i, request_id=f"c{i}")
+        for i in range(LONGCTX_CHATS)]
+    long = GenerationRequest(rng.randint(0, vocab, LONGCTX_LONG["prompt"]),
+                             max_new_tokens=LONGCTX_LONG["max_new"],
+                             request_id="long")
+    hs = [eng.submit(r) for r in reqs]
+    times = []
+
+    def step():
+        eng.step()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter())
+
+    while eng.live_slots < LONGCTX_CHATS:
+        step()
+    for _ in range(16):
+        step()
+    before = len(times)
+    hs.append(eng.submit(long))
+    while "long" not in eng.live_request_ids:
+        step()
+    admitting = np.diff(times[before - 1:]).tolist()
+    steady = np.diff(times[before - 12:before]).tolist()
+    while eng.pending:
+        step()
+        eng.check_block_accounting()
+    streams = [h.result().tokens for h in hs]
+    snap = eng.stats.snapshot()
+    ttft = hs[-1].result().ttft
+    eng.close()
+    return streams, dict(gap_max_s=max(admitting),
+                         gap_median_s=statistics.median(admitting),
+                         steps_while_admitting=len(admitting),
+                         steady_gap_median_s=statistics.median(steady),
+                         long_ttft_s=ttft,
+                         budget_chunks=snap["budget_chunks"],
+                         decode_steps=snap["throughput"]["decode_steps"])
+
+
+#: the windowed requests' prompt lengths, four of each: offline
+#: ``generate``, the streams' reference, takes one generation length a
+#: batch and ~24 ms a step on the host, so two lengths keep it to two
+#: batches (1280 steps)
+LONGCTX_PROMPTS = (512, 256)
+
+
+def windowed_traffic(seed=0, vocab=50257):
+    """``LONGCTX_WINDOWED`` greedy requests, prompts of
+    ``LONGCTX_PROMPTS`` tokens, each generating to 1024 positions."""
+    rng = np.random.RandomState(seed)
+    lens = [n for n in LONGCTX_PROMPTS
+            for _ in range(LONGCTX_WINDOWED // len(LONGCTX_PROMPTS))]
+    return [dict(prompt=rng.randint(0, vocab, n).astype(np.int32),
+                 max_new=1024 - n, temperature=0.0, seed=i)
+            for i, n in enumerate(lens)]
+
+
+def offline_by_length(model, traffic, cache_dtype=None):
+    """Offline greedy ``generate`` of requests of one generation length a
+    batch (``offline_streams`` takes one length for all)."""
+    out = [None] * len(traffic)
+    for n_new in sorted({w["max_new"] for w in traffic}):
+        idx = [i for i, w in enumerate(traffic) if w["max_new"] == n_new]
+        rows = model.generate([traffic[i]["prompt"] for i in idx],
+                              max_new_tokens=n_new, temperature=0.0,
+                              cache_dtype=cache_dtype)
+        for i, r in zip(idx, rows):
+            out[i] = r
+    return out
+
+
+class _WindowWatch:
+    """Per step of a windowed (or the dense) engine: the block accounting,
+    the most blocks a slot holds, the step's wall time and the lowest
+    live position, and the table entries below a 512-token prompt's
+    window when it is admitted.  A step's wall time runs from the end of
+    the previous call to the start of this one, so it holds the engine's
+    step (and the census read between the two) but none of these
+    checks, whose host work grows with the blocks a slot holds."""
+
+    def __init__(self, window, block):
+        self.window, self.block = window, block
+        self.most, self.steps, self.long_lead = 0, [], None
+        self.t = None
+
+    def __call__(self, eng):
+        now = time.perf_counter()
+        eng.check_block_accounting()
+        trash = eng.paged_arena.trash
+        live = [(i, s) for i, s in enumerate(eng._slots) if s is not None]
+        if live:
+            self.most = max(self.most, max(sum(b != trash for b in s.blocks)
+                                           for _, s in live))
+            low = min(int(eng._pos[i]) for i, _ in live)
+            if self.t is not None:
+                self.steps.append((now - self.t, low, len(live)))
+            for _, s in live:
+                if len(s.handle.request.prompt_ids) == 512 \
+                        and self.long_lead is None:
+                    self.long_lead = sum(b == trash for b in s.blocks)
+        self.t = time.perf_counter()
+
+    def tpot_past(self, pos):
+        """Median wall time of the steps whose every live slot is at
+        ``pos`` or past it: each of them is one token of each live
+        request."""
+        late = [t for t, low, _ in self.steps if low >= pos]
+        return statistics.median(late) if late else None
+
+
+def phase_longctx(model, seed=0):
+    """Long-context serving on GPT-2 small, float32, paged, blocks of 32.
+    (a) The chunked-prefill budget: ``LONGCTX_CHATS`` chats (prompts of
+    16-64 tokens, 256 new) decode, then a 960-token prompt (64 new) is
+    admitted with ``prefill_token_budget=256`` and without; every stream
+    equal between the two engines, the longest and median step-to-step
+    gap while it admits, its TTFT, the budget's chunk passes.  (b)
+    Windowed serving: GPT-2 small with ``attn_window=256`` and the dense
+    weights, 8 requests (prompts of 512 and 256 tokens) generating to
+    1024 positions: streams equal offline windowed ``generate`` (its rolling
+    cache), the block accounting after every step, no slot above 9
+    blocks, the 512-token prompt admitted with its in-window blocks only,
+    every ``paged_attn`` launch with the window (the ``paged_attn_window``
+    row's main path), TPOT past position 700 beside the dense model's
+    at the same positions; then the first ``LONGCTX_CUT`` requests on
+    int8 pools (== offline windowed int8 ``generate``) and with draft (a)
+    (== the windowed engine's streams).  Returns the windowed step's
+    tables and its launches."""
+    from singa_tpu_torch import device, tensor
+    from singa_tpu_torch.models.gpt2 import GPT2Config, GPT2LMHead
+
+    marks = [("start", time.perf_counter())]
+    cfg = model.cfg
+    budget = {}
+    streams = {}
+    for name, b in (("unbudgeted", None), ("budgeted", LONGCTX_BUDGET)):
+        streams[name], budget[name] = longctx_budget_run(model, b, seed)
+        marks.append((f"budget_{name}", time.perf_counter()))
+    _same_streams("the budgeted engine's stream differs from the "
+                  "unbudgeted engine's", streams["budgeted"],
+                  streams["unbudgeted"])
+
+    wcfg = GPT2Config.small(dropout=0.0, attn_window=LONGCTX_WINDOW)
+    wmodel = GPT2LMHead(wcfg)
+    wmodel.compile([tensor.from_numpy(np.zeros((1, 8), np.int32),
+                                      device.create_cuda_gpu())],
+                   is_train=False)
+    wmodel.set_states(model.get_states())
+    traffic = windowed_traffic(seed, cfg.vocab_size)
+    block = SERVE_ENGINE["block_size"]
+    most_blocks = (LONGCTX_WINDOW - 1) // block + 2
+    watch, rec = _WindowWatch(LONGCTX_WINDOW, block), []
+    _reset_paged_counts()
+    wstreams, wsnap, wsec, _ = run_engine(
+        wmodel, traffic, "block", per_step=watch,
+        on_engine=lambda e: rec.append(_StageRecorder(e)))
+    counts = _paged_counts()
+    steps = wsnap["throughput"]["decode_steps"]
+    if not counts["launches"] == counts["window_launches"] \
+            == cfg.n_layer * steps:
+        raise AssertionError(f"windowed: paged_attn launches {counts} over "
+                             f"{steps} steps")
+    if watch.most > most_blocks:
+        raise AssertionError(f"a windowed slot held {watch.most} blocks, "
+                             f"more than {most_blocks}")
+    lead = (512 - LONGCTX_WINDOW + 1) // block
+    if watch.long_lead != lead:
+        raise AssertionError(f"the 512-token prompt admitted with "
+                             f"{watch.long_lead} trash entries, not {lead}")
+    marks.append(("windowed_engine", time.perf_counter()))
+    offline = offline_by_length(wmodel, traffic)
+    _same_streams("the windowed engine's stream differs from offline "
+                  "windowed generate", wstreams, offline)
+    marks.append(("windowed_generate", time.perf_counter()))
+    dwatch = _WindowWatch(None, block)
+    _, dsnap, dsec, _ = run_engine(model, traffic, "block", per_step=dwatch)
+    marks.append(("dense_engine", time.perf_counter()))
+
+    cut = traffic[:LONGCTX_CUT]
+    w8, _, sec8, _ = run_engine(wmodel, cut, "block", cache_dtype="int8")
+    _same_streams("the windowed int8 engine's stream differs from offline "
+                  "windowed int8 generate", w8,
+                  offline_by_length(wmodel, cut, "int8"))
+    marks.append(("windowed_int8", time.perf_counter()))
+    # a verify chunk needs spec_k - 1 positions of headroom
+    short = [dict(w, max_new=w["max_new"] - SPEC_K + 1) for w in cut]
+    wd, wdsnap, secd, _ = run_engine(wmodel, short, "block",
+                                     draft_model=spec_draft(model),
+                                     spec_k=SPEC_K)
+    _same_streams("the windowed speculative engine's stream differs from "
+                  "the windowed engine's", wd,
+                  [s_[:len(s_) - SPEC_K + 1] for s_ in wstreams[:LONGCTX_CUT]])
+    marks.append(("windowed_draft", time.perf_counter()))
+    wreal = rec[0].real
+    log({"phase": "longctx", "model": "gpt2-small", "dtype": "float32",
+         "engine": SERVE_ENGINE,
+         "budget": dict(budget, prefill_token_budget=LONGCTX_BUDGET,
+                        chats=LONGCTX_CHATS, chat=LONGCTX_CHAT,
+                        long=LONGCTX_LONG,
+                        streams_equal_unbudgeted=True),
+         "windowed": dict(
+             attn_window=LONGCTX_WINDOW, requests=len(traffic),
+             prompt_lens=[len(w["prompt"]) for w in traffic],
+             seconds=wsec, decode_steps=steps, paged_attn=counts,
+             graphs=wsnap["graphs"], window_drops=wsnap["paged"][
+                 "window_drops"],
+             most_blocks_a_slot=watch.most, limit=most_blocks,
+             prompt_512_trash_entries=watch.long_lead,
+             streams_equal_offline_windowed_generate=True,
+             tpot_past_s={"windowed": watch.tpot_past(LONGCTX_TPOT_FROM),
+                          "dense": dwatch.tpot_past(LONGCTX_TPOT_FROM),
+                          "from_position": LONGCTX_TPOT_FROM},
+             dense_seconds=dsec, dense_decode_steps=dsnap["throughput"][
+                 "decode_steps"],
+             int8=dict(requests=LONGCTX_CUT, seconds=sec8,
+                       streams_equal_offline_int8_generate=True),
+             draft_2_layer=dict(requests=LONGCTX_CUT, seconds=secd,
+                                acceptance_rate=wdsnap["spec"][
+                                    "acceptance_rate"],
+                                streams_equal_windowed_engine=True),
+             step_table=dict(step=wreal["step"],
+                             p_limit=wreal["p_limit"])),
+         "seconds": {n: t - marks[i][1]
+                     for i, (n, t) in enumerate(marks[1:])},
+         "nvidia_smi": nvidia_smi()})
+    return dict(wreal, launches=counts["window_launches"])
+
+
+def real_args(real, cfg, seed, quant=False, dtype=torch.bfloat16, nq=1,
+              window=None):
     """``paged_attn`` arguments for each layer of one recorded serve step:
     its tables and positions, a bf16 pool of the serve engine's size for
     each layer with random contents, random queries and current K/V, drawn
     on the device from ``seed`` (the kernel's time does not depend on the
     values), in ``dtype``.  ``quant``: the pools and current K/V int8
     (values, scales) pairs (values uniform in [-127, 127], scales in
-    [0.005, 0.015)), q in ``dtype``."""
+    [0.005, 0.015)), q in ``dtype``.  ``nq``: query positions (a
+    speculative verify chunk, under a tril ``cur_mask``); ``window``: the
+    sliding band, read from table entry 0 as the engine's steps read
+    it."""
     c = SERVE_ENGINE
     gen = torch.Generator(device=DEVICE)
     gen.manual_seed(seed)
@@ -4228,14 +4823,16 @@ def real_args(real, cfg, seed, quant=False, dtype=torch.bfloat16):
     block = c["block_size"]
     p_limit = real["p_limit"]
     step = dict(
-        q=torch.randn((s_, cfg.n_kv_head, cfg.n_head // cfg.n_kv_head, 1, d),
-                      generator=gen, device=DEVICE, dtype=dtype),
+        q=torch.randn((s_, cfg.n_kv_head, cfg.n_head // cfg.n_kv_head, nq,
+                       d), generator=gen, device=DEVICE, dtype=dtype),
         tables=torch.from_numpy(real["tables"]).to(DEVICE),
         p_limit=torch.tensor(p_limit, dtype=torch.int32, device=DEVICE),
-        k_cur=rand(s_, cfg.n_kv_head, 1, d),
-        v_cur=rand(s_, cfg.n_kv_head, 1, d),
-        cur_mask=torch.ones(1, 1, dtype=torch.bool, device=DEVICE),
+        k_cur=rand(s_, cfg.n_kv_head, nq, d),
+        v_cur=rand(s_, cfg.n_kv_head, nq, d),
+        cur_mask=torch.ones(nq, nq, dtype=torch.bool, device=DEVICE).tril(),
         scale=1.0 / math.sqrt(d))
+    if window is not None:
+        step["window"] = window
     shape = (c["num_blocks"] + 1, cfg.n_kv_head, block, d)
     return [dict(step, pool_k=rand(*shape), pool_v=rand(*shape))
             for _ in range(cfg.n_layer)]
@@ -4403,9 +5000,12 @@ def main():
     timed("serve_slots", phase_serve_slots, model, real, real8)
     timed("generate", phase_generate, model)
     prefix_launches = timed("prefix", phase_prefix, model)
+    spec = timed("spec", phase_spec, model, real, real8)
+    win = timed("longctx", phase_longctx, model)
     cfg = model.cfg
     del model
-    for row in timed("paged_kernels", phase_paged_kernels, real, real8, cfg):
+    for row in timed("paged_kernels", phase_paged_kernels, real, real8, cfg,
+                     spec, win):
         rows[row["name"]] = row
     # the prefix phase decodes on bf16 pools through paged_attn
     rows["paged_attn"]["launches"] += prefix_launches

@@ -40,9 +40,9 @@ def launch_counters():
     out = []
     for fn in (fa.flash_fwd, fa.flash_bwd_dq, fa.flash_bwd_dkv):
         out += [(fn, "launches"), (fn, "tensor_core_launches")]
-    return out + [(pa.paged_attn, "launches"),
-                  (pa.paged_attn, "int8_launches"),
-                  (bottleneck.megakernel_block, "launches")]
+    return out + [(pa.paged_attn, a) for a in (
+        "launches", "int8_launches", "chunk_launches", "window_launches")] \
+        + [(bottleneck.megakernel_block, "launches")]
 
 
 def _counts():

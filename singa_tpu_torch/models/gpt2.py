@@ -179,7 +179,9 @@ class GPT2LMHead(model.Model):
         On the KV-cached path ``seed`` keys the sampling noise (an int,
         or one per row), ``dtype`` casts the weights and
         ``cache_dtype="int8"`` keeps the KV cache as int8 values with
-        per-row scales.  The windowed path runs one right-padded
+        per-row scales; a sliding-window model (``attn_window``) decodes
+        there from a rolling cache of ``attn_window`` lanes.  The
+        windowed path runs one right-padded
         ``n_positions``-wide forward of this model per token (the flash
         kernels at ``n_positions >= 1024``) on the last ``n_positions``
         tokens, and samples as the JAX package does: float64 probabilities and ``rng.choice`` (``rng``
@@ -290,7 +292,10 @@ class GPT2LMHead(model.Model):
         ``max_len``, ``dtype``, ``top_k``, ``top_p``, ``scheduler``,
         ``clock``, ``capture``, ``prefix_cache`` (a
         ``serve.PrefixCacheConfig``: the radix prefix cache and
-        ``pin_session`` sessions)."""
+        ``pin_session`` sessions), ``draft_model`` and ``spec_k``
+        (speculative decoding: a smaller ``GPT2LMHead`` proposes, this
+        model verifies ``spec_k`` tokens a step).  A sliding-window
+        model (``attn_window``) serves on the paged arena only."""
         from ..serve import InferenceEngine
 
         return InferenceEngine(self, **kw)

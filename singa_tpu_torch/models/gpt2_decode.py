@@ -4,18 +4,24 @@
 * ``prefill``: one causal forward over a prompt that also returns every
   layer's K/V, ``(L, B, H_kv, S, D)``;
 * ``prefill_chunk``: a K-token chunk at an offset against a dense cache
-  that holds the positions below it (the prefix cache's admissions);
+  that holds the positions below it (the prefix cache's admissions and
+  the chunked-prefill budget); with per-row positions it is the slot
+  arena's speculative verify;
 * ``decode_step``: one token per row against a dense cache ``(L, B,
   H_kv, ctx, D)``, writing the step's K/V at each row's position; the
-  offline ``generate`` loop, the serve engine's slot-arena step and its
-  gather oracle;
-* ``decode_step_paged``: one token for every slot of the serve engine
-  against the paged pool ``(L, N + 1, H_kv, B, D)``, through the
+  offline ``generate`` loop, the serve engine's slot-arena step, the
+  draft's steps and its gather oracle;
+* ``decode_step_paged`` and ``chunk_step_paged``: one token, or a
+  K-token chunk (the speculative verify), for every slot of the serve
+  engine against the paged pool ``(L, N + 1, H_kv, B, D)``, through the
   ``paged_attn`` kernel (``ops/paged_attention.py``), one launch per
   layer for all slots;
+* ``spec_verify``: the verify of a speculative chunk, greedy by argmax
+  match or by rejection sampling;
 * ``_sample``: the repetition penalty, then greedy, or temperature /
   top-k / top-p / min-p filtering and a draw;
-* ``generate``: prefill + decode loop for one prompt or a ragged batch.
+* ``generate``: prefill + decode loop for one prompt or a ragged batch;
+  ``generate_speculative``: greedy draft-and-verify.
 
 The math follows the JAX module: float32 LayerNorm statistics, tanh gelu,
 scale ``1/sqrt(D)``, GQA caches at ``n_kv_head`` heads with the query
@@ -25,15 +31,25 @@ dtype; the result is cast back to the activations' dtype.  Functions
 work on plain tensors and a dict of weight tensors (``extract_params``)
 on the caller's device.
 
+Sliding-window models (``GPT2Config(attn_window=W)`` with W below
+``n_positions``): query i sees keys (i - W, i].  Offline ``generate``
+decodes from a ROLLING cache of W lanes, position p in lane p % W
+(``prefill(..., window=W)`` rolls the prompt's K/V into it), so a long
+generation reads O(W) lanes a token.  The paged engine keeps its linear
+layout (``rolling=False``) and drops the blocks that left the window.
+
 Random numbers: ``jax.random`` is not reproduced.  A sampled token is
 ``argmax(filtered logits + Gumbel noise)``, the noise over the
 vocabulary a counter-based integer hash of (the request's seed, the
 token's position, the vocabulary index) alone (``_gumbel``), so a stream
 does not depend on the slot or batch it shares: the serve engine's
-streams equal ``generate`` at the same seed.  The hash is integer tensor
-arithmetic, so its bits are the same on the CPU and the card, and the
-whole draw runs inside the engine's captured decode step.  Against the
-JAX package only greedy streams compare.
+streams equal ``generate`` at the same seed.  A speculative step keys
+its draws by a third number too, the draw (1: the draft's proposal, 2:
+the accept test, 3: the correction token), so no two uses of a position
+share noise.  The hash is integer tensor arithmetic, so its bits are the
+same on the CPU and the card, and the whole draw runs inside the
+engine's captured steps.  Against the JAX package only greedy streams
+compare.
 
 int8 KV caches (``cache_dtype="int8"``): a cache or pool is then a
 ``(values, scales)`` pair, int8 values of the dense layout and one
@@ -44,9 +60,7 @@ score takes its K row's scale, a probability its V row's scale before
 the value product (the softmax sums stay unscaled).
 
 Not ported yet (each raises ``NotImplementedError``): MoE blocks, tensor
-and expert parallelism (slice 4, distributed), sliding-window decode,
-the speculative verify through the paged kernel and
-``generate_speculative`` (slice 3's fast paths), beam search.
+and expert parallelism (slice 4, distributed), beam search.
 """
 
 from __future__ import annotations
@@ -60,8 +74,8 @@ import torch.nn.functional as F
 from ..ops.paged_attention import paged_attn
 
 __all__ = ["NEG_INF", "extract_params", "prefill", "prefill_chunk",
-           "decode_step",
-           "decode_step_paged", "generate", "generate_beam",
+           "decode_step", "decode_step_paged", "chunk_step_paged",
+           "spec_verify", "generate", "generate_beam",
            "generate_speculative", "kv_zeros"]
 
 NEG_INF = -1e30
@@ -77,9 +91,16 @@ def check_decodable(cfg):
     decode path does not take yet."""
     if getattr(cfg, "moe_every", None) is not None:
         _owed("MoE decode", "slice 4, distributed")
+
+
+def _norm_window(cfg):
+    """The decode-effective sliding window: None when the model has none
+    or it covers every position (a rolling cache would then be the dense
+    one with more index arithmetic)."""
     w = getattr(cfg, "attn_window", None)
-    if w is not None and w < cfg.n_positions:
-        _owed("sliding-window decode", "slice 3's windowed serving")
+    if w is None or w >= cfg.n_positions:
+        return None
+    return int(w)
 
 
 def _quant_flag(cache_dtype):
@@ -173,9 +194,10 @@ def _logits(x, params):
     return x @ (params["wte"].t() if head is None else head)
 
 
-def _attn_full(q, k, v, n_head):
+def _attn_full(q, k, v, n_head, window=None):
     """Causal attention over a (B, S, E) prefill block; GQA k/v arrive
-    n_kv_head * D wide and each K/V head serves its query group."""
+    n_kv_head * D wide and each K/V head serves its query group.
+    ``window``: the sliding band, query i sees keys (i - window, i]."""
     b, s, e = q.shape
     d = e // n_head
     n_kv = k.shape[-1] // d
@@ -189,36 +211,60 @@ def _attn_full(q, k, v, n_head):
         vh = vh.repeat_interleave(n_head // n_kv, dim=1)
     sc = qh @ kh.transpose(-1, -2) / math.sqrt(d)
     cm = torch.ones(s, s, dtype=torch.bool, device=q.device).tril()
+    if window is not None:
+        cm = cm.triu(1 - window)
     sc = torch.where(cm, sc, torch.full_like(sc, NEG_INF))
     o = torch.softmax(sc, -1) @ vh
     return o.transpose(1, 2).reshape(b, s, e).to(q.dtype)
 
 
-def _block_prefill(x, p, n_head, eps):
+def _block_prefill(x, p, n_head, eps, window=None):
     h = _ln(x, p["ln1_s"], p["ln1_b"], eps)
     q = _linear(h, p["wq"], p["bq"])
     k = _linear(h, p["wk"], p["bk"])
     v = _linear(h, p["wv"], p["bv"])
-    x = x + _linear(_attn_full(q, k, v, n_head), p["wo"], p["bo"])
+    x = x + _linear(_attn_full(q, k, v, n_head, window), p["wo"], p["bo"])
     h = _ln(x, p["ln2_s"], p["ln2_b"], eps)
     return x + _mlp(h, p), k, v
 
 
-def prefill(params, ids, n_head, eps, quant_cache=False):
+def _roll_index(s, window, prompt_end, device):
+    """Rolling-cache lane w <- prompt position ``pe - ((pe - w) % window)``
+    (the last position < ``prompt_end`` congruent to w), clipped into
+    [0, s): decode writes position p at lane p % window."""
+    pe = (s if prompt_end is None else prompt_end) - 1
+    w = torch.arange(window, device=device)
+    return torch.clamp(pe - torch.remainder(pe - w, window), 0, s - 1)
+
+
+def prefill(params, ids, n_head, eps, quant_cache=False, window=None,
+            prompt_end=None, rolling=True):
     """ids (B, S) -> (hidden (B, S, E) after the final LN, k caches, v
     caches (L, B, H_kv, S, D); with ``quant_cache`` each a (values,
     scales) pair, ``_quantize_kv`` of the rows).  The caller takes the
-    rows it needs before the vocab product."""
+    rows it needs before the vocab product.  ``window``: banded
+    attention, and with ``rolling`` and S > window the caches are the
+    ROLLING layout of ``window`` lanes (``_roll_index``; ``prompt_end``
+    the prompt's length within a padded row, default S), as the JAX
+    function returns them; ``rolling=False`` keeps the linear layout
+    (the paged engine's)."""
     b, s = ids.shape
     pos = torch.arange(s, device=ids.device)
     x = params["wte"][ids.long()] + params["wpe"][pos][None]
+    roll = None
+    if window is not None and rolling and window < s:
+        roll = _roll_index(s, window, prompt_end, ids.device)
     ks, vs = [], []
     for p in params["blocks"]:
-        x, k, v = _block_prefill(x, p, n_head, eps)
+        x, k, v = _block_prefill(x, p, n_head, eps, window)
         d = x.shape[-1] // n_head
         n_kv = k.shape[-1] // d
-        ks.append(k.reshape(b, s, n_kv, d).transpose(1, 2))
-        vs.append(v.reshape(b, s, n_kv, d).transpose(1, 2))
+        kh = k.reshape(b, s, n_kv, d).transpose(1, 2)
+        vh = v.reshape(b, s, n_kv, d).transpose(1, 2)
+        if roll is not None:
+            kh, vh = kh[:, :, roll], vh[:, :, roll]
+        ks.append(kh)
+        vs.append(vh)
     x = _ln(x, params["lnf_s"], params["lnf_b"], eps)
     kc, vc = torch.stack(ks), torch.stack(vs)
     if quant_cache:
@@ -226,35 +272,45 @@ def prefill(params, ids, n_head, eps, quant_cache=False):
     return x, kc, vc
 
 
-def _block_decode(x, p, k_cache, v_cache, pos, n_head, eps):
+def _block_decode(x, p, k_cache, v_cache, pos, n_head, eps, window=None):
     """x (B, 1, E) at positions ``pos`` (B,); k/v_cache (B, H_kv, ctx,
     D), or (values, scales) pairs.  Writes this step's K/V (quantized
     for int8 caches) at ``pos`` in place (the JAX function returns
     updated caches) and attends positions <= pos of each row.  GQA: the
     query block reshapes to (B, H_kv, g, D), so the cache is never
     repeated.  int8: scores are ``(q . k8) * kscale / sqrt(D)`` and the
-    probabilities take ``vscale`` before the value product."""
+    probabilities take ``vscale`` before the value product.  ``window``:
+    a ROLLING cache of ``window`` lanes, position p in lane p % window;
+    lane t holds position ``pos - ((pos - t) mod window)``, live when
+    that is >= 0, so a token reads O(window) lanes however far it is."""
     quant = isinstance(k_cache, tuple)
     kq = k_cache[0] if quant else k_cache
     b, _, e = x.shape
     d = e // n_head
     n_kv, ctx = kq.shape[1], kq.shape[2]
     g = n_head // n_kv
+    if window is not None and ctx != window:
+        raise ValueError(f"rolling cache width {ctx} != window {window}")
     h = _ln(x, p["ln1_s"], p["ln1_b"], eps)
     q = _linear(h, p["wq"], p["bq"]).reshape(b, n_kv, g, d)
     k_new = _linear(h, p["wk"], p["bk"]).reshape(b, n_kv, d)
     v_new = _linear(h, p["wv"], p["bv"]).reshape(b, n_kv, d)
     rows = torch.arange(b, device=x.device)
+    lane = pos if window is None else torch.remainder(pos, window)
     if quant:
         k_new, v_new = _quantize_kv(k_new), _quantize_kv(v_new)
     for cache, new in ((k_cache, k_new), (v_cache, v_new)):
         for leaf, val in zip(_leaves(cache), _leaves(new)):
-            leaf[rows, :, pos] = val.to(leaf.dtype)
+            leaf[rows, :, lane] = val.to(leaf.dtype)
     sc = torch.einsum("bkgd,bktd->bkgt", q.float(), kq.float())
     if quant:
         sc = sc * k_cache[1][:, :, None, :]
     sc = sc / math.sqrt(d)
-    live = torch.arange(ctx, device=x.device)[None, :] <= pos[:, None]
+    t = torch.arange(ctx, device=x.device)[None, :]
+    if window is None:
+        live = t <= pos[:, None]
+    else:
+        live = pos[:, None] - torch.remainder(pos[:, None] - t, window) >= 0
     sc = torch.where(live[:, None, None, :], sc, torch.full_like(sc, NEG_INF))
     pr = torch.softmax(sc, -1)
     if quant:
@@ -265,35 +321,41 @@ def _block_decode(x, p, k_cache, v_cache, pos, n_head, eps):
     return x + _mlp(h, p)
 
 
-def decode_step(params, x, kc, vc, pos, n_head, eps):
+def decode_step(params, x, kc, vc, pos, n_head, eps, window=None):
     """One decode step through every block: x (B, 1, E) embedded inputs
     at positions ``pos`` (B,) against caches (L, B, H_kv, ctx, D), or
-    (values, scales) pairs, which take this step's K/V in place.
-    Returns ((B, V) logits, kc, vc)."""
+    (values, scales) pairs, which take this step's K/V in place
+    (``window``: rolling caches of ``window`` lanes).  Returns ((B, V)
+    logits, kc, vc)."""
     pos = torch.as_tensor(pos, device=x.device).long().reshape(-1)
     pos = pos.expand(x.shape[0])
     for li, p in enumerate(params["blocks"]):
         x = _block_decode(x, p, _cache_layer(kc, li), _cache_layer(vc, li),
-                          pos, n_head, eps)
+                          pos, n_head, eps, window)
     x = _ln(x, params["lnf_s"], params["lnf_b"], eps)
     return _logits(x, params)[:, 0], kc, vc
 
 
-def _block_chunk(x, p, k_cache, v_cache, pos, n_head, eps):
-    """x (B, K, E): K consecutive tokens at positions pos..pos+K-1 (``pos``
-    a host int); k/v_cache (B, H_kv, ctx, D), or (values, scales) pairs,
-    that hold K/V below ``pos``.  Writes the chunk's K/V (quantized for
-    int8 caches) at [pos, pos+K) in place and attends query i to
-    positions <= pos + i, reading lanes < pos + K only, so the result
-    does not depend on the cache's width.  Scores and softmax in float32,
-    as ``_block_decode``; GQA through the same grouped layout."""
+def _block_chunk(x, p, k_cache, v_cache, pos, n_head, eps, window=None):
+    """x (B, K, E): K consecutive tokens at positions pos..pos+K-1;
+    k/v_cache (B, H_kv, ctx, D), or (values, scales) pairs, that hold
+    K/V below ``pos``.  Writes the chunk's K/V (quantized for int8
+    caches) at [pos, pos+K) in place and attends query i to positions
+    <= pos + i (and > pos + i - ``window``: the band on a LINEAR cache).
+    ``pos`` a host int: reads lanes < pos + K only, so the result does
+    not depend on the cache's width (the prefix cache's canonical form).
+    ``pos`` a (B,) tensor (the slot arena's speculative verify, each row
+    at its own position): reads every lane under a per-row mask, and
+    nothing is read on the host.  Scores and softmax in float32, as
+    ``_block_decode``; GQA through the same grouped layout."""
     quant = isinstance(k_cache, tuple)
     kq = k_cache[0] if quant else k_cache
     b, klen, e = x.shape
     d = e // n_head
     n_kv = kq.shape[1]
     g = n_head // n_kv
-    end = pos + klen
+    dev = x.device
+    ar = torch.arange(klen, device=dev)
     h = _ln(x, p["ln1_s"], p["ln1_b"], eps)
     q = _linear(h, p["wq"], p["bq"]).reshape(b, klen, n_kv, g, d) \
         .permute(0, 2, 3, 1, 4)                         # (B, kv, g, K, d)
@@ -303,15 +365,29 @@ def _block_chunk(x, p, k_cache, v_cache, pos, n_head, eps):
         .transpose(1, 2)
     if quant:
         k_new, v_new = _quantize_kv(k_new), _quantize_kv(v_new)
-    for cache, new in ((k_cache, k_new), (v_cache, v_new)):
-        for leaf, val in zip(_leaves(cache), _leaves(new)):
-            leaf[:, :, pos:end] = val.to(leaf.dtype)
+    if torch.is_tensor(pos):
+        end = kq.shape[2]
+        qpos = pos.long()[:, None] + ar                 # (B, K)
+        rows = torch.arange(b, device=dev)[:, None]
+        for cache, new in ((k_cache, k_new), (v_cache, v_new)):
+            for leaf, val in zip(_leaves(cache), _leaves(new)):
+                leaf[rows, :, qpos] = val.movedim(2, 1).to(leaf.dtype)
+        qpos = qpos[:, :, None]                         # (B, K, 1)
+    else:
+        end = pos + klen
+        for cache, new in ((k_cache, k_new), (v_cache, v_new)):
+            for leaf, val in zip(_leaves(cache), _leaves(new)):
+                leaf[:, :, pos:end] = val.to(leaf.dtype)
+        qpos = (pos + ar)[None, :, None]
+    t = torch.arange(end, device=dev)
+    live = t <= qpos
+    if window is not None:
+        live = live & (t > qpos - window)
+    live = live[:, None, None]                          # (B|1, 1, 1, K, t)
     sc = torch.einsum("bkgqd,bktd->bkgqt", q.float(), kq[:, :, :end].float())
     if quant:
         sc = sc * k_cache[1][:, :, None, None, :end]
     sc = sc / math.sqrt(d)
-    live = (torch.arange(end, device=x.device)[None, :]
-            <= pos + torch.arange(klen, device=x.device)[:, None])
     sc = torch.where(live, sc, torch.full_like(sc, NEG_INF))
     pr = torch.softmax(sc, -1)
     if quant:
@@ -324,24 +400,28 @@ def _block_chunk(x, p, k_cache, v_cache, pos, n_head, eps):
     return x + _mlp(h, p)
 
 
-def prefill_chunk(params, x, kc, vc, pos, n_head, eps):
+def prefill_chunk(params, x, kc, vc, pos, n_head, eps, window=None):
     """Offset prefill, the prefix cache's contract: advance every layer
     by a K-token chunk, ``x`` (B, K, E) embedded inputs at positions
     ``pos..pos+K-1``, against caches (L, B, H_kv, ctx, D) (or int8
     pairs) that hold K/V for positions < ``pos``; the chunk's K/V rows
-    are written at ``pos`` in place.  Returns ``((B, K, E) final-LN
-    hidden, kc, vc)``: hidden, not logits, so a caller projects only the
-    row it samples from.
+    are written at ``pos`` in place (``window``: the sliding band on the
+    linear layout).  Returns ``((B, K, E) final-LN hidden, kc, vc)``:
+    hidden, not logits, so a caller projects only the row it samples
+    from.
 
-    The serve engine with a prefix cache prefills every admission in
-    block-width chunks of this function from a zero row; a chunk reads
-    the cache's lanes below ``pos + K`` only, so its output depends on
-    the chunk's tokens and the K/V below ``pos`` alone, whatever the
-    row's width, which is what makes a warm admission's stream the cold
-    one (``serve/prefix.py``)."""
+    The serve engine prefills every admission of an engine with a prefix
+    cache or a chunked-prefill budget in block-width chunks of this
+    function from a zero row; a chunk at a host ``pos`` reads the
+    cache's lanes below ``pos + K`` only, so its output depends on the
+    chunk's tokens and the K/V below ``pos`` alone, whatever the row's
+    width, which is what makes a warm admission's stream the cold one
+    (``serve/prefix.py``) and a budgeted one the unbudgeted one.  A
+    (B,) tensor ``pos`` puts each row at its own position
+    (``_block_chunk``)."""
     for li, p in enumerate(params["blocks"]):
         x = _block_chunk(x, p, _cache_layer(kc, li), _cache_layer(vc, li),
-                         pos, n_head, eps)
+                         pos, n_head, eps, window)
     return _ln(x, params["lnf_s"], params["lnf_b"], eps), kc, vc
 
 
@@ -362,19 +442,23 @@ def _paged_qkv(x, p, n_head, eps):
     return q.contiguous(), k.contiguous(), v.contiguous()
 
 
-def _block_decode_paged(x, p, pool_k_l, pool_v_l, tables, pos, n_head, eps,
-                        write_at):
-    """One layer's decode for every slot: x (S, 1, E) at ``pos`` (S,)
-    int32, one layer's pools (N + 1, H_kv, B, D), or (int8 values,
-    float32 scales (N + 1, H_kv, B)) pairs, ``tables`` (S, W // B)
-    int32.  Attention runs through ``paged_attn`` over each slot's pool
-    lanes < pos plus its own K/V (quantized on int8 pools; q stays in
-    the compute dtype).  Then the step's K/V row is written in place at
-    ``write_at`` = (tables[s, pos // B], pos % B), every leaf; a dead
-    slot (all-trash table, pos 0) writes the trash block.  (The JAX
-    function returns the whole block with the row inserted, which its
-    caller scatters back.)"""
-    s_, _, e = x.shape
+def _block_paged(x, p, pool_k_l, pool_v_l, tables, pos, n_head, eps,
+                 write_at, window):
+    """One layer of every slot's Q query positions against the pool: x
+    (S, Q, E) at positions ``pos..pos+Q-1`` (``pos`` (S,) int32), one
+    layer's pools (N + 1, H_kv, B, D), or (int8 values, float32 scales
+    (N + 1, H_kv, B)) pairs, ``tables`` (S, W // B) int32.  Attention
+    runs through ``paged_attn`` over each slot's pool lanes < pos plus
+    its own Q K/V lanes (quantized on int8 pools; q stays in the compute
+    dtype) under ``write_at``'s ``cur_mask`` (Q, Q): ones for a decode
+    step, tril for a speculative verify chunk (banded under a
+    ``window``).  Then the chunk's K/V rows are written in place at
+    ``write_at`` = (blocks (S, Q), offsets (S, Q), cur_mask), every
+    leaf: Q <= B, so a chunk touches one or two blocks; a dead slot
+    (all-trash table, pos 0) writes the trash block.  (The JAX functions
+    ``_block_decode_paged`` and ``_block_chunk_paged`` return the one or
+    two blocks with the rows inserted, which their callers scatter.)"""
+    s_, nq, e = x.shape
     d = e // n_head
     q, k_new, v_new = _paged_qkv(x, p, n_head, eps)
     if isinstance(pool_k_l, tuple):
@@ -384,36 +468,64 @@ def _block_decode_paged(x, p, pool_k_l, pool_v_l, tables, pos, n_head, eps,
         q, k_cur, v_cur = q.to(dt), k_new.to(dt), v_new.to(dt)
     blk, off, cur_mask = write_at
     a = paged_attn(q, pool_k_l, pool_v_l, tables, pos, k_cur, v_cur,
-                   cur_mask, 1.0 / math.sqrt(d))
-    a = a.to(x.dtype).permute(0, 3, 1, 2, 4).reshape(s_, 1, e)
+                   cur_mask, 1.0 / math.sqrt(d), window)
+    a = a.to(x.dtype).permute(0, 3, 1, 2, 4).reshape(s_, nq, e)
     x = x + _linear(a, p["wo"], p["bo"])
     h = _ln(x, p["ln2_s"], p["ln2_b"], eps)
     x = x + _mlp(h, p)
     for pool, cur in ((pool_k_l, k_cur), (pool_v_l, v_cur)):
         for leaf, val in zip(_leaves(pool), _leaves(cur)):
-            leaf[blk, :, off] = val[:, :, 0]
+            leaf[blk, :, off] = val.movedim(2, 1)
     return x
 
 
+def _paged_layers(params, x, pool_k, pool_v, tables, pos, n_head, eps,
+                  block, window):
+    """Every layer of (S, Q, E) inputs at ``pos..pos+Q-1`` against the
+    pools: (S, Q, E) hidden after the final LN."""
+    nq = x.shape[1]
+    qp = pos.long()[:, None] + torch.arange(nq, device=x.device)
+    cur_mask = torch.ones((nq, nq), dtype=torch.bool,
+                          device=x.device).tril()
+    if window is not None:
+        cur_mask = cur_mask.triu(1 - window)
+    write_at = (tables.long().gather(1, qp // block), qp % block, cur_mask)
+    for li, p in enumerate(params["blocks"]):
+        x = _block_paged(x, p, _cache_layer(pool_k, li),
+                         _cache_layer(pool_v, li), tables, pos, n_head, eps,
+                         write_at, window)
+    return _ln(x, params["lnf_s"], params["lnf_b"], eps)
+
+
 def decode_step_paged(params, x, pool_k, pool_v, tables, pos, n_head, eps,
-                      *, block):
+                      *, block, window=None):
     """The paged serve engine's decode step: x (S, 1, E) embedded inputs
     at ``pos`` (S,) int32, pools (L, N + 1, H_kv, B, D) (or int8
     (values, scales) pairs), ``tables`` (S, W // B) int32 trash-padded.
     One ``paged_attn`` launch per layer for all slots, which finds the
     blocks to read from ``pos`` on the device; the pools take the step's
-    K/V in place.  Nothing reads a device value on the host, so the step
-    can be captured in a CUDA graph.  Returns (S, V) logits."""
-    pl = pos.long()
-    write_at = (tables.long().gather(1, (pl // block)[:, None])[:, 0],
-                pl % block,
-                torch.ones((1, 1), dtype=torch.bool, device=x.device))
-    for li, p in enumerate(params["blocks"]):
-        x = _block_decode_paged(x, p, _cache_layer(pool_k, li),
-                                _cache_layer(pool_v, li), tables, pos,
-                                n_head, eps, write_at)
-    x = _ln(x, params["lnf_s"], params["lnf_b"], eps)
+    K/V in place.  ``window``: the sliding band on the linear layout
+    (the engine's tables hold the trash block where a slot dropped a
+    block that left its window); the kernel reads from table entry 0 and
+    skips each slot's dead lanes from ``pos`` on the device.  Nothing
+    reads a device value on the host, so the step can be captured in a
+    CUDA graph.  Returns (S, V) logits."""
+    x = _paged_layers(params, x, pool_k, pool_v, tables, pos, n_head, eps,
+                      block, window)
     return _logits(x, params)[:, 0]
+
+
+def chunk_step_paged(params, x, pool_k, pool_v, tables, pos, n_head, eps,
+                     *, block, window=None):
+    """The speculative verify against the pool: x (S, K, E) embedded
+    chunks at ``pos..pos+K-1`` (K <= ``block``).  Pool lanes < pos are
+    visible to every query and the chunk's own keys are causal (a tril
+    ``cur_mask``, banded under a ``window``): one ``paged_attn`` launch a
+    layer at Q = K for all slots.  The chunk's K/V rows land in the one
+    or two blocks it spans.  Returns (S, K, V) logits."""
+    x = _paged_layers(params, x, pool_k, pool_v, tables, pos, n_head, eps,
+                      block, window)
+    return _logits(x, params)
 
 
 # ----------------------------------------------------------------- sampling
@@ -477,20 +589,37 @@ def _mix32(x):
     return x ^ (x >> 16)
 
 
-def _gumbel(seeds, positions, vocab):
-    """(N, V) Gumbel noise: element (i, v) is a function of
-    ``(seeds[i], positions[i], v)`` alone (``seeds`` and ``positions``
-    (N,) integer tensors), a counter-based hash turned into a uniform of
-    23 bits, so a row's noise does not depend on the batch it is drawn
-    in, and tensor ops draw it inside a captured step."""
+def _key(seeds, positions, draw=0):
+    """The counter-based hash of (seed, position[, draw]) in [0, 2^32),
+    elementwise over broadcast int tensors; draw 0 adds no round, so a
+    plain draw's bits are those of the keys without one."""
     s = seeds.long()
     h = _mix32((s & _M32) ^ 0x9E3779B9)
     h = _mix32(h ^ ((s >> 32) & _M32))
     h = _mix32(h ^ (positions.long() & _M32))
-    v = torch.arange(vocab, device=s.device)
-    h = _mix32(_mix32(h[:, None] ^ v[None]))
-    u = ((h >> 9).float() + 0.5) * 2.0 ** -23
-    return -torch.log(-torch.log(u))
+    return _mix32(h ^ draw) if draw else h
+
+
+def _unit(h):
+    """A uniform in (0, 1) from the top 23 bits of a 32-bit hash."""
+    return ((h >> 9).float() + 0.5) * 2.0 ** -23
+
+
+def _gumbel(seeds, positions, vocab, draw=0):
+    """(N, V) Gumbel noise: element (i, v) is a function of
+    ``(seeds[i], positions[i], draw, v)`` alone (``seeds`` and
+    ``positions`` (N,) integer tensors), a counter-based hash turned into
+    a uniform of 23 bits, so a row's noise does not depend on the batch
+    it is drawn in, and tensor ops draw it inside a captured step."""
+    h = _key(seeds, positions, draw)
+    v = torch.arange(vocab, device=h.device)
+    return -torch.log(-torch.log(_unit(_mix32(_mix32(h[:, None] ^ v[None])))))
+
+
+def _uniform(seeds, positions, draw):
+    """Uniforms in (0, 1) keyed by (seed, position, draw), elementwise
+    over broadcast ``seeds`` and ``positions``."""
+    return _unit(_mix32(_key(seeds, positions, draw)))
 
 
 def _on(x, dtype, device):
@@ -526,6 +655,71 @@ def _sample(logits, temps, seeds, positions, top_k=0, top_p=None,
     noise = _gumbel(_on(seeds, torch.int64, dev).reshape(n),
                     _on(positions, torch.int64, dev).reshape(n), vocab)
     return torch.where(hot, (filt + noise).argmax(-1), logits.argmax(-1))
+
+
+def _first_false(ok):
+    """(N,) index of the first False of each row of (N, M) bool, M when
+    none (the JAX package's ``argmin`` over the row and one False)."""
+    stop = torch.cat([~ok, torch.ones_like(ok[:, :1])], 1)
+    return stop.int().argmax(-1)
+
+
+def spec_verify(t_logits, d_probs, props, temps, seeds, pos, top_k=0,
+                top_p=None):
+    """The verify of a speculative chunk for every row: ``t_logits`` (S,
+    K, V) target logits at positions pos..pos+K-1, ``d_probs`` (S, K-1,
+    V) the filtered draft distributions the proposals ``props`` (S, K-1)
+    were drawn from, ``temps`` (S,) float32, ``seeds`` (S,) int64, ``pos``
+    (S,) the chunk's first position.  Returns ``(out (S, K) int64,
+    a_draft (S,) int64)``: ``out[:, :a]`` echo the accepted proposals,
+    ``out[:, a]`` is the correction token (a resample of the residual,
+    or the bonus token on a full accept), the rest is not to be emitted;
+    a row emits ``a_draft + 1`` tokens.
+
+    Greedy rows (``temps <= 0``) accept while a proposal is the target's
+    argmax and emit the target's argmax where they stop: the stream of
+    sequential greedy decoding.  Sampled rows accept proposal i with
+    probability min(1, p_i / q_i) of the filtered target and draft
+    distributions, resample the normalized residual max(0, p - q) at the
+    first rejection, and draw the bonus token from the last position's
+    target distribution (the residual against a zero q row), so every
+    emitted token is distributed as direct target sampling.  ``p == q``
+    leaves no residual mass, and p itself is drawn from then.  The
+    accept test and the correction token draw noise keyed by (seed, the
+    position of the token they decide, draw 2 or 3).  Every row runs
+    both branches and selects, so the step has fixed shapes and is
+    captured with the engine's speculative step (the JAX function does
+    one row under ``vmap``, its noise from ``jax.random``)."""
+    s_, k, vocab = t_logits.shape
+    t_logits = t_logits.float()
+    cands = t_logits.argmax(-1)
+    a_greedy = _first_false(props == cands[:, :-1])
+    hot = temps > 0
+    t = torch.where(hot, temps, torch.ones_like(temps))
+    filt = _filter_logits(t_logits.reshape(s_ * k, vocab),
+                          t[:, None].expand(s_, k).reshape(-1, 1), top_p,
+                          top_k)
+    p = torch.softmax(filt, -1).reshape(s_, k, vocab)
+    d_probs = d_probs.float()
+    q = torch.cat([d_probs, torch.zeros_like(p[:, :1])], 1)
+    tpos = pos.long()[:, None] + 1 + torch.arange(k, device=pos.device)
+    u = _uniform(seeds.long()[:, None], tpos[:, :-1], 2)
+    p_prop = p[:, :-1].gather(-1, props[..., None])[..., 0]
+    q_prop = d_probs.gather(-1, props[..., None])[..., 0]
+    # u < p / q without the division: q == 0 accepts iff p > 0, p >= q
+    # always
+    a_sampled = _first_false(u * q_prop < p_prop)
+    at = a_sampled[:, None, None].expand(s_, 1, vocab)
+    p_at, q_at = p.gather(1, at)[:, 0], q.gather(1, at)[:, 0]
+    res = torch.clamp(p_at - q_at, min=0.0)
+    mass = res.sum(-1, keepdim=True)
+    res = torch.where(mass > 0, res / torch.clamp(mass, min=1e-38), p_at)
+    fix = (torch.log(torch.clamp(res, min=1e-38))
+           + _gumbel(seeds, pos.long() + 1 + a_sampled, vocab, 3)).argmax(-1)
+    out_s = torch.cat([props, torch.zeros_like(props[:, :1])], 1)
+    out_s = out_s.scatter(1, a_sampled[:, None], fix[:, None])
+    return (torch.where(hot[:, None], out_s, cands),
+            torch.where(hot, a_sampled, a_greedy))
 
 
 # ----------------------------------------------------------------- generate
@@ -583,9 +777,10 @@ def generate(m, prompt_ids, max_new_tokens=20, temperature=1.0, rng=None,
     from ``rng``) keys the noise (module docstring).  ``dtype`` casts the
     weights (``torch.bfloat16`` for bf16 inference).  ``cache_dtype=
     "int8"`` keeps the cache as int8 (values, scales) (module
-    docstring).  Requires prompt + ``max_new_tokens`` <= ``n_positions``:
-    ``GPT2LMHead.generate`` takes longer generations on its windowed
-    path."""
+    docstring).  A sliding-window model decodes from a rolling cache of
+    ``attn_window`` lanes (module docstring).  Requires prompt +
+    ``max_new_tokens`` <= ``n_positions``: ``GPT2LMHead.generate`` takes
+    longer generations on its windowed path."""
     cfg = m.cfg
     quant = _quant_flag(cache_dtype)
     single = not _is_batch(prompt_ids)
@@ -638,10 +833,11 @@ def _generate_rows(params, rows, n_new, cfg, temps, seeds, filters,
     """``filters``: ``_sample``'s ``top_k``, ``top_p``, ``min_p`` and
     ``rep_penalty`` (None: no penalty); ``quant``: int8 caches."""
     n_head, eps = cfg.n_head, float(cfg.layer_norm_eps)
+    window = _norm_window(cfg)
     dev = params["wte"].device
     b = len(rows)
     lens = np.asarray([len(r) for r in rows], np.int64)
-    ctx = int(lens.max()) + n_new
+    ctx = int(lens.max()) + n_new if window is None else window
     d = cfg.n_embd // n_head
     shape = (cfg.n_layer, b, cfg.n_kv_head, ctx, d)
     kc = kv_zeros(shape, params["wte"].dtype, quant, dev)
@@ -650,11 +846,12 @@ def _generate_rows(params, rows, n_new, cfg, temps, seeds, filters,
     for plen in sorted(set(lens.tolist())):
         sel = np.flatnonzero(lens == plen)
         ids = torch.as_tensor(np.stack([rows[i] for i in sel]), device=dev)
-        hidden, k, v = prefill(params, ids, n_head, eps, quant_cache=quant)
+        hidden, k, v = prefill(params, ids, n_head, eps, quant_cache=quant,
+                               window=window)
         idx = torch.as_tensor(sel, device=dev)
         for cache, new in ((kc, k), (vc, v)):
             for leaf, val in zip(_leaves(cache), _leaves(new)):
-                leaf[:, idx, :, :plen] = val
+                leaf[:, idx, :, :val.shape[3]] = val
         first[idx] = _logits(hidden[:, plen - 1], params).float()
     if filters["rep_penalty"] is not None:
         filters = dict(filters,
@@ -674,7 +871,8 @@ def _generate_rows(params, rows, n_new, cfg, temps, seeds, filters,
         pos_t = torch.as_tensor(pos, device=dev)
         tok_t = torch.as_tensor(toks[:, j - 1], device=dev)
         x = (params["wte"][tok_t] + params["wpe"][pos_t])[:, None]
-        logits, kc, vc = decode_step(params, x, kc, vc, pos_t, n_head, eps)
+        logits, kc, vc = decode_step(params, x, kc, vc, pos_t, n_head, eps,
+                                     window)
         pos += 1
         sample(logits, j)
     return toks
@@ -685,6 +883,132 @@ def generate_beam(*args, **kwargs):
     _owed("beam search", "a later slice")
 
 
-def generate_speculative(*args, **kwargs):
-    """Speculative decoding with a draft model."""
-    _owed("speculative decoding", "slice 3's fast paths")
+def _spec_row(t_params, d_params, ids, spec_k, n_new, t_static, d_static,
+              quant):
+    """Greedy speculative decoding of one prompt ``ids`` (1-D int array)
+    with dense caches as wide as its generation needs.  Each chunk: the
+    draft decodes ``spec_k`` tokens one by one from the last emitted
+    token (the last of them only as an input, so a fully accepted chunk
+    leaves the draft's cache one row ahead), the target advances the
+    chunk of the last token and the ``spec_k - 1`` proposals in one
+    ``prefill_chunk``, and the target's argmax tokens are emitted up to
+    and including the first that differs from a proposal.  Rollback is
+    free: both caches read only positions <= the query's, and the next
+    chunk overwrites the rows a rejected proposal left.  Returns
+    (``n_new`` tokens, chunks, accepted proposals)."""
+    tn, te = t_static
+    dn, de = d_static
+    dev = t_params["wte"].device
+    plen = len(ids)
+    width = plen + n_new + spec_k - 1
+    x = torch.as_tensor(np.asarray(ids, np.int64)[None], device=dev)
+
+    def prefill_rows(params, n_head, eps):
+        """Prefill ``ids`` into zero rows ``width`` lanes wide."""
+        hidden, k, v = prefill(params, x, n_head, eps, quant_cache=quant)
+        rows = []
+        for c in (k, v):
+            v0 = _leaves(c)[0]
+            row = kv_zeros((*v0.shape[:3], width, v0.shape[4]),
+                           params["wte"].dtype, quant, dev)
+            for leaf, val in zip(_leaves(row), _leaves(c)):
+                leaf[:, :, :, :plen] = val
+            rows.append(row)
+        return hidden, rows[0], rows[1]
+
+    hidden, tk_row, tv_row = prefill_rows(t_params, tn, te)
+    _, dk, dv = prefill_rows(d_params, dn, de)
+    last = _logits(hidden[:, -1], t_params).argmax(-1)          # (1,)
+    out = [int(last)]
+    pos, chunks, accepted = plen, 0, 0
+    ar = torch.arange(spec_k, device=dev)
+    while len(out) < n_new:
+        tok, props = last, []
+        for i in range(spec_k):
+            xd = (d_params["wte"][tok] + d_params["wpe"][pos + i])[:, None]
+            lg, dk, dv = decode_step(d_params, xd, dk, dv, pos + i, dn, de)
+            tok = lg.argmax(-1)
+            props.append(tok)
+        chunk = torch.cat([last] + props[:-1])
+        xs = (t_params["wte"][chunk] + t_params["wpe"][pos + ar])[None]
+        h, tk_row, tv_row = prefill_chunk(t_params, xs, tk_row, tv_row, pos,
+                                          tn, te)
+        cands = _logits(h, t_params)[0].argmax(-1).cpu().numpy()
+        match = chunk[1:].cpu().numpy() == cands[:-1]
+        a_draft = int(np.argmin(np.concatenate([match, [False]])))
+        out.extend(cands[:a_draft + 1].tolist())
+        last = torch.as_tensor(cands[a_draft:a_draft + 1], device=dev)
+        pos += a_draft + 1
+        chunks += 1
+        accepted += a_draft
+    return out[:n_new], chunks, accepted
+
+
+def generate_speculative(target, draft, prompt_ids, max_new_tokens=20,
+                         spec_k=4, dtype=None, cache_dtype=None):
+    """Greedy speculative decoding: ``draft`` (a smaller ``GPT2LMHead``)
+    proposes ``spec_k - 1`` tokens a chunk and ``target`` verifies the
+    chunk in one cache pass; every emitted token is the target's greedy
+    choice, so the stream is ``target.generate(prompt, temperature=0)``
+    (at the same ``cache_dtype``) up to argmax near-ties, and the draft
+    only changes the speed.  One 1-D prompt (returns one array) or a list
+    of them, possibly ragged (returns a list), each decoded on its own.
+    Returns ``(ids, stats)``: ids the prompt + continuation, stats
+    ``acceptance_rate`` (the share of proposals the target kept; None
+    when nothing was verified), ``chunks``, ``tokens_per_chunk`` and
+    ``per_row_chunks``, as the JAX function's.  Greedy only (the serve
+    engine samples speculatively: ``spec_verify``); sliding-window models
+    are refused, as in the JAX package."""
+    cfg_t, cfg_d = target.cfg, draft.cfg
+    if cfg_t.vocab_size != cfg_d.vocab_size:
+        raise ValueError(f"target/draft vocab mismatch: {cfg_t.vocab_size} "
+                         f"vs {cfg_d.vocab_size}")
+    for name, cfg in (("target", cfg_t), ("draft", cfg_d)):
+        if getattr(cfg, "attn_window", None) is not None:
+            raise NotImplementedError(
+                f"speculative decoding does not support sliding-window "
+                f"models ({name} has attn_window={cfg.attn_window})")
+    if spec_k < 2:
+        raise ValueError(f"spec_k must be >= 2, got {spec_k}")
+    quant = _quant_flag(cache_dtype)
+    single = not _is_batch(prompt_ids)
+    rows = [np.asarray(r, np.int32).reshape(-1)
+            for r in ([prompt_ids] if single else list(prompt_ids))]
+    ctx = min(cfg_t.n_positions, cfg_d.n_positions)
+    for r in rows:
+        if len(r) + max_new_tokens + spec_k - 1 > ctx:
+            raise ValueError(
+                f"prompt ({len(r)}) + max_new_tokens ({max_new_tokens}) + "
+                f"spec_k-1 ({spec_k - 1}) exceeds n_positions ({ctx})")
+    if max_new_tokens <= 0:
+        outs = [r.copy() for r in rows]
+        stats = {"acceptance_rate": None, "chunks": 0,
+                 "tokens_per_chunk": None, "per_row_chunks": [0] * len(rows)}
+        return (outs[0] if single else outs), stats
+    models = (target, draft)
+    modes = [m.training for m in models]
+    for m in models:
+        m.eval()
+    try:
+        with torch.no_grad():
+            t_params = extract_params(target, dtype)
+            d_params = extract_params(draft, dtype)
+            res = [_spec_row(t_params, d_params, r, int(spec_k),
+                             int(max_new_tokens),
+                             (cfg_t.n_head, float(cfg_t.layer_norm_eps)),
+                             (cfg_d.n_head, float(cfg_d.layer_norm_eps)),
+                             quant) for r in rows]
+    finally:
+        for m, mode in zip(models, modes):
+            m.train(mode)
+    chunks = [c for _, c, _ in res]
+    total = sum(chunks)
+    stats = {"acceptance_rate": (sum(a for _, _, a in res)
+                                 / (total * (spec_k - 1)) if total else None),
+             "chunks": total,
+             "tokens_per_chunk": (len(rows) * (max_new_tokens - 1) / total
+                                  if total else None),
+             "per_row_chunks": chunks}
+    outs = [np.concatenate([r, np.asarray(o, np.int32)]).astype(np.int32)
+            for r, (o, _, _) in zip(rows, res)]
+    return (outs[0] if single else outs), stats

@@ -337,7 +337,9 @@ def paged_attn(q, pool_k, pool_v, tables, p_limit, k_cur, v_cur, cur_mask,
     combine kernels over all slots and kv heads, counted as one launch
     for each launch of at most ``max_rows(D)`` query rows in
     ``paged_attn.launches``, and those on int8 pools in
-    ``paged_attn.int8_launches`` too."""
+    ``paged_attn.int8_launches`` too, those of more than one query
+    position (a speculative verify chunk) in ``paged_attn.chunk_launches``
+    and those with a window in ``paged_attn.window_launches``."""
     if q.device.type == "cpu":
         return paged_attn_plain(q, pool_k, pool_v, tables, p_limit, k_cur,
                                 v_cur, cur_mask, scale, window, blk_lo)
@@ -354,8 +356,14 @@ def paged_attn(q, pool_k, pool_v, tables, p_limit, k_cur, v_cur, cur_mask,
     paged_attn.launches += launches
     if isinstance(pool_k, tuple):
         paged_attn.int8_launches += launches
+    if q.shape[3] > 1:
+        paged_attn.chunk_launches += launches
+    if window is not None:
+        paged_attn.window_launches += launches
     return out
 
 
 paged_attn.launches = 0
 paged_attn.int8_launches = 0
+paged_attn.chunk_launches = 0
+paged_attn.window_launches = 0

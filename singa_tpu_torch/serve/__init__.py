@@ -4,7 +4,11 @@ the paged KV arena, whose decode path runs the paged decode attention
 kernel (``ops/paged_attention.py``); either arena in the compute dtype or
 as int8 values with per-row scales (``cache_dtype="int8"``), with an
 optional radix prefix cache and pinned multi-turn sessions
-(``prefix_cache=PrefixCacheConfig(...)``, ``pin_session=True``).
+(``prefix_cache=PrefixCacheConfig(...)``, ``pin_session=True``),
+speculative decoding with a draft model (``draft_model=``, ``spec_k=``),
+a chunked-prefill token budget and admission interleave
+(``PagedConfig(prefill_token_budget=, admit_per_step=)``) and
+sliding-window models on the paged arena.
 
     >>> eng = model.serve()                      # the slot arena
     >>> eng = model.serve(max_slots=8, paged=PagedConfig(block_size=32),
@@ -14,8 +18,9 @@ optional radix prefix cache and pinned multi-turn sessions
     >>> h.result().tokens
 
 Each decode width's step is captured as a CUDA graph on the card
-(``InferenceEngine(capture=True)``, the default; the slot arena has one
-width); ``jit_cache_size()`` counts the captured steps.
+(``InferenceEngine(capture=True)``, the default; the slot arena and a
+speculative engine have one width); ``jit_cache_size()`` counts the
+captured steps.
 """
 
 from .engine import InferenceEngine

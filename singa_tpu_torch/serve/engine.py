@@ -38,49 +38,72 @@
   (``GenerationResult.session``, a ``SessionHandle``), its generated
   region recomputed through ``prefill_chunk`` first; unreferenced cached
   blocks count as free for admission and are evicted LRU;
+* **speculative decoding** (``draft_model=``, ``spec_k=``, either
+  arena): each step runs ``spec_k`` decode steps of the draft on its own
+  slot-shaped arena and one verify chunk of the target (the paged
+  arena: ``chunk_step_paged``, one ``paged_attn`` launch a layer at Q =
+  ``spec_k``), then ``spec_verify``; a step emits up to ``spec_k``
+  tokens a slot, and retiring fires per token, so a budget or a stop
+  token retires a slot mid-chunk.  Greedy requests accept by argmax
+  match (the non-speculative streams), sampled ones by rejection
+  sampling (distributed as direct target sampling).  Speculative steps
+  run at full width (the draft arena is slot-indexed) as one captured
+  graph;
+* **chunked-prefill token budget**
+  (``PagedConfig(prefill_token_budget=)``): at most that many prompt
+  tokens prefill a step, every admission in block-width
+  ``prefill_chunk`` passes from a fresh row (the prefix cache's
+  canonical form), a long prompt across several steps while the live
+  slots decode every step; its slot is reserved but not live until the
+  last chunk lands (``_Prefilling``); ``PagedConfig(admit_per_step=)``
+  caps admissions a scheduling pass;
+* **sliding-window models** (``GPT2Config(attn_window=W)``, paged only):
+  a slot drops the blocks that left its window back to the free list
+  (its table keeps the trash block there), a long prompt admits with its
+  in-window blocks only, and the step passes the window to
+  ``paged_attn``, so a long chat holds and reads O(W) blocks;
 * **exactness**: an admission prefills its prompt at its own length and
   samples the first token as ``generate`` does; each decode step runs
   the dense ``decode_step`` (slot arena: the per-row math of offline
   ``generate``), ``decode_step_paged`` (the ``paged_attn`` kernel,
   ``kernel="block"``) or the dense gather oracle (``kernel="gather"``),
   and samples with noise keyed by (seed, position), so float32 streams
-  equal offline ``generate`` (at the same ``cache_dtype``) away from
-  exact argmax ties.
+  equal offline ``generate`` (at the same ``cache_dtype``; windowed
+  models: its rolling cache) away from exact argmax ties.
 
 The device work goes through :class:`_LocalExec`, the seam that the JAX
 engine's sharded executors plug into.  The JAX engine's per-row
 functions, vmapped over slots there (``_decode_row_paged``,
-``_decode_row``, ``_select_sample``), are slot dimensions here:
-:func:`_pool_decode_step` and ``serve/paged.py``'s
-``_paged_decode_kernel`` and ``_paged_decode_step`` return every lane's
-logits, and ``gpt2_decode._sample`` takes each row's temperature, so
-greedy and sampled rows share one call.
+``_decode_row``, ``_select_sample``, ``_spec_row``), are slot
+dimensions here: :func:`_pool_decode_step` and ``serve/paged.py``'s
+``_paged_decode_kernel``, ``_paged_decode_step`` and ``spec_step``
+return every lane's logits or tokens, and ``gpt2_decode._sample`` takes
+each row's temperature, so greedy and sampled rows share one call.
 
 **Captured decode steps** (``capture=True``, the default; the JAX engine
 jits its pool step): the slot arena's step has one width, ``max_slots``;
 a paged step's width is the halving bucket of ``max_slots`` covering the
-live slots (``_paged_width``).  Each width's step (the forward with its
-``paged_attn`` launches, the in-place cache writes and the sampling)
-reads its inputs from persistent device buffers
-(``paged.DecodeInputs``), which the engine fills with one staged
-host-to-device copy a step.  A width's first step runs eagerly, as a
-real step, and the step is then captured as a CUDA graph (``graphs.py``;
-all of an engine's graphs share one memory pool); every later step at
-that width is one replay, after which the host reads the step's tokens
-once.  On the CPU the same widths, buffers and first-step rule run the
-step function itself.  ``capture=False`` runs every step eagerly, like
-``jax.disable_jit``; the gather oracle (``kernel="gather"``) and the
-admission prefill always run eagerly.  ``serve.jitpin.jit_cache_size()``
-counts the prepared steps of the open engines.
+live slots (``_paged_width``); a speculative step's is ``max_slots``.
+Each width's step (the forward with its ``paged_attn`` launches, the
+in-place cache writes and the sampling or verify) reads its inputs from
+persistent device buffers (``paged.DecodeInputs``), which the engine
+fills with one staged host-to-device copy a step.  A width's first step
+runs eagerly, as a real step, and the step is then captured as a CUDA
+graph (``graphs.py``; all of an engine's graphs share one memory pool);
+every later step at that width is one replay, after which the host reads
+the step's tokens once.  On the CPU the same widths, buffers and
+first-step rule run the step function itself.  ``capture=False`` runs
+every step eagerly, like ``jax.disable_jit``; the gather oracle
+(``kernel="gather"``) and the admission prefill always run eagerly.
+``serve.jitpin.jit_cache_size()`` counts the prepared steps of the open
+engines.
 
 Not ported yet, each refused with ``NotImplementedError`` at
-construction or submit (``ROADMAP.md``): speculative decoding
-(``draft_model``, ``spec_k``), tensor / expert / pipeline parallelism
-(``tp``, ``ep``, ``pp``), fork (``n > 1``), structured decoding, SLO
-targets and load shedding, sliding-window models.  The JAX engine's
-preemption paths for those (window drops, copy-on-write forks,
-speculative draft rows) are not ported with them, nor the prefix
-cache's fleet index and request-ledger hooks.
+construction or submit (``ROADMAP.md``): tensor / expert / pipeline
+parallelism (``tp``, ``ep``, ``pp``), fork (``n > 1``), structured
+decoding, SLO targets and load shedding, beam search.  Nor the JAX
+engine's ring-attention prefill, the prefix cache's fleet index and the
+request ledger's hooks.
 """
 
 from __future__ import annotations
@@ -93,13 +116,16 @@ import torch
 
 from .. import graphs
 from ..models.gpt2_decode import (_check_sampling, _leaves, _logits,
-                                  _quant_flag, _sample, check_decodable,
-                                  decode_step, extract_params, kv_zeros,
-                                  prefill, prefill_chunk)
+                                  _norm_window, _quant_flag, _sample,
+                                  check_decodable, decode_step,
+                                  extract_params, kv_zeros, prefill,
+                                  prefill_chunk)
 from ..observe import trace as _trace
+from ..resilience import faults as _faults
 from . import jitpin
 from .paged import (DecodeInputs, PagedConfig, PagedKVArena, _embed,
-                    _paged_decode_kernel, _paged_decode_step, seeds)
+                    _paged_decode_kernel, _paged_decode_step, seeds,
+                    spec_step)
 from .prefix import PrefixCache, PrefixCacheConfig, SessionHandle
 from .request import (DeadlineExceededError, EngineFailedError,
                       GenerationRequest, GenerationResult, RequestHandle)
@@ -114,16 +140,19 @@ def _owed(what):
                               f"yet (ROADMAP.md)")
 
 
-def _prefill_batch(params, ids, n_head, eps, quant=False):
+def _prefill_batch(params, ids, n_head, eps, quant=False, window=None):
     """Admission prefill of R prompts of one length: ids (R, P) ->
     (last-position logits (R, V) float32, k rows, v rows (L, R, H_kv, P,
-    D), quantized (values, scales) pairs with ``quant``).  At R = 1 it is
-    the JAX engine's ``_prefill_one``."""
-    hidden, kc, vc = prefill(params, ids, n_head, eps, quant_cache=quant)
+    D), quantized (values, scales) pairs with ``quant``; ``window``:
+    banded, the linear layout).  At R = 1 it is the JAX engine's
+    ``_prefill_one``."""
+    hidden, kc, vc = prefill(params, ids, n_head, eps, quant_cache=quant,
+                             window=window, rolling=False)
     return _logits(hidden[:, -1], params).float(), kc, vc
 
 
-def _chunk_row(params, ids, kc_row, vc_row, off, chunk, n_head, eps):
+def _chunk_row(params, ids, kc_row, vc_row, off, chunk, n_head, eps,
+               window=None):
     """Offset prefill of one block-width window of a cache row: embed
     tokens [off, off + chunk) of the padded (W,) ``ids`` at their
     positions and advance them through ``prefill_chunk`` against rows
@@ -133,7 +162,7 @@ def _chunk_row(params, ids, kc_row, vc_row, off, chunk, n_head, eps):
     pos = torch.arange(off, off + chunk, device=ids.device)
     x = (params["wte"][ids[off:off + chunk]] + params["wpe"][pos])[None]
     hidden, _, _ = prefill_chunk(params, x, kc_row, vc_row, off, n_head,
-                                 eps)
+                                 eps, window)
     return hidden
 
 
@@ -206,19 +235,45 @@ class _LocalExec:
         blocks it copies a lane."""
         if kernel == "block":
             return _paged_decode_kernel(params, pool_k, pool_v, inp, block,
-                                        **self._e._statics)
+                                        **self._e._statics,
+                                        window=self._e._window)
         return _paged_decode_step(params, pool_k, pool_v, inp, n_rb, block,
                                   **self._e._statics)
 
+    def spec_step(self, inp, n_rb=None):
+        """(S, spec_k + 1) tokens and accept counts of one speculative
+        step over the lanes ``inp`` (``paged.spec_step``) against the
+        engine's pools or slot arena and its draft arena; ``n_rb``: the
+        gather oracle's blocks a lane."""
+        e = self._e
+        arena = e.paged_arena
+        kc, vc = (e._kc, e._vc) if arena is None else (arena.pool_k,
+                                                       arena.pool_v)
+        st = e._statics
+        return spec_step(e._params, e._d_params, kc, vc, e._dkc, e._dvc,
+                         inp, e.spec_k, (st["n_head"], st["eps"]),
+                         e._d_statics, e._top_k, e._top_p,
+                         block=None if arena is None else arena.block_size,
+                         window=e._window, n_rb=n_rb)
+
     def prefill_batch(self, params, ids):
         return _prefill_batch(params, ids, **self._e._statics,
-                              quant=self._e._quant)
+                              quant=self._e._quant, window=self._e._window)
+
+    def draft_prefill(self, ids):
+        """The draft's K/V rows (L_d, R, H_d, P, D_d) of prompts ids (R,
+        P): its admission, cold whatever the target's was."""
+        e = self._e
+        n_head, eps = e._d_statics
+        _, kc, vc = prefill(e._d_params, ids, n_head, eps,
+                            quant_cache=e._quant)
+        return kc, vc
 
     def chunk_row(self, params, ids, kc_row, vc_row, off, chunk):
         """(1, chunk, E) hidden of one ``_chunk_row`` window; the rows
         take its K/V in place."""
         return _chunk_row(params, ids, kc_row, vc_row, off, chunk,
-                          **self._e._statics)
+                          **self._e._statics, window=self._e._window)
 
 
 class _Slot:
@@ -253,11 +308,27 @@ class _Swapped:
 
     __slots__ = ("handle", "request", "emitted", "remaining",
                  "first_token_time", "admit_time", "admitted_step", "pos",
-                 "tok", "temp", "seed", "image", "seq", "t_preempt")
+                 "tok", "temp", "seed", "image", "seq", "t_preempt",
+                 "j_lo", "draft")
 
     @property
     def priority(self):
         return self.request.priority
+
+
+class _Prefilling:
+    """An admission in flight through block-width chunk passes (the
+    chunked-prefill budget's, and every admission of an engine with a
+    prefix cache): its slot is reserved and its blocks allocated, its
+    K/V lives in a private row (``kc_row``/``vc_row``) that ``off``
+    advances across steps; when the last chunk lands the first token is
+    sampled from ``hidden``, the row goes into the blocks (or the slot)
+    and the slot goes live.  Nothing has streamed, so an engine failure
+    rejects it with ``started=False`` and frees its blocks."""
+
+    __slots__ = ("handle", "request", "ids", "kc_row", "vc_row", "hidden",
+                 "off", "last_off", "blocks", "nodes", "t_admit",
+                 "admitted_step", "seq")
 
 
 class InferenceEngine:
@@ -291,9 +362,7 @@ class InferenceEngine:
                  paged=None, tp=None, ep=None, pp=None, capture=True):
         cfg = model.cfg
         check_decodable(cfg)
-        owed = [("speculative decoding (draft_model, spec_k)",
-                 draft_model is not None or spec_k is not None),
-                ("tensor/expert/pipeline-parallel serving (tp, ep, pp)",
+        owed = [("tensor/expert/pipeline-parallel serving (tp, ep, pp)",
                  any(x not in (None, False) for x in (tp, ep, pp))),
                 ("SLO targets and load shedding (slo)", slo is not None)]
         for what, asked in owed:
@@ -309,6 +378,64 @@ class InferenceEngine:
         if paged is not None and not isinstance(paged, PagedConfig):
             raise ValueError(f"paged must be a PagedConfig, a kwargs dict, "
                              f"True or None, got {type(paged)}")
+        self._window = _norm_window(cfg)
+        if self._window is not None:
+            # the JAX engine's windowed composition limits, checked before
+            # any state exists
+            if paged is None:
+                raise NotImplementedError(
+                    f"serve engine supports sliding-window models only in "
+                    f"paged mode (attn_window={cfg.attn_window}): pass "
+                    f"paged=PagedConfig(...); the slot arena's "
+                    f"position-indexed rows cannot roll, and offline "
+                    f"GPT2LMHead.generate serves without an engine")
+            if paged.kernel != "block":
+                raise ValueError(
+                    f"sliding-window serving requires PagedConfig("
+                    f"kernel='block'), got {paged.kernel!r}: the gather "
+                    f"oracle materializes the full row and would attend "
+                    f"blocks the windowed slot already dropped")
+            if prefix_cache is not None and prefix_cache is not False:
+                raise NotImplementedError(
+                    "prefix_cache on a sliding-window model: windowed slots "
+                    "drop out-of-window blocks, so a retiring request's "
+                    "prompt is no longer a block prefix the radix tree "
+                    "could adopt; serve windowed models without a prefix "
+                    "cache")
+        if spec_k is not None and draft_model is None:
+            raise ValueError(
+                f"spec_k={spec_k} without draft_model: speculative decoding "
+                f"needs a draft to propose; pass draft_model= (or drop "
+                f"spec_k)")
+        self.draft = draft_model
+        self.spec_k = 4 if spec_k is None else int(spec_k)
+        if draft_model is not None:
+            dcfg = draft_model.cfg
+            if self.spec_k < 2:
+                raise ValueError(
+                    f"spec_k must be >= 2, got {self.spec_k} (one proposal "
+                    f"+ the bonus token is the smallest chunk)")
+            if dcfg.vocab_size != cfg.vocab_size:
+                raise ValueError(
+                    f"draft/target vocab mismatch: draft {dcfg.vocab_size} "
+                    f"vs target {cfg.vocab_size}: the draft must propose "
+                    f"from the target's token space")
+            if dcfg.n_positions < (max_len or cfg.n_positions):
+                raise ValueError(
+                    f"draft n_positions ({dcfg.n_positions}) < engine "
+                    f"max_len ({max_len or cfg.n_positions}): the draft "
+                    f"cache must cover every position the target can reach")
+            if _norm_window(dcfg) is not None:
+                raise NotImplementedError(
+                    f"speculative serve does not support sliding-window "
+                    f"drafts (attn_window={dcfg.attn_window})")
+            if paged is not None and self.spec_k > paged.block_size:
+                raise ValueError(
+                    f"spec_k ({self.spec_k}) > paged block_size "
+                    f"({paged.block_size}): a verify chunk would span more "
+                    f"than two pool blocks; raise block_size or lower "
+                    f"spec_k")
+        self._spec_pad = 0 if draft_model is None else self.spec_k - 1
         if max_slots < 1:
             raise ValueError(f"max_slots must be >= 1, got {max_slots}")
         self.model = model
@@ -334,7 +461,10 @@ class InferenceEngine:
             raise ValueError(f"unknown scheduler {scheduler!r}: pass "
                              f"'fifo', 'priority', or a scheduler instance")
         self.scheduler = scheduler or FIFOScheduler()
-        self.stats = EngineStats(self.max_slots, clock)
+        self._budget = None if paged is None else paged.prefill_token_budget
+        self.stats = EngineStats(self.max_slots, clock,
+                                 spec=draft_model is not None,
+                                 budget=self._budget is not None)
 
         model.eval()
         self._params = extract_params(model, dtype=dtype)
@@ -358,6 +488,19 @@ class InferenceEngine:
             self._kc = kv_zeros(shape, cdt, self._quant, dev)
             self._vc = kv_zeros(shape, cdt, self._quant, dev)
             row_blocks = 0
+        # the draft's own slot-shaped arena, advanced in lockstep with the
+        # target by the speculative step
+        self._d_params = self._d_statics = self._dkc = self._dvc = None
+        if draft_model is not None:
+            draft_model.eval()
+            dcfg = draft_model.cfg
+            self._d_params = extract_params(draft_model, dtype=dtype)
+            self._d_statics = (dcfg.n_head, float(dcfg.layer_norm_eps))
+            shape = (dcfg.n_layer, self.max_slots, dcfg.n_kv_head,
+                     self.max_len, dcfg.n_embd // dcfg.n_head)
+            ddt = self._d_params["wte"].dtype
+            self._dkc = kv_zeros(shape, ddt, self._quant, dev)
+            self._dvc = kv_zeros(shape, ddt, self._quant, dev)
         self.capture = bool(capture)
         self._inputs = DecodeInputs(self.max_slots, row_blocks, dev)
         self._steps = {}  # decode width -> graphs.Step
@@ -372,6 +515,8 @@ class InferenceEngine:
         self._handles = {}
         self._swapped = []
         self._swap_seq = itertools.count()
+        self._prefilling = {}  # reserved slot -> _Prefilling
+        self._prefill_seq = itertools.count()
         self._closed = False
         self._failed = False
         self.step_count = 0
@@ -442,23 +587,30 @@ class InferenceEngine:
 
     def validate_request(self, request):
         """Raise for a request this engine could never serve: prompt +
-        ``max_new_tokens`` beyond ``max_len``, more blocks than the pool
-        holds, or a feature not ported yet."""
+        ``max_new_tokens`` (+ ``spec_k - 1`` positions of verify headroom
+        on a speculative engine) beyond ``max_len``, more blocks than the
+        pool holds (a windowed slot holds at most a window's blocks and
+        the one it writes), or a feature not ported yet."""
         if request.n > 1:
             _owed("fork (GenerationRequest(n > 1))")
         if request.structured is not None:
             _owed("structured decoding")
         plen = len(request.prompt_ids)
         need = plen + request.max_new_tokens
-        if need > self.max_len:
+        pad = self._spec_pad
+        if need + pad > self.max_len:
             raise ValueError(
                 f"prompt ({plen}) + max_new_tokens "
-                f"({request.max_new_tokens}) exceeds the engine's max_len "
-                f"({self.max_len})")
+                f"({request.max_new_tokens})"
+                + (f" + spec_k-1 ({pad})" if pad else "")
+                + f" exceeds the engine's max_len ({self.max_len})")
         arena = self.paged_arena
         if arena is None:
             return
-        worst = (need - 1) // arena.block_size + 1
+        B = arena.block_size
+        worst = (need - 1 + pad) // B + 1
+        if self._window is not None:
+            worst = min(worst, (self._window - 1 + pad) // B + 2)
         if worst > arena.num_blocks:
             raise ValueError(
                 f"request needs up to {worst} KV blocks but the paged pool "
@@ -467,11 +619,11 @@ class InferenceEngine:
 
     @property
     def pending(self) -> bool:
-        """True while any request is queued, holds a slot, or is swapped
-        out awaiting resume."""
+        """True while any request is queued, holds a slot, is prefilling
+        in chunks, or is swapped out awaiting resume."""
         return (self.scheduler.queue_depth > 0
                 or any(s is not None for s in self._slots)
-                or bool(self._swapped))
+                or bool(self._prefilling) or bool(self._swapped))
 
     @property
     def live_slots(self) -> int:
@@ -490,9 +642,10 @@ class InferenceEngine:
     def check_block_accounting(self):
         """Leak check of the paged arena: ``used == cached +
         live_referenced``, every used pool block owned by the prefix
-        cache's tree or held by a live slot's table (a block both cached
-        and shared by a slot counts once).  Raises AssertionError naming
-        the counts; returns the used-block count."""
+        cache's tree or held by a live slot's table or an admission still
+        prefilling (a block both cached and shared by a slot counts
+        once).  Raises AssertionError naming the counts; returns the
+        used-block count."""
         arena = self.paged_arena
         if arena is None:
             return 0
@@ -502,6 +655,8 @@ class InferenceEngine:
         n_cached = len(owned)
         owned.update(b for s in self._slots if s is not None
                      for b in s.blocks if b != arena.trash)
+        owned.update(b for pf in self._prefilling.values()
+                     for b in pf.blocks if b != arena.trash)
         if arena.blocks_used != len(owned):
             raise AssertionError(
                 f"paged-arena block leak: {arena.blocks_used} blocks used, "
@@ -529,9 +684,10 @@ class InferenceEngine:
             self.prefix_cache.unregister()
         if self.paged_arena is not None:
             self.paged_arena.unregister()
-        self._kc = self._vc = None
-        self._params = None
+        self._kc = self._vc = self._dkc = self._dvc = None
+        self._params = self._d_params = None
         self._swapped = []
+        self._prefilling = {}
         self._closed = True
 
     def __enter__(self):
@@ -585,8 +741,9 @@ class InferenceEngine:
                     f"live={self.live_slots})")
 
     def _fail(self, cause):
-        """Reject every live or swapped-out (``started=True``) and queued
-        (``started=False``) request typed and return the error for
+        """Reject every live or swapped-out (``started=True``) and
+        prefilling or queued (``started=False``) request typed, returning
+        the blocks of those prefilling, and return the error for
         ``step()`` to raise: ``cause`` itself when it is an
         ``EngineFailedError``."""
         self._failed = True
@@ -605,6 +762,15 @@ class InferenceEngine:
                 f"emitted)", request_id=rid, started=True, engine_step=step))
             self._slots[i] = None
             self._handles.pop(rid, None)
+        for pf in self._prefilling.values():
+            rid = pf.request.request_id
+            self._free_prefilling(pf)
+            pf.handle._reject(EngineFailedError(
+                f"{err} ({rid} was prefilling at offset {pf.off}, nothing "
+                f"streamed)", request_id=rid, started=False,
+                engine_step=step))
+            self._handles.pop(rid, None)
+        self._prefilling = {}
         for sw in self._swapped:
             rid = sw.request.request_id
             sw.handle._reject(EngineFailedError(
@@ -626,8 +792,9 @@ class InferenceEngine:
         lanes = [i for i, s in enumerate(self._slots) if s is not None]
         n = len(lanes)
         arena = self.paged_arena
-        if arena is None:
-            # the slot arena: slot i is lane i, every slot steps
+        if arena is None or self.draft is not None:
+            # the slot arena, and every speculative step (its draft arena
+            # is slot-indexed): slot i is lane i, every slot steps
             w = self.max_slots
             sel = [i if s is not None else -1
                    for i, s in enumerate(self._slots)]
@@ -640,29 +807,53 @@ class InferenceEngine:
                            self._seeds[pick], np.where(live,
                                                        self._temps[pick], 0),
                            self._block_tables(sel))
-        with _trace.span("serve/decode_step", cat="serve",
-                         step=self.step_count, live=n, width=w):
+        gather = arena is not None and arena.config.kernel == "gather"
+        name = "serve/decode_step" if self.draft is None else \
+            "serve/spec_step"
+        with _trace.span(name, cat="serve", step=self.step_count, live=n,
+                         width=w):
             self._inputs.load()
-            if arena is not None and arena.config.kernel == "gather":
-                n_rb = int(self._pos[lanes].max()) // arena.block_size + 1
-                toks = self._decode_fn(w, n_rb)()
+            if gather:
+                n_rb = (int(self._pos[lanes].max()) + self._spec_pad) \
+                    // arena.block_size + 1
+                toks = self._step_fn(w, n_rb)()
             else:
-                toks = self._decode_captured(w)
+                toks = self._captured(w)
             nxt = toks.cpu().numpy()
         self.stats.on_decode_step(n)
         now = self._clock()
         for r, i in enumerate(sel):
-            if i >= 0:
+            if i < 0:
+                continue
+            slot = self._slots[i]
+            if self.draft is None:
                 self._toks[i] = nxt[r]
                 self._pos[i] += 1
-                self._emit(i, self._slots[i], int(nxt[r]), now)
+                self._emit(i, slot, int(nxt[r]), now)
+                continue
+            # a speculative chunk: the accepted proposals and the
+            # correction (or bonus) token, until the request retires
+            a_draft = int(nxt[r, -1])
+            self.stats.on_spec(a_draft, self.spec_k - 1)
+            emitted = 0
+            for j in range(a_draft + 1):
+                self._emit(i, slot, int(nxt[r, j]), now)
+                emitted += 1
+                if self._slots[i] is not slot:
+                    break
+            if self._slots[i] is slot:
+                self._toks[i] = nxt[r, emitted - 1]
+                self._pos[i] += emitted
 
-    def _decode_fn(self, w, n_rb=None):
-        """The decode step at width ``w``: the pool step over the first
-        ``w`` lanes of the device inputs (the slot arena's over all its
-        slots) and the sampling, returning (w,) int64 tokens."""
+    def _step_fn(self, w, n_rb=None):
+        """The step at width ``w``: the pool step over the first ``w``
+        lanes of the device inputs (the slot arena's over all its slots)
+        and the sampling, returning (w,) int64 tokens; on a speculative
+        engine ``spec_step``, returning (w, spec_k + 1)."""
         arena = self.paged_arena
         inp = self._inputs.view(w)
+        if self.draft is not None:
+            return lambda: self._x.spec_step(inp, n_rb)
 
         def step():
             if arena is None:
@@ -678,15 +869,16 @@ class InferenceEngine:
 
         return step
 
-    def _decode_captured(self, w):
-        """(w,) tokens of one step at width ``w`` (the slot arena's, or a
-        block-kernel step): a replay of the width's captured step; the
-        first step at a width runs eagerly and then captures it (which
-        runs nothing), so no request advances twice."""
+    def _captured(self, w):
+        """The tokens of one step at width ``w`` (the slot arena's, a
+        block-kernel step or a speculative one): a replay of the width's
+        captured step; the first step at a width runs eagerly and then
+        captures it (which runs nothing), so no request advances
+        twice."""
         step = self._steps.get(w)
         if step is not None:
             return step()
-        fn = self._decode_fn(w)
+        fn = self._step_fn(w)
         if not self.capture:
             return fn()
         dev = self._inputs.buf.device
@@ -870,20 +1062,33 @@ class InferenceEngine:
         return max(w, n_live)
 
     def _grow_live_slots(self):
-        """Before the decode step, every live slot must own the block
-        holding the position it writes.  A slot that cannot grow (pool
-        exhausted, no strictly-lower-priority victim) swaps itself out:
-        its blocks free the pool for the others and it resumes once
-        capacity returns, so the pool never livelocks with every slot
-        too big to advance.  The slot arena's rows are whole: nothing to
-        grow."""
-        if self.paged_arena is None:
+        """Before the decode step, every live slot must own the blocks
+        holding the positions it writes (pos .. pos + spec_k - 1 on a
+        speculative engine).  A windowed slot first drops the blocks that
+        left its window: block j is dead once its last position falls
+        below pos - window + 1, the lowest key the step's first query
+        sees; its table entry becomes the trash block, so entries stay
+        positional.  A slot that cannot grow (pool exhausted, no
+        strictly-lower-priority victim) swaps itself out: its blocks free
+        the pool for the others and it resumes once capacity returns, so
+        the pool never livelocks with every slot too big to advance.  The
+        slot arena's rows are whole: nothing to grow."""
+        arena = self.paged_arena
+        if arena is None:
             return
-        B = self.paged_arena.block_size
+        B, W = arena.block_size, self._window
         for i, slot in enumerate(self._slots):
             if slot is None:
                 continue
-            short = int(self._pos[i]) // B + 1 - len(slot.blocks)
+            pos = int(self._pos[i])
+            if W is not None:
+                dead = min(max(0, (pos - W + 1) // B), len(slot.blocks))
+                drop = [b for b in slot.blocks[:dead] if b != arena.trash]
+                if drop:
+                    arena.free(drop)
+                    arena.on_window_drop(len(drop))
+                    slot.blocks[:dead] = [arena.trash] * dead
+            short = (pos + self._spec_pad) // B + 1 - len(slot.blocks)
             if short <= 0:
                 continue
             got = self._alloc_blocks(short, slot.handle.request.priority,
@@ -963,10 +1168,22 @@ class InferenceEngine:
         sw.seed = int(self._seeds[idx])
         sw.seq = next(self._swap_seq)
         sw.t_preempt = self._clock()
-        # the blocks holding positions < pos; pos itself is written next
-        sw.image = arena.swap_out(slot.blocks, (pos - 1) // arena.block_size
-                                  + 1)
-        n_freed = len(slot.blocks)
+        # the blocks holding positions < pos (pos itself is written next)
+        # past the leading ones a windowed slot dropped, so the image is
+        # O(window) like the slot
+        j_lo = 0
+        while j_lo < len(slot.blocks) and slot.blocks[j_lo] == arena.trash:
+            j_lo += 1
+        sw.j_lo = j_lo
+        sw.image = arena.swap_out(
+            slot.blocks[j_lo:],
+            max(0, (pos - 1) // arena.block_size + 1 - j_lo))
+        sw.draft = None
+        if self.draft is not None:
+            rows = self._x.read_slot(self._dkc, self._dvc, idx)
+            sw.draft = tuple(tuple(t.cpu() for t in _leaves(r))
+                             for r in rows)
+        n_freed = len(slot.blocks) - j_lo
         self._release_prefix(slot)
         self._free_slot_blocks(slot)
         self._slots[idx] = None
@@ -990,14 +1207,23 @@ class InferenceEngine:
             if not free:
                 return
             sw = self._swapped[0]
-            blocks = self._alloc_blocks(sw.pos // arena.block_size + 1,
-                                        sw.priority)
+            blocks = self._alloc_blocks(
+                (sw.pos + self._spec_pad) // arena.block_size + 1 - sw.j_lo,
+                sw.priority)
             if blocks is None:
                 return
             idx = free[0]
             arena.swap_in(sw.image, blocks)
+            if sw.draft is not None:
+                dev = self._params["wte"].device
+                rows = [tuple(t.to(dev) for t in r) for r in sw.draft]
+                self._x.write_slot(self._dkc, self._dvc,
+                                   *(r if self._quant else r[0]
+                                     for r in rows), idx)
+            # the dropped leading entries stay trash, as the
+            # uninterrupted slot's table would hold them at this pos
             slot = _Slot(sw.handle, sw.remaining, sw.admit_time,
-                         sw.admitted_step, blocks)
+                         sw.admitted_step, [arena.trash] * sw.j_lo + blocks)
             slot.emitted = sw.emitted
             slot.first_token_time = sw.first_token_time
             self._slots[idx] = slot
@@ -1019,7 +1245,9 @@ class InferenceEngine:
 
     # -- admission -------------------------------------------------------
     def _free_slots(self):
-        return [i for i, s in enumerate(self._slots) if s is None]
+        """Slots neither live nor reserved by an admission in flight."""
+        return [i for i, s in enumerate(self._slots)
+                if s is None and i not in self._prefilling]
 
     def _reject_expired(self, expired, now):
         for req in expired:
@@ -1032,130 +1260,232 @@ class InferenceEngine:
 
     def _schedule(self, now):
         """Resume swapped-out requests first (they already streamed
-        tokens), then admit queued requests into free slots while their
+        tokens), then, under a chunked-prefill budget, spend it on the
+        admissions in flight (in admission order: an expensive head
+        blocks the budget, it is never skipped), then admit queued
+        requests into free slots (at most ``admit_per_step``) while their
         first blocks fit, preempting strictly-lower-priority slots for
-        them (a request whose blocks do not fit, or that a swapped
-        request outranks, waits at the head of the queue), prefill the
-        admitted ones and emit their first tokens: one batched prefill
-        per prompt length, or, with a prefix cache, each request's
-        uncached blocks in ``prefill_chunk`` passes (its cached prefix
-        pinned before its blocks are allocated, so the allocation's
-        eviction cannot take it)."""
+        them (a request whose blocks do not fit, that a swapped request
+        outranks, or that finds the budget spent, waits at the head of
+        the queue).  Admissions prefill and emit their first token: one
+        batched prefill per prompt length, or, with a prefix cache or a
+        budget, block-width ``prefill_chunk`` passes (:meth:`
+        _advance_prefilling`), a budgeted one possibly across steps."""
         self._try_resume(now)
+        left = self._budget
+        if left is not None:
+            B = self.paged_arena.block_size
+            for idx in sorted(self._prefilling,
+                              key=lambda i: self._prefilling[i].seq):
+                if left < B:
+                    break
+                left = self._advance_prefilling(idx, left)
         if self.scheduler.queue_depth == 0:
             return
         free = self._free_slots()
-        admit, expired = self.scheduler.schedule(len(free), now)
-        self._reject_expired(expired, now)
         arena, cache = self.paged_arena, self.prefix_cache
+        cap = len(free)
+        if arena is not None and arena.config.admit_per_step is not None:
+            cap = min(cap, arena.config.admit_per_step)
+        admit, expired = self.scheduler.schedule(cap, now)
+        self._reject_expired(expired, now)
         blocked_p = self._blocked_priority()
+        chunked = cache is not None or left is not None
         placed = []
         for k, req in enumerate(admit):
-            nodes = []
-            if cache is not None:
-                plen = len(req.prompt_ids)
-                nodes = cache.lookup(req.prompt_ids)[
-                    :(plen - 1) // cache.block_size]
-                cache.acquire(nodes)
-            blocks = None
-            if arena is None:
-                blocks = []
-            elif blocked_p is None or req.priority > blocked_p:
-                blocks = self._alloc_blocks(
-                    len(req.prompt_ids) // arena.block_size + 1 - len(nodes),
-                    req.priority)
-            if blocks is None:
-                if nodes:
-                    cache.release(nodes)
+            got = None
+            if left is None or left >= arena.block_size:
+                got = self._claim(req, blocked_p)
+            if got is None:
                 for r in reversed(admit[k:]):
                     self.scheduler.requeue_front(r)
                 break
-            placed.append((free.pop(0), req, blocks, nodes))
-        if cache is not None:
-            for idx, req, blocks, nodes in placed:
-                self._admit_chunked(idx, req, now, blocks, nodes)
-            return
+            idx = free.pop(0)
+            if chunked:
+                self._begin_prefilling(idx, req, now, *got)
+                left = self._advance_prefilling(idx, left)
+            else:
+                placed.append((idx, req, got[0]))
         by_len = {}
         for p in placed:
             by_len.setdefault(len(p[1].prompt_ids), []).append(p)
         dev = self._params["wte"].device
         for plen, group in by_len.items():
             ids = torch.as_tensor(np.stack([r.prompt_ids
-                                            for _, r, _, _ in group]),
+                                            for _, r, _ in group]),
                                   device=dev)
             with _trace.span("serve/prefill", cat="serve", prompt_len=plen,
                              requests=len(group), step=self.step_count):
                 logits, kc, vc = self._x.prefill_batch(self._params, ids)
             self.stats.on_prefill()
-            for r, (idx, req, blocks, _) in enumerate(group):
+            for r, (idx, req, blocks) in enumerate(group):
                 if arena is None:
                     self._x.write_slot(self._kc, self._vc, _row(kc, r),
                                        _row(vc, r), idx)
                 else:
+                    # a windowed admission's leading entries are trash:
+                    # their lanes left the window before any query
                     arena.scatter_row(_row(kc, r), _row(vc, r),
-                                      dict(enumerate(blocks)))
+                                      {j: b for j, b in enumerate(blocks)
+                                       if b != arena.trash})
                 self._admit(idx, req, now, blocks, logits[r:r + 1])
 
-    def _admit_chunked(self, idx, req, now, blocks, nodes):
-        """Admission on a cached engine: the matched ``nodes`` (pinned
-        by the caller) in a fresh row of the width the prompt's chunks
-        span, zeros past them, then a ``prefill_chunk`` pass per block
-        from the first uncached one to the one holding the prompt's last
-        token, whose hidden row gives the first token.  The row goes into
-        the slot (the slot arena) or its lanes past the cached prefix
-        into the request's fresh ``blocks`` (paged: the table's first
-        lanes are the tree's blocks, shared, never copied)."""
-        cache, arena = self.prefix_cache, self.paged_arena
-        B = cache.block_size
+    def _claim(self, req, blocked_p):
+        """An admission's cached prefix (pinned before its blocks are
+        allocated, so the allocation's eviction cannot take it) and its
+        first blocks, up to the one holding its prompt's last position,
+        as ``(blocks, nodes)``; on a windowed model the entries below its
+        first in-window lane are the trash block, never allocated.  None,
+        with nothing held, when the blocks do not fit or a swapped request
+        at ``blocked_p`` outranks it."""
+        arena, cache = self.paged_arena, self.prefix_cache
         plen = len(req.prompt_ids)
-        last_off = ((plen - 1) // B) * B
-        width = last_off + B
+        nodes = []
+        if cache is not None:
+            nodes = cache.lookup(req.prompt_ids)[
+                :(plen - 1) // cache.block_size]
+            cache.acquire(nodes)
+        blocks = [] if arena is None else None
+        if arena is not None and (blocked_p is None
+                                  or req.priority > blocked_p):
+            B = arena.block_size
+            j_lo = 0 if self._window is None else \
+                max(0, (plen - self._window + 1) // B)
+            got = self._alloc_blocks(plen // B + 1 - j_lo - len(nodes),
+                                     req.priority)
+            if got is not None:
+                blocks = [arena.trash] * j_lo + got
+        if blocks is None:
+            if nodes:
+                cache.release(nodes)
+            return None
+        return blocks, nodes
+
+    def _chunk_width(self):
+        cache = self.prefix_cache
+        return cache.block_size if cache is not None else \
+            self.paged_arena.block_size
+
+    def _begin_prefilling(self, idx, req, now, blocks, nodes):
+        """Reserve slot ``idx`` for a chunked admission holding ``blocks``
+        and the pinned cached ``nodes``: a fresh row of the width its
+        chunks span, the nodes' K/V at its first lanes and zeros past,
+        which block-width passes advance from the first uncached block
+        to the one holding the prompt's last token.  Registered before
+        the row is made, so a failure from here on frees what it
+        holds."""
+        cache = self.prefix_cache
+        B = self._chunk_width()
+        plen = len(req.prompt_ids)
+        pf = _Prefilling()
+        pf.handle, pf.request = self._handles[req.request_id], req
+        pf.blocks, pf.nodes = blocks, nodes
+        pf.off, pf.last_off = len(nodes) * B, ((plen - 1) // B) * B
+        pf.hidden = None
+        pf.t_admit, pf.admitted_step = now, self.step_count
+        pf.seq = next(self._prefill_seq)
+        self._prefilling[idx] = pf
+        width = pf.last_off + B
         ids = np.zeros(width, np.int64)
         ids[:plen] = req.prompt_ids
-        try:
-            with _trace.span("serve/prefill", cat="serve", prompt_len=plen,
-                             requests=1, step=self.step_count,
-                             cached_tokens=len(nodes) * B):
-                kc_row, vc_row = cache.copy_into_row(nodes, width)
-                ids = torch.as_tensor(ids, device=self._params["wte"].device)
-                for off in range(len(nodes) * B, last_off + 1, B):
-                    hidden = self._x.chunk_row(self._params, ids, kc_row,
-                                               vc_row, off, B)
-                logit = _logits(hidden[:, plen - 1 - last_off],
-                                self._params).float()
-                if arena is None:
-                    self._x.write_slot(self._kc, self._vc, kc_row, vc_row,
-                                       idx)
-                else:
-                    m = len(nodes)
-                    arena.scatter_row(kc_row, vc_row,
-                                      {m + j: b for j, b in enumerate(blocks)})
-        except BaseException:
-            # nothing holds these yet: return them, or they leak
-            if arena is not None:
-                arena.free(blocks)
-            cache.release(nodes)
-            raise
-        if arena is not None:
+        dev = self._params["wte"].device
+        pf.ids = torch.as_tensor(ids, device=dev)
+        if cache is not None:
+            pf.kc_row, pf.vc_row = cache.copy_into_row(nodes, width)
+        else:
+            cfg = self.cfg
+            shape = (cfg.n_layer, 1, cfg.n_kv_head, width,
+                     cfg.n_embd // cfg.n_head)
+            cdt = self._params["wte"].dtype
+            pf.kc_row = kv_zeros(shape, cdt, self._quant, dev)
+            pf.vc_row = kv_zeros(shape, cdt, self._quant, dev)
+
+    def _advance_prefilling(self, idx, left=None):
+        """Run slot ``idx``'s chunk passes while ``left`` budget tokens
+        cover one (None: all of them), finishing the admission when the
+        last lands.  Returns the budget left."""
+        pf = self._prefilling[idx]
+        B = self._chunk_width()
+        req = pf.request
+        with _trace.span("serve/prefill", cat="serve",
+                         prompt_len=len(req.prompt_ids), requests=1,
+                         step=self.step_count, offset=pf.off,
+                         cached_tokens=len(pf.nodes) * B):
+            while pf.off <= pf.last_off and (left is None or left >= B):
+                if _faults._armed:
+                    _faults.check("serve.prefill_chunk")
+                pf.hidden = self._x.chunk_row(self._params, pf.ids,
+                                              pf.kc_row, pf.vc_row, pf.off,
+                                              B)
+                if self._budget is not None:
+                    self.stats.on_budget_chunk()
+                pf.off += B
+                if left is not None:
+                    left -= B
+        if pf.off > pf.last_off:
+            self._finish_prefilling(idx)
+        return left
+
+    def _finish_prefilling(self, idx):
+        """The last chunk landed: the row goes into the slot (the slot
+        arena) or its lanes past the cached prefix into the request's
+        blocks (paged: the table's first entries are the tree's blocks,
+        shared, never copied), and the slot goes live with its first
+        token sampled from the last chunk's hidden row."""
+        pf = self._prefilling[idx]
+        cache, arena = self.prefix_cache, self.paged_arena
+        req = pf.request
+        plen = len(req.prompt_ids)
+        logit = _logits(pf.hidden[:, plen - 1 - pf.last_off],
+                        self._params).float()
+        blocks, nodes = pf.blocks, pf.nodes
+        if arena is None:
+            self._x.write_slot(self._kc, self._vc, pf.kc_row, pf.vc_row, idx)
+        else:
+            m = len(nodes)
+            arena.scatter_row(pf.kc_row, pf.vc_row,
+                              {m + j: b for j, b in enumerate(blocks)
+                               if b != arena.trash})
             arena.share([n.block for n in nodes])
             blocks = [n.block for n in nodes] + blocks
-        cache.on_admit(len(nodes), plen)
+        del self._prefilling[idx]
+        if cache is not None:
+            cache.on_admit(len(nodes), plen)
         self.stats.on_prefill()
-        self._admit(idx, req, now, blocks, logit, nodes)
+        self._admit(idx, req, pf.t_admit, blocks, logit, nodes,
+                    step=pf.admitted_step)
 
-    def _admit(self, idx, req, now, blocks, logit, nodes=()):
+    def _free_prefilling(self, pf):
+        """Return an unfinished admission's blocks and unpin its cached
+        prefix."""
+        arena = self.paged_arena
+        if arena is not None:
+            arena.free([b for b in pf.blocks if b != arena.trash])
+        if pf.nodes:
+            self.prefix_cache.release(pf.nodes)
+        pf.blocks, pf.nodes = [], []
+
+    def _admit(self, idx, req, now, blocks, logit, nodes=(), step=None):
         """Start a prefilled request in slot ``idx`` (its K/V already in
-        its slot or blocks): sample its first token (position ``plen``)
-        from ``logit`` and emit it.  ``nodes``: the cached path it holds
-        while live."""
+        its slot or blocks): on a speculative engine prefill the draft's
+        row of the slot (cold: the prefix cache holds the target's K/V
+        only), sample its first token (position ``plen``) from ``logit``
+        and emit it.  ``nodes``: the cached path it holds while live;
+        ``step``: the step it was admitted at (default this one)."""
         handle = self._handles[req.request_id]
         plen = len(req.prompt_ids)
+        if self.draft is not None:
+            ids = torch.as_tensor(np.asarray(req.prompt_ids, np.int64)[None],
+                                  device=self._params["wte"].device)
+            self._x.write_slot(self._dkc, self._dvc,
+                               *self._x.draft_prefill(ids), idx)
         temp = np.float32(req.temperature)
         tok0 = int(_sample(logit, [temp], [req.seed], [plen], self._top_k,
                            self._top_p)[0])
         t_first = self._clock()
-        slot = _Slot(handle, req.max_new_tokens, now, self.step_count,
-                     blocks, nodes)
+        slot = _Slot(handle, req.max_new_tokens, now,
+                     self.step_count if step is None else step, blocks,
+                     nodes)
         self._slots[idx] = slot
         self.stats.on_admission(now - getattr(handle, "_submit_time", now),
                                 t_first - now, warm=bool(nodes))

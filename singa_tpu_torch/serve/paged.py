@@ -20,6 +20,18 @@
   ``decode_step``, the parity oracle, eagerly.  Both return the step's
   logits and write its K/V row into the pool in place (the pool is
   allocated once and never reallocated: captured steps write it);
+* **speculative step** (the engine's ``draft_model=``, ``spec_k=``):
+  :func:`spec_step` runs the draft's ``spec_k`` decode steps on its own
+  slot-shaped arena, the target's verify chunk against the pool
+  (``chunk_step_paged``: one ``paged_attn`` launch a layer at Q =
+  ``spec_k``, the chunk's K/V written into the one or two blocks it
+  spans, ``spec_k <= block_size``) and ``spec_verify``, from the same
+  :class:`DecodeInputs`, so the engine captures it as one CUDA graph;
+* **sliding-window models**: the engine drops a slot's blocks once they
+  leave its window (the table keeps the trash block there, so block
+  indices stay positional; ``serve.paged.window_drops``) and the step
+  passes the window to ``paged_attn``, so a long chat holds and reads
+  O(window) blocks;
 * **preemption / swap**: a request's blocks can leave the pool for host
   memory mid-decode (``swap_out``: one gather and one copy to the host,
   a :class:`~singa_tpu_torch.serve.kvimage.KVImage`) and come back later
@@ -32,9 +44,8 @@ this pool too: a warm slot's table points at them (``share`` adds the
 slot's reference), and ``alloc`` evicts unreferenced cached blocks
 through ``evict_cb`` before it fails.
 
-Not ported yet (``ROADMAP.md``): windowed block drops, the chunked-prefill budget
-(``prefill_token_budget``) and the admission interleave
-(``admit_per_step``).
+``PagedConfig`` also carries the engine's chunked-prefill token budget
+(``prefill_token_budget``) and admission interleave (``admit_per_step``).
 """
 
 from __future__ import annotations
@@ -44,12 +55,15 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from ..models.gpt2_decode import (_leaves, decode_step, decode_step_paged,
-                                  kv_zeros)
+from ..models.gpt2_decode import (_filter_logits, _gumbel, _leaves, _logits,
+                                  chunk_step_paged, decode_step,
+                                  decode_step_paged, kv_zeros, prefill_chunk,
+                                  spec_verify)
 from ..observe.registry import registry as _default_registry
 from .kvimage import KVImage, pack_image
 
-__all__ = ["PagedConfig", "PagedKVArena", "DecodeInputs", "seeds"]
+__all__ = ["PagedConfig", "PagedKVArena", "DecodeInputs", "seeds",
+           "spec_step"]
 
 
 @dataclass(frozen=True)
@@ -63,9 +77,14 @@ class PagedConfig:
     ``kernel``: ``"block"`` (the paged kernel) or ``"gather"`` (the
     dense-row oracle); streams are token-identical
     between the two in float32, logits allclose (the kernel sums in
-    another order).  ``admit_per_step`` and ``prefill_token_budget``
-    are the JAX engine's admission interleave and chunked-prefill
-    budget, not ported yet: setting either raises."""
+    another order).  ``admit_per_step``: the admission interleave, at
+    most this many admissions a scheduling pass (None: as many as fit).
+    ``prefill_token_budget``: the Sarathi-style chunked-prefill budget,
+    at most this many prompt tokens prefilled a step, a multiple of
+    ``block_size``: every admission then prefills in block-width
+    ``prefill_chunk`` passes, a long prompt across several steps, while
+    the live slots decode every step (None: whole prompts at
+    admission)."""
 
     block_size: int = 32
     num_blocks: int = 128
@@ -84,14 +103,17 @@ class PagedConfig:
             raise ValueError(
                 f"kernel must be 'block' (the paged decode kernel) or "
                 f"'gather' (the dense-row oracle), got {self.kernel!r}")
-        if self.admit_per_step is not None:
-            raise NotImplementedError(
-                "PagedConfig.admit_per_step (the admission interleave) is "
-                "not ported yet (ROADMAP.md)")
-        if self.prefill_token_budget is not None:
-            raise NotImplementedError(
-                "PagedConfig.prefill_token_budget (chunked prefill) is not "
-                "ported yet (ROADMAP.md)")
+        if self.admit_per_step is not None and self.admit_per_step < 1:
+            raise ValueError(
+                f"admit_per_step must be >= 1 (or None for unlimited), got "
+                f"{self.admit_per_step}")
+        budget = self.prefill_token_budget
+        if budget is not None and (budget < self.block_size
+                                   or budget % self.block_size):
+            raise ValueError(
+                f"prefill_token_budget ({budget}) must be a positive "
+                f"multiple of block_size ({self.block_size}): chunked "
+                f"prefill advances in block-width windows")
 
 
 # -------------------------------------------------------------- pool steps
@@ -160,7 +182,8 @@ def _embed(params, toks, pos):
     return (params["wte"][toks.long()] + params["wpe"][pos.long()])[:, None]
 
 
-def _paged_decode_kernel(params, pool_k, pool_v, inp, block, n_head, eps):
+def _paged_decode_kernel(params, pool_k, pool_v, inp, block, n_head, eps,
+                         window=None):
     """Advance every lane one token against the pool without gathering
     rows.  ``inp``: the lanes' device inputs (:meth:`DecodeInputs.view`;
     dead lanes: all-trash tables, and they embed token 0 at position
@@ -168,14 +191,100 @@ def _paged_decode_kernel(params, pool_k, pool_v, inp, block, n_head, eps):
     the device, and nothing here reads a device value on the host, so the
     engine captures this step, with its sampling, as a CUDA graph.  The
     vmap over slots of the JAX function is the kernel's slot dimension:
-    one launch a layer for all lanes.  Returns (S, V) logits; the pools
-    take the step's K/V rows in place."""
+    one launch a layer for all lanes.  ``window``: a sliding-window
+    model's band; the kernel reads from table entry 0
+    and skips each slot's lanes below its window on the device, where the
+    JAX function starts its loop at the lowest live slot's first
+    in-window block: a captured step would freeze a host bound, which
+    may not exceed a slot admitted later.  Returns (S, V) logits; the
+    pools take the step's K/V rows in place."""
     live = inp["live"] != 0
     toks = torch.where(live, inp["toks"], 0)
     p_c = torch.where(live, inp["pos"], 0)
     return decode_step_paged(params, _embed(params, toks, p_c), pool_k,
                              pool_v, inp["tables"], p_c, n_head, eps,
-                             block=block)
+                             block=block, window=window)
+
+
+def _draft_propose(d_params, dkc, dvc, toks, pos, temps, sd, spec_k,
+                   d_statics, top_k, top_p):
+    """The draft's half of a speculative step for every lane: ``spec_k``
+    decode steps of the draft on its slot-shaped arenas (L_d, S, H_d,
+    max_len, D_d) from the last token at ``pos``, the last one only as
+    an input, so a fully accepted chunk leaves the draft's cache one row
+    ahead (the JAX ``_draft_propose``).  A greedy lane proposes the
+    draft's argmax, a sampled one draws from its filtered distribution
+    with noise keyed by (seed, the proposal's position, draw 1).  Returns
+    (props (S, spec_k - 1) int64, their filtered distributions (S,
+    spec_k - 1, V))."""
+    n_head, eps = d_statics
+    hot = temps > 0
+    t = torch.where(hot, temps, torch.ones_like(temps))[:, None]
+    tok, props, qs = toks, [], []
+    for i in range(spec_k):
+        p_i = pos + i
+        x = (d_params["wte"][tok] + d_params["wpe"][p_i])[:, None]
+        lg, _, _ = decode_step(d_params, x, dkc, dvc, p_i, n_head, eps)
+        if i == spec_k - 1:
+            break
+        filt = _filter_logits(lg, t, top_p, top_k)
+        drawn = (filt + _gumbel(sd, p_i + 1, lg.shape[-1], 1)).argmax(-1)
+        tok = torch.where(hot, drawn, lg.float().argmax(-1))
+        props.append(tok)
+        qs.append(torch.softmax(filt, -1))
+    return torch.stack(props, 1), torch.stack(qs, 1)
+
+
+def spec_step(t_params, d_params, kc, vc, dkc, dvc, inp, spec_k, statics,
+              d_statics, top_k, top_p, block=None, window=None, n_rb=None):
+    """One speculative step for every lane of ``inp``
+    (:meth:`DecodeInputs.view`): the draft's proposals
+    (:func:`_draft_propose`), the target's verify of each lane's chunk
+    (the last token and the proposals, at pos..pos+spec_k-1) against the
+    paged pools ``kc``/``vc`` through ``chunk_step_paged`` (``block``
+    given), or against the slot arena's rows through ``prefill_chunk``
+    at per-row positions (``block`` None), or, the gather oracle
+    (``n_rb`` given: each lane's first ``n_rb`` blocks copied into a
+    dense row, the chunk's rows written back; eager only), then
+    ``spec_verify``.  Dead
+    lanes run on clamped inputs (token 0, position 0; paged: all-trash
+    tables) and their outputs are ignored.  Nothing reads the device on
+    the host, so the engine captures the whole step as one CUDA graph.
+    Returns (S, spec_k + 1) int64: the chunk's tokens and, last, the
+    accepted proposals' count; the host emits that count + 1 tokens."""
+    n_head, eps = statics
+    live = inp["live"] != 0
+    toks = torch.where(live, inp["toks"], 0).long()
+    pos = torch.where(live, inp["pos"], 0)
+    temps = torch.where(live, inp["temps"], torch.zeros_like(inp["temps"]))
+    sd = seeds(inp)
+    props, q = _draft_propose(d_params, dkc, dvc, toks, pos.long(), temps,
+                              sd, spec_k, d_statics, top_k, top_p)
+    chunk = torch.cat([toks[:, None], props], 1)                # (S, K)
+    qpos = pos.long()[:, None] + torch.arange(spec_k, device=pos.device)
+    x = t_params["wte"][chunk] + t_params["wpe"][qpos]
+    if block is None:
+        h, _, _ = prefill_chunk(t_params, x, kc, vc, pos, n_head, eps)
+        logits = _logits(h, t_params)
+    elif n_rb is not None:
+        tbl = inp["tables"][:, :n_rb].long()
+        rows = [tuple(_rows(leaf, tbl) for leaf in _leaves(c))
+                for c in (kc, vc)]
+        kr, vr = (r if isinstance(kc, tuple) else r[0] for r in rows)
+        h, kr, vr = prefill_chunk(t_params, x, kr, vr, pos, n_head, eps)
+        logits = _logits(h, t_params)
+        lanes = torch.arange(len(pos), device=pos.device)[:, None]
+        blk = tbl.gather(1, qpos // block)
+        # both sides index (S, K, L, H[, D]): the advanced indices lead
+        for pool, c in ((kc, kr), (vc, vr)):
+            for leaf, r in zip(_leaves(pool), _leaves(c)):
+                leaf[:, blk, :, qpos % block] = r[:, lanes, :, qpos]
+    else:
+        logits = chunk_step_paged(t_params, x, kc, vc, inp["tables"], pos,
+                                  n_head, eps, block=block, window=window)
+    out, a_draft = spec_verify(logits, q, props, temps, sd, pos, top_k,
+                               top_p)
+    return torch.cat([out, a_draft[:, None]], 1)
 
 
 def _rows(pool, idx):
@@ -266,8 +375,13 @@ class PagedKVArena:
         self._c_swap_in = reg.counter(
             "serve.paged.swap_in",
             help="request KV rows restored host -> device", **lbl)
+        self._c_window_drop = reg.counter(
+            "serve.paged.window_drops",
+            help="blocks sliding-window slots dropped back to the free "
+                 "list as their position advanced", **lbl)
         self._registered = [self._g_free, self._g_used, self._c_preempt,
-                            self._c_swap_out, self._c_swap_in]
+                            self._c_swap_out, self._c_swap_in,
+                            self._c_window_drop]
         self._registry = reg
         self._update_gauges()
 
@@ -389,6 +503,11 @@ class PagedKVArena:
     def on_preempt(self):
         self._c_preempt.inc()
 
+    def on_window_drop(self, n):
+        """Count ``n`` out-of-window blocks a slot returned (already
+        freed through :meth:`free`)."""
+        self._c_window_drop.inc(n)
+
     def unregister(self):
         """Drop the metrics and the device pool (engine ``close()``)."""
         self._registry.remove(*self._registered)
@@ -403,4 +522,5 @@ class PagedKVArena:
                 "preemptions": self._c_preempt.value,
                 "swap_out": self._c_swap_out.value,
                 "swap_in": self._c_swap_in.value,
+                "window_drops": self._c_window_drop.value,
                 "shared_blocks": len(self._refs)}

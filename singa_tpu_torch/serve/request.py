@@ -65,7 +65,9 @@ class GenerationRequest:
     ``on_token(request, token)`` streams each emitted token.
     ``priority`` orders admission under ``scheduler="priority"`` (higher
     first).  ``stop_token`` retires the request the moment it is
-    emitted (``finish_reason="stop"``).
+    emitted (``finish_reason="stop"``), mid-chunk on a speculative
+    engine, whose steps emit up to ``spec_k`` tokens (``on_token`` sees
+    each).
 
     ``pin_session``: on an engine with a prefix cache, retire pins the
     whole finished sequence in the cache and hands back a

@@ -5,7 +5,9 @@ an ``engine=<n>`` label, one label value per engine.
 
 * **TTFT**: submit to the first (prefill) token, queue wait included.
 * **TPOT**: (last token - first token) / (n - 1); a request that emits
-  one token has no TPOT sample.
+  one token has no TPOT sample.  It counts every token a step emitted,
+  however many: on a speculative engine it is step time over accepted
+  tokens, so a draft that stops agreeing shows as a worse TPOT.
 * **queue wait / admission**: TTFT split into submit -> admission and
   admission -> first token (the prefill), the latter by ``kind``:
   ``cold``, or ``warm`` when a prefix-cache hit skipped part of it.
@@ -25,9 +27,19 @@ an ``engine=<n>`` label, one label value per engine.
   token hit rate, from the ``serve.prefix.*`` metrics the cache
   registers under the same label; None without a cache.
 
+* **spec** (speculative engines only): ``serve.spec.accepted`` and
+  ``serve.spec.drafted``, the draft proposals the target's verify kept
+  and offered, and ``serve.spec.chunks``, one a live slot a speculative
+  step: the acceptance rate on live traffic and the tokens a chunk;
+  None on other engines.
+
+* **budget_chunks**: ``serve.prefill.budget_chunks``, the block-width
+  chunk passes the chunked-prefill token budget split admissions into
+  (None without a budget).
+
 All times come from the engine's clock, so a fake clock makes the
-snapshot deterministic in tests.  The JAX version's SLO targets and
-speculative-decoding counters are not ported yet.
+snapshot deterministic in tests.  The JAX version's SLO targets are not
+ported yet.
 """
 
 from __future__ import annotations
@@ -46,7 +58,8 @@ class EngineStats:
     point.  ``unregister()`` drops the metrics from the registry (the
     engine's ``close()``)."""
 
-    def __init__(self, max_slots: int, clock, reg=None):
+    def __init__(self, max_slots: int, clock, reg=None, spec=False,
+                 budget=False):
         self.max_slots = int(max_slots)
         self._clock = clock
         self._t0 = clock()
@@ -95,6 +108,21 @@ class EngineStats:
             self._h_queue_wait, self._h_admission["cold"],
             self._h_admission["warm"], self._queue_depth,
             self._occupancy]
+        self.spec = bool(spec)
+        if spec:
+            self._spec = {n: c(f"serve.spec.{n}", help=h, **lbl) for n, h in (
+                ("accepted", "draft proposals the target's verify kept"),
+                ("drafted", "draft proposals offered to the verify"),
+                ("chunks", "verify chunks, one a live slot a speculative "
+                           "step"))}
+            self._registered += list(self._spec.values())
+        self._budget_chunks = None
+        if budget:
+            self._budget_chunks = c(
+                "serve.prefill.budget_chunks",
+                help="block-width chunk passes the chunked-prefill token "
+                     "budget split admissions into", **lbl)
+            self._registered.append(self._budget_chunks)
         self._queue_depth_sum = 0
         self._queue_depth_max = 0
         self._queue_samples = 0
@@ -133,6 +161,16 @@ class EngineStats:
 
     def on_token(self):
         self._tokens_out.inc()
+
+    def on_spec(self, accepted: int, drafted: int):
+        """One live slot's verify: ``accepted`` of ``drafted`` proposals
+        kept (its correction or bonus token is ``on_token``'s)."""
+        self._spec["accepted"].inc(int(accepted))
+        self._spec["drafted"].inc(int(drafted))
+        self._spec["chunks"].inc()
+
+    def on_budget_chunk(self):
+        self._budget_chunks.inc()
 
     def on_decode_step(self, live_slots: int):
         self._decode_steps.inc()
@@ -187,4 +225,16 @@ class EngineStats:
                       if self.paged_source is not None else None),
             "prefix": (self.prefix_source()
                        if self.prefix_source is not None else None),
+            "spec": self._spec_snapshot(),
+            "budget_chunks": (None if self._budget_chunks is None
+                              else self._budget_chunks.value),
         }
+
+    def _spec_snapshot(self):
+        if not self.spec:
+            return None
+        acc, dr, ch = (self._spec[n].value
+                       for n in ("accepted", "drafted", "chunks"))
+        return {"drafted": dr, "accepted": acc, "chunks": ch,
+                "acceptance_rate": acc / dr if dr else None,
+                "tokens_per_chunk": (acc + ch) / ch if ch else None}

@@ -292,6 +292,38 @@ def test_paged_int8_kernel_matches_plain(cuda_device, dtype, seed, name,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("quant,dtype", [(False, "float32"),
+                                         (False, "bfloat16"),
+                                         (True, "bfloat16")])
+@pytest.mark.parametrize("seed,name,case", [
+    pytest.param(seed, name, case, id=name) for seed, (name, case)
+    in enumerate(chip_smoke.paged_serving_cases(), start=100)])
+def test_paged_kernel_at_serving_shapes(cuda_device, quant, dtype, seed,
+                                        name, case):
+    """The speculative verify step's (Q = 4) and the windowed steps'
+    shapes (tables of dropped blocks, read from entry 0), on float32,
+    bf16 and int8 pools."""
+    chip_smoke.check_paged_case(f"{name}/{dtype}", getattr(torch, dtype),
+                                seed, quant=quant, **case)
+
+
+@pytest.mark.cuda
+def test_paged_kernel_counts_chunk_and_window_launches(cuda_device):
+    """A launch at Q > 1 counts in ``chunk_launches`` too, one with a
+    window in ``window_launches``."""
+    counts = ("launches", "chunk_launches", "window_launches")
+    for name, case in chip_smoke.paged_serving_cases():
+        before = [getattr(tpa.paged_attn, c) for c in counts]
+        tpa.paged_attn(**chip_smoke.paged_inputs(dtype=torch.bfloat16,
+                                                 seed=0, **case))
+        torch.cuda.synchronize()
+        got = [getattr(tpa.paged_attn, c) - b
+               for c, b in zip(counts, before)]
+        assert got == [1, int(case["nq"] > 1),
+                       int(case.get("window") is not None)], (name, got)
+
+
+@pytest.mark.cuda
 def test_paged_kernel_counts_its_launches(cuda_device):
     """One count a launch (the split and combine kernels together), and
     on int8 pools one in ``int8_launches`` too; D past 1024 raises;

@@ -329,9 +329,22 @@ def test_slot_that_cannot_grow_fails_typed(models):
 def test_engine_refuses_what_is_not_ported(models, kw):
     """Each engine argument still owed raises; ``prefix_cache``, ported
     since, builds the engine with its cache (its behaviour:
-    tests/test_torch_prefix.py)."""
+    tests/test_torch_prefix.py); ``draft_model`` (the model itself here)
+    builds a speculative engine, and ``spec_k`` without a draft is the
+    JAX engine's typed ``ValueError`` (their behaviour:
+    tests/test_torch_spec.py)."""
     _, tm = models
     kw = {"paged": PagedConfig(block_size=8, num_blocks=8), **kw}
+    if "draft_model" in kw:
+        eng = tm.serve(**dict(kw, draft_model=tm))
+        assert eng.draft is tm and eng.spec_k == 4
+        assert eng.stats.snapshot()["spec"]["drafted"] == 0
+        eng.close()
+        return
+    if "spec_k" in kw:
+        with pytest.raises(ValueError, match="without draft_model"):
+            tm.serve(**kw)
+        return
     if "prefix_cache" in kw:
         # True: the default PrefixCacheConfig, whose 64-token blocks the
         # arena must share
@@ -410,16 +423,16 @@ def test_submit_refuses_what_is_not_ported(models, req):
 
 
 def test_features_still_owed_raise():
-    with pytest.raises(NotImplementedError, match="chunked prefill"):
-        PagedConfig(prefill_token_budget=32)
-    with pytest.raises(NotImplementedError, match="interleave"):
-        PagedConfig(admit_per_step=2)
-    for fn in (gd.generate_beam, gd.generate_speculative):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            fn()
+    """Beam search is still owed; the chunked-prefill budget, the
+    admission interleave and sliding-window decode, ported since, are
+    accepted (their behaviour: tests/test_torch_longctx.py)."""
+    assert PagedConfig(prefill_token_budget=32).prefill_token_budget == 32
+    assert PagedConfig(admit_per_step=2).admit_per_step == 2
+    with pytest.raises(NotImplementedError, match="not ported"):
+        gd.generate_beam()
     windowed = GPT2LMHead(GPT2Config.tiny(dropout=0.0, attn_window=16))
-    with pytest.raises(NotImplementedError, match="sliding-window"):
-        gd.check_decodable(windowed.cfg)
+    gd.check_decodable(windowed.cfg)
+    assert gd._norm_window(windowed.cfg) == 16
 
 
 def test_submit_validation_and_queue_limits(models):
