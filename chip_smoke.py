@@ -277,6 +277,41 @@ exits nonzero:
                     blocks a slot, a 512-token prompt admitted in window,
                     TPOT past position 700 beside the dense model's),
                     then on int8 pools and with the 2-layer draft.
+14d. ``fork``      - best-of-n and tree search on the serve phase's
+                    engine: 6 prompts of 128-512 tokens, ``n = 4``, 64 new
+                    tokens.  float32 greedy, twice on one engine: every
+                    branch equals the ``n = 1`` engine's stream and offline
+                    ``generate``'s, the second pass captures no graph.
+                    bf16 at temperature 0.8, after a warm-up pass: the
+                    measured pass (``paged_attn`` one launch a layer a
+                    step over tables whose prompt blocks several slots
+                    name: the ``paged_attn_fork`` row's main path; no
+                    graph captured), branch 0 equals the ``n = 1`` stream
+                    up to its first low-margin token, the siblings
+                    diverge, ``ranked()`` orders by score; peak blocks,
+                    copy-on-write copies, ``serve.fork.*`` and TPOT beside
+                    the same requests unforked four times.  float32: a
+                    request forked twice mid-stream and one branch pruned
+                    (the parent equals offline ``generate``, the pruned
+                    branch's private blocks come back), and a forked group
+                    preempted by higher-priority arrivals on a 40-block
+                    pool, resumed with the roomy pool's streams.
+14e. ``structured`` - ``JsonSchemaAutomaton`` (integer, boolean, string
+                    and enum properties) over a 50257-string vocabulary
+                    from a seed (no GPT-2 tokenizer in the repo): 8 float32
+                    greedy requests, twice on one engine, equal to a
+                    masked-greedy oracle on the dense cache, each output
+                    JSON of the schema; the second pass captures no graph;
+                    mask-building ms a step (first visits, memoized) and
+                    TPOT beside the requests unconstrained; one ``n = 2``
+                    sampled structured request, both branches valid.
+14f. ``beam``      - ``generate_beam`` with 4 beams on 8 prompts of 64
+                    tokens and 8 ragged ones, 32 new tokens: one beam
+                    equals greedy ``generate`` (float32), every beam's
+                    total equals its teacher-forced rescoring, the top
+                    beam's total beside greedy's, and ms a generated
+                    token in bf16 beside ``generate``'s (the dense cache,
+                    as in the JAX package: no hand-written kernel).
 15. ``paged_kernels`` - ``paged_attn`` (its split and combine kernels)
                     against ``paged_attn_plain``, on float32, bf16 and
                     float16 pools and on int8 pools with float32, bf16
@@ -300,7 +335,9 @@ exits nonzero:
                     phase's verify step (Q = 4,
                     bf16 and int8 pools) and the longctx phase's windowed
                     step (float32; read from table entry 0 as the engine
-                    reads it, and from the JAX engine's bound).
+                    reads it, and from the JAX engine's bound), and at the
+                    fork phase's step (bf16 pools: row ``paged_attn_fork``;
+                    int8 pools, logged).
 16. ``device``    - the card's name and power limit from nvidia-smi.
 
 Then one line ``{"kernels": [...]}`` with each kernel's launches on the
@@ -840,6 +877,10 @@ REPLACES = {
     # _paged_attn's window band (:897-901) over a windowed slot's table of
     # dropped (trash) blocks, as _block_decode_paged calls it (:963)
     "paged_attn_window": "singa_tpu/models/gpt2_decode.py:897",
+    # _paged_attn over fork branches' block tables, which name the same
+    # blocks (the JAX engine's _spawn_branch shares them, serve/engine.py
+    # :2973), one decode step of the fork round
+    "paged_attn_fork": "singa_tpu/models/gpt2_decode.py:841",
 }
 
 
@@ -2829,7 +2870,8 @@ PAGED_TRASH_VALUE = 50.0
 
 
 def paged_inputs(lens, block, d, n_kv, g, nq, dtype, seed, window=None,
-                 spare=3, trash_at=(), from_block0=False, quant=False):
+                 spare=3, trash_at=(), from_block0=False, quant=False,
+                 share=()):
     """Kernel arguments for one paged case, made from a numpy seed: slot
     s attends ``lens[s]`` pool lanes (0: a dead slot with an all-trash
     table) through ``ceil(lens[s] / block)`` distinct random blocks, its
@@ -2837,7 +2879,10 @@ def paged_inputs(lens, block, d, n_kv, g, nq, dtype, seed, window=None,
     unused blocks; the trash block filled with ``PAGED_TRASH_VALUE``.
     ``trash_at``: (slot, entry) table entries set to the trash block
     below ``lens[slot]`` (lanes the function masks, as the JAX engine's
-    dropped out-of-window blocks).  With a ``window``, ``blk_lo`` is the
+    dropped out-of-window blocks).  ``share``: (slots, n) groups whose
+    slots' first n entries name the first slot's blocks, as the tables of
+    a fork group's branches do (their own blocks there go unused).  With
+    a ``window``, ``blk_lo`` is the
     first block holding an in-window lane of any live slot, or None
     (read from block 0) with ``from_block0``.  ``quant``: the same draws,
     the pools and current K/V quantized to int8 (values, scales) pairs
@@ -2855,6 +2900,9 @@ def paged_inputs(lens, block, d, n_kv, g, nq, dtype, seed, window=None,
         at += n
     for s, j in trash_at:
         tables[s, j] = n_blocks
+    for slots, n in share:
+        for s in slots[1:]:
+            tables[s, :n] = tables[slots[0], :n]
 
     def rand(*shape):
         return torch.from_numpy(rng.randn(*shape).astype(np.float32))
@@ -2945,6 +2993,10 @@ def paged_edge_cases():
         # the combine's scores of 16 rows by 800 current lanes pass the
         # 48 KB of shared memory a launch gets without the attribute
         ("q800_combine_past_48kb", dict(lens=[20, 7], block=8, nq=800)),
+        # fork groups: several slots' tables name the same prompt blocks
+        # (the last one of them partly filled), a dead slot between
+        ("fork_shared_blocks", dict(lens=[37, 40, 45, 0, 29, 26], block=8,
+                                    share=[((0, 1, 2), 4), ((4, 5), 3)])),
     ]
     return [(n, {**base, **kw}) for n, kw in cases]
 
@@ -2956,7 +3008,8 @@ def paged_serving_cases():
     slot, chunks across a block edge) and a windowed decode step and
     verify chunk (window 256) whose tables hold the trash block below
     each slot's window, read from table entry 0 as the engine reads
-    them."""
+    them; and the ``fork`` phase's decode step, two fork groups whose
+    branches' tables share their prompt blocks."""
     base = dict(d=64, n_kv=12, g=1, block=32)
     spec = [400, 37, 129, 0, 511, 64, 250, 1000]
     win = [700, 1000, 300, 260, 575, 831, 960, 1019]
@@ -2964,9 +3017,12 @@ def paged_serving_cases():
                for j in range(max(0, (p - LONGCTX_WINDOW + 1) // 32))]
     wkw = dict(base, lens=win, window=LONGCTX_WINDOW, trash_at=dropped,
                from_block0=True)
+    fork = [300, 302, 305, 299, 520, 518, 530, 0]
     return [("spec_q4", dict(base, lens=spec, nq=SPEC_K)),
             ("window_q1", dict(wkw, nq=1)),
-            ("window_q4", dict(wkw, nq=SPEC_K))]
+            ("window_q4", dict(wkw, nq=SPEC_K)),
+            ("fork_q1", dict(base, lens=fork, nq=1,
+                             share=[((0, 1, 2, 3), 9), ((4, 5, 6), 16)]))]
 
 
 def check_paged_case(name, dtype, seed, quant=False, **kw):
@@ -2989,20 +3045,30 @@ def check_paged_case(name, dtype, seed, quant=False, **kw):
     return err
 
 
-def paged_bound_ms(lens, n_kv, g, nq, d, dtype, quant=False, window=None):
+def paged_bound_ms(lens, n_kv, g, nq, d, dtype, quant=False, window=None,
+                   tables=None, block=None):
     """Least time for one call: the live K/V lanes read once, q and the
     current K/V read and the output written once, over memory bandwidth;
     against 4 FLOPs per (query row, live lane, element) over the peak
     rate for q's dtype.  ``quant``: int8 lanes, D bytes and a float32
     scale each.  ``window``: a slot's live pool lanes are those its first
-    query sees, at most ``window - 1``.  Returns ``(ms, "bytes" or
-    "operations")``."""
+    query sees, at most ``window - 1``.  ``tables`` (and ``block``): a
+    block that several slots' tables name (a fork group's prompt blocks)
+    is read once, its lanes the most any of them sees.  Returns ``(ms,
+    "bytes" or "operations")``."""
     elem = torch.finfo(dtype).bits // 8
     row = d + 4 if quant else d * elem                # bytes of a K or V lane
     lanes = int(sum(lens if window is None
                     else [min(p, window - 1) for p in lens]))
+    read = lanes
+    if tables is not None and window is None:
+        seen = {}
+        for t, p in zip(np.asarray(tables), lens):
+            for j in range(-(-p // block)):
+                seen[t[j]] = max(seen.get(t[j], 0), min(block, p - j * block))
+        read = sum(seen.values())
     s_ = len(lens)
-    nbytes = (2 * lanes * n_kv * row                 # live K and V lanes
+    nbytes = (2 * read * n_kv * row                  # live K and V lanes
               + 2 * s_ * n_kv * g * nq * d * elem    # q and the output
               + 2 * s_ * n_kv * nq * row)            # k_cur and v_cur
     flops = 4 * (lanes + s_ * nq) * n_kv * g * nq * d
@@ -3106,10 +3172,10 @@ def time_paged_table(layers):
     lens = args["p_limit"].tolist()
     quant = isinstance(args["pool_k"], tuple)
     window = args.get("window")
-    bound, by = paged_bound_ms(lens, n_kv, g, nq, d, args["q"].dtype, quant,
-                               window)
     pool = pa._values(args["pool_k"])
     block = pool.shape[2]
+    bound, by = paged_bound_ms(lens, n_kv, g, nq, d, args["q"].dtype, quant,
+                               window, args["tables"].cpu().numpy(), block)
     by_kernel = device_ms_by_kernel(kernel, 4 * n)
     extra = {}
     if window is not None:
@@ -3160,7 +3226,7 @@ def time_paged_table(layers):
 LONG_TABLE_LENS = (1000, 1000)
 
 
-def phase_paged_kernels(real, real8, cfg, spec, win):
+def phase_paged_kernels(real, real8, cfg, spec, win, fork):
     """``paged_attn`` against its plain version at every edge case in
     float32, bf16 and float16, and on int8 pools with float32, bf16 and
     float16 q (their split counts logged: some take one split of the key
@@ -3181,8 +3247,12 @@ def phase_paged_kernels(real, real8, cfg, spec, win):
     dtypes those runs launch (the ``paged_attn_spec`` and
     ``paged_attn_spec_int8`` rows), and at the ``longctx`` phase's
     windowed step (``win``) with float32 pools, read from table entry 0
-    and, beside it, from the JAX engine's bound (``paged_attn_window``).
-    Returns the kernels line's rows."""
+    and, beside it, from the JAX engine's bound (``paged_attn_window``);
+    and at the ``fork`` phase's decode step (``fork``: its tables, whose
+    prompt blocks several slots name, and the launches of its bf16 main
+    path) with bf16 pools (row 5k, ``paged_attn_fork``) and int8 pools
+    (logged; the bound reads a shared block once).  Returns the kernels
+    line's rows."""
     from singa_tpu_torch.ops import paged_attention as pa
 
     n_sm = torch.cuda.get_device_properties(0).multi_processor_count
@@ -3214,6 +3284,8 @@ def phase_paged_kernels(real, real8, cfg, spec, win):
     win_t = time_paged_table(real_args(win, cfg, seed=7,
                                        dtype=torch.float32,
                                        window=LONGCTX_WINDOW))
+    fork_t = time_paged_table(real_args(fork, cfg, seed=8))
+    fork8_t = time_paged_table(real_args(fork, cfg, seed=9, quant=True))
     log({"phase": "paged_kernels",
          "edge_cases": 2 * len(PAGED_DTYPES) * len(paged_edge_cases()),
          "edge_max_abs_err": worst, "edge_n_split": splits,
@@ -3226,7 +3298,9 @@ def phase_paged_kernels(real, real8, cfg, spec, win):
          "long_table": long,
          "spec_verify_table": dict(spec_t, step=spec["step"]),
          "spec_verify_table_int8": dict(spec8_t, step=spec["step"]),
-         "windowed_table": dict(win_t, step=win["step"])})
+         "windowed_table": dict(win_t, step=win["step"]),
+         "fork_table_row_5k": dict(fork_t, step=fork["step"]),
+         "fork_table_int8": dict(fork8_t, step=fork["step"])})
 
     def row(name, t, launches, kernels):
         ms = t["device_ms"]
@@ -3267,7 +3341,11 @@ def phase_paged_kernels(real, real8, cfg, spec, win):
             row("paged_attn_window", win_t, win["launches"],
                 "paged_attn_kernel<float, float> (split) + "
                 "paged_combine_kernel<float, float> with the window 256 "
-                "over tables of dropped blocks")]
+                "over tables of dropped blocks"),
+            row("paged_attn_fork", fork_t, fork["launches"],
+                "paged_attn_kernel<bf16, bf16> (split) + paged_combine_kernel"
+                "<bf16, bf16> over fork groups' tables, several slots naming "
+                "the same prompt blocks")]
 
 
 # ------------------------------------------------------------------ serve
@@ -4793,6 +4871,754 @@ def phase_longctx(model, seed=0):
     return dict(wreal, launches=counts["window_launches"])
 
 
+# ------------------------------------------------------------------- fork
+
+#: best-of-n: requests, branches, new tokens, prompt lengths, temperature
+FORK_REQUESTS = 6
+FORK_N = 4
+FORK_NEW = 64
+FORK_PROMPTS = (128, 513)
+FORK_TEMP = 0.8
+#: tree search: the prompt, new tokens, the steps after which the parent
+#: forks (twice) and one branch is pruned
+FORK_TREE = dict(prompt=256, new=64, fork_after=(10, 10), prune_after=5)
+#: a forked group beside higher-priority arrivals on a pool too small for
+#: both: the group's prompt, the arrivals' prompts, the tight pool
+FORK_PRESSURE = dict(prompt=200, hi_prompts=(500, 480), num_blocks=40,
+                     lead=8)
+#: structured decoding: requests, new tokens (every output of the schema
+#: is shorter), prompt lengths
+STRUCT_REQUESTS = 8
+STRUCT_NEW = 80
+STRUCT_PROMPTS = (32, 129)
+STRUCT_SCHEMA = {"type": "object", "properties": {
+    "id": {"type": "integer"}, "ok": {"type": "boolean"},
+    "name": {"type": "string", "maxLength": 8},
+    "mode": {"enum": ["fast", "slow", "auto"]}}}
+STRUCT_MAX_DIGITS = 6
+
+
+def fork_traffic(seed=0, vocab=50257):
+    """The fork phase's prompts (``FORK_PROMPTS`` tokens from a numpy
+    seed) and their sampling seeds."""
+    rng = np.random.RandomState(seed)
+    return [dict(prompt=rng.randint(0, vocab, rng.randint(*FORK_PROMPTS))
+                 .astype(np.int32), seed=int(rng.randint(0, 2 ** 31 - 1)))
+            for _ in range(FORK_REQUESTS)]
+
+
+def fork_engine(model, dtype=None, capture=True, num_blocks=None, **kw):
+    """The serve phase's paged engine (8 slots, blocks of 32, 256 blocks
+    unless ``num_blocks``)."""
+    from singa_tpu_torch.serve import PagedConfig
+
+    c = SERVE_ENGINE
+    return model.serve(max_slots=c["max_slots"], dtype=dtype,
+                       capture=capture, paged=PagedConfig(
+                           block_size=c["block_size"],
+                           num_blocks=num_blocks or c["num_blocks"]), **kw)
+
+
+def fork_drain(eng, max_steps=5000):
+    """Step ``eng`` until it drains, checking the block accounting
+    (``used == cached + live_referenced``, shared blocks once) after
+    every step; raise unless no block is left.  Returns (steps, the
+    most blocks in use after a step)."""
+    peak = 0
+    for step in range(max_steps):
+        if not eng.pending:
+            break
+        eng.step()
+        eng.check_block_accounting()
+        peak = max(peak, eng.paged_arena.blocks_used)
+    else:
+        raise AssertionError(f"engine did not drain in {max_steps} steps")
+    if eng.paged_arena.blocks_used:
+        raise AssertionError(f"{eng.paged_arena.blocks_used} blocks in use "
+                             f"after the drain")
+    return step, peak
+
+
+def fork_submit(eng, traffic, n, temperature, reps=1, tag="f"):
+    """Every request of ``traffic`` ``reps`` times (seed + rep), each with
+    ``n`` branches; returns the handles."""
+    from singa_tpu_torch.serve import GenerationRequest
+
+    return [eng.submit(GenerationRequest(
+        w["prompt"], max_new_tokens=FORK_NEW, temperature=temperature,
+        seed=w["seed"] + r, n=n, request_id=f"{tag}{i}.{r}"))
+        for r in range(reps) for i, w in enumerate(traffic)]
+
+
+def _branches(handles):
+    """Each handle's results (a fork group's, branch order)."""
+    return [h.results() if hasattr(h, "results") else [h.result()]
+            for h in handles]
+
+
+class _SampledMarginProbe:
+    """Executor of an eager engine (``capture=False``: it reads the device
+    on the host): records, per request, the index of the first token
+    whose top-2 margin, on the logits as the sampler sees them (tempered
+    plus the request's noise when sampled), is under
+    ``SERVE_BF16_LOGITS_ATOL``, up to which bf16 streams of two engines
+    must agree (the first token's margin is the prefill's, by prompt)."""
+
+    def __init__(self, eng, traffic):
+        self.eng, self.inner = eng, eng._x
+        self.first_low, self.prompt_low = {}, set()
+        self.by_prompt = {w["prompt"].tobytes(): w for w in traffic}
+
+    def __getattr__(self, name):
+        return getattr(self.inner, name)
+
+    def _margin(self, row, temp, seed, pos):
+        from singa_tpu_torch.models import gpt2_decode as gd
+
+        row = row.float()
+        if temp > 0:
+            dev = row.device
+            row = gd._filter_logits(row[None], float(temp), self.eng._top_p,
+                                    self.eng._top_k)[0]
+            row = row + gd._gumbel(torch.tensor([int(seed)], device=dev),
+                                   torch.tensor([int(pos)], device=dev),
+                                   row.shape[0])[0]
+        top2 = torch.topk(row, 2).values
+        return (top2[0] - top2[1]).item()
+
+    def prefill_batch(self, params, ids):
+        logits, kc, vc = self.inner.prefill_batch(params, ids)
+        for row, lg in zip(ids.cpu().numpy().astype(np.int32), logits):
+            w = self.by_prompt[row.tobytes()]
+            if self._margin(lg, FORK_TEMP, w["seed"], len(row)) < \
+                    SERVE_BF16_LOGITS_ATOL:
+                self.prompt_low.add(row.tobytes())
+        return logits, kc, vc
+
+    def paged_decode_step(self, params, pool_k, pool_v, inp, block,
+                          kernel="block", n_rb=None):
+        got = self.inner.paged_decode_step(params, pool_k, pool_v, inp,
+                                           block, kernel, n_rb)
+        eng = self.eng
+        lanes = [i for i, s in enumerate(eng._slots) if s is not None]
+        for r, i in enumerate(lanes):
+            slot = eng._slots[i]
+            rid = slot.handle.request.request_id
+            if rid not in self.first_low and self._margin(
+                    got[r], eng._temps[i], eng._seeds[i],
+                    eng._pos[i] + 1) < SERVE_BF16_LOGITS_ATOL:
+                self.first_low[rid] = len(slot.emitted)
+        return got
+
+    def upto(self, rid, prompt):
+        if prompt.tobytes() in self.prompt_low:
+            return 0
+        return self.first_low.get(rid, FORK_NEW)
+
+
+def fork_tree(model, w):
+    """Tree search on one float32 request at ``FORK_TEMP``: the parent
+    forks twice mid-stream, one branch is pruned; the parent's stream is
+    offline ``generate``'s at its seed (its children's writes went to
+    copies), each branch holds the parent's tokens up to its fork, the
+    pruned branch's private blocks return at once, and nothing is left
+    after the drain."""
+    from singa_tpu_torch.models import gpt2_decode as gd
+    from singa_tpu_torch.serve import GenerationRequest
+
+    t = FORK_TREE
+    prompt = w["prompt"][:t["prompt"]]
+    eng = fork_engine(model)
+    arena = eng.paged_arena
+    h = eng.submit(GenerationRequest(prompt, max_new_tokens=t["new"],
+                                     temperature=FORK_TEMP, seed=w["seed"]))
+    rid = h.request.request_id
+    kids, at = [], []
+    for n in t["fork_after"]:
+        for _ in range(n):
+            eng.step()
+            eng.check_block_accounting()
+        parent = next(s for s in eng._slots
+                      if s is not None and s.handle is h)
+        at.append(len(parent.emitted))
+        kids.append(eng.fork(rid))
+    for _ in range(t["prune_after"]):
+        eng.step()
+        eng.check_block_accounting()
+    victim = next(s for s in eng._slots
+                  if s is not None and s.handle is kids[0]._handle)
+    private = [b for b in victim.blocks if arena.ref_count(b) == 1]
+    used = arena.blocks_used
+    kids[0].prune()
+    freed = used - arena.blocks_used
+    if not private or freed != len(private):
+        raise AssertionError(f"prune freed {freed} blocks, the branch held "
+                             f"{len(private)} private ones")
+    fork_drain(eng)
+    snap = eng.stats.snapshot()["fork"]
+    eng.close()
+    want = gd.generate(model, prompt, max_new_tokens=t["new"],
+                       temperature=FORK_TEMP, seed=w["seed"])
+    if not np.array_equal(h.result().tokens, want):
+        raise AssertionError("tree: the parent's stream changed under its "
+                             "children's writes")
+    pruned = kids[0].result()
+    if pruned.finish_reason != "pruned":
+        raise AssertionError(f"the pruned branch finished "
+                             f"{pruned.finish_reason!r}")
+    for k, n in zip(kids, at):
+        r = k.result()
+        if not np.array_equal(r.tokens[:len(prompt) + n],
+                              want[:len(prompt) + n]):
+            raise AssertionError("a branch lost its parent's tokens")
+    if not any(not np.array_equal(k.result().tokens[:len(want)], want)
+               for k in kids):
+        raise AssertionError("tree: the branches never diverged")
+    return dict(forked_at_tokens=at, pruned_private_blocks=len(private),
+                pruned_freed_blocks=freed, fork=snap,
+                parent_equals_offline_generate=True)
+
+
+def fork_pressured(model, w):
+    """A float32 group of ``FORK_N`` sampled branches, then, ``lead`` steps
+    in, two higher-priority requests on a pool too small for all: the
+    branches are preempted (a byte copy to the host) and resume; every
+    stream equals the same traffic's on the roomy pool."""
+    from singa_tpu_torch.serve import GenerationRequest
+
+    p = FORK_PRESSURE
+    rng = np.random.RandomState(7)
+    his = [rng.randint(0, model.cfg.vocab_size, n).astype(np.int32)
+           for n in p["hi_prompts"]]
+
+    def run(num_blocks):
+        eng = fork_engine(model, num_blocks=num_blocks, scheduler="priority")
+        fh = eng.submit(GenerationRequest(
+            w["prompt"][:p["prompt"]], max_new_tokens=FORK_NEW,
+            temperature=FORK_TEMP, seed=w["seed"], n=FORK_N))
+        for _ in range(p["lead"]):
+            eng.step()
+            eng.check_block_accounting()
+        hs = [eng.submit(GenerationRequest(x, max_new_tokens=FORK_NEW,
+                                           priority=5)) for x in his]
+        fork_drain(eng)
+        snap = eng.stats.snapshot()
+        eng.close()
+        return ([r.tokens for r in fh.results()]
+                + [h.result().tokens for h in hs], snap["paged"])
+
+    roomy, _ = run(None)
+    tight, paged = run(p["num_blocks"])
+    if not paged["preemptions"]:
+        raise AssertionError("the tight pool never preempted")
+    for a, b in zip(roomy, tight):
+        if not np.array_equal(a, b):
+            raise AssertionError("a preempted forked stream differs from "
+                                 "the roomy pool's")
+    return dict(num_blocks=p["num_blocks"], preemptions=paged["preemptions"],
+                swap_out=paged["swap_out"], swap_in=paged["swap_in"],
+                streams_equal_roomy_pool=True)
+
+
+def phase_fork(model, seed=0):
+    """Fork on GPT-2 small (the serve phase's model and engine: 8 slots,
+    blocks of 32, 256 blocks, captured).  Best-of-n: ``FORK_REQUESTS``
+    prompts of 128-512 tokens, ``n = FORK_N``, ``FORK_NEW`` new tokens.
+    float32 greedy, the traffic twice on one engine: every branch equals
+    the ``n = 1`` engine's stream and offline ``generate``'s, and the
+    second pass captures no graph.  bf16 at ``FORK_TEMP``: a warm-up pass,
+    then the measured one (the main path of the ``paged_attn_fork`` row:
+    counts set to 0 just before, read just after; one launch a layer a
+    decode step; no graph captured; its step with the most live lanes
+    kept, tables whose prompt blocks several slots share); branch 0 equals
+    the ``n = 1`` stream (an eager engine's, up to its first low-margin
+    token), the siblings diverge, ``ranked()`` orders by score; peak
+    blocks and TPOT beside the same requests unforked four times.  Then
+    tree search (``fork_tree``) and preemption (``fork_pressured``), float32.
+    Returns the fork tables and launches."""
+    from singa_tpu_torch.models import gpt2_decode as gd
+    from singa_tpu_torch.serve import jit_cache_size
+
+    marks = [("start", time.perf_counter())]
+    cfg = model.cfg
+    traffic = fork_traffic(seed, cfg.vocab_size)
+    prompts = [w["prompt"] for w in traffic]
+
+    eng = fork_engine(model)
+    passes = []
+    for p in range(2):
+        census = jit_cache_size()
+        hs = fork_submit(eng, traffic, FORK_N, 0.0, tag=f"g{p}.")
+        fork_drain(eng)
+        passes.append(_branches(hs))
+        if p and jit_cache_size() != census:
+            raise AssertionError("float32: the second pass captured a graph")
+    f32_keys = sorted(map(str, eng._steps))
+    eng.close()
+    eng = fork_engine(model)
+    hs = fork_submit(eng, traffic, 1, 0.0)
+    fork_drain(eng)
+    n1 = _branches(hs)
+    eng.close()
+    offline = gd.generate(model, prompts, max_new_tokens=FORK_NEW,
+                          temperature=0)
+    for i, want in enumerate(offline):
+        if not np.array_equal(n1[i][0].tokens, want):
+            raise AssertionError(f"float32 request {i}: n = 1 engine != "
+                                 f"offline generate")
+        for res in (passes[0][i], passes[1][i]):
+            if len(res) != FORK_N or any(
+                    not np.array_equal(r.tokens, want) for r in res):
+                raise AssertionError(f"float32 request {i}: a greedy "
+                                     f"branch differs from n = 1")
+    marks.append(("float32_greedy", time.perf_counter()))
+
+    bf = torch.bfloat16
+    eng = fork_engine(model, dtype=bf)
+    fork_submit(eng, traffic, FORK_N, FORK_TEMP, tag="w")
+    fork_drain(eng)
+    census, keys = jit_cache_size(), set(eng._steps)
+    rec = _StageRecorder(eng)
+    before = eng.stats.snapshot()
+    _reset_paged_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    hs = fork_submit(eng, traffic, FORK_N, FORK_TEMP)
+    steps, peak = fork_drain(eng)
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    counts = _paged_counts()
+    snap = eng.stats.snapshot()
+    decode_steps = (snap["throughput"]["decode_steps"]
+                    - before["throughput"]["decode_steps"])
+    if counts["launches"] != cfg.n_layer * decode_steps \
+            or counts["int8_launches"] or counts["chunk_launches"]:
+        raise AssertionError(f"bf16 fork: paged_attn launches {counts} over "
+                             f"{decode_steps} decode steps")
+    if jit_cache_size() != census or set(eng._steps) != keys:
+        raise AssertionError("bf16 fork: the measured pass captured a graph")
+    groups = _branches(hs)
+    fork_keys = sorted(map(str, eng._steps))
+    eng.close()
+    real = rec.real
+    names, n_share = np.unique(real["tables"][real["tables"]
+                                              != SERVE_ENGINE["num_blocks"]],
+                               return_counts=True)
+    if n_share.max() < FORK_N:
+        raise AssertionError(f"the recorded step's tables share no block "
+                             f"among {FORK_N} slots: {real['tables']}")
+    marks.append(("bf16_fork", time.perf_counter()))
+
+    eng = fork_engine(model, dtype=bf, capture=False)
+    probe = _SampledMarginProbe(eng, traffic)
+    eng._x = probe
+    n1_hs = fork_submit(eng, traffic, 1, FORK_TEMP)
+    fork_drain(eng)
+    n1b = _branches(n1_hs)
+    eng.close()
+    compared = []
+    for i, (res, ref) in enumerate(zip(groups, n1b)):
+        upto = probe.upto(f"f{i}.0", prompts[i])
+        n = len(prompts[i]) + upto
+        if not np.array_equal(res[0].tokens[:n], ref[0].tokens[:n]):
+            raise AssertionError(f"bf16 request {i}: branch 0 differs from "
+                                 f"n = 1 before its first low-margin token")
+        compared.append(upto)
+        if all(np.array_equal(r.tokens, res[0].tokens) for r in res[1:]):
+            raise AssertionError(f"bf16 request {i}: the siblings never "
+                                 f"diverged")
+        ranked = hs[i].ranked()
+        if len(ranked) != FORK_N or [r.score for r in ranked] != sorted(
+                (r.score for r in res), reverse=True) \
+                or hs[i].best() is not ranked[0]:
+            raise AssertionError(f"bf16 request {i}: ForkHandle.ranked() "
+                                 f"does not order the branches by score")
+    marks.append(("bf16_n1_eager", time.perf_counter()))
+
+    eng = fork_engine(model, dtype=bf)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    uhs = fork_submit(eng, traffic, 1, FORK_TEMP, reps=FORK_N, tag="u")
+    _, upeak = fork_drain(eng)
+    torch.cuda.synchronize()
+    usec = time.perf_counter() - t0
+    usnap = eng.stats.snapshot()
+    eng.close()
+    marks.append(("bf16_unforked", time.perf_counter()))
+
+    tree = fork_tree(model, traffic[0])
+    marks.append(("tree", time.perf_counter()))
+    pressure = fork_pressured(model, traffic[1])
+    marks.append(("pressure", time.perf_counter()))
+
+    def tpot(results):
+        return statistics.median(r.tpot for res in results for r in res
+                                 if r.tpot is not None)
+
+    log({"phase": "fork", "model": "gpt2-small", "engine": SERVE_ENGINE,
+         "requests": FORK_REQUESTS, "n": FORK_N, "new_tokens": FORK_NEW,
+         "prompt_lens": [len(p) for p in prompts],
+         "float32_greedy": dict(branches_equal_n1_and_offline=True,
+                                second_pass_graphs_captured=0,
+                                step_keys=f32_keys),
+         "bf16": dict(
+             temperature=FORK_TEMP, seconds=sec, decode_steps=decode_steps,
+             paged_attn=counts, graphs_captured_after_warm_up=0,
+             step_keys=fork_keys,
+             fork={k: v - before["fork"][k] for k, v in snap["fork"].items()
+                   if k != "shared_blocks"},
+             peak_blocks_used=peak,
+             peak_blocks_used_unforked_x4=upeak,
+             tpot_median_s={"forked": tpot(groups),
+                            "unforked_x4": tpot(_branches(uhs))},
+             seconds_unforked_x4=usec,
+             unforked_decode_steps=usnap["throughput"]["decode_steps"],
+             branch0_equal_n1_tokens=compared,
+             scores=[[r.score for r in res] for res in groups],
+             table=dict(step=real["step"], p_limit=real["p_limit"],
+                        most_slots_on_one_block=int(n_share.max()))),
+         "tree": tree, "preemption": pressure,
+         "seconds": {n: t - marks[i][1]
+                     for i, (n, t) in enumerate(marks[1:])},
+         "nvidia_smi": nvidia_smi()})
+    return dict(real, launches=counts["launches"])
+
+
+def structured_vocab(seed=0, size=50257):
+    """A stand-in for GPT-2's vocabulary (the repo holds no tokenizer):
+    the 256 single characters, then strings of 2-4 characters from a
+    numpy seed over the schema's alphabet and a few others."""
+    import string
+
+    rng = np.random.RandomState(seed)
+    alpha = list(string.ascii_letters + string.digits + '{}":,_ -.\n[]')
+    out = [chr(c) for c in range(256)]
+    while len(out) < size:
+        out.append("".join(rng.choice(alpha, rng.randint(2, 5))))
+    return out
+
+
+class _MaskClock:
+    """An automaton that times its wrapped automaton's ``mask`` calls, a
+    state's first visit (the mask built) apart from memoized ones."""
+
+    def __init__(self, a):
+        self.a, self.vocab_size = a, a.vocab_size
+        self.first, self.memo = [], []
+
+    def initial(self):
+        return self.a.initial()
+
+    def advance(self, state, token):
+        return self.a.advance(state, token)
+
+    def done(self, state):
+        return self.a.done(state)
+
+    def mask(self, state):
+        fresh = state not in self.a._mask_memo
+        t0 = time.perf_counter()
+        m = self.a.mask(state)
+        (self.first if fresh else self.memo).append(time.perf_counter() - t0)
+        return m
+
+
+def masked_greedy_oracle(model, prompts, automaton, n_new):
+    """Structured greedy decoding without the engine: dense ``prefill``
+    and ``decode_step`` in float32, each row's logits
+    ``masked_fill(~mask, NEG_INF).argmax()`` under its automaton state,
+    until every row's automaton completes.  Returns the token rows."""
+    from singa_tpu_torch.models import gpt2_decode as gd
+
+    cfg = model.cfg
+    params = gd.extract_params(model)
+    rows = [np.asarray(p, np.int32) for p in prompts]
+    out = [[] for _ in rows]
+    states = [automaton.initial() for _ in rows]
+    with torch.no_grad():
+        kc, vc, logits, lens = gd._prefill_rows(params, rows, n_new, cfg)
+        pos = torch.as_tensor(lens, device=DEVICE)
+        for _ in range(n_new):
+            live = [not automaton.done(s) for s in states]
+            if not any(live):
+                break
+            masks = torch.as_tensor(np.stack([
+                automaton.mask(s) if ok else np.ones(cfg.vocab_size, bool)
+                for s, ok in zip(states, live)]), device=DEVICE)
+            toks = logits.float().masked_fill(~masks, gd.NEG_INF).argmax(-1)
+            for r, t in enumerate(toks.tolist()):
+                if live[r]:
+                    out[r].append(t)
+                    states[r] = automaton.advance(states[r], t)
+            x = (params["wte"][toks] + params["wpe"][pos])[:, None]
+            logits, kc, vc = gd.decode_step(params, x, kc, vc, pos,
+                                            cfg.n_head,
+                                            float(cfg.layer_norm_eps))
+            pos = pos + 1
+    return [np.concatenate([p, np.asarray(o, np.int32)])
+            for p, o in zip(rows, out)]
+
+
+def check_schema_output(text):
+    """Raise unless ``text`` parses as JSON and matches
+    ``STRUCT_SCHEMA``."""
+    obj = json.loads(text)
+    props = STRUCT_SCHEMA["properties"]
+    if list(obj) != list(props):
+        raise AssertionError(f"structured output keys {list(obj)}")
+    if type(obj["id"]) is not int or type(obj["ok"]) is not bool \
+            or not isinstance(obj["name"], str) \
+            or len(obj["name"]) > props["name"]["maxLength"] \
+            or obj["mode"] not in props["mode"]["enum"]:
+        raise AssertionError(f"structured output off the schema: {obj}")
+    return obj
+
+
+def phase_structured(model, seed=0):
+    """Structured decoding on GPT-2 small (float32, the serve phase's
+    engine, captured): ``JsonSchemaAutomaton`` over ``STRUCT_SCHEMA``
+    (integer, boolean, string and enum properties) and a 50257-string
+    vocabulary from a seed (``structured_vocab``).  ``STRUCT_REQUESTS``
+    greedy requests, twice on one engine: each stream equals the
+    masked-greedy oracle (``masked_greedy_oracle``), parses with
+    ``json.loads`` and matches the schema, retires ``"stop"``; the second
+    pass captures no graph and is the path whose ``paged_attn`` launches
+    the kernels line adds to the ``paged_attn`` row.  The host time a
+    step spent building masks (steps with a state's first visit apart
+    from memoized ones) and the TPOT beside the same requests
+    unconstrained.  Then one ``n = 2`` sampled structured request: both
+    branches valid.  Returns the second pass's launches."""
+    from singa_tpu_torch.serve import (GenerationRequest,
+                                       JsonSchemaAutomaton, jit_cache_size)
+
+    marks = [("start", time.perf_counter())]
+    cfg = model.cfg
+    vocab = structured_vocab(seed, cfg.vocab_size)
+    auto = JsonSchemaAutomaton(STRUCT_SCHEMA, vocab,
+                               max_digits=STRUCT_MAX_DIGITS)
+    clock = _MaskClock(auto)
+    rng = np.random.RandomState(seed + 1)
+    prompts = [rng.randint(0, cfg.vocab_size, rng.randint(*STRUCT_PROMPTS))
+               .astype(np.int32) for _ in range(STRUCT_REQUESTS)]
+    eng = fork_engine(model)
+    inner = eng._mask_pass
+    pass_ms = []
+
+    def timed_pass():
+        n0 = len(clock.first)
+        t0 = time.perf_counter()
+        out = inner()
+        pass_ms.append(((time.perf_counter() - t0) * 1e3,
+                        len(clock.first) > n0))
+        return out
+
+    eng._mask_pass = timed_pass
+    streams, results = [], []
+    for p in range(2):
+        census = jit_cache_size()
+        if p:
+            _reset_paged_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        hs = [eng.submit(GenerationRequest(
+            x, max_new_tokens=STRUCT_NEW, structured=clock,
+            request_id=f"s{p}.{i}")) for i, x in enumerate(prompts)]
+        fork_drain(eng)
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        results.append([h.result() for h in hs])
+        streams.append([r.tokens for r in results[-1]])
+        if p and jit_cache_size() != census:
+            raise AssertionError("structured: the second pass captured a "
+                                 "graph")
+    launches = _paged_counts()["launches"]
+    keys = sorted(map(str, eng._steps))
+    eng.close()
+    marks.append(("engine", time.perf_counter()))
+    want = masked_greedy_oracle(model, prompts, auto, STRUCT_NEW)
+    marks.append(("oracle", time.perf_counter()))
+    texts = []
+    for i, w in enumerate(want):
+        for s_, r in zip(streams, results):
+            if not np.array_equal(s_[i], w):
+                raise AssertionError(f"structured request {i}: the engine's "
+                                     f"stream differs from the masked-greedy "
+                                     f"oracle")
+            if r[i].finish_reason != "stop":
+                raise AssertionError(f"structured request {i} finished "
+                                     f"{r[i].finish_reason!r}")
+        text = "".join(vocab[t] for t in w[len(prompts[i]):])
+        check_schema_output(text)
+        texts.append(text)
+
+    eng = fork_engine(model)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    free = [eng.submit(GenerationRequest(x, max_new_tokens=STRUCT_NEW))
+            for x in prompts]
+    fork_drain(eng)
+    torch.cuda.synchronize()
+    free_sec = time.perf_counter() - t0
+    eng.close()
+    eng = fork_engine(model)
+    fh = eng.submit(GenerationRequest(prompts[0], max_new_tokens=STRUCT_NEW,
+                                      temperature=FORK_TEMP, seed=seed, n=2,
+                                      structured=auto))
+    fork_drain(eng)
+    eng.close()
+    branch_texts = []
+    for r in fh.results():
+        if r.finish_reason != "stop":
+            raise AssertionError(f"structured n = 2: a branch finished "
+                                 f"{r.finish_reason!r}")
+        branch_texts.append("".join(vocab[t]
+                                    for t in r.tokens[len(prompts[0]):]))
+        check_schema_output(branch_texts[-1])
+    marks.append(("unconstrained_and_n2", time.perf_counter()))
+
+    def med(xs):
+        return statistics.median(xs) if xs else None
+
+    log({"phase": "structured", "model": "gpt2-small", "dtype": "float32",
+         "engine": SERVE_ENGINE, "schema": STRUCT_SCHEMA,
+         "vocab": "256 single characters + 2-4-character strings from a "
+                  "seed (no GPT-2 tokenizer in the repo)",
+         "requests": STRUCT_REQUESTS, "outputs": texts,
+         "streams_equal_masked_greedy_oracle": True,
+         "graphs_captured_second_pass": 0, "step_keys": keys,
+         "paged_attn_launches_second_pass": launches,
+         "mask_ms": {"first_visit_per_state": med([t * 1e3
+                                                   for t in clock.first]),
+                     "memoized_per_state": med([t * 1e3
+                                                for t in clock.memo]),
+                     "states_built": len(clock.first),
+                     "pass_ms_steps_with_a_first_visit": med(
+                         [m for m, f in pass_ms if f]),
+                     "pass_ms_memoized_steps": med(
+                         [m for m, f in pass_ms if not f])},
+         "tpot_median_s": {
+             "structured_second_pass": med([r.tpot for r in results[1]
+                                            if r.tpot is not None]),
+             "unconstrained": med([h.result().tpot for h in free
+                                   if h.result().tpot is not None])},
+         "seconds_second_pass": sec, "seconds_unconstrained": free_sec,
+         "n2_branches": branch_texts,
+         "seconds": {n: t - marks[i][1]
+                     for i, (n, t) in enumerate(marks[1:])},
+         "nvidia_smi": nvidia_smi()})
+    return launches
+
+
+# ------------------------------------------------------------------- beam
+
+BEAM = dict(beams=4, prompts=8, prompt_len=64, ragged=(33, 65), new=32)
+#: a beam's total (32 float32 log-probabilities, about -270) against its
+#: rescoring by one prefill, whose logits differ from the decode steps'
+#: by float32 rounding
+BEAM_RESCORE_ATOL = 5e-3
+
+
+def beam_rescore(params, cfg, prompt, seqs):
+    """Each continuation in ``seqs`` (K, n) after ``prompt``, scored by one
+    teacher-forced float32 ``prefill``: the sum of its tokens'
+    log-probabilities, (K,)."""
+    from singa_tpu_torch.models import gpt2_decode as gd
+
+    n = seqs.shape[1]
+    ids = torch.cat([torch.as_tensor(prompt, device=seqs.device).long()
+                     .expand(len(seqs), -1), seqs], 1)
+    with torch.no_grad():
+        hidden, _, _ = gd.prefill(params, ids, cfg.n_head,
+                                  float(cfg.layer_norm_eps))
+        lp = torch.log_softmax(gd._logits(hidden[:, len(prompt) - 1:-1],
+                                          params).float(), -1)
+    return lp.gather(-1, seqs[..., None])[..., 0].sum(-1)
+
+
+def phase_beam(model, seed=0):
+    """``generate_beam`` on GPT-2 small: ``BEAM["beams"]`` beams, 8 prompts
+    of 64 tokens in one batch and 8 ragged ones (33-64 tokens), 32 new
+    tokens.  float32: one beam equals greedy ``generate`` token for token;
+    every beam's total log-probability (``_beam_search``) equals its
+    teacher-forced rescoring (``beam_rescore``, atol ``BEAM_RESCORE_ATOL``)
+    and the beams come best first; the top beam's total beside one
+    beam's (greedy's), logged with the prompts where it is lower (4 beams
+    can prune greedy's prefix).  bf16: ms a generated token of
+    ``generate_beam`` beside greedy ``generate``'s on the same prompts
+    (one warm-up call each, then one timed).  Beam search runs on the
+    dense cache, as the JAX package's does: no hand-written kernel."""
+    from singa_tpu_torch.models import gpt2_decode as gd
+
+    b = BEAM
+    cfg = model.cfg
+    rng = np.random.RandomState(seed)
+    sets = {"batch": [rng.randint(0, cfg.vocab_size, b["prompt_len"])
+                      .astype(np.int32) for _ in range(b["prompts"])],
+            "ragged": [rng.randint(0, cfg.vocab_size,
+                                   rng.randint(*b["ragged"]))
+                       .astype(np.int32) for _ in range(b["prompts"])]}
+    params = gd.extract_params(model)
+    out = {}
+    for name, prompts in sets.items():
+        one = gd.generate_beam(model, prompts, max_new_tokens=b["new"],
+                               num_beams=1)
+        greedy = gd.generate(model, prompts, max_new_tokens=b["new"],
+                             temperature=0)
+        for o, g in zip(one, greedy):
+            if not np.array_equal(o, g):
+                raise AssertionError(f"beam {name}: one beam differs from "
+                                     f"greedy generate")
+        with torch.no_grad():
+            seqs, scores = gd._beam_search(params, prompts, b["new"], cfg,
+                                           b["beams"])
+            _, s1 = gd._beam_search(params, prompts, b["new"], cfg, 1)
+        err = 0.0
+        for p, sq, sc in zip(prompts, seqs, scores):
+            err = max(err, (beam_rescore(params, cfg, p, sq)
+                            - sc).abs().max().item())
+            if not (sc[:-1] >= sc[1:]).all():
+                raise AssertionError(f"beam {name}: beams not best first")
+        if not err <= BEAM_RESCORE_ATOL:
+            raise AssertionError(f"beam {name}: a beam's total differs from "
+                                 f"its teacher-forced rescoring by {err}")
+        top, g1 = scores[:, 0].cpu().numpy(), s1[:, 0].cpu().numpy()
+        full = gd.generate_beam(model, prompts, max_new_tokens=b["new"],
+                                num_beams=b["beams"])
+        for f, s_, p in zip(full, seqs.cpu().numpy(), prompts):
+            if not np.array_equal(f[len(p):], s_[0]):
+                raise AssertionError(f"beam {name}: generate_beam is not "
+                                     f"the top beam")
+        timed = {}
+        for what, fn in (
+                ("beam", lambda: gd.generate_beam(
+                    model, prompts, max_new_tokens=b["new"],
+                    num_beams=b["beams"], dtype=torch.bfloat16)),
+                ("greedy_generate", lambda: gd.generate(
+                    model, prompts, max_new_tokens=b["new"], temperature=0,
+                    dtype=torch.bfloat16))):
+            fn()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = fn()
+            torch.cuda.synchronize()
+            timed[what] = (time.perf_counter() - t0) * 1e3 / (
+                len(prompts) * b["new"])
+            if any(r.min() < 0 or r.max() >= cfg.vocab_size for r in res):
+                raise AssertionError(f"beam {name} bf16: a token off the "
+                                     f"vocabulary")
+        out[name] = dict(prompt_lens=[len(p) for p in prompts],
+                         one_beam_equals_greedy=True,
+                         rescore_max_abs_err=err,
+                         top_beam_logprob=top.tolist(),
+                         greedy_logprob=g1.tolist(),
+                         prompts_top_beam_below_greedy=np.flatnonzero(
+                             top < g1).tolist(),
+                         bf16_ms_per_generated_token=timed)
+    log({"phase": "beam", "model": "gpt2-small", "beams": b["beams"],
+         "new_tokens": b["new"], "rescore_atol": BEAM_RESCORE_ATOL, **out,
+         "nvidia_smi": nvidia_smi()})
+
+
 def real_args(real, cfg, seed, quant=False, dtype=torch.bfloat16, nq=1,
               window=None):
     """``paged_attn`` arguments for each layer of one recorded serve step:
@@ -5002,13 +5828,17 @@ def main():
     prefix_launches = timed("prefix", phase_prefix, model)
     spec = timed("spec", phase_spec, model, real, real8)
     win = timed("longctx", phase_longctx, model)
+    fork = timed("fork", phase_fork, model)
+    struct_launches = timed("structured", phase_structured, model)
+    timed("beam", phase_beam, model)
     cfg = model.cfg
     del model
     for row in timed("paged_kernels", phase_paged_kernels, real, real8, cfg,
-                     spec, win):
+                     spec, win, fork):
         rows[row["name"]] = row
-    # the prefix phase decodes on bf16 pools through paged_attn
-    rows["paged_attn"]["launches"] += prefix_launches
+    # the prefix phase decodes on bf16 pools through paged_attn, the
+    # structured phase on float32 ones
+    rows["paged_attn"]["launches"] += prefix_launches + struct_launches
 
     smi = nvidia_smi()
     log({"phase": "device", "nvidia_smi": smi,

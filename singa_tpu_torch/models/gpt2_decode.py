@@ -21,6 +21,7 @@
 * ``_sample``: the repetition penalty, then greedy, or temperature /
   top-k / top-p / min-p filtering and a draw;
 * ``generate``: prefill + decode loop for one prompt or a ragged batch;
+  ``generate_beam``: fixed-length beam search on the dense cache;
   ``generate_speculative``: greedy draft-and-verify.
 
 The math follows the JAX module: float32 LayerNorm statistics, tanh gelu,
@@ -60,7 +61,7 @@ score takes its K row's scale, a probability its V row's scale before
 the value product (the softmax sums stay unscaled).
 
 Not ported yet (each raises ``NotImplementedError``): MoE blocks, tensor
-and expert parallelism (slice 4, distributed), beam search.
+and expert parallelism (slice 4, distributed).
 """
 
 from __future__ import annotations
@@ -631,11 +632,14 @@ def _on(x, dtype, device):
 
 
 def _sample(logits, temps, seeds, positions, top_k=0, top_p=None,
-            min_p=None, rep_mask=None, rep_penalty=None):
-    """One token per row of (N, V) logits.  With ``rep_mask`` (N, V)
-    bool, the repetition penalty applies first, before the greedy argmax
-    too.  Then greedy (argmax of the float32 logits) where ``temps[i] <=
-    0``, else argmax of the filtered logits (temperature, top-k, top-p,
+            min_p=None, rep_mask=None, rep_penalty=None, mask=None):
+    """One token per row of (N, V) logits.  ``mask`` (N, V) bool is a
+    structured request's vocabulary mask: a False lane drops to
+    ``NEG_INF`` before everything else, the greedy argmax included
+    (None, or an all-True row, leaves the row's bits as they were).
+    With ``rep_mask`` (N, V) bool, the repetition penalty applies next,
+    before the greedy argmax too.  Then greedy (argmax of the float32
+    logits) where ``temps[i] <= 0``, else argmax of the filtered logits (temperature, top-k, top-p,
     min-p) plus Gumbel noise keyed by ``(seeds[i], positions[i])``, a
     draw from the filtered softmax.  ``temps``, ``seeds`` and
     ``positions`` are (N,) device tensors or host arrays.  Every row is
@@ -646,6 +650,8 @@ def _sample(logits, temps, seeds, positions, top_k=0, top_p=None,
     n, vocab = logits.shape
     dev = logits.device
     logits = logits.float()
+    if mask is not None:
+        logits = torch.where(mask, logits, torch.full_like(logits, NEG_INF))
     if rep_mask is not None:
         logits = _penalize(logits, rep_mask, rep_penalty)
     temps = _on(temps, torch.float32, dev).reshape(n)
@@ -655,6 +661,26 @@ def _sample(logits, temps, seeds, positions, top_k=0, top_p=None,
     noise = _gumbel(_on(seeds, torch.int64, dev).reshape(n),
                     _on(positions, torch.int64, dev).reshape(n), vocab)
     return torch.where(hot, (filt + noise).argmax(-1), logits.argmax(-1))
+
+
+def chosen_logprob(logits, toks):
+    """(N,) float32 log-probability of ``toks`` (N,) under the raw
+    float32 softmax of (N, V) ``logits``, not the filtered or masked
+    distribution they were drawn from: a fork branch's score (the JAX
+    engine's ``log_softmax(logits)[nxt]``).  An output only; nothing
+    samples from it."""
+    lp = torch.log_softmax(logits.float(), -1)
+    return lp.gather(-1, toks.long()[:, None])[:, 0]
+
+
+def fork_seed(seed, branch):
+    """The sampling seed of fork branch ``branch`` > 0 of a stream
+    sampled at ``seed``: the counter hash of (seed, branch) with a draw
+    of its own, a 32-bit value, so a branch's noise shares nothing with
+    its parent's or a sibling's.  The counterpart of the JAX engine's
+    ``fold_in(parent_key, branch)``; branch 0 keeps ``seed``."""
+    return int(_key(torch.tensor([int(seed)], dtype=torch.int64),
+                    torch.tensor([int(branch)]), draw=4)[0])
 
 
 def _first_false(ok):
@@ -828,10 +854,13 @@ def kv_zeros(shape, dtype, quant, device):
     return torch.zeros(shape, dtype=dtype, device=device)
 
 
-def _generate_rows(params, rows, n_new, cfg, temps, seeds, filters,
-                   quant=False):
-    """``filters``: ``_sample``'s ``top_k``, ``top_p``, ``min_p`` and
-    ``rep_penalty`` (None: no penalty); ``quant``: int8 caches."""
+def _prefill_rows(params, rows, n_new, cfg, quant=False):
+    """Prefill of ragged prompts ``rows`` into one dense cache, each row
+    at its own length (rows of one length together), its K/V at lanes
+    [0, len) of a cache as wide as the longest prompt + ``n_new``
+    (windowed models: the rolling cache of ``attn_window`` lanes).
+    Returns (kc, vc (L, B, H_kv, ctx, D), or int8 pairs with ``quant``;
+    each row's last-position logits (B, V) float32; the lengths)."""
     n_head, eps = cfg.n_head, float(cfg.layer_norm_eps)
     window = _norm_window(cfg)
     dev = params["wte"].device
@@ -853,6 +882,18 @@ def _generate_rows(params, rows, n_new, cfg, temps, seeds, filters,
             for leaf, val in zip(_leaves(cache), _leaves(new)):
                 leaf[:, idx, :, :val.shape[3]] = val
         first[idx] = _logits(hidden[:, plen - 1], params).float()
+    return kc, vc, first, lens
+
+
+def _generate_rows(params, rows, n_new, cfg, temps, seeds, filters,
+                   quant=False):
+    """``filters``: ``_sample``'s ``top_k``, ``top_p``, ``min_p`` and
+    ``rep_penalty`` (None: no penalty); ``quant``: int8 caches."""
+    n_head, eps = cfg.n_head, float(cfg.layer_norm_eps)
+    window = _norm_window(cfg)
+    dev = params["wte"].device
+    b = len(rows)
+    kc, vc, first, lens = _prefill_rows(params, rows, n_new, cfg, quant)
     if filters["rep_penalty"] is not None:
         filters = dict(filters,
                        rep_mask=_rep_mask_init(rows, cfg.vocab_size, dev))
@@ -878,9 +919,112 @@ def _generate_rows(params, rows, n_new, cfg, temps, seeds, filters,
     return toks
 
 
-def generate_beam(*args, **kwargs):
-    """Beam search (``singa_tpu/models/gpt2_decode.py:1533``)."""
-    _owed("beam search", "a later slice")
+def _top_k(x, k, tie):
+    """The ``k`` largest of each row of ``x`` and their indices, largest
+    first; among equal values the larger ``tie`` first, then the lower
+    index (``jax.lax.top_k``'s order).  A beam's total is its score plus
+    a log-probability, sums in which float32 rounding can make two
+    tokens equal whose logits differ; ``tie`` (the raw logits) orders
+    them as greedy decoding's argmax does, so one beam is greedy decoding
+    token for token at any vocabulary size."""
+    idx = torch.sort(tie, dim=-1, descending=True, stable=True).indices
+    vals, order = torch.sort(x.gather(-1, idx), dim=-1, descending=True,
+                             stable=True)
+    return vals[..., :k], idx.gather(-1, order[..., :k])
+
+
+def _beam_search(params, rows, n_new, cfg, num_beams, quant=False):
+    """Fixed-length beam search over ragged prompts ``rows`` (the JAX
+    ``_beam_search_cached``): each row is prefilled at its own length,
+    its cache row repeated ``num_beams`` times, and the B·K rows advance
+    in lockstep through ``decode_step``, each at its own position (the
+    JAX function left-pads to one end position; the attention sees the
+    same keys).  Each step keeps every prompt's K best of its K·V
+    candidates by total log-probability and reorders the cache rows by
+    parent with one block-diagonal gather (row b·K + parent), so beams
+    never mix prompts.  With ``num_beams`` > V the beams past V start
+    dead, at ``NEG_INF``.  Returns ((B, K, n_new) int64 tokens, (B, K)
+    float32 total log-probabilities), best beam first."""
+    n_head, eps = cfg.n_head, float(cfg.layer_norm_eps)
+    window = _norm_window(cfg)
+    dev = params["wte"].device
+    b, K, V = len(rows), num_beams, cfg.vocab_size
+    kc, vc, first, lens = _prefill_rows(params, rows, n_new, cfg, quant)
+    k0 = min(K, V)
+    top0, tok0 = _top_k(torch.log_softmax(first, -1), k0, first)
+    scores = torch.cat([top0, torch.full((b, K - k0), NEG_INF, device=dev)],
+                       1)
+    toks = torch.cat([tok0, torch.zeros((b, K - k0), dtype=torch.long,
+                                        device=dev)], 1)
+
+    def reorder(c, rows_):
+        out = tuple(t[:, rows_] for t in _leaves(c))
+        return out if isinstance(c, tuple) else out[0]
+
+    rep = torch.arange(b, device=dev).repeat_interleave(K)
+    kc, vc = reorder(kc, rep), reorder(vc, rep)
+    seqs = torch.zeros((b, K, n_new), dtype=torch.long, device=dev)
+    seqs[:, :, 0] = toks
+    pos = torch.as_tensor(np.repeat(lens, K), device=dev)
+    base = (torch.arange(b, device=dev) * K)[:, None]
+    for t in range(1, n_new):
+        x = (params["wte"][toks.reshape(-1)] + params["wpe"][pos])[:, None]
+        logits, kc, vc = decode_step(params, x, kc, vc, pos, n_head, eps,
+                                     window)
+        logits = logits.float()
+        logp = torch.log_softmax(logits, -1).reshape(b, K, V)
+        scores, flat = _top_k((scores[:, :, None] + logp).reshape(b, K * V),
+                              K, logits.reshape(b, K * V))
+        parents, toks = flat // V, flat % V
+        seqs = seqs.gather(1, parents[:, :, None].expand(b, K, n_new))
+        seqs[:, :, t] = toks
+        glob = (base + parents).reshape(-1)
+        kc, vc = reorder(kc, glob), reorder(vc, glob)
+        pos = pos + 1
+    return seqs, scores
+
+
+def generate_beam(m, prompt_ids, max_new_tokens=20, num_beams=4,
+                  dtype=None, cache_dtype=None):
+    """Fixed-length beam search for a ``GPT2LMHead`` on the model's
+    device: the continuation of ``max_new_tokens`` tokens with the
+    highest total log-probability that ``num_beams`` beams find.  One
+    1-D prompt (returns one int32 array, prompt + continuation) or a
+    list / 2-D batch, possibly ragged (returns a list), all prompts'
+    beams in one lockstep loop (:func:`_beam_search`).  ``num_beams=1``
+    is greedy decoding.  ``dtype`` casts the weights; ``cache_dtype=
+    "int8"`` keeps int8 caches; a sliding-window model decodes from its
+    rolling cache.  No stop token: sequences are fixed-length, so a
+    length penalty would cancel."""
+    if num_beams < 1:
+        raise ValueError(f"num_beams must be >= 1, got {num_beams}")
+    cfg = m.cfg
+    check_decodable(cfg)
+    quant = _quant_flag(cache_dtype)
+    single = not _is_batch(prompt_ids)
+    rows = [np.asarray(r, np.int32).reshape(-1)
+            for r in ([prompt_ids] if single else list(prompt_ids))]
+    for r in rows:
+        if len(r) + max_new_tokens > cfg.n_positions:
+            raise ValueError(f"prompt ({len(r)}) + max_new_tokens "
+                             f"({max_new_tokens}) exceeds n_positions "
+                             f"({cfg.n_positions})")
+    if max_new_tokens <= 0:
+        out = [r.copy() for r in rows]
+        return out[0] if single else out
+    was_training = m.training
+    m.eval()
+    try:
+        with torch.no_grad():
+            seqs, _ = _beam_search(extract_params(m, dtype), rows,
+                                   int(max_new_tokens), cfg, int(num_beams),
+                                   quant)
+    finally:
+        m.train(was_training)
+    seqs = seqs.cpu().numpy()
+    out = [np.concatenate([r, seqs[i, 0]]).astype(np.int32)
+           for i, r in enumerate(rows)]
+    return out[0] if single else out
 
 
 def _spec_row(t_params, d_params, ids, spec_k, n_new, t_static, d_static,

@@ -13,8 +13,10 @@ and emits a ``resilience/fault`` trace event.
 The site names are the JAX package's (:data:`SITES`); the port threads
 ``checkpoint.write`` and ``checkpoint.read`` (``Model.save_states`` and
 ``load_states``, ``Snapshot``, ``CheckpointManager``), ``io.binfile``
-(the BinFile reader and writer) and ``serve.prefix_copy`` (the prefix
-cache's own pool copies) so far.
+(the BinFile reader and writer), ``serve.prefix_copy`` (the prefix
+cache's own pool copies), ``serve.prefill_chunk`` (a chunked admission's
+pass) and ``serve.fork_copy`` (a fork branch's copy-on-write block copy)
+so far.
 """
 
 from __future__ import annotations

@@ -7,8 +7,12 @@ optional radix prefix cache and pinned multi-turn sessions
 (``prefix_cache=PrefixCacheConfig(...)``, ``pin_session=True``),
 speculative decoding with a draft model (``draft_model=``, ``spec_k=``),
 a chunked-prefill token budget and admission interleave
-(``PagedConfig(prefill_token_budget=, admit_per_step=)``) and
-sliding-window models on the paged arena.
+(``PagedConfig(prefill_token_budget=, admit_per_step=)``),
+sliding-window models on the paged arena, and on the paged arena fork
+(``GenerationRequest(n=)``, ``eng.fork()``, ``eng.prune()``: branches
+sharing KV blocks copy-on-write, ``ForkHandle`` / ``BranchHandle``) and
+structured decoding (``GenerationRequest(structured=
+JsonSchemaAutomaton(schema, vocab))``).
 
     >>> eng = model.serve()                      # the slot arena
     >>> eng = model.serve(max_slots=8, paged=PagedConfig(block_size=32),
@@ -19,11 +23,13 @@ sliding-window models on the paged arena.
 
 Each decode width's step is captured as a CUDA graph on the card
 (``InferenceEngine(capture=True)``, the default; the slot arena and a
-speculative engine have one width); ``jit_cache_size()`` counts the
-captured steps.
+speculative engine have one width; a paged step is keyed too by whether
+it takes vocabulary masks and returns log-probabilities);
+``jit_cache_size()`` counts the captured steps.
 """
 
 from .engine import InferenceEngine
+from .fork import BranchHandle, ForkHandle
 from .jitpin import jit_cache_size
 from .paged import PagedConfig, PagedKVArena
 from .prefix import PrefixCache, PrefixCacheConfig, SessionHandle
@@ -32,10 +38,12 @@ from .request import (DeadlineExceededError, EngineFailedError,
                       RequestHandle)
 from .scheduler import FIFOScheduler, PriorityScheduler
 from .stats import EngineStats
+from .structured import JsonSchemaAutomaton, TokenAutomaton
 
 __all__ = ["InferenceEngine", "PagedConfig", "PagedKVArena",
            "GenerationRequest", "GenerationResult", "RequestHandle",
            "QueueFullError", "DeadlineExceededError", "EngineFailedError",
            "FIFOScheduler", "PriorityScheduler", "EngineStats",
            "jit_cache_size", "PrefixCache", "PrefixCacheConfig",
-           "SessionHandle"]
+           "SessionHandle", "ForkHandle", "BranchHandle", "TokenAutomaton",
+           "JsonSchemaAutomaton"]

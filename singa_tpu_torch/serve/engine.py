@@ -57,6 +57,26 @@
   slots decode every step; its slot is reserved but not live until the
   last chunk lands (``_Prefilling``); ``PagedConfig(admit_per_step=)``
   caps admissions a scheduling pass;
+* **fork** (paged only, ``serve/fork.py``): ``GenerationRequest(n=N)``
+  admits its prompt once, emits the first token, and forks N - 1 branches
+  off the slot in the same scheduling pass: each branch's block table is
+  a copy of the parent's, every block of it gaining a reference in the
+  arena (no KV byte moves), so the decode step's ``paged_attn`` reads
+  the shared blocks through several slots' tables.  Before a step writes
+  into a block a sibling still references, the writing slot copies it
+  (copy-on-write, ``serve.fork.cow_copies``).  ``fork(request_id)``
+  splits a live request mid-stream and ``prune(request_id)`` cuts a
+  branch, freeing its private blocks.  Each branch sums the
+  log-probability of its tokens under the raw distribution (the step
+  returns it while a fork branch is live), its ``score``;
+* **structured decoding** (paged only, ``serve/structured.py``): before
+  each step the host asks every structured slot's automaton for its
+  state's vocabulary mask; the step takes the masks of its lanes as a
+  ``(width, vocab)`` bool input (only when a structured slot is live),
+  the sampler drops masked tokens to ``NEG_INF``, and the emitted token
+  advances the automaton, whose completion retires the request with
+  ``"stop"``.  A state whose mask admits no token rejects that request
+  alone (``structured_dead_end``);
 * **sliding-window models** (``GPT2Config(attn_window=W)``, paged only):
   a slot drops the blocks that left its window back to the free list
   (its table keeps the trash block there), a long prompt admits with its
@@ -84,6 +104,11 @@ each row's temperature, so greedy and sampled rows share one call.
 jits its pool step): the slot arena's step has one width, ``max_slots``;
 a paged step's width is the halving bucket of ``max_slots`` covering the
 live slots (``_paged_width``); a speculative step's is ``max_slots``.
+A paged step that takes vocabulary masks or returns the chosen tokens'
+log-probabilities is keyed (width, masked, with_lp), as those flags are
+in the JAX engine's jit key, a plain one by its width alone, so an
+engine captures at most four steps a width, whatever the grammars and
+fork patterns it serves, and a plain engine the steps it always did.
 Each width's step (the forward with its ``paged_attn`` launches, the
 in-place cache writes and the sampling or verify) reads its inputs from
 persistent device buffers (``paged.DecodeInputs``), which the engine
@@ -99,9 +124,8 @@ every step eagerly, like ``jax.disable_jit``; the gather oracle
 engines.
 
 Not ported yet, each refused with ``NotImplementedError`` at
-construction or submit (``ROADMAP.md``): tensor / expert / pipeline
-parallelism (``tp``, ``ep``, ``pp``), fork (``n > 1``), structured
-decoding, SLO targets and load shedding, beam search.  Nor the JAX
+construction (``ROADMAP.md``): tensor / expert / pipeline parallelism
+(``tp``, ``ep``, ``pp``), SLO targets and load shedding.  Nor the JAX
 engine's ring-attention prefill, the prefix cache's fleet index and the
 request ledger's hooks.
 """
@@ -110,6 +134,7 @@ from __future__ import annotations
 
 import itertools
 import time
+from dataclasses import replace
 
 import numpy as np
 import torch
@@ -117,12 +142,13 @@ import torch
 from .. import graphs
 from ..models.gpt2_decode import (_check_sampling, _leaves, _logits,
                                   _norm_window, _quant_flag, _sample,
-                                  check_decodable, decode_step,
-                                  extract_params, kv_zeros, prefill,
-                                  prefill_chunk)
+                                  check_decodable, chosen_logprob,
+                                  decode_step, extract_params, fork_seed,
+                                  kv_zeros, prefill, prefill_chunk)
 from ..observe import trace as _trace
 from ..resilience import faults as _faults
 from . import jitpin
+from .fork import BranchHandle, ForkHandle
 from .paged import (DecodeInputs, PagedConfig, PagedKVArena, _embed,
                     _paged_decode_kernel, _paged_decode_step, seeds,
                     spec_step)
@@ -280,11 +306,20 @@ class _Slot:
     """Host bookkeeping of one live request; ``blocks`` is its block
     table (pool block ids), whose first ``n_shared`` are the prefix
     cache's (shared, never written by this slot); ``prefix_nodes`` the
-    cached path it holds a reference to while live."""
+    cached path it holds a reference to while live.
+
+    Fork fields: ``group`` ties the branches of one fork family (None for
+    a plain request; while a live slot has one, the step returns the
+    log-probabilities that ``score`` sums), ``branch`` is the slot's
+    index in it, and ``cow`` marks a slot whose blocks a sibling may
+    still reference (the growth pass copies such a block before the step
+    writes into it).  ``automaton`` and ``astate``: a structured
+    request's grammar and its state."""
 
     __slots__ = ("handle", "emitted", "remaining", "first_token_time",
                  "admit_time", "admitted_step", "blocks", "n_shared",
-                 "prefix_nodes")
+                 "prefix_nodes", "group", "branch", "score", "cow",
+                 "automaton", "astate")
 
     def __init__(self, handle, max_new, now, step, blocks, nodes=()):
         self.handle = handle
@@ -296,6 +331,12 @@ class _Slot:
         self.blocks = blocks
         self.prefix_nodes = list(nodes)
         self.n_shared = len(self.prefix_nodes)
+        self.group = None
+        self.branch = 0
+        self.score = 0.0
+        self.cow = False
+        self.automaton = None
+        self.astate = None
 
 
 class _Swapped:
@@ -309,7 +350,8 @@ class _Swapped:
     __slots__ = ("handle", "request", "emitted", "remaining",
                  "first_token_time", "admit_time", "admitted_step", "pos",
                  "tok", "temp", "seed", "image", "seq", "t_preempt",
-                 "j_lo", "draft")
+                 "j_lo", "draft", "group", "branch", "score", "automaton",
+                 "astate")
 
     @property
     def priority(self):
@@ -464,7 +506,9 @@ class InferenceEngine:
         self._budget = None if paged is None else paged.prefill_token_budget
         self.stats = EngineStats(self.max_slots, clock,
                                  spec=draft_model is not None,
-                                 budget=self._budget is not None)
+                                 budget=self._budget is not None,
+                                 fork=paged is not None)
+        self._fork_seq = itertools.count(1)
 
         model.eval()
         self._params = extract_params(model, dtype=dtype)
@@ -583,6 +627,11 @@ class InferenceEngine:
             raise
         handle._submit_time = self._clock()
         self._handles[request.request_id] = handle
+        if request.n > 1:
+            # the scheduler forks n - 1 branches off the slot the moment
+            # the prompt admits: hand back the n-branch view
+            handle._fork_children = []
+            return ForkHandle(self, handle)
         return handle
 
     def validate_request(self, request):
@@ -590,11 +639,8 @@ class InferenceEngine:
         ``max_new_tokens`` (+ ``spec_k - 1`` positions of verify headroom
         on a speculative engine) beyond ``max_len``, more blocks than the
         pool holds (a windowed slot holds at most a window's blocks and
-        the one it writes), or a feature not ported yet."""
-        if request.n > 1:
-            _owed("fork (GenerationRequest(n > 1))")
-        if request.structured is not None:
-            _owed("structured decoding")
+        the one it writes), or a fork or structured request the engine
+        cannot compose with (:meth:`_validate_fork_structured`)."""
         plen = len(request.prompt_ids)
         need = plen + request.max_new_tokens
         pad = self._spec_pad
@@ -605,17 +651,81 @@ class InferenceEngine:
                 + (f" + spec_k-1 ({pad})" if pad else "")
                 + f" exceeds the engine's max_len ({self.max_len})")
         arena = self.paged_arena
-        if arena is None:
-            return
-        B = arena.block_size
-        worst = (need - 1 + pad) // B + 1
-        if self._window is not None:
-            worst = min(worst, (self._window - 1 + pad) // B + 2)
-        if worst > arena.num_blocks:
+        if arena is not None:
+            B = arena.block_size
+            worst = (need - 1 + pad) // B + 1
+            if self._window is not None:
+                worst = min(worst, (self._window - 1 + pad) // B + 2)
+            if worst > arena.num_blocks:
+                raise ValueError(
+                    f"request needs up to {worst} KV blocks but the paged "
+                    f"pool holds {arena.num_blocks}; raise "
+                    f"PagedConfig.num_blocks or lower max_new_tokens")
+        if request.n > 1 or request.structured is not None:
+            self._validate_fork_structured(request)
+
+    def _validate_fork_structured(self, request):
+        """The JAX engine's composition limits of ``n > 1`` and
+        ``structured=``, raised as the same ``ValueError``s: a paged
+        engine without a draft; ``n > 1`` also without a window or a
+        prefill budget and with a pool that holds the shared prompt
+        blocks and every branch's tail; an automaton over the model's
+        vocabulary whose initial state admits a token."""
+        what = (f"n={request.n}" if request.n > 1
+                else "structured decoding")
+        if self.paged_arena is None:
             raise ValueError(
-                f"request needs up to {worst} KV blocks but the paged pool "
-                f"holds {arena.num_blocks}; raise PagedConfig.num_blocks or "
-                f"lower max_new_tokens")
+                f"{what} needs a paged engine (model.serve(paged="
+                f"PagedConfig(...))): forking rides on the arena's "
+                f"per-block reference counts and structured masks on its "
+                f"paged step")
+        if self.draft is not None:
+            raise ValueError(
+                f"{what} is incompatible with speculative decoding (the "
+                f"verify chunk samples several tokens a step; per-token "
+                f"masks and branch log-probabilities need the one-token "
+                f"step)")
+        if request.n > 1:
+            if self._window is not None:
+                raise ValueError(
+                    f"n={request.n} on a sliding-window engine: windowed "
+                    f"slots drop out-of-window blocks, which a sibling may "
+                    f"still share; fork needs the whole block table")
+            if self._budget is not None:
+                raise ValueError(
+                    f"n={request.n} with a chunked-prefill budget: branches "
+                    f"fork off the admission pass, which the budget splits "
+                    f"across steps; use a plain paged admission for forked "
+                    f"requests")
+            B = self.paged_arena.block_size
+            plen = len(request.prompt_ids)
+            shared = plen // B
+            tail = (plen + request.max_new_tokens - 1) // B + 1 - shared
+            if shared + request.n * tail > self.paged_arena.num_blocks:
+                raise ValueError(
+                    f"n={request.n} needs up to {shared} shared + "
+                    f"{request.n}x{tail} per-branch KV blocks but the paged "
+                    f"pool holds {self.paged_arena.num_blocks}; raise "
+                    f"PagedConfig.num_blocks, lower n, or lower "
+                    f"max_new_tokens")
+        if request.structured is not None:
+            a = request.structured
+            vocab = int(self.cfg.vocab_size)
+            vs = getattr(a, "vocab_size", None)
+            if vs is not None and int(vs) != vocab:
+                raise ValueError(
+                    f"structured automaton covers vocab_size={vs} but the "
+                    f"model's vocab is {vocab}: the mask would mis-index the "
+                    f"logits")
+            m0 = np.asarray(a.mask(a.initial()), bool)
+            if m0.shape != (vocab,):
+                raise ValueError(
+                    f"structured mask shape {m0.shape} != ({vocab},): masks "
+                    f"are one bool a vocabulary token")
+            if not m0.any():
+                raise ValueError(
+                    "structured automaton's initial state accepts no token: "
+                    "the grammar cannot be satisfied under this vocabulary")
 
     @property
     def pending(self) -> bool:
@@ -643,9 +753,10 @@ class InferenceEngine:
         """Leak check of the paged arena: ``used == cached +
         live_referenced``, every used pool block owned by the prefix
         cache's tree or held by a live slot's table or an admission still
-        prefilling (a block both cached and shared by a slot counts
-        once).  Raises AssertionError naming the counts; returns the
-        used-block count."""
+        prefilling (a block both cached and shared by a slot, or shared
+        by fork branches, counts once: ownership is the block id, and the
+        reference counts only decide when ``free`` recycles it).  Raises
+        AssertionError naming the counts; returns the used-block count."""
         arena = self.paged_arena
         if arena is None:
             return 0
@@ -788,9 +899,34 @@ class InferenceEngine:
                     engine_step=step))
         return err
 
+    def _mask_pass(self):
+        """The structured slots' vocabulary masks for this step, ``{slot:
+        (V,) bool}``, from their automata on the host (memoized per state
+        by ``JsonSchemaAutomaton``).  A state whose mask admits no token
+        rejects that request typed (``structured_dead_end``); the engine
+        serves the others."""
+        masks = {}
+        for i, s in enumerate(self._slots):
+            if s is None or s.automaton is None:
+                continue
+            m = np.asarray(s.automaton.mask(s.astate), bool)
+            if m.any():
+                masks[i] = m
+                continue
+            rid = s.handle.request.request_id
+            self._reject_live(i, s, ValueError(
+                f"{rid}: structured automaton state {s.astate!r} admits no "
+                f"vocabulary token; the grammar cannot complete from here"),
+                "structured_dead_end")
+        return masks
+
     def _decode_once(self):
+        masks = self._mask_pass()
         lanes = [i for i, s in enumerate(self._slots) if s is not None]
         n = len(lanes)
+        if n == 0:
+            return
+        with_lp = any(self._slots[i].group is not None for i in lanes)
         arena = self.paged_arena
         if arena is None or self.draft is not None:
             # the slot arena, and every speculative step (its draft arena
@@ -807,6 +943,15 @@ class InferenceEngine:
                            self._seeds[pick], np.where(live,
                                                        self._temps[pick], 0),
                            self._block_tables(sel))
+        if masks:
+            rows = np.ones((w, self.cfg.vocab_size), bool)
+            for r, i in enumerate(sel):
+                if i in masks:
+                    rows[r] = masks[i]
+            self._inputs.stage_masks(rows)
+        # a plain step keeps its width as its key, as before fork and
+        # structured decoding: a plain engine's steps stay what they were
+        key = (w, bool(masks), with_lp) if masks or with_lp else w
         gather = arena is not None and arena.config.kernel == "gather"
         name = "serve/decode_step" if self.draft is None else \
             "serve/spec_step"
@@ -816,9 +961,13 @@ class InferenceEngine:
             if gather:
                 n_rb = (int(self._pos[lanes].max()) + self._spec_pad) \
                     // arena.block_size + 1
-                toks = self._step_fn(w, n_rb)()
+                toks = self._step_fn(key, n_rb)()
             else:
-                toks = self._captured(w)
+                toks = self._captured(key)
+            lps = None
+            if with_lp:
+                toks, lps = toks
+                lps = lps.cpu().numpy()
             nxt = toks.cpu().numpy()
         self.stats.on_decode_step(n)
         now = self._clock()
@@ -827,6 +976,10 @@ class InferenceEngine:
                 continue
             slot = self._slots[i]
             if self.draft is None:
+                if slot.group is not None:
+                    # summed before _emit, which may retire the slot and
+                    # seal the score into its result
+                    slot.score += float(lps[r])
                 self._toks[i] = nxt[r]
                 self._pos[i] += 1
                 self._emit(i, slot, int(nxt[r]), now)
@@ -845,15 +998,21 @@ class InferenceEngine:
                 self._toks[i] = nxt[r, emitted - 1]
                 self._pos[i] += emitted
 
-    def _step_fn(self, w, n_rb=None):
-        """The step at width ``w``: the pool step over the first ``w``
-        lanes of the device inputs (the slot arena's over all its slots)
-        and the sampling, returning (w,) int64 tokens; on a speculative
+    def _step_fn(self, key, n_rb=None):
+        """The step of ``key``, a width ``w`` or (``w``, masked, with_lp):
+        the pool step over the first ``w`` lanes of the device inputs (the
+        slot arena's over all its slots) and the sampling, returning (w,)
+        int64 tokens, under the lanes' vocabulary masks when masked, and
+        with their (w,) float32 log-probabilities under the raw
+        distribution (:func:`chosen_logprob`) with_lp; on a speculative
         engine ``spec_step``, returning (w, spec_k + 1)."""
+        w, masked, with_lp = key if isinstance(key, tuple) else \
+            (key, False, False)
         arena = self.paged_arena
         inp = self._inputs.view(w)
         if self.draft is not None:
             return lambda: self._x.spec_step(inp, n_rb)
+        mask = inp["masks"] if masked else None
 
         def step():
             if arena is None:
@@ -864,28 +1023,32 @@ class InferenceEngine:
                     self._params, arena.pool_k, arena.pool_v, inp,
                     arena.block_size, kernel=arena.config.kernel,
                     n_rb=n_rb)
-            return _sample(logits, inp["temps"], seeds(inp),
-                           inp["pos"].long() + 1, self._top_k, self._top_p)
+            toks = _sample(logits, inp["temps"], seeds(inp),
+                           inp["pos"].long() + 1, self._top_k, self._top_p,
+                           mask=mask)
+            if with_lp:
+                return toks, chosen_logprob(logits, toks)
+            return toks
 
         return step
 
-    def _captured(self, w):
-        """The tokens of one step at width ``w`` (the slot arena's, a
-        block-kernel step or a speculative one): a replay of the width's
-        captured step; the first step at a width runs eagerly and then
-        captures it (which runs nothing), so no request advances
-        twice."""
-        step = self._steps.get(w)
+    def _captured(self, key):
+        """The outputs of one step of ``key`` (the slot arena's, a
+        block-kernel step or a speculative one; :meth:`_step_fn`): a
+        replay of the key's captured step; the first step of a key runs
+        eagerly and then captures it (which runs nothing), so no request
+        advances twice."""
+        step = self._steps.get(key)
         if step is not None:
             return step()
-        fn = self._step_fn(w)
+        fn = self._step_fn(key)
         if not self.capture:
             return fn()
         dev = self._inputs.buf.device
         toks = graphs.warm(fn, dev)
         if dev.type == "cuda" and self._graph_pool is None:
             self._graph_pool = torch.cuda.graph_pool_handle()
-        self._steps[w] = graphs.Step(fn, dev, pool=self._graph_pool)
+        self._steps[key] = graphs.Step(fn, dev, pool=self._graph_pool)
         return toks
 
     def _emit(self, idx, slot, token, now):
@@ -899,14 +1062,19 @@ class InferenceEngine:
             try:
                 req.on_token(req, token)
             except Exception as e:  # the client's callback: reject it alone
-                self._release_prefix(slot)
-                self._free_slot_blocks(slot)
-                self._slots[idx] = None
-                self._handles.pop(req.request_id, None)
-                _trace.event("serve/request_rejected", cat="serve",
-                             request=req.request_id,
-                             reason="on_token_callback")
-                slot.handle._reject(e)
+                self._reject_live(idx, slot, e, "on_token_callback")
+                return
+        if slot.automaton is not None:
+            # the token the mask admitted advances the grammar; a refusal
+            # means the mask and the automaton disagree, charged to this
+            # request alone
+            try:
+                slot.astate = slot.automaton.advance(slot.astate, token)
+            except Exception as e:
+                self._reject_live(idx, slot, e, "structured_advance")
+                return
+            if slot.automaton.done(slot.astate):
+                self._retire(idx, slot, now, "stop")
                 return
         stop = req.stop_token is not None and token == req.stop_token
         if stop or slot.remaining <= 0:
@@ -928,7 +1096,9 @@ class InferenceEngine:
                   if n > 1 else None),
             queue_time=slot.admit_time - submit_t,
             admitted_step=slot.admitted_step,
-            finished_step=self.step_count)
+            finished_step=self.step_count,
+            branch=slot.branch,
+            score=slot.score if slot.group is not None else None)
         if self.prefix_cache is not None:
             self._donate(idx, slot, req, result)
         elif req.pin_session:
@@ -939,6 +1109,29 @@ class InferenceEngine:
         self.stats.on_complete(result)
         self._slots[idx] = None
         self._handles.pop(req.request_id, None)
+        self._fork_event(None)
+
+    def _reject_live(self, idx, slot, error, reason):
+        """Reject a live slot's request typed (its client callback
+        raised, its grammar reached a dead end or refused a token, its
+        copy-on-write copy faulted): its prefix references and blocks
+        are dropped and the handle raises ``error``.  The engine serves
+        the others."""
+        req = slot.handle.request
+        self._release_prefix(slot)
+        self._free_slot_blocks(slot)
+        self._slots[idx] = None
+        self._handles.pop(req.request_id, None)
+        _trace.event("serve/request_rejected", cat="serve",
+                     request=req.request_id, reason=reason)
+        slot.handle._reject(error)
+        self._fork_event(None)
+
+    def _fork_event(self, what):
+        """Count a fork event (``stats.on_fork``) and refresh the
+        shared-blocks gauge, on a paged engine."""
+        if self.paged_arena is not None:
+            self.stats.on_fork(what, self.paged_arena.shared_blocks)
 
     def _free_slot_blocks(self, slot):
         """Drop the slot's reference to each of its blocks: a private
@@ -1005,6 +1198,14 @@ class InferenceEngine:
         # the last emitted token's position is never written, so its
         # block may not exist: a session pins one block less then
         n_goal = min(n_goal, len(slot.blocks))
+        # fork: the tree adopts no block a live sibling still references
+        # (the sibling's reference would outlive the adoption, and the
+        # block would have two owners); the last sibling to retire holds
+        # them alone and donates the whole prefix
+        for j in range(slot.n_shared, n_goal):
+            if arena.is_shared(slot.blocks[j]):
+                n_goal = j
+                break
         path = []
         if n_goal > 0:
             if n_goal > plen // B:
@@ -1088,6 +1289,17 @@ class InferenceEngine:
                     arena.free(drop)
                     arena.on_window_drop(len(drop))
                     slot.blocks[:dead] = [arena.trash] * dead
+            if slot.cow:
+                # copy-on-first-write: the step writes position pos into
+                # block pos // B; a sibling still referencing it gets to
+                # keep its bytes, this slot a private copy.  Branches
+                # fork past the cached prefix, so a cache-owned block is
+                # never copied here
+                wb = pos // B
+                if wb < len(slot.blocks) and \
+                        arena.is_shared(slot.blocks[wb]) and \
+                        not self._cow_copy(i, slot, wb):
+                    continue
             short = (pos + self._spec_pad) // B + 1 - len(slot.blocks)
             if short <= 0:
                 continue
@@ -1097,6 +1309,30 @@ class InferenceEngine:
                 self._preempt_slot(i, reason="pool_exhausted")
                 continue
             slot.blocks.extend(got)
+
+    def _cow_copy(self, idx, slot, wb):
+        """Give ``slot`` a private copy of its shared block ``wb`` before
+        the step writes into it.  False when the slot did not survive:
+        the pool ran out (it preempted itself) or the copy faulted (site
+        ``serve.fork_copy``: that branch alone is rejected, typed, and its
+        claim freed)."""
+        arena = self.paged_arena
+        got = self._alloc_blocks(1, slot.handle.request.priority,
+                                 exclude_idx=idx)
+        if got is None:
+            self._preempt_slot(idx, reason="pool_exhausted")
+            return False
+        old = slot.blocks[wb]
+        try:
+            arena.copy_block(old, got[0])
+        except Exception as e:
+            arena.free(got)
+            self._reject_live(idx, slot, e, "fork_copy")
+            return False
+        slot.blocks[wb] = got[0]
+        arena.free([old])  # this slot's reference; the sibling keeps it
+        self._fork_event("cow_copies")
+        return True
 
     def _alloc_blocks(self, n, priority, exclude_idx=None):
         """``n`` pool blocks for a request at ``priority``, preempting
@@ -1168,6 +1404,10 @@ class InferenceEngine:
         sw.seed = int(self._seeds[idx])
         sw.seq = next(self._swap_seq)
         sw.t_preempt = self._clock()
+        # fork and grammar state ride the swap too: the resumed slot
+        # scores and masks as the uninterrupted one would
+        sw.group, sw.branch, sw.score = slot.group, slot.branch, slot.score
+        sw.automaton, sw.astate = slot.automaton, slot.astate
         # the blocks holding positions < pos (pos itself is written next)
         # past the leading ones a windowed slot dropped, so the image is
         # O(window) like the slot
@@ -1189,6 +1429,7 @@ class InferenceEngine:
         self._slots[idx] = None
         self._swapped.append(sw)
         arena.on_preempt()
+        self._fork_event(None)
         _trace.event("serve/preempt", cat="serve", request=req.request_id,
                      slot=idx, reason=reason, pos=pos, blocks_freed=n_freed,
                      tokens=len(sw.emitted))
@@ -1226,6 +1467,11 @@ class InferenceEngine:
                          sw.admitted_step, [arena.trash] * sw.j_lo + blocks)
             slot.emitted = sw.emitted
             slot.first_token_time = sw.first_token_time
+            # the swap-in wrote a private copy of every block: the resumed
+            # slot shares nothing (cow stays off)
+            slot.group, slot.branch, slot.score = sw.group, sw.branch, \
+                sw.score
+            slot.automaton, slot.astate = sw.automaton, sw.astate
             self._slots[idx] = slot
             self._toks[idx] = sw.tok
             self._pos[idx] = sw.pos
@@ -1294,31 +1540,39 @@ class InferenceEngine:
         placed = []
         for k, req in enumerate(admit):
             got = None
-            if left is None or left >= arena.block_size:
+            # an n > 1 request admits only when a slot for every branch
+            # is free this pass: a partly forked family would make the
+            # branch count depend on the traffic
+            if (left is None or left >= arena.block_size) \
+                    and len(free) >= req.n:
                 got = self._claim(req, blocked_p)
             if got is None:
                 for r in reversed(admit[k:]):
                     self.scheduler.requeue_front(r)
                 break
             idx = free.pop(0)
+            kids = [free.pop(0) for _ in range(req.n - 1)]
             if chunked:
+                handle = self._handles[req.request_id]
                 self._begin_prefilling(idx, req, now, *got)
                 left = self._advance_prefilling(idx, left)
+                if kids:  # n > 1 has no budget: the admission finished
+                    self._fork_group_admit(handle, kids, now)
             else:
-                placed.append((idx, req, got[0]))
+                placed.append((idx, req, got[0], kids))
         by_len = {}
         for p in placed:
             by_len.setdefault(len(p[1].prompt_ids), []).append(p)
         dev = self._params["wte"].device
         for plen, group in by_len.items():
             ids = torch.as_tensor(np.stack([r.prompt_ids
-                                            for _, r, _ in group]),
+                                            for _, r, _, _ in group]),
                                   device=dev)
             with _trace.span("serve/prefill", cat="serve", prompt_len=plen,
                              requests=len(group), step=self.step_count):
                 logits, kc, vc = self._x.prefill_batch(self._params, ids)
             self.stats.on_prefill()
-            for r, (idx, req, blocks) in enumerate(group):
+            for r, (idx, req, blocks, kids) in enumerate(group):
                 if arena is None:
                     self._x.write_slot(self._kc, self._vc, _row(kc, r),
                                        _row(vc, r), idx)
@@ -1328,7 +1582,10 @@ class InferenceEngine:
                     arena.scatter_row(_row(kc, r), _row(vc, r),
                                       {j: b for j, b in enumerate(blocks)
                                        if b != arena.trash})
+                handle = self._handles[req.request_id]
                 self._admit(idx, req, now, blocks, logits[r:r + 1])
+                if kids:
+                    self._fork_group_admit(handle, kids, now)
 
     def _claim(self, req, blocked_p):
         """An admission's cached prefix (pinned before its blocks are
@@ -1480,12 +1737,20 @@ class InferenceEngine:
             self._x.write_slot(self._dkc, self._dvc,
                                *self._x.draft_prefill(ids), idx)
         temp = np.float32(req.temperature)
+        ast0 = mask0 = None
+        if req.structured is not None:
+            # the first token already obeys the grammar's initial state
+            ast0 = req.structured.initial()
+            mask0 = torch.as_tensor(
+                np.asarray(req.structured.mask(ast0), bool)[None],
+                device=logit.device)
         tok0 = int(_sample(logit, [temp], [req.seed], [plen], self._top_k,
-                           self._top_p)[0])
+                           self._top_p, mask=mask0)[0])
         t_first = self._clock()
         slot = _Slot(handle, req.max_new_tokens, now,
                      self.step_count if step is None else step, blocks,
                      nodes)
+        slot.automaton, slot.astate = req.structured, ast0
         self._slots[idx] = slot
         self.stats.on_admission(now - getattr(handle, "_submit_time", now),
                                 t_first - now, warm=bool(nodes))
@@ -1494,3 +1759,196 @@ class InferenceEngine:
         self._temps[idx] = temp
         self._seeds[idx] = req.seed
         self._emit(idx, slot, tok0, t_first)
+
+    # -- fork (serve/fork.py) --------------------------------------------
+    def _fork_group_admit(self, handle, kids, now):
+        """Fork branches 1..n-1 of the ``n > 1`` admission of ``handle``
+        off its freshly admitted slot into the slots ``kids`` the
+        scheduling pass reserved.  If the first token already resolved
+        the parent (a stop token, a completed grammar, a raising
+        callback), every branch would have emitted that token alone: they
+        seal at once with the parent's outcome instead."""
+        req = handle.request
+        rid = req.request_id
+        pidx = next((i for i, s in enumerate(self._slots)
+                     if s is not None and s.handle is handle), None)
+        if pidx is None:
+            for k in range(1, req.n):
+                ch = RequestHandle(req)
+                if handle._result is not None:
+                    ch._finish(replace(handle._result,
+                                       request_id=f"{rid}#{k}", branch=k))
+                else:
+                    ch._reject(handle._error)
+                handle._fork_children.append(ch)
+            return
+        self._slots[pidx].group = next(self._fork_seq)
+        for k, cidx in enumerate(kids, 1):
+            self._spawn_branch(pidx, cidx, k, now)
+
+    def _spawn_branch(self, parent_idx, child_idx, branch, now, seed=None,
+                      max_new=None):
+        """Clone the live slot ``parent_idx`` into ``child_idx`` as fork
+        branch ``branch``: the child's block table is a copy of the
+        parent's and each of its blocks gains a reference in the arena
+        (no KV byte moves; the port's slots hold a reference to their
+        cached prefix blocks too, so those gain one as well), its cached
+        prefix nodes are acquired again, and the host state (token,
+        position, temperature, emitted tokens, score, grammar state) is
+        copied.  Both slots turn ``cow`` on.  The child samples with
+        ``fork_seed(parent seed, branch)`` (or ``seed``) and gets the
+        parent's remaining budget (or ``max_new``)."""
+        arena, cache = self.paged_arena, self.prefix_cache
+        parent = self._slots[parent_idx]
+        preq = parent.handle.request
+        rid = preq.request_id
+        child_rid = f"{rid}#{branch}"
+        remaining = parent.remaining if max_new is None else int(max_new)
+        child_req = replace(preq, request_id=child_rid, n=1,
+                            max_new_tokens=(preq.max_new_tokens
+                                            if max_new is None else
+                                            remaining))
+        child_handle = RequestHandle(child_req)
+        child_handle._submit_time = now
+        arena.share([b for b in parent.blocks if b != arena.trash])
+        if cache is not None and parent.prefix_nodes:
+            cache.acquire(parent.prefix_nodes)
+        child = _Slot(child_handle, remaining, now, self.step_count,
+                      list(parent.blocks), parent.prefix_nodes)
+        child.n_shared = parent.n_shared
+        child.emitted = list(parent.emitted)
+        # the branch point is its first token: a branch pruned before its
+        # own first step still seals with latencies
+        child.first_token_time = now
+        child.group, child.branch, child.score = parent.group, branch, \
+            parent.score
+        child.automaton, child.astate = parent.automaton, parent.astate
+        parent.cow = child.cow = True
+        self._toks[child_idx] = self._toks[parent_idx]
+        self._pos[child_idx] = self._pos[parent_idx]
+        self._temps[child_idx] = self._temps[parent_idx]
+        self._seeds[child_idx] = (fork_seed(self._seeds[parent_idx], branch)
+                                  if seed is None else int(seed))
+        self._slots[child_idx] = child
+        self._handles[child_rid] = child_handle
+        kids = getattr(parent.handle, "_fork_children", None)
+        if kids is None:
+            kids = parent.handle._fork_children = []
+        kids.append(child_handle)
+        # a branch is a submission that skipped the queue and the
+        # prefill: it balances completions, but records no admission
+        # latency, which no client experienced
+        self.stats.on_submit()
+        _trace.event("serve/fork", cat="serve", request=child_rid,
+                     parent=rid, slot=child_idx, branch=branch,
+                     pos=int(self._pos[parent_idx]))
+        self._fork_event("branches")
+        return child_handle
+
+    def fork(self, request_id, *, seed=None, max_new_tokens=None):
+        """Split the live request ``request_id`` in two branches sharing
+        every block decoded so far copy-on-write (tree search: fork the
+        promising branch, ``prune`` the losers).  Returns a
+        :class:`~singa_tpu_torch.serve.fork.BranchHandle` for the new
+        branch; the original streams on unchanged.  ``seed``: the new
+        branch's sampling seed (default ``fork_seed(parent seed,
+        branch)``); ``max_new_tokens``: its remaining budget (default the
+        parent's)."""
+        self._check_open()
+        if self.paged_arena is None or self.draft is not None \
+                or self._window is not None:
+            raise ValueError(
+                "fork() needs a plain paged engine (no draft, no sliding "
+                "window): the support matrix of GenerationRequest(n > 1)")
+        if max_new_tokens is not None and int(max_new_tokens) < 1:
+            raise ValueError(
+                f"max_new_tokens must be >= 1, got {max_new_tokens}")
+        pidx = next((i for i, s in enumerate(self._slots)
+                     if s is not None
+                     and s.handle.request.request_id == request_id), None)
+        if pidx is None:
+            if self._handles.get(request_id) is None:
+                raise ValueError(
+                    f"{request_id}: unknown or already finished; fork() "
+                    f"splits a live branch")
+            if any(sw.request.request_id == request_id
+                   for sw in self._swapped):
+                state = "swapped out (preempted)"
+            elif any(pf.request.request_id == request_id
+                     for pf in self._prefilling.values()):
+                state = "mid chunked prefill"
+            else:
+                state = "still queued"
+            raise ValueError(
+                f"{request_id} is {state}: fork() needs a live decoding "
+                f"slot (step the engine until it decodes, then fork)")
+        parent = self._slots[pidx]
+        if parent.handle.request.pin_session:
+            raise ValueError(
+                f"{request_id} pins a session: a session continues ONE "
+                f"stream; fork before pinning, or fork the continuation")
+        free = self._free_slots()
+        if not free:
+            raise RuntimeError(
+                f"no free slot to fork {request_id} into (max_slots="
+                f"{self.max_slots}, all occupied); retire or prune a branch "
+                f"first")
+        if parent.group is None:
+            parent.group = next(self._fork_seq)
+        kids = getattr(parent.handle, "_fork_children", None)
+        branch = len(kids) + 1 if kids else 1
+        ch = self._spawn_branch(pidx, free[0], branch, self._clock(),
+                                seed=seed, max_new=max_new_tokens)
+        return BranchHandle(self, ch, branch)
+
+    def prune(self, request_id):
+        """Cut a fork branch (or any live or swapped-out request): drop
+        its references to its blocks, which frees its private ones at
+        once (a block a sibling or the prefix cache still holds stays),
+        and seal a ``finish_reason="pruned"`` result with everything
+        emitted so far.  ``ValueError`` for a request neither live nor
+        swapped (a queued one expires by deadline, a finished one is
+        sealed)."""
+        if self._closed:
+            raise RuntimeError(
+                "engine is closed; build a new one with model.serve()")
+        now = self._clock()
+        for i, s in enumerate(self._slots):
+            if s is not None and s.handle.request.request_id == request_id:
+                self._fork_event("pruned")
+                _trace.event("serve/prune", cat="serve", request=request_id,
+                             slot=i, tokens=len(s.emitted))
+                self._retire(i, s, now, "pruned")
+                return
+        for j, sw in enumerate(self._swapped):
+            if sw.request.request_id != request_id:
+                continue
+            # a swapped request holds no block (freed at preemption):
+            # sealing it is host bookkeeping
+            n = len(sw.emitted)
+            submit_t = getattr(sw.handle, "_submit_time", sw.admit_time)
+            result = GenerationResult(
+                request_id=request_id,
+                tokens=np.concatenate([sw.request.prompt_ids,
+                                       np.asarray(sw.emitted, np.int32)]),
+                finish_reason="pruned",
+                ttft=sw.first_token_time - submit_t,
+                tpot=((now - sw.first_token_time) / (n - 1)
+                      if n > 1 else None),
+                queue_time=sw.admit_time - submit_t,
+                admitted_step=sw.admitted_step,
+                finished_step=self.step_count,
+                branch=sw.branch,
+                score=sw.score if sw.group is not None else None)
+            self._fork_event("pruned")
+            _trace.event("serve/prune", cat="serve", request=request_id,
+                         slot=None, tokens=n)
+            sw.handle._finish(result)
+            self.stats.on_complete(result)
+            del self._swapped[j]
+            self._handles.pop(request_id, None)
+            return
+        raise ValueError(
+            f"{request_id}: not a live or swapped request; prune() cuts a "
+            f"decoding branch (queued requests expire by deadline, finished "
+            f"ones are already sealed)")

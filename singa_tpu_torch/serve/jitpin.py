@@ -4,9 +4,11 @@ captures nothing more.
 
 ``jit_cache_size()`` is the number of decode steps the open engines of
 this process hold prepared: CUDA graphs on the card, one per decode
-width an engine has stepped at (a paged engine: at most one per halving
-bucket of ``max_slots``; the slot arena: one, at ``max_slots``), and on
-the CPU the step entries that stand in for them.
+key an engine has stepped at (a paged engine: its width, a halving
+bucket of ``max_slots``, and whether the step takes vocabulary masks and
+returns log-probabilities, so at most four a bucket; the slot arena:
+one, at ``max_slots``), and on the CPU the step entries that stand in
+for them.
 A closed engine releases its steps.  After every bucket has been used
 once the count must stay flat, however many steps follow.
 """

@@ -60,6 +60,7 @@ from ..models.gpt2_decode import (_filter_logits, _gumbel, _leaves, _logits,
                                   decode_step_paged, kv_zeros, prefill_chunk,
                                   spec_verify)
 from ..observe.registry import registry as _default_registry
+from ..resilience import faults as _faults
 from .kvimage import KVImage, pack_image
 
 __all__ = ["PagedConfig", "PagedKVArena", "DecodeInputs", "seeds",
@@ -128,7 +129,11 @@ class DecodeInputs:
     layout and :meth:`load` moves it to the device in one copy.  A decode
     width ``w`` reads the first ``w`` lanes of each (:meth:`view`), at
     addresses that never change, so a captured step reads each step's
-    inputs."""
+    inputs.
+
+    Structured decoding adds a ``(slots, vocab)`` bool buffer of
+    vocabulary masks, made at its first use (:meth:`stage_masks`) and
+    copied only for a step that a structured request takes part in."""
 
     FIELDS = ("toks", "pos", "live", "seed_lo", "seed_hi", "temps")
 
@@ -139,6 +144,23 @@ class DecodeInputs:
                                 pin_memory=device.type == "cuda")
         self.buf = torch.zeros(n, dtype=torch.int32, device=device)
         self._h = self.host.numpy()
+        self.masks = self._masks_host = None
+
+    def stage_masks(self, rows):
+        """Write a step's (w, vocab) bool masks (numpy) into the mask
+        staging buffer and copy it to the device buffer, which is made at
+        the first call and never again (captured masked steps read
+        it)."""
+        w, vocab = rows.shape
+        if self.masks is None:
+            dev = self.buf.device
+            self._masks_host = torch.ones((self.slots, vocab),
+                                          dtype=torch.bool,
+                                          pin_memory=dev.type == "cuda")
+            self.masks = torch.ones((self.slots, vocab), dtype=torch.bool,
+                                    device=dev)
+        self._masks_host.numpy()[:w] = rows
+        self.masks.copy_(self._masks_host, non_blocking=True)
 
     def stage(self, toks, pos, live, seeds, temps, tables):
         """Write one step's host values (width-``w`` numpy arrays and a
@@ -168,6 +190,8 @@ class DecodeInputs:
         f["temps"] = f["temps"].view(torch.float32)
         t0 = len(self.FIELDS) * S
         f["tables"] = d[t0:t0 + w * self.row_blocks].view(w, self.row_blocks)
+        if self.masks is not None:
+            f["masks"] = self.masks[:w]
         return f
 
 
@@ -414,12 +438,35 @@ class PagedKVArena:
         return out
 
     def share(self, blocks):
-        """Add one reference to each of ``blocks``."""
+        """Add one reference to each of ``blocks`` (a warm slot's cached
+        prefix, a fork branch's copy of its parent's table: nothing
+        moves on the device)."""
         for b in blocks:
             self._refs[b] = self._refs.get(b, 1) + 1
 
     def ref_count(self, block) -> int:
         return self._refs.get(block, 1)
+
+    def is_shared(self, block) -> bool:
+        return block in self._refs
+
+    @property
+    def shared_blocks(self) -> int:
+        """Blocks with more than one reference (fork branches sharing
+        them, or the prefix cache and the slots it serves)."""
+        return len(self._refs)
+
+    def copy_block(self, src, dst):
+        """Copy block ``src``'s bytes into ``dst`` in every layer's pools,
+        int8 values and scales both: the copy-on-first-write of a fork
+        branch about to write into a block a sibling still references.
+        A fault at the site ``serve.fork_copy`` raises before anything
+        is written."""
+        if _faults._armed:
+            _faults.check("serve.fork_copy")
+        for pool in (self.pool_k, self.pool_v):
+            for leaf in _leaves(pool):
+                leaf[:, dst] = leaf[:, src]
 
     def free(self, blocks):
         """Drop one reference to each of ``blocks``; a block whose last
@@ -523,4 +570,4 @@ class PagedKVArena:
                 "swap_out": self._c_swap_out.value,
                 "swap_in": self._c_swap_in.value,
                 "window_drops": self._c_window_drop.value,
-                "shared_blocks": len(self._refs)}
+                "shared_blocks": self.shared_blocks}

@@ -76,9 +76,19 @@ class GenerationRequest:
     still builds it, cold).  ``session_of``: the ``SessionHandle`` this
     request continues (set by ``SessionHandle.request``).
 
-    ``n`` and ``structured`` are the JAX engine's parallel sampling
-    (fork) and structured decoding; the port's engine raises
-    ``NotImplementedError`` for them at submit."""
+    ``n``: parallel sampling (fork, ``serve/fork.py``).  ``n > 1``
+    admits the prompt once and decodes n branches that share every
+    prompt block of the paged pool copy-on-first-write; ``submit``
+    returns a ``ForkHandle``.  Branch 0 is the exact stream ``n = 1``
+    would produce, branch k > 0 samples with its own seed
+    (``gpt2_decode.fork_seed``).  Paged engines only; not with
+    ``pin_session`` (a session continues one stream), and
+    ``max_new_tokens >= 2`` (the branches share the first token).
+    ``structured``: a token automaton (``serve/structured.py``:
+    ``JsonSchemaAutomaton``, or any object with ``initial``, ``mask``,
+    ``advance`` and ``done``) whose per-state vocabulary mask every
+    emitted token obeys; the request retires with ``"stop"`` the moment
+    the automaton completes."""
 
     prompt_ids: np.ndarray
     max_new_tokens: int = 20
@@ -109,16 +119,42 @@ class GenerationRequest:
         self.n = int(self.n)
         if self.n < 1:
             raise ValueError(f"n must be >= 1, got {self.n}")
+        if self.n > 1 and self.pin_session:
+            raise ValueError(
+                f"n={self.n} with pin_session: a pinned session continues "
+                f"ONE stream; submit n=1 with pin_session and fork() the "
+                f"continuation instead")
+        if self.n > 1 and self.max_new_tokens < 2:
+            raise ValueError(
+                f"n={self.n} with max_new_tokens={self.max_new_tokens}: "
+                f"the branches share the prompt and the first sampled "
+                f"token, so a 1-token request has nothing to diverge on; "
+                f"raise max_new_tokens or drop n")
+        if self.structured is not None:
+            for attr in ("initial", "mask", "advance", "done"):
+                if not callable(getattr(self.structured, attr, None)):
+                    raise ValueError(
+                        f"structured= must be a token automaton with "
+                        f"initial()/mask()/advance()/done() (see "
+                        f"serve.structured.JsonSchemaAutomaton); "
+                        f"{type(self.structured).__name__} has no "
+                        f"callable {attr!r}")
 
 
 @dataclass
 class GenerationResult:
     """Terminal state of a request.  ``tokens`` is prompt +
     continuation (the array offline ``generate`` returns);
-    ``finish_reason`` is ``"length"`` or ``"stop"``.  Latencies are on
-    the engine's clock: ``ttft`` is submit to first token, ``tpot`` the
-    mean time between tokens after it.  ``session``: the pinned
-    ``SessionHandle`` of a ``pin_session`` request, else None."""
+    ``finish_reason`` is ``"length"``, ``"stop"`` (the stop token, or a
+    structured request's automaton completed) or ``"pruned"`` (a fork
+    branch cut by ``prune()``, with everything emitted so far).
+    Latencies are on the engine's clock: ``ttft`` is submit to first
+    token, ``tpot`` the mean time between tokens after it.
+    ``session``: the pinned ``SessionHandle`` of a ``pin_session``
+    request, else None.  ``branch``: the branch of a fork group (0 for
+    plain requests); ``score``: a fork branch's summed log-probability
+    of its chosen tokens under the raw float32 distribution, the shared
+    first token scoring 0.0 (None outside a fork group)."""
 
     request_id: str
     tokens: np.ndarray
@@ -129,6 +165,8 @@ class GenerationResult:
     admitted_step: int
     finished_step: int
     session: Optional[object] = None
+    branch: int = 0
+    score: Optional[float] = None
 
 
 class RequestHandle:

@@ -37,6 +37,13 @@ an ``engine=<n>`` label, one label value per engine.
   chunk passes the chunked-prefill token budget split admissions into
   (None without a budget).
 
+* **fork** (paged engines): ``serve.fork.branches`` (branches forked off
+  live slots, by ``n > 1`` admissions and ``fork()``),
+  ``serve.fork.cow_copies`` (blocks a branch copied before writing into
+  one a sibling still shared), ``serve.fork.pruned`` (branches cut by
+  ``prune()``) and the gauge ``serve.fork.shared_blocks`` (arena blocks
+  with more than one reference); None on the slot arena.
+
 All times come from the engine's clock, so a fake clock makes the
 snapshot deterministic in tests.  The JAX version's SLO targets are not
 ported yet.
@@ -59,7 +66,7 @@ class EngineStats:
     engine's ``close()``)."""
 
     def __init__(self, max_slots: int, clock, reg=None, spec=False,
-                 budget=False):
+                 budget=False, fork=False):
         self.max_slots = int(max_slots)
         self._clock = clock
         self._t0 = clock()
@@ -123,6 +130,20 @@ class EngineStats:
                 help="block-width chunk passes the chunked-prefill token "
                      "budget split admissions into", **lbl)
             self._registered.append(self._budget_chunks)
+        self._fork = None
+        if fork:
+            self._fork = {n: c(f"serve.fork.{n}", help=h, **lbl) for n, h in (
+                ("branches", "decoding branches forked off live slots (n > "
+                             "1 admissions and fork() calls)"),
+                ("cow_copies", "copy-on-write block copies: a branch about "
+                               "to write into a block a sibling still "
+                               "references got a private copy"),
+                ("pruned", "branches cut by prune() (private blocks freed, "
+                           "result sealed finish_reason='pruned')"))}
+            self._fork["shared_blocks"] = g(
+                "serve.fork.shared_blocks",
+                help="arena blocks referenced more than once", **lbl)
+            self._registered += list(self._fork.values())
         self._queue_depth_sum = 0
         self._queue_depth_max = 0
         self._queue_samples = 0
@@ -171,6 +192,14 @@ class EngineStats:
 
     def on_budget_chunk(self):
         self._budget_chunks.inc()
+
+    def on_fork(self, what, shared_blocks):
+        """Count one fork event (``"branches"``, ``"cow_copies"`` or
+        ``"pruned"``, or None for none) and set the shared-blocks
+        gauge."""
+        if what is not None:
+            self._fork[what].inc()
+        self._fork["shared_blocks"].set(shared_blocks)
 
     def on_decode_step(self, live_slots: int):
         self._decode_steps.inc()
@@ -228,6 +257,8 @@ class EngineStats:
             "spec": self._spec_snapshot(),
             "budget_chunks": (None if self._budget_chunks is None
                               else self._budget_chunks.value),
+            "fork": (None if self._fork is None else
+                     {n: m.value for n, m in self._fork.items()}),
         }
 
     def _spec_snapshot(self):

@@ -14,7 +14,8 @@ kernel-vs-plain comparisons are ``chip_smoke.check_case`` over
 ``chip_smoke.check_paged_case`` over ``chip_smoke.paged_edge_cases()``
 (paged decode attention, allclose at ``chip_smoke.PAGED_TOL``: float32
 2e-5, bf16 1e-2, float16 2e-3, by q's dtype on int8 pools too; the
-cases take one split of the key range or several),
+cases take one split of the key range or several; fork groups' tables,
+several slots naming the same blocks, among them),
 with their tolerances (``chip_smoke.TOL``): flash
 attention allclose with
 float32 rtol = atol = 1e-4, bf16 rtol = atol = 2e-2 and float16 rtol =
@@ -305,6 +306,24 @@ def test_paged_kernel_at_serving_shapes(cuda_device, quant, dtype, seed,
     bf16 and int8 pools."""
     chip_smoke.check_paged_case(f"{name}/{dtype}", getattr(torch, dtype),
                                 seed, quant=quant, **case)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quant", [False, True], ids=["bf16", "int8"])
+@pytest.mark.parametrize("name", ["fork_shared_blocks", "fork_q1"])
+def test_paged_kernel_at_fork_tables(cuda_device, quant, name):
+    """Fork groups' tables, several slots naming the same prompt blocks
+    (the edge case and the ``fork`` phase's step shape), on bf16 pools
+    and on int8 pools with bf16 q."""
+    cases = dict(chip_smoke.paged_edge_cases()
+                 + chip_smoke.paged_serving_cases())
+    case = cases[name]
+    tables = chip_smoke.paged_inputs(dtype=torch.bfloat16, seed=7,
+                                     **case)["tables"].cpu().numpy()
+    named = tables[:, :min(n for _, n in case["share"])]
+    assert max((named == b).any(1).sum() for b in np.unique(named)) >= 2
+    chip_smoke.check_paged_case(f"{name}/bf16", torch.bfloat16, 7,
+                                quant=quant, **case)
 
 
 @pytest.mark.cuda

@@ -22,11 +22,12 @@ ragged and narrow ones for the bottleneck; for paged attention, the
 split and combine kernels in float32 and bf16 at ``chip_smoke.PAGED_TOL``,
 launched as the wrapper launches them (the table width as the bound of
 the blocks read, which the kernel narrows from the positions on the
-device; launches of at most ``max_rows(D)`` query rows), on seven cases
+device; launches of at most ``max_rows(D)`` query rows), on eight cases
 at the split count the wrapper would choose (dead slots with all-trash
 tables, GQA g = 3 with Q = 4 at D = 128, a window over Q = 4, D = 640,
 D = 1024 with 6 heads, 32 query rows at D = 64, Q = 24 positions of 2
-heads under a window in runs of 16) and on D = 16 and a long
+heads under a window in runs of 16, fork groups whose slots' tables
+name the same blocks) and on D = 16 and a long
 slot beside short ones at D = 64 over one split and over three, each
 also on int8 pools ((values, scales) pairs) with float32 and bf16 q at
 the q dtype's tolerance; the split plan itself, int8 pools
@@ -53,7 +54,7 @@ FLASH = ("s65_causal", "s129_causal", "d13_s100", "window1", "neg_inf_row",
 FLASH_F16 = ("s65_causal", "d13_s100", "general_mask_mBH", "d160_window")
 BOTTLENECK = ("hw7_bands_ragged", "c128_cm32", "odd_h5_w9_cm8")
 PAGED = ("dead_slots_all_trash", "g3_q4_d128", "window_q4_g3", "d640",
-         "d1024_g6", "g8_q4_32_rows", "q24_g2_window")
+         "d1024_g6", "g8_q4_32_rows", "q24_g2_window", "fork_shared_blocks")
 
 
 @pytest.fixture(scope="module")

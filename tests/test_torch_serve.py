@@ -17,6 +17,8 @@ position, not ``jax.random``), and between the paged kernel and the
 gather oracle.
 """
 
+import types
+
 import numpy as np
 import pytest
 
@@ -402,34 +404,48 @@ def test_paged_engine_serves_int8_kv(models):
     dict(n=2), dict(structured=object()), dict(pin_session=True)],
     ids=["fork", "structured", "pin_session"])
 def test_submit_refuses_what_is_not_ported(models, req):
-    """Each request option still owed raises at submit;
-    ``pin_session``, ported since, is served: without a prefix cache the
+    """Each of these request options, once owed, is ported now: ``n = 2``
+    is served as a fork group of two branches (tests/test_torch_fork.py),
+    a ``structured`` object that is not a token automaton is refused
+    typed when the request is made (``ValueError``, as the JAX package
+    refuses it), and ``pin_session`` is served: without a prefix cache the
     result carries a session handle that pins nothing (with one:
     tests/test_torch_prefix.py)."""
     _, tm = models
     eng = tm.serve(paged=PagedConfig(block_size=8, num_blocks=8))
-    if "pin_session" in req:
-        h = eng.submit(GenerationRequest(np.arange(3), max_new_tokens=2,
-                                         **req))
-        eng.run_until_complete(max_steps=20)
-        sess = h.result().session
-        assert sess is not None and sess.pinned_blocks == 0
-        np.testing.assert_array_equal(sess.tokens, h.result().tokens)
+    if "structured" in req:
+        with pytest.raises(ValueError, match="token automaton"):
+            GenerationRequest(np.arange(3), max_new_tokens=2, **req)
         eng.close()
         return
-    with pytest.raises(NotImplementedError, match="not ported"):
-        eng.submit(GenerationRequest(np.arange(3), max_new_tokens=2, **req))
+    h = eng.submit(GenerationRequest(np.arange(3), max_new_tokens=2, **req))
+    eng.run_until_complete(max_steps=20)
+    if "n" in req:
+        res = h.results()
+        assert [r.branch for r in res] == [0, 1]
+        assert all(len(r.tokens) == 5 for r in res)
+        eng.close()
+        return
+    sess = h.result().session
+    assert sess is not None and sess.pinned_blocks == 0
+    np.testing.assert_array_equal(sess.tokens, h.result().tokens)
     eng.close()
 
 
-def test_features_still_owed_raise():
-    """Beam search is still owed; the chunked-prefill budget, the
-    admission interleave and sliding-window decode, ported since, are
-    accepted (their behaviour: tests/test_torch_longctx.py)."""
+def test_features_still_owed_raise(models):
+    """MoE decode is still owed (``NotImplementedError``); beam search,
+    the chunked-prefill budget, the admission interleave and
+    sliding-window decode, ported since, are accepted (their behaviour:
+    tests/test_torch_beam.py, tests/test_torch_longctx.py)."""
+    _, tm = models
+    with pytest.raises(NotImplementedError, match="not ported"):
+        gd.check_decodable(types.SimpleNamespace(moe_every=2))
+    out = gd.generate_beam(tm, np.arange(3), max_new_tokens=2, num_beams=2)
+    assert out.shape == (5,)
+    with pytest.raises(ValueError, match="num_beams"):
+        gd.generate_beam(tm, np.arange(3), max_new_tokens=2, num_beams=0)
     assert PagedConfig(prefill_token_budget=32).prefill_token_budget == 32
     assert PagedConfig(admit_per_step=2).admit_per_step == 2
-    with pytest.raises(NotImplementedError, match="not ported"):
-        gd.generate_beam()
     windowed = GPT2LMHead(GPT2Config.tiny(dropout=0.0, attn_window=16))
     gd.check_decodable(windowed.cfg)
     assert gd._norm_window(windowed.cfg) == 16
