@@ -60,7 +60,13 @@ exits nonzero:
                     steps under ``amp.set_compute_dtype("float16")``
                     (``slice_f16``): finite losses, every flash launch on
                     the tensor-core route (the kernels line's ``_f16``
-                    rows).
+                    rows); and ``train.mfu`` (``slice_mfu``): a fresh
+                    graph-mode model with the monitor on, its step's FLOPs
+                    counted at the first call (aten's products and the
+                    flash wrappers' credits), 20 replays, the meter's MFU
+                    against tokens/s x (6 N_mm + 12 L S d) over the same
+                    peak (989e12 on an H100 SXM), within
+                    ``MFU_AGREEMENT``.
 4. ``profile``    - device time per kernel group (flash, GEMMs, the rest)
                     and the device's busy share over 2 more steps of each
                     mode, from torch.profiler; fails if the profiler
@@ -312,6 +318,39 @@ exits nonzero:
                     beam's total beside greedy's, and ms a generated
                     token in bf16 beside ``generate``'s (the dense cache,
                     as in the JAX package: no hand-written kernel).
+14g. ``observe``   - the serve phase's model, arena (8 slots, 256 blocks
+                    of 32) and 24 requests, each run twice on one engine
+                    (a warm-up pass, then the measured pass, which must
+                    capture no graph and launch ``paged_attn`` 12 times a
+                    decode step).  float32 with the request ledger, the
+                    step profiler, the monitor (watchdog, flight recorder,
+                    MFU meter), tracing and ``slo=SLO(...)`` all on, then
+                    all off: the streams equal each other and offline
+                    ``generate``, every request's ledger TTFT equals its
+                    handle's.  bf16, one call: TPOT medians with the hooks
+                    off, with the ledger, monitor and SLO on, and with the
+                    step profiler on; the profiler's device span a step
+                    beside torch.profiler's device time of the same 20
+                    steps.  ``health_report()`` JSON, Prometheus text and
+                    a Chrome trace (spans, request tracks, step lanes)
+                    written to a temporary directory: sizes, keys.
+14h. ``supervisor`` - ``EngineSupervisor`` over the same engine and
+                    requests, float32: ``FailAfterN(2, times=1)`` at
+                    ``serve.decode_step`` makes one restart
+                    (``resilience.engine_restarts`` + 1); the requests the
+                    dead engine had not started stream as offline
+                    ``generate`` does, those in flight fail with
+                    ``EngineFailedError(started=True)``; the rebuild's
+                    seconds and the graphs the new engine captures (it
+                    re-captures each width: ROADMAP "Divergences").
+                    ``FailRate(1.0)`` with a budget of 1 ends in
+                    ``RestartBudgetExceededError``, every handle typed.
+                    A priority engine with ``SLO(queue_depth_max=4)`` and
+                    ``shed_on_slo_pressure``: the 24 requests in a burst;
+                    the shed handles raise ``LoadShedError`` and the
+                    refused arrivals raise at submit, counted exactly by
+                    ``serve.shed_requests{reason=slo_pressure|
+                    slo_admission}``.
 15. ``paged_kernels`` - ``paged_attn`` (its split and combine kernels)
                     against ``paged_attn_plain``, on float32, bf16 and
                     float16 pools and on int8 pools with float32, bf16
@@ -412,6 +451,10 @@ TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (2e-2, 2e-2),
 # under bf16 amp: 12 blocks of bf16 activations round differently along
 # the two paths; logits here are O(1).
 LOGITS_ATOL = 0.1
+#: train.mfu (the counted step FLOPs x the step rate) against tokens/s x
+#: the analytic FLOPs a token, over the same peak: the two may differ by
+#: this share (what aten counts beyond 6 N_mm + 12 L S d, timing spread)
+MFU_AGREEMENT = 0.10
 # BERT-base MLM logits, the flash kernels vs the fused path on the same
 # weights (``bert_eval_check``, 4 rows of 512).  Near init they are small:
 # max |logit| 0.94 at init on the CPU, 1.10 after three SGD steps on an
@@ -1107,6 +1150,8 @@ def phase_slice(rows, steps=5, batch=8, seq=1024, seed=0):
     log(dict(phase="profile", **profiles["captured"],
              eager=profiles["eager"]))
     del m, plain, logits
+    log(dict(phase="slice_mfu", model="gpt2-small", batch=batch, seq=seq,
+             **slice_mfu(cfg, x, y, dev, seed), nvidia_smi=nvidia_smi()))
     log(slice_f16(dev, x, y, rows, seed))
     amp.enable(False)
 
@@ -5619,6 +5664,495 @@ def phase_beam(model, seed=0):
          "nvidia_smi": nvidia_smi()})
 
 
+# ------------------------------------------------------------ observe
+
+#: the observe phase's SLO: targets the bf16 serve traffic can breach (a
+#: 24-request burst into 8 slots queues 16), so the violation counters
+#: move; float32 runs count against the same targets
+OBSERVE_SLO = dict(ttft_p99_s=0.5, tpot_p50_s=0.02, queue_depth_max=8)
+#: the shedding run: a priority scheduler whose queue may hold this many
+#: before SLO-pressure admission sheds
+SHED_QUEUE_MAX = 4
+
+
+@contextlib.contextmanager
+def observe_hooks(ledger=False, prof=False, mon=False, trace=False):
+    """The observability hooks asked for, on for the block and off after
+    (the request ledger, the step profiler, the monitor's watchdog and
+    recorder without its thread, tracing)."""
+    from singa_tpu_torch.observe import monitor, requests, stepprof
+    from singa_tpu_torch.observe import trace as tr
+
+    if ledger:
+        requests.enable(capacity=4096)
+    if prof:
+        stepprof.enable(ring=4096)
+    if mon:
+        monitor.start(thread=False)
+    if trace:
+        tr.clear()
+        tr.enable()
+    try:
+        yield
+    finally:
+        if trace:
+            tr.disable()
+        if mon:
+            monitor.stop()
+        if prof:
+            stepprof.disable(unregister=False)
+        if ledger:
+            requests.disable()
+
+
+def observed_run(model, traffic, dtype=None, slo=None, per_step=None,
+                 after=None):
+    """The serve traffic twice on one paged engine (``SERVE_ENGINE``): a
+    warm-up pass that captures every decode width, then the measured
+    pass, which must capture no graph and launch ``paged_attn`` 12 times
+    a decode step (the count set to 0 just before it, read just after).
+    ``per_step(eng)`` runs after each measured step; ``after(eng)`` on the
+    engine before it closes.  Returns ``(results of the measured pass,
+    its paged_attn launches, its decode steps, its seconds, the
+    engine's stats snapshot)``."""
+    from singa_tpu_torch.ops import paged_attention as pa
+    from singa_tpu_torch.serve import (GenerationRequest, PagedConfig,
+                                       jit_cache_size)
+
+    c = SERVE_ENGINE
+    eng = model.serve(max_slots=c["max_slots"], dtype=dtype, slo=slo,
+                      paged=PagedConfig(block_size=c["block_size"],
+                                        num_blocks=c["num_blocks"]))
+
+    def submit(tag):
+        return [eng.submit(GenerationRequest(
+            w["prompt"], max_new_tokens=w["max_new"],
+            temperature=w["temperature"], seed=w["seed"],
+            request_id=f"{tag}{i}")) for i, w in enumerate(traffic)]
+
+    submit("w")
+    drain_counting_graphs(eng)
+    graphs, census = len(eng._steps), jit_cache_size()
+    steps0 = eng.stats.decode_steps
+    torch.cuda.synchronize()
+    pa.paged_attn.launches = 0
+    t0 = time.perf_counter()
+    hs = submit("r")
+    while eng.pending:
+        eng.step()
+        if per_step is not None:
+            per_step(eng)
+        if len(eng._steps) != graphs or jit_cache_size() != census:
+            raise AssertionError(f"a graph was captured after warm-up: "
+                                 f"widths {sorted(eng._steps)}")
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = pa.paged_attn.launches
+    steps = eng.stats.decode_steps - steps0
+    if launches != model.cfg.n_layer * steps:
+        raise AssertionError(f"paged_attn launched {launches} times over "
+                             f"{steps} decode steps")
+    results = [h.result() for h in hs]
+    if any(r.finish_reason != "length" for r in results):
+        raise AssertionError("a measured request did not complete")
+    if after is not None:
+        after(eng)
+    snap = eng.stats.snapshot()
+    eng.check_block_accounting()
+    eng.close()
+    return results, launches, steps, seconds, snap
+
+
+def _tpot_ms(results):
+    return statistics.median(r.tpot for r in results
+                             if r.tpot is not None) * 1e3
+
+
+def phase_observe(model, real, seed=0):
+    """The serve phase's model, arena and requests with every
+    observability hook on (module docstring, phase 14g).  Returns the
+    ``paged_attn`` launches of its measured passes."""
+    from singa_tpu_torch.observe import SLO, requests, stepprof
+    from singa_tpu_torch.observe.registry import registry
+
+    traffic, want = real["traffic"], real["offline"]
+    slo = SLO(**OBSERVE_SLO)
+    launches = 0
+    out = {"phase": "observe", "slo": OBSERVE_SLO}
+
+    # float32: every hook on, then every hook off; the greedy and the
+    # seeded streams equal (and equal offline generate, as in the serve
+    # phase); each request's ledger TTFT equals its handle's
+    ttfts = {}
+    with observe_hooks(ledger=True, prof=True, mon=True, trace=True):
+        on, n, steps, sec_on, snap_on = observed_run(
+            model, traffic, slo=slo,
+            after=lambda eng: out.__setitem__("export", export_files(eng)))
+        led = {e["request_id"]: e for e in requests.ledger().entries()}
+        for r in on:
+            e = led[r.request_id]
+            if e["outcome"] != "length" or e["ttft_s"] != r.ttft:
+                raise AssertionError(f"{r.request_id}: ledger TTFT "
+                                     f"{e['ttft_s']} != the handle's "
+                                     f"{r.ttft}")
+            ttfts[r.request_id] = r.ttft
+        anatomy = stepprof.section()
+    launches += n
+    off, n, _, sec_off, _ = observed_run(model, traffic)
+    launches += n
+    for i, (a, b, c) in enumerate(zip(on, off, want)):
+        if not (np.array_equal(a.tokens, b.tokens)
+                and np.array_equal(a.tokens, c)):
+            raise AssertionError(f"float32 request {i}: the stream with "
+                                 f"the hooks on differs from the one with "
+                                 f"them off or from offline generate")
+    out["float32"] = {
+        "streams_equal_hooks_on_off_and_generate": True,
+        "decode_steps": steps, "seconds_hooks_on": sec_on,
+        "seconds_hooks_off": sec_off, "no_graph_after_warm_up": True,
+        "ledger_ttft_equals_handle": len(ttfts),
+        "slo_violations": snap_on["slo"]["violations"],
+        "step_anatomy": {k: v for k, v in anatomy.items()
+                         if k != "engines"},
+        "watchdog_hangs": out["export"].pop("watchdog_hangs")}
+
+    # bf16, one call: TPOT with the hooks off, with the ledger, monitor
+    # and SLO on, and with the step profiler on
+    bf = torch.bfloat16
+    tpot = {}
+    res, n, _, _, _ = observed_run(model, traffic, dtype=bf)
+    tpot["hooks_off"], launches = _tpot_ms(res), launches + n
+    with observe_hooks(ledger=True, mon=True):
+        res, n, _, _, snap = observed_run(model, traffic, dtype=bf, slo=slo)
+    tpot["ledger_monitor_slo"], launches = _tpot_ms(res), launches + n
+    bf_viol = snap["slo"]["violations"]
+    with observe_hooks(prof=True):
+        res, n, _, _, _ = observed_run(
+            model, traffic, dtype=bf,
+            after=lambda eng: out.__setitem__(
+                "stepprof_vs_profiler", stepprof_window(eng, traffic)))
+    tpot["stepprof"], launches = _tpot_ms(res), launches + n
+    out["bf16"] = {"tpot_median_ms": tpot, "slo_violations": bf_viol}
+
+    out["registry_metrics"] = len(registry().metrics())
+    out["nvidia_smi"] = nvidia_smi()
+    log(out)
+    return launches
+
+
+def export_files(eng):
+    """With every hook on and ``eng`` still open: ``health_report()`` JSON
+    (with the engine's snapshot), Prometheus text and a Chrome trace (the
+    trace buffer's spans, the ledger's request tracks, the profiler's
+    step lanes) written to a temporary directory; their sizes, the
+    trace's events and the report's keys."""
+    import tempfile
+
+    from singa_tpu_torch.observe import (export, health_report, requests,
+                                         stepprof)
+    from singa_tpu_torch.observe import trace as tr
+
+    events = tr.events()
+    if not any(e["name"] == "serve/decode_step" for e in events):
+        raise AssertionError("tracing recorded no decode step")
+    with tempfile.TemporaryDirectory() as d:
+        rep = health_report(engine_snapshots=[eng.stats.snapshot()])
+        paths = {n: os.path.join(d, n) for n in ("health.json",
+                                                 "metrics.prom",
+                                                 "trace.json")}
+        with open(paths["health.json"], "w") as f:
+            json.dump(export.json_sanitize(rep), f)
+        export.write_prometheus(paths["metrics.prom"])
+        n_ev = export.write_chrome_trace(
+            paths["trace.json"], events, requests=requests.ledger().entries(),
+            steps=stepprof.records())
+        json.load(open(paths["health.json"]))
+        json.load(open(paths["trace.json"]))
+        prom = open(paths["metrics.prom"]).read()
+        for name in ("serve_tpot_bucket", "serve_step_wall_s_bucket",
+                     "serve_slo_violations"):
+            if f"singa_tpu_{name}" not in prom:
+                raise AssertionError(f"the Prometheus text has no {name}")
+        if not rep["serve"]["why_slow"].get("enabled") \
+                or not rep["serve"]["step_anatomy"].get("enabled") \
+                or not rep["watchdog"]["active"]:
+            raise AssertionError("health_report is missing a live section")
+        return {"bytes": {k: os.path.getsize(p) for k, p in paths.items()},
+                "trace_events": len(events), "chrome_trace_events": n_ev,
+                "health_report_keys": sorted(rep),
+                "health_serve_keys": sorted(rep["serve"]),
+                "watchdog_hangs": rep["watchdog"]["hangs"]}
+
+
+def stepprof_window(eng, traffic, warm=40, steps=20):
+    """The step profiler's device span of ``steps`` engine steps (the
+    sum of its records' device windows, after ``warm`` steps of the
+    traffic) beside torch.profiler's device time of the same steps; then
+    the engine drains."""
+    from singa_tpu_torch.observe import stepprof
+    from singa_tpu_torch.serve import GenerationRequest
+
+    for i, w in enumerate(traffic):
+        eng.submit(GenerationRequest(
+            w["prompt"], max_new_tokens=w["max_new"],
+            temperature=w["temperature"], seed=w["seed"],
+            request_id=f"p{i}"))
+    for _ in range(warm):
+        eng.step()
+    prof = profile_steps(lambda _x, _y: eng.step(), None, None, steps=steps,
+                         groups=SERVE_GROUPS)
+    lbl = eng.stats.engine_label
+    recs = [r for r in stepprof.records() if r["engine"] == lbl][-steps:]
+    while eng.pending:
+        eng.step()
+    span = sum(r["device_s"] for r in recs) * 1e3 / steps
+    wall = sum(r["wall_s"] for r in recs) * 1e3 / steps
+    return {"steps": steps, "stepprof_device_ms_per_step": span,
+            "stepprof_wall_ms_per_step": wall,
+            "stepprof_bubble_frac": statistics.mean(
+                r["bubble_frac"] for r in recs),
+            "profiler_device_ms_per_step": prof["device_ms_per_step"],
+            "profiler_wall_ms_per_step": prof["wall_ms_per_step"],
+            "segments_ms_per_step": {
+                k: sum(r["segments"].get(k, 0.0) for r in recs) * 1e3
+                / steps for k in sorted({k for r in recs
+                                         for k in r["segments"]})}}
+
+
+def phase_supervisor(model, real, seed=0):
+    """``EngineSupervisor`` over the serve phase's engine (module
+    docstring, phase 14h).  Returns the ``paged_attn`` launches of the
+    supervised run."""
+    from singa_tpu_torch.observe import SLO
+    from singa_tpu_torch.observe.registry import registry
+    from singa_tpu_torch.ops import paged_attention as pa
+    from singa_tpu_torch.resilience import FailAfterN, FailRate, faults
+    from singa_tpu_torch.serve import (EngineFailedError, EngineSupervisor,
+                                       GenerationRequest, LoadShedError,
+                                       PagedConfig,
+                                       RestartBudgetExceededError)
+
+    traffic, want = real["traffic"], real["offline"]
+    c = SERVE_ENGINE
+    paged = dict(block_size=c["block_size"], num_blocks=c["num_blocks"])
+    out = {"phase": "supervisor", "engine": SERVE_ENGINE}
+
+    def submit(sup, tag, ws, **kw):
+        return [sup.submit(GenerationRequest(
+            w["prompt"], max_new_tokens=w["max_new"],
+            temperature=w["temperature"], seed=w["seed"],
+            request_id=f"{tag}{i}", **kw)) for i, w in enumerate(ws)]
+
+    # one injected decode fault: one restart; the requests the dead
+    # engine had not started are requeued and stream as uninterrupted
+    # (float32: offline generate), those in flight fail typed
+    restarts0 = registry().counter("resilience.engine_restarts").value
+    sup = EngineSupervisor(model, restart_budget=2,
+                           max_slots=c["max_slots"],
+                           paged=PagedConfig(**paged))
+    first = sup.engine
+    rebuild = {}
+    recover = sup._recover
+
+    def timed_recover():
+        t0 = time.perf_counter()
+        recover()
+        torch.cuda.synchronize()
+        rebuild["seconds"] = time.perf_counter() - t0
+
+    sup._recover = timed_recover
+    hs = submit(sup, "s", traffic)
+    pa.paged_attn.launches = 0
+    faults.inject("serve.decode_step", FailAfterN(2, times=1))
+    capture_s, steps_after = 0.0, 0
+    try:
+        while sup.pending:
+            eng = sup.engine
+            n = len(eng._steps)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            sup.step()
+            torch.cuda.synchronize()
+            if sup.engine is eng and eng is not first:
+                steps_after += 1
+                if len(eng._steps) > n:
+                    # the step that ran eagerly and captured a width
+                    capture_s += time.perf_counter() - t0
+    finally:
+        faults.clear()
+    launches = pa.paged_attn.launches
+    second = sup.engine
+    steps = first.stats.decode_steps + second.stats.decode_steps
+    if launches != model.cfg.n_layer * steps:
+        raise AssertionError(f"supervised: paged_attn launched {launches} "
+                             f"times over {steps} decode steps")
+    restarts = registry().counter("resilience.engine_restarts").value \
+        - restarts0
+    if sup.restarts != 1 or restarts != 1 or second is first:
+        raise AssertionError(f"expected one restart, got {sup.restarts} "
+                             f"({restarts} counted)")
+    requeued, failed = 0, 0
+    for i, h in enumerate(hs):
+        try:
+            toks = h.result().tokens
+        except EngineFailedError as e:
+            if e.started is not True or type(e) is not EngineFailedError:
+                raise AssertionError(f"request {i} failed untyped: {e!r}")
+            failed += 1
+            continue
+        if not np.array_equal(toks, want[i]):
+            raise AssertionError(f"requeued request {i}: its stream "
+                                 f"differs from the uninterrupted run")
+        requeued += 1
+    if not requeued or not failed:
+        raise AssertionError(f"the fault did not land mid-stream: "
+                             f"{requeued} requeued, {failed} failed")
+    second.check_block_accounting()
+    graphs_after = len(second._steps)
+    sup.close()
+    out["restart"] = {
+        "restarts": 1, "requeued_streams_equal_uninterrupted": requeued,
+        "in_flight_failed_typed": failed,
+        "rebuild_seconds": rebuild["seconds"],
+        "graphs_captured_after_restart": graphs_after,
+        "capture_step_seconds_after_restart": capture_s,
+        "decode_steps_before_fault": first.stats.decode_steps,
+        "decode_steps_after_restart": second.stats.decode_steps,
+        "paged_attn_launches": launches}
+
+    # FailRate(1.0): every engine dies; the budget runs out typed
+    sup = EngineSupervisor(model, restart_budget=1,
+                           max_slots=c["max_slots"],
+                           paged=PagedConfig(**paged))
+    # 8 admit and fail in flight, the 16 queued are requeued and 8 of
+    # them fail the rebuilt engine: the second restart is past the budget
+    hs = submit(sup, "b", traffic)
+    faults.inject("serve.decode_step", FailRate(1.0, seed=seed))
+    try:
+        sup.run_until_complete(max_steps=100)
+        raise AssertionError("the restart budget was not exhausted")
+    except RestartBudgetExceededError:
+        pass
+    finally:
+        faults.clear()
+    kinds = sorted({type(h._error).__name__ for h in hs})
+    if not all(h.done() and isinstance(h._error, EngineFailedError)
+               for h in hs) or sup.pending:
+        raise AssertionError(f"handles left unresolved after the budget "
+                             f"ran out: {kinds}")
+    try:
+        submit(sup, "x", traffic[:1])
+        raise AssertionError("a dead supervisor took a request")
+    except RestartBudgetExceededError:
+        pass
+    sup.close(force=True)
+    out["budget"] = {"restart_budget": 1, "restarts": sup.restarts,
+                     "errors": kinds}
+
+    # SLO-pressure shedding: a burst of the 24 requests at priorities 0-2
+    # into a priority scheduler whose SLO allows SHED_QUEUE_MAX queued
+    counts0 = {r: registry().counter("serve.shed_requests",
+                                     reason=r).value
+               for r in ("slo_pressure", "slo_admission")}
+    sup = EngineSupervisor(model, shed_on_slo_pressure=True,
+                           slo=SLO(queue_depth_max=SHED_QUEUE_MAX),
+                           scheduler="priority", max_slots=c["max_slots"],
+                           paged=PagedConfig(**paged), dtype=torch.bfloat16)
+    hs, refused = [], 0
+    for i, w in enumerate(traffic):
+        try:
+            hs.append(sup.submit(GenerationRequest(
+                w["prompt"], max_new_tokens=w["max_new"],
+                temperature=w["temperature"], seed=w["seed"],
+                request_id=f"q{i}", priority=i % 3)))
+        except LoadShedError:
+            refused += 1
+    shed = sum(1 for h in hs if h.done())
+    sup.run_until_complete(max_steps=5000)
+    counts = {r: registry().counter("serve.shed_requests",
+                                    reason=r).value - counts0[r]
+              for r in counts0}
+    shed_err = 0
+    for h in hs:
+        try:
+            h.result()
+        except LoadShedError:
+            shed_err += 1
+    if shed_err != shed or counts["slo_pressure"] != shed \
+            or counts["slo_admission"] != refused or not shed + refused:
+        raise AssertionError(f"shedding: {shed} shed handles "
+                             f"({shed_err} raising LoadShedError), "
+                             f"{refused} refused, counters {counts}")
+    sup.close()
+    out["shedding"] = {"queue_depth_max": SHED_QUEUE_MAX,
+                       "burst": len(traffic), "shed_queued": shed,
+                       "refused_on_arrival": refused,
+                       "counters": counts,
+                       "completed": len(hs) - shed}
+    out["nvidia_smi"] = nvidia_smi()
+    log(out)
+    return launches
+
+
+def slice_mfu(cfg, x, y, dev, seed=0, steps=20):
+    """``train.mfu`` of GPT-2 small's captured step with the monitor on
+    (its FLOPs counted at the signature's first call: aten's products and
+    the flash kernels' credits), beside tokens/s x the analytic FLOPs a
+    token (6 N_mm + 12 L S d) over the same peak; within
+    ``MFU_AGREEMENT``."""
+    from singa_tpu_torch import opt
+    from singa_tpu_torch.models.gpt2 import GPT2LMHead
+    from singa_tpu_torch.observe import monitor
+    from singa_tpu_torch.observe.registry import registry
+
+    monitor.start(thread=False)
+    try:
+        dev.SetRandSeed(seed)
+        m = GPT2LMHead(cfg)
+        m.set_optimizer(opt.SGD(lr=1e-4, momentum=0.9))
+        m.compile([x], is_train=True, use_graph=True)
+        for _ in range(2):        # the counted eager call, the capture
+            _, loss = m(x, y)
+            loss.item()
+        flops = monitor.step_flops()
+        meter = monitor.mfu_meter()
+        time.sleep(monitor.MfuMeter.MIN_INTERVAL_S)
+        meter.sample()            # opens the window
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        n = 0
+        # at least ``steps`` steps, and long enough for the meter to take
+        # the window (it ignores one shorter than MIN_INTERVAL_S)
+        while n < steps or time.perf_counter() - t0 \
+                < 2 * monitor.MfuMeter.MIN_INTERVAL_S:
+            _, loss = m(x, y)
+            loss.item()
+            n += 1
+        seconds = time.perf_counter() - t0
+        s = meter.sample()
+        gauge = registry().snapshot()["gauges"]["train.mfu"]
+    finally:
+        monitor.stop()
+    b, t = x.shape
+    d, L = cfg.n_embd, cfg.n_layer
+    n_mm = L * (4 * d * d + 2 * d * cfg.n_inner) + cfg.vocab_size * d
+    per_token = 6 * n_mm + 12 * L * t * d
+    tokens_s = n * b * t / seconds
+    analytic = tokens_s * per_token / s["peak_flops_per_s"]
+    ratio = s["mfu"] / analytic
+    if not (math.isfinite(s["mfu"]) and gauge == s["mfu"]
+            and abs(ratio - 1) <= MFU_AGREEMENT):
+        raise AssertionError(f"train.mfu {s['mfu']} (gauge {gauge}) vs "
+                             f"the analytic {analytic}: ratio {ratio}")
+    del m
+    return {"train_mfu": s["mfu"], "analytic_mfu": analytic,
+            "ratio": ratio, "step_flops_counted": flops,
+            "step_flops_analytic": per_token * b * t,
+            "peak_flops_per_s": s["peak_flops_per_s"],
+            "steps_per_s": s["steps_per_s"], "tokens_per_s": tokens_s,
+            "timed_steps": n}
+
+
 def real_args(real, cfg, seed, quant=False, dtype=torch.bfloat16, nq=1,
               window=None):
     """``paged_attn`` arguments for each layer of one recorded serve step:
@@ -5831,14 +6365,18 @@ def main():
     fork = timed("fork", phase_fork, model)
     struct_launches = timed("structured", phase_structured, model)
     timed("beam", phase_beam, model)
+    observe_launches = timed("observe", phase_observe, model, real)
+    supervisor_launches = timed("supervisor", phase_supervisor, model, real)
     cfg = model.cfg
     del model
     for row in timed("paged_kernels", phase_paged_kernels, real, real8, cfg,
                      spec, win, fork):
         rows[row["name"]] = row
     # the prefix phase decodes on bf16 pools through paged_attn, the
-    # structured phase on float32 ones
-    rows["paged_attn"]["launches"] += prefix_launches + struct_launches
+    # structured phase on float32 ones, the observe phase on both, the
+    # supervisor phase's supervised run on float32 ones
+    rows["paged_attn"]["launches"] += prefix_launches + struct_launches \
+        + observe_launches + supervisor_launches
 
     smi = nvidia_smi()
     log({"phase": "device", "nvidia_smi": smi,

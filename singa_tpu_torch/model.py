@@ -37,6 +37,16 @@ JAX step returns new arrays.  ``graph.cache_miss`` counts first calls,
 ``graph.cache_hit`` the others, ``train.steps`` every step.  On the CPU
 the same runner runs the step eagerly through the same keys, buffers and
 counts.  ``set_optimizer`` drops every captured step.
+
+With the monitor on (``observe.monitor.start()``), each step beats the
+``train`` watchdog source with its host time (first calls and captures
+beat without a time), and a signature's first, eager call is counted:
+its FLOPs (aten's matrix products and convolutions under
+``torch.utils.flop_counter.FlopCounterMode``, plus what the flash
+kernels' wrappers credit through ``monitor.count_kernel_flops``) become
+the signature's entry in ``_compiled_cost_tables()``, which
+``monitor.step_flops()`` and ``train.mfu`` read.  This takes the place
+of the XLA cost tables the JAX package reads there.
 """
 
 from __future__ import annotations
@@ -46,7 +56,9 @@ import os
 import stat as _stat
 import tempfile
 import threading
+import time as _time
 import uuid as _uuid
+import weakref
 import zipfile
 
 import numpy as np
@@ -54,6 +66,7 @@ import torch
 from torch.utils import _pytree as pytree
 
 from . import amp, graphs, layer
+from .observe import monitor as _monitor
 from .observe import trace as _trace
 from .observe.registry import registry as _obs_registry
 from .resilience import faults as _faults
@@ -125,6 +138,7 @@ class _Entry:
     def __init__(self):
         self.args = self.kwargs = None
         self.step = None
+        self.flops = None  # counted at the first call while monitored
 
     def load(self, args, kwargs):
         """Copy this call's tensors into the static buffers (made at the
@@ -139,6 +153,42 @@ class _Entry:
                 dst.copy_(src)
 
 
+#: the live graph runners, for the monitor's cost tables
+_graph_runners = weakref.WeakSet()
+
+
+def _cost_args(cost) -> dict:
+    """Scalar entries of a counted step's table (``{"flops": n}``), {}
+    when there is none."""
+    if not isinstance(cost, dict):
+        return {}
+    return {k: float(v) for k, v in cost.items()
+            if isinstance(v, (int, float))}
+
+
+def _compiled_cost_tables(device=None):
+    """``[(key, {"flops": n})]`` of every counted step signature of the
+    live graph runners."""
+    out = []
+    for r in list(_graph_runners):
+        out.extend(r.cost_tables())
+    return out
+
+
+def _counted(fn):
+    """``fn()`` under ``FlopCounterMode``, with the monitor's kernel tally
+    open for the hand-written kernels it launches; ``(out, flops)``."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    _monitor._flop_tally = tally = [0]
+    try:
+        with FlopCounterMode(display=False) as fc:
+            out = fn()
+    finally:
+        _monitor._flop_tally = None
+    return out, fc.get_total_flops() + tally[0]
+
+
 class _GraphRunner:
     """Prepares and replays ``train_one_batch`` (module docstring)."""
 
@@ -146,6 +196,7 @@ class _GraphRunner:
         self.model = model
         self._entries = {}
         self._pool = None
+        _graph_runners.add(self)
         reg = _obs_registry()
         self._m_hit = reg.counter(
             "graph.cache_hit", help="graph-step replays")
@@ -156,6 +207,10 @@ class _GraphRunner:
 
     def clear(self):
         self._entries.clear()
+
+    def cost_tables(self):
+        return [(repr(k), {"flops": e.flops})
+                for k, e in self._entries.items() if e.flops is not None]
 
     def _key(self, args, kwargs):
         def sig(v):
@@ -174,22 +229,41 @@ class _GraphRunner:
         self._m_steps.inc()
         key = self._key(args, kwargs)
         entry = self._entries.get(key)
+        mon = _monitor.active()
         if entry is None:
             self._m_miss.inc()
-            self._entries[key] = _Entry()
-            out = graphs.warm(lambda: m.train_one_batch(*args, **kwargs),
-                              dev)
+            self._entries[key] = entry = _Entry()
+
+            def first():
+                return graphs.warm(
+                    lambda: m.train_one_batch(*args, **kwargs), dev)
+
+            if mon:
+                out, entry.flops = _counted(first)
+                # a first call builds kernels and algorithms: beat
+                # without a time, which would poison the estimator
+                _monitor.heartbeat("train", fresh_compile=True)
+            else:
+                out = first()
             return pytree.tree_map(_detached_copy, out)
         self._m_hit.inc()
         entry.load(args, kwargs)
-        if entry.step is None:
+        fresh = entry.step is None
+        if fresh:
             if dev.type == "cuda" and self._pool is None:
                 self._pool = torch.cuda.graph_pool_handle()
             entry.step = graphs.Step(
                 lambda: m.train_one_batch(*entry.args, **entry.kwargs), dev,
                 pool=self._pool, generators=(m.device.generator,)
                 if dev.type == "cuda" else ())
-        return pytree.tree_map(_detached_copy, entry.step())
+        t0 = _time.perf_counter() if mon else 0.0
+        out = entry.step()
+        if mon:
+            # host dispatch time of the replay: the caller's read of the
+            # loss carries the device tail
+            _monitor.heartbeat("train", step_time=_time.perf_counter() - t0,
+                               fresh_compile=fresh)
+        return pytree.tree_map(_detached_copy, out)
 
 
 class Model(layer.Layer):

@@ -38,6 +38,7 @@ import math
 
 import torch
 
+from ..observe import monitor as _monitor
 from . import _build
 
 __all__ = [
@@ -304,6 +305,18 @@ def _stream(q):
     return torch.cuda.current_stream(q.device).cuda_stream
 
 
+def _count_flops(q, k, products):
+    """Credit a launch's ``products`` (BH, S, S) x D matrix products to
+    the step the monitor may be counting (``monitor.count_kernel_flops``:
+    a ctypes launch is no aten op, so ``FlopCounterMode`` cannot see
+    it).  Model FLOPs, as aten's count of SDPA has them: the forward's
+    QKᵀ and PV, the backward's dP and dQ (``flash_bwd_dq``) and dV and
+    dK (``flash_bwd_dkv``), each over the whole S x S square whatever
+    the mask, recomputed products not counted."""
+    bh, s, d = q.shape
+    _monitor.count_kernel_flops(products * 2 * bh * s * k.shape[1] * d)
+
+
 def flash_fwd(q, k, v, kmask, qmask, qmap, scale, causal, window):
     """(BH, S, D) q, k, v -> ``(o, lse)``; o in q's dtype, lse (BH, S)
     float32.  ``kmask``: (BH, S) float32 or None; ``qmask``: (M, S, S)
@@ -317,6 +330,7 @@ def flash_fwd(q, k, v, kmask, qmask, qmap, scale, causal, window):
                       qmap, scale, causal, window)
     flash_fwd.launches += 1
     flash_fwd.tensor_core_launches += kind in TENSOR_CORE_KINDS
+    _count_flops(q, k, 2)
     return out
 
 
@@ -332,6 +346,7 @@ def flash_bwd_dq(q, k, v, kmask, qmask, qmap, scale, causal, window, do,
                     scale, causal, window, do, lse, delta)
     flash_bwd_dq.launches += 1
     flash_bwd_dq.tensor_core_launches += kind in TENSOR_CORE_KINDS
+    _count_flops(q, k, 2)
     return dq
 
 
@@ -347,6 +362,7 @@ def flash_bwd_dkv(q, k, v, kmask, qmask, qmap, scale, causal, window, do,
                       qmap, scale, causal, window, do, lse, delta)
     flash_bwd_dkv.launches += 1
     flash_bwd_dkv.tensor_core_launches += kind in TENSOR_CORE_KINDS
+    _count_flops(q, k, 2)
     return out
 
 

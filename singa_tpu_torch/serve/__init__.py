@@ -12,7 +12,10 @@ sliding-window models on the paged arena, and on the paged arena fork
 (``GenerationRequest(n=)``, ``eng.fork()``, ``eng.prune()``: branches
 sharing KV blocks copy-on-write, ``ForkHandle`` / ``BranchHandle``) and
 structured decoding (``GenerationRequest(structured=
-JsonSchemaAutomaton(schema, vocab))``).
+JsonSchemaAutomaton(schema, vocab))``); serve SLOs
+(``slo=observe.SLO(...)``) and the supervisor that rebuilds a failed
+engine, requeues what it had not started and sheds under SLO pressure
+(``EngineSupervisor``).
 
     >>> eng = model.serve()                      # the slot arena
     >>> eng = model.serve(max_slots=8, paged=PagedConfig(block_size=32),
@@ -34,11 +37,13 @@ from .jitpin import jit_cache_size
 from .paged import PagedConfig, PagedKVArena
 from .prefix import PrefixCache, PrefixCacheConfig, SessionHandle
 from .request import (DeadlineExceededError, EngineFailedError,
-                      GenerationRequest, GenerationResult, QueueFullError,
-                      RequestHandle)
+                      FleetDownError, GenerationRequest, GenerationResult,
+                      LoadShedError, QueueFullError, RequestHandle,
+                      RestartBudgetExceededError)
 from .scheduler import FIFOScheduler, PriorityScheduler
 from .stats import EngineStats
 from .structured import JsonSchemaAutomaton, TokenAutomaton
+from .supervisor import EngineSupervisor
 
 __all__ = ["InferenceEngine", "PagedConfig", "PagedKVArena",
            "GenerationRequest", "GenerationResult", "RequestHandle",
@@ -46,4 +51,5 @@ __all__ = ["InferenceEngine", "PagedConfig", "PagedKVArena",
            "FIFOScheduler", "PriorityScheduler", "EngineStats",
            "jit_cache_size", "PrefixCache", "PrefixCacheConfig",
            "SessionHandle", "ForkHandle", "BranchHandle", "TokenAutomaton",
-           "JsonSchemaAutomaton"]
+           "JsonSchemaAutomaton", "EngineSupervisor", "LoadShedError",
+           "RestartBudgetExceededError", "FleetDownError"]

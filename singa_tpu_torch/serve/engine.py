@@ -123,11 +123,26 @@ every step eagerly, like ``jax.disable_jit``; the gather oracle
 ``serve.jitpin.jit_cache_size()`` counts the prepared steps of the open
 engines.
 
+**Observability** (``observe/``), each one module-flag read a site when
+off: the request ledger's hooks (submit, queue, admission, prefix hit,
+prefill chunk, first token, each step's tokens, preemption, resume,
+retire, typed rejection; a fork branch's submit, admission and first
+token at its branch point), the step profiler's fences (``begin`` /
+``end`` around ``step()``, host segments inside, and the device window
+of every dispatch: ``_ProfExec`` wraps ``_LocalExec``, and the decode
+step, a graph replay once captured, is timed as one dispatch), the
+watchdog's heartbeat (``serve.e<label>``: armed at the top of a step,
+the decode step's time fed after it, disarmed when the engine drains or
+fails), and ``slo=observe.SLO(...)``'s violation counters
+(``serve/stats.py``).  The hooks are host code around the dispatches, so
+none of them enters a captured step.  ``_faults.check(
+"serve.decode_step")`` at the top of each decode step is the chaos hook
+``EngineSupervisor`` (``serve/supervisor.py``) recovers from.
+
 Not ported yet, each refused with ``NotImplementedError`` at
 construction (``ROADMAP.md``): tensor / expert / pipeline parallelism
-(``tp``, ``ep``, ``pp``), SLO targets and load shedding.  Nor the JAX
-engine's ring-attention prefill, the prefix cache's fleet index and the
-request ledger's hooks.
+(``tp``, ``ep``, ``pp``).  Nor the JAX engine's ring-attention prefill
+and the prefix cache's fleet index.
 """
 
 from __future__ import annotations
@@ -145,6 +160,9 @@ from ..models.gpt2_decode import (_check_sampling, _leaves, _logits,
                                   check_decodable, chosen_logprob,
                                   decode_step, extract_params, fork_seed,
                                   kv_zeros, prefill, prefill_chunk)
+from ..observe import monitor as _monitor
+from ..observe import requests as _reqs
+from ..observe import stepprof as _stepprof
 from ..observe import trace as _trace
 from ..resilience import faults as _faults
 from . import jitpin
@@ -154,7 +172,8 @@ from .paged import (DecodeInputs, PagedConfig, PagedKVArena, _embed,
                     spec_step)
 from .prefix import PrefixCache, PrefixCacheConfig, SessionHandle
 from .request import (DeadlineExceededError, EngineFailedError,
-                      GenerationRequest, GenerationResult, RequestHandle)
+                      GenerationRequest, GenerationResult, LoadShedError,
+                      RequestHandle)
 from .scheduler import FIFOScheduler, PriorityScheduler
 from .stats import EngineStats
 
@@ -302,6 +321,36 @@ class _LocalExec:
                           **self._e._statics, window=self._e._window)
 
 
+def _timed(name):
+    def call(self, *a, **kw):
+        fn = getattr(self._inner, name)
+        if not _stepprof._active:
+            return fn(*a, **kw)
+        return _stepprof.timed_dispatch(fn, a, kw)
+
+    call.__name__ = name
+    return call
+
+
+class _ProfExec:
+    """The step profiler's hook at the executor seam: each dispatch of
+    the wrapped executor is timed (host dispatch, then the device
+    window) while ``stepprof`` is on, and passes straight through (one
+    flag read) while it is off."""
+
+    def __init__(self, inner):
+        self._inner = inner
+
+    pool_decode_step = _timed("pool_decode_step")
+    paged_decode_step = _timed("paged_decode_step")
+    spec_step = _timed("spec_step")
+    prefill_batch = _timed("prefill_batch")
+    draft_prefill = _timed("draft_prefill")
+    chunk_row = _timed("chunk_row")
+    write_slot = _timed("write_slot")
+    read_slot = _timed("read_slot")
+
+
 class _Slot:
     """Host bookkeeping of one live request; ``blocks`` is its block
     table (pool block ids), whose first ``n_shared`` are the prefix
@@ -395,7 +444,8 @@ class InferenceEngine:
     ``scheduler`` is ``"fifo"`` (default), ``"priority"`` or an
     instance; ``clock`` is injectable for tests; ``capture`` (default
     True) replays each decode width's step as a CUDA graph on the card
-    (module docstring), ``False`` runs every step eagerly."""
+    (module docstring), ``False`` runs every step eagerly; ``slo`` is
+    an ``observe.SLO`` whose violations ``stats`` counts."""
 
     def __init__(self, model, max_slots=8, max_len=None, dtype=None,
                  scheduler=None, top_k=0, top_p=None,
@@ -404,12 +454,8 @@ class InferenceEngine:
                  paged=None, tp=None, ep=None, pp=None, capture=True):
         cfg = model.cfg
         check_decodable(cfg)
-        owed = [("tensor/expert/pipeline-parallel serving (tp, ep, pp)",
-                 any(x not in (None, False) for x in (tp, ep, pp))),
-                ("SLO targets and load shedding (slo)", slo is not None)]
-        for what, asked in owed:
-            if asked:
-                _owed(what)
+        if any(x not in (None, False) for x in (tp, ep, pp)):
+            _owed("tensor/expert/pipeline-parallel serving (tp, ep, pp)")
         self._quant = _quant_flag(cache_dtype)
         if paged is False:
             paged = None
@@ -507,14 +553,17 @@ class InferenceEngine:
         self.stats = EngineStats(self.max_slots, clock,
                                  spec=draft_model is not None,
                                  budget=self._budget is not None,
-                                 fork=paged is not None)
+                                 fork=paged is not None, slo=slo)
+        # a watchdog source per engine: with one shared source a wedged
+        # engine would hide behind a sibling that keeps beating
+        self._hb_source = "serve.e" + self.stats.engine_label
         self._fork_seq = itertools.count(1)
 
         model.eval()
         self._params = extract_params(model, dtype=dtype)
         self._statics = dict(n_head=cfg.n_head,
                              eps=float(cfg.layer_norm_eps))
-        self._x = _LocalExec(self)
+        self._x = _ProfExec(_LocalExec(self))
         L, H_kv, D = cfg.n_layer, cfg.n_kv_head, cfg.n_embd // cfg.n_head
         cdt = self._params["wte"].dtype
         dev = self._params["wte"].device
@@ -617,6 +666,14 @@ class InferenceEngine:
             raise ValueError(f"request_id {request.request_id!r} is already "
                              f"in flight")
         handle = RequestHandle(request)
+        t_sub = self._clock()
+        if _reqs._active:
+            # starts this request's timeline, or continues it with a new
+            # hop after a supervisor's requeue
+            _reqs._ledger.on_submit(
+                request.request_id, engine=self.stats.engine_label,
+                t=t_sub, prompt_len=len(request.prompt_ids),
+                max_new_tokens=request.max_new_tokens)
         self.stats.on_submit()
         try:
             self.scheduler.enqueue(request)
@@ -624,8 +681,13 @@ class InferenceEngine:
             self.stats.on_queue_full()
             _trace.event("serve/request_rejected", cat="serve",
                          request=request.request_id, reason="queue_full")
+            if _reqs._active:
+                _reqs._ledger.on_reject(
+                    request.request_id, t=self._clock(),
+                    reason="queue_full", engine=self.stats.engine_label,
+                    started=False)
             raise
-        handle._submit_time = self._clock()
+        handle._submit_time = t_sub
         self._handles[request.request_id] = handle
         if request.n > 1:
             # the scheduler forks n - 1 branches off the slot the moment
@@ -791,6 +853,8 @@ class InferenceEngine:
         self._steps = {}
         self._graph_pool = None
         self.stats.unregister()
+        _monitor.forget(self._hb_source)
+        _stepprof.forget_engine(self.stats.engine_label)
         if self.prefix_cache is not None:
             self.prefix_cache.unregister()
         if self.paged_arena is not None:
@@ -824,20 +888,37 @@ class InferenceEngine:
         in-flight and queued request is rejected typed and the error
         raises."""
         self._check_open()
+        if _monitor.active():
+            # armed before the dispatches: a first step after an idle
+            # spell that wedges is then an armed, silent source
+            _monitor.heartbeat(self._hb_source)
+        if _stepprof._active:
+            _stepprof.begin(self.stats.engine_label, self.step_count)
         try:
             with torch.no_grad():
                 self._grow_live_slots()
                 if any(s is not None for s in self._slots):
                     self._decode_once()
+                if _stepprof._active:
+                    _stepprof.push("schedule")
                 self._schedule(self._clock())
+                if _stepprof._active:
+                    _stepprof.pop()
         except Exception as e:
+            _stepprof.abort()
             err = self._fail(e)
             if err is e:
                 raise
             raise err from e
         self.stats.on_schedule(self.scheduler.queue_depth)
         self.step_count += 1
-        return self.pending
+        if _stepprof._active:
+            _stepprof.end()
+        pending = self.pending
+        if not pending and _monitor.active():
+            # drained: alive, but idle is not hung
+            _monitor.heartbeat(self._hb_source, busy=False)
+        return pending
 
     def run_until_complete(self, max_steps=None):
         """Drive ``step()`` until every submitted request resolves."""
@@ -862,12 +943,31 @@ class InferenceEngine:
         err = cause if isinstance(cause, EngineFailedError) else \
             EngineFailedError(f"engine failed at step {step}: {cause!r}",
                               engine_step=step)
+        _trace.event("serve/engine_failed", cat="serve", step=step,
+                     error=repr(cause), live=self.live_slots,
+                     queued=self.scheduler.queue_depth)
+        self.stats.registry.counter(
+            "resilience.engine_failures",
+            help="serve engines failed by a raising decode/prefill").inc()
+        t_fail = self._clock()
+
+        def rejected(rid, started):
+            _trace.event("serve/request_rejected", cat="serve",
+                         request=rid, reason="engine_failed",
+                         started=started)
+            if _reqs._active:
+                _reqs._ledger.on_reject(rid, t=t_fail,
+                                        reason="engine_failed",
+                                        engine=self.stats.engine_label,
+                                        started=started)
+
         for i, slot in enumerate(self._slots):
             if slot is None:
                 continue
             self._release_prefix(slot)
             self._free_slot_blocks(slot)
             rid = slot.handle.request.request_id
+            rejected(rid, True)
             slot.handle._reject(EngineFailedError(
                 f"{err} ({rid} was in flight, {len(slot.emitted)} tokens "
                 f"emitted)", request_id=rid, started=True, engine_step=step))
@@ -876,6 +976,7 @@ class InferenceEngine:
         for pf in self._prefilling.values():
             rid = pf.request.request_id
             self._free_prefilling(pf)
+            rejected(rid, False)
             pf.handle._reject(EngineFailedError(
                 f"{err} ({rid} was prefilling at offset {pf.off}, nothing "
                 f"streamed)", request_id=rid, started=False,
@@ -884,6 +985,7 @@ class InferenceEngine:
         self._prefilling = {}
         for sw in self._swapped:
             rid = sw.request.request_id
+            rejected(rid, True)
             sw.handle._reject(EngineFailedError(
                 f"{err} ({rid} was swapped out mid-decode, "
                 f"{len(sw.emitted)} tokens emitted)", request_id=rid,
@@ -893,11 +995,50 @@ class InferenceEngine:
         for req in self.scheduler.drain():
             h = self._handles.pop(req.request_id, None)
             if h is not None:
+                rejected(req.request_id, False)
                 h._reject(EngineFailedError(
                     f"{err} ({req.request_id} was queued)",
                     request_id=req.request_id, started=False,
                     engine_step=step))
+        # a request popped from the queue but not yet in a slot (its
+        # prefill raised) streamed nothing: requeue-safe
+        for rid, h in list(self._handles.items()):
+            if not h.done():
+                rejected(rid, False)
+                h._reject(EngineFailedError(
+                    f"{err} ({rid} was admitting, not started)",
+                    request_id=rid, started=False, engine_step=step))
+        self._handles.clear()
+        if _monitor.active():
+            # dead, not hung
+            _monitor.heartbeat(self._hb_source, busy=False)
         return err
+
+    def shed(self, reason="slo_pressure", below_priority=None):
+        """Shed the lowest-priority queued request
+        (``FIFOScheduler.shed_lowest``), rejecting its handle with
+        :class:`LoadShedError`; returns it, or None.  The supervisor's
+        SLO-pressure admission calls this; engine users may too."""
+        victim = self.scheduler.shed_lowest(reason,
+                                            below_priority=below_priority)
+        if victim is None:
+            return None
+        h = self._handles.pop(victim.request_id, None)
+        if h is not None:
+            h._reject(LoadShedError(
+                f"{victim.request_id} shed ({reason}): priority "
+                f"{victim.priority} was the lowest queued under SLO "
+                f"pressure"))
+        _trace.event("serve/shed", cat="serve", reason=reason,
+                     request=victim.request_id, priority=victim.priority)
+        _trace.event("serve/request_rejected", cat="serve",
+                     request=victim.request_id, reason=f"shed:{reason}")
+        if _reqs._active:
+            _reqs._ledger.on_reject(victim.request_id, t=self._clock(),
+                                    reason=f"shed:{reason}",
+                                    engine=self.stats.engine_label,
+                                    started=False)
+        return victim
 
     def _mask_pass(self):
         """The structured slots' vocabulary masks for this step, ``{slot:
@@ -921,6 +1062,10 @@ class InferenceEngine:
         return masks
 
     def _decode_once(self):
+        if _faults._armed:
+            # the chaos hook: a fault here is a raising decode step (the
+            # speculative step's too); step() fails the engine typed
+            _faults.check("serve.decode_step")
         masks = self._mask_pass()
         lanes = [i for i, s in enumerate(self._slots) if s is not None]
         n = len(lanes)
@@ -955,26 +1100,49 @@ class InferenceEngine:
         gather = arena is not None and arena.config.kernel == "gather"
         name = "serve/decode_step" if self.draft is None else \
             "serve/spec_step"
+        _mon = _monitor.active()
+        _hb_t0 = time.perf_counter() if _mon else 0.0
+        fresh = not gather and self.capture and key not in self._steps
+        _sp = _stepprof._active
         with _trace.span(name, cat="serve", step=self.step_count, live=n,
                          width=w):
             self._inputs.load()
             if gather:
                 n_rb = (int(self._pos[lanes].max()) + self._spec_pad) \
                     // arena.block_size + 1
-                toks = self._step_fn(key, n_rb)()
+                run, args = self._step_fn(key, n_rb), ()
             else:
-                toks = self._captured(key)
+                run, args = self._captured, (key,)
+            # the step is one dispatch to the profiler: a replay once
+            # captured, never a call through the executor
+            toks = (_stepprof.timed_dispatch(run, args, {}) if _sp
+                    else run(*args))
+            if _sp:
+                _stepprof.push("sync")
             lps = None
             if with_lp:
                 toks, lps = toks
                 lps = lps.cpu().numpy()
             nxt = toks.cpu().numpy()
+            if _sp:
+                _stepprof.pop()
+        if _mon:
+            # the first step of a key runs eagerly and captures: its time
+            # would poison the step-time estimator
+            _monitor.heartbeat(self._hb_source,
+                               step_time=time.perf_counter() - _hb_t0,
+                               fresh_compile=fresh)
         self.stats.on_decode_step(n)
         now = self._clock()
+        led = _reqs._ledger if _reqs._active else None
+        lbl = self.stats.engine_label
+        if _sp:
+            _stepprof.push("emit")
         for r, i in enumerate(sel):
             if i < 0:
                 continue
             slot = self._slots[i]
+            rid = slot.handle.request.request_id
             if self.draft is None:
                 if slot.group is not None:
                     # summed before _emit, which may retire the slot and
@@ -983,6 +1151,12 @@ class InferenceEngine:
                 self._toks[i] = nxt[r]
                 self._pos[i] += 1
                 self._emit(i, slot, int(nxt[r]), now)
+                if led is not None:
+                    if _sp:
+                        _stepprof.push("ledger")
+                    led.on_step(rid, engine=lbl, t=now, tokens=1)
+                    if _sp:
+                        _stepprof.pop()
                 continue
             # a speculative chunk: the accepted proposals and the
             # correction (or bonus) token, until the request retires
@@ -994,9 +1168,18 @@ class InferenceEngine:
                 emitted += 1
                 if self._slots[i] is not slot:
                     break
+            if led is not None:
+                if _sp:
+                    _stepprof.push("ledger")
+                led.on_step(rid, engine=lbl, t=now, tokens=emitted,
+                            accepted=a_draft, drafted=self.spec_k - 1)
+                if _sp:
+                    _stepprof.pop()
             if self._slots[i] is slot:
                 self._toks[i] = nxt[r, emitted - 1]
                 self._pos[i] += emitted
+        if _sp:
+            _stepprof.pop()
 
     def _step_fn(self, key, n_rb=None):
         """The step of ``key``, a width ``w`` or (``w``, masked, with_lp):
@@ -1083,8 +1266,19 @@ class InferenceEngine:
     def _retire(self, idx, slot, now, finish_reason):
         req = slot.handle.request
         n = len(slot.emitted)
+        _sp = _stepprof._active
+        if _sp:
+            _stepprof.push("retire")
         _trace.event("serve/retire", cat="serve", request=req.request_id,
                      slot=idx, tokens=n, step=self.step_count)
+        if _reqs._active:
+            if _sp:
+                _stepprof.push("ledger")
+            _reqs._ledger.on_retire(req.request_id,
+                                    engine=self.stats.engine_label, t=now,
+                                    finish_reason=finish_reason, tokens=n)
+            if _sp:
+                _stepprof.pop()
         submit_t = getattr(slot.handle, "_submit_time", slot.admit_time)
         result = GenerationResult(
             request_id=req.request_id,
@@ -1110,6 +1304,8 @@ class InferenceEngine:
         self._slots[idx] = None
         self._handles.pop(req.request_id, None)
         self._fork_event(None)
+        if _sp:
+            _stepprof.pop()
 
     def _reject_live(self, idx, slot, error, reason):
         """Reject a live slot's request typed (its client callback
@@ -1124,6 +1320,11 @@ class InferenceEngine:
         self._handles.pop(req.request_id, None)
         _trace.event("serve/request_rejected", cat="serve",
                      request=req.request_id, reason=reason)
+        if _reqs._active:
+            _reqs._ledger.on_reject(req.request_id, t=self._clock(),
+                                    reason=reason,
+                                    engine=self.stats.engine_label,
+                                    started=True)
         slot.handle._reject(error)
         self._fork_event(None)
 
@@ -1433,6 +1634,10 @@ class InferenceEngine:
         _trace.event("serve/preempt", cat="serve", request=req.request_id,
                      slot=idx, reason=reason, pos=pos, blocks_freed=n_freed,
                      tokens=len(sw.emitted))
+        if _reqs._active:
+            _reqs._ledger.on_preempt(req.request_id,
+                                     engine=self.stats.engine_label,
+                                     t=sw.t_preempt)
 
     def _try_resume(self, now):
         """Resume swapped-out requests, highest priority first (FIFO
@@ -1481,6 +1686,10 @@ class InferenceEngine:
             _trace.event("serve/resume", cat="serve",
                          request=sw.request.request_id, slot=idx,
                          pos=sw.pos, swapped_s=now - sw.t_preempt)
+            if _reqs._active:
+                _reqs._ledger.on_resume(sw.request.request_id,
+                                        engine=self.stats.engine_label,
+                                        t=now)
 
     def _blocked_priority(self):
         """A swapped request still waiting after the resume pass outranks
@@ -1500,6 +1709,11 @@ class InferenceEngine:
             self.stats.on_deadline_expired()
             _trace.event("serve/request_rejected", cat="serve",
                          request=req.request_id, reason="deadline")
+            if _reqs._active:
+                _reqs._ledger.on_reject(req.request_id, t=now,
+                                        reason="deadline",
+                                        engine=self.stats.engine_label,
+                                        started=False)
             self._handles.pop(req.request_id)._reject(DeadlineExceededError(
                 f"{req.request_id}: deadline {req.deadline} passed at {now} "
                 f"before a slot was available"))
@@ -1538,8 +1752,11 @@ class InferenceEngine:
         blocked_p = self._blocked_priority()
         chunked = cache is not None or left is not None
         placed = []
+        _sp = _stepprof._active
         for k, req in enumerate(admit):
             got = None
+            if _sp:
+                _stepprof.push("admit")
             # an n > 1 request admits only when a slot for every branch
             # is free this pass: a partly forked family would make the
             # branch count depend on the traffic
@@ -1547,11 +1764,19 @@ class InferenceEngine:
                     and len(free) >= req.n:
                 got = self._claim(req, blocked_p)
             if got is None:
+                if _sp:
+                    _stepprof.pop()
                 for r in reversed(admit[k:]):
                     self.scheduler.requeue_front(r)
                 break
             idx = free.pop(0)
             kids = [free.pop(0) for _ in range(req.n - 1)]
+            if _reqs._active:
+                # the queue-wait phase of this hop ends here
+                _reqs._ledger.on_admit(req.request_id,
+                                       engine=self.stats.engine_label,
+                                       t=now, slot=idx,
+                                       step=self.step_count)
             if chunked:
                 handle = self._handles[req.request_id]
                 self._begin_prefilling(idx, req, now, *got)
@@ -1560,11 +1785,15 @@ class InferenceEngine:
                     self._fork_group_admit(handle, kids, now)
             else:
                 placed.append((idx, req, got[0], kids))
+            if _sp:
+                _stepprof.pop()
         by_len = {}
         for p in placed:
             by_len.setdefault(len(p[1].prompt_ids), []).append(p)
         dev = self._params["wte"].device
         for plen, group in by_len.items():
+            if _sp:
+                _stepprof.push("admit")
             ids = torch.as_tensor(np.stack([r.prompt_ids
                                             for _, r, _, _ in group]),
                                   device=dev)
@@ -1586,6 +1815,8 @@ class InferenceEngine:
                 self._admit(idx, req, now, blocks, logits[r:r + 1])
                 if kids:
                     self._fork_group_admit(handle, kids, now)
+            if _sp:
+                _stepprof.pop()
 
     def _claim(self, req, blocked_p):
         """An admission's cached prefix (pinned before its blocks are
@@ -1599,8 +1830,12 @@ class InferenceEngine:
         plen = len(req.prompt_ids)
         nodes = []
         if cache is not None:
+            if _stepprof._active:
+                _stepprof.push("prefix_lookup")
             nodes = cache.lookup(req.prompt_ids)[
                 :(plen - 1) // cache.block_size]
+            if _stepprof._active:
+                _stepprof.pop()
             cache.acquire(nodes)
         blocks = [] if arena is None else None
         if arena is not None and (blocked_p is None
@@ -1676,6 +1911,13 @@ class InferenceEngine:
                                               B)
                 if self._budget is not None:
                     self.stats.on_budget_chunk()
+                if _reqs._active and (pf.nodes or self._budget is not None):
+                    # the JAX engine's chunk hops: a warm admission's or a
+                    # budgeted one's (its cold admissions without a budget
+                    # prefill whole, in no chunks)
+                    _reqs._ledger.on_prefill_chunk(
+                        req.request_id, engine=self.stats.engine_label,
+                        t=self._clock(), offset=pf.off)
                 pf.off += B
                 if left is not None:
                     left -= B
@@ -1707,7 +1949,7 @@ class InferenceEngine:
             blocks = [n.block for n in nodes] + blocks
         del self._prefilling[idx]
         if cache is not None:
-            cache.on_admit(len(nodes), plen)
+            cache.on_admit(len(nodes), plen, request_id=req.request_id)
         self.stats.on_prefill()
         self._admit(idx, req, pf.t_admit, blocks, logit, nodes,
                     step=pf.admitted_step)
@@ -1754,6 +1996,10 @@ class InferenceEngine:
         self._slots[idx] = slot
         self.stats.on_admission(now - getattr(handle, "_submit_time", now),
                                 t_first - now, warm=bool(nodes))
+        if _reqs._active:
+            _reqs._ledger.on_first_token(req.request_id,
+                                         engine=self.stats.engine_label,
+                                         t=t_first)
         self._toks[idx] = tok0
         self._pos[idx] = plen
         self._temps[idx] = temp
@@ -1839,6 +2085,15 @@ class InferenceEngine:
         # prefill: it balances completions, but records no admission
         # latency, which no client experienced
         self.stats.on_submit()
+        if _reqs._active:
+            lbl = self.stats.engine_label
+            _reqs._ledger.on_submit(child_rid, engine=lbl, t=now,
+                                    prompt_len=len(preq.prompt_ids),
+                                    max_new_tokens=child_req.max_new_tokens)
+            _reqs._ledger.on_admit(child_rid, engine=lbl, t=now,
+                                   slot=child_idx, step=self.step_count,
+                                   branch=branch)
+            _reqs._ledger.on_first_token(child_rid, engine=lbl, t=now)
         _trace.event("serve/fork", cat="serve", request=child_rid,
                      parent=rid, slot=child_idx, branch=branch,
                      pos=int(self._pos[parent_idx]))
@@ -1941,6 +2196,11 @@ class InferenceEngine:
                 branch=sw.branch,
                 score=sw.score if sw.group is not None else None)
             self._fork_event("pruned")
+            if _reqs._active:
+                _reqs._ledger.on_retire(request_id,
+                                        engine=self.stats.engine_label,
+                                        t=now, finish_reason="pruned",
+                                        tokens=n)
             _trace.event("serve/prune", cat="serve", request=request_id,
                          slot=None, tokens=n)
             sw.handle._finish(result)

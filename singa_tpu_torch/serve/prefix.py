@@ -52,6 +52,7 @@ import numpy as np
 import torch
 
 from ..models.gpt2_decode import _leaves, kv_zeros
+from ..observe import requests as _reqs
 from ..observe.registry import registry as _default_registry
 from ..resilience import faults as _faults
 from .paged import _rows
@@ -270,15 +271,20 @@ class PrefixCache:
                 raise RuntimeError(f"prefix-cache refcount underflow "
                                    f"(double release of block {n.block})")
 
-    def on_admit(self, hit_blocks, prompt_len):
+    def on_admit(self, hit_blocks, prompt_len, request_id=None):
         """Metrics of one admission: ``hit_blocks`` cached blocks used
-        against a ``prompt_len``-token prompt."""
+        against a ``prompt_len``-token prompt.  With the request ledger
+        on, the request's timeline gets the cold/warm verdict and the
+        hit tokens (the cache owns hit accounting, the engine timing)."""
         self._c_lookup_tokens.inc(int(prompt_len))
         if hit_blocks > 0:
             self._c_hits.inc()
             self._c_hit_tokens.inc(int(hit_blocks) * self.block_size)
         else:
             self._c_misses.inc()
+        if _reqs._active and request_id is not None:
+            _reqs._ledger.on_prefix(
+                request_id, hit_tokens=int(hit_blocks) * self.block_size)
 
     # -- allocation / eviction ---------------------------------------------
     def _evict_one(self):

@@ -22,6 +22,7 @@ from typing import Callable, Optional
 import numpy as np
 
 __all__ = ["QueueFullError", "DeadlineExceededError", "EngineFailedError",
+           "RestartBudgetExceededError", "FleetDownError", "LoadShedError",
            "GenerationRequest", "GenerationResult", "RequestHandle"]
 
 _req_counter = itertools.count()
@@ -50,6 +51,26 @@ class EngineFailedError(RuntimeError):
         self.request_id = request_id
         self.started = started
         self.engine_step = engine_step
+
+
+class RestartBudgetExceededError(EngineFailedError):
+    """The supervisor's restart budget is spent: the remaining requests
+    are rejected with this instead of being requeued into an engine
+    that keeps dying."""
+
+
+class FleetDownError(EngineFailedError):
+    """Every replica of a fleet is unhealthy, so there is no sibling to
+    fail over to (the fleet that raises it is not ported yet)."""
+
+
+class LoadShedError(RuntimeError):
+    """The request was shed by SLO-pressure admission (the queue at
+    ``SLO.queue_depth_max``): a lower-priority queued request evicted
+    for a higher-priority arrival, or an arrival refused while the
+    queue is saturated.  Unlike :class:`QueueFullError` (the hard
+    bound) shedding is a policy: clients should drop, not retry at
+    once."""
 
 
 @dataclass

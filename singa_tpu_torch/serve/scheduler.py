@@ -11,12 +11,15 @@ same step's ``schedule()`` backfills their slots.
   so a burst of arrivals cannot starve the decode loop;
 * admission control: ``enqueue`` raises :class:`QueueFullError` at
   ``max_queue_depth``, and ``schedule`` drops requests whose deadline
-  passed before it admits any.
+  passed before it admits any;
+* load shedding: ``shed_lowest`` removes the lowest-priority queued
+  request (the SLO-pressure admission of ``EngineSupervisor``), counted
+  in ``serve.shed_requests{reason=}``.
 
 :class:`PriorityScheduler` keeps the queue ordered by priority, FIFO
-within a priority.  The JAX scheduler's request-ledger hooks
-(``observe/requests``) and its SLO load shedding are not ported yet.
-Plain host code: no tensors, no device.
+within a priority.  With the request ledger on, each enqueue records
+how many requests sat ahead of it.  Plain host code: no tensors, no
+device.
 """
 
 from __future__ import annotations
@@ -24,6 +27,8 @@ from __future__ import annotations
 from collections import deque
 from typing import List, Tuple
 
+from ..observe import requests as _reqs
+from ..observe.registry import registry as _registry
 from .request import GenerationRequest, QueueFullError
 
 __all__ = ["FIFOScheduler", "PriorityScheduler"]
@@ -60,6 +65,10 @@ class FIFOScheduler:
     def enqueue(self, request: GenerationRequest):
         self._check_room(request)
         self._queue.append(request)
+        if _reqs._active:
+            _reqs._ledger.annotate_hop(
+                request.request_id,
+                queue_depth_at_enqueue=len(self._queue) - 1)
 
     def drain(self) -> List[GenerationRequest]:
         """Remove and return every queued request, in queue order."""
@@ -72,6 +81,28 @@ class FIFOScheduler:
         blocks did not fit this step: admission order blocks, it never
         skips)."""
         self._queue.appendleft(request)
+
+    def shed_lowest(self, reason, below_priority=None):
+        """Remove and return the lowest-priority queued request (ties: the
+        newest arrival, which has waited least), or None when the queue
+        is empty or nothing sits strictly below ``below_priority``.  Each
+        shed counts in ``serve.shed_requests{reason=}``."""
+        if not self._queue:
+            return None
+        victim_i = None
+        for i, r in enumerate(self._queue):
+            if victim_i is None \
+                    or r.priority <= self._queue[victim_i].priority:
+                victim_i = i
+        victim = self._queue[victim_i]
+        if below_priority is not None and victim.priority >= below_priority:
+            return None
+        del self._queue[victim_i]
+        _registry().counter(
+            "serve.shed_requests",
+            help="queued requests shed by load-shedding admission",
+            reason=reason).inc()
+        return victim
 
     def schedule(self, free_slots: int, now: float
                  ) -> Tuple[List[GenerationRequest],
@@ -107,6 +138,10 @@ class PriorityScheduler(FIFOScheduler):
         while i > 0 and self._queue[i - 1].priority < p:
             i -= 1
         self._queue.insert(i, request)
+        if _reqs._active:
+            # its real place: ahead of every lower priority it overtook
+            _reqs._ledger.annotate_hop(request.request_id,
+                                       queue_depth_at_enqueue=i)
 
     def requeue_front(self, request: GenerationRequest):
         """Head of the request's own priority class: ahead of equal

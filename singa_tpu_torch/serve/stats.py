@@ -44,15 +44,22 @@ an ``engine=<n>`` label, one label value per engine.
   ``prune()``) and the gauge ``serve.fork.shared_blocks`` (arena blocks
   with more than one reference); None on the slot arena.
 
+* **slo** (an engine built with ``slo=observe.SLO(...)``): the targets
+  and the ``serve.slo_violations{kind=ttft|tpot|queue}`` counters: a
+  retiring request whose TTFT passes ``ttft_p99_s`` or whose TPOT passes
+  ``tpot_p50_s``, and a scheduling pass that leaves the queue deeper
+  than ``queue_depth_max``, each with a ``serve/slo_violation`` or
+  ``serve/queue_pressure`` trace instant; None without an SLO.
+
 All times come from the engine's clock, so a fake clock makes the
-snapshot deterministic in tests.  The JAX version's SLO targets are not
-ported yet.
+snapshot deterministic in tests.
 """
 
 from __future__ import annotations
 
 import itertools
 
+from ..observe import trace as _trace
 from ..observe.registry import registry
 
 __all__ = ["EngineStats"]
@@ -66,7 +73,7 @@ class EngineStats:
     engine's ``close()``)."""
 
     def __init__(self, max_slots: int, clock, reg=None, spec=False,
-                 budget=False, fork=False):
+                 budget=False, fork=False, slo=None):
         self.max_slots = int(max_slots)
         self._clock = clock
         self._t0 = clock()
@@ -144,6 +151,18 @@ class EngineStats:
                 "serve.fork.shared_blocks",
                 help="arena blocks referenced more than once", **lbl)
             self._registered += list(self._fork.values())
+        # recency-weighted TPOT, None until the first multi-token retire
+        self.tpot_ewma = None
+        self._tpot_alpha = 0.25
+        self.slo = slo
+        self._slo_viol = {}
+        if slo is not None:
+            for kind in ("ttft", "tpot", "queue"):
+                self._slo_viol[kind] = c(
+                    "serve.slo_violations",
+                    help="requests/steps beyond the declared SLO target",
+                    kind=kind, **lbl)
+            self._registered += list(self._slo_viol.values())
         self._queue_depth_sum = 0
         self._queue_depth_max = 0
         self._queue_samples = 0
@@ -212,12 +231,36 @@ class EngineStats:
         self._queue_depth_sum += queue_depth
         self._queue_depth_max = max(self._queue_depth_max, queue_depth)
         self._queue_depth.set(queue_depth)
+        slo = self.slo
+        if (slo is not None and slo.queue_depth_max is not None
+                and queue_depth > slo.queue_depth_max):
+            self._slo_viol["queue"].inc()
+            _trace.event("serve/queue_pressure", cat="serve",
+                         depth=queue_depth, limit=slo.queue_depth_max)
 
     def on_complete(self, result):
         self._completed.inc()
         self.ttft.record(result.ttft)
         if result.tpot is not None:
             self.tpot.record(result.tpot)
+            a = self._tpot_alpha
+            self.tpot_ewma = (result.tpot if self.tpot_ewma is None
+                              else (1 - a) * self.tpot_ewma
+                              + a * result.tpot)
+        slo = self.slo
+        if slo is None:
+            return
+        if slo.ttft_p99_s is not None and result.ttft > slo.ttft_p99_s:
+            self._slo_viol["ttft"].inc()
+            _trace.event("serve/slo_violation", cat="serve", kind="ttft",
+                         request=result.request_id, value=result.ttft,
+                         target=slo.ttft_p99_s)
+        if (slo.tpot_p50_s is not None and result.tpot is not None
+                and result.tpot > slo.tpot_p50_s):
+            self._slo_viol["tpot"].inc()
+            _trace.event("serve/slo_violation", cat="serve", kind="tpot",
+                         request=result.request_id, value=result.tpot,
+                         target=slo.tpot_p50_s)
 
     def snapshot(self) -> dict:
         wall = max(self._clock() - self._t0, 1e-9)
@@ -232,14 +275,18 @@ class EngineStats:
             "throughput": {
                 "tokens_out": self.tokens_out,
                 "wall_s": wall,
+                "uptime_s": wall,
                 "tokens_per_s": self.tokens_out / wall,
+                # every emitted token was asked for: this is goodput
+                "goodput_tokens_per_s": self.tokens_out / wall,
                 "prefills": self._prefills.value,
                 "decode_steps": steps,
             },
             "latency": {"ttft": self.ttft.summary(),
                         "tpot": self.tpot.summary(),
                         "admission": {k: v.series.summary() for k, v
-                                      in self._h_admission.items()}},
+                                      in self._h_admission.items()},
+                        "tpot_ewma_s": self.tpot_ewma},
             "queue": {
                 "mean_depth": (self._queue_depth_sum / self._queue_samples
                                if self._queue_samples else 0.0),
@@ -250,6 +297,10 @@ class EngineStats:
                 "occupancy_mean": (self._occupancy_sum / steps
                                    if steps else 0.0),
             },
+            "slo": (None if self.slo is None else {
+                "targets": self.slo.asdict(),
+                "violations": {k: m.value
+                               for k, m in self._slo_viol.items()}}),
             "paged": (self.paged_source()
                       if self.paged_source is not None else None),
             "prefix": (self.prefix_source()

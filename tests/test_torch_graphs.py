@@ -384,6 +384,83 @@ def test_engine_decode_step_is_capturable(tiny, guard, monkeypatch):
     eng.close()
 
 
+@pytest.fixture
+def every_hook():
+    """The request ledger, the step profiler, the monitor (watchdog, flight
+    recorder, MFU meter) and tracing all on; off again after."""
+    from singa_tpu_torch.observe import monitor, requests, stepprof, trace
+
+    requests.enable(capacity=64)
+    stepprof.enable()
+    monitor.start(thread=False)
+    trace.enable()
+    yield
+    trace.disable()
+    trace.clear()
+    monitor.stop()
+    stepprof.disable()
+    requests.disable()
+
+
+def test_engine_decode_step_is_capturable_with_every_hook_on(
+        tiny, guard, monkeypatch, every_hook):
+    """The decode step with every observability hook on and an SLO (the
+    ledger's step records, the profiler's fences and device window, the
+    watchdog's heartbeat, the trace span) over fork groups and plain
+    requests runs no op a graph cannot take: the hooks are host code
+    around the dispatch, and the profiler's wait never runs while a
+    stream captures."""
+    from singa_tpu_torch.observe import SLO, requests, stepprof
+
+    eng = tiny.serve(max_slots=4, paged=PagedConfig(block_size=8,
+                                                    num_blocks=64),
+                     slo=SLO(ttft_p99_s=1.0, tpot_p50_s=0.5,
+                             queue_depth_max=2))
+    orig = eng._decode_once
+
+    def guarded():
+        with guard:
+            orig()
+
+    monkeypatch.setattr(eng, "_decode_once", guarded)
+    hs = _submit(eng, _work(1, 6))
+    fh = eng.submit(GenerationRequest(np.arange(6, dtype=np.int32),
+                                      max_new_tokens=5, n=2))
+    eng.run_until_complete(max_steps=200)
+    assert eng.stats.decode_steps > 0
+    assert guard.bad == [], guard.bad
+    assert all(h.done() for h in hs) and len(fh.branches) == 2
+    lbl = eng.stats.engine_label
+    assert stepprof.section()["engines"][lbl]["steps"] == eng.step_count
+    assert len(requests.ledger().entries()) == len(hs) + 2
+    eng.close()
+
+
+def test_observe_and_supervisor_import_neither_jax_nor_singa_tpu():
+    """A fresh interpreter importing every module this slice added (the
+    whole of ``observe/`` and ``serve/supervisor.py``) loads no module of
+    JAX, of the JAX package, of ``singa/`` or of ``experiments/``."""
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parent.parent
+    mods = ", ".join(f"singa_tpu_torch.observe.{m}" for m in (
+        "export", "federate", "health", "monitor", "registry", "requests",
+        "slo", "stepprof", "timeseries", "trace"))
+    code = (f"import sys, importlib\n"
+            f"for m in '{mods}'.split(', '): importlib.import_module(m)\n"
+            f"import singa_tpu_torch.serve.supervisor\n"
+            f"bad = [m for m in sys.modules if m.split('.')[0] in "
+            f"('jax', 'jaxlib', 'singa_tpu', 'singa', 'experiments')]\n"
+            f"assert not bad, bad\n")
+    env = dict(os.environ, PYTHONPATH=str(root))
+    res = subprocess.run([sys.executable, "-c", code], cwd=root, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+
+
 @pytest.mark.parametrize("cache_dtype", [None, "int8"], ids=["dense", "int8"])
 def test_slot_arena_decode_step_is_capturable(tiny, guard, monkeypatch,
                                               cache_dtype):

@@ -35,6 +35,7 @@ from singa_tpu.serve import PagedConfig as JPagedConfig
 from singa_tpu_torch import device, tensor
 from singa_tpu_torch.models import gpt2_decode as gd
 from singa_tpu_torch.models.gpt2 import GPT2Config, GPT2LMHead
+from singa_tpu_torch.observe import SLO
 from singa_tpu_torch.serve import (FIFOScheduler, GenerationRequest,
                                    PagedConfig, PriorityScheduler,
                                    QueueFullError)
@@ -334,9 +335,19 @@ def test_engine_refuses_what_is_not_ported(models, kw):
     tests/test_torch_prefix.py); ``draft_model`` (the model itself here)
     builds a speculative engine, and ``spec_k`` without a draft is the
     JAX engine's typed ``ValueError`` (their behaviour:
-    tests/test_torch_spec.py)."""
+    tests/test_torch_spec.py); ``slo``, ported since, builds an engine
+    counting violations against the ``observe.SLO`` (its behaviour:
+    tests/test_torch_supervisor.py)."""
     _, tm = models
     kw = {"paged": PagedConfig(block_size=8, num_blocks=8), **kw}
+    if "slo" in kw:
+        slo = SLO(ttft_p99_s=1.0, queue_depth_max=4)
+        eng = tm.serve(**dict(kw, slo=slo))
+        snap = eng.stats.snapshot()["slo"]
+        assert snap["targets"] == slo.asdict()
+        assert snap["violations"] == {"ttft": 0, "tpot": 0, "queue": 0}
+        eng.close()
+        return
     if "draft_model" in kw:
         eng = tm.serve(**dict(kw, draft_model=tm))
         assert eng.draft is tm and eng.spec_k == 4
