@@ -184,6 +184,31 @@ exits nonzero:
                     accuracy > 0.9), and ``schedule_probe`` (an
                     ``ExponentialDecay`` rate read off replayed steps
                     against its formula).
+10a. ``dist``      - data-parallel training, BASELINE config 5: ResNet-152
+                    (60.2M), 64 x 224² random images from a seed, bf16
+                    amp, ``DistOpt(SGD(0.005, 0.9, wd 1e-5))``, spars
+                    0.05 (``examples/cnn/train_dist.py``'s defaults), one
+                    process joined to a one-rank NCCL group
+                    (``initialize_distributed`` on a localhost port).
+                    Each ``dist_option`` (plain, fp16, partialUpdate,
+                    sparseTopK, sparseThreshold), under deterministic
+                    algorithms: 4 eager steps against 4 graph-mode ones
+                    (eager first call, capture, replays) from one seed,
+                    every state bit for bit, the collectives traced while
+                    the step was captured (``comms/*`` events), the bytes
+                    issued against ``dist_wire_bytes``; then host ms of 6
+                    replays, images/s, a 2-replay profile (busy share,
+                    device ms by group), ``comms.collectives`` and
+                    ``comms.bytes`` a step.  The bare SGD and top-K at
+                    spars 1.0 equal plain bit for bit.  Then two ranks
+                    on the one card over gloo (NCCL takes one rank a
+                    GPU): this script spawned twice with ``--dist-rank``
+                    (joined within 300 s; a rank that fails fails the
+                    phase), an MLP (64 -> 256 -> 10, float32) 4 eager
+                    steps of partialUpdate and of sparseTopK on CUDA
+                    tensors and then on the CPU from the same weights,
+                    every parameter and residual within
+                    ``DIST_TWIN_ATOL``.
 11. ``serve``      - serves GPT-2 small (124M, 12 layers, n_positions 1024,
                     random weights from a seed) through the paged engine,
                     ``model.serve(max_slots=8, paged=PagedConfig(
@@ -351,6 +376,23 @@ exits nonzero:
                     refused arrivals raise at submit, counted exactly by
                     ``serve.shed_requests{reason=slo_pressure|
                     slo_admission}``.
+14i. ``moe``       - GPT-2 small with every second MLP a mixture of 8
+                    experts (top-2, capacity 1.25, aux weight 0.01; 0.32B
+                    parameters), trained as ``slice`` trains GPT-2 small
+                    (8 x 1024, bf16 amp, SGD(1e-4, 0.9), dropout 0): 4
+                    eager against 4 graph-mode steps from one seed under
+                    deterministic algorithms (``CAPTURE_RTOL``), 12
+                    launches of each flash kernel a replayed step on the
+                    tensor-core route (credited to the kernels line),
+                    host ms a step, tokens/s, busy share, and each MoE
+                    layer's kept tokens per expert and dropped share
+                    (``parallel.moe.dispatch_load``); then the same
+                    model served on the serve phase's engine and traffic
+                    (``observed_run``: a warm-up pass, then a measured
+                    pass that captures no graph and launches
+                    ``paged_attn`` 12 times a step): float32 streams
+                    equal the gather oracle's and offline ``generate``'s;
+                    bf16 TTFT and TPOT medians.
 15. ``paged_kernels`` - ``paged_attn`` (its split and combine kernels)
                     against ``paged_attn_plain``, on float32, bf16 and
                     float16 pools and on int8 pools with float32, bf16
@@ -384,12 +426,25 @@ main path (the graph-mode runs: a replay credits the launches its graph
 holds), error, times and bound, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``.  Needs a CUDA GPU; there is no CPU
 mode.
+
+    python3 chip_smoke.py --dist-world N
+
+runs only the ``dist`` phase's ResNet-152 modes, one process a GPU over
+NCCL, at world size 1 and then N (``dist_world``): each rank draws its
+own 64 images from seed 1000 + rank, and in every mode checks its
+graph-mode steps against as many eager ones from the same weights (at
+W > 1 partialUpdate takes ``dist_steps``: every phase's graph captured
+and then replayed), bit for bit at W = 1 and within ``DIST_WORLD_RTOL``
+of each state's update at W > 1, and every state against rank 0's bit
+for bit.  One JSON line a world size: rank 0's report for each mode and
+every rank's ms a step.  Needs N GPUs.
 """
 
 from __future__ import annotations
 
 import contextlib
 import functools
+import gc
 import itertools
 import json
 import math
@@ -2575,6 +2630,493 @@ def phase_zoo(seed=ZOO_SEED):
     finally:
         amp.set_compute_dtype(prev_amp)
     return report
+
+
+# ------------------------------------------------------------------- dist
+
+#: BASELINE.json config 5 as ``examples/cnn/train_dist.py`` defaults it:
+#: ResNet-152, batch 64 of 224², bf16 amp, SGD(0.005, 0.9, wd 1e-5),
+#: spars 0.05 for the sparse modes; DIST_STEPS graph-mode steps (eager,
+#: capture, replays) against as many eager ones, then DIST_TIMED replays
+#: timed and DIST_PROFILED profiled
+DIST_RUN = dict(batch=64, hw=224, classes=1000, spars=0.05,
+                sgd=dict(lr=0.005, momentum=0.9, weight_decay=1e-5))
+DIST_MODES = ("plain", "fp16", "partialUpdate", "sparseTopK",
+              "sparseThreshold")
+DIST_STEPS = 4
+DIST_TIMED = 6
+DIST_PROFILED = 2
+#: the two ranks' twin run: an MLP (64 -> 256 -> 10) on a batch of 32
+#: (16 a rank), float32, SGD(0.05, 0.9), DIST_TWIN_STEPS eager steps of
+#: partialUpdate and of sparseTopK (spars 0.05), once on CUDA tensors and
+#: once on the CPU in the same two processes over one gloo group
+DIST_TWIN = dict(batch=32, features=64, hidden=256, classes=10, spars=0.05,
+                 sgd=dict(lr=0.05, momentum=0.9))
+DIST_TWIN_STEPS = 4
+#: card against CPU after 4 steps: float32 products summed in other
+#: orders (cuBLAS against the CPU's GEMM), values O(0.1)
+DIST_TWIN_ATOL = 1e-5
+DIST_JOIN_S = 300
+#: ``--dist-world``, W > 1: a state's largest difference between the
+#: captured and the eager steps, against its largest change over those
+#: steps.  NCCL may sum in another order under capture, and bf16 amp
+#: carries that on; a phase of partialUpdate that skips its sync leaves
+#: its parameters a synced update (a third or more of their change) short
+DIST_WORLD_RTOL = 0.05
+DIST_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "_scratch", "chip_smoke_dist")
+
+
+def free_port():
+    """A free TCP port on this host, for a one-machine rendezvous."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def dist_wire_bytes(mode, sizes, world, spars, step=0):
+    """The bytes one rank sends in a step of ``mode``, as the
+    communicator reckons them (``comms.bytes``): every float32 gradient
+    (plain, the threshold mode's masked one), bf16 (``fp16``: half), the
+    round-robin turn's gradients (``partialUpdate``: 1/W of them), or
+    ceil(spars · n) (int32 index, float32 value) pairs a tensor
+    (``sparseTopK``; the gather brings back W of them)."""
+    if mode == "fp16":
+        return 2 * sum(sizes)
+    if mode == "partialUpdate":
+        return 4 * sum(n for i, n in enumerate(sizes)
+                       if i % world == step % world)
+    if mode == "sparseTopK":
+        return sum(8 * max(1, math.ceil(spars * n)) for n in sizes)
+    return 4 * sum(sizes)
+
+
+def comms_counts():
+    """``comms.collectives`` and ``comms.bytes`` summed over their ops."""
+    from singa_tpu_torch.observe.registry import registry
+
+    ops = ("all_reduce", "fused_synch", "synch_half", "fused_synch_half",
+           "sparse_topk", "sparse_threshold", "all_gather")
+    reg = registry()
+    return (sum(reg.counter("comms.collectives", op=o).value for o in ops),
+            sum(reg.counter("comms.bytes", op=o).value for o in ops))
+
+
+def dist_resnet(mode, dev, x, seed, use_graph, dist=True, spars=None):
+    """ResNet-152 with ``DIST_RUN``'s SGD (wrapped in ``DistOpt`` unless
+    ``dist`` is False) whose ``train_one_batch`` takes ``mode``, compiled
+    on ``x`` right after seeding (its weights come from ``seed``)."""
+    from singa_tpu_torch import opt
+    from singa_tpu_torch.models.resnet import resnet152
+    from singa_tpu_torch.parallel.dist_opt import DistOpt
+
+    r = DIST_RUN
+    dev.SetRandSeed(seed)
+    m = resnet152(num_classes=r["classes"])
+    sgd = opt.SGD(**r["sgd"])
+    m.set_optimizer(DistOpt(sgd) if dist else sgd)
+    base = m.train_one_batch
+    sp = r["spars"] if spars is None else spars
+    m.train_one_batch = lambda xb, yb: base(xb, yb, dist_option=mode,
+                                            spars=sp)
+    # parameters take their shapes from any batch: compile on two images
+    m.compile([x[:2]], is_train=True, use_graph=use_graph)
+    return m
+
+
+def dist_steps(mode, world):
+    """Graph-mode steps compared with eager ones: ``DIST_STEPS`` (eager
+    first call, capture, two replays), and for partialUpdate at W > 1,
+    which keys one graph a phase, 3(W - 1) more, so that W + 1 eager
+    calls and W captures are followed by W replays."""
+    return DIST_STEPS + (3 * (world - 1) if mode == "partialUpdate" else 0)
+
+
+def comms_in_capture(m, x, y, steps=2):
+    """Run ``steps`` of ``m``'s graph-mode steps (by default the eager
+    first call and the capture), tracing: the ``comms/*`` events issued,
+    and those issued while the stream captured (the all-reduces baked
+    into the graphs)."""
+    from singa_tpu_torch.observe import trace as tr
+
+    tr.clear()
+    tr.enable()
+    try:
+        for _ in range(steps):
+            m(x, y)
+    finally:
+        tr.disable()
+    ev = [e for e in tr.drain() if e["name"].startswith("comms/")]
+    return {"issued": len(ev),
+            "while_capturing": sum(bool((e.get("args") or {}).get(
+                "captured")) for e in ev)}
+
+
+def phase_dist(seed=0):
+    """BASELINE config 5, DistOpt's five modes over NCCL at world size 1,
+    then the two-rank gloo twin (module docstring)."""
+    import torch.distributed as tdist
+
+    from singa_tpu_torch import amp, device, tensor
+    from singa_tpu_torch.parallel import communicator
+
+    r = DIST_RUN
+    communicator.initialize_distributed(
+        coordinator_address=f"localhost:{free_port()}", num_processes=1,
+        process_id=0, backend="nccl", initialization_timeout=300)
+    try:
+        dev = device.create_cuda_gpu()
+        amp.enable()
+        rng = np.random.RandomState(seed)
+        images = rng.randn(r["batch"], 3, r["hw"], r["hw"]).astype(
+            np.float32)
+        labels = rng.randint(0, r["classes"], r["batch"]).astype(np.int32)
+        x, y = tensor.from_numpy(images, dev), tensor.from_numpy(labels,
+                                                                 dev)
+        modes, marks = {}, [("start", time.perf_counter())]
+        with deterministic():
+            for mode in DIST_MODES:
+                modes[mode], st = dist_mode(mode, dev, x, y, seed)
+                marks.append((mode, time.perf_counter()))
+                if mode == "plain":
+                    plain = st
+                del st
+                torch.cuda.empty_cache()
+            # plain DistOpt at world 1 against the bare SGD; top-K at
+            # spars 1.0 against plain: bit for bit
+            bare = dist_resnet("plain", dev, x, seed, True, dist=False)
+            for _ in range(DIST_STEPS):
+                bare(x, y)
+            full = dist_resnet("sparseTopK", dev, x, seed, True, spars=1.0)
+            for _ in range(DIST_STEPS):
+                full(x, y)
+            sizes = [p.numel() for p in bare.get_params().values()]
+            for name, m in (("sgd_without_distopt", bare),
+                            ("sparseTopK_spars_1", full)):
+                diff = [k for k, v in m.get_states().items()
+                        if not torch.equal(v, plain[k])]
+                if diff:
+                    raise AssertionError(f"{name}: {len(diff)} states differ "
+                                         f"from DistOpt plain's, e.g. "
+                                         f"{diff[:3]}")
+        sgd_ms = time_replays(bare, x, y)
+        marks.append(("sgd_and_spars_1", time.perf_counter()))
+        del bare, full, plain
+        torch.cuda.empty_cache()
+        amp.enable(False)
+    finally:
+        # free the captured graphs (their NCCL work) before the group
+        gc.collect()
+        torch.cuda.synchronize()
+        tdist.destroy_process_group()
+    twin = dist_twin()
+    marks.append(("two_ranks_gloo", time.perf_counter()))
+    log({"phase": "dist", "model": "resnet152", "params": sum(sizes),
+         "batch": r["batch"], "hw": r["hw"], "amp": "bf16",
+         "optimizer": "DistOpt(SGD(lr=0.005, momentum=0.9, "
+                      "weight_decay=1e-5))", "spars": r["spars"],
+         "world": 1, "backend": "nccl", "modes": modes,
+         "sgd_without_distopt_captured_ms": sgd_ms,
+         "plain_equals_sgd_bitwise": True,
+         "sparseTopK_spars_1_equals_plain_bitwise": True,
+         "two_ranks_gloo": twin,
+         "seconds": {n: t - marks[i][1]
+                     for i, (n, t) in enumerate(marks[1:])},
+         "nvidia_smi": nvidia_smi()})
+
+
+def time_replays(m, x, y, n=DIST_TIMED):
+    """Host ms of ``n`` replays of ``m``'s captured step, each read to its
+    loss; their median."""
+    ms = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        _, loss = m(x, y)
+        loss.item()
+        ms.append((time.perf_counter() - t) * 1e3)
+    return statistics.median(ms)
+
+
+def dist_mode(mode, dev, x, y, seed, world=1):
+    """One mode: ``dist_steps`` eager steps against graph-mode ones from
+    one state (bit for bit at world size 1, within ``DIST_WORLD_RTOL``
+    above it), the collectives baked into the capture, then timed and
+    profiled replays; returns (report, the states after the compared
+    steps)."""
+    r = DIST_RUN
+    n = dist_steps(mode, world)
+    eager = dist_resnet(mode, dev, x, seed, False)
+    start = {k: v.detach().clone() for k, v in eager.get_states().items()} \
+        if world > 1 else None
+    n0, b0 = comms_counts()
+    e_loss = []
+    for _ in range(n):
+        e_loss.append(eager(x, y)[1].item())
+    n1, b1 = comms_counts()
+    sizes = [p.numel() for p in eager.get_params().values()]
+    want = sum(dist_wire_bytes(mode, sizes, world, r["spars"], s)
+               for s in range(n))
+    if b1 - b0 < want:
+        raise AssertionError(f"{mode}: {b1 - b0} bytes issued over "
+                             f"{n} steps, the sync alone needs {want}")
+    final = {k: v.detach().clone() for k, v in eager.get_states().items()}
+    del eager
+    graph = dist_resnet(mode, dev, x, seed, True)
+    cap = comms_in_capture(graph, x, y, n - 2)
+    if cap["while_capturing"] == 0:
+        raise AssertionError(f"{mode}: no collective issued while the step "
+                             f"was captured: {cap}")
+    g_loss = [None] * (n - 2) + [graph(x, y)[1].item() for _ in range(2)]
+    states = {k: v.detach().clone() for k, v in graph.get_states().items()}
+    diff = [k for k, v in states.items() if not torch.equal(v, final[k])]
+    worst = 0.0
+    if world == 1:
+        if diff:
+            raise AssertionError(f"{mode}: captured steps differ from eager "
+                                 f"ones in {len(diff)} states, e.g. "
+                                 f"{diff[:3]}")
+        if g_loss[2:] != e_loss[2:]:
+            raise AssertionError(f"{mode}: replayed losses {g_loss[2:]} != "
+                                 f"eager {e_loss[2:]}")
+    for k in diff:
+        moved = (final[k].float() - start[k].float()).abs().max().item()
+        off = (states[k].float() - final[k].float()).abs().max().item()
+        rel = off / moved if moved else math.inf
+        worst = max(worst, rel)
+        if rel > DIST_WORLD_RTOL:
+            raise AssertionError(
+                f"{mode}: captured steps differ from eager ones in {k} by "
+                f"{off}, {rel:.3g} of its change {moved} over {n} steps "
+                f"(> {DIST_WORLD_RTOL})")
+    del final, start
+    med = time_replays(graph, x, y)
+    prof = profile_steps(graph, x, y, steps=DIST_PROFILED,
+                         groups=RESNET_GROUPS)
+    return {"captured_ms": med, "images_per_s": r["batch"] / med * 1e3,
+            "device_busy_share": prof["device_busy_share"],
+            "device_ms_per_step": prof["device_ms_per_step"],
+            "group_ms_per_step": prof["group_ms_per_step"],
+            "compared_steps": n,
+            "comms_collectives_per_step": (n1 - n0) / n,
+            "comms_bytes_per_step": (b1 - b0) / n,
+            "wire_bytes_per_step_reckoned": want / n,
+            "dense_bytes_per_step": 4 * sum(sizes),
+            "collectives_in_capture": cap,
+            "eager_losses": e_loss, "captured_losses": g_loss[n - 2:],
+            "captured_equal_eager_bitwise": not diff,
+            "captured_vs_eager_max_rel": worst}, states
+
+
+def dist_twin():
+    """Two ranks on the one card over gloo (NCCL takes one rank a GPU):
+    spawn this script twice as ``--dist-rank``, join each within
+    ``DIST_JOIN_S``; every rank's parameters and residuals on CUDA tensors
+    must equal its CPU run's within ``DIST_TWIN_ATOL``."""
+    os.makedirs(DIST_DIR, exist_ok=True)
+    init = os.path.join(DIST_DIR, f"rendezvous-{os.getpid()}")
+    if os.path.exists(init):
+        os.unlink(init)
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--dist-rank", str(rk),
+         "--dist-init", f"file://{init}"]) for rk in range(2)]
+    deadline = time.monotonic() + DIST_JOIN_S
+    rcs = []
+    try:
+        for p in procs:
+            rcs.append(p.wait(max(1.0, deadline - time.monotonic())))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    if rcs != [0, 0]:
+        raise AssertionError(f"two-rank gloo run: exit codes {rcs}")
+    out = [json.load(open(os.path.join(DIST_DIR, f"twin-r{rk}.json")))
+           for rk in range(2)]
+    worst = max(v for o in out for v in o["max_abs_diff"].values())
+    if worst > DIST_TWIN_ATOL:
+        raise AssertionError(f"card vs CPU: {worst} > {DIST_TWIN_ATOL}: "
+                             f"{out}")
+    return {"ranks": out, "max_abs_diff": worst, "atol": DIST_TWIN_ATOL}
+
+
+def dist_rank_main(rank, init):
+    """One rank of ``dist_twin``: partialUpdate and sparseTopK on CUDA
+    tensors, then on the CPU, from one seed; writes the largest
+    differences of parameters and residuals to ``twin-r<rank>.json``."""
+    from singa_tpu_torch import device, opt, tensor
+    from singa_tpu_torch.models.mlp import MLP
+    from singa_tpu_torch.parallel import communicator
+    from singa_tpu_torch.parallel.dist_opt import DistOpt
+
+    t = DIST_TWIN
+    communicator.initialize_distributed(
+        init_method=init, num_processes=2, process_id=rank, backend="gloo",
+        initialization_timeout=120)
+    try:
+        rng = np.random.RandomState(0)
+        xs = rng.randn(DIST_TWIN_STEPS, t["batch"], t["features"]) \
+            .astype(np.float32)
+        ys = rng.randint(0, t["classes"], (DIST_TWIN_STEPS, t["batch"])) \
+            .astype(np.int32)
+        half = t["batch"] // 2
+        sl = slice(rank * half, (rank + 1) * half)
+
+        cpu = device.create_cpu_device()
+        cpu.SetRandSeed(0)
+        init_states = {}
+
+        def run(mode, dev):
+            m = MLP(perceptron_size=t["hidden"], num_classes=t["classes"])
+            dopt = DistOpt(opt.SGD(**t["sgd"]))
+            m.set_optimizer(dopt)
+            m.compile([tensor.from_numpy(xs[0, sl], dev)], is_train=True,
+                      use_graph=False)
+            # every rank and both devices start from the CPU's seeded
+            # weights
+            if not init_states:
+                init_states.update({k: v.detach().cpu().clone()
+                                    for k, v in m.get_states().items()})
+            m.set_states(init_states)
+            for i in range(DIST_TWIN_STEPS):
+                m.train_one_batch(tensor.from_numpy(xs[i, sl], dev),
+                                  tensor.from_numpy(ys[i, sl], dev),
+                                  dist_option=mode, spars=t["spars"])
+            out = {k: v.detach().cpu() for k, v in m.get_params().items()}
+            out.update({f"residual/{k}": v.cpu()
+                        for k, v in dopt.residuals().items()})
+            return out
+
+        diffs = {}
+        for mode in ("partialUpdate", "sparseTopK"):
+            host = run(mode, cpu)
+            card = run(mode, device.create_cuda_gpu())
+            if set(card) != set(host) or not any(
+                    k.startswith("residual/") for k in card):
+                raise AssertionError(f"{mode}: states {sorted(card)}")
+            diffs[mode] = max((card[k] - host[k]).abs().max().item()
+                              for k in card)
+        with open(os.path.join(DIST_DIR, f"twin-r{rank}.json"), "w") as f:
+            json.dump({"rank": rank, "max_abs_diff": diffs,
+                       "device": torch.cuda.get_device_name(0)}, f)
+    finally:
+        import torch.distributed as tdist
+
+        tdist.destroy_process_group()
+
+
+def dist_world(world):
+    """``--dist-world``: ``world`` ranks, one a GPU, spawned as
+    ``--dist-world-rank`` over an NCCL group on a localhost port; each
+    must exit 0 within ``DIST_JOIN_S`` (a rank whose report is written
+    and that then hangs leaving the group is killed 30 s after the last
+    report and named in ``rank_exit``).  Returns rank 0's report a mode
+    with the run's images/s and every rank's ms a step."""
+    os.makedirs(DIST_DIR, exist_ok=True)
+    port = free_port()
+    outs = [os.path.join(DIST_DIR, f"world{world}-r{rk}.json")
+            for rk in range(world)]
+    for o in outs:
+        if os.path.exists(o):
+            os.unlink(o)
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--dist-world-rank",
+         str(rk), "--dist-world", str(world), "--dist-port", str(port)])
+        for rk in range(world)]
+    deadline, reported = time.monotonic() + DIST_JOIN_S, None
+    try:
+        while any(p.poll() is None for p in procs):
+            now = time.monotonic()
+            if reported is None and all(os.path.exists(o) for o in outs):
+                reported = now
+            if now > deadline or (reported is not None
+                                  and now - reported > 30):
+                break
+            time.sleep(0.5)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+    rcs = [p.returncode for p in procs]
+    if not all(os.path.exists(o) for o in outs) or any(
+            rc != 0 for rc, p in zip(rcs, procs) if reported is None):
+        raise AssertionError(f"world {world}: exit codes {rcs}")
+    ranks = [json.load(open(o)) for o in outs]
+    r0 = ranks[0]["modes"]
+    return {"world": world, "batch_a_rank": DIST_RUN["batch"],
+            "rank_exit": rcs, "modes": {m: dict(
+                r0[m], images_per_s_all_ranks=world * r0[m]["images_per_s"],
+                rank_captured_ms=[rk["modes"][m]["captured_ms"]
+                                  for rk in ranks]) for m in DIST_MODES}}
+
+
+def dist_world_rank_main(rank, world, port):
+    """One rank of ``dist_world``: every mode through ``dist_mode`` on
+    this rank's images, then its states gathered and held against rank
+    0's bit for bit; writes its reports to ``world<W>-r<rank>.json``."""
+    import torch.distributed as tdist
+
+    from singa_tpu_torch import amp, device, tensor
+    from singa_tpu_torch.parallel import communicator
+
+    r = DIST_RUN
+    communicator.initialize_distributed(
+        coordinator_address=f"localhost:{port}", num_processes=world,
+        process_id=rank, backend="nccl", initialization_timeout=DIST_JOIN_S)
+    try:
+        comm = communicator.Communicator()
+        dev = device.create_cuda_gpu_on(torch.cuda.current_device())
+        amp.enable()
+        rng = np.random.RandomState(1000 + rank)
+        x = tensor.from_numpy(rng.randn(r["batch"], 3, r["hw"], r["hw"])
+                              .astype(np.float32), dev)
+        y = tensor.from_numpy(rng.randint(0, r["classes"], r["batch"])
+                              .astype(np.int32), dev)
+        modes = {}
+        with deterministic():
+            for mode in DIST_MODES:
+                modes[mode], st = dist_mode(mode, dev, x, y, 0, world)
+                flat = torch.cat([st[k].float().reshape(-1)
+                                  for k in sorted(st)])
+                every = comm.all_gather(flat)
+                differ = [rk for rk in range(world)
+                          if not torch.equal(every[rk], every[0])]
+                if differ:
+                    raise AssertionError(f"{mode}: ranks {differ} hold "
+                                         f"other states than rank 0")
+                modes[mode]["replicas_equal"] = True
+                del st, flat, every
+                # the models (cycles through their train_one_batch) and
+                # their graphs go before the next mode's
+                gc.collect()
+                torch.cuda.empty_cache()
+        out = os.path.join(DIST_DIR, f"world{world}-r{rank}.json")
+        with open(out + ".tmp", "w") as f:
+            json.dump({"rank": rank, "modes": modes,
+                       "device": torch.cuda.get_device_name()}, f)
+        os.replace(out + ".tmp", out)
+    finally:
+        # graphs holding NCCL work are freed before the group: a group
+        # destroyed under live ones hung at world size 4
+        gc.collect()
+        torch.cuda.synchronize()
+        tdist.destroy_process_group()
+
+
+def main_dist_world(n):
+    """``--dist-world N``: ``dist_world`` at world size 1, then N."""
+    if torch.cuda.device_count() < n:
+        print(f"chip_smoke.py --dist-world {n}: needs {n} GPUs, sees "
+              f"{torch.cuda.device_count()}", file=sys.stderr)
+        return 1
+    smi = nvidia_smi().splitlines()
+    for world in sorted({1, n}):
+        log(dict(dist_world(world), nvidia_smi=smi))
+    return 0
 
 
 # ------------------------------------------------------------- bottleneck
@@ -6215,6 +6757,153 @@ def paged_table(lens, cfg, seed):
     return real_args(dict(tables=tables, p_limit=list(lens)), cfg, seed)
 
 
+# -------------------------------------------------------------------- moe
+
+#: GPT-2 small with every second block's MLP a MoE (8 experts, top-2,
+#: capacity factor 1.25, aux weight 0.01: the JAX package's defaults),
+#: trained as the slice phase trains GPT-2 small (8 x 1024, bf16 amp,
+#: SGD(1e-4, 0.9)), dropout 0 so that eager and captured steps compare
+MOE_RUN = dict(batch=8, seq=1024, steps=4, sgd=dict(lr=1e-4, momentum=0.9))
+
+
+def moe_dispatch_load(m, x):
+    """Every MoE layer's routing of one forward over ``x``, as the step
+    routes it (float32 router, top-2 with capacity): the tokens each
+    expert kept and the share of the assignments capacity dropped
+    (``parallel.moe.dispatch_load``)."""
+    from singa_tpu_torch.parallel import moe
+
+    seen = []
+    hooks = [blk.mlp.register_forward_pre_hook(
+        lambda mod, args: seen.append((mod, args[0].detach())))
+        for blk in m.transformer.blocks if isinstance(blk.mlp, moe.MoEFFN)]
+    try:
+        with torch.no_grad():
+            m.forward(x)
+    finally:
+        for h in hooks:
+            h.remove()
+    out = []
+    for mod, h in seen:
+        xt = h.reshape(1, -1, h.shape[-1])
+        n = xt.shape[1]
+        probs = torch.softmax((xt @ mod.Wg.to(xt.dtype)).float(), dim=-1)
+        route = moe._top2_dispatch if mod.top_k == 2 else \
+            moe._top1_dispatch
+        dispatch, _, _ = route(probs, mod._capacity(n))
+        kept, dropped = moe.dispatch_load(dispatch, mod.top_k)
+        out.append({"kept_per_expert": kept.tolist(),
+                    "dropped": int(dropped),
+                    "dropped_share": int(dropped) / (mod.top_k * n),
+                    "capacity": mod._capacity(n)})
+        del dispatch, probs
+    return out
+
+
+def phase_moe(rows, seed=0):
+    """GPT-2 small MoE: training eager against captured through the flash
+    kernels, then served by the serve phase's engine and traffic (module
+    docstring).  Adds the phase's flash launches to ``rows``; returns
+    its ``paged_attn`` launches."""
+    from singa_tpu_torch import amp, device, opt, tensor
+    from singa_tpu_torch.models.gpt2 import GPT2Config, GPT2LMHead
+    from singa_tpu_torch.ops import paged_attention as pa
+
+    r = MOE_RUN
+    dev = device.create_cuda_gpu()
+    amp.enable()
+    cfg = GPT2Config.small(moe_every=2, dropout=0.0)
+    if cfg.attn_impl != "flash":
+        raise AssertionError(f"attn_impl={cfg.attn_impl!r}, expected flash")
+    rng = np.random.RandomState(seed)
+    ids = rng.randint(0, cfg.vocab_size, (r["batch"], r["seq"])) \
+        .astype(np.int32)
+    labels = np.roll(ids, -1, axis=1).astype(np.int32)
+    x, y = tensor.from_numpy(ids, dev), tensor.from_numpy(labels, dev)
+
+    def build(use_graph):
+        dev.SetRandSeed(seed)
+        m = GPT2LMHead(cfg)
+        m.set_optimizer(opt.SGD(**r["sgd"]))
+        m.compile([x], is_train=True, use_graph=use_graph)
+        return m
+
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    with deterministic():
+        m, report = train_eager_and_captured(
+            build, x, y, r["steps"], CAPTURE_RTOL["bf16"],
+            {"eager": {}, "captured": {}})
+    c = report["captured"]
+    want = cfg.n_layer * r["steps"]
+    if any(n != want for n in (*c["launches"].values(),
+                               *c["tensor_core_launches"].values())):
+        raise AssertionError(f"MoE steps: flash launches {c['launches']} "
+                             f"(tensor-core route "
+                             f"{c['tensor_core_launches']}), expected "
+                             f"{want} each")
+    for name, n in c["launches"].items():
+        rows[name]["launches"] += n
+    n_moe = sum(1 for blk in m.transformer.blocks if hasattr(blk.mlp, "Wg"))
+    load = moe_dispatch_load(m, x)
+    if len(load) != n_moe or n_moe != cfg.n_layer // cfg.moe_every:
+        raise AssertionError(f"{n_moe} MoE blocks, {len(load)} routed")
+    profiles = {mode: report[mode].pop("profile")
+                for mode in ("eager", "captured")}
+    med = c["median_step_ms"]
+    params = sum(p.numel() for p in m.get_params().values())
+    train_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    m._graph_runner.clear()
+    amp.enable(False)
+    m.eval()
+
+    # serving: the serve phase's engine and traffic
+    traffic = serve_traffic(seed, vocab=cfg.vocab_size)
+    t1 = time.perf_counter()
+    res32, l32, steps32, sec32, _ = observed_run(m, traffic)
+    gather, _, _, _ = run_engine(m, traffic, "gather")
+    offline = offline_streams(m, traffic)
+    for i, (a, b, o) in enumerate(zip(res32, gather, offline)):
+        if not (np.array_equal(a.tokens, b) and np.array_equal(b, o)):
+            raise AssertionError(f"MoE float32 request {i}: engine, gather "
+                                 f"oracle and generate disagree")
+    res16, l16, steps16, sec16, snap16 = observed_run(
+        m, traffic, dtype=torch.bfloat16)
+    serve_s = time.perf_counter() - t1
+    log({"phase": "moe", "model": "gpt2-small-moe", "params": params,
+         "moe_blocks": n_moe, "experts": cfg.moe_experts,
+         "top_k": cfg.moe_top_k, "capacity_factor": cfg.moe_capacity_factor,
+         "aux_weight": cfg.moe_aux_weight, "batch": r["batch"],
+         "seq": r["seq"], "amp": "bf16",
+         "optimizer": "SGD(lr=1e-4, momentum=0.9)", **report,
+         "median_step_ms": med,
+         "tokens_per_s": r["batch"] * r["seq"] / med * 1e3,
+         "launches_per_step": {n: k / r["steps"]
+                               for n, k in c["launches"].items()},
+         "profile_captured": profiles["captured"],
+         "profile_eager": profiles["eager"], "dispatch_load": load,
+         "peak_mem_gb": peak, "train_seconds": train_s,
+         "serve": {"engine": SERVE_ENGINE, "requests": len(traffic),
+                   "float32": {"paged_attn_launches": l32,
+                               "decode_steps": steps32, "seconds": sec32,
+                               "streams_equal_gather_and_generate": True,
+                               "graphs_after_warm_up": 0},
+                   "bf16": {"paged_attn_launches": l16,
+                            "decode_steps": steps16, "seconds": sec16,
+                            "ttft_median_s": statistics.median(
+                                q.ttft for q in res16),
+                            "tpot_median_ms": _tpot_ms(res16),
+                            "tokens_per_s": snap16["throughput"][
+                                "tokens_per_s"],
+                            "graphs_after_warm_up": 0},
+                   "seconds": serve_s},
+         "nvidia_smi": nvidia_smi()})
+    del m
+    torch.cuda.empty_cache()
+    return l32 + l16
+
+
 # ----------------------------------------------------------------- main
 
 #: every kernel source of the port (``singa_tpu_torch/csrc/<name>.cu``)
@@ -6355,6 +7044,7 @@ def main():
                                      images)
     del model, images
     timed("zoo", phase_zoo)
+    timed("dist", phase_dist)
     model, real = timed("serve", phase_serve)
     real8 = timed("serve_int8", phase_serve_int8, model, real)
     timed("serve_slots", phase_serve_slots, model, real, real8)
@@ -6369,14 +7059,15 @@ def main():
     supervisor_launches = timed("supervisor", phase_supervisor, model, real)
     cfg = model.cfg
     del model
+    moe_launches = timed("moe", phase_moe, rows)
     for row in timed("paged_kernels", phase_paged_kernels, real, real8, cfg,
                      spec, win, fork):
         rows[row["name"]] = row
     # the prefix phase decodes on bf16 pools through paged_attn, the
-    # structured phase on float32 ones, the observe phase on both, the
-    # supervisor phase's supervised run on float32 ones
+    # structured phase on float32 ones, the observe and moe phases on
+    # both, the supervisor phase's supervised run on float32 ones
     rows["paged_attn"]["launches"] += prefix_launches + struct_launches \
-        + observe_launches + supervisor_launches
+        + observe_launches + supervisor_launches + moe_launches
 
     smi = nvidia_smi()
     log({"phase": "device", "nvidia_smi": smi,
@@ -6392,4 +7083,17 @@ def main():
 
 
 if __name__ == "__main__":
+    def arg(name):
+        return sys.argv[sys.argv.index(name) + 1]
+
+    if "--dist-rank" in sys.argv:  # one rank of the dist phase's twin run
+        dist_rank_main(int(arg("--dist-rank")), arg("--dist-init"))
+        sys.exit(0)
+    if "--dist-world-rank" in sys.argv:  # one rank of --dist-world
+        dist_world_rank_main(int(arg("--dist-world-rank")),
+                             int(arg("--dist-world")),
+                             int(arg("--dist-port")))
+        sys.exit(0)
+    if "--dist-world" in sys.argv:
+        sys.exit(main_dist_world(int(arg("--dist-world"))))
     sys.exit(main())

@@ -297,18 +297,33 @@ def _op(fn, *xs, _name=None, **params):
 
 def _leaves(loss: torch.Tensor) -> list:
     """Leaf tensors requiring grad that ``loss`` depends on, in the order
-    a depth-first walk of its graph meets them."""
-    out, seen = [], set()
-    stack = [loss.grad_fn]
+    the JAX package's backward yields them: a breadth-first walk from the
+    loss that visits a node once every edge into it was walked, and takes
+    a leaf as soon as its last edge is.  ``DistOpt``'s round-robin mode
+    gives the i-th of them its turn, so the order is part of the
+    contract."""
+    root = loss.grad_fn
+    deps, stack, seen = {}, [root], {root}
     while stack:
-        fn = stack.pop()
-        if fn is None or fn in seen:
-            continue
-        seen.add(fn)
-        var = getattr(fn, "variable", None)  # AccumulateGrad
-        if var is not None:
-            out.append(var)
-        stack.extend(nxt for nxt, _ in fn.next_functions)
+        for nxt, _ in stack.pop().next_functions:
+            if nxt is None:
+                continue
+            deps[nxt] = deps.get(nxt, 0) + 1
+            if nxt not in seen:
+                seen.add(nxt)
+                stack.append(nxt)
+    out, ready = [], deque([root])
+    while ready:
+        for nxt, _ in ready.popleft().next_functions:
+            if nxt is None:
+                continue
+            deps[nxt] -= 1
+            if deps[nxt] == 0:
+                var = getattr(nxt, "variable", None)  # AccumulateGrad
+                if var is not None:
+                    out.append(var)
+                else:
+                    ready.append(nxt)
     return out
 
 

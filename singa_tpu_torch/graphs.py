@@ -73,19 +73,23 @@ class Step:
     """``fn`` prepared for replay on ``device``: captured as a CUDA graph
     there (into the memory pool ``pool``, with ``generators`` registered
     so that each replay draws fresh random numbers from them), or kept
-    as the function on the CPU.  ``fn`` must read its inputs from, and
+    as the function on the CPU.  ``capture_error_mode`` is
+    ``torch.cuda.graph``'s: ``"thread_local"`` lets other threads (NCCL's
+    watchdog, which polls earlier collectives) call CUDA during the
+    capture.  ``fn`` must read its inputs from, and
     return, tensors that outlive the step; calling the step returns
     those outputs, rewritten in place by each replay."""
 
-    def __init__(self, fn, device, pool=None, generators=()):
+    def __init__(self, fn, device, pool=None, generators=(),
+                 capture_error_mode="global"):
         self.fn = fn
         self.graph = None
         self.out = None
         self.launches = [0] * len(launch_counters())
         if device.type == "cuda":
-            self._capture(pool, generators)
+            self._capture(pool, generators, capture_error_mode)
 
-    def _capture(self, pool, generators):
+    def _capture(self, pool, generators, capture_error_mode):
         before = _counts()
         graph = torch.cuda.CUDAGraph()
         for gen in generators:
@@ -97,7 +101,8 @@ class Step:
         enabled = gc.isenabled()
         gc.disable()
         try:
-            with torch.cuda.graph(graph, pool=pool):
+            with torch.cuda.graph(graph, pool=pool,
+                                  capture_error_mode=capture_error_mode):
                 self.out = self.fn()
         finally:
             if enabled:

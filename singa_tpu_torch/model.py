@@ -38,6 +38,20 @@ JAX step returns new arrays.  ``graph.cache_miss`` counts first calls,
 the same runner runs the step eagerly through the same keys, buffers and
 counts.  ``set_optimizer`` drops every captured step.
 
+Under a ``DistOpt`` (``parallel/dist_opt.py``) the model is one rank of a
+data-parallel run: every step, eager or captured, syncs its gradients
+over the process group and then averages the layer states that are not
+parameters (batch norm's running statistics) over the ranks, inside the
+step (the JAX package's ``pmean``); the rank's first step seeds its
+random stream from (seed, rank).  The step key gains
+``DistOpt.graph_key()`` (the world size, and the round-robin phase of
+``partialUpdate``, so that mode captures one graph a phase; the runner
+advances ``DistOpt.host_step`` after each step, as a replay runs no
+Python).  A DistOpt step is captured only over NCCL, with
+``capture_error_mode="thread_local"`` (NCCL's watchdog thread polls its
+collectives); over gloo on the card it raises.  The JAX package's graph step instead
+shards one process's global batch over a mesh (ROADMAP "Divergences").
+
 With the monitor on (``observe.monitor.start()``), each step beats the
 ``train`` watchdog source with its host time (first calls and captures
 beat without a time), and a signature's first, eager call is counted:
@@ -218,12 +232,42 @@ class _GraphRunner:
                 return ("T", tuple(v.shape), str(v.dtype), str(v.device))
             return ("V", v)
 
+        opt = self.model._optimizer
+        dist = opt.graph_key() if getattr(opt, "is_distributed", False) \
+            else None
         return (tuple(sig(a) for a in args),
                 tuple(sorted((k, sig(v)) for k, v in kwargs.items())),
-                (str(amp._compute_dtype), self.model.training))
+                (str(amp._compute_dtype), self.model.training, dist))
+
+    def _capture_mode(self, dev):
+        """``"thread_local"`` for a DistOpt step on NCCL (its watchdog
+        thread polls collectives during the capture); a DistOpt step on
+        another backend cannot be captured on the card (gloo moves CUDA
+        tensors through the host) and raises."""
+        opt = self.model._optimizer
+        if dev.type != "cuda" or not getattr(opt, "is_distributed", False):
+            return "global"
+        if opt.communicator.backend != "nccl":
+            raise RuntimeError(
+                f"a DistOpt step over {opt.communicator.backend!r} cannot be "
+                f"captured on the card: compile with use_graph=False, or "
+                f"initialize_distributed with backend='nccl'")
+        return "thread_local"
 
     def step(self, args, kwargs):
-        """One optimizer step through the entry of this signature."""
+        """One optimizer step through the entry of this signature; under
+        a ``DistOpt`` its host step then advances by one, whatever ran: a
+        replay runs no Python (so ``DistOpt.step()`` does not run in it)
+        and a capture runs it without taking a step."""
+        opt = self.model._optimizer
+        if not getattr(opt, "is_distributed", False):
+            return self._step(args, kwargs)
+        start = opt.host_step
+        out = self._step(args, kwargs)
+        opt.host_step = start + 1
+        return out
+
+    def _step(self, args, kwargs):
         m = self.model
         dev = m.device.torch_device
         self._m_steps.inc()
@@ -236,7 +280,7 @@ class _GraphRunner:
 
             def first():
                 return graphs.warm(
-                    lambda: m.train_one_batch(*args, **kwargs), dev)
+                    lambda: m._train_step(*args, **kwargs), dev)
 
             if mon:
                 out, entry.flops = _counted(first)
@@ -253,9 +297,10 @@ class _GraphRunner:
             if dev.type == "cuda" and self._pool is None:
                 self._pool = torch.cuda.graph_pool_handle()
             entry.step = graphs.Step(
-                lambda: m.train_one_batch(*entry.args, **entry.kwargs), dev,
+                lambda: m._train_step(*entry.args, **entry.kwargs), dev,
                 pool=self._pool, generators=(m.device.generator,)
-                if dev.type == "cuda" else ())
+                if dev.type == "cuda" else (),
+                capture_error_mode=self._capture_mode(dev))
         t0 = _time.perf_counter() if mon else 0.0
         out = entry.step()
         if mon:
@@ -276,6 +321,7 @@ class Model(layer.Layer):
         self.sequential = False
         self.device = None
         self._graph_runner = None
+        self._rank_seeded = False
 
     def compile(self, inputs, is_train=True, use_graph=False,
                 sequential=False):
@@ -322,8 +368,24 @@ class Model(layer.Layer):
         if self.training:
             if self._graph_runner is not None:
                 return self._graph_runner.step(input, kwargs)
-            return self.train_one_batch(*input, **kwargs)
+            return self._train_step(*input, **kwargs)
         return self.forward(*input, **kwargs)
+
+    def _train_step(self, *input, **kwargs):
+        """``train_one_batch``; under a ``DistOpt`` (a data-parallel rank,
+        ``parallel/dist_opt.py``) the rank's first step first seeds its own
+        random stream from (seed, rank), and every step then averages the
+        layer states that are not parameters over the ranks (the JAX
+        package's ``pmean`` of its sharded step)."""
+        opt = self._optimizer
+        dist = getattr(opt, "is_distributed", False)
+        if dist and not self._rank_seeded and self.device is not None:
+            opt.seed_rank_generator(self.device.generator)
+            self._rank_seeded = True
+        out = self.train_one_batch(*input, **kwargs)
+        if dist:
+            opt.sync_layer_states(self)
+        return out
 
     def train_n_batches(self, *args, n_steps=None, **kwargs):
         """K training steps in one call (``singa_tpu/model.py:200-240``),
@@ -485,7 +547,8 @@ class Model(layer.Layer):
         model's states through ``set_states`` (an unknown or missing name
         raises), the optimizer's when this model has one; returns the aux
         states as ``{name: array}``.  An optimizer state must belong to a
-        parameter of this model, under a slot this optimizer keeps, or
+        parameter of this model, under a slot this optimizer keeps (or,
+        for a ``DistOpt``, be a parameter's ``__residual__<name>``), or
         ``KeyError`` is raised."""
         _faults.check("checkpoint.read")
         aux, opt_states, states = {}, {}, {}
@@ -503,9 +566,17 @@ class Model(layer.Layer):
         if self._optimizer is not None and opt_states:
             params = set(self.get_params())
             slots = self._optimizer.state_slots
-            bad = sorted(k for k in opt_states if k != "__step_counter__"
-                         and (k.rpartition(":")[0] not in params
-                              or k.rpartition(":")[2] not in slots))
+            res = "__residual__" if getattr(
+                self._optimizer, "is_distributed", False) else None
+
+            def known(k):
+                if res and k.startswith(res):
+                    return k[len(res):] in params
+                return (k.rpartition(":")[0] in params
+                        and k.rpartition(":")[2] in slots)
+
+            bad = sorted(k for k in opt_states
+                         if k != "__step_counter__" and not known(k))
             if bad:
                 raise KeyError(
                     f"load_states: optimizer states {bad[:5]} "

@@ -1,8 +1,8 @@
 """Shared classifier scaffolding for the model zoo (counterpart of
 ``singa_tpu/models/common.py``): ``Classifier`` trains with
 softmax-cross-entropy, and ``apply_dist_option`` keeps the reference's
-five-way ``dist_option`` switch.  Only ``"plain"`` runs in the port; the
-other four need ``DistOpt``, which is not ported yet."""
+five-way ``dist_option`` switch over ``DistOpt``'s sync modes
+(``parallel/dist_opt.py``)."""
 
 from __future__ import annotations
 
@@ -10,25 +10,30 @@ from .. import layer, model
 
 __all__ = ["Classifier", "apply_dist_option"]
 
-_DIST_MODES = ("fp16", "partialUpdate", "sparseTopK", "sparseThreshold")
-
 
 def apply_dist_option(optimizer, loss, dist_option="plain", spars=None):
-    """``"plain"``: one backward and update through ``optimizer``.  The
-    DistOpt modes raise ``NotImplementedError``; anything else raises
+    """The reference's five-way switch: ``"plain"`` calls ``optimizer``;
+    ``"fp16"``, ``"partialUpdate"``, ``"sparseTopK"`` and
+    ``"sparseThreshold"`` call the ``DistOpt`` method of that sync mode
+    (``spars`` for the sparse ones); anything else raises
     ``ValueError``."""
     if dist_option == "plain":
         optimizer(loss)
-    elif dist_option in _DIST_MODES:
-        raise NotImplementedError(
-            f"dist_option {dist_option!r} needs DistOpt, which the port "
-            f"does not have yet (ROADMAP Queue A)")
+    elif dist_option == "fp16":
+        optimizer.backward_and_update_half(loss)
+    elif dist_option == "partialUpdate":
+        optimizer.backward_and_partial_update(loss)
+    elif dist_option == "sparseTopK":
+        optimizer.backward_and_sparse_update(loss, topK=True, spars=spars)
+    elif dist_option == "sparseThreshold":
+        optimizer.backward_and_sparse_update(loss, topK=False, spars=spars)
     else:
         raise ValueError(f"unknown dist_option {dist_option!r}")
 
 
 class Classifier(model.Model):
-    """Model with softmax-cross-entropy training."""
+    """Model with softmax-cross-entropy training and the reference's five
+    ``dist_option`` sync modes."""
 
     def __init__(self):
         super().__init__()

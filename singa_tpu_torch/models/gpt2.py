@@ -29,8 +29,9 @@ class GPT2Config:
     def __init__(self, vocab_size=50257, n_positions=1024, n_embd=768,
                  n_layer=12, n_head=12, n_inner=None, dropout=0.1,
                  layer_norm_eps=1e-5, tie_weights=True, moe_every=None,
-                 remat=False, attn_impl="auto", n_kv_head=None,
-                 attn_window=None):
+                 moe_experts=8, moe_top_k=2, moe_aux_weight=0.01,
+                 moe_capacity_factor=1.25, moe_groups=None, remat=False,
+                 attn_impl="auto", n_kv_head=None, attn_window=None):
         self.vocab_size = vocab_size
         self.n_positions = n_positions
         self.n_embd = n_embd
@@ -48,8 +49,13 @@ class GPT2Config:
         self.dropout = dropout
         self.layer_norm_eps = layer_norm_eps
         self.tie_weights = tie_weights
-        # MoE blocks are not ported yet: GPT2Model raises for moe_every
+        # MoE: every moe_every-th block's MLP is a MoEFFN (None: dense)
         self.moe_every = moe_every
+        self.moe_experts = moe_experts
+        self.moe_top_k = moe_top_k
+        self.moe_aux_weight = moe_aux_weight
+        self.moe_capacity_factor = moe_capacity_factor
+        self.moe_groups = moe_groups
         self.remat = remat
         # "fused": (S, S) scores in memory; "flash": the flash kernels,
         # O(S·D) memory.  "auto" keeps the JAX package's rule (its
@@ -88,18 +94,23 @@ class GPT2Model(model.Model):
     def __init__(self, cfg=None, plan=None):
         super().__init__()
         self.cfg = c = cfg or GPT2Config.small()
-        if c.moe_every is not None:
-            raise NotImplementedError(
-                "mixture-of-experts GPT-2 is not ported yet")
         self.wte = VocabParallelEmbedding(c.vocab_size, c.n_embd, plan)
         self.wpe = layer.Embedding(c.n_positions, c.n_embd, std=0.01)
+
+        def moe(i):
+            return c.moe_every is not None and (i + 1) % c.moe_every == 0
+
         self.blocks = nn.ModuleList(
             ParallelTransformerBlock(
                 c.n_head, c.n_inner, plan, dropout=c.dropout, causal=True,
                 eps=c.layer_norm_eps, num_kv_heads=c.n_kv_head,
-                window=c.attn_window, remat=c.remat,
+                window=c.attn_window,
+                moe_experts=c.moe_experts if moe(i) else None,
+                moe_top_k=c.moe_top_k,
+                moe_capacity_factor=c.moe_capacity_factor,
+                moe_groups=c.moe_groups, remat=c.remat,
                 use_flash=c.attn_impl == "flash")
-            for _ in range(c.n_layer))
+            for i in range(c.n_layer))
         self.ln_f = layer.LayerNorm(c.layer_norm_eps)
 
     def forward(self, input_ids):
@@ -113,10 +124,10 @@ class GPT2Model(model.Model):
         return self.ln_f(x)
 
     def aux_losses(self):
-        """MoE load-balance losses of the last forward, each already
-        weighted (none for dense blocks, the only kind ported yet)."""
-        return [blk.aux_loss for blk in self.blocks
-                if blk.aux_loss is not None]
+        """The MoE blocks' load-balance losses of the last forward, each
+        weighted by ``moe_aux_weight`` (none for a dense model)."""
+        return [autograd.mul_scalar(blk.aux_loss, self.cfg.moe_aux_weight)
+                for blk in self.blocks if blk.aux_loss is not None]
 
 
 class GPT2LMHead(model.Model):

@@ -60,8 +60,10 @@ applies the scales outside the contractions, as the JAX package does: a
 score takes its K row's scale, a probability its V row's scale before
 the value product (the softmax sums stay unscaled).
 
-Not ported yet (each raises ``NotImplementedError``): MoE blocks, tensor
-and expert parallelism (slice 4, distributed).
+A MoE block (``GPT2Config(moe_every=...)``) decodes through
+``_moe_ffn``: capacity-free top-k routing over a loop of the experts,
+the JAX package's decode FFN.  Tensor and expert parallelism are not
+ported yet (the engine refuses ``tp``/``ep``/``pp``).
 """
 
 from __future__ import annotations
@@ -73,6 +75,7 @@ import torch
 import torch.nn.functional as F
 
 from ..ops.paged_attention import paged_attn
+from ..parallel.moe import _one_hot
 
 __all__ = ["NEG_INF", "extract_params", "prefill", "prefill_chunk",
            "decode_step", "decode_step_paged", "chunk_step_paged",
@@ -82,16 +85,13 @@ __all__ = ["NEG_INF", "extract_params", "prefill", "prefill_chunk",
 NEG_INF = -1e30
 
 
-def _owed(what, where):
-    raise NotImplementedError(f"{what} is not ported yet ({where}; "
-                              f"ROADMAP.md)")
-
-
 def check_decodable(cfg):
-    """Raise ``NotImplementedError`` for configurations the port's
-    decode path does not take yet."""
-    if getattr(cfg, "moe_every", None) is not None:
-        _owed("MoE decode", "slice 4, distributed")
+    """Raise ``ValueError`` for a configuration the decode path cannot
+    take: a MoE model's ``moe_top_k`` must be 1 or 2."""
+    k = getattr(cfg, "moe_top_k", 2)
+    if getattr(cfg, "moe_every", None) is not None and k not in (1, 2):
+        raise ValueError(f"moe_top_k must be 1 (Switch) or 2 (GShard), "
+                         f"got {k}")
 
 
 def _norm_window(cfg):
@@ -159,15 +159,21 @@ def extract_params(m, dtype=None):
             raise RuntimeError("model not initialized: call compile() or "
                                "run one forward first")
         a, mlp = blk.attn, blk.mlp
-        blocks.append(dict(
+        p = dict(
             ln1_s=w(blk.ln1.scale), ln1_b=w(blk.ln1.bias),
             wq=w(a.q_proj.W), bq=w(a.q_proj.b),
             wk=w(a.k_proj.W), bk=w(a.k_proj.b),
             wv=w(a.v_proj.W), bv=w(a.v_proj.b),
             wo=w(a.out_proj.W), bo=w(a.out_proj.b),
-            ln2_s=w(blk.ln2.scale), ln2_b=w(blk.ln2.bias),
-            w1=w(mlp.fc1.W), b1=w(mlp.fc1.b),
-            w2=w(mlp.fc2.W), b2=w(mlp.fc2.b)))
+            ln2_s=w(blk.ln2.scale), ln2_b=w(blk.ln2.bias))
+        if hasattr(mlp, "Wg"):  # a MoEFFN block
+            p.update(moe_wg=w(mlp.Wg), moe_w1=w(mlp.W1), moe_b1=w(mlp.b1),
+                     moe_w2=w(mlp.W2), moe_b2=w(mlp.b2),
+                     moe_top_k=mlp.top_k)
+        else:
+            p.update(w1=w(mlp.fc1.W), b1=w(mlp.fc1.b),
+                     w2=w(mlp.fc2.W), b2=w(mlp.fc2.b))
+        blocks.append(p)
     head = None if m.cfg.tie_weights else w(m.lm_head.W)
     return dict(wte=w(t.wte.W), wpe=w(t.wpe.W), blocks=blocks,
                 lnf_s=w(t.ln_f.scale), lnf_b=w(t.ln_f.bias), head=head)
@@ -186,8 +192,48 @@ def _linear(x, w, b):
 
 
 def _mlp(h, p):
+    """The block's FFN: dense, or the experts of a MoE block."""
+    if "moe_wg" in p:
+        return _moe_ffn(h, p, p["moe_top_k"])
     return _linear(F.gelu(_linear(h, p["w1"], p["b1"]), approximate="tanh"),
                    p["w2"], p["b2"])
+
+
+def _moe_weights(probs, top_k):
+    """Per-token combine weights (…, E) from the router softmax
+    ``probs`` (float32), zero but at the top-k experts: top-1 keeps the
+    chosen probability (Switch), top-2 renormalizes the two gates to sum
+    to 1 (GShard), as ``parallel/moe.py`` gates when nothing drops."""
+    if top_k not in (1, 2):
+        raise ValueError("moe_top_k must be 1 (Switch) or 2 (GShard), "
+                         f"got {top_k}")
+    e = probs.shape[-1]
+    m1 = _one_hot(probs.argmax(-1), e, probs.dtype)
+    g1 = (probs * m1).sum(-1)
+    if top_k == 1:
+        return m1 * g1[..., None]
+    p2 = probs * (1.0 - m1)
+    m2 = _one_hot(p2.argmax(-1), e, probs.dtype)
+    g2 = (p2 * m2).sum(-1)
+    den = g1 + g2
+    den = torch.where(den <= 0.0, torch.ones_like(den), den)
+    return m1 * (g1 / den)[..., None] + m2 * (g2 / den)[..., None]
+
+
+def _moe_ffn(h, p, top_k):
+    """Capacity-free MoE FFN for decode: each token goes to its top-k
+    experts, a loop of per-expert products masked by the combine weights
+    (memory O(B·S·F), not O(B·S·E·F)).  Decode has no capacity, so it
+    drops nothing where training may."""
+    probs = torch.softmax((h @ p["moe_wg"].to(h.dtype)).float(), dim=-1)
+    w = _moe_weights(probs, top_k).to(h.dtype)
+    y = torch.zeros_like(h)
+    for e in range(p["moe_w1"].shape[0]):
+        he = F.gelu(_linear(h, p["moe_w1"][e], p["moe_b1"][e]),
+                    approximate="tanh")
+        y = y + w[..., e:e + 1] * _linear(he, p["moe_w2"][e],
+                                          p["moe_b2"][e])
+    return y
 
 
 def _logits(x, params):

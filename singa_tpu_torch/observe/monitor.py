@@ -136,6 +136,8 @@ def crash_dir() -> str:
 
 
 def _process_info() -> dict:
+    from ..parallel.communicator import process_info
+
     info = {
         "pid": os.getpid(),
         "argv": list(sys.argv),
@@ -147,21 +149,16 @@ def _process_info() -> dict:
         info["hostname"] = __import__("socket").gethostname()
     except Exception:
         pass
-    info["process_index"] = int(_process_rank())
+    info.update(process_info())
     return info
 
 
 def _process_rank() -> str:
-    """This process's ``torch.distributed`` rank when a process group
-    is initialised, else ``"0"``."""
-    try:
-        import torch.distributed as dist
+    """This process's rank (``parallel.communicator.process_info``: its
+    ``torch.distributed`` rank once a process group is up, else 0)."""
+    from ..parallel.communicator import process_info
 
-        if dist.is_available() and dist.is_initialized():
-            return str(dist.get_rank())
-    except Exception:
-        pass
-    return "0"
+    return str(process_info()["process_index"])
 
 
 #: extra cost-table providers: zero-arg callables returning

@@ -399,3 +399,13 @@ class Lion(Optimizer):
             update = update + wd * p
         self._assign(param, p - lr * update)
         m.mul_(self.beta_2).add_(g, alpha=1 - self.beta_2)
+
+
+# DistOpt lives with the communicator; re-exported here, as the reference
+# imports it (``from singa import opt; opt.DistOpt(sgd)``)
+def __getattr__(name):
+    if name == "DistOpt":
+        from .parallel.dist_opt import DistOpt
+
+        return DistOpt
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -1,5 +1,6 @@
 """Transformer layers (counterpart of
-``singa_tpu/parallel/tensor_parallel.py``), serial path only.
+``singa_tpu/parallel/tensor_parallel.py``), serial path only; a block's
+MLP may be a mixture of experts (``parallel/moe.py``).
 
 The JAX package builds these layers Megatron-style and shards them over
 a ``model`` mesh axis when a ``ShardingPlan`` is given; with
@@ -164,11 +165,14 @@ class ParallelMHA(Layer):
 
 class ParallelTransformerBlock(Layer):
     """Pre-LN transformer block: ``x + attn(ln1(x))``, then
-    ``x + mlp(ln2(x))``."""
+    ``x + mlp(ln2(x))``.  With ``moe_experts`` the MLP is a
+    ``parallel.moe.MoEFFN`` of that many experts (``moe_top_k``,
+    ``moe_capacity_factor``, ``moe_groups``)."""
 
     def __init__(self, num_heads, intermediate, plan=None, dropout=0.0,
-                 causal=False, eps=1e-5, remat=False, use_flash=False,
-                 num_kv_heads=None, window=None):
+                 causal=False, eps=1e-5, moe_experts=None, moe_top_k=2,
+                 moe_capacity_factor=1.25, moe_groups=None, remat=False,
+                 use_flash=False, num_kv_heads=None, window=None):
         super().__init__()
         self.ln1 = LayerNorm(eps)
         self.attn = ParallelMHA(num_heads, plan, dropout=dropout,
@@ -180,15 +184,28 @@ class ParallelTransformerBlock(Layer):
         self._intermediate = int(intermediate)
         self._plan = plan
         self._dropout = float(dropout)
+        self._moe = (None if moe_experts is None
+                     else (int(moe_experts), int(moe_top_k),
+                           float(moe_capacity_factor), moe_groups))
+        self._remat = bool(remat)
 
     def initialize(self, x, mask=None):
-        self.mlp = ParallelMLP(x.shape[-1], self._intermediate, self._plan)
+        if self._moe is not None:
+            from .moe import MoEFFN
+
+            e, k, cf, g = self._moe
+            self.mlp = MoEFFN(e, self._intermediate, self._plan, top_k=k,
+                              capacity_factor=cf, groups=g,
+                              remat=self._remat)
+        else:
+            self.mlp = ParallelMLP(x.shape[-1], self._intermediate,
+                                   self._plan)
 
     @property
     def aux_loss(self):
-        """MoE load-balance loss of the last forward; always None, since
-        only dense blocks are ported."""
-        return None
+        """The MoE load-balance loss of the last forward (None for a
+        dense block)."""
+        return getattr(self.mlp, "last_aux_loss", None)
 
     def forward(self, x, mask=None):
         a = autograd.dropout(self.attn(self.ln1(x), mask), self._dropout,

@@ -18,7 +18,8 @@ bit for bit (on the CPU both run the same ops).  The sampling noise's χ²
 gate: α = 0.001 over at most 15 degrees of freedom (37.70), the gate of
 ``tests/test_spec_serve.py``; everything is seeded, so it cannot flake.
 
-The capturability guard runs one GPT-2 training step and one engine
+The capturability guard runs one GPT-2 training step (dense and MoE),
+one DistOpt step in each sync mode (a one-rank gloo group) and one engine
 decode step under a ``TorchDispatchMode`` that fails on any op that
 reads a device value on the host or has a data-dependent shape: the ops
 a CUDA graph cannot capture.  Only the kernels' plain versions, which the
@@ -341,6 +342,80 @@ def test_gpt2_training_step_is_capturable(guard):
     assert guard.bad == [], guard.bad
     assert np.isfinite(loss.item())
     assert tfa.flash_fwd.launches == before  # plain versions on the CPU
+
+
+def test_moe_gpt2_training_step_is_capturable(guard):
+    """The captured call of a MoE GPT-2 step (top-2 routing with
+    capacity: argmax, cumsum, one-hots, the expert products) runs no op a
+    graph cannot take."""
+    cpu = device.create_cpu_device()
+    cpu.SetRandSeed(0)
+    rng = np.random.RandomState(0)
+    ids = rng.randint(0, 256, (2, 32)).astype(np.int32)
+    labels = np.roll(ids, -1, axis=1).astype(np.int32)
+    m = GPT2LMHead(GPT2Config.tiny(dropout=0.1, moe_every=2,
+                                   moe_capacity_factor=0.5))
+    m.set_optimizer(opt.SGD(lr=1e-2, momentum=0.9))
+    m.compile([tensor.from_numpy(ids, cpu)], is_train=True, use_graph=True)
+    x, y = tensor.from_numpy(ids, cpu), tensor.from_numpy(labels, cpu)
+    m(x, y)
+    with guard:
+        _, loss = m(x, y)
+    assert guard.bad == [], guard.bad
+    assert np.isfinite(loss.item())
+
+
+@pytest.fixture
+def world1(tmp_path):
+    """A one-rank gloo process group in this process, for the length of
+    a test."""
+    import torch.distributed as dist
+
+    from singa_tpu_torch.parallel import communicator
+
+    communicator.initialize_distributed(
+        init_method=f"file://{tmp_path}/rendezvous", num_processes=1,
+        process_id=0, backend="gloo", initialization_timeout=60)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("mode", ["plain", "fp16", "partialUpdate",
+                                  "sparseTopK", "sparseThreshold"])
+def test_distopt_step_is_capturable(guard, world1, mode):
+    """The captured call of a DistOpt step, in each sync mode, runs no op
+    a graph cannot take (the collectives, top-K's gather and scatter-add,
+    the residual writes), and its all-reduces were issued in the step."""
+    from singa_tpu_torch.parallel.dist_opt import DistOpt
+
+    class Net(MLP):
+        def train_one_batch(self, x, y):
+            return super().train_one_batch(x, y, dist_option=mode,
+                                           spars=0.2)
+
+    cpu = device.create_cpu_device()
+    cpu.SetRandSeed(0)
+    x, y = _data(16)
+    m = Net(perceptron_size=16, num_classes=10)
+    m.set_optimizer(DistOpt(opt.SGD(lr=0.1, momentum=0.9)))
+    m.compile([tensor.from_numpy(x, cpu)], is_train=True, use_graph=True)
+    tx, ty = tensor.from_numpy(x, cpu), tensor.from_numpy(y, cpu)
+    for _ in range(2):  # partialUpdate keys its phase from the 2nd step
+        m(tx, ty)
+    def issued():
+        return sum(registry().counter("comms.collectives", op=op).value
+                   for op in ("all_reduce", "fused_synch", "synch_half",
+                              "fused_synch_half", "sparse_topk",
+                              "sparse_threshold"))
+
+    n0 = issued()
+    with guard:
+        _, loss = m(tx, ty)
+    assert guard.bad == [], guard.bad
+    assert issued() > n0
+    assert np.isfinite(loss.item())
 
 
 @pytest.fixture(scope="module")

@@ -306,10 +306,32 @@ def test_eval_switches_batchnorm_to_running_stats():
 
 
 def test_dist_options_other_than_plain_raise():
+    """The five-way switch calls the DistOpt method of each mode (with
+    ``spars`` for the sparse ones); an unknown mode still raises."""
     from singa_tpu_torch.models.common import apply_dist_option
 
-    for mode in ("fp16", "partialUpdate", "sparseTopK", "sparseThreshold"):
-        with pytest.raises(NotImplementedError, match="DistOpt"):
-            apply_dist_option(None, None, mode)
+    class Recorder:
+        def __init__(self):
+            self.calls = []
+
+        def __call__(self, loss):
+            self.calls.append(("__call__", loss))
+
+        def __getattr__(self, name):
+            return lambda loss, **kw: self.calls.append((name, loss, kw))
+
+    want = {
+        "plain": ("__call__", "L"),
+        "fp16": ("backward_and_update_half", "L", {}),
+        "partialUpdate": ("backward_and_partial_update", "L", {}),
+        "sparseTopK": ("backward_and_sparse_update", "L",
+                       dict(topK=True, spars=0.3)),
+        "sparseThreshold": ("backward_and_sparse_update", "L",
+                            dict(topK=False, spars=0.3)),
+    }
+    for mode, call in want.items():
+        r = Recorder()
+        apply_dist_option(r, "L", mode, spars=0.3)
+        assert r.calls == [call], mode
     with pytest.raises(ValueError, match="unknown"):
-        apply_dist_option(None, None, "nope")
+        apply_dist_option(Recorder(), "L", "nope")

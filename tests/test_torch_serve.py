@@ -444,13 +444,16 @@ def test_submit_refuses_what_is_not_ported(models, req):
 
 
 def test_features_still_owed_raise(models):
-    """MoE decode is still owed (``NotImplementedError``); beam search,
-    the chunked-prefill budget, the admission interleave and
-    sliding-window decode, ported since, are accepted (their behaviour:
-    tests/test_torch_beam.py, tests/test_torch_longctx.py)."""
+    """MoE decode, beam search, the chunked-prefill budget, the admission
+    interleave and sliding-window decode, ported since, are accepted
+    (their behaviour: tests/test_torch_moe.py, tests/test_torch_beam.py,
+    tests/test_torch_longctx.py); a MoE ``moe_top_k`` other than 1 or 2
+    raises."""
     _, tm = models
-    with pytest.raises(NotImplementedError, match="not ported"):
-        gd.check_decodable(types.SimpleNamespace(moe_every=2))
+    gd.check_decodable(types.SimpleNamespace(moe_every=2))
+    gd.check_decodable(GPT2Config.tiny(moe_every=2, moe_top_k=1))
+    with pytest.raises(ValueError, match="moe_top_k"):
+        gd.check_decodable(types.SimpleNamespace(moe_every=2, moe_top_k=3))
     out = gd.generate_beam(tm, np.arange(3), max_new_tokens=2, num_beams=2)
     assert out.shape == (5,)
     with pytest.raises(ValueError, match="num_beams"):
