@@ -209,6 +209,36 @@ exits nonzero:
                     tensors and then on the CPU from the same weights,
                     every parameter and residual within
                     ``DIST_TWIN_ATOL``.
+10b. ``shard``     - sharded training (``parallel/{sharding,
+                    ring_attention,pipeline}.py``, the planned step).
+                    This script spawned twice with ``--shard-rank``, two
+                    gloo ranks on the one card (joined within
+                    ``SHARD_JOIN_S``), both starting from zips of seeded
+                    one-card models: the zigzag causal ring at GPT-2
+                    small's attention shape and the contiguous ring under
+                    a ragged key mask at BERT-base's, bf16, through the
+                    flash kernels, forward and dQ/dK/dV held element by
+                    element against the same ring on the plain versions
+                    and one ``flash_attention_lse`` over the whole
+                    sequence (``TOL[bf16]``, as ``torch.allclose``), the
+                    same check refusing each planted ring fault
+                    (``RING_FAULTS``), fwd + bwd ms of each; GPT-2
+                    small at (dp, tp, sp) = (1, 1, 2) and BERT-base at
+                    tp = 2, full width, bf16 amp, no dropout, eager steps
+                    against the serial model from the same zip on rank 0
+                    (losses within ``SHARD_LOSS_RTOL``, every state within
+                    ``SHARD_WITNESS_MAX`` of the serial bf16 run's distance
+                    from the float32 serial run, ``float32_witness``),
+                    and the same steps in float32 against the serial
+                    float32 run, losses and states (``SHARD_F32``); the
+                    flash launches of the planned
+                    steps counted from 0 around them (each kernel at
+                    least once), ms a step, tokens/s a card, a profiled
+                    step's busy share.  Then GPT-2 small under a plan of
+                    every axis 1 over a one-rank NCCL group and without a
+                    plan: graph-mode steps equal eager ones, and the
+                    planned ones the plan-less ones, bit for bit, 12
+                    launches of each kernel a captured step.
 11. ``serve``      - serves GPT-2 small (124M, 12 layers, n_positions 1024,
                     random weights from a seed) through the paged engine,
                     ``model.serve(max_slots=8, paged=PagedConfig(
@@ -437,7 +467,21 @@ W > 1 partialUpdate takes ``dist_steps``: every phase's graph captured
 and then replayed), bit for bit at W = 1 and within ``DIST_WORLD_RTOL``
 of each state's update at W > 1, and every state against rank 0's bit
 for bit.  One JSON line a world size: rank 0's report for each mode and
-every rank's ms a step.  Needs N GPUs.
+every rank's ms a step.  Then ``shard_world`` at N (``--phases dist``
+or ``--phases shard`` runs one of the two): one process a GPU over NCCL,
+GPT-2 small at (dp, tp, sp) = (2, 1, 2) and (1, 1, 4) and BERT-base at
+tp 2 x sp 2 (bf16 amp), eager steps against graph-mode ones bit for bit
+(the ring's point-to-point hops and the collectives inside the graph)
+and every rank's states against the ranks holding the same shards; GPipe
+over the pipe axis at GPT-2 small's width and depth against one card
+(float32); one JSON line.  Needs N GPUs.
+
+    python3 chip_smoke.py --shard-faults
+
+runs only the shard phase's two ranks, with each of
+``SHARD_TRAIN_FAULTS`` planted after the sound runs: one JSON line of
+every gate's readings, sound and planted; exits 0 only when the sound
+runs pass both training gates and both gates refuse every planted fault.
 """
 
 from __future__ import annotations
@@ -456,6 +500,7 @@ import statistics
 import subprocess
 import sys
 import time
+import traceback
 
 import numpy as np
 import torch
@@ -998,6 +1043,26 @@ def _relative_diff(a, b):
     return ((a - b).abs().max() / b.abs().max().clamp_min(1e-30)).item()
 
 
+def _sync(dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def flash_counts():
+    """``{kernel: launches}`` of the three flash wrappers."""
+    from singa_tpu_torch.ops import flash_attention as fa
+
+    return {k.__name__: k.launches
+            for k in (fa.flash_fwd, fa.flash_bwd_dq, fa.flash_bwd_dkv)}
+
+
+def reset_flash_counts():
+    from singa_tpu_torch.ops import flash_attention as fa
+
+    for k in (fa.flash_fwd, fa.flash_bwd_dq, fa.flash_bwd_dkv):
+        k.launches = k.tensor_core_launches = 0
+
+
 def train_eager_and_captured(build, x, y, steps, rtol, profiles,
                              before_run=None):
     """Train ``build(False)`` (eager) and ``build(True)`` (graph mode: the
@@ -1025,12 +1090,11 @@ def train_eager_and_captured(build, x, y, steps, rtol, profiles,
     def run(m, mode):
         if before_run is not None:
             before_run()
-        for k in kernels:
-            k.launches = k.tensor_core_launches = 0
+        reset_flash_counts()
         miss0 = misses.value
         losses, step_ms, miss = [], [], []
         for _ in range(steps):
-            torch.cuda.synchronize()
+            _sync(x.device)
             t = time.perf_counter()
             _, loss = m(x, y)
             losses.append(loss.item())  # synchronizes
@@ -3107,16 +3171,961 @@ def dist_world_rank_main(rank, world, port):
         tdist.destroy_process_group()
 
 
-def main_dist_world(n):
-    """``--dist-world N``: ``dist_world`` at world size 1, then N."""
+def main_dist_world(n, phases=("dist", "shard")):
+    """``--dist-world N [--phases dist,shard]``: ``dist_world`` at world
+    size 1, then N; then ``shard_world`` at N."""
     if torch.cuda.device_count() < n:
         print(f"chip_smoke.py --dist-world {n}: needs {n} GPUs, sees "
               f"{torch.cuda.device_count()}", file=sys.stderr)
         return 1
     smi = nvidia_smi().splitlines()
-    for world in sorted({1, n}):
-        log(dict(dist_world(world), nvidia_smi=smi))
+    if "dist" in phases:
+        for world in sorted({1, n}):
+            log(dict(dist_world(world), nvidia_smi=smi))
+    if "shard" in phases and n > 1:
+        from singa_tpu_torch.ops import _build
+
+        _build.build("flash_attention")  # once, before the ranks load it
+        log(dict(shard_world(n), nvidia_smi=smi))
     return 0
+
+
+# ------------------------------------------------------------------ shard
+
+#: the shard phase's files (zips, rendezvous, reports), gitignored
+SHARD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                         "_scratch", "chip_smoke_shard")
+#: the ring against one card: (name, B, H, S, D, layout, key mask), bf16;
+#: zigzag causal at GPT-2 small's attention shape, the contiguous ring
+#: with a ragged key-padding mask at BERT-base's
+SHARD_RING_CASES = (("zigzag_gpt2", 8, 12, 1024, 64, "zigzag", False),
+                    ("contiguous_bert_mask", 16, 12, 512, 64, "contiguous",
+                     True))
+#: ring outputs and dQ/dK/dV, bf16, against the same ring on the plain
+#: versions and against one flash call over the whole sequence, element
+#: by element at the kernel checks' bf16 tolerance (``TOL``, as
+#: ``torch.allclose``): each hop's partial is rounded to bf16 before the
+#: float32 merge (and its dK/dV before the float32 sum), where one call
+#: keeps its running sums in float32, so they differ by bf16 roundings of
+#: partials no larger than the values themselves.  The check must refuse
+#: ``RING_FAULTS`` (``planted``): the last square call of every hop from
+#: a later rank skipped, forward and backward (zigzag: the last rows lose
+#: the keys of the stripe before theirs, a share of their keys, where a
+#: limit scaled by the largest |value|, set by the first rows, is loose);
+#: one dV accumulator left behind at the backward's first rotation
+RING_FAULTS = ("late_call_skipped", "dv_not_rotated")
+#: GPT-2 small at (dp, tp, sp) = (1, 1, 2) and BERT-base at tp = 2 on two
+#: gloo ranks of the one card, bf16 amp, no dropout, eager steps (the
+#: first a warm-up for the timing), against the one-card serial model
+#: from the same zip on the same global batch.  SGD at 0.01: at the
+#: benches' 1e-4 a layer norm's scale (1.0) moves by about one float32
+#: ulp a step, and the comparison would read rounding, not gradients
+SHARD_GPT2 = dict(batch=8, seq=1024, steps=3,
+                  sgd=dict(lr=0.01, momentum=0.9))
+SHARD_BERT = dict(batch=16, seq=512, steps=2,
+                  sgd=dict(lr=0.01, momentum=0.9))
+#: planned against serial, both gated.  bf16 amp: the ring and the tp
+#: sums add in other orders and round hop partials to bf16, so logits
+#: move by bf16 ulps: the loss (~10.9 at random weights) within 2e-3 of
+#: itself; and the states by ``float32_witness``: each state of the
+#: planned bf16 run at most ``SHARD_WITNESS_MAX`` times as far from the
+#: serial float32 run as the serial bf16 run is (the ring rounds each
+#: hop's dQ/dK/dV partial to bf16 where one call rounds the whole sum
+#: once, so the two bf16 runs stand about equally far from it).  float32,
+#: where nothing rounds to bf16: losses within 1e-5, each state's change
+#: within ``SHARD_F32["state_rtol"]`` (``update_diff``).  Both limits sit
+#: between the sound runs' readings and those of the planted faults
+#: (``SHARD_TRAIN_FAULTS``, ``--shard-faults``; PERF.md)
+#: (H100, ``--shard-faults``: the witness read 1.01 and 1.63 sound, 5.48
+#: to 18.9 planted; the float32 changes 0.32% and 0.84% sound, 49.6% to
+#: 120% planted)
+SHARD_LOSS_RTOL = 2e-3
+SHARD_WITNESS_MAX = 3.0
+SHARD_F32 = dict(loss_rtol=1e-5, state_rtol=3e-2)
+#: the witness's floor: ``SHARD_NOISE_FLOOR`` of the median state's
+#: float32 change (a key projection's bias, whose exact gradient is 0
+#: because softmax does not see a constant added to a row's scores,
+#: moves by rounding alone)
+SHARD_NOISE_FLOOR = DIST_WORLD_RTOL
+#: the planted faults of the planned step (``planted``) and the models
+#: they are planted in: the ``data`` x ``seq`` gradient average skipped
+#: (each rank steps on its own half of the batch), the dK/dV of every
+#: hop from another rank halved, the backward all-reduce of a
+#: tensor-parallel layer's input skipped
+SHARD_TRAIN_FAULTS = {"grad_average_skipped": "gpt2",
+                      "ring_dkv_halved": "gpt2",
+                      "tp_input_grad_unreduced": "bert"}
+#: the world-1 NCCL plan: GPT-2 small, eager / captured / plan=None
+SHARD_WORLD1 = dict(batch=8, seq=1024, steps=4,
+                    sgd=dict(lr=1e-4, momentum=0.9))
+SHARD_JOIN_S = 400
+
+
+@contextlib.contextmanager
+def planted(fault):
+    """The port with ``fault`` planted (``RING_FAULTS``,
+    ``SHARD_TRAIN_FAULTS``; None plants nothing) while the block runs:
+    every rank must plant the same fault, as each still issues every
+    collective of the sound code."""
+    from singa_tpu_torch.parallel import dist_opt
+    from singa_tpu_torch.parallel import ring_attention as ra
+    from singa_tpu_torch.parallel import tensor_parallel as tp
+
+    state, patches = {}, []
+    schedule, rotate, functions = ra._schedule, ra._rotate, ra._functions
+    if fault == "late_call_skipped":
+        def skip(src, rank, causal, zigzag):
+            calls = schedule(src, rank, causal, zigzag)
+            return calls[:-1] if src > rank else calls
+        patches.append((ra, "_schedule", skip))
+    elif fault == "dv_not_rotated":
+        def left_behind(tensors, axis):
+            moved = rotate(tensors, axis)
+            acc = sorted(n for n in tensors if n.startswith("dv:"))
+            if acc and not state:
+                state["left"] = acc[-1]
+                moved[acc[-1]] = tensors[acc[-1]]
+            return moved
+        patches.append((ra, "_rotate", left_behind))
+    elif fault == "ring_dkv_halved":
+        def hop(src, rank, causal, zigzag):
+            state["scale"] = 1.0 if src == rank else 0.5
+            return schedule(src, rank, causal, zigzag)
+
+        def halved(use_flash):
+            fwd, dq, dkv = functions(use_flash)
+
+            def scaled(*args):
+                return tuple(t * state["scale"] for t in dkv(*args))
+            return fwd, dq, scaled
+        patches += [(ra, "_schedule", hop), (ra, "_functions", halved)]
+    elif fault == "grad_average_skipped":
+        patches.append((dist_opt.DistOpt, "sync_dense",
+                        lambda self, pairs, *a, **k: pairs))
+    elif fault == "tp_input_grad_unreduced":
+        patches.append((tp._CopyToAxis, "backward",
+                        staticmethod(lambda ctx, g: (g, None))))
+    elif fault is not None:
+        raise ValueError(f"no planted fault {fault!r}")
+    saved = [(obj, name, obj.__dict__[name]) for obj, name, _ in patches]
+    try:
+        for obj, name, fake in patches:
+            setattr(obj, name, fake)
+        yield
+    finally:
+        for obj, name, real in saved:
+            setattr(obj, name, real)
+
+
+def allclose_share(got, want, tol):
+    """The largest ``|got - want| / (atol + rtol |want|)`` over the
+    elements: ``torch.allclose(got, want, rtol, atol)`` holds where it is
+    at most 1."""
+    rtol, atol = tol
+    return ((got - want).abs() / (atol + rtol * want.abs())).max().item()
+
+
+def ring_check(case, mesh, dev, seed=0, reps=3):
+    """One ring case on this rank (module docstring): the ring through the
+    kernels, the same ring on the plain versions and one
+    ``flash_attention_lse`` over the whole sequence, each with the
+    gradients of ``sum(o · w)`` summed over the ranks to global ones; the
+    kernel ring within ``TOL[bf16]`` of both, element by element, and each
+    of ``RING_FAULTS`` outside it against one card; the ring's and the one
+    call's forward + backward ms (host clock, ``reps`` runs)."""
+    from singa_tpu_torch.ops.flash_attention import flash_attention_lse
+    from singa_tpu_torch.parallel import communicator as comm
+    from singa_tpu_torch.parallel import ring_attention as ra
+    from singa_tpu_torch.parallel.tensor_parallel import gather_from_axis
+
+    name, b, h, s, d, layout, masked = case
+    tol = TOL[torch.bfloat16]
+    axis = mesh.axis("seq")
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q, k, v, w = (torch.randn(b, h, s, d, generator=g, device=dev)
+                  .to(torch.bfloat16) for _ in range(4))
+    mask = bert_key_mask(b, s, seed).to(dev) if masked else None
+
+    def ring(use_flash):
+        qq, kk, vv = (t.clone().requires_grad_() for t in (q, k, v))
+        if layout == "zigzag":
+            o = ra.zigzag_ring_attention_sharded(qq, kk, vv, mesh=mesh,
+                                                 use_flash=use_flash)
+        else:
+            n = s // axis.size
+            sl = slice(axis.index * n, (axis.index + 1) * n)
+            ol = ra.ring_self_attention(
+                qq[:, :, sl], kk[:, :, sl], vv[:, :, sl], axis,
+                causal=False, kv_mask=mask[..., sl], use_flash=use_flash)
+            o = gather_from_axis(ol, axis, dim=2)
+        (o.float() * w.float()).sum().backward()
+        grads = [comm.group_all_reduce(t.grad.float(), axis.group)
+                 for t in (qq, kk, vv)]
+        return [o.float()] + grads
+
+    def one_card():
+        qq, kk, vv = (t.clone().requires_grad_() for t in (q, k, v))
+        o, _ = flash_attention_lse(qq, kk, vv, mask,
+                                   causal=layout == "zigzag")
+        (o.float() * w.float()).sum().backward()
+        return [o.float()] + [t.grad.float() for t in (qq, kk, vv)]
+
+    def ms(fn):
+        fn()
+        _sync(dev)
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        _sync(dev)
+        return (time.perf_counter() - t0) * 1e3 / reps
+
+    parts = ("o", "dq", "dk", "dv")
+    reset_flash_counts()
+    got = ring(True)
+    launches = flash_counts()
+    plain, single = ring(False), one_card()
+    errs, shares = {}, {}
+    for ref_name, ref in (("plain_ring", plain), ("one_card", single)):
+        for part, a, r in zip(parts, got, ref):
+            if not torch.isfinite(a).all():
+                raise AssertionError(f"{name}: ring {part} not finite")
+            key = f"{part}_vs_{ref_name}"
+            errs[key] = (a - r).abs().max().item()
+            shares[key] = allclose_share(a, r, tol)
+            if shares[key] > 1.0:
+                raise AssertionError(
+                    f"{name}: ring {part} differs from the {ref_name} by "
+                    f"{errs[key]}, {shares[key]} times its allowance "
+                    f"(allclose, rtol/atol {tol})")
+    if dev.type == "cuda" and not all(launches.values()):
+        raise AssertionError(f"{name}: the ring launched {launches}")
+    faults = {}
+    for fault in RING_FAULTS:
+        with planted(fault):
+            bad = ring(True)
+        # what a limit set by the largest |value| (atol + rtol max |r|)
+        # would have read, beside the element-wise share
+        faults[fault] = {p: {
+            "share": allclose_share(a, r, tol),
+            "max_abs_err": (a - r).abs().max().item(),
+            "share_of_max_scaled_limit": (a - r).abs().max().item()
+            / (tol[1] + tol[0] * r.abs().max().item())}
+            for p, a, r in zip(parts, bad, single)}
+        if all(f["share"] <= 1.0 for f in faults[fault].values()):
+            raise AssertionError(f"{name}: the ring check passed the "
+                                 f"planted fault {fault}: {faults[fault]}")
+    return {"case": name, "shape": [b, h, s, d], "layout": layout,
+            "key_mask": masked, "world": axis.size,
+            "launches_fwd_bwd": launches, "max_abs_err": errs,
+            "allclose_share": shares,
+            "tolerance": dict(zip(("rtol", "atol"), tol)),
+            "planted_faults_refused": faults,
+            "ring_fwd_bwd_ms": ms(lambda: ring(True)),
+            "plain_ring_fwd_bwd_ms": ms(lambda: ring(False)),
+            "one_card_flash_fwd_bwd_ms": ms(one_card)}
+
+
+def update_diff(got, want, init):
+    """The worst state of ``got`` against ``want`` (both trained from
+    ``init``): ``(max |got - want| / scale, name)``, the scale the larger
+    of the state's largest change and the median state's.  A state whose
+    gradient is rounding noise (a key projection's bias: softmax does not
+    see a constant added to every score of a row) changes by noise, and
+    is held against the typical change instead."""
+    steps = {k: (v.float() - init[k].float()).abs().max().item()
+             for k, v in want.items()}
+    floor = statistics.median(steps.values())
+    worst, at = 0.0, None
+    for k, v in want.items():
+        err = (got[k].float() - v.float()).abs().max().item()
+        rel = err / max(steps[k], floor, 1e-30)
+        if rel > worst:
+            worst, at = rel, k
+    return worst, at
+
+
+def _rms(t):
+    return t.float().square().mean().sqrt().item()
+
+
+def float32_witness(got, serial, exact, init):
+    """Each state of the planned bf16 run ``got`` against the float32 run
+    ``exact`` (all trained from ``init``), beside the serial bf16 run's
+    distance from it, both as the RMS of the difference (rounding spreads
+    over every element, so the two bf16 runs' distances agree closely,
+    where their largest elements scatter): the worst ratio of the two,
+    each distance at least 4 float32 ulps of the state's RMS plus
+    ``SHARD_NOISE_FLOOR`` of the median state's RMS change; its state,
+    and the states past ``SHARD_WITNESS_MAX``."""
+    floor = SHARD_NOISE_FLOOR * statistics.median(
+        _rms(v - init[k]) for k, v in exact.items())
+    worst, at, past = 0.0, None, []
+    for k, want in exact.items():
+        slack = 4 * 2.0 ** -23 * _rms(want) + floor
+        ratio = _rms(got[k] - want) / max(_rms(serial[k] - want), slack,
+                                          1e-30)
+        if ratio > SHARD_WITNESS_MAX:
+            past.append(k)
+        if ratio > worst:
+            worst, at = ratio, k
+    return {"worst_ratio": worst, "worst_at": at, "states_past": past[:5]}
+
+
+def shard_batch(cfg_vocab, batch, seq, seed, dev):
+    rng = np.random.RandomState(seed)
+    ids = rng.randint(0, cfg_vocab, (batch, seq)).astype(np.int32)
+    labels = np.roll(ids, -1, axis=1).astype(np.int32)
+    return (torch.from_numpy(ids).to(dev), torch.from_numpy(labels).to(dev))
+
+
+def shard_build(kind, cfg, plan, dev, run, x, use_graph=False, zpath=None,
+                seed=0):
+    """GPT-2 (``kind == "gpt2"``) or BERT's MLM model on ``dev`` under
+    ``plan`` (None: serial), SGD ``run["sgd"]``, compiled on the global
+    batch ``x``, from the zip ``zpath`` (else from ``seed``)."""
+    from singa_tpu_torch import device, opt
+    from singa_tpu_torch.models.bert import BertForMaskedLM
+    from singa_tpu_torch.models.gpt2 import GPT2LMHead
+
+    sdev = device.create_cpu_device() if dev.type == "cpu" else \
+        device.create_cuda_gpu_on(dev.index or 0)
+    sdev.SetRandSeed(seed)
+    m = (GPT2LMHead if kind == "gpt2" else BertForMaskedLM)(cfg, plan)
+    if plan is not None:
+        m.set_sharding_plan(plan)
+    m.set_optimizer(opt.SGD(**run["sgd"]))
+    m.compile([x], is_train=True, use_graph=use_graph)
+    if zpath is not None:
+        m.load_states(zpath)
+    return m
+
+
+def shard_steps(m, x, y, steps, dev):
+    """``steps`` training steps: the losses and each step's host ms (the
+    step ends in the loss's read)."""
+    losses, step_ms = [], []
+    for _ in range(steps):
+        _sync(dev)
+        t0 = time.perf_counter()
+        _, loss = m(x, y)
+        losses.append(loss.item())
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"non-finite losses {losses}")
+    return losses, step_ms
+
+
+def shard_configs(spec):
+    """The phase's GPT-2 and BERT configurations: full width on the card,
+    ``spec["tiny"]`` for a rehearsal on the CPU."""
+    from singa_tpu_torch.models.bert import BertConfig
+    from singa_tpu_torch.models.gpt2 import GPT2Config
+
+    if spec.get("tiny"):
+        return (GPT2Config.tiny(dropout=0.0),
+                BertConfig.tiny(hidden_dropout=0.0, attn_dropout=0.0,
+                                use_flash=True))
+    return (GPT2Config.small(dropout=0.0),
+            BertConfig.base(hidden_dropout=0.0, attn_dropout=0.0,
+                            use_flash=True))
+
+
+def planned_vs_serial(kind, cfg, run, mesh_sizes, spec, rank, dev):
+    """``kind`` at ``mesh_sizes`` (dp, tp, sp) on the phase's ranks from
+    the phase's zip, ``run["steps"]`` eager steps under bf16 amp (timed,
+    its flash launches counted from 0 around them, one more step
+    profiled) and two in float32; with ``spec["faults"]`` the same again
+    under each of ``SHARD_TRAIN_FAULTS`` planted in ``kind``; then rank 0
+    trains the serial model from the same zip on the same global batch
+    both ways and reads the gates (``shard_gates``).  The sound run must
+    pass them; a planted fault's readings are reported (``--shard-faults``
+    holds them)."""
+    from singa_tpu_torch import amp
+    from singa_tpu_torch.parallel import sharding as shd
+
+    zpath = spec[f"{kind}_zip"]
+    plan = shd.ShardingPlan(shd.create_mesh(*mesh_sizes, device=dev))
+    x, y = shard_batch(cfg.vocab_size, run["batch"], run["seq"], 1, dev)
+
+    def train(p, bf16, fault=None):
+        amp.enable(bf16)
+        with planted(fault):
+            m = shard_build(kind, cfg, p, dev, run, x, zpath=zpath)
+            reset_flash_counts()
+            # float32 is the gate's run: one step past the warm-up is
+            # enough
+            steps = run["steps"] if bf16 else 2
+            losses, step_ms = shard_steps(m, x, y, steps, dev)
+            launches = flash_counts()
+            # copies: a replicated state comes back as the parameter
+            states = {k: v.detach().float().clone()
+                      for k, v in m.get_states().items()}
+            # the sound planned run takes one more step, traced: its busy
+            # share
+            prof = profile_steps(m, x, y, steps=1) if p is not None \
+                and bf16 and fault is None and dev.type == "cuda" else None
+        del m
+        gc.collect()
+        return dict(losses=losses, step_ms=step_ms, launches=launches,
+                    states=states, profile=prof)
+
+    faults = [f for f, k in SHARD_TRAIN_FAULTS.items()
+              if k == kind and spec.get("faults")]
+    try:
+        p16, p32 = train(plan, True), train(plan, False)
+        med = statistics.median(p16["step_ms"][1:])
+        out = {"mesh": dict(zip(("dp", "tp", "sp"), mesh_sizes)),
+               "batch": run["batch"], "seq": run["seq"],
+               "steps": run["steps"], "amp": "bf16",
+               "losses": p16["losses"], "step_ms": p16["step_ms"],
+               "median_step_ms": med,
+               "tokens_per_s_per_card": run["batch"] * run["seq"]
+               / med * 1e3 / plan.world,
+               "launches": p16["launches"],
+               "launches_per_step": {k: n / run["steps"]
+                                     for k, n in p16["launches"].items()},
+               "profile": p16["profile"],
+               "float32": {"losses": p32["losses"],
+                           "step_ms": p32["step_ms"]}}
+        if dev.type == "cuda" and not all(p16["launches"].values()):
+            raise AssertionError(f"{kind} {mesh_sizes}: flash launches "
+                                 f"{p16['launches']}")
+        bad = {f: (train(plan, True, f), train(plan, False, f))
+               for f in faults}
+        if rank == 0:
+            serial = train(None, True), train(None, False)
+            init = np.load(zpath)
+            init = {k: torch.from_numpy(init[k]).to(dev)
+                    for k in serial[1]["states"]}
+            gates = shard_gates((p16, p32), serial, init)
+            out.update(gates, serial_losses=serial[0]["losses"],
+                       serial_median_step_ms=statistics.median(
+                           serial[0]["step_ms"][1:]),
+                       serial_float32_losses=serial[1]["losses"])
+            out["planted_faults"] = {f: shard_gates(r, serial, init)
+                                     for f, r in bad.items()}
+            if gates["refused_by"]:
+                raise AssertionError(
+                    f"{kind} {mesh_sizes} against serial: refused by "
+                    f"{gates['refused_by']}: {gates}")
+        return out
+    finally:
+        amp.enable(False)
+        gc.collect()
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+
+
+def shard_gates(planned, serial, init):
+    """The planned ``(bf16, float32)`` runs against the serial ones (all
+    trained from ``init``): the readings of the bf16 gate (losses within
+    ``SHARD_LOSS_RTOL``, ``float32_witness`` within
+    ``SHARD_WITNESS_MAX``) and of the float32 gate (``SHARD_F32``), and
+    the gates that refuse them."""
+    def rel(a, b):
+        return max(abs(u - v) / abs(v) for u, v in zip(a, b))
+
+    (p16, p32), (s16, s32) = planned, serial
+    witness = float32_witness(p16["states"], s16["states"], s32["states"],
+                              init)
+    upd, upd_at = update_diff(p32["states"], s32["states"], init)
+    g = {"loss_max_rel_diff": rel(p16["losses"], s16["losses"]),
+         "witness": witness,
+         "float32_loss_max_rel_diff": rel(p32["losses"], s32["losses"]),
+         "float32_update_max_rel_diff": upd,
+         "float32_update_max_rel_diff_at": upd_at,
+         "tolerance": dict(loss_rtol=SHARD_LOSS_RTOL,
+                           witness_max=SHARD_WITNESS_MAX, float32=SHARD_F32)}
+    refused = []
+    if g["loss_max_rel_diff"] > SHARD_LOSS_RTOL \
+            or witness["worst_ratio"] > SHARD_WITNESS_MAX:
+        refused.append("bf16")
+    if g["float32_loss_max_rel_diff"] > SHARD_F32["loss_rtol"] \
+            or upd > SHARD_F32["state_rtol"]:
+        refused.append("float32")
+    g["refused_by"] = refused
+    return g
+
+
+def shard_rank_main(rank, spec_path):
+    """One of the shard phase's two ranks on the card (gloo): the ring
+    cases, GPT-2 small at sp = 2 and BERT-base at tp = 2 against their
+    serial runs; writes ``shard-r<rank>.json``."""
+    import torch.distributed as tdist
+
+    from singa_tpu_torch.parallel import communicator
+    from singa_tpu_torch.parallel import sharding as shd
+
+    spec = json.load(open(spec_path))
+    dev = torch.device(spec["device"])
+    communicator.initialize_distributed(
+        init_method=spec["init"], num_processes=2, process_id=rank,
+        backend="gloo", initialization_timeout=SHARD_JOIN_S)
+    try:
+        gpt2_cfg, bert_cfg = shard_configs(spec)
+        def done(name, report):
+            # each part as it ends, so a later part's failure leaves it
+            if rank == 0:
+                log({"shard_rank0": name, **(
+                    {"cases": report} if isinstance(report, list)
+                    else report)})
+            return report
+
+        t0 = time.perf_counter()
+        mesh = shd.create_mesh(sp=2, device=dev)
+        rings = done("ring", [ring_check(c, mesh, dev)
+                              for c in spec["ring_cases"]])
+        t1 = time.perf_counter()
+        gpt2 = done("gpt2_sp2", planned_vs_serial(
+            "gpt2", gpt2_cfg, spec["gpt2_run"], (1, 1, 2), spec, rank, dev))
+        t2 = time.perf_counter()
+        bert = done("bert_tp2", planned_vs_serial(
+            "bert", bert_cfg, spec["bert_run"], (1, 2, 1), spec, rank, dev))
+        t3 = time.perf_counter()
+        out = os.path.join(spec["dir"], f"shard-r{rank}.json")
+        with open(out + ".tmp", "w") as f:
+            json.dump({"rank": rank, "ring": rings, "gpt2_sp2": gpt2,
+                       "bert_tp2": bert,
+                       "seconds": {"ring": t1 - t0, "gpt2_sp2": t2 - t1,
+                                   "bert_tp2": t3 - t2}}, f)
+        os.replace(out + ".tmp", out)
+    finally:
+        gc.collect()
+        tdist.destroy_process_group()
+
+
+def shard_zips(spec, dev):
+    """The one-card serial models' initial states, seeded, as zips: the
+    ranks and the serial runs all start from them."""
+    gpt2_cfg, bert_cfg = shard_configs(spec)
+    for kind, cfg, run in (("gpt2", gpt2_cfg, spec["gpt2_run"]),
+                           ("bert", bert_cfg, spec["bert_run"])):
+        x, _ = shard_batch(cfg.vocab_size, 2, run["seq"], 1, dev)
+        m = shard_build(kind, cfg, None, dev, run, x)
+        path = os.path.join(spec["dir"], f"{kind}.zip")
+        m.save_states(path)
+        spec[f"{kind}_zip"] = path
+        del m
+
+
+def shard_two_ranks(spec):
+    """Spawn this script twice as ``--shard-rank`` on ``spec`` and join
+    both within ``SHARD_JOIN_S``; returns their reports."""
+    path = os.path.join(spec["dir"], "spec.json")
+    with open(path, "w") as f:
+        json.dump(spec, f)
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--shard-rank", str(rk),
+         "--shard-spec", path]) for rk in range(2)]
+    deadline = time.monotonic() + SHARD_JOIN_S
+    rcs = []
+    try:
+        for p in procs:
+            rcs.append(p.wait(max(1.0, deadline - time.monotonic())))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    if rcs != [0, 0]:
+        raise AssertionError(f"shard ranks: exit codes {rcs}")
+    return [json.load(open(os.path.join(spec["dir"], f"shard-r{rk}.json")))
+            for rk in range(2)]
+
+
+def shard_world1(dev, tiny=False, seed=0):
+    """GPT-2 small under a plan with every axis 1 over a one-rank NCCL
+    group (gloo on the CPU), and without a plan: each in graph mode
+    (eager first call, capture, replays) against eager steps
+    (``train_eager_and_captured``), all from one seed under deterministic
+    algorithms; every state and loss bit for bit the same in all four
+    runs, 12 launches of each kernel a captured step."""
+    import torch.distributed as tdist
+
+    from singa_tpu_torch import amp
+    from singa_tpu_torch.parallel import communicator
+    from singa_tpu_torch.parallel import sharding as shd
+
+    gpt2_cfg, _ = shard_configs({"tiny": tiny})
+    run = dict(SHARD_WORLD1, batch=2, seq=32) if tiny else SHARD_WORLD1
+    communicator.initialize_distributed(
+        coordinator_address=f"localhost:{free_port()}", num_processes=1,
+        process_id=0, backend="nccl" if dev.type == "cuda" else "gloo",
+        initialization_timeout=300)
+    try:
+        plan = shd.ShardingPlan(shd.create_mesh(device=dev))
+        x, y = shard_batch(gpt2_cfg.vocab_size, run["batch"], run["seq"], 2,
+                           dev)
+        amp.enable()
+        report, states = {}, {}
+        with deterministic():
+            for name, p in (("plan", plan), ("plan_none", None)):
+                m, report[name] = train_eager_and_captured(
+                    lambda graph: shard_build("gpt2", gpt2_cfg, p, dev, run,
+                                              x, use_graph=graph, seed=seed),
+                    x, y, run["steps"], 0.0, None)
+                states[name] = {k: v.detach().clone()
+                                for k, v in m.get_states().items()}
+                del m
+                gc.collect()
+        amp.enable(False)
+        diff = [k for k, v in states["plan"].items()
+                if not torch.equal(v, states["plan_none"][k])]
+        if diff or report["plan"]["captured"]["losses"] != \
+                report["plan_none"]["captured"]["losses"]:
+            raise AssertionError(f"world-1 plan: captured steps differ "
+                                 f"from plan=None ones at {diff[:3]}")
+        want = gpt2_cfg.n_layer * run["steps"]
+        got = report["plan"]["captured"]["launches"]
+        if dev.type == "cuda" and any(n != want for n in got.values()):
+            raise AssertionError(f"world-1 plan: captured flash launches "
+                                 f"{got}, expected {want} each")
+        report["plan_equal_plan_none_bitwise"] = True
+        return report
+    finally:
+        gc.collect()
+        _sync(dev)
+        tdist.destroy_process_group()
+
+
+def shard_spec(dev, faults=False):
+    """What the shard phase's ranks run (``shard_rank_main``): full width
+    on the card, tiny shapes on the CPU; ``faults`` plants
+    ``SHARD_TRAIN_FAULTS`` too."""
+    os.makedirs(SHARD_DIR, exist_ok=True)
+    init = os.path.join(SHARD_DIR, f"rendezvous-{os.getpid()}")
+    if os.path.exists(init):
+        os.unlink(init)
+    spec = {"dir": SHARD_DIR, "init": f"file://{init}", "device": str(dev),
+            "tiny": dev.type == "cpu", "ring_cases": SHARD_RING_CASES,
+            "gpt2_run": SHARD_GPT2, "bert_run": SHARD_BERT,
+            "faults": faults}
+    if spec["tiny"]:
+        spec["ring_cases"] = [("zigzag_tiny", 2, 2, 32, 8, "zigzag", False),
+                              ("contiguous_tiny_mask", 2, 2, 16, 8,
+                               "contiguous", True)]
+        spec["gpt2_run"] = dict(SHARD_GPT2, batch=2, seq=32)
+        spec["bert_run"] = dict(SHARD_BERT, batch=2, seq=32)
+    return spec
+
+
+def phase_shard(rows, seed=0):
+    """Sharded training on one card (module docstring): the ring against
+    one card and GPT-2 small at sp = 2 and BERT-base at tp = 2 on two
+    gloo ranks against their serial runs, then GPT-2 small under a
+    world-1 plan over NCCL.  Adds the ranks' and the world-1 run's flash
+    launches to ``rows``."""
+    dev = DEVICE if DEVICE.type == "cpu" else torch.device("cuda", 0)
+    spec = shard_spec(dev)
+    t0 = time.perf_counter()
+    shard_zips(spec, dev)
+    torch.cuda.empty_cache() if dev.type == "cuda" else None
+    t1 = time.perf_counter()
+    ranks = shard_two_ranks(spec)
+    t2 = time.perf_counter()
+    world1 = shard_world1(dev, tiny=spec["tiny"], seed=seed)
+    t3 = time.perf_counter()
+    # the planned runs' launches (the ring checks' are comparisons)
+    for rk in ranks:
+        for part in (rk["gpt2_sp2"], rk["bert_tp2"]):
+            for name, n in part["launches"].items():
+                rows[name]["launches"] += n
+    for name, n in world1["plan"]["captured"]["launches"].items():
+        rows[name]["launches"] += n
+    r0 = ranks[0]
+    log({"phase": "shard", "ring": r0["ring"], "gpt2_sp2": r0["gpt2_sp2"],
+         "bert_tp2": r0["bert_tp2"],
+         "rank1": {"gpt2_sp2_median_step_ms":
+                   ranks[1]["gpt2_sp2"]["median_step_ms"],
+                   "bert_tp2_median_step_ms":
+                   ranks[1]["bert_tp2"]["median_step_ms"]},
+         "world1_plan_nccl": world1,
+         "seconds": {"zips": t1 - t0, "two_ranks": t2 - t1,
+                     "ranks": r0["seconds"], "world1": t3 - t2},
+         "nvidia_smi": nvidia_smi() if dev.type == "cuda" else None})
+
+
+def main_shard_faults():
+    """``--shard-faults``: the shard phase's two gloo ranks on one card
+    with each of ``SHARD_TRAIN_FAULTS`` planted in turn after the sound
+    runs (and the ring's ``RING_FAULTS``, as every run plants them).
+    Prints every gate's readings of the sound and the planted runs; exit
+    0 only when the sound runs pass both gates and both refuse every
+    planted fault."""
+    if not torch.cuda.is_available():
+        print("chip_smoke.py --shard-faults: no CUDA device", file=sys.stderr)
+        return 1
+    from singa_tpu_torch.ops import _build
+
+    _build.build("flash_attention")  # once, before the ranks load it
+    dev = torch.device("cuda", 0)
+    spec = shard_spec(dev, faults=True)
+    shard_zips(spec, dev)
+    r0 = shard_two_ranks(spec)[0]
+    keys = ("loss_max_rel_diff", "witness", "float32_loss_max_rel_diff",
+            "float32_update_max_rel_diff", "float32_update_max_rel_diff_at",
+            "refused_by")
+    report = {part: {"sound": {k: r0[part][k] for k in keys},
+                     "planted": {f: {k: g[k] for k in keys} for f, g in
+                                 r0[part]["planted_faults"].items()}}
+              for part in ("gpt2_sp2", "bert_tp2")}
+    report["ring"] = {c["case"]: c["planted_faults_refused"]
+                      for c in r0["ring"]}
+    log({"phase": "shard_faults", **report, "tolerance": {
+        "loss_rtol": SHARD_LOSS_RTOL, "witness_max": SHARD_WITNESS_MAX,
+        "float32": SHARD_F32}, "nvidia_smi": nvidia_smi()})
+    passed = [(part, f) for part in ("gpt2_sp2", "bert_tp2")
+              for f, g in report[part]["planted"].items()
+              if sorted(g["refused_by"]) != ["bf16", "float32"]]
+    if passed:
+        print(f"chip_smoke.py --shard-faults: planted faults not refused by "
+              f"both gates: {passed}", file=sys.stderr)
+        return 1
+    return 0
+
+
+#: ``--dist-world N``'s sharded runs, one process a GPU over NCCL: GPT-2
+#: small at (dp, tp, sp) = (2, 1, 2) and (1, 1, 4) and BERT-base at tp 2 x
+#: sp 2, bf16 amp, eager steps against graph-mode ones (eager first
+#: call, capture, replays) from one seed under deterministic algorithms;
+#: and GPipe over the pipe axis at GPT-2 small's width and depth against
+#: one card, float32
+SHARD_WORLD_RUNS = (("gpt2", (2, 1, 2)), ("gpt2", (1, 1, 4)),
+                    ("bert", (1, 2, 2)))
+SHARD_WORLD_STEPS = 4
+SHARD_PIPE = dict(batch=8, seq=512, microbatches=8, steps=3,
+                  sgd=dict(lr=0.01, momentum=0.9))
+#: GPipe against one card, float32: the microbatches change the GEMMs'
+#: row counts, and cuBLAS may sum in another order: ``SHARD_F32``
+
+
+class PipeGPT2:
+    """GPT-2 small's width and depth as a GPipe trunk: token embedding,
+    ``PipelinedTransformer`` (12 blocks of 768, 12 heads, 3072), a
+    linear head over the 50257 tokens."""
+
+    @staticmethod
+    def build(plan, dev, x, seed=0, tiny=False):
+        from singa_tpu_torch import autograd, device, layer, model, opt
+        from singa_tpu_torch.parallel.pipeline import PipelinedTransformer
+
+        vocab, d, layers, heads, inner = (256, 64, 4, 4, 128) if tiny \
+            else (50257, 768, 12, 12, 3072)
+
+        class Net(model.Model):
+            def __init__(self):
+                super().__init__()
+                self.embed = layer.Embedding(vocab, d)
+                self.trunk = PipelinedTransformer(
+                    layers, heads, inner, plan=plan,
+                    num_microbatches=SHARD_PIPE["microbatches"])
+                self.head = layer.Linear(vocab)
+                self.loss_fn = layer.SoftMaxCrossEntropy()
+
+            def forward(self, ids):
+                return self.head(self.trunk(self.embed(ids)))
+
+            def train_one_batch(self, ids, labels):
+                logits = self.forward(ids)
+                b, s, v = logits.shape
+                loss = self.loss_fn(autograd.reshape(logits, (b * s, v)),
+                                    autograd.reshape(labels, (b * s,)))
+                self.optimizer(loss)
+                return logits, loss
+
+        sdev = device.create_cpu_device() if dev.type == "cpu" else \
+            device.create_cuda_gpu_on(dev.index or 0)
+        sdev.SetRandSeed(seed)
+        m = Net()
+        if plan is not None:
+            m.set_sharding_plan(plan)
+        m.set_optimizer(opt.SGD(**SHARD_PIPE["sgd"]))
+        m.compile([x], is_train=True)
+        return m
+
+
+def shard_world_run(kind, sizes, dev, tiny, comm):
+    """One of ``SHARD_WORLD_RUNS`` on this rank: graph-mode steps bit for
+    bit equal to eager ones (``train_eager_and_captured``, which then
+    profiles two steps of each), every rank's states equal to those of the
+    ranks that hold the same shards; step ms, tokens/s a card, flash
+    launches a replayed step."""
+    from singa_tpu_torch import amp
+    from singa_tpu_torch.parallel import sharding as shd
+
+    gpt2_cfg, bert_cfg = shard_configs({"tiny": tiny})
+    cfg, run = (gpt2_cfg, SHARD_GPT2) if kind == "gpt2" else \
+        (bert_cfg, SHARD_BERT)
+    if tiny:
+        run = dict(run, batch=4, seq=32)
+    plan = shd.ShardingPlan(shd.create_mesh(*sizes, device=dev))
+    x, y = shard_batch(cfg.vocab_size, run["batch"], run["seq"], 1, dev)
+    n = SHARD_WORLD_STEPS
+    amp.enable()
+    try:
+        with deterministic():
+            m, rep = train_eager_and_captured(
+                lambda graph: shard_build(kind, cfg, plan, dev, run, x,
+                                          use_graph=graph),
+                x, y, n, 0.0, {"eager": {"steps": 2}, "captured": {
+                    "steps": 2}} if dev.type == "cuda" else None)
+        # ranks that hold the same shards hold the same bits
+        flat = torch.cat([v.float().reshape(-1) for _, v in
+                          sorted(m.persistent_tensors().items())])
+        del m
+        gc.collect()
+        every = comm.all_gather(flat)
+        mesh = plan.mesh
+        me = {a: mesh.axis_index(a) for a in ("model", "pipe", "expert")}
+        twins = [r for r in range(mesh.size)
+                 if {a: mesh.coords_of(r)[a] for a in me} == me]
+        differ = [r for r in twins if not torch.equal(every[r], flat)]
+        if differ:
+            raise AssertionError(f"{kind} {sizes}: ranks {differ} hold "
+                                 f"other states than rank {mesh.rank}")
+        cap = rep["captured"]
+        if dev.type == "cuda" and not all(cap["launches"].values()):
+            raise AssertionError(f"{kind} {sizes}: captured flash launches "
+                                 f"{cap['launches']}")
+        return {"model": kind, "mesh": dict(zip(("dp", "tp", "sp"), sizes)),
+                "batch": run["batch"], "seq": run["seq"], "amp": "bf16",
+                "eager": rep["eager"], "captured": cap,
+                "captured_equal_eager_bitwise": rep["bitwise_equal"],
+                "replica_ranks_equal": twins,
+                "median_replay_ms": cap["median_step_ms"],
+                "tokens_per_s_per_card": run["batch"] * run["seq"]
+                / cap["median_step_ms"] * 1e3 / mesh.size,
+                "flash_launches_per_step": {
+                    k: v / n for k, v in cap["launches"].items()},
+                "layers": cfg.num_hidden_layers if kind == "bert"
+                else cfg.n_layer}
+    finally:
+        amp.enable(False)
+        gc.collect()
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+
+
+def shard_pipe_run(world, dev, tiny, rank):
+    """GPipe at pp = ``world`` against one card (rank 0), float32."""
+    from singa_tpu_torch.parallel import sharding as shd
+
+    r = SHARD_PIPE
+    plan = shd.ShardingPlan(shd.create_mesh(pp=world, device=dev))
+    batch, seq = (r["batch"], 32) if tiny else (r["batch"], r["seq"])
+    vocab = 256 if tiny else 50257
+    x, y = shard_batch(vocab, batch, seq, 3, dev)
+    m = PipeGPT2.build(plan, dev, x, tiny=tiny)
+    losses, step_ms = shard_steps(m, x, y, r["steps"], dev)
+    planned = {k: v.detach().float().clone()
+               for k, v in m.get_states().items()}
+    del m
+    out = {"pp": world, "microbatches": r["microbatches"], "batch": batch,
+           "seq": seq, "dtype": "float32", "losses": losses,
+           "step_ms": step_ms, "median_step_ms":
+           statistics.median(step_ms[1:]), "tokens_per_s_per_card":
+           batch * seq / statistics.median(step_ms[1:]) * 1e3 / world}
+    if rank == 0:
+        s = PipeGPT2.build(None, dev, x, tiny=tiny)
+        init = {k: v.float().clone() for k, v in s.get_states().items()}
+        s_losses, s_ms = shard_steps(s, x, y, r["steps"], dev)
+        worst, at = update_diff(planned, s.get_states(), init)
+        loss_rel = max(abs(a - b) / abs(b) for a, b in zip(losses,
+                                                           s_losses))
+        out.update(serial_losses=s_losses, serial_median_step_ms=
+                   statistics.median(s_ms[1:]), loss_max_rel_diff=loss_rel,
+                   state_max_rel_diff=worst, state_max_rel_diff_at=at,
+                   tolerance=SHARD_F32)
+        if loss_rel > SHARD_F32["loss_rtol"] \
+                or worst > SHARD_F32["state_rtol"]:
+            raise AssertionError(f"GPipe pp={world} against one card: "
+                                 f"losses {losses} vs {s_losses}, worst "
+                                 f"state {at} at {worst}")
+        del s
+    gc.collect()
+    return out
+
+
+def shard_world_rank_main(rank, world, port, tiny=False):
+    """One rank of ``shard_world``: every run of ``SHARD_WORLD_RUNS`` and
+    GPipe; writes ``shard-world<W>-r<rank>.json``."""
+    import torch.distributed as tdist
+
+    from singa_tpu_torch.parallel import communicator
+
+    cpu = tiny and not torch.cuda.is_available()
+    communicator.initialize_distributed(
+        coordinator_address=f"localhost:{port}", num_processes=world,
+        process_id=rank, backend="gloo" if cpu else "nccl",
+        initialization_timeout=SHARD_JOIN_S)
+    try:
+        dev = torch.device("cpu") if cpu else \
+            torch.device("cuda", torch.cuda.current_device())
+        comm = communicator.Communicator()
+        t0 = time.perf_counter()
+        runs = [shard_world_run(kind, sizes, dev, tiny, comm)
+                for kind, sizes in SHARD_WORLD_RUNS]
+        pipe = shard_pipe_run(world, dev, tiny, rank)
+        out = os.path.join(SHARD_DIR, f"shard-world{world}-r{rank}.json")
+        with open(out + ".tmp", "w") as f:
+            json.dump({"rank": rank, "runs": runs, "pipe": pipe,
+                       "seconds": time.perf_counter() - t0,
+                       "device": torch.cuda.get_device_name()
+                       if not cpu else "cpu"}, f)
+        os.replace(out + ".tmp", out)
+    except BaseException:
+        # the other ranks may wait in a collective this rank never joins:
+        # leaving the group would wait with them
+        traceback.print_exc()
+        sys.stderr.flush()
+        os._exit(1)
+    # graphs holding NCCL work are freed before the group
+    gc.collect()
+    if not cpu:
+        torch.cuda.synchronize()
+    tdist.destroy_process_group()
+
+
+def shard_world(world, tiny=False):
+    """``--dist-world``'s sharded runs: ``world`` ranks, one a GPU, over an
+    NCCL group on a localhost port (``shard_world_rank_main``); each must
+    exit 0 within ``SHARD_JOIN_S``.  Returns rank 0's report with every
+    rank's replay ms."""
+    os.makedirs(SHARD_DIR, exist_ok=True)
+    port = free_port()
+    outs = [os.path.join(SHARD_DIR, f"shard-world{world}-r{rk}.json")
+            for rk in range(world)]
+    for o in outs:
+        if os.path.exists(o):
+            os.unlink(o)
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--shard-world-rank",
+         str(rk), "--dist-world", str(world), "--dist-port", str(port)]
+        + ["--tiny"] * tiny) for rk in range(world)]
+    deadline = time.monotonic() + SHARD_JOIN_S
+    try:
+        # until all end, one fails (the rest may wait on it) or time is up
+        while time.monotonic() < deadline:
+            rcs = [p.poll() for p in procs]
+            if None not in rcs or any(rcs):
+                break
+            time.sleep(0.5)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+    rcs = [p.returncode for p in procs]
+    if any(rcs) or not all(os.path.exists(o) for o in outs):
+        raise AssertionError(f"shard world {world}: exit codes {rcs}")
+    ranks = [json.load(open(o)) for o in outs]
+    r0 = ranks[0]
+    for i, run in enumerate(r0["runs"]):
+        run["rank_median_replay_ms"] = [rk["runs"][i]["median_replay_ms"]
+                                        for rk in ranks]
+    return {"phase": "shard_world", "world": world, "runs": r0["runs"],
+            "pipe": r0["pipe"], "seconds": max(rk["seconds"]
+                                               for rk in ranks)}
 
 
 # ------------------------------------------------------------- bottleneck
@@ -7045,6 +8054,7 @@ def main():
     del model, images
     timed("zoo", phase_zoo)
     timed("dist", phase_dist)
+    timed("shard", phase_shard, rows)
     model, real = timed("serve", phase_serve)
     real8 = timed("serve_int8", phase_serve_int8, model, real)
     timed("serve_slots", phase_serve_slots, model, real, real8)
@@ -7089,11 +8099,25 @@ if __name__ == "__main__":
     if "--dist-rank" in sys.argv:  # one rank of the dist phase's twin run
         dist_rank_main(int(arg("--dist-rank")), arg("--dist-init"))
         sys.exit(0)
+    if "--shard-rank" in sys.argv:  # one rank of the shard phase
+        shard_rank_main(int(arg("--shard-rank")), arg("--shard-spec"))
+        sys.exit(0)
+    if "--shard-world-rank" in sys.argv:  # one sharded rank of --dist-world
+        shard_world_rank_main(int(arg("--shard-world-rank")),
+                              int(arg("--dist-world")),
+                              int(arg("--dist-port")),
+                              tiny="--tiny" in sys.argv)
+        sys.exit(0)
     if "--dist-world-rank" in sys.argv:  # one rank of --dist-world
         dist_world_rank_main(int(arg("--dist-world-rank")),
                              int(arg("--dist-world")),
                              int(arg("--dist-port")))
         sys.exit(0)
+    if "--shard-faults" in sys.argv:
+        sys.exit(main_shard_faults())
     if "--dist-world" in sys.argv:
-        sys.exit(main_dist_world(int(arg("--dist-world"))))
+        sys.exit(main_dist_world(
+            int(arg("--dist-world")),
+            arg("--phases").split(",") if "--phases" in sys.argv
+            else ("dist", "shard")))
     sys.exit(main())

@@ -133,7 +133,7 @@ class Layer(nn.Module):
         and buffers.
         Every name must match exactly: an unknown or missing name raises,
         as does a shape mismatch."""
-        own = self.get_states()
+        own = self._named_states(self.name)
         unknown = sorted(set(states) - set(own))
         missing = sorted(set(own) - set(states))
         if unknown or missing:

@@ -52,6 +52,19 @@ Python).  A DistOpt step is captured only over NCCL, with
 collectives); over gloo on the card it raises.  The JAX package's graph step instead
 shards one process's global batch over a mesh (ROADMAP "Divergences").
 
+Under a ``ShardingPlan`` (``set_sharding_plan``, ``parallel/sharding.py``)
+the model is one rank of a mesh.  Each call takes the GLOBAL batch, as
+the JAX package's planned step does, and feeds this rank its slice (rows
+by ``data``, columns by ``seq``, ``ShardingPlan.spec_for_input``); the
+layers issue their collectives themselves; the optimizer, through
+:class:`_PlanStep`, averages every gradient over the ``data`` x ``seq``
+group before the update and turns the loss into the global mean.  The
+step returns this rank's slice of the other outputs.  A planned step is
+captured over NCCL with its collectives inside; over gloo on the card it
+raises.  ``get_states``/``save_states`` gather global arrays (every rank
+calls them) and ``set_states``/``load_states`` slice them, so one zip
+moves between a planned run and the JAX package either way.
+
 With the monitor on (``observe.monitor.start()``), each step beats the
 ``train`` watchdog source with its host time (first calls and captures
 beat without a time), and a signature's first, eager call is counted:
@@ -66,6 +79,7 @@ of the XLA cost tables the JAX package reads there.
 from __future__ import annotations
 
 import io as _io
+import math
 import os
 import stat as _stat
 import tempfile
@@ -240,18 +254,28 @@ class _GraphRunner:
                 (str(amp._compute_dtype), self.model.training, dist))
 
     def _capture_mode(self, dev):
-        """``"thread_local"`` for a DistOpt step on NCCL (its watchdog
-        thread polls collectives during the capture); a DistOpt step on
-        another backend cannot be captured on the card (gloo moves CUDA
-        tensors through the host) and raises."""
+        """``"thread_local"`` for a DistOpt step, or a planned step over
+        more than one rank, on NCCL (its watchdog thread polls
+        collectives during the capture); such a step on another backend
+        cannot be captured on the card (gloo moves CUDA tensors through
+        the host) and raises."""
         opt = self.model._optimizer
-        if dev.type != "cuda" or not getattr(opt, "is_distributed", False):
+        plan = self.model.sharding_plan
+        if getattr(opt, "is_distributed", False):
+            what, backend = "a DistOpt step", opt.communicator.backend
+        elif plan is not None and plan.world > 1:
+            import torch.distributed as dist
+
+            what, backend = "a planned step", dist.get_backend()
+        else:
             return "global"
-        if opt.communicator.backend != "nccl":
+        if dev.type != "cuda":
+            return "global"
+        if backend != "nccl":
             raise RuntimeError(
-                f"a DistOpt step over {opt.communicator.backend!r} cannot be "
-                f"captured on the card: compile with use_graph=False, or "
-                f"initialize_distributed with backend='nccl'")
+                f"{what} over {backend!r} cannot be captured on the card: "
+                f"compile with use_graph=False, or initialize_distributed "
+                f"with backend='nccl'")
         return "thread_local"
 
     def step(self, args, kwargs):
@@ -311,6 +335,93 @@ class _GraphRunner:
         return pytree.tree_map(_detached_copy, out)
 
 
+class _PlanStep:
+    """The model's optimizer as a planned step calls it
+    (``Model.optimizer`` under a plan): backward, every gradient averaged
+    over the mesh's ``data`` x ``seq`` group by a ``DistOpt`` over that
+    group (its dense sync, its layer-state average and its rank seeds),
+    clipped by the global norm over every shard when the optimizer has
+    ``clip_norm``, then the update; finally the loss's value becomes the
+    mean over that group, the global batch's loss.  Other attributes are
+    the optimizer's."""
+
+    def __init__(self, opt, plan, model, threshold=2 ** 21):
+        self.opt, self.plan, self.model = opt, plan, model
+        self.threshold = int(threshold)
+        self.dist = None  # a group of one syncs nothing
+        if plan.mesh.grad_world > 1:
+            from .parallel.communicator import Communicator
+            from .parallel.dist_opt import DistOpt
+
+            self.dist = DistOpt(opt, Communicator(group=plan.mesh.grad_group))
+
+    def __getattr__(self, name):
+        return getattr(self.opt, name)
+
+    def __call__(self, loss):
+        self.backward_and_update(loss)
+
+    def _clip(self, pairs):
+        """``Optimizer._clip_pairs`` by the norm of the whole gradient: a
+        shard's square sum counted once over its replicas."""
+        import torch.distributed as dist
+
+        from .parallel.sharding import _axes_of
+
+        mesh = self.plan.mesh
+        names = {id(p): n for n, p in self.model.get_params().items()}
+        sq = torch.zeros((), dtype=torch.float32, device=pairs[0][1].device)
+        for p, g in pairs:
+            spec = self.plan.spec_for_state(names.get(id(p), ""), p)
+            split = math.prod(mesh.axis_size(a) for e in spec
+                              for a in _axes_of(e))
+            sq = sq + g.float().square().sum() * (split / mesh.size)
+        if mesh.size > 1:
+            from .parallel.communicator import group_all_reduce
+
+            group_all_reduce(sq, dist.group.WORLD, op="clip_norm")
+        scale = torch.clamp(self.opt.clip_norm / torch.clamp(
+            sq.sqrt(), min=1e-12), max=1.0)
+        return [(p, (g.float() * scale).to(g.dtype)) for p, g in pairs]
+
+    def backward_and_update(self, loss):
+        from . import autograd
+
+        with _trace.span("opt/update", cat="train", mode="plan"):
+            pairs = list(autograd.backward(loss))
+            with torch.no_grad():
+                if self.dist is not None:
+                    pairs = self.dist.sync_dense(pairs, self.threshold)
+                if pairs:
+                    self.opt._counter(pairs[0][0].device)
+                    if self.opt.clip_norm is not None:
+                        pairs = self._clip(pairs)
+                hp = self.opt.hyper()
+                for p, g in pairs:
+                    self.opt.apply(self.opt._param_name(p), p, g, hp)
+                self.opt.step()
+                if self.dist is not None:
+                    loss.copy_(self.dist.communicator.all_reduce(
+                        loss.detach(), average=True))
+        self.opt._m_updates.inc()
+
+    def global_count(self, n):
+        """The sum of ``n`` (a tensor) over the ``data`` x ``seq`` group:
+        a count over the global batch."""
+        return n if self.dist is None else self.dist.communicator.all_reduce(n)
+
+    def sync_layer_states(self, model):
+        if self.dist is not None:
+            self.dist.sync_layer_states(model)
+
+    def seed_rank_generator(self, generator):
+        """Each ``data`` x ``seq`` rank its own random stream (its rank in
+        that group, ``data``-major); the ranks of one group on the other
+        axes draw alike (their activations are replicas)."""
+        if self.dist is not None:
+            self.dist.seed_rank_generator(generator)
+
+
 class Model(layer.Layer):
     """Subclass and override ``forward`` and ``train_one_batch``."""
 
@@ -322,6 +433,8 @@ class Model(layer.Layer):
         self.device = None
         self._graph_runner = None
         self._rank_seeded = False
+        self.sharding_plan = None
+        self._plan_step = None
 
     def compile(self, inputs, is_train=True, use_graph=False,
                 sequential=False):
@@ -330,6 +443,11 @@ class Model(layer.Layer):
         that of ``inputs[0]``; ``use_graph`` routes training steps through
         the graph runner (module docstring)."""
         assert isinstance(inputs, (list, tuple)), "inputs must be a list"
+        if self.sharding_plan is not None:
+            inputs, _ = self._local_inputs(tuple(inputs), {})
+        # named first, so a parameter made by this forward is named in its
+        # errors (named again after it, for the layers it creates)
+        self.set_name(self.name)
         prev = self.training
         self.train(False)
         try:
@@ -339,7 +457,7 @@ class Model(layer.Layer):
             self.train(prev)
         self._initialized = True
         self.set_name(self.name)
-        names = list(self.get_states())
+        names = list(self._local_states())
         assert len(names) == len(set(names)), (
             f"duplicate param/state names after compile: {names}")
         self.train(is_train)
@@ -365,11 +483,43 @@ class Model(layer.Layer):
             with torch.no_grad():
                 self.initialize(*input)
             self._initialized = True
+        if self.sharding_plan is not None:
+            input, kwargs = self._local_inputs(input, kwargs)
         if self.training:
             if self._graph_runner is not None:
                 return self._graph_runner.step(input, kwargs)
             return self._train_step(*input, **kwargs)
         return self.forward(*input, **kwargs)
+
+    def _local_inputs(self, args, kwargs):
+        """This rank's slices of the global tensor arguments, on the
+        mesh's device: by ``ShardingPlan.spec_for_input``, numbered as the
+        JAX package numbers them (positional, then keywords by name).
+        With the automatic specs a batch that the data axis does not
+        divide raises, as in the JAX package."""
+        plan = self.sharding_plan
+        mesh = plan.mesh
+        dp = plan.axis_size("data")
+        count = iter(range(len(args) + len(kwargs)))
+
+        def local(a):
+            if not isinstance(a, torch.Tensor):
+                return a
+            i = next(count)
+            if plan.input_specs is None and a.dim() >= 1 \
+                    and a.shape[0] % dp:
+                raise ValueError(
+                    f"input dim 0 ({a.shape[0]}) not divisible by data-axis "
+                    f"size {dp}; pass ShardingPlan(input_specs=...) for "
+                    f"non-batch inputs")
+            from .parallel.sharding import shard_array
+
+            return shard_array(a, mesh, plan.spec_for_input(a, i),
+                               name=f"input {i}").to(mesh.device)
+
+        args = tuple(local(a) for a in args)
+        kwargs = {k: local(kwargs[k]) for k in sorted(kwargs)}
+        return args, kwargs
 
     def _train_step(self, *input, **kwargs):
         """``train_one_batch``; under a ``DistOpt`` (a data-parallel rank,
@@ -379,9 +529,20 @@ class Model(layer.Layer):
         package's ``pmean`` of its sharded step)."""
         opt = self._optimizer
         dist = getattr(opt, "is_distributed", False)
+        planned = self.sharding_plan is not None
         if dist and not self._rank_seeded and self.device is not None:
             opt.seed_rank_generator(self.device.generator)
             self._rank_seeded = True
+        if planned and not self._rank_seeded and self.device is not None:
+            self.optimizer.seed_rank_generator(self.device.generator)
+            self._rank_seeded = True
+        if planned:
+            from .parallel.sharding import _PlanActive
+
+            with _PlanActive():
+                out = self.train_one_batch(*input, **kwargs)
+            self.optimizer.sync_layer_states(self)
+            return out
         out = self.train_one_batch(*input, **kwargs)
         if dist:
             opt.sync_layer_states(self)
@@ -410,6 +571,9 @@ class Model(layer.Layer):
             raise ValueError("train_n_batches needs at least one Tensor "
                              "input (the leading dim is the step count)")
         run = self._graph_runner.step
+        if self.sharding_plan is not None:
+            def run(a, kw):
+                return self._graph_runner.step(*self._local_inputs(a, kw))
         if n_steps is not None:
             if int(n_steps) < 1:
                 raise ValueError(f"n_steps must be >= 1, got {n_steps}")
@@ -441,20 +605,82 @@ class Model(layer.Layer):
 
     def set_optimizer(self, optimizer):
         """Set the optimizer; captured steps hold the old one's updates,
-        so they are dropped."""
+        so they are dropped.  A ``DistOpt`` and a sharding plan exclude
+        each other."""
+        if getattr(optimizer, "is_distributed", False) \
+                and self.sharding_plan is not None:
+            raise ValueError(
+                "sharding_plan and DistOpt are mutually exclusive (see "
+                "set_sharding_plan); use a plain optimizer with a plan")
         self._optimizer = optimizer
+        self._plan_step = None
+        if self._graph_runner is not None:
+            self._graph_runner.clear()
+
+    def set_sharding_plan(self, plan):
+        """Make this model one rank of ``plan``'s mesh
+        (``parallel.sharding.ShardingPlan``; module docstring): call it
+        before ``compile``, with the plan the layers were built with.
+        Mutually exclusive with ``DistOpt``: data parallelism comes from
+        the mesh's ``data`` axis."""
+        if plan is not None and getattr(self._optimizer, "is_distributed",
+                                        False):
+            raise ValueError(
+                "sharding_plan and DistOpt are mutually exclusive: DistOpt "
+                "runs the reference's data-parallel path; with a plan, use "
+                "a plain optimizer (data parallelism comes from the mesh's "
+                "'data' axis)")
+        self.sharding_plan = plan
+        self._plan_step = None
         if self._graph_runner is not None:
             self._graph_runner.clear()
 
     @property
     def optimizer(self):
-        return self._optimizer
+        """The optimizer ``train_one_batch`` calls: under a plan it is
+        wrapped so that gradients are averaged over the ranks first
+        (:class:`_PlanStep`)."""
+        if self.sharding_plan is None or self._optimizer is None:
+            return self._optimizer
+        if self._plan_step is None:
+            self._plan_step = _PlanStep(self._optimizer, self.sharding_plan,
+                                        self)
+        return self._plan_step
 
     # -- state (params + layer states + optimizer states) ------------------
+    def _local_states(self) -> dict:
+        """This rank's state tensors by name (its slices under a plan)."""
+        return layer.Layer.get_states(self)
+
+    def _spec(self, name, t):
+        return self.sharding_plan.spec_for_state(name, t)
+
+    def get_states(self) -> dict:
+        """Parameters and buffers by the JAX package's names; under a plan
+        the global arrays, gathered from every rank's slice (a
+        collective: every rank calls it)."""
+        states = self._local_states()
+        if self.sharding_plan is None:
+            return states
+        return {k: self.sharding_plan.gather(v, self._spec(k, v))
+                for k, v in states.items()}
+
+    def _optimizer_states(self, gather=True) -> dict:
+        """The optimizer's state tensors by name; under a plan a slot is
+        gathered by its parameter's spec."""
+        st = self._optimizer.state_tensors()
+        plan = self.sharding_plan
+        if plan is None or not gather:
+            return st
+        params = self.get_params()
+        return {k: plan.gather(v, self._spec(
+            k.rpartition(":")[0], params.get(k.rpartition(":")[0])))
+            if k.rpartition(":")[0] in params else v for k, v in st.items()}
+
     def persistent_tensors(self) -> dict:
         """Everything that survives across steps, by name, sorted: the
         model's states, then the optimizer's as ``__opt__<name>``."""
-        d = dict(sorted(self.get_states().items()))
+        d = dict(sorted(self._local_states().items()))
         if self._optimizer is not None:
             for k, v in sorted(self._optimizer.state_tensors().items()):
                 d[f"__opt__{k}"] = v
@@ -489,7 +715,7 @@ class Model(layer.Layer):
                          path=str(fpath), async_save=bool(async_save)):
             captured = {k: snap(v) for k, v in self.get_states().items()}
             if self._optimizer is not None:
-                for k, v in self._optimizer.state_tensors().items():
+                for k, v in self._optimizer_states().items():
                     captured[f"__opt__{k}"] = snap(v)
             if aux_states:
                 for k, v in aux_states.items():
@@ -583,6 +809,15 @@ class Model(layer.Layer):
                     f"({len(bad)} in all) name no parameter of this model "
                     f"under a slot of {type(self._optimizer).__name__} "
                     f"{list(slots)}")
+            if self.sharding_plan is not None:
+                ps = self.get_params()
+                opt_states = {
+                    k: self.sharding_plan.shard(
+                        v, self._spec(k.rpartition(":")[0],
+                                      ps[k.rpartition(":")[0]]),
+                        name=f"__opt__{k}")
+                    if k.rpartition(":")[0] in ps else v
+                    for k, v in opt_states.items()}
             self._optimizer.set_states(opt_states)
         return aux
 
@@ -594,7 +829,12 @@ class Model(layer.Layer):
         unchanged, so both packages can compute from the same weights.
         Every name must match: an unknown or missing name raises.  The
         tensors are overwritten in place, so captured steps keep reading
-        them."""
+        them.  Under a plan each global array is sliced by its spec."""
+        plan = self.sharding_plan
+        if plan is not None:
+            own = self._local_states()
+            states = {k: plan.shard(v, self._spec(k, own[k]), name=k)
+                      if k in own else v for k, v in states.items()}
         super().set_states(states)
 
     # -- step-numbered checkpoints (resilience/checkpoint.py) --------------

@@ -10,7 +10,12 @@ plain path by default, the flash kernels with ``use_flash=True`` (at
 S = 512, D = 64, non-causal; an ``attention_mask`` reaches them as their
 key-mask row).  Layer and parameter names match the JAX package's
 (``BertForMaskedLM.bert.encoder.layers0.attn.q_proj.W``), so states
-interchange.  Sharding plans are not ported: a ``plan`` raises.
+interchange, with a ``ShardingPlan`` too (``parallel/sharding.py``): the
+word table is vocab-parallel, the projections column/row-parallel over
+``model``, attention ``ParallelMHA`` (the ``seq`` ring, a padding mask
+rotating with its keys), the MLM decoder column-parallel and gathered;
+positions start at the rank's sequence offset, and the pooled first
+token is seq rank 0's, broadcast over the ring.
 """
 
 from __future__ import annotations
@@ -20,6 +25,11 @@ from torch import nn
 
 from .. import autograd, layer, model
 from ..ops.attention import MultiHeadAttention
+from ..parallel.sharding import SEQ
+from ..parallel.tensor_parallel import (ColumnParallelLinear, ParallelMHA,
+                                        RowParallelLinear,
+                                        VocabParallelEmbedding, copy_to_axis,
+                                        reduce_from_axis)
 from .common import apply_dist_option
 
 __all__ = ["BertConfig", "BertEmbeddings", "BertLayer", "BertEncoder",
@@ -61,19 +71,15 @@ class BertConfig:
         return cls(**kw)
 
 
-def _no_plan(plan):
-    if plan is not None:
-        raise NotImplementedError(
-            "sharded BERT (a ShardingPlan: VocabParallelEmbedding, "
-            "ParallelMHA and the column/row-parallel projections of "
-            "parallel/sharding.py) is not ported yet; pass plan=None")
-
-
 class BertEmbeddings(layer.Layer):
     def __init__(self, cfg, plan=None):
         super().__init__()
-        _no_plan(plan)
-        self.word = layer.Embedding(cfg.vocab_size, cfg.hidden_size)
+        self.plan = plan
+        if plan is not None:
+            self.word = VocabParallelEmbedding(cfg.vocab_size,
+                                               cfg.hidden_size, plan)
+        else:
+            self.word = layer.Embedding(cfg.vocab_size, cfg.hidden_size)
         self.position = layer.Embedding(cfg.max_position_embeddings,
                                         cfg.hidden_size)
         self.token_type = layer.Embedding(cfg.type_vocab_size,
@@ -83,7 +89,8 @@ class BertEmbeddings(layer.Layer):
 
     def forward(self, input_ids, token_type_ids):
         b, s = input_ids.shape
-        pos = torch.arange(s, dtype=torch.int32,
+        start = 0 if self.plan is None else self.plan.seq_offset(s)
+        pos = torch.arange(start, start + s, dtype=torch.int32,
                            device=input_ids.device).expand(b, s)
         e = autograd.add(
             autograd.add(self.word(input_ids), self.position(pos)),
@@ -98,13 +105,20 @@ class BertLayer(layer.Layer):
 
     def __init__(self, cfg, plan=None):
         super().__init__()
-        _no_plan(plan)
-        self.attn = MultiHeadAttention(cfg.num_attention_heads,
-                                       dropout=cfg.attn_dropout,
-                                       use_flash=cfg.use_flash,
-                                       remat=cfg.remat)
-        self.fc1 = layer.Linear(cfg.intermediate_size)
-        self.fc2 = layer.Linear(cfg.hidden_size)
+        if plan is not None:
+            self.attn = ParallelMHA(cfg.num_attention_heads, plan,
+                                    dropout=cfg.attn_dropout,
+                                    use_flash=cfg.use_flash,
+                                    remat=cfg.remat)
+            self.fc1 = ColumnParallelLinear(cfg.intermediate_size, plan)
+            self.fc2 = RowParallelLinear(cfg.hidden_size, plan)
+        else:
+            self.attn = MultiHeadAttention(cfg.num_attention_heads,
+                                           dropout=cfg.attn_dropout,
+                                           use_flash=cfg.use_flash,
+                                           remat=cfg.remat)
+            self.fc1 = layer.Linear(cfg.intermediate_size)
+            self.fc2 = layer.Linear(cfg.hidden_size)
         self.ln1 = layer.LayerNorm(cfg.layer_norm_eps)
         self.ln2 = layer.LayerNorm(cfg.layer_norm_eps)
         self.dropout = cfg.hidden_dropout
@@ -144,9 +158,16 @@ def _first(x):
     return x[:, 0, :]
 
 
-def _first_token(x):
-    """x[:, 0, :] (recorded for export as ``FirstToken``)."""
-    return autograd._op(_first, x, _name="FirstToken")
+def _first_token(x, plan=None):
+    """x[:, 0, :] (recorded for export as ``FirstToken``); over a ``seq``
+    ring, seq rank 0's, summed to every rank (and the gradients of every
+    rank's copy summed back into it)."""
+    first = autograd._op(_first, x, _name="FirstToken")
+    if plan is None or plan.axis_size(SEQ) == 1:
+        return first
+    axis = plan.mesh.axis(SEQ)
+    first = copy_to_axis(first, axis) * float(axis.index == 0)
+    return reduce_from_axis(first, axis)
 
 
 class BertModel(model.Model):
@@ -156,6 +177,7 @@ class BertModel(model.Model):
     def __init__(self, cfg=None, plan=None):
         super().__init__()
         self.cfg = cfg or BertConfig.base()
+        self.plan = plan
         self.embeddings = BertEmbeddings(self.cfg, plan)
         self.encoder = BertEncoder(self.cfg, plan)
         self.pooler = layer.Linear(self.cfg.hidden_size)
@@ -165,7 +187,7 @@ class BertModel(model.Model):
             token_type_ids = torch.zeros_like(input_ids)
         mask = None if attention_mask is None else _mask_op(attention_mask)
         x = self.encoder(self.embeddings(input_ids, token_type_ids), mask)
-        return x, autograd.tanh(self.pooler(_first_token(x)))
+        return x, autograd.tanh(self.pooler(_first_token(x, self.plan)))
 
 
 class BertForMaskedLM(model.Model):
@@ -178,7 +200,9 @@ class BertForMaskedLM(model.Model):
         self.bert = BertModel(self.cfg, plan)
         self.transform = layer.Linear(self.cfg.hidden_size)
         self.ln = layer.LayerNorm(self.cfg.layer_norm_eps)
-        self.decoder = layer.Linear(self.cfg.vocab_size)
+        self.decoder = layer.Linear(self.cfg.vocab_size) if plan is None \
+            else ColumnParallelLinear(self.cfg.vocab_size, plan,
+                                      gather_output=True)
         self.softmax_cross_entropy = layer.SoftMaxCrossEntropy()
 
     def forward(self, input_ids, token_type_ids=None, attention_mask=None):

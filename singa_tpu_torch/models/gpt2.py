@@ -9,6 +9,14 @@ so every block's attention runs through the flash kernels
 (``ops/flash_attention.py``): one forward launch per block per step and
 one dQ and one dK/dV launch per block in the backward, and per token of
 ``generate``'s windowed path.
+
+With a ``ShardingPlan`` (``parallel/sharding.py``) the blocks are
+Megatron-sharded over ``model`` and attend over the ``seq`` ring; each
+rank's positions start at its sequence offset, the tied head is a
+column-parallel product gathered over ``model``, and the loss is the
+mean over the global batch's valid positions.  A vocabulary that the
+model axis does not divide raises (GPT-2's 50257 rows at tp > 1), as in
+the JAX package.
 """
 
 from __future__ import annotations
@@ -19,8 +27,10 @@ from torch import nn
 
 from .. import autograd, layer, model
 from .. import device as device_module
+from ..parallel.sharding import MODEL
 from ..parallel.tensor_parallel import (ParallelTransformerBlock,
-                                        VocabParallelEmbedding)
+                                        VocabParallelEmbedding, copy_to_axis,
+                                        gather_from_axis)
 
 __all__ = ["GPT2Config", "GPT2Model", "GPT2LMHead"]
 
@@ -94,6 +104,7 @@ class GPT2Model(model.Model):
     def __init__(self, cfg=None, plan=None):
         super().__init__()
         self.cfg = c = cfg or GPT2Config.small()
+        self.plan = plan
         self.wte = VocabParallelEmbedding(c.vocab_size, c.n_embd, plan)
         self.wpe = layer.Embedding(c.n_positions, c.n_embd, std=0.01)
 
@@ -115,7 +126,8 @@ class GPT2Model(model.Model):
 
     def forward(self, input_ids):
         b, s = input_ids.shape
-        pos = torch.arange(s, dtype=torch.int32,
+        start = 0 if self.plan is None else self.plan.seq_offset(s)
+        pos = torch.arange(start, start + s, dtype=torch.int32,
                            device=input_ids.device).expand(b, s)
         x = autograd.add(self.wte(input_ids), self.wpe(pos))
         x = autograd.dropout(x, self.cfg.dropout, training=self.training)
@@ -136,20 +148,26 @@ class GPT2LMHead(model.Model):
     def __init__(self, cfg=None, plan=None):
         super().__init__()
         self.cfg = cfg or GPT2Config.small()
+        self.plan = plan
         self.transformer = GPT2Model(self.cfg, plan)
         if not self.cfg.tie_weights:
             from ..parallel.tensor_parallel import ColumnParallelLinear
 
             self.lm_head = ColumnParallelLinear(
-                self.cfg.vocab_size, plan, bias=False)
+                self.cfg.vocab_size, plan, bias=False, gather_output=True)
         self.loss_fn = layer.SoftMaxCrossEntropy()
 
     def forward(self, input_ids):
         h = self.transformer.forward(input_ids)
         if self.cfg.tie_weights:
-            # logits = h @ wteᵀ (GPT-2 weight tying)
-            return autograd.matmul(
-                h, autograd.transpose(self.transformer.wte.W, (1, 0)))
+            # logits = h @ wteᵀ (GPT-2 weight tying); with a plan the
+            # vocab-sharded table makes it a column-parallel product
+            wt = autograd.transpose(self.transformer.wte.W, (1, 0))
+            if self.plan is None:
+                return autograd.matmul(h, wt)
+            axis = self.plan.mesh.axis(MODEL)
+            return gather_from_axis(
+                autograd.matmul(copy_to_axis(h, axis), wt), axis)
         return self.lm_head(h)
 
     def train_one_batch(self, input_ids, labels):
@@ -161,8 +179,11 @@ class GPT2LMHead(model.Model):
         b, s, v = logits.shape
         loss = self.loss_fn(autograd.reshape(logits, (b * s, v)),
                             autograd.reshape(labels, (b * s,)))
-        n_valid = (labels.reshape(-1) >= 0).sum().float().clamp_min(1.0)
-        loss = autograd.mul(loss, (b * s) / n_valid)
+        n_valid = (labels.reshape(-1) >= 0).sum().float()
+        if self.plan is not None:  # over the global batch
+            n_valid = self.optimizer.global_count(n_valid)
+            b *= self.plan.mesh.grad_world
+        loss = autograd.mul(loss, (b * s) / n_valid.clamp_min(1.0))
         for aux in self.transformer.aux_losses():
             loss = autograd.add(loss, aux)
         self.optimizer(loss)
@@ -202,6 +223,7 @@ class GPT2LMHead(model.Model):
         wherever the logits agree."""
         from . import gpt2_decode as gd
 
+        self._serial_decode("generate")
         n_pos = self.cfg.n_positions
         kw = dict(max_new_tokens=max_new_tokens, temperature=temperature,
                   rng=rng, top_k=top_k, top_p=top_p, min_p=min_p,
@@ -309,4 +331,15 @@ class GPT2LMHead(model.Model):
         model (``attn_window``) serves on the paged arena only."""
         from ..serve import InferenceEngine
 
+        self._serial_decode("serve")
         return InferenceEngine(self, **kw)
+
+    def _serial_decode(self, what):
+        """Decoding reads whole weights: a model sharded over more than
+        one rank raises (sharded serving is ``serve/tp.py``'s, not ported);
+        its ``save_states`` zip loads into a ``plan=None`` model."""
+        if self.plan is not None and self.plan.world > 1:
+            raise NotImplementedError(
+                f"{what} on a model sharded over {self.plan.world} ranks is "
+                f"not ported: save_states, and load the zip into a "
+                f"GPT2LMHead(cfg) without a plan")

@@ -162,6 +162,72 @@ def _all_gather(out, t, group):
     gather(out, t, group=group)
 
 
+# -- collectives over a mesh axis's group (parallel/sharding.py) ----------
+
+
+def group_all_reduce(t, group, op="axis_all_reduce"):
+    """The sum of ``t`` over ``group``'s ranks, in place (``t`` itself is
+    returned); counted as ``op``."""
+    _record_collective(op, [t], world=dist.get_world_size(group))
+    dist.all_reduce(t, group=group)
+    return t
+
+
+def group_all_gather(t, group, dim=0, op="axis_all_gather"):
+    """Every rank's ``t`` concatenated along ``dim`` in the group's rank
+    order (a new tensor)."""
+    n = dist.get_world_size(group)
+    _record_collective(op, [t], world=n)
+    flat = t.detach().contiguous().reshape(-1)
+    out = flat.new_empty((n * flat.numel(),))
+    _all_gather(out, flat, group)
+    parts = out.reshape(n, *t.shape).unbind(0)
+    return torch.cat(parts, dim=dim)
+
+
+def group_broadcast(t, src, group, op="axis_broadcast"):
+    """``t`` of global rank ``src`` on every rank of ``group``, in place."""
+    _record_collective(op, [t], world=dist.get_world_size(group))
+    dist.broadcast(t, src=src, group=group)
+    return t
+
+
+def exchange(sends, recvs, group=None, op="p2p"):
+    """Point-to-point transfers paired in one batch on every rank:
+    ``sends`` are ``(tensor, dst, tag)`` and ``recvs`` ``(buffer, src,
+    tag)``, ``dst``/``src`` global ranks; the buffers are filled in place.
+    Every rank must issue its side of each pair in the same order (the
+    ring and pipeline hops do).  A transfer to this rank itself is a copy.
+    Device tensors go to the wire as they are, except on a gloo group,
+    which cannot send or receive CUDA tensors: those travel through host
+    copies.  Counted as ``op``, with the bytes sent to other ranks."""
+    me = dist.get_rank()
+    own = {tag: t for t, dst, tag in sends if dst == me}
+    sends = [(t, d, g) for t, d, g in sends if d != me]
+    for buf, src, tag in recvs:
+        if src == me:
+            buf.copy_(own[tag])
+    recvs = [(b, s, g) for b, s, g in recvs if s != me]
+    if not sends and not recvs:
+        return
+    _record_collective(op, [t for t, _, _ in sends],
+                       world=dist.get_world_size(group))
+    staged = dist.get_backend(group) == "gloo"
+    wire_sends = [(t.cpu() if staged and t.is_cuda else t.contiguous(), d, g)
+                  for t, d, g in sends]
+    wire_recvs = [(torch.empty(b.shape, dtype=b.dtype)
+                   if staged and b.is_cuda else b, s, g)
+                  for b, s, g in recvs]
+    ops = [dist.P2POp(dist.isend, t, d, group, g) for t, d, g in wire_sends]
+    ops += [dist.P2POp(dist.irecv, b, s, group, g)
+            for b, s, g in wire_recvs]
+    for w in dist.batch_isend_irecv(ops):
+        w.wait()
+    for (buf, _, _), (wire, _, _) in zip(recvs, wire_recvs):
+        if wire is not buf:
+            buf.copy_(wire)
+
+
 class Communicator:
     """The reference's communicator over a process group (default: the
     whole world).  Every method is a real collective over the group's
@@ -179,6 +245,7 @@ class Communicator:
             raise ValueError(f"num_devices={num_devices} but the process "
                              f"group has {self.world_size} ranks")
         self.global_rank = dist.get_rank()
+        self.rank = dist.get_rank(group)  # within the group
         self.local_rank = self.global_rank if _local_rank is None \
             else _local_rank
         self.num_processes = dist.get_world_size()

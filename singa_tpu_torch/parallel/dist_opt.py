@@ -172,9 +172,10 @@ class DistOpt:
         """Average the model's states that are not parameters (batch
         norm's running statistics) over the ranks, in place, in one
         all-reduce: each rank computed them on its own shard (the JAX
-        package's ``pmean``)."""
+        package's ``pmean``).  Under a sharding plan these are the rank's
+        own slices."""
         params = set(model.get_params())
-        ts = [t for k, t in sorted(model.get_states().items())
+        ts = [t for k, t in sorted(model._local_states().items())
               if k not in params and t.is_floating_point()]
         with torch.no_grad():
             for t, v in zip(ts, self.communicator.fused_synch(
@@ -183,12 +184,12 @@ class DistOpt:
 
     def seed_rank_generator(self, generator):
         """Give each rank its own random stream, from the generator's seed
-        and the rank (dropout masks differ across ranks); at world size 1
-        the generator is left as it is."""
+        and the rank in the communicator's group (dropout masks differ
+        across ranks); at world size 1 the generator is left as it is."""
         if self.world_size > 1:
             generator.manual_seed(
-                (generator.initial_seed() * 1000003 + self.global_rank)
-                % 2 ** 63)
+                (generator.initial_seed() * 1000003
+                 + self.communicator.rank) % 2 ** 63)
 
     # -- the reference's entry points ----------------------------------------
     def __call__(self, loss):
@@ -205,27 +206,34 @@ class DistOpt:
         ``threshold`` elements share one all-reduce.  With the wrapped
         optimizer's ``clip_norm`` the synced gradients are clipped by
         their global norm before any update."""
-        self._dense_sync(loss, threshold, self.communicator.all_reduce,
-                         self.communicator.fused_synch, "dense")
+        self._dense_sync(loss, threshold, False, "dense")
 
     def backward_and_update_half(self, loss, threshold=2 ** 21):
         """``backward_and_update`` with bf16 on the wire; clipping, in
         float32, acts on what was synced."""
-        self._dense_sync(loss, threshold, self.communicator.synch_half,
-                         self.communicator.fused_synch_half, "half")
+        self._dense_sync(loss, threshold, True, "half")
 
-    def _dense_sync(self, loss, threshold, synch_one, synch_fused, mode):
+    def sync_dense(self, pairs, threshold=2 ** 21, half=False):
+        """The mean over the ranks of each ``(param, grad)``'s gradient:
+        one all-reduce for a gradient of ``threshold`` elements or more,
+        one flat buffer for the rest (fusedSynch); bf16 on the wire with
+        ``half``.  Returns ``(param, synced grad)`` pairs."""
+        c = self.communicator
+        one, fused = (c.synch_half, c.fused_synch_half) if half else \
+            (c.all_reduce, c.fused_synch)
+        bucket = [(p, g) for p, g in pairs if g.numel() < threshold]
+        synced = [(p, one(g, average=True))
+                  for p, g in pairs if g.numel() >= threshold]
+        if bucket:
+            synced += list(zip([p for p, _ in bucket],
+                               fused([g for _, g in bucket], average=True)))
+        return synced
+
+    def _dense_sync(self, loss, threshold, half, mode):
         with _trace.span("opt/update", cat="train", mode=mode):
             pairs = self._pairs(loss)
             with torch.no_grad():
-                bucket = [(p, g) for p, g in pairs if g.numel() < threshold]
-                synced = [(p, synch_one(g, average=True))
-                          for p, g in pairs if g.numel() >= threshold]
-                if bucket:
-                    synced += list(zip(
-                        [p for p, _ in bucket],
-                        synch_fused([g for _, g in bucket], average=True)))
-                self._apply_all(synced)
+                self._apply_all(self.sync_dense(pairs, threshold, half))
                 self.step()
         self.opt._m_updates.inc()
 

@@ -18,8 +18,11 @@ GShard/Switch formulation, serial path only.
 Tokens over capacity are dropped (combine weight zero; the residual path
 carries them).  Parameters are named and laid out as in the JAX package
 (``Wg`` (D, E), ``W1`` (E, D, F), ``b1`` (E, F), ``W2`` (E, F, D), ``b2``
-(E, D)), so states carry across.  Expert sharding over a mesh waits for
-``parallel/sharding.py``: a ``plan`` raises ``NotImplementedError``.
+(E, D)), so states carry across.  Under a ``ShardingPlan``
+(``parallel/sharding.py``) each data rank routes its own tokens: its rows
+are one of the JAX package's routing groups (the data-axis size by
+default), so the layer runs as it does serially on them; expert, model
+and seq axes longer than 1 raise ``NotImplementedError``.
 Nothing here reads a device value on the host, so a training step
 through it can be captured.
 """
@@ -34,7 +37,7 @@ import torch.nn.functional as F
 from .. import amp, autograd, initializer
 from ..device import device_of
 from ..layer import Layer, new_param
-from .tensor_parallel import _serial_only
+from .sharding import DATA, EXPERT, MODEL, SEQ
 
 __all__ = ["MoEFFN", "dispatch_load"]
 
@@ -149,7 +152,14 @@ class MoEFFN(Layer):
                  capacity_factor=1.25, activation="gelu", remat=False,
                  groups=None):
         super().__init__()
-        _serial_only(plan)
+        if plan is not None:
+            long_axes = [a for a in (EXPERT, MODEL, SEQ)
+                         if plan.axis_size(a) > 1]
+            if long_axes:
+                raise NotImplementedError(
+                    f"MoEFFN under a plan routes each data rank's tokens "
+                    f"as one group; a mesh whose {long_axes} axes are "
+                    f"longer than 1 is not ported")
         if top_k not in (1, 2):
             raise ValueError("top_k must be 1 (Switch) or 2 (GShard)")
         self.num_experts = int(num_experts)
@@ -181,7 +191,16 @@ class MoEFFN(Layer):
         self.b2 = param((e, d), 0.0)
 
     def _num_groups(self, n):
+        """The routing groups of this rank's ``n`` tokens: ``groups`` (1
+        by default); under a plan the data rank's share of them (the data
+        axis's size by default, one a rank)."""
         g = 1 if self.groups is None else self.groups
+        if self.plan is not None:
+            dp = self.plan.axis_size(DATA)
+            if g % dp and self.groups is not None:
+                raise ValueError(f"MoE routing groups {g} not divisible by "
+                                 f"data-axis size {dp}")
+            g = max(1, g // dp)
         if n % g != 0:
             raise ValueError(f"MoE token count {n} not divisible by the "
                              f"{g} routing groups")

@@ -24,7 +24,8 @@ mode, as its own tests run them.  Float32 throughout:
   the JAX state: losses rtol 1e-5, weights atol 1e-5;
 * ``scaled_dot_product_attention`` and ``layer.MultiHeadAttention``
   (GQA too) against the JAX package's;
-* a ``plan`` raises ``NotImplementedError``.
+* a ``plan`` the layers cannot take (heads the model axis does not
+  divide) raises ``ValueError``.
 """
 
 import numpy as np
@@ -266,5 +267,12 @@ def test_multi_head_attention_layer_matches_jax(kv_heads):
 
 
 def test_a_plan_raises():
-    with pytest.raises(NotImplementedError, match="ShardingPlan"):
-        tbert.create_model("tiny", plan=object())
+    """A plan BERT's layers cannot take raises as the JAX package's does:
+    4 heads over a model axis of 3 (planned training itself is held
+    against the JAX package in ``test_torch_sharded_training.py``)."""
+    from singa_tpu_torch.parallel import sharding
+
+    plan = sharding.ShardingPlan(
+        sharding.Mesh((1, 3, 1, 1, 1), rank=0, device="cpu"))
+    with pytest.raises(ValueError, match="model-axis size 3"):
+        tbert.create_model("tiny", plan=plan)

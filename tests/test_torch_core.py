@@ -41,7 +41,7 @@ def test_import_pulls_in_neither_jax_nor_singa_tpu():
             "flash_attention, padding, paged_attention, pooling)\n"
             "from singa_tpu_torch import serve\n"
             "from singa_tpu_torch.parallel import (communicator, dist_opt, "
-            "moe, tensor_parallel)\n"
+            "moe, pipeline, ring_attention, sharding, tensor_parallel)\n"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'singa_tpu' or "
             "m.startswith('singa_tpu.') or m == 'singa' or "

@@ -222,8 +222,16 @@ def test_moe_remat_recomputes_the_same_gradients():
 
 
 def test_moe_plan_and_top_k_refused():
-    with pytest.raises(NotImplementedError, match="plan"):
-        moe.MoEFFN(E, F, plan=object())
+    """A plan with an expert (or model, or seq) axis longer than 1 is
+    refused: expert-parallel training is not ported; top_k past 2
+    too."""
+    from singa_tpu_torch.parallel import sharding
+
+    for sizes in ((1, 1, 1, 1, 2), (1, 2, 1, 1, 1), (1, 1, 2, 1, 1)):
+        plan = sharding.ShardingPlan(
+            sharding.Mesh(sizes, rank=0, device="cpu"))
+        with pytest.raises(NotImplementedError, match="plan"):
+            moe.MoEFFN(E, F, plan=plan)
     with pytest.raises(ValueError, match="top_k"):
         moe.MoEFFN(E, F, top_k=3)
 

@@ -12,8 +12,9 @@ steps on its shard of each global batch (rows ``rank·n/W`` to
 ``(rank+1)·n/W``, as the JAX mesh shards them) and writes its parameters,
 optimizer state, residual slice and losses to ``<name>_r<rank>.npz``
 and its ``save_states`` zip to ``<name>_r<rank>.zip``.  ``comm`` runs the
-communicator's operations on the rank's arrays.  It imports nothing of
-JAX.
+communicator's operations on the rank's arrays.  A scenario with a
+``kind`` is a sharded-training one, run by ``tests/torch_shard_scenarios.py``.
+It imports nothing of JAX.
 """
 
 import json
@@ -236,7 +237,11 @@ def main():
         backend="gloo", initialization_timeout=spec.get("timeout", 60))
     try:
         for sc in spec["scenarios"]:
-            if sc["name"] == "comm":
+            if "kind" in sc:
+                import torch_shard_scenarios
+
+                torch_shard_scenarios.run(sc, rank, world, spec["out"])
+            elif sc["name"] == "comm":
                 run_comm(sc, rank, world, spec["out"])
             elif sc["name"] == "refusals":
                 run_refusals(rank, world, spec["out"])
