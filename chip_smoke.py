@@ -423,6 +423,24 @@ exits nonzero:
                     ``paged_attn`` 12 times a step): float32 streams
                     equal the gather oracle's and offline ``generate``'s;
                     bf16 TTFT and TPOT medians.
+14j. ``serve_shard`` - sharded serving (``serve/tp.py``, ``ep.py``,
+                    ``pp.py``): two gloo ranks on the card, rank 0 the
+                    engine and rank 1 its mirror (``serve.shard``),
+                    ``capture=False`` (gloo cannot be captured), GPT-2
+                    small at full width from a seed: tp = 2, pp = 2 (4
+                    microbatches), ep = 2 on the MoE model of ``moe``
+                    (served, not trained: its random init), and tp = 2
+                    with the ring-attention prefill on prompts of
+                    512-1000 tokens.  Each serves its float32 greedy
+                    requests (``serve_shard_traffic``) with streams equal
+                    to the one-card engine's and ``generate``'s, then one
+                    bf16 pass: TPOT and decode tokens/s beside the
+                    one-card engine's (host staging through gloo, not a
+                    throughput).  Every rank's ``paged_attn`` and flash
+                    launches a sharded engine; the tp = 2 ones are row
+                    ``paged_attn_tp2`` (6 heads a rank), timed with the
+                    kernel at 3 heads (tp = 4) over tables of the
+                    traffic's positions (row 5tp).
 15. ``paged_kernels`` - ``paged_attn`` (its split and combine kernels)
                     against ``paged_attn_plain``, on float32, bf16 and
                     float16 pools and on int8 pools with float32, bf16
@@ -475,6 +493,16 @@ tp 2 x sp 2 (bf16 amp), eager steps against graph-mode ones bit for bit
 and every rank's states against the ranks holding the same shards; GPipe
 over the pipe axis at GPT-2 small's width and depth against one card
 (float32); one JSON line.  Needs N GPUs.
+
+    python3 chip_smoke.py --dist-world N --phases serve_shard
+
+runs ``serve_shard`` at N ranks, one a GPU, over NCCL: tp = N, pp = N
+(4 microbatches), ep = N and tp = N with the ring prefill, each mode's
+captured streams against its eager ones and its float32 streams against
+the one-card engine's, token for token; bf16 TPOT, decode tokens/s and
+the busy share of rank 0's decode steps beside the one-card engine's.
+``python3 chip_smoke.py --phases serve_shard`` runs the one-card phase
+alone.
 
     python3 chip_smoke.py --shard-faults
 
@@ -2365,7 +2393,7 @@ ZOO_GROUPS = RESNET_GROUPS
 #: mode is then timed over, and profiled over, on a fresh model (an
 #: eager step's trace takes the profiler seconds to read)
 ZOO_COMPARE_STEPS = 3
-ZOO_TIMED_STEPS = 20
+ZOO_TIMED_STEPS = 10
 ZOO_PROFILED_STEPS = {"eager": 3, "captured": 10}
 #: where the zoo phase writes its checkpoints (gitignored), under the
 #: checkout it runs from
@@ -2708,7 +2736,7 @@ DIST_RUN = dict(batch=64, hw=224, classes=1000, spars=0.05,
 DIST_MODES = ("plain", "fp16", "partialUpdate", "sparseTopK",
               "sparseThreshold")
 DIST_STEPS = 4
-DIST_TIMED = 6
+DIST_TIMED = 3
 DIST_PROFILED = 2
 #: the two ranks' twin run: an MLP (64 -> 256 -> 10) on a batch of 32
 #: (16 a rank), float32, SGD(0.05, 0.9), DIST_TWIN_STEPS eager steps of
@@ -3187,6 +3215,31 @@ def main_dist_world(n, phases=("dist", "shard")):
 
         _build.build("flash_attention")  # once, before the ranks load it
         log(dict(shard_world(n), nvidia_smi=smi))
+    if "serve_shard" in phases and n > 1:
+        main_serve_shard_world(n)
+    return 0
+
+
+def main_phases(phases):
+    """``--phases serve_shard`` (one card): the build and the named
+    phases alone, for working on them; the run without arguments drives
+    every phase."""
+    if not torch.cuda.is_available():
+        print("chip_smoke.py: no CUDA device", file=sys.stderr)
+        return 1
+    unknown = set(phases) - {"serve_shard"}
+    if unknown:
+        print(f"chip_smoke.py --phases: {sorted(unknown)} run only inside "
+              f"the whole run", file=sys.stderr)
+        return 1
+    phase_build()
+    row, other, ring = phase_serve_shard()
+    print(json.dumps({"kernels": [row], "paged_attn_launches": other,
+                      "flash_fwd_launches": ring}))
+    print(nvidia_smi().splitlines()[0])
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
     return 0
 
 
@@ -4128,6 +4181,390 @@ def shard_world(world, tiny=False):
                                                for rk in ranks)}
 
 
+# ------------------------------------------------------------ serve_shard
+
+#: the serve_shard phase: sharded serving (``serve/tp.py``, ``ep.py``,
+#: ``pp.py``, ``shard.py``) of GPT-2 small at full width from a seed.
+#: Rank 0 runs the engine, the other ranks mirror it
+#: (``serve.shard.worker_loop``).  One card: two gloo ranks on it,
+#: ``capture=False`` (gloo moves CUDA tensors through the host and
+#: cannot be captured), a correctness run whose times are host staging,
+#: not throughput.  ``--dist-world 4 --phases serve_shard``: four ranks,
+#: one a card, over NCCL, captured steps against eager ones.  Each mode
+#: serves ``SERVE_SHARD_N`` float32 greedy requests (prompts 16-512,
+#: ``SERVE_SHARD_NEW`` new tokens) whose streams must equal the
+#: single-device engine's and ``generate``'s token for token; the ring
+#: mode ``SERVE_SHARD_RING_N`` prompts of 512-1000 tokens, prefilled by
+#: ring attention.  One bf16 pass a mode logs TPOT and decode tokens/s
+#: beside the one-card engine's on the same requests.
+SERVE_SHARD_N = 8
+SERVE_SHARD_NEW = 16
+SERVE_SHARD_RING_N = 2
+SERVE_SHARD_RING_MIN = 512
+#: the ``moe`` phase's GPT-2 small MoE: 6 of the 12 blocks with 8
+#: experts, top-2
+SERVE_SHARD_MOE = dict(moe_every=2, moe_experts=8, moe_top_k=2)
+#: decode microbatches of the pipeline modes
+SERVE_SHARD_MB = 4
+SERVE_SHARD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                               "_scratch", "chip_smoke_serve_shard")
+SERVE_SHARD_JOIN_S = 600
+#: the bf16 busy-share window of the four-card runs: steps profiled
+#: after ``SERVE_SHARD_WARM`` decode steps
+SERVE_SHARD_WARM = 3
+SERVE_SHARD_PROFILED = 6
+
+
+def serve_shard_modes(world):
+    """``(name, knob, config, moe)`` of the sharded engines at ``world``
+    ranks: tensor, pipeline (``SERVE_SHARD_MB`` microbatches), expert
+    (the MoE model) parallel, and tensor parallel with the ring
+    prefill."""
+    return [(f"tp{world}", "tp", world, False),
+            (f"pp{world}", "pp", dict(stages=world,
+                                      microbatches=SERVE_SHARD_MB), False),
+            (f"ep{world}", "ep", world, True),
+            (f"tp{world}_ring", "tp", dict(
+                tp=world, ring_prefill=True,
+                ring_min_tokens=SERVE_SHARD_RING_MIN), False)]
+
+
+def serve_shard_traffic(ring, seed=0, vocab=50257):
+    """Greedy requests: ``SERVE_SHARD_N`` prompts of 16-512 tokens, or
+    (``ring``) ``SERVE_SHARD_RING_N`` of 512-1000."""
+    rng = np.random.RandomState(seed + ring)
+    lo, hi, n = (SERVE_SHARD_RING_MIN, 1001, SERVE_SHARD_RING_N) if ring \
+        else (16, 513, SERVE_SHARD_N)
+    return [dict(prompt=rng.randint(0, vocab, rng.randint(lo, hi))
+                 .astype(np.int32), max_new=SERVE_SHARD_NEW,
+                 temperature=0.0, seed=int(rng.randint(0, 2 ** 31 - 1)))
+            for _ in range(n)]
+
+
+def _serve_counts():
+    from singa_tpu_torch.ops import flash_attention as fa
+    from singa_tpu_torch.ops import paged_attention as pa
+
+    return {"paged_attn": pa.paged_attn.launches,
+            "flash_fwd": fa.flash_fwd.launches}
+
+
+def _reset_serve_counts():
+    _reset_paged_counts()
+    reset_flash_counts()
+
+
+def serve_tpot(model, traffic, dtype, capture, **kw):
+    """TPOT (the requests' mean) and decode tokens/s of a second pass of
+    ``traffic`` on one engine of the serve phase's size, the first pass
+    its warm-up (a captured engine's graphs made there), and the
+    engine's executor snapshot."""
+    from singa_tpu_torch.observe import trace as tr
+    from singa_tpu_torch.serve import GenerationRequest, PagedConfig
+
+    c = SERVE_ENGINE
+    eng = model.serve(max_slots=c["max_slots"], dtype=dtype,
+                      paged=PagedConfig(block_size=c["block_size"],
+                                        num_blocks=c["num_blocks"]),
+                      capture=capture, **kw)
+    try:
+        for measured in (False, True):
+            if measured:
+                tr.drain()
+                tr.enable()
+            hs = [eng.submit(GenerationRequest(
+                w["prompt"], max_new_tokens=w["max_new"],
+                temperature=w["temperature"], seed=w["seed"]))
+                for w in traffic]
+            eng.run_until_complete()
+            torch.cuda.synchronize()
+        tr.disable()
+        dec_s = sum(e["dur"] for e in tr.drain()
+                    if e["name"] == "serve/decode_step")
+        res = [h.result() for h in hs]
+        shard = None if eng._shard is None else eng._shard.snapshot()
+    finally:
+        tr.disable()
+        eng.close(force=True)
+    return dict(tpot_ms=1e3 * statistics.mean(r.tpot for r in res),
+                decode_tok_s=sum(w["max_new"] - 1 for w in traffic) / dec_s,
+                shard=shard)
+
+
+def sharded_busy(model, traffic, dtype, knob, conf):
+    """The device's busy share of rank 0's decode steps, bf16, captured
+    (torch.profiler over ``SERVE_SHARD_PROFILED`` steps after
+    ``SERVE_SHARD_WARM``)."""
+    from singa_tpu_torch.serve import GenerationRequest, PagedConfig
+
+    c = SERVE_ENGINE
+    eng = model.serve(max_slots=c["max_slots"], dtype=dtype,
+                      paged=PagedConfig(block_size=c["block_size"],
+                                        num_blocks=c["num_blocks"]),
+                      **{knob: conf})
+    try:
+        for w in traffic:
+            eng.submit(GenerationRequest(
+                w["prompt"], max_new_tokens=w["max_new"],
+                temperature=w["temperature"], seed=w["seed"]))
+        for _ in range(1 + SERVE_SHARD_WARM):
+            eng.step()
+        out = profile_steps(lambda _x, _y: eng.step(), None, None,
+                            steps=SERVE_SHARD_PROFILED, groups=SERVE_GROUPS)
+        eng.run_until_complete()
+    finally:
+        eng.close(force=True)
+    return {k: out[k] for k in ("wall_ms_per_step", "device_ms_per_step",
+                                "device_busy_share", "group_ms_per_step")}
+
+
+def serve_shard_controller(world, nccl, dev, seed=0):
+    """Rank 0 of the serve_shard ranks: the models, the one-card
+    references and every sharded engine (``serve_shard_modes``); returns
+    the report, with rank 0's launches of each sharded engine in build
+    order (``engines``)."""
+    from singa_tpu_torch import amp, device, tensor
+    from singa_tpu_torch.models.gpt2 import GPT2Config, GPT2LMHead
+
+    amp.enable(False)
+    cdev = device.create_cuda_gpu()
+    models = {}
+    for key, kw in (("dense", {}), ("moe", SERVE_SHARD_MOE)):
+        cdev.SetRandSeed(seed)
+        m = GPT2LMHead(GPT2Config.small(dropout=0.0, **kw))
+        m.compile([tensor.from_numpy(np.zeros((1, 8), np.int32), cdev)],
+                  is_train=False)
+        models[key] = m
+    engines, report, refs = [], {}, {}
+
+    def counted(label, fn, *a, **kw):
+        _reset_serve_counts()
+        out = fn(*a, **kw)
+        torch.cuda.synchronize()
+        engines.append(dict(label=label, **_serve_counts()))
+        return out
+
+    for name, knob, conf, moe in serve_shard_modes(world):
+        t0 = time.perf_counter()
+        ring = name.endswith("_ring")
+        model = models["moe" if moe else "dense"]
+        traffic = serve_shard_traffic(ring, seed)
+        key = ("moe" if moe else "dense", ring)
+        if key not in refs:
+            one, _, _, _ = run_engine(model, traffic, "block")
+            gen = offline_streams(model, traffic)
+            _same_streams(f"{key}: one card against generate", one, gen)
+            ref16 = serve_tpot(model, traffic, torch.bfloat16, True)
+            del ref16["shard"]
+            refs[key] = dict(streams=one, bf16=ref16)
+        ref = refs[key]
+        eager, _, sec, _ = counted(f"{name}/float32/eager", run_engine,
+                                   model, traffic, "block", capture=False,
+                                   **{knob: conf})
+        _same_streams(f"{name}: sharded float32 against one card", eager,
+                      ref["streams"])
+        row = dict(requests=len(traffic), float32_eager_s=sec,
+                   launches_rank0=engines[-1])
+        if nccl:
+            cap, snap, csec, _ = counted(f"{name}/float32/captured",
+                                         run_engine, model, traffic, "block",
+                                         capture=True, **{knob: conf})
+            _same_streams(f"{name}: captured against eager", cap, eager)
+            row.update(captured_equals_eager=True, float32_captured_s=csec,
+                       graphs=snap["graphs"]["census_at_end"])
+        row["bf16"] = dict(counted(f"{name}/bf16", serve_tpot, model,
+                                   traffic, torch.bfloat16, nccl,
+                                   **{knob: conf}), one_card=ref["bf16"])
+        if nccl:
+            row["bf16"]["busy"] = counted(f"{name}/busy", sharded_busy,
+                                          model, traffic, torch.bfloat16,
+                                          knob, conf)
+        row["seconds"] = time.perf_counter() - t0
+        report[name] = row
+    return dict(modes=report, engines=engines)
+
+
+def serve_shard_rank_main(rank, world, port, nccl):
+    """One rank of the serve_shard run: rank 0 the controller, the others
+    ``worker_loop`` (their launches counted a mirror, at its close);
+    writes ``serve-shard<W>-r<rank>.json``."""
+    import torch.distributed as tdist
+
+    from singa_tpu_torch.parallel import communicator
+    from singa_tpu_torch.serve import shard
+
+    dev = torch.device("cuda", rank % torch.cuda.device_count())
+    torch.cuda.set_device(dev)
+    communicator.initialize_distributed(
+        coordinator_address=f"localhost:{port}", num_processes=world,
+        process_id=rank, backend="nccl" if nccl else "gloo",
+        initialization_timeout=SERVE_SHARD_JOIN_S)
+    try:
+        t0 = time.perf_counter()
+        if rank == 0:
+            try:
+                out = serve_shard_controller(world, nccl, dev)
+            finally:
+                shard.stop_workers()
+        else:
+            mirrors = []
+
+            def closed(eng):
+                torch.cuda.synchronize()
+                mirrors.append(dict(kind=eng._shard.kind, **_serve_counts()))
+                _reset_serve_counts()
+
+            _reset_serve_counts()
+            with torch.no_grad():
+                shard.worker_loop(on_close=closed)
+            out = dict(engines=mirrors)
+        out.update(rank=rank, seconds=time.perf_counter() - t0)
+        path = os.path.join(SERVE_SHARD_DIR,
+                            f"serve-shard{world}-r{rank}.json")
+        with open(path + ".tmp", "w") as f:
+            json.dump(out, f)
+        os.replace(path + ".tmp", path)
+    except BaseException:
+        # the other ranks may wait in a collective this rank never joins
+        traceback.print_exc()
+        sys.stderr.flush()
+        os._exit(1)
+    gc.collect()
+    torch.cuda.synchronize()
+    tdist.destroy_process_group()
+
+
+def serve_shard_world(world, nccl):
+    """Spawn this script ``world`` times as ``--serve-shard-rank`` (one
+    card a rank over NCCL, or every rank on card 0 over gloo) and join
+    them within ``SERVE_SHARD_JOIN_S``; returns rank 0's report with
+    every rank's launches a sharded engine."""
+    os.makedirs(SERVE_SHARD_DIR, exist_ok=True)
+    port = free_port()
+    outs = [os.path.join(SERVE_SHARD_DIR, f"serve-shard{world}-r{rk}.json")
+            for rk in range(world)]
+    for o in outs:
+        if os.path.exists(o):
+            os.unlink(o)
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--serve-shard-rank",
+         str(rk), "--dist-world", str(world), "--dist-port", str(port)]
+        + ["--nccl"] * nccl) for rk in range(world)]
+    deadline = time.monotonic() + SERVE_SHARD_JOIN_S
+    try:
+        while time.monotonic() < deadline:
+            rcs = [p.poll() for p in procs]
+            if None not in rcs or any(rcs):
+                break
+            time.sleep(0.5)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+    rcs = [p.returncode for p in procs]
+    if any(rcs) or not all(os.path.exists(o) for o in outs):
+        raise AssertionError(f"serve_shard world {world}: exit codes {rcs}")
+    ranks = [json.load(open(o)) for o in outs]
+    r0 = ranks[0]
+    for rk in ranks[1:]:
+        if len(rk["engines"]) != len(r0["engines"]):
+            raise AssertionError(
+                f"rank {rk['rank']} mirrored {len(rk['engines'])} engines, "
+                f"rank 0 built {len(r0['engines'])}")
+    # every rank's launches, engine by engine
+    for i, e in enumerate(r0["engines"]):
+        for k in ("paged_attn", "flash_fwd"):
+            e[f"{k}_ranks"] = [e[k]] + [rk["engines"][i][k]
+                                         for rk in ranks[1:]]
+    return r0
+
+
+def serve_shard_launches(engines, prefix):
+    """``{kernel: launches}`` on every rank of the engines whose label
+    starts with ``prefix``."""
+    out = {"paged_attn": 0, "flash_fwd": 0}
+    for e in engines:
+        if e["label"].startswith(prefix):
+            for k in out:
+                out[k] += sum(e[f"{k}_ranks"])
+    return out
+
+
+def rank_cfg(cfg, tp):
+    """GPT-2 small's attention as one of ``tp`` ranks sees it: its
+    ``n_head / tp`` heads (``real_args`` reads the shape off a config)."""
+    import types
+
+    return types.SimpleNamespace(n_head=cfg.n_head // tp,
+                                 n_kv_head=cfg.n_kv_head // tp,
+                                 n_embd=cfg.n_embd // tp,
+                                 n_layer=cfg.n_layer)
+
+
+def phase_serve_shard():
+    """Sharded serving on one card (module docstring): two gloo ranks, every
+    mode of ``serve_shard_modes(2)``; then ``paged_attn`` timed at a
+    rank's 6 heads (tp = 2) and 3 heads (tp = 4) over tables of the
+    traffic's positions.  Returns the kernels line's ``paged_attn_tp2``
+    row and the launches to add to the ``paged_attn`` and ``flash_fwd``
+    rows."""
+    from singa_tpu_torch.models.gpt2 import GPT2Config
+
+    t0 = time.perf_counter()
+    r0 = serve_shard_world(2, nccl=False)
+    t1 = time.perf_counter()
+    eng = r0["engines"]
+    tp_launch = serve_shard_launches(eng, "tp2")
+    other = serve_shard_launches(eng, "pp2")
+    for k, v in serve_shard_launches(eng, "ep2").items():
+        other[k] += v
+    if tp_launch["paged_attn"] == 0 or other["paged_attn"] == 0 \
+            or tp_launch["flash_fwd"] == 0:
+        raise AssertionError(f"a sharded engine launched no kernel: {eng}")
+    cfg = GPT2Config.small()
+    lens = [len(w["prompt"]) + SERVE_SHARD_NEW // 2
+            for w in serve_shard_traffic(False)]
+    tables = {f"tp{tp}": time_paged_table(paged_table(lens, rank_cfg(cfg, tp),
+                                                      seed=20 + tp))
+              for tp in (2, 4)}
+    log({"phase": "serve_shard", "world": 2, "backend": "gloo",
+         "modes": r0["modes"], "engines": eng,
+         "paged_attn_rank_heads_row_5tp": tables,
+         "seconds": {"ranks": t1 - t0, "rank0": r0["seconds"],
+                     "tables": time.perf_counter() - t1},
+         "nvidia_smi": nvidia_smi()})
+    t = tables["tp2"]
+    ms = t["device_ms"]
+    row = dict(
+        name="paged_attn_tp2", route="cuda",
+        source="singa_tpu_torch/csrc/paged_attention.cu",
+        replaces=REPLACES["paged_attn"], launches=tp_launch["paged_attn"],
+        max_abs_err=t["max_abs_err_vs_plain"], ms=ms["kernel"],
+        plain_ms=ms["plain"], bound_ms=ms["bound"], bound_by=t["bound_by"],
+        library_ms=ms["sdpa_alone"],
+        library_call="torch.nn.functional.scaled_dot_product_attention on "
+                     "rows gathered from the pool (the gather not timed)",
+        kernels="paged_attn_kernel<T, T> (split) + paged_combine_kernel<T, "
+                "T> at a tp = 2 rank's 6 heads (the sharded decode steps, "
+                "float32 and bf16, every rank)")
+    return row, other, tp_launch["flash_fwd"]
+
+
+def main_serve_shard_world(n):
+    """``--dist-world N --phases serve_shard``: ``serve_shard_world`` at N
+    over NCCL."""
+    from singa_tpu_torch.ops import _build
+
+    for src in ("flash_attention", "paged_attention"):
+        _build.build(src)  # once, before the ranks load them
+    r0 = serve_shard_world(n, nccl=True)
+    log({"phase": "serve_shard_world", "world": n, "backend": "nccl",
+         "modes": r0["modes"], "engines": r0["engines"],
+         "seconds": r0["seconds"],
+         "nvidia_smi": nvidia_smi().splitlines()})
+
+
 # ------------------------------------------------------------- bottleneck
 
 
@@ -4741,13 +5178,20 @@ def sdpa_yardstick(layers):
             cuda_time_ms(sdpa, 4 * len(calls)), gather_ms, err)
 
 
+#: calls of ``paged_attn``'s plain version a timed table times (its
+#: first ``PAGED_PLAIN_CALLS`` layers; the plain version is about 200x
+#: the kernel and host-bound, so a few calls fix its time, and profiling
+#: a layer's worth of its small kernels takes seconds)
+PAGED_PLAIN_CALLS = 2
+
+
 def time_paged_table(layers):
     """Times of ``paged_attn`` at one table over its layers' pools in turn
     (device time: the split and combine kernels summed), on the first
-    layer alone (its K/V then stays in L2), of its plain version and of
-    the SDPA yardstick, beside the bound; and the kernel's largest
-    difference from its plain version there (raises past
-    ``PAGED_TOL``)."""
+    layer alone (its K/V then stays in L2), of its plain version
+    (``PAGED_PLAIN_CALLS`` calls) and of the SDPA yardstick, beside the
+    bound; and the kernel's largest difference from its plain version
+    there (raises past ``PAGED_TOL``)."""
     from singa_tpu_torch.ops import paged_attention as pa
 
     args = layers[0]
@@ -4806,12 +5250,13 @@ def time_paged_table(layers):
         device_ms={"kernel": sum(by_kernel.values()),
                    "kernel_one_layer_l2_hot": device_ms_per_call(
                        lambda: pa.paged_attn(**args), 4 * n),
-                   "plain": device_ms_per_call(plain, n),
+                   "plain": device_ms_per_call(plain,
+                                               PAGED_PLAIN_CALLS),
                    "sdpa_alone": sdpa_ms, "bound": bound, **extra},
         query_positions=nq, window=window,
         bound_by=by,
         event_ms={"kernel": cuda_time_ms(kernel, 4 * n),
-                  "plain": cuda_time_ms(plain, n),
+                  "plain": cuda_time_ms(plain, PAGED_PLAIN_CALLS),
                   "sdpa_alone": sdpa_events_ms,
                   "gather_for_sdpa": gather_ms},
         max_abs_err_vs_plain=err, sdpa_max_abs_diff_vs_kernel=sdpa_err)
@@ -5121,6 +5566,9 @@ class _LogitsProbe:
         self.max_err = 0.0
         self.first_low = {}     # request id -> first low-margin token index
         self.real = None
+
+    def __getattr__(self, name):
+        return getattr(self.inner, name)
 
     def prefill_batch(self, params, ids):
         return self.inner.prefill_batch(params, ids)
@@ -8070,9 +8518,18 @@ def main():
     cfg = model.cfg
     del model
     moe_launches = timed("moe", phase_moe, rows)
+    tp_row, shard_launches, ring_launches = timed("serve_shard",
+                                                  phase_serve_shard)
     for row in timed("paged_kernels", phase_paged_kernels, real, real8, cfg,
                      spec, win, fork):
         rows[row["name"]] = row
+    # the sharded engines' launches on every rank: the pipeline and
+    # expert modes' at the full 12 heads, the ring prefill's flash
+    # forward; the tensor-parallel ones at a rank's 6 heads, row 5tp
+    rows["paged_attn"]["launches"] += shard_launches["paged_attn"]
+    rows["flash_fwd"]["launches"] += ring_launches \
+        + shard_launches["flash_fwd"]
+    rows[tp_row["name"]] = tp_row
     # the prefix phase decodes on bf16 pools through paged_attn, the
     # structured phase on float32 ones, the observe and moe phases on
     # both, the supervisor phase's supervised run on float32 ones
@@ -8108,6 +8565,12 @@ if __name__ == "__main__":
                               int(arg("--dist-port")),
                               tiny="--tiny" in sys.argv)
         sys.exit(0)
+    if "--serve-shard-rank" in sys.argv:  # one rank of serve_shard
+        serve_shard_rank_main(int(arg("--serve-shard-rank")),
+                              int(arg("--dist-world")),
+                              int(arg("--dist-port")),
+                              nccl="--nccl" in sys.argv)
+        sys.exit(0)
     if "--dist-world-rank" in sys.argv:  # one rank of --dist-world
         dist_world_rank_main(int(arg("--dist-world-rank")),
                              int(arg("--dist-world")),
@@ -8120,4 +8583,6 @@ if __name__ == "__main__":
             int(arg("--dist-world")),
             arg("--phases").split(",") if "--phases" in sys.argv
             else ("dist", "shard")))
+    if "--phases" in sys.argv:
+        sys.exit(main_phases(arg("--phases").split(",")))
     sys.exit(main())

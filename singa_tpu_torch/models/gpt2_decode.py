@@ -62,8 +62,16 @@ the value product (the softmax sums stay unscaled).
 
 A MoE block (``GPT2Config(moe_every=...)``) decodes through
 ``_moe_ffn``: capacity-free top-k routing over a loop of the experts,
-the JAX package's decode FFN.  Tensor and expert parallelism are not
-ported yet (the engine refuses ``tp``/``ep``/``pp``).
+the JAX package's decode FFN.
+
+Sharded serving (``serve/tp.py``, ``serve/ep.py``): a rank's placed
+weights carry their process groups in the block dicts, ``"tp"`` (the
+Megatron slices: q/k/v/fc1 by columns, out-proj/fc2 by rows) and
+``"ep"`` (an :class:`EPContext`: the rank's resident experts).  The
+block functions then take the rank's heads off the weights' widths and
+close each row-parallel product with one all-reduce (the JAX package's
+``_tp_psum`` sites), and a MoE block runs :func:`_moe_ffn_ep`.  Without
+those entries every expression is the single-device one.
 """
 
 from __future__ import annotations
@@ -191,12 +199,39 @@ def _linear(x, w, b):
     return y.reshape(*x.shape[:-1], w.shape[-1])
 
 
+def _row_linear(x, w, b, group):
+    """A row-parallel product ``x @ w + b``: with a tensor-parallel
+    ``group`` (the block's ``"tp"`` entry, set by ``serve/tp.py``'s
+    placement) ``x`` and ``w`` are this rank's input-dim slices, the
+    partial product is all-reduced over the group and the bias added
+    after the sum (the JAX package's ``_tp_psum`` sites); without one it
+    is :func:`_linear`, the single-device path unchanged."""
+    if group is None:
+        return _linear(x, w, b)
+    from ..parallel.communicator import group_all_reduce
+
+    y = x.reshape(-1, x.shape[-1]) @ w
+    group_all_reduce(y, group, op="tp_psum")
+    return (y + b).reshape(*x.shape[:-1], w.shape[-1])
+
+
 def _mlp(h, p):
-    """The block's FFN: dense, or the experts of a MoE block."""
+    """The block's FFN: dense (fc2 row-parallel under a ``"tp"`` group),
+    or the experts of a MoE block (expert-parallel under an ``"ep"``
+    context, ``serve/ep.py``)."""
     if "moe_wg" in p:
+        if p.get("ep") is not None:
+            return _moe_ffn_ep(h, p, p["moe_top_k"], p["ep"])
+        if p.get("tp") is not None:
+            raise NotImplementedError(
+                "MoE blocks are not tensor-parallel: expert weights shard "
+                "over the expert axis; serve this model with "
+                "model.serve(ep=EPConfig(ep=, tp=)) "
+                "(singa_tpu_torch/serve/ep.py)")
         return _moe_ffn(h, p, p["moe_top_k"])
-    return _linear(F.gelu(_linear(h, p["w1"], p["b1"]), approximate="tanh"),
-                   p["w2"], p["b2"])
+    return _row_linear(F.gelu(_linear(h, p["w1"], p["b1"]),
+                              approximate="tanh"),
+                       p["w2"], p["b2"], p.get("tp"))
 
 
 def _moe_weights(probs, top_k):
@@ -236,6 +271,77 @@ def _moe_ffn(h, p, top_k):
     return y
 
 
+class EPContext:
+    """What an expert-parallel MoE block needs besides its weights (the
+    block's ``"ep"`` entry, set by ``serve/ep.py``'s placement): the
+    ``ep`` process ``group``, its ``world`` size and this rank's
+    ``rank`` on it, the GShard ``capacity_factor`` (None: capacity =
+    tokens, nothing drops), and the device accumulators of the routed
+    load, ``counts`` (E,) and ``dropped`` (), which every application
+    adds to in place, so a captured step keeps counting on replay.
+    ``live``: the (lanes,) live flags of the decode step being run (its
+    dead lanes' clamped tokens route like real ones but are not
+    counted), or None to count every token (prefill passes)."""
+
+    def __init__(self, group, world, rank, capacity_factor, n_expert,
+                 device):
+        self.group, self.world, self.rank = group, int(world), int(rank)
+        self.capacity_factor = capacity_factor
+        self.counts = torch.zeros(n_expert, dtype=torch.int64, device=device)
+        self.dropped = torch.zeros((), dtype=torch.int64, device=device)
+        self.live = None
+
+
+def _moe_ffn_ep(h, p, top_k, ctx):
+    """Expert-parallel MoE FFN (the JAX package's ``_moe_ffn_ep``): the
+    router and the capacity-bounded dispatch run on every rank over the
+    replicated activations (``parallel/moe.py``'s ``_top2_dispatch`` /
+    ``_top1_dispatch``), each rank computes its resident experts'
+    outputs (``p["moe_w*"]`` hold its E/world slice) through its columns
+    of the dispatch and combine one-hots, and ONE all-reduce over the
+    ``ep`` group sums each token's top-k contributions.  With
+    ``capacity_factor`` None the capacity is the token count and nothing
+    drops, so the output is ``_moe_ffn``'s up to the order of the sum; a
+    finite factor drops over-capacity assignments to the residual path.
+    The kept assignments per expert and the dropped ones add into
+    ``ctx.counts`` / ``ctx.dropped``."""
+    from ..parallel import moe as _moe
+    from ..parallel.communicator import group_all_reduce
+
+    if top_k not in (1, 2):
+        raise ValueError("moe_top_k must be 1 (Switch) or 2 (GShard), "
+                         f"got {top_k}")
+    b, s, dm = h.shape
+    n = b * s
+    e = p["moe_wg"].shape[-1]
+    probs = torch.softmax((h @ p["moe_wg"].to(h.dtype)).float(),
+                          dim=-1).reshape(n, e)
+    cf = ctx.capacity_factor
+    cap = n if cf is None else max(1, int(math.ceil(top_k * n / e * cf)))
+    route = _moe._top2_dispatch if top_k == 2 else _moe._top1_dispatch
+    dispatch, combine, _ = route(probs, cap)
+    kept = dispatch.sum(-1)                              # (n, E)
+    drop = top_k - kept.sum(-1)                          # (n,)
+    if ctx.live is not None:
+        m = (ctx.live != 0).repeat_interleave(s).to(kept.dtype)
+        kept, drop = kept * m[:, None], drop * m
+    ctx.counts += torch.round(kept.sum(0)).long()
+    ctx.dropped += torch.round(drop.sum()).long()
+    e_loc = e // ctx.world
+    lo = ctx.rank * e_loc
+    d_l = dispatch[:, lo:lo + e_loc].to(h.dtype)
+    c_l = combine[:, lo:lo + e_loc].to(h.dtype)
+    ht = h.reshape(n, dm)
+    xin = torch.einsum("nec,nd->ecd", d_l, ht)
+    hh = F.gelu(torch.einsum("ecd,edf->ecf", xin, p["moe_w1"])
+                + p["moe_b1"][:, None, :], approximate="tanh")
+    out = torch.einsum("ecf,efd->ecd", hh, p["moe_w2"]) \
+        + p["moe_b2"][:, None, :]
+    y = torch.einsum("nec,ecd->nd", c_l, out)
+    group_all_reduce(y, ctx.group, op="ep_psum")
+    return y.reshape(b, s, dm)
+
+
 def _logits(x, params):
     head = params["head"]
     return x @ (params["wte"].t() if head is None else head)
@@ -266,11 +372,16 @@ def _attn_full(q, k, v, n_head, window=None):
 
 
 def _block_prefill(x, p, n_head, eps, window=None):
+    """One layer of a prefill block; under a ``"tp"`` group the rank's
+    heads (q's width over the head dim) and the out-projection's
+    all-reduce."""
     h = _ln(x, p["ln1_s"], p["ln1_b"], eps)
     q = _linear(h, p["wq"], p["bq"])
     k = _linear(h, p["wk"], p["bk"])
     v = _linear(h, p["wv"], p["bv"])
-    x = x + _linear(_attn_full(q, k, v, n_head, window), p["wo"], p["bo"])
+    nq = q.shape[-1] // (x.shape[-1] // n_head)
+    x = x + _row_linear(_attn_full(q, k, v, nq, window), p["wo"], p["bo"],
+                        p.get("tp"))
     h = _ln(x, p["ln2_s"], p["ln2_b"], eps)
     return x + _mlp(h, p), k, v
 
@@ -335,7 +446,7 @@ def _block_decode(x, p, k_cache, v_cache, pos, n_head, eps, window=None):
     b, _, e = x.shape
     d = e // n_head
     n_kv, ctx = kq.shape[1], kq.shape[2]
-    g = n_head // n_kv
+    g = p["wq"].shape[-1] // d // n_kv
     if window is not None and ctx != window:
         raise ValueError(f"rolling cache width {ctx} != window {window}")
     h = _ln(x, p["ln1_s"], p["ln1_b"], eps)
@@ -363,7 +474,8 @@ def _block_decode(x, p, k_cache, v_cache, pos, n_head, eps, window=None):
     if quant:
         pr = pr * v_cache[1][:, :, None, :]
     a = torch.einsum("bkgt,bktd->bkgd", pr, _leaves(v_cache)[0].float())
-    x = x + _linear(a.reshape(b, 1, e).to(x.dtype), p["wo"], p["bo"])
+    x = x + _row_linear(a.reshape(b, 1, n_kv * g * d).to(x.dtype), p["wo"],
+                        p["bo"], p.get("tp"))
     h = _ln(x, p["ln2_s"], p["ln2_b"], eps)
     return x + _mlp(h, p)
 
@@ -400,7 +512,7 @@ def _block_chunk(x, p, k_cache, v_cache, pos, n_head, eps, window=None):
     b, klen, e = x.shape
     d = e // n_head
     n_kv = kq.shape[1]
-    g = n_head // n_kv
+    g = p["wq"].shape[-1] // d // n_kv
     dev = x.device
     ar = torch.arange(klen, device=dev)
     h = _ln(x, p["ln1_s"], p["ln1_b"], eps)
@@ -441,8 +553,8 @@ def _block_chunk(x, p, k_cache, v_cache, pos, n_head, eps, window=None):
         pr = pr * v_cache[1][:, :, None, None, :end]
     a = torch.einsum("bkgqt,bktd->bkgqd", pr,
                      _leaves(v_cache)[0][:, :, :end].float())
-    a = a.permute(0, 3, 1, 2, 4).reshape(b, klen, e).to(x.dtype)
-    x = x + _linear(a, p["wo"], p["bo"])
+    a = a.permute(0, 3, 1, 2, 4).reshape(b, klen, n_kv * g * d).to(x.dtype)
+    x = x + _row_linear(a, p["wo"], p["bo"], p.get("tp"))
     h = _ln(x, p["ln2_s"], p["ln2_b"], eps)
     return x + _mlp(h, p)
 
@@ -516,8 +628,8 @@ def _block_paged(x, p, pool_k_l, pool_v_l, tables, pos, n_head, eps,
     blk, off, cur_mask = write_at
     a = paged_attn(q, pool_k_l, pool_v_l, tables, pos, k_cur, v_cur,
                    cur_mask, 1.0 / math.sqrt(d), window)
-    a = a.to(x.dtype).permute(0, 3, 1, 2, 4).reshape(s_, nq, e)
-    x = x + _linear(a, p["wo"], p["bo"])
+    a = a.to(x.dtype).permute(0, 3, 1, 2, 4).reshape(s_, nq, -1)
+    x = x + _row_linear(a, p["wo"], p["bo"], p.get("tp"))
     h = _ln(x, p["ln2_s"], p["ln2_b"], eps)
     x = x + _mlp(h, p)
     for pool, cur in ((pool_k_l, k_cur), (pool_v_l, v_cur)):

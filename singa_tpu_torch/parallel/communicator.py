@@ -175,14 +175,17 @@ def group_all_reduce(t, group, op="axis_all_reduce"):
 
 def group_all_gather(t, group, dim=0, op="axis_all_gather"):
     """Every rank's ``t`` concatenated along ``dim`` in the group's rank
-    order (a new tensor)."""
+    order (a new tensor on ``t``'s device; a gloo group, which cannot
+    gather CUDA tensors, gathers host copies)."""
     n = dist.get_world_size(group)
     _record_collective(op, [t], world=n)
     flat = t.detach().contiguous().reshape(-1)
+    if flat.is_cuda and dist.get_backend(group) == "gloo":
+        flat = flat.cpu()
     out = flat.new_empty((n * flat.numel(),))
     _all_gather(out, flat, group)
     parts = out.reshape(n, *t.shape).unbind(0)
-    return torch.cat(parts, dim=dim)
+    return torch.cat(parts, dim=dim).to(t.device)
 
 
 def group_broadcast(t, src, group, op="axis_broadcast"):

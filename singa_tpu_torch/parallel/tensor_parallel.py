@@ -42,7 +42,92 @@ __all__ = [
     "ColumnParallelLinear", "RowParallelLinear", "VocabParallelEmbedding",
     "ParallelMLP", "ParallelMHA", "ParallelTransformerBlock",
     "copy_to_axis", "reduce_from_axis", "gather_from_axis",
+    "decode_param_specs", "decode_cache_spec", "shard_decode_params",
 ]
+
+
+# ------------------------------------- the decode pytree's serve layout
+
+#: column-parallel decode weights (q/k/v, MLP fc1) and their biases split
+#: their OUTPUT dim; the row-parallel ones (attention out-proj, MLP fc2)
+#: split their INPUT dim and close with the block's one all-reduce;
+#: everything else (LayerNorms, row biases, embeddings, the LM head) is
+#: replicated
+_DECODE_COL_W = ("wq", "wk", "wv", "w1")
+_DECODE_COL_B = ("bq", "bk", "bv", "b1")
+_DECODE_ROW_W = ("wo", "w2")
+#: MoE expert weights: stacked (E, ...) tensors whose LEADING expert axis
+#: shards over the serve ``ep`` axis; the router ``moe_wg`` replicates
+_DECODE_EXPERT_W = ("moe_w1", "moe_b1", "moe_w2", "moe_b2")
+
+
+def decode_param_specs(params, axis=MODEL, ep_axis=None):
+    """The spec pytree (``params``' structure, a :class:`P` a tensor
+    leaf, None for a None leaf and for a block's non-tensor entries)
+    laying an ``extract_params`` decode pytree out Megatron-style over
+    ``axis``: heads and MLP columns partitioned, out-proj / fc2 by rows,
+    embeddings / norms / head replicated; a MoE block's stacked expert
+    weights over ``ep_axis`` (``serve/ep.py``).  A MoE block without an
+    ``ep_axis`` raises ``NotImplementedError`` naming the ``serve(ep=)``
+    path (the JAX package's ``decode_param_specs``)."""
+    blocks = []
+    for li, blk in enumerate(params["blocks"]):
+        if "moe_wg" in blk and ep_axis is None:
+            raise NotImplementedError(
+                f"block {li} is an MoE block: expert weights shard over "
+                f"the expert axis, not the tensor-parallel axis; serve "
+                f"this model with model.serve(ep=EPConfig(ep=, tp=)) "
+                f"(singa_tpu_torch/serve/ep.py: expert-parallel decode; "
+                f"tp= covers dense/GQA models only)")
+        spec = {}
+        for k, v in blk.items():
+            if not isinstance(v, torch.Tensor):
+                spec[k] = None
+            elif k in _DECODE_COL_W:
+                spec[k] = P(None, axis)
+            elif k in _DECODE_COL_B:
+                spec[k] = P(axis)
+            elif k in _DECODE_ROW_W:
+                spec[k] = P(axis, None)
+            elif k in _DECODE_EXPERT_W:
+                spec[k] = P(ep_axis)
+            else:
+                spec[k] = P()
+        blocks.append(spec)
+    out = {k: (None if v is None else P())
+           for k, v in params.items() if k != "blocks"}
+    out["blocks"] = blocks
+    return out
+
+
+def decode_cache_spec(axis=MODEL):
+    """The spec of every KV leaf the serve engine owns: slot arenas (L,
+    S, H_kv, W, D), paged pools (L, N + 1, H_kv, B, D), cache rows (L, 1,
+    H_kv, W, D) and their int8 scales (no trailing D): the KV-head axis,
+    always axis 2, over ``axis``."""
+    return P(None, None, axis)
+
+
+def shard_decode_params(params, mesh, axis=MODEL, ep_axis=None):
+    """This rank's slices of a full decode pytree (``extract_params``'
+    output) under :func:`decode_param_specs`, cut by
+    ``sharding.shard_array`` (a dimension the axes do not divide
+    raises); a block's non-tensor entries and None leaves pass as they
+    are."""
+    specs = decode_param_specs(params, axis=axis, ep_axis=ep_axis)
+
+    def cut(t, spec, name):
+        if spec is None:
+            return t
+        return shard_array(t, mesh, spec, name=name).to(t.device)
+
+    out = {k: cut(v, specs[k], k) for k, v in params.items()
+           if k != "blocks"}
+    out["blocks"] = [{k: cut(v, sp[k], f"blocks.{i}.{k}")
+                      for k, v in blk.items()}
+                     for i, (blk, sp) in enumerate(zip(params["blocks"],
+                                                       specs["blocks"]))]
+    return out
 
 
 # ------------------------------------------------- the conjugate collectives

@@ -32,9 +32,11 @@ it takes vocabulary masks and returns log-probabilities);
 """
 
 from .engine import InferenceEngine
+from .ep import EPConfig
 from .fork import BranchHandle, ForkHandle
 from .jitpin import jit_cache_size
 from .paged import PagedConfig, PagedKVArena
+from .pp import PPConfig
 from .prefix import PrefixCache, PrefixCacheConfig, SessionHandle
 from .request import (DeadlineExceededError, EngineFailedError,
                       FleetDownError, GenerationRequest, GenerationResult,
@@ -44,6 +46,7 @@ from .scheduler import FIFOScheduler, PriorityScheduler
 from .stats import EngineStats
 from .structured import JsonSchemaAutomaton, TokenAutomaton
 from .supervisor import EngineSupervisor
+from .tp import TPConfig
 
 __all__ = ["InferenceEngine", "PagedConfig", "PagedKVArena",
            "GenerationRequest", "GenerationResult", "RequestHandle",
@@ -52,4 +55,5 @@ __all__ = ["InferenceEngine", "PagedConfig", "PagedKVArena",
            "jit_cache_size", "PrefixCache", "PrefixCacheConfig",
            "SessionHandle", "ForkHandle", "BranchHandle", "TokenAutomaton",
            "JsonSchemaAutomaton", "EngineSupervisor", "LoadShedError",
-           "RestartBudgetExceededError", "FleetDownError"]
+           "RestartBudgetExceededError", "FleetDownError", "TPConfig",
+           "EPConfig", "PPConfig"]

@@ -139,15 +139,22 @@ none of them enters a captured step.  ``_faults.check(
 "serve.decode_step")`` at the top of each decode step is the chaos hook
 ``EngineSupervisor`` (``serve/supervisor.py``) recovers from.
 
-Not ported yet, each refused with ``NotImplementedError`` at
-construction (``ROADMAP.md``): tensor / expert / pipeline parallelism
-(``tp``, ``ep``, ``pp``).  Nor the JAX engine's ring-attention prefill
-and the prefix cache's fleet index.
+**Sharded engines** (``tp=``, ``ep=``, ``pp=``; ``serve/tp.py``,
+``serve/ep.py``, ``serve/pp.py``): every device operation of the engine
+is a method of its device layer (:class:`_Device`), which takes host
+values only; on a sharded engine rank 0 runs the whole engine and sends
+each call to the other ranks, whose mirror engines run it on their
+shards (``serve/shard.py``).  The JAX engine's refusal matrix of the
+three knobs runs before any metric registers.  ``TPConfig(ring_prefill=
+True)`` prefills cold admissions of at least ``ring_min_tokens`` tokens
+by ring attention over the tp ranks.  Not ported yet: the prefix
+cache's fleet index (``ROADMAP.md``).
 """
 
 from __future__ import annotations
 
 import itertools
+import math
 import time
 from dataclasses import replace
 
@@ -158,8 +165,8 @@ from .. import graphs
 from ..models.gpt2_decode import (_check_sampling, _leaves, _logits,
                                   _norm_window, _quant_flag, _sample,
                                   check_decodable, chosen_logprob,
-                                  decode_step, extract_params, fork_seed,
-                                  kv_zeros, prefill, prefill_chunk)
+                                  decode_step, fork_seed, kv_zeros, prefill,
+                                  prefill_chunk)
 from ..observe import monitor as _monitor
 from ..observe import requests as _reqs
 from ..observe import stepprof as _stepprof
@@ -178,11 +185,6 @@ from .scheduler import FIFOScheduler, PriorityScheduler
 from .stats import EngineStats
 
 __all__ = ["InferenceEngine"]
-
-
-def _owed(what):
-    raise NotImplementedError(f"{what} is not ported to the serve engine "
-                              f"yet (ROADMAP.md)")
 
 
 def _prefill_batch(params, ids, n_head, eps, quant=False, window=None):
@@ -320,6 +322,197 @@ class _LocalExec:
         return _chunk_row(params, ids, kc_row, vc_row, off, chunk,
                           **self._e._statics, window=self._e._window)
 
+    def logits(self, params, hidden):
+        """float32 logits of final-LN ``hidden`` rows (R, E) -> (R, V)."""
+        return _logits(hidden, params).float()
+
+    def finish_step(self, logits, sample, w, with_lp):
+        """A decode step's tokens (and log-probabilities) from its
+        logits: ``sample(logits)``."""
+        return sample(logits)
+
+    # the host images of swapped KV: a sharded executor gathers the
+    # shards into the whole row and cuts a rank's slice back out
+    def gather_kv(self, row):
+        return row
+
+    def slice_kv(self, row):
+        return row
+
+    def kv_meta(self, pool):
+        """The pool leaf an image is validated against (its global
+        geometry)."""
+        return pool
+
+
+class _Device:
+    """Every device operation of the engine, each a method that takes
+    host values only (numpy arrays, block ids, slot indices, offsets)
+    and works on the engine's device state: its placed weights, arenas,
+    pools, decode inputs, captured steps and the rows of admissions in
+    flight (kept here by slot).  The single-device engine calls it
+    directly; a sharded engine's controller (rank 0) sends each call to
+    the worker ranks first (``serve/shard.py``), whose mirror engines
+    run the same method on their own shards."""
+
+    def __init__(self, eng):
+        self._e = eng
+        self._pf = {}  # reserved slot -> [ids, kc_row, vc_row, hidden]
+
+    def _dev(self):
+        return self._e._params["wte"].device
+
+    def _put(self, kc, vc, r, dest):
+        """Row ``r`` of prefilled rows into a slot (``("slot", idx)``) or
+        pool blocks (``("blocks", {lane: block})``)."""
+        e = self._e
+        kind, where = dest
+        if kind == "slot":
+            e._x.write_slot(e._kc, e._vc, _row(kc, r), _row(vc, r), where)
+        else:
+            e.paged_arena.scatter_row(_row(kc, r), _row(vc, r), where)
+
+    def prefill_rows(self, ids, dests):
+        """Admission prefill of prompts ``ids`` (R, P), row r's K/V put at
+        ``dests[r]``; returns the (R, V) float32 last-position logits."""
+        e = self._e
+        t = torch.as_tensor(np.asarray(ids, np.int64), device=self._dev())
+        logits, kc, vc = e._x.prefill_batch(e._params, t)
+        for r, dest in enumerate(dests):
+            self._put(kc, vc, r, dest)
+        return logits
+
+    def ring_prefill(self, ids, plen, lanes):
+        """A cold admission prefilled sequence-sharded by ring attention
+        (``TPExecutor.ring_prefill``): ``ids`` (W,) right-padded; its
+        K/V into ``lanes``; returns the (1, V) logits at ``plen - 1``."""
+        e = self._e
+        t = torch.as_tensor(np.asarray(ids, np.int64)[None],
+                            device=self._dev())
+        logit, kc, vc = e._x.ring_prefill(t, plen)
+        e.paged_arena.scatter_row(kc, vc, lanes)
+        return logit
+
+    def draft_admit(self, idx, ids):
+        """The draft's rows of prompt ``ids`` (P,) into its slot ``idx``."""
+        e = self._e
+        t = torch.as_tensor(np.asarray(ids, np.int64)[None],
+                            device=self._dev())
+        e._x.write_slot(e._dkc, e._dvc, *e._x.draft_prefill(t), idx)
+
+    def pf_begin(self, idx, ids, blocks, width):
+        """A chunked admission's private row in slot ``idx``: ``width``
+        lanes holding the cached ``blocks``' K/V at its first lanes
+        (copied out of the arena or the prefix cache's pool), zeros past;
+        ``ids`` (width,) the padded prompt."""
+        e = self._e
+        dev = self._dev()
+        cache = e.prefix_cache
+        if cache is not None:
+            kc_row, vc_row = cache.copy_into_row(blocks, width)
+        else:
+            L, H_kv, D = e._kv_geom
+            shape = (L, 1, H_kv, width, D)
+            cdt = e._params["wte"].dtype
+            kc_row = kv_zeros(shape, cdt, e._quant, dev)
+            vc_row = kv_zeros(shape, cdt, e._quant, dev)
+        self._pf[idx] = [torch.as_tensor(np.asarray(ids, np.int64),
+                                         device=dev), kc_row, vc_row, None]
+
+    def pf_chunk(self, idx, off, chunk):
+        """One block-width pass of slot ``idx``'s admission at ``off``."""
+        e = self._e
+        pf = self._pf[idx]
+        pf[3] = e._x.chunk_row(e._params, pf[0], pf[1], pf[2], off, chunk)
+
+    def pf_finish(self, idx, lane, dest):
+        """The admission's last chunk landed: its row to ``dest``; returns
+        the (1, V) logits of hidden lane ``lane`` of the last chunk."""
+        e = self._e
+        ids, kc_row, vc_row, hidden = self._pf.pop(idx)
+        logit = e._x.logits(e._params, hidden[:, lane])
+        self._put(kc_row, vc_row, 0, dest)
+        return logit
+
+    def _canonicalize(self, kc_row, vc_row, tokens, j_lo, j_hi, block):
+        """Recompute blocks [j_lo, j_hi) of rows holding ``tokens``
+        through ``prefill_chunk``, in place: decode-step K/V is not the
+        canonical form the tree stores."""
+        if j_hi <= j_lo:
+            return
+        e = self._e
+        width = _leaves(kc_row)[0].shape[3]
+        ids = np.zeros(width, np.int64)
+        n = min(width, len(tokens))
+        ids[:n] = tokens[:n]
+        ids = torch.as_tensor(ids, device=self._dev())
+        for j in range(j_lo, j_hi):
+            e._x.chunk_row(e._params, ids, kc_row, vc_row, j * block, block)
+
+    def canon_blocks(self, blocks, tokens, j_lo, j_hi):
+        """Paged donation: recompute lanes [j_lo, j_hi) of the row in
+        ``blocks`` and write them back to their blocks."""
+        arena = self._e.paged_arena
+        kc_row, vc_row = arena.gather_row(blocks)
+        self._canonicalize(kc_row, vc_row, tokens, j_lo, j_hi,
+                           arena.block_size)
+        arena.scatter_row(kc_row, vc_row,
+                          {j: blocks[j] for j in range(j_lo, j_hi)})
+
+    def donate_slot(self, idx, tokens, j_lo, j_hi, placed):
+        """Slot-arena donation: slot ``idx``'s row, lanes [j_lo, j_hi)
+        recomputed, copied into the prefix cache's pool at ``placed``
+        ((lane, block) pairs)."""
+        e = self._e
+        cache = e.prefix_cache
+        kc_row, vc_row = e._x.read_slot(e._kc, e._vc, idx)
+        self._canonicalize(kc_row, vc_row, tokens, j_lo, j_hi,
+                           cache.block_size)
+        cache.write_blocks(kc_row, vc_row, placed)
+
+    def copy_block(self, src, dst):
+        self._e.paged_arena.copy_block(src, dst)
+
+    def swap_out(self, blocks, n_data):
+        x = self._e._x
+        return self._e.paged_arena.swap_out(blocks, n_data,
+                                            gather=x.gather_kv)
+
+    def swap_in(self, image, blocks):
+        x = self._e._x
+        self._e.paged_arena.swap_in(image, blocks, cut=x.slice_kv,
+                                    meta=x.kv_meta)
+
+    def draft_read(self, idx):
+        """Host copies of the draft's rows of slot ``idx``."""
+        e = self._e
+        rows = e._x.read_slot(e._dkc, e._dvc, idx)
+        return tuple(tuple(t.cpu() for t in _leaves(r)) for r in rows)
+
+    def draft_write(self, idx, rows):
+        e = self._e
+        dev = self._dev()
+        rows = [tuple(t.to(dev) for t in r) for r in rows]
+        e._x.write_slot(e._dkc, e._dvc,
+                        *(r if e._quant else r[0] for r in rows), idx)
+
+    def decode(self, key, staged, masks, n_rb):
+        """One decode step of ``key``: the staged host inputs (the
+        ``DecodeInputs`` layout) and vocabulary masks to the device,
+        then the step (a replay once captured; the gather oracle's, with
+        ``n_rb`` blocks a lane, always eager).  Returns its tokens (and
+        log-probabilities)."""
+        e = self._e
+        inputs = e._inputs
+        if staged is not inputs._h:
+            inputs._h[:] = staged
+        if masks is not None:
+            inputs.stage_masks(masks)
+        inputs.load()
+        if n_rb is not None:
+            return e._step_fn(key, n_rb)()
+        return e._captured(key)
+
 
 def _timed(name):
     def call(self, *a, **kw):
@@ -340,6 +533,10 @@ class _ProfExec:
 
     def __init__(self, inner):
         self._inner = inner
+
+    def __getattr__(self, name):
+        # the untimed surface (logits, sampling, swap gathers, placement)
+        return getattr(self._inner, name)
 
     pool_decode_step = _timed("pool_decode_step")
     paged_decode_step = _timed("paged_decode_step")
@@ -417,9 +614,8 @@ class _Prefilling:
     and the slot goes live.  Nothing has streamed, so an engine failure
     rejects it with ``started=False`` and frees its blocks."""
 
-    __slots__ = ("handle", "request", "ids", "kc_row", "vc_row", "hidden",
-                 "off", "last_off", "blocks", "nodes", "t_admit",
-                 "admitted_step", "seq")
+    __slots__ = ("handle", "request", "off", "last_off", "blocks", "nodes",
+                 "t_admit", "admitted_step", "seq")
 
 
 class InferenceEngine:
@@ -445,7 +641,11 @@ class InferenceEngine:
     instance; ``clock`` is injectable for tests; ``capture`` (default
     True) replays each decode width's step as a CUDA graph on the card
     (module docstring), ``False`` runs every step eagerly; ``slo`` is
-    an ``observe.SLO`` whose violations ``stats`` counts."""
+    an ``observe.SLO`` whose violations ``stats`` counts; ``tp`` /
+    ``ep`` / ``pp`` (a ``TPConfig`` / ``EPConfig`` / ``PPConfig``, a
+    kwargs dict or a width) shard the engine over the process group's
+    ranks, built on rank 0 while the others run
+    ``serve.shard.worker_loop()`` (module docstring)."""
 
     def __init__(self, model, max_slots=8, max_len=None, dtype=None,
                  scheduler=None, top_k=0, top_p=None,
@@ -454,8 +654,6 @@ class InferenceEngine:
                  paged=None, tp=None, ep=None, pp=None, capture=True):
         cfg = model.cfg
         check_decodable(cfg)
-        if any(x not in (None, False) for x in (tp, ep, pp)):
-            _owed("tensor/expert/pipeline-parallel serving (tp, ep, pp)")
         self._quant = _quant_flag(cache_dtype)
         if paged is False:
             paged = None
@@ -524,6 +722,13 @@ class InferenceEngine:
                     f"than two pool blocks; raise block_size or lower "
                     f"spec_k")
         self._spec_pad = 0 if draft_model is None else self.spec_k - 1
+        # tensor / expert / pipeline parallelism: the whole refusal matrix
+        # runs here, before any metric registers (serve/shard.py)
+        from . import shard as _shard
+        sharded = _shard.check_sharded(
+            cfg, model, tp=tp, ep=ep, pp=pp, paged=paged,
+            prefix_cache=prefix_cache, draft_model=draft_model,
+            window=self._window, quant=self._quant, capture=capture)
         if max_slots < 1:
             raise ValueError(f"max_slots must be >= 1, got {max_slots}")
         self.model = model
@@ -559,12 +764,30 @@ class InferenceEngine:
         self._hb_source = "serve.e" + self.stats.engine_label
         self._fork_seq = itertools.count(1)
 
+        if sharded is not None and not _shard.is_mirror(model):
+            # the controller: the worker ranks build this engine's mirror
+            # from what it ships them now
+            _shard.announce(sharded, model, draft_model, dtype,
+                            dict(max_slots=max_slots, max_len=max_len,
+                                 top_k=top_k, top_p=top_p,
+                                 prefix_cache=prefix_cache, spec_k=spec_k,
+                                 cache_dtype=cache_dtype, paged=paged,
+                                 tp=tp, ep=ep, pp=pp, capture=capture))
         model.eval()
-        self._params = extract_params(model, dtype=dtype)
+        self._params = _shard.decode_params(model, dtype)
         self._statics = dict(n_head=cfg.n_head,
                              eps=float(cfg.layer_norm_eps))
-        self._x = _ProfExec(_LocalExec(self))
         L, H_kv, D = cfg.n_layer, cfg.n_kv_head, cfg.n_embd // cfg.n_head
+        #: the sharded executor (serve/tp.py, ep.py, pp.py) or None
+        self._shard = None
+        self._ring_min = None
+        if sharded is not None:
+            self._shard = _shard.make_executor(sharded, self)
+            self._params = self._shard.place_params(self._params)
+            L, H_kv = self._shard.kv_geometry(L, H_kv)
+            self._ring_min = self._shard.ring_min_tokens
+        self._kv_geom = (L, H_kv, D)
+        self._x = _ProfExec(self._shard or _LocalExec(self))
         cdt = self._params["wte"].dtype
         dev = self._params["wte"].device
         self.paged_arena = None
@@ -587,7 +810,7 @@ class InferenceEngine:
         if draft_model is not None:
             draft_model.eval()
             dcfg = draft_model.cfg
-            self._d_params = extract_params(draft_model, dtype=dtype)
+            self._d_params = _shard.decode_params(draft_model, dtype)
             self._d_statics = (dcfg.n_head, float(dcfg.layer_norm_eps))
             shape = (dcfg.n_layer, self.max_slots, dcfg.n_kv_head,
                      self.max_len, dcfg.n_embd // dcfg.n_head)
@@ -615,6 +838,13 @@ class InferenceEngine:
         self.step_count = 0
         self.prefix_cache = self._make_prefix_cache(prefix_cache, L, H_kv,
                                                     D, cdt, dev)
+        dev_layer = _Device(self)
+        self._dev = dev_layer
+        if self._shard is not None:
+            self._shard.account_kv()
+            self.stats.shard_sources[self._shard.kind] = self._shard.snapshot
+            if not _shard.is_mirror(model):
+                self._dev = _shard.Mirror(dev_layer, self._shard)
 
     def _make_prefix_cache(self, config, L, H_kv, D, dtype, dev):
         """The engine's radix prefix cache for ``config`` (None, False,
@@ -850,6 +1080,8 @@ class InferenceEngine:
                 f"drain with run_until_complete() first")
         if not force and not self._failed:
             self.check_block_accounting()
+        if self._shard is not None:
+            self._shard.close(self._dev)
         self._steps = {}
         self._graph_pool = None
         self.stats.unregister()
@@ -1088,12 +1320,12 @@ class InferenceEngine:
                            self._seeds[pick], np.where(live,
                                                        self._temps[pick], 0),
                            self._block_tables(sel))
+        rows = None
         if masks:
             rows = np.ones((w, self.cfg.vocab_size), bool)
             for r, i in enumerate(sel):
                 if i in masks:
                     rows[r] = masks[i]
-            self._inputs.stage_masks(rows)
         # a plain step keeps its width as its key, as before fork and
         # structured decoding: a plain engine's steps stay what they were
         key = (w, bool(masks), with_lp) if masks or with_lp else w
@@ -1106,17 +1338,15 @@ class InferenceEngine:
         _sp = _stepprof._active
         with _trace.span(name, cat="serve", step=self.step_count, live=n,
                          width=w):
-            self._inputs.load()
+            n_rb = None
             if gather:
                 n_rb = (int(self._pos[lanes].max()) + self._spec_pad) \
                     // arena.block_size + 1
-                run, args = self._step_fn(key, n_rb), ()
-            else:
-                run, args = self._captured, (key,)
             # the step is one dispatch to the profiler: a replay once
             # captured, never a call through the executor
-            toks = (_stepprof.timed_dispatch(run, args, {}) if _sp
-                    else run(*args))
+            args = (key, self._inputs._h, rows, n_rb)
+            toks = (_stepprof.timed_dispatch(self._dev.decode, args, {})
+                    if _sp else self._dev.decode(*args))
             if _sp:
                 _stepprof.push("sync")
             lps = None
@@ -1197,6 +1427,14 @@ class InferenceEngine:
             return lambda: self._x.spec_step(inp, n_rb)
         mask = inp["masks"] if masked else None
 
+        def sample(logits):
+            toks = _sample(logits, inp["temps"], seeds(inp),
+                           inp["pos"].long() + 1, self._top_k, self._top_p,
+                           mask=mask)
+            if with_lp:
+                return toks, chosen_logprob(logits, toks)
+            return toks
+
         def step():
             if arena is None:
                 logits = self._x.pool_decode_step(self._params, self._kc,
@@ -1206,12 +1444,7 @@ class InferenceEngine:
                     self._params, arena.pool_k, arena.pool_v, inp,
                     arena.block_size, kernel=arena.config.kernel,
                     n_rb=n_rb)
-            toks = _sample(logits, inp["temps"], seeds(inp),
-                           inp["pos"].long() + 1, self._top_k, self._top_p,
-                           mask=mask)
-            if with_lp:
-                return toks, chosen_logprob(logits, toks)
-            return toks
+            return self._x.finish_step(logits, sample, w, with_lp)
 
         return step
 
@@ -1231,7 +1464,10 @@ class InferenceEngine:
         toks = graphs.warm(fn, dev)
         if dev.type == "cuda" and self._graph_pool is None:
             self._graph_pool = torch.cuda.graph_pool_handle()
-        self._steps[key] = graphs.Step(fn, dev, pool=self._graph_pool)
+        self._steps[key] = graphs.Step(
+            fn, dev, pool=self._graph_pool,
+            capture_error_mode=("global" if self._shard is None
+                                else self._shard.capture_mode()))
         return toks
 
     def _emit(self, idx, slot, token, now):
@@ -1348,21 +1584,6 @@ class InferenceEngine:
             self.prefix_cache.release(slot.prefix_nodes)
             slot.prefix_nodes = []
 
-    def _canonicalize(self, kc_row, vc_row, tokens, j_lo, j_hi):
-        """Recompute blocks [j_lo, j_hi) of cache rows holding ``tokens``
-        through ``prefill_chunk``, in place: decode-step K/V is not the
-        canonical form the tree stores."""
-        if j_hi <= j_lo:
-            return
-        B = self.prefix_cache.block_size
-        width = _leaves(kc_row)[0].shape[3]
-        ids = np.zeros(width, np.int64)
-        n = min(width, len(tokens))
-        ids[:n] = tokens[:n]
-        ids = torch.as_tensor(ids, device=self._params["wte"].device)
-        for j in range(j_lo, j_hi):
-            self._x.chunk_row(self._params, ids, kc_row, vc_row, j * B, B)
-
     def _donate(self, idx, slot, req, result):
         """Retire into the prefix cache: the full blocks of the prompt
         (canonical: the admission's chunks wrote them and decode never
@@ -1410,12 +1631,9 @@ class InferenceEngine:
         path = []
         if n_goal > 0:
             if n_goal > plen // B:
-                kc_row, vc_row = arena.gather_row(slot.blocks)
-                self._canonicalize(kc_row, vc_row, tokens, plen // B,
-                                   n_goal)
-                arena.scatter_row(kc_row, vc_row,
-                                  {j: slot.blocks[j]
-                                   for j in range(plen // B, n_goal)})
+                self._dev.canon_blocks(list(slot.blocks),
+                                       np.asarray(tokens, np.int64),
+                                       plen // B, n_goal)
             path = cache.adopt_blocks(tokens, slot.blocks, n_goal)
         kept = {slot.blocks[j] for j in range(slot.n_shared, len(path))
                 if path[j].block == slot.blocks[j]}
@@ -1435,10 +1653,10 @@ class InferenceEngine:
         if len(existing) == n_goal:
             cache.touch(existing)
             return existing
-        kc_row, vc_row = self._x.read_slot(self._kc, self._vc, idx)
-        self._canonicalize(kc_row, vc_row, tokens, plen // cache.block_size,
-                           n_goal)
-        return cache.donate_from_row(tokens, kc_row, vc_row, n_goal)
+        path, placed = cache.plan_donation(tokens, n_goal)
+        self._dev.donate_slot(idx, np.asarray(tokens, np.int64),
+                              plen // cache.block_size, n_goal, placed)
+        return path
 
     def _block_tables(self, idxs):
         """(len(idxs), max_len // B) int32 block tables, trash-padded;
@@ -1525,7 +1743,7 @@ class InferenceEngine:
             return False
         old = slot.blocks[wb]
         try:
-            arena.copy_block(old, got[0])
+            self._dev.copy_block(old, got[0])
         except Exception as e:
             arena.free(got)
             self._reject_live(idx, slot, e, "fork_copy")
@@ -1616,14 +1834,12 @@ class InferenceEngine:
         while j_lo < len(slot.blocks) and slot.blocks[j_lo] == arena.trash:
             j_lo += 1
         sw.j_lo = j_lo
-        sw.image = arena.swap_out(
-            slot.blocks[j_lo:],
+        sw.image = self._dev.swap_out(
+            list(slot.blocks[j_lo:]),
             max(0, (pos - 1) // arena.block_size + 1 - j_lo))
         sw.draft = None
         if self.draft is not None:
-            rows = self._x.read_slot(self._dkc, self._dvc, idx)
-            sw.draft = tuple(tuple(t.cpu() for t in _leaves(r))
-                             for r in rows)
+            sw.draft = self._dev.draft_read(idx)
         n_freed = len(slot.blocks) - j_lo
         self._release_prefix(slot)
         self._free_slot_blocks(slot)
@@ -1659,13 +1875,9 @@ class InferenceEngine:
             if blocks is None:
                 return
             idx = free[0]
-            arena.swap_in(sw.image, blocks)
+            self._dev.swap_in(sw.image, blocks)
             if sw.draft is not None:
-                dev = self._params["wte"].device
-                rows = [tuple(t.to(dev) for t in r) for r in sw.draft]
-                self._x.write_slot(self._dkc, self._dvc,
-                                   *(r if self._quant else r[0]
-                                     for r in rows), idx)
+                self._dev.draft_write(idx, sw.draft)
             # the dropped leading entries stay trash, as the
             # uninterrupted slot's table would hold them at this pos
             slot = _Slot(sw.handle, sw.remaining, sw.admit_time,
@@ -1789,34 +2001,48 @@ class InferenceEngine:
                 _stepprof.pop()
         by_len = {}
         for p in placed:
-            by_len.setdefault(len(p[1].prompt_ids), []).append(p)
-        dev = self._params["wte"].device
-        for plen, group in by_len.items():
+            ring = self._ring_min is not None and \
+                len(p[1].prompt_ids) >= self._ring_min
+            by_len.setdefault((len(p[1].prompt_ids), ring), []).append(p)
+        for (plen, ring), group in by_len.items():
             if _sp:
                 _stepprof.push("admit")
-            ids = torch.as_tensor(np.stack([r.prompt_ids
-                                            for _, r, _, _ in group]),
-                                  device=dev)
+            # a windowed admission's leading entries are trash: their
+            # lanes left the window before any query
+            dests = [("slot", idx) if arena is None else
+                     ("blocks", {j: b for j, b in enumerate(blocks)
+                                 if b != arena.trash})
+                     for idx, _, blocks, _ in group]
             with _trace.span("serve/prefill", cat="serve", prompt_len=plen,
-                             requests=len(group), step=self.step_count):
-                logits, kc, vc = self._x.prefill_batch(self._params, ids)
+                             requests=len(group), step=self.step_count,
+                             ring=ring):
+                if ring:
+                    logits = torch.cat([self._ring_admit(r, d[1])
+                                        for (_, r, _, _), d in
+                                        zip(group, dests)])
+                else:
+                    logits = self._dev.prefill_rows(
+                        np.stack([r.prompt_ids for _, r, _, _ in group]),
+                        dests)
             self.stats.on_prefill()
             for r, (idx, req, blocks, kids) in enumerate(group):
-                if arena is None:
-                    self._x.write_slot(self._kc, self._vc, _row(kc, r),
-                                       _row(vc, r), idx)
-                else:
-                    # a windowed admission's leading entries are trash:
-                    # their lanes left the window before any query
-                    arena.scatter_row(_row(kc, r), _row(vc, r),
-                                      {j: b for j, b in enumerate(blocks)
-                                       if b != arena.trash})
                 handle = self._handles[req.request_id]
                 self._admit(idx, req, now, blocks, logits[r:r + 1])
                 if kids:
                     self._fork_group_admit(handle, kids, now)
             if _sp:
                 _stepprof.pop()
+
+    def _ring_admit(self, req, lanes):
+        """A cold admission of at least ``ring_min_tokens`` tokens through
+        the ring-attention prefill (``TPConfig(ring_prefill=True)``): the
+        prompt right-padded to a multiple of the block size and the tp
+        width; returns its (1, V) logits."""
+        plen = len(req.prompt_ids)
+        m = math.lcm(self.paged_arena.block_size, self._shard.tp)
+        ids = np.zeros(-(-plen // m) * m, np.int64)
+        ids[:plen] = req.prompt_ids
+        return self._dev.ring_prefill(ids, plen, lanes)
 
     def _claim(self, req, blocked_p):
         """An admission's cached prefix (pinned before its blocks are
@@ -1873,24 +2099,13 @@ class InferenceEngine:
         pf.handle, pf.request = self._handles[req.request_id], req
         pf.blocks, pf.nodes = blocks, nodes
         pf.off, pf.last_off = len(nodes) * B, ((plen - 1) // B) * B
-        pf.hidden = None
         pf.t_admit, pf.admitted_step = now, self.step_count
         pf.seq = next(self._prefill_seq)
         self._prefilling[idx] = pf
         width = pf.last_off + B
         ids = np.zeros(width, np.int64)
         ids[:plen] = req.prompt_ids
-        dev = self._params["wte"].device
-        pf.ids = torch.as_tensor(ids, device=dev)
-        if cache is not None:
-            pf.kc_row, pf.vc_row = cache.copy_into_row(nodes, width)
-        else:
-            cfg = self.cfg
-            shape = (cfg.n_layer, 1, cfg.n_kv_head, width,
-                     cfg.n_embd // cfg.n_head)
-            cdt = self._params["wte"].dtype
-            pf.kc_row = kv_zeros(shape, cdt, self._quant, dev)
-            pf.vc_row = kv_zeros(shape, cdt, self._quant, dev)
+        self._dev.pf_begin(idx, ids, [n.block for n in nodes], width)
 
     def _advance_prefilling(self, idx, left=None):
         """Run slot ``idx``'s chunk passes while ``left`` budget tokens
@@ -1906,9 +2121,7 @@ class InferenceEngine:
             while pf.off <= pf.last_off and (left is None or left >= B):
                 if _faults._armed:
                     _faults.check("serve.prefill_chunk")
-                pf.hidden = self._x.chunk_row(self._params, pf.ids,
-                                              pf.kc_row, pf.vc_row, pf.off,
-                                              B)
+                self._dev.pf_chunk(idx, pf.off, B)
                 if self._budget is not None:
                     self.stats.on_budget_chunk()
                 if _reqs._active and (pf.nodes or self._budget is not None):
@@ -1935,16 +2148,15 @@ class InferenceEngine:
         cache, arena = self.prefix_cache, self.paged_arena
         req = pf.request
         plen = len(req.prompt_ids)
-        logit = _logits(pf.hidden[:, plen - 1 - pf.last_off],
-                        self._params).float()
         blocks, nodes = pf.blocks, pf.nodes
         if arena is None:
-            self._x.write_slot(self._kc, self._vc, pf.kc_row, pf.vc_row, idx)
+            dest = ("slot", idx)
         else:
             m = len(nodes)
-            arena.scatter_row(pf.kc_row, pf.vc_row,
-                              {m + j: b for j, b in enumerate(blocks)
+            dest = ("blocks", {m + j: b for j, b in enumerate(blocks)
                                if b != arena.trash})
+        logit = self._dev.pf_finish(idx, plen - 1 - pf.last_off, dest)
+        if arena is not None:
             arena.share([n.block for n in nodes])
             blocks = [n.block for n in nodes] + blocks
         del self._prefilling[idx]
@@ -1974,10 +2186,7 @@ class InferenceEngine:
         handle = self._handles[req.request_id]
         plen = len(req.prompt_ids)
         if self.draft is not None:
-            ids = torch.as_tensor(np.asarray(req.prompt_ids, np.int64)[None],
-                                  device=self._params["wte"].device)
-            self._x.write_slot(self._dkc, self._dvc,
-                               *self._x.draft_prefill(ids), idx)
+            self._dev.draft_admit(idx, req.prompt_ids)
         temp = np.float32(req.temperature)
         ast0 = mask0 = None
         if req.structured is not None:

@@ -354,6 +354,11 @@ def _paged_decode_step(params, pool_k, pool_v, inp, n_rb, block, n_head,
 # -------------------------------------------------------------- the arena
 
 
+def _map_leaves(fn, c):
+    """``fn`` of each tensor of a cache (a tensor or an int8 pair)."""
+    return tuple(fn(t) for t in c) if isinstance(c, tuple) else fn(c)
+
+
 class PagedKVArena:
     """Owner of the block pool: free list, per-block reference counts,
     block accounting, the copies the engine drives, and metrics."""
@@ -518,10 +523,15 @@ class PagedKVArena:
 
     # -- swap images -------------------------------------------------------
 
-    def swap_out(self, blocks, n_data) -> KVImage:
+    def swap_out(self, blocks, n_data, gather=None) -> KVImage:
         """Copy the first ``n_data`` of ``blocks`` to host memory (one
-        gather and one copy to the host): the preemption path."""
+        gather and one copy to the host): the preemption path.
+        ``gather`` (a sharded engine's) puts the ranks' slices of each
+        row leaf together first, so the image is the single-device
+        engine's."""
         kc, vc = self.gather_row(list(blocks[:n_data]))
+        if gather is not None:
+            kc, vc = _map_leaves(gather, kc), _map_leaves(gather, vc)
         self._c_swap_out.inc()
 
         def host(c):
@@ -530,17 +540,24 @@ class PagedKVArena:
         return pack_image(host(kc), host(vc), block_size=self.block_size,
                           n_data=n_data, quant=self.quant)
 
-    def swap_in(self, image, blocks):
+    def swap_in(self, image, blocks, cut=None, meta=None):
         """Restore a swapped-out image's lanes into freshly allocated
         ``blocks`` (one scatter).  The image is validated against this
         pool's geometry first
         (:class:`~singa_tpu_torch.serve.kvimage.KVImageError` on any
         mismatch, before the pool is touched), so the resumed request's
-        KV is exactly what ``swap_out`` saved."""
-        image.validate(self.block_size, self.quant, pool_k=self.pool_k)
+        KV is exactly what ``swap_out`` saved.  A sharded engine passes
+        ``meta`` (a pool leaf -> its global geometry, which a whole image
+        is validated against) and ``cut`` (a whole row leaf -> this
+        rank's slice)."""
+        pool = self.pool_k if meta is None else _map_leaves(meta,
+                                                            self.pool_k)
+        image.validate(self.block_size, self.quant, pool_k=pool)
         dev = _leaves(self.pool_k)[0].device
 
         def dev_row(c):
+            if cut is not None:
+                c = _map_leaves(cut, c)
             return tuple(t.to(dev) for t in c) if self.quant else c.to(dev)
 
         self._c_swap_in.inc()

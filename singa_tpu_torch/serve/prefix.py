@@ -10,9 +10,11 @@ engine has already prefilled.  The cache keeps that prefix's K/V:
   :meth:`PrefixCache.adopt_blocks`, and a warm slot's block table points
   at the tree's blocks); on the slot arena the cache owns a pool of
   ``num_blocks`` blocks, ``(L, num_blocks, H_kv, block_size, D)`` a
-  K/V, which admissions copy rows out of (:meth:`copy_into_row`) and retirements copy rows into
-  (:meth:`donate_from_row`).  int8 pools are (values, scales) pairs and
-  every copy moves both leaves;
+  K/V, which admissions copy rows out of (:meth:`copy_into_row`) and
+  retirements copy rows into (:meth:`plan_donation` places the blocks,
+  :meth:`write_blocks` copies them; the engine's device layer runs the
+  copies, on every rank of a sharded engine).  int8 pools are (values,
+  scales) pairs and every copy moves both leaves;
 * **radix tree**: a host-side trie at block granularity, each node one
   ``block_size``-token block keyed by its token tuple.  Nodes are
   reference-counted (in-flight requests and pinned sessions hold them)
@@ -336,18 +338,17 @@ class PrefixCache:
         return self._evict_one()
 
     # -- device copies, engine-driven --------------------------------------
-    def copy_into_row(self, nodes, width):
-        """A (L, 1, H, width, D) cache row (int8: pairs) holding
-        ``nodes``' blocks at positions [0, len(nodes) * B), zeros past:
-        out of the paged arena in arena mode, else out of the cache's
-        pool."""
+    def copy_into_row(self, blocks, width):
+        """A (L, 1, H, width, D) cache row (int8: pairs) holding the
+        cached ``blocks`` (pool block ids) at positions [0, len(blocks) *
+        B), zeros past: out of the paged arena in arena mode, else out of
+        the cache's pool."""
         if self._arena is not None:
             pool_k, pool_v = self._arena.pool_k, self._arena.pool_v
         else:
             if _faults._armed:
                 _faults.check("serve.prefix_copy")
             pool_k, pool_v = self._pool_k, self._pool_v
-        blocks = [n.block for n in nodes]
         return (gather_blocks(pool_k, blocks, width),
                 gather_blocks(pool_v, blocks, width))
 
@@ -374,21 +375,22 @@ class PrefixCache:
         self._g_cached.set(self.cached_blocks)
         return path
 
-    def donate_from_row(self, tokens, kc_row, vc_row, n_blocks):
-        """Insert the first ``n_blocks`` full blocks of ``tokens`` into
-        the tree, copying the missing ones out of the (canonical) cache
-        row (L, 1, H, W, D) into the cache's pool.  Under pressure the
-        donation stops at the first block it cannot place (a stored path
-        is a contiguous prefix), counted in ``donate_skipped``, never
-        raised.  Returns the path now cached.  Arena mode donates by
+    def plan_donation(self, tokens, n_blocks):
+        """The tree half of a slot-arena donation: insert the missing
+        nodes of the first ``n_blocks`` full blocks of ``tokens``, each
+        on a pool block of its own.  Under pressure the donation stops at
+        the first block it cannot place (a stored path is a contiguous
+        prefix), counted in ``donate_skipped``, never raised.  Returns
+        ``(path, placed)``: the path now cached, and the (lane, block)
+        pairs whose bytes :meth:`write_blocks` must copy out of the
+        (canonical) cache row.  Arena mode donates by
         :meth:`adopt_blocks` instead."""
         if self._arena is not None:
-            raise RuntimeError("donate_from_row on an arena-backed prefix "
+            raise RuntimeError("plan_donation on an arena-backed prefix "
                                "cache: paged engines donate by adoption "
                                "(adopt_blocks)")
         if _faults._armed:
             _faults.check("serve.prefix_copy")
-        B = self.block_size
         keys = self._block_keys(tokens)[:n_blocks]
         tick = next(self._tick)
         path, new_nodes = [], []
@@ -411,15 +413,20 @@ class PrefixCache:
                 child.last_used = tick
                 path.append(child)
                 node = child
-            for pool, row in ((self._pool_k, kc_row), (self._pool_v, vc_row)):
-                for leaf, r in zip(_leaves(pool), _leaves(row)):
-                    for j, child in new_nodes:
-                        leaf[:, child.block] = r[:, 0, :, j * B:(j + 1) * B]
             self._g_cached.set(self.cached_blocks)
         finally:
             for n in path:
                 n.refs -= 1
-        return path
+        return path, [(j, child.block) for j, child in new_nodes]
+
+    def write_blocks(self, kc_row, vc_row, placed):
+        """Copy lanes ``j`` of a (canonical) cache row (L, 1, H, W, D)
+        into pool blocks, for each (j, block) of ``placed``."""
+        B = self.block_size
+        for pool, row in ((self._pool_k, kc_row), (self._pool_v, vc_row)):
+            for leaf, r in zip(_leaves(pool), _leaves(row)):
+                for j, block in placed:
+                    leaf[:, block] = r[:, 0, :, j * B:(j + 1) * B]
 
     # -- lifecycle / reporting ---------------------------------------------
     def unregister(self):

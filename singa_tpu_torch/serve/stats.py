@@ -171,6 +171,9 @@ class EngineStats:
         # counters) and the prefix cache's, set by the engine
         self.paged_source = None
         self.prefix_source = None
+        # a sharded engine's executor snapshot, under its kind ("tp",
+        # "ep" or "pp")
+        self.shard_sources = {}
 
     def unregister(self):
         self.registry.remove(*self._registered)
@@ -310,6 +313,9 @@ class EngineStats:
                               else self._budget_chunks.value),
             "fork": (None if self._fork is None else
                      {n: m.value for n, m in self._fork.items()}),
+            **{kind: (self.shard_sources[kind]()
+                      if kind in self.shard_sources else None)
+               for kind in ("tp", "ep", "pp")},
         }
 
     def _spec_snapshot(self):

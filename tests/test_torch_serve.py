@@ -337,7 +337,10 @@ def test_engine_refuses_what_is_not_ported(models, kw):
     JAX engine's typed ``ValueError`` (their behaviour:
     tests/test_torch_spec.py); ``slo``, ported since, builds an engine
     counting violations against the ``observe.SLO`` (its behaviour:
-    tests/test_torch_supervisor.py)."""
+    tests/test_torch_supervisor.py); ``tp`` and ``pp``, ported since,
+    need a process group of their ranks (none here), and ``ep`` an MoE
+    model, each refused typed (their behaviour:
+    tests/test_torch_{tp,ep,pp}_serve.py)."""
     _, tm = models
     kw = {"paged": PagedConfig(block_size=8, num_blocks=8), **kw}
     if "slo" in kw:
@@ -367,7 +370,9 @@ def test_engine_refuses_what_is_not_ported(models, kw):
         assert eng.prefix_cache.block_size == 64
         eng.close()
         return
-    with pytest.raises(NotImplementedError, match="not ported"):
+    match = ("on a dense model" if "ep" in kw
+             else "needs a process group of exactly 2")
+    with pytest.raises(ValueError, match=match):
         tm.serve(**kw)
 
 
