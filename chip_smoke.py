@@ -406,6 +406,34 @@ exits nonzero:
                     refused arrivals raise at submit, counted exactly by
                     ``serve.shed_requests{reason=slo_pressure|
                     slo_admission}``.
+14h2. ``fleet``   - the in-process fleet over GPT-2 small replicas, each
+                    the serve phase's engine (8 slots, 256 blocks of 32)
+                    with a prefix cache and top-k 50: threefry on the card
+                    first (an 8 x 50257 draw's bits and uniforms equal the
+                    host chain's, its Gumbels within ``GUMBEL_TOL``, the
+                    ``THREEFRY_KNOWN`` answers taken from ``jax.random``,
+                    the draw's device ms beside a bf16 decode step's at 8
+                    slots).  float32, the serve traffic (the sampled half
+                    at 0.8): 3 mixed replicas' streams equal one engine's
+                    and offline ``generate``; roles (prefill, decode,
+                    decode) on 4 prompts of 512-960 tokens: 4 ships,
+                    streams equal ``generate``'s, ms and bytes a ship; one
+                    more long prompt alone, its TTFT cold on the mixed
+                    fleet and shipped (streams equal); a ``serve.kv_ship``
+                    fault requeues cold, stream kept; the decode replicas'
+                    tables recorded for row 5d.  Failover (the 12 sampled
+                    requests, 2 slots a replica, restart budget 0):
+                    ``FailAfterN(4, times=1)`` at ``serve.decode_step``
+                    fails one replica over, its never-started requests
+                    requeue with their streams, started ones fail typed,
+                    seconds from the fault to the last requeued first
+                    token; ``revive``, then hedges with the router pinned
+                    to replica 0.  The autoscaler under an injected clock:
+                    a burst adds a replica (its captures and their
+                    seconds), quiet drains and retires one.  bf16, no
+                    prefix cache: 3 replicas against one engine on the 24
+                    requests after a warm-up pass of 8 a replica, TPOT
+                    medians and decode tokens/s.
 14i. ``moe``       - GPT-2 small with every second MLP a mixture of 8
                     experts (top-2, capacity 1.25, aux weight 0.01; 0.32B
                     parameters), trained as ``slice`` trains GPT-2 small
@@ -1052,6 +1080,11 @@ REPLACES = {
     # blocks (the JAX engine's _spawn_branch shares them, serve/engine.py
     # :2973), one decode step of the fork round
     "paged_attn_fork": "singa_tpu/models/gpt2_decode.py:841",
+    # _paged_attn over a decode replica's tables whose prefix blocks a
+    # KV ship landed (the JAX engine's admit_prefix_image adopts them,
+    # serve/engine.py:4045), one decode step of the fleet's
+    # disaggregated run
+    "paged_attn_ship": "singa_tpu/models/gpt2_decode.py:841",
 }
 
 
@@ -2393,8 +2426,8 @@ ZOO_GROUPS = RESNET_GROUPS
 #: mode is then timed over, and profiled over, on a fresh model (an
 #: eager step's trace takes the profiler seconds to read)
 ZOO_COMPARE_STEPS = 3
-ZOO_TIMED_STEPS = 10
-ZOO_PROFILED_STEPS = {"eager": 3, "captured": 10}
+ZOO_TIMED_STEPS = 5
+ZOO_PROFILED_STEPS = {"eager": 3, "captured": 5}
 #: where the zoo phase writes its checkpoints (gitignored), under the
 #: checkout it runs from
 ZOO_CKPT_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
@@ -2736,7 +2769,7 @@ DIST_RUN = dict(batch=64, hw=224, classes=1000, spars=0.05,
 DIST_MODES = ("plain", "fp16", "partialUpdate", "sparseTopK",
               "sparseThreshold")
 DIST_STEPS = 4
-DIST_TIMED = 3
+DIST_TIMED = 2
 DIST_PROFILED = 2
 #: the two ranks' twin run: an MLP (64 -> 256 -> 10) on a batch of 32
 #: (16 a rank), float32, SGD(0.05, 0.9), DIST_TWIN_STEPS eager steps of
@@ -3221,21 +3254,36 @@ def main_dist_world(n, phases=("dist", "shard")):
 
 
 def main_phases(phases):
-    """``--phases serve_shard`` (one card): the build and the named
-    phases alone, for working on them; the run without arguments drives
-    every phase."""
+    """``--phases serve,serve_shard,fleet`` (one card): the build and the
+    named phases alone, for working on them and for comparing two trees
+    on one card (``serve``: its seconds and its bf16 figures, the host
+    split of its bf16 run among them, go into the line before the last
+    two); the run without arguments drives every phase."""
     if not torch.cuda.is_available():
         print("chip_smoke.py: no CUDA device", file=sys.stderr)
         return 1
-    unknown = set(phases) - {"serve_shard"}
+    unknown = set(phases) - {"serve", "serve_shard", "fleet"}
     if unknown:
         print(f"chip_smoke.py --phases: {sorted(unknown)} run only inside "
               f"the whole run", file=sys.stderr)
         return 1
     phase_build()
-    row, other, ring = phase_serve_shard()
-    print(json.dumps({"kernels": [row], "paged_attn_launches": other,
-                      "flash_fwd_launches": ring}))
+    line = {"kernels": []}
+    if "serve" in phases:
+        t0 = time.perf_counter()
+        _, real = phase_serve()
+        line.update(serve_seconds=time.perf_counter() - t0,
+                    serve_bf16=real["bf16"])
+    if "serve_shard" in phases:
+        row, other, ring = phase_serve_shard()
+        line["kernels"].append(row)
+        line.update(paged_attn_launches=other, flash_fwd_launches=ring)
+    if "fleet" in phases:
+        model = gpt2_small()
+        launches, ship = phase_fleet(model)
+        line["kernels"].append(paged_ship_row(ship, model.cfg))
+        line["fleet_paged_attn_launches"] = launches
+    print(json.dumps(line))
     print(nvidia_smi().splitlines()[0])
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -5041,8 +5089,11 @@ def paged_serving_cases():
     slot, chunks across a block edge) and a windowed decode step and
     verify chunk (window 256) whose tables hold the trash block below
     each slot's window, read from table entry 0 as the engine reads
-    them; and the ``fork`` phase's decode step, two fork groups whose
-    branches' tables share their prompt blocks."""
+    them; the ``fork`` phase's decode step, two fork groups whose
+    branches' tables share their prompt blocks; and the ``fleet`` phase's
+    ship destination: long slots whose first blocks a shipped image
+    landed in, two of them naming one shipped prefix (a second request
+    warm on it)."""
     base = dict(d=64, n_kv=12, g=1, block=32)
     spec = [400, 37, 129, 0, 511, 64, 250, 1000]
     win = [700, 1000, 300, 260, 575, 831, 960, 1019]
@@ -5051,11 +5102,14 @@ def paged_serving_cases():
     wkw = dict(base, lens=win, window=LONGCTX_WINDOW, trash_at=dropped,
                from_block0=True)
     fork = [300, 302, 305, 299, 520, 518, 530, 0]
+    ship = [655, 688, 556, 560, 746, 767, 767, 0]
     return [("spec_q4", dict(base, lens=spec, nq=SPEC_K)),
             ("window_q1", dict(wkw, nq=1)),
             ("window_q4", dict(wkw, nq=SPEC_K)),
             ("fork_q1", dict(base, lens=fork, nq=1,
-                             share=[((0, 1, 2, 3), 9), ((4, 5, 6), 16)]))]
+                             share=[((0, 1, 2, 3), 9), ((4, 5, 6), 16)])),
+            ("ship_q1", dict(base, lens=ship, nq=1,
+                             share=[((5, 6), 22)]))]
 
 
 def check_paged_case(name, dtype, seed, quant=False, **kw):
@@ -5267,7 +5321,43 @@ def time_paged_table(layers):
 LONG_TABLE_LENS = (1000, 1000)
 
 
-def phase_paged_kernels(real, real8, cfg, spec, win, fork):
+def paged_row(name, t, launches, kernels):
+    """A kernels-line row of ``paged_attn`` timed at one step's tables
+    (``time_paged_table``'s ``t``)."""
+    ms = t["device_ms"]
+    return dict(
+        name=name, route="cuda",
+        source="singa_tpu_torch/csrc/paged_attention.cu",
+        replaces=REPLACES[name.removesuffix("_f16")], launches=launches,
+        max_abs_err=t["max_abs_err_vs_plain"], ms=ms["kernel"],
+        plain_ms=ms["plain"], bound_ms=ms["bound"],
+        bound_by=t["bound_by"], library_ms=ms["sdpa_alone"],
+        library_call="torch.nn.functional.scaled_dot_product_attention"
+                     " on rows gathered from the pool (the gather not "
+                     "timed: no one PyTorch call computes paged "
+                     "attention)" + ("; int8 pools dequantized first, "
+                                     "not timed" if "int8" in name
+                                     else ""),
+        kernels=kernels)
+
+
+def paged_ship_row(ship, cfg):
+    """Row 5d: ``paged_attn`` timed, and held against its plain version,
+    at a ship destination's recorded decode step (``ship``: its tables,
+    whose first blocks a shipped image landed in, and the launches of
+    the disaggregated run), float32 pools and q: the dtype of that run,
+    whose launches the row reports."""
+    t = time_paged_table(real_args(ship, cfg, seed=10, dtype=torch.float32))
+    log({"phase": "paged_kernels", "ship_table_row_5d":
+         dict(t, step=ship["step"])})
+    return paged_row("paged_attn_ship", t, ship["launches"],
+                     "paged_attn_kernel<float, float> (split) + "
+                     "paged_combine_kernel<float, float> over a decode "
+                     "replica's tables after KV ships (the float32 "
+                     "disaggregated run)")
+
+
+def phase_paged_kernels(real, real8, cfg, spec, win, fork, ship):
     """``paged_attn`` against its plain version at every edge case in
     float32, bf16 and float16, and on int8 pools with float32, bf16 and
     float16 q (their split counts logged: some take one split of the key
@@ -5292,8 +5382,9 @@ def phase_paged_kernels(real, real8, cfg, spec, win, fork):
     and at the ``fork`` phase's decode step (``fork``: its tables, whose
     prompt blocks several slots name, and the launches of its bf16 main
     path) with bf16 pools (row 5k, ``paged_attn_fork``) and int8 pools
-    (logged; the bound reads a shared block once).  Returns the kernels
-    line's rows."""
+    (logged; the bound reads a shared block once); and at the ``fleet``
+    phase's ship destination (``ship``, row 5d: ``paged_ship_row``).
+    Returns the kernels line's rows."""
     from singa_tpu_torch.ops import paged_attention as pa
 
     n_sm = torch.cuda.get_device_properties(0).multi_processor_count
@@ -5343,23 +5434,7 @@ def phase_paged_kernels(real, real8, cfg, spec, win, fork):
          "fork_table_row_5k": dict(fork_t, step=fork["step"]),
          "fork_table_int8": dict(fork8_t, step=fork["step"])})
 
-    def row(name, t, launches, kernels):
-        ms = t["device_ms"]
-        return dict(
-            name=name, route="cuda",
-            source="singa_tpu_torch/csrc/paged_attention.cu",
-            replaces=REPLACES[name.removesuffix("_f16")], launches=launches,
-            max_abs_err=t["max_abs_err_vs_plain"], ms=ms["kernel"],
-            plain_ms=ms["plain"], bound_ms=ms["bound"],
-            bound_by=t["bound_by"], library_ms=ms["sdpa_alone"],
-            library_call="torch.nn.functional.scaled_dot_product_attention"
-                         " on rows gathered from the pool (the gather not "
-                         "timed: no one PyTorch call computes paged "
-                         "attention)" + ("; int8 pools dequantized first, "
-                                         "not timed" if "int8" in name
-                                         else ""),
-            kernels=kernels)
-
+    row = paged_row
     return [row("paged_attn", serve, real["launches"],
                 "paged_attn_kernel<T, T> (split) + paged_combine_kernel<T, "
                 "T>, T float or bf16"),
@@ -5386,7 +5461,8 @@ def phase_paged_kernels(real, real8, cfg, spec, win, fork):
             row("paged_attn_fork", fork_t, fork["launches"],
                 "paged_attn_kernel<bf16, bf16> (split) + paged_combine_kernel"
                 "<bf16, bf16> over fork groups' tables, several slots naming "
-                "the same prompt blocks")]
+                "the same prompt blocks"),
+            paged_ship_row(ship, cfg)]
 
 
 # ------------------------------------------------------------------ serve
@@ -5527,12 +5603,21 @@ def run_engine(model, traffic, kernel, dtype=None, trace=False,
     return streams, snap, seconds, decode_s
 
 
-def offline_streams(model, traffic, cache_dtype=None):
+def admission_key(seed):
+    """(1, 2) ``uint32`` key a serve engine samples a request's first
+    token with: ``split(split(PRNGKey(seed), 1)[0])[0]``."""
+    from singa_tpu_torch.ops import prng
+
+    return prng.split(prng.split(prng.PRNGKey(seed), 1)[0])[:1]
+
+
+def offline_streams(model, traffic, cache_dtype=None, top_k=0):
     """Offline ``generate`` of the traffic, float32: the greedy requests
     in one batch, the sampled ones in another with their seeds, each
     batch to its longest ``max_new_tokens`` and then cut to each
     request's (a stream's prefix does not depend on its length);
-    ``cache_dtype="int8"``: on int8 caches."""
+    ``cache_dtype="int8"``: on int8 caches; ``top_k``: the engines'
+    filter."""
     out = [None] * len(traffic)
     for greedy in (True, False):
         idx = [i for i, w in enumerate(traffic)
@@ -5543,7 +5628,8 @@ def offline_streams(model, traffic, cache_dtype=None):
         rows = model.generate(
             [traffic[i]["prompt"] for i in idx], max_new_tokens=n_new,
             temperature=0.0 if greedy else traffic[idx[0]]["temperature"],
-            seed=[traffic[i]["seed"] for i in idx], cache_dtype=cache_dtype)
+            seed=[traffic[i]["seed"] for i in idx], cache_dtype=cache_dtype,
+            top_k=top_k)
         for i, r in zip(idx, rows):
             out[i] = r[:len(traffic[i]["prompt"]) + traffic[i]["max_new"]]
     return out
@@ -5576,6 +5662,7 @@ class _LogitsProbe:
     def paged_decode_step(self, params, pool_k, pool_v, inp, block,
                           kernel="block", n_rb=None):
         from singa_tpu_torch.models import gpt2_decode as gd
+        from singa_tpu_torch.ops import prng
 
         eng = self.eng
         lanes = [i for i, s in enumerate(eng._slots) if s is not None]
@@ -5594,16 +5681,12 @@ class _LogitsProbe:
                                            block)
         g, w = got[:n].float(), want[:n].float()
         self.max_err = max(self.max_err, (g - w).abs().max().item())
-        dev = w.device
+        noise = prng.gumbel_t(inp["keys"][:n, 0], w.shape[-1])
         for r, i in enumerate(lanes):
             row = w[r]
             if eng._temps[i] > 0:
                 row = gd._filter_logits(row[None], float(eng._temps[i]),
-                                        eng._top_p, eng._top_k)[0]
-                row = row + gd._gumbel(
-                    torch.tensor([int(eng._seeds[i])], device=dev),
-                    torch.tensor([int(eng._pos[i]) + 1], device=dev),
-                    row.shape[0])[0]
+                                        eng._top_p, eng._top_k)[0] + noise[r]
             top2 = torch.topk(row, 2).values
             rid = eng._slots[i].handle.request.request_id
             if (top2[0] - top2[1]).item() < SERVE_BF16_LOGITS_ATOL \
@@ -5618,8 +5701,7 @@ def phase_serve(seed=0):
     bf16, then the pressured engine and the tiny one (module docstring).
     Returns the model and, for the kernel phase, the paged kernel's
     launches on the timed bf16 run and the real tables it times."""
-    from singa_tpu_torch import amp, device, tensor
-    from singa_tpu_torch.models.gpt2 import GPT2Config, GPT2LMHead
+    from singa_tpu_torch import amp, device
     from singa_tpu_torch.ops import paged_attention as pa
 
     marks = [("start", time.perf_counter())]
@@ -5629,11 +5711,8 @@ def phase_serve(seed=0):
 
     amp.enable(False)
     dev = device.create_cuda_gpu()
-    dev.SetRandSeed(seed)
-    cfg = GPT2Config.small(dropout=0.0)
-    model = GPT2LMHead(cfg)
-    model.compile([tensor.from_numpy(np.zeros((1, 8), np.int32), dev)],
-                  is_train=False)
+    model = gpt2_small(seed)
+    cfg = model.cfg
     traffic = serve_traffic(seed, vocab=cfg.vocab_size)
     mark("model")
 
@@ -5689,6 +5768,7 @@ def phase_serve(seed=0):
     mark("bf16_eager")
     profile = profile_serve(model, traffic, bf)
     profile_eager = profile_serve(model, traffic, bf, capture=False)
+    host_split = serve_host_split(model, traffic, bf)
     mark("bf16_profiles")
     probes = []
     probed, _, _, _ = run_engine(
@@ -5757,6 +5837,7 @@ def phase_serve(seed=0):
                      "graphs": snap_h["graphs"]},
          "profile_bf16_run": profile,
          "profile_bf16_eager_run": profile_eager,
+         "host_split_bf16_run": host_split,
          "seconds": {n: t - marks[i][1]
                      for i, (n, t) in enumerate(marks[1:])},
          "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30,
@@ -5769,7 +5850,8 @@ def phase_serve(seed=0):
                        bf16_streams=block16, first_low=probe.first_low,
                        bf16=dict(serve_timing(snap16, sec16, decode_s,
                                               len(traffic)),
-                                 busy_share=profile["device_busy_share"]))
+                                 busy_share=profile["device_busy_share"],
+                                 host_split=host_split))
 
 
 def serve_timing(snap, sec, dec_s, n_requests):
@@ -5925,6 +6007,86 @@ def pressure_traffic(seed=0, n=12, vocab=50257):
                  seed=int(rng.randint(0, 2 ** 31 - 1)),
                  priority=0 if i < n // 2 else 1 + i % 2)
             for i in range(n)]
+
+
+def serve_host_split(model, traffic, dtype=torch.bfloat16):
+    """Where the host time of the serve phase's captured bf16 run goes:
+    the same engine and traffic drained again with stepprof on, which
+    fences every ``engine.step()`` into host segments and the device
+    windows of its dispatches (each dispatch waited for, so nothing
+    overlaps), and two timers inside it: the numpy split of the host
+    key chain each decode step (``_step_keys``) and each admission's
+    first-token sample (``_sample`` called from ``_admit``: the host
+    seconds to its return, and its device span by CUDA events; greedy
+    admissions draw nothing and are counted apart).  ``rest_host_s`` is
+    stepprof's host total less the two."""
+    from singa_tpu_torch.observe import stepprof
+    from singa_tpu_torch.serve import engine as engine_mod
+
+    acc = dict(key_split_s=0.0, key_splits=0, admit_sample_host_s=0.0,
+               admit_sample_device_ms=0.0, sampled_admissions=0,
+               greedy_admissions=0)
+    events = []
+    inner_sample = engine_mod._sample
+    in_admit = [False]
+
+    def sample(logits, temps, keys, *a, **kw):
+        if not in_admit[0]:
+            return inner_sample(logits, temps, keys, *a, **kw)
+        if keys is None:
+            acc["greedy_admissions"] += 1
+            return inner_sample(logits, temps, keys, *a, **kw)
+        acc["sampled_admissions"] += 1
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        out = inner_sample(logits, temps, keys, *a, **kw)
+        end.record()
+        acc["admit_sample_host_s"] += time.perf_counter() - t0
+        events.append((start, end))
+        return out
+
+    def on_engine(eng):
+        step_keys, admit = eng._step_keys, eng._admit
+
+        def timed_keys(*a):
+            t0 = time.perf_counter()
+            out = step_keys(*a)
+            acc["key_split_s"] += time.perf_counter() - t0
+            acc["key_splits"] += 1
+            return out
+
+        def flagged_admit(*a, **kw):
+            in_admit[0] = True
+            try:
+                return admit(*a, **kw)
+            finally:
+                in_admit[0] = False
+
+        eng._step_keys, eng._admit = timed_keys, flagged_admit
+
+    engine_mod._sample = sample
+    prof = stepprof.enable()
+    try:
+        run_engine(model, traffic, "block", dtype=dtype, on_engine=on_engine)
+        sec = prof.section()
+    finally:
+        stepprof.disable()
+        engine_mod._sample = inner_sample
+    torch.cuda.synchronize()
+    acc["admit_sample_device_ms"] = sum(a.elapsed_time(b)
+                                        for a, b in events)
+    (eng_sec,) = sec["engines"].values()
+    wall = eng_sec["wall_s_total"]
+    host = eng_sec["host_s_total"]
+    return dict(
+        acc, steps=eng_sec["steps"], wall_s=wall,
+        device_s=eng_sec["device_s_total"], host_s=host,
+        segments_s={k: v * wall for k, v in eng_sec["fractions"].items()},
+        rest_host_s=host - acc["key_split_s"] - acc["admit_sample_host_s"],
+        key_split_ms_each=1e3 * acc["key_split_s"] / max(acc["key_splits"],
+                                                         1))
 
 
 def serve_pressured(model, traffic, engine=PRESSURE_ENGINE, lead=4,
@@ -6487,7 +6649,7 @@ class _StageRecorder:
         self._inner = eng._inputs.stage
         eng._inputs.stage = self.stage
 
-    def stage(self, toks, pos, live, seeds, temps, tables):
+    def stage(self, toks, pos, live, keys, temps, tables):
         live = np.asarray(live, bool)
         p = np.asarray(pos)[live]
         key = (int(live.sum()), int(p.sum()))
@@ -6496,7 +6658,7 @@ class _StageRecorder:
             self.real = dict(tables=np.array(tables[live], np.int32),
                              p_limit=p.astype(np.int32).tolist(),
                              step=self.eng.step_count)
-        return self._inner(toks, pos, live, seeds, temps, tables)
+        return self._inner(toks, pos, live, keys, temps, tables)
 
 
 def spec_draft(model):
@@ -7016,26 +7178,30 @@ class _SampledMarginProbe:
     def __getattr__(self, name):
         return getattr(self.inner, name)
 
-    def _margin(self, row, temp, seed, pos):
+    def _margin(self, row, temp, noise):
+        """``noise``: the row's Gumbel draw (the key it is sampled
+        with)."""
         from singa_tpu_torch.models import gpt2_decode as gd
 
         row = row.float()
         if temp > 0:
-            dev = row.device
             row = gd._filter_logits(row[None], float(temp), self.eng._top_p,
-                                    self.eng._top_k)[0]
-            row = row + gd._gumbel(torch.tensor([int(seed)], device=dev),
-                                   torch.tensor([int(pos)], device=dev),
-                                   row.shape[0])[0]
+                                    self.eng._top_k)[0] + noise
         top2 = torch.topk(row, 2).values
         return (top2[0] - top2[1]).item()
 
     def prefill_batch(self, params, ids):
+        from singa_tpu_torch.models import gpt2_decode as gd
+        from singa_tpu_torch.ops import prng
+
         logits, kc, vc = self.inner.prefill_batch(params, ids)
-        for row, lg in zip(ids.cpu().numpy().astype(np.int32), logits):
-            w = self.by_prompt[row.tobytes()]
-            if self._margin(lg, FORK_TEMP, w["seed"], len(row)) < \
-                    SERVE_BF16_LOGITS_ATOL:
+        rows = ids.cpu().numpy().astype(np.int32)
+        ws = [self.by_prompt[row.tobytes()] for row in rows]
+        noise = prng.gumbel_t(gd.keys_on(np.concatenate(
+            [admission_key(w["seed"]) for w in ws]), logits.device),
+            logits.shape[-1])
+        for row, lg, nz in zip(rows, logits, noise):
+            if self._margin(lg, FORK_TEMP, nz) < SERVE_BF16_LOGITS_ATOL:
                 self.prompt_low.add(row.tobytes())
         return logits, kc, vc
 
@@ -7043,14 +7209,17 @@ class _SampledMarginProbe:
                           kernel="block", n_rb=None):
         got = self.inner.paged_decode_step(params, pool_k, pool_v, inp,
                                            block, kernel, n_rb)
+        from singa_tpu_torch.ops import prng
+
         eng = self.eng
         lanes = [i for i, s in enumerate(eng._slots) if s is not None]
+        noise = prng.gumbel_t(inp["keys"][:len(lanes), 0], got.shape[-1])
         for r, i in enumerate(lanes):
             slot = eng._slots[i]
             rid = slot.handle.request.request_id
             if rid not in self.first_low and self._margin(
-                    got[r], eng._temps[i], eng._seeds[i],
-                    eng._pos[i] + 1) < SERVE_BF16_LOGITS_ATOL:
+                    got[r], eng._temps[i], noise[r]) < \
+                    SERVE_BF16_LOGITS_ATOL:
                 self.first_low[rid] = len(slot.emitted)
         return got
 
@@ -8093,6 +8262,470 @@ def phase_supervisor(model, real, seed=0):
     return launches
 
 
+# ------------------------------------------------------------------ fleet
+
+#: the fleet phase's replicas: the serve phase's engine with a prefix
+#: cache of its block size (the ship format is the paged image, and a
+#: replica's residency lives in its radix tree), engine-wide top-k 50
+FLEET_REPLICAS = 3
+FLEET_TOP_K = 50
+FLEET_TEMP = 0.8
+#: the disaggregated prefill's long prompts: 512-960 tokens, 32-64 new
+FLEET_LONG = 4
+#: threefry's known answers, as ``jax.random`` gives them (JAX 0.9.0) at
+#: PRNGKey(42): split in 3, fold_in 7, 8 bits, 4 uniforms' bits; and the
+#: last 7 of bits(PRNGKey(1), (2, 50257)) (the counter past a row of
+#: GPT-2's vocabulary)
+THREEFRY_KNOWN = dict(
+    split3=[[1832780943, 270669613], [64467757, 2916123636],
+            [2465931498, 255383827]],
+    fold_in7=[2547012911, 1371500959],
+    bits8=[2098992034, 2919706841, 2646866425, 2409546199, 1935504149,
+           2516274904, 321304473, 3329172656],
+    uniform4_bits=[1056585764, 1059981104, 1058915320, 1057988288],
+    row_tail=[3015957629, 4147172050, 4260404170, 2641025899, 4003422046,
+              699060600, 3255117096])
+#: the card's Gumbels against numpy's: their two float32 logarithms may
+#: round apart, a few ulp of the value (bits and uniforms: exactly)
+GUMBEL_TOL = dict(rtol=2.0 ** -20, atol=2.0 ** -20)
+
+
+def fleet_traffic(seed=0, vocab=50257):
+    """The serve phase's 24 requests, the sampled half at
+    ``FLEET_TEMP``."""
+    return [dict(w, temperature=FLEET_TEMP if w["temperature"] > 0 else 0.0)
+            for w in serve_traffic(seed, vocab=vocab)]
+
+
+def fleet_long_traffic(seed=0, vocab=50257):
+    """``FLEET_LONG`` + 1 long prompts (512-960 tokens, 32-64 new),
+    alternately greedy and sampled: the disaggregated prefill's requests
+    and one more."""
+    rng = np.random.RandomState(seed + 17)
+    return [dict(prompt=rng.randint(0, vocab, rng.randint(512, 961))
+                 .astype(np.int32), max_new=int(rng.randint(32, 65)),
+                 temperature=0.0 if i % 2 == 0 else FLEET_TEMP,
+                 seed=int(rng.randint(0, 2 ** 31 - 1)))
+            for i in range(FLEET_LONG + 1)]
+
+
+def threefry_check(dev, rows=8, vocab=50257, seed=0):
+    """The device draw against the host chain: bits and uniforms of an
+    (rows, vocab) draw, one key a row, bit for bit; Gumbels within
+    ``GUMBEL_TOL``; the known answers; and the draw's device ms (a
+    categorical over bf16-step-shaped float32 logits)."""
+    from singa_tpu_torch.ops import prng
+
+    keys = prng.split(prng.PRNGKey(seed), rows)
+    kt = prng.key_words(keys, dev)
+    bits = prng.random_bits_t(kt, vocab).cpu().numpy()
+    want = prng.random_bits(keys, (vocab,))
+    if not (bits == want).all():
+        raise AssertionError("threefry: the card's bits differ from the "
+                             "host chain's")
+    u = prng.uniform_t(kt, vocab).cpu().numpy()
+    if not (u.view(np.uint32) == prng.uniform(keys, (vocab,))
+            .view(np.uint32)).all():
+        raise AssertionError("threefry: the card's uniforms differ")
+    g = prng.gumbel_t(kt, vocab).cpu().numpy()
+    g_host = prng.gumbel(keys, (vocab,))
+    g_err = float(np.abs(g - g_host).max())
+    if not np.allclose(g, g_host, **GUMBEL_TOL):
+        raise AssertionError(f"threefry: Gumbels differ by {g_err}")
+    k42 = prng.key_words(prng.PRNGKey(42), dev)
+    k1 = prng.key_words(prng.PRNGKey(1), dev)
+    known = dict(
+        split3=prng.split_t(k42, 3).tolist(),
+        fold_in7=prng.fold_in(prng.PRNGKey(42), 7).tolist(),
+        bits8=prng.random_bits_t(k42, 8).tolist(),
+        uniform4_bits=prng.uniform_t(k42, 4).cpu().numpy().view(np.uint32)
+        .tolist(),
+        row_tail=prng.random_bits_t(k1, 2 * 50257)[50257 + 50250:]
+        .tolist())
+    if known != THREEFRY_KNOWN:
+        raise AssertionError(f"threefry known answers: {known}")
+    logits = torch.randn(rows, vocab, device=dev)
+    ms = device_ms_per_call(lambda: prng.categorical_t(kt, logits), 20)
+    return {"rows": rows, "vocab": vocab, "bits_equal": True,
+            "uniforms_equal": True, "gumbel_max_abs_err": g_err,
+            "known_answers_equal": True, "draw_device_ms": ms}
+
+
+class _FirstTokens:
+    """``on_token`` clock: each request's first-token time
+    (``perf_counter``)."""
+
+    def __init__(self):
+        self.first = {}
+
+    def __call__(self, request, token):
+        self.first.setdefault(request.request_id, time.perf_counter())
+
+
+def fleet_submit(fleet, traffic, tag, clock=None, **kw):
+    """Submit ``traffic`` to ``fleet`` (request ids ``tag<i>``); with
+    ``clock`` (a ``_FirstTokens``) each request streams its tokens to it
+    and its submit time is kept there too."""
+    from singa_tpu_torch.serve import GenerationRequest
+
+    hs = []
+    for i, w in enumerate(traffic):
+        if clock is not None:
+            clock.first.setdefault(("submit", f"{tag}{i}"),
+                                   time.perf_counter())
+        hs.append(fleet.submit(GenerationRequest(
+            w["prompt"], max_new_tokens=w["max_new"],
+            temperature=w["temperature"], seed=w["seed"],
+            request_id=f"{tag}{i}",
+            on_token=clock, **kw)))
+    return hs
+
+
+def fleet_drain(fleet, hs, want, what, max_steps=20000):
+    """Drive ``fleet`` until it drains; every handle's stream equals
+    ``want``'s (None: the request must have failed typed, started).
+    Returns the failed count."""
+    from singa_tpu_torch.serve import EngineFailedError
+
+    fleet.run_until_complete(max_steps=max_steps)
+    failed = 0
+    for i, (h, w) in enumerate(zip(hs, want)):
+        try:
+            toks = h.result().tokens
+        except EngineFailedError as e:
+            if e.started is not True:
+                raise AssertionError(f"{what} request {i}: failed "
+                                     f"{e!r}") from e
+            failed += 1
+            continue
+        if not np.array_equal(toks, w):
+            raise AssertionError(f"{what} request {i}: its stream differs "
+                                 f"from the reference")
+    return failed
+
+
+def gpt2_small(seed=0):
+    """GPT-2 small with random weights from ``seed``: the serve phase's
+    model (``--phases fleet`` runs the fleet phase on it alone)."""
+    from singa_tpu_torch import device, tensor
+    from singa_tpu_torch.models.gpt2 import GPT2Config, GPT2LMHead
+
+    dev = device.create_cuda_gpu()
+    dev.SetRandSeed(seed)
+    model = GPT2LMHead(GPT2Config.small(dropout=0.0))
+    model.compile([tensor.from_numpy(np.zeros((1, 8), np.int32), dev)],
+                  is_train=False)
+    return model
+
+
+def phase_fleet(model, seed=0):
+    """The in-process fleet over GPT-2 small replicas (module docstring,
+    phase 14h2).  Returns ``(paged_attn launches of the fleet runs, the
+    ship destination's recorded step for row 5d with its launches)``."""
+    from singa_tpu_torch import amp, device
+    from singa_tpu_torch.ops import paged_attention as pa
+    from singa_tpu_torch.resilience import FailAfterN, FailOnce, faults
+    from singa_tpu_torch.serve import (AutoscaleConfig, Autoscaler,
+                                       GenerationRequest, PagedConfig,
+                                       PrefixCacheConfig)
+
+    marks = {}
+
+    def mark(name, t0=[time.perf_counter()]):
+        marks[name] = time.perf_counter() - t0[0]
+        t0[0] = time.perf_counter()
+
+    amp.enable(False)
+    dev = device.create_cuda_gpu()
+    cfg = model.cfg
+    c = SERVE_ENGINE
+    out = {"phase": "fleet", "replicas": FLEET_REPLICAS,
+           "engine": dict(SERVE_ENGINE, prefix_cache_block=c["block_size"],
+                          top_k=FLEET_TOP_K)}
+    out["threefry"] = threefry_check(dev.torch_device, seed=seed)
+    mark("threefry")
+
+    def engine_kw(dtype=None, cache=True, **kw):
+        return dict(dict(max_slots=c["max_slots"], dtype=dtype,
+                         top_k=FLEET_TOP_K,
+                         paged=PagedConfig(block_size=c["block_size"],
+                                           num_blocks=c["num_blocks"]),
+                         prefix_cache=PrefixCacheConfig(
+                             block_size=c["block_size"]) if cache else None),
+                    **kw)
+
+    traffic = fleet_traffic(seed, vocab=cfg.vocab_size)
+    sampled = [i for i, w in enumerate(traffic) if w["temperature"] > 0]
+    # the long prompts: FLEET_LONG shipped at once, one timed alone cold
+    # and shipped, one that meets a serve.kv_ship fault
+    long = fleet_long_traffic(seed, vocab=cfg.vocab_size) + \
+        fleet_long_traffic(seed + 1, vocab=cfg.vocab_size)[:1]
+    # apart: one batch's longest generation must fit n_positions
+    offline = offline_streams(model, traffic, top_k=FLEET_TOP_K)
+    long_off = offline_streams(model, long, top_k=FLEET_TOP_K)
+    (alone, fault_req), (alone_off, fault_off) = long[-2:], long_off[-2:]
+    long, long_off = long[:FLEET_LONG], long_off[:FLEET_LONG]
+    mark("generate")
+    # one engine of the replicas' configuration: the fleet's reference
+    eng = model.serve(**engine_kw())
+    hs = [eng.submit(GenerationRequest(
+        w["prompt"], max_new_tokens=w["max_new"],
+        temperature=w["temperature"], seed=w["seed"]))
+        for w in traffic]
+    eng.run_until_complete()
+    one = [h.result().tokens for h in hs]
+    eng.close()
+    _same_streams("one float32 engine vs offline generate", one, offline)
+    mark("one_engine")
+
+    pa.paged_attn.launches = 0
+    # mixed: 3 replicas, the 24 requests at once, float32; then one long
+    # prompt alone, cold, its TTFT clocked
+    fleet = model.serve_fleet(replicas=FLEET_REPLICAS, **engine_kw())
+    hs = fleet_submit(fleet, traffic, "m")
+    fleet_drain(fleet, hs, one, "mixed fleet")
+    snap = fleet.snapshot()
+    if min(snap["routed"].values()) < 1 or snap["failovers"]:
+        raise AssertionError(f"mixed fleet routing: {snap['routed']}")
+    out["mixed"] = {"routed": snap["routed"], "requests": len(traffic),
+                    "streams_equal_one_engine_and_generate": True,
+                    "graphs_by_replica": [len(fleet.supervisor(i).engine
+                                              ._steps)
+                                          for i in range(FLEET_REPLICAS)]}
+    cold_clock = _FirstTokens()
+    hs = fleet_submit(fleet, [alone], "c", clock=cold_clock)
+    fleet_drain(fleet, hs, [alone_off], "mixed fleet, a long prompt")
+    fleet.close()
+    mark("mixed")
+
+    # disaggregated prefill: a prefill specialist ships each long
+    # prompt's blocks to a decode replica
+    fleet = model.serve_fleet(replicas=FLEET_REPLICAS,
+                              roles=("prefill", "decode", "decode"),
+                              **engine_kw())
+    recs = [_StageRecorder(fleet.supervisor(i).engine) for i in (1, 2)]
+    ships = []
+    complete = fleet._complete_ship
+
+    def timed_ship(sjob, src_rep):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        n0 = fleet._c_ship_bytes.value
+        complete(sjob, src_rep)
+        torch.cuda.synchronize()
+        ships.append(dict(ms=(time.perf_counter() - t0) * 1e3,
+                          bytes=fleet._c_ship_bytes.value - n0))
+
+    fleet._complete_ship = timed_ship
+    n0 = pa.paged_attn.launches
+    hs = fleet_submit(fleet, long, "d")
+    fleet_drain(fleet, hs, long_off, "disaggregated fleet")
+    ship_launches = pa.paged_attn.launches - n0
+    snap = fleet.snapshot()
+    if snap["ships"] != len(long) or snap["ship_fallbacks"] \
+            or snap["routed"]["0"]:
+        raise AssertionError(f"disaggregated fleet: {snap['ships']} ships, "
+                             f"{snap['ship_fallbacks']} fallbacks, "
+                             f"routed {snap['routed']}")
+    ship_clock = _FirstTokens()
+    hs = fleet_submit(fleet, [alone], "s", clock=ship_clock)
+    fleet_drain(fleet, hs, [alone_off], "a shipped long prompt")
+    ttft = {k: clock.first[f"{tag}0"] - clock.first[("submit", f"{tag}0")]
+            for k, tag, clock in (("cold", "c", cold_clock),
+                                  ("shipped", "s", ship_clock))}
+    # a serve.kv_ship fault: the request requeues cold, its stream kept
+    pol = faults.inject("serve.kv_ship", FailOnce())
+    try:
+        hs = fleet_submit(fleet, [fault_req], "k")
+        fleet_drain(fleet, hs, [fault_off], "kv_ship fault")
+    finally:
+        faults.clear()
+    snap = fleet.snapshot()
+    if pol.fired != 1 or snap["ship_fallbacks"] != 1:
+        raise AssertionError("the serve.kv_ship fault did not fall back")
+    for i in range(FLEET_REPLICAS):
+        fleet.supervisor(i).engine.check_block_accounting()
+    real = max((r.real for r in recs if r.real is not None),
+               key=lambda r: (len(r["p_limit"]), sum(r["p_limit"])))
+    fleet.close()
+    out["disaggregated"] = {
+        "roles": ["prefill", "decode", "decode"], "requests": len(long),
+        "prompt_lens": [len(w["prompt"]) for w in long],
+        "ships": snap["ships"], "ship_bytes": snap["ship_bytes"],
+        "ship_ms": [s["ms"] for s in ships],
+        "ship_bytes_each": [s["bytes"] for s in ships],
+        "alone_prompt_len": len(alone["prompt"]),
+        "ttft_alone_cold_s": ttft["cold"],
+        "ttft_alone_shipped_s": ttft["shipped"],
+        "streams_equal_generate": True,
+        "alone_stream_equal_mixed_fleet": True,
+        "kv_ship_fault": {"fallbacks": 1, "stream_equal": True},
+        "paged_attn_launches": ship_launches}
+    mark("disaggregated")
+
+    # failover: one replica's restart budget runs out at an injected
+    # decode fault; 2 slots a replica for the 12 sampled requests, so
+    # each holds queued ones
+    work = [traffic[i] for i in sampled]
+    want = [offline[i] for i in sampled]
+    fleet = model.serve_fleet(replicas=FLEET_REPLICAS, restart_budget=0,
+                              **engine_kw(max_slots=2))
+    requeued, t_fault = [], []
+    mark_down, route, failover = (fleet._mark_down, fleet._route,
+                                  fleet._failover)
+
+    def on_down(rep, err):
+        t_fault.append(time.perf_counter())
+        mark_down(rep, err)
+
+    def on_failover(rep):
+        fleet._route = lambda req, *a, **kw: (
+            requeued.append(req.request_id) or route(req, *a, **kw))
+        try:
+            failover(rep)
+        finally:
+            fleet._route = route
+
+    fleet._mark_down, fleet._failover = on_down, on_failover
+    clock = _FirstTokens()
+    hs = fleet_submit(fleet, work, "f", clock=clock)
+    faults.inject("serve.decode_step", FailAfterN(4, times=1))
+    try:
+        failed = fleet_drain(fleet, hs, want, "failover")
+    finally:
+        faults.clear()
+    if len(t_fault) != 1 or not requeued or not failed:
+        raise AssertionError(f"failover: {len(t_fault)} replicas down, "
+                             f"{len(requeued)} requeued, {failed} failed")
+    dead = next(r.idx for r in fleet._replicas if not r.healthy)
+    requeue_s = max(clock.first[r] for r in requeued) - t_fault[0]
+    # revive, then hedges: the router pinned to replica 0, whose queue
+    # backs up until its requests are re-dispatched to the siblings
+    fleet.revive(dead)
+    fleet.hedge_after_steps = 2
+    rank = fleet.router.rank
+    fleet.router.rank = lambda views: sorted(v["replica"] for v in views)
+    hs = fleet_submit(fleet, work[:6], "h")
+    fleet_drain(fleet, hs, want[:6], "hedged")
+    fleet.router.rank = rank
+    snap = fleet.snapshot()
+    if snap["hedges"] < 1 or snap["failovers"] != 1:
+        raise AssertionError(f"hedge: {snap['hedges']} hedges")
+    fleet.close()
+    out["failover"] = {"max_slots": 2, "requests": len(work),
+                       "replica_failed": dead, "requeued": len(requeued),
+                       "failed_typed": failed,
+                       "requeued_streams_equal_uninterrupted": True,
+                       "fault_to_last_requeued_first_token_s": requeue_s,
+                       "revived": dead, "hedges": snap["hedges"],
+                       "hedged_streams_equal": True}
+    mark("failover")
+
+    # the autoscaler under an injected clock: a burst adds a replica,
+    # quiet drains one and retires it
+    now = [0.0]
+    fleet = model.serve_fleet(replicas=1, clock=lambda: now[0],
+                              **engine_kw())
+    sc = Autoscaler(fleet, AutoscaleConfig(
+        min_replicas=1, max_replicas=2, scale_up_cooldown_s=1.0,
+        scale_down_cooldown_s=2.0, queue_high=2.0, queue_low=0.5,
+        occupancy_high=1.5, occupancy_low=0.6), clock=lambda: now[0])
+    hs = fleet_submit(fleet, work[:4], "a")
+    if (sc.check() or {}).get("action") != "scale_up" \
+            or fleet.replicas != 2:
+        raise AssertionError("the burst did not add a replica")
+    added = fleet.supervisor(1).engine
+    hs += fleet_submit(fleet, work[4:8], "b")
+    added_graphs, capture_s = 0, 0.0
+    while fleet.pending:
+        n = len(added._steps)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fleet.step()
+        torch.cuda.synchronize()
+        if len(added._steps) > n:
+            added_graphs += len(added._steps) - n
+            capture_s += time.perf_counter() - t0
+        now[0] += 0.5
+        sc.check()
+    fleet_drain(fleet, hs, want[:8], "autoscaled")
+    for _ in range(20):
+        if any(e["action"] == "drain_done" for e in sc.scaling_events):
+            break
+        now[0] += 1.0
+        sc.check()
+    actions = [e["action"] for e in sc.scaling_events]
+    if "drain_done" not in actions or not added_graphs \
+            or sum(r.retired for r in fleet._replicas) != 1:
+        raise AssertionError(f"autoscaler: {actions}, the added replica "
+                             f"captured {added_graphs} graphs")
+    out["autoscale"] = {"actions": actions,
+                        "added_replica_graphs": added_graphs,
+                        "added_replica_capture_step_seconds": capture_s,
+                        "streams_equal": True}
+    sc.close()
+    fleet.close()
+    launches = pa.paged_attn.launches
+    if launches < 1 or ship_launches < 1:
+        raise AssertionError(f"the fleet runs launched paged_attn "
+                             f"{launches} times ({ship_launches} after "
+                             f"ships)")
+    mark("autoscale")
+
+    # bf16, no prefix cache (no chunk passes: a decode step's TPOT): 3
+    # replicas against one engine on the same 24 requests, each timed
+    # after a warm-up pass of 8 requests a replica (every replica then
+    # holds every width's graph)
+    bf = torch.bfloat16
+
+    def timed(build):
+        srv = build()
+        fleet = hasattr(srv, "router")
+        warm = traffic[:c["max_slots"] * (srv.replicas if fleet else 1)]
+        for tag, ws in (("w", warm), ("t", traffic)):
+            hs = fleet_submit(srv, ws, tag) if fleet else \
+                [srv.submit(GenerationRequest(
+                    w["prompt"], max_new_tokens=w["max_new"],
+                    temperature=w["temperature"], seed=w["seed"]))
+                 for w in ws]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            srv.run_until_complete()
+            torch.cuda.synchronize()
+            sec = time.perf_counter() - t0
+        res = [h.result() for h in hs]
+        srv.close()
+        dec = sum(len(r.tokens) - len(w["prompt"]) - 1
+                  for r, w in zip(res, traffic))
+        return {"seconds": sec,
+                "tpot_median_s": statistics.median(r.tpot for r in res
+                                                   if r.tpot),
+                "decode_tokens_per_s": dec / sec}
+
+    out["bf16"] = {
+        "one_engine": timed(lambda: model.serve(**engine_kw(bf, False))),
+        "fleet": timed(lambda: model.serve_fleet(
+            replicas=FLEET_REPLICAS, **engine_kw(bf, False)))}
+    # the whole decode step at 8 slots (one replay) beside the draw
+    eng = model.serve(**engine_kw(bf, False))
+    for w in traffic[:c["max_slots"]]:
+        eng.submit(GenerationRequest(
+            w["prompt"], max_new_tokens=w["max_new"],
+            temperature=w["temperature"], seed=w["seed"]))
+    for _ in range(4):
+        eng.step()
+    step_ms = device_ms_per_call(eng._steps[c["max_slots"]], 20)
+    eng.close(force=True)
+    out["threefry"]["decode_step_device_ms_bf16_8_slots"] = step_ms
+    out["threefry"]["draw_share_of_step"] = \
+        out["threefry"]["draw_device_ms"] / step_ms
+    mark("bf16")
+    out["seconds"] = marks
+    out["nvidia_smi"] = nvidia_smi()
+    log(out)
+    real["launches"] = ship_launches
+    return launches, real
+
 def slice_mfu(cfg, x, y, dev, seed=0, steps=20):
     """``train.mfu`` of GPT-2 small's captured step with the monitor on
     (its FLOPs counted at the signature's first call: aten's products and
@@ -8515,13 +9148,14 @@ def main():
     timed("beam", phase_beam, model)
     observe_launches = timed("observe", phase_observe, model, real)
     supervisor_launches = timed("supervisor", phase_supervisor, model, real)
+    fleet_launches, ship = timed("fleet", phase_fleet, model)
     cfg = model.cfg
     del model
     moe_launches = timed("moe", phase_moe, rows)
     tp_row, shard_launches, ring_launches = timed("serve_shard",
                                                   phase_serve_shard)
     for row in timed("paged_kernels", phase_paged_kernels, real, real8, cfg,
-                     spec, win, fork):
+                     spec, win, fork, ship):
         rows[row["name"]] = row
     # the sharded engines' launches on every rank: the pipeline and
     # expert modes' at the full 12 heads, the ring prefill's flash
@@ -8532,9 +9166,10 @@ def main():
     rows[tp_row["name"]] = tp_row
     # the prefix phase decodes on bf16 pools through paged_attn, the
     # structured phase on float32 ones, the observe and moe phases on
-    # both, the supervisor phase's supervised run on float32 ones
+    # both, the supervisor and fleet phases' runs on float32 ones
     rows["paged_attn"]["launches"] += prefix_launches + struct_launches \
-        + observe_launches + supervisor_launches + moe_launches
+        + observe_launches + supervisor_launches + moe_launches \
+        + fleet_launches
 
     smi = nvidia_smi()
     log({"phase": "device", "nvidia_smi": smi,

@@ -334,6 +334,22 @@ class GPT2LMHead(model.Model):
         self._serial_decode("serve")
         return InferenceEngine(self, **kw)
 
+    def serve_fleet(self, replicas=2, **kw):
+        """N supervised engine replicas of this model behind a
+        health-checked router (``singa_tpu_torch.serve.ServeFleet``):
+        least-loaded / SLO-headroom routing, sticky ``pin_session``
+        routing, failover with never-started requeue, hedging
+        (``hedge_after_steps``), role-typed disaggregated prefill with
+        KV ships (``roles=``, with ``paged=`` and ``prefix_cache=``).
+        Replicas share this model's weights and own their KV arena,
+        prefix cache and captured decode steps.  Keyword arguments:
+        ``router``, ``restart_budget``, ``budget_reset_after_s``,
+        ``shed_on_slo_pressure``, ``hedge_after_steps``, ``roles``,
+        ``clock``, and everything :meth:`serve` takes (forwarded to
+        every replica's engine)."""
+        from ..serve import ServeFleet
+
+        return ServeFleet(self, replicas=replicas, **kw)
     def _serial_decode(self, what):
         """Decoding reads whole weights: a model sharded over more than
         one rank raises (sharded serving is ``serve/tp.py``'s, not ported);

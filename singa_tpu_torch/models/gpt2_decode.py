@@ -39,18 +39,16 @@ decodes from a ROLLING cache of W lanes, position p in lane p % W
 generation reads O(W) lanes a token.  The paged engine keeps its linear
 layout (``rolling=False``) and drops the blocks that left the window.
 
-Random numbers: ``jax.random`` is not reproduced.  A sampled token is
-``argmax(filtered logits + Gumbel noise)``, the noise over the
-vocabulary a counter-based integer hash of (the request's seed, the
-token's position, the vocabulary index) alone (``_gumbel``), so a stream
-does not depend on the slot or batch it shares: the serve engine's
-streams equal ``generate`` at the same seed.  A speculative step keys
-its draws by a third number too, the draw (1: the draft's proposal, 2:
-the accept test, 3: the correction token), so no two uses of a position
-share noise.  The hash is integer tensor arithmetic, so its bits are the
-same on the CPU and the card, and the whole draw runs inside the
-engine's captured steps.  Against the JAX package only greedy streams
-compare.
+Random numbers: ``jax.random``'s threefry-2x32, keyed as the JAX package
+keys it (``ops/prng.py``).  A sampled token is ``argmax(filtered logits +
+gumbel(key, (V,)))``, the JAX ``categorical``; ``generate`` keys its rows
+``split(PRNGKey(seed), B)`` and splits each row's key every step, sampling
+with the first half and carrying the second, and the serve engine keys a
+request ``split(PRNGKey(seed), 1)[0]`` and advances it the same way, so a
+request's stream is ``generate``'s of its prompt alone and the JAX
+package's at the same seed.  Keys live on the host as numpy ``uint32``
+pairs; the draws over the vocabulary run on the logits' device, in
+masked int64 tensor arithmetic, inside the engine's captured steps.
 
 int8 KV caches (``cache_dtype="int8"``): a cache or pool is then a
 ``(values, scales)`` pair, int8 values of the dense layout and one
@@ -82,6 +80,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..ops import prng
 from ..ops.paged_attention import paged_attn
 from ..parallel.moe import _one_hot
 
@@ -733,54 +732,6 @@ def _penalize(logits, rep_mask, rep_penalty):
     return torch.where(rep_mask, pen, logits)
 
 
-_M32 = 0xFFFFFFFF
-
-
-def _mix32(x):
-    """A 32-bit integer hash of int64 tensor ``x`` in [0, 2^32): xor-shift
-    and multiply rounds whose odd multipliers are below 2^31, so every
-    product of a 32-bit value with one fits int64 and the bits are exact
-    on every device."""
-    x = x ^ (x >> 16)
-    x = (x * 0x7FEB352D) & _M32
-    x = x ^ (x >> 15)
-    x = (x * 0x68E31DA5) & _M32
-    return x ^ (x >> 16)
-
-
-def _key(seeds, positions, draw=0):
-    """The counter-based hash of (seed, position[, draw]) in [0, 2^32),
-    elementwise over broadcast int tensors; draw 0 adds no round, so a
-    plain draw's bits are those of the keys without one."""
-    s = seeds.long()
-    h = _mix32((s & _M32) ^ 0x9E3779B9)
-    h = _mix32(h ^ ((s >> 32) & _M32))
-    h = _mix32(h ^ (positions.long() & _M32))
-    return _mix32(h ^ draw) if draw else h
-
-
-def _unit(h):
-    """A uniform in (0, 1) from the top 23 bits of a 32-bit hash."""
-    return ((h >> 9).float() + 0.5) * 2.0 ** -23
-
-
-def _gumbel(seeds, positions, vocab, draw=0):
-    """(N, V) Gumbel noise: element (i, v) is a function of
-    ``(seeds[i], positions[i], draw, v)`` alone (``seeds`` and
-    ``positions`` (N,) integer tensors), a counter-based hash turned into
-    a uniform of 23 bits, so a row's noise does not depend on the batch
-    it is drawn in, and tensor ops draw it inside a captured step."""
-    h = _key(seeds, positions, draw)
-    v = torch.arange(vocab, device=h.device)
-    return -torch.log(-torch.log(_unit(_mix32(_mix32(h[:, None] ^ v[None])))))
-
-
-def _uniform(seeds, positions, draw):
-    """Uniforms in (0, 1) keyed by (seed, position, draw), elementwise
-    over broadcast ``seeds`` and ``positions``."""
-    return _unit(_mix32(_key(seeds, positions, draw)))
-
-
 def _on(x, dtype, device):
     """``x`` (a tensor, an array or a list) as a ``dtype`` tensor on
     ``device``; a tensor already there is not copied."""
@@ -789,22 +740,33 @@ def _on(x, dtype, device):
     return x.to(device=device, dtype=dtype)
 
 
-def _sample(logits, temps, seeds, positions, top_k=0, top_p=None,
-            min_p=None, rep_mask=None, rep_penalty=None, mask=None):
+def keys_on(keys, device):
+    """Sampling keys ``keys`` (N, 2) (host ``uint32`` words, or an int
+    tensor of words, int32 read as unsigned) as an int tensor on
+    ``device``; a tensor already there is not copied."""
+    if isinstance(keys, torch.Tensor):
+        return keys.to(device)
+    return prng.key_words(keys, device)
+
+
+def _sample(logits, temps, keys, top_k=0, top_p=None, min_p=None,
+            rep_mask=None, rep_penalty=None, mask=None):
     """One token per row of (N, V) logits.  ``mask`` (N, V) bool is a
     structured request's vocabulary mask: a False lane drops to
     ``NEG_INF`` before everything else, the greedy argmax included
     (None, or an all-True row, leaves the row's bits as they were).
     With ``rep_mask`` (N, V) bool, the repetition penalty applies next,
     before the greedy argmax too.  Then greedy (argmax of the float32
-    logits) where ``temps[i] <= 0``, else argmax of the filtered logits (temperature, top-k, top-p,
-    min-p) plus Gumbel noise keyed by ``(seeds[i], positions[i])``, a
-    draw from the filtered softmax.  ``temps``, ``seeds`` and
-    ``positions`` are (N,) device tensors or host arrays.  Every row is
-    filtered and drawn and the two results are selected per row, so the
-    ops have fixed shapes and the serve engine's captured decode step
-    samples inside its graph.  Returns an (N,) int64 tensor on the
-    logits' device."""
+    logits) where ``temps[i] <= 0``, else ``categorical(keys[i], filtered
+    logits)``: the argmax of the filtered logits (temperature, top-k,
+    top-p, min-p) plus ``gumbel(keys[i], (V,))``, the JAX ``_sample``'s
+    draw.  ``temps`` (N,) and ``keys`` (N, 2) (:func:`keys_on`) are
+    device tensors or host arrays; ``keys`` None: every row is greedy
+    and nothing is drawn (the JAX ``generate``'s static ``greedy``).  Every row is filtered and drawn and
+    the two results are selected per row, so the ops have fixed shapes
+    and the serve engine's captured decode step samples inside its graph
+    (the JAX engine draws for greedy rows too).  Returns an (N,) int64
+    tensor on the logits' device."""
     n, vocab = logits.shape
     dev = logits.device
     logits = logits.float()
@@ -812,13 +774,14 @@ def _sample(logits, temps, seeds, positions, top_k=0, top_p=None,
         logits = torch.where(mask, logits, torch.full_like(logits, NEG_INF))
     if rep_mask is not None:
         logits = _penalize(logits, rep_mask, rep_penalty)
+    if keys is None:
+        return logits.argmax(-1)
     temps = _on(temps, torch.float32, dev).reshape(n)
     hot = temps > 0
     t = torch.where(hot, temps, torch.ones_like(temps))[:, None]
     filt = _filter_logits(logits, t, top_p, top_k, min_p)
-    noise = _gumbel(_on(seeds, torch.int64, dev).reshape(n),
-                    _on(positions, torch.int64, dev).reshape(n), vocab)
-    return torch.where(hot, (filt + noise).argmax(-1), logits.argmax(-1))
+    drawn = prng.categorical_t(keys_on(keys, dev).reshape(n, 2), filt)
+    return torch.where(hot, drawn, logits.argmax(-1))
 
 
 def chosen_logprob(logits, toks):
@@ -831,16 +794,6 @@ def chosen_logprob(logits, toks):
     return lp.gather(-1, toks.long()[:, None])[:, 0]
 
 
-def fork_seed(seed, branch):
-    """The sampling seed of fork branch ``branch`` > 0 of a stream
-    sampled at ``seed``: the counter hash of (seed, branch) with a draw
-    of its own, a 32-bit value, so a branch's noise shares nothing with
-    its parent's or a sibling's.  The counterpart of the JAX engine's
-    ``fold_in(parent_key, branch)``; branch 0 keeps ``seed``."""
-    return int(_key(torch.tensor([int(seed)], dtype=torch.int64),
-                    torch.tensor([int(branch)]), draw=4)[0])
-
-
 def _first_false(ok):
     """(N,) index of the first False of each row of (N, M) bool, M when
     none (the JAX package's ``argmin`` over the row and one False)."""
@@ -848,13 +801,14 @@ def _first_false(ok):
     return stop.int().argmax(-1)
 
 
-def spec_verify(t_logits, d_probs, props, temps, seeds, pos, top_k=0,
+def spec_verify(t_logits, d_probs, props, temps, k_acc, k_fix, top_k=0,
                 top_p=None):
     """The verify of a speculative chunk for every row: ``t_logits`` (S,
     K, V) target logits at positions pos..pos+K-1, ``d_probs`` (S, K-1,
     V) the filtered draft distributions the proposals ``props`` (S, K-1)
-    were drawn from, ``temps`` (S,) float32, ``seeds`` (S,) int64, ``pos``
-    (S,) the chunk's first position.  Returns ``(out (S, K) int64,
+    were drawn from, ``temps`` (S,) float32, ``k_acc`` and ``k_fix`` (S,
+    2) each row's keys of the accept test and the correction token (the
+    JAX ``split(k_verify)``; :func:`keys_on`).  Returns ``(out (S, K) int64,
     a_draft (S,) int64)``: ``out[:, :a]`` echo the accepted proposals,
     ``out[:, a]`` is the correction token (a resample of the residual,
     or the bonus token on a full accept), the rest is not to be emitted;
@@ -869,11 +823,11 @@ def spec_verify(t_logits, d_probs, props, temps, seeds, pos, top_k=0,
     target distribution (the residual against a zero q row), so every
     emitted token is distributed as direct target sampling.  ``p == q``
     leaves no residual mass, and p itself is drawn from then.  The
-    accept test and the correction token draw noise keyed by (seed, the
-    position of the token they decide, draw 2 or 3).  Every row runs
+    accept test draws ``uniform(k_acc, (K - 1,))`` and the correction
+    token ``categorical(k_fix, log residual)``.  Every row runs
     both branches and selects, so the step has fixed shapes and is
     captured with the engine's speculative step (the JAX function does
-    one row under ``vmap``, its noise from ``jax.random``)."""
+    one row under ``vmap``)."""
     s_, k, vocab = t_logits.shape
     t_logits = t_logits.float()
     cands = t_logits.argmax(-1)
@@ -886,8 +840,8 @@ def spec_verify(t_logits, d_probs, props, temps, seeds, pos, top_k=0,
     p = torch.softmax(filt, -1).reshape(s_, k, vocab)
     d_probs = d_probs.float()
     q = torch.cat([d_probs, torch.zeros_like(p[:, :1])], 1)
-    tpos = pos.long()[:, None] + 1 + torch.arange(k, device=pos.device)
-    u = _uniform(seeds.long()[:, None], tpos[:, :-1], 2)
+    dev = t_logits.device
+    u = prng.uniform_t(keys_on(k_acc, dev), k - 1)
     p_prop = p[:, :-1].gather(-1, props[..., None])[..., 0]
     q_prop = d_probs.gather(-1, props[..., None])[..., 0]
     # u < p / q without the division: q == 0 accepts iff p > 0, p >= q
@@ -898,8 +852,8 @@ def spec_verify(t_logits, d_probs, props, temps, seeds, pos, top_k=0,
     res = torch.clamp(p_at - q_at, min=0.0)
     mass = res.sum(-1, keepdim=True)
     res = torch.where(mass > 0, res / torch.clamp(mass, min=1e-38), p_at)
-    fix = (torch.log(torch.clamp(res, min=1e-38))
-           + _gumbel(seeds, pos.long() + 1 + a_sampled, vocab, 3)).argmax(-1)
+    fix = prng.categorical_t(keys_on(k_fix, dev),
+                             torch.log(torch.clamp(res, min=1e-38)))
     out_s = torch.cat([props, torch.zeros_like(props[:, :1])], 1)
     out_s = out_s.scatter(1, a_sampled[:, None], fix[:, None])
     return (torch.where(hot[:, None], out_s, cands),
@@ -957,8 +911,11 @@ def generate(m, prompt_ids, max_new_tokens=20, temperature=1.0, rng=None,
     HF: over the whole sequence so far, prompt included) applies before
     the greedy argmax too.  ``temperature <= 0`` is greedy; otherwise
     ``top_k`` / ``top_p`` / ``min_p`` filter the tempered distribution
-    and ``seed`` (an int for every row, or one per row; default one draw
-    from ``rng``) keys the noise (module docstring).  ``dtype`` casts the
+    and ``seed`` keys the noise (module docstring): an int keys the rows
+    ``split(PRNGKey(seed), B)`` as the JAX ``generate`` does (default
+    one draw from ``rng``), one seed a row keys row i ``split(PRNGKey(
+    seed[i]), 1)[0]``, the key of a one-prompt ``generate`` and of a
+    serve request at that seed.  ``dtype`` casts the
     weights (``torch.bfloat16`` for bf16 inference).  ``cache_dtype=
     "int8"`` keeps the cache as int8 (values, scales) (module
     docstring).  A sliding-window model decodes from a rolling cache of
@@ -985,14 +942,14 @@ def generate(m, prompt_ids, max_new_tokens=20, temperature=1.0, rng=None,
            else None)
     if seed is None:
         seed = _seed(temperature, rng)
-    seeds = np.broadcast_to(np.asarray(seed, np.int64), (len(rows),))
+    keys = row_keys(seed, len(rows))
     temps = np.full(len(rows), temperature, np.float32)
     was_training = m.training
     m.eval()
     try:
         with torch.no_grad():
             new = _generate_rows(extract_params(m, dtype), rows,
-                                 max_new_tokens, cfg, temps, seeds,
+                                 max_new_tokens, cfg, temps, keys,
                                  dict(top_k=top_k, top_p=top_p,
                                       min_p=min_p, rep_penalty=rep),
                                  quant)
@@ -1001,6 +958,19 @@ def generate(m, prompt_ids, max_new_tokens=20, temperature=1.0, rng=None,
     out = [np.concatenate([r, new[i]]).astype(np.int32)
            for i, r in enumerate(rows)]
     return out[0] if single else out
+
+
+def row_keys(seed, n):
+    """(n, 2) ``uint32`` first keys of ``n`` rows: ``split(PRNGKey(seed),
+    n)`` for an int ``seed``, ``split(PRNGKey(seed[i]), 1)[0]`` for one
+    seed a row (what the JAX package's ``generate`` of that row alone and
+    its serve engine's admission key the row with)."""
+    if np.ndim(seed) == 0:
+        return prng.split(prng.PRNGKey(int(seed)), n)
+    seeds = list(np.asarray(seed).reshape(-1))
+    if len(seeds) != n:
+        raise ValueError(f"{len(seeds)} seeds for {n} rows")
+    return np.stack([prng.split(prng.PRNGKey(int(s)), 1)[0] for s in seeds])
 
 
 def kv_zeros(shape, dtype, quant, device):
@@ -1043,10 +1013,12 @@ def _prefill_rows(params, rows, n_new, cfg, quant=False):
     return kc, vc, first, lens
 
 
-def _generate_rows(params, rows, n_new, cfg, temps, seeds, filters,
+def _generate_rows(params, rows, n_new, cfg, temps, keys, filters,
                    quant=False):
-    """``filters``: ``_sample``'s ``top_k``, ``top_p``, ``min_p`` and
-    ``rep_penalty`` (None: no penalty); ``quant``: int8 caches."""
+    """``keys`` (B, 2) ``uint32``: each row's first key, split every step
+    (sample with the first half, carry the second); ``filters``:
+    ``_sample``'s ``top_k``, ``top_p``, ``min_p`` and ``rep_penalty``
+    (None: no penalty); ``quant``: int8 caches."""
     n_head, eps = cfg.n_head, float(cfg.layer_norm_eps)
     window = _norm_window(cfg)
     dev = params["wte"].device
@@ -1059,8 +1031,15 @@ def _generate_rows(params, rows, n_new, cfg, temps, seeds, filters,
     pos = lens.copy()
     toks = np.empty((b, n_new), np.int64)
 
+    greedy = bool((temps <= 0).all())
+
     def sample(logits, j):
-        nxt = _sample(logits, temps, seeds, pos, **filters)
+        nonlocal keys
+        step = None
+        if not greedy:
+            ks = prng.split(keys)
+            step, keys = ks[:, 0], ks[:, 1]
+        nxt = _sample(logits, temps, step, **filters)
         toks[:, j] = nxt.cpu().numpy()
         if "rep_mask" in filters:  # the emitted tokens join the sequence
             filters["rep_mask"][rows_t, nxt] = True

@@ -15,8 +15,10 @@ The site names are the JAX package's (:data:`SITES`); the port threads
 ``load_states``, ``Snapshot``, ``CheckpointManager``), ``io.binfile``
 (the BinFile reader and writer), ``serve.prefix_copy`` (the prefix
 cache's own pool copies), ``serve.prefill_chunk`` (a chunked admission's
-pass) and ``serve.fork_copy`` (a fork branch's copy-on-write block copy)
-so far.
+pass), ``serve.fork_copy`` (a fork branch's copy-on-write block copy),
+``serve.decode_step``, and the fleet's ``serve.route`` (admission
+routing), ``serve.kv_ship`` (both halves of a KV ship) and
+``serve.autoscale`` (a scaling action) so far.
 """
 
 from __future__ import annotations
@@ -35,7 +37,7 @@ __all__ = ["SITES", "FaultInjected", "FailOnce", "FailRate",
            "armed", "check"]
 
 #: The JAX package's canonical injection sites.  ``check`` takes any
-#: name; the port hooks the four the module docstring names.
+#: name; the port hooks those the module docstring names.
 SITES = (
     "checkpoint.write", "checkpoint.read", "comm.collective",
     "serve.decode_step", "serve.ep_dispatch", "serve.pp_boundary",

@@ -15,7 +15,11 @@ structured decoding (``GenerationRequest(structured=
 JsonSchemaAutomaton(schema, vocab))``); serve SLOs
 (``slo=observe.SLO(...)``) and the supervisor that rebuilds a failed
 engine, requeues what it had not started and sheds under SLO pressure
-(``EngineSupervisor``).
+(``EngineSupervisor``); the in-process fleet of supervised replicas
+behind a router, with failover, hedging, disaggregated prefill that
+ships KV images between replicas (``FleetPrefixIndex``, the
+``KVImage`` wire codec) and an autoscaler (``ServeFleet``, ``Router``,
+``Autoscaler``, ``AutoscaleConfig``; ``model.serve_fleet(...)``).
 
     >>> eng = model.serve()                      # the slot arena
     >>> eng = model.serve(max_slots=8, paged=PagedConfig(block_size=32),
@@ -29,15 +33,26 @@ Each decode width's step is captured as a CUDA graph on the card
 speculative engine have one width; a paged step is keyed too by whether
 it takes vocabulary masks and returns log-probabilities);
 ``jit_cache_size()`` counts the captured steps.
+
+    >>> fleet = model.serve_fleet(
+    ...     replicas=3, roles=("prefill", "decode", "decode"),
+    ...     max_slots=8, paged=PagedConfig(block_size=32, num_blocks=256),
+    ...     prefix_cache=PrefixCacheConfig(block_size=32))
+    >>> h = fleet.submit(GenerationRequest(prompt_ids, max_new_tokens=32))
+    >>> fleet.run_until_complete()
 """
 
+from .autoscale import AutoscaleConfig, Autoscaler
 from .engine import InferenceEngine
 from .ep import EPConfig
+from .fleet import Router, ServeFleet
 from .fork import BranchHandle, ForkHandle
 from .jitpin import jit_cache_size
+from .kvimage import KVImage, KVImageError
 from .paged import PagedConfig, PagedKVArena
 from .pp import PPConfig
-from .prefix import PrefixCache, PrefixCacheConfig, SessionHandle
+from .prefix import (FleetPrefixIndex, PrefixCache, PrefixCacheConfig,
+                     SessionHandle)
 from .request import (DeadlineExceededError, EngineFailedError,
                       FleetDownError, GenerationRequest, GenerationResult,
                       LoadShedError, QueueFullError, RequestHandle,
@@ -56,4 +71,6 @@ __all__ = ["InferenceEngine", "PagedConfig", "PagedKVArena",
            "SessionHandle", "ForkHandle", "BranchHandle", "TokenAutomaton",
            "JsonSchemaAutomaton", "EngineSupervisor", "LoadShedError",
            "RestartBudgetExceededError", "FleetDownError", "TPConfig",
-           "EPConfig", "PPConfig"]
+           "EPConfig", "PPConfig", "Router", "ServeFleet", "Autoscaler",
+           "AutoscaleConfig", "KVImage", "KVImageError",
+           "FleetPrefixIndex"]

@@ -87,8 +87,11 @@
   the dense ``decode_step`` (slot arena: the per-row math of offline
   ``generate``), ``decode_step_paged`` (the ``paged_attn`` kernel,
   ``kernel="block"``) or the dense gather oracle (``kernel="gather"``),
-  and samples with noise keyed by (seed, position), so float32 streams
-  equal offline ``generate`` (at the same ``cache_dtype``; windowed
+  and samples with the request's threefry key chain (``ops/prng.py``:
+  ``split(PRNGKey(seed), 1)[0]`` at admission, one ``split`` a decode
+  step, ``split(key, 3)`` a speculative one, ``fold_in`` a fork; the
+  JAX engine's), so float32 streams equal offline ``generate`` and the
+  JAX engine's (at the same ``cache_dtype``; windowed
   models: its rolling cache) away from exact argmax ties.
 
 The device work goes through :class:`_LocalExec`, the seam that the JAX
@@ -165,8 +168,9 @@ from .. import graphs
 from ..models.gpt2_decode import (_check_sampling, _leaves, _logits,
                                   _norm_window, _quant_flag, _sample,
                                   check_decodable, chosen_logprob,
-                                  decode_step, fork_seed, kv_zeros, prefill,
+                                  decode_step, kv_zeros, prefill,
                                   prefill_chunk)
+from ..ops import prng
 from ..observe import monitor as _monitor
 from ..observe import requests as _reqs
 from ..observe import stepprof as _stepprof
@@ -175,8 +179,7 @@ from ..resilience import faults as _faults
 from . import jitpin
 from .fork import BranchHandle, ForkHandle
 from .paged import (DecodeInputs, PagedConfig, PagedKVArena, _embed,
-                    _paged_decode_kernel, _paged_decode_step, seeds,
-                    spec_step)
+                    _paged_decode_kernel, _paged_decode_step, spec_step)
 from .prefix import PrefixCache, PrefixCacheConfig, SessionHandle
 from .request import (DeadlineExceededError, EngineFailedError,
                       GenerationRequest, GenerationResult, LoadShedError,
@@ -589,13 +592,13 @@ class _Swapped:
     """A preempted request's host-side state: the byte copy of its KV
     lanes and every scrap of slot bookkeeping, so a resume continues the
     exact token stream the uninterrupted run would have produced (its
-    sampling noise is keyed by (seed, position)).  A swapped request has
+    sampling key rides the swap).  A swapped request has
     STARTED (its admission token streamed): an engine failure rejects it
     with ``started=True``."""
 
     __slots__ = ("handle", "request", "emitted", "remaining",
                  "first_token_time", "admit_time", "admitted_step", "pos",
-                 "tok", "temp", "seed", "image", "seq", "t_preempt",
+                 "tok", "temp", "key", "image", "seq", "t_preempt",
                  "j_lo", "draft", "group", "branch", "score", "automaton",
                  "astate")
 
@@ -616,6 +619,16 @@ class _Prefilling:
 
     __slots__ = ("handle", "request", "off", "last_off", "blocks", "nodes",
                  "t_admit", "admitted_step", "seq")
+
+
+class _PrefixJob:
+    """One shippable-prefix build (:meth:`InferenceEngine.
+    start_prefix_build`): the prompt, its ``n_goal`` full blocks, the
+    acquired cached ``nodes``, the chunk passes' row and next offset, and
+    the engine that owns them."""
+
+    __slots__ = ("tokens", "plen", "n_goal", "engine", "nodes", "hit",
+                 "off", "last_off", "ids", "kc_row", "vc_row")
 
 
 class InferenceEngine:
@@ -818,7 +831,9 @@ class InferenceEngine:
             self._dkc = kv_zeros(shape, ddt, self._quant, dev)
             self._dvc = kv_zeros(shape, ddt, self._quant, dev)
         self.capture = bool(capture)
-        self._inputs = DecodeInputs(self.max_slots, row_blocks, dev)
+        self._inputs = DecodeInputs(
+            self.max_slots, row_blocks, dev,
+            n_keys=1 if draft_model is None else self.spec_k + 2)
         self._steps = {}  # decode width -> graphs.Step
         self._graph_pool = None
         jitpin.track(self)
@@ -827,7 +842,9 @@ class InferenceEngine:
         self._toks = np.zeros(S, np.int64)
         self._pos = np.zeros(S, np.int64)
         self._temps = np.zeros(S, np.float32)
-        self._seeds = np.zeros(S, np.int64)
+        # each slot's threefry key (the JAX engine's ``_keys``), advanced
+        # on the host: a step stages the keys it samples with
+        self._keys = np.zeros((S, 2), np.uint32)
         self._handles = {}
         self._swapped = []
         self._swap_seq = itertools.count()
@@ -1293,6 +1310,26 @@ class InferenceEngine:
                 "structured_dead_end")
         return masks
 
+    def _step_keys(self, sel, live):
+        """The sampling keys of one step's lanes ``sel`` (slot or -1),
+        (w, n_keys, 2) ``uint32``, and each live slot's key advanced past
+        them, as the JAX engine's step advances ``_keys``: a plain step
+        splits the key (sample with the first half, carry the second); a
+        speculative one splits it in three (draft, verify, carry), the
+        draft key in ``spec_k`` (one a proposal step) and the verify key
+        in two (accept test, correction token)."""
+        pick = np.where(live, sel, 0)
+        if self.draft is None:
+            ks = prng.split(self._keys[pick])
+            step, carry = ks[:, :1], ks[:, 1]
+        else:
+            ks = prng.split(self._keys[pick], 3)
+            step = np.concatenate([prng.split(ks[:, 0], self.spec_k),
+                                   prng.split(ks[:, 1])], 1)
+            carry = ks[:, 2]
+        self._keys[pick[live]] = carry[live]
+        return step
+
     def _decode_once(self):
         if _faults._armed:
             # the chaos hook: a fault here is a raising decode step (the
@@ -1317,8 +1354,8 @@ class InferenceEngine:
         live = np.asarray([i >= 0 for i in sel])
         pick = np.where(live, sel, 0)
         self._inputs.stage(self._toks[pick], self._pos[pick], live,
-                           self._seeds[pick], np.where(live,
-                                                       self._temps[pick], 0),
+                           self._step_keys(sel, live),
+                           np.where(live, self._temps[pick], 0),
                            self._block_tables(sel))
         rows = None
         if masks:
@@ -1428,9 +1465,8 @@ class InferenceEngine:
         mask = inp["masks"] if masked else None
 
         def sample(logits):
-            toks = _sample(logits, inp["temps"], seeds(inp),
-                           inp["pos"].long() + 1, self._top_k, self._top_p,
-                           mask=mask)
+            toks = _sample(logits, inp["temps"], inp["keys"][:, 0],
+                           self._top_k, self._top_p, mask=mask)
             if with_lp:
                 return toks, chosen_logprob(logits, toks)
             return toks
@@ -1820,7 +1856,7 @@ class InferenceEngine:
         sw.pos = pos
         sw.tok = int(self._toks[idx])
         sw.temp = float(self._temps[idx])
-        sw.seed = int(self._seeds[idx])
+        sw.key = self._keys[idx].copy()
         sw.seq = next(self._swap_seq)
         sw.t_preempt = self._clock()
         # fork and grammar state ride the swap too: the resumed slot
@@ -1893,7 +1929,7 @@ class InferenceEngine:
             self._toks[idx] = sw.tok
             self._pos[idx] = sw.pos
             self._temps[idx] = sw.temp
-            self._seeds[idx] = sw.seed
+            self._keys[idx] = sw.key
             self._swapped.pop(0)
             _trace.event("serve/resume", cat="serve",
                          request=sw.request.request_id, slot=idx,
@@ -2195,7 +2231,12 @@ class InferenceEngine:
             mask0 = torch.as_tensor(
                 np.asarray(req.structured.mask(ast0), bool)[None],
                 device=logit.device)
-        tok0 = int(_sample(logit, [temp], [req.seed], [plen], self._top_k,
+        # the JAX engine's admission chain: split(PRNGKey(seed), 1)[0],
+        # split once, sample with the first half and carry the second; a
+        # greedy request's first token is the argmax, so nothing is drawn
+        ks = prng.split(prng.split(prng.PRNGKey(req.seed), 1)[0])
+        tok0 = int(_sample(logit, [temp], ks[:1] if temp > 0 else None,
+                           self._top_k,
                            self._top_p, mask=mask0)[0])
         t_first = self._clock()
         slot = _Slot(handle, req.max_new_tokens, now,
@@ -2212,7 +2253,7 @@ class InferenceEngine:
         self._toks[idx] = tok0
         self._pos[idx] = plen
         self._temps[idx] = temp
-        self._seeds[idx] = req.seed
+        self._keys[idx] = ks[1]
         self._emit(idx, slot, tok0, t_first)
 
     # -- fork (serve/fork.py) --------------------------------------------
@@ -2250,9 +2291,10 @@ class InferenceEngine:
         cached prefix blocks too, so those gain one as well), its cached
         prefix nodes are acquired again, and the host state (token,
         position, temperature, emitted tokens, score, grammar state) is
-        copied.  Both slots turn ``cow`` on.  The child samples with
-        ``fork_seed(parent seed, branch)`` (or ``seed``) and gets the
-        parent's remaining budget (or ``max_new``)."""
+        copied.  Both slots turn ``cow`` on.  The child's key is
+        ``fold_in(parent key, branch)`` (or a fresh chain from ``seed``),
+        as in the JAX engine, and it gets the parent's remaining budget
+        (or ``max_new``)."""
         arena, cache = self.paged_arena, self.prefix_cache
         parent = self._slots[parent_idx]
         preq = parent.handle.request
@@ -2282,8 +2324,9 @@ class InferenceEngine:
         self._toks[child_idx] = self._toks[parent_idx]
         self._pos[child_idx] = self._pos[parent_idx]
         self._temps[child_idx] = self._temps[parent_idx]
-        self._seeds[child_idx] = (fork_seed(self._seeds[parent_idx], branch)
-                                  if seed is None else int(seed))
+        self._keys[child_idx] = (
+            prng.fold_in(self._keys[parent_idx], branch) if seed is None
+            else prng.split(prng.PRNGKey(int(seed)), 1)[0])
         self._slots[child_idx] = child
         self._handles[child_rid] = child_handle
         kids = getattr(parent.handle, "_fork_children", None)
@@ -2315,7 +2358,7 @@ class InferenceEngine:
         promising branch, ``prune`` the losers).  Returns a
         :class:`~singa_tpu_torch.serve.fork.BranchHandle` for the new
         branch; the original streams on unchanged.  ``seed``: the new
-        branch's sampling seed (default ``fork_seed(parent seed,
+        branch's sampling seed (default: its key is ``fold_in(parent key,
         branch)``); ``max_new_tokens``: its remaining budget (default the
         parent's)."""
         self._check_open()
@@ -2421,3 +2464,191 @@ class InferenceEngine:
             f"{request_id}: not a live or swapped request; prune() cuts a "
             f"decoding branch (queued requests expire by deadline, finished "
             f"ones are already sealed)")
+
+    # -- KV shipping (serve/fleet.py's disaggregated prefill) -------------
+    # A prefill replica builds a prompt's full-block prefix in canonical
+    # chunk form (the bytes a chunked admission computes), exports it as a
+    # narrow host image, and a decode replica adopts the image's blocks
+    # into its own radix tree, so the request's admission there is a
+    # local warm hit.
+
+    def _require_ship_support(self):
+        self._check_open()
+        if self.paged_arena is None or self.prefix_cache is None:
+            raise RuntimeError(
+                "KV shipping needs paged= and prefix_cache= on every "
+                "replica: the ship format is the paged host image and "
+                "residency lives in the radix tree")
+
+    def start_prefix_build(self, prompt_ids):
+        """Begin building the shippable prefix of ``prompt_ids``: its
+        ``(plen - 1) // block_size`` full blocks (the last, partial block
+        is recomputed by the admitting engine, which samples from it).
+        Returns a :class:`_PrefixJob`, or None when nothing is shippable.
+        A prefix already in this engine's tree starts complete (``hit``);
+        the matched path is acquired until the job is exported or
+        abandoned."""
+        self._require_ship_support()
+        arena, cache = self.paged_arena, self.prefix_cache
+        B = arena.block_size
+        toks = np.asarray(prompt_ids, np.int32).reshape(-1)
+        plen = len(toks)
+        n_goal = (plen - 1) // B
+        if n_goal < 1:
+            return None
+        job = _PrefixJob()
+        job.tokens, job.plen, job.n_goal, job.engine = toks, plen, n_goal, \
+            self
+        nodes = cache.lookup(toks)[:n_goal]
+        cache.acquire(nodes)
+        job.nodes = nodes
+        job.hit = len(nodes) == n_goal
+        job.off = len(nodes) * B
+        job.last_off = (n_goal - 1) * B
+        job.ids = job.kc_row = job.vc_row = None
+        if job.hit:
+            return job
+        try:
+            # the row of the request's own chunked admission (its width
+            # too), so the shipped blocks are the bytes a cold chunked
+            # admission on the destination would compute
+            width = n_goal * B + B
+            ids = np.zeros(width, np.int64)
+            ids[:plen] = toks
+            job.ids = torch.as_tensor(ids, device=self._params["wte"].device)
+            job.kc_row, job.vc_row = cache.copy_into_row(
+                [n.block for n in nodes], width)
+        except Exception:
+            self.abandon_prefix_build(job)
+            raise
+        return job
+
+    def advance_prefix_build(self, job, max_tokens=None, rid=None):
+        """Spend up to ``max_tokens`` prefill tokens on the build's chunk
+        passes (None: finish it).  Returns True once the build is
+        complete.  A raising chunk fails the engine typed, as a raising
+        admission prefill inside ``step()`` does."""
+        self._require_ship_support()
+        if job.engine is not self:
+            raise RuntimeError(
+                "stale prefix build: the engine was rebuilt under it; "
+                "restart the build")
+        B = self.paged_arena.block_size
+        left = (job.last_off - job.off + B if max_tokens is None
+                else int(max_tokens))
+        quantum = (_stepprof.begin_quantum(self.stats.engine_label,
+                                           step=self.step_count)
+                   if _stepprof._active else False)
+        try:
+            while left >= B and job.off <= job.last_off:
+                if _faults._armed:
+                    _faults.check("serve.prefill_chunk")
+                off = job.off
+                self._x.chunk_row(self._params, job.ids, job.kc_row,
+                                  job.vc_row, off, B)
+                job.off += B
+                left -= B
+                if _reqs._active and rid is not None:
+                    _reqs._ledger.on_prefill_chunk(
+                        rid, engine=self.stats.engine_label,
+                        t=self._clock(), offset=off)
+        except Exception as e:
+            if quantum:
+                _stepprof.abort()
+            self.abandon_prefix_build(job)
+            raise self._fail(e) from e
+        if quantum:
+            _stepprof.end()
+        return job.off > job.last_off
+
+    def abandon_prefix_build(self, job):
+        """Release a build's acquired prefix (a ship's fallback, a
+        failover, a raising chunk).  Idempotent; a no-op for a job whose
+        engine was rebuilt (its tree went with it)."""
+        if job.nodes and self.prefix_cache is not None \
+                and job.engine is self:
+            try:
+                self.prefix_cache.release(job.nodes)
+            except RuntimeError:
+                pass
+        job.nodes = []
+
+    def export_prefix_image(self, job):
+        """The source half of a ship: donate the finished row's blocks
+        into this engine's tree (the next request for this prefix exports
+        without a recompute) and pack the narrow host image (the
+        ``serve.kv_ship`` fault site).  Under pool pressure the donation
+        is skipped (counted) and the image ships from the row.  Returns
+        ``(image, resident)``, ``resident`` whether this tree now holds
+        the prefix.  Releases the job's references in every case."""
+        self._require_ship_support()
+        if job.engine is not self:
+            raise RuntimeError(
+                "stale prefix build: the engine was rebuilt under it; "
+                "restart the build")
+        arena, cache = self.paged_arena, self.prefix_cache
+        n = job.n_goal
+        try:
+            if job.hit:
+                return arena.export_image([nd.block for nd in job.nodes],
+                                          n), True
+            k = len(job.nodes)
+            new = arena.alloc(n - k)
+            if new is None:
+                cache.on_donate_skipped(n - k)
+                return arena.export_row_image(job.kc_row, job.vc_row,
+                                              n), False
+            try:
+                arena.scatter_row(job.kc_row, job.vc_row,
+                                  {k + j: b for j, b in enumerate(new)})
+                blockmap = [nd.block for nd in job.nodes] + new
+                path = cache.adopt_blocks(job.tokens, blockmap, n)
+            except Exception:
+                arena.free(new)
+                raise
+            adopted = {nd.block for nd in path}
+            arena.free([b for b in new if b not in adopted])
+            return arena.export_image([nd.block for nd in path], n), True
+        finally:
+            self.abandon_prefix_build(job)
+
+    def admit_prefix_image(self, tokens, image):
+        """The destination half of a ship: validate the image (a typed
+        :class:`~singa_tpu_torch.serve.kvimage.KVImageError` before
+        anything scatters), land its lanes in this pool and adopt them
+        into the tree, so the next admission of ``tokens`` is a local
+        warm hit.  Returns the acquired node path (the caller releases
+        it once the shipped request resolves), or None when the pool has
+        no room for the missing blocks (a cold fallback)."""
+        self._require_ship_support()
+        arena, cache = self.paged_arena, self.prefix_cache
+        toks = np.asarray(tokens, np.int32).reshape(-1)
+        n = int(image.n_data)
+        existing = cache.lookup(toks)[:n]
+        k = len(existing)
+        if k == n:
+            image.validate(arena.block_size, arena.quant,
+                           pool_k=arena.pool_k)
+            cache.touch(existing)
+            cache.acquire(existing)
+            return existing
+        # pinned across the allocation: its eviction must not take the
+        # prefix being extended
+        cache.acquire(existing)
+        new = arena.alloc(n - k)
+        if new is None:
+            cache.release(existing)
+            return None
+        try:
+            arena.import_image(image, {k + j: b for j, b in enumerate(new)})
+            path = cache.adopt_blocks(
+                toks, [nd.block for nd in existing] + new, n)
+        except Exception:
+            arena.free(new)
+            cache.release(existing)
+            raise
+        adopted = {nd.block for nd in path}
+        arena.free([b for b in new if b not in adopted])
+        cache.release(existing)
+        cache.acquire(path)
+        return path

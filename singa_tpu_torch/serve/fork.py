@@ -54,10 +54,10 @@ class BranchHandle:
         return self._handle.result()
 
     def fork(self, *, seed=None, max_new_tokens=None):
-        """Split this live branch in two: the original keeps its seed,
-        the returned sibling samples with ``fork_seed(parent seed,
-        branch)`` (or ``seed``) and optionally its own remaining-token
-        budget.  Every block decoded so far is shared copy-on-write."""
+        """Split this live branch in two: the original keeps its key
+        chain, the returned sibling samples with ``fold_in(parent key,
+        branch)`` (or a fresh chain from ``seed``) and optionally its own
+        remaining-token budget.  Every block decoded so far is shared copy-on-write."""
         return self._engine.fork(self.request_id, seed=seed,
                                  max_new_tokens=max_new_tokens)
 

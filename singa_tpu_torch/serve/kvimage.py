@@ -16,12 +16,21 @@ Leaves are host (CPU) tensors, one ``(L, 1, H_kv, W, D)`` row per K/V,
 has no type for, byte for byte.  An int8 pool's image (``quant``) holds
 for each of K and V the pair (int8 values ``(L, 1, H_kv, W, D)``,
 float32 scales ``(L, 1, H_kv, W)``); dense and int8 images are refused
-by pools of the other kind.  The JAX package's wire codec (``to_bytes``
-/ ``from_bytes``, fleet KV shipping) is not ported.
+by pools of the other kind.
+
+The wire codec (:meth:`KVImage.to_bytes` / :meth:`KVImage.from_bytes`)
+frames an image for a fleet's KV ship (``serve/fleet.py``) in the JAX
+package's bytes: magic, version, quant and a pickled header that names
+each leaf's numpy dtype, the leaves' raw bytes, and a crc32 trailer.
+:meth:`KVImage.narrowed` cuts an image to the blocks a ship carries.
 """
 
 from __future__ import annotations
 
+import io
+import math
+import pickle
+import struct
 import zlib
 
 import torch
@@ -33,6 +42,24 @@ __all__ = ["KVIMAGE_VERSION", "KVImage", "KVImageError", "pack_image"]
 #: bump when the leaf layout or header schema changes; ``validate``
 #: refuses images from a different version rather than guessing
 KVIMAGE_VERSION = 1
+
+_WIRE_MAGIC = b"KVIM"
+_WIRE_HEAD = struct.Struct("!4sHBI")   # magic, version, quant, meta bytes
+_WIRE_CRC = struct.Struct("!I")
+#: torch dtype <-> the numpy dtype name the JAX codec writes
+_WIRE_DTYPES = {torch.float32: "float32", torch.bfloat16: "bfloat16",
+                torch.float16: "float16", torch.int8: "int8"}
+_FROM_WIRE = {v: k for k, v in _WIRE_DTYPES.items()}
+
+
+class _PlainUnpickler(pickle.Unpickler):
+    """Unpickles the wire frame's metadata, which holds only dicts,
+    tuples, strs and ints: a frame that names a global (a class or a
+    function to call) is refused, so a peer's bytes run no code."""
+
+    def find_class(self, module, name):
+        raise pickle.UnpicklingError(
+            f"KV image wire metadata names the global {module}.{name}")
 
 
 class KVImageError(ValueError):
@@ -158,6 +185,125 @@ class KVImage:
                         f"incompatible with pool leaf {tuple(pool.shape)}/"
                         f"{pool.dtype} (layer/head/head-dim/dtype must "
                         f"match)")
+
+
+    def narrowed(self, n_data=None) -> "KVImage":
+        """A new image of the first ``n_data`` blocks' lanes (default
+        ``self.n_data``): the form a ship sends, whose bytes track the
+        shipped prefix and not the row's width."""
+        n = self.n_data if n_data is None else int(n_data)
+        if n > self.n_data:
+            raise KVImageError(
+                f"narrowed({n}) beyond the image's n_data ({self.n_data})")
+        w = max(n, 1) * self.block_size
+
+        def cut(tree):
+            if isinstance(tree, tuple):
+                return tuple(cut(t) for t in tree)
+            return tree[:, :, :, :w].contiguous()
+
+        return pack_image(cut(self.kc), cut(self.vc), self.block_size, n,
+                          self.quant)
+
+    def to_bytes(self) -> bytes:
+        """The image as one wire frame, byte for byte the JAX codec's:
+        the fixed head, the pickled metadata (block size, blocks, the
+        per-leaf (shape, numpy dtype name) header, the K leaf count), the
+        leaves' raw bytes in header order and the crc32 of those bytes.
+        Decode with :meth:`from_bytes`."""
+        leaves = _leaves(self.kc) + _leaves(self.vc)
+        # a fresh name string a leaf, as str(dtype) makes in the JAX
+        # codec: pickle writes a shared object once, a copy each time
+        header = tuple((tuple(int(d) for d in a.shape),
+                        "".join(_WIRE_DTYPES[a.dtype])) for a in leaves)
+        meta = pickle.dumps(
+            {"block_size": self.block_size, "n_data": self.n_data,
+             "header": header, "k_leaves": len(_leaves(self.kc))},
+            protocol=pickle.HIGHEST_PROTOCOL)
+        crc = 0
+        chunks = [_WIRE_HEAD.pack(_WIRE_MAGIC, self.version,
+                                  int(self.quant), len(meta)), meta]
+        for a in leaves:
+            raw = a.contiguous().view(-1).view(torch.uint8).numpy()
+            crc = zlib.crc32(raw, crc)
+            chunks.append(raw.tobytes())
+        chunks.append(_WIRE_CRC.pack(crc & 0xFFFFFFFF))
+        return b"".join(chunks)
+
+    @classmethod
+    def from_bytes(cls, buf) -> "KVImage":
+        """Decode a :meth:`to_bytes` frame (the JAX codec's too) into an
+        image of CPU tensors.  A short buffer, bad magic, a version
+        skew, trailing bytes or a crc32 that disagrees with the trailer
+        raise :class:`KVImageError`, as does metadata that names a
+        global (it is unpickled with none); the image still goes
+        through :meth:`validate` at the pool that takes it."""
+        buf = bytes(buf)
+        fixed = _WIRE_HEAD.size + _WIRE_CRC.size
+        if len(buf) < fixed:
+            raise KVImageError(
+                f"KV image wire frame truncated: {len(buf)} bytes is "
+                f"shorter than the fixed framing ({fixed})")
+        magic, version, quant, meta_len = _WIRE_HEAD.unpack_from(buf, 0)
+        if magic != _WIRE_MAGIC:
+            raise KVImageError(
+                f"KV image wire frame has bad magic {magic!r} (expected "
+                f"{_WIRE_MAGIC!r}): not a KV image")
+        if version != KVIMAGE_VERSION:
+            raise KVImageError(
+                f"KV image wire version {version} != supported "
+                f"{KVIMAGE_VERSION}: refuse rather than guess at the "
+                f"leaf layout")
+        off = _WIRE_HEAD.size
+        if len(buf) < off + meta_len + _WIRE_CRC.size:
+            raise KVImageError(
+                f"KV image wire frame truncated inside metadata "
+                f"({len(buf)} bytes, metadata needs "
+                f"{off + meta_len + _WIRE_CRC.size})")
+        try:
+            meta = _PlainUnpickler(
+                io.BytesIO(buf[off:off + meta_len])).load()
+            header = tuple((tuple(sh), str(dt)) for sh, dt in meta["header"])
+            k_leaves = int(meta["k_leaves"])
+            block_size, n_data = meta["block_size"], meta["n_data"]
+            dtypes = [_FROM_WIRE[dt] for _, dt in header]
+        except Exception as e:
+            raise KVImageError(
+                f"KV image wire metadata undecodable ({e!r})") from e
+        off += meta_len
+        leaves, crc = [], 0
+        for (shape, _), dt in zip(header, dtypes):
+            n = math.prod(shape) * torch.empty((), dtype=dt).element_size()
+            if len(buf) < off + n + _WIRE_CRC.size:
+                raise KVImageError(
+                    f"KV image wire frame truncated mid-leaf: leaf "
+                    f"{len(leaves)} needs {n} bytes, "
+                    f"{len(buf) - off - _WIRE_CRC.size} remain")
+            raw = buf[off:off + n]
+            crc = zlib.crc32(raw, crc)
+            leaves.append(torch.frombuffer(bytearray(raw), dtype=torch.uint8)
+                          .view(dt).reshape(shape))
+            off += n
+        if len(buf) != off + _WIRE_CRC.size:
+            raise KVImageError(
+                f"KV image wire frame has {len(buf) - off - _WIRE_CRC.size}"
+                f" bytes beyond its header's leaves")
+        (want,) = _WIRE_CRC.unpack_from(buf, off)
+        if crc & 0xFFFFFFFF != want:
+            raise KVImageError(
+                f"KV image wire payload corrupted: crc32 "
+                f"{crc & 0xFFFFFFFF:#010x} != trailer {want:#010x}")
+        if not 0 < k_leaves < len(leaves) or k_leaves * 2 != len(leaves):
+            raise KVImageError(
+                f"KV image wire metadata claims {k_leaves} K leaves of "
+                f"{len(leaves)}: K and V must split evenly")
+
+        def tree(ls):
+            return ls[0] if len(ls) == 1 else tuple(ls)
+
+        kc, vc = tree(leaves[:k_leaves]), tree(leaves[k_leaves:])
+        return cls(version, block_size, n_data, bool(quant),
+                   _signature(kc, vc), kc, vc, want)
 
 
 def pack_image(kc_host, vc_host, block_size, n_data, quant=False) -> KVImage:

@@ -35,9 +35,9 @@
 * **preemption / swap**: a request's blocks can leave the pool for host
   memory mid-decode (``swap_out``: one gather and one copy to the host,
   a :class:`~singa_tpu_torch.serve.kvimage.KVImage`) and come back later
-  (``swap_in``: one scatter).  The copy is byte-exact and sampling noise
-  is keyed by (seed, position), so a resumed request's remaining tokens
-  are the uninterrupted run's.
+  (``swap_in``: one scatter).  The copy is byte-exact and the request's
+  sampling key rides along, so a resumed request's remaining tokens are
+  the uninterrupted run's.
 
 With a prefix cache (``serve/prefix.py``) the radix tree owns blocks of
 this pool too: a warm slot's table points at them (``share`` adds the
@@ -55,7 +55,8 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from ..models.gpt2_decode import (_filter_logits, _gumbel, _leaves, _logits,
+from ..ops import prng
+from ..models.gpt2_decode import (_filter_logits, _leaves, _logits,
                                   chunk_step_paged, decode_step,
                                   decode_step_paged, kv_zeros, prefill_chunk,
                                   spec_verify)
@@ -63,7 +64,7 @@ from ..observe.registry import registry as _default_registry
 from ..resilience import faults as _faults
 from .kvimage import KVImage, pack_image
 
-__all__ = ["PagedConfig", "PagedKVArena", "DecodeInputs", "seeds",
+__all__ = ["PagedConfig", "PagedKVArena", "DecodeInputs",
            "spec_step"]
 
 
@@ -122,12 +123,14 @@ class PagedConfig:
 
 class DecodeInputs:
     """The decode step's inputs as persistent device tensors, for up to
-    ``slots`` lanes: tokens, positions, live flags, sampling seeds (low
-    and high 32 bits), temperatures (float32 bits) and block tables
-    (``slots`` x ``row_blocks``), all int32 in one device buffer.  The
-    engine writes a step's values into a host staging buffer of the same
-    layout and :meth:`load` moves it to the device in one copy.  A decode
-    width ``w`` reads the first ``w`` lanes of each (:meth:`view`), at
+    ``slots`` lanes: tokens, positions, live flags, temperatures (float32
+    bits), ``n_keys`` threefry sampling keys a lane (two 32-bit words
+    each: a plain step's one key, a speculative step's ``spec_k`` draft
+    keys and its accept and correction keys) and block tables (``slots``
+    x ``row_blocks``), all int32 in one device buffer.  The engine writes
+    a step's values into a host staging buffer of the same layout and
+    :meth:`load` moves it to the device in one copy.  A decode width
+    ``w`` reads the first ``w`` lanes of each (:meth:`view`), at
     addresses that never change, so a captured step reads each step's
     inputs.
 
@@ -135,11 +138,11 @@ class DecodeInputs:
     vocabulary masks, made at its first use (:meth:`stage_masks`) and
     copied only for a step that a structured request takes part in."""
 
-    FIELDS = ("toks", "pos", "live", "seed_lo", "seed_hi", "temps")
+    FIELDS = ("toks", "pos", "live", "temps")
 
-    def __init__(self, slots, row_blocks, device):
-        self.slots, self.row_blocks = slots, row_blocks
-        n = len(self.FIELDS) * slots + slots * row_blocks
+    def __init__(self, slots, row_blocks, device, n_keys=1):
+        self.slots, self.row_blocks, self.n_keys = slots, row_blocks, n_keys
+        n = (len(self.FIELDS) + 2 * n_keys + row_blocks) * slots
         self.host = torch.zeros(n, dtype=torch.int32,
                                 pin_memory=device.type == "cuda")
         self.buf = torch.zeros(n, dtype=torch.int32, device=device)
@@ -162,17 +165,19 @@ class DecodeInputs:
         self._masks_host.numpy()[:w] = rows
         self.masks.copy_(self._masks_host, non_blocking=True)
 
-    def stage(self, toks, pos, live, seeds, temps, tables):
-        """Write one step's host values (width-``w`` numpy arrays and a
-        (w, row_blocks) table) into the staging buffer."""
+    def stage(self, toks, pos, live, keys, temps, tables):
+        """Write one step's host values (width-``w`` numpy arrays, its
+        (w, n_keys, 2) ``uint32`` keys and a (w, row_blocks) table) into
+        the staging buffer."""
         S, w = self.slots, len(toks)
-        seeds = np.asarray(seeds, np.int64)
-        cols = (toks, pos, live, seeds & 0xFFFFFFFF, seeds >> 32,
-                np.asarray(temps, np.float32).view(np.int32))
+        cols = (toks, pos, live, np.asarray(temps, np.float32).view(np.int32))
         for i, c in enumerate(cols):
-            # the low 32 bits of each value (a seed half wraps to int32)
             self._h[i * S:i * S + w] = np.asarray(c).astype(np.int32)
-        t0 = len(self.FIELDS) * S
+        k0 = len(self.FIELDS) * S
+        nk = 2 * self.n_keys
+        self._h[k0:k0 + w * nk] = np.asarray(keys, np.uint32).reshape(
+            -1).view(np.int32)
+        t0 = k0 + nk * S
         self._h[t0:t0 + w * self.row_blocks] = tables.reshape(-1)
 
     def load(self):
@@ -181,24 +186,21 @@ class DecodeInputs:
 
     def view(self, w):
         """``dict`` of views of the first ``w`` lanes in the device
-        buffer: ``toks``, ``pos``, ``live``, ``seed_lo``, ``seed_hi``
-        (int32), ``temps`` (float32), ``tables`` (w, row_blocks) int32.
-        A captured step reads through them (:func:`seeds` combines the
-        seed halves inside the step)."""
+        buffer: ``toks``, ``pos``, ``live`` (int32), ``temps`` (float32),
+        ``keys`` (w, n_keys, 2) int32 (the words of ``uint32`` keys),
+        ``tables`` (w, row_blocks) int32.  A captured step reads through
+        them."""
         S, d = self.slots, self.buf
         f = {n: d[i * S:i * S + w] for i, n in enumerate(self.FIELDS)}
         f["temps"] = f["temps"].view(torch.float32)
-        t0 = len(self.FIELDS) * S
+        k0 = len(self.FIELDS) * S
+        nk = 2 * self.n_keys
+        f["keys"] = d[k0:k0 + w * nk].view(w, self.n_keys, 2)
+        t0 = k0 + nk * S
         f["tables"] = d[t0:t0 + w * self.row_blocks].view(w, self.row_blocks)
         if self.masks is not None:
             f["masks"] = self.masks[:w]
         return f
-
-
-def seeds(inp):
-    """(w,) int64 sampling seeds from the seed halves of ``inp``."""
-    return (inp["seed_hi"].long() << 32) | (inp["seed_lo"].long()
-                                            & 0xFFFFFFFF)
 
 
 def _embed(params, toks, pos):
@@ -230,15 +232,16 @@ def _paged_decode_kernel(params, pool_k, pool_v, inp, block, n_head, eps,
                              block=block, window=window)
 
 
-def _draft_propose(d_params, dkc, dvc, toks, pos, temps, sd, spec_k,
+def _draft_propose(d_params, dkc, dvc, toks, pos, temps, dkeys, spec_k,
                    d_statics, top_k, top_p):
     """The draft's half of a speculative step for every lane: ``spec_k``
     decode steps of the draft on its slot-shaped arenas (L_d, S, H_d,
     max_len, D_d) from the last token at ``pos``, the last one only as
     an input, so a fully accepted chunk leaves the draft's cache one row
     ahead (the JAX ``_draft_propose``).  A greedy lane proposes the
-    draft's argmax, a sampled one draws from its filtered distribution
-    with noise keyed by (seed, the proposal's position, draw 1).  Returns
+    draft's argmax, a sampled one draws ``categorical(dkeys[:, i],
+    filtered logits)`` at proposal step i (``dkeys`` (S, spec_k, 2): the
+    JAX ``split(k_draft, spec_k)``).  Returns
     (props (S, spec_k - 1) int64, their filtered distributions (S,
     spec_k - 1, V))."""
     n_head, eps = d_statics
@@ -252,7 +255,7 @@ def _draft_propose(d_params, dkc, dvc, toks, pos, temps, sd, spec_k,
         if i == spec_k - 1:
             break
         filt = _filter_logits(lg, t, top_p, top_k)
-        drawn = (filt + _gumbel(sd, p_i + 1, lg.shape[-1], 1)).argmax(-1)
+        drawn = prng.categorical_t(dkeys[:, i], filt)
         tok = torch.where(hot, drawn, lg.float().argmax(-1))
         props.append(tok)
         qs.append(torch.softmax(filt, -1))
@@ -281,9 +284,10 @@ def spec_step(t_params, d_params, kc, vc, dkc, dvc, inp, spec_k, statics,
     toks = torch.where(live, inp["toks"], 0).long()
     pos = torch.where(live, inp["pos"], 0)
     temps = torch.where(live, inp["temps"], torch.zeros_like(inp["temps"]))
-    sd = seeds(inp)
+    keys = inp["keys"]              # (S, spec_k + 2, 2): draft, acc, fix
     props, q = _draft_propose(d_params, dkc, dvc, toks, pos.long(), temps,
-                              sd, spec_k, d_statics, top_k, top_p)
+                              keys[:, :spec_k], spec_k, d_statics, top_k,
+                              top_p)
     chunk = torch.cat([toks[:, None], props], 1)                # (S, K)
     qpos = pos.long()[:, None] + torch.arange(spec_k, device=pos.device)
     x = t_params["wte"][chunk] + t_params["wpe"][qpos]
@@ -306,8 +310,8 @@ def spec_step(t_params, d_params, kc, vc, dkc, dvc, inp, spec_k, statics,
     else:
         logits = chunk_step_paged(t_params, x, kc, vc, inp["tables"], pos,
                                   n_head, eps, block=block, window=window)
-    out, a_draft = spec_verify(logits, q, props, temps, sd, pos, top_k,
-                               top_p)
+    out, a_draft = spec_verify(logits, q, props, temps, keys[:, spec_k],
+                               keys[:, spec_k + 1], top_k, top_p)
     return torch.cat([out, a_draft[:, None]], 1)
 
 
@@ -563,6 +567,55 @@ class PagedKVArena:
         self._c_swap_in.inc()
         self.scatter_row(dev_row(image.kc), dev_row(image.vc),
                          dict(enumerate(blocks[:image.n_data])))
+
+    # -- ship images (serve/fleet.py's KV ships) ---------------------------
+
+    def _ship_image(self, kc_row, vc_row, n_data) -> KVImage:
+        """Rows cut to their first ``n_data`` blocks' lanes on the device
+        and packed once on the host (a ship's bytes track its prefix)."""
+        if _faults._armed:
+            _faults.check("serve.kv_ship")
+        w = max(n_data, 1) * self.block_size
+
+        def host(c):
+            return _map_leaves(lambda t: t[:, :, :, :w].contiguous().cpu(),
+                               c)
+
+        return pack_image(host(kc_row), host(vc_row),
+                          block_size=self.block_size, n_data=n_data,
+                          quant=self.quant)
+
+    def export_image(self, blocks, n_data) -> KVImage:
+        """``blocks``' first ``n_data`` blocks as a narrow host image
+        (``n_data * block_size`` lanes: a ship's bytes track the shipped
+        prefix): the source half of a KV ship.  Packed here, not by
+        :meth:`swap_out`, whose counter means preemption.  The
+        ``serve.kv_ship`` fault site."""
+        return self._ship_image(*self.gather_row(list(blocks), n_used=n_data),
+                                n_data)
+
+    def export_row_image(self, kc_row, vc_row, n_data) -> KVImage:
+        """A narrow ship image straight from a device cache row (a
+        prefill specialist whose donation the pool could not take: the
+        row is the only copy).  Same fault site and format as
+        :meth:`export_image`."""
+        return self._ship_image(kc_row, vc_row, n_data)
+
+    def import_image(self, image, lanes):
+        """Scatter a ship image's lanes into pool blocks (``lanes``: lane
+        -> block; lanes below a local hit are absent and do not move).
+        Validated first, so a malformed image is a typed
+        :class:`~singa_tpu_torch.serve.kvimage.KVImageError`; then the
+        ``serve.kv_ship`` fault site of the destination half."""
+        image.validate(self.block_size, self.quant, pool_k=self.pool_k)
+        if _faults._armed:
+            _faults.check("serve.kv_ship")
+        dev = _leaves(self.pool_k)[0].device
+
+        def dev_row(c):
+            return tuple(t.to(dev) for t in c) if self.quant else c.to(dev)
+
+        self.scatter_row(dev_row(image.kc), dev_row(image.vc), dict(lanes))
 
     def on_preempt(self):
         self._c_preempt.inc()

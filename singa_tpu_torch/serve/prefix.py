@@ -59,7 +59,8 @@ from ..observe.registry import registry as _default_registry
 from ..resilience import faults as _faults
 from .paged import _rows
 
-__all__ = ["PrefixCacheConfig", "PrefixCache", "SessionHandle"]
+__all__ = ["PrefixCacheConfig", "PrefixCache", "SessionHandle",
+           "FleetPrefixIndex"]
 
 
 @dataclass(frozen=True)
@@ -160,6 +161,154 @@ class SessionHandle:
         if self._cache is not None and self._nodes:
             self._cache.release(self._nodes)
         self._nodes = []
+
+
+class _IndexNode:
+    """One fleet-index block: children keyed by token tuple, the set
+    of replica indices whose trees were seen holding this block, and
+    a logical recency tick (the capacity bound's eviction order)."""
+
+    __slots__ = ("children", "replicas", "tick")
+
+    def __init__(self, tick=0):
+        self.children = {}
+        self.replicas = set()
+        self.tick = tick
+
+
+class FleetPrefixIndex:
+    """FLEET-level residency index over the replicas' radix trees (the
+    disaggregation round): one host-side trie at block granularity
+    mapping token-block paths to the set of replica indices whose
+    prefix caches hold them — the structure that makes the prefix
+    cache a fleet resource instead of N private copies.
+
+    The index is a HINT, not ground truth: per-replica LRU eviction
+    never notifies the fleet, so every consumer verifies a candidate
+    against the source replica's LIVE tree (``PrefixCache.lookup``)
+    before acting on it — a stale entry degrades to a cold prefill or
+    a fresh ship, never to an error.  Registration happens at the
+    fleet's observation points (a prefill specialist's donation, a
+    ship landing on a decode replica); ``drop_replica`` clears a
+    failed-over or revived replica wholesale (its rebuilt tree starts
+    empty), ``unregister`` prunes a hint a failed verify just proved
+    stale, and ``max_blocks`` bounds the trie (least-recently-touched
+    root subtree evicted first — the host-memory discipline every
+    bounded store in the codebase keeps)."""
+
+    def __init__(self, block_size, max_blocks=4096):
+        if block_size < 1:
+            raise ValueError(
+                f"block_size must be >= 1, got {block_size}")
+        if max_blocks < 1:
+            raise ValueError(
+                f"max_blocks must be >= 1, got {max_blocks}")
+        self.block_size = int(block_size)
+        self.max_blocks = int(max_blocks)
+        self._count = 0
+        self._ticks = itertools.count(1)
+        self._root = _IndexNode()
+
+    def _keys(self, tokens, n_blocks):
+        B = self.block_size
+        toks = np.asarray(tokens, np.int32).reshape(-1)
+        n = min(int(n_blocks), len(toks) // B)
+        return [tuple(int(t) for t in toks[j * B:(j + 1) * B])
+                for j in range(n)]
+
+    def register(self, tokens, n_blocks, replica):
+        """Record that ``replica`` holds the first ``n_blocks`` blocks
+        of ``tokens`` (refreshes recency; may evict the stalest root
+        subtree to stay within ``max_blocks``)."""
+        tick = next(self._ticks)
+        node = self._root
+        for key in self._keys(tokens, n_blocks):
+            child = node.children.get(key)
+            if child is None:
+                child = _IndexNode(tick)
+                node.children[key] = child
+                self._count += 1
+            child.replicas.add(int(replica))
+            child.tick = tick
+            node = child
+        self._prune()
+
+    def _subtree_size(self, node):
+        return 1 + sum(self._subtree_size(c)
+                       for c in node.children.values())
+
+    def _prune(self):
+        """Hold the trie at ``max_blocks`` nodes: evict whole root
+        subtrees, least-recently-touched first (the just-registered
+        path carries the max tick, so it is never its own victim).
+        Unbounded growth is the alternative — hints are only ever
+        removed by failover otherwise, and a long-running fleet
+        serving unique prompts would leak host memory forever."""
+        while self._count > self.max_blocks and self._root.children:
+            key = min(self._root.children,
+                      key=lambda k: self._root.children[k].tick)
+            victim = self._root.children.pop(key)
+            self._count -= self._subtree_size(victim)
+
+    def unregister(self, tokens, n_blocks, replica):
+        """Drop ``replica`` from the first ``n_blocks`` blocks'
+        residency sets (a verify against its live tree just failed —
+        the hint is stale) and prune nodes nobody holds."""
+        replica = int(replica)
+        path = []
+        node = self._root
+        for key in self._keys(tokens, n_blocks):
+            child = node.children.get(key)
+            if child is None:
+                break
+            child.replicas.discard(replica)
+            path.append((node, key, child))
+            node = child
+        for parent, key, child in reversed(path):
+            if not child.replicas and not child.children:
+                del parent.children[key]
+                self._count -= 1
+
+    def holders(self, tokens, n_blocks) -> list:
+        """Replica indices whose registered residency covers ALL of
+        the first ``n_blocks`` blocks, ascending (deterministic) —
+        the targeted-ship source / local-warm routing candidates.
+        Empty when nothing covers the whole span."""
+        keys = self._keys(tokens, n_blocks)
+        if len(keys) < n_blocks or not keys:
+            return []
+        node, held = self._root, None
+        for key in keys:
+            node = node.children.get(key)
+            if node is None:
+                return []
+            held = (set(node.replicas) if held is None
+                    else held & node.replicas)
+            if not held:
+                return []
+        return sorted(held)
+
+    def drop_replica(self, replica):
+        """Forget every residency record for ``replica`` (failover or
+        revive: the rebuilt tree is empty) and prune nodes no replica
+        holds."""
+        replica = int(replica)
+
+        def sub(node):
+            node.replicas.discard(replica)
+            dead = [k for k, c in node.children.items()
+                    if not sub(c)]
+            for k in dead:
+                del node.children[k]
+            return bool(node.replicas or node.children)
+
+        sub(self._root)
+        self._count = self._subtree_size(self._root) - 1
+
+    def snapshot(self) -> dict:
+        return {"block_size": self.block_size,
+                "max_blocks": self.max_blocks,
+                "indexed_blocks": self._count}
 
 
 class PrefixCache:
@@ -272,6 +421,11 @@ class PrefixCache:
                 n.refs = 0
                 raise RuntimeError(f"prefix-cache refcount underflow "
                                    f"(double release of block {n.block})")
+
+    def on_donate_skipped(self, n):
+        """Count ``n`` blocks a ship's export could not cache under pool
+        pressure."""
+        self._c_donate_skipped.inc(int(n))
 
     def on_admit(self, hit_blocks, prompt_len, request_id=None):
         """Metrics of one admission: ``hit_blocks`` cached blocks used

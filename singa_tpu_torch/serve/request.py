@@ -78,10 +78,11 @@ class GenerationRequest:
     """One generation job.
 
     ``prompt_ids``: 1-D int token ids.  ``temperature <= 0`` is greedy
-    decoding; otherwise ``seed`` keys the request's sampling noise, which
-    depends on the seed and the position of the sampled token only (not
-    on the slot or the batch), so the engine's streams equal offline
-    ``generate`` at the same seed.  ``deadline`` is an absolute time on
+    decoding; otherwise ``seed`` keys the request's sampling noise: its
+    threefry key ``split(PRNGKey(seed), 1)[0]``, split once a step and
+    carried through preemption and swap, which depends on nothing of the
+    slot or the batch, so the engine's streams equal offline ``generate``
+    and the JAX engine's at the same seed.  ``deadline`` is an absolute time on
     the engine's clock; a request still queued past it is rejected.
     ``on_token(request, token)`` streams each emitted token.
     ``priority`` orders admission under ``scheduler="priority"`` (higher
@@ -101,8 +102,8 @@ class GenerationRequest:
     admits the prompt once and decodes n branches that share every
     prompt block of the paged pool copy-on-first-write; ``submit``
     returns a ``ForkHandle``.  Branch 0 is the exact stream ``n = 1``
-    would produce, branch k > 0 samples with its own seed
-    (``gpt2_decode.fork_seed``).  Paged engines only; not with
+    would produce, branch k > 0 samples with the key ``fold_in(parent
+    key, k)``, as in the JAX engine.  Paged engines only; not with
     ``pin_session`` (a session continues one stream), and
     ``max_new_tokens >= 2`` (the branches share the first token).
     ``structured``: a token automaton (``serve/structured.py``:

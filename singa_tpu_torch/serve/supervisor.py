@@ -321,6 +321,104 @@ class EngineSupervisor:
     # the build dead by returning None, so the fleet restarts it from
     # scratch (nothing streamed: a replayed build is byte-identical).
 
+    def _ship_guard(self):
+        if self._dead:
+            raise RestartBudgetExceededError(
+                f"supervisor is dead: restart budget "
+                f"({self.restart_budget}) exhausted")
+        if self.engine._failed:
+            self._recover()
+
+    def start_prefix_build(self, prompt_ids):
+        self._ship_guard()
+        return self.engine.start_prefix_build(prompt_ids)
+
+    def advance_prefix_build(self, job, max_tokens=None, rid=None):
+        """True when complete, False when budget ran out first, None
+        when the engine died mid-chunk and was rebuilt (the job is
+        invalid — restart the build).  Raises
+        :class:`RestartBudgetExceededError` once the budget is
+        spent."""
+        self._ship_guard()
+        try:
+            return self.engine.advance_prefix_build(
+                job, max_tokens, rid=rid)
+        except EngineFailedError:
+            self._recover()
+            self._sync()
+            return None
+
+    def export_prefix_image(self, job):
+        self._ship_guard()
+        return self.engine.export_prefix_image(job)
+
+    def admit_prefix_image(self, tokens, image):
+        self._ship_guard()
+        return self.engine.admit_prefix_image(tokens, image)
+
+    def abandon_prefix_build(self, job):
+        if not self.engine._closed:
+            self.engine.abandon_prefix_build(job)
+
+    def abandon(self, reason="fleet failover"):
+        """Fleet failover entry point: mark this supervisor dead WITHOUT
+        driving the (possibly wedged) engine, and reject every
+        outstanding handle typed — ``started=True`` for requests
+        occupying a slot (tokens may already have streamed),
+        ``started=False`` for queued/admitting ones (safe for the
+        fleet to requeue on a sibling — it re-derives the requeue set
+        from the rejected handles' ``started`` flags, so there is ONE
+        mechanism deciding re-runnability, not two).  Idempotent: a
+        supervisor that already died (budget exhausted) is a no-op —
+        its handles are already rejected typed with the same started
+        semantics, so the fleet's requeue scan works identically
+        either way."""
+        if self._dead:
+            return
+        self._dead = True
+        started_ids = self.engine.live_request_ids
+        step = self.engine.step_count
+        t_ab = self._clock()
+        n_requeueable = 0
+        for rid in list(self._order):
+            inner = self._inner.pop(rid, None)
+            outer = self._outer.pop(rid, None)
+            if outer is None or outer.done():
+                continue
+            if inner is not None and inner.done():
+                # resolved in the engine but not yet synced: propagate
+                # the real outcome, don't overwrite it with an abandon
+                if inner._error is not None:
+                    outer._reject(inner._error)
+                else:
+                    outer._finish(inner._result)
+                continue
+            started = rid in started_ids
+            _trace.event("serve/request_rejected", cat="serve",
+                         request=rid, reason="abandoned",
+                         started=started)
+            if _reqs._active:
+                # the engine never drove this rejection (abandon does
+                # not touch a possibly-wedged engine), so the ledger
+                # seal happens here; started=False entries reopen when
+                # the fleet requeues them on a sibling
+                _reqs._ledger.on_reject(rid, t=t_ab,
+                                        reason=f"abandoned:{reason}",
+                                        started=started)
+            outer._reject(EngineFailedError(
+                f"{rid}: supervisor abandoned at step {step} ({reason})",
+                request_id=rid, started=started, engine_step=step))
+            if not started:
+                n_requeueable += 1
+        self._order = []
+        self._inner.clear()
+        self._outer.clear()
+        self._log.warning(
+            "supervisor abandoned (%s): %d never-started requests "
+            "rejected requeue-safe", reason, n_requeueable)
+        _trace.event("serve/supervisor_abandon", cat="serve",
+                     reason=str(reason), requeue=n_requeueable)
+
     def close(self, force=False):
         if not self.engine._closed:
             self.engine.close(force=force)

@@ -14,9 +14,9 @@ cached + live_referenced``) after every step.
   greedy structured streams (``n = 1`` and ``n = 2``) token-identical,
   branch scores within atol 1e-5 (the summed log-probabilities of the
   chosen tokens under the float32 softmax), and every structured output
-  parses with ``json.loads`` and matches the schema.  Sampled streams
-  compare only within the port (its noise is its hash of seed and
-  position, ROADMAP "Divergences by design").
+  parses with ``json.loads`` and matches the schema.  Sampled fork
+  branches (keyed ``fold_in``) are held against the JAX engine in
+  ``tests/test_torch_sampled_parity.py``.
 * Within the port, as the JAX tests pin them: branch 0 equals ``n = 1``
   (greedy and seeded; GQA; int8), shared prompt blocks accounted once,
   copy-on-write isolation mid-stream, ``prune`` freeing private blocks
@@ -525,7 +525,7 @@ def test_all_true_masks_leave_streams_bitwise(model):
     request the stream of an engine without it."""
     logits = torch.randn(6, 256, generator=torch.Generator().manual_seed(0))
     args = (torch.tensor([0.0, 0.7, 1.0, 0.0, 1.3, 0.5]),
-            torch.arange(6) + 100, torch.arange(6) + 7)
+            np.stack([[0, 100 + i] for i in range(6)]).astype(np.uint32))
     ones = torch.ones(6, 256, dtype=torch.bool)
     for kw in ({}, dict(top_k=20, top_p=0.9)):
         assert torch.equal(gd._sample(logits, *args, mask=ones, **kw),

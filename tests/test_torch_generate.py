@@ -118,8 +118,9 @@ def test_greedy_applies_the_penalty_first(penalty):
     f = dict(rep=penalty)
     want = [_jax_sample(lg, jax.random.PRNGKey(0), m, 1.0, f, greedy=True)
             for lg, m in zip(logits, masks)]
-    got = gd._sample(torch.from_numpy(logits), np.zeros(8), np.zeros(8),
-                     np.zeros(8), rep_mask=torch.from_numpy(masks),
+    got = gd._sample(torch.from_numpy(logits), np.zeros(8),
+                     np.zeros((8, 2), np.uint32),
+                     rep_mask=torch.from_numpy(masks),
                      rep_penalty=penalty)
     assert got.tolist() == want
     assert got.tolist() != logits.argmax(-1).tolist()

@@ -631,20 +631,24 @@ def test_census_is_flat_after_warm_up(tiny):
 
 
 def test_decode_inputs_round_trip_through_the_staging_buffer():
-    """One staged copy carries every field of a step: 64-bit seeds in two
-    int32 halves (negative and past 2^32 too), temperatures as float32
-    bits, and the tables; a narrower width reads the first lanes."""
-    from singa_tpu_torch.serve.paged import DecodeInputs, seeds
+    """One staged copy carries every field of a step: threefry keys as
+    two 32-bit words each (words past 2^31 too, two keys a lane here),
+    temperatures as float32 bits, and the tables; a narrower width reads
+    the first lanes."""
+    from singa_tpu_torch.ops import prng
+    from singa_tpu_torch.serve.paged import DecodeInputs
 
-    inp = DecodeInputs(4, 3, torch.device("cpu"))
-    sd = np.array([5, 2 ** 40 + 7, -3, 2 ** 31 + 1])
+    inp = DecodeInputs(4, 3, torch.device("cpu"), n_keys=2)
+    keys = prng.split(prng.PRNGKey(2 ** 31 + 1), 8).reshape(4, 2, 2)
+    keys[0, 0] = [0xFFFFFFFF, 2 ** 31]
     temps = np.array([0.9, 0.0, 1.5, 0.25], np.float32)
     tables = np.arange(12, dtype=np.int32).reshape(4, 3)
     inp.stage(np.array([1, 2, 3, 4]), np.array([9, 8, 7, 6]),
-              np.array([True, False, True, True]), sd, temps, tables)
+              np.array([True, False, True, True]), keys, temps, tables)
     inp.load()
     v = inp.view(4)
-    assert seeds(v).tolist() == sd.tolist()
+    assert v["keys"].shape == (4, 2, 2)
+    assert ((v["keys"].long() & 0xFFFFFFFF).numpy() == keys).all()
     assert v["temps"].numpy().tolist() == temps.tolist()
     assert v["toks"].tolist() == [1, 2, 3, 4]
     assert v["live"].tolist() == [1, 0, 1, 1]
@@ -669,13 +673,15 @@ def _chi2(counts, p):
                                      dict(top_p=0.8)],
                          ids=["plain", "top_k", "top_p"])
 def test_batched_noise_draws_the_filtered_softmax(filters):
-    """4000 rows of one 16-token distribution, one seed a row, in one
+    """4000 rows of one 16-token distribution, one key a row, in one
     batched draw: a χ² goodness-of-fit against the filtered softmax."""
+    from singa_tpu_torch.ops import prng
+
     n, vocab, temp = 4000, 16, 0.8
     logit = np.random.RandomState(7).randn(vocab).astype(np.float32)
     logits = torch.from_numpy(np.tile(logit, (n, 1)))
-    toks = gd._sample(logits, np.full(n, temp), np.arange(n) * 7919 + 3,
-                      np.full(n, 40), **filters).numpy()
+    toks = gd._sample(logits, np.full(n, temp),
+                      prng.split(prng.PRNGKey(3), n), **filters).numpy()
     filt = gd._filter_logits(torch.from_numpy(logit)[None], temp,
                              filters.get("top_p"), filters.get("top_k", 0))
     p = torch.softmax(filt[0].double(), -1).numpy()
@@ -684,14 +690,27 @@ def test_batched_noise_draws_the_filtered_softmax(filters):
 
 
 def test_noise_depends_on_seed_position_and_token_only():
-    """A row's noise is the same alone and in a batch of 8, and changes
-    with its seed, its position and the vocabulary index."""
-    seeds = torch.tensor([5, 2 ** 40 + 5, 5, 9, -3, 5, 77, 5])
-    pos = torch.tensor([10, 10, 11, 10, 10, 10, 10, 10])
-    batch = gd._gumbel(seeds, pos, 64)
+    """A row's threefry noise is the same alone and in a batch of 8, is a
+    function of its key alone (a request's seed and the step it is at
+    pick the key), and changes with the key and the vocabulary index;
+    the torch draw's bits are the host chain's."""
+    from singa_tpu_torch.ops import prng
+
+    k5 = prng.PRNGKey(5)
+    host = np.stack([k5, prng.PRNGKey(2 ** 32 + 5), prng.split(k5)[1],
+                     prng.PRNGKey(9), prng.PRNGKey(-3), k5,
+                     prng.fold_in(k5, 1), k5])
+    keys = gd.keys_on(host, "cpu")
+    batch = prng.gumbel_t(keys, 64)
     for i in range(8):
-        alone = gd._gumbel(seeds[i:i + 1], pos[i:i + 1], 64)
+        alone = prng.gumbel_t(keys[i:i + 1], 64)
         assert torch.equal(alone[0], batch[i])
+    assert (prng.random_bits_t(keys, 64).numpy()
+            == prng.random_bits(host, (64,))).all()
+    # seed 2^32 + 5 keys as 5 (JAX keeps a seed's low 32 bits)
+    assert torch.equal(batch[0], batch[1])
+    batch[1] = prng.gumbel_t(gd.keys_on(prng.PRNGKey(77), "cpu")[None],
+                             64)[0]
     assert torch.equal(batch[0], batch[5]) and torch.equal(batch[0],
                                                            batch[7])
     for i in (1, 2, 3, 4, 6):
@@ -704,7 +723,9 @@ def test_greedy_rows_ignore_the_noise():
     rng = np.random.RandomState(1)
     logits = torch.from_numpy(rng.randn(6, 50).astype(np.float32))
     temps = np.array([0.0, 1.0, 0.0, 0.5, 0.0, 2.0])
-    toks = gd._sample(logits, temps, np.arange(6), np.arange(6))
+    from singa_tpu_torch.ops import prng
+
+    toks = gd._sample(logits, temps, prng.split(prng.PRNGKey(0), 6))
     greedy = logits.argmax(-1)
     assert torch.equal(toks[temps == 0], greedy[temps == 0])
 

@@ -15,7 +15,9 @@ kernel-vs-plain comparisons are ``chip_smoke.check_case`` over
 (paged decode attention, allclose at ``chip_smoke.PAGED_TOL``: float32
 2e-5, bf16 1e-2, float16 2e-3, by q's dtype on int8 pools too; the
 cases take one split of the key range or several; fork groups' tables,
-several slots naming the same blocks, among them),
+several slots naming the same blocks, and a ship destination's tables
+among them), the device threefry draw against the host chain
+(``chip_smoke.threefry_check``),
 with their tolerances (``chip_smoke.TOL``): flash
 attention allclose with
 float32 rtol = atol = 1e-4, bf16 rtol = atol = 2e-2 and float16 rtol =
@@ -324,6 +326,30 @@ def test_paged_kernel_at_fork_tables(cuda_device, quant, name):
     assert max((named == b).any(1).sum() for b in np.unique(named)) >= 2
     chip_smoke.check_paged_case(f"{name}/bf16", torch.bfloat16, 7,
                                 quant=quant, **case)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quant", [False, True], ids=["bf16", "int8"])
+def test_paged_kernel_at_a_ship_destination(cuda_device, quant):
+    """A decode replica's tables after KV ships (row 5d's shape): long
+    slots on blocks a shipped image landed in, two naming one shipped
+    prefix, on bf16 pools and on int8 pools with bf16 q."""
+    case = dict(chip_smoke.paged_serving_cases())["ship_q1"]
+    chip_smoke.check_paged_case("ship_q1/bf16", torch.bfloat16, 11,
+                                quant=quant, **case)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,vocab", [(8, 50257), (3, 257)])
+def test_threefry_draw_matches_the_host_chain(cuda_device, rows, vocab):
+    """The device draw (``ops/prng.py``'s torch threefry): bits and
+    uniforms of one key a row equal the numpy chain's bit for bit, the
+    Gumbels within ``chip_smoke.GUMBEL_TOL``, and the known answers
+    taken from ``jax.random``."""
+    got = chip_smoke.threefry_check(cuda_device, rows=rows, vocab=vocab,
+                                    seed=rows)
+    assert got["bits_equal"] and got["uniforms_equal"]
+    assert got["known_answers_equal"]
 
 
 @pytest.mark.cuda

@@ -8,8 +8,8 @@ offline ``generate`` and against the same traffic on an engine whose
 pool never runs out, and one greedy run against the JAX package's paged
 engine under the same pressure.  ``GPT2Config.tiny(dropout=0.0)``, on
 the CPU (``paged_attn`` runs its plain version).  Streams compare for
-identity: the swap is a byte copy and the port's sampling noise is keyed
-by (seed, position).
+identity: the swap is a byte copy and the request's threefry key rides
+it.
 """
 
 import numpy as np

@@ -15,8 +15,8 @@ Token streams are compared for identity: greedy float32 streams with
 the cache (warm, and the cold chunked admissions that filled it) equal
 offline ``generate`` and the cache-less engine whole, and equal the JAX
 engine's warm streams (weights carried by ``save_states``); a sampled
-warm stream equals the port's own seeded ``generate`` (the port's noise
-is its hash of seed and position, ROADMAP "Divergences").  On int8 KV,
+warm stream equals the port's own seeded ``generate`` (the same
+threefry key chain).  On int8 KV,
 where the chunked prefill attends dequantized keys and the full prefill
 float ones, warm streams equal the same engine's cold ones.
 ``prefill_chunk`` itself is held against the JAX function at atol 1e-5

@@ -9,9 +9,9 @@ on the CPU.  The slot arena's step is the dense ``decode_step`` over
 every slot, dead slots on clamped inputs, captured as one CUDA graph on
 the card; on the CPU the same first-step rule and persistent inputs run
 the step function itself.  Token streams compare for identity: greedy
-against the JAX package (its noise is ``jax.random``), greedy and
-sampled against the port's offline ``generate`` at the same
-``cache_dtype`` (noise keyed by seed and position).
+against the JAX package, greedy and sampled against the port's offline
+``generate`` at the same ``cache_dtype`` (the same threefry key
+chain).
 """
 
 import numpy as np

@@ -15,9 +15,9 @@ the int8 rows it writes within 1 in values (an ulp of the float row may
 cross a rounding boundary, ``tests/test_torch_int8.py``) and atol 1e-5 /
 127 in scales.  Token
 streams are compared for identity, greedy ones against the JAX package
-(its noise is ``jax.random``; the port's is its hash of seed, position
-and draw); sampled speculative streams are held to direct target
-sampling by a two-sample chi-square test at the 0.001 level.
+(sampled ones in ``tests/test_torch_sampled_parity.py``); sampled
+speculative streams are held to direct target sampling by a two-sample
+chi-square test at the 0.001 level.
 """
 
 import numpy as np
@@ -36,6 +36,7 @@ from singa_tpu.serve import GenerationRequest as JRequest
 from singa_tpu.serve import PagedConfig as JPagedConfig
 from singa_tpu_torch import device, tensor
 from singa_tpu_torch.models import gpt2_decode as gd
+from singa_tpu_torch.ops import prng
 from singa_tpu_torch.models.gpt2 import GPT2Config, GPT2LMHead
 from singa_tpu_torch.ops import paged_attention as tpa
 from singa_tpu_torch.serve import (FIFOScheduler, GenerationRequest,
@@ -214,10 +215,11 @@ def test_spec_verify_greedy_matches_jax():
         if r < k - 1:
             props[r, r] = (cands[r, r] + 1) % v
     d_probs = rng.dirichlet(np.ones(v), (s_, k - 1)).astype(np.float32)
+    ks = np.stack([prng.split(prng.PRNGKey(r)) for r in range(s_)])
     out, a = gd.spec_verify(torch.from_numpy(logits),
                             torch.from_numpy(d_probs),
                             torch.from_numpy(props), torch.zeros(s_),
-                            torch.arange(s_), torch.full((s_,), 10))
+                            ks[:, 0], ks[:, 1])
     assert a.tolist() == [0, 1, 2, 3]
     for r in range(s_):
         jo, ja = jgd.spec_verify(
