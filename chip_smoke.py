@@ -434,6 +434,36 @@ exits nonzero:
                     prefix cache: 3 replicas against one engine on the 24
                     requests after a warm-up pass of 8 a replica, TPOT
                     medians and decode tokens/s.
+14h3. ``dist_fleet`` - the fleet across the process boundary
+                    (``serve/dist``): ``DistFleet`` over ``gpt2_spec`` of
+                    the same GPT-2 small, each worker a spawned process
+                    with its own CUDA context, engine (the fleet phase's:
+                    8 slots, 256 blocks of 32, prefix cache, top-k 50)
+                    and captured steps.  float32, the serve traffic: 2
+                    workers' streams equal the in-process 2-replica
+                    fleet's; a ``blip_worker`` mid-decode resumes without
+                    failover (resume seconds); a controller ``crash``
+                    mid-decode and ``DistFleet.adopt`` (adopt seconds,
+                    every request resumed, delivered once or requeued,
+                    none rejected, streams equal); a ``kill_worker``
+                    mid-decode fails over, the never-started requests
+                    requeue onto the survivor with their streams (seconds
+                    kill -> replica down -> requeued -> last requeued
+                    first token), no block leaked on the survivor; roles
+                    (prefill, decode) on the fleet phase's long prompts:
+                    every ship streamed layer-wise while the source
+                    prefills, the staged image admitted against the
+                    source export's header and crc32, streams equal the
+                    in-process disaggregated fleet's, ship seconds, bytes
+                    and hidden share, no leaked block; one float32 pass
+                    with worker threads.  bf16, no prefix cache, the step
+                    profiler on: one engine and the in-process 3-replica
+                    fleet, then 2 workers and 3 (one added to the running
+                    fleet), each after a warm-up pass: TPOT medians,
+                    decode tokens/s and device seconds over run seconds
+                    (the workers' profilers, pulled over the wire).
+                    ``paged_attn`` launches pulled from every worker's
+                    telemetry; fails if a decoding worker launched none.
 14i. ``moe``       - GPT-2 small with every second MLP a mixture of 8
                     experts (top-2, capacity 1.25, aux weight 0.01; 0.32B
                     parameters), trained as ``slice`` trains GPT-2 small
@@ -468,7 +498,14 @@ exits nonzero:
                     launches a sharded engine; the tp = 2 ones are row
                     ``paged_attn_tp2`` (6 heads a rank), timed with the
                     kernel at 3 heads (tp = 4) over tables of the
-                    traffic's positions (row 5tp).
+                    traffic's positions (row 5tp).  Then a fleet of 2
+                    tp = 2 replicas on 3 gloo ranks
+                    (``serve_fleet_controller``: rank 0 both replicas'
+                    engines and first shards, ranks 1 and 2 a mirror
+                    each), eager: float32 streams equal the one-card
+                    engine's, each replica's ranks, ``add_replica``
+                    refused, bf16 TPOT beside one card's; its launches on
+                    every rank join row 5tp's.
 15. ``paged_kernels`` - ``paged_attn`` (its split and combine kernels)
                     against ``paged_attn_plain``, on float32, bf16 and
                     float16 pools and on int8 pools with float32, bf16
@@ -529,8 +566,11 @@ runs ``serve_shard`` at N ranks, one a GPU, over NCCL: tp = N, pp = N
 captured streams against its eager ones and its float32 streams against
 the one-card engine's, token for token; bf16 TPOT, decode tokens/s and
 the busy share of rank 0's decode steps beside the one-card engine's.
-``python3 chip_smoke.py --phases serve_shard`` runs the one-card phase
-alone.
+A fleet of sharded replicas runs on one card over gloo only (phase
+``serve_shard``): over NCCL, with rank 0 holding a first shard on each
+of two cards, it hung (``singa_tpu_torch/serve/shard.py`` refuses that
+layout with ``FleetLayoutError``).  ``python3 chip_smoke.py --phases
+serve_shard`` runs the one-card phase alone.
 
     python3 chip_smoke.py --shard-faults
 
@@ -3262,7 +3302,7 @@ def main_phases(phases):
     if not torch.cuda.is_available():
         print("chip_smoke.py: no CUDA device", file=sys.stderr)
         return 1
-    unknown = set(phases) - {"serve", "serve_shard", "fleet"}
+    unknown = set(phases) - {"serve", "serve_shard", "fleet", "dist_fleet"}
     if unknown:
         print(f"chip_smoke.py --phases: {sorted(unknown)} run only inside "
               f"the whole run", file=sys.stderr)
@@ -3283,6 +3323,11 @@ def main_phases(phases):
         launches, ship = phase_fleet(model)
         line["kernels"].append(paged_ship_row(ship, model.cfg))
         line["fleet_paged_attn_launches"] = launches
+    if "dist_fleet" in phases:
+        t0 = time.perf_counter()
+        line["dist_fleet_paged_attn_launches"] = phase_dist_fleet(
+            gpt2_small())
+        line["dist_fleet_seconds"] = time.perf_counter() - t0
     print(json.dumps(line))
     print(nvidia_smi().splitlines()[0])
     print(json.dumps({"ok": True, "device": {
@@ -4432,7 +4477,124 @@ def serve_shard_controller(world, nccl, dev, seed=0):
     return dict(modes=report, engines=engines)
 
 
-def serve_shard_rank_main(rank, world, port, nccl):
+#: the sharded fleet: replicas of tp = 2, each a rank group of its own
+#: (rank 0 and one mirror rank: 3 ranks in all)
+SERVE_FLEET_REPLICAS = 2
+SERVE_FLEET_TP = 2
+SERVE_FLEET_JOIN_S = 300
+
+
+def serve_fleet_tpot(model, traffic, dtype, capture, **kw):
+    """A second pass of ``traffic`` on the sharded fleet, the first its
+    warm-up: TPOT mean and median, decode tokens/s over the measured
+    pass's wall seconds."""
+    from singa_tpu_torch.serve import PagedConfig
+
+    c = SERVE_ENGINE
+    fleet = model.serve_fleet(
+        replicas=SERVE_FLEET_REPLICAS, max_slots=c["max_slots"],
+        dtype=dtype, capture=capture,
+        paged=PagedConfig(block_size=c["block_size"],
+                          num_blocks=c["num_blocks"]), **kw)
+    try:
+        for tag in ("w", "t"):
+            hs = fleet_submit(fleet, traffic, tag)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fleet.run_until_complete()
+            torch.cuda.synchronize()
+            sec = time.perf_counter() - t0
+        res = [h.result() for h in hs]
+    finally:
+        fleet.close()
+    return dict(tpot_ms=1e3 * statistics.mean(r.tpot for r in res),
+                tpot_median_ms=1e3 * statistics.median(r.tpot for r in res),
+                decode_tok_s=sum(w["max_new"] - 1 for w in traffic) / sec,
+                seconds=sec)
+
+
+def serve_fleet_controller(seed=0):
+    """Rank 0 of the sharded fleet's gloo ranks: GPT-2 small from a seed,
+    a fleet of ``SERVE_FLEET_REPLICAS`` tp = ``SERVE_FLEET_TP`` replicas
+    (``serve/shard.py``: rank groups of their own, eager) against one
+    card's engine: float32 streams equal,
+    each replica's ranks and cards, its refusal to grow, and bf16 TPOT
+    beside one card's."""
+    from singa_tpu_torch import amp, device, tensor
+    from singa_tpu_torch.models.gpt2 import GPT2Config, GPT2LMHead
+    from singa_tpu_torch.serve import PagedConfig
+
+    amp.enable(False)
+    cdev = device.create_cuda_gpu()
+    cdev.SetRandSeed(seed)
+    model = GPT2LMHead(GPT2Config.small(dropout=0.0))
+    model.compile([tensor.from_numpy(np.zeros((1, 8), np.int32), cdev)],
+                  is_train=False)
+    traffic = serve_shard_traffic(False, seed)
+    one, _, _, _ = run_engine(model, traffic, "block")
+    c = SERVE_ENGINE
+    engines = []
+    _reset_serve_counts()
+    t0 = time.perf_counter()
+    fleet = model.serve_fleet(
+        replicas=SERVE_FLEET_REPLICAS, tp=SERVE_FLEET_TP,
+        max_slots=c["max_slots"], capture=False,
+        paged=PagedConfig(block_size=c["block_size"],
+                          num_blocks=c["num_blocks"]))
+    try:
+        groups = []
+        for i in range(SERVE_FLEET_REPLICAS):
+            x = fleet.supervisor(i).engine._shard
+            groups.append(dict(
+                ranks=[int(r) for r in x.mesh.ranks.reshape(-1)],
+                rank0_card=str(fleet.supervisor(i).engine._params["wte"]
+                               .device),
+                cards=[None if d is None else int(d)
+                       for d in _fleet_cards(x.group)]))
+        hs = fleet_submit(fleet, traffic, "s")
+        fleet_drain(fleet, hs, one, "tp fleet")
+        try:
+            fleet.add_replica()
+            raise AssertionError("a sharded fleet grew")
+        except ValueError as e:
+            refused = str(e)
+        snap = fleet.snapshot()
+    finally:
+        fleet.close()
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    engines.append(dict(label="fleet/float32", **_serve_counts()))
+    if min(snap["routed"].values()) < 1:
+        raise AssertionError(f"tp fleet routing: {snap['routed']}")
+    _reset_serve_counts()
+    bf16 = serve_fleet_tpot(model, traffic, torch.bfloat16, False,
+                            tp=SERVE_FLEET_TP)
+    torch.cuda.synchronize()
+    engines.append(dict(label="fleet/bf16", **_serve_counts()))
+    one16 = serve_tpot(model, traffic, torch.bfloat16, True)
+    del one16["shard"]
+    return dict(modes={"tp_fleet": dict(
+        replicas=SERVE_FLEET_REPLICAS, tp=SERVE_FLEET_TP,
+        requests=len(traffic), rank_groups=groups,
+        routed=snap["routed"], float32_streams_equal_one_card=True,
+        captured=False, float32_s=sec, add_replica_refused=refused,
+        bf16=dict(bf16, one_card=one16))}, engines=engines)
+
+
+def _fleet_cards(group):
+    """The card of each of a replica group's shards, as its layout gave
+    them (rank 0 knows every replica's)."""
+    from singa_tpu_torch.serve import shard
+
+    for ranks, _, devs in shard.fleet_layout(
+            (len(group.ranks),), SERVE_FLEET_REPLICAS,
+            torch.cuda.device_count()):
+        if ranks == group.ranks:
+            return devs
+    return [None] * len(group.ranks)
+
+
+def serve_shard_rank_main(rank, world, port, nccl, fleet=False):
     """One rank of the serve_shard run: rank 0 the controller, the others
     ``worker_loop`` (their launches counted a mirror, at its close);
     writes ``serve-shard<W>-r<rank>.json``."""
@@ -4443,6 +4605,7 @@ def serve_shard_rank_main(rank, world, port, nccl):
 
     dev = torch.device("cuda", rank % torch.cuda.device_count())
     torch.cuda.set_device(dev)
+    stem = "serve-fleet" if fleet else "serve-shard"
     communicator.initialize_distributed(
         coordinator_address=f"localhost:{port}", num_processes=world,
         process_id=rank, backend="nccl" if nccl else "gloo",
@@ -4451,7 +4614,8 @@ def serve_shard_rank_main(rank, world, port, nccl):
         t0 = time.perf_counter()
         if rank == 0:
             try:
-                out = serve_shard_controller(world, nccl, dev)
+                out = (serve_fleet_controller() if fleet
+                       else serve_shard_controller(world, nccl, dev))
             finally:
                 shard.stop_workers()
         else:
@@ -4467,8 +4631,7 @@ def serve_shard_rank_main(rank, world, port, nccl):
                 shard.worker_loop(on_close=closed)
             out = dict(engines=mirrors)
         out.update(rank=rank, seconds=time.perf_counter() - t0)
-        path = os.path.join(SERVE_SHARD_DIR,
-                            f"serve-shard{world}-r{rank}.json")
+        path = os.path.join(SERVE_SHARD_DIR, f"{stem}{world}-r{rank}.json")
         with open(path + ".tmp", "w") as f:
             json.dump(out, f)
         os.replace(path + ".tmp", path)
@@ -4482,14 +4645,17 @@ def serve_shard_rank_main(rank, world, port, nccl):
     tdist.destroy_process_group()
 
 
-def serve_shard_world(world, nccl):
+def serve_shard_world(world, nccl, fleet=False):
     """Spawn this script ``world`` times as ``--serve-shard-rank`` (one
     card a rank over NCCL, or every rank on card 0 over gloo) and join
     them within ``SERVE_SHARD_JOIN_S``; returns rank 0's report with
-    every rank's launches a sharded engine."""
+    every rank's launches a sharded engine (``fleet``: the sharded
+    fleet's ranks, ``serve_fleet_controller``; every rank's launches
+    summed)."""
     os.makedirs(SERVE_SHARD_DIR, exist_ok=True)
     port = free_port()
-    outs = [os.path.join(SERVE_SHARD_DIR, f"serve-shard{world}-r{rk}.json")
+    stem = "serve-fleet" if fleet else "serve-shard"
+    outs = [os.path.join(SERVE_SHARD_DIR, f"{stem}{world}-r{rk}.json")
             for rk in range(world)]
     for o in outs:
         if os.path.exists(o):
@@ -4497,8 +4663,9 @@ def serve_shard_world(world, nccl):
     procs = [subprocess.Popen(
         [sys.executable, os.path.abspath(__file__), "--serve-shard-rank",
          str(rk), "--dist-world", str(world), "--dist-port", str(port)]
-        + ["--nccl"] * nccl) for rk in range(world)]
-    deadline = time.monotonic() + SERVE_SHARD_JOIN_S
+        + ["--nccl"] * nccl + ["--fleet"] * fleet) for rk in range(world)]
+    deadline = time.monotonic() + (SERVE_FLEET_JOIN_S if fleet
+                                   else SERVE_SHARD_JOIN_S)
     try:
         while time.monotonic() < deadline:
             rcs = [p.poll() for p in procs]
@@ -4515,6 +4682,15 @@ def serve_shard_world(world, nccl):
         raise AssertionError(f"serve_shard world {world}: exit codes {rcs}")
     ranks = [json.load(open(o)) for o in outs]
     r0 = ranks[0]
+    if fleet:
+        # a worker rank mirrors its own replica's engines only: one entry
+        # of every rank's fleet launches
+        total = {"label": "fleet_all_ranks"}
+        for k in ("paged_attn", "flash_fwd"):
+            total[f"{k}_ranks"] = [sum(e[k] for e in rk["engines"])
+                                   for rk in ranks]
+        r0["engines"] = r0["engines"] + [total]
+        return r0
     for rk in ranks[1:]:
         if len(rk["engines"]) != len(r0["engines"]):
             raise AssertionError(
@@ -4561,9 +4737,19 @@ def phase_serve_shard():
 
     t0 = time.perf_counter()
     r0 = serve_shard_world(2, nccl=False)
+    tf = time.perf_counter()
+    rf = serve_shard_world(1 + SERVE_FLEET_REPLICAS * (SERVE_FLEET_TP - 1),
+                           nccl=False, fleet=True)
     t1 = time.perf_counter()
     eng = r0["engines"]
     tp_launch = serve_shard_launches(eng, "tp2")
+    # the fleet's replicas run at a tp = 2 rank's 6 heads too
+    fleet_launch = serve_shard_launches(rf["engines"], "fleet_all_ranks")
+    if fleet_launch["paged_attn"] == 0:
+        raise AssertionError(f"the sharded fleet launched no paged_attn: "
+                             f"{rf['engines']}")
+    for k, v in fleet_launch.items():
+        tp_launch[k] += v
     other = serve_shard_launches(eng, "pp2")
     for k, v in serve_shard_launches(eng, "ep2").items():
         other[k] += v
@@ -4578,8 +4764,10 @@ def phase_serve_shard():
               for tp in (2, 4)}
     log({"phase": "serve_shard", "world": 2, "backend": "gloo",
          "modes": r0["modes"], "engines": eng,
+         "fleet": dict(rf["modes"], world=3, engines=rf["engines"]),
          "paged_attn_rank_heads_row_5tp": tables,
-         "seconds": {"ranks": t1 - t0, "rank0": r0["seconds"],
+         "seconds": {"ranks": tf - t0, "rank0": r0["seconds"],
+                     "fleet_ranks": t1 - tf, "fleet_rank0": rf["seconds"],
                      "tables": time.perf_counter() - t1},
          "nvidia_smi": nvidia_smi()})
     t = tables["tp2"]
@@ -4594,18 +4782,23 @@ def phase_serve_shard():
         library_call="torch.nn.functional.scaled_dot_product_attention on "
                      "rows gathered from the pool (the gather not timed)",
         kernels="paged_attn_kernel<T, T> (split) + paged_combine_kernel<T, "
-                "T> at a tp = 2 rank's 6 heads (the sharded decode steps, "
-                "float32 and bf16, every rank)")
+                "T> at a tp = 2 rank's 6 heads (the sharded decode steps "
+                "and the tp = 2 fleet's replicas, float32 and bf16, every "
+                "rank)")
     return row, other, tp_launch["flash_fwd"]
+
+
+def _build_serving():
+    from singa_tpu_torch.ops import _build
+
+    for src in ("flash_attention", "paged_attention"):
+        _build.build(src)  # once, before the ranks load them
 
 
 def main_serve_shard_world(n):
     """``--dist-world N --phases serve_shard``: ``serve_shard_world`` at N
     over NCCL."""
-    from singa_tpu_torch.ops import _build
-
-    for src in ("flash_attention", "paged_attention"):
-        _build.build(src)  # once, before the ranks load them
+    _build_serving()
     r0 = serve_shard_world(n, nccl=True)
     log({"phase": "serve_shard_world", "world": n, "backend": "nccl",
          "modes": r0["modes"], "engines": r0["engines"],
@@ -8351,6 +8544,31 @@ def threefry_check(dev, rows=8, vocab=50257, seed=0):
             "known_answers_equal": True, "draw_device_ms": ms}
 
 
+FLEET_EVENTS = ("serve/fleet_failover", "serve/fleet_requeue",
+                "serve/fleet_failover_done", "serve/dist_resume")
+
+
+@contextlib.contextmanager
+def fleet_trace():
+    """Trace the block and yield ``{name: [event, ...]}`` of the fleet's
+    failover and resume instants (``FLEET_EVENTS``: a replica down, each
+    requeue, the failover's end, a resumed session with its seconds),
+    filled when the block ends; their ``ts`` are ``perf_counter``
+    seconds."""
+    from singa_tpu_torch.observe import trace as tr
+
+    out = {n: [] for n in FLEET_EVENTS}
+    tr.clear()
+    tr.enable()
+    try:
+        yield out
+    finally:
+        tr.disable()
+        for e in tr.drain():
+            if e["name"] in out:
+                out[e["name"]].append(e)
+
+
 class _FirstTokens:
     """``on_token`` clock: each request's first-token time
     (``perf_counter``)."""
@@ -8570,35 +8788,21 @@ def phase_fleet(model, seed=0):
     want = [offline[i] for i in sampled]
     fleet = model.serve_fleet(replicas=FLEET_REPLICAS, restart_budget=0,
                               **engine_kw(max_slots=2))
-    requeued, t_fault = [], []
-    mark_down, route, failover = (fleet._mark_down, fleet._route,
-                                  fleet._failover)
-
-    def on_down(rep, err):
-        t_fault.append(time.perf_counter())
-        mark_down(rep, err)
-
-    def on_failover(rep):
-        fleet._route = lambda req, *a, **kw: (
-            requeued.append(req.request_id) or route(req, *a, **kw))
-        try:
-            failover(rep)
-        finally:
-            fleet._route = route
-
-    fleet._mark_down, fleet._failover = on_down, on_failover
     clock = _FirstTokens()
     hs = fleet_submit(fleet, work, "f", clock=clock)
     faults.inject("serve.decode_step", FailAfterN(4, times=1))
     try:
-        failed = fleet_drain(fleet, hs, want, "failover")
+        with fleet_trace() as ev:
+            failed = fleet_drain(fleet, hs, want, "failover")
     finally:
         faults.clear()
-    if len(t_fault) != 1 or not requeued or not failed:
-        raise AssertionError(f"failover: {len(t_fault)} replicas down, "
+    downs = ev["serve/fleet_failover"]
+    requeued = [e["args"]["request"] for e in ev["serve/fleet_requeue"]]
+    if len(downs) != 1 or not requeued or not failed:
+        raise AssertionError(f"failover: {len(downs)} replicas down, "
                              f"{len(requeued)} requeued, {failed} failed")
     dead = next(r.idx for r in fleet._replicas if not r.healthy)
-    requeue_s = max(clock.first[r] for r in requeued) - t_fault[0]
+    requeue_s = max(clock.first[r] for r in requeued) - downs[0]["ts"]
     # revive, then hedges: the router pinned to replica 0, whose queue
     # backs up until its requests are re-dispatched to the siblings
     fleet.revive(dead)
@@ -8725,6 +8929,363 @@ def phase_fleet(model, seed=0):
     log(out)
     real["launches"] = ship_launches
     return launches, real
+
+
+# ------------------------------------------------------------- dist_fleet
+
+#: the bf16 timings' worker counts (the second grown from the first by
+#: ``add_replica``: one spawn, not three)
+DIST_FLEET_WORKERS = (2, 3)
+#: the crash's requests' new tokens, and the seconds the orphaned
+#: workers decode (one step a redial) before the successor adopts them
+DIST_CRASH_NEW = 6
+DIST_CRASH_WAIT_S = 8.0
+
+
+def fleet_streams(fleet, traffic, tag):
+    """Submit ``traffic`` to a reference fleet and drain it: every
+    request's tokens (a failed request raises)."""
+    hs = fleet_submit(fleet, traffic, tag)
+    fleet.run_until_complete(max_steps=20000)
+    return [h.result().tokens for h in hs]
+
+
+def _no_leaks(what, fleet):
+    """Used minus tree-cached blocks on every healthy replica: zero (the
+    step replies carry both)."""
+    for rep in fleet._replicas:
+        eng = rep.sup.engine
+        if rep.healthy and eng.paged_arena is not None:
+            cached = (eng.prefix_cache.cached_blocks
+                      if eng.prefix_cache is not None else 0)
+            if eng.paged_arena.blocks_used != cached:
+                raise AssertionError(
+                    f"{what}: replica {rep.idx} holds "
+                    f"{eng.paged_arena.blocks_used} blocks, its tree "
+                    f"{cached}")
+
+
+def _step_shares(dumps):
+    """``serve.step.device_s`` and ``wall_s`` sums of registry dumps (the
+    step profiler's), by engine label."""
+    out = {}
+    for dump in dumps:
+        for m in dump["metrics"]:
+            if m["name"] in ("serve.step.device_s", "serve.step.wall_s"):
+                eng = dict(map(tuple, m["labels"])).get("engine")
+                out.setdefault(eng, {})[m["name"].split(".")[-1]] = m["sum"]
+    return out
+
+
+def _busy(before, after):
+    """Device seconds over step wall seconds between two
+    :func:`_step_shares` readings, summed over the engines."""
+    dev = sum(v.get("device_s", 0.0) - before.get(k, {}).get("device_s", 0.0)
+              for k, v in after.items())
+    wall = sum(v.get("wall_s", 0.0) - before.get(k, {}).get("wall_s", 0.0)
+               for k, v in after.items())
+    return dev, wall
+
+
+def _dist_telemetry(fleet):
+    """Every healthy worker's registry dump, over the wire."""
+    return [rep.sup._rpc("telemetry", {"registry": True},
+                         timeout=30.0)["registry"]
+            for rep in fleet._replicas if rep.healthy]
+
+
+def timed_serving(srv, traffic, replicas, tag, dist=False):
+    """bf16 timing of a server (one engine, or a fleet of ``replicas``):
+    a warm-up pass of ``max_slots`` requests a replica (every replica then
+    holds every width's captured step), then ``traffic`` timed; seconds,
+    TPOT median, decode tokens/s, and the step profiler's device seconds
+    over step wall seconds of the timed pass (the workers' own, over the
+    wire, for a ``DistFleet``)."""
+    from singa_tpu_torch.observe import stepprof
+    from singa_tpu_torch.observe.registry import registry
+    from singa_tpu_torch.serve import GenerationRequest
+
+    c = SERVE_ENGINE
+    fleet = hasattr(srv, "router")
+
+    def shares():
+        return _step_shares(_dist_telemetry(srv) if dist
+                            else [registry().dump()])
+
+    for pre, ws in (("w", traffic[:c["max_slots"] * replicas]),
+                    ("t", traffic)):
+        hs = fleet_submit(srv, ws, f"{tag}{pre}") if fleet else \
+            [srv.submit(GenerationRequest(
+                w["prompt"], max_new_tokens=w["max_new"],
+                temperature=w["temperature"], seed=w["seed"]))
+             for w in ws]
+        torch.cuda.synchronize()
+        before = shares()
+        t0 = time.perf_counter()
+        srv.run_until_complete()
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+    dev_s, wall_s = _busy(before, shares())
+    res = [h.result() for h in hs]
+    dec = sum(len(r.tokens) - len(w["prompt"]) - 1
+              for r, w in zip(res, traffic))
+    out = {"seconds": sec,
+           "tpot_median_s": statistics.median(r.tpot for r in res if r.tpot),
+           "decode_tokens_per_s": dec / sec,
+           "step_device_s": dev_s, "step_wall_s": wall_s,
+           "device_s_over_run_s": dev_s / sec}
+    if not dist:
+        out["busy_share_of_steps"] = dev_s / wall_s if wall_s else None
+    return out
+
+
+def phase_dist_fleet(model, seed=0):
+    """The fleet across the process boundary over GPT-2 small workers
+    (module docstring, phase 14h3).  Returns the ``paged_attn`` launches
+    pulled from the workers."""
+    from singa_tpu_torch import amp
+    from singa_tpu_torch.observe import stepprof
+    from singa_tpu_torch.serve import (DistFleet, PagedConfig,
+                                       PrefixCacheConfig, gpt2_spec)
+
+    marks = {}
+
+    def mark(name, t0=[time.perf_counter()]):
+        marks[name] = time.perf_counter() - t0[0]
+        t0[0] = time.perf_counter()
+
+    amp.enable(False)
+    cfg = model.cfg
+    c = SERVE_ENGINE
+    spec = gpt2_spec(model)
+
+    def engine_kw(dtype=None, cache=True, **kw):
+        return dict(dict(max_slots=c["max_slots"], dtype=dtype,
+                         top_k=FLEET_TOP_K,
+                         paged=PagedConfig(block_size=c["block_size"],
+                                           num_blocks=c["num_blocks"]),
+                         prefix_cache=PrefixCacheConfig(
+                             block_size=c["block_size"]) if cache else None),
+                    **kw)
+
+    out = {"phase": "dist_fleet", "spawn": "process",
+           "engine": dict(SERVE_ENGINE, top_k=FLEET_TOP_K)}
+    traffic = fleet_traffic(seed, vocab=cfg.vocab_size)
+    # the reference: the in-process fleet of 2 replicas, float32
+    with model.serve_fleet(replicas=2, **engine_kw()) as f:
+        ref = fleet_streams(f, traffic, "r")
+    mark("reference")
+    #: each worker process's paged_attn launches (its own counts are
+    #: cumulative: the largest pull of each pid)
+    launches = {}
+
+    def pull(fleet):
+        for idx, k in fleet.kernel_launches().items():
+            pid = fleet.supervisor(idx).pid
+            launches[pid] = max(launches.get(pid, 0),
+                                k["paged_attn.launches"])
+
+    # A: 2 worker processes, every stream equal to the reference
+    t0 = time.perf_counter()
+    a = DistFleet(spec, replicas=2, spawn="process", **engine_kw())
+    spawn_s = time.perf_counter() - t0
+    procs = [a.supervisor(i)._proc for i in range(2)]
+    decoders = [a.supervisor(i).pid for i in range(2)]
+    try:
+        t0 = time.perf_counter()
+        if fleet_drain(a, fleet_submit(a, traffic, "p"), ref, "dist fleet"):
+            raise AssertionError("dist fleet: a request failed")
+        parity_s = time.perf_counter() - t0
+        pids = [a.supervisor(i).pid for i in range(2)]
+        mark("parity")
+        # a blip: the controller's socket to worker 0 severed mid-decode;
+        # the worker redials and the session resumes, no failover
+        hs = fleet_submit(a, traffic[:8], "b")
+        for _ in range(3):
+            a.step()
+        with fleet_trace() as ev:
+            a.blip_worker(0)
+            fleet_drain(a, hs, ref[:8], "after a blip")
+        resumes = [e["args"]["seconds"] for e in ev["serve/dist_resume"]]
+        snap = a.snapshot()
+        if snap["failovers"] or not snap["dist"]["reconnects"] \
+                or a.healthy_replicas != 2 or not resumes \
+                or not all(e["args"]["resumed"]
+                           for e in ev["serve/dist_resume"]):
+            raise AssertionError(f"blip: {snap['failovers']} failovers, "
+                                 f"{snap['dist']['reconnects']} resumes")
+        out["blip"] = {"requests": 8, "streams_equal": True,
+                       "reconnects": snap["dist"]["reconnects"],
+                       "resumed_calls": snap["dist"]["resumed_calls"],
+                       "failovers": 0, "resume_s": resumes}
+        mark("blip")
+        # a controller crash mid-decode: the workers go on decoding while
+        # they redial, and park what finishes; a successor adopts them.
+        # ``DIST_CRASH_NEW`` tokens a request, so most finish before the
+        # adoption (a stream's prefix does not depend on its length)
+        crash_work = [dict(w, max_new=min(w["max_new"], DIST_CRASH_NEW))
+                      for w in traffic[8:16]]
+        crash_ref = [r[:len(w["prompt"]) + w["max_new"]]
+                     for r, w in zip(ref[8:16], crash_work)]
+        hs = fleet_submit(a, crash_work, "c")
+        for _ in range(2):
+            a.step()
+        if any(h.done() for h in hs):
+            raise AssertionError("crash: a request finished before it")
+        port, token = a._listener.port, a._token
+        pull(a)
+        a.crash()
+        time.sleep(DIST_CRASH_WAIT_S)
+        t0 = time.perf_counter()
+        b = DistFleet.adopt(spec, port=port, token=token, replicas=2,
+                            spawn="process", **engine_kw())
+        adopt_s = time.perf_counter() - t0
+        with b:
+            rep = b.adoption
+            handles = {**rep["resumed"], **rep["delivered"],
+                       **rep["requeued"]}
+            kinds = sum(len(rep[k]) for k in ("resumed", "delivered",
+                                               "requeued"))
+            if rep["rejected"] or kinds != len(handles) \
+                    or not rep["delivered"] or sorted(handles) != sorted(
+                        f"c{i}" for i in range(len(crash_work))):
+                raise AssertionError(f"adoption: {sorted(handles)}, "
+                                     f"rejected {rep['rejected']}")
+            fleet_drain(b, [handles[f"c{i}"]
+                            for i in range(len(crash_work))], crash_ref,
+                        "after adoption")
+            snap = b.snapshot()
+            out["adopt"] = {
+                "requests": len(crash_work), "new_tokens": DIST_CRASH_NEW,
+                "waited_s": DIST_CRASH_WAIT_S, "adopt_s": adopt_s,
+                "resumed": len(rep["resumed"]),
+                "delivered": len(rep["delivered"]),
+                "requeued": len(rep["requeued"]), "rejected": 0,
+                "parked_results": snap["dist"]["parked_results"],
+                "epoch": snap["dist"]["epoch"], "streams_equal": True}
+            mark("adopt")
+            # a worker killed mid-decode: failover, and its requests
+            # requeued onto the survivor (none streams its tokens to the
+            # caller, so none has started and each replays its chain)
+            pull(b)
+            hs = fleet_submit(b, traffic[16:], "k")
+            b.step()
+            with fleet_trace() as ev:
+                t_kill = time.perf_counter()
+                b.kill_worker(0)
+                fleet_drain(b, hs, ref[16:], "after a kill")
+            res = {h.request.request_id: h.result() for h in hs}
+            t_down = [e["ts"] for e in ev["serve/fleet_failover"]]
+            t_req = [e["ts"] for e in ev["serve/fleet_failover_done"]]
+            requeued = [e["args"]["request"]
+                        for e in ev["serve/fleet_requeue"]]
+            if len(t_down) != 1 or len(t_req) != 1 or not requeued:
+                raise AssertionError(f"kill: {len(t_down)} down, "
+                                     f"{len(requeued)} requeued")
+            # a requeued request's TTFT runs from its submit on the
+            # survivor, just after the requeue
+            first = max(res[r].ttft for r in requeued)
+            _no_leaks("after a kill", b)
+            pull(b)
+            out["kill"] = {
+                "requests": len(traffic) - 16, "requeued": len(requeued),
+                "streams_equal": True,
+                "kill_to_down_s": t_down[0] - t_kill,
+                "down_to_requeued_s": t_req[0] - t_down[0],
+                "requeued_to_last_first_token_s": first,
+                "fault_to_last_requeued_first_token_s":
+                    t_req[0] - t_kill + first,
+                "survivor_blocks_leaked": 0}
+            mark("kill")
+    finally:
+        if not a._closed:
+            a.__exit__(*sys.exc_info())
+        for p in procs:
+            p.join(timeout=30.0)
+            if p.is_alive():
+                p.kill()
+                p.join(timeout=10.0)
+    out["process_parity"] = {"workers": 2, "pids": pids,
+                             "requests": len(traffic),
+                             "streams_equal_in_process_fleet": True,
+                             "spawn_s": spawn_s, "run_s": parity_s}
+
+    # D: disaggregated, a prefill worker streaming layer-wise KV frames to
+    # a decode worker while it prefills
+    long = fleet_long_traffic(seed, vocab=cfg.vocab_size)
+    roles = ("prefill", "decode")
+    with model.serve_fleet(replicas=2, roles=roles, **engine_kw()) as f:
+        long_ref = fleet_streams(f, long, "L")
+    with DistFleet(spec, replicas=2, spawn="process", roles=roles,
+                   **engine_kw()) as d:
+        fleet_drain(d, fleet_submit(d, long, "d"), long_ref,
+                    "streamed ships")
+        snap = d.snapshot()
+        if snap["ships"] != len(long) or snap["ship_fallbacks"] \
+                or not snap["dist"]["frames"]:
+            raise AssertionError(f"streamed ships: {snap['ships']} ships, "
+                                 f"{snap['ship_fallbacks']} fallbacks")
+        _no_leaks("after the ships", d)
+        pull(d)
+    dd = snap["dist"]
+    out["disaggregated"] = {
+        "roles": list(roles), "requests": len(long),
+        "prompt_lens": [len(w["prompt"]) for w in long],
+        "streams_equal_in_process_fleet": True, "ships": snap["ships"],
+        "ship_bytes": snap["ship_bytes"], "frames": dd["frames"],
+        "frame_bytes": dd["frame_bytes"],
+        "ship_exposed_s_mean": dd["ship_s_mean"],
+        "ship_wire_hidden_s": dd["ship_wire_hidden_s"],
+        "ship_wire_exposed_s": dd["ship_wire_exposed_s"],
+        "ship_overlap_efficiency": dd["ship_overlap_efficiency"],
+        "image_checked_against_source_crc32": True, "blocks_leaked": 0}
+    mark("disaggregated")
+
+    # T: worker threads of this process, one short float32 pass
+    with DistFleet(spec, replicas=2, spawn="thread", **engine_kw()) as t:
+        fleet_drain(t, fleet_submit(t, traffic[:8], "t"), ref[:8],
+                    "thread workers")
+    out["thread"] = {"requests": 8, "streams_equal": True}
+    mark("thread")
+
+    # bf16: one engine, the in-process 3-replica fleet, and 2 then 3
+    # worker processes (the third added to the running fleet)
+    bf = torch.bfloat16
+    stepprof.enable()
+    try:
+        eng = model.serve(**engine_kw(bf, False))
+        one = timed_serving(eng, traffic, 1, "o")
+        eng.close()
+        f = model.serve_fleet(replicas=3, **engine_kw(bf, False))
+        local = timed_serving(f, traffic, 3, "l")
+        f.close()
+    finally:
+        stepprof.disable()
+    mark("bf16_in_process")
+    workers = {}
+    with DistFleet(spec, replicas=DIST_FLEET_WORKERS[0], spawn="process",
+                   **engine_kw(bf, False)) as w:
+        for n in DIST_FLEET_WORKERS:
+            while w.replicas < n:
+                w.add_replica()
+            workers[n] = timed_serving(w, traffic, n, f"x{n}", dist=True)
+        decoders += [w.supervisor(i).pid for i in range(w.replicas)]
+        pull(w)
+    out["bf16"] = {"one_engine": one, "in_process_fleet_3": local,
+                   **{f"dist_workers_{n}": v for n, v in workers.items()}}
+    mark("bf16_dist")
+    total = sum(launches.values())
+    if total < 1 or any(launches.get(pid, 0) < 1 for pid in decoders):
+        raise AssertionError(f"the worker processes launched paged_attn "
+                             f"{launches} (by pid)")
+    out["paged_attn_launches_by_worker_pid"] = {
+        str(k): v for k, v in launches.items()}
+    out["paged_attn_launches"] = total
+    out["seconds"] = marks
+    out["nvidia_smi"] = nvidia_smi()
+    log(out)
+    return total
+
 
 def slice_mfu(cfg, x, y, dev, seed=0, steps=20):
     """``train.mfu`` of GPT-2 small's captured step with the monitor on
@@ -9149,6 +9710,7 @@ def main():
     observe_launches = timed("observe", phase_observe, model, real)
     supervisor_launches = timed("supervisor", phase_supervisor, model, real)
     fleet_launches, ship = timed("fleet", phase_fleet, model)
+    dist_launches = timed("dist_fleet", phase_dist_fleet, model)
     cfg = model.cfg
     del model
     moe_launches = timed("moe", phase_moe, rows)
@@ -9169,7 +9731,7 @@ def main():
     # both, the supervisor and fleet phases' runs on float32 ones
     rows["paged_attn"]["launches"] += prefix_launches + struct_launches \
         + observe_launches + supervisor_launches + moe_launches \
-        + fleet_launches
+        + fleet_launches + dist_launches
 
     smi = nvidia_smi()
     log({"phase": "device", "nvidia_smi": smi,
@@ -9204,7 +9766,8 @@ if __name__ == "__main__":
         serve_shard_rank_main(int(arg("--serve-shard-rank")),
                               int(arg("--dist-world")),
                               int(arg("--dist-port")),
-                              nccl="--nccl" in sys.argv)
+                              nccl="--nccl" in sys.argv,
+                              fleet="--fleet" in sys.argv)
         sys.exit(0)
     if "--dist-world-rank" in sys.argv:  # one rank of --dist-world
         dist_world_rank_main(int(arg("--dist-world-rank")),

@@ -351,9 +351,12 @@ class GPT2LMHead(model.Model):
 
         return ServeFleet(self, replicas=replicas, **kw)
     def _serial_decode(self, what):
-        """Decoding reads whole weights: a model sharded over more than
-        one rank raises (sharded serving is ``serve/tp.py``'s, not ported);
-        its ``save_states`` zip loads into a ``plan=None`` model."""
+        """Decoding reads whole weights: ``generate`` and ``serve`` on a
+        model sharded over more than one rank by a training plan raise (a
+        plan-sharded decode is not ported yet).  Sharded serving is
+        ``serve/tp.py``'s (with ``ep.py`` and ``pp.py``): load the model's
+        ``save_states`` zip into a ``plan=None`` model and serve it with
+        ``tp=``, ``ep=`` or ``pp=``."""
         if self.plan is not None and self.plan.world > 1:
             raise NotImplementedError(
                 f"{what} on a model sharded over {self.plan.world} ranks is "

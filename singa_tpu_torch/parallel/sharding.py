@@ -140,20 +140,30 @@ class Mesh:
     along it, and the ``data`` x ``seq`` ranks one more
     (:attr:`grad_group`); every rank makes every group, in one order, as
     ``torch.distributed.new_group`` requires.  ``rank`` given without a
-    process group builds a mesh for its coordinates only."""
+    process group builds a mesh for its coordinates only.
+
+    ``members`` (global ranks, row-major) puts the mesh on part of the
+    process group; ``group_for(line)`` then hands out the prepared group
+    of each line of ranks this rank sits on (a sharded fleet replica's,
+    ``serve/shard.py``), so no group is made here."""
 
     def __init__(self, sizes, axis_names=AXES, rank=None, device=None,
-                 groups=None):
+                 groups=None, members=None, group_for=None):
         sizes = tuple(int(n) for n in sizes)
         if len(sizes) != len(axis_names) or min(sizes) < 1:
             raise ValueError(f"mesh sizes {sizes} for axes {axis_names}")
         self.axis_names = tuple(axis_names)
         self.shape = dict(zip(self.axis_names, sizes))
         self.size = math.prod(sizes)
-        self.ranks = np.arange(self.size).reshape(sizes)
+        members = range(self.size) if members is None else members
+        self._pos = {int(r): i for i, r in enumerate(members)}
+        if len(self._pos) != self.size:
+            raise ValueError(f"{len(self._pos)} member ranks for a mesh "
+                             f"of {self.size}")
+        self.ranks = np.asarray(list(self._pos)).reshape(sizes)
         world, me = _process_world()
         self.rank = me if rank is None else int(rank)
-        if not 0 <= self.rank < self.size:
+        if self.rank not in self._pos:
             raise ValueError(f"rank {self.rank} outside the mesh of "
                              f"{self.size}")
         self.coords = self.coords_of(self.rank)
@@ -162,11 +172,18 @@ class Mesh:
         if groups is None:
             groups = world > 1 and rank is None
         self._groups, self._axes = {}, {}
-        if groups:
+        names_all = [(n,) for n in self.axis_names] + [(DATA, SEQ)]
+        if group_for is not None:
+            for names in names_all:
+                if all(n in self.shape for n in names):
+                    line = self._line(names)
+                    self._groups[names] = (None if len(line) == 1
+                                           else group_for(line))
+        elif groups:
             if world != self.size:
                 raise ValueError(f"a mesh of {self.size} ranks over a "
                                  f"process group of {world}")
-            for names in [(n,) for n in self.axis_names] + [(DATA, SEQ)]:
+            for names in names_all:
                 if all(n in self.shape for n in names):
                     self._make_groups(names)
 
@@ -179,7 +196,7 @@ class Mesh:
         return torch.device("cuda", _comm._local_rank or 0)
 
     def coords_of(self, rank) -> dict:
-        idx = np.unravel_index(int(rank), self.ranks.shape)
+        idx = np.unravel_index(self._pos[int(rank)], self.ranks.shape)
         return {n: int(i) for n, i in zip(self.axis_names, idx)}
 
     def axis_size(self, name) -> int:
@@ -260,29 +277,37 @@ def create_mesh(dp=1, tp=1, sp=1, pp=1, ep=1, device=None) -> Mesh:
     return Mesh(sizes, AXES, device=device)
 
 
-def create_tp_mesh(tp, device=None) -> Mesh:
+def _serve_mesh(sizes, names, device, group, what):
+    """A serve-side mesh over the whole process group, or with ``group``
+    (a ``serve.shard.RankGroup``: a fleet replica's ranks) over those."""
+    if group is None:
+        _checked_size(math.prod(sizes), what)
+        return Mesh(sizes, names, device=device)
+    return Mesh(sizes, names, device=device, members=group.ranks,
+                group_for=group.group_for)
+
+
+def create_tp_mesh(tp, device=None, group=None) -> Mesh:
     """1-D serve-side tensor-parallel mesh (axis :data:`TP`)."""
     if tp < 1:
         raise ValueError(f"tp must be >= 1, got {tp}")
-    _checked_size(int(tp), "tp")
-    return Mesh((int(tp),), (TP,), device=device)
+    return _serve_mesh((int(tp),), (TP,), device, group, "tp")
 
 
-def create_ep_mesh(ep, tp=1, device=None) -> Mesh:
+def create_ep_mesh(ep, tp=1, device=None, group=None) -> Mesh:
     """2-D serve-side ``(ep, tp)`` mesh: experts over :data:`EP`, the
     dense layers' Megatron layout over :data:`TP`."""
     if ep < 1 or tp < 1:
         raise ValueError(f"ep and tp must be >= 1, got ep={ep} tp={tp}")
-    _checked_size(int(ep) * int(tp), f"ep x tp = {ep} x {tp}")
-    return Mesh((int(ep), int(tp)), (EP, TP), device=device)
+    return _serve_mesh((int(ep), int(tp)), (EP, TP), device, group,
+                       f"ep x tp = {ep} x {tp}")
 
 
-def create_pp_mesh(stages, device=None) -> Mesh:
+def create_pp_mesh(stages, device=None, group=None) -> Mesh:
     """1-D serve-side pipeline mesh (axis :data:`PP`)."""
     if stages < 1:
         raise ValueError(f"stages must be >= 1, got {stages}")
-    _checked_size(int(stages), "stages")
-    return Mesh((int(stages),), (PP,), device=device)
+    return _serve_mesh((int(stages),), (PP,), device, group, "stages")
 
 
 # ----------------------------------------------------- slices by spec

@@ -19,7 +19,11 @@ engine, requeues what it had not started and sheds under SLO pressure
 behind a router, with failover, hedging, disaggregated prefill that
 ships KV images between replicas (``FleetPrefixIndex``, the
 ``KVImage`` wire codec) and an autoscaler (``ServeFleet``, ``Router``,
-``Autoscaler``, ``AutoscaleConfig``; ``model.serve_fleet(...)``).
+``Autoscaler``, ``AutoscaleConfig``; ``model.serve_fleet(...)``),
+whose replicas may be tensor-, expert- or pipeline-parallel rank groups
+(``tp=``/``ep=``/``pp=``); and the fleet across the process boundary
+(``DistFleet`` over ``gpt2_spec(model)``: worker processes or threads
+behind a framed socket transport, ``serve/dist``).
 
     >>> eng = model.serve()                      # the slot arena
     >>> eng = model.serve(max_slots=8, paged=PagedConfig(block_size=32),
@@ -62,6 +66,7 @@ from .stats import EngineStats
 from .structured import JsonSchemaAutomaton, TokenAutomaton
 from .supervisor import EngineSupervisor
 from .tp import TPConfig
+from .dist import DistFleet, ModelSpec, gpt2_spec
 
 __all__ = ["InferenceEngine", "PagedConfig", "PagedKVArena",
            "GenerationRequest", "GenerationResult", "RequestHandle",
@@ -73,4 +78,4 @@ __all__ = ["InferenceEngine", "PagedConfig", "PagedKVArena",
            "RestartBudgetExceededError", "FleetDownError", "TPConfig",
            "EPConfig", "PPConfig", "Router", "ServeFleet", "Autoscaler",
            "AutoscaleConfig", "KVImage", "KVImageError",
-           "FleetPrefixIndex"]
+           "FleetPrefixIndex", "DistFleet", "ModelSpec", "gpt2_spec"]

@@ -415,6 +415,17 @@ class Autoscaler:
         return self._record(now, "scale_up", idx,
                             f"{reason} via={how}", sig, role=role)
 
+    @staticmethod
+    def _in_reconnect_grace(rep) -> bool:
+        """A distributed replica still inside its transport reconnect
+        (+grace) window must not be respawned: the worker may be about
+        to resume its session, and a concurrent revive would
+        double-spawn the replica index.  The deadline is on
+        ``time.monotonic`` (transport time, not the autoscaler's
+        signal clock) and cleared on resume / revive."""
+        deadline = getattr(rep, "reconnect_deadline", None)
+        return deadline is not None and time.monotonic() < deadline
+
     def _replace_dead(self, now, sig):
         """Replace a FAILED (not retired — those are deliberate
         scale-downs) replica: revive it on its pinned config so the
@@ -422,7 +433,8 @@ class Autoscaler:
         load pressure.  Runs before the pressure evaluation — a dead
         replica is lost capacity whatever the signals say — but
         respects the scale-up cooldown so a crash-looping replica
-        cannot drive a revive storm."""
+        cannot drive a revive storm.  Replicas inside a reconnect
+        grace window are skipped (see ``_in_reconnect_grace``)."""
         fleet = self.fleet
         cfg = self.config
         if sig["routable"] >= cfg.max_replicas:
@@ -432,7 +444,8 @@ class Autoscaler:
             return None
         dead = [r for r in fleet._replicas
                 if not r.healthy and not r.retired
-                and not getattr(r, "needs_failover", False)]
+                and not getattr(r, "needs_failover", False)
+                and not self._in_reconnect_grace(r)]
         if not dead:
             return None
         rep = dead[0]

@@ -44,7 +44,8 @@ from .engine import _LocalExec
 from .shard import ShardedExec
 from .tp import _check_ranks
 
-__all__ = ["EPConfig", "EPExecutor", "as_ep_config", "check_ep"]
+__all__ = ["EPConfig", "EPExecutor", "as_ep_config", "check_ep",
+           "fleet_ep_configs"]
 
 
 @dataclass(frozen=True)
@@ -92,6 +93,20 @@ def as_ep_config(ep):
     raise ValueError(
         f"ep must be an int expert-shard count, an EPConfig, or a kwargs "
         f"dict, got {type(ep)}")
+
+
+def fleet_ep_configs(ep, replicas, cuda=False):
+    """Disjoint per-replica :class:`EPConfig`\\ s (the JAX package's
+    ``fleet_ep_configs``): replica ``i`` is an ``ep*tp``-rank group of its
+    own (``serve/shard.py``) — expert (and dense-tensor) parallelism
+    inside each replica, data parallelism across them.  Raises when the
+    process group cannot hold the groups."""
+    from .shard import fleet_configs
+
+    ep = as_ep_config(ep)
+    if ep.ep * ep.tp == 1:
+        return [ep] * replicas
+    return fleet_configs("ep", ep, replicas, cuda)
 
 
 def check_ep(config, cfg, model_plan=None, prefix_cache=None):
@@ -160,7 +175,9 @@ class EPExecutor(ShardedExec, _LocalExec):
         self._cap = (None if config.capacity_factor is None
                      else float(config.capacity_factor))
         dev = eng._params["wte"].device
-        self.mesh = create_ep_mesh(self.ep, self.tp, device=dev)
+        self._bind(config)
+        self.mesh = create_ep_mesh(self.ep, self.tp, device=dev,
+                                   group=self.group)
         tp_ax, ep_ax = self.mesh.axis(TP_AXIS), self.mesh.axis(EP_AXIS)
         self._tp_group = tp_ax.group
         self.kv_group, self.kv_world, self.kv_rank = (tp_ax.group, self.tp,

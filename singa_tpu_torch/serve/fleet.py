@@ -61,8 +61,13 @@ ship family fleet-wide) and surface in
 ``health_report()["serve"]["fleet"]``; the ``serve.route`` fault site
 covers admission routing and ``serve.kv_ship`` both halves of a ship.
 
-Sharded replicas (``tp=``, ``ep=``, ``pp=``: a rank group a replica) are
-not ported yet and raise ``ValueError``.
+Sharded replicas (``tp=``, ``ep=``, ``pp=``): each replica is a rank
+group of its own (``fleet_tp_configs`` / ``fleet_ep_configs`` /
+``fleet_pp_configs``, ``serve/shard.py``): rank 0 runs every replica's
+engine and holds its first shard, the replica's other shards are mirror
+ranks of its own.  It runs over gloo on the CPU or on one card (a typed
+``FleetLayoutError`` otherwise).  A sharded fleet cannot
+``add_replica``.
 """
 
 from __future__ import annotations
@@ -194,7 +199,8 @@ class _Replica:
     ``revive()`` reuses the slot."""
 
     __slots__ = ("idx", "sup", "healthy", "needs_failover",
-                 "down_error", "draining", "retired")
+                 "down_error", "draining", "retired",
+                 "reconnect_deadline")
 
     def __init__(self, idx, sup):
         self.idx = idx
@@ -204,6 +210,10 @@ class _Replica:
         self.down_error = None
         self.draining = False
         self.retired = False
+        # monotonic deadline while the replica's transport is inside
+        # its reconnect(+grace) window (serve/dist): the autoscaler's
+        # _replace_dead must not respawn a peer about to resume
+        self.reconnect_deadline = None
 
 
 class _Route:
@@ -305,13 +315,34 @@ class ServeFleet:
         self._model = model
         self._clock = clock
         self._engine_kw = dict(engine_kw)
-        for key in ("tp", "ep", "pp"):
-            if engine_kw.get(key) not in (None, False):
-                raise ValueError(
-                    f"{key}= fleets are not ported yet: a sharded "
-                    f"replica is a rank group of its own (the JAX "
-                    f"package's fleet_{key}_configs); serve {key}= "
-                    f"engines one at a time, or an unsharded fleet")
+        # sharded replicas (serve/tp.py, ep.py, pp.py): a fleet of
+        # sharded engines partitions the ranks — replica i is a rank
+        # group of its own (serve/shard.py: rank 0 holds every
+        # replica's first shard), sharding inside each
+        # replica and data parallelism across them.  Validated here
+        # (the process group must hold them) and pinned per replica so
+        # a supervisor rebuild or revive() lands on the SAME group.
+        self._tp_cfgs = None
+        self._par_key = "tp"
+        cuda = getattr(getattr(model, "transformer", None), "wte", None)
+        cuda = cuda is not None and cuda.W.device.type == "cuda"
+        if engine_kw.get("tp") not in (None, False):
+            from .tp import fleet_tp_configs
+
+            self._tp_cfgs = fleet_tp_configs(engine_kw["tp"], replicas,
+                                             cuda)
+        elif engine_kw.get("ep") not in (None, False):
+            from .ep import fleet_ep_configs
+
+            self._par_key = "ep"
+            self._tp_cfgs = fleet_ep_configs(engine_kw["ep"], replicas,
+                                             cuda)
+        elif engine_kw.get("pp") not in (None, False):
+            from .pp import fleet_pp_configs
+
+            self._par_key = "pp"
+            self._tp_cfgs = fleet_pp_configs(engine_kw["pp"], replicas,
+                                             cuda)
         self._sup_kw = dict(
             restart_budget=restart_budget,
             budget_reset_after_s=budget_reset_after_s,
@@ -378,8 +409,12 @@ class ServeFleet:
                                self._c_shared_hits,
                                self._c_ship_fallbacks])
         self._captures = {}      # replica -> (engine, graphs seen)
-        self._replicas = [_Replica(i, self._new_supervisor(i))
-                          for i in range(replicas)]
+        try:
+            self._replicas = [_Replica(i, self._new_supervisor(i))
+                              for i in range(replicas)]
+        except BaseException:
+            self._leave_groups()
+            raise
         self._refresh_gauges()
         # fleet-owned completion routing (the supervisor pattern, one
         # level up: routes resolve across restarts AND failovers)
@@ -415,9 +450,21 @@ class ServeFleet:
     def _new_supervisor(self, idx) -> EngineSupervisor:
         """Build replica ``idx``'s supervisor: the one construction seam
         of every path that creates replica capacity (``__init__``,
-        ``revive()``, ``add_replica()``)."""
+        ``revive()``, ``add_replica()``); ``serve/dist/fleet.py``
+        overrides it to spawn a worker and return an RPC proxy."""
         return EngineSupervisor(self._model, **self._sup_kw,
-                                **self._engine_kw)
+                                **self._replica_kw(idx))
+
+    def _replica_kw(self, idx):
+        """Engine kwargs for replica ``idx``: the shared engine_kw, with
+        the sharded knob (``tp``/``ep``/``pp``) swapped for the
+        replica's pinned rank-group config, so a supervisor rebuild or
+        ``revive()`` lands on the SAME group."""
+        if self._tp_cfgs is None:
+            return self._engine_kw
+        kw = dict(self._engine_kw)
+        kw[self._par_key] = self._tp_cfgs[idx]
+        return kw
 
     def _note_captures(self, rep):
         """Log the decode graphs replica ``rep``'s engine has captured
@@ -907,6 +954,10 @@ class ServeFleet:
             self._c_requeues[rep.idx].inc()
             _trace.event("serve/fleet_requeue", cat="serve",
                          request=rid, src=rep.idx, dst=idx2)
+        # the end of the failover: from serve/fleet_failover (the
+        # replica down) to here is its requeue time
+        _trace.event("serve/fleet_failover_done", cat="serve",
+                     replica=rep.idx)
         self._log.warning(
             "replica %d drained: never-started work requeued onto "
             "healthy siblings", rep.idx)
@@ -929,6 +980,7 @@ class ServeFleet:
         rep.down_error = None
         rep.draining = False
         rep.retired = False
+        rep.reconnect_deadline = None
         self._refresh_gauges()
         self._log.info("replica %d revived; %d/%d healthy", idx,
                        self.healthy_replicas, len(self._replicas))
@@ -940,9 +992,17 @@ class ServeFleet:
         """Scale-up: append a brand-new supervised replica and admit
         it to the routing set; returns its index.  The cost is an arena
         allocation and one capture a decode width as its traffic
-        reaches it (logged)."""
+        reaches it (logged).  Sharded fleets (tp/ep/pp) pin their rank
+        groups at construction and cannot grow — scale those by reviving
+        retired slots only."""
         if self._closed:
             raise RuntimeError("fleet is closed")
+        if self._tp_cfgs is not None:
+            raise ValueError(
+                f"cannot add a replica to a {self._par_key}-sharded "
+                f"fleet: rank groups were partitioned at construction; "
+                f"size it max_replicas-wide up front and scale by "
+                f"drain/revive")
         if role not in ("prefill", "decode", "mixed"):
             raise ValueError(
                 f"unknown role {role!r}: 'prefill', 'decode' or "
@@ -1210,6 +1270,7 @@ class ServeFleet:
                 if sjob.job is None:
                     self._ship_fallback(sjob, "nothing_shippable")
                     continue
+                self._before_build_advance(sjob)
                 done = rep.sup.advance_prefix_build(
                     sjob.job, rep.sup.engine._budget, rid=sjob.rid)
                 if done is None:
@@ -1257,6 +1318,12 @@ class ServeFleet:
                  if i != sticky]
         out.extend(self.router.rank(views))
         return out
+
+    def _before_build_advance(self, sjob):
+        """Hook called just before each ship build's advance quantum.
+        A no-op here; ``serve/dist/fleet.py`` uses it to open the
+        layer-wise STREAMED ship (pick the destination, start its
+        staging) so KV lanes ship while the source still prefills."""
 
     def _complete_ship(self, sjob, src_rep):
         """Transfer a finished build: export the image from the
@@ -1527,7 +1594,17 @@ class ServeFleet:
             if not rep.sup.engine._closed:
                 rep.sup.close(force=True)
         self._reg.remove(*self._registered)
+        self._leave_groups()
         self._closed = True
+
+    def _leave_groups(self):
+        """Sharded replicas' rank groups: their worker ranks go back to
+        serving the whole group (``serve/shard.py``)."""
+        if self._tp_cfgs is not None \
+                and getattr(self._tp_cfgs[0], "devices", None) is not None:
+            from .shard import leave_fleet
+
+            leave_fleet(self._tp_cfgs)
 
     def __enter__(self):
         return self
@@ -1542,5 +1619,6 @@ class ServeFleet:
                 if not rep.sup.engine._closed:
                     rep.sup.engine.__exit__(exc_type, *a)
             self._reg.remove(*self._registered)
+            self._leave_groups()
             self._closed = True
         return False

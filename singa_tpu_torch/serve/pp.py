@@ -52,7 +52,8 @@ from .paged import _embed
 from .shard import ShardedExec
 from .tp import _check_ranks
 
-__all__ = ["PPConfig", "PPExecutor", "as_pp_config", "check_pp"]
+__all__ = ["PPConfig", "PPExecutor", "as_pp_config", "check_pp",
+           "fleet_pp_configs"]
 
 
 @dataclass(frozen=True)
@@ -99,6 +100,19 @@ def as_pp_config(pp):
     raise ValueError(
         f"pp must be an int stage count, a PPConfig, or a kwargs dict, "
         f"got {type(pp)}")
+
+
+def fleet_pp_configs(pp, replicas, cuda=False):
+    """Disjoint per-replica :class:`PPConfig`\\ s (the JAX package's
+    ``fleet_pp_configs``): replica ``i`` is a stage-wide rank group of its
+    own (``serve/shard.py``) — pipeline parallelism inside each replica,
+    data parallelism across them."""
+    from .shard import fleet_configs
+
+    pp = as_pp_config(pp)
+    if pp.stages == 1:
+        return [pp] * replicas
+    return fleet_configs("pp", pp, replicas, cuda)
 
 
 def check_pp(config, cfg, model_plan=None, paged=None, draft_model=None,
@@ -169,8 +183,10 @@ class PPExecutor(ShardedExec, _LocalExec):
         self.stages = int(config.stages)
         self.microbatches = int(config.mb)
         self.n_layer = int(cfg.n_layer)
+        self._bind(config)
         self.mesh = create_pp_mesh(self.stages,
-                                   device=eng._params["wte"].device)
+                                   device=eng._params["wte"].device,
+                                   group=self.group)
         self.axis = self.mesh.axis(PP_AXIS)
         self.stage = self.axis.index
         self.last = self.stage == self.stages - 1

@@ -61,7 +61,7 @@ class RestartBudgetExceededError(EngineFailedError):
 
 class FleetDownError(EngineFailedError):
     """Every replica of a fleet is unhealthy, so there is no sibling to
-    fail over to (the fleet that raises it is not ported yet)."""
+    fail over to (``ServeFleet.submit`` raises it, ``serve/fleet.py``)."""
 
 
 class LoadShedError(RuntimeError):

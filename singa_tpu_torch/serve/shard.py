@@ -29,6 +29,21 @@ its training does, and keeps that promise this way:
   engine on the card over gloo with ``capture=True`` raises
   (``capture=False`` runs it eagerly).
 
+**A fleet of sharded replicas** (``ServeFleet(tp=|ep=|pp=, replicas=R)``,
+``fleet_configs``): rank 0 holds the first shard of every replica, as
+the JAX package's single controller holds every device; replica ``i``'s
+other ``S - 1`` shards are ranks ``1 + i(S - 1) ...``, so the process
+group has ``1 + R(S - 1)`` ranks.  Each replica is a :class:`RankGroup`:
+its own gloo control group, its own device group (and a group for each
+mesh line inside it), and a card for each of its shards
+(:func:`fleet_layout`).  Rank 0 sends the layout to every worker
+(:func:`join_fleet`: every rank makes every group, in one order), each
+worker then serves its replica's control group until the fleet leaves.
+Such a fleet runs over gloo, on the CPU or on one card: on more cards
+rank 0 would drive a card of every replica from one process, and over
+NCCL that layout has hung (``ROADMAP.md`` Queue A item 1), so
+:func:`fleet_configs` refuses it with :class:`FleetLayoutError`.
+
 A refusal of a configuration raises on rank 0 before anything is sent.
 A fault injected at the executor's site (``serve.tp_collective``,
 ``serve.ep_dispatch``, ``serve.pp_boundary``) raises on the controller
@@ -40,6 +55,7 @@ a new mirror).  ``stop_workers()`` on rank 0 ends the worker loops.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
@@ -48,9 +64,14 @@ from ..parallel.communicator import group_all_gather, group_broadcast
 from ..resilience import faults as _faults
 
 __all__ = ["worker_loop", "stop_workers", "Mirror", "ShardedExec",
-           "check_sharded", "make_executor"]
+           "check_sharded", "make_executor", "RankGroup", "fleet_configs",
+           "fleet_layout", "join_fleet", "leave_fleet", "rank_group",
+           "FleetLayoutError"]
 
 _ctrl = None
+#: the rank groups of the sharded fleet replicas this process serves in,
+#: by their ranks (:func:`join_fleet`)
+_fleet_groups = {}
 
 
 def _control():
@@ -63,14 +84,165 @@ def _control():
     return _ctrl
 
 
-def _send(msg):
-    dist.broadcast_object_list([msg], src=0, group=_control())
+def _send(msg, ctrl=None):
+    dist.broadcast_object_list([msg], src=0, group=ctrl or _control())
 
 
-def _recv():
+def _recv(ctrl=None):
     box = [None]
-    dist.broadcast_object_list(box, src=0, group=_control())
+    dist.broadcast_object_list(box, src=0, group=ctrl or _control())
     return box[0]
+
+
+class RankGroup:
+    """The ranks one sharded engine runs on, global rank 0 (the
+    controller) first: ``ctrl``, the gloo group its controller's messages
+    travel in; ``dev``, the group of its collectives over all its ranks
+    (None: the whole process group); ``lines``, the groups of the mesh
+    lines over part of its ranks, by their rank sets; ``device``, where
+    this process holds its shard (None: the model's device on rank 0, the
+    rank's local card elsewhere)."""
+
+    def __init__(self, ranks, ctrl=None, dev=None, lines=None, device=None):
+        self.ranks = tuple(int(r) for r in ranks)
+        self.ctrl = ctrl
+        self.dev = dev
+        self.lines = dict(lines or {})
+        self.device = device
+
+    def group_for(self, line):
+        """The prepared group of ``line`` (ranks of one mesh axis line)."""
+        key = frozenset(int(r) for r in line)
+        if key == frozenset(self.ranks):
+            return self.dev
+        return self.lines[key]
+
+
+def rank_group(ranks):
+    """The :class:`RankGroup` of ``ranks`` (a config's ``devices``): a
+    fleet replica's, or None for the whole process group."""
+    if ranks is None:
+        return None
+    return _fleet_groups.get(tuple(int(r) for r in ranks))
+
+
+def _mesh_lines(ranks, sizes):
+    """Every line of ranks along each axis of a mesh of ``sizes`` over
+    ``ranks`` (row-major), longer than one rank and shorter than all."""
+    grid = np.asarray(ranks).reshape(sizes)
+    out = []
+    for ax in range(len(sizes)):
+        if sizes[ax] in (1, len(ranks)):
+            continue
+        moved = np.moveaxis(grid, ax, -1).reshape(-1, sizes[ax])
+        out += [tuple(int(r) for r in line) for line in moved]
+    return out
+
+
+class FleetLayoutError(NotImplementedError):
+    """A sharded fleet in a layout that has not run to its end: over NCCL,
+    or with the model on one of several cards (rank 0 would drive a card
+    of every replica)."""
+
+
+def fleet_configs(kind, config, replicas, cuda):
+    """Rank 0 of a fleet of ``replicas`` sharded engines (``kind``:
+    ``"tp"``, ``"ep"`` or ``"pp"``; ``config`` its coerced config with
+    ``size`` shards): checks that the process group holds them, sends the
+    layout to every worker, makes every replica's groups
+    (:func:`join_fleet`) and returns each replica's config, its
+    ``devices`` set to the replica's ranks.  ``cuda``: the model is on
+    the card, which must then be the only one visible."""
+    import dataclasses
+
+    size, sizes = _mesh_size(kind, config)
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    need = 1 + replicas * (size - 1)
+    if need > world:
+        if kind == "ep":
+            what = (f"(ep x tp) x replicas ({config.ep} x {config.tp} x "
+                    f"{replicas} = {size * replicas})")
+        else:
+            what = (f"{'tp' if kind == 'tp' else 'stages'} x replicas "
+                    f"({size} x {replicas} = {size * replicas})")
+        raise ValueError(
+            f"{what} exceeds the {world}-rank process group: rank 0 holds "
+            f"every replica's first shard, so the fleet needs 1 + "
+            f"{replicas} x {size - 1} = {need} ranks; shrink the fleet or "
+            f"the shard count, or start {need} processes")
+    cards = torch.cuda.device_count() if cuda else 0
+    if dist.get_backend() == "nccl" or cards > 1:
+        raise FleetLayoutError(
+            f"a sharded fleet runs over gloo on the CPU or on one card "
+            f"(here: backend {dist.get_backend()!r}, {cards} cards): rank "
+            f"0 holds every replica's first shard, and with a card a "
+            f"replica it would drive {min(replicas, max(cards, 1))} cards "
+            f"from one process, which has hung over NCCL (ROADMAP.md "
+            f"Queue A item 1); start the ranks with backend='gloo' and one "
+            f"visible card (CUDA_VISIBLE_DEVICES), capture=False")
+    layout = fleet_layout(sizes, replicas, cards)
+    _send(("fleet", layout))
+    join_fleet(layout)
+    return [dataclasses.replace(config, devices=ranks)
+            for ranks, _, _ in layout]
+
+
+def fleet_layout(sizes, replicas, cards):
+    """``(ranks, mesh sizes, card of each shard)`` of each replica of a
+    sharded fleet: rank 0 and ``S - 1`` ranks of its own, shard ``j`` of
+    replica ``i`` on card ``(i S + j) mod cards`` (None for each with no
+    card: the CPU).  :func:`fleet_configs` serves it with at most one
+    card."""
+    size = int(np.prod(sizes))
+    out = []
+    for i in range(replicas):
+        ranks = (0,) + tuple(1 + i * (size - 1) + j
+                             for j in range(size - 1))
+        devs = [(i * size + j) % cards if cards else None
+                for j in range(size)]
+        out.append((ranks, tuple(sizes), devs))
+    return out
+
+
+def join_fleet(layout):
+    """Every rank, in one order: make each replica's control, device and
+    mesh-line groups, and keep the groups of the replicas this rank is in
+    (``layout``: ``(ranks, mesh sizes, card of each shard or None)`` a
+    replica).  Returns this rank's replica group, or None on rank 0 and
+    on a rank in none."""
+    me = dist.get_rank()
+    mine = None
+    for ranks, sizes, devs in layout:
+        card = devs[ranks.index(me)] if me in ranks else None
+        ctrl = dist.new_group(list(ranks), backend="gloo")
+        dev = dist.new_group(list(ranks))
+        lines = {frozenset(line): dist.new_group(list(line))
+                 for line in _mesh_lines(ranks, sizes)}
+        if me not in ranks:
+            continue
+        rg = RankGroup(ranks, ctrl, dev, lines,
+                       None if card is None else torch.device("cuda", card))
+        _fleet_groups[rg.ranks] = rg
+        if me != 0:
+            mine = rg
+    return mine
+
+
+def leave_fleet(configs):
+    """Rank 0: end the fleet replicas' worker loops (each worker goes back
+    to serving the whole group's controller) and forget their groups."""
+    for config in configs:
+        rg = _fleet_groups.pop(tuple(config.devices))
+        _send(("leave",), rg.ctrl)
+
+
+def _mesh_size(kind, config):
+    """(shard count, mesh sizes) of a sharded config."""
+    if kind == "tp":
+        return config.tp, (config.tp,)
+    if kind == "ep":
+        return config.ep * config.tp, (config.ep, config.tp)
+    return config.stages, (config.stages,)
 
 
 # -- the weights the controller ships -------------------------------------
@@ -121,9 +293,9 @@ def _leaf(v):
     return (None, v)
 
 
-def _ship(params):
+def _ship(params, group=None):
     for t in _tensors(params):
-        group_broadcast(t.contiguous(), 0, None, op="serve_ship")
+        group_broadcast(t.contiguous(), 0, group, op="serve_ship")
 
 
 def _tensors(params):
@@ -137,14 +309,14 @@ def _tensors(params):
             yield v
 
 
-def _receive(skeleton, device):
+def _receive(skeleton, device, group=None):
     params = {"blocks": []}
     for path, shape, dt in skeleton:
         if shape is None:
             val = dt
         else:
             val = group_broadcast(torch.empty(shape, dtype=dt,
-                                              device=device), 0, None,
+                                              device=device), 0, group,
                                   op="serve_ship")
         if path[0] == "blocks":
             while len(params["blocks"]) <= path[1]:
@@ -155,10 +327,17 @@ def _receive(skeleton, device):
     return params
 
 
+def _group_of(sharded):
+    """The rank group of a checked ``(kind, config)``, or None."""
+    return rank_group(getattr(sharded[1], "devices", None))
+
+
 def announce(sharded, model, draft_model, dtype, kwargs):
     """Rank 0 building a sharded engine: send the workers its arguments
     and ship them the decode weights (target and draft), which they build
-    their mirrors from."""
+    their mirrors from (over the replica's groups in a fleet)."""
+    rg = _group_of(sharded)
+    ctrl, group = (None, None) if rg is None else (rg.ctrl, rg.dev)
     params = extract_params(model, dtype=dtype)
     d_params = (None if draft_model is None
                 else extract_params(draft_model, dtype=dtype))
@@ -167,27 +346,30 @@ def announce(sharded, model, draft_model, dtype, kwargs):
         cfg=model.cfg, kwargs=kwargs, skeleton=_skeleton(params),
         draft=(None if draft_model is None else
                (draft_model.cfg, _skeleton(d_params))),
-        cuda=dev.type == "cuda")))
-    _ship(params)
+        cuda=dev.type == "cuda")), ctrl)
+    _ship(params, group)
     if d_params is not None:
-        _ship(d_params)
+        _ship(d_params, group)
 
 
-def _worker_device(cuda):
+def _worker_device(cuda, rg):
     if not cuda:
         return torch.device("cpu")
+    if rg is not None and rg.device is not None:
+        return rg.device
     return torch.device("cuda", dist.get_rank() % torch.cuda.device_count())
 
 
-def _build_mirror(spec):
+def _build_mirror(spec, rg=None):
     from .engine import InferenceEngine
 
-    dev = _worker_device(spec["cuda"])
-    params = _receive(spec["skeleton"], dev)
+    dev = _worker_device(spec["cuda"], rg)
+    group = None if rg is None else rg.dev
+    params = _receive(spec["skeleton"], dev, group)
     draft = None
     if spec["draft"] is not None:
         dcfg, dskel = spec["draft"]
-        draft = _Shipped(dcfg, _receive(dskel, dev))
+        draft = _Shipped(dcfg, _receive(dskel, dev, group))
     return InferenceEngine(_Shipped(spec["cfg"], params), draft_model=draft,
                            **spec["kwargs"])
 
@@ -196,31 +378,44 @@ def worker_loop(on_close=None):
     """A worker rank's serve loop: build the mirror of each sharded
     engine rank 0 builds, run the device-layer calls rank 0 sends on it,
     drop it when rank 0 closes the engine (``on_close(mirror)`` first,
-    when given); return at :func:`stop_workers`.  Every rank but 0 calls
-    this after joining the process group
+    when given); in a fleet of sharded replicas, serve its replica's
+    engines until the fleet leaves; return at :func:`stop_workers`.
+    Every rank but 0 calls this after joining the process group
     (``parallel.communicator.initialize_distributed``)."""
     if dist.get_rank() == 0:
         raise RuntimeError("worker_loop() runs on ranks other than 0; rank "
                            "0 builds the engine (model.serve(tp=...))")
-    eng = None
     with torch.no_grad():
-        while True:
-            msg = _recv()
-            op = msg[0]
-            if op == "call":
-                getattr(eng._dev, msg[1])(*msg[2])
-            elif op == "build":
-                eng = _build_mirror(msg[1])
-            elif op == "close":
-                if eng is not None:
-                    if on_close is not None:
-                        on_close(eng)
-                    eng.close(force=True)
-                eng = None
-            elif op == "stop":
-                return
-            else:
-                raise RuntimeError(f"unknown controller message {op!r}")
+        _serve(None, on_close)
+
+
+def _serve(rg, on_close):
+    """Run rank 0's messages on this rank's mirrors: the whole group's
+    (``rg`` None) until ``stop``, a fleet replica's until ``leave``."""
+    ctrl = None if rg is None else rg.ctrl
+    eng = None
+    while True:
+        msg = _recv(ctrl)
+        op = msg[0]
+        if op == "call":
+            getattr(eng._dev, msg[1])(*msg[2])
+        elif op == "build":
+            eng = _build_mirror(msg[1], rg)
+        elif op == "close":
+            if eng is not None:
+                if on_close is not None:
+                    on_close(eng)
+                eng.close(force=True)
+            eng = None
+        elif op == "fleet" and rg is None:
+            mine = join_fleet(msg[1])
+            if mine is not None:
+                _serve(mine, on_close)
+                _fleet_groups.pop(mine.ranks, None)
+        elif op in ("stop", "leave"):
+            return
+        else:
+            raise RuntimeError(f"unknown controller message {op!r}")
 
 
 def stop_workers():
@@ -240,10 +435,11 @@ class Mirror:
     def __getattr__(self, name):
         fn = getattr(self._dev, name)
         x = self._x
+        ctrl = x.ctrl
 
         def call(*args):
             x.before_dispatch()
-            _send(("call", name, args))
+            _send(("call", name, args), ctrl)
             out = fn(*args)
             x.after_dispatch(name, args)
             return out
@@ -275,7 +471,8 @@ def check_sharded(cfg, model, tp=None, ep=None, pp=None, paged=None,
     messages (``singa_tpu/serve/engine.py``), run before any metric
     registers; returns ``(kind, config)`` of the one active sharded
     executor, or None.  Also: the process group must hold exactly the
-    executor's ranks, and a gloo group on the card cannot capture."""
+    executor's ranks (a fleet replica's: its rank group), and a gloo group
+    on the card cannot capture."""
     from .ep import check_ep
     from .pp import check_pp
     from .tp import check_tp
@@ -336,13 +533,14 @@ def check_sharded(cfg, model, tp=None, ep=None, pp=None, paged=None,
         out, size = ("tp", tp_c), tp_c.tp
     else:
         return None
-    _check_group(out[0], size, model, capture)
+    _check_group(out[0], size, model, capture,
+                 rank_group(out[1].devices) is not None)
     return out
 
 
-def _check_group(kind, size, model, capture):
+def _check_group(kind, size, model, capture, replica=False):
     world = dist.get_world_size() if dist.is_initialized() else 1
-    if world != size:
+    if world != size and not replica:
         raise ValueError(
             f"a {kind} engine over {size} ranks needs a process group of "
             f"exactly {size} (have {world}): start {size} processes, call "
@@ -367,6 +565,7 @@ def _check_group(kind, size, model, capture):
 
 
 def make_executor(sharded, eng):
+    """The executor of a checked ``(kind, config)`` for ``eng``."""
     kind, config = sharded
     if kind == "tp":
         from .tp import TPExecutor as cls
@@ -390,11 +589,19 @@ class ShardedExec:
     and mixes in ``engine._LocalExec``."""
 
     kind = site = None
+    #: the rank group of a fleet replica (None: the whole process group)
+    #: and the control group its messages go over
+    group = ctrl = None
     kv_dim = 2
     kv_group = None
     kv_world = 1
     kv_rank = 0
     ring_min_tokens = None
+
+    def _bind(self, config):
+        """Take the rank group of ``config`` (a fleet replica's)."""
+        self.group = rank_group(config.devices)
+        self.ctrl = None if self.group is None else self.group.ctrl
 
     def before_dispatch(self):
         if _faults._armed:
@@ -447,7 +654,7 @@ class ShardedExec:
         """The engine's close: the workers drop their mirror (rank 0's
         only), the metrics go."""
         if isinstance(dev, Mirror):
-            _send(("close",))
+            _send(("close",), self.ctrl)
         self._registry.remove(*self._registered)
 
     def _register(self, reg, engine_label, gauges, counters):

@@ -49,15 +49,21 @@ from .engine import _LocalExec
 from ..parallel.communicator import group_all_gather
 from .shard import ShardedExec
 
-__all__ = ["TPConfig", "TPExecutor", "as_tp_config", "check_tp"]
+__all__ = ["TPConfig", "TPExecutor", "as_tp_config", "check_tp",
+           "fleet_tp_configs"]
 
 
 def _check_ranks(what, ranks, n):
-    if ranks is not None and tuple(ranks) != tuple(range(n)):
+    from .shard import rank_group
+
+    if ranks is None or tuple(ranks) == tuple(range(n)):
+        return
+    if rank_group(ranks) is None or len(ranks) != n:
         raise ValueError(
             f"{what}: ranks {tuple(ranks)} must be the process group's "
             f"ranks 0..{n - 1} (one engine a group: a sharded engine's "
-            f"mesh is the whole group)")
+            f"mesh is the whole group), or a fleet replica's "
+            f"(fleet_tp_configs)")
 
 
 @dataclass(frozen=True)
@@ -102,6 +108,22 @@ def as_tp_config(tp):
         f"got {type(tp)}")
 
 
+def fleet_tp_configs(tp, replicas, cuda=False):
+    """Disjoint per-replica :class:`TPConfig`\\ s for a fleet of TP
+    engines (the JAX package's ``fleet_tp_configs``): replica ``i`` is a
+    rank group of its own (``serve/shard.py``: rank 0 and ``tp - 1``
+    mirror ranks, over gloo on the CPU or one card) — tensor
+    parallelism inside each replica, data parallelism
+    across them.  Raises when the process group cannot hold ``tp x
+    replicas``; rank 0 only (it sends the layout to the workers)."""
+    from .shard import fleet_configs
+
+    tp = as_tp_config(tp)
+    if tp.tp == 1:
+        return [tp] * replicas
+    return fleet_configs("tp", tp, replicas, cuda)
+
+
 def check_tp(config, cfg, model_plan=None):
     """The tensor-parallel refusals, typed, before anything registers."""
     if model_plan is not None:
@@ -143,8 +165,9 @@ class TPExecutor(ShardedExec, _LocalExec):
         self.config = config
         self.tp = int(config.tp)
         self.n_layer = int(cfg.n_layer)
-        self.mesh = create_tp_mesh(self.tp,
-                                   device=eng._params["wte"].device)
+        self._bind(config)
+        self.mesh = create_tp_mesh(self.tp, device=eng._params["wte"].device,
+                                   group=self.group)
         self.axis = self.mesh.axis(TP_AXIS)
         self.kv_group = self.axis.group
         self.kv_world = self.tp

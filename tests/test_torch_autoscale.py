@@ -494,10 +494,18 @@ def test_live_revive_reuses_retired_slot_and_add_replica_grows(model):
 
 
 def test_live_sharded_fleet_refuses_add_replica(model):
-    """The JAX case's sharded fleet cannot grow; the port refuses a
-    sharded fleet at construction, before any replica exists."""
-    with pytest.raises(ValueError, match="not ported"):
-        ServeFleet(model, replicas=2, max_slots=2, tp=2)
+    """A fleet built with the ``tp=`` knob pins its replicas' rank groups
+    at construction and cannot grow, as the JAX fleet's (at ``tp=1``
+    here: one process; the tp = 2 fleet's refusal runs on a rank group in
+    ``test_torch_dist_sharded_fleet.py``)."""
+    from singa_tpu_torch.serve import PagedConfig
+
+    fleet = ServeFleet(model, replicas=2, max_slots=2, tp=1,
+                       paged=PagedConfig(block_size=8, num_blocks=32))
+    with pytest.raises(ValueError, match="sharded"):
+        fleet.add_replica()
+    fleet.run_until_complete(max_steps=50)
+    fleet.close()
 
 
 def test_live_add_replica_streams_match_oracle(model):

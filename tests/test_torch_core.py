@@ -40,6 +40,8 @@ def test_import_pulls_in_neither_jax_nor_singa_tpu():
             "from singa_tpu_torch.ops import (batchnorm, bottleneck, conv, "
             "flash_attention, padding, paged_attention, pooling)\n"
             "from singa_tpu_torch import serve\n"
+            "from singa_tpu_torch.serve.dist import fleet, transport, "
+            "worker\n"
             "from singa_tpu_torch.parallel import (communicator, dist_opt, "
             "moe, pipeline, ring_attention, sharding, tensor_parallel)\n"
             "bad = [m for m in sys.modules if m == 'jax' or "

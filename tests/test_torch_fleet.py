@@ -9,7 +9,7 @@ re-derives the same chain).
 thread; the JAX weights carried into the port by a ``save_states`` zip.
 The port's oracle is its own single-prompt ``generate`` (held against the
 JAX package's elsewhere); the fleet cases use greedy and sampled requests
-alike.  ``tp=`` fleets are the port's typed refusal.
+alike.  Fleets of sharded replicas are ``test_torch_dist_sharded_fleet.py``'s.
 """
 
 import numpy as np
@@ -427,16 +427,6 @@ def test_fleet_validates_config(model):
         ServeFleet(model, replicas=1, hedge_after_steps=0)
     with pytest.raises(ValueError, match="budget_reset_after_s"):
         ServeFleet(model, replicas=1, budget_reset_after_s=-1.0)
-
-
-@pytest.mark.parametrize("key", ["tp", "ep", "pp"])
-def test_sharded_fleets_are_refused_typed(model, key):
-    """A sharded replica is a rank group of its own, not ported yet: the
-    fleet refuses ``tp=`` / ``ep=`` / ``pp=`` before building anything."""
-    before = set(registry().snapshot()["gauges"])
-    with pytest.raises(ValueError, match="not ported"):
-        model.serve_fleet(replicas=2, max_slots=1, **{key: 2})
-    assert set(registry().snapshot()["gauges"]) == before
 
 
 def test_replicas_capture_once_at_warm_up(model):

@@ -296,10 +296,58 @@ def sc_capture(sc, out):
     return res
 
 
+def sc_fleet(sc, out):
+    """A fleet of 2 sharded replicas (``sc["mode"]`` at ``sc["shard"]``):
+    its streams, each replica's mesh ranks, its rank group's cards and
+    device group, what each replica routed and the ``add_replica``
+    refusal; then a fleet too wide for the process group
+    (``sc["wide"]``: replicas and knob) refused before any metric
+    registers."""
+    from singa_tpu_torch.serve import ServeFleet
+
+    m = build(sc.get("zip"), **sc.get("cfg", {}))
+    kw = dict(max_slots=2, paged=_paged())
+    fleet = ServeFleet(m, replicas=2, **kw, **{sc["mode"]: sc["shard"]})
+    try:
+        ranks, groups = [], []
+        for i in range(2):
+            x = fleet.supervisor(i).engine._shard
+            ranks.append([int(r) for r in x.mesh.ranks.reshape(-1)])
+            groups.append(x.group)
+        hs = [fleet.submit(_req(w)) for w in make_work(sc["work"])]
+        fleet.run_until_complete(max_steps=4000)
+        toks = [h.result().tokens.tolist() for h in hs]
+        snap = fleet.snapshot()
+        try:
+            fleet.add_replica()
+            added = dict(type=None, msg="added")
+        except Exception as e:
+            added = dict(type=type(e).__name__, msg=str(e))
+        fleet.run_until_complete(max_steps=50)
+    finally:
+        fleet.close()
+    before = set(registry().snapshot()["gauges"]) | \
+        set(registry().snapshot()["counters"])
+    n, knob = sc["wide"]
+    try:
+        ServeFleet(m, replicas=n, **kw, **{sc["mode"]: knob}).close()
+        wide = dict(type=None, msg="built")
+    except Exception as e:
+        wide = dict(type=type(e).__name__, msg=str(e))
+    after = set(registry().snapshot()["gauges"]) | \
+        set(registry().snapshot()["counters"])
+    return dict(
+        tokens=toks, ranks=ranks, routed=snap["routed"], add_replica=added,
+        wide=dict(wide, leaked=sorted(after - before)),
+        devices=[repr(g.device) for g in groups],
+        distinct_device_groups=groups[0].dev is not groups[1].dev,
+        distinct_control_groups=groups[0].ctrl is not groups[1].ctrl)
+
+
 SCENARIOS = {"parity": sc_parity, "refusals": sc_refusals,
              "capture": sc_capture,
              "supervisor": sc_supervisor, "metrics": sc_metrics,
-             "slices": sc_slices}
+             "slices": sc_slices, "fleet": sc_fleet}
 
 
 def _wait_for(path, timeout=JOIN_S):
